@@ -1,0 +1,97 @@
+"""Weights from the JAX package's variable tree into the port's state_dict.
+
+``from_jax_variables`` inverts the layout mappings of
+``epn_pointcloud_tpu/compat.py`` for the cls model:
+
+  * SO(3) conv ``W``  flax [k, c, d]     -> [d, c*k] (c-major, k-minor)
+  * Dense1x1 kernel   flax [c, d]        -> Conv2d [d, c, 1, 1], Conv1d
+                                            [d, c, 1] or Linear [d, c]
+  * BatchNorm         scale/bias + batch_stats mean/var
+                                         -> weight/bias/running_mean/running_var
+
+The input is ``{'params': ..., 'batch_stats': ...}`` as nested dicts of
+numpy arrays (e.g. the JAX model's variables after ``np.asarray``).
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, order='C'))
+
+
+def _so3_w(w) -> torch.Tensor:
+    """flax [k, c, d] -> [d, c*k]."""
+    w = np.asarray(w)
+    k, c, d = w.shape
+    return _t(np.transpose(w, (2, 1, 0)).reshape(d, c * k))
+
+
+def _dense(sd, base, p, kind='conv2d'):
+    w = np.asarray(p['kernel']).T                       # [d, c]
+    shape = {'conv2d': w.shape + (1, 1), 'conv1d': w.shape + (1,),
+             'linear': w.shape}[kind]
+    sd[f'{base}.weight'] = _t(w.reshape(shape))
+    if 'bias' in p:
+        sd[f'{base}.bias'] = _t(p['bias'])
+
+
+def _bn(sd, base, p, s):
+    sd[f'{base}.weight'] = _t(p['scale'])
+    sd[f'{base}.bias'] = _t(p['bias'])
+    sd[f'{base}.running_mean'] = _t(s['mean'])
+    sd[f'{base}.running_var'] = _t(s['var'])
+
+
+def _numbered(tree, prefix):
+    return sorted((k for k in tree if k.startswith(prefix)),
+                  key=lambda k: int(k.rsplit('_', 1)[1]))
+
+
+def from_jax_variables(variables: Dict[str, Any]) -> 'OrderedDict[str, torch.Tensor]':
+    """JAX cls_so3net_pn variables -> the port's state_dict."""
+    params, stats = variables['params'], variables.get('batch_stats', {})
+    sd = OrderedDict()
+    for top in _numbered(params, 'BasicSO3ConvBlock_'):
+        i = int(top.rsplit('_', 1)[1])
+        for blk in _numbered(params[top], 'SeparableSO3ConvBlock_'):
+            j = int(blk.rsplit('_', 1)[1])
+            base = f'backbone.{i}.blocks.{j}'
+            p, s = params[top][blk], stats[top][blk]
+            inter_p = p['InterSO3ConvBlock_0']
+            sd[f'{base}.inter_conv.conv.basic_conv.W'] = _so3_w(
+                inter_p['InterSO3Conv_0']['W'])
+            _bn(sd, f'{base}.inter_conv.norm', inter_p['BatchNorm_0'],
+                s['InterSO3ConvBlock_0']['BatchNorm_0'])
+            sd[f'{base}.intra_conv.conv.basic_conv.W'] = _so3_w(
+                p['IntraSO3ConvBlock_0']['IntraSO3Conv_0']['W'])
+            _dense(sd, f'{base}.skip_conv', p['Dense1x1_0'])
+            _bn(sd, f'{base}.norm', p['BatchNorm_0'], s['BatchNorm_0'])
+        extra = set(params[top]) - set(_numbered(params[top],
+                                                 'SeparableSO3ConvBlock_'))
+        if extra:
+            raise ValueError(f'{top}: blocks not ported: {sorted(extra)}')
+
+    hp, hs = params['ClsOutBlockPointnet_0'], stats['ClsOutBlockPointnet_0']
+    norms = _numbered(hp, 'BatchNorm_')
+    denses = _numbered(hp, 'Dense1x1_')
+    n_mlp = len(norms) - 1
+    for t in range(n_mlp):
+        _dense(sd, f'outblock.linear.{t}', hp[f'Dense1x1_{t}'])
+        _bn(sd, f'outblock.norm.{t}', hp[f'BatchNorm_{t}'],
+            hs[f'BatchNorm_{t}'])
+    _dense(sd, 'outblock.pointnet.embed', hp['PointnetSO3Conv_0']['Dense1x1_0'])
+    _bn(sd, f'outblock.norm.{n_mlp}', hp[f'BatchNorm_{n_mlp}'],
+        hs[f'BatchNorm_{n_mlp}'])
+    t = n_mlp
+    if len(denses) == n_mlp + 2:                       # attention pooling
+        _dense(sd, 'outblock.attention_layer', hp[f'Dense1x1_{t}'], 'conv1d')
+        t += 1
+    _dense(sd, 'outblock.fc2', hp[f'Dense1x1_{t}'], 'linear')
+    return sd

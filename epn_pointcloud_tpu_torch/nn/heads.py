@@ -1,0 +1,50 @@
+"""Classification head ``ClsOutBlockPointnet`` (counterpart of
+``epn_pointcloud_tpu/nn/heads.py:81-142``): 1x1 convs + BatchNorm + ReLU ->
+PointnetSO3Conv -> BatchNorm + ReLU -> attention pooling over anchors ->
+linear. Only the 'attention' pooling the ModelNet entry point uses is
+ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from ..ops.so3conv import SphericalPointCloud
+from .layers import BatchNorm, Dense1x1, PointnetSO3Conv
+
+
+class ClsOutBlockPointnet(nn.Module):
+    """SphericalPointCloud -> (logits [b, k], attention logits [b, a])."""
+
+    def __init__(self, params: Dict[str, Any]):
+        super().__init__()
+        p = params
+        if p.get('pooling') != 'attention':
+            raise NotImplementedError(f'pooling {p.get("pooling")!r} is not '
+                                      f'ported (attention only)')
+        self.temperature = p['temperature']
+        c_in = p['dim_in']
+        self.linear = nn.ModuleList()
+        self.norm = nn.ModuleList()
+        for c in p['mlp']:
+            self.linear.append(Dense1x1(c_in, c))
+            self.norm.append(BatchNorm(c))
+            c_in = c
+        self.pointnet = PointnetSO3Conv(c_in, c_in, p['kanchor'])
+        self.norm.append(BatchNorm(c_in))
+        self.attention_layer = Dense1x1(c_in, 1, kind='conv1d')
+        self.fc2 = Dense1x1(c_in, p['k'], kind='linear')
+
+    def forward(self, x: SphericalPointCloud):
+        x_out = x.feats
+        for lin, bn in zip(self.linear, self.norm):
+            x_out = torch.relu(bn(lin(x_out)))
+        x_out = self.pointnet(SphericalPointCloud(x.xyz, x_out, x.anchors))
+        x_out = torch.relu(self.norm[-1](x_out))               # [b, a, c]
+        att = self.attention_layer(x_out)                      # [b, a, 1]
+        conf = torch.softmax(att * self.temperature, dim=1)
+        logits = self.fc2((x_out * conf).sum(dim=1))
+        return logits, att.squeeze(-1)

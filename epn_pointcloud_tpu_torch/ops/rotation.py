@@ -1,0 +1,30 @@
+"""Host-side (numpy) rotation utilities used by the data loaders.
+
+Counterpart of the part of ``epn_pointcloud_tpu/ops/rotation.py`` that the
+ModelNet40 test loader calls.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def R_from_euler_np(angles: np.ndarray) -> np.ndarray:
+    """Rz(c) @ Ry(b) @ Rx(a) from angles [a, b, c]."""
+    a, b, c = angles
+    Rx = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                   [0, np.sin(a), np.cos(a)]])
+    Ry = np.array([[np.cos(b), 0, np.sin(b)], [0, 1, 0],
+                   [-np.sin(b), 0, np.cos(b)]])
+    Rz = np.array([[np.cos(c), -np.sin(c), 0], [np.sin(c), np.cos(c), 0],
+                   [0, 0, 1]])
+    return Rz @ Ry @ Rx
+
+
+def rotation_distance_np(r0: np.ndarray, r1: np.ndarray):
+    """Trace-based rotation distance of one rotation r0 [3, 3] to a set of
+    rotations r1 [n, 3, 3] (usually the anchors). Returns (traces, argmax
+    idx, r1^T @ r0)."""
+    diff_r = np.einsum('nji,jk->nik', r1, r0)
+    traces = np.einsum('nii->n', diff_r)
+    return traces, int(np.argmax(traces)), diff_r
