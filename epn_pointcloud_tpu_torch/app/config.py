@@ -1,7 +1,8 @@
 """Hierarchical config surface (copy of ``epn_pointcloud_tpu/app/config.py``:
-the reference's groups, flags and defaults). The TPU-only dispatch flags
-(--mesh-anchor, --steps-per-dispatch) are left out, and --compute-dtype
-takes fp32 only in this port so far."""
+the reference's groups, flags and defaults). The TPU-only --mesh-anchor
+is left out; --steps-per-dispatch is parsed so that a value above 1 is
+refused rather than ignored; --compute-dtype takes fp32 only in this port
+so far."""
 
 from __future__ import annotations
 
@@ -86,6 +87,7 @@ def build_parser() -> HierarchyArgumentParser:
     train.add_argument('-lf', '--log-freq', type=int, default=100)
     train.add_argument('--eval-freq', type=int, default=5000)
     train.add_argument('--debug-mode', type=str, default=None)
+    train.add_argument('--steps-per-dispatch', type=int, default=1)
     # compute precision of the conv path (not in the reference options
     # surface); fp32 is the parity mode and the only one ported so far
     train.add_argument('--compute-dtype', type=str, default='fp32',

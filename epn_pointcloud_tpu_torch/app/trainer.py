@@ -1,10 +1,12 @@
-"""Trainer base: the experiment lifecycle up to evaluation (counterpart of
+"""Trainer base: the experiment lifecycle (counterpart of
 ``epn_pointcloud_tpu/app/trainer.py``).
 
-Order: seed -> run dir -> opt dump -> logger -> datasets -> model ->
-resume. Checkpoints are the port's own ``state_dict`` files
-(``torch.save``); ``-r PATH`` loads one, and without it the weights come
-from a seeded init. Training is not ported yet.
+Order: seed -> run dir -> opt dump -> logger -> ckpt dir -> datasets ->
+model -> optimizer -> resume. Checkpoints are the port's own ``state_dict``
+files (``torch.save``, ``<ckpt>/<experiment>_net_<step>.pth``); ``-r PATH``
+loads one, and without it the weights come from a seeded init.
+``save_full_state`` adds the optimizer state and the iteration for an exact
+resume.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import train as train_lib
 from . import config as config_lib
-from .logger import Logger
+from .logger import Logger, Summary, Timer
 
 
 def pick_device() -> torch.device:
@@ -59,9 +62,19 @@ class Trainer:
         self.logger.log('Setup', f'Model id: {model_id}')
         self.logger.log('Setup', f'Device: {self._device_name()}')
 
+        self.ckpt_dir = os.path.join(self.root_dir, 'ckpt')
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self.logger.log('Setup', 'Checkpoint dir created!')
+
         self._setup_datasets()
         self._setup_model()
+        self._setup_optim()
+        self.iter_counter = 0
         self._resume_from_ckpt(getattr(opt, 'resume_path', None))
+
+        self.summary = Summary()
+        self.timer = Timer()
+        self.summary.register(['Time'])
         self.logger.log('Setup', 'Setup finished!')
 
     def _device_name(self) -> str:
@@ -69,11 +82,77 @@ class Trainer:
             return f'{torch.cuda.get_device_name(self.device)} (cuda)'
         return 'cpu'
 
+    # ------------------------------------------------------------------ api
+
+    def train(self):
+        self.opt.mode = 'train'
+        if self.opt.num_epochs is not None:
+            self.train_epoch()
+        else:
+            self.train_iter()
+
+    def test(self):
+        self.opt.mode = 'test'
+
+    def train_iter(self):
+        """The loop: one optimizer step a call of ``step``; log every
+        log_freq steps, checkpoint and test every save_freq steps."""
+        i, next_log = 0, 0
+        while i < self.opt.num_iterations:
+            self.timer.set_point('train_iter')
+            self.step()
+            self.summary.update({'Time': self.timer.reset_point('train_iter')})
+            if i >= next_log:
+                self._print_running_stats(
+                    f'Epoch {self.epoch_counter}, Iter {i}'
+                    if hasattr(self, 'epoch_counter') else f'Iter {i}')
+                next_log += self.opt.log_freq
+            i += 1
+            if i % self.opt.save_freq == 0:
+                self._save_network(f'Iter{i}')
+                self.test()
+
+    def train_epoch(self):
+        raise NotImplementedError('epoch-based training (-e) has no epoch '
+                                  'step in this trainer; use -i')
+
+    # ------------------------------------------------------------ overrides
+
+    def _print_running_stats(self, step):
+        self.logger.log('Training', f'{step}: {self.summary.get()}')
+
+    def step(self):
+        raise NotImplementedError
+
     def _setup_datasets(self):
         raise NotImplementedError
 
     def _setup_model(self):
         raise NotImplementedError
+
+    def _setup_optim(self):
+        self.logger.log('Setup', 'Setup optimizer!')
+        self.lr_schedule = train_lib.make_lr_schedule(
+            **vars(self.opt.train_lr))
+        self.optimizer = train_lib.make_optimizer(self.model.parameters(),
+                                                  self.opt.train_lr.init_lr)
+        self.logger.log('Setup', 'Optimizer all-set!')
+
+    # -------------------------------------------------------- checkpointing
+
+    def _save_network(self, step, label=None, path=None):
+        label = self.opt.experiment_id if label is None else label
+        save_path = (os.path.join(self.ckpt_dir, f'{label}_net_{step}.pth')
+                     if path is None else f'{path}.pth')
+        torch.save(self.model.state_dict(), save_path)
+        self.logger.log('Training', f'Checkpoint saved to: {save_path}!')
+        self.last_ckpt = save_path
+
+    def save_full_state(self, path: str):
+        """Model, optimizer state and iteration, for an exact resume."""
+        torch.save({'model': self.model.state_dict(),
+                    'optimizer': self.optimizer.state_dict(),
+                    'iter': self.iter_counter}, path)
 
     def _resume_from_ckpt(self, resume_path: Optional[str]):
         if resume_path is None:
@@ -82,5 +161,9 @@ class Trainer:
         self.logger.log('Setup', f'Resume from checkpoint: {resume_path}')
         sd = torch.load(resume_path, map_location=self.device,
                         weights_only=True)
+        if 'optimizer' in sd:           # a save_full_state file
+            self.optimizer.load_state_dict(sd['optimizer'])
+            self.iter_counter = int(sd['iter'])
+            sd = sd['model']
         self.model.load_state_dict(sd)
         self.logger.log('Setup', 'Resume finished! Great!')

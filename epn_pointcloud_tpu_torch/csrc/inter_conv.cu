@@ -43,10 +43,15 @@
 
 #include <cuda_runtime.h>
 
+#include "inter_conv_common.cuh"
+
 namespace {
 
-constexpr int CC = 8;   // channels a chunk
-constexpr int KG = 6;   // kernel points an F item
+using epn_inter::CC;
+using epn_inter::KG;
+using epn_inter::build_f_item;
+using epn_inter::stage_neighbors;
+
 constexpr int BK = 16;  // W rows a staged slab
 constexpr int TM = 8;   // rows a thread: ty + i * (BM / 8)
 constexpr int TN = 8;   // columns a thread: tx * 4 + j and BN / 2 + tx * 4 + j
@@ -125,12 +130,7 @@ inter_conv_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
   const int pt0 = m0 / na;                    // first (flat) point of the rows
   const int np = (min(m0 + BM, M) - 1) / na - pt0 + 1;
 
-  for (int e = tid; e < np * nn; e += G::kThreads) {
-    const size_t src = (size_t)pt0 * nn + e;
-    const float x = gx[3 * src], y = gx[3 * src + 1], z = gx[3 * src + 2];
-    s_gx[e] = make_float4(x, y, z, (x * x + y * y) + z * z);
-    s_idx[e] = idx[src];
-  }
+  stage_neighbors(s_gx, s_idx, gx, idx, pt0, np, nn, tid, G::kThreads);
   __syncthreads();
 
   float acc[TM][TN];
@@ -149,54 +149,9 @@ inter_conv_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
     // at a time
     for (int e = tid; e < n_items; e += G::kThreads) {
       const int row = e % BM, kg = e / BM;
-      const int gm = m0 + row;
-      float f[KG][CC];
-#pragma unroll
-      for (int kq = 0; kq < KG; ++kq) {
-#pragma unroll
-        for (int cc = 0; cc < CC; ++cc) f[kq][cc] = 0.f;
-      }
-      if (gm < M) {
-        const int pt = gm / na, a = gm - pt * na;
-        const float* tb = table + ((size_t)(pt / p2) * q * na + a) * C + c0;
-        const float4* g4 = s_gx + (pt - pt0) * nn;
-        const int* ix = s_idx + (pt - pt0) * nn;
-        float4 r[KG];
-#pragma unroll
-        for (int kq = 0; kq < KG; ++kq) {
-          const float* rp = rk + ((size_t)a * K + kg * KG + kq) * 3;
-          r[kq] = make_float4(rp[0], rp[1], rp[2], k2[kg * KG + kq]);
-        }
-#pragma unroll 4
-        for (int n = 0; n < nn; ++n) {
-          const int j = ix[n];
-          float4 t0 = make_float4(0.f, 0.f, 0.f, 0.f), t1 = t0;
-          if (j < q) {
-            const float4* tp =
-                reinterpret_cast<const float4*>(tb + (size_t)j * na * C);
-            t0 = tp[0];
-            t1 = tp[1];
-          }
-          const float4 g = g4[n];
-          const float t[CC] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
-#pragma unroll
-          for (int kq = 0; kq < KG; ++kq) {
-            const float cross = (g.x * r[kq].x + g.y * r[kq].y) + g.z * r[kq].z;
-            const float d2 = (g.w + r[kq].w) - 2.f * cross;
-            const float w = fmaxf(1.f - d2 * inv_sigma, 0.f);
-#pragma unroll
-            for (int cc = 0; cc < CC; ++cc) f[kq][cc] = fmaf(w, t[cc], f[kq][cc]);
-          }
-        }
-      }
-      float* fr = s_F + (size_t)row * L.fs + kg * KG * CC;
-#pragma unroll
-      for (int kq = 0; kq < KG; ++kq) {
-        reinterpret_cast<float4*>(fr + kq * CC)[0] =
-            make_float4(f[kq][0], f[kq][1], f[kq][2], f[kq][3]);
-        reinterpret_cast<float4*>(fr + kq * CC)[1] =
-            make_float4(f[kq][4], f[kq][5], f[kq][6], f[kq][7]);
-      }
+      build_f_item(s_F + (size_t)row * L.fs + kg * KG * CC, table, rk, k2,
+                   s_gx, s_idx, m0 + row, M, pt0, p2, nn, q, na, K, C,
+                   c0, kg, inv_sigma);
     }
     store_w<BM, BN>(s_B, tid, rb);
     __syncthreads();

@@ -1,6 +1,6 @@
-"""ModelNet40 test loader (counterpart of
-``epn_pointcloud_tpu/data/modelnet40.py`` ``Dataloader_ModelNet40`` and its
-single-process ``DataLoader``, evaluation splits only).
+"""ModelNet40 loader (counterpart of ``epn_pointcloud_tpu/data/modelnet40.py``
+``Dataloader_ModelNet40`` and its ``DataLoader`` in a single process: the
+train split and the evaluation splits).
 
 On-disk contract: <root>/<category>/<split>/*.mat with keys 'pc' [n, 3],
 'label', 'name' (and optionally a stored 'R'). Batches are numpy dicts.
@@ -25,20 +25,33 @@ def _mode_seed(seed: int, mode: str) -> int:
 
 
 class DataLoader:
-    """Synchronous batcher in dataset order; the last batch may be short."""
+    """Synchronous batcher. With ``shuffle`` the order is drawn anew each
+    epoch from a ``RandomState(seed)``; ``drop_last`` (default: shuffle)
+    drops a short final batch, as the reference's train step does."""
 
-    def __init__(self, dataset, batch_size: int):
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 seed: int = 2913, drop_last=None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = shuffle if drop_last is None else drop_last
+        self.rng = np.random.RandomState(seed)
 
     def __len__(self):
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self):
-        n = len(self.dataset)
-        for s in range(0, n, self.batch_size):
-            items = [self.dataset[i]
-                     for i in range(s, min(s + self.batch_size, n))]
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        for s in range(0, len(order), self.batch_size):
+            idx = order[s:s + self.batch_size]
+            if len(idx) < self.batch_size and self.drop_last:
+                return
+            items = [self.dataset[i] for i in idx]
             yield {k: _stack([it[k] for it in items]) for k in items[0]}
 
 
@@ -51,14 +64,13 @@ def _stack(vals):
 
 
 class Dataloader_ModelNet40:
-    """ModelNet40 classification samples of an evaluation split: clouds as
-    stored, normalized, and (unless --no-augmentation) rotated, with the
-    nearest anchor's index as the rotation label."""
+    """ModelNet40 classification samples: train clouds resampled to
+    ``input_num`` points, evaluation clouds as stored; normalized, and
+    (unless --no-augmentation) rotated, by the stored R of an evaluation
+    file if it has one and at random otherwise, with the nearest anchor's
+    index as the rotation label."""
 
     def __init__(self, opt, mode):
-        if mode == 'train':
-            raise NotImplementedError('the training split (resampling) is '
-                                      'not ported')
         self.opt = opt
         self.mode = mode
         self.anchors = icosahedron.get_anchors()
@@ -74,12 +86,18 @@ class Dataloader_ModelNet40:
 
     def __getitem__(self, index):
         data = sio.loadmat(self.all_data[index])
-        pc = pctk.normalize_np(data['pc'].T).T
+        train = self.mode == 'train'
+        pc = data['pc']
+        if train:
+            _, pc = pctk.uniform_resample_np(pc, self.opt.model.input_num,
+                                             rng=self.rng)
+        pc = pctk.normalize_np(pc.T).T
 
         R = np.eye(3)
         R_label = icosahedron.get_identity_index()
         if not self.opt.no_augmentation:
-            pc, R = pctk.rotate_point_cloud(pc, data.get('R'), rng=self.rng)
+            stored = None if train else data.get('R')
+            pc, R = pctk.rotate_point_cloud(pc, stored, rng=self.rng)
             _, R_label, _ = rotation_distance_np(R, self.anchors)
 
         return {'pc': pc.astype(np.float32),

@@ -1,5 +1,5 @@
-"""Host-side point-cloud utilities the ModelNet40 test loader needs
-(counterpart of part of ``epn_pointcloud_tpu/data/pc.py``)."""
+"""Host-side point-cloud utilities the ModelNet40 loader needs (counterpart
+of part of ``epn_pointcloud_tpu/data/pc.py``)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,24 @@ import numpy as np
 from scipy.spatial.transform import Rotation as sciR
 
 from ..ops.rotation import R_from_euler_np
+
+
+def uniform_resample_index_np(pc: np.ndarray, n_sample: int,
+                              rng=None) -> np.ndarray:
+    """Down: choice without replacement; up: arange + choice with
+    replacement."""
+    rng = rng or np.random
+    n_point = pc.shape[0]
+    if n_point >= n_sample:
+        return rng.choice(n_point, n_sample, replace=False)
+    idx = rng.choice(n_point, n_sample - n_point, replace=True)
+    return np.concatenate([np.arange(n_point), idx], axis=0)
+
+
+def uniform_resample_np(pc: np.ndarray, n_sample: int, rng=None):
+    """(idx, pc[idx]) for n_sample resampled points."""
+    idx = uniform_resample_index_np(pc, n_sample, rng)
+    return idx, pc[idx]
 
 
 def normalize_np(pc):

@@ -1,5 +1,6 @@
 """Classification losses (counterpart of ``epn_pointcloud_tpu/losses.py``
-``cross_entropy`` / ``attention_cross_entropy``, forward only)."""
+``cross_entropy`` / ``attention_cross_entropy``); torch autograd
+differentiates them."""
 
 from __future__ import annotations
 

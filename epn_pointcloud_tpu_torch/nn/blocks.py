@@ -1,5 +1,7 @@
-"""Conv blocks (counterpart of ``epn_pointcloud_tpu/nn/blocks.py``, eval
-path, fp32, unpacked [b, p, a, c] activations).
+"""Conv blocks (counterpart of ``epn_pointcloud_tpu/nn/blocks.py``, fp32,
+unpacked [b, p, a, c] activations). Train and eval differ only in the
+BatchNorms, through ``module.train()`` / ``.eval()``; the JAX package's fused
+eval tail is bf16 packed-layout only and has no fp32 counterpart.
 
 Module names follow the original EPN tree
 (``backbone.{i}.blocks.{j}.{inter_conv,intra_conv,skip_conv,norm}``).

@@ -78,12 +78,15 @@ class InstanceNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over the last (channel) axis in eval mode: running
-    statistics, affine. The training-mode statistics update is not ported."""
+    """BatchNorm over the last (channel) axis, affine. Train mode
+    normalizes with the biased batch variance and moves the running
+    statistics by momentum 0.1 with the unbiased one (torch semantics, as
+    the JAX package's ``BatchNorm``); eval mode uses the running
+    statistics."""
 
-    def __init__(self, c: int, eps: float = 1e-5):
+    def __init__(self, c: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.empty(c))
         self.bias = nn.Parameter(torch.empty(c))
         self.register_buffer('running_mean', torch.zeros(c))
@@ -98,8 +101,12 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError('BatchNorm training mode is not ported '
-                                      'yet; call model.eval()')
+            c = x.shape[-1]
+            y = F.batch_norm(x.reshape(-1, c), self.running_mean,
+                             self.running_var, self.weight, self.bias,
+                             training=True, momentum=self.momentum,
+                             eps=self.eps)
+            return y.reshape(x.shape)
         rsig = torch.rsqrt(self.running_var + self.eps)
         return (x - self.running_mean) * rsig * self.weight + self.bias
 
@@ -162,12 +169,15 @@ class IntraSO3Conv(nn.Module):
         ti = icosahedron.get_intra_idx()
         self.register_buffer('trace_idx', _const(ti.astype('int32')),
                              persistent=False)
+        self.register_buffer('inv_idx',
+                             _const(icosahedron.get_intra_inv_idx()),
+                             persistent=False)
         self.register_buffer('anchors', _const(icosahedron.get_anchors(60)),
                              persistent=False)
         self.basic_conv = BasicSO3Conv(dim_in, dim_out, ti.shape[1])
 
     def forward(self, x: SphericalPointCloud) -> SphericalPointCloud:
-        out = so3conv.intra_so3conv(x.feats, self.trace_idx,
+        out = so3conv.intra_so3conv(x.feats, self.trace_idx, self.inv_idx,
                                     self.basic_conv.weight_kcd())
         return SphericalPointCloud(x.xyz, out, self.anchors)
 

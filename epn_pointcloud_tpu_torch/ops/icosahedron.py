@@ -193,6 +193,21 @@ def get_intra_idx() -> np.ndarray:
     return _build_group()['trace_idx']
 
 
+@functools.lru_cache(maxsize=1)
+def get_intra_inv_idx() -> np.ndarray:
+    """[60, 12] int32 inverse adjacency: inv[x, k] is the one anchor a with
+    trace_idx[a, k] == x (each column of trace_idx is a permutation), so the
+    intra conv's input gradient is the intra conv over inv."""
+    ti = get_intra_idx()
+    na, nk = ti.shape
+    inv = np.full((na, nk), -1, np.int32)
+    for k in range(nk):
+        if sorted(ti[:, k]) != list(range(na)):
+            raise ValueError(f'trace_idx column {k} is not a permutation')
+        inv[ti[:, k], k] = np.arange(na, dtype=np.int32)
+    return inv
+
+
 def select_anchors(anchors: np.ndarray, k: int) -> np.ndarray:
     """Anchor subsets for kanchor in {1, 20, 40, 60}."""
     if k == 1:

@@ -1,22 +1,37 @@
 """Hand-written Hopper kernels (counterpart of ``epn_pointcloud_tpu/ops/pallas``).
 
-Each module holds one kernel's wrapper beside the plain PyTorch version of
-the same function. A wrapper runs the plain version for a tensor on the CPU;
-for a CUDA tensor it launches its kernel or raises. Each wrapper counts its
-launches in a module-level integer ``launches``.
+Each module holds its kernels' wrappers beside the plain PyTorch versions of
+the same functions, and lists them in ``ENTRIES`` (wrapper name -> plain
+version, CUDA source, the TPU kernel it replaces). A wrapper runs the plain
+version for a tensor on the CPU; for a CUDA tensor it launches its kernel or
+raises. Each wrapper counts its launches in its module's ``launches`` dict.
+The conv modules also hold the ``torch.autograd.Function`` whose forward and
+backward go through those wrappers.
 
 ``plain()`` is the explicit switch the op layer reads to call the plain
-versions directly on the card (to compare a whole forward against the kernel
-path); the wrappers themselves never consult it.
+forward versions directly on the card (to compare a whole forward and
+backward against the kernel path); the wrappers themselves never consult it.
 """
 
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
 
 from . import ball_query, fps, inter_conv, intra_conv
 
-KERNELS = (fps, ball_query, inter_conv, intra_conv)
+
+class Entry(NamedTuple):
+    name: str        # wrapper function in `module`, and its launch-count key
+    module: object
+    plain: str       # the plain version in `module`
+    source: str      # CUDA source
+    replaces: str    # the TPU kernel (file:line)
+
+
+KERNELS = tuple(Entry(name, m, *spec)
+                for m in (fps, ball_query, inter_conv, intra_conv)
+                for name, spec in m.ENTRIES.items())
 
 _PLAIN = False
 
@@ -38,8 +53,8 @@ def plain_forced() -> bool:
 
 def reset_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.module.launches[k.name] = 0
 
 
 def counts() -> dict:
-    return {k.NAME: k.launches for k in KERNELS}
+    return {k.name: k.module.launches[k.name] for k in KERNELS}

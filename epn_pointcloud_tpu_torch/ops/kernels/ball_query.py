@@ -15,10 +15,11 @@ import torch
 
 from . import build
 
-NAME = 'ball_query'
 SOURCE = 'epn_pointcloud_tpu_torch/csrc/ball_query.cu'
-REPLACES = 'epn_pointcloud_tpu/ops/pallas/ball_query.py:57'
-launches = 0
+# kernel entry -> (plain version, source, the TPU kernel it replaces)
+ENTRIES = {'ball_query': ('ball_query_plain', SOURCE,
+                          'epn_pointcloud_tpu/ops/pallas/ball_query.py:57')}
+launches = dict.fromkeys(ENTRIES, 0)
 
 
 def _r2_f32(radius: float) -> float:
@@ -53,7 +54,6 @@ def ball_query_plain(query: torch.Tensor, support: torch.Tensor,
 def ball_query(query: torch.Tensor, support: torch.Tensor, radius: float,
                n_sample: int) -> torch.Tensor:
     """Kernel wrapper: plain version on the CPU, CUDA kernel on the card."""
-    global launches
     if query.device.type == 'cpu':
         return ball_query_plain(query, support, radius, n_sample)
     if query.device.type != 'cuda' or support.device != query.device:
@@ -72,7 +72,7 @@ def ball_query(query: torch.Tensor, support: torch.Tensor, radius: float,
     if n_sample < 1:
         raise ValueError(f'ball_query: n_sample={n_sample}')
     out = torch.empty((b, m, n_sample), dtype=torch.int32, device=query.device)
-    launches += 1
+    launches['ball_query'] += 1
     build.launch('epn_ball_query', query.data_ptr(), support.data_ptr(),
                  out.data_ptr(), b, m, n, n_sample, _r2_f32(radius),
                  build.stream(query))

@@ -12,10 +12,11 @@ import torch
 
 from . import build
 
-NAME = 'fps'
 SOURCE = 'epn_pointcloud_tpu_torch/csrc/fps.cu'
-REPLACES = 'epn_pointcloud_tpu/ops/pallas/fps.py:63'
-launches = 0
+# kernel entry -> (plain version, source, the TPU kernel it replaces)
+ENTRIES = {'fps': ('fps_plain', SOURCE,
+                   'epn_pointcloud_tpu/ops/pallas/fps.py:63')}
+launches = dict.fromkeys(ENTRIES, 0)
 
 
 def _sq3(x, y, z):
@@ -48,7 +49,6 @@ def fps_plain(xyz: torch.Tensor, n_sample: int,
 def fps(xyz: torch.Tensor, n_sample: int,
         shadow_eps: float = 1e-3) -> torch.Tensor:
     """Kernel wrapper: plain version on the CPU, CUDA kernel on the card."""
-    global launches
     if xyz.device.type == 'cpu':
         return fps_plain(xyz, n_sample, shadow_eps)
     if xyz.device.type != 'cuda':
@@ -62,7 +62,7 @@ def fps(xyz: torch.Tensor, n_sample: int,
     if not 0 < n_sample <= n or n > 12288:
         raise ValueError(f'fps: n_sample={n_sample}, n={n} unsupported')
     out = torch.empty((b, n_sample), dtype=torch.int32, device=xyz.device)
-    launches += 1
+    launches['fps'] += 1
     build.launch('epn_fps', xyz.data_ptr(), out.data_ptr(), b, n, n_sample,
                  float(shadow_eps), build.stream(xyz))
     return out

@@ -49,9 +49,12 @@ def inter_so3conv_fused(xyz: torch.Tensor, feats: torch.Tensor, stride: int,
     Returns (inter_idx, new_xyz, out [b, p2, a, c_out], sample_idx).
 
     The occupancy-ones input of block 0 (c_in == 1) runs in plain torch as
-    in the JAX fp32 path: every gathered feature is 1, so the contraction is
-    the anchor-weight sum. Every layer with a real feature table goes to the
-    inter conv kernel wrapper.
+    in the JAX fp32 path, differentiated by autograd: every gathered feature
+    is 1, so the contraction is the anchor-weight sum. Every layer with a
+    real feature table goes through ``InterConvFn`` (the kernels, or the
+    plain versions on the CPU); inside ``kernels.plain()`` it calls the plain
+    forward and lets autograd differentiate it, so the card's plain path
+    shares no backward formula with the kernel path.
     """
     grouped_xyz, inter_idx, sample_idx, new_xyz = \
         sampling.inter_grouping_ball(xyz, stride, radius, n_neighbor,
@@ -71,18 +74,20 @@ def inter_so3conv_fused(xyz: torch.Tensor, feats: torch.Tensor, stride: int,
     if kernels.plain_forced():
         out = _ic.inter_conv_plain(*args)
     else:
-        out = _ic.inter_conv(*args)
+        out = _ic.InterConvFn.apply(*args)
     return inter_idx, new_xyz, out, sample_idx
 
 
 def intra_so3conv(feats: torch.Tensor, trace_idx: torch.Tensor,
-                  W: torch.Tensor) -> torch.Tensor:
+                  inv_idx: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """Rotation-group conv over the 60x12 adjacency: feats [b, p, 60, c],
-    trace_idx [60, 12] int32, W [12, c, d] -> [b, p, 60, d]."""
+    trace_idx and its inverse inv_idx [60, 12] int32, W [12, c, d] ->
+    [b, p, 60, d]. Through ``IntraConvFn``, or the plain forward under
+    autograd inside ``kernels.plain()``."""
     feats, W = feats.contiguous(), W.contiguous()
     if kernels.plain_forced():
         return _intra.intra_conv_plain(feats, trace_idx, W)
-    return _intra.intra_conv(feats, trace_idx, W)
+    return _intra.IntraConvFn.apply(feats, trace_idx, inv_idx, W)
 
 
 def pointnet_so3_coords(xyz: torch.Tensor, anchors: torch.Tensor):

@@ -1,7 +1,8 @@
 """App layer of the torch port on the CPU: the ModelNet40 test loader against
-the JAX package's loader on one synthetic tree (exact), and the
+the JAX package's loader on one synthetic tree (exact), the
 ``run_modelnet --run-mode eval`` entry point end to end, seeded init and
-``-r`` checkpoint resume.
+``-r`` checkpoint resume, and ``run_modelnet --run-mode train`` end to end
+with its checkpoint evaluated through ``-r``.
 """
 
 import numpy as np
@@ -84,7 +85,51 @@ def test_run_modelnet_eval_end_to_end(tree, tmp_path):
     other.logger.close()
 
 
-def test_train_mode_is_refused(tree, tmp_path):
+def test_run_modelnet_train_end_to_end(tmp_path):
+    """Two train steps (b=12 forced, as the reference entry point does) on a
+    12-cloud train split, a checkpoint and an eval at step 2; the saved
+    state_dict reloads through -r and gives the trained model's logits."""
+    import math
+    import os
+    root = str(tmp_path / 'mn')
+    tsynth.make_modelnet_tree(root, n_cats=4, n_train=3, n_test=1,
+                              n_points=64, seed=1, splits=('train', 'testR'))
+    runs = str(tmp_path / 'runs')
+    trainer = run_modelnet.main(['experiment', '-d', root, '--run-mode',
+                                 'train', '--input-num', '64', '-i', '2',
+                                 '--save-freq', '2', '-lf', '1',
+                                 '--model-dir', runs])
+    trainer.logger.close()
+    assert trainer.opt.batch_size == 12 and trainer.iter_counter == 2
+    assert trainer.epoch_counter == 1          # one batch an epoch: wrapped
+    for k in ('Loss', 'R_Loss', 'Acc', 'R_Acc'):
+        assert math.isfinite(trainer.summary.get_item(k)), k
+    assert os.path.basename(trainer.last_ckpt) == 'playground_net_Iter2.pth'
+    assert os.path.exists(trainer.last_ckpt)
+    trained = torch.cat(trainer.eval_logits)
+    assert trained.shape == (4, 40) and torch.isfinite(trained).all()
+
+    other = run_modelnet.main(['experiment', '-d', root, '--run-mode', 'eval',
+                               '-b', '12', '--input-num', '64', '-r',
+                               trainer.last_ckpt, '--model-dir', runs])
+    other.logger.close()
+    torch.testing.assert_close(torch.cat(other.eval_logits), trained,
+                               rtol=0, atol=0)
+
+    # save_full_state: model, Adam state and iteration come back with -r
+    full = str(tmp_path / 'full.pth')
+    trainer.save_full_state(full)
+    resumed = run_modelnet.main(['experiment', '-d', root, '--input-num',
+                                 '64', '-i', '0', '-r', full,
+                                 '--model-dir', runs])
+    resumed.logger.close()
+    assert resumed.iter_counter == 2
+    want = trainer.optimizer.state_dict()['state']
+    got = resumed.optimizer.state_dict()['state']
+    assert want.keys() == got.keys()
+    for k in want:
+        for name in ('exp_avg', 'exp_avg_sq'):
+            assert torch.equal(want[k][name], got[k][name])
     with pytest.raises(NotImplementedError):
-        run_modelnet.main(['experiment', '-d', tree, '--model-dir',
-                           str(tmp_path)])
+        run_modelnet.main(['experiment', '-d', root, '--input-num', '64',
+                           '--steps-per-dispatch', '2', '--model-dir', runs])

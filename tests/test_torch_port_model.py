@@ -157,6 +157,8 @@ def test_import_does_not_pull_in_jax():
     code = ('import sys, epn_pointcloud_tpu_torch\n'
             'import epn_pointcloud_tpu_torch.app.trainer_modelnet\n'
             'import epn_pointcloud_tpu_torch.run_modelnet\n'
+            'import epn_pointcloud_tpu_torch.train\n'
+            'import epn_pointcloud_tpu_torch.data.modelnet40\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "flax", "epn_pointcloud_tpu")]\n'
             'print(bad)\n'

@@ -116,4 +116,5 @@ def test_plain_switch_routes_to_plain_versions():
     assert torch.equal(a, b)
     # CPU tensors never launch a kernel
     assert tkern.counts() == {'fps': 0, 'ball_query': 0, 'inter_conv': 0,
-                              'intra_conv': 0}
+                              'inter_conv_dtable': 0, 'inter_conv_dw': 0,
+                              'intra_conv': 0, 'intra_conv_dw': 0}
