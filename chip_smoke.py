@@ -13,29 +13,42 @@ Phases (any failure exits non-zero and prints no result line):
   3. run the full forward at b=8 on the kernel path and on the plain path;
      the logits must agree to rtol=1e-3, atol=2e-3; then time the whole
      b=32 forward on both paths, in turns;
-  4. write a synthetic ModelNet40 test tree (1024-point clouds, 2 batches of
+  4. the bf16 production mode (--compute-dtype bf16) of the same model:
+     each kernel call of a b=32 bf16 forward (ones conv, bf16 inter conv,
+     prenorm intra conv, moments, fused tail, grouped conv) against its
+     plain version on the same inputs (normwise <= 4e-3 for bf16 outputs,
+     <= 1e-5 for the moments' fp32 sums), timed, with torch.addmm beside
+     the grouped conv; the b=8 bf16 logits on the kernel and plain paths to
+     a per-sample cosine >= 0.9999, the b=32 bf16 and fp32 kernel paths to
+     a minimum cosine >= 0.999, and the whole b=32 bf16 forward timed on
+     both paths, in turns;
+  5. write a synthetic ModelNet40 test tree (1024-point clouds, 2 batches of
      32) and run the eval entry point (run_modelnet --run-mode eval -b 32) on
-     it; the logits must be finite and every kernel's launch count must rise
-     by its expected count per batch;
-  5. capture each backward kernel call of one train-mode step of the seeded
+     it, in fp32 and then with --compute-dtype bf16 (this slice's main
+     path); the logits must be finite and every kernel's launch count must
+     rise by its expected count per batch;
+  6. capture each backward kernel call of one train-mode step of the seeded
      full-width model on a synthetic b=12 batch (inter dTable and dW at 6
      layers, intra df and dW at 7) and compare each with its plain version
      on the same inputs (normwise relative error <= 1e-5 for dTable and df,
      <= 1e-4 for the dW reductions), timing both;
-  6. one train step (b=12) on the kernel path and on the plain path
+  7. one train step (b=12) on the kernel path and on the plain path
      (``kernels.plain()``: plain forward, torch autograd) from the same
      weights: loss to rtol 1e-5, per-leaf gradients by the rule of
      tests/test_reference_train_parity.py, BatchNorm running statistics to
      rtol 1e-4; then the whole step (forward, backward, Adam) timed on both
      paths in turns, and 10 Adam steps on one batch must lower the loss;
-  7. write a synthetic tree with train and testR splits and run the train
+  8. write a synthetic tree with train and testR splits and run the train
      entry point (run_modelnet --run-mode train -i 4 --save-freq 4): finite
      logged losses, each kernel's launch count risen by its per-step count
      (plus the eval at iteration 4), and the saved checkpoint evaluated
      through --run-mode eval -r.
 
-Prints one line per comparison, a JSON line with per-kernel results, the
-card's name and power limit, and as its last line
+Prints one line per comparison, a JSON line with per-kernel results (each
+with its bound: the larger of its bytes over 3.35 TB/s and its operations
+over the peak for their type, 67 TFLOP/s fp32 or 989 TFLOP/s bf16, from the
+shapes of the calls timed), the card's name and power limit, and as its
+last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Details go to chiprun_out/chip_smoke_results.json and the nvcc/ptxas log to
 chiprun_out/kernels_build.log.
@@ -58,10 +71,106 @@ BATCH = 32
 TRAIN_BATCH = 12
 N_POINTS = 1024
 SEED = 2913
+# the H100 SXM's published peaks (NVIDIA data sheet, dense): fp32 on the
+# CUDA cores, bf16 on the tensor cores, and device memory
+PEAK_FP32, PEAK_BF16, HBM_BYTES_S = 67e12, 989e12, 3.35e12
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def _nbytes(ts):
+    import torch
+    return sum(t.numel() * t.element_size() for t in ts if torch.is_tensor(t))
+
+
+def work(name, args, out):
+    """(bytes, fp32 operations, bf16 operations) one call of kernel ``name``
+    needs at these shapes: each input read once and each output written
+    once; the algorithm's operations, the products of a bf16 kernel counted
+    as bf16 tensor-core work and everything else as fp32."""
+    import torch
+    outs = out if isinstance(out, tuple) else (out,)
+    nb = _nbytes(list(args) + list(outs))
+    f32 = mm = 0
+    bf16 = False
+    if name == 'fps':
+        b, n, _ = args[0].shape
+        f32 = 10 * b * args[1] * n           # a distance, min and argmax a point
+    elif name == 'ball_query':
+        q, sup = args[0], args[1]
+        f32 = 9 * q.shape[0] * q.shape[1] * sup.shape[1]
+    elif name == 'ones_conv':
+        b, p2, nn, _ = args[0].shape
+        na, K = args[1].shape[:2]
+        f32 = 10 * b * p2 * nn * na * K     # a weight and its sum
+    elif name.startswith('inter_conv'):
+        gx, idx, rk = args[0], args[1], args[3]
+        b, p2, nn = idx.shape
+        na, K = rk.shape[:2]
+        if name == 'inter_conv':
+            c, d, bf16 = (args[2].shape[3], args[5].shape[2],
+                          args[2].dtype == torch.bfloat16)
+        elif name == 'inter_conv_dtable':
+            c, d = args[5].shape[1], args[5].shape[2]
+        else:
+            c, d = args[2].shape[3], args[5].shape[-1]
+        M = b * p2 * na
+        f32 = 9 * M * nn * K                 # anchor weights
+        mm = 2 * M * nn * K * c + 2 * M * K * c * d
+    elif name.startswith('intra_conv'):
+        f = args[0]
+        b, p, na, c = f.shape
+        W = {'intra_conv': 2, 'intra_conv_df': 3,
+             'intra_conv_prenorm': 3}.get(name)
+        if W is None:                        # dW: [K, c, d] from f and dout
+            K, d = args[1].shape[1], args[2].shape[3]
+        else:
+            K, c, d = args[W].shape
+        bf16 = f.dtype == torch.bfloat16
+        mm = 2 * b * p * na * K * c * d
+        if name == 'intra_conv_prenorm':
+            f32 = 3 * f.numel()              # the fold and activation
+    elif name == 'moments':
+        f32 = 3 * args[0].numel()
+    elif name.startswith('grouped_conv'):
+        x, W = args[0], args[1]
+        M = x.numel() // W.shape[0]
+        bf16 = x.dtype == torch.bfloat16
+        mm = 2 * M * W.shape[0] * W.shape[1]
+        f32 = (8 if name == 'grouped_conv_tail' else 1) * M * W.shape[1]
+    else:
+        raise KeyError(name)
+    return nb, (f32 + (0 if bf16 else mm)), (mm if bf16 else 0)
+
+
+def bound_ms(name, args, out):
+    """(bytes ms, operations ms) of the least time the card could take for
+    one call: bytes over the memory rate, operations over their peak."""
+    nb, f32, b16 = work(name, args, out)
+    return 1e3 * nb / HBM_BYTES_S, 1e3 * max(f32 / PEAK_FP32,
+                                             b16 / PEAK_BF16)
+
+
+def rel_err(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp(min=1e-30))
+
+
+class compute_dtype:
+    """The port's compute dtype inside the block, fp32 after it."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        from epn_pointcloud_tpu_torch.ops import so3conv
+        so3conv.set_compute_dtype(self.name)
+
+    def __exit__(self, *exc):
+        from epn_pointcloud_tpu_torch.ops import so3conv
+        so3conv.set_compute_dtype('fp32')
 
 
 def time_ms(fn, reps=10, warmup=3):
@@ -119,9 +228,7 @@ def capture_calls(names, run):
     (module function names in ops/kernels) as (name, args)."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
-    mods = {n: m for m in (kernels.fps, kernels.ball_query,
-                           kernels.inter_conv, kernels.intra_conv)
-            for n in names if hasattr(m, n)}
+    mods = {n: m for m in kernels.MODULES for n in names if hasattr(m, n)}
     calls = []
     saved = {n: getattr(m, n) for n, m in mods.items()}
 
@@ -152,11 +259,35 @@ def _shape_desc(name, args):
         return (f'b={tab.shape[0]} p1={tab.shape[1]} p2={idx.shape[1]} '
                 f'nn={idx.shape[2]} c={tab.shape[3]} d={W.shape[2]} '
                 f'sigma={args[6]:.4f}')
-    f, W = args[0], args[2]
-    return f'b={f.shape[0]} p={f.shape[1]} c={f.shape[3]} d={W.shape[2]}'
+    if name == 'ones_conv':
+        return (f'gx {tuple(args[0].shape)} -> F {args[4]} '
+                f'sigma={args[3]:.4f}')
+    if name == 'moments':
+        return f'x {tuple(args[0].shape)} {args[0].dtype}'
+    if name.startswith('grouped_conv'):
+        x, W = args[0], args[1]
+        return (f'b={x.shape[0]} p={x.shape[1]} c={W.shape[0]} '
+                f'd={W.shape[1]} {x.dtype}')
+    f, W = args[0], args[3 if name == 'intra_conv_prenorm' else 2]
+    return (f'b={f.shape[0]} p={f.shape[1]} c={f.shape[3]} d={W.shape[2]} '
+            f'{f.dtype}')
 
 
-FWD = ('fps', 'ball_query', 'inter_conv', 'intra_conv')
+def _aggregate(rows):
+    """Sums of a kernel's per-call rows: its time, plain time, bound and
+    library time over the layers of one forward or step."""
+    bytes_ms = sum(r['bytes_ms'] for r in rows)
+    ops_ms = sum(r['ops_ms'] for r in rows)
+    lib = [r.get('library_ms') for r in rows]
+    return {'max_abs_err': max(r['max_abs_err'] for r in rows),
+            'ms': sum(r['ms'] for r in rows),
+            'plain_ms': sum(r['plain_ms'] for r in rows),
+            'bound_ms': sum(max(r['bytes_ms'], r['ops_ms']) for r in rows),
+            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
+            'library_ms': None if None in lib else sum(lib), 'calls': len(rows)}
+
+
+FWD = ('fps', 'ball_query', 'ones_conv', 'inter_conv', 'intra_conv')
 
 
 def phase_kernels(model, device):
@@ -176,7 +307,7 @@ def phase_kernels(model, device):
     for name, args in calls:
         kw = {}
         # model layer: the inter conv kernel starts at layer 1 (layer 0's
-        # occupancy-ones input runs in plain torch)
+        # occupancy-ones input runs the ones conv)
         layer = layer_of[name] + (1 if name == 'inter_conv' else 0)
         layer_of[name] += 1
         kern_fn = getattr(entries[name].module, name)
@@ -203,17 +334,21 @@ def phase_kernels(model, device):
                        reps=5 if name == 'fps' else 10)
         p_ms = time_ms(lambda: plain_fn(*args, **kw),
                        reps=5 if name == 'fps' else 10)
+        b_ms, o_ms = bound_ms(name, args, got)
         desc = _shape_desc(name, args)
         log(f'[compare] {name} L{layer} ({desc}): max_abs_err={max_err:.3e} '
             f'rel_norm_err={rel:.3e} [{tol}] kernel_ms={k_ms:.4f} '
-            f'plain_ms={p_ms:.4f} {"OK" if ok else "FAIL"}')
+            f'plain_ms={p_ms:.4f} bound_ms={max(b_ms, o_ms):.4f} '
+            f'{"OK" if ok else "FAIL"}')
         results[name].append({'layer': layer, 'shape': desc,
                               'max_abs_err': max_err, 'rel_norm_err': rel,
-                              'ms': k_ms, 'plain_ms': p_ms, 'ok': ok})
+                              'ms': k_ms, 'plain_ms': p_ms, 'bytes_ms': b_ms,
+                              'ops_ms': o_ms, 'ok': ok})
         if not ok:
             failures.append(f'{name} L{layer}')
         del got, want
-    expect = {'fps': 1, 'ball_query': 7, 'inter_conv': 6, 'intra_conv': 7}
+    expect = {'fps': 1, 'ball_query': 7, 'ones_conv': 1, 'inter_conv': 6,
+              'intra_conv': 7}
     for name, n in expect.items():
         if len(results[name]) != n:
             failures.append(f'{name}: {len(results[name])} calls in one '
@@ -243,7 +378,7 @@ def phase_model(model, device):
     return err
 
 
-def phase_forward_time(model, device, reps=5):
+def phase_forward_time(model, device, reps=5, dtype='fp32'):
     """Whole b=32 forward on the card, kernel path and plain path in turns
     (CUDA events; the median of each)."""
     import torch
@@ -254,48 +389,54 @@ def phase_forward_time(model, device, reps=5):
         with kernels.plain():
             model(x)
     k_ts, p_ts = [], []
-    with torch.no_grad():
+    with torch.no_grad(), compute_dtype(dtype):
         model(x)
         plain_fwd()
         for _ in range(reps):
             k_ts.append(time_ms(lambda: model(x), reps=1, warmup=0))
             p_ts.append(time_ms(plain_fwd, reps=1, warmup=0))
     k_ms, p_ms = statistics.median(k_ts), statistics.median(p_ts)
-    log(f'[forward] b={BATCH} whole forward: kernel path {k_ms:.2f} ms '
+    log(f'[forward] b={BATCH} {dtype} whole forward: kernel path {k_ms:.2f} ms '
         f'({1e3 * BATCH / k_ms:.1f} clouds/s), plain path {p_ms:.2f} ms '
         f'({1e3 * BATCH / p_ms:.1f} clouds/s); median of {reps} turns')
     return {'kernel_ms': k_ms, 'plain_ms': p_ms, 'kernel_runs_ms': k_ts,
             'plain_runs_ms': p_ts}
 
 
-def phase_eval():
-    """The main path: run_modelnet eval on a synthetic test tree."""
+def phase_eval(dtype='fp32'):
+    """A main path: run_modelnet eval on a synthetic test tree, in fp32, or
+    in the bf16 production mode (this slice's)."""
     import torch
     from epn_pointcloud_tpu_torch import run_modelnet
     from epn_pointcloud_tpu_torch.data import synthetic
-    from epn_pointcloud_tpu_torch.ops import kernels
+    from epn_pointcloud_tpu_torch.ops import kernels, so3conv
     tree = os.path.join(WORK_DIR, 'modelnet')
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     synthetic.make_modelnet_tree(tree, n_cats=4, n_train=0, n_test=16,
                                  n_points=N_POINTS, seed=0, splits=('testR',))
     argv = ['experiment', '-d', tree, '--run-mode', 'eval', '-b', str(BATCH),
-            '--model-dir', os.path.join(WORK_DIR, 'runs')]
-    kernels.reset_counts()
-    t0 = time.time()
-    trainer = run_modelnet.main(argv)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = kernels.counts()
+            '--compute-dtype', dtype, '--model-dir',
+            os.path.join(WORK_DIR, 'runs')]
+    try:
+        kernels.reset_counts()
+        t0 = time.time()
+        trainer = run_modelnet.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kernels.counts()
+    finally:
+        so3conv.set_compute_dtype('fp32')
     trainer.logger.close()
     n_batches = len(trainer.eval_logits)
     logits = torch.cat(trainer.eval_logits)
-    log(f'[eval] run_modelnet eval: {n_batches} batches of {BATCH}, logits '
-        f'{tuple(logits.shape)}, accuracy {trainer.test_accs[-1]:.2f}%, '
-        f'wall {wall:.2f} s (build, data and setup included); kernel '
-        f'launches {counts}')
+    log(f'[eval] run_modelnet eval --compute-dtype {dtype}: {n_batches} '
+        f'batches of {BATCH}, logits {tuple(logits.shape)} {logits.dtype}, '
+        f'accuracy {trainer.test_accs[-1]:.2f}%, wall {wall:.2f} s (data and '
+        f'setup included); kernel launches {counts}')
     assert n_batches >= 2 and logits.shape == (n_batches * BATCH, 40)
     assert torch.isfinite(logits).all(), 'non-finite eval logits'
-    expect = {n: per * n_batches for n, per in EVAL_PER_BATCH.items()}
+    per = EVAL_PER_BATCH if dtype == 'fp32' else BF16_EVAL_PER_BATCH
+    expect = {n: k * n_batches for n, k in per.items()}
     assert counts == expect, (counts, expect)
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     return counts, n_batches
@@ -303,14 +444,143 @@ def phase_eval():
 
 # kernel launches of one eval batch, and of one train step: the forward's,
 # plus the backward's: intra df runs the forward intra kernel on the inverse
-# adjacency (7 more), dTable and dW at the 6 kernel inter layers (layer 0's
-# ones input is plain torch), intra dW at all 7
-EVAL_PER_BATCH = {'fps': 1, 'ball_query': 7, 'inter_conv': 6,
+# adjacency (7 more), dTable and dW at the 6 inter layers with a feature
+# table, intra dW at all 7; the layer-0 ones conv has no backward (its VJP is
+# zero: F depends on the coordinates only)
+_NO_BF16 = {'intra_conv_prenorm': 0, 'moments': 0, 'grouped_conv': 0,
+            'grouped_conv_tail': 0}
+EVAL_PER_BATCH = {'fps': 1, 'ball_query': 7, 'ones_conv': 1, 'inter_conv': 6,
                   'inter_conv_dtable': 0, 'inter_conv_dw': 0,
-                  'intra_conv': 7, 'intra_conv_dw': 0}
-TRAIN_PER_STEP = {'fps': 1, 'ball_query': 7, 'inter_conv': 6,
+                  'intra_conv': 7, 'intra_conv_dw': 0, **_NO_BF16}
+TRAIN_PER_STEP = {'fps': 1, 'ball_query': 7, 'ones_conv': 1, 'inter_conv': 6,
                   'inter_conv_dtable': 6, 'inter_conv_dw': 6,
-                  'intra_conv': 14, 'intra_conv_dw': 7}
+                  'intra_conv': 14, 'intra_conv_dw': 7, **_NO_BF16}
+# the bf16 production eval: every intra layer runs the prenorm form and its
+# InstanceNorm statistics through moments; layers 1-6 end in the fused tail
+# (layer 0's rank-1 skip keeps the unfused one); the head's mlp conv is the
+# grouped conv
+BF16_EVAL_PER_BATCH = {'fps': 1, 'ball_query': 7, 'ones_conv': 1,
+                       'inter_conv': 6, 'inter_conv_dtable': 0,
+                       'inter_conv_dw': 0, 'intra_conv': 0,
+                       'intra_conv_dw': 0, 'intra_conv_prenorm': 7,
+                       'moments': 7, 'grouped_conv': 1,
+                       'grouped_conv_tail': 6}
+BF16_FWD = ('fps', 'ball_query', 'ones_conv', 'inter_conv',
+            'intra_conv_prenorm', 'moments', 'grouped_conv_tail',
+            'grouped_conv')
+# the kernels whose bf16 calls are compared here (fps and ball_query take
+# the same fp32 coordinates in both modes: compared in the fp32 phase)
+BF16_COMPARED = BF16_FWD[2:]
+
+
+def phase_bf16_kernels(model, device):
+    """Each kernel call of a b=32 bf16 forward against its plain version on
+    the same inputs (normwise <= 4e-3 for bf16 outputs, <= 1e-5 for the
+    moments' fp32 sums), timed, with torch.addmm beside the grouped conv."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    x = torch.from_numpy(synthetic_batch(BATCH, N_POINTS, SEED)).to(device)
+
+    def run():
+        with torch.no_grad():
+            model(x)
+    with compute_dtype('bf16'):
+        calls = capture_calls(BF16_FWD, run)
+    entries = {k.name: k for k in kernels.KERNELS}
+    n_calls = {n: sum(1 for c in calls if c[0] == n) for n in BF16_FWD}
+    results = {n: [] for n in BF16_COMPARED}
+    failures = []
+    torch.set_grad_enabled(False)
+    for name, args in calls:
+        if name not in BF16_COMPARED:
+            continue
+        # model layer: the inter conv and the fused tail start at layer 1
+        # (layer 0 runs the ones conv and the unfused tail); the grouped
+        # conv's one call is the head's
+        layer = len(results[name]) + (1 if name in ('inter_conv',
+                                                    'grouped_conv_tail')
+                                      else 0)
+        kern_fn = getattr(entries[name].module, name)
+        plain_fn = getattr(entries[name].module, entries[name].plain)
+        got, want = kern_fn(*args), plain_fn(*args)
+        torch.cuda.synchronize()
+        if name == 'moments':
+            rel = max(rel_err(g, w) for g, w in zip(got, want))
+            max_err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+            tol = 1e-5
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+        else:
+            rel = rel_err(got, want)
+            max_err = float((got.float() - want.float()).abs().max())
+            tol = 1e-5 if got.dtype == torch.float32 else 4e-3
+            finite = bool(torch.isfinite(got).all())
+        ok = rel <= tol and finite
+        k_ms = time_ms(lambda: kern_fn(*args))
+        p_ms = time_ms(lambda: plain_fn(*args))
+        row = {'layer': layer, 'shape': _shape_desc(name, args),
+               'max_abs_err': max_err, 'rel_norm_err': rel, 'ms': k_ms,
+               'plain_ms': p_ms, 'ok': ok}
+        row['bytes_ms'], row['ops_ms'] = bound_ms(name, args, got)
+        lib = ''
+        if name == 'grouped_conv':
+            xx, W, bias = args
+            x2, b2 = xx.reshape(-1, W.shape[0]), bias.to(xx.dtype)
+            row['library_ms'] = time_ms(lambda: torch.addmm(b2, x2, W))
+            lib = f' addmm_ms={row["library_ms"]:.4f}'
+        log(f'[bf16] {name} L{layer} ({row["shape"]}): max_abs_err='
+            f'{max_err:.3e} rel_norm_err={rel:.3e} [rel_norm<={tol:.0e}] '
+            f'kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}{lib} bound_ms='
+            f'{max(row["bytes_ms"], row["ops_ms"]):.4f} '
+            f'{"OK" if ok else "FAIL"}')
+        results[name].append(row)
+        if not ok:
+            failures.append(f'{name} L{layer}')
+        del got, want
+    torch.set_grad_enabled(True)
+    if n_calls != {n: BF16_EVAL_PER_BATCH[n] for n in BF16_FWD}:
+        failures.append(f'bf16 forward calls {n_calls}')
+    if failures:
+        raise AssertionError(f'bf16 kernel comparisons failed: {failures}')
+    return results
+
+
+def _cosine(a, b):
+    import torch
+    return torch.nn.functional.cosine_similarity(a.double(), b.double(),
+                                                 dim=-1)
+
+
+def phase_bf16_model(model, device):
+    """b=8 bf16 logits, kernel path vs plain path (per-sample cosine >=
+    0.9999); b=32 bf16 vs fp32 kernel paths (minimum cosine >= 0.999)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    x8 = torch.from_numpy(synthetic_batch(8, N_POINTS, SEED + 1)).to(device)
+    x32 = torch.from_numpy(synthetic_batch(BATCH, N_POINTS, SEED + 2)).to(
+        device)
+    with torch.no_grad():
+        with compute_dtype('bf16'):
+            k8 = model(x8)[0]
+            with kernels.plain():
+                p8 = model(x8)[0]
+            k32 = model(x32)[0]
+        f32 = model(x32)[0]
+    torch.cuda.synchronize()
+    cos8, cos32 = _cosine(k8, p8), _cosine(k32, f32)
+    log(f'[bf16-model] b=8 bf16 logits kernel vs plain path: min cosine '
+        f'{float(cos8.min()):.7f} (>= 0.9999), max abs diff '
+        f'{float((k8 - p8).abs().max()):.3e}; b={BATCH} bf16 vs fp32 kernel '
+        f'path: min cosine {float(cos32.min()):.7f} (>= 0.999), mean '
+        f'{float(cos32.mean()):.7f}')
+    assert k8.dtype == torch.float32 and torch.isfinite(k8).all()
+    assert torch.isfinite(k32).all()
+    assert float(cos8.min()) >= 0.9999, cos8
+    assert float(cos32.min()) >= 0.999, cos32
+    return {'b8_kernel_vs_plain_min_cos': float(cos8.min()),
+            'b32_bf16_vs_fp32_min_cos': float(cos32.min())}
+
+
 BWD = ('inter_conv_dtable', 'inter_conv_dw', 'intra_conv_df', 'intra_conv_dw')
 
 
@@ -374,14 +644,16 @@ def phase_backward_kernels(device):
         ok = rel <= tol and bool(torch.isfinite(got).all())
         k_ms = time_ms(lambda: kern_fn(*args), reps=5, warmup=2)
         p_ms = time_ms(lambda: plain_fn(*pargs), reps=5, warmup=2)
+        b_ms, o_ms = bound_ms(name, args, got)
         shape = tuple(want.shape)
         log(f'[backward] {name} L{layer} (out {shape}): max_abs_err='
             f'{max_err:.3e} rel_norm_err={rel:.3e} [rel_norm<={tol:.0e}] '
-            f'kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} '
-            f'{"OK" if ok else "FAIL"}')
+            f'kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms='
+            f'{max(b_ms, o_ms):.4f} {"OK" if ok else "FAIL"}')
         results[name].append({'layer': layer, 'shape': str(shape),
                               'max_abs_err': max_err, 'rel_norm_err': rel,
-                              'ms': k_ms, 'plain_ms': p_ms, 'ok': ok})
+                              'ms': k_ms, 'plain_ms': p_ms, 'bytes_ms': b_ms,
+                              'ops_ms': o_ms, 'ok': ok})
         if not ok:
             failures.append(f'{name} L{layer}')
         del got, want
@@ -621,9 +893,15 @@ def main():
         results = phase_kernels(model, device)
         model_err = phase_model(model, device)
         forward = phase_forward_time(model, device)
+        torch.cuda.empty_cache()
+        bf16_results = phase_bf16_kernels(model, device)
+        torch.cuda.empty_cache()
+        bf16_model = phase_bf16_model(model, device)
+        bf16_forward = phase_forward_time(model, device, dtype='bf16')
         del model
         torch.cuda.empty_cache()
         eval_counts, n_batches = phase_eval()
+        bf16_counts, bf16_batches = phase_eval('bf16')
         results.update(phase_backward_kernels(device))
         torch.cuda.empty_cache()
         train_step = phase_train_step(device)
@@ -641,31 +919,44 @@ def main():
         'nvidia-smi unavailable'
     summary = []
     for k in kernels.KERNELS:
-        rows = results[k.name]
+        # the numbers of the path that runs the kernel: this slice's bf16
+        # eval for the production kernels, the fp32 forward (b=32) or the
+        # train step's backward (b=12) for the others; `launches` from the
+        # bf16 eval entry run, else from the fp32 train entry run
+        rows = bf16_results.get(k.name) or results[k.name]
         rec = {'name': k.name, 'route': 'cuda', 'source': k.source,
-               'replaces': k.replaces, 'launches': counts[k.name],
-               'max_abs_err': max(r['max_abs_err'] for r in rows),
-               'ms': sum(r['ms'] for r in rows),
-               'plain_ms': sum(r['plain_ms'] for r in rows)}
+               'replaces': k.replaces,
+               'launches': bf16_counts[k.name] or counts[k.name]}
+        rec.update(_aggregate(rows))
+        rec['phase'] = ('bf16 forward b=32' if k.name in bf16_results else
+                        'fp32 forward b=32' if k.name in FWD else
+                        'fp32 train step b=12')
+        if k.name in bf16_results and k.name in results:
+            rec['fp32'] = _aggregate(results[k.name])
         if k.name == 'intra_conv':
             # df runs this kernel (b=12 train step); ms above: b=32 forward
-            df = results['intra_conv_df']
-            rec['max_abs_err'] = max([rec['max_abs_err']]
-                                     + [r['max_abs_err'] for r in df])
-            rec['df_ms'] = sum(r['ms'] for r in df)
-            rec['df_plain_ms'] = sum(r['plain_ms'] for r in df)
-        rec['eval_launches'] = eval_counts[k.name]
+            rec['df'] = _aggregate(results['intra_conv_df'])
+            rec['max_abs_err'] = max(rec['max_abs_err'],
+                                     rec['df']['max_abs_err'])
+        rec.update({'bf16_eval_launches': bf16_counts[k.name],
+                    'eval_launches': eval_counts[k.name],
+                    'train_entry_launches': counts[k.name]})
         summary.append(rec)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke_results.json'), 'w') as f:
         json.dump({'card': card, 'device': torch.cuda.get_device_name(0),
                    'torch': torch.__version__, 'cuda': torch.version.cuda,
                    'batch': BATCH, 'train_batch': TRAIN_BATCH,
-                   'per_layer': results, 'model_b8_max_abs_err': model_err,
-                   'forward_b32': forward, 'train_step_b12': train_step,
+                   'per_layer': results, 'bf16_per_layer': bf16_results,
+                   'model_b8_max_abs_err': model_err, 'bf16_model': bf16_model,
+                   'forward_b32': forward, 'bf16_forward_b32': bf16_forward,
+                   'train_step_b12': train_step,
                    'eval_batches': n_batches, 'eval_launches': eval_counts,
+                   'bf16_eval_batches': bf16_batches,
+                   'bf16_eval_launches': bf16_counts,
                    'train_launches': counts, 'train_entry_wall_s': train_wall,
-                   'seconds': time.time() - t_start}, f, indent=1)
+                   'kernels': summary, 'seconds': time.time() - t_start},
+                  f, indent=1)
     log(f'[done] {time.time() - t_start:.1f} s')
     print(json.dumps({'kernels': summary}))
     print(card)

@@ -1,8 +1,8 @@
 """Hierarchical config surface (copy of ``epn_pointcloud_tpu/app/config.py``:
 the reference's groups, flags and defaults). The TPU-only --mesh-anchor
 is left out; --steps-per-dispatch is parsed so that a value above 1 is
-refused rather than ignored; --compute-dtype takes fp32 only in this port
-so far."""
+refused rather than ignored; --compute-dtype bf16 serves (eval) only in this
+port so far."""
 
 from __future__ import annotations
 
@@ -89,9 +89,9 @@ def build_parser() -> HierarchyArgumentParser:
     train.add_argument('--debug-mode', type=str, default=None)
     train.add_argument('--steps-per-dispatch', type=int, default=1)
     # compute precision of the conv path (not in the reference options
-    # surface); fp32 is the parity mode and the only one ported so far
+    # surface): fp32 is the parity mode, bf16 the production mode
     train.add_argument('--compute-dtype', type=str, default='fp32',
-                       choices=['fp32'])
+                       choices=['fp32', 'bf16'])
 
     lr = parser.add_parser('train_lr')
     lr.add_argument('-lr', '--init-lr', type=float, default=1e-3)

@@ -6,7 +6,10 @@ model -> optimizer -> resume. Checkpoints are the port's own ``state_dict``
 files (``torch.save``, ``<ckpt>/<experiment>_net_<step>.pth``); ``-r PATH``
 loads one, and without it the weights come from a seeded init.
 ``save_full_state`` adds the optimizer state and the iteration for an exact
-resume.
+resume. The run goes on the CUDA device unless the caller names another
+(``device='cpu'``, as the CPU tests do); without a CUDA device and with none
+named it refuses to start. ``--compute-dtype`` sets the conv path's
+precision policy (``ops.so3conv.set_compute_dtype``) for the process.
 """
 
 from __future__ import annotations
@@ -21,12 +24,19 @@ import numpy as np
 import torch
 
 from .. import train as train_lib
+from ..ops import so3conv
 from . import config as config_lib
 from .logger import Logger, Summary, Timer
 
 
-def pick_device() -> torch.device:
-    return torch.device('cuda' if torch.cuda.is_available() else 'cpu')
+def pick_device(device=None) -> torch.device:
+    """The device a run uses: the one named, else CUDA, which must exist."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: the port runs on the card; pass '
+                           "device='cpu' to run on the CPU on purpose")
+    return torch.device('cuda')
 
 
 def set_fp32_parity() -> None:
@@ -40,8 +50,15 @@ class Trainer:
     def __init__(self, opt, device: Optional[torch.device] = None):
         opt_dict = config_lib.dump_args(opt)
         self.opt = opt
-        self.device = device or pick_device()
+        dtype = getattr(opt, 'compute_dtype', 'fp32')
+        if opt.mode == 'train' and dtype != 'fp32':
+            raise NotImplementedError(
+                f'--compute-dtype {dtype} training is not ported yet (the '
+                f'next slice: the prenorm intra backward and the grouped-conv '
+                f'backward kernels); train in fp32')
+        self.device = pick_device(device)
         set_fp32_parity()
+        so3conv.set_compute_dtype(dtype)
 
         random.seed(opt.seed)
         np.random.seed(opt.seed)

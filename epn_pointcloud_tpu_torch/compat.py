@@ -54,25 +54,37 @@ def _numbered(tree, prefix):
                   key=lambda k: int(k.rsplit('_', 1)[1]))
 
 
+def separable_block_state(p, s, base: str = '') -> 'OrderedDict[str, torch.Tensor]':
+    """One JAX ``SeparableSO3ConvBlock``'s params ``p`` and batch_stats ``s``
+    -> the port's ``SeparableSO3ConvBlock`` state_dict entries, under the
+    key prefix ``base``."""
+    pre = f'{base}.' if base else ''
+    sd = OrderedDict()
+    inter_p = p['InterSO3ConvBlock_0']
+    sd[f'{pre}inter_conv.conv.basic_conv.W'] = _so3_w(
+        inter_p['InterSO3Conv_0']['W'])
+    _bn(sd, f'{pre}inter_conv.norm', inter_p['BatchNorm_0'],
+        s['InterSO3ConvBlock_0']['BatchNorm_0'])
+    sd[f'{pre}intra_conv.conv.basic_conv.W'] = _so3_w(
+        p['IntraSO3ConvBlock_0']['IntraSO3Conv_0']['W'])
+    _dense(sd, f'{pre}skip_conv', p['Dense1x1_0'])
+    _bn(sd, f'{pre}norm', p['BatchNorm_0'], s['BatchNorm_0'])
+    return sd
+
+
 def from_jax_variables(variables: Dict[str, Any]) -> 'OrderedDict[str, torch.Tensor]':
-    """JAX cls_so3net_pn variables -> the port's state_dict."""
+    """JAX cls_so3net_pn variables -> the port's state_dict. Parameters are
+    fp32 in both packages, so the same state_dict serves both compute
+    dtypes."""
     params, stats = variables['params'], variables.get('batch_stats', {})
     sd = OrderedDict()
     for top in _numbered(params, 'BasicSO3ConvBlock_'):
         i = int(top.rsplit('_', 1)[1])
         for blk in _numbered(params[top], 'SeparableSO3ConvBlock_'):
             j = int(blk.rsplit('_', 1)[1])
-            base = f'backbone.{i}.blocks.{j}'
-            p, s = params[top][blk], stats[top][blk]
-            inter_p = p['InterSO3ConvBlock_0']
-            sd[f'{base}.inter_conv.conv.basic_conv.W'] = _so3_w(
-                inter_p['InterSO3Conv_0']['W'])
-            _bn(sd, f'{base}.inter_conv.norm', inter_p['BatchNorm_0'],
-                s['InterSO3ConvBlock_0']['BatchNorm_0'])
-            sd[f'{base}.intra_conv.conv.basic_conv.W'] = _so3_w(
-                p['IntraSO3ConvBlock_0']['IntraSO3Conv_0']['W'])
-            _dense(sd, f'{base}.skip_conv', p['Dense1x1_0'])
-            _bn(sd, f'{base}.norm', p['BatchNorm_0'], s['BatchNorm_0'])
+            sd.update(separable_block_state(params[top][blk],
+                                            stats[top][blk],
+                                            f'backbone.{i}.blocks.{j}'))
         extra = set(params[top]) - set(_numbered(params[top],
                                                  'SeparableSO3ConvBlock_'))
         if extra:

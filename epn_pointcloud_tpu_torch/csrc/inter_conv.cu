@@ -40,6 +40,11 @@
 // flight while the current ones are used).
 // Per step of the reduction a thread reads 2 + 2 float4 from shared memory
 // for 64 FMAs. The [b, p, a, k, c] tensor never exists in device memory.
+//
+// Element type: the table, W and out are fp32 (parity mode) or bf16 (the
+// production mode of the _call_gather_w forms in bf16); gx, rk and k2 stay
+// fp32, and every product and sum is fp32 (bf16 exists only in device
+// memory: it is widened on load, and out is rounded once on store).
 
 #include <cuda_runtime.h>
 
@@ -85,8 +90,8 @@ __host__ __device__ inline Smem layout(int bm, int bn, int K, int na, int nn) {
 
 // W rows of slab s of channel chunk c0 into registers: slab row r is chunk
 // row k * CC + cc, i.e. W row k * C + c0 + cc.
-template <int BM, int BN>
-__device__ __forceinline__ void load_w(const float* __restrict__ W, int s,
+template <int BM, int BN, typename T>
+__device__ __forceinline__ void load_w(const T* __restrict__ W, int s,
                                        int c0, int C, int D, int n0, int tid,
                                        float4 (&rb)[Cfg<BM, BN>::kBLoads]) {
 #pragma unroll
@@ -94,8 +99,7 @@ __device__ __forceinline__ void load_w(const float* __restrict__ W, int s,
     const int e = tid + i * Cfg<BM, BN>::kThreads;
     const int r = s * BK + e / (BN / 4), c4 = e % (BN / 4);
     const int k = r / CC, cc = r - k * CC;
-    rb[i] = *reinterpret_cast<const float4*>(
-        W + ((size_t)k * C + c0 + cc) * D + n0 + 4 * c4);
+    rb[i] = epn::load4(W + ((size_t)k * C + c0 + cc) * D + n0 + 4 * c4);
   }
 }
 
@@ -108,12 +112,12 @@ __device__ __forceinline__ void store_w(float* __restrict__ Bs, int tid,
   }
 }
 
-template <int BM, int BN>
+template <int BM, int BN, typename T>
 __global__ void __launch_bounds__(Cfg<BM, BN>::kThreads)
 inter_conv_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
-                  const float* __restrict__ table,
+                  const T* __restrict__ table,
                   const float* __restrict__ rk, const float* __restrict__ k2,
-                  const float* __restrict__ W, float* __restrict__ out, int M,
+                  const T* __restrict__ W, T* __restrict__ out, int M,
                   int p2, int nn, int q, int na, int K, int C, int D,
                   float inv_sigma) {
   using G = Cfg<BM, BN>;
@@ -195,52 +199,44 @@ inter_conv_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + ty + i * (BM / TM);
     if (gm < M) {
-      float* op = out + (size_t)gm * D + n0;
-      *reinterpret_cast<float4*>(op + tx * 4) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      *reinterpret_cast<float4*>(op + BN / 2 + tx * 4) =
-          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+      T* op = out + (size_t)gm * D + n0;
+      epn::store4(op + tx * 4,
+                  make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+      epn::store4(op + BN / 2 + tx * 4,
+                  make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
     }
   }
 }
 
-template <int BM, int BN>
-int launch(const float* gx, const int* idx, const float* table,
-           const float* rk, const float* k2, const float* W, float* out, int M,
+template <int BM, int BN, typename T>
+int launch(const float* gx, const int* idx, const T* table,
+           const float* rk, const float* k2, const T* W, T* out, int M,
            int p2, int nn, int q, int na, int K, int C, int D, float sigma,
            cudaStream_t stream) {
   const Smem L = layout(BM, BN, K, na, nn);
   if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      inter_conv_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      inter_conv_kernel<BM, BN, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L.total);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((M + BM - 1) / BM, D / BN);
-  inter_conv_kernel<BM, BN><<<grid, Cfg<BM, BN>::kThreads, L.total, stream>>>(
+  inter_conv_kernel<BM, BN, T><<<grid, Cfg<BM, BN>::kThreads, L.total, stream>>>(
       gx, idx, table, rk, k2, W, out, M, p2, nn, q, na, K, C, D, 1.f / sigma);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// gx [b, p2, nn, 3], idx [b, p2, nn] int32 in [0, q] (q = shadow, zero row),
-// table [b, q, na, C], rk [na, K, 3], k2 [K], W [K, C, D],
-// out [b, p2, na, D]. C must be a multiple of 8, K of 6, D of 32.
-extern "C" int epn_inter_conv(const void* gx, const void* idx, const void* table,
-                              const void* rk, const void* k2, const void* W,
-                              void* out, int b, int p2, int nn, int q, int na,
-                              int K, int C, int D, float sigma, void* stream) {
-  if (C % CC != 0 || K % KG != 0 || D % 32 != 0 || nn < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = (cudaStream_t)stream;
+template <typename T>
+int dispatch(const void* gx, const void* idx, const void* table,
+             const void* rk, const void* k2, const void* W, void* out,
+             int b, int p2, int nn, int q, int na, int K, int C, int D,
+             float sigma, cudaStream_t s) {
   const float* g = (const float*)gx;
   const int* ix = (const int*)idx;
-  const float* t = (const float*)table;
+  const T* t = (const T*)table;
   const float* r = (const float*)rk;
   const float* kk = (const float*)k2;
-  const float* w = (const float*)W;
-  float* o = (float*)out;
+  const T* w = (const T*)W;
+  T* o = (T*)out;
   const int M = b * p2 * na;
   if (D % 256 == 0) {
     return launch<64, 256>(g, ix, t, r, kk, w, o, M, p2, nn, q, na, K, C, D, sigma, s);
@@ -252,4 +248,27 @@ extern "C" int epn_inter_conv(const void* gx, const void* idx, const void* table
     return launch<128, 64>(g, ix, t, r, kk, w, o, M, p2, nn, q, na, K, C, D, sigma, s);
   }
   return launch<128, 32>(g, ix, t, r, kk, w, o, M, p2, nn, q, na, K, C, D, sigma, s);
+}
+
+}  // namespace
+
+// gx [b, p2, nn, 3], idx [b, p2, nn] int32 in [0, q] (q = shadow, zero row),
+// table [b, q, na, C], rk [na, K, 3], k2 [K], W [K, C, D],
+// out [b, p2, na, D]; table, W and out fp32, or bf16 when bf16 != 0. C must
+// be a multiple of 8, K of 6, D of 32.
+extern "C" int epn_inter_conv(const void* gx, const void* idx, const void* table,
+                              const void* rk, const void* k2, const void* W,
+                              void* out, int b, int p2, int nn, int q, int na,
+                              int K, int C, int D, float sigma, int bf16,
+                              void* stream) {
+  if (C % CC != 0 || K % KG != 0 || D % 32 != 0 || nn < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) {
+    return dispatch<epn::bf16>(gx, idx, table, rk, k2, W, out, b, p2, nn, q,
+                               na, K, C, D, sigma, s);
+  }
+  return dispatch<float>(gx, idx, table, rk, k2, W, out, b, p2, nn, q, na, K,
+                         C, D, sigma, s);
 }

@@ -8,11 +8,14 @@
 // for one flattened (point, anchor) row and one group of KG kernel points,
 // over a chunk of CC channels. The neighbor coordinates (x, y, z, |gx|^2)
 // and indices of the block's points are staged in shared memory by the
-// caller; the shadow index (== q) reads a zero row.
+// caller; the shadow index (== q) reads a zero row. The table is fp32 or
+// bf16 (elem.cuh); the weights and the sums are fp32.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "elem.cuh"
 
 namespace epn_inter {
 
@@ -29,8 +32,9 @@ __device__ __forceinline__ float anchor_weight(const float4& g, const float4& r,
 // Writes F[row, kg * KG + kq, cc] (kq < KG, cc < CC) to fr[kq * CC + cc];
 // zeros for a row past M. gm = the flat row, pt0 = the first point whose
 // neighbors sit in s_gx / s_idx, p2 = points a cloud.
+template <typename T>
 __device__ __forceinline__ void build_f_item(
-    float* __restrict__ fr, const float* __restrict__ table,
+    float* __restrict__ fr, const T* __restrict__ table,
     const float* __restrict__ rk, const float* __restrict__ k2,
     const float4* __restrict__ s_gx, const int* __restrict__ s_idx, int gm,
     int M, int pt0, int p2, int nn, int q, int na, int K, int C, int c0,
@@ -43,7 +47,7 @@ __device__ __forceinline__ void build_f_item(
   }
   if (gm < M) {
     const int pt = gm / na, a = gm - pt * na;
-    const float* tb = table + ((size_t)(pt / p2) * q * na + a) * C + c0;
+    const T* tb = table + ((size_t)(pt / p2) * q * na + a) * C + c0;
     const float4* g4 = s_gx + (pt - pt0) * nn;
     const int* ix = s_idx + (pt - pt0) * nn;
     float4 r[KG];
@@ -55,14 +59,9 @@ __device__ __forceinline__ void build_f_item(
 #pragma unroll 4
     for (int n = 0; n < nn; ++n) {
       const int j = ix[n];
-      float4 t0 = make_float4(0.f, 0.f, 0.f, 0.f), t1 = t0;
-      if (j < q) {
-        const float4* tp = reinterpret_cast<const float4*>(tb + (size_t)j * na * C);
-        t0 = tp[0];
-        t1 = tp[1];
-      }
+      float t[CC] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (j < q) epn::load8(tb + (size_t)j * na * C, t);
       const float4 g = g4[n];
-      const float t[CC] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
 #pragma unroll
       for (int kq = 0; kq < KG; ++kq) {
         const float w = anchor_weight(g, r[kq], inv_sigma);

@@ -27,6 +27,19 @@
 // Per step of the reduction a thread reads 2 + 2 float4 for 64 FMAs.
 // trace_idx is staged in shared memory once a block.
 //
+// Element type and prenorm: f, W and out are fp32 (parity mode) or bf16
+// (production mode); products and sums are fp32, and out is rounded once on
+// store. The PRENORM form (production mode; replaces _fwd_pallas ->
+// _kernel_prenorm of intra_conv_prenorm) applies the preceding inter
+// conv's deferred norm and activation on load,
+//   z[b, p, x, c] = act(f[b, p, x, c] * scale[b, x*C + c] + shift[b, x*C + c])
+// rounded to the element type (where _apply_prenorm rounds), then runs the
+// same product on z. scale and shift are fp32 lanes [b or 1, 2, na*C] (row
+// 0 scale, row 1 shift; batch stride 0 broadcasts one fold); act is the
+// leaky ReLU with mask u > 0. The TPU's [b, 8, L] sublane padding does not
+// come over. A prenorm load costs two more 16-byte reads of the (cached)
+// fold and four FMAs per four elements.
+//
 // Backward. df needs no kernel of its own: every column k of trace_idx is a
 // permutation of the anchors, so with inv[x, k] the one a with
 // trace_idx[a, k] == x,
@@ -48,6 +61,7 @@
 
 #include <cuda_runtime.h>
 
+#include "elem.cuh"
 #include "split_sum.cuh"
 
 namespace {
@@ -67,14 +81,26 @@ struct Tile {
   static_assert(kBLoads * kThreads * 4 == BK * BN, "B tile split");
 };
 
+// z = act(v * scale + shift) per lane, rounded to the element type E
+template <typename E>
+__device__ __forceinline__ float4 prenorm4(float4 v, const float* ss, int L) {
+  const float4 sc = *reinterpret_cast<const float4*>(ss);
+  const float4 sh = *reinterpret_cast<const float4*>(ss + L);
+  return make_float4(epn::round_to<E>(epn::leaky(fmaf(v.x, sc.x, sh.x))),
+                     epn::round_to<E>(epn::leaky(fmaf(v.y, sc.y, sh.y))),
+                     epn::round_to<E>(epn::leaky(fmaf(v.z, sc.z, sh.z))),
+                     epn::round_to<E>(epn::leaky(fmaf(v.w, sc.w, sh.w))));
+}
+
 // The global loads of reduction slice kk0 into registers: ra for the
-// gathered A rows, rb for the W rows.
-template <int BN>
+// gathered A rows (through the prenorm when PRE), rb for the W rows.
+template <typename E, bool PRE, int BN>
 __device__ __forceinline__ void load_slice(
-    const float* __restrict__ W, const int* __restrict__ s_trace,
-    const float* (&a_pt)[Tile<BN>::kALoads],
+    const E* __restrict__ W, const int* __restrict__ s_trace,
+    const E* (&a_pt)[Tile<BN>::kALoads],
+    const float* (&a_ss)[Tile<BN>::kALoads],
     const int (&a_anchor)[Tile<BN>::kALoads], int kk0, int tid, int K, int C,
-    int D, int n0, float4 (&ra)[Tile<BN>::kALoads],
+    int D, int n0, int L, float4 (&ra)[Tile<BN>::kALoads],
     float4 (&rb)[Tile<BN>::kBLoads]) {
   using T = Tile<BN>;
   const int KC = K * C;
@@ -84,16 +110,16 @@ __device__ __forceinline__ void load_slice(
     ra[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (a_anchor[i] >= 0 && kk < KC) {
       const int k = kk / C, c = kk - k * C;
-      ra[i] = *reinterpret_cast<const float4*>(
-          a_pt[i] + (size_t)s_trace[a_anchor[i] * K + k] * C + c);
+      const int lane = s_trace[a_anchor[i] * K + k] * C + c;
+      ra[i] = epn::load4(a_pt[i] + lane);
+      if (PRE) ra[i] = prenorm4<E>(ra[i], a_ss[i] + lane, L);
     }
   }
 #pragma unroll
   for (int i = 0; i < T::kBLoads; ++i) {
     const int e = tid + i * T::kThreads;
     const int kk = kk0 + e / (BN / 4), c4 = e % (BN / 4);
-    rb[i] = kk < KC ? *reinterpret_cast<const float4*>(
-                          W + (size_t)kk * D + n0 + 4 * c4)
+    rb[i] = kk < KC ? epn::load4(W + (size_t)kk * D + n0 + 4 * c4)
                     : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
@@ -121,12 +147,14 @@ __device__ __forceinline__ void store_slice(
   }
 }
 
-template <int BN>
+// PRE: ss is the prenorm fold [., 2, na * C] at batch stride ss_stride
+// (a template flag, so the plain form carries no prenorm registers)
+template <typename E, bool PRE, int BN>
 __global__ void __launch_bounds__(Tile<BN>::kThreads)
-intra_conv_kernel(const float* __restrict__ f,
-                  const int* __restrict__ trace_idx,
-                  const float* __restrict__ W, float* __restrict__ out, int M,
-                  int na, int K, int C, int D) {
+intra_conv_kernel(const E* __restrict__ f, const int* __restrict__ trace_idx,
+                  const E* __restrict__ W, const float* __restrict__ ss,
+                  E* __restrict__ out, int M, int P, int na, int K, int C,
+                  int D, int ss_stride) {
   using T = Tile<BN>;
   __shared__ __align__(16) float As[2][BK][BM];
   __shared__ __align__(16) float Bs[2][BK][BN];
@@ -141,7 +169,8 @@ intra_conv_kernel(const float* __restrict__ f,
   // this thread's A rows are fixed over the reduction: the point's feature
   // rows and the anchor, per staged float4 (row = e / 4, slice quad = e % 4:
   // four lanes read one row's 64 contiguous bytes)
-  const float* a_pt[T::kALoads];
+  const E* a_pt[T::kALoads];
+  const float* a_ss[T::kALoads];
   int a_anchor[T::kALoads];
 #pragma unroll
   for (int i = 0; i < T::kALoads; ++i) {
@@ -149,7 +178,9 @@ intra_conv_kernel(const float* __restrict__ f,
     const int pt = gm / na;
     a_anchor[i] = gm < M ? gm - pt * na : -1;
     a_pt[i] = f + (size_t)pt * na * C;
+    a_ss[i] = PRE ? ss + (size_t)(pt / P) * ss_stride : nullptr;
   }
+  const int L = na * C;
 
   float acc[TM][TN];
 #pragma unroll
@@ -159,15 +190,16 @@ intra_conv_kernel(const float* __restrict__ f,
   }
 
   float4 ra[T::kALoads], rb[T::kBLoads];
-  load_slice<BN>(W, s_trace, a_pt, a_anchor, 0, tid, K, C, D, n0, ra, rb);
+  load_slice<E, PRE, BN>(W, s_trace, a_pt, a_ss, a_anchor, 0, tid, K, C, D, n0,
+                         L, ra, rb);
   store_slice<BN>(As[0], Bs[0], tid, ra, rb);
   __syncthreads();
   const int n_slices = (K * C + BK - 1) / BK;
   for (int s = 0; s < n_slices; ++s) {
     const int buf = s & 1;
     if (s + 1 < n_slices) {
-      load_slice<BN>(W, s_trace, a_pt, a_anchor, (s + 1) * BK, tid, K, C, D,
-                     n0, ra, rb);
+      load_slice<E, PRE, BN>(W, s_trace, a_pt, a_ss, a_anchor, (s + 1) * BK,
+                             tid, K, C, D, n0, L, ra, rb);
     }
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
@@ -193,22 +225,49 @@ intra_conv_kernel(const float* __restrict__ f,
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + (i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + i - 4);
     if (gm < M) {
-      float* op = out + (size_t)gm * D + n0;
-      *reinterpret_cast<float4*>(op + tx * 4) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      *reinterpret_cast<float4*>(op + BN / 2 + tx * 4) =
-          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+      E* op = out + (size_t)gm * D + n0;
+      epn::store4(op + tx * 4,
+                  make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+      epn::store4(op + BN / 2 + tx * 4,
+                  make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
     }
   }
 }
 
-template <int BN>
-int launch(const float* f, const int* trace_idx, const float* W, float* out,
-           int M, int na, int K, int C, int D, cudaStream_t stream) {
-  dim3 grid((M + BM - 1) / BM, D / BN);
-  intra_conv_kernel<BN><<<grid, Tile<BN>::kThreads, 0, stream>>>(
-      f, trace_idx, W, out, M, na, K, C, D);
+template <typename E, bool PRE>
+int launch_fwd(const void* f, const int* trace_idx, const void* W,
+               const float* ss, void* out, int M, int P, int na, int K, int C,
+               int D, int ss_stride, cudaStream_t s) {
+  const E* fp = (const E*)f;
+  const E* wp = (const E*)W;
+  E* op = (E*)out;
+  const unsigned gx = (M + BM - 1) / BM;
+  if (D % 128 == 0) {
+    intra_conv_kernel<E, PRE, 128><<<dim3(gx, D / 128), Tile<128>::kThreads, 0,
+                                     s>>>(fp, trace_idx, wp, ss, op, M, P, na,
+                                          K, C, D, ss_stride);
+  } else if (D % 64 == 0) {
+    intra_conv_kernel<E, PRE, 64><<<dim3(gx, D / 64), Tile<64>::kThreads, 0,
+                                    s>>>(fp, trace_idx, wp, ss, op, M, P, na,
+                                         K, C, D, ss_stride);
+  } else {
+    intra_conv_kernel<E, PRE, 32><<<dim3(gx, D / 32), Tile<32>::kThreads, 0,
+                                    s>>>(fp, trace_idx, wp, ss, op, M, P, na,
+                                         K, C, D, ss_stride);
+  }
   return (int)cudaGetLastError();
+}
+
+template <typename E>
+int launch(const void* f, const int* trace_idx, const void* W,
+           const float* ss, void* out, int M, int P, int na, int K, int C,
+           int D, int ss_stride, cudaStream_t s) {
+  if (ss != nullptr) {
+    return launch_fwd<E, true>(f, trace_idx, W, ss, out, M, P, na, K, C,
+                               D, ss_stride, s);
+  }
+  return launch_fwd<E, false>(f, trace_idx, W, ss, out, M, P, na, K, C, D,
+                              ss_stride, s);
 }
 
 constexpr int WBK = 16;  // rows a reduction slice of dW
@@ -312,22 +371,27 @@ int launch_dw(const float* f, const int* trace_idx, const float* dout,
 }  // namespace
 
 // f [b, P, na, C], trace_idx [na, K] int32 (device), W [K, C, D],
-// out [b, P, na, D]; C must be a multiple of 4 and D of 32.
+// out [b, P, na, D]: fp32, or bf16 when bf16 != 0. ss: null, or the
+// prenorm fold fp32 [., 2, na * C] at batch stride ss_stride (elements; 0
+// broadcasts one fold), applied with the leaky ReLU. C must be a
+// multiple of 4 and D of 32.
 extern "C" int epn_intra_conv(const void* f, const void* trace_idx,
-                              const void* W, void* out, int b, int P, int na,
-                              int K, int C, int D, void* stream) {
+                              const void* W, const void* ss, void* out, int b,
+                              int P, int na, int K, int C, int D,
+                              int ss_stride, int bf16,
+                              void* stream) {
   if (na * K > kMaxTrace || C % 4 != 0 || D % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  const float* fp = (const float*)f;
   const int* tp = (const int*)trace_idx;
-  const float* wp = (const float*)W;
-  float* op = (float*)out;
+  const float* sp = (const float*)ss;
   const int M = b * P * na;
-  if (D % 128 == 0) return launch<128>(fp, tp, wp, op, M, na, K, C, D, s);
-  if (D % 64 == 0) return launch<64>(fp, tp, wp, op, M, na, K, C, D, s);
-  return launch<32>(fp, tp, wp, op, M, na, K, C, D, s);
+  if (bf16) {
+    return launch<epn::bf16>(f, tp, W, sp, out, M, P, na, K, C, D, ss_stride,
+                             s);
+  }
+  return launch<float>(f, tp, W, sp, out, M, P, na, K, C, D, ss_stride, s);
 }
 
 // f [b, P, na, C], trace_idx [na, K] int32, dout [b, P, na, D]; ws

@@ -1,7 +1,12 @@
-"""Conv blocks (counterpart of ``epn_pointcloud_tpu/nn/blocks.py``, fp32,
-unpacked [b, p, a, c] activations). Train and eval differ only in the
-BatchNorms, through ``module.train()`` / ``.eval()``; the JAX package's fused
-eval tail is bf16 packed-layout only and has no fp32 counterpart.
+"""Conv blocks (counterpart of ``epn_pointcloud_tpu/nn/blocks.py``), over
+[b, p, a, c] activations. In fp32, train and eval differ only in the
+BatchNorms, through ``module.train()`` / ``.eval()``. In the bf16 production
+mode (``ops.so3conv.packed_enabled()``; eval only so far) a separable block
+runs the JAX packed path: the inter conv's BatchNorm and activation are
+deferred into the intra conv's load path (PRENORM kernel), and the intra
+InstanceNorm, the skip 1x1 conv, its BatchNorm, both activations and the
+residual add run in one fused tail kernel, except at block 0 layer 0 (the
+occupancy-ones input), whose rank-1 skip keeps the unfused tail.
 
 Module names follow the original EPN tree
 (``backbone.{i}.blocks.{j}.{inter_conv,intra_conv,skip_conv,norm}``).
@@ -13,7 +18,7 @@ from typing import Any, Dict, Sequence
 
 from torch import nn
 
-from ..ops import sampling
+from ..ops import sampling, so3conv
 from ..ops.so3conv import SphericalPointCloud
 from .layers import (BatchNorm, Dense1x1, InstanceNorm, InterSO3Conv,
                      IntraSO3Conv, get_activation)
@@ -33,8 +38,14 @@ class IntraSO3ConvBlock(nn.Module):
         self.norm = InstanceNorm()
         self.act = get_activation(activation)
 
-    def forward(self, x: SphericalPointCloud) -> SphericalPointCloud:
-        x = self.conv(x)
+    def forward(self, x: SphericalPointCloud, prenorm=None,
+                defer_norm_act: bool = False):
+        """prenorm: the preceding norm's fold for the conv's load path.
+        defer_norm_act: return (raw conv output, its InstanceNorm folded to
+        per-lane [b, 2, L]) for a fused tail to apply."""
+        x = self.conv(x, prenorm=prenorm)
+        if defer_norm_act:
+            return x, self.norm.scale_shift(x.feats)
         return SphericalPointCloud(x.xyz, self.act(self.norm(x.feats)),
                                    x.anchors)
 
@@ -56,8 +67,14 @@ class InterSO3ConvBlock(nn.Module):
         self.norm = BatchNorm(dim_out)
         self.act = get_activation(activation)
 
-    def forward(self, x: SphericalPointCloud, ones_input: bool = False):
+    def forward(self, x: SphericalPointCloud, ones_input: bool = False,
+                defer_norm_act: bool = False):
+        """defer_norm_act (eval): return (sample_idx, raw conv output, the
+        BatchNorm folded to per-lane [1, 2, L]) for the next kernel to apply
+        with the activation on load."""
         sample_idx, x = self.conv(x, ones_input=ones_input)
+        if defer_norm_act:
+            return sample_idx, x, self.norm.scale_shift(x.feats.shape[2])
         return sample_idx, SphericalPointCloud(
             x.xyz, self.act(self.norm(x.feats)), x.anchors)
 
@@ -83,19 +100,48 @@ class SeparableSO3ConvBlock(nn.Module):
         self.act = get_activation(p['activation'])
 
     def forward(self, x: SphericalPointCloud, ones_input: bool = False):
+        if so3conv.packed_enabled():
+            return self._forward_packed(x, ones_input)
         skip = x.feats
         sample_idx, x = self.inter_conv(x, ones_input=ones_input)
         x = self.intra_conv(x)
-        if self.stride > 1:
-            if ones_input:
-                # gathering an all-ones field is the identity: rebuild the
-                # constant at the strided point count
-                skip = skip.new_ones((skip.shape[0], x.xyz.shape[1])
-                                     + skip.shape[2:])
-            else:
-                skip = sampling.gather_points(skip, sample_idx)
+        skip = self._strided_skip(skip, x, sample_idx, ones_input)
         skip = self.act(self.norm(self.skip_conv(skip)))
         return SphericalPointCloud(x.xyz, x.feats + skip, x.anchors)
+
+    def _strided_skip(self, skip, x, sample_idx, ones_input):
+        if self.stride == 1:
+            return skip
+        if ones_input:
+            # gathering an all-ones field is the identity: rebuild the
+            # constant at the strided point count
+            return skip.new_ones((skip.shape[0], x.xyz.shape[1])
+                                 + skip.shape[2:])
+        return sampling.gather_points(skip, sample_idx)
+
+    def _forward_packed(self, x: SphericalPointCloud, ones_input: bool):
+        """The bf16 production-mode eval forward (``blocks.py:126-246`` of
+        the JAX package on packed activations)."""
+        if self.training:
+            raise NotImplementedError(
+                'bf16 training is not ported yet (it needs the prenorm intra '
+                'backward and the grouped-conv backward kernels): train in '
+                'fp32')
+        skip = so3conv.at_use(x.feats)
+        sample_idx, x, inter_ss = self.inter_conv(
+            x, ones_input=ones_input, defer_norm_act=True)
+        skip = self._strided_skip(skip, x, sample_idx, ones_input)
+        if ones_input:
+            # rank-1 skip over the constant field: the unfused tail, rounded
+            # after the skip conv, after each norm and after the residual
+            x = self.intra_conv(x, prenorm=inter_ss)
+            skip = self.act(self.norm(self.skip_conv(skip)))
+            return SphericalPointCloud(x.xyz, x.feats + skip, x.anchors)
+        y, main_ss = self.intra_conv(x, prenorm=inter_ss, defer_norm_act=True)
+        feats = so3conv.separable_tail(
+            skip, self.skip_conv.weight_cd(), self.skip_conv.bias,
+            self.norm.scale_shift(y.feats.shape[2]), y.feats, main_ss)
+        return SphericalPointCloud(y.xyz, feats, y.anchors)
 
 
 class BasicSO3ConvBlock(nn.Module):

@@ -2,7 +2,10 @@
 ``epn_pointcloud_tpu/nn/heads.py:81-142``): 1x1 convs + BatchNorm + ReLU ->
 PointnetSO3Conv -> BatchNorm + ReLU -> attention pooling over anchors ->
 linear. Only the 'attention' pooling the ModelNet entry point uses is
-ported.
+ported. In the bf16 production mode the mlp convs run the anchor-grouped
+1x1 conv kernel and their BatchNorm + ReLU round to bf16; the pointnet,
+attention and logits are fp32 in both modes (``heads.py:101-142`` of the
+JAX package).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
+from ..ops import so3conv
 from ..ops.so3conv import SphericalPointCloud
 from .layers import BatchNorm, Dense1x1, PointnetSO3Conv
 
@@ -40,8 +44,10 @@ class ClsOutBlockPointnet(nn.Module):
 
     def forward(self, x: SphericalPointCloud):
         x_out = x.feats
+        grouped = so3conv.packed_enabled()
         for lin, bn in zip(self.linear, self.norm):
-            x_out = torch.relu(bn(lin(x_out)))
+            x_out = torch.relu(bn(lin.grouped(x_out) if grouped
+                                  else lin(x_out)))
         x_out = self.pointnet(SphericalPointCloud(x.xyz, x_out, x.anchors))
         x_out = torch.relu(self.norm[-1](x_out))               # [b, a, c]
         att = self.attention_layer(x_out)                      # [b, a, 1]

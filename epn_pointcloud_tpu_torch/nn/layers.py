@@ -12,6 +12,10 @@ the JAX variable tree through ``epn_pointcloud_tpu/compat.py``:
 Initialization follows the same rules (``init_parameters``): SO(3) conv
 weights xavier-normal with gain sqrt(2) and torch fans (c*k, d*k); 1x1 convs
 kaiming-uniform(a=sqrt(5)), i.e. U(+-1/sqrt(fan_in)) for weight and bias.
+
+Parameters stay fp32 in both compute dtypes; in the bf16 production mode
+(``ops.so3conv.packed_enabled()``) weights are cast at use, activations stay
+bf16 between layers, and norms compute in fp32 and round once.
 """
 
 from __future__ import annotations
@@ -23,15 +27,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import icosahedron, kernel_points, so3conv
+from ..ops.kernels.build import LEAKY_SLOPE, widen
 from ..ops.so3conv import SphericalPointCloud
 
 KERNEL_CONDENSE_RATIO = kernel_points.KERNEL_CONDENSE_RATIO
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    """torch's leaky ReLU, slope 0.01 (its subgradient at 0 is the slope,
-    which the JAX package had to patch in by hand)."""
-    return F.leaky_relu(x, 0.01)
+    """torch's leaky ReLU, slope LEAKY_SLOPE (its subgradient at 0 is the
+    slope, which the JAX package had to patch in by hand)."""
+    return F.leaky_relu(x, LEAKY_SLOPE)
 
 
 def get_activation(name: str):
@@ -60,21 +65,61 @@ class Dense1x1(nn.Module):
             self.weight.uniform_(-bound, bound, generator=gen)
             self.bias.uniform_(-bound, bound, generator=gen)
 
+    def weight_cd(self) -> torch.Tensor:
+        """The [c_in, c_out] matrix of the layer."""
+        return self.weight.reshape(self.c_out, self.c_in).t()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.weight.reshape(self.c_out, self.c_in).t() + self.bias
+        """In x's type (weight and bias cast to it, as the JAX layer does)."""
+        return x @ self.weight_cd().to(x.dtype) + self.bias.to(x.dtype)
+
+    def grouped(self, x: torch.Tensor) -> torch.Tensor:
+        """The anchor-grouped form of the production mode: one [c_in, c_out]
+        weight over every anchor of x [b, p, a, c_in], fp32 accumulation
+        and bias, rounded once to x's type (the grouped-conv kernel)."""
+        return so3conv.grouped_conv1x1(x, self.weight_cd(), self.bias)
 
 
 class InstanceNorm(nn.Module):
     """InstanceNorm2d(affine=False) over [b, p, a, c]: each (b, c) slice is
-    normalized over (p, a) with its biased two-pass variance."""
+    normalized over (p, a) with its biased variance: two-pass in the fp32
+    mode, and in the bf16 production mode (``so3conv.packed_enabled()``) the
+    one-pass E[x^2] - E[x]^2 (clamped at 0) from the moments
+    kernel's per-lane sums, folded per (b, c) in fp32 (the JAX package's
+    ``_packed_instance_norm``)."""
 
     def __init__(self, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
 
+    def _packed_stats(self, x: torch.Tensor):
+        """(mean, rsig) fp32 [b, 1, 1, c] from the per-lane sums."""
+        b, p, na, c = x.shape
+        s, sq = so3conv.moments(x)                          # [b, na*c]
+        n = p * na
+        mean = s.reshape(b, na, c).sum(dim=1) / n
+        var = torch.clamp(sq.reshape(b, na, c).sum(dim=1) / n - mean * mean,
+                          min=0.0)
+        return (mean.reshape(b, 1, 1, c),
+                torch.rsqrt(var + self.eps).reshape(b, 1, 1, c))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        var, mean = torch.var_mean(x, dim=(1, 2), correction=0, keepdim=True)
-        return (x - mean) * torch.rsqrt(var + self.eps)
+        if not so3conv.packed_enabled():
+            var, mean = torch.var_mean(x, dim=(1, 2), correction=0,
+                                       keepdim=True)
+            return (x - mean) * torch.rsqrt(var + self.eps)
+        mean, rsig = self._packed_stats(x)
+        return ((x.float() - mean) * rsig).to(x.dtype)
+
+    def scale_shift(self, x: torch.Tensor) -> torch.Tensor:
+        """The norm folded to per-lane fp32 [b, 2, na*c] (scale; shift), with
+        x * scale + shift == the normalized x: for a kernel that applies it
+        on load (production mode)."""
+        b, _, na, c = x.shape
+        mean, rsig = self._packed_stats(x)
+        ss = torch.stack([rsig, -mean * rsig], dim=1)       # [b, 2, 1, 1, c]
+        return ss.reshape(b, 2, 1, c).expand(b, 2, na, c).reshape(b, 2,
+                                                                  na * c)
 
 
 class BatchNorm(nn.Module):
@@ -108,7 +153,18 @@ class BatchNorm(nn.Module):
                              eps=self.eps)
             return y.reshape(x.shape)
         rsig = torch.rsqrt(self.running_var + self.eps)
-        return (x - self.running_mean) * rsig * self.weight + self.bias
+        y = (widen(x) - self.running_mean) * rsig * self.weight + self.bias
+        return y.to(x.dtype)
+
+    def scale_shift(self, groups: int) -> torch.Tensor:
+        """Eval mode folded to per-lane fp32 [1, 2, groups*c] (scale; shift),
+        the lanes anchor-major: x * scale + shift == the normalized x."""
+        if self.training:
+            raise NotImplementedError('BatchNorm.scale_shift folds the running '
+                                      'statistics: eval mode only')
+        scale = torch.rsqrt(self.running_var + self.eps) * self.weight
+        shift = self.bias - self.running_mean * scale
+        return torch.stack([scale, shift]).repeat(1, groups)[None]
 
 
 class BasicSO3Conv(nn.Module):
@@ -176,9 +232,13 @@ class IntraSO3Conv(nn.Module):
                              persistent=False)
         self.basic_conv = BasicSO3Conv(dim_in, dim_out, ti.shape[1])
 
-    def forward(self, x: SphericalPointCloud) -> SphericalPointCloud:
+    def forward(self, x: SphericalPointCloud,
+                prenorm=None) -> SphericalPointCloud:
+        """prenorm: the preceding norm folded to fp32 lanes [1 or b, 2,
+        60*c], applied with the leaky ReLU on load (production mode)."""
         out = so3conv.intra_so3conv(x.feats, self.trace_idx, self.inv_idx,
-                                    self.basic_conv.weight_kcd())
+                                    self.basic_conv.weight_kcd(),
+                                    prenorm=prenorm)
         return SphericalPointCloud(x.xyz, out, self.anchors)
 
 
@@ -194,7 +254,8 @@ class PointnetSO3Conv(nn.Module):
 
     def forward(self, x: SphericalPointCloud) -> torch.Tensor:
         xyzr = so3conv.pointnet_so3_coords(x.xyz, self.anchors)
-        feats = self.embed(torch.cat([x.feats, xyzr], dim=-1))
+        # fp32 from here on in both modes (the JAX concat promotes bf16)
+        feats = self.embed(torch.cat([widen(x.feats), xyzr], dim=-1))
         return feats.max(dim=1).values
 
 

@@ -18,7 +18,8 @@ from __future__ import annotations
 import contextlib
 from typing import NamedTuple
 
-from . import ball_query, fps, inter_conv, intra_conv
+from . import (ball_query, fps, grouped_conv, inter_conv, intra_conv, moments,
+               ones_conv)
 
 
 class Entry(NamedTuple):
@@ -29,9 +30,10 @@ class Entry(NamedTuple):
     replaces: str    # the TPU kernel (file:line)
 
 
+MODULES = (fps, ball_query, ones_conv, inter_conv, intra_conv, moments,
+           grouped_conv)
 KERNELS = tuple(Entry(name, m, *spec)
-                for m in (fps, ball_query, inter_conv, intra_conv)
-                for name, spec in m.ENTRIES.items())
+                for m in MODULES for name, spec in m.ENTRIES.items())
 
 _PLAIN = False
 

@@ -39,11 +39,23 @@ SIGNATURES = {
     'epn_fps': [_P, _P, _I, _I, _I, _F, _P],
     # query, support, out_idx, b, m, n, n_sample, r2, stream
     'epn_ball_query': [_P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # gx, idx, table, rk, k2, w, out, b, p2, nn, q, na, k, c, d, sigma, stream
+    # gx, idx, table, rk, k2, w, out, b, p2, nn, q, na, k, c, d, sigma,
+    # bf16, stream
     'epn_inter_conv': [_P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # f, trace_idx, w, out, b, p, na, k, c, d, stream
-    'epn_intra_conv': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                       _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # f, trace_idx, w, ss, out, b, p, na, k, c, d, ss_stride, bf16, stream
+    'epn_intra_conv': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P],
+    # gx, rk, k2, out, b, p2, nn, na, k, sigma, bf16, stream
+    'epn_ones_conv': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # x, sum, sumsq, b, rows, lanes, bf16, stream
+    'epn_moments': [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, bias, out, rows, c, d, bf16, stream
+    'epn_grouped_conv': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, bias, ssk, y, ssm, out, b, p, na, c, d, ssk_stride, ssm_stride,
+    # bf16, stream
+    'epn_grouped_conv_tail': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _P],
     # gx, idx, rk, k2, w, dout, d_table, b, p2, nn, q, na, k, c, d, sigma,
     # stream
     'epn_inter_conv_bwd_table': [_P, _P, _P, _P, _P, _P, _P,
@@ -156,17 +168,45 @@ def stream(t) -> int:
 
 def check_operands(kernel: str, dev, want: dict) -> None:
     """Raise unless every operand ``name: (tensor, dtype, shape)`` is a
-    contiguous tensor of that dtype and shape on ``dev``."""
+    contiguous, 16-byte aligned tensor of that dtype and shape on ``dev``."""
     for name, (t, dt, shape) in want.items():
         if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f'{kernel}: {name} must be {dt} {shape} on '
                              f'{dev}, got {t.dtype} {tuple(t.shape)} on '
                              f'{t.device}')
-        if not t.is_contiguous():
-            raise ValueError(f'{kernel}: {name} must be contiguous')
+        if not t.is_contiguous() or t.data_ptr() % 16 != 0:
+            raise ValueError(f'{kernel}: {name} must be contiguous and '
+                             f'16-byte aligned')
 
 
 def n_splits(tiles: int, row_tiles: int, target_blocks: int = 528) -> int:
     """Row ranges of a reduction over rows: enough blocks (tiles x splits)
     to fill the card ~4 blocks an SM (132 SMs), at most one a row tile."""
     return max(1, min(row_tiles, -(-target_blocks // max(tiles, 1))))
+
+
+def dtype_flag(dtype, kernel: str) -> int:
+    """The ``bf16`` flag of the C entry points for a kernel's element type:
+    0 for fp32, 1 for bf16; any other type is refused."""
+    import torch
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'{kernel}: fp32 or bf16 only, got {dtype}')
+    return int(dtype == torch.bfloat16)
+
+
+# The slope of the model's one activation, the leaky ReLU; the kernels hold
+# the same value as ``kLeakySlope`` (csrc/elem.cuh).
+LEAKY_SLOPE = 0.01
+
+
+def leaky(u):
+    """The leaky ReLU with the kernels' mask ``u > 0``."""
+    import torch
+    return torch.where(u > 0, u, LEAKY_SLOPE * u)
+
+
+def widen(t):
+    """t in the type its plain version computes in: bf16 -> fp32; fp32 (and
+    the fp64 of gradient checks) unchanged."""
+    import torch
+    return t.float() if t.dtype == torch.bfloat16 else t

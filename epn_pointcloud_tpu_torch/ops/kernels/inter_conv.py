@@ -19,6 +19,10 @@ with T's shadow index (== q) reading a zero row, and its gradients
 The plain versions are anchor-chunked fp32 formulations (the forward that of
 ``epn_pointcloud_tpu/ops/so3conv.py`` ``inter_so3conv_fused``, XLA path), so
 no [b, p, n, na, *] tensor for all anchors exists at once.
+
+The forward also runs in bf16 (the production mode): the table, W and out
+are bf16, gx, rk and k2 stay fp32, and every product and sum is fp32, with
+out rounded once. The backward kernels are fp32 only.
 """
 
 from __future__ import annotations
@@ -67,13 +71,16 @@ def inter_conv_plain(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
                      rk: torch.Tensor, k2: torch.Tensor, W: torch.Tensor,
                      sigma: float) -> torch.Tensor:
     """gx [b, p2, nn, 3], idx [b, p2, nn] in [0, q], table [b, q, na, c],
-    rk [na, K, 3], k2 [K], W [K, c, d] -> out [b, p2, na, d]."""
+    rk [na, K, 3], k2 [K], W [K, c, d] -> out [b, p2, na, d] (fp32
+    arithmetic, rounded to the table's type)."""
     b, p2, nn = idx.shape
     na, c = table.shape[2], table.shape[3]
     K, d = W.shape[0], W.shape[2]
+    dtype = table.dtype
+    table = build.widen(table)
     table = torch.cat([table, table.new_zeros(b, 1, na, c)], dim=1)
     idx = idx.long()
-    W2 = W.reshape(K * c, d)
+    W2 = build.widen(W).reshape(K * c, d)
     outs = []
     for s in range(0, na, ANCHOR_CHUNK):
         e = min(s + ANCHOR_CHUNK, na)
@@ -81,7 +88,7 @@ def inter_conv_plain(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
         G = _gather_chunk(table, idx, s, e)                  # [b,p,n,ac,c]
         F = torch.einsum('bpnak,bpnac->bpakc', w, G)
         outs.append((F.reshape(-1, K * c) @ W2).reshape(b, p2, e - s, d))
-    return torch.cat(outs, dim=2)
+    return torch.cat(outs, dim=2).to(dtype)
 
 
 def inter_conv_dtable_plain(gx: torch.Tensor, idx: torch.Tensor, q: int,
@@ -125,9 +132,10 @@ def inter_conv_dw_plain(gx: torch.Tensor, idx: torch.Tensor,
 
 
 def _check(kernel, gx, idx, table_shape, rk, k2, W_shape, dout=None,
-           table=None, W=None):
+           table=None, W=None, dtype=torch.float32):
     """Device, dtype, shape, contiguity and kernel-shape checks shared by the
-    three wrappers; returns (b, p2, nn, q, na, K, c, d)."""
+    three wrappers (dtype: that of the table, W and dout); returns
+    (b, p2, nn, q, na, K, c, d)."""
     dev = gx.device
     if dev.type != 'cuda':
         raise ValueError(f'{kernel}: unsupported device {dev}')
@@ -139,11 +147,11 @@ def _check(kernel, gx, idx, table_shape, rk, k2, W_shape, dout=None,
             'rk': (rk, torch.float32, (na, K, 3)),
             'k2': (k2, torch.float32, (K,))}
     if table is not None:
-        want['table'] = (table, torch.float32, (b, q, na, c))
+        want['table'] = (table, dtype, (b, q, na, c))
     if W is not None:
-        want['W'] = (W, torch.float32, (K, c, d))
+        want['W'] = (W, dtype, (K, c, d))
     if dout is not None:
-        want['dout'] = (dout, torch.float32, (b, p2, na, d))
+        want['dout'] = (dout, dtype, (b, p2, na, d))
     build.check_operands(kernel, dev, want)
     if (c % 8 != 0 or K % 6 != 0 or d % 32 != 0 or nn < 1
             or b * p2 * na >= 2 ** 31):
@@ -160,14 +168,16 @@ def inter_conv(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
     card."""
     if table.device.type == 'cpu':
         return inter_conv_plain(gx, idx, table, rk, k2, W, sigma)
+    bf16 = build.dtype_flag(table.dtype, 'inter_conv')
     b, p2, nn, q, na, K, c, d = _check('inter_conv', gx, idx, table.shape, rk,
-                                       k2, W.shape, table=table, W=W)
-    out = torch.empty((b, p2, na, d), dtype=torch.float32, device=gx.device)
+                                       k2, W.shape, table=table, W=W,
+                                       dtype=table.dtype)
+    out = torch.empty((b, p2, na, d), dtype=table.dtype, device=gx.device)
     launches['inter_conv'] += 1
     build.launch('epn_inter_conv', gx.data_ptr(), idx.data_ptr(),
                  table.data_ptr(), rk.data_ptr(), k2.data_ptr(), W.data_ptr(),
                  out.data_ptr(), b, p2, nn, q, na, K, c, d, float(sigma),
-                 build.stream(table))
+                 bf16, build.stream(table))
     return out
 
 

@@ -4,20 +4,22 @@ repo's run_modelnet.py):
   python -m epn_pointcloud_tpu_torch.run_modelnet experiment -d DATASET \\
       [--run-mode train] [-i ITERS] [--save-freq N] [-lf N]
   python -m epn_pointcloud_tpu_torch.run_modelnet experiment -d DATASET \\
-      --run-mode eval -b 32 [-r CHECKPOINT.pth]
+      --run-mode eval -b 32 [--compute-dtype bf16] [-r CHECKPOINT.pth]
 
 Training forces the reference's overrides (b=12, lr decay 0.5 every 20000
 steps, the 'default' attention loss), saves a state_dict checkpoint and
 evaluates every --save-freq steps. Without ``-r`` the weights come from a
-seeded init (``-s``). On a machine with a CUDA device the model runs there,
-through the CUDA kernels, forward and backward.
+seeded init (``-s``). The model runs on the CUDA device, through the CUDA
+kernels, forward and backward; ``main(argv, device='cpu')`` runs it on the
+CPU through the kernels' plain versions. ``--compute-dtype bf16`` serves in
+the production precision (eval only so far: bf16 training is refused).
 """
 
 from epn_pointcloud_tpu_torch.app import config as config_lib
 from epn_pointcloud_tpu_torch.app.trainer_modelnet import TrainerModelNet
 
 
-def main(argv=None):
+def main(argv=None, device=None):
     opt = config_lib.parse_args(argv)
     # per-task overrides of the reference entry point
     opt.model.flag = 'attention'
@@ -29,7 +31,7 @@ def main(argv=None):
         opt.train_loss.attention_loss_type = 'default'
     elif opt.mode not in ('eval', 'test'):
         raise ValueError(f'--run-mode {opt.mode!r}: train, eval or test')
-    trainer = TrainerModelNet(opt)
+    trainer = TrainerModelNet(opt, device)
     if opt.mode == 'train':
         trainer.train()
     else:

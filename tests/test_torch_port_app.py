@@ -2,7 +2,8 @@
 the JAX package's loader on one synthetic tree (exact), the
 ``run_modelnet --run-mode eval`` entry point end to end, seeded init and
 ``-r`` checkpoint resume, and ``run_modelnet --run-mode train`` end to end
-with its checkpoint evaluated through ``-r``.
+with its checkpoint evaluated through ``-r``. The entry point runs on the
+card unless asked for the CPU, so these calls pass ``device='cpu'``.
 """
 
 import numpy as np
@@ -60,7 +61,7 @@ def test_test_loader_matches_jax_loader(tree):
 def test_run_modelnet_eval_end_to_end(tree, tmp_path):
     argv = ['experiment', '-d', tree, '--run-mode', 'eval', '-b', '2',
             '--model-dir', str(tmp_path / 'runs'), '--input-num', '64']
-    trainer = run_modelnet.main(argv)
+    trainer = run_modelnet.main(argv, device='cpu')
     assert trainer.device.type == 'cpu'
     logits = torch.cat(trainer.eval_logits)
     assert logits.shape == (6, 40)
@@ -72,7 +73,7 @@ def test_run_modelnet_eval_end_to_end(tree, tmp_path):
     ckpt = str(tmp_path / 'seed99.pth')
     torch.save(model99.state_dict(), ckpt)
     trainer.logger.close()
-    other = run_modelnet.main(argv + ['-r', ckpt])
+    other = run_modelnet.main(argv + ['-r', ckpt], device='cpu')
     # a fresh loader replays the same seeded test rotations
     loader = tdata.DataLoader(tdata.Dataloader_ModelNet40(other.opt, 'testR'),
                               2)
@@ -98,7 +99,7 @@ def test_run_modelnet_train_end_to_end(tmp_path):
     trainer = run_modelnet.main(['experiment', '-d', root, '--run-mode',
                                  'train', '--input-num', '64', '-i', '2',
                                  '--save-freq', '2', '-lf', '1',
-                                 '--model-dir', runs])
+                                 '--model-dir', runs], device='cpu')
     trainer.logger.close()
     assert trainer.opt.batch_size == 12 and trainer.iter_counter == 2
     assert trainer.epoch_counter == 1          # one batch an epoch: wrapped
@@ -111,7 +112,8 @@ def test_run_modelnet_train_end_to_end(tmp_path):
 
     other = run_modelnet.main(['experiment', '-d', root, '--run-mode', 'eval',
                                '-b', '12', '--input-num', '64', '-r',
-                               trainer.last_ckpt, '--model-dir', runs])
+                               trainer.last_ckpt, '--model-dir', runs],
+                              device='cpu')
     other.logger.close()
     torch.testing.assert_close(torch.cat(other.eval_logits), trained,
                                rtol=0, atol=0)
@@ -121,7 +123,7 @@ def test_run_modelnet_train_end_to_end(tmp_path):
     trainer.save_full_state(full)
     resumed = run_modelnet.main(['experiment', '-d', root, '--input-num',
                                  '64', '-i', '0', '-r', full,
-                                 '--model-dir', runs])
+                                 '--model-dir', runs], device='cpu')
     resumed.logger.close()
     assert resumed.iter_counter == 2
     want = trainer.optimizer.state_dict()['state']
@@ -132,4 +134,18 @@ def test_run_modelnet_train_end_to_end(tmp_path):
             assert torch.equal(want[k][name], got[k][name])
     with pytest.raises(NotImplementedError):
         run_modelnet.main(['experiment', '-d', root, '--input-num', '64',
-                           '--steps-per-dispatch', '2', '--model-dir', runs])
+                           '--steps-per-dispatch', '2', '--model-dir', runs],
+                          device='cpu')
+
+
+def test_entry_point_without_cuda_refuses_to_start(tree, tmp_path,
+                                                   monkeypatch):
+    """With no CUDA device and no device asked for, the entry point raises
+    instead of carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    runs = tmp_path / 'runs'
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        run_modelnet.main(['experiment', '-d', tree, '--run-mode', 'eval',
+                           '-b', '2', '--input-num', '64', '--model-dir',
+                           str(runs)])
+    assert not runs.exists()

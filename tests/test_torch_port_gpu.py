@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (marked ``gpu``; each test skips where there is no CUDA device): the forward
 kernels, the backward kernels (inter dTable / dW, intra df / dW) at a small
-and a flagship shape, and the autograd Functions' launches.
+and a flagship shape, the autograd Functions' launches, and the production
+mode's kernels in bf16 (ones conv, moments, grouped conv and its fused tail,
+the prenorm intra conv, the bf16 inter conv) with their shape refusals.
 
 Run on a machine with the card:
   python -m pytest tests/test_torch_port_gpu.py -q -m gpu --noconftest
@@ -223,7 +225,175 @@ def test_cuda_backward_launches_the_kernels(cuda):
     out = tkern.intra_conv.IntraConvFn.apply(out, ti, inv, W2)
     out.square().sum().backward()
     torch.cuda.synchronize()
-    assert tkern.counts() == {'fps': 0, 'ball_query': 0, 'inter_conv': 1,
-                              'inter_conv_dtable': 1, 'inter_conv_dw': 1,
-                              'intra_conv': 2, 'intra_conv_dw': 1}
+    counts = tkern.counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        'inter_conv': 1, 'inter_conv_dtable': 1, 'inter_conv_dw': 1,
+        'intra_conv': 2, 'intra_conv_dw': 1}
     assert f.grad is not None and W.grad is not None and W2.grad is not None
+
+
+# ------------------------------------------------------ production mode
+
+BF16 = torch.bfloat16
+
+
+def _rand(rng, shape, device, dtype=torch.float32, scale=1.0):
+    return torch.from_numpy((scale * rng.randn(*shape)).astype(
+        np.float32)).to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, BF16])
+def test_ones_conv_kernel_matches_plain(cuda, dtype):
+    """The anchor-weight sum: fp32 F to a normwise 1e-5, bf16 F to 4e-3."""
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(_ball_points(rng, 2, 256)).to(cuda)
+    kern = torch.from_numpy(tkp.get_spherical_kernel_points(0.28, 1)).to(cuda)
+    rk, k2 = tso3.rotated_kernels(torch.from_numpy(tico.get_anchors(60))
+                                  .to(cuda), kern)
+    gx, _, _, _ = tso3.sampling.inter_grouping_ball(x, 2, 0.4, 32)
+    gx = gx.contiguous()
+    got = tkern.ones_conv.ones_conv(gx, rk, k2, 0.08, dtype)
+    torch.cuda.synchronize()
+    want = tkern.ones_conv.ones_conv_plain(gx, rk, k2, 0.08, dtype)
+    assert got.dtype == dtype and got.shape == (2, 128, 60, 24)
+    assert _rel(got.float(), want.float()) <= (1e-5 if dtype ==
+                                               torch.float32 else 4e-3)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, BF16])
+def test_moments_kernel_matches_plain(cuda, dtype):
+    """fp32 sums to a normwise 1e-5 (only the summation order differs)."""
+    x = _rand(np.random.RandomState(2), (3, 200, 60 * 24), cuda, dtype)
+    s, sq = tkern.moments.moments(x)
+    torch.cuda.synchronize()
+    ws, wsq = tkern.moments.moments_plain(x)
+    assert s.dtype == sq.dtype == torch.float32
+    assert _rel(s, ws) <= 1e-5 and _rel(sq, wsq) <= 1e-5
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, BF16])
+@pytest.mark.parametrize('c,d,mb', [(64, 64, 3), (256, 256, 1), (36, 96, 3)])
+def test_grouped_conv_kernels_match_plain(cuda, dtype, c, d, mb):
+    """The plain 1x1 conv and the fused tail: fp32 to a normwise 1e-5, bf16
+    (rounded once) to 4e-3."""
+    rng = np.random.RandomState(c)
+    b, p, na = 3, 40, 60
+    x = _rand(rng, (b, p, na, c), cuda, dtype)
+    W = _rand(rng, (c, d), cuda, dtype, 0.1)
+    bias = _rand(rng, (d,), cuda)
+    y = _rand(rng, (b, p, na, d), cuda, dtype)
+    ssk = torch.stack([_rand(rng, (1, na * d), cuda).abs() + 0.5,
+                       _rand(rng, (1, na * d), cuda)], dim=1)
+    ssm = torch.stack([_rand(rng, (mb, na * d), cuda).abs() + 0.5,
+                       _rand(rng, (mb, na * d), cuda)], dim=1)
+    gc = tkern.grouped_conv
+    out = gc.grouped_conv(x, W, bias)
+    tail = gc.grouped_conv_tail(x, W, bias, ssk, y, ssm)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 4e-3
+    assert out.dtype == tail.dtype == dtype
+    assert _rel(out.float(), gc.grouped_conv_plain(x, W, bias).float()) <= tol
+    assert _rel(tail.float(), gc.grouped_conv_tail_plain(
+        x, W, bias, ssk, y, ssm).float()) <= tol
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, BF16])
+@pytest.mark.parametrize('p,c,d,sb', [(16, 64, 64, 2), (8, 256, 256, 1)])
+def test_intra_conv_prenorm_kernel_matches_plain(cuda, dtype, p, c, d, sb):
+    """z = leaky(f * scale + shift) rounded to the element type on load, then
+    the intra conv: fp32 to a normwise 1e-5, bf16 to 4e-3."""
+    rng = np.random.RandomState(p)
+    f = _rand(rng, (2, p, 60, c), cuda, dtype)
+    W = _rand(rng, (12, c, d), cuda, dtype, 0.05)
+    ss = torch.stack([_rand(rng, (sb, 60 * c), cuda).abs() + 0.5,
+                      _rand(rng, (sb, 60 * c), cuda, scale=0.3)], dim=1)
+    ti = torch.from_numpy(tico.get_intra_idx()).to(cuda)
+    ik = tkern.intra_conv
+    got = ik.intra_conv_prenorm(f, ss, ti, W)
+    plain_fwd = ik.intra_conv(f, ti, W)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 4e-3
+    assert got.dtype == plain_fwd.dtype == dtype
+    assert _rel(got.float(), ik.intra_conv_prenorm_plain(
+        f, ss, ti, W).float()) <= tol
+    assert _rel(plain_fwd.float(), ik.intra_conv_plain(f, ti, W).float()) \
+        <= tol
+
+
+@pytest.mark.parametrize('p1,stride,nn,c,d', [(128, 2, 32, 64, 128),
+                                              (64, 1, 16, 256, 256)])
+def test_inter_conv_bf16_kernel_matches_plain(cuda, p1, stride, nn, c, d):
+    """bf16 table and W, fp32 coordinates and sums, bf16 out: 4e-3."""
+    gx, idx, f, rk, k2, W, _ = _inter_operands(cuda, 2, p1, stride, nn, c, d)
+    args = (gx, idx, f.to(BF16), rk, k2, W.to(BF16), 0.08)
+    got = tkern.inter_conv.inter_conv(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == BF16
+    assert _rel(got.float(),
+                tkern.inter_conv.inter_conv_plain(*args).float()) <= 4e-3
+
+
+def test_production_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    ti = torch.from_numpy(tico.get_intra_idx()).to(cuda)
+    gc, ik = tkern.grouped_conv, tkern.intra_conv
+    x = torch.zeros(1, 2, 60, 8, device=cuda, dtype=BF16)
+    bias = torch.zeros(32, device=cuda)
+    with pytest.raises(ValueError):          # d % 32 != 0
+        gc.grouped_conv(x, torch.zeros(8, 48, device=cuda, dtype=BF16),
+                        torch.zeros(48, device=cuda))
+    with pytest.raises(ValueError):          # W of another type than x
+        gc.grouped_conv(x, torch.zeros(8, 32, device=cuda), bias)
+    with pytest.raises(ValueError):          # fp16 is not a compute dtype
+        gc.grouped_conv(x.half(), torch.zeros(8, 32, device=cuda).half(),
+                        bias)
+    y = torch.zeros(2, 2, 60, 32, device=cuda, dtype=BF16)
+    ss = torch.zeros(1, 2, 60 * 32, device=cuda)
+    with pytest.raises(ValueError):          # fold batch neither 1 nor b
+        gc.grouped_conv_tail(torch.zeros(2, 2, 60, 8, device=cuda,
+                                         dtype=BF16),
+                             torch.zeros(8, 32, device=cuda, dtype=BF16),
+                             bias, ss, y, torch.zeros(3, 2, 60 * 32,
+                                                      device=cuda))
+    with pytest.raises(ValueError):          # ss lanes != 60 * c
+        ik.intra_conv_prenorm(x, ss, ti,
+                              torch.zeros(12, 8, 32, device=cuda, dtype=BF16))
+    with pytest.raises(ValueError):          # odd lane count
+        tkern.moments.moments(torch.zeros(1, 4, 7, device=cuda))
+    with pytest.raises(ValueError):          # misaligned view
+        tkern.moments.moments(torch.zeros(1, 4 * 8 + 2, device=cuda)[:, 2:]
+                              .reshape(1, 4, 8))
+    with pytest.raises(ValueError):          # rk of another shape than K
+        tkern.ones_conv.ones_conv(torch.zeros(1, 4, 8, 3, device=cuda),
+                                  torch.zeros(60, 24, 3, device=cuda),
+                                  torch.zeros(12, device=cuda), 0.1)
+
+
+def test_bf16_forward_launches_the_kernels(cuda):
+    """A bf16 eval forward of a small model on the card goes through the
+    production kernels, never silently through the plain versions."""
+    from epn_pointcloud_tpu_torch.app import config
+    from epn_pointcloud_tpu_torch.models import cls_so3net_pn as tcls
+    opt = config.parse_args(['experiment', '-d', 'unused', '--input-num',
+                             '256'])
+    opt.model.flag = 'attention'
+    model = tcls.build_model(opt, mlps=((32, 32), (64,)), out_mlps=(64,),
+                             seed=3).to(cuda).eval()
+    x = torch.from_numpy(_ball_points(np.random.RandomState(3), 2, 256)).to(
+        cuda)
+    tkern.reset_counts()
+    tso3.set_compute_dtype('bf16')
+    try:
+        with torch.no_grad():
+            logits, _ = model(x)
+            with tkern.plain():
+                plain, _ = model(x)
+        torch.cuda.synchronize()
+    finally:
+        tso3.set_compute_dtype('fp32')
+    counts = {k: v for k, v in tkern.counts().items() if v}
+    assert counts == {'fps': 1, 'ball_query': 3, 'ones_conv': 1,
+                      'inter_conv': 2, 'intra_conv_prenorm': 3, 'moments': 3,
+                      'grouped_conv_tail': 2, 'grouped_conv': 1}
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
+    cos = torch.nn.functional.cosine_similarity(logits, plain, dim=-1)
+    assert float(cos.min()) >= 0.9999

@@ -115,6 +115,9 @@ def test_plain_switch_routes_to_plain_versions():
     assert not tkern.plain_forced()
     assert torch.equal(a, b)
     # CPU tensors never launch a kernel
-    assert tkern.counts() == {'fps': 0, 'ball_query': 0, 'inter_conv': 0,
-                              'inter_conv_dtable': 0, 'inter_conv_dw': 0,
-                              'intra_conv': 0, 'intra_conv_dw': 0}
+    assert tkern.counts() == {'fps': 0, 'ball_query': 0, 'ones_conv': 0,
+                              'inter_conv': 0, 'inter_conv_dtable': 0,
+                              'inter_conv_dw': 0, 'intra_conv': 0,
+                              'intra_conv_dw': 0, 'intra_conv_prenorm': 0,
+                              'moments': 0, 'grouped_conv': 0,
+                              'grouped_conv_tail': 0}
