@@ -42,7 +42,29 @@ Phases (any failure exits non-zero and prints no result line):
      entry point (run_modelnet --run-mode train -i 4 --save-freq 4): finite
      logged losses, each kernel's launch count risen by its per-step count
      (plus the eval at iteration 4), and the saved checkpoint evaluated
-     through --run-mode eval -r.
+     through --run-mode eval -r;
+  9. [bf16-backward] capture each backward kernel call of one bf16 train
+     step (b=12) of the seeded full-width model: bf16 dTable and inter dW at
+     6 layers, the prenorm intra df (with dscale, dshift) and dW at 7, the
+     grouped 1x1 conv dx and dW at 7 (6 skips and the head); compare each
+     with its plain version on the same inputs (normwise relative error <=
+     8e-3 for bf16 outputs, <= 1e-3 for fp32 ones), timing both, with
+     torch.mm beside the grouped conv's dx and dW;
+ 10. [bf16-train] one bf16 train step (b=12) on the kernel path and on the
+     plain path from the same weights: loss to rtol 1e-3, every parameter
+     with a gradient on both paths, per-leaf gradient cosine >= 0.9 and its
+     median no lower than the kernel path's against itself on clouds scaled
+     by 1 + 1e-6, less 0.02 (bf16 gradients are that sensitive to rounding;
+     the leaves whose float64 gradient is ~0 are bf16 noise: the kernel
+     path's at most 4 times the plain path's plus 1e-2), running statistics;
+     the whole step timed on both paths (median of 5), and the bf16 step's
+     loss and per-leaf gradient cosine against the fp32 step on the same
+     weights and batch printed (not gated);
+ 11. [bf16-train-entry] this slice's main path: run_modelnet --run-mode
+     train --compute-dtype bf16 -i 4 --save-freq 4 on the synthetic tree,
+     each kernel's launch count risen by its bf16 per-step count (plus the
+     bf16 eval at iteration 4), then the checkpoint through --run-mode eval
+     --compute-dtype bf16 -r.
 
 Prints one line per comparison, a JSON line with per-kernel results (each
 with its bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -110,15 +132,27 @@ def work(name, args, out):
         b, p2, nn = idx.shape
         na, K = rk.shape[:2]
         if name == 'inter_conv':
-            c, d, bf16 = (args[2].shape[3], args[5].shape[2],
-                          args[2].dtype == torch.bfloat16)
+            c, d = args[2].shape[3], args[5].shape[2]
         elif name == 'inter_conv_dtable':
             c, d = args[5].shape[1], args[5].shape[2]
         else:
             c, d = args[2].shape[3], args[5].shape[-1]
+        bf16 = args[6 if name == 'inter_conv_dtable' else 2].dtype == \
+            torch.bfloat16
         M = b * p2 * na
         f32 = 9 * M * nn * K                 # anchor weights
         mm = 2 * M * nn * K * c + 2 * M * K * c * d
+    elif name in ('intra_conv_prenorm_df', 'intra_conv_prenorm_dw'):
+        df = name.endswith('df')
+        f = args[1 if df else 0]
+        b, p, na, c = f.shape
+        K, d = (args[5].shape[0], args[5].shape[2]) if df else \
+            (args[2].shape[1], args[3].shape[3])
+        bf16 = f.dtype == torch.bfloat16
+        mm = 2 * b * p * na * K * c * d
+        # the fold and activation (dW: on load), or the mask, df and the two
+        # sums (df)
+        f32 = (7 if df else 3) * f.numel()
     elif name.startswith('intra_conv'):
         f = args[0]
         b, p, na, c = f.shape
@@ -134,6 +168,12 @@ def work(name, args, out):
             f32 = 3 * f.numel()              # the fold and activation
     elif name == 'moments':
         f32 = 3 * args[0].numel()
+    elif name in ('grouped_conv_dx', 'grouped_conv_dw'):
+        x, y = args                          # (dout, W [c, d]) / (x, dout)
+        c, d = (y.shape[0], y.shape[1]) if name.endswith('dx') else \
+            (x.shape[-1], y.shape[-1])
+        bf16 = x.dtype == torch.bfloat16
+        mm = 2 * (x.numel() // x.shape[-1]) * c * d
     elif name.startswith('grouped_conv'):
         x, W = args[0], args[1]
         M = x.numel() // W.shape[0]
@@ -448,7 +488,9 @@ def phase_eval(dtype='fp32'):
 # table, intra dW at all 7; the layer-0 ones conv has no backward (its VJP is
 # zero: F depends on the coordinates only)
 _NO_BF16 = {'intra_conv_prenorm': 0, 'moments': 0, 'grouped_conv': 0,
-            'grouped_conv_tail': 0}
+            'grouped_conv_tail': 0, 'intra_conv_prenorm_df': 0,
+            'intra_conv_prenorm_dw': 0, 'grouped_conv_dx': 0,
+            'grouped_conv_dw': 0}
 EVAL_PER_BATCH = {'fps': 1, 'ball_query': 7, 'ones_conv': 1, 'inter_conv': 6,
                   'inter_conv_dtable': 0, 'inter_conv_dw': 0,
                   'intra_conv': 7, 'intra_conv_dw': 0, **_NO_BF16}
@@ -459,12 +501,24 @@ TRAIN_PER_STEP = {'fps': 1, 'ball_query': 7, 'ones_conv': 1, 'inter_conv': 6,
 # InstanceNorm statistics through moments; layers 1-6 end in the fused tail
 # (layer 0's rank-1 skip keeps the unfused one); the head's mlp conv is the
 # grouped conv
-BF16_EVAL_PER_BATCH = {'fps': 1, 'ball_query': 7, 'ones_conv': 1,
+BF16_EVAL_PER_BATCH = {**_NO_BF16, 'fps': 1, 'ball_query': 7, 'ones_conv': 1,
                        'inter_conv': 6, 'inter_conv_dtable': 0,
                        'inter_conv_dw': 0, 'intra_conv': 0,
                        'intra_conv_dw': 0, 'intra_conv_prenorm': 7,
                        'moments': 7, 'grouped_conv': 1,
                        'grouped_conv_tail': 6}
+# one bf16 train step: the training forward (no fused tail: the skip
+# BatchNorms take batch statistics) and its backward. moments: 7 inter
+# BatchNorms, 7 InstanceNorms, the packed skip BatchNorms of layers 1-6 and
+# the head's (layer 0's rank-1 skip over the constant field runs unpacked, in
+# plain torch, as in the JAX package); the grouped conv at those 6 skips and
+# the head's mlp, forward, dx and dW; bf16 dTable and dW at the 6 inter
+# layers with a feature table; the prenorm intra df and dW at all 7
+BF16_TRAIN_PER_STEP = {**BF16_EVAL_PER_BATCH, 'inter_conv_dtable': 6,
+                       'inter_conv_dw': 6, 'intra_conv_prenorm_df': 7,
+                       'intra_conv_prenorm_dw': 7, 'moments': 21,
+                       'grouped_conv': 7, 'grouped_conv_tail': 0,
+                       'grouped_conv_dx': 7, 'grouped_conv_dw': 7}
 BF16_FWD = ('fps', 'ball_query', 'ones_conv', 'inter_conv',
             'intra_conv_prenorm', 'moments', 'grouped_conv_tail',
             'grouped_conv')
@@ -528,6 +582,11 @@ def phase_bf16_kernels(model, device):
             x2, b2 = xx.reshape(-1, W.shape[0]), bias.to(xx.dtype)
             row['library_ms'] = time_ms(lambda: torch.addmm(b2, x2, W))
             lib = f' addmm_ms={row["library_ms"]:.4f}'
+        elif name == 'moments':
+            # the same bytes read for the same per-lane statistics
+            row['library_ms'] = time_ms(
+                lambda: torch.var_mean(args[0], dim=1, correction=0))
+            lib = f' var_mean_ms={row["library_ms"]:.4f}'
         log(f'[bf16] {name} L{layer} ({row["shape"]}): max_abs_err='
             f'{max_err:.3e} rel_norm_err={rel:.3e} [rel_norm<={tol:.0e}] '
             f'kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}{lib} bound_ms='
@@ -581,9 +640,6 @@ def phase_bf16_model(model, device):
             'b32_bf16_vs_fp32_min_cos': float(cos32.min())}
 
 
-BWD = ('inter_conv_dtable', 'inter_conv_dw', 'intra_conv_df', 'intra_conv_dw')
-
-
 def train_batch(device, seed):
     """(clouds [12, 1024, 3], class labels, anchor labels) on the card."""
     import numpy as np
@@ -601,70 +657,6 @@ def step_loss(model, batch):
     pred, feat = model(batch[0])
     return losses.attention_cross_entropy(pred, batch[1], feat, batch[2],
                                           'default', 1.0)[0]
-
-
-def phase_backward_kernels(device):
-    """Each backward kernel vs its plain version at every flagship layer, on
-    the inputs one b=12 train step gives it."""
-    import torch
-    from epn_pointcloud_tpu_torch import models
-    from epn_pointcloud_tpu_torch.ops import kernels
-    model = models.build_model_from(full_opt(), seed=SEED).to(device).train()
-    batch = train_batch(device, SEED + 3)
-    calls = capture_calls(BWD, lambda: step_loss(model, batch).backward())
-    del model
-    ic, ik = kernels.inter_conv, kernels.intra_conv
-    # name -> (kernel wrapper, plain version, plain's arguments, tolerance on
-    # the normwise relative error); dW sums up to b*p*60 = 368,640 rows
-    spec = {'inter_conv_dtable': (ic.inter_conv_dtable,
-                                  ic.inter_conv_dtable_plain, None, 1e-5),
-            'inter_conv_dw': (ic.inter_conv_dw, ic.inter_conv_dw_plain, None,
-                              1e-4),
-            'intra_conv_df': (ik.intra_conv_df, ik.intra_conv_df_plain,
-                              (0, 1, 3), 1e-5),
-            'intra_conv_dw': (ik.intra_conv_dw, ik.intra_conv_dw_plain, None,
-                              1e-4)}
-    n_calls = {n: sum(1 for c in calls if c[0] == n) for n in BWD}
-    seen = dict.fromkeys(BWD, 0)
-    results = {n: [] for n in BWD}
-    failures = []
-    torch.set_grad_enabled(False)
-    for name, args in calls:
-        kern_fn, plain_fn, pick, tol = spec[name]
-        pargs = args if pick is None else tuple(args[i] for i in pick)
-        # the backward runs from the last layer down
-        layer = n_calls[name] - seen[name] - (0 if name.startswith('inter')
-                                              else 1)
-        seen[name] += 1
-        got = kern_fn(*args)
-        want = plain_fn(*pargs)
-        torch.cuda.synchronize()
-        max_err = float((got - want).abs().max())
-        rel = float((got - want).norm() / want.norm())
-        ok = rel <= tol and bool(torch.isfinite(got).all())
-        k_ms = time_ms(lambda: kern_fn(*args), reps=5, warmup=2)
-        p_ms = time_ms(lambda: plain_fn(*pargs), reps=5, warmup=2)
-        b_ms, o_ms = bound_ms(name, args, got)
-        shape = tuple(want.shape)
-        log(f'[backward] {name} L{layer} (out {shape}): max_abs_err='
-            f'{max_err:.3e} rel_norm_err={rel:.3e} [rel_norm<={tol:.0e}] '
-            f'kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms='
-            f'{max(b_ms, o_ms):.4f} {"OK" if ok else "FAIL"}')
-        results[name].append({'layer': layer, 'shape': str(shape),
-                              'max_abs_err': max_err, 'rel_norm_err': rel,
-                              'ms': k_ms, 'plain_ms': p_ms, 'bytes_ms': b_ms,
-                              'ops_ms': o_ms, 'ok': ok})
-        if not ok:
-            failures.append(f'{name} L{layer}')
-        del got, want
-    torch.set_grad_enabled(True)
-    expect = {'inter_conv_dtable': 6, 'inter_conv_dw': 6, 'intra_conv_df': 7,
-              'intra_conv_dw': 7}
-    if n_calls != expect:
-        failures.append(f'backward calls {n_calls}, expected {expect}')
-    if failures:
-        raise AssertionError(f'backward kernel comparisons failed: {failures}')
-    return results
 
 
 def _grads_close(name, g, w, f64_max):
@@ -722,12 +714,48 @@ def perturb_norm_biases(model, seed=5):
     return model
 
 
+def time_steps(mk, mp, batch, dtype, reps):
+    """The whole train step (forward, backward, Adam) in ``dtype``, kernel
+    path on ``mk`` and plain path on ``mp`` in turns, after one warm step
+    each: (the kernel path's optimizer, median kernel ms, median plain ms,
+    and the runs)."""
+    from epn_pointcloud_tpu_torch import train
+    from epn_pointcloud_tpu_torch.ops import kernels
+    opt_k = train.make_optimizer(mk.parameters(), 1e-3)
+    opt_p = train.make_optimizer(mp.parameters(), 1e-3)
+
+    def step_k():
+        opt_k.zero_grad(set_to_none=True)
+        step_loss(mk, batch).backward()
+        opt_k.step()
+
+    def step_p():
+        with kernels.plain():
+            opt_p.zero_grad(set_to_none=True)
+            step_loss(mp, batch).backward()
+            opt_p.step()
+    k_ts, p_ts = [], []
+    with compute_dtype(dtype):
+        step_k()
+        step_p()
+        for _ in range(reps):
+            k_ts.append(time_ms(step_k, reps=1, warmup=0))
+            p_ts.append(time_ms(step_p, reps=1, warmup=0))
+    k_ms, p_ms = statistics.median(k_ts), statistics.median(p_ts)
+    log(f'[{"train" if dtype == "fp32" else "bf16-train"}] b={TRAIN_BATCH} '
+        f'whole {dtype} train step (forward, backward, Adam): kernel path '
+        f'{k_ms:.2f} ms ({1e3 * TRAIN_BATCH / k_ms:.1f} clouds/s), plain path '
+        f'{p_ms:.2f} ms ({1e3 * TRAIN_BATCH / p_ms:.1f} clouds/s); median of '
+        f'{reps} turns')
+    return opt_k, k_ms, p_ms, k_ts, p_ts
+
+
 def phase_train_step(device, reps=5):
     """One b=12 train step on the kernel path and on the plain path from the
     same weights (seeded, norm biases perturbed); then the whole step timed
     on both, and 10 Adam steps."""
     import torch
-    from epn_pointcloud_tpu_torch import models, train
+    from epn_pointcloud_tpu_torch import models
     from epn_pointcloud_tpu_torch.ops import kernels
     mk, mp = (perturb_norm_biases(models.build_model_from(
         full_opt(), seed=SEED)).to(device).train() for _ in range(2))
@@ -776,31 +804,8 @@ def phase_train_step(device, reps=5):
     log(f'[train] BatchNorm running stats: {n_stats} buffers, max '
         f'abs diff {stat_err:.3e} (rtol 1e-4)')
 
-    opt_k = train.make_optimizer(mk.parameters(), 1e-3)
-    opt_p = train.make_optimizer(mp.parameters(), 1e-3)
-
-    def step_k():
-        opt_k.zero_grad(set_to_none=True)
-        step_loss(mk, batch).backward()
-        opt_k.step()
-
-    def step_p():
-        with kernels.plain():
-            opt_p.zero_grad(set_to_none=True)
-            step_loss(mp, batch).backward()
-            opt_p.step()
-    step_k()
-    step_p()
-    k_ts, p_ts = [], []
-    for _ in range(reps):
-        k_ts.append(time_ms(step_k, reps=1, warmup=0))
-        p_ts.append(time_ms(step_p, reps=1, warmup=0))
-    k_ms, p_ms = statistics.median(k_ts), statistics.median(p_ts)
-    log(f'[train] b={TRAIN_BATCH} whole train step (forward, backward, '
-        f'Adam): kernel path {k_ms:.2f} ms ({1e3 * TRAIN_BATCH / k_ms:.1f} '
-        f'clouds/s), plain path {p_ms:.2f} ms ({1e3 * TRAIN_BATCH / p_ms:.1f}'
-        f' clouds/s); median of {reps} turns')
-    del mp, opt_p
+    opt_k, k_ms, p_ms, k_ts, p_ts = time_steps(mk, mp, batch, 'fp32', reps)
+    del mp
     torch.cuda.empty_cache()
     trace = []
     for i in range(11):
@@ -818,13 +823,254 @@ def phase_train_step(device, reps=5):
             'worst_grad_rel_l2': worst[0], 'adam_trace': trace}
 
 
-def phase_train_entry():
-    """The main path of this slice: run_modelnet train on a synthetic tree,
-    then the saved checkpoint through run_modelnet eval -r."""
+# the backward kernel calls of a train step, by compute dtype
+BWD = {'fp32': ('inter_conv_dtable', 'inter_conv_dw', 'intra_conv_df',
+                'intra_conv_dw'),
+       'bf16': ('inter_conv_dtable', 'inter_conv_dw', 'intra_conv_prenorm_df',
+                'intra_conv_prenorm_dw', 'grouped_conv_dx', 'grouped_conv_dw')}
+
+
+def _bwd_layer(name, n_calls, seen):
+    """The model layer of a backward call (the backward runs from the last
+    layer down): inter layers 6..1, intra layers 6..0, and the grouped conv
+    at the head first, then the skips of layers 6..1."""
+    if name.startswith('inter'):
+        return f'L{n_calls - seen}'
+    if name.startswith('intra'):
+        return f'L{n_calls - 1 - seen}'
+    return 'head' if seen == 0 else f'L{n_calls - seen}'
+
+
+def phase_backward_kernels(device, dtype='fp32'):
+    """Each backward kernel call of one b=12 train step in ``dtype`` against
+    its plain version on the same inputs, timed, with torch.mm beside the
+    grouped conv's dx and dW. Normwise relative error <= 1e-5 for the fp32
+    dTable and df, 1e-4 for the fp32 dW reductions (up to b*p*60 = 368,640
+    rows); in bf16 <= 8e-3 for bf16 outputs and 1e-3 for fp32 ones."""
+    import torch
+    from epn_pointcloud_tpu_torch import models
+    from epn_pointcloud_tpu_torch.ops import kernels
+    names = BWD[dtype]
+    model = models.build_model_from(full_opt(), seed=SEED).to(device).train()
+    batch = train_batch(device, SEED + (3 if dtype == 'fp32' else 5))
+    with compute_dtype(dtype):
+        calls = capture_calls(names,
+                              lambda: step_loss(model, batch).backward())
+    del model
+    ic, ik, gc = kernels.inter_conv, kernels.intra_conv, kernels.grouped_conv
+    # name -> (kernel wrapper, plain version, the plain's arguments, fp32
+    # tolerance)
+    spec = {'inter_conv_dtable': (ic.inter_conv_dtable,
+                                  ic.inter_conv_dtable_plain, None, 1e-5),
+            'inter_conv_dw': (ic.inter_conv_dw, ic.inter_conv_dw_plain, None,
+                              1e-4),
+            'intra_conv_df': (ik.intra_conv_df, ik.intra_conv_df_plain,
+                              (0, 1, 3), 1e-5),
+            'intra_conv_dw': (ik.intra_conv_dw, ik.intra_conv_dw_plain, None,
+                              1e-4),
+            'intra_conv_prenorm_df': (ik.intra_conv_prenorm_df,
+                                      ik.intra_conv_prenorm_df_plain,
+                                      (0, 1, 2, 3, 5), None),
+            'intra_conv_prenorm_dw': (ik.intra_conv_prenorm_dw,
+                                      ik.intra_conv_prenorm_dw_plain, None,
+                                      None),
+            'grouped_conv_dx': (gc.grouped_conv_dx, gc.grouped_conv_dx_plain,
+                                None, None),
+            'grouped_conv_dw': (gc.grouped_conv_dw, gc.grouped_conv_dw_plain,
+                                None, None)}
+    tag = '[backward]' if dtype == 'fp32' else '[bf16-backward]'
+    n_calls = {n: sum(1 for c in calls if c[0] == n) for n in names}
+    seen = dict.fromkeys(names, 0)
+    results = {n: [] for n in names}
+    failures = []
+    torch.set_grad_enabled(False)
+    for name, args in calls:
+        kern_fn, plain_fn, pick, tol32 = spec[name]
+        pargs = args if pick is None else tuple(args[i] for i in pick)
+        layer = _bwd_layer(name, n_calls[name], seen[name])
+        seen[name] += 1
+        got, want = kern_fn(*args), plain_fn(*pargs)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        rels, errs, ok = [], [], True
+        for g, w in zip(got, want):
+            tol = tol32 if dtype == 'fp32' else \
+                8e-3 if g.dtype == torch.bfloat16 else 1e-3
+            rels.append(rel_err(g, w))
+            errs.append(float((g.float() - w.float()).abs().max()))
+            ok = ok and g.dtype == w.dtype and g.shape == w.shape and \
+                rels[-1] <= tol and bool(torch.isfinite(g).all())
+        k_ms = time_ms(lambda: kern_fn(*args), reps=5, warmup=2)
+        p_ms = time_ms(lambda: plain_fn(*pargs), reps=5, warmup=2)
+        row = {'layer': layer, 'shape': ' '.join(str(tuple(w.shape))
+                                                  for w in want),
+               'max_abs_err': max(errs), 'rel_norm_err': max(rels),
+               'ms': k_ms, 'plain_ms': p_ms, 'ok': ok}
+        row['bytes_ms'], row['ops_ms'] = bound_ms(name, args, got)
+        lib = ''
+        if name == 'grouped_conv_dx':
+            dout, W = args
+            d2 = dout.reshape(-1, W.shape[1])
+            row['library_ms'] = time_ms(lambda: torch.mm(d2, W.t()),
+                                        reps=5, warmup=2)
+        elif name == 'grouped_conv_dw':
+            x, dout = args
+            x2 = x.reshape(-1, x.shape[-1])
+            d2 = dout.reshape(-1, dout.shape[-1])
+            row['library_ms'] = time_ms(lambda: torch.mm(x2.t(), d2),
+                                        reps=5, warmup=2)
+        if 'library_ms' in row:
+            lib = f' mm_ms={row["library_ms"]:.4f}'
+        log(f'{tag} {name} {layer} (out {row["shape"]}, {got[0].dtype}): '
+            f'max_abs_err={max(errs):.3e} rel_norm_err='
+            f'{" ".join(f"{r:.3e}" for r in rels)} kernel_ms={k_ms:.4f} '
+            f'plain_ms={p_ms:.4f}{lib} bound_ms='
+            f'{max(row["bytes_ms"], row["ops_ms"]):.4f} '
+            f'{"OK" if ok else "FAIL"}')
+        results[name].append(row)
+        if not ok:
+            failures.append(f'{name} {layer}')
+        del got, want
+    torch.set_grad_enabled(True)
+    per_step = TRAIN_PER_STEP if dtype == 'fp32' else BF16_TRAIN_PER_STEP
+    # the fp32 intra df runs the forward intra kernel: 7 of its 14 launches
+    expect = {n: 7 if n == 'intra_conv_df' else per_step[n] for n in names}
+    if n_calls != expect:
+        failures.append(f'{dtype} backward calls {n_calls}, expected {expect}')
+    if failures:
+        raise AssertionError(f'{dtype} backward kernel comparisons failed: '
+                             f'{failures}')
+    return results
+
+
+# per-leaf gradient cosine floor of the bf16 step, kernel vs plain path. Not
+# 0.999: a bf16 step's gradients move by cosines of 0.96-0.99 when a few bf16
+# roundings flip (the clouds scaled by 1 + 1e-6 do it; so does any other
+# rounding order), on either path and in the JAX package; the kernels'
+# own agreement is held per call in [bf16-backward]. This floor catches a
+# gradient that misses a term.
+BF16_LEAF_COS = 0.9
+
+
+def _leaf_cos(a, b):
+    import torch
+    return float(torch.nn.functional.cosine_similarity(
+        a.double().flatten(), b.double().flatten(), dim=0))
+
+
+def phase_bf16_train_step(device, reps=5):
+    """[bf16-train] One b=12 bf16 train step on the kernel path and on the
+    plain path from the same weights; the whole step timed on both; the
+    bf16 step against the fp32 step on the same weights and batch."""
+    import torch
+    from epn_pointcloud_tpu_torch import models
+    from epn_pointcloud_tpu_torch.ops import kernels
+    mk, mp, mq, m32 = (perturb_norm_biases(models.build_model_from(
+        full_opt(), seed=SEED)).to(device).train() for _ in range(4))
+    batch = train_batch(device, SEED + 6)
+    f64 = f64_grad_max(mp, batch)
+    with compute_dtype('bf16'):
+        kernels.reset_counts()
+        loss_k = step_loss(mk, batch)
+        loss_k.backward()
+        counts_k = kernels.counts()
+        with kernels.plain():
+            loss_p = step_loss(mp, batch)
+            loss_p.backward()
+        torch.cuda.synchronize()
+        counts_p = kernels.counts()
+        # the kernel path again on the clouds scaled by 1 + 1e-6: what a
+        # few flipped bf16 roundings alone do to the gradients (the floor
+        # of any comparison of two bf16 steps)
+        loss_q = step_loss(mq, (batch[0] * (1 + 1e-6),) + batch[1:])
+        loss_q.backward()
+    assert counts_p == counts_k, 'the plain path launched a kernel'
+    assert counts_k == BF16_TRAIN_PER_STEP, (counts_k, BF16_TRAIN_PER_STEP)
+    loss_32 = step_loss(m32, batch)
+    loss_32.backward()
+    lk, lp, l32 = loss_k.item(), loss_p.item(), loss_32.item()
+    log(f'[bf16-train] b={TRAIN_BATCH} bf16 loss kernel path {lk:.7f}, plain '
+        f'path {lp:.7f} (rtol 1e-3), kernel path on the clouds x (1 + 1e-6) '
+        f'{loss_q.item():.7f}; fp32 kernel path {l32:.7f}; launches '
+        f'{counts_k}')
+    assert math.isfinite(lk) and abs(lk - lp) <= 1e-3 * abs(lp), (lk, lp)
+    no_grad = [n for m in (mk, mp) for n, p in m.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    assert not no_grad, f'parameters without a finite gradient: {no_grad}'
+    pk, pq, p32 = (dict(m.named_parameters()) for m in (mk, mq, m32))
+    bad, degen, leaves = [], [], {}
+    for name, p in mp.named_parameters():
+        gk, gp = pk[name].grad, p.grad
+        mk_, mp_ = float(gk.abs().max()), float(gp.abs().max())
+        cos_32 = _leaf_cos(gk, p32[name].grad)
+        if f64[name] <= 1e-5:
+            ok = mk_ <= 4 * mp_ + 1e-2
+            degen.append(f'{name} (fp64 {f64[name]:.1e}: kernel {mk_:.2e}, '
+                         f'plain {mp_:.2e})')
+            leaves[name] = {'degenerate': True, 'kernel_max': mk_,
+                            'plain_max': mp_, 'f64_max': f64[name],
+                            'cos_vs_fp32': cos_32}
+        else:
+            cos = _leaf_cos(gk, gp)
+            ok = cos >= BF16_LEAF_COS
+            leaves[name] = {'cos': cos, 'cos_noise': _leaf_cos(
+                gk, pq[name].grad), 'cos_vs_fp32': cos_32}
+        if not ok:
+            bad.append(f'{name}: {leaves[name]}')
+    real = {n: v for n, v in leaves.items() if 'cos' in v}
+    worst = min(real, key=lambda n: real[n]['cos'])
+    cos_kp, cos_q, c32 = (sorted(v[k] for v in real.values())
+                          for k in ('cos', 'cos_noise', 'cos_vs_fp32'))
+    med_kp, med_q = statistics.median(cos_kp), statistics.median(cos_q)
+    log(f'[bf16-train] gradients: every one of {len(leaves)} parameters has '
+        f'one on both paths; per-leaf cosine over {len(real)} real leaves, '
+        f'kernel vs plain path min {cos_kp[0]:.5f} (>= {BF16_LEAF_COS}) at '
+        f'{worst}, median {med_kp:.5f}; kernel path vs itself on the clouds '
+        f'x (1 + 1e-6) min {cos_q[0]:.5f}, median {med_q:.5f} (the kernel vs '
+        f'plain median must be >= this median - 0.02); {len(degen)} '
+        f'degenerate leaves: {"; ".join(degen)}')
+    log(f'[bf16-train] bf16 vs fp32 step (kernel paths, same weights and '
+        f'batch): loss {lk:.6f} vs {l32:.6f}; per-leaf gradient cosine min '
+        f'{c32[0]:.5f}, median {statistics.median(c32):.5f} (printed, not '
+        f'gated)')
+    if med_kp < med_q - 0.02:
+        bad.append(f'median kernel vs plain cosine {med_kp:.5f} below the '
+                   f'noise floor {med_q:.5f} - 0.02')
+    assert not bad, bad
+    bk = dict(mk.named_buffers())
+    n_stats, stat_err = 0, 0.0
+    for name, buf in mp.named_buffers():
+        if 'running' in name:
+            err = float((bk[name] - buf).abs().max())
+            assert err <= 1e-3 * float(buf.abs().max()) + 1e-6, (name, err)
+            stat_err = max(stat_err, err)
+            n_stats += 1
+    log(f'[bf16-train] BatchNorm running stats: {n_stats} buffers, max abs '
+        f'diff {stat_err:.3e} (<= 1e-3 of each buffer\'s magnitude)')
+    del m32, mq
+    _, k_ms, p_ms, k_ts, p_ts = time_steps(mk, mp, batch, 'bf16', reps)
+    del mk, mp
+    torch.cuda.empty_cache()
+    return {'loss_kernel': lk, 'loss_plain': lp, 'loss_fp32': l32,
+            'kernel_ms': k_ms, 'plain_ms': p_ms, 'kernel_runs_ms': k_ts,
+            'plain_runs_ms': p_ts, 'min_grad_cos': cos_kp[0],
+            'median_grad_cos': med_kp, 'noise_min_grad_cos': cos_q[0],
+            'noise_median_grad_cos': med_q, 'min_grad_cos_vs_fp32': c32[0],
+            'leaves': leaves}
+
+
+def phase_train_entry(dtype='fp32'):
+    """A main path: run_modelnet train on a synthetic tree (--compute-dtype
+    bf16: this slice's), then the saved checkpoint through run_modelnet
+    eval -r in the same dtype."""
     import torch
     from epn_pointcloud_tpu_torch import run_modelnet
     from epn_pointcloud_tpu_torch.data import synthetic
-    from epn_pointcloud_tpu_torch.ops import kernels
+    from epn_pointcloud_tpu_torch.ops import kernels, so3conv
+    tag = '[train-entry]' if dtype == 'fp32' else '[bf16-train-entry]'
+    per_step, per_eval = ((TRAIN_PER_STEP, EVAL_PER_BATCH) if dtype == 'fp32'
+                          else (BF16_TRAIN_PER_STEP, BF16_EVAL_PER_BATCH))
     tree = os.path.join(WORK_DIR, 'modelnet')
     runs = os.path.join(WORK_DIR, 'runs')
     shutil.rmtree(WORK_DIR, ignore_errors=True)
@@ -832,38 +1078,47 @@ def phase_train_entry():
                                  n_points=N_POINTS, seed=0,
                                  splits=('train', 'testR'))
     steps = 4
-    argv = ['experiment', '-d', tree, '--run-mode', 'train', '-i', str(steps),
-            '--save-freq', str(steps), '-lf', '1', '--model-dir', runs]
-    kernels.reset_counts()
-    t0 = time.time()
-    trainer = run_modelnet.main(argv)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = kernels.counts()
-    trainer.logger.close()
-    n_eval = len(trainer.eval_logits)
-    stats = dict(trainer.summary.running_stats)
-    log(f'[train-entry] run_modelnet train: {steps} steps of '
-        f'{TRAIN_BATCH} over {len(trainer.dataset)} batches an epoch, eval '
-        f'of {n_eval} batch(es) at step {steps}; running stats {stats}; wall '
-        f'{wall:.2f} s (data and setup included); kernel launches {counts}')
-    assert all(math.isfinite(stats[k]) for k in ('Loss', 'R_Loss'))
-    assert math.isfinite(float(trainer.last_loss))
-    expect = {n: steps * TRAIN_PER_STEP[n] + n_eval * EVAL_PER_BATCH[n]
-              for n in TRAIN_PER_STEP}
-    assert n_eval >= 1 and counts == expect, (counts, expect)
-    ckpt = trainer.last_ckpt
-    assert os.path.exists(ckpt), ckpt
-    other = run_modelnet.main(['experiment', '-d', tree, '--run-mode', 'eval',
-                               '-b', str(TRAIN_BATCH), '-r', ckpt,
-                               '--model-dir', runs])
-    other.logger.close()
+    common = ['--compute-dtype', dtype, '--model-dir', runs]
+    try:
+        kernels.reset_counts()
+        t0 = time.time()
+        trainer = run_modelnet.main(
+            ['experiment', '-d', tree, '--run-mode', 'train', '-i',
+             str(steps), '--save-freq', str(steps), '-lf', '1'] + common)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kernels.counts()
+        trainer.logger.close()
+        n_eval = len(trainer.eval_logits)
+        stats = dict(trainer.summary.running_stats)
+        log(f'{tag} run_modelnet train --compute-dtype {dtype}: {steps} '
+            f'steps of {TRAIN_BATCH} over {len(trainer.dataset)} batches an '
+            f'epoch, eval of {n_eval} batch(es) at step {steps}; running '
+            f'stats {stats}; wall {wall:.2f} s (data and setup included); '
+            f'kernel launches {counts}, a step '
+            f'{ {n: k for n, k in per_step.items() if k} }')
+        assert all(math.isfinite(stats[k]) for k in ('Loss', 'R_Loss'))
+        assert math.isfinite(float(trainer.last_loss))
+        assert all(p.dtype == torch.float32 and p.grad is not None
+                   for p in trainer.model.parameters())
+        expect = {n: steps * per_step[n] + n_eval * per_eval[n]
+                  for n in per_step}
+        assert n_eval >= 1 and counts == expect, (counts, expect)
+        ckpt = trainer.last_ckpt
+        assert os.path.exists(ckpt), ckpt
+        other = run_modelnet.main(['experiment', '-d', tree, '--run-mode',
+                                   'eval', '-b', str(TRAIN_BATCH), '-r',
+                                   ckpt] + common)
+        other.logger.close()
+    finally:
+        so3conv.set_compute_dtype('fp32')
     got, want = torch.cat(other.eval_logits), torch.cat(trainer.eval_logits)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    log(f'[train-entry] checkpoint {os.path.basename(ckpt)} reloaded through '
-        f'--run-mode eval -r: logits {tuple(got.shape)} equal the trained '
-        f'model\'s (max abs diff {float((got - want).abs().max()):.3e})')
+    log(f'{tag} checkpoint {os.path.basename(ckpt)} served through '
+        f'--run-mode eval --compute-dtype {dtype} -r: logits '
+        f'{tuple(got.shape)} equal the trained model\'s (max abs diff '
+        f'{float((got - want).abs().max()):.3e})')
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     return counts, wall
 
@@ -907,6 +1162,11 @@ def main():
         train_step = phase_train_step(device)
         torch.cuda.empty_cache()
         counts, train_wall = phase_train_entry()
+        torch.cuda.empty_cache()
+        bf16_bwd = phase_backward_kernels(device, 'bf16')
+        torch.cuda.empty_cache()
+        bf16_train = phase_bf16_train_step(device)
+        bf16_train_counts, bf16_train_wall = phase_train_entry('bf16')
     except Exception:
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -919,26 +1179,32 @@ def main():
         'nvidia-smi unavailable'
     summary = []
     for k in kernels.KERNELS:
-        # the numbers of the path that runs the kernel: this slice's bf16
-        # eval for the production kernels, the fp32 forward (b=32) or the
-        # train step's backward (b=12) for the others; `launches` from the
-        # bf16 eval entry run, else from the fp32 train entry run
-        rows = bf16_results.get(k.name) or results[k.name]
+        # the numbers of the newest path that runs the kernel: the bf16
+        # train step's backward (b=12), the bf16 forward (b=32), the fp32
+        # forward (b=32) or the fp32 train step's backward (b=12);
+        # `launches` from this slice's main path (the bf16 train entry run),
+        # else from the bf16 eval entry run, else from the fp32 train entry
+        rows = (bf16_bwd.get(k.name) or bf16_results.get(k.name)
+                or results[k.name])
         rec = {'name': k.name, 'route': 'cuda', 'source': k.source,
                'replaces': k.replaces,
-               'launches': bf16_counts[k.name] or counts[k.name]}
+               'launches': (bf16_train_counts[k.name] or bf16_counts[k.name]
+                            or counts[k.name])}
         rec.update(_aggregate(rows))
-        rec['phase'] = ('bf16 forward b=32' if k.name in bf16_results else
+        rec['phase'] = ('bf16 train step b=12' if k.name in bf16_bwd else
+                        'bf16 forward b=32' if k.name in bf16_results else
                         'fp32 forward b=32' if k.name in FWD else
                         'fp32 train step b=12')
-        if k.name in bf16_results and k.name in results:
+        if (k.name in bf16_bwd or k.name in bf16_results) and \
+                k.name in results:
             rec['fp32'] = _aggregate(results[k.name])
         if k.name == 'intra_conv':
             # df runs this kernel (b=12 train step); ms above: b=32 forward
             rec['df'] = _aggregate(results['intra_conv_df'])
             rec['max_abs_err'] = max(rec['max_abs_err'],
                                      rec['df']['max_abs_err'])
-        rec.update({'bf16_eval_launches': bf16_counts[k.name],
+        rec.update({'bf16_train_entry_launches': bf16_train_counts[k.name],
+                    'bf16_eval_launches': bf16_counts[k.name],
                     'eval_launches': eval_counts[k.name],
                     'train_entry_launches': counts[k.name]})
         summary.append(rec)
@@ -955,6 +1221,10 @@ def main():
                    'bf16_eval_batches': bf16_batches,
                    'bf16_eval_launches': bf16_counts,
                    'train_launches': counts, 'train_entry_wall_s': train_wall,
+                   'bf16_backward_per_layer': bf16_bwd,
+                   'bf16_train_step_b12': bf16_train,
+                   'bf16_train_launches': bf16_train_counts,
+                   'bf16_train_entry_wall_s': bf16_train_wall,
                    'kernels': summary, 'seconds': time.time() - t_start},
                   f, indent=1)
     log(f'[done] {time.time() - t_start:.1f} s')

@@ -1,8 +1,8 @@
 """Hierarchical config surface (copy of ``epn_pointcloud_tpu/app/config.py``:
 the reference's groups, flags and defaults). The TPU-only --mesh-anchor
 is left out; --steps-per-dispatch is parsed so that a value above 1 is
-refused rather than ignored; --compute-dtype bf16 serves (eval) only in this
-port so far."""
+refused rather than ignored; --compute-dtype (fp32 or bf16) sets the
+precision of training and serving alike."""
 
 from __future__ import annotations
 

@@ -9,7 +9,9 @@ loads one, and without it the weights come from a seeded init.
 resume. The run goes on the CUDA device unless the caller names another
 (``device='cpu'``, as the CPU tests do); without a CUDA device and with none
 named it refuses to start. ``--compute-dtype`` sets the conv path's
-precision policy (``ops.so3conv.set_compute_dtype``) for the process.
+precision policy (``ops.so3conv.set_compute_dtype``) for the process, in
+every mode: a bf16-served model is trained in bf16 (parameters and Adam
+stay fp32; weights are cast to bf16 at use).
 """
 
 from __future__ import annotations
@@ -51,11 +53,6 @@ class Trainer:
         opt_dict = config_lib.dump_args(opt)
         self.opt = opt
         dtype = getattr(opt, 'compute_dtype', 'fp32')
-        if opt.mode == 'train' and dtype != 'fp32':
-            raise NotImplementedError(
-                f'--compute-dtype {dtype} training is not ported yet (the '
-                f'next slice: the prenorm intra backward and the grouped-conv '
-                f'backward kernels); train in fp32')
         self.device = pick_device(device)
         set_fp32_parity()
         so3conv.set_compute_dtype(dtype)

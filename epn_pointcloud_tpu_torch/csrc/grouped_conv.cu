@@ -20,6 +20,14 @@
 // conv is one GEMM over all (point, anchor) rows and takes every C and D
 // the model has.
 //
+// Backward (B9: _gc_bwd -> _bwd_kernel, which computes dx and dW in its
+// body): dx = dout @ W^T is the plain form above on (dout, W^T) with no
+// bias; dW = x^T dout (grouped_dw_kernel) reduces over the rows, written as
+// per-row-range partials and added in a fixed order (split_sum.cuh), so it
+// is deterministic. dbias is a plain reduce of dout outside, as in the JAX
+// package. Both run in fp32 or bf16, with fp32 FMAs, bound by the fp32 FMA
+// rate as the forward.
+//
 // What bounds it on the H100: as written, the fp32 FMA rate of the CUDA
 // cores (2 * rows * C * D operations; flagship layer 1 at b=32: 983,040
 // rows, 64 x 64, 8 GFLOP). The same work on bf16 tensor cores would be
@@ -36,6 +44,7 @@
 #include <cuda_runtime.h>
 
 #include "elem.cuh"
+#include "split_sum.cuh"
 
 namespace {
 
@@ -110,10 +119,12 @@ __device__ __forceinline__ void epilogue(T* __restrict__ out,
                                          const float* __restrict__ bias,
                                          const Tail& tl, int gm, int n, int D,
                                          float4 v) {
-  v.x += bias[n];
-  v.y += bias[n + 1];
-  v.z += bias[n + 2];
-  v.w += bias[n + 3];
+  if (bias != nullptr) {
+    v.x += bias[n];
+    v.y += bias[n + 1];
+    v.z += bias[n + 2];
+    v.w += bias[n + 3];
+  }
   if (TAIL) {
     const int a = gm % tl.na, bi = gm / (tl.na * tl.P);
     const int L = tl.na * D, lane = a * D + n;
@@ -222,10 +233,107 @@ int dispatch(const void* x, const void* W, const void* bias, void* out,
   return launch<float, TAIL>(x, W, bp, out, tl, rows, C, D, s);
 }
 
+constexpr int WBK = 16;  // rows a reduction slice of dW
+
+// dW[c, d] = sum_m x[m, c] dout[m, d] over one range of rows m: the block's
+// 128 (c) x BN (d) tile of the partial dW of its range, rows staged 16 at a
+// time, 8 x 8 outputs a thread (the intra conv's dW without the gather)
+template <typename T, int BN>
+__global__ void __launch_bounds__(Tile<BN>::kThreads)
+grouped_dw_kernel(const T* __restrict__ x, const T* __restrict__ dout,
+                  float* __restrict__ part, int M, int C, int D,
+                  int rows_per_split) {
+  using G = Tile<BN>;
+  __shared__ __align__(16) float As[WBK][BM];
+  __shared__ __align__(16) float Bs[WBK][BN];
+  const int tid = threadIdx.x;
+  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  const int c0 = blockIdx.x * BM, n0 = blockIdx.y * BN, split = blockIdx.z;
+  const int r_begin = split * rows_per_split;
+  const int r_end = min(M, r_begin + rows_per_split);
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int m0 = r_begin; m0 < r_end; m0 += WBK) {
+    __syncthreads();
+    for (int e = tid; e < WBK * BM / 4; e += G::kThreads) {
+      const int rr = e / (BM / 4), j4 = e % (BM / 4);
+      const int m = m0 + rr, c = c0 + 4 * j4;
+      reinterpret_cast<float4*>(&As[rr][0])[j4] =
+          m < r_end && c < C ? epn::load4(x + (size_t)m * C + c)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int e = tid; e < WBK * BN / 4; e += G::kThreads) {
+      const int rr = e / (BN / 4), c4 = e % (BN / 4);
+      const int m = m0 + rr;
+      reinterpret_cast<float4*>(&Bs[rr][0])[c4] =
+          m < r_end ? epn::load4(dout + (size_t)m * D + n0 + 4 * c4)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < WBK; ++rr) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[rr][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[rr][BM / 2 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[rr][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&Bs[rr][BN / 2 + tx * 4]);
+      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+  }
+
+  float* dst = part + (size_t)split * C * D;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int c = c0 + (i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + i - 4);
+    if (c < C) {
+      float* op = dst + (size_t)c * D + n0;
+      *reinterpret_cast<float4*>(op + tx * 4) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(op + BN / 2 + tx * 4) =
+          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+  }
+}
+
+template <typename T, int BN>
+int launch_dw(const void* x, const void* dout, float* ws, float* dW, int M,
+              int C, int D, int splits, cudaStream_t s) {
+  const int slices = (M + WBK - 1) / WBK;
+  const int rows_per_split = (slices + splits - 1) / splits * WBK;
+  dim3 grid((C + BM - 1) / BM, D / BN, splits);
+  grouped_dw_kernel<T, BN><<<grid, Tile<BN>::kThreads, 0, s>>>(
+      (const T*)x, (const T*)dout, ws, M, C, D, rows_per_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_sum_splits(ws, dW, splits, (size_t)C * D, s);
+}
+
+template <typename T>
+int launch_dw_cols(const void* x, const void* dout, float* ws, float* dW,
+                   int M, int C, int D, int splits, cudaStream_t s) {
+  if (D % 128 == 0) return launch_dw<T, 128>(x, dout, ws, dW, M, C, D, splits, s);
+  if (D % 64 == 0) return launch_dw<T, 64>(x, dout, ws, dW, M, C, D, splits, s);
+  return launch_dw<T, 32>(x, dout, ws, dW, M, C, D, splits, s);
+}
+
 }  // namespace
 
 // x [rows, C], W [C, D], out [rows, D] (fp32, or bf16 when bf16 != 0),
-// bias [D] fp32; rows = b * p * na. C must be a multiple of 4, D of 32.
+// bias [D] fp32 or null (no bias: the backward's dx = dout W^T runs this
+// with W^T); rows = b * p * na. C must be a multiple of 4, D of 32.
 extern "C" int epn_grouped_conv(const void* x, const void* W,
                                 const void* bias, void* out, int rows, int C,
                                 int D, int bf16, void* stream) {
@@ -246,4 +354,23 @@ extern "C" int epn_grouped_conv_tail(const void* x, const void* W,
   const Tail tl = {y, (const float*)ssk, (const float*)ssm, ssk_stride,
                    ssm_stride, P, na};
   return dispatch<true>(x, W, bias, out, tl, b * P * na, C, D, bf16, stream);
+}
+
+// dW [C, D] fp32 = x^T dout over x [rows, C] and dout [rows, D] (fp32, or
+// bf16 when bf16 != 0): per-row-range partials in ws [splits, C, D] fp32,
+// added in a fixed order. C must be a multiple of 4, D of 32.
+extern "C" int epn_grouped_conv_bwd_w(const void* x, const void* dout,
+                                      void* ws, void* dW, int rows, int C,
+                                      int D, int splits, int bf16,
+                                      void* stream) {
+  if (C % 4 != 0 || D % 32 != 0 || rows < 1 || splits < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) {
+    return launch_dw_cols<epn::bf16>(x, dout, (float*)ws, (float*)dW, rows, C,
+                                     D, splits, s);
+  }
+  return launch_dw_cols<float>(x, dout, (float*)ws, (float*)dW, rows, C, D,
+                               splits, s);
 }

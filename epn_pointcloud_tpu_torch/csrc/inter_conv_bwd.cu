@@ -22,6 +22,10 @@
 // anchor-weight recompute cost about 1.75 * nn / D of that. fp32 on the
 // CUDA cores (no TF32, no wgmma): the FMA rate bounds it. dF would be 2.2 GB
 // at L1 for b=12 and F more, so neither ever exists in device memory.
+// Element type: the table, W and dout are fp32, or bf16 in the production
+// mode, widened on load (elem.cuh); products, sums, dT's atomics and dW
+// stay fp32 (the caller rounds dT to the table's type, as _fgcw_bwd rounds
+// its fp32 dTable).
 //
 // dTable (inter_dtable_kernel): a block owns 64 flattened (point, anchor)
 // rows. Per chunk of 8 channels it forms the dF slab [64 x 24 x 8] in
@@ -84,11 +88,12 @@ __host__ __device__ inline TSmem t_layout(int na, int nn) {
   return s;
 }
 
+template <typename E>
 __global__ void __launch_bounds__(T_THREADS)
 inter_dtable_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
                     const float* __restrict__ rk, const float* __restrict__ k2,
-                    const float* __restrict__ W,
-                    const float* __restrict__ dout, float* __restrict__ dT,
+                    const E* __restrict__ W, const E* __restrict__ dout,
+                    float* __restrict__ dT,
                     int M, int p2, int nn, int q, int na, int C, int D,
                     float inv_sigma) {
   extern __shared__ __align__(16) float smem[];
@@ -121,8 +126,7 @@ inter_dtable_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
         const int r = e % T_BM, q4 = e / T_BM;
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
         if (m0 + r < M) {
-          v = *reinterpret_cast<const float4*>(dout + (size_t)(m0 + r) * D +
-                                               d0 + 4 * q4);
+          v = epn::load4(dout + (size_t)(m0 + r) * D + d0 + 4 * q4);
         }
         s_A[(4 * q4) * T_BM + r] = v.x;
         s_A[(4 * q4 + 1) * T_BM + r] = v.y;
@@ -132,8 +136,8 @@ inter_dtable_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
       for (int e = tid; e < NCOL * T_BK / 4; e += T_THREADS) {
         const int col = e / (T_BK / 4), q4 = e % (T_BK / 4);
         const int k = col / CC, cc = col - k * CC;
-        const float4 v = *reinterpret_cast<const float4*>(
-            W + ((size_t)k * C + c0 + cc) * D + d0 + 4 * q4);
+        const float4 v =
+            epn::load4(W + ((size_t)k * C + c0 + cc) * D + d0 + 4 * q4);
         s_B[(4 * q4) * T_BS + col] = v.x;
         s_B[(4 * q4 + 1) * T_BS + col] = v.y;
         s_B[(4 * q4 + 2) * T_BS + col] = v.z;
@@ -223,11 +227,11 @@ __host__ __device__ inline WSmem w_layout(int bn, int na, int nn) {
 }
 
 // d columns of a thread: h * (BN / NH) + tx * 4 + j, h < NH, j < 4
-template <int BN>
+template <typename E, int BN>
 __global__ void __launch_bounds__(W_THREADS)
 inter_dw_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
-                const float* __restrict__ table, const float* __restrict__ rk,
-                const float* __restrict__ k2, const float* __restrict__ dout,
+                const E* __restrict__ table, const float* __restrict__ rk,
+                const float* __restrict__ k2, const E* __restrict__ dout,
                 float* __restrict__ part, int M, int p2, int nn, int q,
                 int na, int C, int D, int rows_per_split, float inv_sigma) {
   constexpr int NH = BN / 64;
@@ -269,8 +273,7 @@ inter_dw_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
       const int r = e / (BN / 4), c4 = e % (BN / 4);
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (m0 + r < m_end) {
-        v = *reinterpret_cast<const float4*>(dout + (size_t)(m0 + r) * D + n0 +
-                                             4 * c4);
+        v = epn::load4(dout + (size_t)(m0 + r) * D + n0 + 4 * c4);
       }
       reinterpret_cast<float4*>(s_D + r * BN)[c4] = v;
     }
@@ -313,82 +316,112 @@ inter_dw_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
   }
 }
 
-template <int BN>
-int launch_dw(const float* gx, const int* idx, const float* table,
-              const float* rk, const float* k2, const float* dout, float* ws,
+template <typename E, int BN>
+int launch_dw(const float* gx, const int* idx, const void* table,
+              const float* rk, const float* k2, const void* dout, float* ws,
               float* dW, int M, int p2, int nn, int q, int na, int C, int D,
               float sigma, int splits, cudaStream_t stream) {
   const WSmem L = w_layout(BN, na, nn);
   if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      inter_dw_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      inter_dw_kernel<E, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L.total);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (M + W_BM - 1) / W_BM;
   const int rows_per_split = (tiles + splits - 1) / splits * W_BM;
   dim3 grid(D / BN, C / CC, splits);
-  inter_dw_kernel<BN><<<grid, W_THREADS, L.total, stream>>>(
-      gx, idx, table, rk, k2, dout, ws, M, p2, nn, q, na, C, D, rows_per_split,
-      1.f / sigma);
+  inter_dw_kernel<E, BN><<<grid, W_THREADS, L.total, stream>>>(
+      gx, idx, (const E*)table, rk, k2, (const E*)dout, ws, M, p2, nn, q, na, C,
+      D, rows_per_split, 1.f / sigma);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_sum_splits(ws, dW, splits, (size_t)NK * C * D, stream);
 }
 
+template <typename E>
+int launch_dtable(const float* gx, const int* idx, const float* rk,
+                  const float* k2, const void* W, const void* dout, float* dT,
+                  int M, int p2, int nn, int q, int na, int C, int D,
+                  float sigma, cudaStream_t stream) {
+  const TSmem L = t_layout(na, nn);
+  if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      inter_dtable_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  inter_dtable_kernel<E><<<(M + T_BM - 1) / T_BM, T_THREADS, L.total,
+                           stream>>>(gx, idx, rk, k2, (const E*)W,
+                                     (const E*)dout, dT, M, p2, nn, q, na, C,
+                                     D, 1.f / sigma);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int launch_dw_cols(const float* gx, const int* idx, const void* table,
+                   const float* rk, const float* k2, const void* dout,
+                   float* ws, float* dW, int M, int p2, int nn, int q, int na,
+                   int C, int D, float sigma, int splits, cudaStream_t s) {
+  if (D % 128 == 0) {
+    return launch_dw<E, 128>(gx, idx, table, rk, k2, dout, ws, dW, M, p2, nn,
+                             q, na, C, D, sigma, splits, s);
+  }
+  return launch_dw<E, 64>(gx, idx, table, rk, k2, dout, ws, dW, M, p2, nn, q,
+                          na, C, D, sigma, splits, s);
+}
+
 }  // namespace
 
 // gx [b, p2, nn, 3], idx [b, p2, nn] int32 in [0, q] (q = shadow), rk
-// [na, K, 3], k2 [K], W [K, C, D], dout [b, p2, na, D]; dT [b, q, na, C]
-// must hold zeros (the kernel adds into it). K must be 24, C a multiple of
-// 8, D of 16.
+// [na, K, 3], k2 [K] fp32; W [K, C, D] and dout [b, p2, na, D] fp32, or
+// bf16 when bf16 != 0; dT [b, q, na, C] fp32 must hold zeros (the kernel
+// adds into it). K must be 24, C a multiple of 8, D of 16.
 extern "C" int epn_inter_conv_bwd_table(const void* gx, const void* idx,
                                         const void* rk, const void* k2,
                                         const void* W, const void* dout,
                                         void* dT, int b, int p2, int nn, int q,
                                         int na, int K, int C, int D,
-                                        float sigma, void* stream) {
+                                        float sigma, int bf16, void* stream) {
   if (K != NK || C % CC != 0 || D % T_BK != 0 || nn < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const TSmem L = t_layout(na, nn);
-  if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      inter_dtable_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
-  if (err != cudaSuccess) return (int)err;
   const int M = b * p2 * na;
-  inter_dtable_kernel<<<(M + T_BM - 1) / T_BM, T_THREADS, L.total,
-                        (cudaStream_t)stream>>>(
-      (const float*)gx, (const int*)idx, (const float*)rk, (const float*)k2,
-      (const float*)W, (const float*)dout, (float*)dT, M, p2, nn, q, na, C, D,
-      1.f / sigma);
-  return (int)cudaGetLastError();
+  const float* g = (const float*)gx;
+  const int* ix = (const int*)idx;
+  const float* r = (const float*)rk;
+  const float* kk = (const float*)k2;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) {
+    return launch_dtable<epn::bf16>(g, ix, r, kk, W, dout, (float*)dT, M, p2,
+                                    nn, q, na, C, D, sigma, s);
+  }
+  return launch_dtable<float>(g, ix, r, kk, W, dout, (float*)dT, M, p2, nn, q,
+                              na, C, D, sigma, s);
 }
 
-// gx, idx, rk, k2 as above, table [b, q, na, C], dout [b, p2, na, D];
-// ws [splits, K, C, D] scratch, dW [K, C, D] out. K must be 24, C a
-// multiple of 8, D of 64.
+// gx, idx, rk, k2 as above, table [b, q, na, C] and dout [b, p2, na, D]
+// fp32, or bf16 when bf16 != 0; ws [splits, K, C, D] fp32 scratch, dW [K, C,
+// D] fp32 out. K must be 24, C a multiple of 8, D of 64.
 extern "C" int epn_inter_conv_bwd_w(const void* gx, const void* idx,
                                     const void* table, const void* rk,
                                     const void* k2, const void* dout, void* ws,
                                     void* dW, int b, int p2, int nn, int q,
                                     int na, int K, int C, int D, float sigma,
-                                    int splits, void* stream) {
+                                    int splits, int bf16, void* stream) {
   if (K != NK || C % CC != 0 || D % 64 != 0 || nn < 1 || splits < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   const float* g = (const float*)gx;
   const int* ix = (const int*)idx;
-  const float* t = (const float*)table;
   const float* r = (const float*)rk;
   const float* kk = (const float*)k2;
-  const float* dy = (const float*)dout;
   const int M = b * p2 * na;
-  if (D % 128 == 0) {
-    return launch_dw<128>(g, ix, t, r, kk, dy, (float*)ws, (float*)dW, M, p2,
-                          nn, q, na, C, D, sigma, splits, s);
+  if (bf16) {
+    return launch_dw_cols<epn::bf16>(g, ix, table, r, kk, dout, (float*)ws,
+                                     (float*)dW, M, p2, nn, q, na, C, D,
+                                     sigma, splits, s);
   }
-  return launch_dw<64>(g, ix, t, r, kk, dy, (float*)ws, (float*)dW, M, p2, nn,
-                       q, na, C, D, sigma, splits, s);
+  return launch_dw_cols<float>(g, ix, table, r, kk, dout, (float*)ws,
+                               (float*)dW, M, p2, nn, q, na, C, D, sigma,
+                               splits, s);
 }

@@ -57,7 +57,22 @@
 // 16-byte staging loads, as in the forward) and the dout slice, with 8 x 8
 // outputs a thread. Each row range writes a partial dW to a workspace, and a
 // second launch (split_sum.cuh) adds the partials in a fixed order:
-// deterministic, no atomics.
+// deterministic, no atomics. It runs in fp32 and bf16, and in the PRENORM
+// form stages z = act(f * scale + shift), rounded as the forward rounds it.
+//
+// Prenorm backward (B6: _bwd_pallas -> _bwd_kernel_prenorm, the VJP of
+// intra_conv_prenorm), with u = f * scale + shift and z = act(u):
+//   dz = the df above (fp32, never rounded),  du = dz * (u > 0 ? 1 : slope)
+//   df = du * scale (rounded to f's type),  dscale = sum_p du * f,
+//   dshift = sum_p du  (per lane; over the clouds too when one fold serves
+//   the batch),  dW = the dW above on z.
+// intra_df_prenorm_kernel is the forward's product tile on the inverse
+// adjacency with that epilogue. Its blocks own whole points of one cloud (2
+// points at 60 anchors: 120 of the 128 rows work), so it sums du * f and du
+// over its points in shared memory, point after point, and writes one
+// partial a block and lane; split_sum.cuh adds them in a fixed order. No
+// atomics anywhere: df, dscale, dshift and dW are deterministic. Bound, as
+// the forward: the fp32 FMA rate; the epilogue reads f and the fold again.
 
 #include <cuda_runtime.h>
 
@@ -147,42 +162,19 @@ __device__ __forceinline__ void store_slice(
   }
 }
 
-// PRE: ss is the prenorm fold [., 2, na * C] at batch stride ss_stride
-// (a template flag, so the plain form carries no prenorm registers)
+// The block's product tile acc = A[block rows] @ W[:, n0 : n0 + BN] over
+// the reduction K * C, A's rows gathered through s_trace (and through the
+// prenorm when PRE) as a_pt / a_ss / a_anchor give them.
 template <typename E, bool PRE, int BN>
-__global__ void __launch_bounds__(Tile<BN>::kThreads)
-intra_conv_kernel(const E* __restrict__ f, const int* __restrict__ trace_idx,
-                  const E* __restrict__ W, const float* __restrict__ ss,
-                  E* __restrict__ out, int M, int P, int na, int K, int C,
-                  int D, int ss_stride) {
+__device__ __forceinline__ void product_tile(
+    const E* __restrict__ W, const int* __restrict__ s_trace,
+    const E* (&a_pt)[Tile<BN>::kALoads],
+    const float* (&a_ss)[Tile<BN>::kALoads],
+    const int (&a_anchor)[Tile<BN>::kALoads], float (&As)[2][BK][BM],
+    float (&Bs)[2][BK][BN], int tid, int K, int C, int D, int n0, int L,
+    float (&acc)[TM][TN]) {
   using T = Tile<BN>;
-  __shared__ __align__(16) float As[2][BK][BM];
-  __shared__ __align__(16) float Bs[2][BK][BN];
-  __shared__ int s_trace[kMaxTrace];
-
-  const int tid = threadIdx.x;
-  for (int i = tid; i < na * K; i += T::kThreads) s_trace[i] = trace_idx[i];
-  __syncthreads();
   const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-
-  // this thread's A rows are fixed over the reduction: the point's feature
-  // rows and the anchor, per staged float4 (row = e / 4, slice quad = e % 4:
-  // four lanes read one row's 64 contiguous bytes)
-  const E* a_pt[T::kALoads];
-  const float* a_ss[T::kALoads];
-  int a_anchor[T::kALoads];
-#pragma unroll
-  for (int i = 0; i < T::kALoads; ++i) {
-    const int gm = m0 + (tid + i * T::kThreads) / 4;
-    const int pt = gm / na;
-    a_anchor[i] = gm < M ? gm - pt * na : -1;
-    a_pt[i] = f + (size_t)pt * na * C;
-    a_ss[i] = PRE ? ss + (size_t)(pt / P) * ss_stride : nullptr;
-  }
-  const int L = na * C;
-
-  float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
 #pragma unroll
@@ -220,10 +212,54 @@ intra_conv_kernel(const E* __restrict__ f, const int* __restrict__ trace_idx,
     if (s + 1 < n_slices) store_slice<BN>(As[buf ^ 1], Bs[buf ^ 1], tid, ra, rb);
     __syncthreads();
   }
+}
+
+// row of the block tile that output row i (< TM) of thread row group ty is
+__device__ __forceinline__ int tile_row(int ty, int i) {
+  return i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + i - 4;
+}
+
+// PRE: ss is the prenorm fold [., 2, na * C] at batch stride ss_stride
+// (a template flag, so the plain form carries no prenorm registers)
+template <typename E, bool PRE, int BN>
+__global__ void __launch_bounds__(Tile<BN>::kThreads)
+intra_conv_kernel(const E* __restrict__ f, const int* __restrict__ trace_idx,
+                  const E* __restrict__ W, const float* __restrict__ ss,
+                  E* __restrict__ out, int M, int P, int na, int K, int C,
+                  int D, int ss_stride) {
+  using T = Tile<BN>;
+  __shared__ __align__(16) float As[2][BK][BM];
+  __shared__ __align__(16) float Bs[2][BK][BN];
+  __shared__ int s_trace[kMaxTrace];
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < na * K; i += T::kThreads) s_trace[i] = trace_idx[i];
+  __syncthreads();
+  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+
+  // this thread's A rows are fixed over the reduction: the point's feature
+  // rows and the anchor, per staged float4 (row = e / 4, slice quad = e % 4:
+  // four lanes read one row's 64 contiguous bytes)
+  const E* a_pt[T::kALoads];
+  const float* a_ss[T::kALoads];
+  int a_anchor[T::kALoads];
+#pragma unroll
+  for (int i = 0; i < T::kALoads; ++i) {
+    const int gm = m0 + (tid + i * T::kThreads) / 4;
+    const int pt = gm / na;
+    a_anchor[i] = gm < M ? gm - pt * na : -1;
+    a_pt[i] = f + (size_t)pt * na * C;
+    a_ss[i] = PRE ? ss + (size_t)(pt / P) * ss_stride : nullptr;
+  }
+
+  float acc[TM][TN];
+  product_tile<E, PRE, BN>(W, s_trace, a_pt, a_ss, a_anchor, As, Bs, tid, K,
+                           C, D, n0, na * C, acc);
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + (i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + i - 4);
+    const int gm = m0 + tile_row(ty, i);
     if (gm < M) {
       E* op = out + (size_t)gm * D + n0;
       epn::store4(op + tx * 4,
@@ -231,6 +267,135 @@ intra_conv_kernel(const E* __restrict__ f, const int* __restrict__ trace_idx,
       epn::store4(op + BN / 2 + tx * 4,
                   make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
     }
+  }
+}
+
+// du = dz * act'(u) for four lanes, u = x * scale + shift (mask u > 0, as
+// the forward's prenorm4), with the scale of the lanes in *sc
+__device__ __forceinline__ float4 act_grad4(const float4& dz, const float4& x,
+                                            const float* ss, int L,
+                                            float4* sc) {
+  *sc = *reinterpret_cast<const float4*>(ss);
+  const float4 sh = *reinterpret_cast<const float4*>(ss + L);
+  const float s = epn::kLeakySlope;
+  return make_float4(fmaf(x.x, sc->x, sh.x) > 0.f ? dz.x : s * dz.x,
+                     fmaf(x.y, sc->y, sh.y) > 0.f ? dz.y : s * dz.y,
+                     fmaf(x.z, sc->z, sh.z) > 0.f ? dz.z : s * dz.z,
+                     fmaf(x.w, sc->w, sh.w) > 0.f ? dz.w : s * dz.w);
+}
+
+// B6 df (the df half of _bwd_kernel_prenorm): the product tile is the
+// forward's on (g = dout, inv_idx, Wt = W transposed to [K, C, D]), i.e. the
+// fp32 dz of z = act(x * scale + shift), never rounded. The epilogue writes
+// df = du * scale rounded to E, and sums dscale = du * x and dshift = du over
+// the block's points. A block's rows are whole points of one cloud bi (the
+// first np * na of its BM rows), so those sums are per (cloud, block, lane)
+// partials, written to ws [2][nJ][b][na * D] for a fixed-order sum.
+template <typename E, int BN>
+__global__ void __launch_bounds__(Tile<BN>::kThreads)
+intra_df_prenorm_kernel(const E* __restrict__ g,
+                        const int* __restrict__ inv_idx,
+                        const E* __restrict__ Wt, const E* __restrict__ x,
+                        const float* __restrict__ ss, E* __restrict__ df,
+                        float* __restrict__ ws, int b, int P, int na, int K,
+                        int C, int D, int ss_stride, int nJ) {
+  using T = Tile<BN>;
+  __shared__ __align__(16) float As[2][BK][BM];
+  __shared__ __align__(16) float Bs[2][BK][BN];
+  __shared__ int s_trace[kMaxTrace];
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < na * K; i += T::kThreads) s_trace[i] = inv_idx[i];
+  __syncthreads();
+  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  const int bi = blockIdx.x / nJ, j = blockIdx.x - bi * nJ;
+  const int ppb = BM / na;
+  const int pt0 = bi * P + j * ppb;       // the block's first point
+  const int np = min(ppb, P - j * ppb);   // and its number of points
+  const int rows = np * na;
+  const int n0 = blockIdx.y * BN;
+
+  const E* a_pt[T::kALoads];
+  const float* a_ss[T::kALoads];
+  int a_anchor[T::kALoads];
+#pragma unroll
+  for (int i = 0; i < T::kALoads; ++i) {
+    const int r = (tid + i * T::kThreads) / 4;
+    const int pl = r / na;
+    a_anchor[i] = r < rows ? r - pl * na : -1;
+    a_pt[i] = g + (size_t)(pt0 + pl) * na * C;
+    a_ss[i] = nullptr;
+  }
+
+  float acc[TM][TN];
+  product_tile<E, false, BN>(Wt, s_trace, a_pt, a_ss, a_anchor, As, Bs, tid,
+                             K, C, D, n0, na * C, acc);
+
+  const int L = na * D;                    // lanes of x, ss and df
+  const float* ssb = ss + (size_t)bi * ss_stride;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = tile_row(ty, i);
+    if (r >= rows) continue;
+    const int pl = r / na, a = r - pl * na;
+    const size_t gm = (size_t)(pt0 + pl) * na + a;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + h * (BN / 2) + tx * 4;
+      const float4 dz = make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                    acc[i][4 * h + 2], acc[i][4 * h + 3]);
+      float4 sc;
+      const float4 du =
+          act_grad4(dz, epn::load4(x + gm * D + n), ssb + a * D + n, L, &sc);
+      epn::store4(df + gm * D + n, make_float4(du.x * sc.x, du.y * sc.y,
+                                               du.z * sc.z, du.w * sc.w));
+    }
+  }
+
+  // dscale (q = 0: du * x) and dshift (q = 1: du) summed over the block's
+  // points in shared memory, one point after the other: each (anchor,
+  // column) sum takes its terms in point order, no atomics
+  float* s_red = &As[0][0][0];             // [na][BN], na * BN <= 2 BK BM
+  for (int q = 0; q < 2; ++q) {
+    for (int e = tid; e < na * BN; e += T::kThreads) s_red[e] = 0.f;
+    __syncthreads();
+    for (int pl = 0; pl < np; ++pl) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int r = tile_row(ty, i);
+        if (r >= rows || r / na != pl) continue;
+        const int a = r - pl * na;
+        const size_t gm = (size_t)(pt0 + pl) * na + a;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int cl = h * (BN / 2) + tx * 4, n = n0 + cl;
+          const float4 dz = make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                        acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          const float4 xv = epn::load4(x + gm * D + n);
+          float4 sc;
+          const float4 du = act_grad4(dz, xv, ssb + a * D + n, L, &sc);
+          float* sp = s_red + a * BN + cl;
+          if (q == 0) {
+            sp[0] += du.x * xv.x;
+            sp[1] += du.y * xv.y;
+            sp[2] += du.z * xv.z;
+            sp[3] += du.w * xv.w;
+          } else {
+            sp[0] += du.x;
+            sp[1] += du.y;
+            sp[2] += du.z;
+            sp[3] += du.w;
+          }
+        }
+      }
+      __syncthreads();
+    }
+    float* dst = ws + ((size_t)q * nJ * b + (size_t)j * b + bi) * L;
+    for (int e = tid; e < na * BN; e += T::kThreads) {
+      const int a = e / BN, cl = e - a * BN;
+      dst[a * D + n0 + cl] = s_red[e];
+    }
+    __syncthreads();
   }
 }
 
@@ -273,12 +438,14 @@ int launch(const void* f, const int* trace_idx, const void* W,
 constexpr int WBK = 16;  // rows a reduction slice of dW
 
 // dW tile: (k, c) rows kc0 + ty * 4 + i and kc0 + BM / 2 + ty * 4 + i, d
-// columns n0 + tx * 4 + j and n0 + BN / 2 + tx * 4 + j
-template <int BN>
+// columns n0 + tx * 4 + j and n0 + BN / 2 + tx * 4 + j. PRE: the staged f
+// is z = act(f * scale + shift) rounded to E, as the prenorm forward's.
+template <typename E, bool PRE, int BN>
 __global__ void __launch_bounds__(Tile<BN>::kThreads)
-intra_dw_kernel(const float* __restrict__ f, const int* __restrict__ trace_idx,
-                const float* __restrict__ dout, float* __restrict__ part,
-                int M, int na, int K, int C, int D, int rows_per_split) {
+intra_dw_kernel(const E* __restrict__ f, const int* __restrict__ trace_idx,
+                const float* __restrict__ ss, const E* __restrict__ dout,
+                float* __restrict__ part, int M, int P, int na, int K, int C,
+                int D, int ss_stride, int rows_per_split) {
   using T = Tile<BN>;
   __shared__ __align__(16) float As[WBK][BM];
   __shared__ __align__(16) float Bs[WBK][BN];
@@ -308,8 +475,11 @@ intra_dw_kernel(const float* __restrict__ f, const int* __restrict__ trace_idx,
       if (m < r_end && kc < KC) {
         const int pt = m / na, a = m - pt * na;
         const int k = kc / C, c = kc - k * C;
-        v = *reinterpret_cast<const float4*>(
-            f + ((size_t)pt * na + s_trace[a * K + k]) * C + c);
+        const int lane = s_trace[a * K + k] * C + c;
+        v = epn::load4(f + (size_t)pt * na * C + lane);
+        if (PRE) {
+          v = prenorm4<E>(v, ss + (size_t)(pt / P) * ss_stride + lane, na * C);
+        }
       }
       reinterpret_cast<float4*>(&As[rr][0])[j4] = v;
     }
@@ -317,8 +487,7 @@ intra_dw_kernel(const float* __restrict__ f, const int* __restrict__ trace_idx,
       const int rr = e / (BN / 4), c4 = e % (BN / 4);
       const int m = m0 + rr;
       reinterpret_cast<float4*>(&Bs[rr][0])[c4] =
-          m < r_end ? *reinterpret_cast<const float4*>(
-                          dout + (size_t)m * D + n0 + 4 * c4)
+          m < r_end ? epn::load4(dout + (size_t)m * D + n0 + 4 * c4)
                     : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     __syncthreads();
@@ -343,7 +512,7 @@ intra_dw_kernel(const float* __restrict__ f, const int* __restrict__ trace_idx,
   float* dst = part + (size_t)split * KC * D;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int kc = kc0 + (i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + i - 4);
+    const int kc = kc0 + tile_row(ty, i);
     if (kc < KC) {
       float* op = dst + (size_t)kc * D + n0;
       *reinterpret_cast<float4*>(op + tx * 4) =
@@ -354,18 +523,85 @@ intra_dw_kernel(const float* __restrict__ f, const int* __restrict__ trace_idx,
   }
 }
 
-template <int BN>
-int launch_dw(const float* f, const int* trace_idx, const float* dout,
-              float* ws, float* dW, int M, int na, int K, int C, int D,
-              int splits, cudaStream_t stream) {
+template <typename E, bool PRE, int BN>
+int launch_dw(const void* f, const int* trace_idx, const float* ss,
+              const void* dout, float* ws, float* dW, int M, int P, int na,
+              int K, int C, int D, int ss_stride, int splits,
+              cudaStream_t stream) {
   const int slices = (M + WBK - 1) / WBK;
   const int rows_per_split = (slices + splits - 1) / splits * WBK;
   dim3 grid((K * C + BM - 1) / BM, D / BN, splits);
-  intra_dw_kernel<BN><<<grid, Tile<BN>::kThreads, 0, stream>>>(
-      f, trace_idx, dout, ws, M, na, K, C, D, rows_per_split);
+  intra_dw_kernel<E, PRE, BN><<<grid, Tile<BN>::kThreads, 0, stream>>>(
+      (const E*)f, trace_idx, ss, (const E*)dout, ws, M, P, na, K, C, D,
+      ss_stride, rows_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_sum_splits(ws, dW, splits, (size_t)K * C * D, stream);
+}
+
+template <typename E, bool PRE>
+int launch_dw_cols(const void* f, const int* trace_idx, const float* ss,
+                   const void* dout, float* ws, float* dW, int M, int P,
+                   int na, int K, int C, int D, int ss_stride, int splits,
+                   cudaStream_t s) {
+  if (D % 128 == 0) {
+    return launch_dw<E, PRE, 128>(f, trace_idx, ss, dout, ws, dW, M, P, na, K,
+                                  C, D, ss_stride, splits, s);
+  }
+  if (D % 64 == 0) {
+    return launch_dw<E, PRE, 64>(f, trace_idx, ss, dout, ws, dW, M, P, na, K,
+                                 C, D, ss_stride, splits, s);
+  }
+  return launch_dw<E, PRE, 32>(f, trace_idx, ss, dout, ws, dW, M, P, na, K, C,
+                               D, ss_stride, splits, s);
+}
+
+template <typename E>
+int launch_dw_any(const void* f, const int* trace_idx, const float* ss,
+                  const void* dout, float* ws, float* dW, int M, int P, int na,
+                  int K, int C, int D, int ss_stride, int splits,
+                  cudaStream_t s) {
+  if (ss != nullptr) {
+    return launch_dw_cols<E, true>(f, trace_idx, ss, dout, ws, dW, M, P, na,
+                                   K, C, D, ss_stride, splits, s);
+  }
+  return launch_dw_cols<E, false>(f, trace_idx, ss, dout, ws, dW, M, P, na, K,
+                                  C, D, ss_stride, splits, s);
+}
+
+template <typename E, int BN>
+int launch_df_prenorm(const void* g, const int* inv_idx, const void* Wt,
+                      const void* x, const float* ss, void* df, float* ws,
+                      float* dscale, float* dshift, int b, int P, int na,
+                      int K, int C, int D, int ss_batch, cudaStream_t s) {
+  const int nJ = (P + BM / na - 1) / (BM / na);
+  const size_t L = (size_t)na * D;
+  intra_df_prenorm_kernel<E, BN><<<dim3(b * nJ, D / BN), Tile<BN>::kThreads,
+                                   0, s>>>(
+      (const E*)g, inv_idx, (const E*)Wt, (const E*)x, ss, (E*)df, ws, b, P,
+      na, K, C, D, ss_batch > 1 ? (int)(2 * L) : 0, nJ);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // the partials [nJ][b][L] in order: over each cloud's blocks (a fold per
+  // cloud) or over every block (one fold for the batch)
+  const int splits = ss_batch > 1 ? nJ : nJ * b;
+  const size_t n = ss_batch > 1 ? b * L : L;
+  const int e = launch_sum_splits(ws, dscale, splits, n, s);
+  if (e != 0) return e;
+  return launch_sum_splits(ws + (size_t)nJ * b * L, dshift, splits, n, s);
+}
+
+template <typename E>
+int launch_df_prenorm_cols(const void* g, const int* inv_idx, const void* Wt,
+                           const void* x, const float* ss, void* df, float* ws,
+                           float* dscale, float* dshift, int b, int P, int na,
+                           int K, int C, int D, int ss_batch, cudaStream_t s) {
+  if (D % 64 == 0 && na * 64 <= 2 * BK * BM) {
+    return launch_df_prenorm<E, 64>(g, inv_idx, Wt, x, ss, df, ws, dscale,
+                                    dshift, b, P, na, K, C, D, ss_batch, s);
+  }
+  return launch_df_prenorm<E, 32>(g, inv_idx, Wt, x, ss, df, ws, dscale,
+                                  dshift, b, P, na, K, C, D, ss_batch, s);
 }
 
 }  // namespace
@@ -394,28 +630,58 @@ extern "C" int epn_intra_conv(const void* f, const void* trace_idx,
   return launch<float>(f, tp, W, sp, out, M, P, na, K, C, D, ss_stride, s);
 }
 
-// f [b, P, na, C], trace_idx [na, K] int32, dout [b, P, na, D]; ws
-// [splits, K, C, D] scratch, dW [K, C, D] out. C must be a multiple of 4,
-// D of 32.
+// f [b, P, na, C], trace_idx [na, K] int32, dout [b, P, na, D] (fp32, or
+// bf16 when bf16 != 0); ss: null, or the prenorm fold fp32 [., 2, na * C]
+// at batch stride ss_stride, applied to f on load; ws [splits, K, C, D]
+// fp32 scratch, dW [K, C, D] fp32 out. C must be a multiple of 4, D of 32.
 extern "C" int epn_intra_conv_bwd_w(const void* f, const void* trace_idx,
-                                    const void* dout, void* ws, void* dW,
-                                    int b, int P, int na, int K, int C, int D,
-                                    int splits, void* stream) {
+                                    const void* ss, const void* dout, void* ws,
+                                    void* dW, int b, int P, int na, int K,
+                                    int C, int D, int ss_stride, int splits,
+                                    int bf16, void* stream) {
   if (na * K > kMaxTrace || C % 4 != 0 || D % 32 != 0 || splits < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  const float* fp = (const float*)f;
   const int* tp = (const int*)trace_idx;
-  const float* dy = (const float*)dout;
-  float* w = (float*)ws;
-  float* o = (float*)dW;
+  const float* sp = (const float*)ss;
   const int M = b * P * na;
-  if (D % 128 == 0) {
-    return launch_dw<128>(fp, tp, dy, w, o, M, na, K, C, D, splits, s);
+  if (bf16) {
+    return launch_dw_any<epn::bf16>(f, tp, sp, dout, (float*)ws, (float*)dW, M,
+                                    P, na, K, C, D, ss_stride, splits, s);
   }
-  if (D % 64 == 0) {
-    return launch_dw<64>(fp, tp, dy, w, o, M, na, K, C, D, splits, s);
+  return launch_dw_any<float>(f, tp, sp, dout, (float*)ws, (float*)dW, M, P,
+                              na, K, C, D, ss_stride, splits, s);
+}
+
+// B6 df, dscale, dshift. dout [b, P, na, C], inv_idx [na, K] int32, Wt [K,
+// C, D] (W transposed), x [b, P, na, D] the saved pre-norm input, df [b, P,
+// na, D] out (fp32, or bf16 when bf16 != 0); ss fp32 [ss_batch, 2, na * D]
+// (ss_batch 1 or b); ws fp32 scratch [2, nJ, b, na * D] with nJ =
+// ceil(P / (128 / na)); dscale, dshift fp32 [ss_batch, na * D] out. C must
+// be a multiple of 4, D of 32, na at most 64.
+extern "C" int epn_intra_conv_prenorm_df(const void* dout, const void* inv_idx,
+                                         const void* Wt, const void* x,
+                                         const void* ss, void* df, void* ws,
+                                         void* dscale, void* dshift, int b,
+                                         int P, int na, int K, int C, int D,
+                                         int ss_batch, int bf16,
+                                         void* stream) {
+  if (na * K > kMaxTrace || na > 64 || C % 4 != 0 || D % 32 != 0 ||
+      (ss_batch != 1 && ss_batch != b)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return launch_dw<32>(fp, tp, dy, w, o, M, na, K, C, D, splits, s);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* ip = (const int*)inv_idx;
+  const float* sp = (const float*)ss;
+  float* w = (float*)ws;
+  float* dsc = (float*)dscale;
+  float* dsh = (float*)dshift;
+  if (bf16) {
+    return launch_df_prenorm_cols<epn::bf16>(dout, ip, Wt, x, sp, df, w, dsc,
+                                             dsh, b, P, na, K, C, D, ss_batch,
+                                             s);
+  }
+  return launch_df_prenorm_cols<float>(dout, ip, Wt, x, sp, df, w, dsc, dsh, b,
+                                       P, na, K, C, D, ss_batch, s);
 }

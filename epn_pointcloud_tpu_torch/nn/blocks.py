@@ -1,12 +1,14 @@
 """Conv blocks (counterpart of ``epn_pointcloud_tpu/nn/blocks.py``), over
 [b, p, a, c] activations. In fp32, train and eval differ only in the
 BatchNorms, through ``module.train()`` / ``.eval()``. In the bf16 production
-mode (``ops.so3conv.packed_enabled()``; eval only so far) a separable block
-runs the JAX packed path: the inter conv's BatchNorm and activation are
-deferred into the intra conv's load path (PRENORM kernel), and the intra
-InstanceNorm, the skip 1x1 conv, its BatchNorm, both activations and the
-residual add run in one fused tail kernel, except at block 0 layer 0 (the
-occupancy-ones input), whose rank-1 skip keeps the unfused tail.
+mode (``ops.so3conv.packed_enabled()``) a separable block runs the JAX
+packed path: the inter conv's BatchNorm and activation are deferred into the
+intra conv's load path (PRENORM kernel; in train mode the fold carries the
+batch statistics and takes their gradient). In eval the intra InstanceNorm,
+the skip 1x1 conv, its BatchNorm, both activations and the residual add run
+in one fused tail kernel; training (whose skip BatchNorm needs the skip
+conv's batch statistics) and block 0 layer 0 (the occupancy-ones input,
+rank-1 skip) keep the unfused tail.
 
 Module names follow the original EPN tree
 (``backbone.{i}.blocks.{j}.{inter_conv,intra_conv,skip_conv,norm}``).
@@ -69,12 +71,13 @@ class InterSO3ConvBlock(nn.Module):
 
     def forward(self, x: SphericalPointCloud, ones_input: bool = False,
                 defer_norm_act: bool = False):
-        """defer_norm_act (eval): return (sample_idx, raw conv output, the
+        """defer_norm_act: return (sample_idx, raw conv output, the
         BatchNorm folded to per-lane [1, 2, L]) for the next kernel to apply
         with the activation on load."""
         sample_idx, x = self.conv(x, ones_input=ones_input)
         if defer_norm_act:
-            return sample_idx, x, self.norm.scale_shift(x.feats.shape[2])
+            return sample_idx, x, self.norm.scale_shift(x.feats.shape[2],
+                                                        x.feats)
         return sample_idx, SphericalPointCloud(
             x.xyz, self.act(self.norm(x.feats)), x.anchors)
 
@@ -120,23 +123,25 @@ class SeparableSO3ConvBlock(nn.Module):
         return sampling.gather_points(skip, sample_idx)
 
     def _forward_packed(self, x: SphericalPointCloud, ones_input: bool):
-        """The bf16 production-mode eval forward (``blocks.py:126-246`` of
-        the JAX package on packed activations)."""
-        if self.training:
-            raise NotImplementedError(
-                'bf16 training is not ported yet (it needs the prenorm intra '
-                'backward and the grouped-conv backward kernels): train in '
-                'fp32')
+        """The bf16 production-mode forward (``blocks.py:126-246`` of the
+        JAX package on packed activations; its fused tail is eval-only)."""
         skip = so3conv.at_use(x.feats)
         sample_idx, x, inter_ss = self.inter_conv(
             x, ones_input=ones_input, defer_norm_act=True)
         skip = self._strided_skip(skip, x, sample_idx, ones_input)
-        if ones_input:
-            # rank-1 skip over the constant field: the unfused tail, rounded
-            # after the skip conv, after each norm and after the residual
+        if ones_input or self.training:
+            # the unfused tail, rounded after the skip conv, after each norm
+            # and after the residual. The rank-1 skip over the constant field
+            # is the JAX package's unpacked one: a broadcast product and
+            # plain-torch statistics; the others run the grouped conv and
+            # take their statistics from the moments kernel
             x = self.intra_conv(x, prenorm=inter_ss)
-            skip = self.act(self.norm(self.skip_conv(skip)))
-            return SphericalPointCloud(x.xyz, x.feats + skip, x.anchors)
+            if ones_input:
+                skip = self.norm(self.skip_conv(skip), kernel_stats=False)
+            else:
+                skip = self.norm(self.skip_conv.grouped(skip))
+            return SphericalPointCloud(x.xyz, x.feats + self.act(skip),
+                                       x.anchors)
         y, main_ss = self.intra_conv(x, prenorm=inter_ss, defer_norm_act=True)
         feats = so3conv.separable_tail(
             skip, self.skip_conv.weight_cd(), self.skip_conv.bias,

@@ -3,7 +3,9 @@
 PointnetSO3Conv -> BatchNorm + ReLU -> attention pooling over anchors ->
 linear. Only the 'attention' pooling the ModelNet entry point uses is
 ported. In the bf16 production mode the mlp convs run the anchor-grouped
-1x1 conv kernel and their BatchNorm + ReLU round to bf16; the pointnet,
+1x1 conv kernel (``GroupedConvFn``, with its backward) and their BatchNorm
++ ReLU round to bf16, the BatchNorm in train mode on one-pass statistics
+from the moments kernel (``heads.py:101-110``); the pointnet,
 attention and logits are fp32 in both modes (``heads.py:101-142`` of the
 JAX package).
 """

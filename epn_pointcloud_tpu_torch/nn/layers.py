@@ -28,6 +28,7 @@ from torch import nn
 
 from ..ops import icosahedron, kernel_points, so3conv
 from ..ops.kernels.build import LEAKY_SLOPE, widen
+from ..ops.kernels.moments import moments_plain
 from ..ops.so3conv import SphericalPointCloud
 
 KERNEL_CONDENSE_RATIO = kernel_points.KERNEL_CONDENSE_RATIO
@@ -127,7 +128,14 @@ class BatchNorm(nn.Module):
     normalizes with the biased batch variance and moves the running
     statistics by momentum 0.1 with the unbiased one (torch semantics, as
     the JAX package's ``BatchNorm``); eval mode uses the running
-    statistics."""
+    statistics.
+
+    In the bf16 production mode (``so3conv.packed_enabled()``) a bf16
+    [b, p, na, c] input in train mode takes the JAX package's packed
+    statistics: one-pass fp32 E[x^2] - E[x]^2 (clamped at 0) from per-lane
+    sums (the moments kernel; plain torch sums for the unpacked layer-0
+    skip, ``kernel_stats=False``), differentiable, with the output computed
+    in fp32 and rounded once. fp32 keeps ``F.batch_norm``."""
 
     def __init__(self, c: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -144,7 +152,34 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _one_pass(self, x: torch.Tensor) -> bool:
+        return (self.training and so3conv.packed_enabled()
+                and x.dtype == torch.bfloat16 and x.dim() == 4)
+
+    def _batch_stats(self, x: torch.Tensor, kernel_stats: bool = True):
+        """(mean, biased var) fp32 [c] of x [b, p, na, c] in one pass, and
+        the running statistics moved (the unbiased variance, momentum 0.1)."""
+        b, p, na, c = x.shape
+        n = b * p * na
+        if kernel_stats:
+            s, sq = so3conv.moments(x)                   # [b, na*c]
+        else:
+            s, sq = moments_plain(x.reshape(b, p * na, c))    # [b, c]
+        mean = s.reshape(-1, c).sum(0) / n
+        var = torch.clamp(sq.reshape(-1, c).sum(0) / n - mean * mean,
+                          min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+        return mean, var
+
+    def forward(self, x: torch.Tensor,
+                kernel_stats: bool = True) -> torch.Tensor:
+        if self._one_pass(x):
+            mean, var = self._batch_stats(x, kernel_stats)
+            scale = torch.rsqrt(var + self.eps) * self.weight
+            return ((x.float() - mean) * scale + self.bias).to(x.dtype)
         if self.training:
             c = x.shape[-1]
             y = F.batch_norm(x.reshape(-1, c), self.running_mean,
@@ -156,14 +191,21 @@ class BatchNorm(nn.Module):
         y = (widen(x) - self.running_mean) * rsig * self.weight + self.bias
         return y.to(x.dtype)
 
-    def scale_shift(self, groups: int) -> torch.Tensor:
-        """Eval mode folded to per-lane fp32 [1, 2, groups*c] (scale; shift),
-        the lanes anchor-major: x * scale + shift == the normalized x."""
+    def scale_shift(self, groups: int, x: torch.Tensor = None) -> torch.Tensor:
+        """The norm folded to per-lane fp32 [1, 2, groups*c] (scale; shift),
+        the lanes anchor-major: x * scale + shift == the normalized x. Eval
+        mode folds the running statistics; train mode (production mode)
+        the one-pass batch statistics of x [b, p, groups, c], differentiable,
+        and moves the running statistics."""
         if self.training:
-            raise NotImplementedError('BatchNorm.scale_shift folds the running '
-                                      'statistics: eval mode only')
-        scale = torch.rsqrt(self.running_var + self.eps) * self.weight
-        shift = self.bias - self.running_mean * scale
+            if x is None:
+                raise ValueError('BatchNorm.scale_shift in train mode needs '
+                                 'the batch it normalizes')
+            mean, var = self._batch_stats(x)
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        shift = self.bias - mean * scale
         return torch.stack([scale, shift]).repeat(1, groups)[None]
 
 

@@ -5,8 +5,8 @@ the same functions, and lists them in ``ENTRIES`` (wrapper name -> plain
 version, CUDA source, the TPU kernel it replaces). A wrapper runs the plain
 version for a tensor on the CPU; for a CUDA tensor it launches its kernel or
 raises. Each wrapper counts its launches in its module's ``launches`` dict.
-The conv modules also hold the ``torch.autograd.Function`` whose forward and
-backward go through those wrappers.
+The conv and moments modules also hold the ``torch.autograd.Function``s
+whose forward and backward go through those wrappers.
 
 ``plain()`` is the explicit switch the op layer reads to call the plain
 forward versions directly on the card (to compare a whole forward and

@@ -57,16 +57,23 @@ SIGNATURES = {
     'epn_grouped_conv_tail': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _P],
     # gx, idx, rk, k2, w, dout, d_table, b, p2, nn, q, na, k, c, d, sigma,
-    # stream
+    # bf16, stream
     'epn_inter_conv_bwd_table': [_P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # gx, idx, table, rk, k2, dout, ws, d_w, b, p2, nn, q, na, k, c, d,
-    # sigma, splits, stream
+    # sigma, splits, bf16, stream
     'epn_inter_conv_bwd_w': [_P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    # f, trace_idx, dout, ws, d_w, b, p, na, k, c, d, splits, stream
-    'epn_intra_conv_bwd_w': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _P],
+                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # f, trace_idx, ss, dout, ws, d_w, b, p, na, k, c, d, ss_stride, splits,
+    # bf16, stream
+    'epn_intra_conv_bwd_w': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P],
+    # dout, inv_idx, w_t, x, ss, df, ws, d_scale, d_shift, b, p, na, k, c, d,
+    # ss_batch, bf16, stream
+    'epn_intra_conv_prenorm_df': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _P],
+    # x, dout, ws, d_w, rows, c, d, splits, bf16, stream
+    'epn_grouped_conv_bwd_w': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

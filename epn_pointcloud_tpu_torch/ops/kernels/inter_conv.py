@@ -20,9 +20,10 @@ The plain versions are anchor-chunked fp32 formulations (the forward that of
 ``epn_pointcloud_tpu/ops/so3conv.py`` ``inter_so3conv_fused``, XLA path), so
 no [b, p, n, na, *] tensor for all anchors exists at once.
 
-The forward also runs in bf16 (the production mode): the table, W and out
-are bf16, gx, rk and k2 stay fp32, and every product and sum is fp32, with
-out rounded once. The backward kernels are fp32 only.
+Forward and backward also run in bf16 (the production mode): the table, W,
+out and dout are bf16, gx, rk and k2 stay fp32, and every product and sum is
+fp32; out is rounded once, dW stays fp32 and dT is rounded to the table's
+type after its fp32 sums, as ``_fgcw_bwd`` rounds its fp32 dTable.
 """
 
 from __future__ import annotations
@@ -95,8 +96,9 @@ def inter_conv_dtable_plain(gx: torch.Tensor, idx: torch.Tensor, q: int,
                             rk: torch.Tensor, k2: torch.Tensor,
                             W: torch.Tensor, dout: torch.Tensor,
                             sigma: float) -> torch.Tensor:
-    """dT [b, q, na, c] from dout [b, p2, na, d]: each neighbor slot's
+    """dT [b, q, na, c] fp32 from dout [b, p2, na, d]: each neighbor slot's
     sum_k w dF scattered onto its table row (the shadow row dropped)."""
+    dout, W = build.widen(dout), build.widen(W)
     b, p2, nn = idx.shape
     na, c = rk.shape[0], W.shape[1]
     # flat row of (b, idx) in the shadow-padded [b * (q + 1)] table
@@ -116,7 +118,8 @@ def inter_conv_dw_plain(gx: torch.Tensor, idx: torch.Tensor,
                         table: torch.Tensor, rk: torch.Tensor,
                         k2: torch.Tensor, dout: torch.Tensor,
                         sigma: float) -> torch.Tensor:
-    """dW [K, c, d] = sum over (b, p, a) of F^T dout."""
+    """dW [K, c, d] fp32 = sum over (b, p, a) of F^T dout."""
+    table, dout = build.widen(table), build.widen(dout)
     b, _, _ = idx.shape
     na, c = table.shape[2], table.shape[3]
     table = torch.cat([table, table.new_zeros(b, 1, na, c)], dim=1)
@@ -184,13 +187,16 @@ def inter_conv(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
 def inter_conv_dtable(gx: torch.Tensor, idx: torch.Tensor, q: int,
                       rk: torch.Tensor, k2: torch.Tensor, W: torch.Tensor,
                       dout: torch.Tensor, sigma: float) -> torch.Tensor:
-    """dTable kernel wrapper: plain version on the CPU, CUDA kernel on the
-    card. Its atomics make dT's last-bit rounding vary between runs."""
+    """dTable kernel wrapper -> fp32 dT: plain version on the CPU, CUDA
+    kernel on the card. Its atomics make dT's last-bit rounding vary between
+    runs."""
     if dout.device.type == 'cpu':
         return inter_conv_dtable_plain(gx, idx, q, rk, k2, W, dout, sigma)
     shape = (idx.shape[0], q, rk.shape[0], W.shape[1])
+    bf16 = build.dtype_flag(dout.dtype, 'inter_conv_dtable')
     b, p2, nn, q, na, K, c, d = _check('inter_conv_dtable', gx, idx, shape,
-                                       rk, k2, W.shape, dout=dout, W=W)
+                                       rk, k2, W.shape, dout=dout, W=W,
+                                       dtype=dout.dtype)
     if K != N_KERNEL:
         raise ValueError(f'inter_conv_dtable: kernel needs K == {N_KERNEL}; '
                          f'got K={K}')
@@ -199,7 +205,7 @@ def inter_conv_dtable(gx: torch.Tensor, idx: torch.Tensor, q: int,
     build.launch('epn_inter_conv_bwd_table', gx.data_ptr(), idx.data_ptr(),
                  rk.data_ptr(), k2.data_ptr(), W.data_ptr(), dout.data_ptr(),
                  dT.data_ptr(), b, p2, nn, q, na, K, c, d, float(sigma),
-                 build.stream(dout))
+                 bf16, build.stream(dout))
     return dT
 
 
@@ -211,8 +217,10 @@ def inter_conv_dw(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
     if dout.device.type == 'cpu':
         return inter_conv_dw_plain(gx, idx, table, rk, k2, dout, sigma)
     W_shape = (rk.shape[1], table.shape[3], dout.shape[-1])
+    bf16 = build.dtype_flag(table.dtype, 'inter_conv_dw')
     b, p2, nn, q, na, K, c, d = _check('inter_conv_dw', gx, idx, table.shape,
-                                       rk, k2, W_shape, dout=dout, table=table)
+                                       rk, k2, W_shape, dout=dout, table=table,
+                                       dtype=table.dtype)
     if K != N_KERNEL or d % 64 != 0:
         raise ValueError(f'inter_conv_dw: kernel needs K == {N_KERNEL} and '
                          f'd % 64 == 0; got K={K} d={d}')
@@ -225,7 +233,8 @@ def inter_conv_dw(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
     build.launch('epn_inter_conv_bwd_w', gx.data_ptr(), idx.data_ptr(),
                  table.data_ptr(), rk.data_ptr(), k2.data_ptr(),
                  dout.data_ptr(), ws.data_ptr(), dW.data_ptr(), b, p2, nn, q,
-                 na, K, c, d, float(sigma), splits, build.stream(dout))
+                 na, K, c, d, float(sigma), splits, bf16,
+                 build.stream(dout))
     return dW
 
 
@@ -247,7 +256,7 @@ class InterConvFn(torch.autograd.Function):
         dT = dW = None
         if ctx.needs_input_grad[2]:
             dT = inter_conv_dtable(gx, idx, table.shape[1], rk, k2, W, dout,
-                                   ctx.sigma)
+                                   ctx.sigma).to(table.dtype)
         if ctx.needs_input_grad[5]:
             dW = inter_conv_dw(gx, idx, table, rk, k2, dout, ctx.sigma)
         return None, None, dT, None, None, dW, None

@@ -23,7 +23,15 @@ preceding inter conv's deferred norm and activation applied on load,
   out = intra_conv(z, W),  z = act(f * scale + shift) rounded to f's type,
 
 with ss = [scale; shift] fp32 lanes [1 or b, 2, na*c] and act the leaky ReLU
-with mask ``u > 0``. The backward kernels are fp32 only.
+with mask ``u > 0``. Its backward replaces ``_prenorm_bwd`` -> ``_bwd_pallas``
+-> ``_bwd_kernel_prenorm`` (``IntraConvPrenormFn``): with u = f * scale +
+shift and dz the df above, never rounded,
+
+  du = dz * act'(u),  df = du * scale,  dscale = sum_p du * f,
+  dshift = sum_p du,  dW = the dW above on z,
+
+the per-lane sums over the points (and over the clouds when ss has batch 1).
+Every kernel here takes fp32 and bf16 operands; products and sums are fp32.
 """
 
 from __future__ import annotations
@@ -41,7 +49,15 @@ ENTRIES = {
                       'epn_pointcloud_tpu/ops/pallas/intra_conv.py:270'),
     'intra_conv_prenorm': ('intra_conv_prenorm_plain', SOURCE,
                            'epn_pointcloud_tpu/ops/pallas/intra_conv.py:81'),
+    'intra_conv_prenorm_df': ('intra_conv_prenorm_df_plain', SOURCE,
+                              'epn_pointcloud_tpu/ops/pallas/intra_conv.py'
+                              ':205'),
+    'intra_conv_prenorm_dw': ('intra_conv_prenorm_dw_plain', SOURCE,
+                              'epn_pointcloud_tpu/ops/pallas/intra_conv.py'
+                              ':205'),
 }
+# rows of a block of the prenorm df kernel: it owns 128 // na whole points
+_DF_BLOCK_ROWS = 128
 launches = dict.fromkeys(ENTRIES, 0)
 
 
@@ -73,8 +89,10 @@ def intra_conv_prenorm_plain(f: torch.Tensor, ss: torch.Tensor,
 
 def intra_conv_df_plain(dout: torch.Tensor, trace_idx: torch.Tensor,
                         W: torch.Tensor) -> torch.Tensor:
-    """df [b, p, na, c]: each (a, k) term dout[a] W[k]^T added onto input
-    anchor trace_idx[a, k] (a scatter; no use of the inverse adjacency)."""
+    """df [b, p, na, c] (fp32 from bf16 operands): each (a, k) term dout[a]
+    W[k]^T added onto input anchor trace_idx[a, k] (a scatter; no use of the
+    inverse adjacency)."""
+    dout, W = build.widen(dout), build.widen(W)
     b, p, na, _ = dout.shape
     K, c = W.shape[0], W.shape[1]
     g = torch.einsum('bpad,kcd->bpakc', dout, W).reshape(b, p, na * K, c)
@@ -84,9 +102,56 @@ def intra_conv_df_plain(dout: torch.Tensor, trace_idx: torch.Tensor,
 
 def intra_conv_dw_plain(f: torch.Tensor, trace_idx: torch.Tensor,
                         dout: torch.Tensor) -> torch.Tensor:
-    """dW [K, c, d] = sum over (b, p, a) of the gathered f^T dout."""
-    g = f[:, :, trace_idx.long()]                         # [b, p, na, K, c]
-    return torch.einsum('bpakc,bpad->kcd', g, dout)
+    """dW [K, c, d] = sum over (b, p, a) of the gathered f^T dout (fp32 from
+    bf16 operands)."""
+    g = build.widen(f)[:, :, trace_idx.long()]            # [b, p, na, K, c]
+    return torch.einsum('bpakc,bpad->kcd', g, build.widen(dout))
+
+
+def intra_conv_prenorm_df_plain(dout: torch.Tensor, f: torch.Tensor,
+                                ss: torch.Tensor, trace_idx: torch.Tensor,
+                                W: torch.Tensor):
+    """(df [b, p, na, c] in f's type, dss fp32 like ss) of the prenorm conv,
+    from the formula: dz the scatter df in fp32, never rounded; du = dz *
+    act'(u) with u = f * scale + shift and the mask u > 0; df = du * scale;
+    dscale = sum_p du * f and dshift = sum_p du per lane, over the clouds
+    too when ss has batch 1."""
+    b, p, na, c = f.shape
+    dz = intra_conv_df_plain(dout, trace_idx, W).reshape(b, p, na * c)
+    fw = build.widen(f).reshape(b, p, na * c)
+    u = fw * ss[:, 0:1] + ss[:, 1:2]
+    du = torch.where(u > 0, dz, build.LEAKY_SLOPE * dz)
+    df = (du * ss[:, 0:1]).to(f.dtype).reshape(f.shape)
+    dss = torch.stack([(du * fw).sum(1), du.sum(1)], dim=1)   # [b, 2, L]
+    if ss.shape[0] == 1:
+        dss = dss.sum(0, keepdim=True)
+    return df, dss
+
+
+def intra_conv_prenorm_dw_plain(f: torch.Tensor, ss: torch.Tensor,
+                                trace_idx: torch.Tensor,
+                                dout: torch.Tensor) -> torch.Tensor:
+    """dW [K, c, d] of the prenorm conv: the dW of z = prenorm(f, ss)."""
+    return intra_conv_dw_plain(prenorm_plain(f, ss), trace_idx, dout)
+
+
+def _want_ss(kernel, want, ss, b, L):
+    """Adds the fold ss [1 or b, 2, L] fp32 (if given) to the operands to
+    check; returns its batch (0 without one)."""
+    if ss is None:
+        return 0
+    sb = ss.shape[0]
+    if sb not in (1, b):
+        raise ValueError(f'{kernel}: ss needs a batch of 1 or {b}, got {sb}')
+    want['ss'] = (ss, torch.float32, (sb, 2, L))
+    return sb
+
+
+def _check_shape(kernel, b, p, na, K, c, d):
+    if c % 4 != 0 or d % 32 != 0 or na * K > 1024 or b * p * na >= 2 ** 31:
+        raise ValueError(f'{kernel}: kernel needs c % 4 == 0, d % 32 == 0, '
+                         f'na*K <= 1024 and b*p*na < 2^31; got b={b} p={p} '
+                         f'na={na} K={K} c={c} d={d}')
 
 
 def _launch_fwd(kernel, f, trace_idx, W, ss):
@@ -100,18 +165,9 @@ def _launch_fwd(kernel, f, trace_idx, W, ss):
     want = {'f': (f, f.dtype, (b, p, na, c)),
             'trace_idx': (trace_idx, torch.int32, (na, K)),
             'W': (W, f.dtype, (K, c, d))}
-    sb = 0
-    if ss is not None:
-        sb = ss.shape[0]
-        if sb not in (1, b):
-            raise ValueError(f'{kernel}: ss needs a batch of 1 or {b}, got '
-                             f'{sb}')
-        want['ss'] = (ss, torch.float32, (sb, 2, na * c))
+    sb = _want_ss(kernel, want, ss, b, na * c)
     build.check_operands(kernel, dev, want)
-    if c % 4 != 0 or d % 32 != 0 or na * K > 1024 or b * p * na >= 2 ** 31:
-        raise ValueError(f'{kernel}: kernel needs c % 4 == 0, d % 32 == 0, '
-                         f'na*K <= 1024 and b*p*na < 2^31; got b={b} p={p} '
-                         f'na={na} K={K} c={c} d={d}')
+    _check_shape(kernel, b, p, na, K, c, d)
     out = torch.empty((b, p, na, d), dtype=f.dtype, device=dev)
     launches[kernel] += 1
     build.launch('epn_intra_conv', f.data_ptr(), trace_idx.data_ptr(),
@@ -150,35 +206,92 @@ def intra_conv_df(dout: torch.Tensor, trace_idx: torch.Tensor,
     return intra_conv(dout, inv_idx, W.transpose(1, 2).contiguous())
 
 
-def intra_conv_dw(f: torch.Tensor, trace_idx: torch.Tensor,
-                  dout: torch.Tensor) -> torch.Tensor:
-    """dW kernel wrapper: plain version on the CPU, CUDA kernel on the card
-    (per-row-range partials summed in a fixed order: deterministic)."""
-    if f.device.type == 'cpu':
-        return intra_conv_dw_plain(f, trace_idx, dout)
+def _launch_dw(kernel, f, trace_idx, dout, ss):
+    """Checks and launches the dW kernel (ss None: no prenorm); per-row-range
+    partials summed in a fixed order: deterministic."""
     dev = f.device
     if dev.type != 'cuda':
-        raise ValueError(f'intra_conv_dw: unsupported device {dev}')
+        raise ValueError(f'{kernel}: unsupported device {dev}')
     b, p, na, c = f.shape
     K, d = trace_idx.shape[1], dout.shape[-1]
-    build.check_operands('intra_conv_dw', dev, {
-        'f': (f, torch.float32, (b, p, na, c)),
-        'trace_idx': (trace_idx, torch.int32, (na, K)),
-        'dout': (dout, torch.float32, (b, p, na, d))})
-    if c % 4 != 0 or d % 32 != 0 or na * K > 1024 or b * p * na >= 2 ** 31:
-        raise ValueError(f'intra_conv_dw: kernel needs c % 4 == 0, '
-                         f'd % 32 == 0, na*K <= 1024 and b*p*na < 2^31; got '
-                         f'b={b} p={p} na={na} K={K} c={c} d={d}')
+    bf16 = build.dtype_flag(f.dtype, kernel)
+    want = {'f': (f, f.dtype, (b, p, na, c)),
+            'trace_idx': (trace_idx, torch.int32, (na, K)),
+            'dout': (dout, f.dtype, (b, p, na, d))}
+    sb = _want_ss(kernel, want, ss, b, na * c)
+    build.check_operands(kernel, dev, want)
+    _check_shape(kernel, b, p, na, K, c, d)
     bn = 128 if d % 128 == 0 else 64 if d % 64 == 0 else 32
     splits = build.n_splits(-(-K * c // 128) * (d // bn),
                             -(-b * p * na // 16))
     ws = torch.empty((splits, K, c, d), dtype=torch.float32, device=dev)
     dW = torch.empty((K, c, d), dtype=torch.float32, device=dev)
-    launches['intra_conv_dw'] += 1
+    launches[kernel] += 1
     build.launch('epn_intra_conv_bwd_w', f.data_ptr(), trace_idx.data_ptr(),
-                 dout.data_ptr(), ws.data_ptr(), dW.data_ptr(), b, p, na, K, c,
-                 d, splits, build.stream(f))
+                 0 if ss is None else ss.data_ptr(), dout.data_ptr(),
+                 ws.data_ptr(), dW.data_ptr(), b, p, na, K, c, d,
+                 2 * na * c if sb > 1 else 0, splits, bf16, build.stream(f))
     return dW
+
+
+def intra_conv_dw(f: torch.Tensor, trace_idx: torch.Tensor,
+                  dout: torch.Tensor) -> torch.Tensor:
+    """dW kernel wrapper: plain version on the CPU, CUDA kernel on the
+    card."""
+    if f.device.type == 'cpu':
+        return intra_conv_dw_plain(f, trace_idx, dout)
+    return _launch_dw('intra_conv_dw', f, trace_idx, dout, None)
+
+
+def intra_conv_prenorm_dw(f: torch.Tensor, ss: torch.Tensor,
+                          trace_idx: torch.Tensor,
+                          dout: torch.Tensor) -> torch.Tensor:
+    """B6 dW wrapper (z = prenorm(f, ss) recomputed in the staging loads):
+    plain version on the CPU, CUDA kernel on the card."""
+    if f.device.type == 'cpu':
+        return intra_conv_prenorm_dw_plain(f, ss, trace_idx, dout)
+    return _launch_dw('intra_conv_prenorm_dw', f, trace_idx, dout, ss)
+
+
+def intra_conv_prenorm_df(dout: torch.Tensor, f: torch.Tensor,
+                          ss: torch.Tensor, trace_idx: torch.Tensor,
+                          inv_idx: torch.Tensor, W: torch.Tensor):
+    """B6 df wrapper -> (df, dss): the plain version on the CPU; on the card
+    the forward's product on (dout, inv_idx, W transposed to [K, d, c]) with
+    the prenorm epilogue, dss from per-block partials summed in a fixed
+    order (deterministic)."""
+    if f.device.type == 'cpu':
+        return intra_conv_prenorm_df_plain(dout, f, ss, trace_idx, W)
+    kernel = 'intra_conv_prenorm_df'
+    dev = f.device
+    if dev.type != 'cuda':
+        raise ValueError(f'{kernel}: unsupported device {dev}')
+    b, p, na, c = f.shape
+    K, d = W.shape[0], W.shape[2]
+    bf16 = build.dtype_flag(f.dtype, kernel)
+    Wt = W.transpose(1, 2).contiguous()
+    want = {'dout': (dout, f.dtype, (b, p, na, d)),
+            'f': (f, f.dtype, (b, p, na, c)),
+            'inv_idx': (inv_idx, torch.int32, (na, K)),
+            'W': (Wt, f.dtype, (K, d, c))}
+    sb = _want_ss(kernel, want, ss, b, na * c)
+    build.check_operands(kernel, dev, want)
+    _check_shape(kernel, b, p, na, K, d, c)
+    if na > 64:
+        raise ValueError(f'{kernel}: kernel needs na <= 64; got na={na}')
+    n_blocks = -(-p // (_DF_BLOCK_ROWS // na))
+    ws = torch.empty((2, n_blocks, b, na * c), dtype=torch.float32,
+                     device=dev)
+    df = torch.empty((b, p, na, c), dtype=f.dtype, device=dev)
+    dscale = torch.empty((sb, na * c), dtype=torch.float32, device=dev)
+    dshift = torch.empty((sb, na * c), dtype=torch.float32, device=dev)
+    launches[kernel] += 1
+    build.launch('epn_intra_conv_prenorm_df', dout.data_ptr(),
+                 inv_idx.data_ptr(), Wt.data_ptr(), f.data_ptr(),
+                 ss.data_ptr(), df.data_ptr(), ws.data_ptr(),
+                 dscale.data_ptr(), dshift.data_ptr(), b, p, na, K, d, c, sb,
+                 bf16, build.stream(f))
+    return df, torch.stack([dscale, dshift], dim=1)
 
 
 class IntraConvFn(torch.autograd.Function):
@@ -200,3 +313,26 @@ class IntraConvFn(torch.autograd.Function):
         if ctx.needs_input_grad[3]:
             dW = intra_conv_dw(f, trace_idx, dout)
         return df, None, None, dW
+
+
+class IntraConvPrenormFn(torch.autograd.Function):
+    """The prenorm intra conv with its hand-written backward (the
+    ``intra_conv_prenorm`` custom VJP, ``_bwd_kernel_prenorm``): gradients to
+    f, the fold ss and W."""
+
+    @staticmethod
+    def forward(ctx, f, ss, trace_idx, inv_idx, W):
+        ctx.save_for_backward(f, ss, trace_idx, inv_idx, W)
+        return intra_conv_prenorm(f, ss, trace_idx, W)
+
+    @staticmethod
+    def backward(ctx, dout):
+        f, ss, trace_idx, inv_idx, W = ctx.saved_tensors
+        dout = dout.contiguous()
+        df = dss = dW = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            df, dss = intra_conv_prenorm_df(dout, f, ss, trace_idx, inv_idx,
+                                            W)
+        if ctx.needs_input_grad[4]:
+            dW = intra_conv_prenorm_dw(f, ss, trace_idx, dout)
+        return df, dss, None, None, dW

@@ -8,6 +8,8 @@ Replaces ``epn_pointcloud_tpu/ops/pallas/moments.py:moments_sums``
 
 from fp32 or bf16 input. The contract stays per-lane: callers fold the
 lanes to per-(b, c) statistics in plain PyTorch (``nn/layers.py``).
+``MomentsFn`` gives it the JAX package's backward (``_moments_bwd``), which
+is elementwise plain code there too: dx = dsum + 2 x dsq.
 """
 
 from __future__ import annotations
@@ -50,3 +52,24 @@ def moments(x: torch.Tensor):
     build.launch('epn_moments', x.data_ptr(), s.data_ptr(), sq.data_ptr(), b,
                  rows, L, bf16, build.stream(x))
     return s, sq
+
+
+class MomentsFn(torch.autograd.Function):
+    """moments with its backward dx = dsum + 2 * x * dsq (fp32, rounded to
+    x's type), so that the norms built on it stay differentiable in their
+    statistics."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return moments(x)
+
+    @staticmethod
+    def backward(ctx, dsum, dsq):
+        x, = ctx.saved_tensors
+        dx = build.widen(x).new_zeros(())
+        if dsum is not None:
+            dx = dx + dsum[:, None, :]
+        if dsq is not None:
+            dx = dx + 2.0 * build.widen(x) * dsq[:, None, :]
+        return dx.expand(x.shape).to(x.dtype)

@@ -129,12 +129,15 @@ def intra_so3conv(feats: torch.Tensor, trace_idx: torch.Tensor,
 
     prenorm: the preceding inter conv's deferred norm, fp32 lanes
     [1 or b, 2, 60*c] (scale, shift), applied with the leaky ReLU on load
-    (the PRENORM kernel; production mode, inference only)."""
+    (the PRENORM kernel, through ``IntraConvPrenormFn``; production
+    mode)."""
     feats, W = at_use(feats).contiguous(), at_use(W).contiguous()
     if prenorm is not None:
-        fn = _intra.intra_conv_prenorm_plain if kernels.plain_forced() else \
-            _intra.intra_conv_prenorm
-        return fn(feats, prenorm.contiguous(), trace_idx, W)
+        ss = prenorm.contiguous()
+        if kernels.plain_forced():
+            return _intra.intra_conv_prenorm_plain(feats, ss, trace_idx, W)
+        return _intra.IntraConvPrenormFn.apply(feats, ss, trace_idx, inv_idx,
+                                               W)
     if kernels.plain_forced():
         return _intra.intra_conv_plain(feats, trace_idx, W)
     return _intra.IntraConvFn.apply(feats, trace_idx, inv_idx, W)
@@ -142,20 +145,23 @@ def intra_so3conv(feats: torch.Tensor, trace_idx: torch.Tensor,
 
 def moments(x: torch.Tensor):
     """Per-lane (sum, sum of squares) fp32 [b, 60*c] of x [b, p, 60, c]
-    over the points: the moments kernel, or its plain version inside
-    ``kernels.plain()``."""
+    over the points: the moments kernel through ``MomentsFn``, or its plain
+    version inside ``kernels.plain()``; both differentiable."""
     b, p = x.shape[:2]
     x3 = x.contiguous().reshape(b, p, -1)
-    fn = _mom.moments_plain if kernels.plain_forced() else _mom.moments
-    return fn(x3)
+    if kernels.plain_forced():
+        return _mom.moments_plain(x3)
+    return _mom.MomentsFn.apply(x3)
 
 
 def grouped_conv1x1(x: torch.Tensor, W: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
     """One [c, d] weight over every anchor of x [b, p, a, c], plus bias:
-    the grouped-conv kernel (W cast to x's type, bias fp32)."""
+    the grouped-conv kernel through ``GroupedConvFn`` (W cast to x's type,
+    bias fp32), or its plain version under autograd inside
+    ``kernels.plain()``."""
     fn = _gc.grouped_conv_plain if kernels.plain_forced() else \
-        _gc.grouped_conv
+        _gc.GroupedConvFn.apply
     return fn(x.contiguous(), W.to(x.dtype).contiguous(), bias.float())
 
 

@@ -1,16 +1,20 @@
-"""Device-time profile of the cls_so3net_pn eval forward on the card.
+"""Device-time profile of the cls_so3net_pn eval forward, or of one train
+step, on the card.
 
   python -m epn_pointcloud_tpu_torch.profile_forward [--dtype fp32 bf16] [-b 32]
+  python -m epn_pointcloud_tpu_torch.profile_forward --train [--dtype bf16] \
+      [-b 12]
 
 Builds the seeded full-width model (1024 points, 60 anchors, random weights)
-on a synthetic cloud batch, runs two warm forwards in each compute dtype,
-then profiles one forward with ``torch.profiler`` (CPU and CUDA activities).
-Prints, per dtype, the device time by kernel group summed over the forward,
-the kernel launches, the host wall of the profiled forward (ending in a
-synchronize) and the device's idle share (1 - device busy / wall; one
-stream, so busy is the sum of kernel times), plus the ten longest kernels.
-Writes the tables to ``chiprun_out/profile_forward.json`` in the checkout.
-Needs a CUDA device.
+on a synthetic cloud batch, runs two warm forwards (or train steps: forward,
+attention-CE loss, backward, Adam) in each compute dtype, then profiles one
+with ``torch.profiler`` (CPU and CUDA activities). Prints, per dtype, the
+device time by kernel group, the kernel launches, the host wall of the
+profiled run (ending in a synchronize) and the device's idle share (1 -
+device busy / wall; one stream, so busy is the sum of kernel times), plus
+the ten longest kernels. Writes the tables to
+``chiprun_out/profile_forward.json`` (``profile_train.json`` with --train)
+in the checkout. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,16 +27,24 @@ import time
 import numpy as np
 import torch
 
+from . import losses
 from .app import config, trainer
 from .data import pc as pctk
 from .data import synthetic
 from .models import build_model_from
 from .ops import so3conv
+from .train import make_optimizer
 
 # kernel-name substrings -> group (first match wins)
 GROUPS = (('inter_conv_kernel', 'inter conv kernel'),
-          ('intra_conv_kernel', 'intra conv kernel'),
-          ('grouped_conv_kernel', 'grouped conv kernel (tail and plain)'),
+          ('inter_dtable_kernel', 'inter dTable kernel'),
+          ('inter_dw_kernel', 'inter dW kernel'),
+          ('intra_conv_kernel', 'intra conv kernel (and fp32 df)'),
+          ('intra_df_prenorm_kernel', 'prenorm intra df kernel'),
+          ('intra_dw_kernel', 'intra dW kernel'),
+          ('grouped_conv_kernel', 'grouped conv kernel (tail, plain, dx)'),
+          ('grouped_dw_kernel', 'grouped conv dW kernel'),
+          ('sum_splits_kernel', 'fixed-order partial sums'),
           ('moments_kernel', 'moments kernel'),
           ('ones_conv_kernel', 'ones conv kernel'),
           ('fps', 'fps kernel'), ('ball_query', 'ball_query kernel'),
@@ -55,18 +67,37 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile(model, x, dtype: str) -> dict:
+def train_step(model, x, opt, seed):
+    """One train step as the trainer takes it: forward, attention-CE loss
+    ('default', margin 1) on seeded labels, backward, Adam."""
+    g = torch.Generator().manual_seed(seed)
+    b = x.shape[0]
+    label = torch.randint(0, 40, (b,), generator=g).to(x.device)
+    rlabel = torch.randint(0, 60, (b,), generator=g).to(x.device)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        pred, feat = model(x)
+        losses.attention_cross_entropy(pred, label, feat, rlabel, 'default',
+                                       1.0)[0].backward()
+        opt.step()
+    return step
+
+
+def profile(model, x, dtype: str, step=None) -> dict:
+    """step: the train step to profile (None: the no-grad eval forward)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     so3conv.set_compute_dtype(dtype)
+    run = step or (lambda: model(x))
     try:
-        with torch.no_grad():
+        with torch.set_grad_enabled(step is not None):
             for _ in range(2):
-                model(x)
+                run()
             torch.cuda.synchronize()
             with tprofile(activities=[ProfilerActivity.CPU,
                                       ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                model(x)
+                run()
                 torch.cuda.synchronize()
                 wall_ms = 1e3 * (time.perf_counter() - t0)
     finally:
@@ -93,26 +124,38 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--dtype', nargs='+', default=['fp32', 'bf16'],
                     choices=['fp32', 'bf16'])
-    ap.add_argument('-b', '--batch', type=int, default=32)
+    ap.add_argument('-b', '--batch', type=int, default=None,
+                    help='clouds a batch (default 32; 12 with --train, the '
+                         'entry point\'s training batch)')
+    ap.add_argument('--train', action='store_true',
+                    help='profile one train step instead of a forward')
     ap.add_argument('--seed', type=int, default=2913)
     args = ap.parse_args(argv)
+    if args.batch is None:
+        args.batch = 12 if args.train else 32
     if not torch.cuda.is_available():
         raise SystemExit('profile_forward: needs a CUDA device')
     trainer.set_fp32_parity()
     dev = torch.device('cuda')
     opt = config.parse_args(['experiment', '-d', 'unused'])
     opt.model.model, opt.model.flag = 'cls_so3net_pn', 'attention'
-    model = build_model_from(opt, seed=args.seed).to(dev).eval()
+    model = build_model_from(opt, seed=args.seed).to(dev)
+    model.train(args.train)
     rng = np.random.RandomState(args.seed)
     x = np.stack([pctk.normalize_np(synthetic.make_shape(rng, 1024, i % 8).T).T
                   for i in range(args.batch)]).astype(np.float32)
     x = torch.from_numpy(x).to(dev)
     card = torch.cuda.get_device_name(0)
-    out = {'card': card, 'batch': args.batch, 'profiles': []}
+    what = 'train step' if args.train else 'forward'
+    out = {'card': card, 'batch': args.batch, 'what': what, 'profiles': []}
     for dtype in args.dtype:
-        r = profile(model, x, dtype)
+        step = None
+        if args.train:
+            step = train_step(model, x, make_optimizer(model.parameters(),
+                                                       1e-3), args.seed)
+        r = profile(model, x, dtype, step)
         out['profiles'].append(r)
-        print(f'[profile] {card} b={args.batch} {dtype} forward: device '
+        print(f'[profile] {card} b={args.batch} {dtype} {what}: device '
               f'{r["device_ms"]:.2f} ms in {r["launches"]} launches, wall '
               f'{r["wall_ms"]:.2f} ms, idle share {100 * r["idle_share"]:.1f}%')
         for g, v in r['groups'].items():
@@ -124,7 +167,8 @@ def main(argv=None):
     out_dir = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, 'profile_forward.json'), 'w') as f:
+    name = 'profile_train.json' if args.train else 'profile_forward.json'
+    with open(os.path.join(out_dir, name), 'w') as f:
         json.dump(out, f, indent=1)
     return out
 

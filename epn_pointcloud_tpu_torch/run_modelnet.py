@@ -2,7 +2,8 @@
 repo's run_modelnet.py):
 
   python -m epn_pointcloud_tpu_torch.run_modelnet experiment -d DATASET \\
-      [--run-mode train] [-i ITERS] [--save-freq N] [-lf N]
+      [--run-mode train] [-i ITERS] [--save-freq N] [-lf N] \\
+      [--compute-dtype bf16]
   python -m epn_pointcloud_tpu_torch.run_modelnet experiment -d DATASET \\
       --run-mode eval -b 32 [--compute-dtype bf16] [-r CHECKPOINT.pth]
 
@@ -11,8 +12,10 @@ steps, the 'default' attention loss), saves a state_dict checkpoint and
 evaluates every --save-freq steps. Without ``-r`` the weights come from a
 seeded init (``-s``). The model runs on the CUDA device, through the CUDA
 kernels, forward and backward; ``main(argv, device='cpu')`` runs it on the
-CPU through the kernels' plain versions. ``--compute-dtype bf16`` serves in
-the production precision (eval only so far: bf16 training is refused).
+CPU through the kernels' plain versions. ``--compute-dtype bf16`` trains and
+serves in the production precision (bf16 activations and weights at use,
+fp32 parameters, Adam, accumulation, statistics, attention and logits); a
+model served in bf16 is trained in bf16.
 """
 
 from epn_pointcloud_tpu_torch.app import config as config_lib

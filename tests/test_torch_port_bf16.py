@@ -502,25 +502,38 @@ def test_run_modelnet_bf16_eval_end_to_end(tree, tmp_path):
 
 
 def test_bf16_training_is_refused(tree, tmp_path):
-    with pytest.raises(NotImplementedError, match='bf16'):
-        run_modelnet.main(['experiment', '-d', tree, '--run-mode', 'train',
-                           '--compute-dtype', 'bf16', '--input-num', '64',
-                           '--model-dir', str(tmp_path / 'runs')],
-                          device='cpu')
-    with pytest.raises(SystemExit):       # argparse: fp32 or bf16 only
-        run_modelnet.main(['experiment', '-d', tree, '--compute-dtype',
-                           'fp16'], device='cpu')
+    """Training (and serving) in a compute dtype the port does not have is
+    refused by the parser; bf16 training itself runs (its end-to-end run is
+    in tests/test_torch_port_bf16_train.py)."""
+    for mode in ('train', 'eval'):
+        with pytest.raises(SystemExit):   # argparse: fp32 or bf16 only
+            run_modelnet.main(['experiment', '-d', tree, '--run-mode', mode,
+                               '--compute-dtype', 'fp16', '--input-num', '64',
+                               '--model-dir', str(tmp_path / 'runs')],
+                              device='cpu')
 
 
-def test_bf16_block_refuses_train_mode(bf16_mode):
+def test_bf16_block_refuses_train_mode(bf16_mode, monkeypatch):
+    """A bf16 block in train mode refuses the eval-only fused tail (its skip
+    BatchNorm needs the skip conv's batch statistics): it runs the unfused
+    tail, differentiable, and moves its BatchNorms' running statistics."""
     blk = tblocks.SeparableSO3ConvBlock(dict(
         dim_in=8, dim_out=8, kernel_size=1, stride=1, radius=0.4, sigma=0.1,
         n_neighbor=8, kanchor=60, activation='leaky_relu',
         norm='BatchNorm2d')).train()
-    x = SphericalPointCloud(torch.zeros(1, 8, 3), torch.zeros(1, 8, 60, 8),
-                            None)
-    with pytest.raises(NotImplementedError, match='bf16 training'):
-        blk(x)
+    tlayers.init_parameters(blk, torch.Generator().manual_seed(0))
+    monkeypatch.setattr(tso3, 'separable_tail', lambda *a: pytest.fail(
+        'the fused tail ran in train mode'))
+    rng = np.random.RandomState(4)
+    feats = _t(rng.randn(1, 8, 60, 8)).requires_grad_()
+    x = SphericalPointCloud(_t(_ball_points(rng, 1, 8)), feats, None)
+    out = blk(x).feats
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    out.float().square().sum().backward()
+    assert feats.grad is not None and torch.isfinite(feats.grad).all()
+    assert all(p.grad is not None for p in blk.parameters())
+    for bn in (blk.norm, blk.inter_conv.norm):
+        assert not torch.equal(bn.running_mean, torch.zeros(8))
 
 
 def test_intra_ss_layout_matches_jax_pack():

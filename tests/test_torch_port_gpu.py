@@ -3,7 +3,10 @@
 kernels, the backward kernels (inter dTable / dW, intra df / dW) at a small
 and a flagship shape, the autograd Functions' launches, and the production
 mode's kernels in bf16 (ones conv, moments, grouped conv and its fused tail,
-the prenorm intra conv, the bf16 inter conv) with their shape refusals.
+the prenorm intra conv, the bf16 inter conv) with their shape refusals, and
+the production-mode backward kernels (the prenorm intra df / dss / dW,
+the grouped conv dx / dW, the bf16 inter dTable / dW), their determinism
+and a bf16 train step's launches.
 
 Run on a machine with the card:
   python -m pytest tests/test_torch_port_gpu.py -q -m gpu --noconftest
@@ -397,3 +400,149 @@ def test_bf16_forward_launches_the_kernels(cuda):
     assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
     cos = torch.nn.functional.cosine_similarity(logits, plain, dim=-1)
     assert float(cos.min()) >= 0.9999
+
+
+# -------------------------------------------- production-mode backward
+
+def _prenorm_operands(cuda, dtype, b, p, c, d, sb, seed=0):
+    rng = np.random.RandomState(seed)
+    f = _rand(rng, (b, p, 60, c), cuda, dtype)
+    W = _rand(rng, (12, c, d), cuda, dtype, 0.05)
+    ss = torch.stack([_rand(rng, (sb, 60 * c), cuda).abs() + 0.5,
+                      _rand(rng, (sb, 60 * c), cuda, scale=0.3)], dim=1)
+    dout = _rand(rng, (b, p, 60, d), cuda, dtype)
+    ti = torch.from_numpy(tico.get_intra_idx()).to(cuda)
+    inv = torch.from_numpy(tico.get_intra_inv_idx()).to(cuda)
+    return f, ss, ti, inv, W, dout
+
+
+# (b, p, c, d, ss batch): small, and flagship L1 / L5 at b=12 with the train
+# BatchNorm fold (batch 1); a per-cloud fold
+PRENORM_BWD_SHAPES = [(2, 16, 64, 64, 2), (12, 512, 64, 64, 1),
+                      (12, 128, 256, 256, 1), (3, 33, 32, 96, 3)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, BF16])
+@pytest.mark.parametrize('b,p,c,d,sb', PRENORM_BWD_SHAPES)
+def test_intra_conv_prenorm_bwd_kernels_match_plain(cuda, dtype, b, p, c, d,
+                                                    sb):
+    """B6: df (normwise 1e-5 in fp32, 8e-3 in bf16: rounded once), the
+    fold's gradient dss and dW (fp32 sums: 1e-4 from fp32 operands, 1e-3
+    from bf16 ones) against the plain versions written from the formula."""
+    f, ss, ti, inv, W, dout = _prenorm_operands(cuda, dtype, b, p, c, d, sb)
+    ik = tkern.intra_conv
+    df, dss = ik.intra_conv_prenorm_df(dout, f, ss, ti, inv, W)
+    dW = ik.intra_conv_prenorm_dw(f, ss, ti, dout)
+    torch.cuda.synchronize()
+    wdf, wdss = ik.intra_conv_prenorm_df_plain(dout, f, ss, ti, W)
+    wdW = ik.intra_conv_prenorm_dw_plain(f, ss, ti, dout)
+    assert df.dtype == dtype and dss.dtype == dW.dtype == torch.float32
+    assert dss.shape == ss.shape and dW.shape == W.shape
+    fp32 = dtype == torch.float32
+    assert _rel(df.float(), wdf.float()) <= (1e-5 if fp32 else 8e-3)
+    assert _rel(dss, wdss) <= (1e-4 if fp32 else 1e-3)
+    assert _rel(dW, wdW) <= (1e-4 if fp32 else 1e-3)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, BF16])
+@pytest.mark.parametrize('b,p,c,d', [(3, 40, 64, 64), (12, 256, 64, 128),
+                                     (12, 128, 256, 256), (2, 7, 32, 96)])
+def test_grouped_conv_bwd_kernels_match_plain(cuda, dtype, b, p, c, d):
+    """B9: dx = dout W^T (normwise 1e-5 in fp32, 8e-3 in bf16) and dW =
+    x^T dout (fp32 sums: 1e-4 from fp32 operands, 1e-3 from bf16 ones)."""
+    rng = np.random.RandomState(c + d)
+    x = _rand(rng, (b, p, 60, c), cuda, dtype)
+    W = _rand(rng, (c, d), cuda, dtype, 0.1)
+    dout = _rand(rng, (b, p, 60, d), cuda, dtype)
+    gc = tkern.grouped_conv
+    dx, dW = gc.grouped_conv_dx(dout, W), gc.grouped_conv_dw(x, dout)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and dW.dtype == torch.float32
+    fp32 = dtype == torch.float32
+    assert _rel(dx.float(), gc.grouped_conv_dx_plain(dout, W).float()) <= \
+        (1e-5 if fp32 else 8e-3)
+    assert _rel(dW, gc.grouped_conv_dw_plain(x, dout)) <= \
+        (1e-4 if fp32 else 1e-3)
+
+
+@pytest.mark.parametrize('b,p1,stride,nn,c,d', BWD_SHAPES)
+def test_inter_conv_bwd_kernels_bf16_match_plain(cuda, b, p1, stride, nn, c,
+                                                 d):
+    """The bf16 builds of dTable and dW: bf16 table, W and dout widened on
+    load, fp32 sums (normwise 1e-3 against the plain versions on the same
+    bf16 operands)."""
+    gx, idx, f, rk, k2, W, dout = _inter_operands(cuda, b, p1, stride, nn, c,
+                                                  d)
+    f, W, dout = f.to(BF16), W.to(BF16), dout.to(BF16)
+    ic = tkern.inter_conv
+    dT = ic.inter_conv_dtable(gx, idx, p1, rk, k2, W, dout, 0.08)
+    dW = ic.inter_conv_dw(gx, idx, f, rk, k2, dout, 0.08)
+    torch.cuda.synchronize()
+    assert dT.dtype == dW.dtype == torch.float32
+    assert _rel(dT, ic.inter_conv_dtable_plain(gx, idx, p1, rk, k2, W, dout,
+                                               0.08)) <= 1e-3
+    assert _rel(dW, ic.inter_conv_dw_plain(gx, idx, f, rk, k2, dout,
+                                           0.08)) <= 1e-3
+
+
+@pytest.mark.parametrize('sb', [1, 12])
+def test_production_bwd_reductions_are_deterministic(cuda, sb):
+    """B6's dscale / dshift and the two dW kernels (B6, B9) add per-block
+    partials in a fixed order: two runs are bitwise equal."""
+    f, ss, ti, inv, W, dout = _prenorm_operands(cuda, BF16, 12, 128, 64, 64,
+                                                sb, seed=4)
+    ik, gc = tkern.intra_conv, tkern.grouped_conv
+    runs = [(ik.intra_conv_prenorm_df(dout, f, ss, ti, inv, W),
+             ik.intra_conv_prenorm_dw(f, ss, ti, dout),
+             gc.grouped_conv_dw(f, dout)) for _ in range(2)]
+    torch.cuda.synchronize()
+    (df0, dss0), dw0, gw0 = runs[0]
+    (df1, dss1), dw1, gw1 = runs[1]
+    assert torch.equal(df0, df1) and torch.equal(dss0, dss1)
+    assert torch.equal(dw0, dw1) and torch.equal(gw0, gw1)
+
+
+def test_bf16_train_step_launches_the_kernels(cuda):
+    """A bf16 train step of a small model on the card goes through every
+    production kernel, forward and backward, and every parameter gets a
+    finite gradient; the plain path (torch autograd) launches none and
+    gives the same loss."""
+    from epn_pointcloud_tpu_torch import losses
+    from epn_pointcloud_tpu_torch.app import config
+    from epn_pointcloud_tpu_torch.models import cls_so3net_pn as tcls
+    opt = config.parse_args(['experiment', '-d', 'unused', '--input-num',
+                             '256'])
+    opt.model.flag = 'attention'
+    models = [tcls.build_model(opt, mlps=((64, 64), (64,)), out_mlps=(64,),
+                               seed=3).to(cuda).train() for _ in range(2)]
+    x = torch.from_numpy(_ball_points(np.random.RandomState(3), 2, 256)).to(
+        cuda)
+    label = torch.tensor([3, 17], device=cuda)
+    rlabel = torch.tensor([5, 41], device=cuda)
+
+    def step(model):
+        pred, feat = model(x)
+        loss = losses.attention_cross_entropy(pred, label, feat, rlabel,
+                                              'default', 1.0)[0]
+        loss.backward()
+        return loss.item()
+    tso3.set_compute_dtype('bf16')
+    try:
+        tkern.reset_counts()
+        loss_k = step(models[0])
+        counts = {k: v for k, v in tkern.counts().items() if v}
+        with tkern.plain():
+            loss_p = step(models[1])
+        torch.cuda.synchronize()
+    finally:
+        tso3.set_compute_dtype('fp32')
+    assert counts == {
+        'fps': 1, 'ball_query': 3, 'ones_conv': 1, 'inter_conv': 2,
+        'inter_conv_dtable': 2, 'inter_conv_dw': 2, 'intra_conv_prenorm': 3,
+        'intra_conv_prenorm_df': 3, 'intra_conv_prenorm_dw': 3, 'moments': 9,
+        'grouped_conv': 3, 'grouped_conv_dx': 3, 'grouped_conv_dw': 3}
+    assert {k: v for k, v in tkern.counts().items() if v} == counts
+    for m in models:
+        assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                   for p in m.parameters())
+    assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)

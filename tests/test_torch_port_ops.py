@@ -119,5 +119,8 @@ def test_plain_switch_routes_to_plain_versions():
                               'inter_conv': 0, 'inter_conv_dtable': 0,
                               'inter_conv_dw': 0, 'intra_conv': 0,
                               'intra_conv_dw': 0, 'intra_conv_prenorm': 0,
+                              'intra_conv_prenorm_df': 0,
+                              'intra_conv_prenorm_dw': 0,
                               'moments': 0, 'grouped_conv': 0,
-                              'grouped_conv_tail': 0}
+                              'grouped_conv_tail': 0, 'grouped_conv_dx': 0,
+                              'grouped_conv_dw': 0}
