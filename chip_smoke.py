@@ -60,11 +60,28 @@ Phases (any failure exits non-zero and prints no result line):
      the whole step timed on both paths (median of 5), and the bf16 step's
      loss and per-leaf gradient cosine against the fp32 step on the same
      weights and batch printed (not gated);
- 11. [bf16-train-entry] this slice's main path: run_modelnet --run-mode
-     train --compute-dtype bf16 -i 4 --save-freq 4 on the synthetic tree,
-     each kernel's launch count risen by its bf16 per-step count (plus the
-     bf16 eval at iteration 4), then the checkpoint through --run-mode eval
-     --compute-dtype bf16 -r.
+ 11. [bf16-train-entry] run_modelnet --run-mode train --compute-dtype bf16
+     -i 4 --save-freq 4 on the synthetic tree, each kernel's launch count
+     risen by its bf16 per-step count (plus the bf16 eval at iteration 4),
+     then the checkpoint through --run-mode eval --compute-dtype bf16 -r;
+ 12. [inv-kernels] the 3DMatch descriptor model inv_so3net_pn at full width
+     (fp32): each kernel call of one triplet step (two legs of b=16
+     1024-point patches from the port's FragmentLoader on a dense synthetic
+     3DMatch tree) against its plain version on the same inputs, timed
+     (fps and ball_query indices equal; normwise <= 1e-5 for the forward
+     kernels, df, dTable and the W-off inter_conv_f / inter_conv_dg, <=
+     1e-4 for the dW reductions); then the composed backward route (its
+     four parts) timed beside the fused dTable + dW at B1L0, B2L0, B3L0;
+ 13. [inv-train] one inv triplet step on the kernel path and on the plain
+     path from the same weights: loss to rtol 1e-5, a gradient for every
+     parameter on both, the per-leaf rule (degenerate leaves from a float64
+     step); the whole step timed on both paths in turns; 10 Adam steps
+     lower the loss;
+ 14. [inv-descriptor] the eval-mode inv forward at b=48 on both paths:
+     descriptors to rtol 1e-3, atol 2e-3, timed;
+ 15. [inv-train-entry] this slice's main path: run_3dmatch --run-mode train
+     -i 4 --save-freq 4 on the synthetic tree, each kernel's launch count
+     risen by its per-step count, then the checkpoint reloaded through -r.
 
 Prints one line per comparison, a JSON line with per-kernel results (each
 with its bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -127,6 +144,15 @@ def work(name, args, out):
         b, p2, nn, _ = args[0].shape
         na, K = args[1].shape[:2]
         f32 = 10 * b * p2 * nn * na * K     # a weight and its sum
+    elif name in ('inter_conv_f', 'inter_conv_dg'):
+        # F without W: the anchor weights and the neighbor contraction (dG:
+        # its transpose, folded onto the table rows)
+        idx, rk = args[1], args[3]
+        b, p2, nn = idx.shape
+        na, K = rk.shape[:2]
+        c = args[2 if name == 'inter_conv_f' else 5].shape[-1]
+        M = b * p2 * na
+        f32 = 9 * M * nn * K + 2 * M * nn * K * c
     elif name.startswith('inter_conv'):
         gx, idx, rk = args[0], args[1], args[3]
         b, p2, nn = idx.shape
@@ -264,18 +290,27 @@ def phase_build():
 
 
 def capture_calls(names, run):
-    """Run ``run()``, recording each call of the named kernel wrappers
-    (module function names in ops/kernels) as (name, args)."""
+    """Run ``run()``, recording each outermost call of the named kernel
+    wrappers (module function names in ops/kernels) as (name, args)."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     mods = {n: m for m in kernels.MODULES for n in names if hasattr(m, n)}
     calls = []
     saved = {n: getattr(m, n) for n, m in mods.items()}
 
+    depth = [0]
+
     def recorder(name, orig):
         def rec(*args):
-            calls.append((name, args))
-            return orig(*args)
+            # a wrapper that calls another (intra df runs the forward
+            # wrapper) is recorded once, as itself
+            if depth[0] == 0:
+                calls.append((name, args))
+            depth[0] += 1
+            try:
+                return orig(*args)
+            finally:
+                depth[0] -= 1
         return rec
     for n, m in mods.items():
         setattr(m, n, recorder(n, saved[n]))
@@ -299,6 +334,11 @@ def _shape_desc(name, args):
         return (f'b={tab.shape[0]} p1={tab.shape[1]} p2={idx.shape[1]} '
                 f'nn={idx.shape[2]} c={tab.shape[3]} d={W.shape[2]} '
                 f'sigma={args[6]:.4f}')
+    if name in ('inter_conv_f', 'inter_conv_dg'):
+        idx = args[1]
+        c = args[2 if name == 'inter_conv_f' else 5].shape[-1]
+        return (f'b={idx.shape[0]} p2={idx.shape[1]} nn={idx.shape[2]} c={c} '
+                f'sigma={args[-1]:.4f}')
     if name == 'ones_conv':
         return (f'gx {tuple(args[0].shape)} -> F {args[4]} '
                 f'sigma={args[3]:.4f}')
@@ -491,17 +531,23 @@ _NO_BF16 = {'intra_conv_prenorm': 0, 'moments': 0, 'grouped_conv': 0,
             'grouped_conv_tail': 0, 'intra_conv_prenorm_df': 0,
             'intra_conv_prenorm_dw': 0, 'grouped_conv_dx': 0,
             'grouped_conv_dw': 0}
+# the W-off inter conv runs only where the backward composes (c <= 32 or
+# nn > 32): never in cls_so3net_pn
+_NO_WOFF = {'inter_conv_f': 0, 'inter_conv_dg': 0}
 EVAL_PER_BATCH = {'fps': 1, 'ball_query': 7, 'ones_conv': 1, 'inter_conv': 6,
                   'inter_conv_dtable': 0, 'inter_conv_dw': 0,
-                  'intra_conv': 7, 'intra_conv_dw': 0, **_NO_BF16}
+                  'intra_conv': 7, 'intra_conv_dw': 0, **_NO_BF16,
+                  **_NO_WOFF}
 TRAIN_PER_STEP = {'fps': 1, 'ball_query': 7, 'ones_conv': 1, 'inter_conv': 6,
                   'inter_conv_dtable': 6, 'inter_conv_dw': 6,
-                  'intra_conv': 14, 'intra_conv_dw': 7, **_NO_BF16}
+                  'intra_conv': 14, 'intra_conv_dw': 7, **_NO_BF16,
+                  **_NO_WOFF}
 # the bf16 production eval: every intra layer runs the prenorm form and its
 # InstanceNorm statistics through moments; layers 1-6 end in the fused tail
 # (layer 0's rank-1 skip keeps the unfused one); the head's mlp conv is the
 # grouped conv
-BF16_EVAL_PER_BATCH = {**_NO_BF16, 'fps': 1, 'ball_query': 7, 'ones_conv': 1,
+BF16_EVAL_PER_BATCH = {**_NO_BF16, **_NO_WOFF, 'fps': 1, 'ball_query': 7,
+                       'ones_conv': 1,
                        'inter_conv': 6, 'inter_conv_dtable': 0,
                        'inter_conv_dw': 0, 'intra_conv': 0,
                        'intra_conv_dw': 0, 'intra_conv_prenorm': 7,
@@ -714,11 +760,12 @@ def perturb_norm_biases(model, seed=5):
     return model
 
 
-def time_steps(mk, mp, batch, dtype, reps):
-    """The whole train step (forward, backward, Adam) in ``dtype``, kernel
-    path on ``mk`` and plain path on ``mp`` in turns, after one warm step
-    each: (the kernel path's optimizer, median kernel ms, median plain ms,
-    and the runs)."""
+def time_steps(mk, mp, batch, dtype, reps, loss=step_loss, tag=None,
+               n_clouds=TRAIN_BATCH):
+    """The whole train step (forward, ``loss``, backward, Adam) in
+    ``dtype``, kernel path on ``mk`` and plain path on ``mp`` in turns,
+    after one warm step each: (the kernel path's optimizer, median kernel
+    ms, median plain ms, and the runs)."""
     from epn_pointcloud_tpu_torch import train
     from epn_pointcloud_tpu_torch.ops import kernels
     opt_k = train.make_optimizer(mk.parameters(), 1e-3)
@@ -726,13 +773,13 @@ def time_steps(mk, mp, batch, dtype, reps):
 
     def step_k():
         opt_k.zero_grad(set_to_none=True)
-        step_loss(mk, batch).backward()
+        loss(mk, batch).backward()
         opt_k.step()
 
     def step_p():
         with kernels.plain():
             opt_p.zero_grad(set_to_none=True)
-            step_loss(mp, batch).backward()
+            loss(mp, batch).backward()
             opt_p.step()
     k_ts, p_ts = [], []
     with compute_dtype(dtype):
@@ -742,11 +789,11 @@ def time_steps(mk, mp, batch, dtype, reps):
             k_ts.append(time_ms(step_k, reps=1, warmup=0))
             p_ts.append(time_ms(step_p, reps=1, warmup=0))
     k_ms, p_ms = statistics.median(k_ts), statistics.median(p_ts)
-    log(f'[{"train" if dtype == "fp32" else "bf16-train"}] b={TRAIN_BATCH} '
-        f'whole {dtype} train step (forward, backward, Adam): kernel path '
-        f'{k_ms:.2f} ms ({1e3 * TRAIN_BATCH / k_ms:.1f} clouds/s), plain path '
-        f'{p_ms:.2f} ms ({1e3 * TRAIN_BATCH / p_ms:.1f} clouds/s); median of '
-        f'{reps} turns')
+    tag = tag or ('[train]' if dtype == 'fp32' else '[bf16-train]')
+    log(f'{tag} b={n_clouds} whole {dtype} train step (forward, backward, '
+        f'Adam): kernel path {k_ms:.2f} ms ({1e3 * n_clouds / k_ms:.1f} '
+        f'clouds/s), plain path {p_ms:.2f} ms ({1e3 * n_clouds / p_ms:.1f} '
+        f'clouds/s); median of {reps} turns')
     return opt_k, k_ms, p_ms, k_ts, p_ts
 
 
@@ -1123,6 +1170,404 @@ def phase_train_entry(dtype='fp32'):
     return counts, wall
 
 
+# ----------------------------------------------- inv_so3net_pn (3DMatch)
+
+INV_DIR = os.path.join(ROOT, 'build', 'chip_smoke_3dmatch')
+INV_BATCH = 16          # patch pairs a leg: the 3DMatch entry's npt
+INV_DESC_BATCH = 48
+INV_LAYERS = ('B0L0', 'B0L1', 'B1L0', 'B1L1', 'B2L0', 'B2L1', 'B3L0', 'B3L1')
+# the layers whose backward composes (c <= 32 or nn > 32), and the others
+INV_COMPOSED = ('B0L1', 'B1L0', 'B2L0', 'B3L0')
+INV_FUSED = ('B1L1', 'B2L1', 'B3L1')
+# kernel launches of one fp32 inv triplet step (two legs): per leg one fps,
+# 8 ball queries, the ones conv at B0L0, the W-fused inter conv at the other
+# 7 layers, the intra conv at all 8 forward and again as df; intra dW at 8;
+# the fused dTable / dW at the 3 fused layers; inter_conv_f (the F
+# recompute) and inter_conv_dg at the 4 composed ones
+INV_PER_STEP = {**_NO_BF16, 'fps': 2, 'ball_query': 16, 'ones_conv': 2,
+                'inter_conv': 14, 'intra_conv': 32, 'intra_conv_dw': 16,
+                'inter_conv_dtable': 6, 'inter_conv_dw': 6,
+                'inter_conv_f': 8, 'inter_conv_dg': 8}
+INV_NAMES = ('fps', 'ball_query', 'ones_conv', 'inter_conv', 'intra_conv',
+             'intra_conv_df', 'intra_conv_dw', 'inter_conv_dtable',
+             'inter_conv_dw', 'inter_conv_f', 'inter_conv_dg')
+
+
+def inv_tree():
+    """The dense synthetic 3DMatch tree of
+    tests/test_reference_entrypoint_parity.py:273-275 (every keypoint's 0.4
+    ball holds >= 1024 distinct points), 3 fragments, 32 keypoints."""
+    from epn_pointcloud_tpu_torch.data import synthetic
+    root = os.path.join(INV_DIR, 'data')
+    if not os.path.isdir(root):
+        synthetic.make_3dmatch_tree(root, n_frags=3, n_points=32000,
+                                    n_kpts=32, seed=11,
+                                    extent=(2.0, 2.0, 1.6), kpt_margin=0.45)
+    return root
+
+
+def inv_opt(root):
+    """The 3DMatch entry point's options (config_opt_3dmatch, train)."""
+    from epn_pointcloud_tpu_torch import run_3dmatch
+    from epn_pointcloud_tpu_torch.app import config
+    return run_3dmatch.config_opt_3dmatch(config.parse_args(
+        ['experiment', '-d', root]))
+
+
+def inv_legs(root, device, items=(0,)):
+    """(src, tgt) [16 * len(items), 1024, 3] patch legs from the port's
+    FragmentLoader on the tree."""
+    import numpy as np
+    import torch
+    from epn_pointcloud_tpu_torch.data import match_3dmatch
+    loader = match_3dmatch.FragmentLoader(inv_opt(root), 0.4, npt=INV_BATCH)
+    data = [loader[i] for i in items]
+    return tuple(torch.from_numpy(np.concatenate([d[k] for d in data])).to(
+        device) for k in ('src', 'tgt'))
+
+
+def inv_model(device):
+    from epn_pointcloud_tpu_torch import models
+    return models.build_model_from(inv_opt('unused'), seed=SEED).to(device)
+
+
+def inv_loss(model, legs):
+    """The triplet step's loss: one model call a leg, the soft in-batch
+    hard-negative triplet loss (margin 1) on the two descriptor sets."""
+    from epn_pointcloud_tpu_torch import losses
+    ys, _ = model(legs[0])
+    yt, _ = model(legs[1])
+    return losses.triplet_batch_loss(ys, yt, 'soft', 1.0)[0]
+
+
+def _inv_layer(name, i):
+    """'<layer>#<leg>' of the i-th call of ``name`` in one step (the two
+    legs' forwards in turn, then the backward, which runs from the last
+    layer down, a leg at a time)."""
+    per_leg = {'fps': ('B0L0',), 'ones_conv': ('B0L0',),
+               'ball_query': INV_LAYERS, 'intra_conv': INV_LAYERS,
+               'inter_conv': INV_LAYERS[1:],
+               'intra_conv_df': INV_LAYERS[::-1],
+               'intra_conv_dw': INV_LAYERS[::-1],
+               'inter_conv_f': INV_COMPOSED[::-1],
+               'inter_conv_dg': INV_COMPOSED[::-1],
+               'inter_conv_dtable': INV_FUSED[::-1],
+               'inter_conv_dw': INV_FUSED[::-1]}[name]
+    return f'{per_leg[i % len(per_leg)]}#{i // len(per_leg)}'
+
+
+def phase_inv_kernels(device, legs):
+    """[inv-kernels] Each kernel call of one fp32 inv triplet step (b=16 a
+    leg) against its plain version on the same inputs, timed: fps and
+    ball_query indices equal; normwise relative error <= 1e-5 for the
+    forward kernels, intra df, dTable, F and dT (atomics), <= 1e-4 for the
+    dW reductions. Then, at B1L0, B2L0 and B3L0, the composed backward
+    route (dF product, inter_conv_dg, inter_conv_f, dW product) timed
+    beside the fused dTable + dW on the same operands (printed, not
+    gated)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    model = inv_model(device).train()
+    calls = capture_calls(INV_NAMES,
+                          lambda: inv_loss(model, legs).backward())
+    del model
+    ik = kernels.intra_conv
+    entries = {k.name: k for k in kernels.KERNELS}
+    n_calls = {n: sum(1 for c in calls if c[0] == n) for n in INV_NAMES}
+    seen = dict.fromkeys(INV_NAMES, 0)
+    results = {n: [] for n in INV_NAMES}
+    failures = []
+    torch.set_grad_enabled(False)
+    for name, args in calls:
+        layer = _inv_layer(name, seen[name])
+        seen[name] += 1
+        if name == 'intra_conv_df':     # the forward kernel, transposed
+            kern_fn, plain_fn = ik.intra_conv_df, ik.intra_conv_df_plain
+            pargs = (args[0], args[1], args[3])
+        else:
+            kern_fn = getattr(entries[name].module, name)
+            plain_fn = getattr(entries[name].module, entries[name].plain)
+            pargs = args
+        got, want = kern_fn(*args), plain_fn(*pargs)
+        torch.cuda.synchronize()
+        if name in ('fps', 'ball_query'):
+            rel = float((got.long() - want.long()).abs().max())
+            ok, tol = torch.equal(got, want), 'equal'
+        else:
+            rel = rel_err(got, want)
+            tol = 1e-4 if name.endswith('_dw') else 1e-5
+            ok = (rel <= tol and got.shape == want.shape
+                  and bool(torch.isfinite(got).all()))
+        max_err = float((got.float() - want.float()).abs().max())
+        k_ms = time_ms(lambda: kern_fn(*args), reps=5, warmup=2)
+        p_ms = time_ms(lambda: plain_fn(*pargs), reps=5, warmup=2)
+        row = {'layer': layer, 'max_abs_err': max_err, 'rel_norm_err': rel,
+               'ms': k_ms, 'plain_ms': p_ms, 'ok': ok,
+               'shape': ' '.join(str(tuple(a.shape)) for a in args[:3]
+                                 if torch.is_tensor(a))}
+        work_name = 'intra_conv' if name == 'intra_conv_df' else name
+        wargs = args if name != 'intra_conv_df' else \
+            (args[0], args[1], args[3].transpose(1, 2))
+        row['bytes_ms'], row['ops_ms'] = bound_ms(work_name, wargs, got)
+        log(f'[inv-kernels] {name} {layer} ({row["shape"]}): max_abs_err='
+            f'{max_err:.3e} rel_norm_err={rel:.3e} [{tol}] kernel_ms='
+            f'{k_ms:.4f} plain_ms={p_ms:.4f} bound_ms='
+            f'{max(row["bytes_ms"], row["ops_ms"]):.4f} '
+            f'({"bytes" if row["bytes_ms"] >= row["ops_ms"] else "ops"}) '
+            f'{"OK" if ok else "FAIL"}')
+        results[name].append(row)
+        if not ok:
+            failures.append(f'{name} {layer}')
+        del got, want
+    routes = inv_route_times(calls, device)
+    torch.set_grad_enabled(True)
+    expect = {n: INV_PER_STEP.get(n, 0) for n in INV_NAMES}
+    expect['intra_conv'], expect['intra_conv_df'] = 16, 16
+    if n_calls != expect:
+        failures.append(f'inv step calls {n_calls}, expected {expect}')
+    if failures:
+        raise AssertionError(f'inv kernel comparisons failed: {failures}')
+    results['intra_conv'] += results.pop('intra_conv_df')
+    return results, routes
+
+
+def inv_route_times(calls, device):
+    """The composed backward (dF = dout W^T, inter_conv_dg, inter_conv_f,
+    dW = F^T dout) and the fused one (inter_conv_dtable + inter_conv_dw) at
+    B1L0, B2L0 and B3L0 of the first leg, on that layer's forward operands
+    and a seeded dout; each part timed (median of 5)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    ic = kernels.inter_conv
+    fwd = [args for name, args in calls if name == 'inter_conv'][:7]
+    out = {}
+    g = torch.Generator(device=device).manual_seed(SEED)
+    for layer in INV_COMPOSED[1:]:
+        gx, idx, table, rk, k2, W, sigma = fwd[INV_LAYERS.index(layer) - 1]
+        b, p2, _ = idx.shape
+        q, na, c = table.shape[1:]
+        K, d = W.shape[0], W.shape[2]
+        dout = torch.randn((b, p2, na, d), generator=g, device=device)
+        W2 = W.reshape(K * c, d)
+        dF = torch.matmul(dout.reshape(-1, d), W2.t()).reshape(
+            b, p2, na, K, c)
+        F = ic.inter_conv_f(gx, idx, table, rk, k2, sigma)
+        parts = {
+            'dF_mm': lambda: torch.matmul(dout.reshape(-1, d), W2.t()),
+            'inter_conv_dg': lambda: ic.inter_conv_dg(gx, idx, q, rk, k2, dF,
+                                                      sigma),
+            'inter_conv_f': lambda: ic.inter_conv_f(gx, idx, table, rk, k2,
+                                                    sigma),
+            'dW_mm': lambda: torch.matmul(F.reshape(-1, K * c).t(),
+                                          dout.reshape(-1, d)),
+            'inter_conv_dtable': lambda: ic.inter_conv_dtable(
+                gx, idx, q, rk, k2, W, dout, sigma),
+            'inter_conv_dw': lambda: ic.inter_conv_dw(gx, idx, table, rk, k2,
+                                                      dout, sigma)}
+        ms = {k: time_ms(fn, reps=5, warmup=2) for k, fn in parts.items()}
+        dT_c, dT_f = parts['inter_conv_dg'](), parts['inter_conv_dtable']()
+        dW_c, dW_f = parts['dW_mm']().reshape(K, c, d), parts[
+            'inter_conv_dw']()
+        composed = ms['dF_mm'] + ms['inter_conv_dg'] + ms['inter_conv_f'] + \
+            ms['dW_mm']
+        fused = ms['inter_conv_dtable'] + ms['inter_conv_dw']
+        out[layer] = {'shape': f'b={b} p2={p2} nn={idx.shape[2]} c={c} d={d}',
+                      'parts_ms': ms, 'composed_ms': composed,
+                      'fused_ms': fused, 'dT_rel_diff': rel_err(dT_c, dT_f),
+                      'dW_rel_diff': rel_err(dW_c, dW_f)}
+        log(f'[inv-kernels] backward routes at {layer} '
+            f'({out[layer]["shape"]}): composed {composed:.3f} ms (dF mm '
+            f'{ms["dF_mm"]:.3f} + dG {ms["inter_conv_dg"]:.3f} + F '
+            f'{ms["inter_conv_f"]:.3f} + dW mm {ms["dW_mm"]:.3f}) vs fused '
+            f'{fused:.3f} ms (dTable {ms["inter_conv_dtable"]:.3f} + dW '
+            f'{ms["inter_conv_dw"]:.3f}); routes differ by dT '
+            f'{out[layer]["dT_rel_diff"]:.2e}, dW '
+            f'{out[layer]["dW_rel_diff"]:.2e} (printed, not gated)')
+        del dF, F, dT_c, dT_f, dW_c, dW_f
+    return out
+
+
+def inv_f64_grad_max(model, legs, chunk=4):
+    """Per-leaf max |gradient| of the triplet step on a float64 copy of
+    ``model`` on the plain path. A patch's descriptor depends on that patch
+    only (InstanceNorm normalizes each cloud alone), so the step's gradient
+    is the sum over patches of dL/dy_i dy_i/dtheta: the descriptors first,
+    dL/dy from the loss, then the backward ``chunk`` patches at a time."""
+    import copy
+    import torch
+    from epn_pointcloud_tpu_torch import losses
+    from epn_pointcloud_tpu_torch.ops import kernels
+    m64 = copy.deepcopy(model).double()
+    xs = [x.double() for x in legs]
+    with kernels.plain():
+        with torch.no_grad():
+            ys = [torch.cat([m64(x[i:i + chunk])[0]
+                             for i in range(0, len(x), chunk)]) for x in xs]
+        ys = [y.requires_grad_() for y in ys]
+        gys = torch.autograd.grad(
+            losses.triplet_batch_loss(ys[0], ys[1], 'soft', 1.0)[0], ys)
+        for x, gy in zip(xs, gys):
+            for i in range(0, len(x), chunk):
+                (m64(x[i:i + chunk])[0] * gy[i:i + chunk]).sum().backward()
+    out = {n: float(p.grad.abs().max()) if p.grad is not None else 0.0
+           for n, p in m64.named_parameters()}
+    del m64
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_inv_train(device, legs, reps=5):
+    """[inv-train] One fp32 inv triplet step (b=16 a leg) on the kernel
+    path and on the plain path from the same weights: loss to rtol 1e-5,
+    a gradient for every parameter on both, per-leaf agreement by the rule
+    of tests/test_reference_train_parity.py; the whole step timed on both
+    paths in turns (median of 5); 10 Adam steps on one batch lower the
+    loss."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    mk, mp = (inv_model(device).train() for _ in range(2))
+    f64 = inv_f64_grad_max(mp, legs)
+    kernels.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    loss_k = inv_loss(mk, legs)
+    loss_k.backward()
+    torch.cuda.synchronize()
+    mem_k = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts_k = kernels.counts()
+    torch.cuda.reset_peak_memory_stats()
+    with kernels.plain():
+        loss_p = inv_loss(mp, legs)
+        loss_p.backward()
+    torch.cuda.synchronize()
+    mem_p = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert kernels.counts() == counts_k, 'the plain path launched a kernel'
+    assert counts_k == INV_PER_STEP, (counts_k, INV_PER_STEP)
+    lk, lp = loss_k.item(), loss_p.item()
+    log(f'[inv-train] b={INV_BATCH} a leg, loss kernel path {lk:.7f}, plain '
+        f'path {lp:.7f} (rtol 1e-5); peak device memory kernel path '
+        f'{mem_k:.1f} GiB, plain path {mem_p:.1f} GiB')
+    assert math.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp), (lk, lp)
+    no_grad = [n for m in (mk, mp) for n, p in m.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    assert not no_grad, f'parameters without a finite gradient: {no_grad}'
+    bad, degen, worst = [], [], (0.0, '')
+    pk = dict(mk.named_parameters())
+    for name, p in mp.named_parameters():
+        ok, msg = _grads_close(name, pk[name].grad, p.grad, f64[name])
+        if not ok:
+            bad.append(msg)
+        elif 'degenerate' in msg:
+            degen.append(msg)
+        if f64[name] > 1e-5:
+            worst = max(worst, (rel_err(pk[name].grad, p.grad), name))
+    log(f'[inv-train] gradients: {len(pk)} leaves, every one on both paths, '
+        f'worst relative L2 {worst[0]:.3e} at {worst[1]}; {len(degen)} '
+        f'degenerate leaves (fp64 gradient <= 1e-5 or both <= 1e-3): '
+        f'{"; ".join(degen)}')
+    assert not bad, bad
+    opt_k, k_ms, p_ms, k_ts, p_ts = time_steps(
+        mk, mp, legs, 'fp32', reps, loss=inv_loss, tag='[inv-train]',
+        n_clouds=2 * INV_BATCH)
+    del mp
+    torch.cuda.empty_cache()
+    trace = []
+    for i in range(11):
+        loss = inv_loss(mk, legs)
+        trace.append(loss.item())
+        if i < 10:
+            opt_k.zero_grad(set_to_none=True)
+            loss.backward()
+            opt_k.step()
+    log(f'[inv-train] 10 Adam steps on one batch, kernel path: loss '
+        f'{trace[0]:.4f} -> {trace[-1]:.4f}')
+    assert all(map(math.isfinite, trace)) and trace[-1] < trace[0], trace
+    del mk
+    torch.cuda.empty_cache()
+    return {'loss_kernel': lk, 'loss_plain': lp, 'kernel_ms': k_ms,
+            'plain_ms': p_ms, 'kernel_runs_ms': k_ts, 'plain_runs_ms': p_ts,
+            'worst_grad_rel_l2': worst[0], 'adam_trace': trace,
+            'peak_gib_kernel': mem_k, 'peak_gib_plain': mem_p}
+
+
+def phase_inv_descriptor(device, root, reps=5):
+    """[inv-descriptor] The eval-mode inv forward at b=48 patches on the
+    kernel and the plain path: descriptors to rtol 1e-3, atol 2e-3; both
+    timed in turns (median of 5)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    src, tgt = inv_legs(root, device, items=(0, 1))
+    x = torch.cat([src, tgt])[:INV_DESC_BATCH].contiguous()
+    model = inv_model(device).eval()
+
+    def plain_fwd():
+        with kernels.plain():
+            return model(x)[0]
+    with torch.no_grad():
+        yk, yp = model(x)[0], plain_fwd()
+        torch.cuda.synchronize()
+        k_ts, p_ts = [], []
+        for _ in range(reps):
+            k_ts.append(time_ms(lambda: model(x), reps=1, warmup=0))
+            p_ts.append(time_ms(plain_fwd, reps=1, warmup=0))
+    k_ms, p_ms = statistics.median(k_ts), statistics.median(p_ts)
+    err = float((yk - yp).abs().max())
+    log(f'[inv-descriptor] b={INV_DESC_BATCH} eval descriptors '
+        f'{tuple(yk.shape)} kernel vs plain path max_abs_err={err:.3e} '
+        f'(rtol 1e-3, atol 2e-3), norms {float(yk.norm(dim=1).min()):.6f}-'
+        f'{float(yk.norm(dim=1).max()):.6f}; forward kernel path '
+        f'{k_ms:.2f} ms ({1e3 * INV_DESC_BATCH / k_ms:.1f} patches/s), plain '
+        f'path {p_ms:.2f} ms; median of {reps} turns')
+    assert yk.shape == (INV_DESC_BATCH, 64) and torch.isfinite(yk).all()
+    torch.testing.assert_close(yk, yp, rtol=1e-3, atol=2e-3)
+    del model
+    torch.cuda.empty_cache()
+    return {'max_abs_err': err, 'kernel_ms': k_ms, 'plain_ms': p_ms,
+            'kernel_runs_ms': k_ts, 'plain_runs_ms': p_ts}
+
+
+def phase_inv_train_entry(root):
+    """[inv-train-entry] This slice's main path: run_3dmatch --run-mode
+    train -i 4 --save-freq 4 on the synthetic tree; finite logged losses,
+    each kernel's launch count risen by its per-step count; the checkpoint
+    reloaded through -r."""
+    import torch
+    from epn_pointcloud_tpu_torch import run_3dmatch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    steps = 4
+    common = ['experiment', '-d', root, '--run-mode', 'train', '--model-dir',
+              os.path.join(INV_DIR, 'runs')]
+    kernels.reset_counts()
+    t0 = time.time()
+    trainer = run_3dmatch.main(common + ['-i', str(steps), '--save-freq',
+                                         str(steps), '-lf', '1'])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.counts()
+    trainer.logger.close()
+    stats = dict(trainer.summary.running_stats)
+    log(f'[inv-train-entry] run_3dmatch train: {steps} steps of 2 x '
+        f'{trainer.opt.npt} patches ({len(trainer.dataset)} fragment pairs an '
+        f'epoch); running stats {stats}; wall {wall:.2f} s (data and setup '
+        f'included); kernel launches {counts}, a step '
+        f'{ {n: k for n, k in INV_PER_STEP.items() if k} }')
+    assert trainer.opt.npt == INV_BATCH and trainer.opt.batch_size == 1
+    assert all(math.isfinite(stats[k]) for k in ('Loss', 'Pos', 'Neg',
+                                                 'Acc'))
+    assert math.isfinite(float(trainer.last_loss))
+    assert all(p.grad is not None for p in trainer.model.parameters())
+    expect = {n: steps * k for n, k in INV_PER_STEP.items()}
+    assert counts == expect, (counts, expect)
+    ckpt = trainer.last_ckpt
+    other = run_3dmatch.main(common + ['-i', '0', '-r', ckpt])
+    other.logger.close()
+    for (k, a), (_, b) in zip(trainer.model.state_dict().items(),
+                              other.model.state_dict().items()):
+        assert torch.equal(a, b), k
+    log(f'[inv-train-entry] checkpoint {os.path.basename(ckpt)} reloaded '
+        f'through -r: all {len(trainer.model.state_dict())} tensors equal')
+    return counts, wall
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1167,6 +1612,16 @@ def main():
         torch.cuda.empty_cache()
         bf16_train = phase_bf16_train_step(device)
         bf16_train_counts, bf16_train_wall = phase_train_entry('bf16')
+        torch.cuda.empty_cache()
+        inv_root = inv_tree()
+        legs = inv_legs(inv_root, device)
+        inv_results, inv_routes = phase_inv_kernels(device, legs)
+        torch.cuda.empty_cache()
+        inv_train = phase_inv_train(device, legs)
+        del legs
+        inv_desc = phase_inv_descriptor(device, inv_root)
+        inv_counts, inv_wall = phase_inv_train_entry(inv_root)
+        shutil.rmtree(INV_DIR, ignore_errors=True)
     except Exception:
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -1179,22 +1634,28 @@ def main():
         'nvidia-smi unavailable'
     summary = []
     for k in kernels.KERNELS:
-        # the numbers of the newest path that runs the kernel: the bf16
+        # the numbers of the path that brought the kernel in: the inv
+        # triplet step (b=16 a leg) for the W-off kernels, else the bf16
         # train step's backward (b=12), the bf16 forward (b=32), the fp32
         # forward (b=32) or the fp32 train step's backward (b=12);
-        # `launches` from this slice's main path (the bf16 train entry run),
-        # else from the bf16 eval entry run, else from the fp32 train entry
-        rows = (bf16_bwd.get(k.name) or bf16_results.get(k.name)
+        # `launches` from this slice's main path (the inv train entry run),
+        # else from the bf16 train entry, the bf16 eval entry, the fp32
+        # train entry
+        rows = (inv_results[k.name] if k.name in _NO_WOFF else
+                bf16_bwd.get(k.name) or bf16_results.get(k.name)
                 or results[k.name])
         rec = {'name': k.name, 'route': 'cuda', 'source': k.source,
                'replaces': k.replaces,
-               'launches': (bf16_train_counts[k.name] or bf16_counts[k.name]
-                            or counts[k.name])}
+               'launches': (inv_counts[k.name] or bf16_train_counts[k.name]
+                            or bf16_counts[k.name] or counts[k.name])}
         rec.update(_aggregate(rows))
-        rec['phase'] = ('bf16 train step b=12' if k.name in bf16_bwd else
-                        'bf16 forward b=32' if k.name in bf16_results else
-                        'fp32 forward b=32' if k.name in FWD else
+        rec['phase'] = ('inv train step b=16 a leg' if k.name in _NO_WOFF
+                        else 'bf16 train step b=12' if k.name in bf16_bwd
+                        else 'bf16 forward b=32' if k.name in bf16_results
+                        else 'fp32 forward b=32' if k.name in FWD else
                         'fp32 train step b=12')
+        if k.name not in _NO_WOFF and inv_results.get(k.name):
+            rec['inv'] = _aggregate(inv_results[k.name])
         if (k.name in bf16_bwd or k.name in bf16_results) and \
                 k.name in results:
             rec['fp32'] = _aggregate(results[k.name])
@@ -1203,7 +1664,8 @@ def main():
             rec['df'] = _aggregate(results['intra_conv_df'])
             rec['max_abs_err'] = max(rec['max_abs_err'],
                                      rec['df']['max_abs_err'])
-        rec.update({'bf16_train_entry_launches': bf16_train_counts[k.name],
+        rec.update({'inv_train_entry_launches': inv_counts[k.name],
+                    'bf16_train_entry_launches': bf16_train_counts[k.name],
                     'bf16_eval_launches': bf16_counts[k.name],
                     'eval_launches': eval_counts[k.name],
                     'train_entry_launches': counts[k.name]})
@@ -1225,6 +1687,11 @@ def main():
                    'bf16_train_step_b12': bf16_train,
                    'bf16_train_launches': bf16_train_counts,
                    'bf16_train_entry_wall_s': bf16_train_wall,
+                   'inv_per_layer': inv_results, 'inv_routes': inv_routes,
+                   'inv_train_step_b16': inv_train,
+                   'inv_descriptor_b48': inv_desc,
+                   'inv_train_launches': inv_counts,
+                   'inv_train_entry_wall_s': inv_wall,
                    'kernels': summary, 'seconds': time.time() - t_start},
                   f, indent=1)
     log(f'[done] {time.time() - t_start:.1f} s')

@@ -1,7 +1,7 @@
 """Weights from the JAX package's variable tree into the port's state_dict.
 
 ``from_jax_variables`` inverts the layout mappings of
-``epn_pointcloud_tpu/compat.py`` for the cls model:
+``epn_pointcloud_tpu/compat.py`` for the cls and the inv model:
 
   * SO(3) conv ``W``  flax [k, c, d]     -> [d, c*k] (c-major, k-minor)
   * Dense1x1 kernel   flax [c, d]        -> Conv2d [d, c, 1, 1], Conv1d
@@ -10,7 +10,9 @@
                                          -> weight/bias/running_mean/running_var
 
 The input is ``{'params': ..., 'batch_stats': ...}`` as nested dicts of
-numpy arrays (e.g. the JAX model's variables after ``np.asarray``).
+numpy arrays (e.g. the JAX model's variables after ``np.asarray``); the inv
+model, whose norms are InstanceNorms, has no BatchNorm and may have no
+``batch_stats``.
 """
 
 from __future__ import annotations
@@ -63,19 +65,21 @@ def separable_block_state(p, s, base: str = '') -> 'OrderedDict[str, torch.Tenso
     inter_p = p['InterSO3ConvBlock_0']
     sd[f'{pre}inter_conv.conv.basic_conv.W'] = _so3_w(
         inter_p['InterSO3Conv_0']['W'])
-    _bn(sd, f'{pre}inter_conv.norm', inter_p['BatchNorm_0'],
-        s['InterSO3ConvBlock_0']['BatchNorm_0'])
+    if 'BatchNorm_0' in inter_p:
+        _bn(sd, f'{pre}inter_conv.norm', inter_p['BatchNorm_0'],
+            s['InterSO3ConvBlock_0']['BatchNorm_0'])
     sd[f'{pre}intra_conv.conv.basic_conv.W'] = _so3_w(
         p['IntraSO3ConvBlock_0']['IntraSO3Conv_0']['W'])
     _dense(sd, f'{pre}skip_conv', p['Dense1x1_0'])
-    _bn(sd, f'{pre}norm', p['BatchNorm_0'], s['BatchNorm_0'])
+    if 'BatchNorm_0' in p:
+        _bn(sd, f'{pre}norm', p['BatchNorm_0'], s['BatchNorm_0'])
     return sd
 
 
 def from_jax_variables(variables: Dict[str, Any]) -> 'OrderedDict[str, torch.Tensor]':
-    """JAX cls_so3net_pn variables -> the port's state_dict. Parameters are
-    fp32 in both packages, so the same state_dict serves both compute
-    dtypes."""
+    """JAX cls_so3net_pn or inv_so3net_pn variables -> the port's
+    state_dict. Parameters are fp32 in both packages, so the same state_dict
+    serves both compute dtypes."""
     params, stats = variables['params'], variables.get('batch_stats', {})
     sd = OrderedDict()
     for top in _numbered(params, 'BasicSO3ConvBlock_'):
@@ -83,13 +87,20 @@ def from_jax_variables(variables: Dict[str, Any]) -> 'OrderedDict[str, torch.Ten
         for blk in _numbered(params[top], 'SeparableSO3ConvBlock_'):
             j = int(blk.rsplit('_', 1)[1])
             sd.update(separable_block_state(params[top][blk],
-                                            stats[top][blk],
+                                            stats.get(top, {}).get(blk, {}),
                                             f'backbone.{i}.blocks.{j}'))
         extra = set(params[top]) - set(_numbered(params[top],
                                                  'SeparableSO3ConvBlock_'))
         if extra:
             raise ValueError(f'{top}: blocks not ported: {sorted(extra)}')
 
+    if 'InvOutBlockMVD_0' in params:
+        hp = params['InvOutBlockMVD_0']
+        _dense(sd, 'outblock.attention_layer.0', hp['Dense1x1_0'])
+        _dense(sd, 'outblock.attention_layer.2', hp['Dense1x1_1'])
+        _dense(sd, 'outblock.pointnet.embed',
+               hp['PointnetSO3Conv_0']['Dense1x1_0'])
+        return sd
     hp, hs = params['ClsOutBlockPointnet_0'], stats['ClsOutBlockPointnet_0']
     norms = _numbered(hp, 'BatchNorm_')
     denses = _numbered(hp, 'Dense1x1_')

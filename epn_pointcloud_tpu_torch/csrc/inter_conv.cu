@@ -45,6 +45,22 @@
 // production mode of the _call_gather_w forms in bf16); gx, rk and k2 stay
 // fp32, and every product and sum is fp32 (bf16 exists only in device
 // memory: it is widened on load, and out is rounded once on store).
+//
+// W-off mode (template flag kWOff, epn_inter_conv_f): the same kernel with
+// the learned product left out. Each chunk's F slab is written from shared
+// memory to F [b, p2, na, K, C] (fp32) instead of being multiplied by W.
+// Replaces: epn_pointcloud_tpu/ops/pallas/inter_conv.py, _call_gather ->
+// _fwd_gather_kernel (via fused_gather_neighbor_conv) and _call ->
+// _fwd_kernel (via fused_neighbor_conv): F without W, from the table and
+// the indices or from rows gathered beforehand. On the card a gather is an
+// indexed load, so both TPU forms are this one kernel (rows gathered
+// beforehand are a table indexed by their own positions). The JAX package
+// reaches it where _fgcw_bwd takes its composed backward (c <= 32 or
+// nn > 32), to recompute F for dW = F^T dout. What bounds it: writing F
+// (K * C floats a row; 1.5 GB at the 3DMatch model's B0L1 for b = 16)
+// against the neighbor contraction (2 * nn * K * C flops a row) and the
+// anchor weights recomputed per 8-channel chunk: both near the card's
+// balance point, so neither term is far below the other.
 
 #include <cuda_runtime.h>
 
@@ -112,7 +128,8 @@ __device__ __forceinline__ void store_w(float* __restrict__ Bs, int tid,
   }
 }
 
-template <int BM, int BN, typename T>
+// kWOff: out is F [M, K, C]; W and D are unused
+template <int BM, int BN, typename T, bool kWOff>
 __global__ void __launch_bounds__(Cfg<BM, BN>::kThreads)
 inter_conv_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
                   const T* __restrict__ table,
@@ -122,7 +139,7 @@ inter_conv_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
                   float inv_sigma) {
   using G = Cfg<BM, BN>;
   extern __shared__ __align__(16) float smem[];
-  const Smem L = layout(BM, BN, K, na, nn);
+  const Smem L = layout(BM, kWOff ? 0 : BN, K, na, nn);
   float* s_F = smem;
   float* s_B = smem + L.b_off;
   float4* s_gx = reinterpret_cast<float4*>(smem + L.gx_off);
@@ -148,7 +165,7 @@ inter_conv_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
   const int n_slabs = K * CC / BK;
   float4 rb[G::kBLoads];
   for (int c0 = 0; c0 < C; c0 += CC) {
-    load_w<BM, BN>(W, 0, c0, C, D, n0, tid, rb);
+    if constexpr (!kWOff) load_w<BM, BN>(W, 0, c0, C, D, n0, tid, rb);
     // A slab: F[row, k, cc] for this chunk, one (row, 6 kernel points) item
     // at a time
     for (int e = tid; e < n_items; e += G::kThreads) {
@@ -156,6 +173,23 @@ inter_conv_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
       build_f_item(s_F + (size_t)row * L.fs + kg * KG * CC, table, rk, k2,
                    s_gx, s_idx, m0 + row, M, pt0, p2, nn, q, na, K, C,
                    c0, kg, inv_sigma);
+    }
+    if constexpr (kWOff) {
+      // the slab to F[row, k, c0 + cc], a float4 (half a (row, k) chunk
+      // row) a thread
+      __syncthreads();
+      constexpr int kRow4 = CC / 4;
+      for (int e = tid; e < BM * K * kRow4; e += G::kThreads) {
+        const int row = e / (K * kRow4), j = e - row * (K * kRow4);
+        if (m0 + row < M) {
+          const int k = j / kRow4, h = j - k * kRow4;
+          epn::store4(out + ((size_t)(m0 + row) * K + k) * C + c0 + 4 * h,
+                      *reinterpret_cast<const float4*>(s_F + (size_t)row * L.fs
+                                                       + 4 * j));
+        }
+      }
+      __syncthreads();
+      continue;
     }
     store_w<BM, BN>(s_B, tid, rb);
     __syncthreads();
@@ -195,6 +229,7 @@ inter_conv_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
     }
   }
 
+  if constexpr (kWOff) return;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + ty + i * (BM / TM);
@@ -208,20 +243,22 @@ inter_conv_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
   }
 }
 
-template <int BM, int BN, typename T>
+template <int BM, int BN, typename T, bool kWOff = false>
 int launch(const float* gx, const int* idx, const T* table,
            const float* rk, const float* k2, const T* W, T* out, int M,
            int p2, int nn, int q, int na, int K, int C, int D, float sigma,
            cudaStream_t stream) {
-  const Smem L = layout(BM, BN, K, na, nn);
+  const Smem L = layout(BM, kWOff ? 0 : BN, K, na, nn);
   if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      inter_conv_kernel<BM, BN, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
+      inter_conv_kernel<BM, BN, T, kWOff>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((M + BM - 1) / BM, D / BN);
-  inter_conv_kernel<BM, BN, T><<<grid, Cfg<BM, BN>::kThreads, L.total, stream>>>(
-      gx, idx, table, rk, k2, W, out, M, p2, nn, q, na, K, C, D, 1.f / sigma);
+  dim3 grid((M + BM - 1) / BM, kWOff ? 1 : D / BN);
+  inter_conv_kernel<BM, BN, T, kWOff>
+      <<<grid, Cfg<BM, BN>::kThreads, L.total, stream>>>(
+          gx, idx, table, rk, k2, W, out, M, p2, nn, q, na, K, C, D,
+          1.f / sigma);
   return (int)cudaGetLastError();
 }
 
@@ -271,4 +308,19 @@ extern "C" int epn_inter_conv(const void* gx, const void* idx, const void* table
   }
   return dispatch<float>(gx, idx, table, rk, k2, W, out, b, p2, nn, q, na, K,
                          C, D, sigma, s);
+}
+
+// W-off mode: gx, idx, rk, k2 as above, table [b, q, na, C] and F
+// [b, p2, na, K, C] fp32. C must be a multiple of 8, K of 6.
+extern "C" int epn_inter_conv_f(const void* gx, const void* idx,
+                                const void* table, const void* rk,
+                                const void* k2, void* F, int b, int p2, int nn,
+                                int q, int na, int K, int C, float sigma,
+                                void* stream) {
+  if (C % CC != 0 || K % KG != 0 || nn < 1) return (int)cudaErrorInvalidValue;
+  // 256 threads a block, 128 rows; no W slabs in shared memory
+  return launch<128, 128, float, true>(
+      (const float*)gx, (const int*)idx, (const float*)table,
+      (const float*)rk, (const float*)k2, nullptr, (float*)F, b * p2 * na,
+      p2, nn, q, na, K, C, 0, sigma, (cudaStream_t)stream);
 }

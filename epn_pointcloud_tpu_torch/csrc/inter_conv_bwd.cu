@@ -21,7 +21,8 @@
 // and its transpose over rows = b*p*60); the neighbor contraction and the
 // anchor-weight recompute cost about 1.75 * nn / D of that. fp32 on the
 // CUDA cores (no TF32, no wgmma): the FMA rate bounds it. dF would be 2.2 GB
-// at L1 for b=12 and F more, so neither ever exists in device memory.
+// at L1 for b=12 and F more, so in this fused form neither exists in device
+// memory (the W-off mode below reads a dF its caller formed).
 // Element type: the table, W and dout are fp32, or bf16 in the production
 // mode, widened on load (elem.cuh); products, sums, dT's atomics and dW
 // stay fp32 (the caller rounds dT to the table's type, as _fgcw_bwd rounds
@@ -36,6 +37,18 @@
 // into dT with atomics (red.global.add.f32). Threads of a warp share a row,
 // so their dF reads are broadcasts. Determinism: the atomics add in an
 // order that changes from run to run, so dT's ulp-level rounding does too.
+//
+// W-off mode of dTable (template flag kWOff, epn_inter_conv_dg): dF
+// [b, p2, na, K, C] fp32 comes from device memory (the caller formed it as
+// dout W^T) and each chunk's slab is loaded instead of formed; the scatter
+// is the same. It replaces _call -> _bwd_kernel (the VJP of
+// fused_gather_neighbor_conv / fused_neighbor_conv, and the composed
+// backward of _fgcw_bwd:1685-1703) together with the one-hot fold of dG
+// onto the table rows that follows it there (_fgcw_bwd:1692-1696,
+// _fgnc_bwd:802-805): the scatter is that fold, so dG [b, p2, nn, na, C]
+// never exists. What bounds it: reading dF (K * C floats a row) against the
+// scatter's 2 * nn * K * C flops a row and the weights recomputed per chunk
+// (~9 * nn * K a row and chunk): near the card's balance point.
 //
 // dW (inter_dw_kernel): a block owns one chunk of 8 channels (192 (k, cc)
 // rows of dW), BN = 64 or 128 columns of d, and one range of rows. Per
@@ -88,7 +101,90 @@ __host__ __device__ inline TSmem t_layout(int na, int nn) {
   return s;
 }
 
+// The dF slab [T_BM][FS] of channel chunk c0, formed by the GEMM of the
+// block's dout rows against W (both staged T_BK d at a time): rows ty * 8 + i,
+// columns tx + 32 * j.
 template <typename E>
+__device__ __forceinline__ void df_slab_gemm(
+    float* __restrict__ s_A, float* __restrict__ s_B, float* __restrict__ s_F,
+    const E* __restrict__ W, const E* __restrict__ dout, int m0, int M, int C,
+    int D, int c0, int tid) {
+  const int tx = tid % 32, ty = tid / 32;
+  float acc[8][6];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) acc[i][j] = 0.f;
+  }
+  for (int d0 = 0; d0 < D; d0 += T_BK) {
+    __syncthreads();
+    for (int e = tid; e < T_BM * T_BK / 4; e += T_THREADS) {
+      const int r = e % T_BM, q4 = e / T_BM;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (m0 + r < M) {
+        v = epn::load4(dout + (size_t)(m0 + r) * D + d0 + 4 * q4);
+      }
+      s_A[(4 * q4) * T_BM + r] = v.x;
+      s_A[(4 * q4 + 1) * T_BM + r] = v.y;
+      s_A[(4 * q4 + 2) * T_BM + r] = v.z;
+      s_A[(4 * q4 + 3) * T_BM + r] = v.w;
+    }
+    for (int e = tid; e < NCOL * T_BK / 4; e += T_THREADS) {
+      const int col = e / (T_BK / 4), q4 = e % (T_BK / 4);
+      const int k = col / CC, cc = col - k * CC;
+      const float4 v =
+          epn::load4(W + ((size_t)k * C + c0 + cc) * D + d0 + 4 * q4);
+      s_B[(4 * q4) * T_BS + col] = v.x;
+      s_B[(4 * q4 + 1) * T_BS + col] = v.y;
+      s_B[(4 * q4 + 2) * T_BS + col] = v.z;
+      s_B[(4 * q4 + 3) * T_BS + col] = v.w;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int dd = 0; dd < T_BK; ++dd) {
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(s_A + dd * T_BM + ty * 8);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(s_A + dd * T_BM + ty * 8 + 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float b[6];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) b[j] = s_B[dd * T_BS + tx + 32 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 6; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) s_F[(ty * 8 + i) * FS + tx + 32 * j] = acc[i][j];
+  }
+}
+
+// The dF slab of channel chunk c0 read from dF [M, NK, C] fp32 in device
+// memory (W-off mode), a float4 (half a (row, k) chunk row) a thread; zeros
+// for rows past M.
+__device__ __forceinline__ void df_slab_load(float* __restrict__ s_F,
+                                             const float* __restrict__ dF,
+                                             int m0, int M, int C, int c0,
+                                             int tid) {
+  constexpr int kRow4 = CC / 4;
+  for (int e = tid; e < T_BM * NK * kRow4; e += T_THREADS) {
+    const int row = e / (NK * kRow4), j = e - row * (NK * kRow4);
+    const int k = j / kRow4, h = j - k * kRow4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (m0 + row < M) {
+      v = epn::load4(dF + ((size_t)(m0 + row) * NK + k) * C + c0 + 4 * h);
+    }
+    *reinterpret_cast<float4*>(s_F + row * FS + 4 * j) = v;
+  }
+}
+
+// kWOff: dout is dF [M, NK, C] (E = float); W and D are unused
+template <typename E, bool kWOff>
 __global__ void __launch_bounds__(T_THREADS)
 inter_dtable_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
                     const float* __restrict__ rk, const float* __restrict__ k2,
@@ -105,66 +201,17 @@ inter_dtable_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
   int* s_idx = reinterpret_cast<int*>(smem + L.idx_off);
 
   const int tid = threadIdx.x;
-  const int tx = tid % 32, ty = tid / 32;
   const int m0 = blockIdx.x * T_BM;
   const int pt0 = m0 / na;
   const int np = (min(m0 + T_BM, M) - 1) / na - pt0 + 1;
   stage_neighbors(s_gx, s_idx, gx, idx, pt0, np, nn, tid, T_THREADS);
 
   for (int c0 = 0; c0 < C; c0 += CC) {
-    // dF[row, k, cc] = sum_d dout[row, d] W[k, c0 + cc, d]: rows ty * 8 + i,
-    // columns tx + 32 * j
-    float acc[8][6];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 6; ++j) acc[i][j] = 0.f;
-    }
-    for (int d0 = 0; d0 < D; d0 += T_BK) {
+    if constexpr (kWOff) {
       __syncthreads();
-      for (int e = tid; e < T_BM * T_BK / 4; e += T_THREADS) {
-        const int r = e % T_BM, q4 = e / T_BM;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (m0 + r < M) {
-          v = epn::load4(dout + (size_t)(m0 + r) * D + d0 + 4 * q4);
-        }
-        s_A[(4 * q4) * T_BM + r] = v.x;
-        s_A[(4 * q4 + 1) * T_BM + r] = v.y;
-        s_A[(4 * q4 + 2) * T_BM + r] = v.z;
-        s_A[(4 * q4 + 3) * T_BM + r] = v.w;
-      }
-      for (int e = tid; e < NCOL * T_BK / 4; e += T_THREADS) {
-        const int col = e / (T_BK / 4), q4 = e % (T_BK / 4);
-        const int k = col / CC, cc = col - k * CC;
-        const float4 v =
-            epn::load4(W + ((size_t)k * C + c0 + cc) * D + d0 + 4 * q4);
-        s_B[(4 * q4) * T_BS + col] = v.x;
-        s_B[(4 * q4 + 1) * T_BS + col] = v.y;
-        s_B[(4 * q4 + 2) * T_BS + col] = v.z;
-        s_B[(4 * q4 + 3) * T_BS + col] = v.w;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int dd = 0; dd < T_BK; ++dd) {
-        const float4 a0 =
-            *reinterpret_cast<const float4*>(s_A + dd * T_BM + ty * 8);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(s_A + dd * T_BM + ty * 8 + 4);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        float b[6];
-#pragma unroll
-        for (int j = 0; j < 6; ++j) b[j] = s_B[dd * T_BS + tx + 32 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-#pragma unroll
-          for (int j = 0; j < 6; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 6; ++j) s_F[(ty * 8 + i) * FS + tx + 32 * j] = acc[i][j];
+      df_slab_load(s_F, dout, m0, M, C, c0, tid);
+    } else {
+      df_slab_gemm(s_A, s_B, s_F, W, dout, m0, M, C, D, c0, tid);
     }
     __syncthreads();
 
@@ -338,7 +385,7 @@ int launch_dw(const float* gx, const int* idx, const void* table,
   return launch_sum_splits(ws, dW, splits, (size_t)NK * C * D, stream);
 }
 
-template <typename E>
+template <typename E, bool kWOff = false>
 int launch_dtable(const float* gx, const int* idx, const float* rk,
                   const float* k2, const void* W, const void* dout, float* dT,
                   int M, int p2, int nn, int q, int na, int C, int D,
@@ -346,13 +393,13 @@ int launch_dtable(const float* gx, const int* idx, const float* rk,
   const TSmem L = t_layout(na, nn);
   if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      inter_dtable_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
+      inter_dtable_kernel<E, kWOff>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
-  inter_dtable_kernel<E><<<(M + T_BM - 1) / T_BM, T_THREADS, L.total,
-                           stream>>>(gx, idx, rk, k2, (const E*)W,
-                                     (const E*)dout, dT, M, p2, nn, q, na, C,
-                                     D, 1.f / sigma);
+  inter_dtable_kernel<E, kWOff><<<(M + T_BM - 1) / T_BM, T_THREADS, L.total,
+                                  stream>>>(gx, idx, rk, k2, (const E*)W,
+                                            (const E*)dout, dT, M, p2, nn, q,
+                                            na, C, D, 1.f / sigma);
   return (int)cudaGetLastError();
 }
 
@@ -396,6 +443,21 @@ extern "C" int epn_inter_conv_bwd_table(const void* gx, const void* idx,
   }
   return launch_dtable<float>(g, ix, r, kk, W, dout, (float*)dT, M, p2, nn, q,
                               na, C, D, sigma, s);
+}
+
+// W-off mode of dTable: gx, idx, rk, k2 as above, dF [b, p2, na, K, C]
+// fp32; dT [b, q, na, C] fp32 must hold zeros. K must be 24, C a multiple
+// of 8.
+extern "C" int epn_inter_conv_dg(const void* gx, const void* idx,
+                                 const void* rk, const void* k2,
+                                 const void* dF, void* dT, int b, int p2,
+                                 int nn, int q, int na, int K, int C,
+                                 float sigma, void* stream) {
+  if (K != NK || C % CC != 0 || nn < 1) return (int)cudaErrorInvalidValue;
+  return launch_dtable<float, true>(
+      (const float*)gx, (const int*)idx, (const float*)rk, (const float*)k2,
+      nullptr, dF, (float*)dT, b * p2 * na, p2, nn, q, na, C, 0, sigma,
+      (cudaStream_t)stream);
 }
 
 // gx, idx, rk, k2 as above, table [b, q, na, C] and dout [b, p2, na, D]

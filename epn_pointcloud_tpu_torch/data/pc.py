@@ -1,5 +1,5 @@
-"""Host-side point-cloud utilities the ModelNet40 loader needs (counterpart
-of part of ``epn_pointcloud_tpu/data/pc.py``)."""
+"""Host-side point-cloud utilities the ModelNet40 and 3DMatch loaders need
+(counterpart of part of ``epn_pointcloud_tpu/data/pc.py``)."""
 
 from __future__ import annotations
 
@@ -48,3 +48,15 @@ def rotate_point_cloud(data, R, rng: np.random.RandomState):
         rotation_matrix = R[:3, :3]
     rotated = (rotation_matrix @ data.reshape(-1, 3).T).T
     return rotated, rotation_matrix
+
+
+def voxel_downsample_np(pc: np.ndarray, voxel_size: float) -> np.ndarray:
+    """Voxel-grid downsample: the centroid of each occupied voxel, voxels in
+    the order of their integer keys (the JAX package's numpy path; its
+    compiled host op orders and sums differently)."""
+    keys = np.floor(pc / voxel_size).astype(np.int64)
+    _, inv, counts = np.unique(keys, axis=0, return_inverse=True,
+                               return_counts=True)
+    sums = np.zeros((counts.shape[0], 3), dtype=np.float64)
+    np.add.at(sums, inv, pc)
+    return (sums / counts[:, None]).astype(pc.dtype)

@@ -1,12 +1,17 @@
-"""Model construction: ``build_model_from(opt)``. Only ``cls_so3net_pn`` is
-ported so far."""
+"""Model construction: ``build_model_from(opt)`` dispatches on
+``opt.model.model``: ``cls_so3net_pn`` (ModelNet40 classification) or
+``inv_so3net_pn`` (3DMatch descriptors)."""
 
-from . import cls_so3net_pn
+from . import cls_so3net_pn, inv_so3net_pn
 from .cls_so3net_pn import ClsSO3ConvModel  # noqa: F401
+from .inv_so3net_pn import InvSO3ConvModel  # noqa: F401
+
+BUILDERS = {'cls_so3net_pn': cls_so3net_pn.build_model,
+            'inv_so3net_pn': inv_so3net_pn.build_model}
 
 
 def build_model_from(opt, seed=0):
-    if opt.model.model != 'cls_so3net_pn':
+    if opt.model.model not in BUILDERS:
         raise KeyError(f'model {opt.model.model!r} is not ported '
-                       f'(cls_so3net_pn only)')
-    return cls_so3net_pn.build_model(opt, seed=seed)
+                       f'({", ".join(BUILDERS)})')
+    return BUILDERS[opt.model.model](opt, seed=seed)

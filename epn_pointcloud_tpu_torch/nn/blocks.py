@@ -1,5 +1,7 @@
 """Conv blocks (counterpart of ``epn_pointcloud_tpu/nn/blocks.py``), over
-[b, p, a, c] activations. In fp32, train and eval differ only in the
+[b, p, a, c] activations. The inter conv's and the skip's norm is the one
+the block parameters name: BatchNorm (cls) or, with no name, InstanceNorm
+(inv; no parameters). In fp32, train and eval differ only in the
 BatchNorms, through ``module.train()`` / ``.eval()``. In the bf16 production
 mode (``ops.so3conv.packed_enabled()``) a separable block runs the JAX
 packed path: the inter conv's BatchNorm and activation are deferred into the
@@ -23,12 +25,7 @@ from torch import nn
 from ..ops import sampling, so3conv
 from ..ops.so3conv import SphericalPointCloud
 from .layers import (BatchNorm, Dense1x1, InstanceNorm, InterSO3Conv,
-                     IntraSO3Conv, get_activation)
-
-
-def _check_norm(norm):
-    if norm not in ('BatchNorm2d', 'BatchNorm1d'):
-        raise NotImplementedError(f'norm {norm!r} is not ported')
+                     IntraSO3Conv, get_activation, make_norm)
 
 
 class IntraSO3ConvBlock(nn.Module):
@@ -53,7 +50,8 @@ class IntraSO3ConvBlock(nn.Module):
 
 
 class InterSO3ConvBlock(nn.Module):
-    """inter conv + BatchNorm + activation."""
+    """inter conv + norm (BatchNorm, or InstanceNorm when none is named) +
+    activation."""
 
     def __init__(self, dim_in, dim_out, kernel_size, stride, radius, sigma,
                  n_neighbor, kanchor=60, lazy_sample=None, norm=None,
@@ -61,12 +59,11 @@ class InterSO3ConvBlock(nn.Module):
         super().__init__()
         if pooling not in (None, 'none'):
             raise NotImplementedError(f'xyz pooling {pooling!r} is not ported')
-        _check_norm(norm)
         lazy = True if lazy_sample is None else lazy_sample
         self.conv = InterSO3Conv(dim_in, dim_out, kernel_size, stride, radius,
                                  sigma, n_neighbor, lazy_sample=lazy,
                                  kanchor=kanchor)
-        self.norm = BatchNorm(dim_out)
+        self.norm = make_norm(norm, dim_out)
         self.act = get_activation(activation)
 
     def forward(self, x: SphericalPointCloud, ones_input: bool = False,
@@ -84,7 +81,7 @@ class InterSO3ConvBlock(nn.Module):
 
 class SeparableSO3ConvBlock(nn.Module):
     """inter -> intra with a 1x1-conv skip connection (gathered through
-    sample_idx when strided), BatchNorm + activation, residual add."""
+    sample_idx when strided), norm + activation, residual add."""
 
     def __init__(self, args: Dict[str, Any]):
         super().__init__()
@@ -93,13 +90,12 @@ class SeparableSO3ConvBlock(nn.Module):
             raise NotImplementedError('separable blocks need kanchor 60')
         if p.get('dropout_rate', 0) > 0:
             raise NotImplementedError('dropout is not ported')
-        _check_norm(p.get('norm'))
         self.stride = p['stride']
         self.inter_conv = InterSO3ConvBlock(**p)
         self.intra_conv = IntraSO3ConvBlock(p['dim_out'], p['dim_out'],
                                             p['activation'])
         self.skip_conv = Dense1x1(p['dim_in'], p['dim_out'])
-        self.norm = BatchNorm(p['dim_out'])
+        self.norm = make_norm(p.get('norm'), p['dim_out'])
         self.act = get_activation(p['activation'])
 
     def forward(self, x: SphericalPointCloud, ones_input: bool = False):
@@ -124,7 +120,13 @@ class SeparableSO3ConvBlock(nn.Module):
 
     def _forward_packed(self, x: SphericalPointCloud, ones_input: bool):
         """The bf16 production-mode forward (``blocks.py:126-246`` of the
-        JAX package on packed activations; its fused tail is eval-only)."""
+        JAX package on packed activations; its fused tail is eval-only).
+        BatchNorm blocks only: the InstanceNorm folds of the inv model's
+        packed path are the bf16 inv slice, not ported."""
+        if not isinstance(self.norm, BatchNorm):
+            raise NotImplementedError('bf16 blocks with InstanceNorm '
+                                      '(inv_so3net_pn) are not ported: the '
+                                      'bf16 inv slice')
         skip = so3conv.at_use(x.feats)
         sample_idx, x, inter_ss = self.inter_conv(
             x, ones_input=ones_input, defer_norm_act=True)

@@ -1,5 +1,7 @@
-"""Classification head ``ClsOutBlockPointnet`` (counterpart of
-``epn_pointcloud_tpu/nn/heads.py:81-142``): 1x1 convs + BatchNorm + ReLU ->
+"""Output heads (counterpart of ``epn_pointcloud_tpu/nn/heads.py``).
+
+Classification head ``ClsOutBlockPointnet`` (``heads.py:81-142``): 1x1
+convs + BatchNorm + ReLU ->
 PointnetSO3Conv -> BatchNorm + ReLU -> attention pooling over anchors ->
 linear. Only the 'attention' pooling the ModelNet entry point uses is
 ported. In the bf16 production mode the mlp convs run the anchor-grouped
@@ -8,6 +10,10 @@ ported. In the bf16 production mode the mlp convs run the anchor-grouped
 from the moments kernel (``heads.py:101-110``); the pointnet,
 attention and logits are fp32 in both modes (``heads.py:101-142`` of the
 JAX package).
+
+3DMatch descriptor head ``InvOutBlockMVD`` (``heads.py:214-241``, fp32):
+anchor attention, the attention-weighted anchor sum, a single-anchor
+PointNet and an L2 normalization.
 """
 
 from __future__ import annotations
@@ -56,3 +62,25 @@ class ClsOutBlockPointnet(nn.Module):
         conf = torch.softmax(att * self.temperature, dim=1)
         logits = self.fc2((x_out * conf).sum(dim=1))
         return logits, att.squeeze(-1)
+
+
+class InvOutBlockMVD(nn.Module):
+    """SphericalPointCloud -> (descriptor [b, c_out] of unit length,
+    attention [b, p, a, c]): Dense1x1 -> ReLU -> Dense1x1 scores, softmax
+    over the anchors, the weighted anchor sum [b, p, 1, c], PointnetSO3Conv
+    on that one anchor, and an L2 normalization with a 1e-12 floor."""
+
+    def __init__(self, params: Dict[str, Any]):
+        super().__init__()
+        c_in, c_out = params['dim_in'], params['mlp'][-1]
+        self.attention_layer = nn.Sequential(
+            Dense1x1(c_in, c_in), nn.ReLU(), Dense1x1(c_in, c_in))
+        self.pointnet = PointnetSO3Conv(c_in, c_out, params['kanchor'])
+
+    def forward(self, x: SphericalPointCloud):
+        attn = torch.softmax(self.attention_layer(x.feats), dim=2)
+        x_out = (x.feats * attn).sum(dim=2, keepdim=True)     # [b, p, 1, c]
+        x_out = self.pointnet(SphericalPointCloud(x.xyz, x_out, None))
+        x_out = x_out.reshape(x_out.shape[0], -1)
+        return (x_out / x_out.norm(dim=1, keepdim=True).clamp(min=1e-12),
+                attn)

@@ -209,6 +209,17 @@ class BatchNorm(nn.Module):
         return torch.stack([scale, shift]).repeat(1, groups)[None]
 
 
+def make_norm(norm, c: int) -> nn.Module:
+    """The norm a block names over c channels: None (the inv model's blocks)
+    or 'InstanceNorm2d' -> InstanceNorm, 'BatchNorm2d' / 'BatchNorm1d' ->
+    BatchNorm (JAX ``nn/layers.py:406-413``)."""
+    if norm is None or norm == 'InstanceNorm2d':
+        return InstanceNorm()
+    if norm in ('BatchNorm2d', 'BatchNorm1d'):
+        return BatchNorm(c)
+    raise ValueError(f'unsupported norm {norm}')
+
+
 class BasicSO3Conv(nn.Module):
     """The learned SO(3) conv weight, stored as the original [d, c*k]."""
 
@@ -286,7 +297,9 @@ class IntraSO3Conv(nn.Module):
 
 class PointnetSO3Conv(nn.Module):
     """Equivariant PointNet: concat per-anchor rotated coordinates, 1x1
-    conv, max over points. -> [b, a, c_out]."""
+    conv, max over points. -> [b, a, c_out]. A single-anchor input (the inv
+    head's attention-pooled field) takes the centered coordinates unrotated
+    (JAX ``nn/layers.py:626-628``)."""
 
     def __init__(self, dim_in: int, dim_out: int, kanchor: int = 60):
         super().__init__()
@@ -295,7 +308,10 @@ class PointnetSO3Conv(nn.Module):
         self.embed = Dense1x1(dim_in + 3, dim_out)
 
     def forward(self, x: SphericalPointCloud) -> torch.Tensor:
-        xyzr = so3conv.pointnet_so3_coords(x.xyz, self.anchors)
+        if x.feats.shape[2] == 1:
+            xyzr = (x.xyz - x.xyz.mean(dim=1, keepdim=True))[:, :, None, :]
+        else:
+            xyzr = so3conv.pointnet_so3_coords(x.xyz, self.anchors)
         # fp32 from here on in both modes (the JAX concat promotes bf16)
         feats = self.embed(torch.cat([widen(x.feats), xyzr], dim=-1))
         return feats.max(dim=1).values

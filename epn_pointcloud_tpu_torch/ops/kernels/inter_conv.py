@@ -16,6 +16,15 @@ with T's shadow index (== q) reading a zero row, and its gradients
   dF[b, p, a, k, c] = sum_d dout[b, p, a, d] W[k, c, d]
   dW[k, c, d] = sum_{b, p, a} F[b, p, a, k, c] dout[b, p, a, d].
 
+The W-off kernels replace ``_call_gather`` -> ``_fwd_gather_kernel`` and
+``_call`` -> ``_fwd_kernel`` (F without W: ``fused_gather_neighbor_conv``,
+``fused_neighbor_conv``) and ``_call`` -> ``_bwd_kernel`` with the one-hot
+fold after it (dG onto the table rows): ``inter_conv_f`` writes F
+[b, p, a, k, c] and ``inter_conv_dg`` scatters sum_k w dF onto the table.
+``InterConvFn``'s backward runs them where ``_fgcw_bwd`` composes its
+backward from them (``composed_backward``), with dF and dW as torch
+matmuls, as the JAX package leaves those to XLA.
+
 The plain versions are anchor-chunked fp32 formulations (the forward that of
 ``epn_pointcloud_tpu/ops/so3conv.py`` ``inter_so3conv_fused``, XLA path), so
 no [b, p, n, na, *] tensor for all anchors exists at once.
@@ -42,6 +51,10 @@ ENTRIES = {
                           'epn_pointcloud_tpu/ops/pallas/inter_conv.py:1070'),
     'inter_conv_dw': ('inter_conv_dw_plain', BWD_SOURCE,
                       'epn_pointcloud_tpu/ops/pallas/inter_conv.py:1272'),
+    'inter_conv_f': ('inter_conv_f_plain', SOURCE,
+                     'epn_pointcloud_tpu/ops/pallas/inter_conv.py:622'),
+    'inter_conv_dg': ('inter_conv_dg_plain', BWD_SOURCE,
+                      'epn_pointcloud_tpu/ops/pallas/inter_conv.py:559'),
 }
 launches = dict.fromkeys(ENTRIES, 0)
 
@@ -50,6 +63,9 @@ launches = dict.fromkeys(ENTRIES, 0)
 ANCHOR_CHUNK = 10
 # the backward kernels are written for the model's 24 kernel points
 N_KERNEL = 24
+# the W-off kernels' envelope (the inv model's composed layers): channels
+# and neighbors up to, and the anchors of the icosahedral group
+WOFF_MAX_C, WOFF_MAX_NN, WOFF_NA = 128, 64, 60
 
 
 def anchor_weights(gx: torch.Tensor, rk: torch.Tensor, k2: torch.Tensor,
@@ -68,28 +84,54 @@ def _gather_chunk(table: torch.Tensor, idx: torch.Tensor, s: int, e: int):
     return table[:, :, s:e][bi, idx]
 
 
+def _f_chunks(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
+              rk: torch.Tensor, k2: torch.Tensor, sigma: float):
+    """(s, e, F [b, p2, e - s, K, c]) for each anchor chunk [s, e): the
+    neighbor contraction in fp32 over the shadow-padded table."""
+    b = idx.shape[0]
+    na, c = table.shape[2], table.shape[3]
+    table = build.widen(table)
+    table = torch.cat([table, table.new_zeros(b, 1, na, c)], dim=1)
+    idx = idx.long()
+    for s in range(0, na, ANCHOR_CHUNK):
+        e = min(s + ANCHOR_CHUNK, na)
+        w = anchor_weights(gx, rk[s:e], k2, sigma)          # [b,p,n,ac,K]
+        G = _gather_chunk(table, idx, s, e)                  # [b,p,n,ac,c]
+        yield s, e, torch.einsum('bpnak,bpnac->bpakc', w, G)
+
+
+def _scatter_rows(gx: torch.Tensor, idx: torch.Tensor, q: int,
+                  rk: torch.Tensor, k2: torch.Tensor, dF_chunk, c: int,
+                  sigma: float) -> torch.Tensor:
+    """dT [b, q, na, c] fp32: each neighbor slot's sum_k w dF scattered onto
+    its table row (the shadow row dropped); dF_chunk(s, e) gives dF
+    [b, p2, e - s, K, c] of anchors [s, e)."""
+    b, p2, nn = idx.shape
+    na = rk.shape[0]
+    # flat row of (b, idx) in the shadow-padded [b * (q + 1)] table
+    rows = (idx.long() + (q + 1) * torch.arange(
+        b, device=idx.device)[:, None, None]).reshape(-1)
+    dT = gx.new_zeros(b * (q + 1), na, c)
+    for s in range(0, na, ANCHOR_CHUNK):
+        e = min(s + ANCHOR_CHUNK, na)
+        w = anchor_weights(gx, rk[s:e], k2, sigma)          # [b,p,n,ac,K]
+        g = torch.einsum('bpnak,bpakc->bpnac', w, dF_chunk(s, e))
+        dT[:, s:e] = dT[:, s:e].index_add(0, rows, g.reshape(-1, e - s, c))
+    return dT.reshape(b, q + 1, na, c)[:, :q]
+
+
 def inter_conv_plain(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
                      rk: torch.Tensor, k2: torch.Tensor, W: torch.Tensor,
                      sigma: float) -> torch.Tensor:
     """gx [b, p2, nn, 3], idx [b, p2, nn] in [0, q], table [b, q, na, c],
     rk [na, K, 3], k2 [K], W [K, c, d] -> out [b, p2, na, d] (fp32
     arithmetic, rounded to the table's type)."""
-    b, p2, nn = idx.shape
-    na, c = table.shape[2], table.shape[3]
-    K, d = W.shape[0], W.shape[2]
-    dtype = table.dtype
-    table = build.widen(table)
-    table = torch.cat([table, table.new_zeros(b, 1, na, c)], dim=1)
-    idx = idx.long()
+    b, p2, _ = idx.shape
+    K, c, d = W.shape
     W2 = build.widen(W).reshape(K * c, d)
-    outs = []
-    for s in range(0, na, ANCHOR_CHUNK):
-        e = min(s + ANCHOR_CHUNK, na)
-        w = anchor_weights(gx, rk[s:e], k2, sigma)          # [b,p,n,ac,K]
-        G = _gather_chunk(table, idx, s, e)                  # [b,p,n,ac,c]
-        F = torch.einsum('bpnak,bpnac->bpakc', w, G)
-        outs.append((F.reshape(-1, K * c) @ W2).reshape(b, p2, e - s, d))
-    return torch.cat(outs, dim=2).to(dtype)
+    outs = [(F.reshape(-1, K * c) @ W2).reshape(b, p2, e - s, d)
+            for s, e, F in _f_chunks(gx, idx, table, rk, k2, sigma)]
+    return torch.cat(outs, dim=2).to(table.dtype)
 
 
 def inter_conv_dtable_plain(gx: torch.Tensor, idx: torch.Tensor, q: int,
@@ -99,19 +141,10 @@ def inter_conv_dtable_plain(gx: torch.Tensor, idx: torch.Tensor, q: int,
     """dT [b, q, na, c] fp32 from dout [b, p2, na, d]: each neighbor slot's
     sum_k w dF scattered onto its table row (the shadow row dropped)."""
     dout, W = build.widen(dout), build.widen(W)
-    b, p2, nn = idx.shape
-    na, c = rk.shape[0], W.shape[1]
-    # flat row of (b, idx) in the shadow-padded [b * (q + 1)] table
-    rows = (idx.long() + (q + 1) * torch.arange(
-        b, device=idx.device)[:, None, None]).reshape(-1)
-    dT = dout.new_zeros(b * (q + 1), na, c)
-    for s in range(0, na, ANCHOR_CHUNK):
-        e = min(s + ANCHOR_CHUNK, na)
-        w = anchor_weights(gx, rk[s:e], k2, sigma)          # [b,p,n,ac,K]
-        dF = torch.einsum('bpad,kcd->bpakc', dout[:, :, s:e], W)
-        g = torch.einsum('bpnak,bpakc->bpnac', w, dF)
-        dT[:, s:e] = dT[:, s:e].index_add(0, rows, g.reshape(-1, e - s, c))
-    return dT.reshape(b, q + 1, na, c)[:, :q]
+    return _scatter_rows(
+        gx, idx, q, rk, k2,
+        lambda s, e: torch.einsum('bpad,kcd->bpakc', dout[:, :, s:e], W),
+        W.shape[1], sigma)
 
 
 def inter_conv_dw_plain(gx: torch.Tensor, idx: torch.Tensor,
@@ -119,19 +152,30 @@ def inter_conv_dw_plain(gx: torch.Tensor, idx: torch.Tensor,
                         k2: torch.Tensor, dout: torch.Tensor,
                         sigma: float) -> torch.Tensor:
     """dW [K, c, d] fp32 = sum over (b, p, a) of F^T dout."""
-    table, dout = build.widen(table), build.widen(dout)
-    b, _, _ = idx.shape
-    na, c = table.shape[2], table.shape[3]
-    table = torch.cat([table, table.new_zeros(b, 1, na, c)], dim=1)
-    idx = idx.long()
-    dW = dout.new_zeros(rk.shape[1], c, dout.shape[-1])
-    for s in range(0, na, ANCHOR_CHUNK):
-        e = min(s + ANCHOR_CHUNK, na)
-        w = anchor_weights(gx, rk[s:e], k2, sigma)
-        G = _gather_chunk(table, idx, s, e)
-        F = torch.einsum('bpnak,bpnac->bpakc', w, G)
+    dout = build.widen(dout)
+    dW = dout.new_zeros(rk.shape[1], table.shape[3], dout.shape[-1])
+    for s, e, F in _f_chunks(gx, idx, table, rk, k2, sigma):
         dW += torch.einsum('bpakc,bpad->kcd', F, dout[:, :, s:e])
     return dW
+
+
+def inter_conv_f_plain(gx: torch.Tensor, idx: torch.Tensor,
+                       table: torch.Tensor, rk: torch.Tensor,
+                       k2: torch.Tensor, sigma: float) -> torch.Tensor:
+    """W-off forward: F [b, p2, na, K, c] fp32 (the layout makes dW one
+    [K*c, b*p2*na] x [b*p2*na, d] product)."""
+    return torch.cat([F for _, _, F in _f_chunks(gx, idx, table, rk, k2,
+                                                  sigma)], dim=2)
+
+
+def inter_conv_dg_plain(gx: torch.Tensor, idx: torch.Tensor, q: int,
+                        rk: torch.Tensor, k2: torch.Tensor, dF: torch.Tensor,
+                        sigma: float) -> torch.Tensor:
+    """W-off backward: dT [b, q, na, c] fp32 from dF [b, p2, na, K, c], the
+    index_add of sum_k w dF over the shadow-padded rows."""
+    dF = build.widen(dF)
+    return _scatter_rows(gx, idx, q, rk, k2, lambda s, e: dF[:, :, s:e],
+                         dF.shape[-1], sigma)
 
 
 def _check(kernel, gx, idx, table_shape, rk, k2, W_shape, dout=None,
@@ -238,10 +282,92 @@ def inter_conv_dw(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
     return dW
 
 
+def _check_woff(kernel, gx, idx, table_shape, rk, k2, F=None, table=None):
+    """Checks of the W-off kernels (fp32 operands, K == 24, c % 8 == 0 up to
+    WOFF_MAX_C, 1 <= nn <= WOFF_MAX_NN, na == WOFF_NA); returns (b, p2, nn,
+    q, na, K, c)."""
+    dev = gx.device
+    if dev.type != 'cuda':
+        raise ValueError(f'{kernel}: unsupported device {dev}')
+    b, q, na, c = table_shape
+    _, p2, nn = idx.shape
+    K = rk.shape[1]
+    want = {'gx': (gx, torch.float32, (b, p2, nn, 3)),
+            'idx': (idx, torch.int32, (b, p2, nn)),
+            'rk': (rk, torch.float32, (na, K, 3)),
+            'k2': (k2, torch.float32, (K,))}
+    if table is not None:
+        want['table'] = (table, torch.float32, (b, q, na, c))
+    if F is not None:
+        want['dF'] = (F, torch.float32, (b, p2, na, K, c))
+    build.check_operands(kernel, dev, want)
+    if (K != N_KERNEL or c % 8 != 0 or not 8 <= c <= WOFF_MAX_C
+            or not 1 <= nn <= WOFF_MAX_NN or na != WOFF_NA
+            or b * p2 * na >= 2 ** 31):
+        raise ValueError(f'{kernel}: kernel needs K == {N_KERNEL}, c % 8 == 0 '
+                         f'and c <= {WOFF_MAX_C}, 1 <= nn <= {WOFF_MAX_NN}, '
+                         f'na == {WOFF_NA} and b*p2*na < 2^31; got b={b} '
+                         f'p2={p2} na={na} nn={nn} K={K} c={c}')
+    return b, p2, nn, q, na, K, c
+
+
+def inter_conv_f(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
+                 rk: torch.Tensor, k2: torch.Tensor,
+                 sigma: float) -> torch.Tensor:
+    """W-off forward wrapper -> F [b, p2, na, K, c] fp32: plain version on
+    the CPU, CUDA kernel on the card (fp32 only)."""
+    if table.device.type == 'cpu':
+        return inter_conv_f_plain(gx, idx, table, rk, k2, sigma)
+    b, p2, nn, q, na, K, c = _check_woff('inter_conv_f', gx, idx, table.shape,
+                                         rk, k2, table=table)
+    F = torch.empty((b, p2, na, K, c), dtype=torch.float32, device=gx.device)
+    launches['inter_conv_f'] += 1
+    build.launch('epn_inter_conv_f', gx.data_ptr(), idx.data_ptr(),
+                 table.data_ptr(), rk.data_ptr(), k2.data_ptr(), F.data_ptr(),
+                 b, p2, nn, q, na, K, c, float(sigma), build.stream(table))
+    return F
+
+
+def inter_conv_dg(gx: torch.Tensor, idx: torch.Tensor, q: int,
+                  rk: torch.Tensor, k2: torch.Tensor, dF: torch.Tensor,
+                  sigma: float) -> torch.Tensor:
+    """W-off backward wrapper -> fp32 dT [b, q, na, c] from dF
+    [b, p2, na, K, c]: plain version on the CPU, CUDA kernel on the card
+    (fp32 only). Its atomics make dT's last-bit rounding vary between runs."""
+    if dF.device.type == 'cpu':
+        return inter_conv_dg_plain(gx, idx, q, rk, k2, dF, sigma)
+    shape = (idx.shape[0], q, rk.shape[0], dF.shape[-1])
+    b, p2, nn, q, na, K, c = _check_woff('inter_conv_dg', gx, idx, shape, rk,
+                                         k2, F=dF)
+    dT = torch.zeros(shape, dtype=torch.float32, device=dF.device)
+    launches['inter_conv_dg'] += 1
+    build.launch('epn_inter_conv_dg', gx.data_ptr(), idx.data_ptr(),
+                 rk.data_ptr(), k2.data_ptr(), dF.data_ptr(), dT.data_ptr(),
+                 b, p2, nn, q, na, K, c, float(sigma), build.stream(dF))
+    return dT
+
+
+def composed_backward(c: int, nn: int) -> bool:
+    """Whether ``InterConvFn`` takes the composed backward, exactly where
+    ``epn_pointcloud_tpu/ops/pallas/inter_conv.py`` ``_fgcw_bwd:1675`` does:
+    it keeps its fused backward only for c > 32 and tp > 2, with tp = 128 /
+    nt and nt the least power of two >= max(16, nn); so c <= 32 or nn > 32
+    composes."""
+    return c <= 32 or nn > 32
+
+
 class InterConvFn(torch.autograd.Function):
     """The W-fused inter conv with its hand-written backward (the
     ``fused_gather_conv_w`` custom VJP). Gradients flow to the table and W
-    only: gx, idx, rk, k2 and sigma get none, as the JAX VJP zeroes them."""
+    only: gx, idx, rk, k2 and sigma get none, as the JAX VJP zeroes them.
+
+    The backward takes ``_fgcw_bwd``'s two routes: the fused dTable / dW
+    kernels, or, where ``composed_backward`` holds, its composition
+    (``_fgcw_bwd:1685-1703``): dF = dout W^T, dT by the W-off scatter, F
+    recomputed by the W-off forward (not saved from the forward, as in the
+    JAX package) and dW = F^T dout. The W-off kernels are fp32 only, so a
+    bf16 table keeps the fused route at every layer (no full-width cls
+    layer composes; bf16 inv is not ported)."""
 
     @staticmethod
     def forward(ctx, gx, idx, table, rk, k2, W, sigma):
@@ -253,10 +379,26 @@ class InterConvFn(torch.autograd.Function):
     def backward(ctx, dout):
         gx, idx, table, rk, k2, W = ctx.saved_tensors
         dout = dout.contiguous()
+        q, sigma = table.shape[1], ctx.sigma
+        K, c, d = W.shape
+        composed = (composed_backward(c, idx.shape[2])
+                    and table.dtype != torch.bfloat16)
         dT = dW = None
         if ctx.needs_input_grad[2]:
-            dT = inter_conv_dtable(gx, idx, table.shape[1], rk, k2, W, dout,
-                                   ctx.sigma).to(table.dtype)
+            if composed:
+                dF = torch.matmul(dout.reshape(-1, d),
+                                  W.reshape(K * c, d).t())
+                dT = inter_conv_dg(gx, idx, q, rk, k2,
+                                   dF.reshape(dout.shape[:3] + (K, c)), sigma)
+                del dF
+            else:
+                dT = inter_conv_dtable(gx, idx, q, rk, k2, W, dout, sigma)
+            dT = dT.to(table.dtype)
         if ctx.needs_input_grad[5]:
-            dW = inter_conv_dw(gx, idx, table, rk, k2, dout, ctx.sigma)
+            if composed:
+                F = inter_conv_f(gx, idx, table, rk, k2, sigma)
+                dW = torch.matmul(F.reshape(-1, K * c).t(),
+                                  dout.reshape(-1, d)).reshape(K, c, d)
+            else:
+                dW = inter_conv_dw(gx, idx, table, rk, k2, dout, sigma)
         return None, None, dT, None, None, dW, None

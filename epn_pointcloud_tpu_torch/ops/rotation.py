@@ -1,12 +1,26 @@
 """Host-side (numpy) rotation utilities used by the data loaders.
 
 Counterpart of the part of ``epn_pointcloud_tpu/ops/rotation.py`` that the
-ModelNet40 test loader calls.
+ModelNet40 test loader and the synthetic 3DMatch tree call.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def rand_rotation_matrix(rng: np.random.RandomState) -> np.ndarray:
+    """Uniform random rotation by Arvo's method from three numbers drawn
+    from ``rng``."""
+    theta, phi, z = rng.uniform(size=(3,))
+    theta = theta * 2.0 * np.pi
+    phi = phi * 2.0 * np.pi
+    z = z * 2.0
+    r = np.sqrt(z)
+    V = np.array([np.sin(phi) * r, np.cos(phi) * r, np.sqrt(2.0 - z)])
+    st, ct = np.sin(theta), np.cos(theta)
+    R = np.array(((ct, st, 0), (-st, ct, 0), (0, 0, 1)))
+    return (np.outer(V, V) - np.eye(3)).dot(R)
 
 
 def R_from_euler_np(angles: np.ndarray) -> np.ndarray:

@@ -1,20 +1,25 @@
-"""Device-time profile of the cls_so3net_pn eval forward, or of one train
-step, on the card.
+"""Device-time profile of the eval forward, or of one train step, on the
+card: cls_so3net_pn (ModelNet40) or inv_so3net_pn (3DMatch descriptors).
 
   python -m epn_pointcloud_tpu_torch.profile_forward [--dtype fp32 bf16] [-b 32]
   python -m epn_pointcloud_tpu_torch.profile_forward --train [--dtype bf16] \
       [-b 12]
+  python -m epn_pointcloud_tpu_torch.profile_forward --model inv_so3net_pn \
+      --train [-b 16]
 
 Builds the seeded full-width model (1024 points, 60 anchors, random weights)
-on a synthetic cloud batch, runs two warm forwards (or train steps: forward,
-attention-CE loss, backward, Adam) in each compute dtype, then profiles one
-with ``torch.profiler`` (CPU and CUDA activities). Prints, per dtype, the
-device time by kernel group, the kernel launches, the host wall of the
-profiled run (ending in a synchronize) and the device's idle share (1 -
-device busy / wall; one stream, so busy is the sum of kernel times), plus
-the ten longest kernels. Writes the tables to
-``chiprun_out/profile_forward.json`` (``profile_train.json`` with --train)
-in the checkout. Needs a CUDA device.
+on a synthetic cloud batch, runs two warm forwards (or train steps) in each
+compute dtype, then profiles one with ``torch.profiler`` (CPU and CUDA
+activities). A cls train step is a forward, the attention CE loss, the
+backward and Adam; an inv train step (fp32 only) is the 3DMatch triplet
+step: two legs of b patches (normalized synthetic shapes scaled to the 0.4
+search radius), the soft triplet loss, the backward and Adam. Prints, per
+dtype, the device time by kernel group, the kernel launches, the host wall
+of the profiled run (ending in a synchronize) and the device's idle share
+(1 - device busy / wall; one stream, so busy is the sum of kernel times),
+plus the ten longest kernels. Writes the tables to
+``chiprun_out/profile_<forward|train>[_inv].json`` in the checkout. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -35,8 +40,11 @@ from .models import build_model_from
 from .ops import so3conv
 from .train import make_optimizer
 
-# kernel-name substrings -> group (first match wins)
-GROUPS = (('inter_conv_kernel', 'inter conv kernel'),
+# kernel-name substrings (all of them) -> group (first match wins); the
+# W-off modes are the inter kernels' instantiations with kWOff = true
+GROUPS = ((('inter_conv_kernel', 'true>'), 'inter F (W-off) kernel'),
+          (('inter_dtable_kernel', 'true>'), 'inter dG (W-off) kernel'),
+          ('inter_conv_kernel', 'inter conv kernel'),
           ('inter_dtable_kernel', 'inter dTable kernel'),
           ('inter_dw_kernel', 'inter dW kernel'),
           ('intra_conv_kernel', 'intra conv kernel (and fp32 df)'),
@@ -56,7 +64,9 @@ GROUPS = (('inter_conv_kernel', 'inter conv kernel'),
 
 
 def _group(name: str) -> str:
-    return next((g for key, g in GROUPS if key in name), 'other')
+    return next((g for key, g in GROUPS
+                 if all(k in name for k in ((key,) if isinstance(key, str)
+                                            else key))), 'other')
 
 
 def _device_us(evt) -> float:
@@ -80,6 +90,19 @@ def train_step(model, x, opt, seed):
         pred, feat = model(x)
         losses.attention_cross_entropy(pred, label, feat, rlabel, 'default',
                                        1.0)[0].backward()
+        opt.step()
+    return step
+
+
+def inv_train_step(model, x, opt):
+    """One 3DMatch triplet step: a model call a leg (x's two halves), the
+    soft triplet loss (margin 1), backward, Adam."""
+    src, tgt = x.chunk(2)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        losses.triplet_batch_loss(model(src)[0], model(tgt)[0], 'soft',
+                                  1.0)[0].backward()
         opt.step()
     return step
 
@@ -124,40 +147,52 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--dtype', nargs='+', default=['fp32', 'bf16'],
                     choices=['fp32', 'bf16'])
+    ap.add_argument('--model', default='cls_so3net_pn',
+                    choices=['cls_so3net_pn', 'inv_so3net_pn'])
     ap.add_argument('-b', '--batch', type=int, default=None,
                     help='clouds a batch (default 32; 12 with --train, the '
-                         'entry point\'s training batch)')
+                         'entry point\'s training batch; inv: patches a '
+                         'leg, default 16)')
     ap.add_argument('--train', action='store_true',
                     help='profile one train step instead of a forward')
     ap.add_argument('--seed', type=int, default=2913)
     args = ap.parse_args(argv)
+    inv = args.model == 'inv_so3net_pn'
     if args.batch is None:
-        args.batch = 12 if args.train else 32
+        args.batch = 16 if inv else 12 if args.train else 32
+    if inv:
+        args.dtype = ['fp32']       # bf16 inv is not ported
     if not torch.cuda.is_available():
         raise SystemExit('profile_forward: needs a CUDA device')
     trainer.set_fp32_parity()
     dev = torch.device('cuda')
     opt = config.parse_args(['experiment', '-d', 'unused'])
-    opt.model.model, opt.model.flag = 'cls_so3net_pn', 'attention'
+    opt.model.model, opt.model.flag = args.model, 'attention'
     model = build_model_from(opt, seed=args.seed).to(dev)
     model.train(args.train)
     rng = np.random.RandomState(args.seed)
+    n_clouds = 2 * args.batch if inv and args.train else args.batch
     x = np.stack([pctk.normalize_np(synthetic.make_shape(rng, 1024, i % 8).T).T
-                  for i in range(args.batch)]).astype(np.float32)
+                  for i in range(n_clouds)]).astype(np.float32)
+    if inv:
+        x *= opt.model.search_radius
     x = torch.from_numpy(x).to(dev)
     card = torch.cuda.get_device_name(0)
     what = 'train step' if args.train else 'forward'
-    out = {'card': card, 'batch': args.batch, 'what': what, 'profiles': []}
+    out = {'card': card, 'model': args.model, 'batch': args.batch,
+           'what': what, 'profiles': []}
     for dtype in args.dtype:
         step = None
         if args.train:
-            step = train_step(model, x, make_optimizer(model.parameters(),
-                                                       1e-3), args.seed)
+            adam = make_optimizer(model.parameters(), 1e-3)
+            step = (inv_train_step(model, x, adam) if inv else
+                    train_step(model, x, adam, args.seed))
         r = profile(model, x, dtype, step)
         out['profiles'].append(r)
-        print(f'[profile] {card} b={args.batch} {dtype} {what}: device '
-              f'{r["device_ms"]:.2f} ms in {r["launches"]} launches, wall '
-              f'{r["wall_ms"]:.2f} ms, idle share {100 * r["idle_share"]:.1f}%')
+        print(f'[profile] {card} {args.model} b={args.batch} {dtype} {what}: '
+              f'device {r["device_ms"]:.2f} ms in {r["launches"]} launches, '
+              f'wall {r["wall_ms"]:.2f} ms, idle share '
+              f'{100 * r["idle_share"]:.1f}%')
         for g, v in r['groups'].items():
             print(f'  {g:40s} {v["ms"]:9.3f} ms '
                   f'{100 * v["ms"] / r["device_ms"]:5.1f}% '
@@ -167,7 +202,8 @@ def main(argv=None):
     out_dir = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
-    name = 'profile_train.json' if args.train else 'profile_forward.json'
+    name = (f'profile_{"train" if args.train else "forward"}'
+            f'{"_inv" if inv else ""}.json')
     with open(os.path.join(out_dir, name), 'w') as f:
         json.dump(out, f, indent=1)
     return out

@@ -546,3 +546,98 @@ def test_bf16_train_step_launches_the_kernels(cuda):
         assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                    for p in m.parameters())
     assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+
+
+# ------------------------------------------------------- W-off inter conv
+
+# (b, p1, stride, nn, c, d): the inv model's composed-route layers B0L1,
+# B1L0, B2L0 and B3L0 at b=4 (the port's own layout F [b, p2, na, K, c])
+WOFF_SHAPES = [(4, 512, 1, 32, 32, 32), (4, 512, 2, 64, 32, 64),
+               (4, 256, 2, 64, 64, 128), (4, 128, 2, 64, 128, 128)]
+
+
+@pytest.mark.parametrize('b,p1,stride,nn,c,d', WOFF_SHAPES)
+def test_woff_kernels_match_plain(cuda, b, p1, stride, nn, c, d):
+    """inter_conv_f (F, normwise <= 1e-5 and the forward's elementwise
+    bound) and inter_conv_dg (dT by atomics, normwise <= 1e-5) against
+    their plain versions."""
+    gx, idx, f, rk, k2, _, _ = _inter_operands(cuda, b, p1, stride, nn, c, d)
+    ic = tkern.inter_conv
+    rng = np.random.RandomState(nn + c)
+    dF = _rand(rng, (b, idx.shape[1], 60, 24, c), cuda)
+    F = ic.inter_conv_f(gx, idx, f, rk, k2, 0.08)
+    dT = ic.inter_conv_dg(gx, idx, p1, rk, k2, dF, 0.08)
+    torch.cuda.synchronize()
+    assert F.shape == (b, idx.shape[1], 60, 24, c) and dT.shape == f.shape
+    _conv_close(F, ic.inter_conv_f_plain(gx, idx, f, rk, k2, 0.08), nn)
+    assert _rel(dT, ic.inter_conv_dg_plain(gx, idx, p1, rk, k2, dF,
+                                           0.08)) <= 1e-5
+
+
+def test_woff_kernels_handle_the_shadow_index(cuda):
+    """Slots holding the shadow index q read a zero row (F) and add nothing
+    (dT)."""
+    rng = np.random.RandomState(9)
+    b, p2, nn, q, c = 2, 30, 64, 50, 32
+    gx = _rand(rng, (b, p2, nn, 3), cuda, scale=0.2)
+    idx = torch.from_numpy(rng.randint(0, q + 1, (b, p2, nn)).astype(
+        np.int32)).to(cuda)
+    idx[:, :, ::3] = q
+    f = _rand(rng, (b, q, 60, c), cuda)
+    kern = torch.from_numpy(tkp.get_spherical_kernel_points(0.28, 1)).to(cuda)
+    rk, k2 = tso3.rotated_kernels(torch.from_numpy(tico.get_anchors(60))
+                                  .to(cuda), kern)
+    dF = _rand(rng, (b, p2, 60, 24, c), cuda)
+    ic = tkern.inter_conv
+    F = ic.inter_conv_f(gx, idx, f, rk, k2, 0.08)
+    dT = ic.inter_conv_dg(gx, idx, q, rk, k2, dF, 0.08)
+    torch.cuda.synchronize()
+    _conv_close(F, ic.inter_conv_f_plain(gx, idx, f, rk, k2, 0.08), nn)
+    assert _rel(dT, ic.inter_conv_dg_plain(gx, idx, q, rk, k2, dF,
+                                           0.08)) <= 1e-5
+
+
+def test_composed_route_matches_plain_autograd(cuda):
+    """InterConvFn at a composed-route layer (c = 32) launches the W-fused
+    forward, inter_conv_dg and inter_conv_f, neither fused backward kernel,
+    and its dTable and dW equal torch autograd through the plain forward
+    (normwise <= 1e-5 and 1e-4)."""
+    gx, idx, f, rk, k2, W, dout = _inter_operands(cuda, 4, 512, 2, 64, 32, 64)
+    ic = tkern.inter_conv
+    tk, Wk = f.clone().requires_grad_(), W.clone().requires_grad_()
+    tp, Wp = f.clone().requires_grad_(), W.clone().requires_grad_()
+    tkern.reset_counts()
+    (ic.InterConvFn.apply(gx, idx, tk, rk, k2, Wk, 0.08) * dout).sum() \
+        .backward()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in tkern.counts().items() if v} == {
+        'inter_conv': 1, 'inter_conv_f': 1, 'inter_conv_dg': 1}
+    (ic.inter_conv_plain(gx, idx, tp, rk, k2, Wp, 0.08) * dout).sum() \
+        .backward()
+    assert _rel(tk.grad, tp.grad) <= 1e-5
+    assert _rel(Wk.grad, Wp.grad) <= 1e-4
+
+
+def test_woff_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """c above 128 or not a multiple of 8, nn above 64, K other than 24, na
+    other than 60, a bf16 operand: a ValueError, never a quiet plain
+    version."""
+    ic = tkern.inter_conv
+    kern = torch.from_numpy(tkp.get_spherical_kernel_points(0.28, 1)).to(cuda)
+    rk, k2 = tso3.rotated_kernels(torch.from_numpy(tico.get_anchors(60))
+                                  .to(cuda), kern)
+
+    def ops(nn=16, c=32, K=24, na=60, dtype=torch.float32):
+        gx = torch.zeros(1, 4, nn, 3, device=cuda)
+        idx = torch.zeros(1, 4, nn, dtype=torch.int32, device=cuda)
+        f = torch.zeros(1, 8, na, c, device=cuda, dtype=dtype)
+        dF = torch.zeros(1, 4, na, K, c, device=cuda, dtype=dtype)
+        return (gx, idx, f, rk[:na, :K].contiguous(), k2[:K].contiguous(),
+                dF)
+    for kw in ({'c': 136}, {'c': 36}, {'nn': 65}, {'K': 18}, {'na': 12},
+               {'dtype': BF16}):
+        gx, idx, f, r, kk, dF = ops(**kw)
+        with pytest.raises(ValueError):
+            ic.inter_conv_f(gx, idx, f, r, kk, 0.08)
+        with pytest.raises(ValueError):
+            ic.inter_conv_dg(gx, idx, 8, r, kk, dF, 0.08)

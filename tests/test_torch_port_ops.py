@@ -117,7 +117,8 @@ def test_plain_switch_routes_to_plain_versions():
     # CPU tensors never launch a kernel
     assert tkern.counts() == {'fps': 0, 'ball_query': 0, 'ones_conv': 0,
                               'inter_conv': 0, 'inter_conv_dtable': 0,
-                              'inter_conv_dw': 0, 'intra_conv': 0,
+                              'inter_conv_dw': 0, 'inter_conv_f': 0,
+                              'inter_conv_dg': 0, 'intra_conv': 0,
                               'intra_conv_dw': 0, 'intra_conv_prenorm': 0,
                               'intra_conv_prenorm_df': 0,
                               'intra_conv_prenorm_dw': 0,
