@@ -75,13 +75,32 @@ Phases (any failure exits non-zero and prints no result line):
  13. [inv-train] one inv triplet step on the kernel path and on the plain
      path from the same weights: loss to rtol 1e-5, a gradient for every
      parameter on both, the per-leaf rule (degenerate leaves from a float64
-     step); the whole step timed on both paths in turns; 10 Adam steps
-     lower the loss;
+     step); on three batches, B0L1's inter W gradient on both paths
+     against a float64 step (printed); the whole step timed on both paths
+     in turns; 10 Adam steps lower the loss;
  14. [inv-descriptor] the eval-mode inv forward at b=48 on both paths:
      descriptors to rtol 1e-3, atol 2e-3, timed;
- 15. [inv-train-entry] this slice's main path: run_3dmatch --run-mode train
-     -i 4 --save-freq 4 on the synthetic tree, each kernel's launch count
-     risen by its per-step count, then the checkpoint reloaded through -r.
+ 15. [inv-train-entry] run_3dmatch --run-mode train -i 4 --save-freq 4 on
+     the synthetic tree, each kernel's launch count risen by its per-step
+     count, params.json written, then the checkpoint reloaded through -r;
+ 16. [inv-bf16-kernels] each kernel call of one bf16 inv triplet step (the
+     same legs) against its plain version on the same inputs, timed: fps
+     and ball_query indices equal, normwise <= 8e-3 for bf16 outputs and
+     <= 1e-3 for fp32 ones (the bf16 inter_conv_f / inter_conv_dg, the
+     prenorm intra conv with a fold a patch and its backward, moments, the
+     grouped conv and its backward, the fused inter backward); the
+     composed route's dW product against its float64 product (<= 1e-3);
+ 17. [inv-bf16-train] one bf16 inv step on the kernel and the plain path
+     from the same weights by the rule of [bf16-train] (loss to rtol 1e-3,
+     every parameter with a gradient, per-leaf cosine >= 0.9, the median
+     no lower than the kernel path's noise floor less 0.02), peak memory,
+     the step timed on both paths; bf16 vs fp32 printed;
+ 18. [inv-bf16-descriptor] bf16 descriptors at b=48, kernel vs plain path:
+     per-patch cosine >= 0.999 (or the kernel path's noise floor less
+     0.01, when that floor lies lower), timed;
+ 19. [inv-bf16-train-entry] the main path: run_3dmatch --run-mode train
+     --compute-dtype bf16 -i 4 --save-freq 4, launch counts, params.json,
+     the checkpoint reloaded through -r --compute-dtype bf16.
 
 Prints one line per comparison, a JSON line with per-kernel results (each
 with its bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -146,13 +165,16 @@ def work(name, args, out):
         f32 = 10 * b * p2 * nn * na * K     # a weight and its sum
     elif name in ('inter_conv_f', 'inter_conv_dg'):
         # F without W: the anchor weights and the neighbor contraction (dG:
-        # its transpose, folded onto the table rows)
+        # its transpose, folded onto the table rows), the contraction on
+        # the bf16 peak when its operand (the table, dF) is bf16
         idx, rk = args[1], args[3]
         b, p2, nn = idx.shape
         na, K = rk.shape[:2]
-        c = args[2 if name == 'inter_conv_f' else 5].shape[-1]
+        t = args[2 if name == 'inter_conv_f' else 5]
+        c, bf16 = t.shape[-1], t.dtype == torch.bfloat16
         M = b * p2 * na
-        f32 = 9 * M * nn * K + 2 * M * nn * K * c
+        f32 = 9 * M * nn * K
+        mm = 2 * M * nn * K * c
     elif name.startswith('inter_conv'):
         gx, idx, rk = args[0], args[1], args[3]
         b, p2, nn = idx.shape
@@ -870,6 +892,64 @@ def phase_train_step(device, reps=5):
             'worst_grad_rel_l2': worst[0], 'adam_trace': trace}
 
 
+def _kernel_pair(name, args):
+    """(kernel wrapper, plain version, the plain's arguments) of a captured
+    call of kernel ``name``. The fp32 intra df runs the forward kernel on
+    the inverse adjacency; its plain version is the scatter."""
+    from epn_pointcloud_tpu_torch.ops import kernels
+    if name == 'intra_conv_df':
+        ik = kernels.intra_conv
+        return ik.intra_conv_df, ik.intra_conv_df_plain, (args[0], args[1],
+                                                          args[3])
+    entry = {k.name: k for k in kernels.KERNELS}[name]
+    pick = {'intra_conv_prenorm_df': (0, 1, 2, 3, 5)}.get(name)
+    return (getattr(entry.module, name), getattr(entry.module, entry.plain),
+            args if pick is None else tuple(args[i] for i in pick))
+
+
+def train_tol(name, dtype):
+    """The bound on the normwise relative error of each output of a train
+    step's kernel call against its plain version: None (equal) for the
+    index kernels; in fp32 1e-5, 1e-4 for the dW reductions (up to ~0.5 M
+    rows); in bf16 8e-3 for bf16 outputs and 1e-3 for fp32 ones (dT before
+    its rounding, the dW reductions, the moments' sums, dss)."""
+    import torch
+    if name in ('fps', 'ball_query'):
+        return lambda out: None
+    if dtype == 'fp32':
+        tol = 1e-4 if name.endswith('_dw') else 1e-5
+        return lambda out: tol
+    return lambda out: 8e-3 if out.dtype == torch.bfloat16 else 1e-3
+
+
+def check_call(kern_fn, plain_fn, args, pargs, tol):
+    """A kernel call against its plain version on the same inputs, each
+    output against its counterpart (``tol(output)``: the bound on its
+    normwise relative error, or None for equality), then both timed
+    (median of 5 after 2 warm calls): (the kernel's outputs, a row)."""
+    import torch
+    got, want = kern_fn(*args), plain_fn(*pargs)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    rels, ok = [], True
+    for g, w in zip(got, want):
+        t = tol(g)
+        if t is None:
+            rels.append(float((g.long() - w.long()).abs().max()))
+            ok = ok and torch.equal(g, w)
+        else:
+            rels.append(rel_err(g, w))
+            ok = ok and g.dtype == w.dtype and g.shape == w.shape and \
+                rels[-1] <= t and bool(torch.isfinite(g).all())
+    row = {'max_abs_err': max(float((g.float() - w.float()).abs().max())
+                              for g, w in zip(got, want)),
+           'rel_norm_err': max(rels), 'rels': rels, 'ok': ok,
+           'ms': time_ms(lambda: kern_fn(*args), reps=5, warmup=2),
+           'plain_ms': time_ms(lambda: plain_fn(*pargs), reps=5, warmup=2)}
+    return got, row
+
+
 # the backward kernel calls of a train step, by compute dtype
 BWD = {'fp32': ('inter_conv_dtable', 'inter_conv_dw', 'intra_conv_df',
                 'intra_conv_dw'),
@@ -896,7 +976,6 @@ def phase_backward_kernels(device, dtype='fp32'):
     rows); in bf16 <= 8e-3 for bf16 outputs and 1e-3 for fp32 ones."""
     import torch
     from epn_pointcloud_tpu_torch import models
-    from epn_pointcloud_tpu_torch.ops import kernels
     names = BWD[dtype]
     model = models.build_model_from(full_opt(), seed=SEED).to(device).train()
     batch = train_batch(device, SEED + (3 if dtype == 'fp32' else 5))
@@ -904,27 +983,6 @@ def phase_backward_kernels(device, dtype='fp32'):
         calls = capture_calls(names,
                               lambda: step_loss(model, batch).backward())
     del model
-    ic, ik, gc = kernels.inter_conv, kernels.intra_conv, kernels.grouped_conv
-    # name -> (kernel wrapper, plain version, the plain's arguments, fp32
-    # tolerance)
-    spec = {'inter_conv_dtable': (ic.inter_conv_dtable,
-                                  ic.inter_conv_dtable_plain, None, 1e-5),
-            'inter_conv_dw': (ic.inter_conv_dw, ic.inter_conv_dw_plain, None,
-                              1e-4),
-            'intra_conv_df': (ik.intra_conv_df, ik.intra_conv_df_plain,
-                              (0, 1, 3), 1e-5),
-            'intra_conv_dw': (ik.intra_conv_dw, ik.intra_conv_dw_plain, None,
-                              1e-4),
-            'intra_conv_prenorm_df': (ik.intra_conv_prenorm_df,
-                                      ik.intra_conv_prenorm_df_plain,
-                                      (0, 1, 2, 3, 5), None),
-            'intra_conv_prenorm_dw': (ik.intra_conv_prenorm_dw,
-                                      ik.intra_conv_prenorm_dw_plain, None,
-                                      None),
-            'grouped_conv_dx': (gc.grouped_conv_dx, gc.grouped_conv_dx_plain,
-                                None, None),
-            'grouped_conv_dw': (gc.grouped_conv_dw, gc.grouped_conv_dw_plain,
-                                None, None)}
     tag = '[backward]' if dtype == 'fp32' else '[bf16-backward]'
     n_calls = {n: sum(1 for c in calls if c[0] == n) for n in names}
     seen = dict.fromkeys(names, 0)
@@ -932,28 +990,13 @@ def phase_backward_kernels(device, dtype='fp32'):
     failures = []
     torch.set_grad_enabled(False)
     for name, args in calls:
-        kern_fn, plain_fn, pick, tol32 = spec[name]
-        pargs = args if pick is None else tuple(args[i] for i in pick)
+        kern_fn, plain_fn, pargs = _kernel_pair(name, args)
         layer = _bwd_layer(name, n_calls[name], seen[name])
         seen[name] += 1
-        got, want = kern_fn(*args), plain_fn(*pargs)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        rels, errs, ok = [], [], True
-        for g, w in zip(got, want):
-            tol = tol32 if dtype == 'fp32' else \
-                8e-3 if g.dtype == torch.bfloat16 else 1e-3
-            rels.append(rel_err(g, w))
-            errs.append(float((g.float() - w.float()).abs().max()))
-            ok = ok and g.dtype == w.dtype and g.shape == w.shape and \
-                rels[-1] <= tol and bool(torch.isfinite(g).all())
-        k_ms = time_ms(lambda: kern_fn(*args), reps=5, warmup=2)
-        p_ms = time_ms(lambda: plain_fn(*pargs), reps=5, warmup=2)
-        row = {'layer': layer, 'shape': ' '.join(str(tuple(w.shape))
-                                                  for w in want),
-               'max_abs_err': max(errs), 'rel_norm_err': max(rels),
-               'ms': k_ms, 'plain_ms': p_ms, 'ok': ok}
+        got, row = check_call(kern_fn, plain_fn, args, pargs,
+                              train_tol(name, dtype))
+        row.update(layer=layer, shape=' '.join(str(tuple(g.shape))
+                                               for g in got))
         row['bytes_ms'], row['ops_ms'] = bound_ms(name, args, got)
         lib = ''
         if name == 'grouped_conv_dx':
@@ -970,15 +1013,15 @@ def phase_backward_kernels(device, dtype='fp32'):
         if 'library_ms' in row:
             lib = f' mm_ms={row["library_ms"]:.4f}'
         log(f'{tag} {name} {layer} (out {row["shape"]}, {got[0].dtype}): '
-            f'max_abs_err={max(errs):.3e} rel_norm_err='
-            f'{" ".join(f"{r:.3e}" for r in rels)} kernel_ms={k_ms:.4f} '
-            f'plain_ms={p_ms:.4f}{lib} bound_ms='
+            f'max_abs_err={row["max_abs_err"]:.3e} rel_norm_err='
+            f'{" ".join(f"{r:.3e}" for r in row["rels"])} kernel_ms='
+            f'{row["ms"]:.4f} plain_ms={row["plain_ms"]:.4f}{lib} bound_ms='
             f'{max(row["bytes_ms"], row["ops_ms"]):.4f} '
-            f'{"OK" if ok else "FAIL"}')
+            f'{"OK" if row["ok"] else "FAIL"}')
         results[name].append(row)
-        if not ok:
+        if not row['ok']:
             failures.append(f'{name} {layer}')
-        del got, want
+        del got
     torch.set_grad_enabled(True)
     per_step = TRAIN_PER_STEP if dtype == 'fp32' else BF16_TRAIN_PER_STEP
     # the fp32 intra df runs the forward intra kernel: 7 of its 14 launches
@@ -1006,45 +1049,53 @@ def _leaf_cos(a, b):
         a.double().flatten(), b.double().flatten(), dim=0))
 
 
-def phase_bf16_train_step(device, reps=5):
-    """[bf16-train] One b=12 bf16 train step on the kernel path and on the
-    plain path from the same weights; the whole step timed on both; the
-    bf16 step against the fp32 step on the same weights and batch."""
+def bf16_step_check(tag, models, loss, batch, scaled, per_step, f64, what):
+    """One bf16 step on the kernel path (``models[0]``) and on the plain
+    path (``models[1]``) from the same weights, the kernel path again on
+    ``scaled``, the batch's ``what`` scaled by 1 + 1e-6 (``models[2]``: what
+    a few flipped bf16 roundings alone do to the gradients, the floor of any
+    comparison of two bf16 steps), and an fp32 step (``models[3]``). Gates:
+    the launches ``per_step`` and none on the plain path, the loss to rtol
+    1e-3, a finite fp32 gradient for every parameter on both paths, and per
+    leaf: cosine >= BF16_LEAF_COS where the float64 gradient (``f64``, max
+    |g| a leaf) is real, with a median no lower than the noise floor's less
+    0.02; a degenerate leaf's kernel gradient at most 4 times the plain
+    one's plus 1e-2. The bf16 vs fp32 cosines are printed, not gated."""
     import torch
-    from epn_pointcloud_tpu_torch import models
     from epn_pointcloud_tpu_torch.ops import kernels
-    mk, mp, mq, m32 = (perturb_norm_biases(models.build_model_from(
-        full_opt(), seed=SEED)).to(device).train() for _ in range(4))
-    batch = train_batch(device, SEED + 6)
-    f64 = f64_grad_max(mp, batch)
+    mk, mp, mq, m32 = models
     with compute_dtype('bf16'):
         kernels.reset_counts()
-        loss_k = step_loss(mk, batch)
+        torch.cuda.reset_peak_memory_stats()
+        loss_k = loss(mk, batch)
         loss_k.backward()
+        torch.cuda.synchronize()
+        mem_k = torch.cuda.max_memory_allocated() / 2 ** 30
         counts_k = kernels.counts()
+        torch.cuda.reset_peak_memory_stats()
         with kernels.plain():
-            loss_p = step_loss(mp, batch)
+            loss_p = loss(mp, batch)
             loss_p.backward()
         torch.cuda.synchronize()
+        mem_p = torch.cuda.max_memory_allocated() / 2 ** 30
         counts_p = kernels.counts()
-        # the kernel path again on the clouds scaled by 1 + 1e-6: what a
-        # few flipped bf16 roundings alone do to the gradients (the floor
-        # of any comparison of two bf16 steps)
-        loss_q = step_loss(mq, (batch[0] * (1 + 1e-6),) + batch[1:])
+        loss_q = loss(mq, scaled)
         loss_q.backward()
     assert counts_p == counts_k, 'the plain path launched a kernel'
-    assert counts_k == BF16_TRAIN_PER_STEP, (counts_k, BF16_TRAIN_PER_STEP)
-    loss_32 = step_loss(m32, batch)
+    assert counts_k == per_step, (counts_k, per_step)
+    loss_32 = loss(m32, batch)
     loss_32.backward()
     lk, lp, l32 = loss_k.item(), loss_p.item(), loss_32.item()
-    log(f'[bf16-train] b={TRAIN_BATCH} bf16 loss kernel path {lk:.7f}, plain '
-        f'path {lp:.7f} (rtol 1e-3), kernel path on the clouds x (1 + 1e-6) '
-        f'{loss_q.item():.7f}; fp32 kernel path {l32:.7f}; launches '
-        f'{counts_k}')
+    log(f'{tag} bf16 loss kernel path {lk:.7f}, plain path {lp:.7f} (rtol '
+        f'1e-3), kernel path on the {what} x (1 + 1e-6) {loss_q.item():.7f}; '
+        f'fp32 kernel path {l32:.7f}; peak device memory kernel path '
+        f'{mem_k:.2f} GiB, plain path {mem_p:.2f} GiB; launches {counts_k}')
     assert math.isfinite(lk) and abs(lk - lp) <= 1e-3 * abs(lp), (lk, lp)
     no_grad = [n for m in (mk, mp) for n, p in m.named_parameters()
-               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
-    assert not no_grad, f'parameters without a finite gradient: {no_grad}'
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())
+               or p.grad.dtype != torch.float32]
+    assert not no_grad, f'parameters without a finite fp32 gradient: ' \
+        f'{no_grad}'
     pk, pq, p32 = (dict(m.named_parameters()) for m in (mk, mq, m32))
     bad, degen, leaves = [], [], {}
     for name, p in mp.named_parameters():
@@ -1070,21 +1121,42 @@ def phase_bf16_train_step(device, reps=5):
     cos_kp, cos_q, c32 = (sorted(v[k] for v in real.values())
                           for k in ('cos', 'cos_noise', 'cos_vs_fp32'))
     med_kp, med_q = statistics.median(cos_kp), statistics.median(cos_q)
-    log(f'[bf16-train] gradients: every one of {len(leaves)} parameters has '
-        f'one on both paths; per-leaf cosine over {len(real)} real leaves, '
-        f'kernel vs plain path min {cos_kp[0]:.5f} (>= {BF16_LEAF_COS}) at '
-        f'{worst}, median {med_kp:.5f}; kernel path vs itself on the clouds '
-        f'x (1 + 1e-6) min {cos_q[0]:.5f}, median {med_q:.5f} (the kernel vs '
-        f'plain median must be >= this median - 0.02); {len(degen)} '
-        f'degenerate leaves: {"; ".join(degen)}')
-    log(f'[bf16-train] bf16 vs fp32 step (kernel paths, same weights and '
-        f'batch): loss {lk:.6f} vs {l32:.6f}; per-leaf gradient cosine min '
+    log(f'{tag} gradients: every one of {len(leaves)} parameters has one on '
+        f'both paths; per-leaf cosine over {len(real)} real leaves, kernel '
+        f'vs plain path min {cos_kp[0]:.5f} (>= {BF16_LEAF_COS}) at {worst}, '
+        f'median {med_kp:.5f}; kernel path vs itself on the {what} x (1 + '
+        f'1e-6) min {cos_q[0]:.5f}, median {med_q:.5f} (the kernel vs plain '
+        f'median must be >= this median - 0.02); {len(degen)} degenerate '
+        f'leaves: {"; ".join(degen)}')
+    log(f'{tag} bf16 vs fp32 step (kernel paths, same weights and batch): '
+        f'loss {lk:.6f} vs {l32:.6f}; per-leaf gradient cosine min '
         f'{c32[0]:.5f}, median {statistics.median(c32):.5f} (printed, not '
         f'gated)')
     if med_kp < med_q - 0.02:
         bad.append(f'median kernel vs plain cosine {med_kp:.5f} below the '
                    f'noise floor {med_q:.5f} - 0.02')
     assert not bad, bad
+    return {'loss_kernel': lk, 'loss_plain': lp, 'loss_fp32': l32,
+            'min_grad_cos': cos_kp[0], 'median_grad_cos': med_kp,
+            'noise_min_grad_cos': cos_q[0], 'noise_median_grad_cos': med_q,
+            'min_grad_cos_vs_fp32': c32[0], 'peak_gib_kernel': mem_k,
+            'peak_gib_plain': mem_p, 'leaves': leaves}
+
+
+def phase_bf16_train_step(device, reps=5):
+    """[bf16-train] One b=12 bf16 train step on the kernel path and on the
+    plain path from the same weights (``bf16_step_check``), the running
+    statistics; the whole step timed on both."""
+    import torch
+    from epn_pointcloud_tpu_torch import models
+    models_ = tuple(perturb_norm_biases(models.build_model_from(
+        full_opt(), seed=SEED)).to(device).train() for _ in range(4))
+    mk, mp = models_[:2]
+    batch = train_batch(device, SEED + 6)
+    out = bf16_step_check(
+        f'[bf16-train] b={TRAIN_BATCH}', models_, step_loss, batch,
+        (batch[0] * (1 + 1e-6),) + batch[1:], BF16_TRAIN_PER_STEP,
+        f64_grad_max(mp, batch), 'clouds')
     bk = dict(mk.named_buffers())
     n_stats, stat_err = 0, 0.0
     for name, buf in mp.named_buffers():
@@ -1095,16 +1167,13 @@ def phase_bf16_train_step(device, reps=5):
             n_stats += 1
     log(f'[bf16-train] BatchNorm running stats: {n_stats} buffers, max abs '
         f'diff {stat_err:.3e} (<= 1e-3 of each buffer\'s magnitude)')
-    del m32, mq
+    del models_
     _, k_ms, p_ms, k_ts, p_ts = time_steps(mk, mp, batch, 'bf16', reps)
     del mk, mp
     torch.cuda.empty_cache()
-    return {'loss_kernel': lk, 'loss_plain': lp, 'loss_fp32': l32,
-            'kernel_ms': k_ms, 'plain_ms': p_ms, 'kernel_runs_ms': k_ts,
-            'plain_runs_ms': p_ts, 'min_grad_cos': cos_kp[0],
-            'median_grad_cos': med_kp, 'noise_min_grad_cos': cos_q[0],
-            'noise_median_grad_cos': med_q, 'min_grad_cos_vs_fp32': c32[0],
-            'leaves': leaves}
+    out.update(kernel_ms=k_ms, plain_ms=p_ms, kernel_runs_ms=k_ts,
+               plain_runs_ms=p_ts)
+    return out
 
 
 def phase_train_entry(dtype='fp32'):
@@ -1191,6 +1260,35 @@ INV_PER_STEP = {**_NO_BF16, 'fps': 2, 'ball_query': 16, 'ones_conv': 2,
 INV_NAMES = ('fps', 'ball_query', 'ones_conv', 'inter_conv', 'intra_conv',
              'intra_conv_df', 'intra_conv_dw', 'inter_conv_dtable',
              'inter_conv_dw', 'inter_conv_f', 'inter_conv_dg')
+# kernel launches of one bf16 inv triplet step. A leg's forward: fps, 8
+# ball queries, the ones conv at B0L0, the W-fused inter conv at the other
+# 7 layers, the prenorm intra conv at all 8 (the inter InstanceNorm
+# deferred into it as a fold a patch), the moments kernel for the inter and
+# the intra InstanceNorm at all 8 and the packed skip InstanceNorm at 7
+# (B0L0's rank-1 skip runs unpacked, in plain torch, as in the JAX
+# package), the grouped conv at those 7 skips; no fused tail (InstanceNorm
+# blocks). The backward: the fused dTable / dW at the 3 fused layers,
+# inter_conv_f and inter_conv_dg at the 4 composed ones, the prenorm intra
+# df and dW at 8, the grouped conv dx and dW at 7
+INV_BF16_PER_STEP = {**INV_PER_STEP, 'intra_conv': 0, 'intra_conv_dw': 0,
+                     'intra_conv_prenorm': 16, 'intra_conv_prenorm_df': 16,
+                     'intra_conv_prenorm_dw': 16, 'moments': 46,
+                     'grouped_conv': 14, 'grouped_conv_dx': 14,
+                     'grouped_conv_dw': 14}
+INV_BF16_NAMES = ('fps', 'ball_query', 'ones_conv', 'inter_conv',
+                  'intra_conv_prenorm', 'moments', 'grouped_conv',
+                  'inter_conv_dtable', 'inter_conv_dw', 'inter_conv_f',
+                  'inter_conv_dg', 'intra_conv_prenorm_df',
+                  'intra_conv_prenorm_dw', 'grouped_conv_dx',
+                  'grouped_conv_dw')
+# the moments calls of a leg's forward: the inter and the intra
+# InstanceNorm of every layer, and the packed skip's from B0L1 on
+INV_MOMENTS = tuple(f'{layer}.{norm}' for layer in INV_LAYERS
+                    for norm in ('inter', 'intra', 'skip')
+                    if layer != 'B0L0' or norm != 'skip')
+# the layer whose fp32 inter W gradient differed most between the kernel
+# and the plain path in the first inv step measured (3.2e-3 relative L2)
+INV_GAP_LEAF = 'backbone.0.blocks.1.inter_conv.conv.basic_conv.W'
 
 
 def inv_tree():
@@ -1216,7 +1314,8 @@ def inv_opt(root):
 
 def inv_legs(root, device, items=(0,)):
     """(src, tgt) [16 * len(items), 1024, 3] patch legs from the port's
-    FragmentLoader on the tree."""
+    FragmentLoader on the tree, its items drawn in turn (each draw samples
+    fresh keypoints: (0, 1, 0) are three different batches)."""
     import numpy as np
     import torch
     from epn_pointcloud_tpu_torch.data import match_3dmatch
@@ -1224,6 +1323,14 @@ def inv_legs(root, device, items=(0,)):
     data = [loader[i] for i in items]
     return tuple(torch.from_numpy(np.concatenate([d[k] for d in data])).to(
         device) for k in ('src', 'tgt'))
+
+
+def inv_batches(root, device, n):
+    """n triplet-step batches, each a (src, tgt) pair of b=16 legs, drawn
+    in turn from one FragmentLoader (the first is inv_legs(root)'s)."""
+    legs = inv_legs(root, device, items=tuple(i % 2 for i in range(n)))
+    return [tuple(x[INV_BATCH * i:INV_BATCH * (i + 1)] for x in legs)
+            for i in range(n)]
 
 
 def inv_model(device):
@@ -1246,88 +1353,91 @@ def _inv_layer(name, i):
     layer down, a leg at a time)."""
     per_leg = {'fps': ('B0L0',), 'ones_conv': ('B0L0',),
                'ball_query': INV_LAYERS, 'intra_conv': INV_LAYERS,
-               'inter_conv': INV_LAYERS[1:],
+               'intra_conv_prenorm': INV_LAYERS, 'moments': INV_MOMENTS,
+               'inter_conv': INV_LAYERS[1:], 'grouped_conv': INV_LAYERS[1:],
                'intra_conv_df': INV_LAYERS[::-1],
                'intra_conv_dw': INV_LAYERS[::-1],
+               'intra_conv_prenorm_df': INV_LAYERS[::-1],
+               'intra_conv_prenorm_dw': INV_LAYERS[::-1],
+               'grouped_conv_dx': INV_LAYERS[:0:-1],
+               'grouped_conv_dw': INV_LAYERS[:0:-1],
                'inter_conv_f': INV_COMPOSED[::-1],
                'inter_conv_dg': INV_COMPOSED[::-1],
+               'dw_product': INV_COMPOSED[::-1],
                'inter_conv_dtable': INV_FUSED[::-1],
                'inter_conv_dw': INV_FUSED[::-1]}[name]
     return f'{per_leg[i % len(per_leg)]}#{i // len(per_leg)}'
 
 
-def phase_inv_kernels(device, legs):
-    """[inv-kernels] Each kernel call of one fp32 inv triplet step (b=16 a
-    leg) against its plain version on the same inputs, timed: fps and
-    ball_query indices equal; normwise relative error <= 1e-5 for the
-    forward kernels, intra df, dTable, F and dT (atomics), <= 1e-4 for the
-    dW reductions. Then, at B1L0, B2L0 and B3L0, the composed backward
-    route (dF product, inter_conv_dg, inter_conv_f, dW product) timed
-    beside the fused dTable + dW on the same operands (printed, not
-    gated)."""
+def phase_inv_kernels(device, legs, dtype='fp32'):
+    """[inv-kernels], [inv-bf16-kernels] Each kernel call of one inv triplet
+    step (b=16 a leg) in ``dtype`` against its plain version on the same
+    inputs, timed, by ``train_tol``: fps and ball_query indices equal; fp32
+    normwise <= 1e-5 (the forward kernels, intra df, dTable, F and dT by
+    atomics), <= 1e-4 for the dW reductions; bf16 <= 8e-3 for bf16 outputs,
+    <= 1e-3 for fp32 ones. fp32: then, at B1L0, B2L0 and B3L0, the composed
+    backward route (dF product, inter_conv_dg, inter_conv_f, dW product)
+    timed beside the fused dTable + dW on the same operands (printed, not
+    gated). bf16: the composed route's dW product against its float64
+    product at each composed layer (``inv_dw_product_row``)."""
     import torch
-    from epn_pointcloud_tpu_torch.ops import kernels
+    fp32 = dtype == 'fp32'
+    names = INV_NAMES if fp32 else INV_BF16_NAMES + ('dw_product',)
+    tag = '[inv-kernels]' if fp32 else '[inv-bf16-kernels]'
     model = inv_model(device).train()
-    calls = capture_calls(INV_NAMES,
-                          lambda: inv_loss(model, legs).backward())
+    with compute_dtype(dtype):
+        calls = capture_calls(names, lambda: inv_loss(model, legs).backward())
     del model
-    ik = kernels.intra_conv
-    entries = {k.name: k for k in kernels.KERNELS}
-    n_calls = {n: sum(1 for c in calls if c[0] == n) for n in INV_NAMES}
-    seen = dict.fromkeys(INV_NAMES, 0)
-    results = {n: [] for n in INV_NAMES}
+    n_calls = {n: sum(1 for c in calls if c[0] == n) for n in names}
+    seen = dict.fromkeys(names, 0)
+    results = {n: [] for n in names}
     failures = []
     torch.set_grad_enabled(False)
     for name, args in calls:
         layer = _inv_layer(name, seen[name])
         seen[name] += 1
-        if name == 'intra_conv_df':     # the forward kernel, transposed
-            kern_fn, plain_fn = ik.intra_conv_df, ik.intra_conv_df_plain
-            pargs = (args[0], args[1], args[3])
+        if name == 'dw_product':
+            row = inv_dw_product_row(layer, *args)
         else:
-            kern_fn = getattr(entries[name].module, name)
-            plain_fn = getattr(entries[name].module, entries[name].plain)
-            pargs = args
-        got, want = kern_fn(*args), plain_fn(*pargs)
-        torch.cuda.synchronize()
-        if name in ('fps', 'ball_query'):
-            rel = float((got.long() - want.long()).abs().max())
-            ok, tol = torch.equal(got, want), 'equal'
-        else:
-            rel = rel_err(got, want)
-            tol = 1e-4 if name.endswith('_dw') else 1e-5
-            ok = (rel <= tol and got.shape == want.shape
-                  and bool(torch.isfinite(got).all()))
-        max_err = float((got.float() - want.float()).abs().max())
-        k_ms = time_ms(lambda: kern_fn(*args), reps=5, warmup=2)
-        p_ms = time_ms(lambda: plain_fn(*pargs), reps=5, warmup=2)
-        row = {'layer': layer, 'max_abs_err': max_err, 'rel_norm_err': rel,
-               'ms': k_ms, 'plain_ms': p_ms, 'ok': ok,
-               'shape': ' '.join(str(tuple(a.shape)) for a in args[:3]
-                                 if torch.is_tensor(a))}
-        work_name = 'intra_conv' if name == 'intra_conv_df' else name
-        wargs = args if name != 'intra_conv_df' else \
-            (args[0], args[1], args[3].transpose(1, 2))
-        row['bytes_ms'], row['ops_ms'] = bound_ms(work_name, wargs, got)
-        log(f'[inv-kernels] {name} {layer} ({row["shape"]}): max_abs_err='
-            f'{max_err:.3e} rel_norm_err={rel:.3e} [{tol}] kernel_ms='
-            f'{k_ms:.4f} plain_ms={p_ms:.4f} bound_ms='
-            f'{max(row["bytes_ms"], row["ops_ms"]):.4f} '
-            f'({"bytes" if row["bytes_ms"] >= row["ops_ms"] else "ops"}) '
-            f'{"OK" if ok else "FAIL"}')
+            kern_fn, plain_fn, pargs = _kernel_pair(name, args)
+            got, row = check_call(kern_fn, plain_fn, args, pargs,
+                                  train_tol(name, dtype))
+            row.update(layer=layer, dtype=str(got[0].dtype),
+                       shape=' '.join(str(tuple(a.shape)) for a in args[:3]
+                                      if torch.is_tensor(a)))
+            # the fp32 intra df is the forward kernel on W transposed
+            wname, wargs = (('intra_conv', (args[0], args[1],
+                                            args[3].transpose(1, 2)))
+                            if name == 'intra_conv_df' else (name, args))
+            row['bytes_ms'], row['ops_ms'] = bound_ms(
+                wname, wargs, got[0] if len(got) == 1 else got)
+            log(f'{tag} {name} {layer} ({row["shape"]}, {row["dtype"]}): '
+                f'max_abs_err={row["max_abs_err"]:.3e} rel_norm_err='
+                f'{" ".join(f"{r:.3e}" for r in row["rels"])} kernel_ms='
+                f'{row["ms"]:.4f} plain_ms={row["plain_ms"]:.4f} bound_ms='
+                f'{max(row["bytes_ms"], row["ops_ms"]):.4f} '
+                f'({"bytes" if row["bytes_ms"] >= row["ops_ms"] else "ops"}) '
+                f'{"OK" if row["ok"] else "FAIL"}')
+            del got
         results[name].append(row)
-        if not ok:
+        if not row['ok']:
             failures.append(f'{name} {layer}')
-        del got, want
-    routes = inv_route_times(calls, device)
+    routes = inv_route_times(calls, device) if fp32 else None
     torch.set_grad_enabled(True)
-    expect = {n: INV_PER_STEP.get(n, 0) for n in INV_NAMES}
-    expect['intra_conv'], expect['intra_conv_df'] = 16, 16
+    per_step = INV_PER_STEP if fp32 else INV_BF16_PER_STEP
+    expect = {n: per_step.get(n, 0) for n in names}
+    if fp32:
+        expect['intra_conv'], expect['intra_conv_df'] = 16, 16
+    else:
+        expect['dw_product'] = per_step['inter_conv_f']
     if n_calls != expect:
-        failures.append(f'inv step calls {n_calls}, expected {expect}')
+        failures.append(f'{dtype} inv step calls {n_calls}, expected '
+                        f'{expect}')
     if failures:
-        raise AssertionError(f'inv kernel comparisons failed: {failures}')
-    results['intra_conv'] += results.pop('intra_conv_df')
+        raise AssertionError(f'{dtype} inv kernel comparisons failed: '
+                             f'{failures}')
+    if fp32:
+        results['intra_conv'] += results.pop('intra_conv_df')
     return results, routes
 
 
@@ -1387,17 +1497,19 @@ def inv_route_times(calls, device):
     return out
 
 
-def inv_f64_grad_max(model, legs, chunk=4):
-    """Per-leaf max |gradient| of the triplet step on a float64 copy of
-    ``model`` on the plain path. A patch's descriptor depends on that patch
-    only (InstanceNorm normalizes each cloud alone), so the step's gradient
-    is the sum over patches of dL/dy_i dy_i/dtheta: the descriptors first,
-    dL/dy from the loss, then the backward ``chunk`` patches at a time."""
+def inv_f64_grads(model, legs, chunk=4):
+    """Per-leaf gradient of the triplet step on a float64 copy of ``model``
+    on the plain path. A patch's descriptor depends on that patch only
+    (InstanceNorm normalizes each cloud alone), so the step's gradient is
+    the sum over patches of dL/dy_i dy_i/dtheta: the descriptors first,
+    dL/dy from the loss, then the backward ``chunk`` patches at a time (the
+    b=16 legs' float64 step does not fit the card otherwise)."""
     import copy
     import torch
     from epn_pointcloud_tpu_torch import losses
     from epn_pointcloud_tpu_torch.ops import kernels
     m64 = copy.deepcopy(model).double()
+    m64.zero_grad(set_to_none=True)
     xs = [x.double() for x in legs]
     with kernels.plain():
         with torch.no_grad():
@@ -1409,24 +1521,54 @@ def inv_f64_grad_max(model, legs, chunk=4):
         for x, gy in zip(xs, gys):
             for i in range(0, len(x), chunk):
                 (m64(x[i:i + chunk])[0] * gy[i:i + chunk]).sum().backward()
-    out = {n: float(p.grad.abs().max()) if p.grad is not None else 0.0
+    out = {n: p.grad if p.grad is not None else torch.zeros_like(p)
            for n, p in m64.named_parameters()}
     del m64
     torch.cuda.empty_cache()
     return out
 
 
-def phase_inv_train(device, legs, reps=5):
+def _max_abs(grads):
+    return {n: float(g.abs().max()) for n, g in grads.items()}
+
+
+def inv_gap_row(i, gk, gp, g64):
+    """The relative L2 against the float64 step of B0L1's inter W gradient
+    (INV_GAP_LEAF) on the kernel and the plain path, and of the worst real
+    leaf (float64 gradient > 1e-5) on each, for batch i."""
+    real = [n for n, g in g64.items() if float(g.abs().max()) > 1e-5]
+
+    def rel(a, n):
+        return rel_err(a[n].double(), g64[n])
+    row = {'batch': i, 'kernel_vs_f64': rel(gk, INV_GAP_LEAF),
+           'plain_vs_f64': rel(gp, INV_GAP_LEAF),
+           'kernel_vs_plain': rel_err(gk[INV_GAP_LEAF], gp[INV_GAP_LEAF])}
+    for path, g in (('kernel', gk), ('plain', gp)):
+        worst = max(real, key=lambda n: rel(g, n))
+        row[f'{path}_worst'] = (rel(g, worst), worst)
+    log(f'[inv-train] batch {i}: B0L1 inter W gradient relative L2 kernel '
+        f'path vs float64 {row["kernel_vs_f64"]:.3e}, plain path vs float64 '
+        f'{row["plain_vs_f64"]:.3e}, kernel vs plain '
+        f'{row["kernel_vs_plain"]:.3e}; worst real leaf vs float64: kernel '
+        f'{row["kernel_worst"][0]:.3e} ({row["kernel_worst"][1]}), plain '
+        f'{row["plain_worst"][0]:.3e} ({row["plain_worst"][1]})')
+    return row
+
+
+def phase_inv_train(device, batches, reps=5):
     """[inv-train] One fp32 inv triplet step (b=16 a leg) on the kernel
     path and on the plain path from the same weights: loss to rtol 1e-5,
     a gradient for every parameter on both, per-leaf agreement by the rule
-    of tests/test_reference_train_parity.py; the whole step timed on both
-    paths in turns (median of 5); 10 Adam steps on one batch lower the
-    loss."""
+    of tests/test_reference_train_parity.py; B0L1's inter W gradient on
+    both paths against a float64 step, on each of ``batches`` (printed, not
+    gated); the whole step timed on both paths in turns (median of 5); 10
+    Adam steps on one batch lower the loss."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
+    legs = batches[0]
     mk, mp = (inv_model(device).train() for _ in range(2))
-    f64 = inv_f64_grad_max(mp, legs)
+    g64 = inv_f64_grads(mp, legs)
+    f64 = _max_abs(g64)
     kernels.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     loss_k = inv_loss(mk, legs)
@@ -1465,6 +1607,19 @@ def phase_inv_train(device, legs, reps=5):
         f'degenerate leaves (fp64 gradient <= 1e-5 or both <= 1e-3): '
         f'{"; ".join(degen)}')
     assert not bad, bad
+
+    def grads(m):
+        return {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+    gap = [inv_gap_row(0, grads(mk), grads(mp), g64)]
+    for i, b in enumerate(batches[1:], 1):
+        for m in (mk, mp):
+            m.zero_grad(set_to_none=True)
+        inv_loss(mk, b).backward()
+        with kernels.plain():
+            inv_loss(mp, b).backward()
+        gap.append(inv_gap_row(i, grads(mk), grads(mp),
+                               inv_f64_grads(mp, b)))
+    del g64
     opt_k, k_ms, p_ms, k_ts, p_ts = time_steps(
         mk, mp, legs, 'fp32', reps, loss=inv_loss, tag='[inv-train]',
         n_clouds=2 * INV_BATCH)
@@ -1486,7 +1641,8 @@ def phase_inv_train(device, legs, reps=5):
     return {'loss_kernel': lk, 'loss_plain': lp, 'kernel_ms': k_ms,
             'plain_ms': p_ms, 'kernel_runs_ms': k_ts, 'plain_runs_ms': p_ts,
             'worst_grad_rel_l2': worst[0], 'adam_trace': trace,
-            'peak_gib_kernel': mem_k, 'peak_gib_plain': mem_p}
+            'peak_gib_kernel': mem_k, 'peak_gib_plain': mem_p,
+            'b0l1_gap': gap}
 
 
 def phase_inv_descriptor(device, root, reps=5):
@@ -1525,47 +1681,159 @@ def phase_inv_descriptor(device, root, reps=5):
             'kernel_runs_ms': k_ts, 'plain_runs_ms': p_ts}
 
 
-def phase_inv_train_entry(root):
-    """[inv-train-entry] This slice's main path: run_3dmatch --run-mode
-    train -i 4 --save-freq 4 on the synthetic tree; finite logged losses,
-    each kernel's launch count risen by its per-step count; the checkpoint
-    reloaded through -r."""
+def phase_inv_train_entry(root, dtype='fp32'):
+    """[inv-train-entry], [inv-bf16-train-entry] A main path (bf16: the
+    one the kernels line reports): run_3dmatch --run-mode train
+    --compute-dtype ``dtype`` -i 4 --save-freq 4 on the synthetic tree;
+    finite logged losses, each kernel's launch count risen by its per-step
+    count, params.json written; the checkpoint reloaded through -r in the
+    same dtype, every tensor equal."""
     import torch
     from epn_pointcloud_tpu_torch import run_3dmatch
-    from epn_pointcloud_tpu_torch.ops import kernels
+    from epn_pointcloud_tpu_torch.ops import kernels, so3conv
+    tag = '[inv-train-entry]' if dtype == 'fp32' else '[inv-bf16-train-entry]'
+    per_step = INV_PER_STEP if dtype == 'fp32' else INV_BF16_PER_STEP
     steps = 4
-    common = ['experiment', '-d', root, '--run-mode', 'train', '--model-dir',
+    common = ['experiment', '-d', root, '--run-mode', 'train',
+              '--compute-dtype', dtype, '--model-dir',
               os.path.join(INV_DIR, 'runs')]
-    kernels.reset_counts()
-    t0 = time.time()
-    trainer = run_3dmatch.main(common + ['-i', str(steps), '--save-freq',
-                                         str(steps), '-lf', '1'])
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = kernels.counts()
-    trainer.logger.close()
+    try:
+        kernels.reset_counts()
+        t0 = time.time()
+        trainer = run_3dmatch.main(common + ['-i', str(steps), '--save-freq',
+                                             str(steps), '-lf', '1'])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kernels.counts()
+        trainer.logger.close()
+        ckpt = trainer.last_ckpt
+        other = run_3dmatch.main(common + ['-i', '0', '-r', ckpt])
+        other.logger.close()
+    finally:
+        so3conv.set_compute_dtype('fp32')
     stats = dict(trainer.summary.running_stats)
-    log(f'[inv-train-entry] run_3dmatch train: {steps} steps of 2 x '
-        f'{trainer.opt.npt} patches ({len(trainer.dataset)} fragment pairs an '
-        f'epoch); running stats {stats}; wall {wall:.2f} s (data and setup '
-        f'included); kernel launches {counts}, a step '
-        f'{ {n: k for n, k in INV_PER_STEP.items() if k} }')
+    log(f'{tag} run_3dmatch train --compute-dtype {dtype}: {steps} steps of '
+        f'2 x {trainer.opt.npt} patches ({len(trainer.dataset)} fragment '
+        f'pairs an epoch); running stats {stats}; wall {wall:.2f} s (data and '
+        f'setup included); kernel launches {counts}, a step '
+        f'{ {n: k for n, k in per_step.items() if k} }')
     assert trainer.opt.npt == INV_BATCH and trainer.opt.batch_size == 1
     assert all(math.isfinite(stats[k]) for k in ('Loss', 'Pos', 'Neg',
                                                  'Acc'))
     assert math.isfinite(float(trainer.last_loss))
-    assert all(p.grad is not None for p in trainer.model.parameters())
-    expect = {n: steps * k for n, k in INV_PER_STEP.items()}
+    assert all(p.dtype == torch.float32 and p.grad is not None
+               for p in trainer.model.parameters())
+    expect = {n: steps * k for n, k in per_step.items()}
     assert counts == expect, (counts, expect)
-    ckpt = trainer.last_ckpt
-    other = run_3dmatch.main(common + ['-i', '0', '-r', ckpt])
-    other.logger.close()
+    params_json = os.path.join(trainer.root_dir, 'params.json')
+    with open(params_json) as f:
+        assert json.load(f) == trainer.model.params, params_json
     for (k, a), (_, b) in zip(trainer.model.state_dict().items(),
                               other.model.state_dict().items()):
         assert torch.equal(a, b), k
-    log(f'[inv-train-entry] checkpoint {os.path.basename(ckpt)} reloaded '
-        f'through -r: all {len(trainer.model.state_dict())} tensors equal')
+    log(f'{tag} params.json written; checkpoint {os.path.basename(ckpt)} '
+        f'reloaded through -r --compute-dtype {dtype}: all '
+        f'{len(trainer.model.state_dict())} tensors equal')
     return counts, wall
+
+
+def inv_dw_product_row(layer, F2, dout2):
+    """The composed route's dW = F^T dout from bf16 operands
+    (``inter_conv.dw_product``) against the float64 product of the same
+    values: <= 1e-3 relative (fp32 sums over ~0.5 M rows give ~3e-5; a
+    bf16 output alone ~1.6e-3). torch.matmul's default bf16 product (the
+    flag allow_bf16_reduced_precision_reduction as it stands) is timed and
+    measured beside it."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    dwp = kernels.inter_conv.dw_product
+    got = dwp(F2, dout2)
+    want = F2.double().t() @ dout2.double()
+    default = torch.matmul(F2.t(), dout2)
+    torch.cuda.synchronize()
+    rel, rel_default = rel_err(got, want), rel_err(default, want)
+    ok = got.dtype == torch.float32 and rel <= 1e-3 and \
+        bool(torch.isfinite(got).all())
+    ms = time_ms(lambda: dwp(F2, dout2), reps=5, warmup=2)
+    default_ms = time_ms(lambda: torch.matmul(F2.t(), dout2), reps=5,
+                         warmup=2)
+    log(f'[inv-bf16-kernels] dw_product {layer} (F {tuple(F2.shape)} x dout '
+        f'{tuple(dout2.shape)} bf16 -> fp32): rel_norm_err vs float64 '
+        f'{rel:.3e} [1e-3] in {ms:.4f} ms; torch.matmul bf16 default '
+        f'{rel_default:.3e} in {default_ms:.4f} ms {"OK" if ok else "FAIL"}')
+    del want, default
+    return {'layer': layer, 'rel_norm_err': rel, 'ms': ms,
+            'default_rel_norm_err': rel_default, 'default_ms': default_ms,
+            'ok': ok}
+
+
+def phase_inv_bf16_train(device, legs, reps=5):
+    """[inv-bf16-train] One bf16 inv triplet step (b=16 a leg) on the
+    kernel path and on the plain path from the same weights by the rule of
+    [bf16-train] (``bf16_step_check``; degenerate leaves from a float64
+    step), with peak device memory; the whole step timed on both paths in
+    turns (median of 5)."""
+    import torch
+    models_ = tuple(inv_model(device).train() for _ in range(4))
+    mk, mp = models_[:2]
+    out = bf16_step_check(
+        f'[inv-bf16-train] b={INV_BATCH} a leg,', models_, inv_loss, legs,
+        tuple(x * (1 + 1e-6) for x in legs), INV_BF16_PER_STEP,
+        _max_abs(inv_f64_grads(mp, legs)), 'patches')
+    del models_
+    torch.cuda.empty_cache()
+    _, k_ms, p_ms, k_ts, p_ts = time_steps(
+        mk, mp, legs, 'bf16', reps, loss=inv_loss, tag='[inv-bf16-train]',
+        n_clouds=2 * INV_BATCH)
+    del mk, mp
+    torch.cuda.empty_cache()
+    out.update(kernel_ms=k_ms, plain_ms=p_ms, kernel_runs_ms=k_ts,
+               plain_runs_ms=p_ts)
+    return out
+
+
+def phase_inv_bf16_descriptor(device, root, reps=5):
+    """[inv-bf16-descriptor] bf16 descriptors at b=48 patches (the serving
+    path), kernel path vs plain path: per-patch cosine >= 0.999, or, if the
+    kernel path's own noise floor (against itself on the patches scaled by
+    1 + 1e-6) lies below that, >= the floor less 0.01; both timed in turns
+    (median of 5)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    src, tgt = inv_legs(root, device, items=(0, 1))
+    x = torch.cat([src, tgt])[:INV_DESC_BATCH].contiguous()
+    model = inv_model(device).eval()
+
+    def plain_fwd():
+        with kernels.plain():
+            return model(x)[0]
+    with torch.no_grad(), compute_dtype('bf16'):
+        yk, yp = model(x)[0], plain_fwd()
+        yq = model(x * (1 + 1e-6))[0]
+        torch.cuda.synchronize()
+        k_ts, p_ts = [], []
+        for _ in range(reps):
+            k_ts.append(time_ms(lambda: model(x), reps=1, warmup=0))
+            p_ts.append(time_ms(plain_fwd, reps=1, warmup=0))
+    k_ms, p_ms = statistics.median(k_ts), statistics.median(p_ts)
+    cos, floor = float(_cosine(yk, yp).min()), float(_cosine(yk, yq).min())
+    gate, which = (0.999, '0.999') if floor >= 0.999 else \
+        (floor - 0.01, f'the noise floor {floor:.6f} - 0.01')
+    log(f'[inv-bf16-descriptor] b={INV_DESC_BATCH} bf16 descriptors '
+        f'{tuple(yk.shape)} {yk.dtype}: kernel vs plain path min per-patch '
+        f'cosine {cos:.6f} (gate {which}); kernel path vs itself on the '
+        f'patches x (1 + 1e-6) min {floor:.6f}; norms '
+        f'{float(yk.norm(dim=1).min()):.6f}-{float(yk.norm(dim=1).max()):.6f}'
+        f'; forward kernel path {k_ms:.2f} ms '
+        f'({1e3 * INV_DESC_BATCH / k_ms:.1f} patches/s), plain path '
+        f'{p_ms:.2f} ms; median of {reps} turns')
+    assert yk.shape == (INV_DESC_BATCH, 64) and yk.dtype == torch.float32
+    assert torch.isfinite(yk).all() and cos >= gate, (cos, gate)
+    del model
+    torch.cuda.empty_cache()
+    return {'min_cos': cos, 'noise_min_cos': floor, 'gate': gate,
+            'kernel_ms': k_ms, 'plain_ms': p_ms, 'kernel_runs_ms': k_ts,
+            'plain_runs_ms': p_ts}
 
 
 def main():
@@ -1614,13 +1882,22 @@ def main():
         bf16_train_counts, bf16_train_wall = phase_train_entry('bf16')
         torch.cuda.empty_cache()
         inv_root = inv_tree()
-        legs = inv_legs(inv_root, device)
+        batches = inv_batches(inv_root, device, 3)
+        legs = batches[0]
         inv_results, inv_routes = phase_inv_kernels(device, legs)
         torch.cuda.empty_cache()
-        inv_train = phase_inv_train(device, legs)
-        del legs
+        inv_train = phase_inv_train(device, batches)
+        del batches
         inv_desc = phase_inv_descriptor(device, inv_root)
         inv_counts, inv_wall = phase_inv_train_entry(inv_root)
+        torch.cuda.empty_cache()
+        inv_bf16_results, _ = phase_inv_kernels(device, legs, 'bf16')
+        torch.cuda.empty_cache()
+        inv_bf16_train = phase_inv_bf16_train(device, legs)
+        del legs
+        inv_bf16_desc = phase_inv_bf16_descriptor(device, inv_root)
+        inv_bf16_counts, inv_bf16_wall = phase_inv_train_entry(inv_root,
+                                                               'bf16')
         shutil.rmtree(INV_DIR, ignore_errors=True)
     except Exception:
         traceback.print_exc()
@@ -1634,21 +1911,29 @@ def main():
         'nvidia-smi unavailable'
     summary = []
     for k in kernels.KERNELS:
-        # the numbers of the path that brought the kernel in: the inv
+        # the numbers of the path that brought the kernel in: the fp32 inv
         # triplet step (b=16 a leg) for the W-off kernels, else the bf16
         # train step's backward (b=12), the bf16 forward (b=32), the fp32
         # forward (b=32) or the fp32 train step's backward (b=12);
-        # `launches` from this slice's main path (the inv train entry run),
-        # else from the bf16 train entry, the bf16 eval entry, the fp32
-        # train entry
+        # `launches` from the main path (the bf16 inv train entry run),
+        # else from the fp32 inv train entry, the bf16 train entry,
+        # the bf16 eval entry, the fp32 train entry
         rows = (inv_results[k.name] if k.name in _NO_WOFF else
                 bf16_bwd.get(k.name) or bf16_results.get(k.name)
                 or results[k.name])
         rec = {'name': k.name, 'route': 'cuda', 'source': k.source,
                'replaces': k.replaces,
-               'launches': (inv_counts[k.name] or bf16_train_counts[k.name]
+               'launches': (inv_bf16_counts[k.name] or inv_counts[k.name]
+                            or bf16_train_counts[k.name]
                             or bf16_counts[k.name] or counts[k.name])}
         rec.update(_aggregate(rows))
+        if inv_bf16_results.get(k.name):
+            # the bf16 inv triplet step's calls (b=16 a leg): for the W-off
+            # kernels their bf16 build's record
+            agg = _aggregate(inv_bf16_results[k.name])
+            agg['share'] = agg['bound_ms'] / agg['ms']
+            agg['launches'] = inv_bf16_counts[k.name]
+            rec['bf16' if k.name in _NO_WOFF else 'inv_bf16'] = agg
         rec['phase'] = ('inv train step b=16 a leg' if k.name in _NO_WOFF
                         else 'bf16 train step b=12' if k.name in bf16_bwd
                         else 'bf16 forward b=32' if k.name in bf16_results
@@ -1664,7 +1949,8 @@ def main():
             rec['df'] = _aggregate(results['intra_conv_df'])
             rec['max_abs_err'] = max(rec['max_abs_err'],
                                      rec['df']['max_abs_err'])
-        rec.update({'inv_train_entry_launches': inv_counts[k.name],
+        rec.update({'inv_bf16_train_entry_launches': inv_bf16_counts[k.name],
+                    'inv_train_entry_launches': inv_counts[k.name],
                     'bf16_train_entry_launches': bf16_train_counts[k.name],
                     'bf16_eval_launches': bf16_counts[k.name],
                     'eval_launches': eval_counts[k.name],
@@ -1692,6 +1978,11 @@ def main():
                    'inv_descriptor_b48': inv_desc,
                    'inv_train_launches': inv_counts,
                    'inv_train_entry_wall_s': inv_wall,
+                   'inv_bf16_per_layer': inv_bf16_results,
+                   'inv_bf16_train_step_b16': inv_bf16_train,
+                   'inv_bf16_descriptor_b48': inv_bf16_desc,
+                   'inv_bf16_train_launches': inv_bf16_counts,
+                   'inv_bf16_train_entry_wall_s': inv_bf16_wall,
                    'kernels': summary, 'seconds': time.time() - t_start},
                   f, indent=1)
     log(f'[done] {time.time() - t_start:.1f} s')

@@ -5,14 +5,19 @@ training part).
 A step is two model calls, one a leg (the src and the tgt patches of npt
 keypoint pairs), the in-batch hard-negative triplet loss on the two
 descriptor sets, a backward through the conv kernels' autograd Functions
-and an Adam step at the scheduled learning rate. Its log scalars (Loss =
-Pos - Neg, Pos, Neg, Acc) stay on the device until the Summary reads them
-at log time. Not ported yet, and refused: the descriptor evaluation
-(``--run-mode eval``), the equivariance loss (``--equi-alpha > 0``) and
-bf16 (``--compute-dtype bf16``).
+and an Adam step at the scheduled learning rate, in fp32 or, with
+``--compute-dtype bf16``, in the production mode (bf16 activations and
+weights at use; fp32 parameters, Adam, statistics and descriptors). Its log
+scalars (Loss = Pos - Neg, Pos, Neg, Acc) stay on the device until the
+Summary reads them at log time. The block-parameter tree goes to
+``<run dir>/params.json``, as the JAX trainer writes it. Not ported yet, and
+refused: the descriptor evaluation (``--run-mode eval``) and the
+equivariance loss (``--equi-alpha > 0``).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -31,9 +36,6 @@ class Trainer3DMatch(Trainer):
         if opt.train_loss.equi_alpha > 0:
             raise NotImplementedError('the equivariance loss (--equi-alpha > '
                                       '0) is not ported: a later slice')
-        if getattr(opt, 'compute_dtype', 'fp32') != 'fp32':
-            raise NotImplementedError('inv_so3net_pn in bf16 is not ported: '
-                                      'the bf16 inv slice; use fp32')
         if getattr(opt, 'steps_per_dispatch', 1) > 1:
             raise NotImplementedError('--steps-per-dispatch > 1 is TPU '
                                       'dispatch machinery; the port takes one '
@@ -54,7 +56,9 @@ class Trainer3DMatch(Trainer):
         self.dataset_iter = iter(self.dataset)
 
     def _setup_model(self):
-        self.model = models.build_model_from(self.opt, seed=self.opt.seed)
+        self.model = models.build_model_from(
+            self.opt, seed=self.opt.seed,
+            outfile_path=os.path.join(self.root_dir, 'params.json'))
         self.model.to(self.device)
 
     def _prepare_input(self, data):

@@ -9,6 +9,8 @@ Summary reads them at log time.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -51,7 +53,12 @@ class TrainerModelNet(Trainer):
                                        seed=opt.seed, drop_last=False)
 
     def _setup_model(self):
-        self.model = models.build_model_from(self.opt, seed=self.opt.seed)
+        # the block-parameter tree to <run dir>/params.json in train mode,
+        # as the JAX trainer writes it
+        self.model = models.build_model_from(
+            self.opt, seed=self.opt.seed,
+            outfile_path=(os.path.join(self.root_dir, 'params.json')
+                          if self.opt.mode == 'train' else None))
         self.model.to(self.device)
 
     # ----------------------------------------------------------------- steps

@@ -48,7 +48,9 @@
 //
 // W-off mode (template flag kWOff, epn_inter_conv_f): the same kernel with
 // the learned product left out. Each chunk's F slab is written from shared
-// memory to F [b, p2, na, K, C] (fp32) instead of being multiplied by W.
+// memory to F [b, p2, na, K, C] instead of being multiplied by W: in the
+// table's type, so a bf16 F is the fp32 slab rounded once on store (the
+// TPU kernel's F is in the table's dtype too).
 // Replaces: epn_pointcloud_tpu/ops/pallas/inter_conv.py, _call_gather ->
 // _fwd_gather_kernel (via fused_gather_neighbor_conv) and _call ->
 // _fwd_kernel (via fused_neighbor_conv): F without W, from the table and
@@ -57,7 +59,8 @@
 // beforehand are a table indexed by their own positions). The JAX package
 // reaches it where _fgcw_bwd takes its composed backward (c <= 32 or
 // nn > 32), to recompute F for dW = F^T dout. What bounds it: writing F
-// (K * C floats a row; 1.5 GB at the 3DMatch model's B0L1 for b = 16)
+// (K * C elements a row; 1.5 GB in fp32, 0.75 GB in bf16, at the 3DMatch
+// model's B0L1 for b = 16)
 // against the neighbor contraction (2 * nn * K * C flops a row) and the
 // anchor weights recomputed per 8-channel chunk: both near the card's
 // balance point, so neither term is far below the other.
@@ -311,16 +314,26 @@ extern "C" int epn_inter_conv(const void* gx, const void* idx, const void* table
 }
 
 // W-off mode: gx, idx, rk, k2 as above, table [b, q, na, C] and F
-// [b, p2, na, K, C] fp32. C must be a multiple of 8, K of 6.
+// [b, p2, na, K, C]: fp32, or bf16 when bf16 != 0 (F built in fp32 and
+// rounded once on store). C must be a multiple of 8, K of 6.
 extern "C" int epn_inter_conv_f(const void* gx, const void* idx,
                                 const void* table, const void* rk,
                                 const void* k2, void* F, int b, int p2, int nn,
                                 int q, int na, int K, int C, float sigma,
-                                void* stream) {
+                                int bf16, void* stream) {
   if (C % CC != 0 || K % KG != 0 || nn < 1) return (int)cudaErrorInvalidValue;
+  const float* g = (const float*)gx;
+  const int* ix = (const int*)idx;
+  const float* r = (const float*)rk;
+  const float* kk = (const float*)k2;
+  cudaStream_t s = (cudaStream_t)stream;
   // 256 threads a block, 128 rows; no W slabs in shared memory
-  return launch<128, 128, float, true>(
-      (const float*)gx, (const int*)idx, (const float*)table,
-      (const float*)rk, (const float*)k2, nullptr, (float*)F, b * p2 * na,
-      p2, nn, q, na, K, C, 0, sigma, (cudaStream_t)stream);
+  if (bf16) {
+    return launch<128, 128, epn::bf16, true>(
+        g, ix, (const epn::bf16*)table, r, kk, nullptr, (epn::bf16*)F,
+        b * p2 * na, p2, nn, q, na, K, C, 0, sigma, s);
+  }
+  return launch<128, 128, float, true>(g, ix, (const float*)table, r, kk,
+                                       nullptr, (float*)F, b * p2 * na, p2,
+                                       nn, q, na, K, C, 0, sigma, s);
 }

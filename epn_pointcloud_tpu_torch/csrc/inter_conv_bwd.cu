@@ -39,16 +39,18 @@
 // order that changes from run to run, so dT's ulp-level rounding does too.
 //
 // W-off mode of dTable (template flag kWOff, epn_inter_conv_dg): dF
-// [b, p2, na, K, C] fp32 comes from device memory (the caller formed it as
-// dout W^T) and each chunk's slab is loaded instead of formed; the scatter
-// is the same. It replaces _call -> _bwd_kernel (the VJP of
+// [b, p2, na, K, C] (fp32, or bf16 widened on load) comes from device
+// memory (the caller formed it as dout W^T) and each chunk's slab is loaded
+// instead of formed; the scatter is the same, except that in bf16 each
+// slot's fp32 sum is rounded to bf16 before its atomics, where the TPU's
+// dG is stored in bf16. It replaces _call -> _bwd_kernel (the VJP of
 // fused_gather_neighbor_conv / fused_neighbor_conv, and the composed
 // backward of _fgcw_bwd:1685-1703) together with the one-hot fold of dG
 // onto the table rows that follows it there (_fgcw_bwd:1692-1696,
 // _fgnc_bwd:802-805): the scatter is that fold, so dG [b, p2, nn, na, C]
-// never exists. What bounds it: reading dF (K * C floats a row) against the
-// scatter's 2 * nn * K * C flops a row and the weights recomputed per chunk
-// (~9 * nn * K a row and chunk): near the card's balance point.
+// never exists. What bounds it: reading dF (K * C elements a row) against
+// the scatter's 2 * nn * K * C flops a row and the weights recomputed per
+// chunk (~9 * nn * K a row and chunk): near the card's balance point.
 //
 // dW (inter_dw_kernel): a block owns one chunk of 8 channels (192 (k, cc)
 // rows of dW), BN = 64 or 128 columns of d, and one range of rows. Per
@@ -164,11 +166,12 @@ __device__ __forceinline__ void df_slab_gemm(
   }
 }
 
-// The dF slab of channel chunk c0 read from dF [M, NK, C] fp32 in device
-// memory (W-off mode), a float4 (half a (row, k) chunk row) a thread; zeros
-// for rows past M.
+// The dF slab of channel chunk c0 read from dF [M, NK, C] in device memory
+// (W-off mode; bf16 widened on load), a float4 (half a (row, k) chunk row)
+// a thread; zeros for rows past M.
+template <typename E>
 __device__ __forceinline__ void df_slab_load(float* __restrict__ s_F,
-                                             const float* __restrict__ dF,
+                                             const E* __restrict__ dF,
                                              int m0, int M, int C, int c0,
                                              int tid) {
   constexpr int kRow4 = CC / 4;
@@ -183,7 +186,9 @@ __device__ __forceinline__ void df_slab_load(float* __restrict__ s_F,
   }
 }
 
-// kWOff: dout is dF [M, NK, C] (E = float); W and D are unused
+// kWOff: dout is dF [M, NK, C]; W and D are unused, and each slot's sum
+// sum_k w dF is rounded to E before it is added (the TPU kernel writes dG in
+// dF's dtype before its fp32 fold onto the table rows)
 template <typename E, bool kWOff>
 __global__ void __launch_bounds__(T_THREADS)
 inter_dtable_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
@@ -247,7 +252,9 @@ inter_dtable_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
       }
       float* dst = dT + (((size_t)(pt / p2) * q + j) * na + a) * C + c0;
 #pragma unroll
-      for (int cc = 0; cc < CC; ++cc) atomicAdd(dst + cc, v[cc]);
+      for (int cc = 0; cc < CC; ++cc) {
+        atomicAdd(dst + cc, kWOff ? epn::round_to<E>(v[cc]) : v[cc]);
+      }
     }
   }
 }
@@ -446,18 +453,28 @@ extern "C" int epn_inter_conv_bwd_table(const void* gx, const void* idx,
 }
 
 // W-off mode of dTable: gx, idx, rk, k2 as above, dF [b, p2, na, K, C]
-// fp32; dT [b, q, na, C] fp32 must hold zeros. K must be 24, C a multiple
-// of 8.
+// fp32, or bf16 when bf16 != 0 (each slot's sum then rounded to bf16 before
+// the fp32 atomics); dT [b, q, na, C] fp32 must hold zeros. K must be 24, C
+// a multiple of 8.
 extern "C" int epn_inter_conv_dg(const void* gx, const void* idx,
                                  const void* rk, const void* k2,
                                  const void* dF, void* dT, int b, int p2,
                                  int nn, int q, int na, int K, int C,
-                                 float sigma, void* stream) {
+                                 float sigma, int bf16, void* stream) {
   if (K != NK || C % CC != 0 || nn < 1) return (int)cudaErrorInvalidValue;
-  return launch_dtable<float, true>(
-      (const float*)gx, (const int*)idx, (const float*)rk, (const float*)k2,
-      nullptr, dF, (float*)dT, b * p2 * na, p2, nn, q, na, C, 0, sigma,
-      (cudaStream_t)stream);
+  const float* g = (const float*)gx;
+  const int* ix = (const int*)idx;
+  const float* r = (const float*)rk;
+  const float* kk = (const float*)k2;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) {
+    return launch_dtable<epn::bf16, true>(g, ix, r, kk, nullptr, dF,
+                                          (float*)dT, b * p2 * na, p2, nn, q,
+                                          na, C, 0, sigma, s);
+  }
+  return launch_dtable<float, true>(g, ix, r, kk, nullptr, dF, (float*)dT,
+                                    b * p2 * na, p2, nn, q, na, C, 0, sigma,
+                                    s);
 }
 
 // gx, idx, rk, k2 as above, table [b, q, na, C] and dout [b, p2, na, D]

@@ -1,6 +1,7 @@
 """Model construction: ``build_model_from(opt)`` dispatches on
 ``opt.model.model``: ``cls_so3net_pn`` (ModelNet40 classification) or
-``inv_so3net_pn`` (3DMatch descriptors)."""
+``inv_so3net_pn`` (3DMatch descriptors). Given ``outfile_path``, the builder
+writes its block-parameter tree there as JSON (the trainers' params.json)."""
 
 from . import cls_so3net_pn, inv_so3net_pn
 from .cls_so3net_pn import ClsSO3ConvModel  # noqa: F401
@@ -10,8 +11,8 @@ BUILDERS = {'cls_so3net_pn': cls_so3net_pn.build_model,
             'inv_so3net_pn': inv_so3net_pn.build_model}
 
 
-def build_model_from(opt, seed=0):
+def build_model_from(opt, seed=0, outfile_path=None):
     if opt.model.model not in BUILDERS:
         raise KeyError(f'model {opt.model.model!r} is not ported '
                        f'({", ".join(BUILDERS)})')
-    return BUILDERS[opt.model.model](opt, seed=seed)
+    return BUILDERS[opt.model.model](opt, seed=seed, to_file=outfile_path)

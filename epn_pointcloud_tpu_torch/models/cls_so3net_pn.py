@@ -10,6 +10,7 @@ truncations.
 
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, Optional
 
 import torch
@@ -55,8 +56,10 @@ def build_model(opt,
                 sigma_ratio=0.5,
                 xyz_pooling=None,
                 so3_pooling='max',
-                seed: Optional[int] = 0):
-    """Derive the block-parameter tree and build the model (seeded init)."""
+                seed: Optional[int] = 0,
+                to_file: Optional[str] = None):
+    """Derive the block-parameter tree and build the model (seeded init);
+    the tree is written to ``to_file`` as JSON when one is given."""
     strides = list(strides)
     input_num = opt.model.input_num
     dropout_rate = opt.model.dropout_rate
@@ -135,5 +138,9 @@ def build_model(opt,
         'temperature': temperature,
         'kanchor': na,
     }
+    if to_file is not None:
+        with open(to_file, 'w') as f:
+            json.dump(params, f)
+
     return ClsSO3ConvModel(params, seed=seed)
 

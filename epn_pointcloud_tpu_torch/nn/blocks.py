@@ -4,13 +4,15 @@ the block parameters name: BatchNorm (cls) or, with no name, InstanceNorm
 (inv; no parameters). In fp32, train and eval differ only in the
 BatchNorms, through ``module.train()`` / ``.eval()``. In the bf16 production
 mode (``ops.so3conv.packed_enabled()``) a separable block runs the JAX
-packed path: the inter conv's BatchNorm and activation are deferred into the
-intra conv's load path (PRENORM kernel; in train mode the fold carries the
-batch statistics and takes their gradient). In eval the intra InstanceNorm,
-the skip 1x1 conv, its BatchNorm, both activations and the residual add run
-in one fused tail kernel; training (whose skip BatchNorm needs the skip
-conv's batch statistics) and block 0 layer 0 (the occupancy-ones input,
-rank-1 skip) keep the unfused tail.
+packed path: the inter conv's norm and activation are deferred into the
+intra conv's load path (PRENORM kernel; the fold carries the statistics of
+the batch, BatchNorm in train mode, or of each sample, InstanceNorm, and
+takes their gradient). In eval a BatchNorm block runs the intra
+InstanceNorm, the skip 1x1 conv, its BatchNorm, both activations and the
+residual add in one fused tail kernel; training (whose skip BatchNorm needs
+the skip conv's batch statistics), InstanceNorm blocks (the JAX package
+fuses the tail for BatchNorm only) and block 0 layer 0 (the occupancy-ones
+input, rank-1 skip) keep the unfused tail.
 
 Module names follow the original EPN tree
 (``backbone.{i}.blocks.{j}.{inter_conv,intra_conv,skip_conv,norm}``).
@@ -44,7 +46,7 @@ class IntraSO3ConvBlock(nn.Module):
         per-lane [b, 2, L]) for a fused tail to apply."""
         x = self.conv(x, prenorm=prenorm)
         if defer_norm_act:
-            return x, self.norm.scale_shift(x.feats)
+            return x, self.norm.scale_shift(x.feats.shape[2], x.feats)
         return SphericalPointCloud(x.xyz, self.act(self.norm(x.feats)),
                                    x.anchors)
 
@@ -68,9 +70,10 @@ class InterSO3ConvBlock(nn.Module):
 
     def forward(self, x: SphericalPointCloud, ones_input: bool = False,
                 defer_norm_act: bool = False):
-        """defer_norm_act: return (sample_idx, raw conv output, the
-        BatchNorm folded to per-lane [1, 2, L]) for the next kernel to apply
-        with the activation on load."""
+        """defer_norm_act: return (sample_idx, raw conv output, the norm
+        folded to per-lane [1, 2, L] (BatchNorm) or [b, 2, L]
+        (InstanceNorm)) for the next kernel to apply with the activation on
+        load."""
         sample_idx, x = self.conv(x, ones_input=ones_input)
         if defer_norm_act:
             return sample_idx, x, self.norm.scale_shift(x.feats.shape[2],
@@ -120,18 +123,14 @@ class SeparableSO3ConvBlock(nn.Module):
 
     def _forward_packed(self, x: SphericalPointCloud, ones_input: bool):
         """The bf16 production-mode forward (``blocks.py:126-246`` of the
-        JAX package on packed activations; its fused tail is eval-only).
-        BatchNorm blocks only: the InstanceNorm folds of the inv model's
-        packed path are the bf16 inv slice, not ported."""
-        if not isinstance(self.norm, BatchNorm):
-            raise NotImplementedError('bf16 blocks with InstanceNorm '
-                                      '(inv_so3net_pn) are not ported: the '
-                                      'bf16 inv slice')
+        JAX package on packed activations). Its fused tail needs an eval
+        BatchNorm skip (``blocks.py:182-186``)."""
         skip = so3conv.at_use(x.feats)
         sample_idx, x, inter_ss = self.inter_conv(
             x, ones_input=ones_input, defer_norm_act=True)
         skip = self._strided_skip(skip, x, sample_idx, ones_input)
-        if ones_input or self.training:
+        if ones_input or self.training or not isinstance(self.norm,
+                                                          BatchNorm):
             # the unfused tail, rounded after the skip conv, after each norm
             # and after the residual. The rank-1 skip over the constant field
             # is the JAX package's unpacked one: a broadcast product and

@@ -11,9 +11,12 @@ from the moments kernel (``heads.py:101-110``); the pointnet,
 attention and logits are fp32 in both modes (``heads.py:101-142`` of the
 JAX package).
 
-3DMatch descriptor head ``InvOutBlockMVD`` (``heads.py:214-241``, fp32):
-anchor attention, the attention-weighted anchor sum, a single-anchor
-PointNet and an L2 normalization.
+3DMatch descriptor head ``InvOutBlockMVD`` (``heads.py:214-241``): anchor
+attention, the attention-weighted anchor sum, a single-anchor PointNet and
+an L2 normalization. In bf16 it keeps the JAX package's types: the
+attention's 1x1 convs, its softmax and the weighted sum in bf16 (fp32
+accumulation in the convs), then the PointNet, whose concat with the fp32
+coordinates promotes to fp32, and the normalization in fp32.
 """
 
 from __future__ import annotations

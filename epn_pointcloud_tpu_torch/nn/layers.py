@@ -81,46 +81,59 @@ class Dense1x1(nn.Module):
         return so3conv.grouped_conv1x1(x, self.weight_cd(), self.bias)
 
 
+def _lane_sums(x: torch.Tensor, kernel_stats: bool = True):
+    """Per-lane fp32 (sum, sum of squares) of x [b, p, na, c] over the
+    points: [b, na*c] from the moments kernel, or (``kernel_stats=False``)
+    [b, c] from plain torch sums over (p, na), the JAX package's unpacked
+    ``_moments``, which layer 0's rank-1 skip takes."""
+    if kernel_stats:
+        return so3conv.moments(x)
+    b, p, na, c = x.shape
+    return moments_plain(x.reshape(b, p * na, c))
+
+
 class InstanceNorm(nn.Module):
     """InstanceNorm2d(affine=False) over [b, p, a, c]: each (b, c) slice is
     normalized over (p, a) with its biased variance: two-pass in the fp32
     mode, and in the bf16 production mode (``so3conv.packed_enabled()``) the
-    one-pass E[x^2] - E[x]^2 (clamped at 0) from the moments
-    kernel's per-lane sums, folded per (b, c) in fp32 (the JAX package's
-    ``_packed_instance_norm``)."""
+    one-pass E[x^2] - E[x]^2 (clamped at 0) in fp32 from ``_lane_sums``
+    (the JAX package's ``_packed_instance_norm``, or its unpacked
+    ``_moments`` with ``kernel_stats=False``), differentiable."""
 
     def __init__(self, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
 
-    def _packed_stats(self, x: torch.Tensor):
-        """(mean, rsig) fp32 [b, 1, 1, c] from the per-lane sums."""
+    def _packed_stats(self, x: torch.Tensor, kernel_stats: bool = True):
+        """(mean, rsig) fp32 [b, 1, 1, c] from per-lane sums."""
         b, p, na, c = x.shape
-        s, sq = so3conv.moments(x)                          # [b, na*c]
+        s, sq = _lane_sums(x, kernel_stats)
         n = p * na
-        mean = s.reshape(b, na, c).sum(dim=1) / n
-        var = torch.clamp(sq.reshape(b, na, c).sum(dim=1) / n - mean * mean,
+        mean = s.reshape(b, -1, c).sum(dim=1) / n
+        var = torch.clamp(sq.reshape(b, -1, c).sum(dim=1) / n - mean * mean,
                           min=0.0)
         return (mean.reshape(b, 1, 1, c),
                 torch.rsqrt(var + self.eps).reshape(b, 1, 1, c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                kernel_stats: bool = True) -> torch.Tensor:
         if not so3conv.packed_enabled():
             var, mean = torch.var_mean(x, dim=(1, 2), correction=0,
                                        keepdim=True)
             return (x - mean) * torch.rsqrt(var + self.eps)
-        mean, rsig = self._packed_stats(x)
+        mean, rsig = self._packed_stats(x, kernel_stats)
         return ((x.float() - mean) * rsig).to(x.dtype)
 
-    def scale_shift(self, x: torch.Tensor) -> torch.Tensor:
-        """The norm folded to per-lane fp32 [b, 2, na*c] (scale; shift), with
-        x * scale + shift == the normalized x: for a kernel that applies it
-        on load (production mode)."""
-        b, _, na, c = x.shape
+    def scale_shift(self, groups: int, x: torch.Tensor) -> torch.Tensor:
+        """The norm of x [b, p, groups, c] folded to per-lane fp32 [b, 2,
+        groups*c] (scale; shift; a fold a sample), with x * scale + shift ==
+        the normalized x: for a kernel that applies it on load (production
+        mode). The call matches ``BatchNorm.scale_shift``."""
+        b, c = x.shape[0], x.shape[-1]
         mean, rsig = self._packed_stats(x)
         ss = torch.stack([rsig, -mean * rsig], dim=1)       # [b, 2, 1, 1, c]
-        return ss.reshape(b, 2, 1, c).expand(b, 2, na, c).reshape(b, 2,
-                                                                  na * c)
+        return ss.reshape(b, 2, 1, c).expand(b, 2, groups, c).reshape(
+            b, 2, groups * c)
 
 
 class BatchNorm(nn.Module):
@@ -161,10 +174,7 @@ class BatchNorm(nn.Module):
         the running statistics moved (the unbiased variance, momentum 0.1)."""
         b, p, na, c = x.shape
         n = b * p * na
-        if kernel_stats:
-            s, sq = so3conv.moments(x)                   # [b, na*c]
-        else:
-            s, sq = moments_plain(x.reshape(b, p * na, c))    # [b, c]
+        s, sq = _lane_sums(x, kernel_stats)
         mean = s.reshape(-1, c).sum(0) / n
         var = torch.clamp(sq.reshape(-1, c).sum(0) / n - mean * mean,
                           min=0.0)

@@ -43,12 +43,13 @@ SIGNATURES = {
     # bf16, stream
     'epn_inter_conv': [_P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    # gx, idx, table, rk, k2, f, b, p2, nn, q, na, k, c, sigma, stream
+    # gx, idx, table, rk, k2, f, b, p2, nn, q, na, k, c, sigma, bf16, stream
     'epn_inter_conv_f': [_P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # gx, idx, rk, k2, df, d_table, b, p2, nn, q, na, k, c, sigma, stream
+                         _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # gx, idx, rk, k2, df, d_table, b, p2, nn, q, na, k, c, sigma, bf16,
+    # stream
     'epn_inter_conv_dg': [_P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                          _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # f, trace_idx, w, ss, out, b, p, na, k, c, d, ss_stride, bf16, stream
     'epn_intra_conv': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P],

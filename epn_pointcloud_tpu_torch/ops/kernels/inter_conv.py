@@ -22,8 +22,8 @@ The W-off kernels replace ``_call_gather`` -> ``_fwd_gather_kernel`` and
 fold after it (dG onto the table rows): ``inter_conv_f`` writes F
 [b, p, a, k, c] and ``inter_conv_dg`` scatters sum_k w dF onto the table.
 ``InterConvFn``'s backward runs them where ``_fgcw_bwd`` composes its
-backward from them (``composed_backward``), with dF and dW as torch
-matmuls, as the JAX package leaves those to XLA.
+backward from them (``composed_backward``), in either dtype, with dF and dW
+as torch matmuls, as the JAX package leaves those to XLA.
 
 The plain versions are anchor-chunked fp32 formulations (the forward that of
 ``epn_pointcloud_tpu/ops/so3conv.py`` ``inter_so3conv_fused``, XLA path), so
@@ -32,7 +32,10 @@ no [b, p, n, na, *] tensor for all anchors exists at once.
 Forward and backward also run in bf16 (the production mode): the table, W,
 out and dout are bf16, gx, rk and k2 stay fp32, and every product and sum is
 fp32; out is rounded once, dW stays fp32 and dT is rounded to the table's
-type after its fp32 sums, as ``_fgcw_bwd`` rounds its fp32 dTable.
+type after its fp32 sums, as ``_fgcw_bwd`` rounds its fp32 dTable. The W-off
+kernels keep the composed route's bf16 rounding points (``_fgcw_bwd:1685-
+1703``): F and dF in the table's type, each neighbor slot's sum_k w dF
+rounded to bf16 before the fp32 fold onto the table rows, dW summed in fp32.
 """
 
 from __future__ import annotations
@@ -102,10 +105,11 @@ def _f_chunks(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
 
 def _scatter_rows(gx: torch.Tensor, idx: torch.Tensor, q: int,
                   rk: torch.Tensor, k2: torch.Tensor, dF_chunk, c: int,
-                  sigma: float) -> torch.Tensor:
+                  sigma: float, slot_dtype=None) -> torch.Tensor:
     """dT [b, q, na, c] fp32: each neighbor slot's sum_k w dF scattered onto
     its table row (the shadow row dropped); dF_chunk(s, e) gives dF
-    [b, p2, e - s, K, c] of anchors [s, e)."""
+    [b, p2, e - s, K, c] of anchors [s, e). slot_dtype bf16: each slot's sum
+    rounded to bf16 before it is added."""
     b, p2, nn = idx.shape
     na = rk.shape[0]
     # flat row of (b, idx) in the shadow-padded [b * (q + 1)] table
@@ -116,6 +120,8 @@ def _scatter_rows(gx: torch.Tensor, idx: torch.Tensor, q: int,
         e = min(s + ANCHOR_CHUNK, na)
         w = anchor_weights(gx, rk[s:e], k2, sigma)          # [b,p,n,ac,K]
         g = torch.einsum('bpnak,bpakc->bpnac', w, dF_chunk(s, e))
+        if slot_dtype == torch.bfloat16:
+            g = g.to(slot_dtype).to(dT.dtype)
         dT[:, s:e] = dT[:, s:e].index_add(0, rows, g.reshape(-1, e - s, c))
     return dT.reshape(b, q + 1, na, c)[:, :q]
 
@@ -162,20 +168,23 @@ def inter_conv_dw_plain(gx: torch.Tensor, idx: torch.Tensor,
 def inter_conv_f_plain(gx: torch.Tensor, idx: torch.Tensor,
                        table: torch.Tensor, rk: torch.Tensor,
                        k2: torch.Tensor, sigma: float) -> torch.Tensor:
-    """W-off forward: F [b, p2, na, K, c] fp32 (the layout makes dW one
-    [K*c, b*p2*na] x [b*p2*na, d] product)."""
-    return torch.cat([F for _, _, F in _f_chunks(gx, idx, table, rk, k2,
-                                                  sigma)], dim=2)
+    """W-off forward: F [b, p2, na, K, c] computed in fp32 and rounded once
+    to the table's type (the layout makes dW one [K*c, b*p2*na] x
+    [b*p2*na, d] product)."""
+    return torch.cat([F.to(table.dtype) for _, _, F in _f_chunks(
+        gx, idx, table, rk, k2, sigma)], dim=2)
 
 
 def inter_conv_dg_plain(gx: torch.Tensor, idx: torch.Tensor, q: int,
                         rk: torch.Tensor, k2: torch.Tensor, dF: torch.Tensor,
                         sigma: float) -> torch.Tensor:
     """W-off backward: dT [b, q, na, c] fp32 from dF [b, p2, na, K, c], the
-    index_add of sum_k w dF over the shadow-padded rows."""
-    dF = build.widen(dF)
-    return _scatter_rows(gx, idx, q, rk, k2, lambda s, e: dF[:, :, s:e],
-                         dF.shape[-1], sigma)
+    index_add of sum_k w dF over the shadow-padded rows in fp32; from a bf16
+    dF (widened) each slot's sum is rounded to bf16 first, as the TPU kernel
+    stores dG in dF's dtype before its fp32 fold."""
+    return _scatter_rows(gx, idx, q, rk, k2,
+                         lambda s, e: build.widen(dF[:, :, s:e]),
+                         dF.shape[-1], sigma, slot_dtype=dF.dtype)
 
 
 def _check(kernel, gx, idx, table_shape, rk, k2, W_shape, dout=None,
@@ -282,10 +291,11 @@ def inter_conv_dw(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
     return dW
 
 
-def _check_woff(kernel, gx, idx, table_shape, rk, k2, F=None, table=None):
-    """Checks of the W-off kernels (fp32 operands, K == 24, c % 8 == 0 up to
-    WOFF_MAX_C, 1 <= nn <= WOFF_MAX_NN, na == WOFF_NA); returns (b, p2, nn,
-    q, na, K, c)."""
+def _check_woff(kernel, gx, idx, table_shape, rk, k2, dtype, F=None,
+                table=None):
+    """Checks of the W-off kernels (the table or dF in ``dtype``, fp32 or
+    bf16; K == 24, c % 8 == 0 up to WOFF_MAX_C, 1 <= nn <= WOFF_MAX_NN,
+    na == WOFF_NA); returns (b, p2, nn, q, na, K, c)."""
     dev = gx.device
     if dev.type != 'cuda':
         raise ValueError(f'{kernel}: unsupported device {dev}')
@@ -297,9 +307,9 @@ def _check_woff(kernel, gx, idx, table_shape, rk, k2, F=None, table=None):
             'rk': (rk, torch.float32, (na, K, 3)),
             'k2': (k2, torch.float32, (K,))}
     if table is not None:
-        want['table'] = (table, torch.float32, (b, q, na, c))
+        want['table'] = (table, dtype, (b, q, na, c))
     if F is not None:
-        want['dF'] = (F, torch.float32, (b, p2, na, K, c))
+        want['dF'] = (F, dtype, (b, p2, na, K, c))
     build.check_operands(kernel, dev, want)
     if (K != N_KERNEL or c % 8 != 0 or not 8 <= c <= WOFF_MAX_C
             or not 1 <= nn <= WOFF_MAX_NN or na != WOFF_NA
@@ -314,17 +324,19 @@ def _check_woff(kernel, gx, idx, table_shape, rk, k2, F=None, table=None):
 def inter_conv_f(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
                  rk: torch.Tensor, k2: torch.Tensor,
                  sigma: float) -> torch.Tensor:
-    """W-off forward wrapper -> F [b, p2, na, K, c] fp32: plain version on
-    the CPU, CUDA kernel on the card (fp32 only)."""
+    """W-off forward wrapper -> F [b, p2, na, K, c] in the table's type
+    (fp32 or bf16): plain version on the CPU, CUDA kernel on the card."""
     if table.device.type == 'cpu':
         return inter_conv_f_plain(gx, idx, table, rk, k2, sigma)
+    bf16 = build.dtype_flag(table.dtype, 'inter_conv_f')
     b, p2, nn, q, na, K, c = _check_woff('inter_conv_f', gx, idx, table.shape,
-                                         rk, k2, table=table)
-    F = torch.empty((b, p2, na, K, c), dtype=torch.float32, device=gx.device)
+                                         rk, k2, table.dtype, table=table)
+    F = torch.empty((b, p2, na, K, c), dtype=table.dtype, device=gx.device)
     launches['inter_conv_f'] += 1
     build.launch('epn_inter_conv_f', gx.data_ptr(), idx.data_ptr(),
                  table.data_ptr(), rk.data_ptr(), k2.data_ptr(), F.data_ptr(),
-                 b, p2, nn, q, na, K, c, float(sigma), build.stream(table))
+                 b, p2, nn, q, na, K, c, float(sigma), bf16,
+                 build.stream(table))
     return F
 
 
@@ -332,18 +344,21 @@ def inter_conv_dg(gx: torch.Tensor, idx: torch.Tensor, q: int,
                   rk: torch.Tensor, k2: torch.Tensor, dF: torch.Tensor,
                   sigma: float) -> torch.Tensor:
     """W-off backward wrapper -> fp32 dT [b, q, na, c] from dF
-    [b, p2, na, K, c]: plain version on the CPU, CUDA kernel on the card
-    (fp32 only). Its atomics make dT's last-bit rounding vary between runs."""
+    [b, p2, na, K, c] (fp32 or bf16): plain version on the CPU, CUDA kernel
+    on the card. Its atomics make dT's last-bit rounding vary between
+    runs."""
     if dF.device.type == 'cpu':
         return inter_conv_dg_plain(gx, idx, q, rk, k2, dF, sigma)
+    bf16 = build.dtype_flag(dF.dtype, 'inter_conv_dg')
     shape = (idx.shape[0], q, rk.shape[0], dF.shape[-1])
     b, p2, nn, q, na, K, c = _check_woff('inter_conv_dg', gx, idx, shape, rk,
-                                         k2, F=dF)
+                                         k2, dF.dtype, F=dF)
     dT = torch.zeros(shape, dtype=torch.float32, device=dF.device)
     launches['inter_conv_dg'] += 1
     build.launch('epn_inter_conv_dg', gx.data_ptr(), idx.data_ptr(),
                  rk.data_ptr(), k2.data_ptr(), dF.data_ptr(), dT.data_ptr(),
-                 b, p2, nn, q, na, K, c, float(sigma), build.stream(dF))
+                 b, p2, nn, q, na, K, c, float(sigma), bf16,
+                 build.stream(dF))
     return dT
 
 
@@ -356,18 +371,29 @@ def composed_backward(c: int, nn: int) -> bool:
     return c <= 32 or nn > 32
 
 
+def dw_product(F2: torch.Tensor, dout2: torch.Tensor) -> torch.Tensor:
+    """The composed route's dW = F2^T dout2 [K*c, d] in fp32, summed in fp32
+    end to end as ``_fgcw_bwd:1699-1701``'s ``preferred_element_type=float32``
+    einsum. A bf16 product on the card asks cuBLAS for an fp32 output, so
+    the partial sums of a split reduction (b*p2*na ~ 0.5 M rows at inv
+    B0L1) add in fp32 too; on the CPU bf16 operands are widened."""
+    if F2.dtype == torch.bfloat16 and F2.device.type == 'cuda':
+        return torch.mm(F2.t(), dout2, out_dtype=torch.float32)
+    return torch.mm(build.widen(F2).t(), build.widen(dout2))
+
+
 class InterConvFn(torch.autograd.Function):
     """The W-fused inter conv with its hand-written backward (the
     ``fused_gather_conv_w`` custom VJP). Gradients flow to the table and W
     only: gx, idx, rk, k2 and sigma get none, as the JAX VJP zeroes them.
 
-    The backward takes ``_fgcw_bwd``'s two routes: the fused dTable / dW
-    kernels, or, where ``composed_backward`` holds, its composition
-    (``_fgcw_bwd:1685-1703``): dF = dout W^T, dT by the W-off scatter, F
-    recomputed by the W-off forward (not saved from the forward, as in the
-    JAX package) and dW = F^T dout. The W-off kernels are fp32 only, so a
-    bf16 table keeps the fused route at every layer (no full-width cls
-    layer composes; bf16 inv is not ported)."""
+    The backward takes ``_fgcw_bwd``'s two routes, in either dtype: the
+    fused dTable / dW kernels, or, where ``composed_backward`` holds, its
+    composition (``_fgcw_bwd:1685-1703``): dF = dout W^T in the table's
+    type, dT by the W-off scatter (fp32 sums, rounded to the table's type
+    once), F recomputed by the W-off forward in the table's type (not saved
+    from the forward, as in the JAX package) and dW = F^T dout summed in
+    fp32 (``dw_product``) and rounded to W's type."""
 
     @staticmethod
     def forward(ctx, gx, idx, table, rk, k2, W, sigma):
@@ -381,8 +407,7 @@ class InterConvFn(torch.autograd.Function):
         dout = dout.contiguous()
         q, sigma = table.shape[1], ctx.sigma
         K, c, d = W.shape
-        composed = (composed_backward(c, idx.shape[2])
-                    and table.dtype != torch.bfloat16)
+        composed = composed_backward(c, idx.shape[2])
         dT = dW = None
         if ctx.needs_input_grad[2]:
             if composed:
@@ -397,8 +422,8 @@ class InterConvFn(torch.autograd.Function):
         if ctx.needs_input_grad[5]:
             if composed:
                 F = inter_conv_f(gx, idx, table, rk, k2, sigma)
-                dW = torch.matmul(F.reshape(-1, K * c).t(),
-                                  dout.reshape(-1, d)).reshape(K, c, d)
+                dW = dw_product(F.reshape(-1, K * c), dout.reshape(-1, d))
+                dW = dW.reshape(K, c, d).to(W.dtype)
             else:
                 dW = inter_conv_dw(gx, idx, table, rk, k2, dout, sigma)
         return None, None, dT, None, None, dW, None

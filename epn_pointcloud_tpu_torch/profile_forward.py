@@ -5,15 +5,16 @@ card: cls_so3net_pn (ModelNet40) or inv_so3net_pn (3DMatch descriptors).
   python -m epn_pointcloud_tpu_torch.profile_forward --train [--dtype bf16] \
       [-b 12]
   python -m epn_pointcloud_tpu_torch.profile_forward --model inv_so3net_pn \
-      --train [-b 16]
+      --train [--compute-dtype bf16] [-b 16]
 
 Builds the seeded full-width model (1024 points, 60 anchors, random weights)
 on a synthetic cloud batch, runs two warm forwards (or train steps) in each
-compute dtype, then profiles one with ``torch.profiler`` (CPU and CUDA
+compute dtype (``--dtype``, or its alias ``--compute-dtype``; both by
+default), then profiles one with ``torch.profiler`` (CPU and CUDA
 activities). A cls train step is a forward, the attention CE loss, the
-backward and Adam; an inv train step (fp32 only) is the 3DMatch triplet
-step: two legs of b patches (normalized synthetic shapes scaled to the 0.4
-search radius), the soft triplet loss, the backward and Adam. Prints, per
+backward and Adam; an inv train step is the 3DMatch triplet step: two
+legs of b patches (normalized synthetic shapes scaled to the 0.4 search
+radius), the soft triplet loss, the backward and Adam. Prints, per
 dtype, the device time by kernel group, the kernel launches, the host wall
 of the profiled run (ending in a synchronize) and the device's idle share
 (1 - device busy / wall; one stream, so busy is the sum of kernel times),
@@ -145,8 +146,8 @@ def profile(model, x, dtype: str, step=None) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--dtype', nargs='+', default=['fp32', 'bf16'],
-                    choices=['fp32', 'bf16'])
+    ap.add_argument('--dtype', '--compute-dtype', dest='dtype', nargs='+',
+                    default=['fp32', 'bf16'], choices=['fp32', 'bf16'])
     ap.add_argument('--model', default='cls_so3net_pn',
                     choices=['cls_so3net_pn', 'inv_so3net_pn'])
     ap.add_argument('-b', '--batch', type=int, default=None,
@@ -160,8 +161,6 @@ def main(argv=None):
     inv = args.model == 'inv_so3net_pn'
     if args.batch is None:
         args.batch = 16 if inv else 12 if args.train else 32
-    if inv:
-        args.dtype = ['fp32']       # bf16 inv is not ported
     if not torch.cuda.is_available():
         raise SystemExit('profile_forward: needs a CUDA device')
     trainer.set_fp32_parity()

@@ -2,7 +2,8 @@
 repo's run_3dmatch.py):
 
   python -m epn_pointcloud_tpu_torch.run_3dmatch experiment -d DATASET \\
-      --run-mode train [-i ITERS] [--save-freq N] [-lf N] [-r CKPT.pth]
+      --run-mode train [-i ITERS] [--save-freq N] [-lf N] [-r CKPT.pth] \\
+      [--compute-dtype bf16]
 
 DATASET holds fused_fragments/<scene>/<seq>/cloud_bin_N.ply (+ pose) and
 kpts/<scene>/<seq>/cloud_bin_A-cloud_bin_B.npy keypoint pairs
@@ -11,10 +12,11 @@ reference's overrides (``config_opt_3dmatch``: search radius 0.4, the
 'attention' head, inv_so3net_pn, no augmentation, 16 patch pairs of one
 fragment pair a step, lr decay every 20000 steps); ``-i`` and
 ``--save-freq`` given on the command line win over its 150000 / 4000. The
-full-width model (1024-point patches, 60 anchors) trains in fp32 on the
-CUDA device, through the CUDA kernels, forward and backward;
-``main(argv, device='cpu')`` runs it on the CPU through their plain
-versions. ``--run-mode eval``, ``--compute-dtype bf16`` and
+full-width model (1024-point patches, 60 anchors) trains on the CUDA
+device, through the CUDA kernels, forward and backward, in fp32 or, with
+``--compute-dtype bf16``, in the bf16 production mode (its checkpoint
+reloads through ``-r`` in the same mode); ``main(argv, device='cpu')`` runs
+it on the CPU through their plain versions. ``--run-mode eval`` and
 ``--equi-alpha > 0`` raise ``NotImplementedError``: later slices.
 """
 

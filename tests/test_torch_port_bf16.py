@@ -294,7 +294,7 @@ def test_instance_norm_fold_matches_jax(bf16_mode):
     jscale, jshift = jlayers._packed_instance_norm(x3, na, 1e-5,
                                                    scale_shift=True)
     norm = tlayers.InstanceNorm()
-    ss = norm.scale_shift(_t(x, torch.bfloat16))
+    ss = norm.scale_shift(na, _t(x, torch.bfloat16))
     assert ss.shape == (b, 2, na * c) and ss.dtype == torch.float32
     np.testing.assert_allclose(ss[:, 0].numpy(), np.asarray(jscale),
                                rtol=1e-5)

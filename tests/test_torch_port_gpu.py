@@ -6,7 +6,8 @@ mode's kernels in bf16 (ones conv, moments, grouped conv and its fused tail,
 the prenorm intra conv, the bf16 inter conv) with their shape refusals, and
 the production-mode backward kernels (the prenorm intra df / dss / dW,
 the grouped conv dx / dW, the bf16 inter dTable / dW), their determinism
-and a bf16 train step's launches.
+and a bf16 train step's launches; the W-off inter conv (fp32 and bf16)
+with the composed route, and a bf16 inv train step's launches.
 
 Run on a machine with the card:
   python -m pytest tests/test_torch_port_gpu.py -q -m gpu --noconftest
@@ -620,7 +621,7 @@ def test_composed_route_matches_plain_autograd(cuda):
 
 def test_woff_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     """c above 128 or not a multiple of 8, nn above 64, K other than 24, na
-    other than 60, a bf16 operand: a ValueError, never a quiet plain
+    other than 60, an fp16 operand: a ValueError, never a quiet plain
     version."""
     ic = tkern.inter_conv
     kern = torch.from_numpy(tkp.get_spherical_kernel_points(0.28, 1)).to(cuda)
@@ -635,9 +636,118 @@ def test_woff_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         return (gx, idx, f, rk[:na, :K].contiguous(), k2[:K].contiguous(),
                 dF)
     for kw in ({'c': 136}, {'c': 36}, {'nn': 65}, {'K': 18}, {'na': 12},
-               {'dtype': BF16}):
+               {'dtype': torch.float16}):
         gx, idx, f, r, kk, dF = ops(**kw)
         with pytest.raises(ValueError):
             ic.inter_conv_f(gx, idx, f, r, kk, 0.08)
         with pytest.raises(ValueError):
             ic.inter_conv_dg(gx, idx, 8, r, kk, dF, 0.08)
+
+
+@pytest.mark.parametrize('b,p1,stride,nn,c,d', WOFF_SHAPES)
+def test_woff_kernels_bf16_match_plain(cuda, b, p1, stride, nn, c, d):
+    """The bf16 builds: inter_conv_f from a bf16 table (F bf16, rounded once
+    on store) to a normwise 8e-3 of its plain version, inter_conv_dg from a
+    bf16 dF (each slot's sum rounded to bf16, dT fp32) to 1e-3."""
+    gx, idx, f, rk, k2, _, _ = _inter_operands(cuda, b, p1, stride, nn, c, d)
+    ic = tkern.inter_conv
+    rng = np.random.RandomState(nn + c)
+    f = f.to(BF16)
+    dF = _rand(rng, (b, idx.shape[1], 60, 24, c), cuda, dtype=BF16)
+    F = ic.inter_conv_f(gx, idx, f, rk, k2, 0.08)
+    dT = ic.inter_conv_dg(gx, idx, p1, rk, k2, dF, 0.08)
+    torch.cuda.synchronize()
+    assert F.dtype == BF16 and dT.dtype == torch.float32
+    assert _rel(F.float(), ic.inter_conv_f_plain(gx, idx, f, rk, k2,
+                                                 0.08).float()) <= 8e-3
+    assert _rel(dT, ic.inter_conv_dg_plain(gx, idx, p1, rk, k2, dF,
+                                           0.08)) <= 1e-3
+
+
+def test_composed_route_bf16_matches_plain(cuda):
+    """InterConvFn with a bf16 table at a composed-route layer (c = 32)
+    launches the W-fused forward, inter_conv_dg and inter_conv_f, neither
+    fused backward kernel; its bf16 dTable and dW equal the plain
+    composition on the same operands (inter_conv_dg_plain,
+    inter_conv_f_plain, dw_product) to a normwise 8e-3."""
+    gx, idx, f, rk, k2, W, dout = _inter_operands(cuda, 4, 512, 2, 64, 32, 64)
+    ic = tkern.inter_conv
+    f, W, dout = f.to(BF16), W.to(BF16), dout.to(BF16)
+    tk, Wk = f.clone().requires_grad_(), W.clone().requires_grad_()
+    tkern.reset_counts()
+    (ic.InterConvFn.apply(gx, idx, tk, rk, k2, Wk, 0.08).float()
+     * dout.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in tkern.counts().items() if v} == {
+        'inter_conv': 1, 'inter_conv_f': 1, 'inter_conv_dg': 1}
+    K, c, d = W.shape
+    dF = (dout.reshape(-1, d) @ W.reshape(K * c, d).t()).reshape(
+        *dout.shape[:3], K, c)
+    dT = ic.inter_conv_dg_plain(gx, idx, f.shape[1], rk, k2, dF, 0.08)
+    F = ic.inter_conv_f_plain(gx, idx, f, rk, k2, 0.08)
+    dW = ic.dw_product(F.reshape(-1, K * c), dout.reshape(-1, d))
+    assert tk.grad.dtype == Wk.grad.dtype == BF16
+    assert _rel(tk.grad.float(), dT) <= 8e-3
+    assert _rel(Wk.grad.float(), dW.reshape(K, c, d)) <= 8e-3
+
+
+def test_dw_product_sums_in_fp32_on_the_card(cuda):
+    """dw_product from bf16 operands over 491,520 rows (inv B0L1's b*p2*na
+    at b = 16) into [768, 32]: fp32 out, within 1e-4 of the float64 product
+    of the same values (fp32 sums give ~3e-5 here; torch.matmul's default
+    bf16 output, whose split reduction may add bf16 partials, ~1.6e-3)."""
+    rng = torch.Generator(device=cuda).manual_seed(0)
+    F2 = torch.randn((491520, 768), generator=rng, device=cuda).to(BF16)
+    d2 = torch.randn((491520, 32), generator=rng, device=cuda).to(BF16)
+    got = tkern.inter_conv.dw_product(F2, d2)
+    want = F2.double().t() @ d2.double()
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (768, 32)
+    assert _rel(got.double(), want) <= 1e-4
+
+
+def test_bf16_inv_train_step_launches_the_kernels(cuda):
+    """A bf16 triplet step of a small inv model (mlps ((32, 32), (64, 64)))
+    on the card goes through every kernel of the bf16 inv path, the W-off
+    pair at the composed B0L1 and B1L0 included, with the InstanceNorm folds
+    a patch; every parameter gets a finite fp32 gradient; the plain path
+    launches none and gives the same loss to 1e-3."""
+    from epn_pointcloud_tpu_torch import losses
+    from epn_pointcloud_tpu_torch.app import config
+    from epn_pointcloud_tpu_torch.models import inv_so3net_pn as tinv
+    opt = config.parse_args(['experiment', '-d', 'unused'])
+    opt.model.model, opt.model.flag = 'inv_so3net_pn', 'attention'
+    opt.model.search_radius = 0.4
+    models = [tinv.build_model(opt, mlps=((32, 32), (64, 64)), seed=3)
+              .to(cuda).train() for _ in range(2)]
+    x = 0.4 * torch.from_numpy(_ball_points(np.random.RandomState(4), 4,
+                                            1024)).to(cuda)
+
+    def step(model):
+        loss = losses.triplet_batch_loss(model(x[:2])[0], model(x[2:])[0],
+                                         'soft', 1.0)[0]
+        loss.backward()
+        return loss.item()
+    tso3.set_compute_dtype('bf16')
+    try:
+        tkern.reset_counts()
+        loss_k = step(models[0])
+        counts = {k: v for k, v in tkern.counts().items() if v}
+        with tkern.plain():
+            loss_p = step(models[1])
+        torch.cuda.synchronize()
+    finally:
+        tso3.set_compute_dtype('fp32')
+    assert counts == {
+        'fps': 2, 'ball_query': 8, 'ones_conv': 2, 'inter_conv': 6,
+        'inter_conv_dtable': 2, 'inter_conv_dw': 2, 'inter_conv_f': 4,
+        'inter_conv_dg': 4, 'intra_conv_prenorm': 8,
+        'intra_conv_prenorm_df': 8, 'intra_conv_prenorm_dw': 8,
+        'moments': 22, 'grouped_conv': 6, 'grouped_conv_dx': 6,
+        'grouped_conv_dw': 6}
+    assert {k: v for k, v in tkern.counts().items() if v} == counts
+    for m in models:
+        assert all(p.dtype == torch.float32 and p.grad is not None
+                   and bool(torch.isfinite(p.grad).all())
+                   for p in m.parameters())
+    assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)

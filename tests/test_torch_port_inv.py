@@ -248,13 +248,15 @@ def _layers(params, input_num):
     return out
 
 
-def test_bf16_table_keeps_the_fused_route(monkeypatch):
-    """The W-off kernels are fp32 only: at a composed-route shape a bf16
-    table takes the fused dTable / dW (no cls layer composes; bf16 inv is
-    not ported), an fp32 one the composition."""
+@pytest.mark.parametrize('c,nn', [(8, 8), (40, 8), (40, 40)])
+def test_bf16_table_takes_the_jax_route(monkeypatch, c, nn):
+    """The backward route depends on the shape alone, as _fgcw_bwd:1675's
+    gate does: a bf16 table takes the same route as an fp32 one, the
+    composition (inter_conv_dg, inter_conv_f) where composed_backward(c, nn)
+    holds (c <= 32; nn > 32) and the fused dTable / dW elsewhere, with
+    gradients in the operands' types."""
     rng = np.random.RandomState(3)
-    b, p2, nn, q, na, c, d = 1, 4, 8, 6, 2, 8, 32
-    assert tic.composed_backward(c, nn)
+    b, p2, q, na, d = 1, 4, 6, 2, 32
     gx = torch.from_numpy((0.3 * rng.randn(b, p2, nn, 3)).astype(np.float32))
     idx = torch.from_numpy(rng.randint(0, q + 1, (b, p2, nn)).astype(
         np.int32))
@@ -277,10 +279,13 @@ def test_bf16_table_keeps_the_fused_route(monkeypatch):
             np.float32)).to(dtype).requires_grad_()
         tic.InterConvFn.apply(gx, idx, tab, rk, k2, W, 0.1).float().sum() \
             .backward()
-        assert tab.grad.dtype == dtype and torch.isfinite(tab.grad).all()
+        assert tab.grad.dtype == W.grad.dtype == dtype
+        assert torch.isfinite(tab.grad).all() and torch.isfinite(W.grad).all()
         routes[dtype] = sorted(seen)
-    assert routes == {torch.float32: ['inter_conv_dg', 'inter_conv_f'],
-                      torch.bfloat16: ['inter_conv_dtable', 'inter_conv_dw']}
+    want = (['inter_conv_dg', 'inter_conv_f'] if tic.composed_backward(c, nn)
+            else ['inter_conv_dtable', 'inter_conv_dw'])
+    assert tic.composed_backward(c, nn) == (c <= 32 or nn > 32)
+    assert routes == {torch.float32: want, torch.bfloat16: want}
 
 
 def test_route_predicate_matches_fgcw_gate():
@@ -590,8 +595,10 @@ def test_trainer_3dmatch_trains_on_the_cpu_and_reloads(tmp_path,
     on every parameter; the checkpoint reloads through -r to the same
     weights."""
     from epn_pointcloud_tpu_torch import models
-    monkeypatch.setattr(models, 'build_model_from', lambda opt, seed: (
-        tinv.build_model(opt, mlps=SMALL_MLPS, seed=seed)))
+    monkeypatch.setattr(models, 'build_model_from',
+                        lambda opt, seed, outfile_path=None: (
+                            tinv.build_model(opt, mlps=SMALL_MLPS, seed=seed,
+                                             to_file=outfile_path)))
     root = str(tmp_path / 'data')
     tsynth.make_3dmatch_tree(root, n_frags=2, n_points=2000, n_kpts=8,
                              seed=1)
@@ -622,7 +629,6 @@ def test_trainer_3dmatch_trains_on_the_cpu_and_reloads(tmp_path,
 
 @pytest.mark.parametrize('argv,what', [
     (['--run-mode', 'eval'], 'evaluation'),
-    (['--compute-dtype', 'bf16'], 'bf16 inv'),
     (['--equi-alpha', '0.5'], 'equivariance'),
 ])
 def test_unported_modes_are_refused(tmp_path, argv, what):
