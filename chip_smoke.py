@@ -4,7 +4,8 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from csrc/ (one nvcc a source, in parallel,
-     sm_90a);
+     sm_90a), and count the tensor-core instructions (HMMA, GMMA) in the
+     SASS of the bf16 grouped conv kernels (cuobjdump): none fails;
   2. at every flagship layer shape of cls_so3net_pn (b=32, 1024 points, 60
      anchors), compare each kernel with its plain PyTorch version on the
      card, on the inputs the model itself gives it (captured from a b=32
@@ -46,10 +47,12 @@ Phases (any failure exits non-zero and prints no result line):
   9. [bf16-backward] capture each backward kernel call of one bf16 train
      step (b=12) of the seeded full-width model: bf16 dTable and inter dW at
      6 layers, the prenorm intra df (with dscale, dshift) and dW at 7, the
-     grouped 1x1 conv dx and dW at 7 (6 skips and the head); compare each
-     with its plain version on the same inputs (normwise relative error <=
-     8e-3 for bf16 outputs, <= 1e-3 for fp32 ones), timing both, with
-     torch.mm beside the grouped conv's dx and dW;
+     grouped 1x1 conv backward (dx, dW and dbias in one launch) at 7 (6
+     skips and the head); compare each with its plain version on the same
+     inputs (normwise relative error <= 8e-3 for bf16 outputs, <= 1e-3 for
+     fp32 ones), timing both, with the two torch.mm (dx, dW) beside the
+     grouped conv's backward, and its outputs bitwise equal on a second
+     call;
  10. [bf16-train] one bf16 train step (b=12) on the kernel path and on the
      plain path from the same weights: loss to rtol 1e-3, every parameter
      with a gradient on both paths, per-leaf gradient cosine >= 0.9 and its
@@ -88,7 +91,8 @@ Phases (any failure exits non-zero and prints no result line):
      and ball_query indices equal, normwise <= 8e-3 for bf16 outputs and
      <= 1e-3 for fp32 ones (the bf16 inter_conv_f / inter_conv_dg, the
      prenorm intra conv with a fold a patch and its backward, moments, the
-     grouped conv and its backward, the fused inter backward); the
+     grouped conv and its backward, the fused inter backward; torch.addmm
+     and torch.mm beside the grouped conv's); the
      composed route's dW product against its float64 product (<= 1e-3);
  17. [inv-bf16-train] one bf16 inv step on the kernel and the plain path
      from the same weights by the rule of [bf16-train] (loss to rtol 1e-3,
@@ -216,12 +220,13 @@ def work(name, args, out):
             f32 = 3 * f.numel()              # the fold and activation
     elif name == 'moments':
         f32 = 3 * args[0].numel()
-    elif name in ('grouped_conv_dx', 'grouped_conv_dw'):
-        x, y = args                          # (dout, W [c, d]) / (x, dout)
-        c, d = (y.shape[0], y.shape[1]) if name.endswith('dx') else \
-            (x.shape[-1], y.shape[-1])
+    elif name == 'grouped_conv_bwd':
+        # dx = dout W^T and dW = x^T dout (each 2 M c d), dbias's sums
+        x, W, parts = args[0], args[1], args[3]
+        M = x.numel() // W.shape[0]
         bf16 = x.dtype == torch.bfloat16
-        mm = 2 * (x.numel() // x.shape[-1]) * c * d
+        mm = 2 * M * W.numel() * ((parts & 1) + (parts >> 1 & 1))
+        f32 = M * W.shape[1] if parts & 2 else 0
     elif name.startswith('grouped_conv'):
         x, W = args[0], args[1]
         M = x.numel() // W.shape[0]
@@ -262,20 +267,25 @@ class compute_dtype:
 
 
 def time_ms(fn, reps=10, warmup=3):
+    """Median device ms of one call of ``fn``: CUDA events around a run of
+    calls (as many as take ~1 ms, at most 20; one for a call of 1 ms or
+    more), so that a short kernel's time is not its host launch cost."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
+
+    def run(n):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        for _ in range(n):
+            fn()
         e.record()
         e.synchronize()
-        ts.append(s.elapsed_time(e))
-    return statistics.median(ts)
+        return s.elapsed_time(e) / n
+    inner = min(20, max(1, math.ceil(1.0 / max(run(1), 1e-3))))
+    return statistics.median(run(inner) for _ in range(reps))
 
 
 def synthetic_batch(b, n, seed):
@@ -309,6 +319,44 @@ def phase_build():
         if 'registers' in line or 'spill' in line:
             log(f'[build] {line.strip()}')
     log(f'[build] kernels built and loaded in {dt:.1f} s')
+    tensor_core_sass(build.lib_path)
+
+
+# the bf16 grouped conv kernels, which run on tensor cores
+TC_KERNELS = ('grouped_conv_mma_kernel', 'grouped_bwd_mma_kernel')
+
+
+def tensor_core_sass(so):
+    """Count the tensor-core instructions (HMMA, GMMA) in the SASS of each
+    instantiation of the bf16 grouped conv kernels in the built library
+    (cuobjdump -sass); written to chiprun_out/kernels_sass_mma.txt. Fails
+    if an instantiation has none."""
+    cuobjdump = shutil.which('cuobjdump') or os.path.join(
+        os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump')
+    sass = subprocess.run([cuobjdump, '-sass', so], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            name = line.split('Function :', 1)[1].strip()
+            fn = name if any(k in name for k in TC_KERNELS) else None
+            if fn:
+                counts[fn] = {'HMMA': 0, 'GMMA': 0}
+        elif fn:
+            for op in ('HMMA', 'GMMA'):
+                counts[fn][op] += op in line
+    lines = [f'{c["HMMA"]} HMMA {c["GMMA"]} GMMA {fn}'
+             for fn, c in sorted(counts.items())]
+    with open(os.path.join(OUT_DIR, 'kernels_sass_mma.txt'), 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+    per = {k: [c['HMMA'] + c['GMMA'] for fn, c in counts.items() if k in fn]
+           for k in TC_KERNELS}
+    for k, n in per.items():
+        log(f'[build] SASS {k}: {len(n)} instantiations, tensor-core '
+            f'instructions {min(n, default=0)}..{max(n, default=0)} each')
+    if not all(per.values()) or min(min(n) for n in per.values()) == 0:
+        raise AssertionError(f'bf16 grouped conv kernels without tensor-core '
+                             f'instructions: {per}')
 
 
 def capture_calls(names, run):
@@ -551,8 +599,7 @@ def phase_eval(dtype='fp32'):
 # zero: F depends on the coordinates only)
 _NO_BF16 = {'intra_conv_prenorm': 0, 'moments': 0, 'grouped_conv': 0,
             'grouped_conv_tail': 0, 'intra_conv_prenorm_df': 0,
-            'intra_conv_prenorm_dw': 0, 'grouped_conv_dx': 0,
-            'grouped_conv_dw': 0}
+            'intra_conv_prenorm_dw': 0, 'grouped_conv_bwd': 0}
 # the W-off inter conv runs only where the backward composes (c <= 32 or
 # nn > 32): never in cls_so3net_pn
 _NO_WOFF = {'inter_conv_f': 0, 'inter_conv_dg': 0}
@@ -580,13 +627,13 @@ BF16_EVAL_PER_BATCH = {**_NO_BF16, **_NO_WOFF, 'fps': 1, 'ball_query': 7,
 # BatchNorms, 7 InstanceNorms, the packed skip BatchNorms of layers 1-6 and
 # the head's (layer 0's rank-1 skip over the constant field runs unpacked, in
 # plain torch, as in the JAX package); the grouped conv at those 6 skips and
-# the head's mlp, forward, dx and dW; bf16 dTable and dW at the 6 inter
+# the head's mlp, forward and backward; bf16 dTable and dW at the 6 inter
 # layers with a feature table; the prenorm intra df and dW at all 7
 BF16_TRAIN_PER_STEP = {**BF16_EVAL_PER_BATCH, 'inter_conv_dtable': 6,
                        'inter_conv_dw': 6, 'intra_conv_prenorm_df': 7,
                        'intra_conv_prenorm_dw': 7, 'moments': 21,
                        'grouped_conv': 7, 'grouped_conv_tail': 0,
-                       'grouped_conv_dx': 7, 'grouped_conv_dw': 7}
+                       'grouped_conv_bwd': 7}
 BF16_FWD = ('fps', 'ball_query', 'ones_conv', 'inter_conv',
             'intra_conv_prenorm', 'moments', 'grouped_conv_tail',
             'grouped_conv')
@@ -644,13 +691,9 @@ def phase_bf16_kernels(model, device):
                'max_abs_err': max_err, 'rel_norm_err': rel, 'ms': k_ms,
                'plain_ms': p_ms, 'ok': ok}
         row['bytes_ms'], row['ops_ms'] = bound_ms(name, args, got)
-        lib = ''
-        if name == 'grouped_conv':
-            xx, W, bias = args
-            x2, b2 = xx.reshape(-1, W.shape[0]), bias.to(xx.dtype)
-            row['library_ms'] = time_ms(lambda: torch.addmm(b2, x2, W))
-            lib = f' addmm_ms={row["library_ms"]:.4f}'
-        elif name == 'moments':
+        row.update(grouped_library(name, args))
+        lib = _library_note(row)
+        if name == 'moments':
             # the same bytes read for the same per-lane statistics
             row['library_ms'] = time_ms(
                 lambda: torch.var_mean(args[0], dim=1, correction=0))
@@ -892,6 +935,42 @@ def phase_train_step(device, reps=5):
             'worst_grad_rel_l2': worst[0], 'adam_trace': trace}
 
 
+def grouped_library(name, args):
+    """The one-call yardstick of a grouped conv call, timed on its inputs:
+    torch.addmm for the forward, the two torch.mm of dx = dout W^T and dW =
+    x^T dout for the backward (added); {} for any other kernel. For the
+    backward also whether a second call gives the same bits."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    if name == 'grouped_conv':
+        x, W, bias = args
+        x2, b2 = x.reshape(-1, W.shape[0]), bias.to(x.dtype)
+        return {'library_ms': time_ms(lambda: torch.addmm(b2, x2, W),
+                                      reps=5, warmup=2)}
+    if name != 'grouped_conv_bwd':
+        return {}
+    x, W, dout, _ = args
+    x2, d2 = x.reshape(-1, W.shape[0]), dout.reshape(-1, W.shape[1])
+    bwd = kernels.grouped_conv.grouped_conv_bwd
+    first, again = bwd(*args), bwd(*args)
+    torch.cuda.synchronize()
+    return {'library_ms': time_ms(lambda: torch.mm(d2, W.t()), reps=5,
+                                  warmup=2)
+            + time_ms(lambda: torch.mm(x2.t(), d2), reps=5, warmup=2),
+            'bitwise_repeat': all(torch.equal(a, b)
+                                  for a, b in zip(first, again)
+                                  if a is not None)}
+
+
+def _library_note(row):
+    note = ''
+    if 'library_ms' in row:
+        note += f' library_ms={row["library_ms"]:.4f}'
+    if 'bitwise_repeat' in row:
+        note += f' bitwise_repeat={row["bitwise_repeat"]}'
+    return note
+
+
 def _kernel_pair(name, args):
     """(kernel wrapper, plain version, the plain's arguments) of a captured
     call of kernel ``name``. The fp32 intra df runs the forward kernel on
@@ -954,7 +1033,7 @@ def check_call(kern_fn, plain_fn, args, pargs, tol):
 BWD = {'fp32': ('inter_conv_dtable', 'inter_conv_dw', 'intra_conv_df',
                 'intra_conv_dw'),
        'bf16': ('inter_conv_dtable', 'inter_conv_dw', 'intra_conv_prenorm_df',
-                'intra_conv_prenorm_dw', 'grouped_conv_dx', 'grouped_conv_dw')}
+                'intra_conv_prenorm_dw', 'grouped_conv_bwd')}
 
 
 def _bwd_layer(name, n_calls, seen):
@@ -998,20 +1077,9 @@ def phase_backward_kernels(device, dtype='fp32'):
         row.update(layer=layer, shape=' '.join(str(tuple(g.shape))
                                                for g in got))
         row['bytes_ms'], row['ops_ms'] = bound_ms(name, args, got)
-        lib = ''
-        if name == 'grouped_conv_dx':
-            dout, W = args
-            d2 = dout.reshape(-1, W.shape[1])
-            row['library_ms'] = time_ms(lambda: torch.mm(d2, W.t()),
-                                        reps=5, warmup=2)
-        elif name == 'grouped_conv_dw':
-            x, dout = args
-            x2 = x.reshape(-1, x.shape[-1])
-            d2 = dout.reshape(-1, dout.shape[-1])
-            row['library_ms'] = time_ms(lambda: torch.mm(x2.t(), d2),
-                                        reps=5, warmup=2)
-        if 'library_ms' in row:
-            lib = f' mm_ms={row["library_ms"]:.4f}'
+        row.update(grouped_library(name, args))
+        row['ok'] = row['ok'] and row.get('bitwise_repeat', True)
+        lib = _library_note(row)
         log(f'{tag} {name} {layer} (out {row["shape"]}, {got[0].dtype}): '
             f'max_abs_err={row["max_abs_err"]:.3e} rel_norm_err='
             f'{" ".join(f"{r:.3e}" for r in row["rels"])} kernel_ms='
@@ -1269,18 +1337,16 @@ INV_NAMES = ('fps', 'ball_query', 'ones_conv', 'inter_conv', 'intra_conv',
 # package), the grouped conv at those 7 skips; no fused tail (InstanceNorm
 # blocks). The backward: the fused dTable / dW at the 3 fused layers,
 # inter_conv_f and inter_conv_dg at the 4 composed ones, the prenorm intra
-# df and dW at 8, the grouped conv dx and dW at 7
+# df and dW at 8, the grouped conv backward at 7
 INV_BF16_PER_STEP = {**INV_PER_STEP, 'intra_conv': 0, 'intra_conv_dw': 0,
                      'intra_conv_prenorm': 16, 'intra_conv_prenorm_df': 16,
                      'intra_conv_prenorm_dw': 16, 'moments': 46,
-                     'grouped_conv': 14, 'grouped_conv_dx': 14,
-                     'grouped_conv_dw': 14}
+                     'grouped_conv': 14, 'grouped_conv_bwd': 14}
 INV_BF16_NAMES = ('fps', 'ball_query', 'ones_conv', 'inter_conv',
                   'intra_conv_prenorm', 'moments', 'grouped_conv',
                   'inter_conv_dtable', 'inter_conv_dw', 'inter_conv_f',
                   'inter_conv_dg', 'intra_conv_prenorm_df',
-                  'intra_conv_prenorm_dw', 'grouped_conv_dx',
-                  'grouped_conv_dw')
+                  'intra_conv_prenorm_dw', 'grouped_conv_bwd')
 # the moments calls of a leg's forward: the inter and the intra
 # InstanceNorm of every layer, and the packed skip's from B0L1 on
 INV_MOMENTS = tuple(f'{layer}.{norm}' for layer in INV_LAYERS
@@ -1359,8 +1425,7 @@ def _inv_layer(name, i):
                'intra_conv_dw': INV_LAYERS[::-1],
                'intra_conv_prenorm_df': INV_LAYERS[::-1],
                'intra_conv_prenorm_dw': INV_LAYERS[::-1],
-               'grouped_conv_dx': INV_LAYERS[:0:-1],
-               'grouped_conv_dw': INV_LAYERS[:0:-1],
+               'grouped_conv_bwd': INV_LAYERS[:0:-1],
                'inter_conv_f': INV_COMPOSED[::-1],
                'inter_conv_dg': INV_COMPOSED[::-1],
                'dw_product': INV_COMPOSED[::-1],
@@ -1411,10 +1476,13 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
                             if name == 'intra_conv_df' else (name, args))
             row['bytes_ms'], row['ops_ms'] = bound_ms(
                 wname, wargs, got[0] if len(got) == 1 else got)
+            row.update(grouped_library(name, args))
+            row['ok'] = row['ok'] and row.get('bitwise_repeat', True)
             log(f'{tag} {name} {layer} ({row["shape"]}, {row["dtype"]}): '
                 f'max_abs_err={row["max_abs_err"]:.3e} rel_norm_err='
                 f'{" ".join(f"{r:.3e}" for r in row["rels"])} kernel_ms='
-                f'{row["ms"]:.4f} plain_ms={row["plain_ms"]:.4f} bound_ms='
+                f'{row["ms"]:.4f} plain_ms={row["plain_ms"]:.4f}'
+                f'{_library_note(row)} bound_ms='
                 f'{max(row["bytes_ms"], row["ops_ms"]):.4f} '
                 f'({"bytes" if row["bytes_ms"] >= row["ops_ms"] else "ops"}) '
                 f'{"OK" if row["ok"] else "FAIL"}')

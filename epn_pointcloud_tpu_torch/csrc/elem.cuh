@@ -2,7 +2,10 @@
 // (fp32 parity mode, bf16 production mode): four consecutive elements load
 // as one float4 and store from one, whatever the storage type, and
 // round_to<T> rounds an fp32 value to T and back (the identity for float).
-// Arithmetic is fp32 throughout; bf16 exists only in device memory.
+// The kernels that use these widen bf16 on load and compute in fp32 on the
+// CUDA cores. The bf16 grouped conv does not: its products take bf16
+// operands straight from shared memory into the tensor cores (tc.cuh,
+// grouped_conv.cu), and it uses these helpers only for its epilogues.
 
 #pragma once
 

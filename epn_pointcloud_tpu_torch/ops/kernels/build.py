@@ -79,13 +79,15 @@ SIGNATURES = {
     # ss_batch, bf16, stream
     'epn_intra_conv_prenorm_df': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _P],
-    # x, dout, ws, d_w, rows, c, d, splits, bf16, stream
-    'epn_grouped_conv_bwd_w': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, dout, dx, ws, dwb, rows, c, d, splits, parts, bf16, stream
+    'epn_grouped_conv_bwd': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P],
 }
 
 _lock = threading.Lock()
 _lib = None
 build_log = ''
+lib_path = ''  # the loaded library's file, once built
 
 
 def _sources():
@@ -144,7 +146,7 @@ def _compile(srcs, so: str) -> str:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib, build_log
+    global _lib, build_log, lib_path
     with _lock:
         if _lib is not None:
             return _lib
@@ -163,7 +165,7 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = lib
+        _lib, lib_path = lib, so
         return lib
 
 

@@ -16,10 +16,11 @@ the skip branch folded the same way ([1, 2, na*d], broadcast over the
 batch), act the leaky ReLU with mask ``u > 0``. Both compute in fp32 from
 fp32 or bf16 operands and round once to the operand type; bias and the
 folds are fp32. The plain conv has a backward, replacing ``_gc_bwd`` ->
-``_bwd_kernel`` (``GroupedConvFn``):
+``_bwd_kernel`` (``GroupedConvFn``), one kernel as the TPU body is:
 
-  dx = dout @ W^T,  dW = x^T dout (over every (point, anchor) row),
-  dbias = sum of dout over the rows (a plain reduce, as in the JAX package);
+  grouped_conv_bwd:   dx = dout @ W^T,  dW = x^T dout,
+                      dbias = sum of dout (both over every (point, anchor)
+                      row, fp32);
 
 the fused tail is inference only.
 """
@@ -37,10 +38,8 @@ ENTRIES = {
                      'epn_pointcloud_tpu/ops/pallas/grouped_conv.py:212'),
     'grouped_conv_tail': ('grouped_conv_tail_plain', SOURCE,
                           'epn_pointcloud_tpu/ops/pallas/grouped_conv.py:132'),
-    'grouped_conv_dx': ('grouped_conv_dx_plain', SOURCE,
-                        'epn_pointcloud_tpu/ops/pallas/grouped_conv.py:66'),
-    'grouped_conv_dw': ('grouped_conv_dw_plain', SOURCE,
-                        'epn_pointcloud_tpu/ops/pallas/grouped_conv.py:66'),
+    'grouped_conv_bwd': ('grouped_conv_bwd_plain', SOURCE,
+                         'epn_pointcloud_tpu/ops/pallas/grouped_conv.py:66'),
 }
 launches = dict.fromkeys(ENTRIES, 0)
 
@@ -72,16 +71,22 @@ def grouped_conv_tail_plain(x: torch.Tensor, W: torch.Tensor,
     return (ym + sk).to(x.dtype).reshape(b, p, na, d)
 
 
-def grouped_conv_dx_plain(dout: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """dx [b, p, na, c] = dout [b, p, na, d] @ W^T in fp32, rounded to
-    dout's type."""
-    return (build.widen(dout) @ build.widen(W).t()).to(dout.dtype)
-
-
-def grouped_conv_dw_plain(x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    """dW [c, d] fp32 = x^T dout over every (point, anchor) row."""
-    c, d = x.shape[-1], dout.shape[-1]
-    return build.widen(x).reshape(-1, c).t() @ build.widen(dout).reshape(-1, d)
+def grouped_conv_bwd_plain(x: torch.Tensor, W: torch.Tensor,
+                          dout: torch.Tensor, parts: int = 3):
+    """(dx, dW, dbias) of out = x @ W + bias for the cotangent dout
+    [b, p, na, d]: dx [b, p, na, c] = dout @ W^T in fp32, rounded to dout's
+    type (``parts`` bit 0); dW [c, d] = x^T dout and dbias [d] = the sum of
+    dout over every (point, anchor) row, both fp32 (bit 1). A part not asked
+    for is None."""
+    c, d = W.shape
+    dx = dW = dbias = None
+    if parts & 1:
+        dx = (build.widen(dout) @ build.widen(W).t()).to(dout.dtype)
+    if parts & 2:
+        d2 = dout.reshape(-1, d)
+        dW = build.widen(x).reshape(-1, c).t() @ build.widen(d2)
+        dbias = d2.sum(0, dtype=dW.dtype)
+    return dx, dW, dbias
 
 
 def _check(kernel, x, W, bias):
@@ -144,56 +149,57 @@ def grouped_conv_tail(x: torch.Tensor, W: torch.Tensor, bias: torch.Tensor,
     return out
 
 
-def grouped_conv_dx(dout: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """B9 dx wrapper: plain version on the CPU; on the card the plain conv
-    kernel on (dout, W transposed to [d, c]) with no bias."""
-    if dout.device.type == 'cpu':
-        return grouped_conv_dx_plain(dout, W)
-    kernel = 'grouped_conv_dx'
-    dev = dout.device
-    if dev.type != 'cuda':
-        raise ValueError(f'{kernel}: unsupported device {dev}')
-    b, p, na, d = dout.shape
-    c = W.shape[0]
-    bf16 = build.dtype_flag(dout.dtype, kernel)
-    Wt = W.t().contiguous()
-    build.check_operands(kernel, dev, {
-        'dout': (dout, dout.dtype, (b, p, na, d)),
-        'W': (Wt, dout.dtype, (d, c))})
-    _check_shape(kernel, b, p, na, d, c)
-    dx = torch.empty((b, p, na, c), dtype=dout.dtype, device=dev)
-    launches[kernel] += 1
-    build.launch('epn_grouped_conv', dout.data_ptr(), Wt.data_ptr(), 0,
-                 dx.data_ptr(), b * p * na, d, c, bf16, build.stream(dout))
-    return dx
+def _bwd_splits(rows, c, d, bf16):
+    """Row ranges of the dW reduction: the bf16 kernel's block covers 32, 64
+    or 128 columns of c and 32..256 of d over 64-row tiles (one block an SM
+    at d > 128, where its shared memory allows no second); the fp32 one 128
+    of c and 128, 64 or 32 of d over 16-row slices."""
+    if bf16:
+        ci = 32 if c <= 32 else 64 if c < 128 else 128
+        tiles = -(-c // ci) * -(-d // 256)
+        return build.n_splits(tiles, -(-rows // 64),
+                              132 if d > 128 else 264)
+    bn = 128 if d % 128 == 0 else 64 if d % 64 == 0 else 32
+    return build.n_splits(-(-c // 128) * (d // bn), -(-rows // 16))
 
 
-def grouped_conv_dw(x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    """B9 dW wrapper: plain version on the CPU; on the card per-row-range
-    partials summed in a fixed order (deterministic)."""
+def grouped_conv_bwd(x: torch.Tensor, W: torch.Tensor, dout: torch.Tensor,
+                     parts: int = 3):
+    """B9 wrapper: plain version on the CPU; on the card one launch of the
+    backward (bf16, d <= 256: dx, dW and dbias from one read of each row
+    tile; else dx apart). dW and dbias are per-row-range partials added in a
+    fixed order (deterministic)."""
     if x.device.type == 'cpu':
-        return grouped_conv_dw_plain(x, dout)
-    kernel = 'grouped_conv_dw'
+        return grouped_conv_bwd_plain(x, W, dout, parts)
+    kernel = 'grouped_conv_bwd'
     dev = x.device
     if dev.type != 'cuda':
         raise ValueError(f'{kernel}: unsupported device {dev}')
     b, p, na, c = x.shape
-    d = dout.shape[-1]
+    d = W.shape[-1]
     bf16 = build.dtype_flag(x.dtype, kernel)
     build.check_operands(kernel, dev, {
-        'x': (x, x.dtype, (b, p, na, c)),
+        'x': (x, x.dtype, (b, p, na, c)), 'W': (W, x.dtype, (c, d)),
         'dout': (dout, x.dtype, (b, p, na, d))})
     _check_shape(kernel, b, p, na, c, d)
+    if not bf16 and parts & 1 and c % 32 != 0:
+        raise ValueError(f'{kernel}: the fp32 dx needs c % 32 == 0; got c={c}')
     rows = b * p * na
-    bn = 128 if d % 128 == 0 else 64 if d % 64 == 0 else 32
-    splits = build.n_splits(-(-c // 128) * (d // bn), -(-rows // 16))
-    ws = torch.empty((splits, c, d), dtype=torch.float32, device=dev)
-    dW = torch.empty((c, d), dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x) if parts & 1 else None
+    dW = dbias = ws = dwb = None
+    splits = 1
+    if parts & 2:
+        splits = _bwd_splits(rows, c, d, bf16)
+        ws = torch.empty((splits, c + 1, d), dtype=torch.float32, device=dev)
+        dwb = torch.empty((c + 1, d), dtype=torch.float32, device=dev)
+        dW, dbias = dwb[:c], dwb[c]
     launches[kernel] += 1
-    build.launch('epn_grouped_conv_bwd_w', x.data_ptr(), dout.data_ptr(),
-                 ws.data_ptr(), dW.data_ptr(), rows, c, d, splits, bf16,
-                 build.stream(x))
-    return dW
+    build.launch('epn_grouped_conv_bwd', x.data_ptr(), W.data_ptr(),
+                 dout.data_ptr(), 0 if dx is None else dx.data_ptr(),
+                 0 if ws is None else ws.data_ptr(),
+                 0 if dwb is None else dwb.data_ptr(), rows, c, d, splits,
+                 parts, bf16, build.stream(x))
+    return dx, dW, dbias
 
 
 class GroupedConvFn(torch.autograd.Function):
@@ -208,12 +214,9 @@ class GroupedConvFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         x, W = ctx.saved_tensors
-        dout = dout.contiguous()
-        dx = dW = dbias = None
-        if ctx.needs_input_grad[0]:
-            dx = grouped_conv_dx(dout, W)
-        if ctx.needs_input_grad[1]:
-            dW = grouped_conv_dw(x, dout)
-        if ctx.needs_input_grad[2]:
-            dbias = build.widen(dout).sum(dim=(0, 1, 2))
-        return dx, dW, dbias
+        need = ctx.needs_input_grad
+        parts = (1 if need[0] else 0) | (2 if need[1] or need[2] else 0)
+        if not parts:
+            return None, None, None
+        dx, dW, dbias = grouped_conv_bwd(x, W, dout.contiguous(), parts)
+        return dx, dW if need[1] else None, dbias if need[2] else None

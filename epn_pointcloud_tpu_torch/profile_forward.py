@@ -51,8 +51,13 @@ GROUPS = ((('inter_conv_kernel', 'true>'), 'inter F (W-off) kernel'),
           ('intra_conv_kernel', 'intra conv kernel (and fp32 df)'),
           ('intra_df_prenorm_kernel', 'prenorm intra df kernel'),
           ('intra_dw_kernel', 'intra dW kernel'),
-          ('grouped_conv_kernel', 'grouped conv kernel (tail, plain, dx)'),
-          ('grouped_dw_kernel', 'grouped conv dW kernel'),
+          ('grouped_conv_mma_kernel', 'grouped conv kernel (tail, plain)'),
+          ('grouped_bwd_mma_kernel', 'grouped conv backward kernel (dx, dW, '
+           'dbias)'),
+          ('grouped_conv_kernel', 'grouped conv fp32 kernel (tail, plain, '
+           'dx)'),
+          ('grouped_dw_kernel', 'grouped conv fp32 dW kernel'),
+          ('colsum_kernel', 'grouped conv fp32 dW kernel'),
           ('sum_splits_kernel', 'fixed-order partial sums'),
           ('moments_kernel', 'moments kernel'),
           ('ones_conv_kernel', 'ones conv kernel'),

@@ -154,7 +154,13 @@ def _gc_operands(c, d, seed=0):
     return na, b, p, x, w, bias
 
 
-@pytest.mark.parametrize('c,d', [(64, 64), (32, 64)])
+# every (c, d) of the grouped conv on both models' bf16 paths: cls's skips
+# (64->64 .. 256->256) and head (256->256), inv's skips (32->32 .. 128->128)
+GC_PAIRS = [(64, 64), (32, 64), (32, 32), (64, 128), (128, 128), (128, 256),
+            (256, 256)]
+
+
+@pytest.mark.parametrize('c,d', GC_PAIRS)
 def test_grouped_conv_plain_matches_pallas_kernel(c, d):
     """fp32 to the JAX test's rtol = atol = 1e-5; bf16 operands (fp32
     accumulation, rounded once) to a normwise 4e-3."""
@@ -176,7 +182,8 @@ def test_grouped_conv_plain_matches_pallas_kernel(c, d):
     assert _normwise(got.reshape(b, p, na * d), want) <= 4e-3
 
 
-@pytest.mark.parametrize('c,d,bs,bm', [(64, 64, 1, 2), (32, 64, 1, 1)])
+@pytest.mark.parametrize('c,d,bs,bm', [(64, 64, 1, 2), (32, 64, 1, 1)] + [
+    (c, d, 1, 2) for c, d in GC_PAIRS[2:]])
 def test_grouped_conv_tail_plain_matches_pallas_kernel(c, d, bs, bm):
     """The fused separable-block tail act(y*ssm0+ssm1) +
     act((x@W+bias)*ssk0+ssk1) against grouped_conv1x1_skip_epilogue: fp32

@@ -132,12 +132,14 @@ def test_intra_conv_prenorm_backward_matches_pallas_vjp(dtype, sb):
 
 
 @pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
-@pytest.mark.parametrize('c,d', [(64, 64), (32, 64)])
+@pytest.mark.parametrize('c,d', [(64, 64), (32, 64), (32, 32), (64, 128),
+                                 (128, 128), (128, 256), (256, 256)])
 def test_grouped_conv_backward_matches_pallas_vjp(dtype, c, d):
-    """dx, dW and dbias of GroupedConvFn (B9's plain versions) against
+    """dx, dW and dbias of GroupedConvFn (B9's plain version) against
     jax.vjp of grouped_conv1x1 in interpret mode (_gc_bwd -> _bwd_kernel,
-    its block-diagonal cross terms discarded): fp32 normwise 1e-5, bf16 4e-3
-    (both round dx once; dW and dbias are fp32 sums there and here)."""
+    its block-diagonal cross terms discarded) at every (c, d) of both
+    models' bf16 paths: fp32 normwise 1e-5, bf16 4e-3 (both round dx once;
+    dW and dbias are fp32 sums there and here)."""
     rng = np.random.RandomState(c)
     na, b, p = 12, 2, 16
     x = rng.randn(b, p, na * c).astype(np.float32)

@@ -5,7 +5,8 @@ and a flagship shape, the autograd Functions' launches, and the production
 mode's kernels in bf16 (ones conv, moments, grouped conv and its fused tail,
 the prenorm intra conv, the bf16 inter conv) with their shape refusals, and
 the production-mode backward kernels (the prenorm intra df / dss / dW,
-the grouped conv dx / dW, the bf16 inter dTable / dW), their determinism
+the grouped conv's dx / dW / dbias in one launch and apart, the bf16
+inter dTable / dW), their determinism
 and a bf16 train step's launches; the W-off inter conv (fp32 and bf16)
 with the composed route, and a bf16 inv train step's launches.
 
@@ -275,13 +276,23 @@ def test_moments_kernel_matches_plain(cuda, dtype):
     assert _rel(s, ws) <= 1e-5 and _rel(sq, wsq) <= 1e-5
 
 
+# (b, p, c, d, ssm batch): small and odd shapes (c % 8 != 0, d not a tile
+# width, 840 rows); the cls head (256 -> 256 at b=32, p=64), cls L1 (64 ->
+# 64 at p=511: rows no multiple of a row tile) and inv B0 (32 -> 32); c =
+# 2564, where the bf16 W does not fit in shared memory and streams with x
+GROUPED_SHAPES = [(3, 40, 64, 64, 3), (3, 40, 256, 256, 1),
+                  (3, 40, 36, 96, 3), (2, 7, 36, 96, 2),
+                  (32, 64, 256, 256, 1), (2, 511, 64, 64, 2),
+                  (4, 512, 32, 32, 4), (2, 5, 2564, 96, 2)]
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, BF16])
-@pytest.mark.parametrize('c,d,mb', [(64, 64, 3), (256, 256, 1), (36, 96, 3)])
-def test_grouped_conv_kernels_match_plain(cuda, dtype, c, d, mb):
+@pytest.mark.parametrize('b,p,c,d,mb', GROUPED_SHAPES)
+def test_grouped_conv_kernels_match_plain(cuda, dtype, b, p, c, d, mb):
     """The plain 1x1 conv and the fused tail: fp32 to a normwise 1e-5, bf16
     (rounded once) to 4e-3."""
     rng = np.random.RandomState(c)
-    b, p, na = 3, 40, 60
+    na = 60
     x = _rand(rng, (b, p, na, c), cuda, dtype)
     W = _rand(rng, (c, d), cuda, dtype, 0.1)
     bias = _rand(rng, (d,), cuda)
@@ -347,6 +358,10 @@ def test_production_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                         torch.zeros(48, device=cuda))
     with pytest.raises(ValueError):          # W of another type than x
         gc.grouped_conv(x, torch.zeros(8, 32, device=cuda), bias)
+    with pytest.raises(ValueError):          # the fp32 dx needs c % 32 == 0
+        gc.grouped_conv_bwd(torch.zeros(1, 2, 60, 36, device=cuda),
+                            torch.zeros(36, 32, device=cuda),
+                            torch.zeros(1, 2, 60, 32, device=cuda))
     with pytest.raises(ValueError):          # fp16 is not a compute dtype
         gc.grouped_conv(x.half(), torch.zeros(8, 32, device=cuda).half(),
                         bias)
@@ -447,23 +462,40 @@ def test_intra_conv_prenorm_bwd_kernels_match_plain(cuda, dtype, b, p, c, d,
 
 @pytest.mark.parametrize('dtype', [torch.float32, BF16])
 @pytest.mark.parametrize('b,p,c,d', [(3, 40, 64, 64), (12, 256, 64, 128),
-                                     (12, 128, 256, 256), (2, 7, 32, 96)])
+                                     (12, 128, 256, 256), (2, 7, 32, 96),
+                                     (2, 7, 36, 96), (32, 64, 256, 256),
+                                     (2, 511, 64, 64), (4, 512, 32, 32),
+                                     (2, 7, 36, 288), (1, 3, 36, 2592)])
 def test_grouped_conv_bwd_kernels_match_plain(cuda, dtype, b, p, c, d):
-    """B9: dx = dout W^T (normwise 1e-5 in fp32, 8e-3 in bf16) and dW =
-    x^T dout (fp32 sums: 1e-4 from fp32 operands, 1e-3 from bf16 ones)."""
+    """B9: dx = dout W^T (normwise 1e-5 in fp32, 8e-3 in bf16), dW = x^T
+    dout and dbias = the sum of dout (fp32 sums: 1e-4 from fp32 operands,
+    1e-3 from bf16 ones), together (bf16: one launch up to d = 256, dx apart
+    beyond; at d = 2592 the bf16 dx streams W) and each alone; the fp32 dx
+    takes c % 32 == 0 only, so at c = 36 fp32 checks dW and dbias."""
     rng = np.random.RandomState(c + d)
     x = _rand(rng, (b, p, 60, c), cuda, dtype)
     W = _rand(rng, (c, d), cuda, dtype, 0.1)
     dout = _rand(rng, (b, p, 60, d), cuda, dtype)
     gc = tkern.grouped_conv
-    dx, dW = gc.grouped_conv_dx(dout, W), gc.grouped_conv_dw(x, dout)
-    torch.cuda.synchronize()
-    assert dx.dtype == dtype and dW.dtype == torch.float32
     fp32 = dtype == torch.float32
-    assert _rel(dx.float(), gc.grouped_conv_dx_plain(dout, W).float()) <= \
-        (1e-5 if fp32 else 8e-3)
-    assert _rel(dW, gc.grouped_conv_dw_plain(x, dout)) <= \
-        (1e-4 if fp32 else 1e-3)
+    parts = 2 if fp32 and c % 32 else 3
+    want = gc.grouped_conv_bwd_plain(x, W, dout, parts)
+    for form in ((3, 1, 2) if parts == 3 else (parts,)):
+        dx, dW, dbias = gc.grouped_conv_bwd(x, W, dout, form)
+        torch.cuda.synchronize()
+        if form & 1:
+            assert dx.dtype == dtype
+            assert _rel(dx.float(), want[0].float()) <= \
+                (1e-5 if fp32 else 8e-3)
+        else:
+            assert dx is None
+        if form & 2:
+            assert dW.dtype == dbias.dtype == torch.float32
+            assert dW.shape == (c, d) and dbias.shape == (d,)
+            assert _rel(dW, want[1]) <= (1e-4 if fp32 else 1e-3)
+            assert _rel(dbias, want[2]) <= (1e-4 if fp32 else 1e-3)
+        else:
+            assert dW is None and dbias is None
 
 
 @pytest.mark.parametrize('b,p1,stride,nn,c,d', BWD_SHAPES)
@@ -488,19 +520,24 @@ def test_inter_conv_bwd_kernels_bf16_match_plain(cuda, b, p1, stride, nn, c,
 
 @pytest.mark.parametrize('sb', [1, 12])
 def test_production_bwd_reductions_are_deterministic(cuda, sb):
-    """B6's dscale / dshift and the two dW kernels (B6, B9) add per-block
-    partials in a fixed order: two runs are bitwise equal."""
+    """B6's dscale / dshift and the two dW kernels (B6, B9: with B9's dbias
+    and dx, in one launch and each alone) add per-block partials in a fixed
+    order: two runs are bitwise equal."""
     f, ss, ti, inv, W, dout = _prenorm_operands(cuda, BF16, 12, 128, 64, 64,
                                                 sb, seed=4)
+    Wg = W[0].contiguous()
     ik, gc = tkern.intra_conv, tkern.grouped_conv
     runs = [(ik.intra_conv_prenorm_df(dout, f, ss, ti, inv, W),
              ik.intra_conv_prenorm_dw(f, ss, ti, dout),
-             gc.grouped_conv_dw(f, dout)) for _ in range(2)]
+             gc.grouped_conv_bwd(f, Wg, dout)
+             + gc.grouped_conv_bwd(f, Wg, dout, 1)
+             + gc.grouped_conv_bwd(f, Wg, dout, 2)) for _ in range(2)]
     torch.cuda.synchronize()
-    (df0, dss0), dw0, gw0 = runs[0]
-    (df1, dss1), dw1, gw1 = runs[1]
+    (df0, dss0), dw0, g0 = runs[0]
+    (df1, dss1), dw1, g1 = runs[1]
     assert torch.equal(df0, df1) and torch.equal(dss0, dss1)
-    assert torch.equal(dw0, dw1) and torch.equal(gw0, gw1)
+    assert torch.equal(dw0, dw1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1) if a is not None)
 
 
 def test_bf16_train_step_launches_the_kernels(cuda):
@@ -541,7 +578,7 @@ def test_bf16_train_step_launches_the_kernels(cuda):
         'fps': 1, 'ball_query': 3, 'ones_conv': 1, 'inter_conv': 2,
         'inter_conv_dtable': 2, 'inter_conv_dw': 2, 'intra_conv_prenorm': 3,
         'intra_conv_prenorm_df': 3, 'intra_conv_prenorm_dw': 3, 'moments': 9,
-        'grouped_conv': 3, 'grouped_conv_dx': 3, 'grouped_conv_dw': 3}
+        'grouped_conv': 3, 'grouped_conv_bwd': 3}
     assert {k: v for k, v in tkern.counts().items() if v} == counts
     for m in models:
         assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
@@ -743,8 +780,7 @@ def test_bf16_inv_train_step_launches_the_kernels(cuda):
         'inter_conv_dtable': 2, 'inter_conv_dw': 2, 'inter_conv_f': 4,
         'inter_conv_dg': 4, 'intra_conv_prenorm': 8,
         'intra_conv_prenorm_df': 8, 'intra_conv_prenorm_dw': 8,
-        'moments': 22, 'grouped_conv': 6, 'grouped_conv_dx': 6,
-        'grouped_conv_dw': 6}
+        'moments': 22, 'grouped_conv': 6, 'grouped_conv_bwd': 6}
     assert {k: v for k, v in tkern.counts().items() if v} == counts
     for m in models:
         assert all(p.dtype == torch.float32 and p.grad is not None

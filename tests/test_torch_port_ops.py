@@ -123,5 +123,4 @@ def test_plain_switch_routes_to_plain_versions():
                               'intra_conv_prenorm_df': 0,
                               'intra_conv_prenorm_dw': 0,
                               'moments': 0, 'grouped_conv': 0,
-                              'grouped_conv_tail': 0, 'grouped_conv_dx': 0,
-                              'grouped_conv_dw': 0}
+                              'grouped_conv_tail': 0, 'grouped_conv_bwd': 0}
