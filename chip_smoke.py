@@ -1,11 +1,18 @@
 """Smoke run of the torch port (epn_pointcloud_tpu_torch) on one CUDA card.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py [--parent-csrc DIR]
+
+--parent-csrc: DIR is the csrc/ directory of an earlier tree (for example
+from ``git archive <commit> epn_pointcloud_tpu_torch/csrc | tar -x -C D``);
+its inter_conv.cu is built alone beside the kernels, and its epn_inter_conv
+is timed beside the bf16 W-fused inter forward at every call of phases 4
+and 16, on the same inputs, in turns (parent, new, new, parent).
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from csrc/ (one nvcc a source, in parallel,
      sm_90a), and count the tensor-core instructions (HMMA, GMMA) in the
-     SASS of the bf16 grouped conv kernels (cuobjdump): none fails;
+     SASS of the bf16 tensor-core kernels (the grouped conv forward and
+     backward, the W-fused inter forward; cuobjdump): none fails;
   2. at every flagship layer shape of cls_so3net_pn (b=32, 1024 points, 60
      anchors), compare each kernel with its plain PyTorch version on the
      card, on the inputs the model itself gives it (captured from a b=32
@@ -19,15 +26,21 @@ Phases (any failure exits non-zero and prints no result line):
      prenorm intra conv, moments, fused tail, grouped conv) against its
      plain version on the same inputs (normwise <= 4e-3 for bf16 outputs,
      <= 1e-5 for the moments' fp32 sums), timed, with torch.addmm beside
-     the grouped conv; the b=8 bf16 logits on the kernel and plain paths to
-     a per-sample cosine >= 0.9999, the b=32 bf16 and fp32 kernel paths to
-     a minimum cosine >= 0.999, and the whole b=32 bf16 forward timed on
-     both paths, in turns;
+     the grouped conv; every inter conv call on the tensor-core kernel,
+     bitwise equal on a second call, within 1e-3 of the plain version at
+     its rounding points (inter_conv_mma_plain: the anchor weights and F
+     rounded to bf16, as the TPU kernel rounds them), and timed beside the
+     composition it fuses (the W-off F kernel, then one torch.mm(F, W));
+     the b=8 bf16 logits on the kernel and plain paths to a per-sample
+     cosine >= 0.9999, the b=32 bf16 and fp32 kernel paths to a minimum
+     cosine >= 0.999, and the whole b=32 bf16 forward timed on both paths,
+     in turns;
   5. write a synthetic ModelNet40 test tree (1024-point clouds, 2 batches of
      32) and run the eval entry point (run_modelnet --run-mode eval -b 32) on
-     it, in fp32 and then with --compute-dtype bf16 (this slice's main
-     path); the logits must be finite and every kernel's launch count must
-     rise by its expected count per batch;
+     it, in fp32 and then with --compute-dtype bf16; the logits must be
+     finite, every kernel's launch count must rise by its expected count
+     per batch, and every inter forward must have run the kernel of its
+     dtype (the tensor-core kernel in bf16; so in phases 8, 11, 15, 19);
   6. capture each backward kernel call of one train-mode step of the seeded
      full-width model on a synthetic b=12 batch (inter dTable and dW at 6
      layers, intra df and dW at 7) and compare each with its plain version
@@ -89,7 +102,9 @@ Phases (any failure exits non-zero and prints no result line):
  16. [inv-bf16-kernels] each kernel call of one bf16 inv triplet step (the
      same legs) against its plain version on the same inputs, timed: fps
      and ball_query indices equal, normwise <= 8e-3 for bf16 outputs and
-     <= 1e-3 for fp32 ones (the bf16 inter_conv_f / inter_conv_dg, the
+     <= 1e-3 for fp32 ones, the inter forward also as in phase 4 (the
+     tensor-core kernel, bitwise, <= 1e-3 of inter_conv_mma_plain, beside
+     its composition) (the bf16 inter_conv_f / inter_conv_dg, the
      prenorm intra conv with a fold a patch and its backward, moments, the
      grouped conv and its backward, the fused inter backward; torch.addmm
      and torch.mm beside the grouped conv's); the
@@ -288,6 +303,13 @@ def time_ms(fn, reps=10, warmup=3):
     return statistics.median(run(inner) for _ in range(reps))
 
 
+def time_abba(a, b):
+    """(a ms, b ms) by ``time_ms``, timed a, b, b, a and averaged a pair:
+    two versions of a kernel compared in one run."""
+    a0, b0, b1, a1 = time_ms(a), time_ms(b), time_ms(b), time_ms(a)
+    return (a0 + a1) / 2, (b0 + b1) / 2
+
+
 def synthetic_batch(b, n, seed):
     """b normalized synthetic clouds of n points (the test-split shapes)."""
     import numpy as np
@@ -322,15 +344,17 @@ def phase_build():
     tensor_core_sass(build.lib_path)
 
 
-# the bf16 grouped conv kernels, which run on tensor cores
-TC_KERNELS = ('grouped_conv_mma_kernel', 'grouped_bwd_mma_kernel')
+# the bf16 kernels that run on tensor cores: the grouped conv forward and
+# backward, the W-fused inter conv forward
+TC_KERNELS = ('grouped_conv_mma_kernel', 'grouped_bwd_mma_kernel',
+              'inter_conv_mma_kernel')
 
 
 def tensor_core_sass(so):
     """Count the tensor-core instructions (HMMA, GMMA) in the SASS of each
-    instantiation of the bf16 grouped conv kernels in the built library
+    instantiation of the bf16 tensor-core kernels in the built library
     (cuobjdump -sass); written to chiprun_out/kernels_sass_mma.txt. Fails
-    if an instantiation has none."""
+    if a kernel has no instantiation or an instantiation has none."""
     cuobjdump = shutil.which('cuobjdump') or os.path.join(
         os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump')
     sass = subprocess.run([cuobjdump, '-sass', so], capture_output=True,
@@ -355,7 +379,7 @@ def tensor_core_sass(so):
         log(f'[build] SASS {k}: {len(n)} instantiations, tensor-core '
             f'instructions {min(n, default=0)}..{max(n, default=0)} each')
     if not all(per.values()) or min(min(n) for n in per.values()) == 0:
-        raise AssertionError(f'bf16 grouped conv kernels without tensor-core '
+        raise AssertionError(f'bf16 kernels without tensor-core '
                              f'instructions: {per}')
 
 
@@ -429,12 +453,19 @@ def _aggregate(rows):
     bytes_ms = sum(r['bytes_ms'] for r in rows)
     ops_ms = sum(r['ops_ms'] for r in rows)
     lib = [r.get('library_ms') for r in rows]
-    return {'max_abs_err': max(r['max_abs_err'] for r in rows),
-            'ms': sum(r['ms'] for r in rows),
-            'plain_ms': sum(r['plain_ms'] for r in rows),
-            'bound_ms': sum(max(r['bytes_ms'], r['ops_ms']) for r in rows),
-            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
-            'library_ms': None if None in lib else sum(lib), 'calls': len(rows)}
+    agg = {'max_abs_err': max(r['max_abs_err'] for r in rows),
+           'ms': sum(r['ms'] for r in rows),
+           'plain_ms': sum(r['plain_ms'] for r in rows),
+           'bound_ms': sum(max(r['bytes_ms'], r['ops_ms']) for r in rows),
+           'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
+           'library_ms': None if None in lib else sum(lib),
+           'calls': len(rows)}
+    # the bf16 inter forward's yardsticks (inter_conv_extras)
+    for key in ('composed_ms', 'parent_ms', 'same_timer_ms'):
+        vals = [r.get(key) for r in rows]
+        if None not in vals:
+            agg[key] = sum(vals)
+    return agg
 
 
 FWD = ('fps', 'ball_query', 'ones_conv', 'inter_conv', 'intra_conv')
@@ -553,6 +584,18 @@ def phase_forward_time(model, device, reps=5, dtype='fp32'):
             'plain_runs_ms': p_ts}
 
 
+def check_inter_routes(tag, dtype, counts, routes):
+    """Every W-fused inter forward of an entry run went through the kernel
+    of its dtype: the tensor-core kernel in bf16, the SGEMM template in
+    fp32 (``routes``: the wrapper's counts by kernel, read with
+    ``counts``)."""
+    n = counts['inter_conv']
+    want = ({'mma': n, 'sgemm': 0} if dtype == 'bf16' else
+            {'mma': 0, 'sgemm': n})
+    log(f'{tag} inter forward launches by kernel: {routes}')
+    assert n > 0 and routes == want, (routes, want)
+
+
 def phase_eval(dtype='fp32'):
     """A main path: run_modelnet eval on a synthetic test tree, in fp32, or
     in the bf16 production mode (this slice's)."""
@@ -574,9 +617,11 @@ def phase_eval(dtype='fp32'):
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = kernels.counts()
+        routes = dict(kernels.inter_conv.routes)
     finally:
         so3conv.set_compute_dtype('fp32')
     trainer.logger.close()
+    check_inter_routes('[eval]', dtype, counts, routes)
     n_batches = len(trainer.eval_logits)
     logits = torch.cat(trainer.eval_logits)
     log(f'[eval] run_modelnet eval --compute-dtype {dtype}: {n_batches} '
@@ -645,7 +690,10 @@ BF16_COMPARED = BF16_FWD[2:]
 def phase_bf16_kernels(model, device):
     """Each kernel call of a b=32 bf16 forward against its plain version on
     the same inputs (normwise <= 4e-3 for bf16 outputs, <= 1e-5 for the
-    moments' fp32 sums), timed, with torch.addmm beside the grouped conv."""
+    moments' fp32 sums), timed, with torch.addmm beside the grouped conv;
+    every inter conv call on the tensor-core kernel, bitwise equal on a
+    second call, within 1e-3 of inter_conv_mma_plain, and timed beside the
+    composition it spares (``inter_conv_extras``)."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     x = torch.from_numpy(synthetic_batch(BATCH, N_POINTS, SEED)).to(device)
@@ -692,6 +740,9 @@ def phase_bf16_kernels(model, device):
                'plain_ms': p_ms, 'ok': ok}
         row['bytes_ms'], row['ops_ms'] = bound_ms(name, args, got)
         row.update(grouped_library(name, args))
+        row.update(inter_conv_extras(name, args, got))
+        ok = ok and _inter_extras_ok(row)
+        row['ok'] = ok
         lib = _library_note(row)
         if name == 'moments':
             # the same bytes read for the same per-lane statistics
@@ -968,7 +1019,82 @@ def _library_note(row):
         note += f' library_ms={row["library_ms"]:.4f}'
     if 'bitwise_repeat' in row:
         note += f' bitwise_repeat={row["bitwise_repeat"]}'
+    if 'rel_vs_mma_plain' in row:
+        note += f' rel_vs_mma_plain={row["rel_vs_mma_plain"]:.3e} [<=1e-3]'
+    for key in ('route', 'composed_ms', 'parent_ms', 'same_timer_ms'):
+        if key in row:
+            v = row[key]
+            note += f' {key}={v:.4f}' if isinstance(v, float) else \
+                f' {key}={v}'
     return note
+
+
+def _inter_extras_ok(row):
+    """The bf16 inter forward's own gates (``inter_conv_extras``): the
+    tensor-core kernel ran, its output is bitwise equal on a second call
+    and within 1e-3 (normwise) of ``inter_conv_mma_plain``."""
+    return (row.get('route', 'mma') == 'mma'
+            and row.get('bitwise_repeat', True)
+            and row.get('rel_vs_mma_plain', 0.0) <= 1e-3)
+
+
+# the earlier tree's epn_inter_conv (--parent-csrc), timed beside the bf16
+# inter forward
+PARENT = {}
+
+
+def inter_conv_extras(name, args, got):
+    """For a bf16 call of the W-fused inter forward: the kernel it ran
+    (``route``, from the wrapper's counts: 'mma' for the tensor-core
+    kernel), whether a second call gives the same bits, its normwise error
+    against ``inter_conv_mma_plain`` (the plain version at the kernel's
+    rounding points, the TPU kernel's: ``rel_vs_mma_plain``), and the time
+    of the composition that the fused kernel spares (the W-off F kernel, F
+    stored, then one ``torch.mm(F, W)``; ``composed_ms``). With
+    --parent-csrc also the earlier tree's kernel on the same inputs, timed
+    with this one in turns (parent, new, new, parent; ``parent_ms``,
+    ``same_timer_ms``). {} for any other call."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    from epn_pointcloud_tpu_torch.ops.kernels import build
+    if name != 'inter_conv' or args[2].dtype != torch.bfloat16:
+        return {}
+    ic = kernels.inter_conv
+    before = dict(ic.routes)
+    again = ic.inter_conv(*args)
+    torch.cuda.synchronize()
+    rec = {'route': next(k for k in ic.routes if ic.routes[k] > before[k]),
+           'bitwise_repeat': torch.equal(got, again),
+           'rel_vs_mma_plain': rel_err(got, ic.inter_conv_mma_plain(*args))}
+    del again
+    gx, idx, table, rk, k2, W, sigma = args
+    b, p2, nn = idx.shape
+    q, na, c = table.shape[1:]
+    K, _, d = W.shape
+    ptrs = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(), rk.data_ptr(),
+            k2.data_ptr())
+    F = torch.empty(b * p2 * na, K * c, dtype=table.dtype, device=gx.device)
+    W2 = W.reshape(K * c, d)
+
+    def composed():
+        build.launch('epn_inter_conv_f', *ptrs, F.data_ptr(), b, p2, nn, q,
+                     na, K, c, float(sigma), 1, build.stream(table))
+        torch.mm(F, W2)
+    rec['composed_ms'] = time_ms(composed, reps=5, warmup=2)
+    del F
+    if PARENT:
+        out = torch.empty_like(got)
+
+        def parent():
+            err = PARENT['fn'](*ptrs, W.data_ptr(), out.data_ptr(), b, p2, nn,
+                               q, na, K, c, d, float(sigma), 1,
+                               build.stream(table))
+            if err:
+                raise RuntimeError(f'parent epn_inter_conv: CUDA error {err}')
+        rec['parent_ms'], rec['same_timer_ms'] = time_abba(
+            parent, lambda: ic.inter_conv(*args))
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _kernel_pair(name, args):
@@ -1272,6 +1398,8 @@ def phase_train_entry(dtype='fp32'):
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = kernels.counts()
+        check_inter_routes(tag, dtype, counts,
+                           dict(kernels.inter_conv.routes))
         trainer.logger.close()
         n_eval = len(trainer.eval_logits)
         stats = dict(trainer.summary.running_stats)
@@ -1477,7 +1605,9 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
             row['bytes_ms'], row['ops_ms'] = bound_ms(
                 wname, wargs, got[0] if len(got) == 1 else got)
             row.update(grouped_library(name, args))
-            row['ok'] = row['ok'] and row.get('bitwise_repeat', True)
+            row.update(inter_conv_extras(name, args, got[0]))
+            row['ok'] = (row['ok'] and row.get('bitwise_repeat', True)
+                         and _inter_extras_ok(row))
             log(f'{tag} {name} {layer} ({row["shape"]}, {row["dtype"]}): '
                 f'max_abs_err={row["max_abs_err"]:.3e} rel_norm_err='
                 f'{" ".join(f"{r:.3e}" for r in row["rels"])} kernel_ms='
@@ -1773,6 +1903,7 @@ def phase_inv_train_entry(root, dtype='fp32'):
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = kernels.counts()
+        routes = dict(kernels.inter_conv.routes)
         trainer.logger.close()
         ckpt = trainer.last_ckpt
         other = run_3dmatch.main(common + ['-i', '0', '-r', ckpt])
@@ -1785,6 +1916,7 @@ def phase_inv_train_entry(root, dtype='fp32'):
         f'pairs an epoch); running stats {stats}; wall {wall:.2f} s (data and '
         f'setup included); kernel launches {counts}, a step '
         f'{ {n: k for n, k in per_step.items() if k} }')
+    check_inter_routes(tag, dtype, counts, routes)
     assert trainer.opt.npt == INV_BATCH and trainer.opt.batch_size == 1
     assert all(math.isfinite(stats[k]) for k in ('Loss', 'Pos', 'Neg',
                                                  'Acc'))
@@ -1904,7 +2036,28 @@ def phase_inv_bf16_descriptor(device, root, reps=5):
             'plain_runs_ms': p_ts}
 
 
-def main():
+def load_parent(proc, so):
+    """The earlier tree's epn_inter_conv from its library, once nvcc is
+    done (--parent-csrc)."""
+    import ctypes
+    from epn_pointcloud_tpu_torch.ops.kernels import build
+    out = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed on the parent inter_conv.cu:\n{out}')
+    fn = ctypes.CDLL(so).epn_inter_conv
+    fn.argtypes = build.SIGNATURES['epn_inter_conv']
+    fn.restype = ctypes.c_int
+    PARENT['fn'] = fn
+    log('[build] parent inter_conv.cu built and loaded')
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--parent-csrc', default=None,
+                    help="an earlier tree's csrc/ directory: its bf16 "
+                    'W-fused inter forward timed beside this one')
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; the port smoke run needs one',
@@ -1924,7 +2077,14 @@ def main():
     device = torch.device('cuda')
     t_start = time.time()
     try:
+        if args.parent_csrc:
+            from epn_pointcloud_tpu_torch.ops.kernels import build
+            parent = build.compile_alone(
+                os.path.abspath(args.parent_csrc), 'inter_conv.cu',
+                os.path.join(WORK_DIR + '_parent', 'csrc'))
         phase_build()
+        if args.parent_csrc:
+            load_parent(*parent)
         model = models.build_model_from(full_opt(), seed=SEED).to(device).eval()
         results = phase_kernels(model, device)
         model_err = phase_model(model, device)

@@ -22,13 +22,17 @@
 // is [b*p*60 x K*C] x [K*C x D] (K = 24) whose left operand F is produced on
 // the fly; the neighbor contraction that produces F costs nn / D of the GEMM
 // (6-25% at the flagship layers), so ~90% of the ~2.6 TFLOP of a b=32
-// forward is the W product. This version runs in fp32 on the CUDA cores (no
-// TF32, no wgmma): the FMA rate bounds it, and the design keeps the
-// shared-memory traffic per FMA low enough not to bound it first.
+// forward is the W product. The fp32 build (and bf16 shapes off the
+// tensor-core route) runs on the CUDA cores (no TF32): the FMA rate bounds
+// it. The bf16 build runs on tensor cores (inter_conv_mma_kernel, below):
+// bound by its 2.6 TFLOP a b=32 cls forward at the bf16 peak, it reaches
+// ~12% of that; the W slices it streams from L2 and the fragment traffic
+// in shared memory hold it back, not the products.
 //
-// Design: a register-blocked SGEMM whose rows are the flattened (point,
-// anchor) pairs. A block owns a BM x BN output tile (128 x 32/64/128, or
-// 64 x 256 when D allows) with 8 x 8 outputs a thread, and walks the channels
+// Design of the SGEMM template: a register-blocked SGEMM whose rows are the
+// flattened (point, anchor) pairs. A block owns a BM x BN output tile
+// (128 x 32/64/128, or 64 x 256 when D allows) with 8 x 8 outputs a
+// thread, and walks the channels
 // in chunks of CC = 8. For each chunk it first builds its A slab F[row, k, cc]
 // (BM x 24 x 8) in shared memory: each item (row, group of 6 kernel points)
 // loads its neighbors' 8 table values with two 16-byte loads and computes the
@@ -45,6 +49,29 @@
 // production mode of the _call_gather_w forms in bf16); gx, rk and k2 stay
 // fp32, and every product and sum is fp32 (bf16 exists only in device
 // memory: it is widened on load, and out is rounded once on store).
+//
+// Design of the bf16 build (inter_conv_mma_kernel, epn_inter_conv_mma; every
+// layer of both models): both contractions on mma.sync.m16n8k16 bf16 ->
+// fp32 (tc.cuh). A block owns 64 (point, anchor) rows and all of D up to
+// 256 and walks C in chunks of 32 channels. Per chunk, phase 1 builds the
+// bf16 F slab [64 x 24*32] in swizzled shared memory, one row at a time a
+// warp (two interleaved): the row's table rows G [nn x 32] arrive by
+// cp.async as an indexed load (16-byte pieces; the shadow index and nn
+// padded to 16 zero-filled), and F^T [32 x 24] = G^T w runs on tensor cores
+// with the channels as M and the 24 kernel points as three n8 tiles, so
+// nothing is padded: A = G^T by ldmatrix.trans, B = the anchor weights,
+// computed in fp32 in the fragment registers and rounded to bf16 there
+// (once a chunk: C / 32 times a weight, against C / 8 in the SGEMM), F
+// rounded to bf16 into the slab, three 16-byte stores a lane (the slab's
+// column order is the fragments', slab_column). Phase 2 multiplies the slab
+// by the chunk's 768 W rows, 16 or 32 KB at a time through a cp.async ring
+// that runs ahead across chunks; the fp32 accumulators stay in registers
+// over all chunks and the output is rounded once into a tile staged in
+// shared memory and stored by whole rows. The anchor weights and F are
+// rounded to bf16 where the TPU kernel rounds them (_fwd_gather_w_kernel:
+// 974, 980); the plain version keeps them in fp32 (~3e-3 apart, normwise),
+// inter_conv_mma_plain rounds them as here. No atomics: the output is the
+// same on every call.
 //
 // W-off mode (template flag kWOff, epn_inter_conv_f): the same kernel with
 // the learned product left out. Each chunk's F slab is written from shared
@@ -67,7 +94,10 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "inter_conv_common.cuh"
+#include "tc.cuh"
 
 namespace {
 
@@ -290,6 +320,426 @@ int dispatch(const void* gx, const void* idx, const void* table,
   return launch<128, 32>(g, ix, t, r, kk, w, o, M, p2, nn, q, na, K, C, D, sigma, s);
 }
 
+// ------------------------------------------------- bf16 on tensor cores
+
+using epn::bf16;
+
+namespace mma {
+
+constexpr int kBM = 64;          // rows a block
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRowsPerWarp = kBM / kWarps;
+constexpr int kCC = 32;          // channels a chunk
+constexpr int kK = 24;           // kernel points: three n8 tiles
+constexpr int kKC = kK * kCC;    // F slab columns a row
+constexpr int kStages = 3;       // W slices in the ring
+constexpr int kMaxNN = 64;
+constexpr int kMinNA = 4;
+
+// A block's warps for BN output columns: WM x WN warps, MI m16 x NI n8
+// tiles a warp (32 x 64 at BN = 256); W slices SK rows deep (16 KB, or 32
+// KB where the gathered rows still fit beside them: half the block
+// barriers); the bf16 output tile staged at row stride OS (padded: the
+// fragments' 4-byte writes hit distinct banks)
+template <int BN_, bool kDeep>
+struct MmaCfg {
+  static constexpr int BN = BN_;
+  static constexpr int WM = BN >= 128 ? 2 : 4, WN = kWarps / WM;
+  static constexpr int MI = kBM / WM / 16, NI = BN / WN / 8;
+  static constexpr int SK = (kDeep ? 16384 : 8192) / BN;
+  static constexpr int SLICES = kKC / SK;
+  static constexpr int OS = BN + 8;
+  static_assert(NI % 2 == 0 && kKC % SK == 0, "warp tile");
+};
+
+// The slab's column order. Lane (g, t) of the warp that builds a row holds
+// F[cc][k] for cc = 16 mi + 8 h + g and k = 8 j + 2 t + e (mi, h, e < 2,
+// j < 3) and stores them as three 16-byte chunks, 3 * lane + w: w = 0, 1
+// the (h, j < 2, e) of mi = w, w = 2 the (mi, h, e) of j = 2. The channel
+// and kernel point of slab column col, for W's rows:
+__device__ __forceinline__ void slab_column(int col, int& cc, int& k) {
+  const int chunk = col >> 3, pos = col & 7, lane = chunk / 3;
+  const int w = chunk - 3 * lane, g = lane >> 2, t = lane & 3;
+  if (w < 2) {
+    cc = 16 * w + 8 * (pos >> 2) + g;
+    k = 8 * ((pos >> 1) & 1) + 2 * t + (pos & 1);
+  } else {
+    cc = 8 * (pos >> 1) + g;
+    k = 16 + 2 * t + (pos & 1);
+  }
+}
+
+// dynamic shared memory, in bytes from the base: the F slab [kBM, kKC]
+// (offset 0), the W ring [kStages][SK, BN], the neighbor coordinates
+// [np][nnp] float4 (x, y, z, 1 - |gx|^2 / sigma) and indices [np][nnp], the
+// rows' table offsets [kBM] and (point, anchor) [kBM], then each warp's
+// ring of R gathered-row buffers [nnp, kCC]: as many as fit, even, at most
+// a warp's rows
+struct MmaSmem {
+  int nnp, np, R;
+  size_t ring, gx, idx, rtb, ri, rows, total;
+};
+
+__host__ __device__ inline MmaSmem mma_layout(int bn, int sk, int na,
+                                              int nn) {
+  MmaSmem s;
+  s.nnp = (nn + 15) / 16 * 16;
+  s.np = (kBM - 1) / na + 2;
+  s.ring = (size_t)kBM * kKC * sizeof(bf16);
+  s.gx = s.ring + (size_t)kStages * sk * bn * sizeof(bf16);
+  s.idx = s.gx + (size_t)s.np * s.nnp * sizeof(float4);
+  s.rtb = s.idx + (size_t)s.np * s.nnp * sizeof(int);
+  s.ri = s.rtb + (size_t)kBM * sizeof(long long);
+  s.rows = s.ri + (size_t)kBM * sizeof(int2);
+  const size_t row_bytes = (size_t)kWarps * s.nnp * kCC * sizeof(bf16);
+  const size_t fit = kMaxSmem > s.rows ? (kMaxSmem - s.rows) / row_bytes : 0;
+  s.R = (int)(fit < (size_t)kRowsPerWarp ? fit : kRowsPerWarp) & ~1;
+  s.total = s.rows + (size_t)s.R * row_bytes;
+  return s;
+}
+
+// wait until at most n (< 4) committed groups are still in flight
+__device__ __forceinline__ void cp_wait_upto(int n) {
+  switch (n) {
+    case 0: tc::cp_wait<0>(); break;
+    case 1: tc::cp_wait<1>(); break;
+    case 2: tc::cp_wait<2>(); break;
+    default: tc::cp_wait<3>(); break;
+  }
+}
+
+// out [M, D] (bf16) for rows m0 .. m0 + kBM and columns n0 .. n0 + BN:
+// per 32-channel chunk, phase 1 builds the bf16 F slab (each warp two rows
+// at a time: the rows' gathered table rows G [nnp, kCC] in a cp.async ring,
+// F^T [kCC, 24] = G^T w by mma with the anchor weights computed in the B
+// fragments, rounded into the slab), phase 2 multiplies the slab by the
+// chunk's W rows (slab_column's order), streamed SK at a time through a
+// cp.async ring that runs ahead across chunks; the accumulators stay in
+// registers, and the output is rounded once into a tile staged in the
+// slab's memory and stored by rows.
+template <int BN, bool kDeep>
+__global__ void __launch_bounds__(kThreads, 1)
+inter_conv_mma_kernel(const float* __restrict__ gx,
+                      const int* __restrict__ idx,
+                      const bf16* __restrict__ table,
+                      const float* __restrict__ rk,
+                      const float* __restrict__ k2,
+                      const bf16* __restrict__ W, bf16* __restrict__ out,
+                      int M, int p2, int nn, int q, int na, int C, int D,
+                      float inv_sigma) {
+  using G = MmaCfg<BN, kDeep>;
+  extern __shared__ __align__(128) unsigned char mma_smem[];
+  unsigned char* smem = mma_smem;
+  const MmaSmem L = mma_layout(BN, G::SK, na, nn);
+  const int nnp = L.nnp, R = L.R, R2 = R / 2;
+  bf16* slab = reinterpret_cast<bf16*>(smem);
+  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
+  float4* s_gx = reinterpret_cast<float4*>(smem + L.gx);
+  int* s_idx = reinterpret_cast<int*>(smem + L.idx);
+  long long* s_rtb = reinterpret_cast<long long*>(smem + L.rtb);
+  int2* s_ri = reinterpret_cast<int2*>(smem + L.ri);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* rows = reinterpret_cast<bf16*>(smem + L.rows) +
+               (size_t)warp * R * nnp * kCC;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
+  const int pt0 = m0 / na;
+  const int np = (min(m0 + kBM, M) - 1) / na - pt0 + 1;
+  const int steps = C / kCC * G::SLICES;  // W slices over all chunks
+
+  // W slice `step`: slab columns kk0 .. kk0 + SK of chunk step / SLICES
+  auto load_w = [&](int step) {
+    const int c0 = step / G::SLICES * kCC, kk0 = step % G::SLICES * G::SK;
+    bf16* dst = ring + (size_t)(step % kStages) * G::SK * BN;
+    for (int e = tid; e < G::SK * BN / 8; e += kThreads) {
+      const int r = e / (BN / 8), c8 = e % (BN / 8) * 8;
+      int cc, k;
+      slab_column(kk0 + r, cc, k);
+      tc::cp16(tc::smem_addr(dst + tc::swz(r, c8, BN / 8)),
+               W + ((size_t)k * C + c0 + cc) * D + n0 + c8, true);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load_w(s);
+    tc::cp_commit();
+  }
+
+  // the block's points' neighbors (padded slots hold the shadow index) and
+  // each row's table offset, local point (-1 past M) and anchor
+  for (int e = tid; e < np * nnp; e += kThreads) {
+    const int p = e / nnp, n = e - p * nnp;
+    float4 v = make_float4(0.f, 0.f, 0.f, 1.f);
+    int j = q;
+    if (n < nn) {
+      const size_t src = (size_t)(pt0 + p) * nn + n;
+      const float x = gx[3 * src], y = gx[3 * src + 1], z = gx[3 * src + 2];
+      v = make_float4(x, y, z, 1.f - ((x * x + y * y) + z * z) * inv_sigma);
+      j = idx[src];
+    }
+    s_gx[e] = v;
+    s_idx[e] = j;
+  }
+  if (tid < kBM) {
+    const int gm = m0 + tid, pt = gm / na, a = gm - pt * na;
+    s_rtb[tid] = ((long long)(pt / p2) * q * na + a) * C;
+    s_ri[tid] = make_int2(gm < M ? pt - pt0 : -1, a);
+  }
+  __syncthreads();
+
+  // the table rows of this warp's rows i, i + 1, channels c0 .. c0 + kCC,
+  // into buffers i % R, i % R + 1 (zeros for the shadow index and padded
+  // slots; nothing past M); one commit group a pair
+  auto gather = [&](int i, int c0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = warp * kRowsPerWarp + i + u, lp = s_ri[r].x;
+      if (lp < 0) continue;
+      const int* ix = s_idx + lp * nnp;
+      const bf16* tb = table + s_rtb[r] + c0;
+      bf16* dst = rows + (size_t)((i + u) % R) * nnp * kCC;
+      for (int e = lane; e < nnp * (kCC / 8); e += 32) {
+        const int n = e / (kCC / 8), c8 = e % (kCC / 8) * 8;
+        const int j = ix[n];
+        const bool ok = j < q;
+        tc::cp16(tc::smem_addr(dst + tc::swz(n, c8, kCC / 8)),
+                 ok ? tb + (size_t)j * na * C + c8 : table, ok);
+      }
+    }
+    tc::cp_commit();
+  };
+
+  // rows i, i + 1: F^T [kCC, 24] = G^T [kCC, nnp] w [nnp, 24] for each;
+  // A = G^T by ldmatrix.trans from the [n][c] buffer; B = the anchor
+  // weights of neighbors 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) for kernel
+  // point 8j + g, computed in fp32 as relu((1 - |gx|^2 / sigma) - |kappa|^2
+  // / sigma + gx . (2 R kappa / sigma)) and rounded to bf16 in the
+  // fragment; F rounded to bf16 into the slab, three 16-byte chunks a lane
+  auto contract = [&](int i) {
+    const float4* g4[2];
+    const bf16* gb[2];
+    float4 rj[2][3];
+    int r[2];
+    bool live[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      r[u] = warp * kRowsPerWarp + i + u;
+      const int2 ri = s_ri[r[u]];
+      live[u] = ri.x >= 0;
+      g4[u] = s_gx + max(ri.x, 0) * nnp;
+      gb[u] = rows + (size_t)((i + u) % R) * nnp * kCC;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int kp = 8 * j + g;
+        const float* rp = rk + ((size_t)ri.y * kK + kp) * 3;
+        const float s2 = 2.f * inv_sigma;
+        rj[u][j] = make_float4(s2 * __ldg(rp), s2 * __ldg(rp + 1),
+                               s2 * __ldg(rp + 2),
+                               -__ldg(k2 + kp) * inv_sigma);
+      }
+    }
+    float f[2][2][3][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int h = 0; h < 4; ++h) f[u][mi][j][h] = 0.f;
+    for (int nb = 0; nb < nnp; nb += 16) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float4 gq[4] = {g4[u][nb + 2 * t], g4[u][nb + 2 * t + 1],
+                              g4[u][nb + 2 * t + 8], g4[u][nb + 2 * t + 9]};
+        uint32_t b[3][2];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          float w[4];
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const float4& p = gq[n];
+            const float4& k = rj[u][j];
+            w[n] = fmaxf(fmaf(p.x, k.x, fmaf(p.y, k.y, fmaf(p.z, k.z,
+                                                            p.w + k.w))),
+                         0.f);
+          }
+          b[j][0] = epn::pack2(w[0], w[1]);
+          b[j][1] = epn::pack2(w[2], w[3]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          uint32_t af[4];
+          tc::ldsm4t(af, tc::smem_addr(
+                             gb[u] + tc::swz(nb + (lane & 7) + (lane >> 4) * 8,
+                                             (2 * mi + ((lane >> 3) & 1)) * 8,
+                                             kCC / 8)));
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            tc::mma(f[u][mi][j], af, b[j][0], b[j][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (!live[u]) continue;
+      const float(&h)[2][3][4] = f[u];
+      const uint4 v[3] = {
+          make_uint4(epn::pack2(h[0][0][0], h[0][0][1]),
+                     epn::pack2(h[0][1][0], h[0][1][1]),
+                     epn::pack2(h[0][0][2], h[0][0][3]),
+                     epn::pack2(h[0][1][2], h[0][1][3])),
+          make_uint4(epn::pack2(h[1][0][0], h[1][0][1]),
+                     epn::pack2(h[1][1][0], h[1][1][1]),
+                     epn::pack2(h[1][0][2], h[1][0][3]),
+                     epn::pack2(h[1][1][2], h[1][1][3])),
+          make_uint4(epn::pack2(h[0][2][0], h[0][2][1]),
+                     epn::pack2(h[0][2][2], h[0][2][3]),
+                     epn::pack2(h[1][2][0], h[1][2][1]),
+                     epn::pack2(h[1][2][2], h[1][2][3]))};
+#pragma unroll
+      for (int w = 0; w < 3; ++w) {
+        *reinterpret_cast<uint4*>(
+            slab + tc::swz(r[u], (3 * lane + w) * 8, kKC / 8)) = v[w];
+      }
+    }
+  };
+
+  float acc[G::MI][G::NI][4];
+#pragma unroll
+  for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < G::NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) acc[mi][ni][h] = 0.f;
+  const int wm = warp / G::WN, wn = warp % G::WN;
+  constexpr int kPairs = kRowsPerWarp / 2;
+
+  for (int c0 = 0, step = 0; c0 < C; c0 += kCC) {
+    // phase 1: the slab, R2 pairs of the warp's rows in flight
+    for (int i = 0; i < R2 - 1; ++i) gather(2 * i, c0);
+    for (int i = 0; i < kPairs; ++i) {
+      if (i + R2 - 1 < kPairs) {
+        gather(2 * (i + R2 - 1), c0);
+      } else {
+        tc::cp_commit();
+      }
+      cp_wait_upto(R2 - 1);
+      __syncwarp();
+      contract(2 * i);
+      __syncwarp();
+    }
+    __syncthreads();
+
+    // phase 2: out += slab . W[chunk rows]
+    for (int s = 0; s < G::SLICES; ++s, ++step) {
+      tc::cp_wait<kStages - 2>();
+      __syncthreads();
+      if (step + kStages - 1 < steps) load_w(step + kStages - 1);
+      tc::cp_commit();
+      const bf16* ws = ring + (size_t)(step % kStages) * G::SK * BN;
+      const int kk0 = s * G::SK;
+#pragma unroll
+      for (int kk = 0; kk < G::SK; kk += 16) {
+        uint32_t af[G::MI][4];
+#pragma unroll
+        for (int mi = 0; mi < G::MI; ++mi) {
+          tc::ldsm4(af[mi], tc::smem_addr(
+                                slab + tc::swz(wm * (kBM / G::WM) + mi * 16 +
+                                                   (lane & 15),
+                                               kk0 + kk + (lane >> 4) * 8,
+                                               kKC / 8)));
+        }
+        uint32_t bf[G::NI][2];
+#pragma unroll
+        for (int nj = 0; nj < G::NI / 2; ++nj) {
+          uint32_t r4[4];
+          tc::ldsm4t(r4, tc::smem_addr(
+                             ws + tc::swz(kk + (lane & 7) +
+                                              ((lane >> 3) & 1) * 8,
+                                          wn * (BN / G::WN) + nj * 16 +
+                                              (lane >> 4) * 8,
+                                          BN / 8)));
+          bf[2 * nj][0] = r4[0];
+          bf[2 * nj][1] = r4[1];
+          bf[2 * nj + 1][0] = r4[2];
+          bf[2 * nj + 1][1] = r4[3];
+        }
+#pragma unroll
+        for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < G::NI; ++ni)
+            tc::mma(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+      }
+    }
+    __syncthreads();  // the slab is rebuilt next
+  }
+
+  // the output rounded once into a tile in the slab's memory, stored by
+  // whole rows in 16-byte vectors
+  bf16* ot = slab;
+#pragma unroll
+  for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < G::NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * (kBM / G::WM) + mi * 16 + g + 8 * h;
+        const int c = wn * (BN / G::WN) + ni * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(ot + r * G::OS + c) =
+            epn::pack2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+  __syncthreads();
+  for (int e = tid; e < kBM * BN / 8; e += kThreads) {
+    const int r = e / (BN / 8), c = e % (BN / 8) * 8;
+    if (m0 + r < M) {
+      *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * D + n0 + c) =
+          *reinterpret_cast<const uint4*>(ot + r * G::OS + c);
+    }
+  }
+  tc::cp_wait<0>();
+}
+
+template <int BN, bool kDeep>
+int launch(const void* gx, const void* idx, const void* table,
+           const void* rk, const void* k2, const void* W, void* out, int M,
+           int p2, int nn, int q, int na, int C, int D, float sigma,
+           cudaStream_t stream) {
+  using G = MmaCfg<BN, kDeep>;
+  const MmaSmem L = mma_layout(BN, G::SK, na, nn);
+  if (L.R < 2) return (int)cudaErrorInvalidValue;
+  auto kern = inter_conv_mma_kernel<BN, kDeep>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((M + kBM - 1) / kBM, D / BN);
+  kern<<<grid, kThreads, L.total, stream>>>(
+      (const float*)gx, (const int*)idx, (const bf16*)table,
+      (const float*)rk, (const float*)k2, (const bf16*)W, (bf16*)out, M, p2,
+      nn, q, na, C, D, 1.f / sigma);
+  return (int)cudaGetLastError();
+}
+
+// the deep W slices where a pair of gathered rows a warp fits beside them
+// (not at BN = 32: a chunk's 768 columns are not a whole number of them)
+template <int BN>
+int launch_any(const void* gx, const void* idx, const void* table,
+               const void* rk, const void* k2, const void* W, void* out,
+               int M, int p2, int nn, int q, int na, int C, int D,
+               float sigma, cudaStream_t stream) {
+  if constexpr (BN > 32) {
+    if (mma_layout(BN, MmaCfg<BN, true>::SK, na, nn).R >= 2) {
+      return launch<BN, true>(gx, idx, table, rk, k2, W, out, M, p2, nn, q,
+                              na, C, D, sigma, stream);
+    }
+  }
+  return launch<BN, false>(gx, idx, table, rk, k2, W, out, M, p2, nn, q, na,
+                           C, D, sigma, stream);
+}
+
+}  // namespace mma
+
 }  // namespace
 
 // gx [b, p2, nn, 3], idx [b, p2, nn] int32 in [0, q] (q = shadow, zero row),
@@ -336,4 +786,29 @@ extern "C" int epn_inter_conv_f(const void* gx, const void* idx,
   return launch<128, 128, float, true>(g, ix, (const float*)table, r, kk,
                                        nullptr, (float*)F, b * p2 * na, p2,
                                        nn, q, na, K, C, 0, sigma, s);
+}
+
+// bf16 on tensor cores (the production mode's W-fused forward): gx, idx,
+// table, rk, k2, W and out as epn_inter_conv with a bf16 table, W and out.
+// K must be 24, C a multiple of 32, D of 32, 1 <= nn <= 64 and na >= 4.
+extern "C" int epn_inter_conv_mma(const void* gx, const void* idx,
+                                  const void* table, const void* rk,
+                                  const void* k2, const void* W, void* out,
+                                  int b, int p2, int nn, int q, int na, int K,
+                                  int C, int D, float sigma, void* stream) {
+  if (K != mma::kK || C % mma::kCC != 0 || D % 32 != 0 || nn < 1 ||
+      nn > mma::kMaxNN || na < mma::kMinNA) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int M = b * p2 * na;
+  cudaStream_t s = (cudaStream_t)stream;
+  auto go = [&](auto bn) {
+    return mma::launch_any<decltype(bn)::value>(gx, idx, table, rk, k2, W,
+                                                out, M, p2, nn, q, na, C, D,
+                                                sigma, s);
+  };
+  if (D % 256 == 0) return go(std::integral_constant<int, 256>());
+  if (D % 128 == 0) return go(std::integral_constant<int, 128>());
+  if (D % 64 == 0) return go(std::integral_constant<int, 64>());
+  return go(std::integral_constant<int, 32>());
 }

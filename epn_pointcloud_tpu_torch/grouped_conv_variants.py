@@ -2,7 +2,7 @@
 time, on the card: the kernels as built beside the one PyTorch call that
 computes the same function, a variant without the forward's output stores,
 and optionally the kernels of an earlier tree, all on the same inputs with
-the same timer (``chip_smoke.time_ms``).
+the same timer (``chip_smoke.time_ms``, in turns: ``time_abba``).
 
   python -m epn_pointcloud_tpu_torch.grouped_conv_variants \\
       [--parent-csrc DIR]
@@ -37,8 +37,6 @@ import argparse
 import ctypes
 import json
 import os
-import shutil
-import subprocess
 import sys
 
 import torch
@@ -82,21 +80,8 @@ PATHS = {
 def _build(name, csrc, sub):
     """Start nvcc on grouped_conv.cu of ``csrc`` with the substitution
     ``sub``; (process, library path)."""
-    d = os.path.join(OUT, name)
-    shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(csrc, d)
-    src_path = os.path.join(d, 'grouped_conv.cu')
-    src = open(src_path).read()
-    if sub is not None:
-        if sub[0] not in src:
-            raise RuntimeError(f'{name}: {sub[0]!r} not in grouped_conv.cu')
-        with open(src_path, 'w') as f:
-            f.write(src.replace(sub[0], sub[1]))
-    so = os.path.join(d, 'lib.so')
-    cmd = [build._nvcc()] + build.ARCH_FLAGS + build.NVCC_FLAGS + [
-        '-shared', '-o', so, src_path]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), so
+    return build.compile_alone(csrc, 'grouped_conv.cu',
+                               os.path.join(OUT, name), sub)
 
 
 def _load(so, parent):
@@ -119,12 +104,6 @@ def _launch(lib, name, *args):
         raise RuntimeError(f'{name}: CUDA error {err}')
 
 
-def _abba(time_ms, a, b):
-    """(a ms, b ms), timed a, b, b, a and averaged a pair."""
-    a0, b0, b1, a1 = time_ms(a), time_ms(b), time_ms(b), time_ms(a)
-    return (a0 + a1) / 2, (b0 + b1) / 2
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--parent-csrc', default=None,
@@ -133,7 +112,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit('grouped_conv_variants: needs a CUDA device')
     sys.path.insert(0, ROOT)
-    from chip_smoke import time_ms
+    from chip_smoke import time_abba, time_ms
 
     builds = {n: (build.CSRC_DIR, sub) for n, sub in VARIANTS.items()}
     if args.parent_csrc:
@@ -248,8 +227,8 @@ def main(argv=None):
         for tag, calls, shape in shapes:
             rec, fns = shape_fn[kind](*shape)
             if 'parent' in fns:
-                rec['parent_ms'], rec['built_ms'] = _abba(
-                    time_ms, fns['parent'], fns['built'])
+                rec['parent_ms'], rec['built_ms'] = time_abba(
+                    fns['parent'], fns['built'])
             else:
                 rec['built_ms'] = time_ms(fns['built'])
             emit({'path': path, 'shape': tag, 'calls': calls,

@@ -1,0 +1,150 @@
+"""Where the bf16 tensor-core inter forward (``inter_conv_mma_kernel`` in
+csrc/inter_conv.cu) spends its time, on the card: the kernel as built
+beside variants with one part taken out, at the shapes of both models'
+layers, with the same timer (``chip_smoke.time_ms``).
+
+  python -m epn_pointcloud_tpu_torch.inter_conv_variants
+
+It imports ``chip_smoke`` from the repository root. Each variant is
+csrc/inter_conv.cu compiled alone (nvcc, sm_90a) under
+build/inter_conv_variants/ with one text substitution (which fails loudly
+when the source no longer holds the text); its output is wrong and only
+its time counts:
+  built          the source as it is;
+  no_gather      the table rows are not read (the neighbor buffers are
+                 zero-filled): the gathers' share;
+  no_contract    phase 1 computes nothing (no anchor weights, no neighbor
+                 contraction, no F stores; the gathers still run);
+  no_w_product   phase 2 issues no mma (its W loads, ldmatrix and barriers
+                 still run);
+  no_w_loads     phase 2 loads no W slice (its products run on stale
+                 shared memory): the W stream's share;
+  same_w_row     every W slice reads the same W row: all blocks hit the
+                 same L2 lines.
+Operands are random (seeded), the neighborhoods a ball query over random
+points in the unit ball, at the shapes the smoke run captures from the
+models: cls_so3net_pn at b=32 and inv_so3net_pn at b=16 (one leg). One
+JSON line a shape, a sum over each model's layers, all of them in
+chiprun_out/inter_conv_variants.json. Needs a CUDA device and nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from .ops import icosahedron, kernel_points, so3conv
+from .ops.kernels import build
+
+OUT = os.path.join(build.BUILD_DIR, 'inter_conv_variants')
+ROOT = os.path.dirname(build.BUILD_DIR)
+# variant -> (text in the source, its replacement), or None for the source
+VARIANTS = {
+    'built': None,
+    'no_gather': ('const bool ok = j < q;', 'const bool ok = false;'),
+    'no_contract': ('contract(2 * i);', 'if (M < 0) contract(2 * i);'),
+    'no_w_product': (
+        'tc::mma(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);',
+        'if (M < 0) tc::mma(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);'),
+    'no_w_loads': ('tc::cp16(tc::smem_addr(dst + tc::swz(r, c8, BN / 8)),',
+                   'if (M < 0) tc::cp16(tc::smem_addr(dst + tc::swz(r, c8, '
+                   'BN / 8)),'),
+    'same_w_row': ('W + ((size_t)k * C + c0 + cc) * D + n0 + c8, true);',
+                   'W + n0 + c8, true);'),
+}
+# model -> (b, [(layer, p1, p2, nn, c, d)])
+SHAPES = {
+    'cls_so3net_pn b=32': (32, [
+        ('L1', 512, 512, 16, 64, 64), ('L2', 512, 256, 32, 64, 128),
+        ('L3', 256, 256, 16, 128, 128), ('L4', 256, 128, 32, 128, 256),
+        ('L5', 128, 128, 16, 256, 256), ('L6', 128, 64, 32, 256, 256)]),
+    'inv_so3net_pn b=16': (16, [
+        ('B0L1', 512, 512, 32, 32, 32), ('B1L0', 512, 256, 64, 32, 64),
+        ('B1L1', 256, 256, 32, 64, 64), ('B2L0', 256, 128, 64, 64, 128),
+        ('B2L1', 128, 128, 32, 128, 128), ('B3L0', 128, 64, 64, 128, 128),
+        ('B3L1', 64, 64, 32, 128, 128)]),
+}
+
+
+def _operands(dev, b, p1, p2, nn, c, d, seed):
+    """Seeded bf16 table and W, fp32 neighborhoods of p2 of p1 random points
+    in the unit ball (radius 0.4), the 60 rotated kernel points."""
+    rng = np.random.RandomState(seed)
+    v = rng.randn(b, p1, 3)
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    x = torch.from_numpy((v * rng.rand(b, p1, 1) ** (1 / 3)).astype(
+        np.float32)).to(dev)
+    gx, idx, _, _ = so3conv.sampling.inter_grouping_ball(x, p1 // p2, 0.4,
+                                                         nn)
+    anchors = torch.from_numpy(icosahedron.get_anchors(60)).to(dev)
+    kern = torch.from_numpy(kernel_points.get_spherical_kernel_points(
+        0.28, 1)).to(dev)
+    rk, k2 = so3conv.rotated_kernels(anchors, kern)
+    table = torch.from_numpy(rng.randn(b, p1, 60, c).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    W = torch.from_numpy((0.05 * rng.randn(24, c, d)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    return gx.contiguous(), idx, table, rk, k2, W
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit('inter_conv_variants: needs a CUDA device')
+    sys.path.insert(0, ROOT)
+    from chip_smoke import time_ms
+    procs = {n: build.compile_alone(build.CSRC_DIR, 'inter_conv.cu',
+                                    os.path.join(OUT, n), sub)
+             for n, sub in VARIANTS.items()}
+    fns = {}
+    for n, (p, so) in procs.items():
+        log = p.communicate()[0]
+        if p.returncode != 0:
+            raise RuntimeError(f'nvcc failed on {n}:\n{log}')
+        fn = ctypes.CDLL(so).epn_inter_conv_mma
+        fn.argtypes = build.SIGNATURES['epn_inter_conv_mma']
+        fn.restype = ctypes.c_int
+        fns[n] = fn
+    dev = torch.device('cuda')
+    card = torch.cuda.get_device_name(0)
+    lines = []
+    for model, (b, layers) in SHAPES.items():
+        total = dict.fromkeys(VARIANTS, 0.0)
+        for tag, p1, p2, nn, c, d in layers:
+            gx, idx, table, rk, k2, W = _operands(dev, b, p1, p2, nn, c, d,
+                                                  seed=nn + c + d)
+            out = torch.empty(b, p2, 60, d, dtype=torch.bfloat16, device=dev)
+            args = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(),
+                    rk.data_ptr(), k2.data_ptr(), W.data_ptr(),
+                    out.data_ptr(), b, p2, nn, p1, 60, 24, c, d, 0.08)
+
+            def call(fn):
+                def run():
+                    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f'epn_inter_conv_mma: error {err}')
+                return run
+            rec = {n: time_ms(call(fn)) for n, fn in fns.items()}
+            for n, ms in rec.items():
+                total[n] += ms
+            lines.append({'model': model, 'layer': tag,
+                          'dims': [b, p1, p2, nn, c, d], 'ms': rec,
+                          'card': card})
+            print(json.dumps(lines[-1]), flush=True)
+            del gx, idx, table, W, out
+            torch.cuda.empty_cache()
+        lines.append({'model': model, 'sum_over_layers': True, 'ms': total,
+                      'card': card})
+        print(json.dumps(lines[-1]), flush=True)
+    out_dir = os.path.join(ROOT, 'chiprun_out')
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, 'inter_conv_variants.json'), 'w') as f:
+        json.dump(lines, f, indent=1)
+
+
+if __name__ == '__main__':
+    main()

@@ -43,6 +43,10 @@ SIGNATURES = {
     # bf16, stream
     'epn_inter_conv': [_P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # gx, idx, table, rk, k2, w, out, b, p2, nn, q, na, k, c, d, sigma,
+    # stream (bf16 on tensor cores)
+    'epn_inter_conv_mma': [_P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # gx, idx, table, rk, k2, f, b, p2, nn, q, na, k, c, sigma, bf16, stream
     'epn_inter_conv_f': [_P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
@@ -142,6 +146,29 @@ def _compile(srcs, so: str) -> str:
         for o in objs:
             if os.path.exists(o):
                 os.remove(o)
+
+
+def compile_alone(csrc: str, source: str, out_dir: str, sub=None):
+    """Start nvcc on one ``source`` of the directory ``csrc`` (this tree's
+    or an earlier one's), copied to ``out_dir``, into a shared library
+    there; ``sub``: (text in the source, its replacement), which raises
+    when the source does not hold the text. Returns (process, library
+    path): the caller waits on the process and loads the library with its
+    own signatures. For the harnesses that time variants of a kernel."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.copytree(csrc, out_dir)
+    src_path = os.path.join(out_dir, source)
+    if sub is not None:
+        with open(src_path) as f:
+            src = f.read()
+        if sub[0] not in src:
+            raise RuntimeError(f'{out_dir}: {sub[0]!r} not in {source}')
+        with open(src_path, 'w') as f:
+            f.write(src.replace(sub[0], sub[1]))
+    so = os.path.join(out_dir, 'lib.so')
+    cmd = [_nvcc()] + ARCH_FLAGS + NVCC_FLAGS + ['-shared', '-o', so, src_path]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), so
 
 
 def library() -> ctypes.CDLL:

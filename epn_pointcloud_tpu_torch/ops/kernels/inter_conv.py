@@ -30,9 +30,15 @@ The plain versions are anchor-chunked fp32 formulations (the forward that of
 no [b, p, n, na, *] tensor for all anchors exists at once.
 
 Forward and backward also run in bf16 (the production mode): the table, W,
-out and dout are bf16, gx, rk and k2 stay fp32, and every product and sum is
-fp32; out is rounded once, dW stays fp32 and dT is rounded to the table's
-type after its fp32 sums, as ``_fgcw_bwd`` rounds its fp32 dTable. The W-off
+out and dout are bf16, gx, rk and k2 stay fp32, and every sum is fp32; out
+is rounded once, dW stays fp32 and dT is rounded to the table's type after
+its fp32 sums, as ``_fgcw_bwd`` rounds its fp32 dTable. The bf16 forward
+runs on tensor cores (``mma_route``), whose operands are bf16: it rounds the
+anchor weights and F to bf16 before the product each feeds, where the TPU
+kernel rounds them (``_fwd_gather_w_kernel:974, 980``; its own reference
+``inter_conv_mma_plain``); the plain version and the SGEMM template keep
+both in fp32, which puts ~3e-3 (normwise) between the tensor-core kernel
+and the plain version. The W-off
 kernels keep the composed route's bf16 rounding points (``_fgcw_bwd:1685-
 1703``): F and dF in the table's type, each neighbor slot's sum_k w dF
 rounded to bf16 before the fp32 fold onto the table rows, dW summed in fp32.
@@ -60,12 +66,19 @@ ENTRIES = {
                       'epn_pointcloud_tpu/ops/pallas/inter_conv.py:559'),
 }
 launches = dict.fromkeys(ENTRIES, 0)
+# the forward's launches by kernel: 'mma', the bf16 tensor-core kernel
+# (``inter_conv_mma_kernel``), or 'sgemm', the register-blocked SGEMM
+# template (fp32, and bf16 shapes off the tensor-core route)
+routes = dict.fromkeys(('mma', 'sgemm'), 0)
 
 # anchors per step of the plain versions: bounds their [b, p, n, chunk, *]
 # intermediates (~1 GB at b=32 on the widest flagship layer)
 ANCHOR_CHUNK = 10
 # the backward kernels are written for the model's 24 kernel points
 N_KERNEL = 24
+# the bf16 tensor-core forward's envelope (``mma_route``): neighbors up to,
+# and the fewest anchors (a block's 64 rows touch 64 / na + 2 points)
+MMA_MAX_NN, MMA_MIN_NA = 64, 4
 # the W-off kernels' envelope (the inv model's composed layers): channels
 # and neighbors up to, and the anchors of the icosahedral group
 WOFF_MAX_C, WOFF_MAX_NN, WOFF_NA = 128, 64, 60
@@ -88,9 +101,12 @@ def _gather_chunk(table: torch.Tensor, idx: torch.Tensor, s: int, e: int):
 
 
 def _f_chunks(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
-              rk: torch.Tensor, k2: torch.Tensor, sigma: float):
+              rk: torch.Tensor, k2: torch.Tensor, sigma: float,
+              rounded: bool = False):
     """(s, e, F [b, p2, e - s, K, c]) for each anchor chunk [s, e): the
-    neighbor contraction in fp32 over the shadow-padded table."""
+    neighbor contraction in fp32 over the shadow-padded table; rounded: the
+    anchor weights rounded to bf16 before it and F after it (values kept in
+    fp32)."""
     b = idx.shape[0]
     na, c = table.shape[2], table.shape[3]
     table = build.widen(table)
@@ -99,8 +115,15 @@ def _f_chunks(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
     for s in range(0, na, ANCHOR_CHUNK):
         e = min(s + ANCHOR_CHUNK, na)
         w = anchor_weights(gx, rk[s:e], k2, sigma)          # [b,p,n,ac,K]
+        if rounded:
+            w = _round_bf16(w)
         G = _gather_chunk(table, idx, s, e)                  # [b,p,n,ac,c]
-        yield s, e, torch.einsum('bpnak,bpnac->bpakc', w, G)
+        F = torch.einsum('bpnak,bpnac->bpakc', w, G)
+        yield s, e, _round_bf16(F) if rounded else F
+
+
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def _scatter_rows(gx: torch.Tensor, idx: torch.Tensor, q: int,
@@ -132,11 +155,33 @@ def inter_conv_plain(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
     """gx [b, p2, nn, 3], idx [b, p2, nn] in [0, q], table [b, q, na, c],
     rk [na, K, 3], k2 [K], W [K, c, d] -> out [b, p2, na, d] (fp32
     arithmetic, rounded to the table's type)."""
+    return _plain_forward(gx, idx, table, rk, k2, W, sigma, False)
+
+
+def inter_conv_mma_plain(gx: torch.Tensor, idx: torch.Tensor,
+                         table: torch.Tensor, rk: torch.Tensor,
+                         k2: torch.Tensor, W: torch.Tensor,
+                         sigma: float) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic (a bf16 table and W): the anchor
+    weights and F rounded to bf16 before the product each feeds, where the
+    TPU kernel rounds them (``_fwd_gather_w_kernel:974, 980``,
+    ``_build_packed_fs:287, 299``), fp32 sums, out rounded once. The
+    kernel's reference at the rounding points it shares with the TPU.
+    ``inter_conv_plain`` stays the wrapper's plain version (its CPU path and
+    the op layer's plain path) in fp32 inside: with these rounding points in
+    both, the kernel and plain paths of a bf16 train step flip different
+    roundings of F, and their gradients part further than the step's
+    noise-floor gate allows (PERF.md section 6)."""
+    return _plain_forward(gx, idx, table, rk, k2, W, sigma, True)
+
+
+def _plain_forward(gx, idx, table, rk, k2, W, sigma, rounded):
     b, p2, _ = idx.shape
     K, c, d = W.shape
     W2 = build.widen(W).reshape(K * c, d)
     outs = [(F.reshape(-1, K * c) @ W2).reshape(b, p2, e - s, d)
-            for s, e, F in _f_chunks(gx, idx, table, rk, k2, sigma)]
+            for s, e, F in _f_chunks(gx, idx, table, rk, k2, sigma,
+                                     rounded)]
     return torch.cat(outs, dim=2).to(table.dtype)
 
 
@@ -217,11 +262,22 @@ def _check(kernel, gx, idx, table_shape, rk, k2, W_shape, dout=None,
     return b, p2, nn, q, na, K, c, d
 
 
+def mma_route(dtype, K: int, c: int, d: int, nn: int, na: int) -> bool:
+    """Whether the forward runs the bf16 tensor-core kernel: a bf16 table
+    and K == 24, c % 32 == 0, d % 32 == 0, nn <= MMA_MAX_NN and na >=
+    MMA_MIN_NA (every layer of both models). The other shapes the wrapper
+    takes (c % 8 == 0, K % 6 == 0, d % 32 == 0), and fp32, run the SGEMM
+    template."""
+    return (dtype == torch.bfloat16 and K == N_KERNEL and c % 32 == 0
+            and d % 32 == 0 and nn <= MMA_MAX_NN and na >= MMA_MIN_NA)
+
+
 def inter_conv(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
                rk: torch.Tensor, k2: torch.Tensor, W: torch.Tensor,
                sigma: float) -> torch.Tensor:
     """Forward kernel wrapper: plain version on the CPU, CUDA kernel on the
-    card."""
+    card: the tensor-core kernel where ``mma_route`` holds (bf16), else the
+    SGEMM template. Both are deterministic (no atomics)."""
     if table.device.type == 'cpu':
         return inter_conv_plain(gx, idx, table, rk, k2, W, sigma)
     bf16 = build.dtype_flag(table.dtype, 'inter_conv')
@@ -229,11 +285,16 @@ def inter_conv(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
                                        k2, W.shape, table=table, W=W,
                                        dtype=table.dtype)
     out = torch.empty((b, p2, na, d), dtype=table.dtype, device=gx.device)
+    ptrs = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(), rk.data_ptr(),
+            k2.data_ptr(), W.data_ptr(), out.data_ptr(), b, p2, nn, q, na, K,
+            c, d, float(sigma))
     launches['inter_conv'] += 1
-    build.launch('epn_inter_conv', gx.data_ptr(), idx.data_ptr(),
-                 table.data_ptr(), rk.data_ptr(), k2.data_ptr(), W.data_ptr(),
-                 out.data_ptr(), b, p2, nn, q, na, K, c, d, float(sigma),
-                 bf16, build.stream(table))
+    if mma_route(table.dtype, K, c, d, nn, na):
+        routes['mma'] += 1
+        build.launch('epn_inter_conv_mma', *ptrs, build.stream(table))
+    else:
+        routes['sgemm'] += 1
+        build.launch('epn_inter_conv', *ptrs, bf16, build.stream(table))
     return out
 
 

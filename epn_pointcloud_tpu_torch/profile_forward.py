@@ -45,6 +45,7 @@ from .train import make_optimizer
 # W-off modes are the inter kernels' instantiations with kWOff = true
 GROUPS = ((('inter_conv_kernel', 'true>'), 'inter F (W-off) kernel'),
           (('inter_dtable_kernel', 'true>'), 'inter dG (W-off) kernel'),
+          ('inter_conv_mma_kernel', 'inter conv kernel (bf16, tensor cores)'),
           ('inter_conv_kernel', 'inter conv kernel'),
           ('inter_dtable_kernel', 'inter dTable kernel'),
           ('inter_dw_kernel', 'inter dW kernel'),

@@ -252,14 +252,20 @@ def test_intra_conv_prenorm_plain_matches_pallas_kernel(dtype):
         assert _normwise(got, want) <= 4e-3
 
 
-def test_inter_conv_bf16_plain_matches_pallas_kernel():
-    """The W-fused inter conv with a bf16 table and W (fp32 coordinates and
-    accumulation, bf16 output) against fused_gather_conv_w in bf16 in
-    interpret mode; some neighbor slots hold the shadow index. The TPU
-    kernel rounds F to bf16 before its W product and the port does not:
-    normwise <= 1e-2."""
+@pytest.mark.parametrize('C,D,N', [(64, 64, 16), (128, 128, 16),
+                                   (32, 64, 32)])
+def test_inter_conv_bf16_plain_matches_pallas_kernel(C, D, N):
+    """The W-fused inter conv with a bf16 table and W (fp32 coordinates,
+    bf16 output) against fused_gather_conv_w in bf16 in interpret mode, in
+    its lane-packed layout (C = D = 64), its plain one (C = D = 128) and at
+    an inv-like shape (C = 32, D = 64, nn = 32); some neighbor slots hold
+    the shadow index. inter_conv_mma_plain, the tensor-core kernel's
+    arithmetic, rounds where the TPU kernel rounds (the anchor weights and F
+    to bf16 before the product each feeds, fp32 sums, the output once):
+    normwise <= 1e-3. The wrapper's plain version keeps the weights and F in
+    fp32: normwise <= 1e-2."""
     rng = np.random.RandomState(3)
-    B, N, P, AC, C, D, Q, K, sigma = 2, 16, 16, 4, 64, 64, 61, 24, 0.1
+    B, P, AC, Q, K, sigma = 2, 16, 4, 61, 24, 0.1
     gx = (0.3 * rng.randn(B, P, N, 3)).astype(np.float32)
     tab = _bf16(rng.randn(B, Q, AC * C).astype(np.float32))
     idx = rng.randint(0, Q + 1, size=(B, P, N)).astype(np.int32)
@@ -279,10 +285,13 @@ def test_inter_conv_bf16_plain_matches_pallas_kernel():
         jic.make_rk8(rk, k2, tp, kt, sigma),
         jnp.asarray(W, jnp.bfloat16).reshape(K * C, D), sigma, tp, kt, nt,
         None, True)
-    got = tkern.inter_conv.inter_conv(
-        _t(gx), torch.from_numpy(idx),
-        _t(tab, torch.bfloat16).reshape(B, Q, AC, C),
-        _t(np.array(rk)), _t(np.array(k2)), _t(W, torch.bfloat16), sigma)
+    args = (_t(gx), torch.from_numpy(idx),
+            _t(tab, torch.bfloat16).reshape(B, Q, AC, C),
+            _t(np.array(rk)), _t(np.array(k2)), _t(W, torch.bfloat16), sigma)
+    got = tkern.inter_conv.inter_conv_mma_plain(*args)
+    assert got.dtype == torch.bfloat16
+    assert _normwise(got.reshape(B, P, AC * D), want) <= 1e-3
+    got = tkern.inter_conv.inter_conv(*args)
     assert got.dtype == torch.bfloat16
     assert _normwise(got.reshape(B, P, AC * D), want) <= 1e-2
 

@@ -544,7 +544,18 @@ def test_run_modelnet_bf16_train_end_to_end(tmp_path):
 
 
 if __name__ == '__main__':
-    # the values the whole-step bounds above were set from
+    # the values the whole-step bounds above were set from; with
+    # --mma-plain, the port's bf16 inter forward rounds where the
+    # tensor-core kernel (and the TPU kernel) rounds (inter_conv_mma_plain)
+    import sys
+    if '--mma-plain' in sys.argv[1:]:
+        _plain = tkern.inter_conv.inter_conv_plain
+
+        def _rounded(*args):
+            fn = (tkern.inter_conv.inter_conv_mma_plain
+                  if args[2].dtype == torch.bfloat16 else _plain)
+            return fn(*args)
+        tkern.inter_conv.inter_conv_plain = _rounded
     step = _bf16_step()
     print(f'loss: port {step["tloss"]:.6f}, JAX {step["jloss"]:.6f}, '
           f'relative {abs(step["tloss"] - step["jloss"]) / step["jloss"]:.2e}')

@@ -338,14 +338,82 @@ def test_intra_conv_prenorm_kernel_matches_plain(cuda, dtype, p, c, d, sb):
 @pytest.mark.parametrize('p1,stride,nn,c,d', [(128, 2, 32, 64, 128),
                                               (64, 1, 16, 256, 256)])
 def test_inter_conv_bf16_kernel_matches_plain(cuda, p1, stride, nn, c, d):
-    """bf16 table and W, fp32 coordinates and sums, bf16 out: 4e-3."""
+    """bf16 table and W, fp32 coordinates and sums, bf16 out: against the
+    plain version (the anchor weights and F in fp32) 4e-3, and against the
+    tensor-core kernel's arithmetic (both rounded to bf16,
+    inter_conv_mma_plain) 1e-3."""
     gx, idx, f, rk, k2, W, _ = _inter_operands(cuda, 2, p1, stride, nn, c, d)
     args = (gx, idx, f.to(BF16), rk, k2, W.to(BF16), 0.08)
-    got = tkern.inter_conv.inter_conv(*args)
+    ic = tkern.inter_conv
+    got = ic.inter_conv(*args)
     torch.cuda.synchronize()
     assert got.dtype == BF16
-    assert _rel(got.float(),
-                tkern.inter_conv.inter_conv_plain(*args).float()) <= 4e-3
+    assert _rel(got.float(), ic.inter_conv_plain(*args).float()) <= 4e-3
+    assert _rel(got.float(), ic.inter_conv_mma_plain(*args).float()) <= 1e-3
+
+
+# (c, d, nn) of every W-fused inter layer: cls_so3net_pn's six, then
+# inv_so3net_pn's (B0L1, B1L0, B1L1, B2L0, B2L1 and B3L1, B3L0)
+MODEL_INTER_SHAPES = [(64, 64, 16), (64, 128, 32), (128, 128, 16),
+                      (128, 256, 32), (256, 256, 16), (256, 256, 32),
+                      (32, 32, 32), (32, 64, 64), (64, 64, 32),
+                      (64, 128, 64), (128, 128, 32), (128, 128, 64)]
+
+
+def _bf16_inter_call(cuda, b, p1, stride, nn, c, d, shadow=False):
+    """One bf16 forward by the wrapper: (the kernel it ran, out, out of a
+    second call, the plain version's out, inter_conv_mma_plain's out)."""
+    gx, idx, f, rk, k2, W, _ = _inter_operands(cuda, b, p1, stride, nn, c, d,
+                                               seed=nn + c + d)
+    if shadow:
+        idx[:, :, ::3] = p1
+    args = (gx, idx, f.to(BF16), rk, k2, W.to(BF16), 0.08)
+    ic = tkern.inter_conv
+    before = dict(ic.routes)
+    got = ic.inter_conv(*args)
+    again = ic.inter_conv(*args)
+    torch.cuda.synchronize()
+    route = [k for k in ic.routes if ic.routes[k] == before[k] + 2]
+    return (route, got, again, ic.inter_conv_plain(*args),
+            ic.inter_conv_mma_plain(*args))
+
+
+@pytest.mark.parametrize('c,d,nn', MODEL_INTER_SHAPES)
+def test_inter_conv_mma_kernel_matches_plain(cuda, c, d, nn):
+    """The tensor-core kernel at every model layer's (c, d, nn), 33 points
+    of 2 clouds (3960 rows: the last 64-row block runs past M): normwise
+    <= 1e-3 of inter_conv_mma_plain (the same rounding points), <= 4e-3 of
+    the plain version, and bitwise equal on a second call."""
+    route, got, again, plain, rounded = _bf16_inter_call(cuda, 2, 66, 2, nn,
+                                                         c, d)
+    assert route == ['mma'] and got.dtype == BF16
+    assert _rel(got.float(), rounded.float()) <= 1e-3
+    assert _rel(got.float(), plain.float()) <= 4e-3
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('b,p1,stride,nn,c,d,shadow,route', [
+    (1, 2, 2, 16, 64, 64, False, 'mma'),      # one point: 60 rows, M < 64
+    (2, 50, 1, 16, 128, 256, True, 'mma'),    # shadow slots
+    (2, 40, 1, 20, 64, 128, True, 'mma'),     # nn = 20, padded to 32
+    (2, 40, 1, 16, 32, 96, False, 'mma'),     # d = 96: three 32-wide blocks
+    (2, 40, 1, 16, 40, 96, True, 'sgemm'),    # c % 32 != 0
+    (2, 40, 1, 80, 64, 64, False, 'sgemm')])  # nn > 64
+def test_inter_conv_bf16_routes_match_plain(cuda, b, p1, stride, nn, c, d,
+                                            shadow, route):
+    """The bf16 forward at the edges of the tensor-core kernel (normwise <=
+    1e-3 of inter_conv_mma_plain, <= 4e-3 of the plain version) and off its
+    route (the SGEMM template, which keeps the weights and F in fp32 as the
+    plain version does: <= 1e-3 of it); bitwise equal on a second call."""
+    taken, got, again, plain, rounded = _bf16_inter_call(
+        cuda, b, p1, stride, nn, c, d, shadow)
+    assert taken == [route]
+    if route == 'mma':
+        assert _rel(got.float(), rounded.float()) <= 1e-3
+        assert _rel(got.float(), plain.float()) <= 4e-3
+    else:
+        assert _rel(got.float(), plain.float()) <= 1e-3
+    assert torch.equal(got, again)
 
 
 def test_production_wrappers_refuse_what_the_kernels_do_not_take(cuda):
