@@ -4,15 +4,18 @@
 
 --parent-csrc: DIR is the csrc/ directory of an earlier tree (for example
 from ``git archive <commit> epn_pointcloud_tpu_torch/csrc | tar -x -C D``);
-its inter_conv.cu is built alone beside the kernels, and its epn_inter_conv
-is timed beside the bf16 W-fused inter forward at every call of phases 4
-and 16, on the same inputs, in turns (parent, new, new, parent).
+its inter_conv.cu and intra_conv.cu are each built alone beside the
+kernels, and its epn_inter_conv, epn_intra_conv and
+epn_intra_conv_prenorm_df are timed beside this tree's bf16 W-fused inter
+forward, prenorm intra forward and B6 df at every call of phases 4, 9 and
+16, on the same inputs, in turns (parent, new, new, parent).
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from csrc/ (one nvcc a source, in parallel,
      sm_90a), and count the tensor-core instructions (HMMA, GMMA) in the
      SASS of the bf16 tensor-core kernels (the grouped conv forward and
-     backward, the W-fused inter forward; cuobjdump): none fails;
+     backward, the W-fused inter forward, the intra forward and B6 df;
+     cuobjdump): none fails;
   2. at every flagship layer shape of cls_so3net_pn (b=32, 1024 points, 60
      anchors), compare each kernel with its plain PyTorch version on the
      card, on the inputs the model itself gives it (captured from a b=32
@@ -31,6 +34,10 @@ Phases (any failure exits non-zero and prints no result line):
      its rounding points (inter_conv_mma_plain: the anchor weights and F
      rounded to bf16, as the TPU kernel rounds them), and timed beside the
      composition it fuses (the W-off F kernel, then one torch.mm(F, W));
+     every prenorm intra call on the tensor-core kernel, bitwise equal on
+     a second call, timed beside one torch.mm of its gathered operand
+     [M, 12C] by W [12C, D] (the operand formed beforehand) and beside
+     the whole composition (fold, gather, torch.mm);
      the b=8 bf16 logits on the kernel and plain paths to a per-sample
      cosine >= 0.9999, the b=32 bf16 and fp32 kernel paths to a minimum
      cosine >= 0.999, and the whole b=32 bf16 forward timed on both paths,
@@ -39,8 +46,9 @@ Phases (any failure exits non-zero and prints no result line):
      32) and run the eval entry point (run_modelnet --run-mode eval -b 32) on
      it, in fp32 and then with --compute-dtype bf16; the logits must be
      finite, every kernel's launch count must rise by its expected count
-     per batch, and every inter forward must have run the kernel of its
-     dtype (the tensor-core kernel in bf16; so in phases 8, 11, 15, 19);
+     per batch, and every inter forward, intra forward and B6 df must have
+     run the kernel of its dtype (the tensor-core kernels in bf16, the
+     SGEMMs in fp32; so in phases 8, 11, 15, 19);
   6. capture each backward kernel call of one train-mode step of the seeded
      full-width model on a synthetic b=12 batch (inter dTable and dW at 6
      layers, intra df and dW at 7) and compare each with its plain version
@@ -65,12 +73,14 @@ Phases (any failure exits non-zero and prints no result line):
      inputs (normwise relative error <= 8e-3 for bf16 outputs, <= 1e-3 for
      fp32 ones), timing both, with the two torch.mm (dx, dW) beside the
      grouped conv's backward, and its outputs bitwise equal on a second
-     call;
+     call; every prenorm intra df on the tensor-core kernel, bitwise equal
+     on a second call, beside its torch.mm and composition as in phase 4;
  10. [bf16-train] one bf16 train step (b=12) on the kernel path and on the
      plain path from the same weights: loss to rtol 1e-3, every parameter
      with a gradient on both paths, per-leaf gradient cosine >= 0.9 and its
-     median no lower than the kernel path's against itself on clouds scaled
-     by 1 + 1e-6, less 0.02 (bf16 gradients are that sensitive to rounding;
+     median no lower than the lowest of three medians of the kernel path
+     against itself on clouds scaled by 1 + 1e-6, 1 - 1e-6 and 1 + 2e-6,
+     less 0.02 (bf16 gradients are that sensitive to rounding;
      the leaves whose float64 gradient is ~0 are bf16 noise: the kernel
      path's at most 4 times the plain path's plus 1e-2), running statistics;
      the whole step timed on both paths (median of 5), and the bf16 step's
@@ -104,7 +114,8 @@ Phases (any failure exits non-zero and prints no result line):
      and ball_query indices equal, normwise <= 8e-3 for bf16 outputs and
      <= 1e-3 for fp32 ones, the inter forward also as in phase 4 (the
      tensor-core kernel, bitwise, <= 1e-3 of inter_conv_mma_plain, beside
-     its composition) (the bf16 inter_conv_f / inter_conv_dg, the
+     its composition), the prenorm intra conv and B6 df as in phases 4 and
+     9 (the bf16 inter_conv_f / inter_conv_dg, the
      prenorm intra conv with a fold a patch and its backward, moments, the
      grouped conv and its backward, the fused inter backward; torch.addmm
      and torch.mm beside the grouped conv's); the
@@ -112,7 +123,8 @@ Phases (any failure exits non-zero and prints no result line):
  17. [inv-bf16-train] one bf16 inv step on the kernel and the plain path
      from the same weights by the rule of [bf16-train] (loss to rtol 1e-3,
      every parameter with a gradient, per-leaf cosine >= 0.9, the median
-     no lower than the kernel path's noise floor less 0.02), peak memory,
+     no lower than the kernel path's noise floor of three draws less
+     0.02), peak memory,
      the step timed on both paths; bf16 vs fp32 printed;
  18. [inv-bf16-descriptor] bf16 descriptors at b=48, kernel vs plain path:
      per-patch cosine >= 0.999 (or the kernel path's noise floor less
@@ -345,9 +357,9 @@ def phase_build():
 
 
 # the bf16 kernels that run on tensor cores: the grouped conv forward and
-# backward, the W-fused inter conv forward
+# backward, the W-fused inter conv forward, the intra conv forward and B6 df
 TC_KERNELS = ('grouped_conv_mma_kernel', 'grouped_bwd_mma_kernel',
-              'inter_conv_mma_kernel')
+              'inter_conv_mma_kernel', 'intra_conv_mma_kernel')
 
 
 def tensor_core_sass(so):
@@ -584,16 +596,30 @@ def phase_forward_time(model, device, reps=5, dtype='fp32'):
             'plain_runs_ms': p_ts}
 
 
-def check_inter_routes(tag, dtype, counts, routes):
-    """Every W-fused inter forward of an entry run went through the kernel
-    of its dtype: the tensor-core kernel in bf16, the SGEMM template in
-    fp32 (``routes``: the wrapper's counts by kernel, read with
+def route_counts():
+    """The inter and intra wrappers' launches by kernel ('mma': the bf16
+    tensor-core kernel, 'sgemm': the SGEMM): the W-fused inter forward's,
+    and the intra forward's with B6 df's."""
+    from epn_pointcloud_tpu_torch.ops import kernels
+    return {'inter': dict(kernels.inter_conv.routes),
+            'intra': dict(kernels.intra_conv.routes)}
+
+
+def check_routes(tag, dtype, counts, routes):
+    """Every W-fused inter forward, and every intra forward and B6 df, of an
+    entry run went through the kernel of its dtype: the tensor-core kernels
+    in bf16, the SGEMMs in fp32 (``routes``: ``route_counts()``, read with
     ``counts``)."""
-    n = counts['inter_conv']
-    want = ({'mma': n, 'sgemm': 0} if dtype == 'bf16' else
-            {'mma': 0, 'sgemm': n})
-    log(f'{tag} inter forward launches by kernel: {routes}')
-    assert n > 0 and routes == want, (routes, want)
+    want = {}
+    for conv, n in (('inter', counts['inter_conv']),
+                    ('intra', counts['intra_conv']
+                     + counts['intra_conv_prenorm']
+                     + counts['intra_conv_prenorm_df'])):
+        assert n > 0, (conv, counts)
+        want[conv] = ({'mma': n, 'sgemm': 0} if dtype == 'bf16' else
+                      {'mma': 0, 'sgemm': n})
+    log(f'{tag} launches by kernel: {routes}')
+    assert routes == want, (routes, want)
 
 
 def phase_eval(dtype='fp32'):
@@ -617,11 +643,11 @@ def phase_eval(dtype='fp32'):
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = kernels.counts()
-        routes = dict(kernels.inter_conv.routes)
+        routes = route_counts()
     finally:
         so3conv.set_compute_dtype('fp32')
     trainer.logger.close()
-    check_inter_routes('[eval]', dtype, counts, routes)
+    check_routes('[eval]', dtype, counts, routes)
     n_batches = len(trainer.eval_logits)
     logits = torch.cat(trainer.eval_logits)
     log(f'[eval] run_modelnet eval --compute-dtype {dtype}: {n_batches} '
@@ -741,7 +767,8 @@ def phase_bf16_kernels(model, device):
         row['bytes_ms'], row['ops_ms'] = bound_ms(name, args, got)
         row.update(grouped_library(name, args))
         row.update(inter_conv_extras(name, args, got))
-        ok = ok and _inter_extras_ok(row)
+        row.update(intra_conv_extras(name, args, got))
+        ok = ok and _extras_ok(row)
         row['ok'] = ok
         lib = _library_note(row)
         if name == 'moments':
@@ -1029,17 +1056,19 @@ def _library_note(row):
     return note
 
 
-def _inter_extras_ok(row):
-    """The bf16 inter forward's own gates (``inter_conv_extras``): the
-    tensor-core kernel ran, its output is bitwise equal on a second call
-    and within 1e-3 (normwise) of ``inter_conv_mma_plain``."""
+def _extras_ok(row):
+    """The own gates of a bf16 inter forward (``inter_conv_extras``), intra
+    forward or B6 df (``intra_conv_extras``): the tensor-core kernel ran,
+    its output is bitwise equal on a second call, and (inter) within 1e-3
+    (normwise) of ``inter_conv_mma_plain``."""
     return (row.get('route', 'mma') == 'mma'
             and row.get('bitwise_repeat', True)
             and row.get('rel_vs_mma_plain', 0.0) <= 1e-3)
 
 
-# the earlier tree's epn_inter_conv (--parent-csrc), timed beside the bf16
-# inter forward
+# the earlier tree's kernels (--parent-csrc), timed beside this tree's:
+# 'fn' its epn_inter_conv, 'intra_fwd' its epn_intra_conv, 'intra_df' its
+# epn_intra_conv_prenorm_df
 PARENT = {}
 
 
@@ -1095,6 +1124,120 @@ def inter_conv_extras(name, args, got):
             parent, lambda: ic.inter_conv(*args))
     torch.cuda.empty_cache()
     return rec
+
+
+def _intra_composition(name, args):
+    """(A, W2, compose) of the library yardstick of a bf16 intra forward or
+    B6 df: the gathered operand A [M, 12C] (z = the fold and activation of f
+    gathered through trace_idx; df: dout gathered through inv_idx), W as
+    [12C, D] (df: W transposed), and the whole composition (fold, gather,
+    one torch.mm) as a function."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    ik = kernels.intra_conv
+    if name == 'intra_conv_prenorm':
+        f, ss, ti, W = args
+        K, c, d = W.shape
+        W2 = W.reshape(K * c, d)
+
+        def gather():
+            return ik.prenorm_plain(f, ss)[:, :, ti.long()].reshape(-1, K * c)
+    else:
+        dout, _, _, _, inv, W = args
+        K, c, d = W.shape
+        W2 = W.transpose(1, 2).reshape(K * d, c)
+
+        def gather():
+            return dout[:, :, inv.long()].reshape(-1, K * d)
+    return gather(), W2, lambda: torch.mm(gather(), W2)
+
+
+def intra_conv_extras(name, args, got):
+    """For a bf16 call of the prenorm intra forward or of B6 df: the kernel
+    it ran (``route``, from the wrapper's counts), whether a second call
+    gives the same bits, and its library yardstick on the same inputs: one
+    torch.mm of the gathered operand by W as [12C, D] (``library_ms``; the
+    operand gathered beforehand, untimed: the gather is no part of the
+    product's row) and the whole composition, fold and gather included
+    (``composed_ms``; df's epilogue not included in either). With
+    --parent-csrc also the earlier tree's kernel on the same inputs, its C
+    entry timed with this tree's in turns (parent, new, new, parent;
+    ``parent_ms``, ``same_timer_ms``). {} for any other call."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    if name not in ('intra_conv_prenorm', 'intra_conv_prenorm_df'):
+        return {}
+    got = got if isinstance(got, tuple) else (got,)
+    if got[0].dtype != torch.bfloat16:
+        return {}
+    ik = kernels.intra_conv
+    before = dict(ik.routes)
+    again = getattr(ik, name)(*args)
+    again = again if isinstance(again, tuple) else (again,)
+    torch.cuda.synchronize()
+    rec = {'route': next(k for k in ik.routes if ik.routes[k] > before[k]),
+           'bitwise_repeat': all(torch.equal(a, b)
+                                 for a, b in zip(got, again))}
+    del again
+    A, W2, compose = _intra_composition(name, args)
+    rec['library_ms'] = time_ms(lambda: torch.mm(A, W2), reps=5, warmup=2)
+    del A
+    rec['composed_ms'] = time_ms(compose, reps=5, warmup=2)
+    if PARENT:
+        rec['parent_ms'], rec['same_timer_ms'] = time_abba(
+            *_intra_parent_pair(name, args))
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _intra_parent_pair(name, args):
+    """(the earlier tree's C entry, this tree's) on the same inputs and
+    fresh outputs, each a function of no arguments that raises on a launch
+    error."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    from epn_pointcloud_tpu_torch.ops.kernels import build
+    ik = kernels.intra_conv
+    if name == 'intra_conv_prenorm':
+        f, ss, ti, W = args
+        b, p, na, c = f.shape
+        K, d = W.shape[0], W.shape[2]
+        out = torch.empty((b, p, na, d), dtype=f.dtype, device=f.device)
+        head = (f.data_ptr(), ti.data_ptr(), W.data_ptr(), ss.data_ptr(),
+                out.data_ptr(), b, p, na, K, c, d,
+                2 * na * c if ss.shape[0] > 1 else 0)
+        entries = (('intra_fwd', head + (1,)),
+                   ('epn_intra_conv_mma', head))
+        keep = (out,)
+    else:
+        dout, f, ss, ti, inv, W = args
+        b, p, na, c = f.shape
+        K, d = W.shape[0], W.shape[2]
+        Wt = W.transpose(1, 2).contiguous()
+        df = torch.empty_like(f)
+        dss = torch.empty((2, ss.shape[0], na * c), dtype=torch.float32,
+                          device=f.device)
+        # the workspaces of the two kernels' blocks (2 or 512 / BN points)
+        keep = (Wt, df, dss) + tuple(
+            torch.empty((2, -(-p // n), b, na * c), dtype=torch.float32,
+                        device=f.device)
+            for n in (ik._DF_BLOCK_ROWS // na, ik.mma_block_points(c)))
+        heads = [(dout.data_ptr(), inv.data_ptr(), Wt.data_ptr(),
+                  f.data_ptr(), ss.data_ptr(), df.data_ptr(), ws.data_ptr(),
+                  dss[0].data_ptr(), dss[1].data_ptr(), b, p, na, K, d, c,
+                  ss.shape[0]) for ws in keep[3:]]
+        entries = (('intra_df', heads[0] + (1,)),
+                   ('epn_intra_conv_prenorm_df_mma', heads[1]))
+
+    def call(fn, ptrs):
+        def run(keep=keep):             # the outputs live with the closure
+            err = fn(*ptrs, build.stream(args[0]))
+            if err:
+                raise RuntimeError(f'{name}: CUDA error {err}')
+        return run
+    (pname, pptrs), (nname, nptrs) = entries
+    return (call(PARENT[pname], pptrs),
+            call(getattr(build.library(), nname), nptrs))
 
 
 def _kernel_pair(name, args):
@@ -1204,7 +1347,8 @@ def phase_backward_kernels(device, dtype='fp32'):
                                                for g in got))
         row['bytes_ms'], row['ops_ms'] = bound_ms(name, args, got)
         row.update(grouped_library(name, args))
-        row['ok'] = row['ok'] and row.get('bitwise_repeat', True)
+        row.update(intra_conv_extras(name, args, got))
+        row['ok'] = row['ok'] and _extras_ok(row)
         lib = _library_note(row)
         log(f'{tag} {name} {layer} (out {row["shape"]}, {got[0].dtype}): '
             f'max_abs_err={row["max_abs_err"]:.3e} rel_norm_err='
@@ -1235,6 +1379,9 @@ def phase_backward_kernels(device, dtype='fp32'):
 # own agreement is held per call in [bf16-backward]. This floor catches a
 # gradient that misses a term.
 BF16_LEAF_COS = 0.9
+# the noise floor's draws: the kernel path on the batch's clouds or patches
+# scaled by each (the lowest of the three medians is the floor)
+NOISE_SCALES = (1 + 1e-6, 1 - 1e-6, 1 + 2e-6)
 
 
 def _leaf_cos(a, b):
@@ -1245,19 +1392,22 @@ def _leaf_cos(a, b):
 
 def bf16_step_check(tag, models, loss, batch, scaled, per_step, f64, what):
     """One bf16 step on the kernel path (``models[0]``) and on the plain
-    path (``models[1]``) from the same weights, the kernel path again on
-    ``scaled``, the batch's ``what`` scaled by 1 + 1e-6 (``models[2]``: what
-    a few flipped bf16 roundings alone do to the gradients, the floor of any
-    comparison of two bf16 steps), and an fp32 step (``models[3]``). Gates:
-    the launches ``per_step`` and none on the plain path, the loss to rtol
+    path (``models[1]``) from the same weights, an fp32 step
+    (``models[2]``), and the kernel path again on each batch of ``scaled``,
+    the batch's ``what`` scaled by each of NOISE_SCALES (``models[3:]``:
+    three draws of what a few flipped bf16 roundings alone do to the
+    gradients, the floor of any comparison of two bf16 steps). Gates: the
+    launches ``per_step`` and none on the plain path, the loss to rtol
     1e-3, a finite fp32 gradient for every parameter on both paths, and per
     leaf: cosine >= BF16_LEAF_COS where the float64 gradient (``f64``, max
-    |g| a leaf) is real, with a median no lower than the noise floor's less
-    0.02; a degenerate leaf's kernel gradient at most 4 times the plain
-    one's plus 1e-2. The bf16 vs fp32 cosines are printed, not gated."""
+    |g| a leaf) is real, with a median no lower than the lowest of the three
+    draws' medians less 0.02; a degenerate leaf's kernel gradient at most 4
+    times the plain one's plus 1e-2. The bf16 vs fp32 cosines are printed,
+    not gated."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
-    mk, mp, mq, m32 = models
+    mk, mp, m32 = models[:3]
+    mqs = models[3:]
     with compute_dtype('bf16'):
         kernels.reset_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -1273,24 +1423,29 @@ def bf16_step_check(tag, models, loss, batch, scaled, per_step, f64, what):
         torch.cuda.synchronize()
         mem_p = torch.cuda.max_memory_allocated() / 2 ** 30
         counts_p = kernels.counts()
-        loss_q = loss(mq, scaled)
-        loss_q.backward()
+        loss_q = []
+        for mq, sb in zip(mqs, scaled):
+            lq = loss(mq, sb)
+            lq.backward()
+            loss_q.append(lq.item())
     assert counts_p == counts_k, 'the plain path launched a kernel'
     assert counts_k == per_step, (counts_k, per_step)
     loss_32 = loss(m32, batch)
     loss_32.backward()
     lk, lp, l32 = loss_k.item(), loss_p.item(), loss_32.item()
     log(f'{tag} bf16 loss kernel path {lk:.7f}, plain path {lp:.7f} (rtol '
-        f'1e-3), kernel path on the {what} x (1 + 1e-6) {loss_q.item():.7f}; '
-        f'fp32 kernel path {l32:.7f}; peak device memory kernel path '
-        f'{mem_k:.2f} GiB, plain path {mem_p:.2f} GiB; launches {counts_k}')
+        f'1e-3), kernel path on the {what} x {NOISE_SCALES} '
+        f'{", ".join(f"{q:.7f}" for q in loss_q)}; fp32 kernel path '
+        f'{l32:.7f}; peak device memory kernel path {mem_k:.2f} GiB, plain '
+        f'path {mem_p:.2f} GiB; launches {counts_k}')
     assert math.isfinite(lk) and abs(lk - lp) <= 1e-3 * abs(lp), (lk, lp)
     no_grad = [n for m in (mk, mp) for n, p in m.named_parameters()
                if p.grad is None or not bool(torch.isfinite(p.grad).all())
                or p.grad.dtype != torch.float32]
     assert not no_grad, f'parameters without a finite fp32 gradient: ' \
         f'{no_grad}'
-    pk, pq, p32 = (dict(m.named_parameters()) for m in (mk, mq, m32))
+    pk, p32 = (dict(m.named_parameters()) for m in (mk, m32))
+    pqs = [dict(m.named_parameters()) for m in mqs]
     bad, degen, leaves = [], [], {}
     for name, p in mp.named_parameters():
         gk, gp = pk[name].grad, p.grad
@@ -1306,22 +1461,28 @@ def bf16_step_check(tag, models, loss, batch, scaled, per_step, f64, what):
         else:
             cos = _leaf_cos(gk, gp)
             ok = cos >= BF16_LEAF_COS
-            leaves[name] = {'cos': cos, 'cos_noise': _leaf_cos(
-                gk, pq[name].grad), 'cos_vs_fp32': cos_32}
+            leaves[name] = {'cos': cos, 'cos_noise': [
+                _leaf_cos(gk, pq[name].grad) for pq in pqs],
+                'cos_vs_fp32': cos_32}
         if not ok:
             bad.append(f'{name}: {leaves[name]}')
     real = {n: v for n, v in leaves.items() if 'cos' in v}
     worst = min(real, key=lambda n: real[n]['cos'])
-    cos_kp, cos_q, c32 = (sorted(v[k] for v in real.values())
-                          for k in ('cos', 'cos_noise', 'cos_vs_fp32'))
-    med_kp, med_q = statistics.median(cos_kp), statistics.median(cos_q)
+    cos_kp, c32 = (sorted(v[k] for v in real.values())
+                   for k in ('cos', 'cos_vs_fp32'))
+    cos_qs = [sorted(v['cos_noise'][i] for v in real.values())
+              for i in range(len(mqs))]
+    med_kp = statistics.median(cos_kp)
+    med_qs = [statistics.median(c) for c in cos_qs]
+    med_q = min(med_qs)
+    draws = '; '.join(f'x {sc}: min {c[0]:.5f}, median {m:.5f}'
+                      for sc, c, m in zip(NOISE_SCALES, cos_qs, med_qs))
     log(f'{tag} gradients: every one of {len(leaves)} parameters has one on '
         f'both paths; per-leaf cosine over {len(real)} real leaves, kernel '
         f'vs plain path min {cos_kp[0]:.5f} (>= {BF16_LEAF_COS}) at {worst}, '
-        f'median {med_kp:.5f}; kernel path vs itself on the {what} x (1 + '
-        f'1e-6) min {cos_q[0]:.5f}, median {med_q:.5f} (the kernel vs plain '
-        f'median must be >= this median - 0.02); {len(degen)} degenerate '
-        f'leaves: {"; ".join(degen)}')
+        f'median {med_kp:.5f}; kernel path vs itself on the {what} {draws} '
+        f'(the kernel vs plain median must be >= the lowest, {med_q:.5f}, '
+        f'- 0.02); {len(degen)} degenerate leaves: {"; ".join(degen)}')
     log(f'{tag} bf16 vs fp32 step (kernel paths, same weights and batch): '
         f'loss {lk:.6f} vs {l32:.6f}; per-leaf gradient cosine min '
         f'{c32[0]:.5f}, median {statistics.median(c32):.5f} (printed, not '
@@ -1332,7 +1493,8 @@ def bf16_step_check(tag, models, loss, batch, scaled, per_step, f64, what):
     assert not bad, bad
     return {'loss_kernel': lk, 'loss_plain': lp, 'loss_fp32': l32,
             'min_grad_cos': cos_kp[0], 'median_grad_cos': med_kp,
-            'noise_min_grad_cos': cos_q[0], 'noise_median_grad_cos': med_q,
+            'noise_min_grad_cos': min(c[0] for c in cos_qs),
+            'noise_median_grad_cos': med_q, 'noise_median_draws': med_qs,
             'min_grad_cos_vs_fp32': c32[0], 'peak_gib_kernel': mem_k,
             'peak_gib_plain': mem_p, 'leaves': leaves}
 
@@ -1344,13 +1506,14 @@ def phase_bf16_train_step(device, reps=5):
     import torch
     from epn_pointcloud_tpu_torch import models
     models_ = tuple(perturb_norm_biases(models.build_model_from(
-        full_opt(), seed=SEED)).to(device).train() for _ in range(4))
+        full_opt(), seed=SEED)).to(device).train()
+        for _ in range(3 + len(NOISE_SCALES)))
     mk, mp = models_[:2]
     batch = train_batch(device, SEED + 6)
     out = bf16_step_check(
         f'[bf16-train] b={TRAIN_BATCH}', models_, step_loss, batch,
-        (batch[0] * (1 + 1e-6),) + batch[1:], BF16_TRAIN_PER_STEP,
-        f64_grad_max(mp, batch), 'clouds')
+        [(batch[0] * sc,) + batch[1:] for sc in NOISE_SCALES],
+        BF16_TRAIN_PER_STEP, f64_grad_max(mp, batch), 'clouds')
     bk = dict(mk.named_buffers())
     n_stats, stat_err = 0, 0.0
     for name, buf in mp.named_buffers():
@@ -1398,8 +1561,7 @@ def phase_train_entry(dtype='fp32'):
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = kernels.counts()
-        check_inter_routes(tag, dtype, counts,
-                           dict(kernels.inter_conv.routes))
+        check_routes(tag, dtype, counts, route_counts())
         trainer.logger.close()
         n_eval = len(trainer.eval_logits)
         stats = dict(trainer.summary.running_stats)
@@ -1606,8 +1768,8 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
                 wname, wargs, got[0] if len(got) == 1 else got)
             row.update(grouped_library(name, args))
             row.update(inter_conv_extras(name, args, got[0]))
-            row['ok'] = (row['ok'] and row.get('bitwise_repeat', True)
-                         and _inter_extras_ok(row))
+            row.update(intra_conv_extras(name, args, got))
+            row['ok'] = row['ok'] and _extras_ok(row)
             log(f'{tag} {name} {layer} ({row["shape"]}, {row["dtype"]}): '
                 f'max_abs_err={row["max_abs_err"]:.3e} rel_norm_err='
                 f'{" ".join(f"{r:.3e}" for r in row["rels"])} kernel_ms='
@@ -1903,7 +2065,7 @@ def phase_inv_train_entry(root, dtype='fp32'):
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = kernels.counts()
-        routes = dict(kernels.inter_conv.routes)
+        routes = route_counts()
         trainer.logger.close()
         ckpt = trainer.last_ckpt
         other = run_3dmatch.main(common + ['-i', '0', '-r', ckpt])
@@ -1916,7 +2078,7 @@ def phase_inv_train_entry(root, dtype='fp32'):
         f'pairs an epoch); running stats {stats}; wall {wall:.2f} s (data and '
         f'setup included); kernel launches {counts}, a step '
         f'{ {n: k for n, k in per_step.items() if k} }')
-    check_inter_routes(tag, dtype, counts, routes)
+    check_routes(tag, dtype, counts, routes)
     assert trainer.opt.npt == INV_BATCH and trainer.opt.batch_size == 1
     assert all(math.isfinite(stats[k]) for k in ('Loss', 'Pos', 'Neg',
                                                  'Acc'))
@@ -1974,12 +2136,13 @@ def phase_inv_bf16_train(device, legs, reps=5):
     step), with peak device memory; the whole step timed on both paths in
     turns (median of 5)."""
     import torch
-    models_ = tuple(inv_model(device).train() for _ in range(4))
+    models_ = tuple(inv_model(device).train()
+                    for _ in range(3 + len(NOISE_SCALES)))
     mk, mp = models_[:2]
     out = bf16_step_check(
         f'[inv-bf16-train] b={INV_BATCH} a leg,', models_, inv_loss, legs,
-        tuple(x * (1 + 1e-6) for x in legs), INV_BF16_PER_STEP,
-        _max_abs(inv_f64_grads(mp, legs)), 'patches')
+        [tuple(x * sc for x in legs) for sc in NOISE_SCALES],
+        INV_BF16_PER_STEP, _max_abs(inv_f64_grads(mp, legs)), 'patches')
     del models_
     torch.cuda.empty_cache()
     _, k_ms, p_ms, k_ts, p_ts = time_steps(
@@ -2036,19 +2199,28 @@ def phase_inv_bf16_descriptor(device, root, reps=5):
             'plain_runs_ms': p_ts}
 
 
-def load_parent(proc, so):
-    """The earlier tree's epn_inter_conv from its library, once nvcc is
-    done (--parent-csrc)."""
+# the earlier tree's sources built alone (--parent-csrc): source -> its C
+# entries, as PARENT's keys
+PARENT_SOURCES = {'inter_conv.cu': {'fn': 'epn_inter_conv'},
+                  'intra_conv.cu': {'intra_fwd': 'epn_intra_conv',
+                                    'intra_df': 'epn_intra_conv_prenorm_df'}}
+
+
+def load_parent(source, proc, so):
+    """The earlier tree's C entries of ``source`` from its library, once
+    nvcc is done (--parent-csrc)."""
     import ctypes
     from epn_pointcloud_tpu_torch.ops.kernels import build
     out = proc.communicate()[0]
     if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed on the parent inter_conv.cu:\n{out}')
-    fn = ctypes.CDLL(so).epn_inter_conv
-    fn.argtypes = build.SIGNATURES['epn_inter_conv']
-    fn.restype = ctypes.c_int
-    PARENT['fn'] = fn
-    log('[build] parent inter_conv.cu built and loaded')
+        raise RuntimeError(f'nvcc failed on the parent {source}:\n{out}')
+    lib = ctypes.CDLL(so)
+    for key, entry in PARENT_SOURCES[source].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = build.SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+        PARENT[key] = fn
+    log(f'[build] parent {source} built and loaded')
 
 
 def main(argv=None):
@@ -2056,7 +2228,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--parent-csrc', default=None,
                     help="an earlier tree's csrc/ directory: its bf16 "
-                    'W-fused inter forward timed beside this one')
+                    'W-fused inter forward, prenorm intra forward and B6 df '
+                    'timed beside this one')
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2079,12 +2252,14 @@ def main(argv=None):
     try:
         if args.parent_csrc:
             from epn_pointcloud_tpu_torch.ops.kernels import build
-            parent = build.compile_alone(
-                os.path.abspath(args.parent_csrc), 'inter_conv.cu',
-                os.path.join(WORK_DIR + '_parent', 'csrc'))
+            parents = [(src,) + build.compile_alone(
+                os.path.abspath(args.parent_csrc), src,
+                os.path.join(f'{WORK_DIR}_parent_{src[:-3]}', 'csrc'))
+                for src in PARENT_SOURCES]
         phase_build()
         if args.parent_csrc:
-            load_parent(*parent)
+            for parent in parents:
+                load_parent(*parent)
         model = models.build_model_from(full_opt(), seed=SEED).to(device).eval()
         results = phase_kernels(model, device)
         model_err = phase_model(model, device)

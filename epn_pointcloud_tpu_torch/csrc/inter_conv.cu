@@ -47,8 +47,10 @@
 //
 // Element type: the table, W and out are fp32 (parity mode) or bf16 (the
 // production mode of the _call_gather_w forms in bf16); gx, rk and k2 stay
-// fp32, and every product and sum is fp32 (bf16 exists only in device
-// memory: it is widened on load, and out is rounded once on store).
+// fp32, and every product and sum is fp32. In bf16 the anchor weights are
+// rounded to bf16 before the neighbor contraction and F after it, where
+// the TPU kernels round them (_fwd_gather_w_kernel:974, 980, _conv_body:
+// 516, 523), and out is rounded once on store.
 //
 // Design of the bf16 build (inter_conv_mma_kernel, epn_inter_conv_mma; every
 // layer of both models): both contractions on mma.sync.m16n8k16 bf16 ->
@@ -69,15 +71,15 @@
 // over all chunks and the output is rounded once into a tile staged in
 // shared memory and stored by whole rows. The anchor weights and F are
 // rounded to bf16 where the TPU kernel rounds them (_fwd_gather_w_kernel:
-// 974, 980); the plain version keeps them in fp32 (~3e-3 apart, normwise),
-// inter_conv_mma_plain rounds them as here. No atomics: the output is the
-// same on every call.
+// 974, 980), as in the SGEMM template and the plain version. No atomics:
+// the output is the same on every call.
 //
 // W-off mode (template flag kWOff, epn_inter_conv_f): the same kernel with
 // the learned product left out. Each chunk's F slab is written from shared
 // memory to F [b, p2, na, K, C] instead of being multiplied by W: in the
-// table's type, so a bf16 F is the fp32 slab rounded once on store (the
-// TPU kernel's F is in the table's dtype too).
+// table's type, so a bf16 F is the neighbor contraction of bf16 anchor
+// weights, summed in fp32 and rounded once (the TPU kernel's weights and F
+// are in the table's dtype too: _conv_body:516, 523).
 // Replaces: epn_pointcloud_tpu/ops/pallas/inter_conv.py, _call_gather ->
 // _fwd_gather_kernel (via fused_gather_neighbor_conv) and _call ->
 // _fwd_kernel (via fused_neighbor_conv): F without W, from the table and
@@ -203,9 +205,9 @@ inter_conv_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
     // at a time
     for (int e = tid; e < n_items; e += G::kThreads) {
       const int row = e % BM, kg = e / BM;
-      build_f_item(s_F + (size_t)row * L.fs + kg * KG * CC, table, rk, k2,
-                   s_gx, s_idx, m0 + row, M, pt0, p2, nn, q, na, K, C,
-                   c0, kg, inv_sigma);
+      build_f_item<T, std::is_same<T, epn::bf16>::value>(
+          s_F + (size_t)row * L.fs + kg * KG * CC, table, rk, k2, s_gx,
+          s_idx, m0 + row, M, pt0, p2, nn, q, na, K, C, c0, kg, inv_sigma);
     }
     if constexpr (kWOff) {
       // the slab to F[row, k, c0 + cc], a float4 (half a (row, k) chunk
@@ -764,8 +766,8 @@ extern "C" int epn_inter_conv(const void* gx, const void* idx, const void* table
 }
 
 // W-off mode: gx, idx, rk, k2 as above, table [b, q, na, C] and F
-// [b, p2, na, K, C]: fp32, or bf16 when bf16 != 0 (F built in fp32 and
-// rounded once on store). C must be a multiple of 8, K of 6.
+// [b, p2, na, K, C]: fp32, or bf16 when bf16 != 0 (the anchor weights
+// rounded to bf16, F summed in fp32 and rounded once). C must be a multiple of 8, K of 6.
 extern "C" int epn_inter_conv_f(const void* gx, const void* idx,
                                 const void* table, const void* rk,
                                 const void* k2, void* F, int b, int p2, int nn,

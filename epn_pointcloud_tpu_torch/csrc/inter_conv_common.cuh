@@ -9,7 +9,9 @@
 // over a chunk of CC channels. The neighbor coordinates (x, y, z, |gx|^2)
 // and indices of the block's points are staged in shared memory by the
 // caller; the shadow index (== q) reads a zero row. The table is fp32 or
-// bf16 (elem.cuh); the weights and the sums are fp32.
+// bf16 (elem.cuh); the weights and the sums are fp32, and with kRound each
+// weight is rounded to T before its products and F to T after its sum (the
+// rounding points of the TPU forward kernels in bf16).
 
 #pragma once
 
@@ -32,7 +34,7 @@ __device__ __forceinline__ float anchor_weight(const float4& g, const float4& r,
 // Writes F[row, kg * KG + kq, cc] (kq < KG, cc < CC) to fr[kq * CC + cc];
 // zeros for a row past M. gm = the flat row, pt0 = the first point whose
 // neighbors sit in s_gx / s_idx, p2 = points a cloud.
-template <typename T>
+template <typename T, bool kRound = false>
 __device__ __forceinline__ void build_f_item(
     float* __restrict__ fr, const T* __restrict__ table,
     const float* __restrict__ rk, const float* __restrict__ k2,
@@ -64,7 +66,8 @@ __device__ __forceinline__ void build_f_item(
       const float4 g = g4[n];
 #pragma unroll
       for (int kq = 0; kq < KG; ++kq) {
-        const float w = anchor_weight(g, r[kq], inv_sigma);
+        float w = anchor_weight(g, r[kq], inv_sigma);
+        if (kRound) w = epn::round_to<T>(w);
 #pragma unroll
         for (int cc = 0; cc < CC; ++cc) f[kq][cc] = fmaf(w, t[cc], f[kq][cc]);
       }
@@ -72,6 +75,10 @@ __device__ __forceinline__ void build_f_item(
   }
 #pragma unroll
   for (int kq = 0; kq < KG; ++kq) {
+    if (kRound) {
+#pragma unroll
+      for (int cc = 0; cc < CC; ++cc) f[kq][cc] = epn::round_to<T>(f[kq][cc]);
+    }
     reinterpret_cast<float4*>(fr + kq * CC)[0] =
         make_float4(f[kq][0], f[kq][1], f[kq][2], f[kq][3]);
     reinterpret_cast<float4*>(fr + kq * CC)[1] =

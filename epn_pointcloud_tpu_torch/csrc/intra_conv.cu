@@ -11,16 +11,20 @@
 // What bounds it on the H100: arithmetic. Seen as one GEMM it is
 // [b*p*60 x 12C] x [12C x D] with a gathered left operand: 2 * 60 * 12 * C * D
 // FLOPs per point against 60 * C * 4 bytes of input, i.e. ~1.5 TFLOP per b=32
-// flagship forward (all seven layers). This version runs in fp32 on the CUDA
-// cores (no TF32, no wgmma), so the fp32 FMA rate bounds it, and the design
-// keeps the shared-memory traffic per FMA low enough not to bound it first.
+// flagship forward (all seven layers). The SGEMM below (fp32, and bf16 off
+// the models' shapes) runs on the CUDA cores (no TF32, no wgmma), so the
+// fp32 FMA rate bounds it, and the design keeps the shared-memory traffic
+// per FMA low enough not to bound it first. The bf16 forward and B6 df of
+// every model layer run on tensor cores (intra_conv_mma_kernel, at the end
+// of this file), bound by the bf16 rate.
 //
-// Design: a classic register-blocked SGEMM whose A rows are the flattened
-// (point, anchor) pairs. A block computes a 128-row x BN-column tile (BN =
-// 128, 64 or 32, whichever divides D) with 8 x 8 outputs a thread, walking
-// the reduction in slices of 16. Each slice stages the gathered A rows
-// A[(p, a), (k, c)] = f[p, trace_idx[a, k], c] (16-byte loads: C % 4 == 0
-// keeps four consecutive c inside one k) transposed into shared memory, and
+// Design of the SGEMM: a classic register-blocked SGEMM whose A rows are
+// the flattened (point, anchor) pairs. A block computes a 128-row x
+// BN-column tile (BN = 128, 64 or 32, whichever divides D) with 8 x 8
+// outputs a thread, walking the reduction in slices of 16. Each slice
+// stages the gathered A rows A[(p, a), (k, c)] = f[p, trace_idx[a, k], c]
+// (16-byte loads: C % 4 == 0 keeps four consecutive c inside one k)
+// transposed into shared memory, and
 // the matching 16 rows of W (viewed as [12C, D]). The next slice's global
 // loads are issued into registers before the current slice is computed, and
 // land in the other of two shared-memory buffers (one barrier a slice).
@@ -73,11 +77,50 @@
 // partial a block and lane; split_sum.cuh adds them in a fixed order. No
 // atomics anywhere: df, dscale, dshift and dW are deterministic. Bound, as
 // the forward: the fp32 FMA rate; the epilogue reads f and the fold again.
+//
+// bf16 on tensor cores (intra_conv_mma_kernel; epn_intra_conv_mma,
+// epn_intra_conv_prenorm_df_mma): the forward (plain and prenorm) and B6
+// df of every model layer (60 anchors, 12 kernel points, C = D in 32, 64,
+// 128, 256), on mma.sync.m16n8k16 bf16 -> fp32 (tc.cuh). A block owns NP
+// whole points of one cloud (ROWS = NP * 60 rows, a whole number of m16
+// tiles: no padding) and BN columns, with BN * ROWS = 30720 fp32
+// accumulators (128 a thread): (NP, BN) = (4, 128), (8, 64) or (16, 32),
+// the widest BN that divides D. It stages its points' z once, in bf16, in
+// an XOR-swizzled slab [ROWS, C] (rows padded to 64 channels): in B5 the
+// fold and the activation are applied there, once an element (the SGEMM
+// applies them once for each of the 12 kernel points that read it). For
+// kernel point k the A fragment's row for (point, anchor a) is slab row
+// (point, trace[a, k]): the adjacency gather is the row address each lane
+// hands ldmatrix, with no traffic of its own (the gathered rows' low bits
+// are a permutation's, so some ldmatrix phases meet bank conflicts). W,
+// [12C, D] (1.5 MB at C = D = 256), streams through a 3-stage cp.async ring
+// 64 reduction rows a slice; at D = 256 two blocks (BN = 128) stage the
+// same slab: the fold runs twice an element, against 240 KB of
+// accumulators a block for BN = 256. Each pair of k16 steps (kGroup) sums
+// its products in a fresh mma accumulator, added to the running fp32 sum
+// with a round-to-nearest add: accumulated in place, the mma's truncating
+// fp32 sums leaned the bf16 outputs toward zero (1.5e-4 .. 5.9e-4 more
+// elements rounded toward zero than away from it, against the plain
+// versions; ~1e-5 with the fresh accumulators) and moved a bf16 inv step's
+// gradients past the smoke's gate (intra_conv_variants.py times and
+// measures the forms: a fresh accumulator every four steps is ~7% faster
+// and leans 2e-5, every step ~20% slower). The output is rounded once
+// into a staged tile and stored by rows, as the grouped conv's. B6 df is
+// the same mainloop on (dout, inv_idx, W^T), with no fold on load; its
+// fp32 dz feeds intra_df_prenorm_kernel's epilogue: du and df = du * scale
+// (rounded once), then du * x and du staged in fp32 and summed over the
+// block's points for each (anchor, column), point after point, and over
+// the blocks by split_sum.cuh. No atomics: bitwise repeatable. Rounding
+// points are the SGEMM's and the plain versions': z rounded to bf16, sums
+// fp32, the output rounded once; the fold is computed as the plain
+// versions compute it (a product, then a sum: no FMA contraction), so z
+// and the mask u > 0 are their bits.
 
 #include <cuda_runtime.h>
 
 #include "elem.cuh"
 #include "split_sum.cuh"
+#include "tc.cuh"
 
 namespace {
 
@@ -604,6 +647,363 @@ int launch_df_prenorm_cols(const void* g, const int* inv_idx, const void* Wt,
                                   dshift, b, P, na, K, C, D, ss_batch, s);
 }
 
+
+// ------------------------------------------------- bf16 on tensor cores
+
+using epn::bf16;
+
+namespace mma {
+
+constexpr int kNA = 60;          // anchors: the rows of a point
+constexpr int kK = 12;           // kernel points
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSK = 64;          // reduction rows a W slice
+constexpr int kGroup = 2;        // k16 steps summed in one fresh accumulator
+static_assert(kSK % (16 * kGroup) == 0, "a group within a W slice");
+constexpr int kStages = 3;       // W slices in the ring
+constexpr int kTraceBytes = 3072;  // the adjacency [kK][kNA] int, padded
+constexpr size_t kMaxSmem = 227 * 1024;
+
+// A block's shape for BN output columns: NP whole points of one cloud
+// (ROWS = NP * 60 rows, TILES m16 tiles, no padding: 15, 30 or 60), WM x WN
+// warps, MI m16 x NI n8 tiles a warp; BN x ROWS = 30720 accumulators, 128
+// a thread. The bf16 output tile is staged at row stride OS (padded: the
+// fragments' 4-byte writes hit distinct banks).
+template <int BN_>
+struct Cfg {
+  static constexpr int BN = BN_;
+  static constexpr int WN = BN >= 128 ? BN / 64 : 1, WM = kWarps / WN;
+  static constexpr int NI = BN / WN / 8;
+  static constexpr int NP = 512 / BN;
+  static constexpr int ROWS = NP * kNA, TILES = ROWS / 16;
+  static constexpr int MI = (TILES + WM - 1) / WM;
+  static constexpr int OS = BN + 8;
+  static constexpr int RS = BN + 4;  // df's staged sums, [ROWS][RS] fp32
+  static_assert(NI % 2 == 0 && TILES * 16 == ROWS, "warp tile");
+};
+
+// the columns of D a block owns: 128 where D allows, else 64 or 32
+__host__ __device__ inline int pick_bn(int D) {
+  return D % 128 == 0 ? 128 : D % 64 == 0 ? 64 : 32;
+}
+
+// the slab's row stride in elements: C, at least 64 (a 128-byte line, so
+// the XOR swizzle of tc::swz keys on the slab row's low three bits)
+__host__ __device__ inline int slab_stride(int C) { return C < 64 ? 64 : C; }
+
+// u = v * scale + shift rounded twice, as the plain versions compute it
+// (no FMA contraction: z and the mask u > 0 are the plain versions' bits)
+__device__ __forceinline__ float fold(float v, float scale, float shift) {
+  return __fadd_rn(__fmul_rn(v, scale), shift);
+}
+
+// dynamic shared memory, in bytes: the adjacency, then the slab
+// [ROWS, slab_stride(C)] and the W ring [kStages][kSK, BN]; after the
+// product the same memory holds the staged output tile [ROWS, OS] and, for
+// df, the terms of its per-(anchor, column) sums [ROWS][RS] fp32
+template <int BN>
+__host__ __device__ inline size_t smem_bytes(int C, bool df) {
+  using G = Cfg<BN>;
+  const size_t main = (size_t)G::ROWS * slab_stride(C) * sizeof(bf16) +
+                      (size_t)kStages * kSK * BN * sizeof(bf16);
+  const size_t epi = (size_t)G::ROWS * G::OS * sizeof(bf16) +
+                     (df ? (size_t)G::ROWS * G::RS * sizeof(float) : 0);
+  return kTraceBytes + (main > epi ? main : epi);
+}
+
+// out[p, a, n0 + n] = sum_k sum_c z[p, trace[a, k], c] W[k, c, n0 + n] for
+// the block's NP points (pt0 on; np of them live) and BN columns, on
+// tensor cores. The slab holds z (PRE: act(fold(g, scale, shift)) rounded
+// to bf16, else g itself) of those points, staged once; for kernel point k
+// the A fragment's row for (point, anchor a) is the slab row (point,
+// trace[a, k]): the gather is the row address each lane gives ldmatrix.
+// W streams as [12C, D] rows through a cp.async ring, kSK rows a slice.
+// DF: the product is dz of B6 (g = dout, trace = inv_idx, W = W^T), and
+// the epilogue forms du = dz * act'(x * scale + shift), df = du * scale
+// (rounded to bf16) and the per-block sums of du * x and du.
+template <int BN, bool PRE, bool DF>
+__global__ void __launch_bounds__(kThreads, 1)
+intra_conv_mma_kernel(const bf16* __restrict__ g,
+                      const int* __restrict__ trace,
+                      const bf16* __restrict__ W,
+                      const float* __restrict__ ss,
+                      const bf16* __restrict__ x, bf16* __restrict__ out,
+                      float* __restrict__ ws, int b, int P, int C, int D,
+                      int ss_stride, int nJ) {
+  using G = Cfg<BN>;
+  extern __shared__ __align__(128) unsigned char mma_smem[];
+  int* s_trace = reinterpret_cast<int*>(mma_smem);
+  bf16* slab = reinterpret_cast<bf16*>(mma_smem + kTraceBytes);
+  const int S = slab_stride(C);
+  bf16* ring = slab + (size_t)G::ROWS * S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int bi = blockIdx.x / nJ, j = blockIdx.x - bi * nJ;
+  const int np = min(G::NP, P - j * G::NP);
+  const int rows = np * kNA, live = (rows + 15) / 16;
+  const size_t row0 = ((size_t)bi * P + (size_t)j * G::NP) * kNA;
+  const int n0 = blockIdx.y * BN;
+  const int steps = kK * C / kSK;
+
+  // W slice `step`: rows step * kSK .. + kSK of W viewed as [12C, D]
+  auto load_w = [&](int step) {
+    bf16* dst = ring + (size_t)(step % kStages) * kSK * BN;
+    for (int e = tid; e < kSK * BN / 8; e += kThreads) {
+      const int r = e / (BN / 8), c8 = e % (BN / 8) * 8;
+      tc::cp16(tc::smem_addr(dst + tc::swz(r, c8, BN / 8)),
+               W + (size_t)(step * kSK + r) * D + n0 + c8, true);
+    }
+  };
+
+  for (int i = tid; i < kNA * kK; i += kThreads) {
+    const int a = i / kK, k = i - a * kK;
+    s_trace[k * kNA + a] = trace[i];
+  }
+  // the slab: cp.async straight from g, or through the fold in registers
+  const bf16* gb = g + row0 * C;
+  const float* ssb = PRE ? ss + (size_t)bi * ss_stride : nullptr;
+  const int cpr = C / 8;
+  for (int e = tid; e < rows * cpr; e += kThreads) {
+    const int r = e / cpr, c8 = (e - r * cpr) * 8;
+    bf16* dst = slab + tc::swz(r, c8, S / 8);
+    if constexpr (PRE) {
+      float v[8], sc[8], sh[8];
+      epn::load8(gb + (size_t)r * C + c8, v);
+      epn::load8(ssb + (r % kNA) * C + c8, sc);
+      epn::load8(ssb + (kNA + r % kNA) * C + c8, sh);
+      uint32_t o[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        o[q] = epn::pack2(epn::leaky(fold(v[2 * q], sc[2 * q], sh[2 * q])),
+                          epn::leaky(fold(v[2 * q + 1], sc[2 * q + 1],
+                                          sh[2 * q + 1])));
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
+    } else {
+      tc::cp16(tc::smem_addr(dst), gb + (size_t)r * C + c8, true);
+    }
+  }
+  if constexpr (!PRE) tc::cp_commit();
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load_w(s);
+    tc::cp_commit();
+  }
+
+  // this lane's A rows: tile row lane & 15 of each of the warp's m16
+  // tiles, as (point * 60, anchor); a row past the live points reads point
+  // 0's (its outputs are not stored)
+  const int wm = warp / G::WN, wn = warp % G::WN;
+  int pt60[G::MI], anc[G::MI];
+#pragma unroll
+  for (int mi = 0; mi < G::MI; ++mi) {
+    const int r = (wm * G::MI + mi) * 16 + (lane & 15);
+    const int pt = r < rows ? r / kNA : 0;
+    pt60[mi] = pt * kNA;
+    anc[mi] = r < rows ? r - pt * kNA : 0;
+  }
+
+  float acc[G::MI][G::NI][4];
+#pragma unroll
+  for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < G::NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) acc[mi][ni][h] = 0.f;
+
+  for (int step = 0; step < steps; ++step) {
+    tc::cp_wait<kStages - 2>();
+    __syncthreads();
+    if (step + kStages - 1 < steps) load_w(step + kStages - 1);
+    tc::cp_commit();
+    const bf16* wsl = ring + (size_t)(step % kStages) * kSK * BN;
+#pragma unroll
+    for (int kk = 0; kk < kSK; kk += 16 * kGroup) {
+      // the group's B fragments (W rows kk .. kk + 16 kGroup of the slice)
+      // and, per k16 step, its kernel point's adjacency column and channel
+      uint32_t bf[kGroup][G::NI][2];
+      const int* tk[kGroup];
+      int cg[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int red = step * kSK + kk + 16 * u;  // reduction row k C + c
+        const int k = red / C;
+        tk[u] = s_trace + k * kNA;
+        cg[u] = red - k * C;
+#pragma unroll
+        for (int nj = 0; nj < G::NI / 2; ++nj) {
+          uint32_t r4[4];
+          tc::ldsm4t(r4, tc::smem_addr(
+                             wsl + tc::swz(kk + 16 * u + (lane & 7) +
+                                               ((lane >> 3) & 1) * 8,
+                                           wn * (BN / G::WN) + nj * 16 +
+                                               (lane >> 4) * 8,
+                                           BN / 8)));
+          bf[u][2 * nj][0] = r4[0];
+          bf[u][2 * nj][1] = r4[1];
+          bf[u][2 * nj + 1][0] = r4[2];
+          bf[u][2 * nj + 1][1] = r4[3];
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < G::MI; ++mi) {
+        if (wm * G::MI + mi < live) {  // warp-uniform
+          // the group's products into a fresh accumulator, added to the
+          // running sum by an fp32 add that rounds to nearest: the mma's
+          // own accumulation truncates, and over the 48-192 k16 steps of a
+          // row it biases the rounded outputs toward zero
+          float t[G::NI][4];
+#pragma unroll
+          for (int ni = 0; ni < G::NI; ++ni)
+#pragma unroll
+            for (int h = 0; h < 4; ++h) t[ni][h] = 0.f;
+#pragma unroll
+          for (int u = 0; u < kGroup; ++u) {
+            uint32_t af[4];
+            tc::ldsm4(af, tc::smem_addr(
+                              slab + tc::swz(pt60[mi] + tk[u][anc[mi]],
+                                             cg[u] + (lane >> 4) * 8,
+                                             S / 8)));
+#pragma unroll
+            for (int ni = 0; ni < G::NI; ++ni)
+              tc::mma(t[ni], af, bf[u][ni][0], bf[u][ni][1]);
+          }
+#pragma unroll
+          for (int ni = 0; ni < G::NI; ++ni)
+#pragma unroll
+            for (int h = 0; h < 4; ++h) acc[mi][ni][h] += t[ni][h];
+        }
+      }
+    }
+  }
+  tc::cp_wait<0>();
+  __syncthreads();  // the slab and the ring are free
+
+  bf16* ot = slab;
+  if constexpr (!DF) {
+    // the output rounded once into the staged tile
+#pragma unroll
+    for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < G::NI; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = (wm * G::MI + mi) * 16 + gq + 8 * h;
+          const int cl = wn * (BN / G::WN) + ni * 8 + 2 * tq;
+          if (r < rows) {
+            *reinterpret_cast<uint32_t*>(ot + r * G::OS + cl) =
+                epn::pack2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+          }
+        }
+  } else {
+    // du = dz * act'(u) (kept in acc) and df = du * scale rounded into the
+    // staged tile; then du * x (q = 0) and du (q = 1), each staged in fp32
+    // [ROWS][RS] and summed over the block's points for every (anchor,
+    // column), point after point: no atomics, no barrier a point
+    float* red = reinterpret_cast<float*>(ot + G::ROWS * G::OS);
+    const int L = kNA * D;                  // lanes of x, ss and df
+    const float* ssd = ss + (size_t)bi * ss_stride;
+    const float slope = epn::kLeakySlope;
+    auto reduce = [&](int q) {
+      __syncthreads();
+      float* dst = ws + ((size_t)q * nJ * b + (size_t)j * b + bi) * L + n0;
+      for (int e = tid; e < kNA * BN; e += kThreads) {
+        const int a = e / BN, cl = e - a * BN;
+        float sum = 0.f;
+        for (int pl = 0; pl < np; ++pl) sum += red[(pl * kNA + a) * G::RS + cl];
+        dst[a * D + cl] = sum;
+      }
+      __syncthreads();
+    };
+#pragma unroll
+    for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (wm * G::MI + mi) * 16 + gq + 8 * h;
+        if (r >= rows) continue;
+        const bf16* xr = x + (row0 + r) * D + n0;
+        const float* sc = ssd + (r % kNA) * D + n0;
+#pragma unroll
+        for (int ni = 0; ni < G::NI; ++ni) {
+          const int cl = wn * (BN / G::WN) + ni * 8 + 2 * tq;
+          const float2 xv = epn::load2(xr + cl);
+          const float2 s2 = *reinterpret_cast<const float2*>(sc + cl);
+          const float2 h2 = *reinterpret_cast<const float2*>(sc + L + cl);
+          float& du0 = acc[mi][ni][2 * h];
+          float& du1 = acc[mi][ni][2 * h + 1];
+          if (!(fold(xv.x, s2.x, h2.x) > 0.f)) du0 *= slope;
+          if (!(fold(xv.y, s2.y, h2.y) > 0.f)) du1 *= slope;
+          *reinterpret_cast<uint32_t*>(ot + r * G::OS + cl) =
+              epn::pack2(du0 * s2.x, du1 * s2.y);
+          *reinterpret_cast<float2*>(red + r * G::RS + cl) =
+              make_float2(du0 * xv.x, du1 * xv.y);
+        }
+      }
+    reduce(0);
+#pragma unroll
+    for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (wm * G::MI + mi) * 16 + gq + 8 * h;
+        if (r >= rows) continue;
+#pragma unroll
+        for (int ni = 0; ni < G::NI; ++ni) {
+          const int cl = wn * (BN / G::WN) + ni * 8 + 2 * tq;
+          *reinterpret_cast<float2*>(red + r * G::RS + cl) =
+              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+        }
+      }
+    reduce(1);
+  }
+  __syncthreads();
+  for (int e = tid; e < rows * (BN / 8); e += kThreads) {
+    const int r = e / (BN / 8), c8 = e % (BN / 8) * 8;
+    *reinterpret_cast<uint4*>(out + (row0 + r) * D + n0 + c8) =
+        *reinterpret_cast<const uint4*>(ot + r * G::OS + c8);
+  }
+}
+
+template <int BN, bool PRE, bool DF>
+int launch(const void* g, const int* trace, const void* W, const float* ss,
+           const void* x, void* out, float* ws, int b, int P, int C, int D,
+           int ss_stride, cudaStream_t stream) {
+  using G = Cfg<BN>;
+  const size_t smem = smem_bytes<BN>(C, DF);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kern = intra_conv_mma_kernel<BN, PRE, DF>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nJ = (P + G::NP - 1) / G::NP;
+  kern<<<dim3(b * nJ, D / BN), kThreads, smem, stream>>>(
+      (const bf16*)g, trace, (const bf16*)W, ss, (const bf16*)x, (bf16*)out,
+      ws, b, P, C, D, ss_stride, nJ);
+  return (int)cudaGetLastError();
+}
+
+template <bool PRE, bool DF>
+int launch_bn(const void* g, const int* trace, const void* W,
+              const float* ss, const void* x, void* out, float* ws, int b,
+              int P, int C, int D, int ss_stride, cudaStream_t s) {
+  switch (pick_bn(D)) {
+    case 128:
+      return launch<128, PRE, DF>(g, trace, W, ss, x, out, ws, b, P, C, D,
+                                  ss_stride, s);
+    case 64:
+      return launch<64, PRE, DF>(g, trace, W, ss, x, out, ws, b, P, C, D,
+                                 ss_stride, s);
+    default:
+      return launch<32, PRE, DF>(g, trace, W, ss, x, out, ws, b, P, C, D,
+                                 ss_stride, s);
+  }
+}
+
+// the points a block of the tensor-core kernels owns at D output columns
+inline int block_points(int D) { return 512 / pick_bn(D); }
+
+}  // namespace mma
+
 }  // namespace
 
 // f [b, P, na, C], trace_idx [na, K] int32 (device), W [K, C, D],
@@ -684,4 +1084,57 @@ extern "C" int epn_intra_conv_prenorm_df(const void* dout, const void* inv_idx,
   }
   return launch_df_prenorm_cols<float>(dout, ip, Wt, x, sp, df, w, dsc, dsh, b,
                                        P, na, K, C, D, ss_batch, s);
+}
+
+// bf16 on tensor cores (intra_conv_mma_kernel): f, trace_idx, W, ss, out
+// and ss_stride as epn_intra_conv, with f, W and out bf16. na must be 60,
+// K 12, C a multiple of 32 and D of 32 (and the slab and ring within the
+// shared memory a block may use: C up to 256 at D % 128 == 0).
+extern "C" int epn_intra_conv_mma(const void* f, const void* trace_idx,
+                                  const void* W, const void* ss, void* out,
+                                  int b, int P, int na, int K, int C, int D,
+                                  int ss_stride, void* stream) {
+  if (na != mma::kNA || K != mma::kK || C % 32 != 0 || D % 32 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* tp = (const int*)trace_idx;
+  const float* sp = (const float*)ss;
+  if (sp != nullptr) {
+    return mma::launch_bn<true, false>(f, tp, W, sp, nullptr, out, nullptr,
+                                       b, P, C, D, ss_stride, s);
+  }
+  return mma::launch_bn<false, false>(f, tp, W, nullptr, nullptr, out,
+                                      nullptr, b, P, C, D, 0, s);
+}
+
+// B6 df, dscale, dshift on tensor cores: the arguments of
+// epn_intra_conv_prenorm_df with bf16 dout, Wt, x and df, and ws fp32
+// [2, nJ, b, na * D] with nJ = ceil(P / (512 / BN)), BN = 128 where D % 128
+// == 0, else 64 where D % 64 == 0, else 32. na must be 60, K 12, C and D
+// multiples of 32.
+extern "C" int epn_intra_conv_prenorm_df_mma(
+    const void* dout, const void* inv_idx, const void* Wt, const void* x,
+    const void* ss, void* df, void* ws, void* dscale, void* dshift, int b,
+    int P, int na, int K, int C, int D, int ss_batch, void* stream) {
+  if (na != mma::kNA || K != mma::kK || C % 32 != 0 || D % 32 != 0 ||
+      (ss_batch != 1 && ss_batch != b)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t L = (size_t)na * D;
+  float* w = (float*)ws;
+  const int e = mma::launch_bn<false, true>(
+      dout, (const int*)inv_idx, Wt, (const float*)ss, x, df, w, b, P, C, D,
+      ss_batch > 1 ? (int)(2 * L) : 0, s);
+  if (e != 0) return e;
+  // the partials [nJ][b][L] in order: over each cloud's blocks (a fold per
+  // cloud) or over every block (one fold for the batch)
+  const int nJ = (P + mma::block_points(D) - 1) / mma::block_points(D);
+  const int splits = ss_batch > 1 ? nJ : nJ * b;
+  const size_t n = ss_batch > 1 ? b * L : L;
+  const int e2 = launch_sum_splits(w, (float*)dscale, splits, n, s);
+  if (e2 != 0) return e2;
+  return launch_sum_splits(w + (size_t)nJ * b * L, (float*)dshift, splits, n,
+                           s);
 }

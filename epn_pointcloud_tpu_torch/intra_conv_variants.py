@@ -1,0 +1,188 @@
+"""Where the bf16 tensor-core intra conv (``intra_conv_mma_kernel`` in
+csrc/intra_conv.cu: B5, the prenorm forward, and B6 df) spends its time,
+on the card: the kernel as built beside variants with one part changed or
+taken out, at the shapes of both models' layers, with the same timer
+(``chip_smoke.time_ms``).
+
+  python -m epn_pointcloud_tpu_torch.intra_conv_variants
+
+It imports ``chip_smoke`` from the repository root. Each variant is
+csrc/intra_conv.cu compiled alone (nvcc, sm_90a) under
+build/intra_conv_variants/ with one text substitution (which fails loudly
+when the source no longer holds the text):
+  built          the source as it is (a fresh accumulator every kGroup = 2
+                 k16 steps);
+  group_1        a fresh accumulator every k16 step;
+  group_4        a fresh accumulator every four k16 steps (a W slice);
+  in_place       every mma accumulates into the running sum (the
+                 truncating accumulation: its outputs lean toward zero);
+  no_gather      the A rows read without the adjacency (slab row = the
+                 output row): the gather's bank conflicts' share; wrong;
+  no_mma         no mma issued (staging, fragment loads, W stream and
+                 epilogue still run); wrong;
+  no_w_loads     no W slice loaded (the products run on stale shared
+                 memory): the W stream's share; wrong.
+The forward is timed in its prenorm form and, built only, in its plain
+form (``no_fold``: the same kernel staging the slab by cp.async, without
+the fold); df at the step's batch. For the variants that keep the
+arithmetic, the normwise error against the plain version and the share of
+outputs that rounded toward zero less the share that rounded away from
+it (``lean``). Operands are random (seeded) at the shapes of
+cls_so3net_pn (forward b=32, df b=12, one fold for the batch) and
+inv_so3net_pn (b=16 a leg, a fold a patch). One JSON line a shape, a sum
+over each model's layers, all of them in
+chiprun_out/intra_conv_variants.json. Needs a CUDA device and nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from .ops import icosahedron
+from .ops.kernels import build, intra_conv
+
+OUT = os.path.join(build.BUILD_DIR, 'intra_conv_variants')
+ROOT = os.path.dirname(build.BUILD_DIR)
+_MMA = 'tc::mma(t[ni], af, bf[u][ni][0], bf[u][ni][1]);'
+# variant -> (text in the source, its replacement), or None for the source
+VARIANTS = {
+    'built': None,
+    'group_1': ('constexpr int kGroup = 2;', 'constexpr int kGroup = 1;'),
+    'group_4': ('constexpr int kGroup = 2;', 'constexpr int kGroup = 4;'),
+    'in_place': (_MMA, 'tc::mma(acc[mi][ni], af, bf[u][ni][0], '
+                 'bf[u][ni][1]);'),
+    'no_gather': ('pt60[mi] + tk[u][anc[mi]]', 'pt60[mi] + anc[mi]'),
+    'no_mma': (_MMA, 'if (C < 0) ' + _MMA),
+    'no_w_loads': ('tc::cp16(tc::smem_addr(dst + tc::swz(r, c8, BN / 8)),',
+                   'if (C < 0) tc::cp16(tc::smem_addr(dst + tc::swz(r, c8, '
+                   'BN / 8)),'),
+}
+EXACT = ('built', 'group_1', 'group_4', 'in_place')
+# model -> (forward batch, df batch, fold a cloud, [(layer, p, c)])
+SHAPES = {
+    'cls_so3net_pn': (32, 12, False, [
+        ('L0', 512, 64), ('L1', 512, 64), ('L2', 256, 128), ('L3', 256, 128),
+        ('L4', 128, 256), ('L5', 128, 256), ('L6', 64, 256)]),
+    'inv_so3net_pn': (16, 16, True, [
+        ('B0L0', 512, 32), ('B0L1', 512, 32), ('B1L0', 256, 64),
+        ('B1L1', 256, 64), ('B2L0', 128, 128), ('B2L1', 128, 128),
+        ('B3L0', 64, 128), ('B3L1', 64, 128)]),
+}
+
+
+def _lean(got, want):
+    """Share of elements rounded toward zero less the share rounded away
+    from it, against ``want``."""
+    d = (got.float() - want.float()) * torch.sign(want.float())
+    return float(((d < 0).sum() - (d > 0).sum()) / d.numel())
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit('intra_conv_variants: needs a CUDA device')
+    sys.path.insert(0, ROOT)
+    from chip_smoke import time_ms
+    procs = {n: build.compile_alone(build.CSRC_DIR, 'intra_conv.cu',
+                                    os.path.join(OUT, n), sub)
+             for n, sub in VARIANTS.items()}
+    fns = {}
+    for n, (p, so) in procs.items():
+        log = p.communicate()[0]
+        if p.returncode != 0:
+            raise RuntimeError(f'nvcc failed on {n}:\n{log}')
+        lib = ctypes.CDLL(so)
+        fns[n] = {}
+        for entry in ('epn_intra_conv_mma', 'epn_intra_conv_prenorm_df_mma'):
+            fn = getattr(lib, entry)
+            fn.argtypes = build.SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+            fns[n][entry] = fn
+    dev = torch.device('cuda')
+    card = torch.cuda.get_device_name(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    ti = torch.from_numpy(icosahedron.get_intra_idx()).to(dev)
+    inv = torch.from_numpy(icosahedron.get_intra_inv_idx()).to(dev)
+    lines = []
+
+    def call(fn, args):
+        def run():
+            err = fn(*args, stream)
+            if err:
+                raise RuntimeError(f'intra_conv_mma: CUDA error {err}')
+        return run
+    for model, (bf, bd, per_cloud, layers) in SHAPES.items():
+        total = {}
+        for tag, p, c in layers:
+            rng = np.random.RandomState(p + c)
+            rec = {}
+            for part, b in (('forward', bf), ('df', bd)):
+                def rand(*shape, scale=1.0):
+                    return torch.from_numpy((scale * rng.randn(*shape)).astype(
+                        np.float32)).to(dev)
+                f = rand(b, p, 60, c).bfloat16()
+                W = rand(12, c, c, scale=0.05).bfloat16()
+                sb = b if per_cloud else 1
+                ss = torch.stack([rand(sb, 60 * c).abs() + 0.5,
+                                  rand(sb, 60 * c, scale=0.3)], dim=1)
+                out = torch.empty_like(f)
+                if part == 'forward':
+                    head = (f.data_ptr(), ti.data_ptr(), W.data_ptr())
+                    tail = (out.data_ptr(), b, p, 60, 12, c, c)
+                    args = head + (ss.data_ptr(),) + tail + (
+                        2 * 60 * c if sb > 1 else 0,)
+                    plain_args = head + (0,) + tail + (0,)
+                    entry = 'epn_intra_conv_mma'
+                    want = intra_conv.intra_conv_prenorm_plain(f, ss, ti, W)
+                else:
+                    dout = rand(b, p, 60, c).bfloat16()
+                    Wt = W.transpose(1, 2).contiguous()
+                    nj = -(-p // intra_conv.mma_block_points(c))
+                    ws = torch.empty(2, nj, b, 60 * c, device=dev)
+                    dss = torch.empty(2, sb, 60 * c, device=dev)
+                    args = (dout.data_ptr(), inv.data_ptr(), Wt.data_ptr(),
+                            f.data_ptr(), ss.data_ptr(), out.data_ptr(),
+                            ws.data_ptr(), dss[0].data_ptr(),
+                            dss[1].data_ptr(), b, p, 60, 12, c, c, sb)
+                    entry = 'epn_intra_conv_prenorm_df_mma'
+                    want = intra_conv.intra_conv_prenorm_df_plain(
+                        dout, f, ss, ti, W)[0]
+                for n, fn in fns.items():
+                    run = call(fn[entry], args)
+                    key = f'{part} {n}'
+                    rec[key] = {'ms': time_ms(run)}
+                    if n in EXACT:
+                        run()
+                        torch.cuda.synchronize()
+                        rec[key].update(rel=_rel(out, want),
+                                        lean=_lean(out, want))
+                if part == 'forward':
+                    rec['forward no_fold'] = {'ms': time_ms(call(
+                        fns['built'][entry], plain_args))}
+                del f, W, ss, out, want
+                torch.cuda.empty_cache()
+            for k, v in rec.items():
+                total[k] = total.get(k, 0.0) + v['ms']
+            lines.append({'model': model, 'layer': tag, 'p': p, 'c': c,
+                          'batch': [bf, bd], 'variants': rec, 'card': card})
+            print(json.dumps(lines[-1]), flush=True)
+        lines.append({'model': model, 'sum_over_layers': True, 'ms': total,
+                      'card': card})
+        print(json.dumps(lines[-1]), flush=True)
+    out_dir = os.path.join(ROOT, 'chiprun_out')
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, 'intra_conv_variants.json'), 'w') as f:
+        json.dump(lines, f, indent=1)
+
+
+if __name__ == '__main__':
+    main()

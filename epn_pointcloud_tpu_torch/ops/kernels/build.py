@@ -57,6 +57,10 @@ SIGNATURES = {
     # f, trace_idx, w, ss, out, b, p, na, k, c, d, ss_stride, bf16, stream
     'epn_intra_conv': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P],
+    # f, trace_idx, w, ss, out, b, p, na, k, c, d, ss_stride, stream (bf16
+    # on tensor cores)
+    'epn_intra_conv_mma': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
     # gx, rk, k2, out, b, p2, nn, na, k, sigma, bf16, stream
     'epn_ones_conv': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # x, sum, sumsq, b, rows, lanes, bf16, stream
@@ -83,6 +87,10 @@ SIGNATURES = {
     # ss_batch, bf16, stream
     'epn_intra_conv_prenorm_df': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _P],
+    # dout, inv_idx, w_t, x, ss, df, ws, d_scale, d_shift, b, p, na, k, c, d,
+    # ss_batch, stream (bf16 on tensor cores)
+    'epn_intra_conv_prenorm_df_mma': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _I, _I, _I, _I, _I, _P],
     # x, w, dout, dx, ws, dwb, rows, c, d, splits, parts, bf16, stream
     'epn_grouped_conv_bwd': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _P],

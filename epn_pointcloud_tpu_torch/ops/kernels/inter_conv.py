@@ -33,15 +33,15 @@ Forward and backward also run in bf16 (the production mode): the table, W,
 out and dout are bf16, gx, rk and k2 stay fp32, and every sum is fp32; out
 is rounded once, dW stays fp32 and dT is rounded to the table's type after
 its fp32 sums, as ``_fgcw_bwd`` rounds its fp32 dTable. The bf16 forward
-runs on tensor cores (``mma_route``), whose operands are bf16: it rounds the
-anchor weights and F to bf16 before the product each feeds, where the TPU
-kernel rounds them (``_fwd_gather_w_kernel:974, 980``; its own reference
-``inter_conv_mma_plain``); the plain version and the SGEMM template keep
-both in fp32, which puts ~3e-3 (normwise) between the tensor-core kernel
-and the plain version. The W-off
-kernels keep the composed route's bf16 rounding points (``_fgcw_bwd:1685-
-1703``): F and dF in the table's type, each neighbor slot's sum_k w dF
-rounded to bf16 before the fp32 fold onto the table rows, dW summed in fp32.
+runs on tensor cores (``mma_route``; other shapes on the SGEMM template):
+both round the anchor weights and F to bf16 before the product each feeds,
+where the TPU kernel rounds them (``_fwd_gather_w_kernel:974, 980``; their
+reference ``inter_conv_mma_plain``); the plain version keeps both in fp32,
+which puts ~3e-3 (normwise) between the kernels and the plain version. The
+W-off kernels keep the composed route's bf16 rounding points
+(``_fgcw_bwd:1685-1703``): the anchor weights, F and dF in the table's
+type, each neighbor slot's sum_k w dF rounded to bf16 before the fp32 fold
+onto the table rows, dW summed in fp32.
 """
 
 from __future__ import annotations
@@ -162,16 +162,17 @@ def inter_conv_mma_plain(gx: torch.Tensor, idx: torch.Tensor,
                          table: torch.Tensor, rk: torch.Tensor,
                          k2: torch.Tensor, W: torch.Tensor,
                          sigma: float) -> torch.Tensor:
-    """The tensor-core kernel's arithmetic (a bf16 table and W): the anchor
+    """The bf16 kernels' arithmetic (a bf16 table and W): the anchor
     weights and F rounded to bf16 before the product each feeds, where the
     TPU kernel rounds them (``_fwd_gather_w_kernel:974, 980``,
     ``_build_packed_fs:287, 299``), fp32 sums, out rounded once. The
-    kernel's reference at the rounding points it shares with the TPU.
+    kernels' reference at the rounding points they share with the TPU.
     ``inter_conv_plain`` stays the wrapper's plain version (its CPU path and
-    the op layer's plain path) in fp32 inside: with these rounding points in
-    both, the kernel and plain paths of a bf16 train step flip different
-    roundings of F, and their gradients part further than the step's
-    noise-floor gate allows (PERF.md section 6)."""
+    the op layer's plain path) in fp32 inside: at these rounding points the
+    port's bf16 CPU step meets block 0's skip BatchNorm bias gradient at a
+    cosine of 0.91-0.97 to float64 (0.92-0.99 in fp32 inside, the JAX
+    package's 0.98-0.995), below tests/test_torch_port_bf16_train.py's
+    0.93 on four of six 1e-6 scalings of its batch (ROADMAP section C)."""
     return _plain_forward(gx, idx, table, rk, k2, W, sigma, True)
 
 
@@ -213,11 +214,13 @@ def inter_conv_dw_plain(gx: torch.Tensor, idx: torch.Tensor,
 def inter_conv_f_plain(gx: torch.Tensor, idx: torch.Tensor,
                        table: torch.Tensor, rk: torch.Tensor,
                        k2: torch.Tensor, sigma: float) -> torch.Tensor:
-    """W-off forward: F [b, p2, na, K, c] computed in fp32 and rounded once
-    to the table's type (the layout makes dW one [K*c, b*p2*na] x
-    [b*p2*na, d] product)."""
+    """W-off forward: F [b, p2, na, K, c] summed in fp32 and rounded once to
+    the table's type; from a bf16 table the anchor weights are rounded to
+    bf16 first, as the TPU kernel rounds them (``_conv_body:516``). The
+    layout makes dW one [K*c, b*p2*na] x [b*p2*na, d] product."""
+    rounded = table.dtype == torch.bfloat16
     return torch.cat([F.to(table.dtype) for _, _, F in _f_chunks(
-        gx, idx, table, rk, k2, sigma)], dim=2)
+        gx, idx, table, rk, k2, sigma, rounded)], dim=2)
 
 
 def inter_conv_dg_plain(gx: torch.Tensor, idx: torch.Tensor, q: int,

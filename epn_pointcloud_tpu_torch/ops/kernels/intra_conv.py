@@ -32,6 +32,13 @@ shift and dz the df above, never rounded,
 
 the per-lane sums over the points (and over the clouds when ss has batch 1).
 Every kernel here takes fp32 and bf16 operands; products and sums are fp32.
+
+The bf16 forward (plain and prenorm) and the bf16 B6 df run on tensor cores
+(``intra_conv_mma_kernel``, picked by ``mma_route``: every layer of both
+models) at the rounding points of the SGEMM and the plain versions: z
+rounded to bf16 after the fold and the activation, fp32 sums, the output
+rounded once (df: dz never rounded, df rounded once). fp32 and the other
+bf16 shapes run the register-blocked SGEMM.
 """
 
 from __future__ import annotations
@@ -56,9 +63,32 @@ ENTRIES = {
                               'epn_pointcloud_tpu/ops/pallas/intra_conv.py'
                               ':205'),
 }
-# rows of a block of the prenorm df kernel: it owns 128 // na whole points
+# rows of a block of the SGEMM prenorm df kernel: it owns 128 // na whole
+# points
 _DF_BLOCK_ROWS = 128
 launches = dict.fromkeys(ENTRIES, 0)
+# the launches of the forward product (intra_conv, intra_conv_prenorm, and
+# the df of intra_conv_prenorm_df) by kernel: 'mma', the bf16 tensor-core
+# kernel (``intra_conv_mma_kernel``), or 'sgemm', the register-blocked SGEMM
+routes = dict.fromkeys(('mma', 'sgemm'), 0)
+# the tensor-core kernel's shapes (``mma_route``): the icosahedral group's
+# anchors and kernel points, and the widths of the models' intra layers
+MMA_NA, MMA_K, MMA_WIDTHS = 60, 12, (32, 64, 128, 256)
+
+
+def mma_route(dtype, na: int, K: int, c: int, d: int) -> bool:
+    """Whether a forward or B6 df runs the bf16 tensor-core kernel: bf16
+    operands, na == 60, K == 12 and c == d in MMA_WIDTHS (every intra layer
+    of both models). fp32 and the other shapes run the SGEMM."""
+    return (dtype == torch.bfloat16 and na == MMA_NA and K == MMA_K
+            and c == d and c in MMA_WIDTHS)
+
+
+def mma_block_points(d: int) -> int:
+    """Points a block of the tensor-core kernel owns at d output columns:
+    512 / BN with BN = 128, 64 or 32 the columns it owns (csrc
+    ``mma::block_points``)."""
+    return 512 // (128 if d % 128 == 0 else 64 if d % 64 == 0 else 32)
 
 
 def intra_conv_plain(f: torch.Tensor, trace_idx: torch.Tensor,
@@ -169,12 +199,16 @@ def _launch_fwd(kernel, f, trace_idx, W, ss):
     build.check_operands(kernel, dev, want)
     _check_shape(kernel, b, p, na, K, c, d)
     out = torch.empty((b, p, na, d), dtype=f.dtype, device=dev)
+    ptrs = (f.data_ptr(), trace_idx.data_ptr(), W.data_ptr(),
+            0 if ss is None else ss.data_ptr(), out.data_ptr(), b, p, na, K,
+            c, d, 2 * na * c if sb > 1 else 0)
     launches[kernel] += 1
-    build.launch('epn_intra_conv', f.data_ptr(), trace_idx.data_ptr(),
-                 W.data_ptr(), 0 if ss is None else ss.data_ptr(),
-                 out.data_ptr(), b, p, na, K, c, d,
-                 2 * na * c if sb > 1 else 0, bf16,
-                 build.stream(f))
+    if mma_route(f.dtype, na, K, c, d):
+        routes['mma'] += 1
+        build.launch('epn_intra_conv_mma', *ptrs, build.stream(f))
+    else:
+        routes['sgemm'] += 1
+        build.launch('epn_intra_conv', *ptrs, bf16, build.stream(f))
     return out
 
 
@@ -191,7 +225,8 @@ def intra_conv_prenorm(f: torch.Tensor, ss: torch.Tensor,
                        trace_idx: torch.Tensor,
                        W: torch.Tensor) -> torch.Tensor:
     """PRENORM forward kernel wrapper: plain version on the CPU, CUDA
-    kernel on the card."""
+    kernel on the card (the tensor-core kernel where ``mma_route`` holds,
+    else the SGEMM). Both are deterministic (no atomics)."""
     if f.device.type == 'cpu':
         return intra_conv_prenorm_plain(f, ss, trace_idx, W)
     return _launch_fwd('intra_conv_prenorm', f, trace_idx, W, ss)
@@ -258,8 +293,8 @@ def intra_conv_prenorm_df(dout: torch.Tensor, f: torch.Tensor,
                           inv_idx: torch.Tensor, W: torch.Tensor):
     """B6 df wrapper -> (df, dss): the plain version on the CPU; on the card
     the forward's product on (dout, inv_idx, W transposed to [K, d, c]) with
-    the prenorm epilogue, dss from per-block partials summed in a fixed
-    order (deterministic)."""
+    the prenorm epilogue (on tensor cores where ``mma_route`` holds), dss
+    from per-block partials summed in a fixed order (deterministic)."""
     if f.device.type == 'cpu':
         return intra_conv_prenorm_df_plain(dout, f, ss, trace_idx, W)
     kernel = 'intra_conv_prenorm_df'
@@ -279,18 +314,25 @@ def intra_conv_prenorm_df(dout: torch.Tensor, f: torch.Tensor,
     _check_shape(kernel, b, p, na, K, d, c)
     if na > 64:
         raise ValueError(f'{kernel}: kernel needs na <= 64; got na={na}')
-    n_blocks = -(-p // (_DF_BLOCK_ROWS // na))
+    mma = mma_route(f.dtype, na, K, c, d)
+    n_blocks = -(-p // (mma_block_points(c) if mma else
+                        _DF_BLOCK_ROWS // na))
     ws = torch.empty((2, n_blocks, b, na * c), dtype=torch.float32,
                      device=dev)
     df = torch.empty((b, p, na, c), dtype=f.dtype, device=dev)
     dscale = torch.empty((sb, na * c), dtype=torch.float32, device=dev)
     dshift = torch.empty((sb, na * c), dtype=torch.float32, device=dev)
+    ptrs = (dout.data_ptr(), inv_idx.data_ptr(), Wt.data_ptr(), f.data_ptr(),
+            ss.data_ptr(), df.data_ptr(), ws.data_ptr(), dscale.data_ptr(),
+            dshift.data_ptr(), b, p, na, K, d, c, sb)
     launches[kernel] += 1
-    build.launch('epn_intra_conv_prenorm_df', dout.data_ptr(),
-                 inv_idx.data_ptr(), Wt.data_ptr(), f.data_ptr(),
-                 ss.data_ptr(), df.data_ptr(), ws.data_ptr(),
-                 dscale.data_ptr(), dshift.data_ptr(), b, p, na, K, d, c, sb,
-                 bf16, build.stream(f))
+    if mma:
+        routes['mma'] += 1
+        build.launch('epn_intra_conv_prenorm_df_mma', *ptrs, build.stream(f))
+    else:
+        routes['sgemm'] += 1
+        build.launch('epn_intra_conv_prenorm_df', *ptrs, bf16,
+                     build.stream(f))
     return df, torch.stack([dscale, dshift], dim=1)
 
 

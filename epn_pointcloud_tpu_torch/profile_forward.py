@@ -42,13 +42,16 @@ from .ops import so3conv
 from .train import make_optimizer
 
 # kernel-name substrings (all of them) -> group (first match wins); the
-# W-off modes are the inter kernels' instantiations with kWOff = true
+# W-off modes are the inter kernels' instantiations with kWOff = true, B6
+# df the tensor-core intra kernel's with DF = true (its last argument)
 GROUPS = ((('inter_conv_kernel', 'true>'), 'inter F (W-off) kernel'),
           (('inter_dtable_kernel', 'true>'), 'inter dG (W-off) kernel'),
           ('inter_conv_mma_kernel', 'inter conv kernel (bf16, tensor cores)'),
           ('inter_conv_kernel', 'inter conv kernel'),
           ('inter_dtable_kernel', 'inter dTable kernel'),
           ('inter_dw_kernel', 'inter dW kernel'),
+          (('intra_conv_mma_kernel', 'true>'), 'prenorm intra df kernel'),
+          ('intra_conv_mma_kernel', 'intra conv kernel (and fp32 df)'),
           ('intra_conv_kernel', 'intra conv kernel (and fp32 df)'),
           ('intra_df_prenorm_kernel', 'prenorm intra df kernel'),
           ('intra_dw_kernel', 'intra dW kernel'),

@@ -317,12 +317,12 @@ def _port_step(model, x, label, rlabel, dtype='fp32'):
     return loss.item()
 
 
-def _bf16_step():
+def _bf16_step(x_scale=0.0):
     """One bf16 train step of both packages on shared weights and one
-    batch, the JAX step eager (jit's reduction order puts rounding noise
-    into block 0's constant-field BatchNorm), and the float64 gradients of
-    the port's plain path (the exact-arithmetic stand-in, which also marks
-    the degenerate leaves)."""
+    batch (its clouds scaled by 1 + x_scale), the JAX step eager (jit's
+    reduction order puts rounding noise into block 0's constant-field
+    BatchNorm), and the float64 gradients of the port's plain path (the
+    exact-arithmetic stand-in, which also marks the degenerate leaves)."""
     opt = _opt()
     jmodel = jcls.build_model(opt, mlps=SMALL_MLPS)
     x0 = jnp.zeros((2, 256, 3), jnp.float32)
@@ -337,7 +337,7 @@ def _bf16_step():
     variables = jcompat.import_state_dict(init, sd0)
 
     rng = np.random.RandomState(31)
-    x = _ball_points(rng, 2, 256)
+    x = (_ball_points(rng, 2, 256) * (1 + x_scale)).astype(np.float32)
     label = rng.randint(0, 40, 2)
     rlabel = rng.randint(0, 60, 2)
 
@@ -543,19 +543,124 @@ def test_run_modelnet_bf16_train_end_to_end(tmp_path):
                                rtol=0, atol=0)
 
 
+# the leaf whose cosine to float64 sits closest to COS_F64: block 0's
+# constant-field skip BatchNorm bias, the channel sums of the gradient at
+# block 0's output
+SKIP_BIAS = ("['BasicSO3ConvBlock_0']['SeparableSO3ConvBlock_0']"
+             "['BatchNorm_0']['bias']")
+
+
+def _rounded_inter(*args):
+    """The bf16 plain inter forward at the TPU kernel's rounding points
+    (``inter_conv_mma_plain``), fp32 as the plain version."""
+    fn = (tkern.inter_conv.inter_conv_mma_plain
+          if args[2].dtype == torch.bfloat16 else _PLAIN_INTER)
+    return fn(*args)
+
+
+_PLAIN_INTER = tkern.inter_conv.inter_conv_plain
+
+
+def _leaf_spread(scales=(0.0, 1e-6, -1e-6, 2e-6, -2e-6, 3e-6)):
+    """SKIP_BIAS's cosine to float64 for the port with the plain inter
+    forward as it is and at the TPU kernel's rounding points, and for the
+    JAX package, on the clouds scaled by 1 + s for each s."""
+    for s in scales:
+        row = []
+        for fn in (_PLAIN_INTER, _rounded_inter):
+            tkern.inter_conv.inter_conv_plain = fn
+            try:
+                step = _bf16_step(s)
+            finally:
+                tkern.inter_conv.inter_conv_plain = _PLAIN_INTER
+            rep = {r[0]: r for r in _leaf_report(step)}[SKIP_BIAS]
+            row += [rep[2], rep[3]]
+        print(f'clouds x (1 {s:+.0e}): port {row[0]:.4f}, port with the '
+              f'rounded inter forward {row[2]:.4f}, JAX {row[1]:.4f}')
+
+
+def _op_by_op():
+    """The port's bf16 step against its float64 step (the plain path),
+    module by module on the batch of ``_bf16_step``: each module output's
+    forward error, and its gradient's cosine to float64, whole and summed
+    over every axis but the channels (SKIP_BIAS is such a sum at
+    ``backbone.0.blocks.0.norm``); with the plain inter forward as it is
+    and at the TPU kernel's rounding points."""
+    import contextlib
+    from epn_pointcloud_tpu_torch.nn import blocks as tblocks
+    kinds = (tblocks.SeparableSO3ConvBlock, tlayers.InterSO3Conv,
+             tlayers.IntraSO3Conv, tlayers.Dense1x1, tlayers.BatchNorm,
+             tlayers.InstanceNorm)
+    s = _bf16_step()
+    rng = np.random.RandomState(31)
+    x = _ball_points(rng, 2, 256)
+    label, rlabel = rng.randint(0, 40, 2), rng.randint(0, 60, 2)
+
+    def feats(o):
+        if isinstance(o, torch.Tensor):
+            return o if o.dtype.is_floating_point else None
+        for e in (o if isinstance(o, tuple) else (getattr(o, 'feats',
+                                                          None),)):
+            f = feats(e) if e is not None else None
+            if f is not None:
+                return f
+        return None
+
+    def run(model, dtype, plain=False):
+        caps, hooks = {}, []
+        for name, m in model.named_modules():
+            if isinstance(m, kinds):
+                def hook(mod, inp, out, name=name):
+                    f = feats(out)
+                    if f is not None and f.requires_grad:
+                        f.retain_grad()
+                        caps[name] = f
+                hooks.append(m.register_forward_hook(hook))
+        with tkern.plain() if plain else contextlib.nullcontext():
+            _port_step(model, x, label, rlabel, dtype)
+        for h in hooks:
+            h.remove()
+        return caps
+    def fresh():
+        model = copy.deepcopy(s['tmodel'])
+        model.load_state_dict(s['sd0'])
+        model.zero_grad(set_to_none=True)
+        return model
+    ref = run(fresh().double(), 'fp32', plain=True)
+    for fn, tag in ((_PLAIN_INTER, 'as it is'),
+                    (_rounded_inter, 'at the TPU kernel\'s rounding points')):
+        print(f'the plain inter forward {tag}: module, forward error, '
+              f'gradient cosine to float64, whole and over channel sums')
+        tkern.inter_conv.inter_conv_plain = fn
+        try:
+            caps = run(fresh(), 'bf16')
+        finally:
+            tkern.inter_conv.inter_conv_plain = _PLAIN_INTER
+        for name, f in caps.items():
+            r = ref.get(name)
+            if r is None or f.grad is None or r.grad is None:
+                continue
+            fe = _normwise(f.detach(), r.detach())
+            g, w = _np(f.grad), _np(r.grad)
+            gs, ws = (a.reshape(-1, a.shape[-1]).sum(0) for a in (g, w))
+            print(f'  {name}: {fe:.2e} {_cos(g, w):.4f} {_cos(gs, ws):.4f}')
+
+
 if __name__ == '__main__':
     # the values the whole-step bounds above were set from; with
     # --mma-plain, the port's bf16 inter forward rounds where the
-    # tensor-core kernel (and the TPU kernel) rounds (inter_conv_mma_plain)
+    # tensor-core kernel (and the TPU kernel) rounds (inter_conv_mma_plain);
+    # --leaf-spread: SKIP_BIAS on clouds scaled by 1 + s (_leaf_spread);
+    # --op-by-op: module by module against float64 (_op_by_op)
     import sys
+    if '--leaf-spread' in sys.argv[1:]:
+        _leaf_spread()
+        sys.exit()
+    if '--op-by-op' in sys.argv[1:]:
+        _op_by_op()
+        sys.exit()
     if '--mma-plain' in sys.argv[1:]:
-        _plain = tkern.inter_conv.inter_conv_plain
-
-        def _rounded(*args):
-            fn = (tkern.inter_conv.inter_conv_mma_plain
-                  if args[2].dtype == torch.bfloat16 else _plain)
-            return fn(*args)
-        tkern.inter_conv.inter_conv_plain = _rounded
+        tkern.inter_conv.inter_conv_plain = _rounded_inter
     step = _bf16_step()
     print(f'loss: port {step["tloss"]:.6f}, JAX {step["jloss"]:.6f}, '
           f'relative {abs(step["tloss"] - step["jloss"]) / step["jloss"]:.2e}')

@@ -401,18 +401,16 @@ def test_inter_conv_mma_kernel_matches_plain(cuda, c, d, nn):
     (2, 40, 1, 80, 64, 64, False, 'sgemm')])  # nn > 64
 def test_inter_conv_bf16_routes_match_plain(cuda, b, p1, stride, nn, c, d,
                                             shadow, route):
-    """The bf16 forward at the edges of the tensor-core kernel (normwise <=
-    1e-3 of inter_conv_mma_plain, <= 4e-3 of the plain version) and off its
-    route (the SGEMM template, which keeps the weights and F in fp32 as the
-    plain version does: <= 1e-3 of it); bitwise equal on a second call."""
+    """The bf16 forward at the edges of the tensor-core kernel and off its
+    route (the SGEMM template): both round the anchor weights and F to bf16
+    where the TPU kernel does, so both are within 1e-3 (normwise) of
+    inter_conv_mma_plain and 4e-3 of the plain version; bitwise equal on a
+    second call."""
     taken, got, again, plain, rounded = _bf16_inter_call(
         cuda, b, p1, stride, nn, c, d, shadow)
     assert taken == [route]
-    if route == 'mma':
-        assert _rel(got.float(), rounded.float()) <= 1e-3
-        assert _rel(got.float(), plain.float()) <= 4e-3
-    else:
-        assert _rel(got.float(), plain.float()) <= 1e-3
+    assert _rel(got.float(), rounded.float()) <= 1e-3
+    assert _rel(got.float(), plain.float()) <= 4e-3
     assert torch.equal(got, again)
 
 
@@ -526,6 +524,62 @@ def test_intra_conv_prenorm_bwd_kernels_match_plain(cuda, dtype, b, p, c, d,
     assert _rel(df.float(), wdf.float()) <= (1e-5 if fp32 else 8e-3)
     assert _rel(dss, wdss) <= (1e-4 if fp32 else 1e-3)
     assert _rel(dW, wdW) <= (1e-4 if fp32 else 1e-3)
+
+
+# (p, c = d) of the intra layers of both models: cls_so3net_pn's (blocks of
+# 64, 128, 256 and 256 channels at 512, 256, 128 and 64 points), then
+# inv_so3net_pn's (32, 64, 128, 128)
+MODEL_INTRA_SHAPES = [(512, 64), (256, 128), (128, 256), (64, 256),
+                      (512, 32), (256, 64), (128, 128), (64, 128)]
+
+
+def _check_intra_bf16(f, ss, ti, inv, W, dout, route):
+    """The bf16 prenorm forward, the plain-form forward and B6 df, each
+    called twice: all six on ``route`` (the wrapper's counts), bitwise equal
+    on the second call, the forwards within 4e-3 (normwise) of their plain
+    versions, df within 8e-3 and dss within 1e-3 of theirs."""
+    ik = tkern.intra_conv
+    before = dict(ik.routes)
+    runs = [(ik.intra_conv_prenorm(f, ss, ti, W), ik.intra_conv(f, ti, W))
+            + ik.intra_conv_prenorm_df(dout, f, ss, ti, inv, W)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {k: ik.routes[k] - before[k] for k in ik.routes} == \
+        {k: 6 if k == route else 0 for k in ik.routes}
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    z, y, df, dss = runs[0]
+    assert z.dtype == y.dtype == df.dtype == BF16
+    assert _rel(z.float(), ik.intra_conv_prenorm_plain(f, ss, ti,
+                                                       W).float()) <= 4e-3
+    assert _rel(y.float(), ik.intra_conv_plain(f, ti, W).float()) <= 4e-3
+    wdf, wdss = ik.intra_conv_prenorm_df_plain(dout, f, ss, ti, W)
+    assert _rel(df.float(), wdf.float()) <= 8e-3
+    assert _rel(dss, wdss) <= 1e-3
+
+
+@pytest.mark.parametrize('sb', [1, 2])
+@pytest.mark.parametrize('p,c', MODEL_INTRA_SHAPES)
+def test_intra_conv_mma_kernels_match_plain(cuda, p, c, sb):
+    """The tensor-core kernel (B5 in its prenorm and plain forms, B6 df) at
+    every intra layer shape of both models, 2 clouds, with a fold a cloud
+    (sb = 2) and one broadcast (sb = 1): ``_check_intra_bf16``."""
+    _check_intra_bf16(*_prenorm_operands(cuda, BF16, 2, p, c, c, sb,
+                                         seed=p + c), 'mma')
+
+
+@pytest.mark.parametrize('b,p,c,d,sb,route', [
+    (2, 7, 64, 64, 2, 'mma'),       # 7 points, 8 a block: rows past the last
+    (3, 13, 128, 128, 3, 'mma'),    # 13 points, 4 a block
+    (2, 21, 32, 32, 1, 'mma'),      # 21 points, 16 a block
+    (1, 1, 256, 256, 1, 'mma'),     # one point: 60 rows, 4 m16 tiles
+    (2, 9, 64, 96, 2, 'sgemm'),     # c != d
+    (2, 9, 96, 96, 1, 'sgemm')])    # not a model width
+def test_intra_conv_bf16_routes_match_plain(cuda, b, p, c, d, sb, route):
+    """The bf16 intra forward and B6 df where the point count does not fill
+    the tensor-core kernel's blocks, and off its route (the SGEMM):
+    ``_check_intra_bf16``."""
+    _check_intra_bf16(*_prenorm_operands(cuda, BF16, b, p, c, d, sb,
+                                         seed=b + p), route)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, BF16])

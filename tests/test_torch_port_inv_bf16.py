@@ -120,8 +120,9 @@ def test_inter_conv_f_plain_bf16_matches_pallas_forms(N, C, Q):
     bf16) against both TPU forms in bf16 in interpret mode: the table form
     fused_gather_neighbor_conv -> _fwd_gather_kernel and the pre-gathered
     form fused_neighbor_conv -> _fwd_kernel (run by the port as a table of
-    the gathered rows). The TPU kernel rounds the anchor weights to bf16
-    before its product and the port does not: normwise <= 4e-3."""
+    the gathered rows). Both round the anchor weights to bf16 before the
+    product (``_conv_body:516``) and F once after it: normwise <= 1e-4 (0.0
+    measured, bit for bit, at these shapes)."""
     B, P, AC = 2, 4, 3
     j, t, sigma, _ = _woff_operands(B, P, N, AC, C, Q, seed=N + C)
     jF = jic.fused_gather_neighbor_conv(
@@ -139,7 +140,7 @@ def test_inter_conv_f_plain_bf16_matches_pallas_forms(N, C, Q):
     for want in (jF, jF2):
         want = np.transpose(_np(want), (0, 2, 1, 3, 4))
         for got in (tF, tF2):
-            assert _normwise(got, want) <= 4e-3
+            assert _normwise(got, want) <= 1e-4
 
 
 @pytest.mark.parametrize('N,C,Q', WOFF_SHAPES)
