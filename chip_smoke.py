@@ -4,18 +4,19 @@
 
 --parent-csrc: DIR is the csrc/ directory of an earlier tree (for example
 from ``git archive <commit> epn_pointcloud_tpu_torch/csrc | tar -x -C D``);
-its inter_conv.cu and intra_conv.cu are each built alone beside the
-kernels, and its epn_inter_conv, epn_intra_conv and
-epn_intra_conv_prenorm_df are timed beside this tree's bf16 W-fused inter
-forward, prenorm intra forward and B6 df at every call of phases 4, 9 and
+its inter_conv.cu, inter_conv_bwd.cu and intra_conv.cu are each built alone
+beside the kernels, and its epn_inter_conv_mma, epn_intra_conv,
+epn_intra_conv_prenorm_df, epn_inter_conv_bwd_table and epn_inter_conv_dg
+are timed beside this tree's bf16 W-fused inter forward, prenorm intra
+forward, B6 df, fused dTable and W-off dG at every call of phases 4, 9 and
 16, on the same inputs, in turns (parent, new, new, parent).
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from csrc/ (one nvcc a source, in parallel,
      sm_90a), and count the tensor-core instructions (HMMA, GMMA) in the
      SASS of the bf16 tensor-core kernels (the grouped conv forward and
-     backward, the W-fused inter forward, the intra forward and B6 df;
-     cuobjdump): none fails;
+     backward, the W-fused inter forward, the intra forward and B6 df, the
+     inter backward scatter; cuobjdump): none fails;
   2. at every flagship layer shape of cls_so3net_pn (b=32, 1024 points, 60
      anchors), compare each kernel with its plain PyTorch version on the
      card, on the inputs the model itself gives it (captured from a b=32
@@ -48,7 +49,9 @@ Phases (any failure exits non-zero and prints no result line):
      finite, every kernel's launch count must rise by its expected count
      per batch, and every inter forward, intra forward and B6 df must have
      run the kernel of its dtype (the tensor-core kernels in bf16, the
-     SGEMMs in fp32; so in phases 8, 11, 15, 19);
+     SGEMMs in fp32; so in phases 8, 11, 15, 19, there with every fused
+     dTable and W-off dG too: the tensor-core scatter in bf16, the
+     template in fp32);
   6. capture each backward kernel call of one train-mode step of the seeded
      full-width model on a synthetic b=12 batch (inter dTable and dW at 6
      layers, intra df and dW at 7) and compare each with its plain version
@@ -75,6 +78,11 @@ Phases (any failure exits non-zero and prints no result line):
      grouped conv's backward, and its outputs bitwise equal on a second
      call; every prenorm intra df on the tensor-core kernel, bitwise equal
      on a second call, beside its torch.mm and composition as in phase 4;
+     every dTable on the tensor-core scatter, its fp32 dT within 1e-3 of
+     the plain version at the TPU kernel's rounding points (dF, the anchor
+     weights and each slot's sum in bf16), timed beside one
+     torch.mm(dout2, W2^T) (the dF product it fuses) and the composition it
+     replaces (that torch.mm, then the tensor-core dG);
  10. [bf16-train] one bf16 train step (b=12) on the kernel path and on the
      plain path from the same weights: loss to rtol 1e-3, every parameter
      with a gradient on both paths, per-leaf gradient cosine >= 0.9 and its
@@ -117,7 +125,8 @@ Phases (any failure exits non-zero and prints no result line):
      its composition), the prenorm intra conv and B6 df as in phases 4 and
      9 (the bf16 inter_conv_f / inter_conv_dg, the
      prenorm intra conv with a fold a patch and its backward, moments, the
-     grouped conv and its backward, the fused inter backward; torch.addmm
+     grouped conv and its backward, the fused inter backward, every
+     dTable and dG on the tensor-core scatter as in phase 9; torch.addmm
      and torch.mm beside the grouped conv's); the
      composed route's dW product against its float64 product (<= 1e-3);
  17. [inv-bf16-train] one bf16 inv step on the kernel and the plain path
@@ -357,9 +366,11 @@ def phase_build():
 
 
 # the bf16 kernels that run on tensor cores: the grouped conv forward and
-# backward, the W-fused inter conv forward, the intra conv forward and B6 df
+# backward, the W-fused inter conv forward, the intra conv forward and B6 df,
+# the inter backward scatter (the fused dTable and the W-off dG)
 TC_KERNELS = ('grouped_conv_mma_kernel', 'grouped_bwd_mma_kernel',
-              'inter_conv_mma_kernel', 'intra_conv_mma_kernel')
+              'inter_conv_mma_kernel', 'intra_conv_mma_kernel',
+              'inter_bwd_mma_kernel')
 
 
 def tensor_core_sass(so):
@@ -536,7 +547,8 @@ def phase_kernels(model, device):
         results[name].append({'layer': layer, 'shape': desc,
                               'max_abs_err': max_err, 'rel_norm_err': rel,
                               'ms': k_ms, 'plain_ms': p_ms, 'bytes_ms': b_ms,
-                              'ops_ms': o_ms, 'ok': ok})
+                              'ops_ms': o_ms, 'ok': ok,
+                              **mm_library(name, args)})
         if not ok:
             failures.append(f'{name} L{layer}')
         del got, want
@@ -598,17 +610,20 @@ def phase_forward_time(model, device, reps=5, dtype='fp32'):
 
 def route_counts():
     """The inter and intra wrappers' launches by kernel ('mma': the bf16
-    tensor-core kernel, 'sgemm': the SGEMM): the W-fused inter forward's,
-    and the intra forward's with B6 df's."""
+    tensor-core kernel, 'sgemm': the SGEMM): the W-fused inter forward's
+    (with the backward scatter's: 'dtable_mma' / 'dg_mma', the bf16
+    tensor-core kernel, or 'dtable' / 'dg', the template), and the intra
+    forward's with B6 df's."""
     from epn_pointcloud_tpu_torch.ops import kernels
     return {'inter': dict(kernels.inter_conv.routes),
             'intra': dict(kernels.intra_conv.routes)}
 
 
 def check_routes(tag, dtype, counts, routes):
-    """Every W-fused inter forward, and every intra forward and B6 df, of an
-    entry run went through the kernel of its dtype: the tensor-core kernels
-    in bf16, the SGEMMs in fp32 (``routes``: ``route_counts()``, read with
+    """Every W-fused inter forward, every fused dTable and W-off dG, and
+    every intra forward and B6 df, of an entry run went through the kernel
+    of its dtype: the tensor-core kernels in bf16, the SGEMMs and the
+    scatter's template in fp32 (``routes``: ``route_counts()``, read with
     ``counts``)."""
     want = {}
     for conv, n in (('inter', counts['inter_conv']),
@@ -618,6 +633,10 @@ def check_routes(tag, dtype, counts, routes):
         assert n > 0, (conv, counts)
         want[conv] = ({'mma': n, 'sgemm': 0} if dtype == 'bf16' else
                       {'mma': 0, 'sgemm': n})
+    for entry in ('dtable', 'dg'):
+        n = counts[f'inter_conv_{entry}']
+        want['inter'].update({f'{entry}_mma': n, entry: 0} if dtype == 'bf16'
+                             else {f'{entry}_mma': 0, entry: n})
     log(f'{tag} launches by kernel: {routes}')
     assert routes == want, (routes, want)
 
@@ -1040,6 +1059,42 @@ def grouped_library(name, args):
                                   if a is not None)}
 
 
+def mm_library(name, args):
+    """The one-call yardstick of a dW reduction or of the fp32 intra
+    forward: one torch.mm of its operand formed beforehand (untimed), on
+    the call's inputs. The inter dW: F^T dout, F [M, 24c] the neighbor
+    contraction (``inter_conv_f_plain``); the intra dW (plain and prenorm):
+    A^T dout, A [M, 12c] the input (prenorm: folded and activated)
+    gathered through the adjacency; the fp32 intra forward: A W. A bf16
+    product asks for an fp32 output, as the kernels' dW is. {} for any
+    other call."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    if name == 'inter_conv_dw':
+        gx, idx, table, rk, k2, dout, sigma = args
+        K, c = rk.shape[1], table.shape[3]
+        lhs = kernels.inter_conv.inter_conv_f_plain(
+            gx, idx, table, rk, k2, sigma).reshape(-1, K * c).t()
+        rhs = dout.reshape(-1, dout.shape[-1])
+    elif name in ('intra_conv_dw', 'intra_conv_prenorm_dw', 'intra_conv'):
+        f, ti = args[0], args[-2]
+        if name == 'intra_conv_prenorm_dw':
+            f = kernels.intra_conv.prenorm_plain(f, args[1])
+        K, c = ti.shape[1], f.shape[3]
+        lhs = f[:, :, ti.long()].reshape(-1, K * c)
+        if name == 'intra_conv':
+            rhs = args[2].reshape(K * c, -1)
+        else:
+            lhs, rhs = lhs.t(), args[-1].reshape(-1, args[-1].shape[-1])
+    else:
+        return {}
+    kw = {'out_dtype': torch.float32} if lhs.dtype == torch.bfloat16 else {}
+    ms = time_ms(lambda: torch.mm(lhs, rhs, **kw), reps=5, warmup=2)
+    del lhs, rhs
+    torch.cuda.empty_cache()
+    return {'library_ms': ms}
+
+
 def _library_note(row):
     note = ''
     if 'library_ms' in row:
@@ -1058,18 +1113,83 @@ def _library_note(row):
 
 def _extras_ok(row):
     """The own gates of a bf16 inter forward (``inter_conv_extras``), intra
-    forward or B6 df (``intra_conv_extras``): the tensor-core kernel ran,
-    its output is bitwise equal on a second call, and (inter) within 1e-3
-    (normwise) of ``inter_conv_mma_plain``."""
-    return (row.get('route', 'mma') == 'mma'
+    forward or B6 df (``intra_conv_extras``), and backward scatter
+    (``inter_bwd_extras``): the tensor-core kernel ran, its output is
+    bitwise equal on a second call (not the scatter's: atomics), and
+    (inter) within 1e-3 (normwise) of ``inter_conv_mma_plain``."""
+    return (row.get('route', 'mma') in ('mma', 'dtable_mma', 'dg_mma')
             and row.get('bitwise_repeat', True)
             and row.get('rel_vs_mma_plain', 0.0) <= 1e-3)
 
 
 # the earlier tree's kernels (--parent-csrc), timed beside this tree's:
-# 'fn' its epn_inter_conv, 'intra_fwd' its epn_intra_conv, 'intra_df' its
-# epn_intra_conv_prenorm_df
+# 'fn' its epn_inter_conv_mma, 'intra_fwd' its epn_intra_conv, 'intra_df'
+# its epn_intra_conv_prenorm_df, 'dtable' its epn_inter_conv_bwd_table, 'dg'
+# its epn_inter_conv_dg
 PARENT = {}
+
+
+def inter_bwd_extras(name, args, got):
+    """For a bf16 call of the backward scatter (the fused dTable or the
+    W-off dG): the kernel it ran (``route``, from the wrapper's counts:
+    'dtable_mma' / 'dg_mma' for the tensor-core kernel). For the dTable
+    also its library yardstick, one ``torch.mm(dout2, W2^T)`` (the dF
+    product it fuses; ``library_ms``), and the composition it replaces,
+    that torch.mm then the tensor-core dG on its output (``composed_ms``).
+    With --parent-csrc also the earlier tree's C entry on the same inputs,
+    timed with this tree's in turns (parent, new, new, parent; both into
+    one preallocated dT; ``parent_ms``, ``same_timer_ms``). {} for any
+    other call."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    from epn_pointcloud_tpu_torch.ops.kernels import build
+    if name not in ('inter_conv_dtable', 'inter_conv_dg') or \
+            args[5].dtype != torch.bfloat16:
+        return {}
+    ic = kernels.inter_conv
+    before = dict(ic.routes)
+    getattr(ic, name)(*args)
+    torch.cuda.synchronize()
+    rec = {'route': next(k for k in ic.routes if ic.routes[k] > before[k])}
+    gx, idx, q, rk, k2 = args[:5]
+    b, p2, nn = idx.shape
+    na, K = rk.shape[:2]
+    c = got.shape[-1]
+    head = (gx.data_ptr(), idx.data_ptr(), rk.data_ptr(), k2.data_ptr())
+    dT = torch.zeros_like(got)
+    lib = build.library()
+    if name == 'inter_conv_dtable':
+        W, dout = args[5], args[6]
+        d = W.shape[2]
+        dout2, W2 = dout.reshape(-1, d), W.reshape(K * c, d)
+        rec['library_ms'] = time_ms(lambda: torch.mm(dout2, W2.t()), reps=5,
+                                    warmup=2)
+
+        def composed():
+            dF = torch.mm(dout2, W2.t())
+            build.launch('epn_inter_conv_dg_mma', *head, dF.data_ptr(),
+                         dT.data_ptr(), b, p2, nn, q, na, K, c,
+                         float(args[7]), build.stream(dout))
+        rec['composed_ms'] = time_ms(composed, reps=5, warmup=2)
+        ptrs = head + (W.data_ptr(), dout.data_ptr(), dT.data_ptr(), b, p2,
+                       nn, q, na, K, c, d, float(args[7]))
+        pair = ('dtable', 'epn_inter_conv_bwd_table_mma')
+    else:
+        ptrs = head + (args[5].data_ptr(), dT.data_ptr(), b, p2, nn, q, na,
+                       K, c, float(args[6]))
+        pair = ('dg', 'epn_inter_conv_dg_mma')
+    if PARENT:
+        def call(fn, tail):
+            def run():
+                err = fn(*ptrs, *tail, build.stream(gx))
+                if err:
+                    raise RuntimeError(f'{name}: CUDA error {err}')
+            return run
+        rec['parent_ms'], rec['same_timer_ms'] = time_abba(
+            call(PARENT[pair[0]], (1,)), call(getattr(lib, pair[1]), ()))
+    del dT
+    torch.cuda.empty_cache()
+    return rec
 
 
 def inter_conv_extras(name, args, got):
@@ -1116,10 +1236,11 @@ def inter_conv_extras(name, args, got):
 
         def parent():
             err = PARENT['fn'](*ptrs, W.data_ptr(), out.data_ptr(), b, p2, nn,
-                               q, na, K, c, d, float(sigma), 1,
+                               q, na, K, c, d, float(sigma),
                                build.stream(table))
             if err:
-                raise RuntimeError(f'parent epn_inter_conv: CUDA error {err}')
+                raise RuntimeError(f'parent epn_inter_conv_mma: CUDA error '
+                                   f'{err}')
         rec['parent_ms'], rec['same_timer_ms'] = time_abba(
             parent, lambda: ic.inter_conv(*args))
     torch.cuda.empty_cache()
@@ -1347,7 +1468,9 @@ def phase_backward_kernels(device, dtype='fp32'):
                                                for g in got))
         row['bytes_ms'], row['ops_ms'] = bound_ms(name, args, got)
         row.update(grouped_library(name, args))
+        row.update(mm_library(name, args))
         row.update(intra_conv_extras(name, args, got))
+        row.update(inter_bwd_extras(name, args, got[0]))
         row['ok'] = row['ok'] and _extras_ok(row)
         lib = _library_note(row)
         log(f'{tag} {name} {layer} (out {row["shape"]}, {got[0].dtype}): '
@@ -1769,6 +1892,7 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
             row.update(grouped_library(name, args))
             row.update(inter_conv_extras(name, args, got[0]))
             row.update(intra_conv_extras(name, args, got))
+            row.update(inter_bwd_extras(name, args, got[0]))
             row['ok'] = row['ok'] and _extras_ok(row)
             log(f'{tag} {name} {layer} ({row["shape"]}, {row["dtype"]}): '
                 f'max_abs_err={row["max_abs_err"]:.3e} rel_norm_err='
@@ -2201,7 +2325,9 @@ def phase_inv_bf16_descriptor(device, root, reps=5):
 
 # the earlier tree's sources built alone (--parent-csrc): source -> its C
 # entries, as PARENT's keys
-PARENT_SOURCES = {'inter_conv.cu': {'fn': 'epn_inter_conv'},
+PARENT_SOURCES = {'inter_conv.cu': {'fn': 'epn_inter_conv_mma'},
+                  'inter_conv_bwd.cu': {'dtable': 'epn_inter_conv_bwd_table',
+                                        'dg': 'epn_inter_conv_dg'},
                   'intra_conv.cu': {'intra_fwd': 'epn_intra_conv',
                                     'intra_df': 'epn_intra_conv_prenorm_df'}}
 

@@ -69,7 +69,10 @@
 // by the chunk's 768 W rows, 16 or 32 KB at a time through a cp.async ring
 // that runs ahead across chunks; the fp32 accumulators stay in registers
 // over all chunks and the output is rounded once into a tile staged in
-// shared memory and stored by whole rows. The anchor weights and F are
+// shared memory and stored by whole rows. Each pair of k16 steps (kGroup)
+// of the W product sums in a fresh mma accumulator, added to the running
+// sum by a rounding fp32 add, as in intra_conv.cu (inter_conv_variants.py
+// measures the in-place form's lean toward zero). The anchor weights and F are
 // rounded to bf16 where the TPU kernel rounds them (_fwd_gather_w_kernel:
 // 974, 980), as in the SGEMM template and the plain version. No atomics:
 // the output is the same on every call.
@@ -336,6 +339,7 @@ constexpr int kCC = 32;          // channels a chunk
 constexpr int kK = 24;           // kernel points: three n8 tiles
 constexpr int kKC = kK * kCC;    // F slab columns a row
 constexpr int kStages = 3;       // W slices in the ring
+constexpr int kGroup = 2;        // k16 steps summed in one fresh accumulator
 constexpr int kMaxNN = 64;
 constexpr int kMinNA = 4;
 
@@ -352,7 +356,8 @@ struct MmaCfg {
   static constexpr int SK = (kDeep ? 16384 : 8192) / BN;
   static constexpr int SLICES = kKC / SK;
   static constexpr int OS = BN + 8;
-  static_assert(NI % 2 == 0 && kKC % SK == 0, "warp tile");
+  static_assert(NI % 2 == 0 && kKC % SK == 0 && SK % (16 * kGroup) == 0,
+                "warp tile");
 };
 
 // The slab's column order. Lane (g, t) of the warp that builds a row holds
@@ -643,36 +648,56 @@ inter_conv_mma_kernel(const float* __restrict__ gx,
       const bf16* ws = ring + (size_t)(step % kStages) * G::SK * BN;
       const int kk0 = s * G::SK;
 #pragma unroll
-      for (int kk = 0; kk < G::SK; kk += 16) {
-        uint32_t af[G::MI][4];
+      for (int kg = 0; kg < G::SK; kg += 16 * kGroup) {
+        // the group's products into a fresh accumulator, added to the
+        // running sum by an fp32 add that rounds to nearest: the mma's own
+        // accumulation truncates, and over the 48-384 k16 steps of a row
+        // it can lean the rounded outputs toward zero
+        float t[G::MI][G::NI][4];
 #pragma unroll
-        for (int mi = 0; mi < G::MI; ++mi) {
-          tc::ldsm4(af[mi], tc::smem_addr(
-                                slab + tc::swz(wm * (kBM / G::WM) + mi * 16 +
-                                                   (lane & 15),
-                                               kk0 + kk + (lane >> 4) * 8,
-                                               kKC / 8)));
-        }
-        uint32_t bf[G::NI][2];
+        for (int mi = 0; mi < G::MI; ++mi)
 #pragma unroll
-        for (int nj = 0; nj < G::NI / 2; ++nj) {
-          uint32_t r4[4];
-          tc::ldsm4t(r4, tc::smem_addr(
-                             ws + tc::swz(kk + (lane & 7) +
-                                              ((lane >> 3) & 1) * 8,
-                                          wn * (BN / G::WN) + nj * 16 +
-                                              (lane >> 4) * 8,
-                                          BN / 8)));
-          bf[2 * nj][0] = r4[0];
-          bf[2 * nj][1] = r4[1];
-          bf[2 * nj + 1][0] = r4[2];
-          bf[2 * nj + 1][1] = r4[3];
+          for (int ni = 0; ni < G::NI; ++ni)
+#pragma unroll
+            for (int h = 0; h < 4; ++h) t[mi][ni][h] = 0.f;
+#pragma unroll
+        for (int kk = kg; kk < kg + 16 * kGroup; kk += 16) {
+          uint32_t af[G::MI][4];
+#pragma unroll
+          for (int mi = 0; mi < G::MI; ++mi) {
+            tc::ldsm4(af[mi], tc::smem_addr(
+                                  slab + tc::swz(wm * (kBM / G::WM) +
+                                                     mi * 16 + (lane & 15),
+                                                 kk0 + kk + (lane >> 4) * 8,
+                                                 kKC / 8)));
+          }
+          uint32_t bf[G::NI][2];
+#pragma unroll
+          for (int nj = 0; nj < G::NI / 2; ++nj) {
+            uint32_t r4[4];
+            tc::ldsm4t(r4, tc::smem_addr(
+                               ws + tc::swz(kk + (lane & 7) +
+                                                ((lane >> 3) & 1) * 8,
+                                            wn * (BN / G::WN) + nj * 16 +
+                                                (lane >> 4) * 8,
+                                            BN / 8)));
+            bf[2 * nj][0] = r4[0];
+            bf[2 * nj][1] = r4[1];
+            bf[2 * nj + 1][0] = r4[2];
+            bf[2 * nj + 1][1] = r4[3];
+          }
+#pragma unroll
+          for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < G::NI; ++ni)
+              tc::mma(t[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
         }
 #pragma unroll
         for (int mi = 0; mi < G::MI; ++mi)
 #pragma unroll
           for (int ni = 0; ni < G::NI; ++ni)
-            tc::mma(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+#pragma unroll
+            for (int h = 0; h < 4; ++h) acc[mi][ni][h] += t[mi][ni][h];
       }
     }
     __syncthreads();  // the slab is rebuilt next

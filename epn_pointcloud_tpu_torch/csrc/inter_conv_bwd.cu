@@ -59,11 +59,41 @@
 // F^T dout with 12 x (BN / 16) outputs a thread. Each row range writes its
 // own partial dW to a workspace; a second launch (split_sum.cuh) adds the
 // partials in a fixed order, so dW is deterministic.
+//
+// bf16 on tensor cores (inter_bwd_mma_kernel; epn_inter_conv_bwd_table_mma,
+// epn_inter_conv_dg_mma): the fused dTable and the W-off dG of every model
+// layer (60 anchors, 24 kernel points, C % 16 == 0, nn <= 64), at the TPU
+// kernels' rounding points: dF rounded to bf16 (_bwd_gather_w_kernel:1120;
+// the W-off dF is bf16 already), the anchor weights rounded to bf16
+// (:1133; _bwd_kernel:573), each slot's sum over k rounded to bf16 (:1158;
+// _bwd_kernel:580-581), the fold onto the table rows in fp32 (:1166), dT
+// rounded once by the caller (_fgcw_bwd:1683). A block owns 2 whole points
+// (all 60 anchors: 120 rows) and 16 channels. The fused entry forms the bf16
+// dF slab [120 x 24 x 16] by mma.sync.m16n8k16 (dout rows against W's
+// (k, c) rows, 3 pieces of 8 kernel points, 32-deep d slices through a
+// 3-stage cp.async ring, a fresh accumulator a slice); the W-off entry loads
+// it by cp.async. Then a warp (16 a block) takes one (point, anchor) row at
+// a time: the slot contraction G [16 slots, 16 c] = w [16, 24] dF [24, 16]
+// runs on mma.sync with the anchor weights computed once a block into the
+// A fragments, and each slot's 16 rounded sums of one anchor (64 contiguous
+// bytes of dT) go out as vector reductions (atomicAdd on float4, compute
+// capability 9.x): one operation per 16 bytes, a warp instruction covering
+// 16 whole 32-byte sectors on 8 table rows, where the template issues 8
+// scalar atomics into each sector from 32 rows. Work a call: M * nn * C
+// fp32 reductions (~377 M at every cls layer at b=12), the dF product's
+// 2 * M * 24 * C * D operations, ~12 operations a slot, anchor and kernel
+// point for the weights (once for each of the C / 16 channel blocks). What
+// holds it back (inter_bwd_variants.py on the H100): in the W-off dG the
+// reductions (without them 36% less time; scalar ones 3.3x the time); in
+// the fused dTable its phases in turn, one block an SM (without the
+// product's mma 4% less time, without the reductions 6%, without the
+// weights 12%; 8 warps a block 11% more).
 
 #include <cuda_runtime.h>
 
 #include "inter_conv_common.cuh"
 #include "split_sum.cuh"
+#include "tc.cuh"
 
 namespace {
 
@@ -423,6 +453,331 @@ int launch_dw_cols(const float* gx, const int* idx, const void* table,
                           na, C, D, sigma, splits, s);
 }
 
+// ------------------------------------------------- bf16 on tensor cores
+
+namespace mma {
+
+using epn::bf16;
+
+constexpr int kNA = 60;             // anchors: the rows of a point
+constexpr int kNP = 2;              // whole points a block
+constexpr int kRows = kNP * kNA;    // (point, anchor) rows a block
+constexpr int kBM = 128;            // the dF product's rows (kRows, padded)
+constexpr int kCC = 16;             // channels a block
+constexpr int kKP = 8;              // kernel points a piece of the product
+constexpr int kPieces = NK / kKP;
+constexpr int kBN = kKP * kCC;      // the product's columns a piece
+constexpr int kSD = 32;             // d a slice: two k16 steps
+constexpr int kStages = 3;          // slices in the ring
+constexpr int kWarps = 16;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kWN = 4;              // warps over a piece: 4 x 4 of 32 x 32
+constexpr int kMI = kBM / (kWarps / kWN) / 16, kNI = kBN / kWN / 8;
+constexpr int kMaxNN = 64;
+static_assert(kRows <= kBM && kNI % 2 == 0, "block shape");
+
+// dynamic shared memory, in bytes: the dF slab [kRows * NK][kCC] bf16 (row
+// (point, anchor) * NK + k), the fused entry's ring of dout and W slices
+// [kStages][kBM + kBN][kSD] bf16, the points' neighbor coordinates
+// [kNP][nnp] float4 (x, y, z, 1 - |gx|^2 / sigma) and indices [kNP][nnp]
+struct Smem {
+  size_t ring, gx, idx, total;
+};
+
+__host__ __device__ inline Smem layout(bool woff, int nnp) {
+  Smem s;
+  s.ring = (size_t)kRows * NK * kCC * sizeof(bf16);
+  s.gx = s.ring + (woff ? 0 : (size_t)kStages * (kBM + kBN) * kSD *
+                                  sizeof(bf16));
+  s.idx = s.gx + (size_t)kNP * nnp * sizeof(float4);
+  s.total = s.idx + (size_t)kNP * nnp * sizeof(int);
+  return s;
+}
+
+// Element offset of (r, col < kCC) in the slab, whose rows are two 16-byte
+// chunks: the chunk is flipped every four rows, so that the eight rows an
+// ldmatrix phase reads (eight kernel points of one row) fall in eight
+// different bank groups.
+__device__ __forceinline__ int slab_off(int r, int col) {
+  return r * kCC + ((((col >> 3) ^ (r >> 2)) & 1) << 3) + (col & 7);
+}
+
+// dT[dst .. dst + 4] += v: one vector reduction (compute capability 9.x)
+__device__ __forceinline__ void red4(float* dst, const float4& v) {
+  atomicAdd(reinterpret_cast<float4*>(dst), v);
+}
+
+// the anchor weight of a neighbor v (x, y, z, 1 - |gx|^2 / sigma) and a
+// rotated kernel point k (2 R kappa / sigma, -|kappa|^2 / sigma), in fp32
+// as the forward kernel computes it
+__device__ __forceinline__ float weight(const float4& v, const float4& k) {
+  return fmaxf(fmaf(v.x, k.x, fmaf(v.y, k.y, fmaf(v.z, k.z, v.w + k.w))),
+               0.f);
+}
+
+// The fused entry (kWOff false): dF = dout W^T rounded to bf16 into the
+// slab by mma.sync, then the slot contraction and the scatter. The W-off
+// entry: the bf16 slab loaded from dF [M, NK, C] by cp.async. Block
+// (blockIdx.x, blockIdx.y) owns points kNP * blockIdx.x .. + kNP and
+// channels kCC * blockIdx.y .. + kCC. dT [b, q, kNA, C] fp32 receives, for
+// each live neighbor slot n of each point p and anchor a,
+//   round_bf16(sum_k round_bf16(w[p, n, a, k]) dF[p, a, k, c])
+// with the anchor weights computed once a block, in fp32 as the forward
+// kernel computes them, and rounded in the mma fragment.
+template <bool kWOff>
+__global__ void __launch_bounds__(kThreads, 1)
+inter_bwd_mma_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
+                     const float* __restrict__ rk,
+                     const float* __restrict__ k2,
+                     const bf16* __restrict__ W, const bf16* __restrict__ src,
+                     float* __restrict__ dT, int P, int p2, int nn, int q,
+                     int C, int D, float inv_sigma) {
+  extern __shared__ __align__(128) unsigned char bwd_smem[];
+  const int nnp = (nn + 15) / 16 * 16;
+  const Smem L = layout(kWOff, nnp);
+  bf16* slab = reinterpret_cast<bf16*>(bwd_smem);
+  bf16* ring = reinterpret_cast<bf16*>(bwd_smem + L.ring);
+  float4* s_gx = reinterpret_cast<float4*>(bwd_smem + L.gx);
+  int* s_idx = reinterpret_cast<int*>(bwd_smem + L.idx);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int pt0 = blockIdx.x * kNP, c0 = blockIdx.y * kCC;
+  const int np = min(kNP, P - pt0), rows = np * kNA;
+  const size_t m0 = (size_t)pt0 * kNA;
+
+  if constexpr (kWOff) {
+    // the slab: 32 bytes a (row, k)
+    for (int e = tid; e < rows * NK * 2; e += kThreads) {
+      const int r = e >> 1, ch = e & 1;
+      tc::cp16(tc::smem_addr(slab + slab_off(r, 8 * ch)),
+               src + (m0 * NK + r) * C + c0 + 8 * ch, true);
+    }
+    tc::cp_commit();
+  }
+
+  // the points' neighbors; padded slots hold the shadow index
+  for (int e = tid; e < kNP * nnp; e += kThreads) {
+    const int p = e / nnp, n = e - p * nnp;
+    float4 v = make_float4(0.f, 0.f, 0.f, 1.f);
+    int j = q;
+    if (p < np && n < nn) {
+      const size_t s = (size_t)(pt0 + p) * nn + n;
+      const float x = gx[3 * s], y = gx[3 * s + 1], z = gx[3 * s + 2];
+      v = make_float4(x, y, z, 1.f - ((x * x + y * y) + z * z) * inv_sigma);
+      j = idx[s];
+    }
+    s_gx[e] = v;
+    s_idx[e] = j;
+  }
+
+  if constexpr (!kWOff) {
+    // dF [rows, (k, cc)] = dout [rows, D] . W[k, c0 + cc, D]^T, a piece of
+    // kKP kernel points (kBN columns) at a time over kSD-deep slices of d
+    const int slices = D / kSD, steps = kPieces * slices;
+    const bf16* dout = src;
+    auto load = [&](int s) {
+      const int piece = s / slices, d0 = (s - piece * slices) * kSD;
+      bf16* sa = ring + (size_t)(s % kStages) * (kBM + kBN) * kSD;
+      bf16* sb = sa + kBM * kSD;
+      for (int e = tid; e < (kBM + kBN) * kSD / 8; e += kThreads) {
+        const int r = e >> 2, c8 = (e & 3) * 8;
+        if (r < kBM) {
+          const bool ok = r < rows;
+          tc::cp16(tc::smem_addr(sa + tc::swz(r, c8, kSD / 8)),
+                   ok ? dout + (m0 + r) * D + d0 + c8 : dout, ok);
+        } else {
+          const int n = r - kBM, k = piece * kKP + n / kCC, cc = n % kCC;
+          tc::cp16(tc::smem_addr(sb + tc::swz(n, c8, kSD / 8)),
+                   W + ((size_t)k * C + c0 + cc) * D + d0 + c8, true);
+        }
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < steps) load(s);
+      tc::cp_commit();
+    }
+    const int wm = warp / kWN, wn = warp % kWN;
+    float acc[kMI][kNI][4];
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) acc[mi][ni][h] = 0.f;
+    for (int s = 0; s < steps; ++s) {
+      tc::cp_wait<kStages - 2>();
+      __syncthreads();
+      if (s + kStages - 1 < steps) load(s + kStages - 1);
+      tc::cp_commit();
+      const bf16* sa = ring + (size_t)(s % kStages) * (kBM + kBN) * kSD;
+      const bf16* sb = sa + kBM * kSD;
+      // a slice's two k16 steps into a fresh accumulator, added to the
+      // running sum by a rounding fp32 add (the mma's own accumulation
+      // truncates)
+      float f[kMI][kNI][4];
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+          for (int h = 0; h < 4; ++h) f[mi][ni][h] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kSD; kk += 16) {
+        uint32_t af[kMI][4], bf[kNI][2];
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi) {
+          tc::ldsm4(af[mi], tc::smem_addr(sa + tc::swz(
+                                wm * (kMI * 16) + mi * 16 + (lane & 15),
+                                kk + (lane >> 4) * 8, kSD / 8)));
+        }
+#pragma unroll
+        for (int nj = 0; nj < kNI / 2; ++nj) {
+          uint32_t r4[4];
+          tc::ldsm4(r4, tc::smem_addr(sb + tc::swz(
+                            wn * (kNI * 8) + nj * 16 + (lane & 7) +
+                                ((lane >> 4) << 3),
+                            kk + ((lane >> 3) & 1) * 8, kSD / 8)));
+          bf[2 * nj][0] = r4[0];
+          bf[2 * nj][1] = r4[1];
+          bf[2 * nj + 1][0] = r4[2];
+          bf[2 * nj + 1][1] = r4[3];
+        }
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < kNI; ++ni)
+            tc::mma(f[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+          for (int h = 0; h < 4; ++h) acc[mi][ni][h] += f[mi][ni][h];
+      if ((s + 1) % slices == 0) {
+        // the piece rounded to bf16 into the slab (the TPU kernel's dF
+        // slabs, _bwd_gather_w_kernel:1120)
+        const int piece = s / slices;
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = wm * (kMI * 16) + mi * 16 + g + 8 * h;
+              const int n = wn * (kNI * 8) + ni * 8 + 2 * t;
+              if (r < rows) {
+                *reinterpret_cast<uint32_t*>(
+                    slab + slab_off(r * NK + piece * kKP + n / kCC,
+                                    n % kCC)) =
+                    epn::pack2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+              }
+              acc[mi][ni][2 * h] = acc[mi][ni][2 * h + 1] = 0.f;
+            }
+      }
+    }
+    tc::cp_wait<0>();
+  } else {
+    tc::cp_wait<0>();
+  }
+  __syncthreads();
+
+  // the slot contraction, a (point, anchor) row at a time a warp: for each
+  // m16 tile of neighbor slots, G [16 slots, kCC] = w [16, 24 (k, padded
+  // to 32)] . dF [24, kCC] on mma.sync, the anchor weights computed into the
+  // A fragments (lane (g, t): slots g, g + 8; kernel points 2t, 2t + 1,
+  // 2t + 8, 2t + 9, 2t + 16, 2t + 17) and rounded there; each slot's sum
+  // rounded to bf16; lanes t, t ^ 1 trade halves so that each lane holds
+  // four consecutive channels of a slot, added into dT by one vector
+  // reduction (a slot's kCC channels of one anchor: 64 contiguous bytes)
+  const float s2 = 2.f * inv_sigma;
+  for (int it = warp; it < rows; it += kWarps) {
+    const int p = it / kNA, a = it - p * kNA, r0 = it * NK;
+    uint32_t b0[4], b1[2];
+    tc::ldsm4t(b0, tc::smem_addr(slab + slab_off(
+                       r0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                       (lane >> 4) * 8)));
+    tc::ldsm2t(b1, tc::smem_addr(slab + slab_off(r0 + 16 + (lane & 7),
+                                                 ((lane >> 3) & 1) * 8)));
+    float4 kr[6];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      const int kp = 2 * t + (j & 1) + 8 * (j >> 1);
+      const float* rp = rk + ((size_t)a * NK + kp) * 3;
+      kr[j] = make_float4(s2 * __ldg(rp), s2 * __ldg(rp + 1),
+                          s2 * __ldg(rp + 2), -__ldg(k2 + kp) * inv_sigma);
+    }
+    const int pt = pt0 + p;
+    float* dst = dT + ((size_t)(pt / p2) * q * kNA + a) * C + c0 +
+                 ((t & 1) ? 2 * t + 6 : 2 * t);
+    const float4* gp = s_gx + p * nnp;
+    const int* ip = s_idx + p * nnp;
+    for (int n0 = 0; n0 < nnp; n0 += 16) {
+      const float4 gq[2] = {gp[n0 + g], gp[n0 + g + 8]};
+      float w[2][6];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int j = 0; j < 6; ++j) w[u][j] = weight(gq[u], kr[j]);
+      const uint32_t a0[4] = {epn::pack2(w[0][0], w[0][1]),
+                              epn::pack2(w[1][0], w[1][1]),
+                              epn::pack2(w[0][2], w[0][3]),
+                              epn::pack2(w[1][2], w[1][3])};
+      const uint32_t a1[4] = {epn::pack2(w[0][4], w[0][5]),
+                              epn::pack2(w[1][4], w[1][5]), 0u, 0u};
+      float c[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int h = 0; h < 4; ++h) c[nt][h] = 0.f;
+        tc::mma(c[nt], a0, b0[2 * nt], b0[2 * nt + 1]);
+        tc::mma(c[nt], a1, b1[nt], 0u);
+#pragma unroll
+        for (int h = 0; h < 4; ++h) c[nt][h] = epn::round_to<bf16>(c[nt][h]);
+      }
+      // even t keeps n-tile 0 (channels 2t .. 2t + 3), odd t n-tile 1
+      // (channels 2t + 6 .. 2t + 9); each sends the other half
+      const bool odd = t & 1;
+      float x[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        x[h] = __shfl_xor_sync(0xffffffffu, odd ? c[0][h] : c[1][h], 1);
+      const float4 v[2] = {
+          odd ? make_float4(x[0], x[1], c[1][0], c[1][1])
+              : make_float4(c[0][0], c[0][1], x[0], x[1]),
+          odd ? make_float4(x[2], x[3], c[1][2], c[1][3])
+              : make_float4(c[0][2], c[0][3], x[2], x[3])};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = ip[n0 + g + 8 * u];
+        if (j < q) red4(dst + (size_t)j * kNA * C, v[u]);
+      }
+    }
+  }
+}
+
+template <bool kWOff>
+int launch(const void* gx, const void* idx, const void* rk, const void* k2,
+           const void* W, const void* src, void* dT, int b, int p2, int nn,
+           int q, int C, int D, float sigma, cudaStream_t stream) {
+  const int nnp = (nn + 15) / 16 * 16;
+  const Smem L = layout(kWOff, nnp);
+  auto kern = inter_bwd_mma_kernel<kWOff>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  const int P = b * p2;
+  dim3 grid((P + kNP - 1) / kNP, C / kCC);
+  kern<<<grid, kThreads, L.total, stream>>>(
+      (const float*)gx, (const int*)idx, (const float*)rk, (const float*)k2,
+      (const bf16*)W, (const bf16*)src, (float*)dT, P, p2, nn, q, C, D,
+      1.f / sigma);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mma
+
 }  // namespace
 
 // gx [b, p2, nn, 3], idx [b, p2, nn] int32 in [0, q] (q = shadow), rk
@@ -503,4 +858,37 @@ extern "C" int epn_inter_conv_bwd_w(const void* gx, const void* idx,
   return launch_dw_cols<float>(g, ix, table, r, kk, dout, (float*)ws,
                                (float*)dW, M, p2, nn, q, na, C, D, sigma,
                                splits, s);
+}
+
+// bf16 on tensor cores (inter_bwd_mma_kernel): the fused dTable, with
+// epn_inter_conv_bwd_table's arguments (bf16 W and dout), and the W-off dG,
+// with epn_inter_conv_dg's (a bf16 dF). dT [b, q, na, C] fp32 must hold
+// zeros. na must be 60, K 24, C a multiple of 16, 1 <= nn <= 64, and D (the
+// fused entry) a multiple of 32.
+extern "C" int epn_inter_conv_bwd_table_mma(const void* gx, const void* idx,
+                                            const void* rk, const void* k2,
+                                            const void* W, const void* dout,
+                                            void* dT, int b, int p2, int nn,
+                                            int q, int na, int K, int C,
+                                            int D, float sigma,
+                                            void* stream) {
+  if (na != mma::kNA || K != NK || C % mma::kCC != 0 || D % mma::kSD != 0 ||
+      D < mma::kSD || nn < 1 || nn > mma::kMaxNN) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return mma::launch<false>(gx, idx, rk, k2, W, dout, dT, b, p2, nn, q, C, D,
+                            sigma, (cudaStream_t)stream);
+}
+
+extern "C" int epn_inter_conv_dg_mma(const void* gx, const void* idx,
+                                     const void* rk, const void* k2,
+                                     const void* dF, void* dT, int b, int p2,
+                                     int nn, int q, int na, int K, int C,
+                                     float sigma, void* stream) {
+  if (na != mma::kNA || K != NK || C % mma::kCC != 0 || nn < 1 ||
+      nn > mma::kMaxNN) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return mma::launch<true>(gx, idx, rk, k2, nullptr, dF, dT, b, p2, nn, q, C,
+                           0, sigma, (cudaStream_t)stream);
 }

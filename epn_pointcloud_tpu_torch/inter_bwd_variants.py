@@ -1,0 +1,171 @@
+"""Where the bf16 tensor-core backward scatter (``inter_bwd_mma_kernel`` in
+csrc/inter_conv_bwd.cu: the fused dTable and the W-off dG) spends its
+time, on the card: the kernel as built beside variants with one part
+changed or taken out, at the shapes of both models' layers, with the same
+timer (``chip_smoke.time_ms``).
+
+  python -m epn_pointcloud_tpu_torch.inter_bwd_variants
+
+It imports ``chip_smoke`` from the repository root. Each variant is
+csrc/inter_conv_bwd.cu compiled alone (nvcc, sm_90a) under
+build/inter_bwd_variants/ with one text substitution (which fails loudly
+when the source no longer holds the text):
+  built          the source as it is (vector reductions, float4);
+  scalar_red     four scalar reductions in place of each vector one;
+  warps_8        8 warps a block (2 x 4 warps of 64 x 32 over a piece of
+                 the dF product) in place of 16 (4 x 4 of 32 x 32);
+  stages_4       a 4-stage ring of dout and W slices in place of 3;
+and, whose output is wrong and only whose time counts:
+  plain_stores   plain 16-byte stores in place of the reductions: the
+                 atomics' share over the traffic itself;
+  no_red         nothing written (the slot sums dropped): the scatter's
+                 whole share;
+  no_mma         the dF product issues no mma (its loads, barriers and
+                 epilogue still run; the fused entry only);
+  no_weights     the anchor weights not computed (a constant in the
+                 fragments).
+For built, scalar_red, warps_8 and stages_4 also the normwise error
+against the plain version (``inter_conv_dtable_plain`` /
+``inter_conv_dg_plain``, the same rounding points). Operands are random
+(seeded), the neighborhoods a ball query over random points in the unit
+ball, at the shapes of cls_so3net_pn's step (b=12: the fused dTable at its
+6 inter layers) and inv_so3net_pn's (b=16 a leg: the fused dTable at B1L1,
+B2L1, B3L1, the W-off dG at B0L1, B1L0, B2L0, B3L0). One JSON line a
+shape, a sum over each model's calls, all of them in
+chiprun_out/inter_bwd_variants.json. Needs a CUDA device and nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from .intra_conv_variants import _rel
+from .inter_conv_variants import _operands
+from .ops.kernels import build, inter_conv
+
+OUT = os.path.join(build.BUILD_DIR, 'inter_bwd_variants')
+ROOT = os.path.dirname(build.BUILD_DIR)
+_RED = 'atomicAdd(reinterpret_cast<float4*>(dst), v);'
+_MMA = 'tc::mma(f[mi][ni], af[mi], bf[ni][0], bf[ni][1]);'
+# variant -> (text in the source, its replacement), or None for the source
+VARIANTS = {
+    'built': None,
+    'scalar_red': (_RED, 'atomicAdd(dst, v.x); atomicAdd(dst + 1, v.y); '
+                   'atomicAdd(dst + 2, v.z); atomicAdd(dst + 3, v.w);'),
+    'plain_stores': (_RED, '*reinterpret_cast<float4*>(dst) = v;'),
+    'no_red': ('if (j < q) red4(', 'if (j < q && C < 0) red4('),
+    'no_mma': (_MMA, 'if (C < 0) ' + _MMA),
+    'no_weights': ('w[u][j] = weight(gq[u], kr[j]);', 'w[u][j] = 0.5f;'),
+    'warps_8': ('constexpr int kWarps = 16;', 'constexpr int kWarps = 8;'),
+    'stages_4': ('constexpr int kStages = 3;', 'constexpr int kStages = 4;'),
+}
+EXACT = ('built', 'scalar_red', 'warps_8', 'stages_4')
+ENTRIES = {'dtable': 'epn_inter_conv_bwd_table_mma',
+           'dg': 'epn_inter_conv_dg_mma'}
+# model -> (b, [(layer, entry, p1, p2, nn, c, d)])
+SHAPES = {
+    'cls_so3net_pn b=12': (12, [
+        ('L1', 'dtable', 512, 512, 16, 64, 64),
+        ('L2', 'dtable', 512, 256, 32, 64, 128),
+        ('L3', 'dtable', 256, 256, 16, 128, 128),
+        ('L4', 'dtable', 256, 128, 32, 128, 256),
+        ('L5', 'dtable', 128, 128, 16, 256, 256),
+        ('L6', 'dtable', 128, 64, 32, 256, 256)]),
+    'inv_so3net_pn b=16': (16, [
+        ('B0L1', 'dg', 512, 512, 32, 32, 32),
+        ('B1L0', 'dg', 512, 256, 64, 32, 64),
+        ('B1L1', 'dtable', 256, 256, 32, 64, 64),
+        ('B2L0', 'dg', 256, 128, 64, 64, 128),
+        ('B2L1', 'dtable', 128, 128, 32, 128, 128),
+        ('B3L0', 'dg', 128, 64, 64, 128, 128),
+        ('B3L1', 'dtable', 64, 64, 32, 128, 128)]),
+}
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit('inter_bwd_variants: needs a CUDA device')
+    sys.path.insert(0, ROOT)
+    from chip_smoke import time_ms
+    procs = {n: build.compile_alone(build.CSRC_DIR, 'inter_conv_bwd.cu',
+                                    os.path.join(OUT, n), sub)
+             for n, sub in VARIANTS.items()}
+    fns = {}
+    for n, (p, so) in procs.items():
+        log = p.communicate()[0]
+        if p.returncode != 0:
+            raise RuntimeError(f'nvcc failed on {n}:\n{log}')
+        lib = ctypes.CDLL(so)
+        fns[n] = {}
+        for key, entry in ENTRIES.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = build.SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+            fns[n][key] = fn
+    dev = torch.device('cuda')
+    card = torch.cuda.get_device_name(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    lines = []
+    for model, (b, layers) in SHAPES.items():
+        total = {}
+        for tag, entry, p1, p2, nn, c, d in layers:
+            gx, idx, _, rk, k2, W = _operands(dev, b, p1, p2, nn, c, d,
+                                              seed=nn + c + d)
+            rng = np.random.RandomState(p2 + c)
+            dT = torch.zeros(b, p1, 60, c, device=dev)
+            if entry == 'dtable':
+                src = torch.from_numpy(rng.randn(b, p2, 60, d).astype(
+                    np.float32)).to(dev, torch.bfloat16)
+                args = (gx.data_ptr(), idx.data_ptr(), rk.data_ptr(),
+                        k2.data_ptr(), W.data_ptr(), src.data_ptr(),
+                        dT.data_ptr(), b, p2, nn, p1, 60, 24, c, d, 0.08)
+                want = inter_conv.inter_conv_dtable_plain(
+                    gx, idx, p1, rk, k2, W, src, 0.08)
+            else:
+                src = torch.from_numpy(rng.randn(b, p2, 60, 24, c).astype(
+                    np.float32)).to(dev, torch.bfloat16)
+                args = (gx.data_ptr(), idx.data_ptr(), rk.data_ptr(),
+                        k2.data_ptr(), src.data_ptr(), dT.data_ptr(), b, p2,
+                        nn, p1, 60, 24, c, 0.08)
+                want = inter_conv.inter_conv_dg_plain(gx, idx, p1, rk, k2,
+                                                      src, 0.08)
+
+            def call(fn):
+                def run():
+                    err = fn(*args, stream)
+                    if err:
+                        raise RuntimeError(f'{ENTRIES[entry]}: CUDA error '
+                                           f'{err}')
+                return run
+            rec = {}
+            for n, fn in fns.items():
+                rec[n] = {'ms': time_ms(call(fn[entry]))}
+                if n in EXACT:
+                    dT.zero_()
+                    call(fn[entry])()
+                    torch.cuda.synchronize()
+                    rec[n]['rel'] = _rel(dT, want)
+                total[n] = total.get(n, 0.0) + rec[n]['ms']
+            lines.append({'model': model, 'layer': tag, 'entry': entry,
+                          'dims': [b, p1, p2, nn, c, d], 'variants': rec,
+                          'card': card})
+            print(json.dumps(lines[-1]), flush=True)
+            del gx, idx, W, src, dT, want
+            torch.cuda.empty_cache()
+        lines.append({'model': model, 'sum_over_layers': True, 'ms': total,
+                      'card': card})
+        print(json.dumps(lines[-1]), flush=True)
+    out_dir = os.path.join(ROOT, 'chiprun_out')
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, 'inter_bwd_variants.json'), 'w') as f:
+        json.dump(lines, f, indent=1)
+
+
+if __name__ == '__main__':
+    main()

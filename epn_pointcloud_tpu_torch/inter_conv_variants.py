@@ -8,9 +8,12 @@ layers, with the same timer (``chip_smoke.time_ms``).
 It imports ``chip_smoke`` from the repository root. Each variant is
 csrc/inter_conv.cu compiled alone (nvcc, sm_90a) under
 build/inter_conv_variants/ with one text substitution (which fails loudly
-when the source no longer holds the text); its output is wrong and only
-its time counts:
-  built          the source as it is;
+when the source no longer holds the text):
+  built          the source as it is (the W product sums each pair of k16
+                 steps in a fresh accumulator);
+  in_place       every mma of the W product accumulates into the running
+                 sum (the mma's truncating accumulation);
+and, whose output is wrong and only whose time counts:
   no_gather      the table rows are not read (the neighbor buffers are
                  zero-filled): the gathers' share;
   no_contract    phase 1 computes nothing (no anchor weights, no neighbor
@@ -21,11 +24,15 @@ its time counts:
                  shared memory): the W stream's share;
   same_w_row     every W slice reads the same W row: all blocks hit the
                  same L2 lines.
-Operands are random (seeded), the neighborhoods a ball query over random
-points in the unit ball, at the shapes the smoke run captures from the
-models: cls_so3net_pn at b=32 and inv_so3net_pn at b=16 (one leg). One
-JSON line a shape, a sum over each model's layers, all of them in
-chiprun_out/inter_conv_variants.json. Needs a CUDA device and nvcc.
+For built and in_place also the normwise error against
+``inter_conv_mma_plain`` (the plain version at the kernel's rounding
+points) and the share of outputs rounded toward zero less the share
+rounded away from it (``lean``). Operands are random (seeded), the
+neighborhoods a ball query over random points in the unit ball, at the
+shapes the smoke run captures from the models: cls_so3net_pn at b=32 and
+inv_so3net_pn at b=16 (one leg). One JSON line a shape, a sum over each
+model's layers, all of them in chiprun_out/inter_conv_variants.json. Needs
+a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -38,25 +45,28 @@ import sys
 import numpy as np
 import torch
 
+from .intra_conv_variants import _lean, _rel
 from .ops import icosahedron, kernel_points, so3conv
-from .ops.kernels import build
+from .ops.kernels import build, inter_conv
 
 OUT = os.path.join(build.BUILD_DIR, 'inter_conv_variants')
 ROOT = os.path.dirname(build.BUILD_DIR)
+_MMA = 'tc::mma(t[mi][ni], af[mi], bf[ni][0], bf[ni][1]);'
 # variant -> (text in the source, its replacement), or None for the source
 VARIANTS = {
     'built': None,
+    'in_place': (_MMA, 'tc::mma(acc[mi][ni], af[mi], bf[ni][0], '
+                 'bf[ni][1]);'),
     'no_gather': ('const bool ok = j < q;', 'const bool ok = false;'),
     'no_contract': ('contract(2 * i);', 'if (M < 0) contract(2 * i);'),
-    'no_w_product': (
-        'tc::mma(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);',
-        'if (M < 0) tc::mma(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);'),
+    'no_w_product': (_MMA, 'if (M < 0) ' + _MMA),
     'no_w_loads': ('tc::cp16(tc::smem_addr(dst + tc::swz(r, c8, BN / 8)),',
                    'if (M < 0) tc::cp16(tc::smem_addr(dst + tc::swz(r, c8, '
                    'BN / 8)),'),
     'same_w_row': ('W + ((size_t)k * C + c0 + cc) * D + n0 + c8, true);',
                    'W + n0 + c8, true);'),
 }
+EXACT = ('built', 'in_place')
 # model -> (b, [(layer, p1, p2, nn, c, d)])
 SHAPES = {
     'cls_so3net_pn b=32': (32, [
@@ -131,9 +141,17 @@ def main():
             rec = {n: time_ms(call(fn)) for n, fn in fns.items()}
             for n, ms in rec.items():
                 total[n] += ms
+            want = inter_conv.inter_conv_mma_plain(gx, idx, table, rk, k2, W,
+                                                   0.08)
+            err = {}
+            for n in EXACT:
+                call(fns[n])()
+                torch.cuda.synchronize()
+                err[n] = {'rel': _rel(out, want), 'lean': _lean(out, want)}
+            del want
             lines.append({'model': model, 'layer': tag,
                           'dims': [b, p1, p2, nn, c, d], 'ms': rec,
-                          'card': card})
+                          'vs_mma_plain': err, 'card': card})
             print(json.dumps(lines[-1]), flush=True)
             del gx, idx, table, W, out
             torch.cuda.empty_cache()

@@ -41,7 +41,11 @@ which puts ~3e-3 (normwise) between the kernels and the plain version. The
 W-off kernels keep the composed route's bf16 rounding points
 (``_fgcw_bwd:1685-1703``): the anchor weights, F and dF in the table's
 type, each neighbor slot's sum_k w dF rounded to bf16 before the fp32 fold
-onto the table rows, dW summed in fp32.
+onto the table rows, dW summed in fp32. The bf16 backward scatter (the
+fused dTable and the W-off dG) runs on tensor cores (``bwd_mma_route``;
+other shapes on the template) at the TPU kernels' rounding points, as its
+plain versions do: dF, the anchor weights and each slot's sum rounded to
+bf16, the fold onto the table rows in fp32.
 """
 
 from __future__ import annotations
@@ -66,10 +70,14 @@ ENTRIES = {
                       'epn_pointcloud_tpu/ops/pallas/inter_conv.py:559'),
 }
 launches = dict.fromkeys(ENTRIES, 0)
-# the forward's launches by kernel: 'mma', the bf16 tensor-core kernel
+# launches by kernel: the forward's 'mma', the bf16 tensor-core kernel
 # (``inter_conv_mma_kernel``), or 'sgemm', the register-blocked SGEMM
-# template (fp32, and bf16 shapes off the tensor-core route)
-routes = dict.fromkeys(('mma', 'sgemm'), 0)
+# template (fp32, and bf16 shapes off ``mma_route``); the backward
+# scatter's 'dtable_mma' and 'dg_mma', the bf16 tensor-core kernel
+# (``inter_bwd_mma_kernel``), or 'dtable' and 'dg', the template
+# (``inter_dtable_kernel``: fp32, and bf16 shapes off ``bwd_mma_route``)
+routes = dict.fromkeys(('mma', 'sgemm', 'dtable_mma', 'dtable', 'dg_mma',
+                        'dg'), 0)
 
 # anchors per step of the plain versions: bounds their [b, p, n, chunk, *]
 # intermediates (~1 GB at b=32 on the widest flagship layer)
@@ -82,6 +90,9 @@ MMA_MAX_NN, MMA_MIN_NA = 64, 4
 # the W-off kernels' envelope (the inv model's composed layers): channels
 # and neighbors up to, and the anchors of the icosahedral group
 WOFF_MAX_C, WOFF_MAX_NN, WOFF_NA = 128, 64, 60
+# the bf16 tensor-core backward scatter's envelope (``bwd_mma_route``): the
+# anchors, a multiple of the channels, neighbors up to, a multiple of d
+BWD_MMA_NA, BWD_MMA_CC, BWD_MMA_MAX_NN, BWD_MMA_SD = 60, 16, 64, 32
 
 
 def anchor_weights(gx: torch.Tensor, rk: torch.Tensor, k2: torch.Tensor,
@@ -128,11 +139,13 @@ def _round_bf16(t: torch.Tensor) -> torch.Tensor:
 
 def _scatter_rows(gx: torch.Tensor, idx: torch.Tensor, q: int,
                   rk: torch.Tensor, k2: torch.Tensor, dF_chunk, c: int,
-                  sigma: float, slot_dtype=None) -> torch.Tensor:
+                  sigma: float, rounded: bool = False) -> torch.Tensor:
     """dT [b, q, na, c] fp32: each neighbor slot's sum_k w dF scattered onto
-    its table row (the shadow row dropped); dF_chunk(s, e) gives dF
-    [b, p2, e - s, K, c] of anchors [s, e). slot_dtype bf16: each slot's sum
-    rounded to bf16 before it is added."""
+    its table row (the shadow row dropped) in fp32; dF_chunk(s, e) gives dF
+    [b, p2, e - s, K, c] of anchors [s, e). rounded: the anchor weights
+    rounded to bf16 before the sum and each slot's sum after it, as the TPU
+    kernels round them in bf16 (``_bwd_gather_w_kernel:1133, 1158``,
+    ``_bwd_kernel:573, 580-581``; values kept in fp32)."""
     b, p2, nn = idx.shape
     na = rk.shape[0]
     # flat row of (b, idx) in the shadow-padded [b * (q + 1)] table
@@ -142,9 +155,11 @@ def _scatter_rows(gx: torch.Tensor, idx: torch.Tensor, q: int,
     for s in range(0, na, ANCHOR_CHUNK):
         e = min(s + ANCHOR_CHUNK, na)
         w = anchor_weights(gx, rk[s:e], k2, sigma)          # [b,p,n,ac,K]
+        if rounded:
+            w = _round_bf16(w)
         g = torch.einsum('bpnak,bpakc->bpnac', w, dF_chunk(s, e))
-        if slot_dtype == torch.bfloat16:
-            g = g.to(slot_dtype).to(dT.dtype)
+        if rounded:
+            g = _round_bf16(g)
         dT[:, s:e] = dT[:, s:e].index_add(0, rows, g.reshape(-1, e - s, c))
     return dT.reshape(b, q + 1, na, c)[:, :q]
 
@@ -191,12 +206,18 @@ def inter_conv_dtable_plain(gx: torch.Tensor, idx: torch.Tensor, q: int,
                             W: torch.Tensor, dout: torch.Tensor,
                             sigma: float) -> torch.Tensor:
     """dT [b, q, na, c] fp32 from dout [b, p2, na, d]: each neighbor slot's
-    sum_k w dF scattered onto its table row (the shadow row dropped)."""
+    sum_k w dF scattered onto its table row (the shadow row dropped). From
+    bf16 operands, at the TPU kernel's rounding points
+    (``_bwd_gather_w_kernel``): dF = dout W^T summed in fp32 and rounded to
+    bf16 (:1120), the anchor weights (:1133) and each slot's sum (:1158)
+    rounded to bf16, the fold onto the table rows in fp32 (:1166)."""
+    rounded = dout.dtype == torch.bfloat16
     dout, W = build.widen(dout), build.widen(W)
-    return _scatter_rows(
-        gx, idx, q, rk, k2,
-        lambda s, e: torch.einsum('bpad,kcd->bpakc', dout[:, :, s:e], W),
-        W.shape[1], sigma)
+
+    def dF(s, e):
+        f = torch.einsum('bpad,kcd->bpakc', dout[:, :, s:e], W)
+        return _round_bf16(f) if rounded else f
+    return _scatter_rows(gx, idx, q, rk, k2, dF, W.shape[1], sigma, rounded)
 
 
 def inter_conv_dw_plain(gx: torch.Tensor, idx: torch.Tensor,
@@ -228,11 +249,12 @@ def inter_conv_dg_plain(gx: torch.Tensor, idx: torch.Tensor, q: int,
                         sigma: float) -> torch.Tensor:
     """W-off backward: dT [b, q, na, c] fp32 from dF [b, p2, na, K, c], the
     index_add of sum_k w dF over the shadow-padded rows in fp32; from a bf16
-    dF (widened) each slot's sum is rounded to bf16 first, as the TPU kernel
-    stores dG in dF's dtype before its fp32 fold."""
+    dF (widened) the anchor weights and each slot's sum are rounded to bf16
+    first, as the TPU kernel rounds the weights (``_bwd_kernel:573``) and
+    stores dG in dF's dtype (:580-581) before its fp32 fold."""
     return _scatter_rows(gx, idx, q, rk, k2,
                          lambda s, e: build.widen(dF[:, :, s:e]),
-                         dF.shape[-1], sigma, slot_dtype=dF.dtype)
+                         dF.shape[-1], sigma, dF.dtype == torch.bfloat16)
 
 
 def _check(kernel, gx, idx, table_shape, rk, k2, W_shape, dout=None,
@@ -275,6 +297,18 @@ def mma_route(dtype, K: int, c: int, d: int, nn: int, na: int) -> bool:
             and d % 32 == 0 and nn <= MMA_MAX_NN and na >= MMA_MIN_NA)
 
 
+def bwd_mma_route(dtype, K: int, c: int, nn: int, na: int,
+                  d: int | None = None) -> bool:
+    """Whether the backward scatter, the fused dTable (``d`` given) or the
+    W-off dG, runs the bf16 tensor-core kernel (``inter_bwd_mma_kernel``):
+    a bf16 dout or dF and K == 24, na == 60, c % 16 == 0, 1 <= nn <= 64 and
+    d % 32 == 0 (every layer of both models). fp32 and the other shapes the
+    wrappers take run the template (``inter_dtable_kernel``)."""
+    return (dtype == torch.bfloat16 and K == N_KERNEL and na == BWD_MMA_NA
+            and c % BWD_MMA_CC == 0 and 1 <= nn <= BWD_MMA_MAX_NN
+            and (d is None or d % BWD_MMA_SD == 0))
+
+
 def inter_conv(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
                rk: torch.Tensor, k2: torch.Tensor, W: torch.Tensor,
                sigma: float) -> torch.Tensor:
@@ -305,8 +339,9 @@ def inter_conv_dtable(gx: torch.Tensor, idx: torch.Tensor, q: int,
                       rk: torch.Tensor, k2: torch.Tensor, W: torch.Tensor,
                       dout: torch.Tensor, sigma: float) -> torch.Tensor:
     """dTable kernel wrapper -> fp32 dT: plain version on the CPU, CUDA
-    kernel on the card. Its atomics make dT's last-bit rounding vary between
-    runs."""
+    kernel on the card: the tensor-core kernel where ``bwd_mma_route`` holds
+    (bf16), else the template. Their atomics make dT's last-bit rounding
+    vary between runs."""
     if dout.device.type == 'cpu':
         return inter_conv_dtable_plain(gx, idx, q, rk, k2, W, dout, sigma)
     shape = (idx.shape[0], q, rk.shape[0], W.shape[1])
@@ -318,11 +353,18 @@ def inter_conv_dtable(gx: torch.Tensor, idx: torch.Tensor, q: int,
         raise ValueError(f'inter_conv_dtable: kernel needs K == {N_KERNEL}; '
                          f'got K={K}')
     dT = torch.zeros(shape, dtype=torch.float32, device=dout.device)
+    ptrs = (gx.data_ptr(), idx.data_ptr(), rk.data_ptr(), k2.data_ptr(),
+            W.data_ptr(), dout.data_ptr(), dT.data_ptr(), b, p2, nn, q, na,
+            K, c, d, float(sigma))
     launches['inter_conv_dtable'] += 1
-    build.launch('epn_inter_conv_bwd_table', gx.data_ptr(), idx.data_ptr(),
-                 rk.data_ptr(), k2.data_ptr(), W.data_ptr(), dout.data_ptr(),
-                 dT.data_ptr(), b, p2, nn, q, na, K, c, d, float(sigma),
-                 bf16, build.stream(dout))
+    if bwd_mma_route(dout.dtype, K, c, nn, na, d):
+        routes['dtable_mma'] += 1
+        build.launch('epn_inter_conv_bwd_table_mma', *ptrs,
+                     build.stream(dout))
+    else:
+        routes['dtable'] += 1
+        build.launch('epn_inter_conv_bwd_table', *ptrs, bf16,
+                     build.stream(dout))
     return dT
 
 
@@ -409,8 +451,9 @@ def inter_conv_dg(gx: torch.Tensor, idx: torch.Tensor, q: int,
                   sigma: float) -> torch.Tensor:
     """W-off backward wrapper -> fp32 dT [b, q, na, c] from dF
     [b, p2, na, K, c] (fp32 or bf16): plain version on the CPU, CUDA kernel
-    on the card. Its atomics make dT's last-bit rounding vary between
-    runs."""
+    on the card: the tensor-core kernel where ``bwd_mma_route`` holds
+    (bf16), else the template. Their atomics make dT's last-bit rounding
+    vary between runs."""
     if dF.device.type == 'cpu':
         return inter_conv_dg_plain(gx, idx, q, rk, k2, dF, sigma)
     bf16 = build.dtype_flag(dF.dtype, 'inter_conv_dg')
@@ -418,11 +461,16 @@ def inter_conv_dg(gx: torch.Tensor, idx: torch.Tensor, q: int,
     b, p2, nn, q, na, K, c = _check_woff('inter_conv_dg', gx, idx, shape, rk,
                                          k2, dF.dtype, F=dF)
     dT = torch.zeros(shape, dtype=torch.float32, device=dF.device)
+    ptrs = (gx.data_ptr(), idx.data_ptr(), rk.data_ptr(), k2.data_ptr(),
+            dF.data_ptr(), dT.data_ptr(), b, p2, nn, q, na, K, c,
+            float(sigma))
     launches['inter_conv_dg'] += 1
-    build.launch('epn_inter_conv_dg', gx.data_ptr(), idx.data_ptr(),
-                 rk.data_ptr(), k2.data_ptr(), dF.data_ptr(), dT.data_ptr(),
-                 b, p2, nn, q, na, K, c, float(sigma), bf16,
-                 build.stream(dF))
+    if bwd_mma_route(dF.dtype, K, c, nn, na):
+        routes['dg_mma'] += 1
+        build.launch('epn_inter_conv_dg_mma', *ptrs, build.stream(dF))
+    else:
+        routes['dg'] += 1
+        build.launch('epn_inter_conv_dg', *ptrs, bf16, build.stream(dF))
     return dT
 
 

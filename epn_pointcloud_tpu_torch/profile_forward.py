@@ -43,9 +43,12 @@ from .train import make_optimizer
 
 # kernel-name substrings (all of them) -> group (first match wins); the
 # W-off modes are the inter kernels' instantiations with kWOff = true, B6
-# df the tensor-core intra kernel's with DF = true (its last argument)
+# df the tensor-core intra kernel's with DF = true (its last argument); the
+# backward scatter's template and tensor-core kernel share a group
 GROUPS = ((('inter_conv_kernel', 'true>'), 'inter F (W-off) kernel'),
           (('inter_dtable_kernel', 'true>'), 'inter dG (W-off) kernel'),
+          (('inter_bwd_mma_kernel', 'true>'), 'inter dG (W-off) kernel'),
+          ('inter_bwd_mma_kernel', 'inter dTable kernel'),
           ('inter_conv_mma_kernel', 'inter conv kernel (bf16, tensor cores)'),
           ('inter_conv_kernel', 'inter conv kernel'),
           ('inter_dtable_kernel', 'inter dTable kernel'),

@@ -91,9 +91,11 @@ def test_intra_conv_prenorm_backward_matches_pallas_vjp(dtype, sb):
     mode (_bwd_kernel_prenorm), on the small balanced adjacency of
     tests/test_pallas_intra_conv.py. A fold of batch 1 is broadcast to the
     JAX kernel's [b, 8, L], so its gradient sums over the clouds. fp32:
-    normwise 1e-5 (summation order only); bf16: normwise 1e-2 (the JAX
-    kernel rounds dW to the weight's bf16, the port keeps it fp32 until
-    autograd's cast; df and dz one rounding apart)."""
+    normwise 1e-5 (summation order only); bf16: normwise 1e-4 (df and dW
+    equal bit for bit, dss 6.6e-8 measured): the JAX kernel sums dW in
+    fp32 and rounds it once to the weight's bf16, and autograd's cast of
+    the port's fp32 dW to the bf16 W it was given rounds it at the same
+    point."""
     rng = np.random.RandomState(20 + sb)
     na, nk, b, p, c, d = 8, 3, 2, 8, 16, 32
     ti = np.stack([(np.arange(na) + k) % na for k in range(nk)], axis=1)
@@ -125,7 +127,7 @@ def test_intra_conv_prenorm_backward_matches_pallas_vjp(dtype, sb):
     out.backward(_t(dout, tdt).reshape(b, p, na, d))
     assert tf.grad.dtype == tdt and tss.grad.dtype == torch.float32
     assert tss.grad.shape == (sb, 2, na * c)
-    tol = 1e-5 if dtype == 'fp32' else 1e-2
+    tol = 1e-5 if dtype == 'fp32' else 1e-4
     assert _normwise(tf.grad, jdf) <= tol
     assert _normwise(tss.grad, np.asarray(jdss)[:, :2]) <= tol
     assert _normwise(tW.grad, jdw) <= tol
@@ -165,14 +167,29 @@ def test_grouped_conv_backward_matches_pallas_vjp(dtype, c, d):
 
 
 def test_inter_conv_bf16_backward_matches_pallas_vjp():
-    """dTable and dW of InterConvFn in bf16 (fp32 sums, dT rounded to the
-    table's bf16 after them) against jax.vjp of fused_gather_conv_w in bf16
-    in interpret mode, on the tp=8 one-kernel route of
+    """dTable and dW of InterConvFn in bf16 (dT rounded to the table's bf16
+    after its fp32 fold) against jax.vjp of fused_gather_conv_w in bf16 in
+    interpret mode, on the tp=8 one-kernel route of
     tests/test_torch_port_train.py, a third of the neighbor slots shadow.
-    The TPU kernel rounds F and dF to bf16 before its products and the port
-    does not: normwise 1e-2."""
-    rng = np.random.RandomState(16)
-    B, N, P, AC, C, D, Q, K, sigma = 2, 16, 16, 4, 64, 32, 61, 24, 0.1
+    dT: normwise 5e-4 (8.3e-5 measured): the plain dTable rounds dF, the
+    anchor weights and each slot's sum to bf16 where _bwd_gather_w_kernel
+    does, so only fp32 summation order flips a rounding (3.6e-3 while it
+    rounded none). dW: 1e-2, the fused dW keeps F in fp32 where the TPU
+    kernel rounds it (3.2e-3 measured)."""
+    _fused_bf16_backward_case(16, 64, 32, seed=16, tp_want=8)
+
+
+def test_inter_conv_bf16_split_backward_matches_pallas_vjp():
+    """The same on the split route (_call_gather_w_bwd_split ->
+    _bwd_kernel_dtab / _bwd_kernel_dw2: nn = 32, tp = 4), whose dF, anchor
+    weights and slot sums round where the one-kernel route's do: dT
+    normwise 5e-4 (5.6e-6 measured), dW 1e-2 (3.1e-3)."""
+    _fused_bf16_backward_case(32, 64, 64, seed=32, tp_want=4)
+
+
+def _fused_bf16_backward_case(N, C, D, seed, tp_want):
+    rng = np.random.RandomState(seed)
+    B, P, AC, Q, K, sigma = 2, 16, 4, 61, 24, 0.1
     gx = (0.3 * rng.randn(B, P, N, 3)).astype(np.float32)
     tab = rng.randn(B, Q, AC * C).astype(np.float32)
     idx = rng.randint(0, Q, size=(B, P, N)).astype(np.int32)
@@ -184,7 +201,7 @@ def test_inter_conv_bf16_backward_matches_pallas_vjp():
     rk = jnp.einsum('aij,kj->aki', jnp.asarray(anch), jnp.asarray(ker))
     k2 = jnp.sum(jnp.asarray(ker) ** 2, -1)
     nt, tp, kt, _ = jic.plan(N, K)
-    assert tp == 8
+    assert tp == tp_want and not tkern.inter_conv.composed_backward(C, N)
     qp = -(-Q // 8) * 8
     tabp = jnp.pad(jnp.asarray(tab, jnp.bfloat16), ((0, 0), (0, qp - Q),
                                                     (0, 0)))
@@ -205,7 +222,7 @@ def test_inter_conv_bf16_backward_matches_pallas_vjp():
     out.backward(_t(dout, torch.bfloat16).reshape(B, P, AC, D))
     assert t_tab.grad.dtype == t_W.grad.dtype == torch.bfloat16
     assert _normwise(t_tab.grad.reshape(B, Q, AC * C),
-                     np.asarray(jdt, np.float32)[:, :Q]) <= 1e-2
+                     np.asarray(jdt, np.float32)[:, :Q]) <= 5e-4
     assert _normwise(t_W.grad.reshape(K * C, D), jdw) <= 1e-2
 
 

@@ -8,7 +8,9 @@ the production-mode backward kernels (the prenorm intra df / dss / dW,
 the grouped conv's dx / dW / dbias in one launch and apart, the bf16
 inter dTable / dW), their determinism
 and a bf16 train step's launches; the W-off inter conv (fp32 and bf16)
-with the composed route, and a bf16 inv train step's launches.
+with the composed route, and a bf16 inv train step's launches; the bf16
+inter backward scatter on tensor cores (the fused dTable and the W-off dG)
+at every model layer and at its edges, and the template off its envelope.
 
 Run on a machine with the card:
   python -m pytest tests/test_torch_port_gpu.py -q -m gpu --noconftest
@@ -638,6 +640,109 @@ def test_inter_conv_bwd_kernels_bf16_match_plain(cuda, b, p1, stride, nn, c,
                                                0.08)) <= 1e-3
     assert _rel(dW, ic.inter_conv_dw_plain(gx, idx, f, rk, k2, dout,
                                            0.08)) <= 1e-3
+
+
+# (entry, b, p1, stride, nn, c, d): every bf16 backward scatter layer of
+# both models at b=2: the fused dTable at cls L1-L6 and inv B1L1, B2L1,
+# B3L1, the W-off dG at inv B0L1, B1L0, B2L0, B3L0
+SCATTER_LAYERS = [('dtable', 2, 512, 1, 16, 64, 64),
+                  ('dtable', 2, 512, 2, 32, 64, 128),
+                  ('dtable', 2, 256, 1, 16, 128, 128),
+                  ('dtable', 2, 256, 2, 32, 128, 256),
+                  ('dtable', 2, 128, 1, 16, 256, 256),
+                  ('dtable', 2, 128, 2, 32, 256, 256),
+                  ('dtable', 2, 256, 1, 32, 64, 64),
+                  ('dtable', 2, 128, 1, 32, 128, 128),
+                  ('dtable', 2, 64, 1, 32, 128, 128),
+                  ('dg', 2, 512, 1, 32, 32, 32), ('dg', 2, 512, 2, 64, 32, 64),
+                  ('dg', 2, 256, 2, 64, 64, 128),
+                  ('dg', 2, 128, 2, 64, 128, 128)]
+
+
+def _scatter_case(cuda, entry, b, p1, stride, nn, c, d, shadow=False,
+                  seed=0):
+    """(route taken, the kernel's dT, a second call's dT, the plain
+    version's dT) of one bf16 backward scatter call; shadow: every third
+    neighbor slot holds the shadow index."""
+    gx, idx, _, rk, k2, W, dout = _inter_operands(cuda, b, p1, stride, nn, c,
+                                                  d, seed=seed)
+    if shadow:
+        idx[:, :, ::3] = p1
+    ic = tkern.inter_conv
+    W, dout = W.to(BF16), dout.to(BF16)
+    if entry == 'dtable':
+        args = (gx, idx, p1, rk, k2, W, dout, 0.08)
+    else:
+        dF = _rand(np.random.RandomState(seed + 1),
+                   (b, idx.shape[1], 60, 24, c), cuda, BF16)
+        args = (gx, idx, p1, rk, k2, dF, 0.08)
+    before = dict(ic.routes)
+    got = getattr(ic, f'inter_conv_{entry}')(*args)
+    again = getattr(ic, f'inter_conv_{entry}')(*args)
+    torch.cuda.synchronize()
+    route = [k for k in ic.routes if ic.routes[k] > before[k]]
+    return route, got, again, getattr(ic, f'inter_conv_{entry}_plain')(*args)
+
+
+@pytest.mark.parametrize('entry,b,p1,stride,nn,c,d', SCATTER_LAYERS)
+def test_inter_bwd_mma_kernel_matches_plain(cuda, entry, b, p1, stride, nn,
+                                            c, d):
+    """The tensor-core backward scatter at every model layer shape, both
+    entries, a third of the slots shadow: taken by the wrapper, its fp32 dT
+    within 1e-3 (normwise) of the plain version at the same rounding points
+    (dF, the weights and each slot's sum in bf16), on both calls. Not
+    equal: the atomics add in an order that changes from run to run, and
+    the fp32 sums of dF and of a slot, taken in another order than the
+    plain version's, flip a few bf16 roundings."""
+    route, got, again, want = _scatter_case(cuda, entry, b, p1, stride, nn,
+                                            c, d, shadow=True, seed=nn + c)
+    assert route == [f'{entry}_mma']
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 1e-3
+    assert _rel(again, want) <= 1e-3
+
+
+@pytest.mark.parametrize('entry,b,p1,stride,nn,c,d', [
+    ('dtable', 3, 40, 1, 8, 16, 32), ('dtable', 1, 30, 2, 20, 48, 96),
+    ('dtable', 2, 33, 1, 40, 32, 64), ('dg', 3, 40, 1, 20, 16, 32),
+    ('dg', 1, 45, 3, 8, 48, 32), ('dg', 2, 64, 2, 40, 32, 32)])
+def test_inter_bwd_mma_kernel_edges(cuda, entry, b, p1, stride, nn, c, d):
+    """The tensor-core scatter's edges: nn padded to whole m16 tiles of
+    slots (8, 20, 40), an odd number of points (a block's second point
+    absent), 16 and 48 channels, d = 32 and 96, shadow slots: within 1e-3
+    of the plain version."""
+    route, got, again, want = _scatter_case(cuda, entry, b, p1, stride, nn,
+                                            c, d, shadow=True, seed=p1 + nn)
+    assert route == [f'{entry}_mma']
+    assert _rel(got, want) <= 1e-3 and _rel(again, want) <= 1e-3
+
+
+@pytest.mark.parametrize('entry,dtype,c,d', [
+    ('dtable', torch.float32, 64, 64), ('dtable', BF16, 40, 64),
+    ('dg', torch.float32, 32, 32), ('dg', BF16, 40, 32)])
+def test_inter_bwd_off_envelope_takes_the_template(cuda, entry, dtype, c, d):
+    """fp32, and bf16 channels that are not a multiple of 16, run the
+    template (``inter_dtable_kernel``) as before: 1e-5 of the plain version
+    in fp32; in bf16 4e-3, the bound the bf16 forward's SGEMM keeps against
+    a plain version with other rounding points (the template rounds each
+    slot's sum of the W-off dG only, the plain version dF, the anchor
+    weights and every slot's sum too)."""
+    gx, idx, _, rk, k2, W, dout = _inter_operands(cuda, 2, 64, 1, 16, c, d)
+    ic = tkern.inter_conv
+    W, dout = W.to(dtype), dout.to(dtype)
+    if entry == 'dtable':
+        args = (gx, idx, 64, rk, k2, W, dout, 0.08)
+    else:
+        args = (gx, idx, 64, rk, k2,
+                _rand(np.random.RandomState(c), (2, 64, 60, 24, c), cuda,
+                      dtype), 0.08)
+    before = dict(ic.routes)
+    got = getattr(ic, f'inter_conv_{entry}')(*args)
+    torch.cuda.synchronize()
+    assert [k for k in ic.routes if ic.routes[k] > before[k]] == [entry]
+    assert _rel(got, getattr(ic, f'inter_conv_{entry}_plain')(*args)) <= \
+        (1e-5 if dtype == torch.float32 else 4e-3)
 
 
 @pytest.mark.parametrize('sb', [1, 12])

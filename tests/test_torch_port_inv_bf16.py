@@ -145,10 +145,13 @@ def test_inter_conv_f_plain_bf16_matches_pallas_forms(N, C, Q):
 
 @pytest.mark.parametrize('N,C,Q', WOFF_SHAPES)
 def test_inter_conv_dg_plain_bf16_matches_pallas_vjp(N, C, Q):
-    """dT of inter_conv_dg_plain from a bf16 dF (each slot's sum rounded to
-    bf16, the fold in fp32) against the VJP of both TPU forms in bf16 in
-    interpret mode: _bwd_kernel's bf16 dG, and for the table form its fp32
-    one-hot fold rounded to bf16: normwise <= 8e-3."""
+    """dT of inter_conv_dg_plain from a bf16 dF (the anchor weights and
+    each slot's sum rounded to bf16, the fold in fp32) against the VJP of
+    both TPU forms in bf16 in interpret mode: _bwd_kernel's bf16 dG, and
+    for the table form its fp32 one-hot fold rounded to bf16, against dT
+    rounded to bf16 as InterConvFn rounds it: normwise <= 1e-4 (0.0
+    measured, bit for bit, at these shapes; ~3e-3 while the weights were
+    not rounded and dT was compared before its rounding)."""
     B, P, AC = 2, 4, 3
     j, t, sigma, _ = _woff_operands(B, P, N, AC, C, Q, seed=N + C + 1)
     ct = np.random.RandomState(C).randn(B, AC, P, K_POINTS, C).astype(
@@ -171,8 +174,8 @@ def test_inter_conv_dg_plain_bf16_matches_pallas_vjp(N, C, Q):
     assert tdT.dtype == tdG.dtype == torch.float32
     # each pre-gathered row takes one slot: its dT is that slot's bf16 sum
     assert torch.equal(tdG, tdG.to(BF16).float())
-    assert _normwise(tdT.reshape(jdT.shape), jdT) <= 8e-3
-    assert _normwise(tdG.reshape(jdG.shape), jdG) <= 8e-3
+    assert _normwise(tdT.to(BF16).reshape(jdT.shape), jdT) <= 1e-4
+    assert _normwise(tdG.reshape(jdG.shape), jdG) <= 1e-4
 
 
 @pytest.mark.parametrize('N,C,D', [(16, 32, 32), (64, 64, 64)])
