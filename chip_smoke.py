@@ -6,17 +6,18 @@
 from ``git archive <commit> epn_pointcloud_tpu_torch/csrc | tar -x -C D``);
 its inter_conv.cu, inter_conv_bwd.cu and intra_conv.cu are each built alone
 beside the kernels, and its epn_inter_conv_mma, epn_intra_conv,
-epn_intra_conv_prenorm_df, epn_inter_conv_bwd_table and epn_inter_conv_dg
-are timed beside this tree's bf16 W-fused inter forward, prenorm intra
-forward, B6 df, fused dTable and W-off dG at every call of phases 4, 9 and
-16, on the same inputs, in turns (parent, new, new, parent).
+epn_intra_conv_prenorm_df, epn_inter_conv_bwd_table, epn_inter_conv_dg
+and epn_inter_conv_bwd_w (bf16) are timed beside this tree's bf16 W-fused
+inter forward, prenorm intra forward, B6 df, fused dTable, W-off dG and
+fused dW at every call of phases 4, 9 and 16, on the same inputs, in turns
+(parent, new, new, parent).
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from csrc/ (one nvcc a source, in parallel,
      sm_90a), and count the tensor-core instructions (HMMA, GMMA) in the
      SASS of the bf16 tensor-core kernels (the grouped conv forward and
      backward, the W-fused inter forward, the intra forward and B6 df, the
-     inter backward scatter; cuobjdump): none fails;
+     inter backward scatter, the fused inter dW; cuobjdump): none fails;
   2. at every flagship layer shape of cls_so3net_pn (b=32, 1024 points, 60
      anchors), compare each kernel with its plain PyTorch version on the
      card, on the inputs the model itself gives it (captured from a b=32
@@ -50,8 +51,8 @@ Phases (any failure exits non-zero and prints no result line):
      per batch, and every inter forward, intra forward and B6 df must have
      run the kernel of its dtype (the tensor-core kernels in bf16, the
      SGEMMs in fp32; so in phases 8, 11, 15, 19, there with every fused
-     dTable and W-off dG too: the tensor-core scatter in bf16, the
-     template in fp32);
+     dTable, W-off dG and fused dW too: the tensor-core scatter and dW in
+     bf16, the templates in fp32);
   6. capture each backward kernel call of one train-mode step of the seeded
      full-width model on a synthetic b=12 batch (inter dTable and dW at 6
      layers, intra df and dW at 7) and compare each with its plain version
@@ -82,7 +83,13 @@ Phases (any failure exits non-zero and prints no result line):
      the plain version at the TPU kernel's rounding points (dF, the anchor
      weights and each slot's sum in bf16), timed beside one
      torch.mm(dout2, W2^T) (the dF product it fuses) and the composition it
-     replaces (that torch.mm, then the tensor-core dG);
+     replaces (that torch.mm, then the tensor-core dG); every inter dW on
+     the tensor-core kernel, its fp32 dW within 1e-3 of the plain version
+     at the TPU kernel's rounding points (the anchor weights and F in
+     bf16) and bitwise equal on a second call, timed beside one
+     torch.mm(F^T, dout); the fp32 step's dTable and intra df (phase 6)
+     beside one torch.mm of their products (dout2 W2^T; the gathered
+     dout by W^T);
  10. [bf16-train] one bf16 train step (b=12) on the kernel path and on the
      plain path from the same weights: loss to rtol 1e-3, every parameter
      with a gradient on both paths, per-leaf gradient cosine >= 0.9 and its
@@ -126,7 +133,8 @@ Phases (any failure exits non-zero and prints no result line):
      9 (the bf16 inter_conv_f / inter_conv_dg, the
      prenorm intra conv with a fold a patch and its backward, moments, the
      grouped conv and its backward, the fused inter backward, every
-     dTable and dG on the tensor-core scatter as in phase 9; torch.addmm
+     dTable and dG on the tensor-core scatter and every dW on the
+     tensor-core kernel as in phase 9; torch.addmm
      and torch.mm beside the grouped conv's); the
      composed route's dW product against its float64 product (<= 1e-3);
  17. [inv-bf16-train] one bf16 inv step on the kernel and the plain path
@@ -367,10 +375,11 @@ def phase_build():
 
 # the bf16 kernels that run on tensor cores: the grouped conv forward and
 # backward, the W-fused inter conv forward, the intra conv forward and B6 df,
-# the inter backward scatter (the fused dTable and the W-off dG)
+# the inter backward scatter (the fused dTable and the W-off dG), the fused
+# inter dW
 TC_KERNELS = ('grouped_conv_mma_kernel', 'grouped_bwd_mma_kernel',
               'inter_conv_mma_kernel', 'intra_conv_mma_kernel',
-              'inter_bwd_mma_kernel')
+              'inter_bwd_mma_kernel', 'inter_dw_mma_kernel')
 
 
 def tensor_core_sass(so):
@@ -611,19 +620,19 @@ def phase_forward_time(model, device, reps=5, dtype='fp32'):
 def route_counts():
     """The inter and intra wrappers' launches by kernel ('mma': the bf16
     tensor-core kernel, 'sgemm': the SGEMM): the W-fused inter forward's
-    (with the backward scatter's: 'dtable_mma' / 'dg_mma', the bf16
-    tensor-core kernel, or 'dtable' / 'dg', the template), and the intra
-    forward's with B6 df's."""
+    (with the backward scatter's and the fused dW's: 'dtable_mma' /
+    'dg_mma' / 'dw_mma', the bf16 tensor-core kernels, or 'dtable' / 'dg'
+    / 'dw', the templates), and the intra forward's with B6 df's."""
     from epn_pointcloud_tpu_torch.ops import kernels
     return {'inter': dict(kernels.inter_conv.routes),
             'intra': dict(kernels.intra_conv.routes)}
 
 
 def check_routes(tag, dtype, counts, routes):
-    """Every W-fused inter forward, every fused dTable and W-off dG, and
-    every intra forward and B6 df, of an entry run went through the kernel
-    of its dtype: the tensor-core kernels in bf16, the SGEMMs and the
-    scatter's template in fp32 (``routes``: ``route_counts()``, read with
+    """Every W-fused inter forward, every fused dTable, W-off dG and fused
+    dW, and every intra forward and B6 df, of an entry run went through the
+    kernel of its dtype: the tensor-core kernels in bf16, the SGEMMs and the
+    templates in fp32 (``routes``: ``route_counts()``, read with
     ``counts``)."""
     want = {}
     for conv, n in (('inter', counts['inter_conv']),
@@ -633,7 +642,7 @@ def check_routes(tag, dtype, counts, routes):
         assert n > 0, (conv, counts)
         want[conv] = ({'mma': n, 'sgemm': 0} if dtype == 'bf16' else
                       {'mma': 0, 'sgemm': n})
-    for entry in ('dtable', 'dg'):
+    for entry in ('dtable', 'dg', 'dw'):
         n = counts[f'inter_conv_{entry}']
         want['inter'].update({f'{entry}_mma': n, entry: 0} if dtype == 'bf16'
                              else {f'{entry}_mma': 0, entry: n})
@@ -1060,17 +1069,29 @@ def grouped_library(name, args):
 
 
 def mm_library(name, args):
-    """The one-call yardstick of a dW reduction or of the fp32 intra
-    forward: one torch.mm of its operand formed beforehand (untimed), on
-    the call's inputs. The inter dW: F^T dout, F [M, 24c] the neighbor
-    contraction (``inter_conv_f_plain``); the intra dW (plain and prenorm):
-    A^T dout, A [M, 12c] the input (prenorm: folded and activated)
-    gathered through the adjacency; the fp32 intra forward: A W. A bf16
-    product asks for an fp32 output, as the kernels' dW is. {} for any
-    other call."""
+    """The one-call yardstick of a dW reduction, of the fp32 intra forward
+    and df, and of the fp32 dTable: one torch.mm of its operand formed
+    beforehand (untimed), on the call's inputs. The inter dW: F^T dout, F
+    [M, 24c] the neighbor contraction (``inter_conv_f_plain``); the intra
+    dW (plain and prenorm): A^T dout, A [M, 12c] the input (prenorm: folded
+    and activated) gathered through the adjacency; the fp32 intra forward:
+    A W; the fp32 intra df: the dout gathered through the inverse
+    adjacency [M, 12d] by W^T [12d, c]; the fp32 dTable: the dF product it
+    fuses, dout2 W2^T (the bf16 dTable's is timed by ``inter_bwd_extras``).
+    A bf16 product asks for an fp32 output, as the kernels' dW is. {} for
+    any other call."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
-    if name == 'inter_conv_dw':
+    if name == 'inter_conv_dtable' and args[6].dtype == torch.float32:
+        W = args[5]
+        K, c, d = W.shape
+        lhs, rhs = args[6].reshape(-1, d), W.reshape(K * c, d).t()
+    elif name == 'intra_conv_df':
+        dout, _, inv, W = args
+        K, c, d = W.shape
+        lhs = dout[:, :, inv.long()].reshape(-1, K * d)
+        rhs = W.transpose(1, 2).reshape(K * d, c)
+    elif name == 'inter_conv_dw':
         gx, idx, table, rk, k2, dout, sigma = args
         K, c = rk.shape[1], table.shape[3]
         lhs = kernels.inter_conv.inter_conv_f_plain(
@@ -1113,11 +1134,13 @@ def _library_note(row):
 
 def _extras_ok(row):
     """The own gates of a bf16 inter forward (``inter_conv_extras``), intra
-    forward or B6 df (``intra_conv_extras``), and backward scatter
-    (``inter_bwd_extras``): the tensor-core kernel ran, its output is
-    bitwise equal on a second call (not the scatter's: atomics), and
-    (inter) within 1e-3 (normwise) of ``inter_conv_mma_plain``."""
-    return (row.get('route', 'mma') in ('mma', 'dtable_mma', 'dg_mma')
+    forward or B6 df (``intra_conv_extras``), backward scatter
+    (``inter_bwd_extras``) and inter dW (``inter_dw_extras``): the
+    tensor-core kernel ran, its output is bitwise equal on a second call
+    (not the scatter's: atomics), and (inter forward) within 1e-3
+    (normwise) of ``inter_conv_mma_plain``."""
+    return (row.get('route', 'mma') in ('mma', 'dtable_mma', 'dg_mma',
+                                        'dw_mma')
             and row.get('bitwise_repeat', True)
             and row.get('rel_vs_mma_plain', 0.0) <= 1e-3)
 
@@ -1125,8 +1148,60 @@ def _extras_ok(row):
 # the earlier tree's kernels (--parent-csrc), timed beside this tree's:
 # 'fn' its epn_inter_conv_mma, 'intra_fwd' its epn_intra_conv, 'intra_df'
 # its epn_intra_conv_prenorm_df, 'dtable' its epn_inter_conv_bwd_table, 'dg'
-# its epn_inter_conv_dg
+# its epn_inter_conv_dg, 'dw' its epn_inter_conv_bwd_w
 PARENT = {}
+
+
+def inter_dw_extras(name, args, got):
+    """For a bf16 call of the fused inter dW: the kernel it ran (``route``,
+    from the wrapper's counts: 'dw_mma' for the tensor-core kernel) and
+    whether a second call gives the same bits (``bitwise_repeat``). With
+    --parent-csrc also the earlier tree's epn_inter_conv_bwd_w (bf16) on
+    the same inputs, timed with this tree's C entry in turns (parent, new,
+    new, parent; each with its own workspace, into one preallocated dW;
+    ``parent_ms``, ``same_timer_ms``). {} for any other call."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    from epn_pointcloud_tpu_torch.ops.kernels import build
+    if name != 'inter_conv_dw' or args[2].dtype != torch.bfloat16:
+        return {}
+    ic = kernels.inter_conv
+    before = dict(ic.routes)
+    again = ic.inter_conv_dw(*args)
+    torch.cuda.synchronize()
+    rec = {'route': next(k for k in ic.routes if ic.routes[k] > before[k]),
+           'bitwise_repeat': torch.equal(got, again)}
+    del again
+    if PARENT:
+        gx, idx, table, rk, k2, dout, sigma = args
+        b, p2, nn = idx.shape
+        q, na, c = table.shape[1:]
+        K, d = rk.shape[1], dout.shape[-1]
+        M = b * p2 * na
+        dW = torch.empty_like(got)
+        keep = []
+
+        def call(fn, mma, tail):
+            splits = ic.dw_splits(M, c, d, mma)
+            ws = torch.empty((splits, K, c, d), dtype=torch.float32,
+                             device=got.device)
+            keep.append(ws)
+            ptrs = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(),
+                    rk.data_ptr(), k2.data_ptr(), dout.data_ptr(),
+                    ws.data_ptr(), dW.data_ptr(), b, p2, nn, q, na, K, c, d,
+                    float(sigma), splits) + tail
+
+            def run():
+                err = fn(*ptrs, build.stream(gx))
+                if err:
+                    raise RuntimeError(f'{name}: CUDA error {err}')
+            return run
+        rec['parent_ms'], rec['same_timer_ms'] = time_abba(
+            call(PARENT['dw'], False, (1,)),
+            call(build.library().epn_inter_conv_bwd_w_mma, True, ()))
+        del dW, keep
+    torch.cuda.empty_cache()
+    return rec
 
 
 def inter_bwd_extras(name, args, got):
@@ -1471,6 +1546,7 @@ def phase_backward_kernels(device, dtype='fp32'):
         row.update(mm_library(name, args))
         row.update(intra_conv_extras(name, args, got))
         row.update(inter_bwd_extras(name, args, got[0]))
+        row.update(inter_dw_extras(name, args, got[0]))
         row['ok'] = row['ok'] and _extras_ok(row)
         lib = _library_note(row)
         log(f'{tag} {name} {layer} (out {row["shape"]}, {got[0].dtype}): '
@@ -1893,6 +1969,7 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
             row.update(inter_conv_extras(name, args, got[0]))
             row.update(intra_conv_extras(name, args, got))
             row.update(inter_bwd_extras(name, args, got[0]))
+            row.update(inter_dw_extras(name, args, got[0]))
             row['ok'] = row['ok'] and _extras_ok(row)
             log(f'{tag} {name} {layer} ({row["shape"]}, {row["dtype"]}): '
                 f'max_abs_err={row["max_abs_err"]:.3e} rel_norm_err='
@@ -2327,7 +2404,8 @@ def phase_inv_bf16_descriptor(device, root, reps=5):
 # entries, as PARENT's keys
 PARENT_SOURCES = {'inter_conv.cu': {'fn': 'epn_inter_conv_mma'},
                   'inter_conv_bwd.cu': {'dtable': 'epn_inter_conv_bwd_table',
-                                        'dg': 'epn_inter_conv_dg'},
+                                        'dg': 'epn_inter_conv_dg',
+                                        'dw': 'epn_inter_conv_bwd_w'},
                   'intra_conv.cu': {'intra_fwd': 'epn_intra_conv',
                                     'intra_df': 'epn_intra_conv_prenorm_df'}}
 
@@ -2354,8 +2432,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--parent-csrc', default=None,
                     help="an earlier tree's csrc/ directory: its bf16 "
-                    'W-fused inter forward, prenorm intra forward and B6 df '
-                    'timed beside this one')
+                    'W-fused inter forward, prenorm intra forward, B6 df, '
+                    'fused dTable, W-off dG and fused dW timed beside this '
+                    "tree's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():

@@ -58,7 +58,9 @@
 // (inter_conv_common.cuh) and stages the dout slab, then accumulates
 // F^T dout with 12 x (BN / 16) outputs a thread. Each row range writes its
 // own partial dW to a workspace; a second launch (split_sum.cuh) adds the
-// partials in a fixed order, so dW is deterministic.
+// partials in a fixed order, so dW is deterministic. In bf16 (shapes off
+// the tensor-core kernel's envelope) the anchor weights and F are rounded
+// to bf16 where the TPU kernels round them (build_f_item<bf16, true>).
 //
 // bf16 on tensor cores (inter_bwd_mma_kernel; epn_inter_conv_bwd_table_mma,
 // epn_inter_conv_dg_mma): the fused dTable and the W-off dG of every model
@@ -88,8 +90,40 @@
 // the fused dTable its phases in turn, one block an SM (without the
 // product's mma 4% less time, without the reductions 6%, without the
 // weights 12%; 8 warps a block 11% more).
+//
+// bf16 dW on tensor cores (inter_dw_mma_kernel; epn_inter_conv_bwd_w_mma):
+// the fused dW of every fused-route model layer (60 anchors, 24 kernel
+// points, C % 16 == 0, D % 64 == 0, nn <= 64), at the TPU kernels' rounding
+// points: the anchor weights rounded to bf16 (_bwd_gather_w_kernel:1133,
+// _bwd_kernel_dw2:1309), F summed in fp32 and rounded to bf16 (:1140,
+// :1315), dW = F^T dout summed in fp32 (fp32 out; the caller's cast to W's
+// bf16 rounds it once, as _fgcw_bwd rounds dw32). The tile: a block owns
+// 16 channels (the 384 (k, cc) rows of its dW) and 64 columns of d over a
+// range of rows (a split), 8 warps of 96 x 32 outputs: 96 fp32
+// accumulators a thread (255 registers, no spills; 32 channels would need
+// 192). Per 64-row tile it builds the bf16 F slab [64, 384] as the
+// forward's phase 1 does (gathered table rows by cp.async, F^T = G^T w on
+// mma.sync with the anchor weights computed and rounded in the B
+// fragments) and adds slab^T . dout on mma.sync (both operands by
+// ldmatrix.trans, a fresh accumulator every two k16 steps added by a
+// rounding fp32 add: the mma's truncating accumulation would lean dW
+// toward zero over a split's thousands of k16 steps). Two sets of tile
+// buffers pipeline it: the next tile's gathers and dout rows (cp.async)
+// and its successor's neighbors (loads into registers) are in flight while
+// the product runs. Each split writes its partial; split_sum.cuh adds them
+// in a fixed order (no atomics: bitwise the same on every call). Work a
+// call: the product's 2 * M * 24 * C * D operations and the F build's
+// 2 * M * nn * 24 * C, the F build repeated for each of the D / 64 column
+// blocks. What holds it back (inter_bwd_variants.py on the H100, the cls
+// b=12 step's six calls): the F build, 62% of the time (the contraction
+// with its anchor weights 43%, the gathers 23%), rebuilt D / 64 times;
+// without the product's mma no time is saved (the fragment loads, the
+// barriers and one block an SM are the rest). Sharing the slab across the
+// column blocks of a thread-block cluster was slower at every layer.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "inter_conv_common.cuh"
 #include "split_sum.cuh"
@@ -349,9 +383,9 @@ inter_dw_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
     __syncthreads();
     for (int e = tid; e < W_BM * (NK / KG); e += W_THREADS) {
       const int row = e % W_BM, kg = e / W_BM;
-      build_f_item(s_F + (size_t)row * FS + kg * KG * CC, table, rk, k2, s_gx,
-                   s_idx, m0 + row, m_end, pt0, p2, nn, q, na, NK, C, c0, kg,
-                   inv_sigma);
+      build_f_item<E, std::is_same<E, epn::bf16>::value>(
+          s_F + (size_t)row * FS + kg * KG * CC, table, rk, k2, s_gx, s_idx,
+          m0 + row, m_end, pt0, p2, nn, q, na, NK, C, c0, kg, inv_sigma);
     }
     for (int e = tid; e < W_BM * BN / 4; e += W_THREADS) {
       const int r = e / (BN / 4), c4 = e % (BN / 4);
@@ -778,6 +812,385 @@ int launch(const void* gx, const void* idx, const void* rk, const void* k2,
 
 }  // namespace mma
 
+// ------------------------------------------- bf16 dW on tensor cores
+
+namespace dwmma {
+
+using epn::bf16;
+using mma::slab_off;
+using mma::weight;
+
+constexpr int kNA = 60;                  // anchors: the rows of a point
+constexpr int kBM = 64;                  // rows a tile: 4 k16 steps of dW
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRowsPerWarp = kBM / kWarps;
+constexpr int kCC = 16;                  // channels a block
+constexpr int kKC = NK * kCC;            // slab columns: the block's dW rows
+constexpr int kBN = 64;                  // d a block
+constexpr int kWM = 4, kWN = 2;          // warps over [kKC, kBN]: 96 x 32
+constexpr int kMI = kKC / kWM / 16, kNI = kBN / kWN / 8;
+constexpr int kGroup = 2;                // k16 steps a fresh accumulator
+constexpr int kMaxNN = 64;
+constexpr int kMaxNP = (kBM - 1) / kNA + 2;  // points a tile's rows touch
+static_assert(kMI * kWM * 16 == kKC && kNI * kWN * 8 == kBN && kNI % 2 == 0 &&
+                  kBM % (16 * kGroup) == 0 && kCC == mma::kCC &&
+                  kMaxNP * kMaxNN <= kThreads,
+              "block shape");
+
+// The slab's column order: lane (g, t) of the warp that builds a row holds
+// F[cc][k] for cc = g + 8 h and k = 8 j + 2 t + e (h, e < 2, j < 3) and
+// stores them as three 8-byte pieces, one a j, at columns 12 lane + 4 j +
+// 2 h + e. The channel and kernel point of slab column col, for dW's rows:
+__device__ __forceinline__ void slab_column(int col, int& cc, int& k) {
+  const int lane = col / 12, r = col - 12 * lane, pos = r & 3;
+  cc = (lane >> 2) + 8 * (pos >> 1);
+  k = 8 * (r >> 2) + 2 * (lane & 3) + (pos & 1);
+}
+
+// dynamic shared memory, in bytes from the base: the F slab [kBM, kKC]
+// (offset 0); two of each of the tile buffers, the current tile's and the
+// next one's: the dout tile [kBM, kBN], the tile's points' neighbor
+// coordinates [nbr] float4 (x, y, z, 1 - |gx|^2 / sigma) and indices
+// [nbr] (nbr = kMaxNP * nnp), the rows' table offsets [kBM] and (point,
+// anchor) [kBM]; then each warp's gathered table rows [kRowsPerWarp][nnp,
+// kCC]
+struct Smem {
+  int nnp, nbr;
+  size_t dout, gx, idx, rtb, ri, rows, total;
+};
+
+__host__ __device__ inline Smem layout(int nn) {
+  Smem s;
+  s.nnp = (nn + 15) / 16 * 16;
+  s.nbr = kMaxNP * s.nnp;
+  s.dout = (size_t)kBM * kKC * sizeof(bf16);
+  s.gx = s.dout + 2 * (size_t)kBM * kBN * sizeof(bf16);
+  s.idx = s.gx + 2 * (size_t)s.nbr * sizeof(float4);
+  s.rtb = s.idx + 2 * (size_t)s.nbr * sizeof(int);
+  s.ri = s.rtb + 2 * (size_t)kBM * sizeof(long long);
+  s.rows = s.ri + 2 * (size_t)kBM * sizeof(int2);
+  s.total = s.rows + (size_t)kWarps * kRowsPerWarp * s.nnp * kCC *
+                         sizeof(bf16);
+  return s;
+}
+
+// The partial dW [NK, C, D] of split blockIdx.z (rows r_begin .. r_end)
+// for channels c0 .. c0 + kCC and columns n0 .. n0 + kBN, a 64-row tile at
+// a time, software-pipelined over two sets of tile buffers: phase 1 builds
+// the tile's bf16 F slab (each warp kRowsPerWarp rows, two at a time: F^T
+// [kCC, 24] = G^T w by mma on the rows' gathered table rows G [nnp, kCC],
+// the anchor weights computed in the B fragments and rounded to bf16 there,
+// F rounded to bf16 into the slab);
+// then the next tile's gathers and dout rows go out by cp.async and its
+// successor's neighbors are loaded into registers, all in flight while
+// phase 2 adds F^T dout over the tile's rows (A = the slab, B = the dout
+// tile, both by ldmatrix.trans), each kGroup k16 steps in a fresh
+// accumulator added to the registers' running sum by a rounding fp32 add.
+__global__ void __launch_bounds__(kThreads, 1)
+inter_dw_mma_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
+                    const bf16* __restrict__ table,
+                    const float* __restrict__ rk,
+                    const float* __restrict__ k2,
+                    const bf16* __restrict__ dout, float* __restrict__ part,
+                    int M, int p2, int nn, int q, int C, int D,
+                    int rows_per_split, float inv_sigma) {
+  extern __shared__ __align__(128) unsigned char dw_smem[];
+  const int row0 = (threadIdx.x >> 5) * kRowsPerWarp;  // the warp's slab rows
+  const Smem L = layout(nn);
+  const int nnp = L.nnp, nbr = L.nbr;
+  bf16* slab = reinterpret_cast<bf16*>(dw_smem);
+  bf16* s_dout = reinterpret_cast<bf16*>(dw_smem + L.dout);
+  float4* s_gx = reinterpret_cast<float4*>(dw_smem + L.gx);
+  int* s_idx = reinterpret_cast<int*>(dw_smem + L.idx);
+  long long* s_rtb = reinterpret_cast<long long*>(dw_smem + L.rtb);
+  int2* s_ri = reinterpret_cast<int2*>(dw_smem + L.ri);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* rows = reinterpret_cast<bf16*>(dw_smem + L.rows) +
+               (size_t)warp * kRowsPerWarp * nnp * kCC;
+  const int n0 = blockIdx.x * kBN, c0 = blockIdx.y * kCC, split = blockIdx.z;
+  const int r_begin = split * rows_per_split;
+  const int r_end = min(M, r_begin + rows_per_split);
+  const int wm = warp / kWN, wn = warp % kWN;
+  const float s2 = 2.f * inv_sigma;
+
+  // the neighbor of tile m0's points that this thread stages (at most one:
+  // kMaxNP * nnp <= kThreads), from device memory into registers; the
+  // padded slots and a thread past the points hold the shadow index
+  auto stage_load = [&](int m0, float4& v, int& j) {
+    v = make_float4(0.f, 0.f, 0.f, 1.f);
+    j = q;
+    if (m0 >= r_end) return;
+    const int pt0 = m0 / kNA;
+    const int np = (min(m0 + kBM, r_end) - 1) / kNA - pt0 + 1;
+    const int p = tid / nnp, n = tid - p * nnp;
+    if (p < np && n < nn) {
+      const size_t src = (size_t)(pt0 + p) * nn + n;
+      const float x = gx[3 * src], y = gx[3 * src + 1], z = gx[3 * src + 2];
+      v = make_float4(x, y, z, 1.f - ((x * x + y * y) + z * z) * inv_sigma);
+      j = idx[src];
+    }
+  };
+  // ... and into buffer s, with each row's table offset, local point (-1
+  // past r_end) and anchor
+  auto stage_store = [&](int m0, int s, const float4& v, int j) {
+    if (m0 >= r_end) return;
+    if (tid < nbr) {
+      s_gx[s * nbr + tid] = v;
+      s_idx[s * nbr + tid] = j;
+    }
+    if (tid < kBM) {
+      const int pt0 = m0 / kNA;
+      const int gm = m0 + tid, pt = gm / kNA, a = gm - pt * kNA;
+      s_rtb[s * kBM + tid] = ((long long)(pt / p2) * q * kNA + a) * C + c0;
+      s_ri[s * kBM + tid] = make_int2(gm < r_end ? pt - pt0 : -1, a);
+    }
+  };
+  // tile m0's dout rows (zeros past r_end) into dout buffer s, and the
+  // table rows of the slab rows this warp builds (channels c0 .. c0 + kCC;
+  // zeros for the shadow index and padded slots, nothing for a row past
+  // r_end) into its buffers, from staging buffer s: cp.async, one commit
+  // group
+  auto prefetch = [&](int m0, int s) {
+    if (m0 < r_end) {
+      bf16* dd = s_dout + (size_t)s * kBM * kBN;
+      for (int e = tid; e < kBM * kBN / 8; e += kThreads) {
+        const int r = e / (kBN / 8), c8 = e % (kBN / 8) * 8;
+        const bool ok = m0 + r < r_end;
+        tc::cp16(tc::smem_addr(dd + tc::swz(r, c8, kBN / 8)),
+                 ok ? dout + (size_t)(m0 + r) * D + n0 + c8 : dout, ok);
+      }
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const int r = row0 + i, lp = s_ri[s * kBM + r].x;
+        if (lp < 0) continue;
+        const int* ix = s_idx + s * nbr + lp * nnp;
+        const bf16* tb = table + s_rtb[s * kBM + r];
+        bf16* dst = rows + (size_t)i * nnp * kCC;
+        for (int e = lane; e < nnp * 2; e += 32) {
+          const int n = e >> 1, c8 = (e & 1) * 8;
+          const int j = ix[n];
+          const bool ok = j < q;
+          tc::cp16(tc::smem_addr(dst + slab_off(n, c8)),
+                   ok ? tb + (size_t)j * kNA * C + c8 : table, ok);
+        }
+      }
+    }
+    tc::cp_commit();
+  };
+
+  // the warp's slab rows i, i + 1 from staging buffer s: F^T [kCC, 24] =
+  // G^T [kCC, nnp] w [nnp, 24] for each (A = G^T by ldmatrix.trans; B =
+  // the anchor weights of neighbors 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1)
+  // for kernel point 8j + g, in fp32 as the forward kernel computes them,
+  // rounded to bf16 in the fragment); F rounded to bf16 into the slab,
+  // zeros for a row past r_end
+  auto contract = [&](int i, int s) {
+    const float4* g4[2];
+    const bf16* gb[2];
+    float4 rj[2][3];
+    int r[2];
+    bool live[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      r[u] = row0 + i + u;
+      const int2 ri = s_ri[s * kBM + r[u]];
+      live[u] = ri.x >= 0;
+      g4[u] = s_gx + s * nbr + max(ri.x, 0) * nnp;
+      gb[u] = rows + (size_t)(i + u) * nnp * kCC;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int kp = 8 * j + g;
+        const float* rp = rk + ((size_t)ri.y * NK + kp) * 3;
+        rj[u][j] = make_float4(s2 * __ldg(rp), s2 * __ldg(rp + 1),
+                               s2 * __ldg(rp + 2),
+                               -__ldg(k2 + kp) * inv_sigma);
+      }
+    }
+    float f[2][3][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) f[u][j][h] = 0.f;
+#pragma unroll 1
+    for (int nb = 0; nb < nnp; nb += 16) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float4 gq[4] = {g4[u][nb + 2 * t], g4[u][nb + 2 * t + 1],
+                              g4[u][nb + 2 * t + 8], g4[u][nb + 2 * t + 9]};
+        uint32_t af[4];
+        tc::ldsm4t(af, tc::smem_addr(gb[u] + slab_off(
+                                         nb + (lane & 7) + (lane >> 4) * 8,
+                                         ((lane >> 3) & 1) * 8)));
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          tc::mma(f[u][j], af,
+                  epn::pack2(weight(gq[0], rj[u][j]),
+                             weight(gq[1], rj[u][j])),
+                  epn::pack2(weight(gq[2], rj[u][j]),
+                             weight(gq[3], rj[u][j])));
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const uint2 v =
+            live[u] ? make_uint2(epn::pack2(f[u][j][0], f[u][j][1]),
+                                 epn::pack2(f[u][j][2], f[u][j][3]))
+                    : make_uint2(0u, 0u);
+        *reinterpret_cast<uint2*>(
+            slab + tc::swz(r[u], 12 * lane + 4 * j, kKC / 8)) = v;
+      }
+    }
+  };
+
+  float acc[kMI][kNI][4];
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) acc[mi][ni][h] = 0.f;
+  // the product's ldmatrix addresses: the rows a lane addresses are 8 apart
+  // from one k16 step to the next, so the swizzle's XOR term is the lane's
+  // own and each address is a per-lane base (a_off: one an m16 tile, b_off:
+  // one a pair of n8 tiles) plus the step's rows
+  int a_off[kMI], b_off[kNI / 2];
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+    a_off[mi] = tc::swz((lane & 7) + (lane >> 4) * 8,
+                        wm * (kKC / kWM) + mi * 16 + ((lane >> 3) & 1) * 8,
+                        kKC / 8);
+#pragma unroll
+  for (int nj = 0; nj < kNI / 2; ++nj)
+    b_off[nj] = tc::swz((lane & 7) + ((lane >> 3) & 1) * 8,
+                        wn * (kBN / kWN) + nj * 16 + (lane >> 4) * 8,
+                        kBN / 8);
+
+  // prologue: the first two tiles staged, the first one's operands in
+  // flight
+  {
+    float4 v;
+    int j;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      stage_load(r_begin + s * kBM, v, j);
+      stage_store(r_begin + s * kBM, s, v, j);
+    }
+  }
+  __syncthreads();
+  prefetch(r_begin, 0);
+
+  for (int m0 = r_begin, s = 0; m0 < r_end; m0 += kBM, s ^= 1) {
+    // phase 1: the slab from the gathered rows
+    tc::cp_wait<0>();
+    __syncwarp();
+#pragma unroll 1
+    for (int i = 0; i < kRowsPerWarp; i += 2) contract(i, s);
+    __syncthreads();  // every slab whole; this tile's dout and the next tile's
+                 // staging visible; the gathered rows free
+
+    prefetch(m0 + kBM, s ^ 1);
+    float4 v;
+    int j;
+    stage_load(m0 + 2 * kBM, v, j);
+
+    // phase 2: acc += slab^T . dout over the tile's rows, a group of kGroup
+    // k16 steps at a time: its B fragments held, then for each m16 tile the
+    // group's products into a fresh accumulator, added to the running sum
+    // by an fp32 add that rounds to nearest (the mma's own accumulation
+    // truncates, and over the thousands of k16 steps of a split it would
+    // lean dW toward zero)
+    const bf16* dd = s_dout + (size_t)s * kBM * kBN;
+#pragma unroll
+    for (int kg = 0; kg < kBM; kg += 16 * kGroup) {
+      uint32_t bf[kGroup][kNI][2];
+#pragma unroll
+      for (int ks = 0; ks < kGroup; ++ks)
+#pragma unroll
+        for (int nj = 0; nj < kNI / 2; ++nj) {
+          uint32_t r4[4];
+          tc::ldsm4t(r4, tc::smem_addr(dd + (kg + 16 * ks) * kBN +
+                                       b_off[nj]));
+          bf[ks][2 * nj][0] = r4[0];
+          bf[ks][2 * nj][1] = r4[1];
+          bf[ks][2 * nj + 1][0] = r4[2];
+          bf[ks][2 * nj + 1][1] = r4[3];
+        }
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi) {
+        uint32_t af[kGroup][4];
+#pragma unroll
+        for (int ks = 0; ks < kGroup; ++ks) {
+          tc::ldsm4t(af[ks], tc::smem_addr(slab + (kg + 16 * ks) * kKC +
+                                           a_off[mi]));
+        }
+#pragma unroll
+        for (int ni = 0; ni < kNI; ++ni) {
+          float f[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int ks = 0; ks < kGroup; ++ks)
+            tc::mma(f, af[ks], bf[ks][ni][0], bf[ks][ni][1]);
+#pragma unroll
+          for (int h = 0; h < 4; ++h) acc[mi][ni][h] += f[h];
+        }
+      }
+    }
+
+    // the tile after next staged in this tile's buffer (its reads are done)
+    stage_store(m0 + 2 * kBM, s, v, j);
+    __syncthreads();  // every product is done with the slab and dout
+  }
+  tc::cp_wait<0>();
+
+  // the split's partial: dW row k * C + c0 + cc of each slab column
+  float* dst = part + (size_t)split * NK * C * D + n0 + wn * (kBN / kWN) +
+               2 * t;
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int cc, k;
+      slab_column(wm * (kKC / kWM) + mi * 16 + g + 8 * h, cc, k);
+      float* rowp = dst + ((size_t)k * C + c0 + cc) * D;
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni) {
+        *reinterpret_cast<float2*>(rowp + ni * 8) =
+            make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+    }
+}
+
+int launch(const void* gx, const void* idx, const void* table,
+           const void* rk, const void* k2, const void* dout, void* ws,
+           void* dW, int M, int p2, int nn, int q, int C, int D, float sigma,
+           int splits, cudaStream_t stream) {
+  const Smem L = layout(nn);
+  if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      inter_dw_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (M + kBM - 1) / kBM;
+  const int rows_per_split = (tiles + splits - 1) / splits * kBM;
+  inter_dw_mma_kernel<<<dim3(D / kBN, C / kCC, splits), kThreads, L.total,
+                        stream>>>((const float*)gx, (const int*)idx,
+                                  (const bf16*)table, (const float*)rk,
+                                  (const float*)k2, (const bf16*)dout,
+                                  (float*)ws, M, p2, nn, q, C, D,
+                                  rows_per_split, 1.f / sigma);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_sum_splits((const float*)ws, (float*)dW, splits,
+                           (size_t)NK * C * D, stream);
+}
+
+}  // namespace dwmma
+
 }  // namespace
 
 // gx [b, p2, nn, 3], idx [b, p2, nn] int32 in [0, q] (q = shadow), rk
@@ -891,4 +1304,23 @@ extern "C" int epn_inter_conv_dg_mma(const void* gx, const void* idx,
   }
   return mma::launch<true>(gx, idx, rk, k2, nullptr, dF, dT, b, p2, nn, q, C,
                            0, sigma, (cudaStream_t)stream);
+}
+
+// bf16 on tensor cores (inter_dw_mma_kernel): the fused dW, with
+// epn_inter_conv_bwd_w's arguments (a bf16 table and dout; ws [splits, K,
+// C, D] fp32 scratch, dW [K, C, D] fp32 out). na must be 60, K 24, C a
+// multiple of 16, D of 64, and 1 <= nn <= 64.
+extern "C" int epn_inter_conv_bwd_w_mma(const void* gx, const void* idx,
+                                        const void* table, const void* rk,
+                                        const void* k2, const void* dout,
+                                        void* ws, void* dW, int b, int p2,
+                                        int nn, int q, int na, int K, int C,
+                                        int D, float sigma, int splits,
+                                        void* stream) {
+  if (na != dwmma::kNA || K != NK || C % dwmma::kCC != 0 ||
+      D % dwmma::kBN != 0 || nn < 1 || nn > dwmma::kMaxNN || splits < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return dwmma::launch(gx, idx, table, rk, k2, dout, ws, dW, b * p2 * na, p2,
+                       nn, q, C, D, sigma, splits, (cudaStream_t)stream);
 }

@@ -1,8 +1,9 @@
-"""Where the bf16 tensor-core backward scatter (``inter_bwd_mma_kernel`` in
-csrc/inter_conv_bwd.cu: the fused dTable and the W-off dG) spends its
-time, on the card: the kernel as built beside variants with one part
-changed or taken out, at the shapes of both models' layers, with the same
-timer (``chip_smoke.time_ms``).
+"""Where the bf16 tensor-core inter backward kernels (csrc/inter_conv_bwd.cu:
+``inter_bwd_mma_kernel``, the fused dTable and the W-off dG;
+``inter_dw_mma_kernel``, the fused dW) spend their time, on the card: each
+kernel as built beside variants with one part changed or taken out, at
+the shapes of both models' layers, with the same timer
+(``chip_smoke.time_ms``).
 
   python -m epn_pointcloud_tpu_torch.inter_bwd_variants
 
@@ -26,13 +27,28 @@ and, whose output is wrong and only whose time counts:
                  fragments).
 For built, scalar_red, warps_8 and stages_4 also the normwise error
 against the plain version (``inter_conv_dtable_plain`` /
-``inter_conv_dg_plain``, the same rounding points). Operands are random
+``inter_conv_dg_plain``, the same rounding points). The dW kernel's
+variants (the scatter's sources compiled once more with one substitution
+in the dW kernel), whose output is wrong and only whose time counts:
+  dw_no_mma      the dW product issues no mma (its fragment loads and
+                 fresh-accumulator adds still run);
+  dw_no_contract the F slab's neighbor contraction left out (no anchor
+                 weights, no mma, no slab stores; the gathers run);
+  dw_no_gather   the table rows not gathered (the contraction runs on
+                 whatever the buffers hold);
+  dw_no_fbuild   both: the product, the dout tiles, the neighbor staging
+                 and the barriers alone;
+and beside them, from the built library, the template (``inter_dw_kernel``,
+``epn_inter_conv_bwd_w``, the route before the tensor-core kernel) on the
+same inputs; the built kernel's and the template's normwise error against
+``inter_conv_dw_plain``. Operands are random
 (seeded), the neighborhoods a ball query over random points in the unit
 ball, at the shapes of cls_so3net_pn's step (b=12: the fused dTable at its
 6 inter layers) and inv_so3net_pn's (b=16 a leg: the fused dTable at B1L1,
-B2L1, B3L1, the W-off dG at B0L1, B1L0, B2L0, B3L0). One JSON line a
-shape, a sum over each model's calls, all of them in
-chiprun_out/inter_bwd_variants.json. Needs a CUDA device and nvcc.
+B2L1, B3L1, the W-off dG at B0L1, B1L0, B2L0, B3L0; the fused dW at the
+fused dTable's layers). One JSON line a shape, a sum over each model's
+calls, all of them in chiprun_out/inter_bwd_variants.json. Needs a CUDA
+device and nvcc.
 """
 
 from __future__ import annotations
@@ -65,9 +81,20 @@ VARIANTS = {
     'warps_8': ('constexpr int kWarps = 16;', 'constexpr int kWarps = 8;'),
     'stages_4': ('constexpr int kStages = 3;', 'constexpr int kStages = 4;'),
 }
+_DW_MMA = 'tc::mma(f, af[ks], bf[ks][ni][0], bf[ks][ni][1]);'
+_DW_CONTRACT = ('i += 2) contract(i, s);',
+                'i += 2) if (C < 0) contract(i, s);')
+_DW_GATHER = ('if (lp < 0) continue;', 'if (lp < 0 || C > 0) continue;')
+DW_VARIANTS = {
+    'dw_no_mma': (_DW_MMA, 'if (C < 0) ' + _DW_MMA),
+    'dw_no_contract': _DW_CONTRACT,
+    'dw_no_gather': _DW_GATHER,
+    'dw_no_fbuild': [_DW_CONTRACT, _DW_GATHER],
+}
 EXACT = ('built', 'scalar_red', 'warps_8', 'stages_4')
 ENTRIES = {'dtable': 'epn_inter_conv_bwd_table_mma',
-           'dg': 'epn_inter_conv_dg_mma'}
+           'dg': 'epn_inter_conv_dg_mma', 'dw': 'epn_inter_conv_bwd_w_mma',
+           'dw_template': 'epn_inter_conv_bwd_w'}
 # model -> (b, [(layer, entry, p1, p2, nn, c, d)])
 SHAPES = {
     'cls_so3net_pn b=12': (12, [
@@ -93,9 +120,10 @@ def main():
         raise SystemExit('inter_bwd_variants: needs a CUDA device')
     sys.path.insert(0, ROOT)
     from chip_smoke import time_ms
+    variants = {**VARIANTS, 'built': None, **DW_VARIANTS}
     procs = {n: build.compile_alone(build.CSRC_DIR, 'inter_conv_bwd.cu',
                                     os.path.join(OUT, n), sub)
-             for n, sub in VARIANTS.items()}
+             for n, sub in variants.items()}
     fns = {}
     for n, (p, so) in procs.items():
         log = p.communicate()[0]
@@ -111,6 +139,16 @@ def main():
     dev = torch.device('cuda')
     card = torch.cuda.get_device_name(0)
     stream = torch.cuda.current_stream().cuda_stream
+    lines = (_scatter(fns, dev, card, stream, time_ms) +
+             _dw(fns, dev, card, stream, time_ms))
+    out_dir = os.path.join(ROOT, 'chiprun_out')
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, 'inter_bwd_variants.json'), 'w') as f:
+        json.dump(lines, f, indent=1)
+
+
+def _scatter(fns, dev, card, stream, time_ms):
+    """The scatter's variants (dTable, dG) at each layer: JSON lines."""
     lines = []
     for model, (b, layers) in SHAPES.items():
         total = {}
@@ -145,6 +183,8 @@ def main():
                 return run
             rec = {}
             for n, fn in fns.items():
+                if n.startswith('dw_'):
+                    continue
                 rec[n] = {'ms': time_ms(call(fn[entry]))}
                 if n in EXACT:
                     dT.zero_()
@@ -161,10 +201,67 @@ def main():
         lines.append({'model': model, 'sum_over_layers': True, 'ms': total,
                       'card': card})
         print(json.dumps(lines[-1]), flush=True)
-    out_dir = os.path.join(ROOT, 'chiprun_out')
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, 'inter_bwd_variants.json'), 'w') as f:
-        json.dump(lines, f, indent=1)
+    return lines
+
+
+def _dw(fns, dev, card, stream, time_ms):
+    """The dW kernel's variants and the template at each fused-route layer
+    (the dTable's shapes): JSON lines."""
+    lines = []
+    names = ['built', 'dw_template'] + list(DW_VARIANTS)
+    for model, (b, layers) in SHAPES.items():
+        total = dict.fromkeys(names, 0.0)
+        for tag, entry, p1, p2, nn, c, d in layers:
+            if entry != 'dtable':
+                continue
+            gx, idx, table, rk, k2, _ = _operands(dev, b, p1, p2, nn, c, d,
+                                                  seed=nn + c + d)
+            rng = np.random.RandomState(p2 + c)
+            dout = torch.from_numpy(rng.randn(b, p2, 60, d).astype(
+                np.float32)).to(dev, torch.bfloat16)
+            want = inter_conv.inter_conv_dw_plain(gx, idx, table, rk, k2,
+                                                  dout, 0.08)
+            dW = torch.empty(24, c, d, device=dev)
+            bufs = {}
+            for mma in (True, False):
+                splits = inter_conv.dw_splits(b * p2 * 60, c, d, mma)
+                ws = torch.empty(splits, 24, c, d, device=dev)
+                bufs[mma] = (ws, (gx.data_ptr(), idx.data_ptr(),
+                                  table.data_ptr(), rk.data_ptr(),
+                                  k2.data_ptr(), dout.data_ptr(),
+                                  ws.data_ptr(), dW.data_ptr(), b, p2, nn,
+                                  p1, 60, 24, c, d, 0.08, splits))
+
+            def call(n):
+                fn = fns['built' if n == 'dw_template' else n][
+                    'dw_template' if n == 'dw_template' else 'dw']
+                tail = (1,) if n == 'dw_template' else ()
+                args = bufs[n != 'dw_template'][1] + tail
+
+                def run():
+                    err = fn(*args, stream)
+                    if err:
+                        raise RuntimeError(f'{n}: CUDA error {err}')
+                return run
+            rec = {}
+            for n in names:
+                rec[n] = {'ms': time_ms(call(n))}
+                if n in ('built', 'dw_template'):
+                    call(n)()
+                    torch.cuda.synchronize()
+                    rec[n]['rel'] = _rel(dW, want)
+                total[n] += rec[n]['ms']
+            lines.append({'model': model, 'layer': tag, 'entry': 'dw',
+                          'dims': [b, p1, p2, nn, c, d],
+                          'splits': bufs[True][1][-1], 'variants': rec,
+                          'card': card})
+            print(json.dumps(lines[-1]), flush=True)
+            del gx, idx, table, dout, want, dW, bufs
+            torch.cuda.empty_cache()
+        lines.append({'model': model, 'entry': 'dw', 'sum_over_layers': True,
+                      'ms': total, 'card': card})
+        print(json.dumps(lines[-1]), flush=True)
+    return lines
 
 
 if __name__ == '__main__':

@@ -87,6 +87,10 @@ SIGNATURES = {
     # sigma, splits, bf16, stream
     'epn_inter_conv_bwd_w': [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # gx, idx, table, rk, k2, dout, ws, d_w, b, p2, nn, q, na, k, c, d,
+    # sigma, splits, stream (bf16 on tensor cores)
+    'epn_inter_conv_bwd_w_mma': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _F, _I, _P],
     # f, trace_idx, ss, dout, ws, d_w, b, p, na, k, c, d, ss_stride, splits,
     # bf16, stream
     'epn_intra_conv_bwd_w': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -170,17 +174,20 @@ def compile_alone(csrc: str, source: str, out_dir: str, sub=None):
     there; ``sub``: (text in the source, its replacement), which raises
     when the source does not hold the text. Returns (process, library
     path): the caller waits on the process and loads the library with its
-    own signatures. For the harnesses that time variants of a kernel."""
+    own signatures. For the harnesses that time variants of a kernel.
+    ``sub`` may also be a list of such pairs, applied in turn."""
     shutil.rmtree(out_dir, ignore_errors=True)
     shutil.copytree(csrc, out_dir)
     src_path = os.path.join(out_dir, source)
     if sub is not None:
         with open(src_path) as f:
             src = f.read()
-        if sub[0] not in src:
-            raise RuntimeError(f'{out_dir}: {sub[0]!r} not in {source}')
+        for old, new in ([sub] if isinstance(sub[0], str) else sub):
+            if old not in src:
+                raise RuntimeError(f'{out_dir}: {old!r} not in {source}')
+            src = src.replace(old, new)
         with open(src_path, 'w') as f:
-            f.write(src.replace(sub[0], sub[1]))
+            f.write(src)
     so = os.path.join(out_dir, 'lib.so')
     cmd = [_nvcc()] + ARCH_FLAGS + NVCC_FLAGS + ['-shared', '-o', so, src_path]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,

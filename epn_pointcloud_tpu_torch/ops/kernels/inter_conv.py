@@ -45,7 +45,11 @@ onto the table rows, dW summed in fp32. The bf16 backward scatter (the
 fused dTable and the W-off dG) runs on tensor cores (``bwd_mma_route``;
 other shapes on the template) at the TPU kernels' rounding points, as its
 plain versions do: dF, the anchor weights and each slot's sum rounded to
-bf16, the fold onto the table rows in fp32.
+bf16, the fold onto the table rows in fp32. The bf16 fused dW runs on
+tensor cores (``dw_mma_route``; other shapes on the template); both round
+the anchor weights and F to bf16 before the fp32 product, where the TPU
+kernels round them (``_bwd_gather_w_kernel:1133, 1140``), as the plain
+version does.
 """
 
 from __future__ import annotations
@@ -75,9 +79,12 @@ launches = dict.fromkeys(ENTRIES, 0)
 # template (fp32, and bf16 shapes off ``mma_route``); the backward
 # scatter's 'dtable_mma' and 'dg_mma', the bf16 tensor-core kernel
 # (``inter_bwd_mma_kernel``), or 'dtable' and 'dg', the template
-# (``inter_dtable_kernel``: fp32, and bf16 shapes off ``bwd_mma_route``)
+# (``inter_dtable_kernel``: fp32, and bf16 shapes off ``bwd_mma_route``);
+# the fused dW's 'dw_mma', the bf16 tensor-core kernel
+# (``inter_dw_mma_kernel``), or 'dw', the template (``inter_dw_kernel``:
+# fp32, and bf16 shapes off ``dw_mma_route``)
 routes = dict.fromkeys(('mma', 'sgemm', 'dtable_mma', 'dtable', 'dg_mma',
-                        'dg'), 0)
+                        'dg', 'dw_mma', 'dw'), 0)
 
 # anchors per step of the plain versions: bounds their [b, p, n, chunk, *]
 # intermediates (~1 GB at b=32 on the widest flagship layer)
@@ -93,6 +100,11 @@ WOFF_MAX_C, WOFF_MAX_NN, WOFF_NA = 128, 64, 60
 # the bf16 tensor-core backward scatter's envelope (``bwd_mma_route``): the
 # anchors, a multiple of the channels, neighbors up to, a multiple of d
 BWD_MMA_NA, BWD_MMA_CC, BWD_MMA_MAX_NN, BWD_MMA_SD = 60, 16, 64, 32
+# the bf16 tensor-core dW's envelope (``dw_mma_route``): the anchors, a
+# block's channels and columns (multiples of both), neighbors up to; and
+# the blocks its row splits aim for (one block an SM: about two waves)
+DW_MMA_NA, DW_MMA_CC, DW_MMA_BN, DW_MMA_MAX_NN = 60, 16, 64, 64
+DW_MMA_BLOCKS = 256
 
 
 def anchor_weights(gx: torch.Tensor, rk: torch.Tensor, k2: torch.Tensor,
@@ -224,10 +236,15 @@ def inter_conv_dw_plain(gx: torch.Tensor, idx: torch.Tensor,
                         table: torch.Tensor, rk: torch.Tensor,
                         k2: torch.Tensor, dout: torch.Tensor,
                         sigma: float) -> torch.Tensor:
-    """dW [K, c, d] fp32 = sum over (b, p, a) of F^T dout."""
+    """dW [K, c, d] fp32 = sum over (b, p, a) of F^T dout, summed in fp32.
+    From a bf16 table the anchor weights are rounded to bf16 before the
+    neighbor contraction and F after it, where the TPU kernels round them
+    before their dW product (``_bwd_gather_w_kernel:1133, 1140``,
+    ``_bwd_kernel_dw2:1309, 1315``)."""
     dout = build.widen(dout)
     dW = dout.new_zeros(rk.shape[1], table.shape[3], dout.shape[-1])
-    for s, e, F in _f_chunks(gx, idx, table, rk, k2, sigma):
+    for s, e, F in _f_chunks(gx, idx, table, rk, k2, sigma,
+                             table.dtype == torch.bfloat16):
         dW += torch.einsum('bpakc,bpad->kcd', F, dout[:, :, s:e])
     return dW
 
@@ -309,6 +326,17 @@ def bwd_mma_route(dtype, K: int, c: int, nn: int, na: int,
             and (d is None or d % BWD_MMA_SD == 0))
 
 
+def dw_mma_route(dtype, K: int, c: int, d: int, nn: int, na: int) -> bool:
+    """Whether the fused dW runs the bf16 tensor-core kernel
+    (``inter_dw_mma_kernel``): a bf16 table and K == 24, na == 60, c % 16
+    == 0, d % 64 == 0 and 1 <= nn <= 64 (every fused-route layer of both
+    models). fp32 and the other shapes the wrapper takes run the template
+    (``inter_dw_kernel``)."""
+    return (dtype == torch.bfloat16 and K == N_KERNEL and na == DW_MMA_NA
+            and c % DW_MMA_CC == 0 and d % DW_MMA_BN == 0
+            and 1 <= nn <= DW_MMA_MAX_NN)
+
+
 def inter_conv(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
                rk: torch.Tensor, k2: torch.Tensor, W: torch.Tensor,
                sigma: float) -> torch.Tensor:
@@ -368,11 +396,26 @@ def inter_conv_dtable(gx: torch.Tensor, idx: torch.Tensor, q: int,
     return dT
 
 
+def dw_splits(M: int, c: int, d: int, mma: bool) -> int:
+    """Row ranges of a dW call over M rows (64-row tiles): the tensor-core
+    kernel's blocks own 16 channels and 64 columns and run one an SM, so
+    they aim for DW_MMA_BLOCKS; the template's own 8 channels and 64 or 128
+    columns, several an SM."""
+    row_tiles = -(-M // 64)
+    if mma:
+        return build.n_splits((d // DW_MMA_BN) * (c // DW_MMA_CC), row_tiles,
+                              DW_MMA_BLOCKS)
+    bn = 128 if d % 128 == 0 else 64
+    return build.n_splits((d // bn) * (c // 8), row_tiles)
+
+
 def inter_conv_dw(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
                   rk: torch.Tensor, k2: torch.Tensor, dout: torch.Tensor,
                   sigma: float) -> torch.Tensor:
-    """dW kernel wrapper: plain version on the CPU, CUDA kernel on the card
-    (per-row-range partials summed in a fixed order: deterministic)."""
+    """dW kernel wrapper -> fp32 dW: plain version on the CPU, CUDA kernel on
+    the card: the tensor-core kernel where ``dw_mma_route`` holds (bf16),
+    else the template. Both sum per-row-range partials in a fixed order:
+    deterministic."""
     if dout.device.type == 'cpu':
         return inter_conv_dw_plain(gx, idx, table, rk, k2, dout, sigma)
     W_shape = (rk.shape[1], table.shape[3], dout.shape[-1])
@@ -383,17 +426,21 @@ def inter_conv_dw(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
     if K != N_KERNEL or d % 64 != 0:
         raise ValueError(f'inter_conv_dw: kernel needs K == {N_KERNEL} and '
                          f'd % 64 == 0; got K={K} d={d}')
-    bn = 128 if d % 128 == 0 else 64
-    splits = build.n_splits((d // bn) * (c // 8), -(-b * p2 * na // 64))
+    mma = dw_mma_route(table.dtype, K, c, d, nn, na)
+    splits = dw_splits(b * p2 * na, c, d, mma)
     dev = dout.device
     ws = torch.empty((splits, K, c, d), dtype=torch.float32, device=dev)
     dW = torch.empty((K, c, d), dtype=torch.float32, device=dev)
+    ptrs = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(), rk.data_ptr(),
+            k2.data_ptr(), dout.data_ptr(), ws.data_ptr(), dW.data_ptr(), b,
+            p2, nn, q, na, K, c, d, float(sigma), splits)
     launches['inter_conv_dw'] += 1
-    build.launch('epn_inter_conv_bwd_w', gx.data_ptr(), idx.data_ptr(),
-                 table.data_ptr(), rk.data_ptr(), k2.data_ptr(),
-                 dout.data_ptr(), ws.data_ptr(), dW.data_ptr(), b, p2, nn, q,
-                 na, K, c, d, float(sigma), splits, bf16,
-                 build.stream(dout))
+    if mma:
+        routes['dw_mma'] += 1
+        build.launch('epn_inter_conv_bwd_w_mma', *ptrs, build.stream(dout))
+    else:
+        routes['dw'] += 1
+        build.launch('epn_inter_conv_bwd_w', *ptrs, bf16, build.stream(dout))
     return dW
 
 

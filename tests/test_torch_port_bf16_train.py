@@ -174,20 +174,24 @@ def test_inter_conv_bf16_backward_matches_pallas_vjp():
     dT: normwise 5e-4 (8.3e-5 measured): the plain dTable rounds dF, the
     anchor weights and each slot's sum to bf16 where _bwd_gather_w_kernel
     does, so only fp32 summation order flips a rounding (3.6e-3 while it
-    rounded none). dW: 1e-2, the fused dW keeps F in fp32 where the TPU
-    kernel rounds it (3.2e-3 measured)."""
-    _fused_bf16_backward_case(16, 64, 32, seed=16, tp_want=8)
+    rounded none). dW: normwise 6e-4 (1.2e-4 measured): the plain dW
+    rounds the anchor weights and F to bf16 before its fp32 product where
+    _bwd_gather_w_kernel does (:1133, :1140); 3.2e-3 while it kept F in
+    fp32, under a bound of 1e-2."""
+    _fused_bf16_backward_case(16, 64, 32, seed=16, tp_want=8, dw_tol=6e-4)
 
 
 def test_inter_conv_bf16_split_backward_matches_pallas_vjp():
     """The same on the split route (_call_gather_w_bwd_split ->
     _bwd_kernel_dtab / _bwd_kernel_dw2: nn = 32, tp = 4), whose dF, anchor
     weights and slot sums round where the one-kernel route's do: dT
-    normwise 5e-4 (5.6e-6 measured), dW 1e-2 (3.1e-3)."""
-    _fused_bf16_backward_case(32, 64, 64, seed=32, tp_want=4)
+    normwise 5e-4 (5.6e-6 measured); dW 2.5e-5 (4.7e-6 measured; the
+    weights and F rounded where _bwd_kernel_dw2 rounds them, :1309,
+    :1315; 3.1e-3 in fp32, under 1e-2)."""
+    _fused_bf16_backward_case(32, 64, 64, seed=32, tp_want=4, dw_tol=2.5e-5)
 
 
-def _fused_bf16_backward_case(N, C, D, seed, tp_want):
+def _fused_bf16_backward_case(N, C, D, seed, tp_want, dw_tol):
     rng = np.random.RandomState(seed)
     B, P, AC, Q, K, sigma = 2, 16, 4, 61, 24, 0.1
     gx = (0.3 * rng.randn(B, P, N, 3)).astype(np.float32)
@@ -223,7 +227,7 @@ def _fused_bf16_backward_case(N, C, D, seed, tp_want):
     assert t_tab.grad.dtype == t_W.grad.dtype == torch.bfloat16
     assert _normwise(t_tab.grad.reshape(B, Q, AC * C),
                      np.asarray(jdt, np.float32)[:, :Q]) <= 5e-4
-    assert _normwise(t_W.grad.reshape(K * C, D), jdw) <= 1e-2
+    assert _normwise(t_W.grad.reshape(K * C, D), jdw) <= dw_tol
 
 
 @pytest.mark.parametrize('dtype', ['fp32', 'bf16'])

@@ -10,7 +10,9 @@ inter dTable / dW), their determinism
 and a bf16 train step's launches; the W-off inter conv (fp32 and bf16)
 with the composed route, and a bf16 inv train step's launches; the bf16
 inter backward scatter on tensor cores (the fused dTable and the W-off dG)
-at every model layer and at its edges, and the template off its envelope.
+at every model layer and at its edges, and the template off its envelope;
+the bf16 fused dW on tensor cores at model layers and at its edges, its
+determinism, and the template off its envelope.
 
 Run on a machine with the card:
   python -m pytest tests/test_torch_port_gpu.py -q -m gpu --noconftest
@@ -743,6 +745,82 @@ def test_inter_bwd_off_envelope_takes_the_template(cuda, entry, dtype, c, d):
     assert [k for k in ic.routes if ic.routes[k] > before[k]] == [entry]
     assert _rel(got, getattr(ic, f'inter_conv_{entry}_plain')(*args)) <= \
         (1e-5 if dtype == torch.float32 else 4e-3)
+
+
+def _dw_case(cuda, b, p1, stride, nn, c, d, dtype=BF16, seed=0):
+    """(routes taken, the kernel's dW, a second call's dW, the plain
+    version's dW) of one inter_conv_dw call, a third of the neighbor slots
+    shadow."""
+    gx, idx, f, rk, k2, _, dout = _inter_operands(cuda, b, p1, stride, nn, c,
+                                                  d, seed=seed)
+    idx[:, :, ::3] = p1
+    f, dout = f.to(dtype), dout.to(dtype)
+    ic = tkern.inter_conv
+    before = dict(ic.routes)
+    got = ic.inter_conv_dw(gx, idx, f, rk, k2, dout, 0.08)
+    again = ic.inter_conv_dw(gx, idx, f, rk, k2, dout, 0.08)
+    torch.cuda.synchronize()
+    route = [k for k in ic.routes if ic.routes[k] > before[k]]
+    return route, got, again, ic.inter_conv_dw_plain(gx, idx, f, rk, k2,
+                                                     dout, 0.08)
+
+
+# (b, p1, stride, nn, c, d): cls L1 and L5, inv B2L1
+DW_MMA_LAYERS = [(4, 512, 1, 16, 64, 64), (4, 128, 1, 16, 256, 256),
+                 (4, 128, 1, 32, 128, 128)]
+
+
+@pytest.mark.parametrize('b,p1,stride,nn,c,d', DW_MMA_LAYERS)
+def test_inter_dw_mma_kernel_matches_plain(cuda, b, p1, stride, nn, c, d):
+    """The tensor-core dW at cls L1 and L5 and inv B2L1: taken by the
+    wrapper, within 1e-3 (normwise) of the plain version at the same
+    rounding points (the anchor weights and F in bf16, fp32 sums), and
+    bitwise equal on a second call (fixed-order partial sums, no
+    atomics)."""
+    route, got, again, want = _dw_case(cuda, b, p1, stride, nn, c, d,
+                                       seed=nn + c)
+    assert route == ['dw_mma']
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 1e-3
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('b,p1,stride,nn,c,d', [
+    (1, 33, 1, 8, 16, 64), (3, 45, 3, 40, 48, 192), (2, 64, 2, 64, 32, 128)])
+def test_inter_dw_mma_kernel_edges(cuda, b, p1, stride, nn, c, d):
+    """The tensor-core dW's edges: rows not a whole number of 64-row tiles
+    (33 and 15 points), nn padded to whole k16 steps of neighbors (8, 40)
+    and nn = 64, 16 and 48 channels, d = 192: within 1e-3 of the plain
+    version, bitwise equal on a second call."""
+    route, got, again, want = _dw_case(cuda, b, p1, stride, nn, c, d,
+                                       seed=p1 + nn)
+    assert route == ['dw_mma']
+    assert _rel(got, want) <= 1e-3 and torch.equal(got, again)
+
+
+@pytest.mark.parametrize('dtype,c,d', [(torch.float32, 64, 64),
+                                       (BF16, 40, 64), (BF16, 64, 64)])
+def test_inter_dw_off_envelope_takes_the_template(cuda, dtype, c, d):
+    """fp32, bf16 channels that are not a multiple of 16, and bf16 at 12
+    anchors (the tensor-core kernel takes 60) run the template
+    (``inter_dw_kernel``): 1e-4 of the plain version in fp32; in bf16 1e-3,
+    its F rounded at the plain version's rounding points."""
+    if c == 64 and dtype == BF16:
+        gx, idx, f, rk, k2, _, dout = _inter_operands(cuda, 2, 64, 1, 16, c,
+                                                      d, seed=3)
+        f, dout, rk = f[:, :, :12].to(BF16), dout[:, :, :12].to(BF16), rk[:12]
+        f, dout = f.contiguous(), dout.contiguous()
+        ic = tkern.inter_conv
+        before = dict(ic.routes)
+        got = ic.inter_conv_dw(gx, idx, f, rk.contiguous(), k2, dout, 0.08)
+        torch.cuda.synchronize()
+        route = [k for k in ic.routes if ic.routes[k] > before[k]]
+        want = ic.inter_conv_dw_plain(gx, idx, f, rk, k2, dout, 0.08)
+    else:
+        route, got, _, want = _dw_case(cuda, 2, 64, 1, 16, c, d, dtype=dtype)
+    assert route == ['dw']
+    assert _rel(got, want) <= (1e-4 if dtype == torch.float32 else 1e-3)
 
 
 @pytest.mark.parametrize('sb', [1, 12])

@@ -1,7 +1,10 @@
 """Which kernel the bf16 inter backward scatter wrappers (the fused dTable
-and the W-off dG) launch on the card, decided on the CPU: every such layer
-of both models' full-width builds goes to the tensor-core kernel
-(``bwd_mma_route``), fp32 and the shapes off its envelope to the template.
+and the W-off dG) and the fused dW launch on the card, decided on the CPU:
+every such layer of both models' full-width builds goes to the tensor-core
+kernel (``bwd_mma_route``, ``dw_mma_route``), fp32 and the shapes off its
+envelope to the template; a bf16 ``InterConvFn`` backward reaching the
+wrappers' card branch (tensors on the meta device, the launches recorded)
+counts the tensor-core dW at every fused-route layer.
 The kernels themselves are held against their plain versions on the card
 (tests/test_torch_port_gpu.py); the plain versions against the JAX package
 in tests/test_torch_port_bf16_train.py and tests/test_torch_port_inv_bf16.py.
@@ -69,3 +72,109 @@ def test_reset_counts_clears_the_scatter_routes():
     tkern.reset_counts()
     assert set(ic.routes.values()) == {0}
     assert {'dtable_mma', 'dtable', 'dg_mma', 'dg'} <= set(ic.routes)
+
+
+def _fused_layers(name):
+    """(K, c, d, nn, na) of every inter conv of the full-width model whose
+    backward takes the fused route (dTable and dW kernels)."""
+    return [(K, c, d, nn, na) for entry, K, c, d, nn, na
+            in _scatter_layers(name) if entry == 'dtable']
+
+
+@pytest.mark.parametrize('name,n_fused', [('cls_so3net_pn', 6),
+                                          ('inv_so3net_pn', 3)])
+def test_every_fused_dw_layer_takes_the_tensor_core_kernel(name, n_fused):
+    layers = _fused_layers(name)
+    assert len(layers) == n_fused
+    ic = tkern.inter_conv
+    for K, c, d, nn, na in layers:
+        assert ic.dw_mma_route(BF16, K, c, d, nn, na), (c, d, nn)
+        assert not ic.dw_mma_route(torch.float32, K, c, d, nn, na)
+
+
+@pytest.mark.parametrize('K,c,d,nn,na', [(24, 40, 64, 16, 60),
+                                         (24, 64, 96, 16, 60),
+                                         (24, 64, 32, 16, 60),
+                                         (24, 64, 64, 65, 60),
+                                         (24, 64, 64, 16, 12),
+                                         (18, 64, 64, 16, 60)])
+def test_dw_shapes_off_the_envelope_take_the_template(K, c, d, nn, na):
+    """Channels not a multiple of 16, d not a multiple of 64, more than 64
+    neighbors, another group, another kernel size."""
+    assert not tkern.inter_conv.dw_mma_route(BF16, K, c, d, nn, na)
+
+
+def _card_shapes(monkeypatch):
+    """Let the inter wrappers take their card branch on meta tensors: the
+    device check skipped, each launch recorded by its C entry's name."""
+    ic = tkern.inter_conv
+    launched = []
+
+    def dims(kernel, gx, idx, table_shape, rk, k2, W_shape, **_):
+        b, q, na, c = table_shape
+        return b, idx.shape[1], idx.shape[2], q, na, W_shape[0], c, W_shape[2]
+    monkeypatch.setattr(ic, '_check', dims)
+    monkeypatch.setattr(ic.build, 'launch', lambda name, *a: launched.append(
+        name))
+    monkeypatch.setattr(ic.build, 'stream', lambda t: 0)
+    return launched
+
+
+@pytest.mark.parametrize('name', ['cls_so3net_pn', 'inv_so3net_pn'])
+def test_bf16_backward_counts_the_tensor_core_dw(name, monkeypatch):
+    """A bf16 InterConvFn forward and backward at every fused-route layer
+    of the model (b = 1, 64 points) on the card branch: one 'dw_mma' and no
+    'dw' a layer, launched through epn_inter_conv_bwd_w_mma, and the dW
+    gradient in W's bf16."""
+    launched = _card_shapes(monkeypatch)
+    ic = tkern.inter_conv
+    meta = torch.device('meta')
+    layers = _fused_layers(name)
+    tkern.reset_counts()
+    for K, c, d, nn, na in layers:
+        p = 64
+        table = torch.empty((1, p, na, c), dtype=BF16, device=meta,
+                            requires_grad=True)
+        W = torch.empty((K, c, d), dtype=BF16, device=meta,
+                        requires_grad=True)
+        out = ic.InterConvFn.apply(
+            torch.empty((1, p, nn, 3), device=meta),
+            torch.empty((1, p, nn), dtype=torch.int32, device=meta), table,
+            torch.empty((na, K, 3), device=meta),
+            torch.empty((K,), device=meta), W, 0.1)
+        out.backward(torch.empty_like(out))
+        assert W.grad.dtype == BF16 and W.grad.shape == (K, c, d)
+    n = len(layers)
+    assert ic.routes['dw_mma'] == n and ic.routes['dw'] == 0
+    assert ic.launches['inter_conv_dw'] == n
+    assert launched.count('epn_inter_conv_bwd_w_mma') == n
+    assert 'epn_inter_conv_bwd_w' not in launched
+    tkern.reset_counts()
+
+
+def test_fp32_backward_counts_the_template_dw(monkeypatch):
+    """The fp32 (parity) backward at cls L1 keeps the template: 'dw'."""
+    launched = _card_shapes(monkeypatch)
+    ic = tkern.inter_conv
+    meta = torch.device('meta')
+    K, c, d, nn, na = _fused_layers('cls_so3net_pn')[0]
+    tkern.reset_counts()
+    W = torch.empty((K, c, d), device=meta, requires_grad=True)
+    out = ic.InterConvFn.apply(
+        torch.empty((1, 64, nn, 3), device=meta),
+        torch.empty((1, 64, nn), dtype=torch.int32, device=meta),
+        torch.empty((1, 64, na, c), device=meta, requires_grad=True),
+        torch.empty((na, K, 3), device=meta), torch.empty((K,), device=meta),
+        W, 0.1)
+    out.backward(torch.empty_like(out))
+    assert (ic.routes['dw'], ic.routes['dw_mma']) == (1, 0)
+    assert launched.count('epn_inter_conv_bwd_w') == 1
+    tkern.reset_counts()
+
+
+def test_reset_counts_clears_the_dw_routes():
+    ic = tkern.inter_conv
+    ic.routes['dw_mma'] += 3
+    ic.routes['dw'] += 1
+    tkern.reset_counts()
+    assert ic.routes['dw_mma'] == ic.routes['dw'] == 0
