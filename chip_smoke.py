@@ -6,18 +6,19 @@
 from ``git archive <commit> epn_pointcloud_tpu_torch/csrc | tar -x -C D``);
 its inter_conv.cu, inter_conv_bwd.cu and intra_conv.cu are each built alone
 beside the kernels, and its epn_inter_conv_mma, epn_intra_conv,
-epn_intra_conv_prenorm_df, epn_inter_conv_bwd_table, epn_inter_conv_dg
-and epn_inter_conv_bwd_w (bf16) are timed beside this tree's bf16 W-fused
-inter forward, prenorm intra forward, B6 df, fused dTable, W-off dG and
-fused dW at every call of phases 4, 9 and 16, on the same inputs, in turns
-(parent, new, new, parent).
+epn_intra_conv_prenorm_df, epn_inter_conv_bwd_table, epn_inter_conv_dg,
+epn_inter_conv_bwd_w and epn_intra_conv_bwd_w (bf16) are timed beside
+this tree's bf16 W-fused inter forward, prenorm intra forward, B6 df,
+fused dTable, W-off dG, fused dW and B6 dW at every call of phases 4, 9
+and 16, on the same inputs, in turns (parent, new, new, parent).
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from csrc/ (one nvcc a source, in parallel,
      sm_90a), and count the tensor-core instructions (HMMA, GMMA) in the
      SASS of the bf16 tensor-core kernels (the grouped conv forward and
      backward, the W-fused inter forward, the intra forward and B6 df, the
-     inter backward scatter, the fused inter dW; cuobjdump): none fails;
+     inter backward scatter, the fused inter dW, the intra dW; cuobjdump):
+     none fails;
   2. at every flagship layer shape of cls_so3net_pn (b=32, 1024 points, 60
      anchors), compare each kernel with its plain PyTorch version on the
      card, on the inputs the model itself gives it (captured from a b=32
@@ -87,9 +88,11 @@ Phases (any failure exits non-zero and prints no result line):
      the tensor-core kernel, its fp32 dW within 1e-3 of the plain version
      at the TPU kernel's rounding points (the anchor weights and F in
      bf16) and bitwise equal on a second call, timed beside one
-     torch.mm(F^T, dout); the fp32 step's dTable and intra df (phase 6)
-     beside one torch.mm of their products (dout2 W2^T; the gathered
-     dout by W^T);
+     torch.mm(F^T, dout); every B6 dW on its tensor-core kernel
+     (intra_dw_mma_kernel), within 1e-3 of the plain version and bitwise
+     equal on a second call, timed beside one torch.mm of the gathered z
+     by dout; the fp32 step's dTable and intra df (phase 6) beside one
+     torch.mm of their products (dout2 W2^T; the gathered dout by W^T);
  10. [bf16-train] one bf16 train step (b=12) on the kernel path and on the
      plain path from the same weights: loss to rtol 1e-3, every parameter
      with a gradient on both paths, per-leaf gradient cosine >= 0.9 and its
@@ -98,6 +101,9 @@ Phases (any failure exits non-zero and prints no result line):
      less 0.02 (bf16 gradients are that sensitive to rounding;
      the leaves whose float64 gradient is ~0 are bf16 noise: the kernel
      path's at most 4 times the plain path's plus 1e-2), running statistics;
+     every B6 dW call of the kernel path's step within 1e-3 (normwise) of
+     intra_conv_prenorm_dw_plain on its own inputs, and all of them on the
+     tensor-core dW (the 'dw_mma' count printed);
      the whole step timed on both paths (median of 5), and the bf16 step's
      loss and per-leaf gradient cosine against the fp32 step on the same
      weights and batch printed (not gated);
@@ -109,7 +115,10 @@ Phases (any failure exits non-zero and prints no result line):
      (fp32): each kernel call of one triplet step (two legs of b=16
      1024-point patches from the port's FragmentLoader on a dense synthetic
      3DMatch tree) against its plain version on the same inputs, timed
-     (fps and ball_query indices equal; normwise <= 1e-5 for the forward
+     (beside one PyTorch call where one computes the same function: the
+     torch.mm yardsticks of phase 9, and for the W-off inter_conv_f one
+     batched torch.matmul of the anchor weights by the gathered table
+     rows; fps and ball_query indices equal; normwise <= 1e-5 for the forward
      kernels, df, dTable and the W-off inter_conv_f / inter_conv_dg, <=
      1e-4 for the dW reductions); then the composed backward route (its
      four parts) timed beside the fused dTable + dW at B1L0, B2L0, B3L0;
@@ -134,14 +143,16 @@ Phases (any failure exits non-zero and prints no result line):
      prenorm intra conv with a fold a patch and its backward, moments, the
      grouped conv and its backward, the fused inter backward, every
      dTable and dG on the tensor-core scatter and every dW on the
-     tensor-core kernel as in phase 9; torch.addmm
+     tensor-core kernel as in phase 9, every B6 dW on its tensor-core
+     kernel as in phase 9; torch.addmm
      and torch.mm beside the grouped conv's); the
      composed route's dW product against its float64 product (<= 1e-3);
  17. [inv-bf16-train] one bf16 inv step on the kernel and the plain path
      from the same weights by the rule of [bf16-train] (loss to rtol 1e-3,
      every parameter with a gradient, per-leaf cosine >= 0.9, the median
      no lower than the kernel path's noise floor of three draws less
-     0.02), peak memory,
+     0.02; every B6 dW call within 1e-3 of its plain version, all on
+     the tensor-core dW), peak memory,
      the step timed on both paths; bf16 vs fp32 printed;
  18. [inv-bf16-descriptor] bf16 descriptors at b=48, kernel vs plain path:
      per-patch cosine >= 0.999 (or the kernel path's noise floor less
@@ -376,10 +387,11 @@ def phase_build():
 # the bf16 kernels that run on tensor cores: the grouped conv forward and
 # backward, the W-fused inter conv forward, the intra conv forward and B6 df,
 # the inter backward scatter (the fused dTable and the W-off dG), the fused
-# inter dW
+# inter dW, the intra dW (B6 dW and the plain form's)
 TC_KERNELS = ('grouped_conv_mma_kernel', 'grouped_bwd_mma_kernel',
               'inter_conv_mma_kernel', 'intra_conv_mma_kernel',
-              'inter_bwd_mma_kernel', 'inter_dw_mma_kernel')
+              'inter_bwd_mma_kernel', 'inter_dw_mma_kernel',
+              'intra_dw_mma_kernel')
 
 
 def tensor_core_sass(so):
@@ -447,6 +459,55 @@ def capture_calls(names, run):
         for n, m in mods.items():
             setattr(m, n, saved[n])
     return calls
+
+
+class recording:
+    """Inside the block, each call of the kernel wrapper ``name`` (a module
+    function in ops/kernels) is recorded as (args, output): the calls of
+    the step being run, for a check after it that launches nothing."""
+
+    def __init__(self, name):
+        from epn_pointcloud_tpu_torch.ops import kernels
+        self.name = name
+        self.module = next(m for m in kernels.MODULES if hasattr(m, name))
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def rec(*args):
+            out = self.orig(*args)
+            self.calls.append((args, out))
+            return out
+        setattr(self.module, self.name, rec)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def check_dw_calls(tag, calls, routes, n_expect):
+    """Every B6 dW call of a bf16 step (``calls``: (args, dW) recorded by
+    ``recording``) within 1e-3 (normwise) of intra_conv_prenorm_dw_plain on
+    its own inputs, finite, and all ``n_expect`` of them on the tensor-core
+    dW (``routes``: ``route_counts()`` read after the step)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    plain = kernels.intra_conv.intra_conv_prenorm_dw_plain
+    rels = []
+    with torch.no_grad():
+        for args, dW in calls:
+            rels.append(rel_err(dW, plain(*args)))
+            assert bool(torch.isfinite(dW).all()), f'{tag} non-finite dW'
+    intra = routes['intra']
+    log(f'{tag} B6 dW: {len(calls)} calls, on the tensor-core dW '
+        f'dw_mma={intra["dw_mma"]} (SGEMM dw={intra["dw"]}); rel_norm_err '
+        f'vs intra_conv_prenorm_dw_plain per call '
+        f'{" ".join(f"{r:.2e}" for r in rels)} (<= 1e-3)')
+    assert len(calls) == n_expect and intra['dw_mma'] == n_expect and \
+        intra['dw'] == 0, (len(calls), intra, n_expect)
+    assert max(rels) <= 1e-3, rels
+    return rels
 
 
 def _shape_desc(name, args):
@@ -622,7 +683,8 @@ def route_counts():
     tensor-core kernel, 'sgemm': the SGEMM): the W-fused inter forward's
     (with the backward scatter's and the fused dW's: 'dtable_mma' /
     'dg_mma' / 'dw_mma', the bf16 tensor-core kernels, or 'dtable' / 'dg'
-    / 'dw', the templates), and the intra forward's with B6 df's."""
+    / 'dw', the templates), and the intra forward's with B6 df's (with
+    dW's: 'dw_mma', the bf16 tensor-core kernel, or 'dw', the SGEMM)."""
     from epn_pointcloud_tpu_torch.ops import kernels
     return {'inter': dict(kernels.inter_conv.routes),
             'intra': dict(kernels.intra_conv.routes)}
@@ -630,10 +692,10 @@ def route_counts():
 
 def check_routes(tag, dtype, counts, routes):
     """Every W-fused inter forward, every fused dTable, W-off dG and fused
-    dW, and every intra forward and B6 df, of an entry run went through the
-    kernel of its dtype: the tensor-core kernels in bf16, the SGEMMs and the
-    templates in fp32 (``routes``: ``route_counts()``, read with
-    ``counts``)."""
+    dW, and every intra forward, B6 df and intra dW, of an entry run went
+    through the kernel of its dtype: the tensor-core kernels in bf16, the
+    SGEMMs and the templates in fp32 (``routes``: ``route_counts()``, read
+    with ``counts``)."""
     want = {}
     for conv, n in (('inter', counts['inter_conv']),
                     ('intra', counts['intra_conv']
@@ -642,10 +704,14 @@ def check_routes(tag, dtype, counts, routes):
         assert n > 0, (conv, counts)
         want[conv] = ({'mma': n, 'sgemm': 0} if dtype == 'bf16' else
                       {'mma': 0, 'sgemm': n})
-    for entry in ('dtable', 'dg', 'dw'):
-        n = counts[f'inter_conv_{entry}']
-        want['inter'].update({f'{entry}_mma': n, entry: 0} if dtype == 'bf16'
-                             else {f'{entry}_mma': 0, entry: n})
+    for conv, entry, n in (
+            ('inter', 'dtable', counts['inter_conv_dtable']),
+            ('inter', 'dg', counts['inter_conv_dg']),
+            ('inter', 'dw', counts['inter_conv_dw']),
+            ('intra', 'dw', counts['intra_conv_dw']
+             + counts['intra_conv_prenorm_dw'])):
+        want[conv].update({f'{entry}_mma': n, entry: 0} if dtype == 'bf16'
+                          else {f'{entry}_mma': 0, entry: n})
     log(f'{tag} launches by kernel: {routes}')
     assert routes == want, (routes, want)
 
@@ -1078,10 +1144,15 @@ def mm_library(name, args):
     A W; the fp32 intra df: the dout gathered through the inverse
     adjacency [M, 12d] by W^T [12d, c]; the fp32 dTable: the dF product it
     fuses, dout2 W2^T (the bf16 dTable's is timed by ``inter_bwd_extras``).
-    A bf16 product asks for an fp32 output, as the kernels' dW is. {} for
-    any other call."""
+    A bf16 product asks for an fp32 output, as the kernels' dW is. The
+    W-off F: one batched torch.matmul over the (point, anchor) rows of the
+    anchor weights [K, nn] (rounded to bf16 from a bf16 table, as the
+    kernel rounds them) by the gathered table rows [nn, c], in the table's
+    type, as the kernel stores F. {} for any other call."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
+    if name == 'inter_conv_f':
+        return _woff_f_library(*args)
     if name == 'inter_conv_dtable' and args[6].dtype == torch.float32:
         W = args[5]
         K, c, d = W.shape
@@ -1116,6 +1187,27 @@ def mm_library(name, args):
     return {'library_ms': ms}
 
 
+def _woff_f_library(gx, idx, table, rk, k2, sigma):
+    """{'library_ms': one torch.matmul of the W-off F, w^T [M, K, nn] by G
+    [M, nn, c] over the M = b * p2 * na (point, anchor) rows}, both operands
+    formed beforehand (untimed) from the call's inputs."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops.kernels import inter_conv
+    b, _, na, c = table.shape
+    K, nn = rk.shape[1], idx.shape[2]
+    w = inter_conv.anchor_weights(gx, rk, k2, sigma).to(table.dtype)
+    wt = w.permute(0, 1, 3, 4, 2).reshape(-1, K, nn)        # [M, K, nn]
+    del w
+    padded = torch.cat([table, table.new_zeros(b, 1, na, c)], dim=1)
+    G = inter_conv._gather_chunk(padded, idx.long(), 0, na)  # [b,p2,nn,na,c]
+    G = G.permute(0, 1, 3, 2, 4).reshape(-1, nn, c)
+    del padded
+    ms = time_ms(lambda: torch.matmul(wt, G), reps=5, warmup=2)
+    del wt, G
+    torch.cuda.empty_cache()
+    return {'library_ms': ms}
+
+
 def _library_note(row):
     note = ''
     if 'library_ms' in row:
@@ -1135,10 +1227,10 @@ def _library_note(row):
 def _extras_ok(row):
     """The own gates of a bf16 inter forward (``inter_conv_extras``), intra
     forward or B6 df (``intra_conv_extras``), backward scatter
-    (``inter_bwd_extras``) and inter dW (``inter_dw_extras``): the
-    tensor-core kernel ran, its output is bitwise equal on a second call
-    (not the scatter's: atomics), and (inter forward) within 1e-3
-    (normwise) of ``inter_conv_mma_plain``."""
+    (``inter_bwd_extras``), inter dW (``inter_dw_extras``) and intra dW
+    (``intra_dw_extras``): the tensor-core kernel ran, its output is
+    bitwise equal on a second call (not the scatter's: atomics), and
+    (inter forward) within 1e-3 (normwise) of ``inter_conv_mma_plain``."""
     return (row.get('route', 'mma') in ('mma', 'dtable_mma', 'dg_mma',
                                         'dw_mma')
             and row.get('bitwise_repeat', True)
@@ -1148,7 +1240,8 @@ def _extras_ok(row):
 # the earlier tree's kernels (--parent-csrc), timed beside this tree's:
 # 'fn' its epn_inter_conv_mma, 'intra_fwd' its epn_intra_conv, 'intra_df'
 # its epn_intra_conv_prenorm_df, 'dtable' its epn_inter_conv_bwd_table, 'dg'
-# its epn_inter_conv_dg, 'dw' its epn_inter_conv_bwd_w
+# its epn_inter_conv_dg, 'dw' its epn_inter_conv_bwd_w, 'intra_dw' its
+# epn_intra_conv_bwd_w
 PARENT = {}
 
 
@@ -1199,6 +1292,60 @@ def inter_dw_extras(name, args, got):
         rec['parent_ms'], rec['same_timer_ms'] = time_abba(
             call(PARENT['dw'], False, (1,)),
             call(build.library().epn_inter_conv_bwd_w_mma, True, ()))
+        del dW, keep
+    torch.cuda.empty_cache()
+    return rec
+
+
+def intra_dw_extras(name, args, got):
+    """For a bf16 call of the intra dW (B6 dW, or the plain form's): the
+    kernel it ran (``route``, from the wrapper's counts: 'dw_mma' for the
+    tensor-core kernel) and whether a second call gives the same bits
+    (``bitwise_repeat``). With --parent-csrc also the earlier tree's
+    epn_intra_conv_bwd_w (bf16) on the same inputs, timed with this tree's
+    C entry in turns (parent, new, new, parent; each with its own
+    workspace and splits, into one preallocated dW; ``parent_ms``,
+    ``same_timer_ms``). {} for any other call."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    from epn_pointcloud_tpu_torch.ops.kernels import build
+    if name not in ('intra_conv_dw', 'intra_conv_prenorm_dw') or \
+            args[0].dtype != torch.bfloat16:
+        return {}
+    ik = kernels.intra_conv
+    before = dict(ik.routes)
+    again = getattr(ik, name)(*args)
+    torch.cuda.synchronize()
+    rec = {'route': next(k for k in ik.routes if ik.routes[k] > before[k]),
+           'bitwise_repeat': torch.equal(got, again)}
+    del again
+    if PARENT:
+        f, ti, dout = args[0], args[-2], args[-1]
+        ss = args[1] if name == 'intra_conv_prenorm_dw' else None
+        b, p, na, c = f.shape
+        K, d = ti.shape[1], dout.shape[-1]
+        dW = torch.empty_like(got)
+        keep = []
+
+        def call(fn, mma, tail):
+            splits, rows = ik.dw_splits(b * p, na, K, c, d, mma)
+            ws = torch.empty((splits, K, c, d), dtype=torch.float32,
+                             device=got.device)
+            keep.append(ws)
+            ptrs = (f.data_ptr(), ti.data_ptr(),
+                    0 if ss is None else ss.data_ptr(), dout.data_ptr(),
+                    ws.data_ptr(), dW.data_ptr(), b, p, na, K, c, d,
+                    2 * na * c if ss is not None and ss.shape[0] > 1 else 0,
+                    splits) + ((rows,) if mma else tail)
+
+            def run():
+                err = fn(*ptrs, build.stream(f))
+                if err:
+                    raise RuntimeError(f'{name}: CUDA error {err}')
+            return run
+        rec['parent_ms'], rec['same_timer_ms'] = time_abba(
+            call(PARENT['intra_dw'], False, (1,)),
+            call(build.library().epn_intra_conv_bwd_w_mma, True, ()))
         del dW, keep
     torch.cuda.empty_cache()
     return rec
@@ -1547,6 +1694,7 @@ def phase_backward_kernels(device, dtype='fp32'):
         row.update(intra_conv_extras(name, args, got))
         row.update(inter_bwd_extras(name, args, got[0]))
         row.update(inter_dw_extras(name, args, got[0]))
+        row.update(intra_dw_extras(name, args, got[0]))
         row['ok'] = row['ok'] and _extras_ok(row)
         lib = _library_note(row)
         log(f'{tag} {name} {layer} (out {row["shape"]}, {got[0].dtype}): '
@@ -1601,8 +1749,10 @@ def bf16_step_check(tag, models, loss, batch, scaled, per_step, f64, what):
     leaf: cosine >= BF16_LEAF_COS where the float64 gradient (``f64``, max
     |g| a leaf) is real, with a median no lower than the lowest of the three
     draws' medians less 0.02; a degenerate leaf's kernel gradient at most 4
-    times the plain one's plus 1e-2. The bf16 vs fp32 cosines are printed,
-    not gated."""
+    times the plain one's plus 1e-2; every B6 dW call of the kernel path
+    within 1e-3 of its plain version, on the tensor-core dW
+    (``check_dw_calls``). The bf16 vs fp32 cosines are printed, not
+    gated."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     mk, mp, m32 = models[:3]
@@ -1610,11 +1760,15 @@ def bf16_step_check(tag, models, loss, batch, scaled, per_step, f64, what):
     with compute_dtype('bf16'):
         kernels.reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        loss_k = loss(mk, batch)
-        loss_k.backward()
+        with recording('intra_conv_prenorm_dw') as dw_calls:
+            loss_k = loss(mk, batch)
+            loss_k.backward()
         torch.cuda.synchronize()
         mem_k = torch.cuda.max_memory_allocated() / 2 ** 30
         counts_k = kernels.counts()
+        dw_rels = check_dw_calls(tag, dw_calls, route_counts(),
+                                 per_step['intra_conv_prenorm_dw'])
+        del dw_calls
         torch.cuda.reset_peak_memory_stats()
         with kernels.plain():
             loss_p = loss(mp, batch)
@@ -1695,7 +1849,8 @@ def bf16_step_check(tag, models, loss, batch, scaled, per_step, f64, what):
             'noise_min_grad_cos': min(c[0] for c in cos_qs),
             'noise_median_grad_cos': med_q, 'noise_median_draws': med_qs,
             'min_grad_cos_vs_fp32': c32[0], 'peak_gib_kernel': mem_k,
-            'peak_gib_plain': mem_p, 'leaves': leaves}
+            'peak_gib_plain': mem_p, 'dw_rel_norm_errs': dw_rels,
+            'leaves': leaves}
 
 
 def phase_bf16_train_step(device, reps=5):
@@ -1966,10 +2121,12 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
             row['bytes_ms'], row['ops_ms'] = bound_ms(
                 wname, wargs, got[0] if len(got) == 1 else got)
             row.update(grouped_library(name, args))
+            row.update(mm_library(name, args))
             row.update(inter_conv_extras(name, args, got[0]))
             row.update(intra_conv_extras(name, args, got))
             row.update(inter_bwd_extras(name, args, got[0]))
             row.update(inter_dw_extras(name, args, got[0]))
+            row.update(intra_dw_extras(name, args, got[0]))
             row['ok'] = row['ok'] and _extras_ok(row)
             log(f'{tag} {name} {layer} ({row["shape"]}, {row["dtype"]}): '
                 f'max_abs_err={row["max_abs_err"]:.3e} rel_norm_err='
@@ -2407,7 +2564,8 @@ PARENT_SOURCES = {'inter_conv.cu': {'fn': 'epn_inter_conv_mma'},
                                         'dg': 'epn_inter_conv_dg',
                                         'dw': 'epn_inter_conv_bwd_w'},
                   'intra_conv.cu': {'intra_fwd': 'epn_intra_conv',
-                                    'intra_df': 'epn_intra_conv_prenorm_df'}}
+                                    'intra_df': 'epn_intra_conv_prenorm_df',
+                                    'intra_dw': 'epn_intra_conv_bwd_w'}}
 
 
 def load_parent(source, proc, so):

@@ -14,9 +14,9 @@
 // flagship forward (all seven layers). The SGEMM below (fp32, and bf16 off
 // the models' shapes) runs on the CUDA cores (no TF32, no wgmma), so the
 // fp32 FMA rate bounds it, and the design keeps the shared-memory traffic
-// per FMA low enough not to bound it first. The bf16 forward and B6 df of
-// every model layer run on tensor cores (intra_conv_mma_kernel, at the end
-// of this file), bound by the bf16 rate.
+// per FMA low enough not to bound it first. The bf16 forward, B6 df and dW
+// of every model layer run on tensor cores (intra_conv_mma_kernel and
+// intra_dw_mma_kernel, at the end of this file), bound by the bf16 rate.
 //
 // Design of the SGEMM: a classic register-blocked SGEMM whose A rows are
 // the flattened (point, anchor) pairs. A block computes a 128-row x
@@ -52,17 +52,45 @@
 // a gather, deterministic, no atomics. It replaces the df half of
 // _bwd_pallas -> _bwd_kernel (epn_pointcloud_tpu/ops/pallas/intra_conv.py).
 //
-// dW (intra_dw_kernel, the dW half of _bwd_kernel):
-//   dW[k, c, d] = sum_{b, p, a} f[b, p, trace_idx[a, k], c] * dout[b, p, a, d]
-// is a GEMM [K*C x rows] x [rows x D] reducing over rows = b*p*60 (368,640 at
-// b=12 on the first layers), bound by the FMA rate like the forward. A block
-// owns a 128 x BN tile of dW and one range of rows; it walks its rows 16 at
-// a time, staging the gathered A^T slice (the adjacency gather done in the
-// 16-byte staging loads, as in the forward) and the dout slice, with 8 x 8
-// outputs a thread. Each row range writes a partial dW to a workspace, and a
+// dW (the dW half of _bwd_kernel and _bwd_kernel_prenorm):
+//   dW[k, c, d] = sum_{b, p, a} z[b, p, trace_idx[a, k], c] * dout[b, p, a, d]
+// (z = f, or in the PRENORM form z = act(f * scale + shift) rounded to the
+// element type as the forward rounds it) is a GEMM [K*C x rows] x [rows x D]
+// reducing over rows = b*p*60 (368,640 at b=12 on the first layers): 2 *
+// rows * 12 * C * D operations against rows * (C + D) elements read, bound
+// by arithmetic. Each row range writes a partial dW to a workspace, and a
 // second launch (split_sum.cuh) adds the partials in a fixed order:
-// deterministic, no atomics. It runs in fp32 and bf16, and in the PRENORM
-// form stages z = act(f * scale + shift), rounded as the forward rounds it.
+// deterministic, no atomics; dW is fp32 (the caller's cast to a bf16 weight
+// rounds it once, where _bwd_pallas rounds dw2.astype(w2.dtype)).
+// bf16 at every model layer (60 anchors, 12 kernel points, C = D in 32, 64,
+// 128, 256) runs on tensor cores (intra_dw_mma_kernel, at the end of this
+// file; epn_intra_conv_bwd_w_mma): a block owns one range of rows in whole
+// groups of 8 points (480 rows, 30 k16 steps), 32 channels for all 12
+// kernel points (the 384 (k, c) rows of its dW) and 64 columns of D (32 at
+// D = 32): 8 warps of 48 x 64 outputs, 96 fp32 accumulators a thread
+// (250-252 registers, no spills), each gathered A fragment feeding 8 mma. Per group it stages the f rows of its channels and
+// the dout rows of its columns once, in bf16 (cp.async into XOR-swizzled
+// slabs, two sets of buffers: the group after next loads during this
+// one's product), folds f into z in place in the prenorm form (once an
+// element, where the SGEMM folds once for each kernel point and column
+// block that reads it), and adds z^T dout on mma.sync.m16n8k16: for kernel
+// point k the A fragment (z^T, ldmatrix.trans) takes reduction row (p, a)
+// from slab row (p, trace[a, k]), so the adjacency gather is the row
+// address each lane hands ldmatrix; B is the dout slab in order. Each pair
+// of k16 steps sums into a fresh accumulator, added to the running sum by a
+// rounding fp32 add (in place, the mma's truncating accumulation would lean
+// dW toward zero over a split's thousands of steps). Rows past a split's
+// end stage as zeros in both slabs. Each z element is read D / 64 times
+// from device memory, each dout element C / 32 times; the blocks that
+// share rows are neighbors in the grid (columns fastest), so the re-reads
+// meet L2. The splits aim at two waves of one block an SM (DW_MMA_BLOCKS
+// in ops/kernels/intra_conv.py), never a third wave's few blocks. fp32
+// (the parity mode) and the other bf16 shapes run
+// intra_dw_kernel, the register-blocked SGEMM on the CUDA cores: a block
+// owns a 128 x BN tile of dW and one range of rows; it walks its rows 16 at
+// a time, staging the gathered A^T slice (the adjacency gather, and the
+// fold, done in the 16-byte staging loads, as in the forward) and the dout
+// slice, with 8 x 8 outputs a thread.
 //
 // Prenorm backward (B6: _bwd_pallas -> _bwd_kernel_prenorm, the VJP of
 // intra_conv_prenorm), with u = f * scale + shift and z = act(u):
@@ -1004,6 +1032,252 @@ inline int block_points(int D) { return 512 / pick_bn(D); }
 
 }  // namespace mma
 
+// ------------------------------------------- bf16 dW on tensor cores
+
+namespace dwmma {
+
+using mma::kK;
+using mma::kNA;
+constexpr int kNP = 8;                 // points a group
+constexpr int kRows = kNP * kNA;       // 480 rows a group: 30 k16 steps
+constexpr int kCB = 32;                // channels a block
+constexpr int kKC = kK * kCB;          // the block's dW rows (k, c): 384
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kGroup = 2;              // k16 steps a fresh accumulator
+static_assert(kRows % (16 * kGroup) == 0, "whole groups of k16 steps");
+
+// A block's warps over its [kKC, BN] tile of dW: each warp 48 rows (MI = 3
+// m16 tiles) by all BN columns (NI n8 tiles; BN = 64: 96 accumulators a
+// thread), so each gathered A fragment feeds NI mma (warps of 96 x 32
+// would gather twice as many for the same products); shared memory:
+// the adjacency, then two buffers of the z slab [kRows, kCB] and the dout
+// slab [kRows, BN] (bf16)
+template <int BN>
+struct Cfg {
+  static constexpr int MI = kKC / kWarps / 16, NI = BN / 8;
+  static constexpr size_t kZ = (size_t)kRows * kCB * sizeof(bf16);
+  static constexpr size_t kBuf = kZ + (size_t)kRows * BN * sizeof(bf16);
+  static constexpr size_t kSmem = mma::kTraceBytes + 2 * kBuf;
+  static_assert(MI * kWarps * 16 == kKC && NI % 2 == 0, "warp tile");
+};
+
+// the columns of D a block owns: 64 where D allows, else 32
+__host__ __device__ inline int pick_bn(int D) { return D % 64 == 0 ? 64 : 32; }
+
+// The partial dW [kK, C, D] of split blockIdx.z (points pt_begin .. pt_end)
+// for channels c0 .. c0 + kCB (all 12 kernel points) and columns n0 .. n0 +
+// BN, a group of kNP points at a time over two sets of buffers: the group
+// after next's f and dout rows go out by cp.async (zeros past pt_end) while
+// this one's product runs. PRE: the slab's f is folded in place into z =
+// act(fold(f, scale, shift)) rounded to bf16, once an element, before the
+// product. The product adds z^T dout: for kernel point k the A fragment
+// (z^T, by ldmatrix.trans) takes its reduction row (p, a) from slab row
+// (p, trace[a, k]), so the gather is the row address each lane hands
+// ldmatrix; B is the dout slab in order. Each kGroup k16 steps go into a
+// fresh accumulator, added to the running sum by a rounding fp32 add.
+template <int BN, bool PRE>
+__global__ void __launch_bounds__(kThreads, 1)
+intra_dw_mma_kernel(const bf16* __restrict__ f, const int* __restrict__ trace,
+                    const float* __restrict__ ss,
+                    const bf16* __restrict__ dout, float* __restrict__ part,
+                    int n_pts, int P, int C, int D, int ss_stride,
+                    int pts_per_split) {
+  using G = Cfg<BN>;
+  extern __shared__ __align__(128) unsigned char dw_smem[];
+  int* s_trace = reinterpret_cast<int*>(dw_smem);
+  unsigned char* bufs = dw_smem + mma::kTraceBytes;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * BN, c0 = blockIdx.y * kCB, split = blockIdx.z;
+  const int pt_begin = split * pts_per_split;
+  const int pt_end = min(n_pts, pt_begin + pts_per_split);
+
+  for (int i = tid; i < kNA * kK; i += kThreads) {
+    const int a = i / kK, k = i - a * kK;
+    s_trace[k * kNA + a] = trace[i];
+  }
+
+  // the group of points pt0 .. into buffer s, one commit group
+  auto load = [&](int pt0, int s) {
+    if (pt0 < pt_end) {
+      const int live = min(kNP, pt_end - pt0) * kNA;
+      const size_t row0 = (size_t)pt0 * kNA;
+      bf16* zs = reinterpret_cast<bf16*>(bufs + s * G::kBuf);
+      bf16* ds = reinterpret_cast<bf16*>(bufs + s * G::kBuf + G::kZ);
+      for (int e = tid; e < kRows * (kCB / 8); e += kThreads) {
+        const int r = e / (kCB / 8), c8 = e % (kCB / 8) * 8;
+        const bool ok = r < live;
+        tc::cp16(tc::smem_addr(zs + tc::swz(r, c8, kCB / 8)),
+                 ok ? f + (row0 + r) * C + c0 + c8 : f, ok);
+      }
+      for (int e = tid; e < kRows * (BN / 8); e += kThreads) {
+        const int r = e / (BN / 8), c8 = e % (BN / 8) * 8;
+        const bool ok = r < live;
+        tc::cp16(tc::smem_addr(ds + tc::swz(r, c8, BN / 8)),
+                 ok ? dout + (row0 + r) * D + n0 + c8 : dout, ok);
+      }
+    }
+    tc::cp_commit();
+  };
+
+  // the lane's ldmatrix.trans rows and columns: A (z^T) reduction row a_row
+  // of a k16 step at channel column a_col of its m16 tile; B (dout) at the
+  // per-lane base b_off of each pair of n8 tiles (rows 16 apart keep the
+  // swizzle's XOR term, so a step adds its rows)
+  const int a_row = (lane & 7) + (lane >> 4) * 8;
+  const int a_col = ((lane >> 3) & 1) * 8;
+  int b_off[G::NI / 2];
+#pragma unroll
+  for (int nj = 0; nj < G::NI / 2; ++nj)
+    b_off[nj] = tc::swz((lane & 7) + ((lane >> 3) & 1) * 8,
+                        nj * 16 + (lane >> 4) * 8, BN / 8);
+
+  float acc[G::MI][G::NI][4];
+#pragma unroll
+  for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < G::NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) acc[mi][ni][h] = 0.f;
+
+  load(pt_begin, 0);
+  load(pt_begin + kNP, 1);
+  for (int pt0 = pt_begin, s = 0; pt0 < pt_end; pt0 += kNP, s ^= 1) {
+    tc::cp_wait<1>();
+    __syncthreads();  // this group's rows (and the adjacency) visible
+    const int live = min(kNP, pt_end - pt0) * kNA;
+    bf16* zs = reinterpret_cast<bf16*>(bufs + s * G::kBuf);
+    const bf16* ds = reinterpret_cast<const bf16*>(bufs + s * G::kBuf + G::kZ);
+    if constexpr (PRE) {
+      // the fold in place, live rows only (a zero row stays zero)
+      for (int e = tid; e < live * (kCB / 8); e += kThreads) {
+        const int r = e / (kCB / 8), c8 = e % (kCB / 8) * 8;
+        const int pl = r / kNA, x = r - pl * kNA;
+        const float* sc =
+            ss + (size_t)((pt0 + pl) / P) * ss_stride + x * C + c0 + c8;
+        uint4* zp = reinterpret_cast<uint4*>(zs + tc::swz(r, c8, kCB / 8));
+        float v[8], a[8], h[8];
+        epn::load8(reinterpret_cast<const bf16*>(zp), v);
+        epn::load8(sc, a);
+        epn::load8(sc + kNA * C, h);
+        uint32_t o[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          o[q] = epn::pack2(
+              epn::leaky(mma::fold(v[2 * q], a[2 * q], h[2 * q])),
+              epn::leaky(mma::fold(v[2 * q + 1], a[2 * q + 1], h[2 * q + 1])));
+        }
+        *zp = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+      __syncthreads();
+    }
+
+#pragma unroll 1
+    for (int kg = 0; kg < live; kg += 16 * kGroup) {
+      // each step's lane row as (point * 60, anchor), then the A fragments
+      // of the warp's m16 tiles (k, 16 channels), their rows gathered
+      // through kernel point k's adjacency column
+      int p60[kGroup], anc[kGroup];
+#pragma unroll
+      for (int ks = 0; ks < kGroup; ++ks) {
+        const int r = kg + 16 * ks + a_row;
+        p60[ks] = r / kNA * kNA;
+        anc[ks] = r - p60[ks];
+      }
+      uint32_t af[G::MI][kGroup][4];
+#pragma unroll
+      for (int mi = 0; mi < G::MI; ++mi) {
+        constexpr int kTiles = kCB / 16;
+        const int tile = warp * G::MI + mi;
+        const int k = tile / kTiles;
+        const int* tk = s_trace + k * kNA;
+        const int col = tile % kTiles * 16 + a_col;
+#pragma unroll
+        for (int ks = 0; ks < kGroup; ++ks) {
+          tc::ldsm4t(af[mi][ks], tc::smem_addr(
+                                 zs + tc::swz(p60[ks] + tk[anc[ks]], col,
+                                              kCB / 8)));
+        }
+      }
+      // per pair of n8 tiles its B fragments (dout in order), then the
+      // kGroup products of each tile into a fresh accumulator
+#pragma unroll
+      for (int nj = 0; nj < G::NI / 2; ++nj) {
+        uint32_t bq[kGroup][4];
+#pragma unroll
+        for (int ks = 0; ks < kGroup; ++ks)
+          tc::ldsm4t(bq[ks],
+                     tc::smem_addr(ds + (kg + 16 * ks) * BN + b_off[nj]));
+#pragma unroll
+        for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            float r4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int ks = 0; ks < kGroup; ++ks)
+              tc::mma(r4, af[mi][ks], bq[ks][2 * h2], bq[ks][2 * h2 + 1]);
+#pragma unroll
+            for (int h = 0; h < 4; ++h) acc[mi][2 * nj + h2][h] += r4[h];
+          }
+      }
+    }
+    __syncthreads();  // every product is done with buffer s
+    load(pt0 + 2 * kNP, s);
+  }
+  tc::cp_wait<0>();
+
+  // the split's partial: dW row k * C + c0 + cc of each tile row (k, cc)
+  float* dst = part + (size_t)split * kK * C * D + n0 + 2 * t;
+#pragma unroll
+  for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = (warp * G::MI + mi) * 16 + g + 8 * h;
+      const int k = m / kCB, cc = m - k * kCB;
+      float* rowp = dst + ((size_t)k * C + c0 + cc) * D;
+#pragma unroll
+      for (int ni = 0; ni < G::NI; ++ni) {
+        *reinterpret_cast<float2*>(rowp + ni * 8) =
+            make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+    }
+}
+
+template <int BN, bool PRE>
+int launch(const void* f, const int* trace, const float* ss, const void* dout,
+           float* ws, float* dW, int n_pts, int P, int C, int D,
+           int ss_stride, int splits, int pts_per_split,
+           cudaStream_t stream) {
+  using G = Cfg<BN>;
+  if (G::kSmem > mma::kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kern = intra_dw_mma_kernel<BN, PRE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(D / BN, C / kCB, splits), kThreads, G::kSmem, stream>>>(
+      (const bf16*)f, trace, ss, (const bf16*)dout, ws, n_pts, P, C, D,
+      ss_stride, pts_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_sum_splits(ws, dW, splits, (size_t)kK * C * D, stream);
+}
+
+template <bool PRE>
+int launch_bn(const void* f, const int* trace, const float* ss,
+              const void* dout, float* ws, float* dW, int n_pts, int P, int C,
+              int D, int ss_stride, int splits, int pts_per_split,
+              cudaStream_t s) {
+  if (pick_bn(D) == 64) {
+    return launch<64, PRE>(f, trace, ss, dout, ws, dW, n_pts, P, C, D,
+                           ss_stride, splits, pts_per_split, s);
+  }
+  return launch<32, PRE>(f, trace, ss, dout, ws, dW, n_pts, P, C, D,
+                         ss_stride, splits, pts_per_split, s);
+}
+
+}  // namespace dwmma
+
 }  // namespace
 
 // f [b, P, na, C], trace_idx [na, K] int32 (device), W [K, C, D],
@@ -1052,6 +1326,36 @@ extern "C" int epn_intra_conv_bwd_w(const void* f, const void* trace_idx,
   }
   return launch_dw_any<float>(f, tp, sp, dout, (float*)ws, (float*)dW, M, P,
                               na, K, C, D, ss_stride, splits, s);
+}
+
+// dW on tensor cores (intra_dw_mma_kernel): f, trace_idx, ss, dout, ws, dW
+// and ss_stride as epn_intra_conv_bwd_w, with f and dout bf16; rows a
+// split, rows_per_split, a whole number of 8-point groups (480 rows), with
+// splits * rows_per_split >= b * P * na. na must be 60, K 12, C a multiple
+// of 32 and D of 32.
+extern "C" int epn_intra_conv_bwd_w_mma(const void* f, const void* trace_idx,
+                                        const void* ss, const void* dout,
+                                        void* ws, void* dW, int b, int P,
+                                        int na, int K, int C, int D,
+                                        int ss_stride, int splits,
+                                        int rows_per_split, void* stream) {
+  const long long rows = (long long)b * P * na;
+  if (na != mma::kNA || K != mma::kK || C % dwmma::kCB != 0 || D % 32 != 0 ||
+      splits < 1 || rows_per_split <= 0 ||
+      rows_per_split % dwmma::kRows != 0 ||
+      (long long)splits * rows_per_split < rows) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* tp = (const int*)trace_idx;
+  const float* sp = (const float*)ss;
+  const int pps = rows_per_split / na;
+  if (sp != nullptr) {
+    return dwmma::launch_bn<true>(f, tp, sp, dout, (float*)ws, (float*)dW,
+                                  b * P, P, C, D, ss_stride, splits, pps, s);
+  }
+  return dwmma::launch_bn<false>(f, tp, nullptr, dout, (float*)ws, (float*)dW,
+                                 b * P, P, C, D, 0, splits, pps, s);
 }
 
 // B6 df, dscale, dshift. dout [b, P, na, C], inv_idx [na, K] int32, Wt [K,

@@ -1,8 +1,8 @@
 """Where the bf16 tensor-core intra conv (``intra_conv_mma_kernel`` in
-csrc/intra_conv.cu: B5, the prenorm forward, and B6 df) spends its time,
-on the card: the kernel as built beside variants with one part changed or
-taken out, at the shapes of both models' layers, with the same timer
-(``chip_smoke.time_ms``).
+csrc/intra_conv.cu: B5, the prenorm forward, and B6 df; and
+``intra_dw_mma_kernel``: B6 dW) spends its time, on the card: each kernel
+as built beside variants with one part changed or taken out, at the shapes
+of both models' layers, with the same timer (``chip_smoke.time_ms``).
 
   python -m epn_pointcloud_tpu_torch.intra_conv_variants
 
@@ -29,8 +29,19 @@ arithmetic, the normwise error against the plain version and the share of
 outputs that rounded toward zero less the share that rounded away from
 it (``lean``). Operands are random (seeded) at the shapes of
 cls_so3net_pn (forward b=32, df b=12, one fold for the batch) and
-inv_so3net_pn (b=16 a leg, a fold a patch). One JSON line a shape, a sum
-over each model's layers, all of them in
+inv_so3net_pn (b=16 a leg, a fold a patch). The dW kernel's variants
+(the step's batch, the fold as in df), whose output is wrong
+and only whose time counts:
+  dw_no_gather   the A rows read without the adjacency (slab row = the
+                 reduction row): the gather's share;
+  dw_no_mma      the product issues no mma (the fragment loads, the fresh
+                 accumulators' adds, the staging and the barriers run);
+and beside them, from the built library, B6 dW without its fold
+(``dw_no_fold``: the plain form, the same kernel with no fold pass; right
+for the plain form) and the SGEMM (``intra_dw_kernel``, bf16, the route
+before the tensor-core kernel), and the built kernel's and the SGEMM's
+normwise error against ``intra_conv_prenorm_dw_plain``. One JSON line a
+shape, a sum over each model's layers, all of them in
 chiprun_out/intra_conv_variants.json. Needs a CUDA device and nvcc.
 """
 
@@ -50,11 +61,13 @@ from .ops.kernels import build, intra_conv
 OUT = os.path.join(build.BUILD_DIR, 'intra_conv_variants')
 ROOT = os.path.dirname(build.BUILD_DIR)
 _MMA = 'tc::mma(t[ni], af, bf[u][ni][0], bf[u][ni][1]);'
+# the forward's kGroup (the dW kernel has its own)
+_GROUP = 'constexpr int kGroup = 2;        // k16 steps summed'
 # variant -> (text in the source, its replacement), or None for the source
 VARIANTS = {
     'built': None,
-    'group_1': ('constexpr int kGroup = 2;', 'constexpr int kGroup = 1;'),
-    'group_4': ('constexpr int kGroup = 2;', 'constexpr int kGroup = 4;'),
+    'group_1': (_GROUP, _GROUP.replace('= 2', '= 1')),
+    'group_4': (_GROUP, _GROUP.replace('= 2', '= 4')),
     'in_place': (_MMA, 'tc::mma(acc[mi][ni], af, bf[u][ni][0], '
                  'bf[u][ni][1]);'),
     'no_gather': ('pt60[mi] + tk[u][anc[mi]]', 'pt60[mi] + anc[mi]'),
@@ -62,6 +75,12 @@ VARIANTS = {
     'no_w_loads': ('tc::cp16(tc::smem_addr(dst + tc::swz(r, c8, BN / 8)),',
                    'if (C < 0) tc::cp16(tc::smem_addr(dst + tc::swz(r, c8, '
                    'BN / 8)),'),
+}
+_DW_MMA = 'tc::mma(r4, af[mi][ks], bq[ks][2 * h2], bq[ks][2 * h2 + 1]);'
+DW_VARIANTS = {
+    'dw_no_gather': ('zs + tc::swz(p60[ks] + tk[anc[ks]], col,',
+                     'zs + tc::swz(p60[ks] + anc[ks], col,'),
+    'dw_no_mma': (_DW_MMA, 'if (C < 0) ' + _DW_MMA),
 }
 EXACT = ('built', 'group_1', 'group_4', 'in_place')
 # model -> (forward batch, df batch, fold a cloud, [(layer, p, c)])
@@ -87,14 +106,19 @@ def _rel(got, want):
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
+ENTRIES = ('epn_intra_conv_mma', 'epn_intra_conv_prenorm_df_mma',
+           'epn_intra_conv_bwd_w_mma', 'epn_intra_conv_bwd_w')
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('intra_conv_variants: needs a CUDA device')
     sys.path.insert(0, ROOT)
     from chip_smoke import time_ms
+    variants = {**VARIANTS, **DW_VARIANTS}
     procs = {n: build.compile_alone(build.CSRC_DIR, 'intra_conv.cu',
                                     os.path.join(OUT, n), sub)
-             for n, sub in VARIANTS.items()}
+             for n, sub in variants.items()}
     fns = {}
     for n, (p, so) in procs.items():
         log = p.communicate()[0]
@@ -102,7 +126,7 @@ def main():
             raise RuntimeError(f'nvcc failed on {n}:\n{log}')
         lib = ctypes.CDLL(so)
         fns[n] = {}
-        for entry in ('epn_intra_conv_mma', 'epn_intra_conv_prenorm_df_mma'):
+        for entry in ENTRIES:
             fn = getattr(lib, entry)
             fn.argtypes = build.SIGNATURES[entry]
             fn.restype = ctypes.c_int
@@ -111,6 +135,17 @@ def main():
     card = torch.cuda.get_device_name(0)
     stream = torch.cuda.current_stream().cuda_stream
     ti = torch.from_numpy(icosahedron.get_intra_idx()).to(dev)
+    lines = (_fwd({n: fn for n, fn in fns.items() if n in VARIANTS}, dev,
+                  card, stream, ti, time_ms)
+             + _dw(fns, dev, card, stream, ti, time_ms))
+    out_dir = os.path.join(ROOT, 'chiprun_out')
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, 'intra_conv_variants.json'), 'w') as f:
+        json.dump(lines, f, indent=1)
+
+
+def _fwd(fns, dev, card, stream, ti, time_ms):
+    """The forward's and df's variants at each layer: JSON lines."""
     inv = torch.from_numpy(icosahedron.get_intra_inv_idx()).to(dev)
     lines = []
 
@@ -178,10 +213,70 @@ def main():
         lines.append({'model': model, 'sum_over_layers': True, 'ms': total,
                       'card': card})
         print(json.dumps(lines[-1]), flush=True)
-    out_dir = os.path.join(ROOT, 'chiprun_out')
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, 'intra_conv_variants.json'), 'w') as f:
-        json.dump(lines, f, indent=1)
+    return lines
+
+
+def _dw(fns, dev, card, stream, ti, time_ms):
+    """B6 dW's variants, its plain form and the SGEMM at each layer (the
+    step's batch): JSON lines."""
+    lines = []
+    names = ['built', 'dw_no_fold', 'dw_sgemm'] + list(DW_VARIANTS)
+    for model, (_, b, per_cloud, layers) in SHAPES.items():
+        total = dict.fromkeys(names, 0.0)
+        for tag, p, c in layers:
+            rng = np.random.RandomState(p + c + 1)
+
+            def rand(*shape, scale=1.0):
+                return torch.from_numpy((scale * rng.randn(*shape)).astype(
+                    np.float32)).to(dev)
+            f = rand(b, p, 60, c).bfloat16()
+            dout = rand(b, p, 60, c).bfloat16()
+            sb = b if per_cloud else 1
+            ss = torch.stack([rand(sb, 60 * c).abs() + 0.5,
+                              rand(sb, 60 * c, scale=0.3)], dim=1)
+            want = intra_conv.intra_conv_prenorm_dw_plain(f, ss, ti, dout)
+            dW = torch.empty(12, c, c, device=dev)
+            bufs = {}
+            for mma in (True, False):
+                splits, rows = intra_conv.dw_splits(b * p, 60, 12, c, c, mma)
+                ws = torch.empty(splits, 12, c, c, device=dev)
+                bufs[mma] = (ws, (f.data_ptr(), ti.data_ptr(), ss.data_ptr(),
+                                  dout.data_ptr(), ws.data_ptr(),
+                                  dW.data_ptr(), b, p, 60, 12, c, c,
+                                  2 * 60 * c if sb > 1 else 0, splits)
+                             + ((rows,) if mma else (1,)))
+
+            def call(n):
+                lib = fns['built' if n in ('dw_no_fold', 'dw_sgemm') else n]
+                args = bufs[n != 'dw_sgemm'][1]
+                if n == 'dw_no_fold':
+                    args = args[:2] + (0,) + args[3:12] + (0,) + args[13:]
+                fn = lib['epn_intra_conv_bwd_w' if n == 'dw_sgemm' else
+                         'epn_intra_conv_bwd_w_mma']
+
+                def run():
+                    err = fn(*args, stream)
+                    if err:
+                        raise RuntimeError(f'{n}: CUDA error {err}')
+                return run
+            rec = {}
+            for n in names:
+                rec[n] = {'ms': time_ms(call(n))}
+                if n in ('built', 'dw_sgemm'):
+                    call(n)()
+                    torch.cuda.synchronize()
+                    rec[n]['rel'] = _rel(dW, want)
+                total[n] += rec[n]['ms']
+            lines.append({'model': model, 'layer': tag, 'p': p, 'c': c,
+                          'batch': b, 'splits': bufs[True][1][-2],
+                          'variants': rec, 'card': card})
+            print(json.dumps(lines[-1]), flush=True)
+            del f, dout, ss, want, dW, bufs
+            torch.cuda.empty_cache()
+        lines.append({'model': model, 'entry': 'dw', 'sum_over_layers': True,
+                      'ms': total, 'card': card})
+        print(json.dumps(lines[-1]), flush=True)
+    return lines
 
 
 if __name__ == '__main__':

@@ -37,8 +37,10 @@ The bf16 forward (plain and prenorm) and the bf16 B6 df run on tensor cores
 (``intra_conv_mma_kernel``, picked by ``mma_route``: every layer of both
 models) at the rounding points of the SGEMM and the plain versions: z
 rounded to bf16 after the fold and the activation, fp32 sums, the output
-rounded once (df: dz never rounded, df rounded once). fp32 and the other
-bf16 shapes run the register-blocked SGEMM.
+rounded once (df: dz never rounded, df rounded once). So does the bf16 dW,
+plain and prenorm (``intra_dw_mma_kernel``, picked by ``dw_mma_route``): z
+rounded to bf16, fp32 sums, dW fp32. fp32 and the other bf16 shapes run
+the register-blocked SGEMM (``intra_dw_kernel`` for dW).
 """
 
 from __future__ import annotations
@@ -69,11 +71,19 @@ _DF_BLOCK_ROWS = 128
 launches = dict.fromkeys(ENTRIES, 0)
 # the launches of the forward product (intra_conv, intra_conv_prenorm, and
 # the df of intra_conv_prenorm_df) by kernel: 'mma', the bf16 tensor-core
-# kernel (``intra_conv_mma_kernel``), or 'sgemm', the register-blocked SGEMM
-routes = dict.fromkeys(('mma', 'sgemm'), 0)
-# the tensor-core kernel's shapes (``mma_route``): the icosahedral group's
-# anchors and kernel points, and the widths of the models' intra layers
+# kernel (``intra_conv_mma_kernel``), or 'sgemm', the register-blocked SGEMM;
+# of dW (intra_conv_dw, intra_conv_prenorm_dw): 'dw_mma', the bf16
+# tensor-core kernel (``intra_dw_mma_kernel``), or 'dw', the SGEMM
+# (``intra_dw_kernel``)
+routes = dict.fromkeys(('mma', 'sgemm', 'dw_mma', 'dw'), 0)
+# the tensor-core kernels' shapes (``mma_route``, ``dw_mma_route``): the
+# icosahedral group's anchors and kernel points, and the widths of the
+# models' intra layers
 MMA_NA, MMA_K, MMA_WIDTHS = 60, 12, (32, 64, 128, 256)
+# the tensor-core dW's blocks: whole groups of DW_MMA_NP points, DW_MMA_CB
+# channels and 64 columns (32 where d % 64 != 0); its row splits fill at
+# most DW_MMA_BLOCKS blocks (one an SM: two waves of the 132 SMs)
+DW_MMA_NP, DW_MMA_CB, DW_MMA_BLOCKS = 8, 32, 264
 
 
 def mma_route(dtype, na: int, K: int, c: int, d: int) -> bool:
@@ -82,6 +92,36 @@ def mma_route(dtype, na: int, K: int, c: int, d: int) -> bool:
     of both models). fp32 and the other shapes run the SGEMM."""
     return (dtype == torch.bfloat16 and na == MMA_NA and K == MMA_K
             and c == d and c in MMA_WIDTHS)
+
+
+def dw_mma_route(dtype, na: int, K: int, c: int, d: int) -> bool:
+    """Whether a dW (plain or prenorm) runs the bf16 tensor-core kernel
+    (``intra_dw_mma_kernel``): the forward's envelope, bf16 operands, na ==
+    60, K == 12 and c == d in MMA_WIDTHS (every intra layer of both models).
+    fp32 and the other shapes run the SGEMM (``intra_dw_kernel``)."""
+    return mma_route(dtype, na, K, c, d)
+
+
+def dw_splits(n_points: int, na: int, K: int, c: int, d: int,
+              mma: bool) -> tuple[int, int]:
+    """(splits, rows a split) of a dW call over n_points = b * p points of na
+    rows: each split writes a partial dW [K, c, d] to the workspace. The
+    tensor-core kernel's splits are whole groups of DW_MMA_NP points (every
+    split holds at least one), at most DW_MMA_BLOCKS blocks of DW_MMA_CB
+    channels and 64 (or 32) columns: rounded down, as a third wave of a
+    few blocks would take as long as a full one (the 256-wide layers: 8
+    splits of 32 blocks, not 9); the SGEMM's are 16-row slices, aimed at ~4
+    blocks an SM of 128 (k, c) rows and 128, 64 or 32 columns."""
+    if mma:
+        groups = -(-n_points // DW_MMA_NP)
+        tiles = (c // DW_MMA_CB) * (d // (64 if d % 64 == 0 else 32))
+        s = max(1, min(groups, DW_MMA_BLOCKS // tiles))
+        per = -(-groups // s)
+        return -(-groups // per), per * DW_MMA_NP * na
+    slices = -(-n_points * na // 16)
+    bn = 128 if d % 128 == 0 else 64 if d % 64 == 0 else 32
+    s = build.n_splits(-(-K * c // 128) * (d // bn), slices)
+    return s, -(-slices // s) * 16
 
 
 def mma_block_points(d: int) -> int:
@@ -177,6 +217,14 @@ def _want_ss(kernel, want, ss, b, L):
     return sb
 
 
+def _check_operands(kernel, dev, want):
+    """The wrappers' card branch: a CUDA device, and each operand as
+    ``build.check_operands`` wants it."""
+    if dev.type != 'cuda':
+        raise ValueError(f'{kernel}: unsupported device {dev}')
+    build.check_operands(kernel, dev, want)
+
+
 def _check_shape(kernel, b, p, na, K, c, d):
     if c % 4 != 0 or d % 32 != 0 or na * K > 1024 or b * p * na >= 2 ** 31:
         raise ValueError(f'{kernel}: kernel needs c % 4 == 0, d % 32 == 0, '
@@ -187,8 +235,6 @@ def _check_shape(kernel, b, p, na, K, c, d):
 def _launch_fwd(kernel, f, trace_idx, W, ss):
     """Checks and launches the forward kernel (ss None: no prenorm)."""
     dev = f.device
-    if dev.type != 'cuda':
-        raise ValueError(f'{kernel}: unsupported device {dev}')
     b, p, na, c = f.shape
     K, d = W.shape[0], W.shape[2]
     bf16 = build.dtype_flag(f.dtype, kernel)
@@ -196,7 +242,7 @@ def _launch_fwd(kernel, f, trace_idx, W, ss):
             'trace_idx': (trace_idx, torch.int32, (na, K)),
             'W': (W, f.dtype, (K, c, d))}
     sb = _want_ss(kernel, want, ss, b, na * c)
-    build.check_operands(kernel, dev, want)
+    _check_operands(kernel, dev, want)
     _check_shape(kernel, b, p, na, K, c, d)
     out = torch.empty((b, p, na, d), dtype=f.dtype, device=dev)
     ptrs = (f.data_ptr(), trace_idx.data_ptr(), W.data_ptr(),
@@ -242,11 +288,10 @@ def intra_conv_df(dout: torch.Tensor, trace_idx: torch.Tensor,
 
 
 def _launch_dw(kernel, f, trace_idx, dout, ss):
-    """Checks and launches the dW kernel (ss None: no prenorm); per-row-range
-    partials summed in a fixed order: deterministic."""
+    """Checks and launches the dW kernel (ss None: no prenorm): the
+    tensor-core kernel where ``dw_mma_route`` holds, else the SGEMM; both
+    sum per-row-range partials in a fixed order: deterministic."""
     dev = f.device
-    if dev.type != 'cuda':
-        raise ValueError(f'{kernel}: unsupported device {dev}')
     b, p, na, c = f.shape
     K, d = trace_idx.shape[1], dout.shape[-1]
     bf16 = build.dtype_flag(f.dtype, kernel)
@@ -254,18 +299,24 @@ def _launch_dw(kernel, f, trace_idx, dout, ss):
             'trace_idx': (trace_idx, torch.int32, (na, K)),
             'dout': (dout, f.dtype, (b, p, na, d))}
     sb = _want_ss(kernel, want, ss, b, na * c)
-    build.check_operands(kernel, dev, want)
+    _check_operands(kernel, dev, want)
     _check_shape(kernel, b, p, na, K, c, d)
-    bn = 128 if d % 128 == 0 else 64 if d % 64 == 0 else 32
-    splits = build.n_splits(-(-K * c // 128) * (d // bn),
-                            -(-b * p * na // 16))
+    mma = dw_mma_route(f.dtype, na, K, c, d)
+    splits, rows = dw_splits(b * p, na, K, c, d, mma)
     ws = torch.empty((splits, K, c, d), dtype=torch.float32, device=dev)
     dW = torch.empty((K, c, d), dtype=torch.float32, device=dev)
+    ptrs = (f.data_ptr(), trace_idx.data_ptr(),
+            0 if ss is None else ss.data_ptr(), dout.data_ptr(),
+            ws.data_ptr(), dW.data_ptr(), b, p, na, K, c, d,
+            2 * na * c if sb > 1 else 0, splits)
     launches[kernel] += 1
-    build.launch('epn_intra_conv_bwd_w', f.data_ptr(), trace_idx.data_ptr(),
-                 0 if ss is None else ss.data_ptr(), dout.data_ptr(),
-                 ws.data_ptr(), dW.data_ptr(), b, p, na, K, c, d,
-                 2 * na * c if sb > 1 else 0, splits, bf16, build.stream(f))
+    if mma:
+        routes['dw_mma'] += 1
+        build.launch('epn_intra_conv_bwd_w_mma', *ptrs, rows,
+                     build.stream(f))
+    else:
+        routes['dw'] += 1
+        build.launch('epn_intra_conv_bwd_w', *ptrs, bf16, build.stream(f))
     return dW
 
 
@@ -281,8 +332,9 @@ def intra_conv_dw(f: torch.Tensor, trace_idx: torch.Tensor,
 def intra_conv_prenorm_dw(f: torch.Tensor, ss: torch.Tensor,
                           trace_idx: torch.Tensor,
                           dout: torch.Tensor) -> torch.Tensor:
-    """B6 dW wrapper (z = prenorm(f, ss) recomputed in the staging loads):
-    plain version on the CPU, CUDA kernel on the card."""
+    """B6 dW wrapper (z = prenorm(f, ss) formed from f on the card): plain
+    version on the CPU, CUDA kernel on the card (the tensor-core kernel
+    where ``dw_mma_route`` holds, else the SGEMM)."""
     if f.device.type == 'cpu':
         return intra_conv_prenorm_dw_plain(f, ss, trace_idx, dout)
     return _launch_dw('intra_conv_prenorm_dw', f, trace_idx, dout, ss)
@@ -299,8 +351,6 @@ def intra_conv_prenorm_df(dout: torch.Tensor, f: torch.Tensor,
         return intra_conv_prenorm_df_plain(dout, f, ss, trace_idx, W)
     kernel = 'intra_conv_prenorm_df'
     dev = f.device
-    if dev.type != 'cuda':
-        raise ValueError(f'{kernel}: unsupported device {dev}')
     b, p, na, c = f.shape
     K, d = W.shape[0], W.shape[2]
     bf16 = build.dtype_flag(f.dtype, kernel)
@@ -310,7 +360,7 @@ def intra_conv_prenorm_df(dout: torch.Tensor, f: torch.Tensor,
             'inv_idx': (inv_idx, torch.int32, (na, K)),
             'W': (Wt, f.dtype, (K, d, c))}
     sb = _want_ss(kernel, want, ss, b, na * c)
-    build.check_operands(kernel, dev, want)
+    _check_operands(kernel, dev, want)
     _check_shape(kernel, b, p, na, K, d, c)
     if na > 64:
         raise ValueError(f'{kernel}: kernel needs na <= 64; got na={na}')

@@ -12,7 +12,10 @@ with the composed route, and a bf16 inv train step's launches; the bf16
 inter backward scatter on tensor cores (the fused dTable and the W-off dG)
 at every model layer and at its edges, and the template off its envelope;
 the bf16 fused dW on tensor cores at model layers and at its edges, its
-determinism, and the template off its envelope.
+determinism, and the template off its envelope; the bf16 intra dW on
+tensor cores (B6 dW and the plain form's) at every model width, with a
+fold for the batch and one a cloud, at point counts that leave its last
+8-point group short, its determinism, and the SGEMM off its envelope.
 
 Run on a machine with the card:
   python -m pytest tests/test_torch_port_gpu.py -q -m gpu --noconftest
@@ -584,6 +587,73 @@ def test_intra_conv_bf16_routes_match_plain(cuda, b, p, c, d, sb, route):
     ``_check_intra_bf16``."""
     _check_intra_bf16(*_prenorm_operands(cuda, BF16, b, p, c, d, sb,
                                          seed=b + p), route)
+
+
+def _intra_dw_case(cuda, b, p, c, d, sb, seed, dtype=BF16):
+    """(routes taken, then for each form, B6 dW and the plain form's: the
+    kernel's dW, a second call's, the plain version's) of two calls of each
+    intra dW wrapper."""
+    f, ss, ti, _, _, dout = _prenorm_operands(cuda, dtype, b, p, c, d, sb,
+                                              seed=seed)
+    ik = tkern.intra_conv
+    before = dict(ik.routes)
+    runs = [(ik.intra_conv_prenorm_dw(f, ss, ti, dout),
+             ik.intra_conv_dw(f, ti, dout)) for _ in range(2)]
+    torch.cuda.synchronize()
+    routes = {k: ik.routes[k] - before[k] for k in ik.routes
+              if ik.routes[k] > before[k]}
+    want = (ik.intra_conv_prenorm_dw_plain(f, ss, ti, dout),
+            ik.intra_conv_dw_plain(f, ti, dout))
+    return routes, list(zip(runs[0], runs[1], want))
+
+
+@pytest.mark.parametrize('sb', [1, 2])
+@pytest.mark.parametrize('p,c', MODEL_INTRA_SHAPES)
+def test_intra_dw_mma_kernel_matches_plain(cuda, p, c, sb):
+    """The tensor-core dW (B6 dW and the plain form's) at every intra layer
+    shape of both models, 2 clouds, with one fold for the batch (sb = 1)
+    and one a cloud (sb = 2): taken by the wrapper, fp32 and finite, within
+    1e-3 (normwise) of the plain version (z rounded to bf16 at the same
+    point, fp32 sums), bitwise equal on a second call (fixed-order partial
+    sums, no atomics)."""
+    routes, forms = _intra_dw_case(cuda, 2, p, c, c, sb, seed=p + c + sb)
+    assert routes == {'dw_mma': 4}
+    for got, again, want in forms:
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert bool(torch.isfinite(got).all())
+        assert _rel(got, want) <= 1e-3
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('b,p,c,sb', [
+    (2, 7, 64, 2),        # 7 points a cloud, 14 in all: the last group short
+    (3, 13, 128, 3),      # 39 points: groups across clouds, a fold a cloud
+    (1, 1, 256, 1),       # one point: one group of 60 live rows
+    (2, 21, 32, 1),       # 42 points at D = 32 (32 columns a block)
+    (12, 509, 64, 1)])    # 6108 points: many splits, the last group short
+def test_intra_dw_mma_kernel_edges(cuda, b, p, c, sb):
+    """The tensor-core dW where the points do not fill its 8-point groups
+    (the rows past the end stage as zeros), groups that span two clouds'
+    folds, and D = 32: within 1e-3 of the plain version, bitwise equal on a
+    second call, both forms."""
+    routes, forms = _intra_dw_case(cuda, b, p, c, c, sb, seed=b + p)
+    assert routes == {'dw_mma': 4}
+    for got, again, want in forms:
+        assert bool(torch.isfinite(got).all())
+        assert _rel(got, want) <= 1e-3 and torch.equal(got, again)
+
+
+@pytest.mark.parametrize('dtype,c,d', [(torch.float32, 64, 64),
+                                       (BF16, 64, 96), (BF16, 96, 96)])
+def test_intra_dw_off_envelope_takes_the_sgemm(cuda, dtype, c, d):
+    """fp32 (the parity mode), bf16 c != d and a bf16 width no model layer
+    has run the SGEMM (``intra_dw_kernel``): 1e-4 of the plain version in
+    fp32, 1e-3 in bf16."""
+    routes, forms = _intra_dw_case(cuda, 2, 9, c, d, 2, seed=c + d,
+                                   dtype=dtype)
+    assert routes == {'dw': 4}
+    for got, _, want in forms:
+        assert _rel(got, want) <= (1e-4 if dtype == torch.float32 else 1e-3)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, BF16])

@@ -2,10 +2,13 @@
 the CPU: every intra layer of both models' full-width builds (the bf16
 forward and B6 df) goes to the tensor-core kernel (``mma_route``), fp32
 and the shapes off its envelope to the SGEMM, and B6 df's workspace
-follows the tensor-core kernel's blocks. The kernels themselves are
-held against their plain versions on the card
-(tests/test_torch_port_gpu.py); the plain versions against the JAX
-package in tests/test_torch_port_bf16*.py.
+follows the tensor-core kernel's blocks; the bf16 dW (plain and prenorm)
+goes to its tensor-core kernel (``dw_mma_route``) at every model layer,
+its row splits are whole point groups, and a bf16 backward reaching the
+wrappers' card branch (tensors on the meta device, the launches recorded)
+counts it. The kernels themselves are held against their plain versions
+on the card (tests/test_torch_port_gpu.py); the plain versions against
+the JAX package in tests/test_torch_port_bf16*.py.
 """
 
 import pytest
@@ -72,3 +75,126 @@ def test_reset_counts_clears_the_routes():
     tkern.reset_counts()
     assert set(tkern.intra_conv.routes.values()) == {0}
     assert set(tkern.inter_conv.routes.values()) == {0}
+
+
+@pytest.mark.parametrize('name', ['cls_so3net_pn', 'inv_so3net_pn'])
+def test_every_model_intra_layer_takes_the_tensor_core_dw(name):
+    ik = tkern.intra_conv
+    for na, K, c, d in _intra_layers(name):
+        assert ik.dw_mma_route(BF16, na, K, c, d), (na, K, c, d)
+        assert not ik.dw_mma_route(torch.float32, na, K, c, d)
+
+
+@pytest.mark.parametrize('na,K,c,d', [(60, 12, 64, 96), (60, 12, 96, 96),
+                                      (60, 12, 512, 512), (12, 12, 64, 64),
+                                      (60, 6, 64, 64), (60, 12, 16, 16)])
+def test_dw_shapes_off_the_envelope_take_the_sgemm(na, K, c, d):
+    """c != d, widths no model layer has, another group or kernel size."""
+    assert not tkern.intra_conv.dw_mma_route(BF16, na, K, c, d)
+
+
+# (points b * p, c = d): cls b=12 L0 / L2 / L4 / L6, inv b=16 B0-B3, and
+# point counts that leave the last group short or make fewer groups than
+# the blocks would take
+DW_SPLIT_CASES = [(6144, 64), (3072, 128), (1536, 256), (768, 256),
+                  (8192, 32), (4096, 64), (2048, 128), (1024, 128),
+                  (14, 64), (39, 128), (1, 256), (42, 32)]
+
+
+@pytest.mark.parametrize('n_points,c', DW_SPLIT_CASES)
+def test_dw_splits_cut_whole_point_groups(n_points, c):
+    """The tensor-core dW's splits: whole groups of DW_MMA_NP points (a
+    multiple of 480 rows), every split holding at least one live row, the
+    splits covering every row, and at most DW_MMA_BLOCKS blocks but no
+    fewer than half of them (never more than one split a group); the
+    workspace [splits, K, c, d] then holds one partial a split. The SGEMM's: whole 16-row slices, covering every
+    row (a trailing split may hold none: it writes a zero partial)."""
+    ik = tkern.intra_conv
+    na, K, rows = 60, 12, n_points * 60
+    splits, per = ik.dw_splits(n_points, na, K, c, c, True)
+    assert per % (ik.DW_MMA_NP * na) == 0 and per > 0
+    assert (splits - 1) * per < rows <= splits * per
+    groups = -(-n_points // ik.DW_MMA_NP)
+    tiles = (c // ik.DW_MMA_CB) * (c // (64 if c % 64 == 0 else 32))
+    assert 1 <= splits <= groups
+    assert splits * tiles >= min(ik.DW_MMA_BLOCKS, groups * tiles) // 2
+    assert splits * tiles <= max(ik.DW_MMA_BLOCKS, tiles)
+    s_sgemm, per_sgemm = ik.dw_splits(n_points, na, K, c, c, False)
+    assert per_sgemm % 16 == 0
+    assert rows <= s_sgemm * per_sgemm
+
+
+def _card_branch(monkeypatch):
+    """Let the intra wrappers take their card branch on meta tensors: the
+    device and operand checks skipped, each launch recorded by its C
+    entry's name."""
+    ik = tkern.intra_conv
+    launched = []
+    monkeypatch.setattr(ik, '_check_operands', lambda *a: None)
+    monkeypatch.setattr(ik.build, 'launch', lambda name, *a: launched.append(
+        name))
+    monkeypatch.setattr(ik.build, 'stream', lambda t: 0)
+    return launched
+
+
+def _meta_backward(na, K, c, d, dtype, prenorm, b=2, p=16):
+    """One IntraConvPrenormFn (or IntraConvFn) forward and backward on meta
+    tensors; returns W's gradient."""
+    ik = tkern.intra_conv
+    meta = torch.device('meta')
+    f = torch.empty((b, p, na, c), dtype=dtype, device=meta,
+                    requires_grad=True)
+    W = torch.empty((K, c, d), dtype=dtype, device=meta, requires_grad=True)
+    ti = torch.empty((na, K), dtype=torch.int32, device=meta)
+    if prenorm:
+        ss = torch.empty((1, 2, na * c), device=meta)
+        out = ik.IntraConvPrenormFn.apply(f, ss, ti, ti, W)
+    else:
+        out = ik.IntraConvFn.apply(f, ti, ti, W)
+    out.backward(torch.empty_like(out))
+    return W.grad
+
+
+@pytest.mark.parametrize('name', ['cls_so3net_pn', 'inv_so3net_pn'])
+def test_bf16_backward_counts_the_tensor_core_dw(name, monkeypatch):
+    """A bf16 prenorm backward at every intra layer of the model (b = 2, 16
+    points) on the card branch: one 'dw_mma' and no 'dw' a layer, launched
+    through epn_intra_conv_bwd_w_mma, and the dW gradient in W's bf16; the
+    plain form's bf16 backward too."""
+    launched = _card_branch(monkeypatch)
+    ik = tkern.intra_conv
+    layers = _intra_layers(name)
+    tkern.reset_counts()
+    for na, K, c, d in layers:
+        g = _meta_backward(na, K, c, d, BF16, True)
+        assert g.dtype == BF16 and g.shape == (K, c, d)
+    n = len(layers)
+    assert ik.routes['dw_mma'] == n and ik.routes['dw'] == 0
+    assert ik.launches['intra_conv_prenorm_dw'] == n
+    assert launched.count('epn_intra_conv_bwd_w_mma') == n
+    assert 'epn_intra_conv_bwd_w' not in launched
+    _meta_backward(*layers[0], BF16, False)
+    assert ik.routes['dw_mma'] == n + 1 and ik.launches['intra_conv_dw'] == 1
+    tkern.reset_counts()
+
+
+@pytest.mark.parametrize('prenorm', [True, False])
+def test_fp32_backward_counts_the_sgemm_dw(prenorm, monkeypatch):
+    """The fp32 (parity) backward at cls L0 keeps the SGEMM: 'dw'."""
+    launched = _card_branch(monkeypatch)
+    ik = tkern.intra_conv
+    tkern.reset_counts()
+    _meta_backward(*_intra_layers('cls_so3net_pn')[0], torch.float32,
+                   prenorm)
+    assert (ik.routes['dw'], ik.routes['dw_mma']) == (1, 0)
+    assert launched.count('epn_intra_conv_bwd_w') == 1
+    assert 'epn_intra_conv_bwd_w_mma' not in launched
+    tkern.reset_counts()
+
+
+def test_reset_counts_clears_the_dw_routes():
+    ik = tkern.intra_conv
+    ik.routes['dw_mma'] += 3
+    ik.routes['dw'] += 1
+    tkern.reset_counts()
+    assert ik.routes['dw_mma'] == ik.routes['dw'] == 0
