@@ -5,20 +5,21 @@
 --parent-csrc: DIR is the csrc/ directory of an earlier tree (for example
 from ``git archive <commit> epn_pointcloud_tpu_torch/csrc | tar -x -C D``);
 its inter_conv.cu, inter_conv_bwd.cu and intra_conv.cu are each built alone
-beside the kernels, and its epn_inter_conv_mma, epn_intra_conv,
-epn_intra_conv_prenorm_df, epn_inter_conv_bwd_table, epn_inter_conv_dg,
-epn_inter_conv_bwd_w and epn_intra_conv_bwd_w (bf16) are timed beside
-this tree's bf16 W-fused inter forward, prenorm intra forward, B6 df,
-fused dTable, W-off dG, fused dW and B6 dW at every call of phases 4, 9
-and 16, on the same inputs, in turns (parent, new, new, parent).
+beside the kernels, and its epn_inter_conv_mma, epn_inter_conv_f,
+epn_intra_conv, epn_intra_conv_prenorm_df, epn_inter_conv_bwd_table,
+epn_inter_conv_dg, epn_inter_conv_bwd_w and epn_intra_conv_bwd_w (bf16)
+are timed beside this tree's bf16 W-fused inter forward, W-off F, prenorm
+intra forward, B6 df, fused dTable, W-off dG, fused dW and B6 dW at every
+call of phases 4, 9 and 16, on the same inputs, in turns (parent, new,
+new, parent).
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from csrc/ (one nvcc a source, in parallel,
      sm_90a), and count the tensor-core instructions (HMMA, GMMA) in the
      SASS of the bf16 tensor-core kernels (the grouped conv forward and
-     backward, the W-fused inter forward, the intra forward and B6 df, the
-     inter backward scatter, the fused inter dW, the intra dW; cuobjdump):
-     none fails;
+     backward, the W-fused inter forward, the W-off F, the intra forward
+     and B6 df, the inter backward scatter, the fused inter dW, the intra
+     dW; cuobjdump): none fails;
   2. at every flagship layer shape of cls_so3net_pn (b=32, 1024 points, 60
      anchors), compare each kernel with its plain PyTorch version on the
      card, on the inputs the model itself gives it (captured from a b=32
@@ -36,7 +37,8 @@ Phases (any failure exits non-zero and prints no result line):
      bitwise equal on a second call, within 1e-3 of the plain version at
      its rounding points (inter_conv_mma_plain: the anchor weights and F
      rounded to bf16, as the TPU kernel rounds them), and timed beside the
-     composition it fuses (the W-off F kernel, then one torch.mm(F, W));
+     composition it fuses (the W-off F kernel of the bf16 route, then one
+     torch.mm(F, W));
      every prenorm intra call on the tensor-core kernel, bitwise equal on
      a second call, timed beside one torch.mm of its gathered operand
      [M, 12C] by W [12C, D] (the operand formed beforehand) and beside
@@ -52,8 +54,8 @@ Phases (any failure exits non-zero and prints no result line):
      per batch, and every inter forward, intra forward and B6 df must have
      run the kernel of its dtype (the tensor-core kernels in bf16, the
      SGEMMs in fp32; so in phases 8, 11, 15, 19, there with every fused
-     dTable, W-off dG and fused dW too: the tensor-core scatter and dW in
-     bf16, the templates in fp32);
+     dTable, W-off dG, fused dW and W-off F too: the tensor-core scatter,
+     dW and F in bf16, the templates in fp32);
   6. capture each backward kernel call of one train-mode step of the seeded
      full-width model on a synthetic b=12 batch (inter dTable and dW at 6
      layers, intra df and dW at 7) and compare each with its plain version
@@ -145,7 +147,11 @@ Phases (any failure exits non-zero and prints no result line):
      dTable and dG on the tensor-core scatter and every dW on the
      tensor-core kernel as in phase 9, every B6 dW on its tensor-core
      kernel as in phase 9; torch.addmm
-     and torch.mm beside the grouped conv's); the
+     and torch.mm beside the grouped conv's); every inter_conv_f on the
+     tensor-core F (inter_f_mma_kernel), within 1e-3 (normwise) of
+     inter_conv_f_plain and bitwise equal on a second call, timed beside
+     one batched torch.matmul of the anchor weights by the gathered rows;
+     the
      composed route's dW product against its float64 product (<= 1e-3);
  17. [inv-bf16-train] one bf16 inv step on the kernel and the plain path
      from the same weights by the rule of [bf16-train] (loss to rtol 1e-3,
@@ -385,13 +391,13 @@ def phase_build():
 
 
 # the bf16 kernels that run on tensor cores: the grouped conv forward and
-# backward, the W-fused inter conv forward, the intra conv forward and B6 df,
-# the inter backward scatter (the fused dTable and the W-off dG), the fused
-# inter dW, the intra dW (B6 dW and the plain form's)
+# backward, the W-fused inter conv forward, the W-off F, the intra conv
+# forward and B6 df, the inter backward scatter (the fused dTable and the
+# W-off dG), the fused inter dW, the intra dW (B6 dW and the plain form's)
 TC_KERNELS = ('grouped_conv_mma_kernel', 'grouped_bwd_mma_kernel',
-              'inter_conv_mma_kernel', 'intra_conv_mma_kernel',
-              'inter_bwd_mma_kernel', 'inter_dw_mma_kernel',
-              'intra_dw_mma_kernel')
+              'inter_conv_mma_kernel', 'inter_f_mma_kernel',
+              'intra_conv_mma_kernel', 'inter_bwd_mma_kernel',
+              'inter_dw_mma_kernel', 'intra_dw_mma_kernel')
 
 
 def tensor_core_sass(so):
@@ -681,18 +687,20 @@ def phase_forward_time(model, device, reps=5, dtype='fp32'):
 def route_counts():
     """The inter and intra wrappers' launches by kernel ('mma': the bf16
     tensor-core kernel, 'sgemm': the SGEMM): the W-fused inter forward's
-    (with the backward scatter's and the fused dW's: 'dtable_mma' /
-    'dg_mma' / 'dw_mma', the bf16 tensor-core kernels, or 'dtable' / 'dg'
-    / 'dw', the templates), and the intra forward's with B6 df's (with
-    dW's: 'dw_mma', the bf16 tensor-core kernel, or 'dw', the SGEMM)."""
+    (with the backward scatter's, the fused dW's and the W-off F's:
+    'dtable_mma' / 'dg_mma' / 'dw_mma' / 'f_mma', the bf16 tensor-core
+    kernels, or 'dtable' / 'dg' / 'dw' / 'f', the templates), and the intra
+    forward's with B6 df's (with dW's: 'dw_mma', the bf16 tensor-core
+    kernel, or 'dw', the SGEMM)."""
     from epn_pointcloud_tpu_torch.ops import kernels
     return {'inter': dict(kernels.inter_conv.routes),
             'intra': dict(kernels.intra_conv.routes)}
 
 
 def check_routes(tag, dtype, counts, routes):
-    """Every W-fused inter forward, every fused dTable, W-off dG and fused
-    dW, and every intra forward, B6 df and intra dW, of an entry run went
+    """Every W-fused inter forward, every fused dTable, W-off dG, fused dW
+    and W-off F, and every intra forward, B6 df and intra dW, of an entry
+    run went
     through the kernel of its dtype: the tensor-core kernels in bf16, the
     SGEMMs and the templates in fp32 (``routes``: ``route_counts()``, read
     with ``counts``)."""
@@ -708,6 +716,7 @@ def check_routes(tag, dtype, counts, routes):
             ('inter', 'dtable', counts['inter_conv_dtable']),
             ('inter', 'dg', counts['inter_conv_dg']),
             ('inter', 'dw', counts['inter_conv_dw']),
+            ('inter', 'f', counts['inter_conv_f']),
             ('intra', 'dw', counts['intra_conv_dw']
              + counts['intra_conv_prenorm_dw'])):
         want[conv].update({f'{entry}_mma': n, entry: 0} if dtype == 'bf16'
@@ -1214,8 +1223,12 @@ def _library_note(row):
         note += f' library_ms={row["library_ms"]:.4f}'
     if 'bitwise_repeat' in row:
         note += f' bitwise_repeat={row["bitwise_repeat"]}'
+    if 'parent_equal' in row:
+        note += f' parent_equal={row["parent_equal"]}'
     if 'rel_vs_mma_plain' in row:
         note += f' rel_vs_mma_plain={row["rel_vs_mma_plain"]:.3e} [<=1e-3]'
+    if 'rel_vs_f_plain' in row:
+        note += f' rel_vs_f_plain={row["rel_vs_f_plain"]:.3e} [<=1e-3]'
     for key in ('route', 'composed_ms', 'parent_ms', 'same_timer_ms'):
         if key in row:
             v = row[key]
@@ -1227,22 +1240,73 @@ def _library_note(row):
 def _extras_ok(row):
     """The own gates of a bf16 inter forward (``inter_conv_extras``), intra
     forward or B6 df (``intra_conv_extras``), backward scatter
-    (``inter_bwd_extras``), inter dW (``inter_dw_extras``) and intra dW
-    (``intra_dw_extras``): the tensor-core kernel ran, its output is
-    bitwise equal on a second call (not the scatter's: atomics), and
-    (inter forward) within 1e-3 (normwise) of ``inter_conv_mma_plain``."""
+    (``inter_bwd_extras``), inter dW (``inter_dw_extras``), intra dW
+    (``intra_dw_extras``) and W-off F (``inter_f_extras``): the tensor-core
+    kernel ran, its output is bitwise equal on a second call (not the
+    scatter's: atomics), and within 1e-3 (normwise) of
+    ``inter_conv_mma_plain`` (inter forward) or ``inter_conv_f_plain``
+    (W-off F). ``parent_equal`` (--parent-csrc) is printed, not gated: a
+    later tree may sum in another order."""
     return (row.get('route', 'mma') in ('mma', 'dtable_mma', 'dg_mma',
-                                        'dw_mma')
+                                        'dw_mma', 'f_mma')
             and row.get('bitwise_repeat', True)
-            and row.get('rel_vs_mma_plain', 0.0) <= 1e-3)
+            and row.get('rel_vs_mma_plain', 0.0) <= 1e-3
+            and row.get('rel_vs_f_plain', 0.0) <= 1e-3)
 
 
 # the earlier tree's kernels (--parent-csrc), timed beside this tree's:
-# 'fn' its epn_inter_conv_mma, 'intra_fwd' its epn_intra_conv, 'intra_df'
-# its epn_intra_conv_prenorm_df, 'dtable' its epn_inter_conv_bwd_table, 'dg'
-# its epn_inter_conv_dg, 'dw' its epn_inter_conv_bwd_w, 'intra_dw' its
-# epn_intra_conv_bwd_w
+# 'fn' its epn_inter_conv_mma, 'f' its epn_inter_conv_f, 'intra_fwd' its
+# epn_intra_conv, 'intra_df' its epn_intra_conv_prenorm_df, 'dtable' its
+# epn_inter_conv_bwd_table, 'dg' its epn_inter_conv_dg, 'dw' its
+# epn_inter_conv_bwd_w, 'intra_dw' its epn_intra_conv_bwd_w
 PARENT = {}
+
+
+def inter_f_extras(name, args, got):
+    """For a bf16 call of the W-off F: the kernel it ran (``route``, from
+    the wrapper's counts: 'f_mma' for the tensor-core kernel), whether a
+    second call gives the same bits (``bitwise_repeat``) and its normwise
+    error against ``inter_conv_f_plain`` (the plain version at the TPU
+    kernel's rounding points: ``rel_vs_f_plain``). With --parent-csrc also
+    the earlier tree's epn_inter_conv_f (bf16) on the same inputs, timed
+    with this tree's C entry in turns (parent, new, new, parent; both into
+    one preallocated F; ``parent_ms``, ``same_timer_ms``). {} for any other
+    call."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    from epn_pointcloud_tpu_torch.ops.kernels import build
+    if name != 'inter_conv_f' or args[2].dtype != torch.bfloat16:
+        return {}
+    ic = kernels.inter_conv
+    before = dict(ic.routes)
+    again = ic.inter_conv_f(*args)
+    torch.cuda.synchronize()
+    rec = {'route': next(k for k in ic.routes if ic.routes[k] > before[k]),
+           'bitwise_repeat': torch.equal(got, again),
+           'rel_vs_f_plain': rel_err(got, ic.inter_conv_f_plain(*args))}
+    del again
+    if PARENT:
+        gx, idx, table, rk, k2, sigma = args
+        b, p2, nn = idx.shape
+        q, na, c = table.shape[1:]
+        K = rk.shape[1]
+        F = torch.empty_like(got)
+        ptrs = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(),
+                rk.data_ptr(), k2.data_ptr(), F.data_ptr(), b, p2, nn, q, na,
+                K, c, float(sigma))
+
+        def call(fn, tail):
+            def run():
+                err = fn(*ptrs, *tail, build.stream(gx))
+                if err:
+                    raise RuntimeError(f'{name}: CUDA error {err}')
+            return run
+        rec['parent_ms'], rec['same_timer_ms'] = time_abba(
+            call(PARENT['f'], (1,)),
+            call(build.library().epn_inter_conv_f_mma, ()))
+        del F
+    torch.cuda.empty_cache()
+    return rec
 
 
 def inter_dw_extras(name, args, got):
@@ -1420,11 +1484,13 @@ def inter_conv_extras(name, args, got):
     kernel), whether a second call gives the same bits, its normwise error
     against ``inter_conv_mma_plain`` (the plain version at the kernel's
     rounding points, the TPU kernel's: ``rel_vs_mma_plain``), and the time
-    of the composition that the fused kernel spares (the W-off F kernel, F
-    stored, then one ``torch.mm(F, W)``; ``composed_ms``). With
+    of the composition that the fused kernel spares (the W-off F kernel of
+    the bf16 route, F stored, then one ``torch.mm(F, W)``;
+    ``composed_ms``). With
     --parent-csrc also the earlier tree's kernel on the same inputs, timed
     with this one in turns (parent, new, new, parent; ``parent_ms``,
-    ``same_timer_ms``). {} for any other call."""
+    ``same_timer_ms``), and whether its output has the same bits as this
+    one's (``parent_equal``). {} for any other call."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     from epn_pointcloud_tpu_torch.ops.kernels import build
@@ -1447,9 +1513,13 @@ def inter_conv_extras(name, args, got):
     F = torch.empty(b * p2 * na, K * c, dtype=table.dtype, device=gx.device)
     W2 = W.reshape(K * c, d)
 
+    f_args = (F.data_ptr(), b, p2, nn, q, na, K, c, float(sigma))
+    f_entry, f_tail = (('epn_inter_conv_f_mma', ())
+                       if ic.f_mma_route(table.dtype, K, c, nn, na) else
+                       ('epn_inter_conv_f', (1,)))
+
     def composed():
-        build.launch('epn_inter_conv_f', *ptrs, F.data_ptr(), b, p2, nn, q,
-                     na, K, c, float(sigma), 1, build.stream(table))
+        build.launch(f_entry, *ptrs, *f_args, *f_tail, build.stream(table))
         torch.mm(F, W2)
     rec['composed_ms'] = time_ms(composed, reps=5, warmup=2)
     del F
@@ -1465,6 +1535,8 @@ def inter_conv_extras(name, args, got):
                                    f'{err}')
         rec['parent_ms'], rec['same_timer_ms'] = time_abba(
             parent, lambda: ic.inter_conv(*args))
+        torch.cuda.synchronize()
+        rec['parent_equal'] = torch.equal(out, got)
     torch.cuda.empty_cache()
     return rec
 
@@ -2127,6 +2199,7 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
             row.update(inter_bwd_extras(name, args, got[0]))
             row.update(inter_dw_extras(name, args, got[0]))
             row.update(intra_dw_extras(name, args, got[0]))
+            row.update(inter_f_extras(name, args, got[0]))
             row['ok'] = row['ok'] and _extras_ok(row)
             log(f'{tag} {name} {layer} ({row["shape"]}, {row["dtype"]}): '
                 f'max_abs_err={row["max_abs_err"]:.3e} rel_norm_err='
@@ -2559,7 +2632,8 @@ def phase_inv_bf16_descriptor(device, root, reps=5):
 
 # the earlier tree's sources built alone (--parent-csrc): source -> its C
 # entries, as PARENT's keys
-PARENT_SOURCES = {'inter_conv.cu': {'fn': 'epn_inter_conv_mma'},
+PARENT_SOURCES = {'inter_conv.cu': {'fn': 'epn_inter_conv_mma',
+                                    'f': 'epn_inter_conv_f'},
                   'inter_conv_bwd.cu': {'dtable': 'epn_inter_conv_bwd_table',
                                         'dg': 'epn_inter_conv_dg',
                                         'dw': 'epn_inter_conv_bwd_w'},
@@ -2590,9 +2664,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--parent-csrc', default=None,
                     help="an earlier tree's csrc/ directory: its bf16 "
-                    'W-fused inter forward, prenorm intra forward, B6 df, '
-                    'fused dTable, W-off dG and fused dW timed beside this '
-                    "tree's")
+                    'W-fused inter forward, W-off F, prenorm intra forward, '
+                    'B6 df, fused dTable, W-off dG, fused dW and B6 dW timed '
+                    "beside this tree's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():

@@ -77,25 +77,43 @@
 // 974, 980), as in the SGEMM template and the plain version. No atomics:
 // the output is the same on every call.
 //
-// W-off mode (template flag kWOff, epn_inter_conv_f): the same kernel with
-// the learned product left out. Each chunk's F slab is written from shared
-// memory to F [b, p2, na, K, C] instead of being multiplied by W: in the
-// table's type, so a bf16 F is the neighbor contraction of bf16 anchor
-// weights, summed in fp32 and rounded once (the TPU kernel's weights and F
-// are in the table's dtype too: _conv_body:516, 523).
+// W-off F: F [b, p2, na, K, C] without the learned product, in the table's
+// type, so a bf16 F is the neighbor contraction of bf16 anchor weights,
+// summed in fp32 and rounded once (the TPU kernel's weights and F are in
+// the table's dtype too: _conv_body:516, 523).
 // Replaces: epn_pointcloud_tpu/ops/pallas/inter_conv.py, _call_gather ->
 // _fwd_gather_kernel (via fused_gather_neighbor_conv) and _call ->
-// _fwd_kernel (via fused_neighbor_conv): F without W, from the table and
-// the indices or from rows gathered beforehand. On the card a gather is an
-// indexed load, so both TPU forms are this one kernel (rows gathered
+// _fwd_kernel (via fused_neighbor_conv), both through _conv_body: F from
+// the table and the indices or from rows gathered beforehand. On the card a
+// gather is an indexed load, so both TPU forms are one kernel (rows gathered
 // beforehand are a table indexed by their own positions). The JAX package
 // reaches it where _fgcw_bwd takes its composed backward (c <= 32 or
-// nn > 32), to recompute F for dW = F^T dout. What bounds it: writing F
-// (K * C elements a row; 1.5 GB in fp32, 0.75 GB in bf16, at the 3DMatch
-// model's B0L1 for b = 16)
-// against the neighbor contraction (2 * nn * K * C flops a row) and the
-// anchor weights recomputed per 8-channel chunk: both near the card's
-// balance point, so neither term is far below the other.
+// nn > 32), to recompute F for dW = F^T dout: the inv model's B0L1, B1L0,
+// B2L0 and B3L0, twice a triplet step.
+// What bounds it on the H100: storing F, K * C elements a row: 3.77 GB in
+// bf16 over the inv step (0.75 GB at B0L1, 0.38 GB at each other layer, a
+// leg of b = 16), 1.13 ms at 3.35 TB/s; beside that the gathers, nn table
+// rows of 64 bytes a row and 32-channel chunk (~1 GB a layer and leg),
+// which mostly hit in L2 (the table is ~31 MB a layer). The neighbor
+// contraction, 2 * nn * K * C operations a row, is ~1% of the bf16 peak's
+// time.
+// fp32 (and bf16 shapes off the tensor-core route) runs the SGEMM template
+// with the learned product cut out (template flag kWOff, epn_inter_conv_f):
+// each 8-channel chunk's fp32 slab is written from shared memory to F.
+// bf16 (inter_f_mma_kernel, epn_inter_conv_f_mma; every composed layer of
+// the inv model) runs phase 1 of the tensor-core forward as it is
+// (stage_block, gather_pair, contract_pair: the same gathers, products and
+// rounding points), with a store epilogue in place of the W product. For
+// the stores: stmatrix.trans writes F^T's fragments as F [k][c] into a
+// warp's staged tile, and each (row, k) run of 32 channels goes out whole,
+// 16 bytes a lane (a row's 1536 bytes one run at C = 32), as evict-first
+// stores so that F does not push the table out of L2; each warp runs on
+// without a block barrier, so one warp's stores overlap the others' gathers
+// and products. For the gathers: cp.async into a ring of row buffers a
+// warp, the next pair's rows in flight where four blocks an SM still fit
+// (nn <= 32), and four blocks of 128 threads an SM (no slab, no W ring), so
+// 16 warps an SM keep gathers in flight. The anchor weights are computed
+// once a 32-channel chunk, C / 32 times (C / 8 in the template).
 
 #include <cuda_runtime.h>
 
@@ -416,6 +434,138 @@ __device__ __forceinline__ void cp_wait_upto(int n) {
   }
 }
 
+// Phase 1, shared by the W-fused forward and the W-off F
+// (inter_f_mma_kernel).
+//
+// The block's points' neighbors (padded slots hold the shadow index) and
+// each of its kBM rows' table offset, local point (-1 past M) and anchor
+__device__ __forceinline__ void stage_block(
+    float4* __restrict__ s_gx, int* __restrict__ s_idx,
+    long long* __restrict__ s_rtb, int2* __restrict__ s_ri,
+    const float* __restrict__ gx, const int* __restrict__ idx, int m0, int M,
+    int pt0, int np, int nnp, int nn, int q, int na, int p2, int C,
+    float inv_sigma, int tid, int n_threads) {
+  for (int e = tid; e < np * nnp; e += n_threads) {
+    const int p = e / nnp, n = e - p * nnp;
+    float4 v = make_float4(0.f, 0.f, 0.f, 1.f);
+    int j = q;
+    if (n < nn) {
+      const size_t src = (size_t)(pt0 + p) * nn + n;
+      const float x = gx[3 * src], y = gx[3 * src + 1], z = gx[3 * src + 2];
+      v = make_float4(x, y, z, 1.f - ((x * x + y * y) + z * z) * inv_sigma);
+      j = idx[src];
+    }
+    s_gx[e] = v;
+    s_idx[e] = j;
+  }
+  if (tid < kBM) {
+    const int gm = m0 + tid, pt = gm / na, a = gm - pt * na;
+    s_rtb[tid] = ((long long)(pt / p2) * q * na + a) * C;
+    s_ri[tid] = make_int2(gm < M ? pt - pt0 : -1, a);
+  }
+}
+
+// the table rows of block rows r, r + 1, channels c0 .. c0 + kCC, into the
+// [nnp, kCC] buffers dst and dst + nnp * kCC (zeros for the shadow index
+// and padded slots; nothing past M); one commit group
+__device__ __forceinline__ void gather_pair(
+    bf16* __restrict__ dst, const bf16* __restrict__ table,
+    const int* __restrict__ s_idx, const long long* __restrict__ s_rtb,
+    const int2* __restrict__ s_ri, int r, int c0, int nnp, int q, int na,
+    int C, int lane) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int lp = s_ri[r + u].x;
+    if (lp < 0) continue;
+    const int* ix = s_idx + lp * nnp;
+    const bf16* tb = table + s_rtb[r + u] + c0;
+    bf16* d = dst + (size_t)u * nnp * kCC;
+    for (int e = lane; e < nnp * (kCC / 8); e += 32) {
+      const int n = e / (kCC / 8), c8 = e % (kCC / 8) * 8;
+      const int j = ix[n];
+      const bool ok = j < q;
+      tc::cp16(tc::smem_addr(d + tc::swz(n, c8, kCC / 8)),
+               ok ? tb + (size_t)j * na * C + c8 : table, ok);
+    }
+  }
+  tc::cp_commit();
+}
+
+// block rows r, r + 1 (gathered rows in gb and gb + nnp * kCC): F^T [kCC,
+// 24] = G^T [kCC, nnp] w [nnp, 24] into f[u]; A = G^T by ldmatrix.trans
+// from the [n][c] buffer; B = the anchor weights of neighbors 2t, 2t + 1
+// (b0) and 2t + 8, 2t + 9 (b1) for kernel point 8j + g, computed in fp32
+// as relu((1 - |gx|^2 / sigma) - |kappa|^2 / sigma + gx . (2 R kappa /
+// sigma)) and rounded to bf16 in the fragment. f[u][mi][j] is the m16n8
+// accumulator of channels 16 mi .. 16 mi + 16 and kernel points 8j .. 8j +
+// 8, summed in place over the nnp / 16 <= 4 k16 steps.
+__device__ __forceinline__ void contract_pair(
+    float (&f)[2][2][3][4], const bf16* __restrict__ gb,
+    const float4* __restrict__ s_gx, const int2* __restrict__ s_ri,
+    const float* __restrict__ rk, const float* __restrict__ k2, int r,
+    int nnp, float inv_sigma, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float4* g4[2];
+  const bf16* gbu[2];
+  float4 rj[2][3];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int2 ri = s_ri[r + u];
+    g4[u] = s_gx + max(ri.x, 0) * nnp;
+    gbu[u] = gb + (size_t)u * nnp * kCC;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int kp = 8 * j + g;
+      const float* rp = rk + ((size_t)ri.y * kK + kp) * 3;
+      const float s2 = 2.f * inv_sigma;
+      rj[u][j] = make_float4(s2 * __ldg(rp), s2 * __ldg(rp + 1),
+                             s2 * __ldg(rp + 2),
+                             -__ldg(k2 + kp) * inv_sigma);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) f[u][mi][j][h] = 0.f;
+  for (int nb = 0; nb < nnp; nb += 16) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float4 gq[4] = {g4[u][nb + 2 * t], g4[u][nb + 2 * t + 1],
+                            g4[u][nb + 2 * t + 8], g4[u][nb + 2 * t + 9]};
+      uint32_t b[3][2];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        float w[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float4& p = gq[n];
+          const float4& k = rj[u][j];
+          w[n] = fmaxf(fmaf(p.x, k.x, fmaf(p.y, k.y, fmaf(p.z, k.z,
+                                                          p.w + k.w))),
+                       0.f);
+        }
+        b[j][0] = epn::pack2(w[0], w[1]);
+        b[j][1] = epn::pack2(w[2], w[3]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        uint32_t af[4];
+        tc::ldsm4t(af, tc::smem_addr(
+                           gbu[u] + tc::swz(nb + (lane & 7) + (lane >> 4) * 8,
+                                            (2 * mi + ((lane >> 3) & 1)) * 8,
+                                            kCC / 8)));
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          tc::mma(f[u][mi][j], af, b[j][0], b[j][1]);
+      }
+    }
+  }
+}
+
 // out [M, D] (bf16) for rows m0 .. m0 + kBM and columns n0 .. n0 + BN:
 // per 32-channel chunk, phase 1 builds the bf16 F slab (each warp two rows
 // at a time: the rows' gathered table rows G [nnp, kCC] in a cp.async ring,
@@ -473,124 +623,28 @@ inter_conv_mma_kernel(const float* __restrict__ gx,
     tc::cp_commit();
   }
 
-  // the block's points' neighbors (padded slots hold the shadow index) and
-  // each row's table offset, local point (-1 past M) and anchor
-  for (int e = tid; e < np * nnp; e += kThreads) {
-    const int p = e / nnp, n = e - p * nnp;
-    float4 v = make_float4(0.f, 0.f, 0.f, 1.f);
-    int j = q;
-    if (n < nn) {
-      const size_t src = (size_t)(pt0 + p) * nn + n;
-      const float x = gx[3 * src], y = gx[3 * src + 1], z = gx[3 * src + 2];
-      v = make_float4(x, y, z, 1.f - ((x * x + y * y) + z * z) * inv_sigma);
-      j = idx[src];
-    }
-    s_gx[e] = v;
-    s_idx[e] = j;
-  }
-  if (tid < kBM) {
-    const int gm = m0 + tid, pt = gm / na, a = gm - pt * na;
-    s_rtb[tid] = ((long long)(pt / p2) * q * na + a) * C;
-    s_ri[tid] = make_int2(gm < M ? pt - pt0 : -1, a);
-  }
+  stage_block(s_gx, s_idx, s_rtb, s_ri, gx, idx, m0, M, pt0, np, nnp, nn, q,
+              na, p2, C, inv_sigma, tid, kThreads);
   __syncthreads();
 
-  // the table rows of this warp's rows i, i + 1, channels c0 .. c0 + kCC,
-  // into buffers i % R, i % R + 1 (zeros for the shadow index and padded
-  // slots; nothing past M); one commit group a pair
+  // the table rows of this warp's rows i, i + 1 (i even), channels c0 ..
+  // c0 + kCC, into buffers i % R, i % R + 1; one commit group a pair
   auto gather = [&](int i, int c0) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int r = warp * kRowsPerWarp + i + u, lp = s_ri[r].x;
-      if (lp < 0) continue;
-      const int* ix = s_idx + lp * nnp;
-      const bf16* tb = table + s_rtb[r] + c0;
-      bf16* dst = rows + (size_t)((i + u) % R) * nnp * kCC;
-      for (int e = lane; e < nnp * (kCC / 8); e += 32) {
-        const int n = e / (kCC / 8), c8 = e % (kCC / 8) * 8;
-        const int j = ix[n];
-        const bool ok = j < q;
-        tc::cp16(tc::smem_addr(dst + tc::swz(n, c8, kCC / 8)),
-                 ok ? tb + (size_t)j * na * C + c8 : table, ok);
-      }
-    }
-    tc::cp_commit();
+    gather_pair(rows + (size_t)(i % R) * nnp * kCC, table, s_idx, s_rtb,
+                s_ri, warp * kRowsPerWarp + i, c0, nnp, q, na, C, lane);
   };
 
-  // rows i, i + 1: F^T [kCC, 24] = G^T [kCC, nnp] w [nnp, 24] for each;
-  // A = G^T by ldmatrix.trans from the [n][c] buffer; B = the anchor
-  // weights of neighbors 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) for kernel
-  // point 8j + g, computed in fp32 as relu((1 - |gx|^2 / sigma) - |kappa|^2
-  // / sigma + gx . (2 R kappa / sigma)) and rounded to bf16 in the
-  // fragment; F rounded to bf16 into the slab, three 16-byte chunks a lane
+  // rows i, i + 1: F^T by contract_pair, rounded to bf16 into the slab,
+  // three 16-byte chunks a lane
   auto contract = [&](int i) {
-    const float4* g4[2];
-    const bf16* gb[2];
-    float4 rj[2][3];
-    int r[2];
-    bool live[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      r[u] = warp * kRowsPerWarp + i + u;
-      const int2 ri = s_ri[r[u]];
-      live[u] = ri.x >= 0;
-      g4[u] = s_gx + max(ri.x, 0) * nnp;
-      gb[u] = rows + (size_t)((i + u) % R) * nnp * kCC;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int kp = 8 * j + g;
-        const float* rp = rk + ((size_t)ri.y * kK + kp) * 3;
-        const float s2 = 2.f * inv_sigma;
-        rj[u][j] = make_float4(s2 * __ldg(rp), s2 * __ldg(rp + 1),
-                               s2 * __ldg(rp + 2),
-                               -__ldg(k2 + kp) * inv_sigma);
-      }
-    }
+    const int r0 = warp * kRowsPerWarp + i;
     float f[2][2][3][4];
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-#pragma unroll
-          for (int h = 0; h < 4; ++h) f[u][mi][j][h] = 0.f;
-    for (int nb = 0; nb < nnp; nb += 16) {
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float4 gq[4] = {g4[u][nb + 2 * t], g4[u][nb + 2 * t + 1],
-                              g4[u][nb + 2 * t + 8], g4[u][nb + 2 * t + 9]};
-        uint32_t b[3][2];
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          float w[4];
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            const float4& p = gq[n];
-            const float4& k = rj[u][j];
-            w[n] = fmaxf(fmaf(p.x, k.x, fmaf(p.y, k.y, fmaf(p.z, k.z,
-                                                            p.w + k.w))),
-                         0.f);
-          }
-          b[j][0] = epn::pack2(w[0], w[1]);
-          b[j][1] = epn::pack2(w[2], w[3]);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          uint32_t af[4];
-          tc::ldsm4t(af, tc::smem_addr(
-                             gb[u] + tc::swz(nb + (lane & 7) + (lane >> 4) * 8,
-                                             (2 * mi + ((lane >> 3) & 1)) * 8,
-                                             kCC / 8)));
-#pragma unroll
-          for (int j = 0; j < 3; ++j)
-            tc::mma(f[u][mi][j], af, b[j][0], b[j][1]);
-        }
-      }
-    }
+    contract_pair(f, rows + (size_t)(i % R) * nnp * kCC, s_gx, s_ri, rk, k2,
+                  r0, nnp, inv_sigma, lane);
+    const int r[2] = {r0, r0 + 1};
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      if (!live[u]) continue;
+      if (s_ri[r[u]].x < 0) continue;
       const float(&h)[2][3][4] = f[u];
       const uint4 v[3] = {
           make_uint4(epn::pack2(h[0][0][0], h[0][0][1]),
@@ -765,6 +819,151 @@ int launch_any(const void* gx, const void* idx, const void* table,
                            C, D, sigma, stream);
 }
 
+// ------------------------------------------------- W-off F on tensor cores
+
+constexpr int kFWarps = 4;
+constexpr int kFThreads = 32 * kFWarps;
+constexpr int kFRowsPerWarp = kBM / kFWarps;  // eight pairs
+constexpr int kFStage = 2 * kKC;              // a pair's F chunk (elements)
+constexpr int kFBlocks = 4;                   // blocks an SM the ring fits
+constexpr int kFRing = 4;                     // rows a warp's ring, at most
+constexpr size_t kSmemPerSM = 228 * 1024;
+
+__host__ __device__ inline size_t align128(size_t x) {
+  return (x + 127) & ~(size_t)127;
+}
+
+// dynamic shared memory, in bytes from the base: the neighbor coordinates
+// [np][nnp] float4 (offset 0) and indices [np][nnp], the rows' table
+// offsets [kBM] and (point, anchor) [kBM], each warp's staged F tile
+// [2 rows][24][kCC], then each warp's ring of R gathered-row buffers
+// [nnp, kCC]: kFRing where kFBlocks blocks still fit an SM, else 2
+struct FSmem {
+  int nnp, np, R;
+  size_t idx, rtb, ri, stage, rows, total;
+};
+
+__host__ __device__ inline FSmem f_layout(int na, int nn) {
+  FSmem s;
+  s.nnp = (nn + 15) / 16 * 16;
+  s.np = (kBM - 1) / na + 2;
+  s.idx = (size_t)s.np * s.nnp * sizeof(float4);
+  s.rtb = align128(s.idx + (size_t)s.np * s.nnp * sizeof(int));
+  s.ri = s.rtb + (size_t)kBM * sizeof(long long);
+  s.stage = align128(s.ri + (size_t)kBM * sizeof(int2));
+  s.rows = s.stage + (size_t)kFWarps * kFStage * sizeof(bf16);
+  const size_t row_bytes = (size_t)kFWarps * s.nnp * kCC * sizeof(bf16);
+  // each block's share of the SM, less the 1 KB the system keeps a block
+  const size_t budget = kSmemPerSM / kFBlocks - 1024;
+  s.R = s.rows + kFRing * row_bytes <= budget ? kFRing : 2;
+  s.total = s.rows + (size_t)s.R * row_bytes;
+  return s;
+}
+
+// F [M, 24, C] (bf16) for rows m0 .. m0 + kBM. Each warp walks its eight
+// row pairs and each pair's C / 32 channel chunks in turn (items), with
+// the gathers of the next R / 2 - 1 items in flight in its ring; phase 1
+// (gather_pair, contract_pair) builds F^T, whose fragments stmatrix.trans
+// writes into the warp's staged tile as F [u][k][cc] (swizzled: the eight
+// k rows of one 8 x 8 store fall in distinct banks); each row's 24 runs of
+// 32 channels (64 bytes) then go to F in 16-byte vectors, four lanes a
+// run, as evict-first stores. No block barrier after the staging; no
+// atomics.
+__global__ void __launch_bounds__(kFThreads, kFBlocks)
+inter_f_mma_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
+                   const bf16* __restrict__ table,
+                   const float* __restrict__ rk,
+                   const float* __restrict__ k2, bf16* __restrict__ F,
+                   int M, int p2, int nn, int q, int na, int C,
+                   float inv_sigma) {
+  extern __shared__ __align__(128) unsigned char f_smem[];
+  const FSmem L = f_layout(na, nn);
+  const int nnp = L.nnp, R2 = L.R / 2;
+  float4* s_gx = reinterpret_cast<float4*>(f_smem);
+  int* s_idx = reinterpret_cast<int*>(f_smem + L.idx);
+  long long* s_rtb = reinterpret_cast<long long*>(f_smem + L.rtb);
+  int2* s_ri = reinterpret_cast<int2*>(f_smem + L.ri);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  bf16* stage = reinterpret_cast<bf16*>(f_smem + L.stage) +
+                (size_t)warp * kFStage;
+  bf16* rows = reinterpret_cast<bf16*>(f_smem + L.rows) +
+               (size_t)warp * L.R * nnp * kCC;
+  const int m0 = blockIdx.x * kBM, pt0 = m0 / na;
+  const int np = (min(m0 + kBM, M) - 1) / na - pt0 + 1;
+  stage_block(s_gx, s_idx, s_rtb, s_ri, gx, idx, m0, M, pt0, np, nnp, nn, q,
+              na, p2, C, inv_sigma, tid, kFThreads);
+  __syncthreads();
+
+  // item it: the warp's pair it / nch (block rows r, r + 1), channels
+  // c0 .. c0 + kCC of chunk it % nch; its rows in ring slot it % R2
+  const int nch = C / kCC, items = kFRowsPerWarp / 2 * nch;
+  const int rw = warp * kFRowsPerWarp;
+  auto gather = [&](int it) {
+    gather_pair(rows + (size_t)(it % R2) * 2 * nnp * kCC, table, s_idx,
+                s_rtb, s_ri, rw + it / nch * 2, it % nch * kCC, nnp, q, na,
+                C, lane);
+  };
+  for (int it = 0; it < R2 - 1; ++it) gather(it);
+  for (int it = 0; it < items; ++it) {
+    if (it + R2 - 1 < items) {
+      gather(it + R2 - 1);
+    } else {
+      tc::cp_commit();
+    }
+    cp_wait_upto(R2 - 1);
+    __syncwarp();
+    const int r = rw + it / nch * 2, c0 = it % nch * kCC;
+    float f[2][2][3][4];
+    contract_pair(f, rows + (size_t)(it % R2) * 2 * nnp * kCC, s_gx, s_ri,
+                  rk, k2, r, nnp, inv_sigma, lane);
+    // store j of row u: matrix 2 mi + h holds channels 16 mi + 8 h + g by
+    // kernel points 8j + 2t, 8j + 2t + 1; lane l gives the staged row of
+    // kernel point 8j + l % 8, channels 8 (l / 8) .. + 8
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float(&h)[2][3][4] = f[u];
+        tc::stsm4t(tc::smem_addr(stage + tc::swz(u * kK + 8 * j + (lane & 7),
+                                                 (lane >> 3) * 8, kCC / 8)),
+                   epn::pack2(h[0][j][0], h[0][j][1]),
+                   epn::pack2(h[0][j][2], h[0][j][3]),
+                   epn::pack2(h[1][j][0], h[1][j][1]),
+                   epn::pack2(h[1][j][2], h[1][j][3]));
+      }
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (s_ri[r + u].x < 0) continue;
+      bf16* out = F + (size_t)(m0 + r + u) * kK * C + c0;
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        const int e = 32 * s + lane, k = e >> 2, ch = e & 3;
+        tc::st_stream16(out + (size_t)k * C + ch * 8,
+                        *reinterpret_cast<const uint4*>(
+                            stage + tc::swz(u * kK + k, ch * 8, kCC / 8)));
+      }
+    }
+    __syncwarp();  // the staged tile is written again next item
+  }
+  tc::cp_wait<0>();
+}
+
+int launch_f(const void* gx, const void* idx, const void* table,
+             const void* rk, const void* k2, void* F, int M, int p2, int nn,
+             int q, int na, int C, float sigma, cudaStream_t stream) {
+  const FSmem L = f_layout(na, nn);
+  cudaError_t err = cudaFuncSetAttribute(
+      inter_f_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  inter_f_mma_kernel<<<(M + kBM - 1) / kBM, kFThreads, L.total, stream>>>(
+      (const float*)gx, (const int*)idx, (const bf16*)table,
+      (const float*)rk, (const float*)k2, (bf16*)F, M, p2, nn, q, na, C,
+      1.f / sigma);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace mma
 
 }  // namespace
@@ -790,9 +989,10 @@ extern "C" int epn_inter_conv(const void* gx, const void* idx, const void* table
                          C, D, sigma, s);
 }
 
-// W-off mode: gx, idx, rk, k2 as above, table [b, q, na, C] and F
-// [b, p2, na, K, C]: fp32, or bf16 when bf16 != 0 (the anchor weights
-// rounded to bf16, F summed in fp32 and rounded once). C must be a multiple of 8, K of 6.
+// W-off mode (the SGEMM template): gx, idx, rk, k2 as above, table
+// [b, q, na, C] and F [b, p2, na, K, C]: fp32, or bf16 when bf16 != 0 (the
+// anchor weights rounded to bf16, F summed in fp32 and rounded once). C
+// must be a multiple of 8, K of 6.
 extern "C" int epn_inter_conv_f(const void* gx, const void* idx,
                                 const void* table, const void* rk,
                                 const void* k2, void* F, int b, int p2, int nn,
@@ -813,6 +1013,22 @@ extern "C" int epn_inter_conv_f(const void* gx, const void* idx,
   return launch<128, 128, float, true>(g, ix, (const float*)table, r, kk,
                                        nullptr, (float*)F, b * p2 * na, p2,
                                        nn, q, na, K, C, 0, sigma, s);
+}
+
+// bf16 W-off F on tensor cores (inter_f_mma_kernel): gx, idx, table, rk, k2
+// and F as epn_inter_conv_f with a bf16 table and F. K must be 24, C a
+// positive multiple of 32, 1 <= nn <= 64 and na >= 4.
+extern "C" int epn_inter_conv_f_mma(const void* gx, const void* idx,
+                                    const void* table, const void* rk,
+                                    const void* k2, void* F, int b, int p2,
+                                    int nn, int q, int na, int K, int C,
+                                    float sigma, void* stream) {
+  if (K != mma::kK || C < mma::kCC || C % mma::kCC != 0 || nn < 1 ||
+      nn > mma::kMaxNN || na < mma::kMinNA) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return mma::launch_f(gx, idx, table, rk, k2, F, b * p2 * na, p2, nn, q, na,
+                       C, sigma, (cudaStream_t)stream);
 }
 
 // bf16 on tensor cores (the production mode's W-fused forward): gx, idx,

@@ -1,7 +1,8 @@
 // Tensor-core building blocks for the bf16 kernels (sm_80+ instructions,
 // run on Hopper): cp.async staging with zero fill, ldmatrix fragment loads
 // from XOR-swizzled shared-memory tiles, and the bf16 x bf16 -> fp32
-// mma.sync.m16n8k16.
+// mma.sync.m16n8k16; stmatrix (sm_90) to write fragments back transposed,
+// and a streaming 16-byte store.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major)  a0: (g, 2t..2t+1)   a1: (g+8, 2t..)
@@ -78,6 +79,29 @@ __device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
       : "=r"(r[0]), "=r"(r[1])
       : "r"(addr));
+}
+
+// stmatrix (sm_90), transposed: the 8 x 8 bf16 fragment of matrix m held
+// as ldmatrix gives it (lane l: row l / 4, columns 2 (l % 4) .. + 1) in
+// r[m] is stored with its columns as rows: fragment column c goes to the
+// 16-byte row whose address lane 8 m + c gives
+__device__ __forceinline__ void stsm4t(uint32_t addr, uint32_t r0,
+                                       uint32_t r1, uint32_t r2,
+                                       uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
+      "%4};\n" ::"r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+// 16 bytes to global memory, marked evict-first in L2 (st.global.cs): for
+// outputs written once and not read again by the kernel, so that they do
+// not push its gathered operand out of L2
+__device__ __forceinline__ void st_stream16(void* p, const uint4& v) {
+  asm volatile("st.global.cs.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 // d += a b (bf16 operands, fp32 accumulators)

@@ -1,7 +1,8 @@
 """Where the bf16 tensor-core inter forward (``inter_conv_mma_kernel`` in
-csrc/inter_conv.cu) spends its time, on the card: the kernel as built
-beside variants with one part taken out, at the shapes of both models'
-layers, with the same timer (``chip_smoke.time_ms``).
+csrc/inter_conv.cu) and the bf16 tensor-core W-off F (``inter_f_mma_kernel``)
+spend their time, on the card: each kernel as built beside variants with
+one part taken out, at the shapes of the models' layers, with the same
+timer (``chip_smoke.time_ms``).
 
   python -m epn_pointcloud_tpu_torch.inter_conv_variants
 
@@ -30,9 +31,27 @@ points) and the share of outputs rounded toward zero less the share
 rounded away from it (``lean``). Operands are random (seeded), the
 neighborhoods a ball query over random points in the unit ball, at the
 shapes the smoke run captures from the models: cls_so3net_pn at b=32 and
-inv_so3net_pn at b=16 (one leg). One JSON line a shape, a sum over each
-model's layers, all of them in chiprun_out/inter_conv_variants.json. Needs
-a CUDA device and nvcc.
+inv_so3net_pn at b=16 (one leg).
+
+The W-off F (``epn_inter_conv_f_mma``), at the inv model's composed-route
+layers (b=16, one leg), beside the SGEMM template's W-off mode
+(``epn_inter_conv_f`` in bf16, ``template``):
+  built          the source as it is (each row's neighbor contraction sums
+                 its <= 4 k16 steps in place in the mma accumulator);
+  fresh_acc      each k16 step of the contraction in a fresh accumulator,
+                 added to the running sum by a rounding fp32 add;
+  ring_deep      the ring sized for two blocks an SM, not four: the next
+                 pair's gathers in flight at nn = 64 too, at half the warps;
+and, whose output is wrong and only whose time counts:
+  no_stores      F is not stored (the staging still runs);
+  no_gather      the table rows are not read (zero-filled buffers);
+  no_mma         the contraction runs no mma (its anchor weights, ldmatrix
+                 and stores still run).
+For built, fresh_acc and ring_deep the normwise error against
+``inter_conv_f_plain`` and the lean.
+
+One JSON line a shape, a sum over each model's layers, all of them in
+chiprun_out/inter_conv_variants.json. Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -67,6 +86,22 @@ VARIANTS = {
                    'W + n0 + c8, true);'),
 }
 EXACT = ('built', 'in_place')
+_F_MMA = 'tc::mma(f[u][mi][j], af, b[j][0], b[j][1]);'
+# the W-off F's builds, as VARIANTS
+F_VARIANTS = {
+    'built': None,
+    'fresh_acc': (_F_MMA, '{ float t4[4] = {0.f, 0.f, 0.f, 0.f}; '
+                  'tc::mma(t4, af, b[j][0], b[j][1]); for (int e = 0; '
+                  'e < 4; ++e) f[u][mi][j][e] += t4[e]; }'),
+    'ring_deep': ('constexpr int kFBlocks = 4;',
+                  'constexpr int kFBlocks = 2;'),
+    'no_stores': ('tc::st_stream16(out + (size_t)k * C + ch * 8,',
+                  'if (M < 0) tc::st_stream16(out + (size_t)k * C + ch * 8,'),
+    'no_gather': ('const bool ok = j < q;', 'const bool ok = false;'),
+    'no_mma': (_F_MMA, 'if (inv_sigma < 0.f) ' + _F_MMA),
+}
+F_EXACT = ('built', 'fresh_acc', 'ring_deep')
+SOURCE_PATH = os.path.join(build.CSRC_DIR, 'inter_conv.cu')
 # model -> (b, [(layer, p1, p2, nn, c, d)])
 SHAPES = {
     'cls_so3net_pn b=32': (32, [
@@ -79,6 +114,9 @@ SHAPES = {
         ('B2L1', 128, 128, 32, 128, 128), ('B3L0', 128, 64, 64, 128, 128),
         ('B3L1', 64, 64, 32, 128, 128)]),
 }
+# the inv model's composed-route layers: (layer, p1, p2, nn, c), b=16
+F_SHAPES = (16, [('B0L1', 512, 512, 32, 32), ('B1L0', 512, 256, 64, 32),
+                 ('B2L0', 256, 128, 64, 64), ('B3L0', 128, 64, 64, 128)])
 
 
 def _operands(dev, b, p1, p2, nn, c, d, seed):
@@ -102,25 +140,33 @@ def _operands(dev, b, p1, p2, nn, c, d, seed):
     return gx.contiguous(), idx, table, rk, k2, W
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit('inter_conv_variants: needs a CUDA device')
-    sys.path.insert(0, ROOT)
-    from chip_smoke import time_ms
+def _build(variants, entry):
+    """Each variant of csrc/inter_conv.cu built alone (all nvcc at once);
+    variant -> its C entry ``entry``."""
     procs = {n: build.compile_alone(build.CSRC_DIR, 'inter_conv.cu',
-                                    os.path.join(OUT, n), sub)
-             for n, sub in VARIANTS.items()}
+                                    os.path.join(OUT, f'{entry}_{n}'), sub)
+             for n, sub in variants.items()}
     fns = {}
     for n, (p, so) in procs.items():
         log = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f'nvcc failed on {n}:\n{log}')
-        fn = ctypes.CDLL(so).epn_inter_conv_mma
-        fn.argtypes = build.SIGNATURES['epn_inter_conv_mma']
+        fn = getattr(ctypes.CDLL(so), entry)
+        fn.argtypes = build.SIGNATURES[entry]
         fn.restype = ctypes.c_int
         fns[n] = fn
-    dev = torch.device('cuda')
-    card = torch.cuda.get_device_name(0)
+    return fns
+
+
+def _caller(fn, args, name):
+    def run():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f'{name}: error {err}')
+    return run
+
+
+def forward_part(fns, dev, card, time_ms):
     lines = []
     for model, (b, layers) in SHAPES.items():
         total = dict.fromkeys(VARIANTS, 0.0)
@@ -131,21 +177,15 @@ def main():
             args = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(),
                     rk.data_ptr(), k2.data_ptr(), W.data_ptr(),
                     out.data_ptr(), b, p2, nn, p1, 60, 24, c, d, 0.08)
-
-            def call(fn):
-                def run():
-                    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-                    if err:
-                        raise RuntimeError(f'epn_inter_conv_mma: error {err}')
-                return run
-            rec = {n: time_ms(call(fn)) for n, fn in fns.items()}
+            rec = {n: time_ms(_caller(fn, args, 'epn_inter_conv_mma'))
+                   for n, fn in fns.items()}
             for n, ms in rec.items():
                 total[n] += ms
             want = inter_conv.inter_conv_mma_plain(gx, idx, table, rk, k2, W,
                                                    0.08)
             err = {}
             for n in EXACT:
-                call(fns[n])()
+                _caller(fns[n], args, n)()
                 torch.cuda.synchronize()
                 err[n] = {'rel': _rel(out, want), 'lean': _lean(out, want)}
             del want
@@ -158,6 +198,59 @@ def main():
         lines.append({'model': model, 'sum_over_layers': True, 'ms': total,
                       'card': card})
         print(json.dumps(lines[-1]), flush=True)
+    return lines
+
+
+def f_part(fns, dev, card, time_ms):
+    """The W-off F's builds and the template at the inv composed layers."""
+    lib = build.library()
+    b, layers = F_SHAPES
+    model = f'inv_so3net_pn W-off F b={b}'
+    total = dict.fromkeys(['template', *F_VARIANTS], 0.0)
+    lines = []
+    for tag, p1, p2, nn, c in layers:
+        gx, idx, table, rk, k2, _ = _operands(dev, b, p1, p2, nn, c, 32,
+                                              seed=nn + c)
+        F = torch.empty(b, p2, 60, 24, c, dtype=torch.bfloat16, device=dev)
+        args = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(),
+                rk.data_ptr(), k2.data_ptr(), F.data_ptr(), b, p2, nn, p1,
+                60, 24, c, 0.08)
+        rec = {'template': time_ms(_caller(lib.epn_inter_conv_f, args + (1,),
+                                           'epn_inter_conv_f'))}
+        rec.update({n: time_ms(_caller(fn, args, 'epn_inter_conv_f_mma'))
+                    for n, fn in fns.items()})
+        for n, ms in rec.items():
+            total[n] += ms
+        want = inter_conv.inter_conv_f_plain(gx, idx, table, rk, k2, 0.08)
+        err = {}
+        for n in F_EXACT:
+            _caller(fns[n], args, n)()
+            torch.cuda.synchronize()
+            err[n] = {'rel': _rel(F, want), 'lean': _lean(F, want)}
+        del want
+        lines.append({'model': model, 'layer': tag,
+                      'dims': [b, p1, p2, nn, c], 'ms': rec,
+                      'vs_f_plain': err, 'card': card})
+        print(json.dumps(lines[-1]), flush=True)
+        del gx, idx, table, F
+        torch.cuda.empty_cache()
+    lines.append({'model': model, 'sum_over_layers': True, 'ms': total,
+                  'card': card})
+    print(json.dumps(lines[-1]), flush=True)
+    return lines
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit('inter_conv_variants: needs a CUDA device')
+    sys.path.insert(0, ROOT)
+    from chip_smoke import time_ms
+    fns = _build(VARIANTS, 'epn_inter_conv_mma')
+    f_fns = _build(F_VARIANTS, 'epn_inter_conv_f_mma')
+    dev = torch.device('cuda')
+    card = torch.cuda.get_device_name(0)
+    lines = (forward_part(fns, dev, card, time_ms)
+             + f_part(f_fns, dev, card, time_ms))
     out_dir = os.path.join(ROOT, 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, 'inter_conv_variants.json'), 'w') as f:

@@ -49,7 +49,10 @@ bf16, the fold onto the table rows in fp32. The bf16 fused dW runs on
 tensor cores (``dw_mma_route``; other shapes on the template); both round
 the anchor weights and F to bf16 before the fp32 product, where the TPU
 kernels round them (``_bwd_gather_w_kernel:1133, 1140``), as the plain
-version does.
+version does. The bf16 W-off F runs on tensor cores (``f_mma_route``;
+other shapes on the SGEMM template's W-off mode) at the same rounding
+points as its plain version: the anchor weights rounded to bf16, fp32
+sums, F rounded once.
 """
 
 from __future__ import annotations
@@ -82,9 +85,11 @@ launches = dict.fromkeys(ENTRIES, 0)
 # (``inter_dtable_kernel``: fp32, and bf16 shapes off ``bwd_mma_route``);
 # the fused dW's 'dw_mma', the bf16 tensor-core kernel
 # (``inter_dw_mma_kernel``), or 'dw', the template (``inter_dw_kernel``:
-# fp32, and bf16 shapes off ``dw_mma_route``)
+# fp32, and bf16 shapes off ``dw_mma_route``); the W-off F's 'f_mma', the
+# bf16 tensor-core kernel (``inter_f_mma_kernel``), or 'f', the SGEMM
+# template's W-off mode (fp32, and bf16 shapes off ``f_mma_route``)
 routes = dict.fromkeys(('mma', 'sgemm', 'dtable_mma', 'dtable', 'dg_mma',
-                        'dg', 'dw_mma', 'dw'), 0)
+                        'dg', 'dw_mma', 'dw', 'f_mma', 'f'), 0)
 
 # anchors per step of the plain versions: bounds their [b, p, n, chunk, *]
 # intermediates (~1 GB at b=32 on the widest flagship layer)
@@ -105,6 +110,9 @@ BWD_MMA_NA, BWD_MMA_CC, BWD_MMA_MAX_NN, BWD_MMA_SD = 60, 16, 64, 32
 # the blocks its row splits aim for (one block an SM: about two waves)
 DW_MMA_NA, DW_MMA_CC, DW_MMA_BN, DW_MMA_MAX_NN = 60, 16, 64, 64
 DW_MMA_BLOCKS = 256
+# the bf16 tensor-core W-off F's envelope (``f_mma_route``): the anchors, a
+# multiple of the channels (its chunk), neighbors up to
+F_MMA_NA, F_MMA_CC, F_MMA_MAX_NN = 60, 32, 64
 
 
 def anchor_weights(gx: torch.Tensor, rk: torch.Tensor, k2: torch.Tensor,
@@ -337,6 +345,16 @@ def dw_mma_route(dtype, K: int, c: int, d: int, nn: int, na: int) -> bool:
             and 1 <= nn <= DW_MMA_MAX_NN)
 
 
+def f_mma_route(dtype, K: int, c: int, nn: int, na: int) -> bool:
+    """Whether the W-off F runs the bf16 tensor-core kernel
+    (``inter_f_mma_kernel``): a bf16 table and K == 24, na == 60, c % 32 ==
+    0 and 1 <= nn <= 64 (every composed-route layer of the inv model). fp32
+    and the other shapes the wrapper takes run the SGEMM template's W-off
+    mode."""
+    return (dtype == torch.bfloat16 and K == N_KERNEL and na == F_MMA_NA
+            and c % F_MMA_CC == 0 and 1 <= nn <= F_MMA_MAX_NN)
+
+
 def inter_conv(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
                rk: torch.Tensor, k2: torch.Tensor, W: torch.Tensor,
                sigma: float) -> torch.Tensor:
@@ -478,18 +496,25 @@ def inter_conv_f(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
                  rk: torch.Tensor, k2: torch.Tensor,
                  sigma: float) -> torch.Tensor:
     """W-off forward wrapper -> F [b, p2, na, K, c] in the table's type
-    (fp32 or bf16): plain version on the CPU, CUDA kernel on the card."""
+    (fp32 or bf16): plain version on the CPU, CUDA kernel on the card: the
+    tensor-core kernel where ``f_mma_route`` holds (bf16), else the SGEMM
+    template's W-off mode. Both are deterministic (no atomics)."""
     if table.device.type == 'cpu':
         return inter_conv_f_plain(gx, idx, table, rk, k2, sigma)
     bf16 = build.dtype_flag(table.dtype, 'inter_conv_f')
     b, p2, nn, q, na, K, c = _check_woff('inter_conv_f', gx, idx, table.shape,
                                          rk, k2, table.dtype, table=table)
     F = torch.empty((b, p2, na, K, c), dtype=table.dtype, device=gx.device)
+    ptrs = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(), rk.data_ptr(),
+            k2.data_ptr(), F.data_ptr(), b, p2, nn, q, na, K, c,
+            float(sigma))
     launches['inter_conv_f'] += 1
-    build.launch('epn_inter_conv_f', gx.data_ptr(), idx.data_ptr(),
-                 table.data_ptr(), rk.data_ptr(), k2.data_ptr(), F.data_ptr(),
-                 b, p2, nn, q, na, K, c, float(sigma), bf16,
-                 build.stream(table))
+    if f_mma_route(table.dtype, K, c, nn, na):
+        routes['f_mma'] += 1
+        build.launch('epn_inter_conv_f_mma', *ptrs, build.stream(table))
+    else:
+        routes['f'] += 1
+        build.launch('epn_inter_conv_f', *ptrs, bf16, build.stream(table))
     return F
 
 

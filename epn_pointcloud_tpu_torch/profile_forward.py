@@ -42,10 +42,12 @@ from .ops import so3conv
 from .train import make_optimizer
 
 # kernel-name substrings (all of them) -> group (first match wins); the
-# W-off modes are the inter kernels' instantiations with kWOff = true, B6
-# df the tensor-core intra kernel's with DF = true (its last argument); the
-# backward scatter's template and tensor-core kernel share a group
-GROUPS = ((('inter_conv_kernel', 'true>'), 'inter F (W-off) kernel'),
+# W-off modes are the inter kernels' instantiations with kWOff = true (and
+# the bf16 W-off F's own tensor-core kernel), B6 df the tensor-core intra
+# kernel's with DF = true (its last argument); the backward scatter's
+# template and tensor-core kernel share a group
+GROUPS = (('inter_f_mma_kernel', 'inter F (W-off) kernel'),
+          (('inter_conv_kernel', 'true>'), 'inter F (W-off) kernel'),
           (('inter_dtable_kernel', 'true>'), 'inter dG (W-off) kernel'),
           (('inter_bwd_mma_kernel', 'true>'), 'inter dG (W-off) kernel'),
           ('inter_bwd_mma_kernel', 'inter dTable kernel'),

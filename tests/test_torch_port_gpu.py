@@ -15,7 +15,9 @@ the bf16 fused dW on tensor cores at model layers and at its edges, its
 determinism, and the template off its envelope; the bf16 intra dW on
 tensor cores (B6 dW and the plain form's) at every model width, with a
 fold for the batch and one a cloud, at point counts that leave its last
-8-point group short, its determinism, and the SGEMM off its envelope.
+8-point group short, its determinism, and the SGEMM off its envelope;
+the bf16 W-off F on tensor cores at every composed-route layer and at
+its edges, its determinism, and the template off its envelope.
 
 Run on a machine with the card:
   python -m pytest tests/test_torch_port_gpu.py -q -m gpu --noconftest
@@ -1059,8 +1061,9 @@ def test_woff_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 @pytest.mark.parametrize('b,p1,stride,nn,c,d', WOFF_SHAPES)
 def test_woff_kernels_bf16_match_plain(cuda, b, p1, stride, nn, c, d):
     """The bf16 builds: inter_conv_f from a bf16 table (F bf16, rounded once
-    on store) to a normwise 8e-3 of its plain version, inter_conv_dg from a
-    bf16 dF (each slot's sum rounded to bf16, dT fp32) to 1e-3."""
+    on store; the tensor-core F) to a normwise 1e-3 of its plain version,
+    inter_conv_dg from a bf16 dF (each slot's sum rounded to bf16, dT fp32)
+    to 1e-3."""
     gx, idx, f, rk, k2, _, _ = _inter_operands(cuda, b, p1, stride, nn, c, d)
     ic = tkern.inter_conv
     rng = np.random.RandomState(nn + c)
@@ -1071,9 +1074,76 @@ def test_woff_kernels_bf16_match_plain(cuda, b, p1, stride, nn, c, d):
     torch.cuda.synchronize()
     assert F.dtype == BF16 and dT.dtype == torch.float32
     assert _rel(F.float(), ic.inter_conv_f_plain(gx, idx, f, rk, k2,
-                                                 0.08).float()) <= 8e-3
+                                                 0.08).float()) <= 1e-3
     assert _rel(dT, ic.inter_conv_dg_plain(gx, idx, p1, rk, k2, dF,
                                            0.08)) <= 1e-3
+
+
+# the composed-route layers of WOFF_SHAPES, and B0L1 at the step's b = 16
+F_MMA_SHAPES = WOFF_SHAPES + [(16, 512, 1, 32, 32, 32)]
+
+
+def _f_case(cuda, b, p1, stride, nn, c, dtype=BF16, shadow=False, seed=0):
+    """(routes taken, the kernel's F, a second call's F, the plain version's
+    F) of one inter_conv_f call from a table in ``dtype``; shadow: every
+    third neighbor slot holds the shadow index."""
+    gx, idx, f, rk, k2, _, _ = _inter_operands(cuda, b, p1, stride, nn, c,
+                                               32, seed=seed)
+    if shadow:
+        idx[:, :, ::3] = p1
+    f = f.to(dtype)
+    ic = tkern.inter_conv
+    before = dict(ic.routes)
+    got = ic.inter_conv_f(gx, idx, f, rk, k2, 0.08)
+    again = ic.inter_conv_f(gx, idx, f, rk, k2, 0.08)
+    torch.cuda.synchronize()
+    route = [k for k in ic.routes if ic.routes[k] > before[k]]
+    return route, got, again, ic.inter_conv_f_plain(gx, idx, f, rk, k2, 0.08)
+
+
+@pytest.mark.parametrize('b,p1,stride,nn,c,d', F_MMA_SHAPES)
+def test_inter_f_mma_kernel_matches_plain(cuda, b, p1, stride, nn, c, d):
+    """The tensor-core W-off F at every composed-route layer of the inv
+    model (and B0L1 at b = 16): taken by the wrapper, its bf16 F within
+    1e-3 (normwise) of the plain version at the same rounding points (the
+    anchor weights in bf16, fp32 sums, F rounded once), and bitwise equal
+    on a second call (no atomics)."""
+    route, got, again, want = _f_case(cuda, b, p1, stride, nn, c,
+                                      seed=nn + c)
+    assert route == ['f_mma']
+    assert got.dtype == BF16 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got.float(), want.float()) <= 1e-3
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('b,p1,stride,nn,c', [
+    (1, 45, 3, 20, 32), (2, 64, 2, 64, 96), (3, 40, 1, 8, 64),
+    (2, 33, 1, 40, 96)])
+def test_inter_f_mma_kernel_edges(cuda, b, p1, stride, nn, c):
+    """The tensor-core F's edges, a third of the slots shadow: nn padded to
+    whole k16 steps (20, 8, 40), rows that end inside a 64-row block (900,
+    7200, 3960 rows), c = 96 (three 32-channel chunks a row) and 64: within
+    1e-3 of the plain version, bitwise equal on a second call."""
+    route, got, again, want = _f_case(cuda, b, p1, stride, nn, c,
+                                      shadow=True, seed=p1 + nn)
+    assert route == ['f_mma']
+    assert _rel(got.float(), want.float()) <= 1e-3
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('dtype,c', [(torch.float32, 32), (BF16, 40),
+                                     (BF16, 24)])
+def test_inter_f_off_envelope_takes_the_template(cuda, dtype, c):
+    """fp32, and bf16 channels that are not a multiple of 32, run the SGEMM
+    template's W-off mode as before ('f'): the forward's fp32 bound in
+    fp32, 8e-3 in bf16 (``test_woff_kernels_bf16_match_plain``'s)."""
+    route, got, _, want = _f_case(cuda, 2, 64, 1, 32, c, dtype=dtype)
+    assert route == ['f']
+    if dtype == torch.float32:
+        _conv_close(got, want, 32)
+    else:
+        assert _rel(got.float(), want.float()) <= 8e-3
 
 
 def test_composed_route_bf16_matches_plain(cuda):
@@ -1145,6 +1215,7 @@ def test_bf16_inv_train_step_launches_the_kernels(cuda):
         tkern.reset_counts()
         loss_k = step(models[0])
         counts = {k: v for k, v in tkern.counts().items() if v}
+        routes = dict(tkern.inter_conv.routes)
         with tkern.plain():
             loss_p = step(models[1])
         torch.cuda.synchronize()
@@ -1156,6 +1227,7 @@ def test_bf16_inv_train_step_launches_the_kernels(cuda):
         'inter_conv_dg': 4, 'intra_conv_prenorm': 8,
         'intra_conv_prenorm_df': 8, 'intra_conv_prenorm_dw': 8,
         'moments': 22, 'grouped_conv': 6, 'grouped_conv_bwd': 6}
+    assert (routes['f_mma'], routes['f']) == (4, 0)
     assert {k: v for k, v in tkern.counts().items() if v} == counts
     for m in models:
         assert all(p.dtype == torch.float32 and p.grad is not None

@@ -1,10 +1,12 @@
 """Which kernel the bf16 inter backward scatter wrappers (the fused dTable
-and the W-off dG) and the fused dW launch on the card, decided on the CPU:
-every such layer of both models' full-width builds goes to the tensor-core
-kernel (``bwd_mma_route``, ``dw_mma_route``), fp32 and the shapes off its
-envelope to the template; a bf16 ``InterConvFn`` backward reaching the
-wrappers' card branch (tensors on the meta device, the launches recorded)
-counts the tensor-core dW at every fused-route layer.
+and the W-off dG), the fused dW and the W-off F launch on the card, decided
+on the CPU: every such layer of both models' full-width builds goes to the
+tensor-core kernel (``bwd_mma_route``, ``dw_mma_route``, ``f_mma_route``),
+fp32 and the shapes off its envelope to the template; a bf16
+``InterConvFn`` backward reaching the wrappers' card branch (tensors on the
+meta device, the launches recorded) counts the tensor-core dW at every
+fused-route layer and the tensor-core F at every composed-route layer.
+The text each ``inter_conv_variants`` build substitutes is in the source.
 The kernels themselves are held against their plain versions on the card
 (tests/test_torch_port_gpu.py); the plain versions against the JAX package
 in tests/test_torch_port_bf16_train.py and tests/test_torch_port_inv_bf16.py.
@@ -113,7 +115,11 @@ def _card_shapes(monkeypatch):
     def dims(kernel, gx, idx, table_shape, rk, k2, W_shape, **_):
         b, q, na, c = table_shape
         return b, idx.shape[1], idx.shape[2], q, na, W_shape[0], c, W_shape[2]
+    def woff_dims(kernel, gx, idx, table_shape, rk, k2, dtype, **_):
+        b, q, na, c = table_shape
+        return b, idx.shape[1], idx.shape[2], q, na, rk.shape[1], c
     monkeypatch.setattr(ic, '_check', dims)
+    monkeypatch.setattr(ic, '_check_woff', woff_dims)
     monkeypatch.setattr(ic.build, 'launch', lambda name, *a: launched.append(
         name))
     monkeypatch.setattr(ic.build, 'stream', lambda t: 0)
@@ -178,3 +184,93 @@ def test_reset_counts_clears_the_dw_routes():
     ic.routes['dw'] += 1
     tkern.reset_counts()
     assert ic.routes['dw_mma'] == ic.routes['dw'] == 0
+
+
+def _composed_layers(name):
+    """(K, c, d, nn, na) of every inter conv of the full-width model whose
+    backward takes the composed route (the W-off F and dG)."""
+    return [(K, c, d, nn, na) for entry, K, c, d, nn, na
+            in _scatter_layers(name) if entry == 'dg']
+
+
+@pytest.mark.parametrize('name,n_composed', [('cls_so3net_pn', 0),
+                                             ('inv_so3net_pn', 4)])
+def test_every_composed_layer_takes_the_tensor_core_f(name, n_composed):
+    """inv B0L1, B1L0, B2L0 and B3L0 (the cls model composes none): the
+    bf16 W-off F on tensor cores, fp32 on the template."""
+    layers = _composed_layers(name)
+    assert len(layers) == n_composed
+    ic = tkern.inter_conv
+    for K, c, d, nn, na in layers:
+        assert ic.f_mma_route(BF16, K, c, nn, na), (c, nn)
+        assert not ic.f_mma_route(torch.float32, K, c, nn, na)
+
+
+@pytest.mark.parametrize('K,c,nn,na', [(24, 40, 32, 60), (24, 48, 64, 60),
+                                       (24, 32, 65, 60), (24, 32, 32, 12),
+                                       (18, 32, 32, 60), (24, 32, 0, 60)])
+def test_f_shapes_off_the_envelope_take_the_template(K, c, nn, na):
+    """Channels not a multiple of 32, more than 64 neighbors (or none),
+    another group, another kernel size."""
+    assert not tkern.inter_conv.f_mma_route(BF16, K, c, nn, na)
+
+
+def test_reset_counts_clears_the_f_routes():
+    ic = tkern.inter_conv
+    ic.routes['f_mma'] += 2
+    ic.routes['f'] += 1
+    tkern.reset_counts()
+    assert ic.routes['f_mma'] == ic.routes['f'] == 0
+
+
+@pytest.mark.parametrize('dtype,route,entry', [
+    (BF16, 'f_mma', 'epn_inter_conv_f_mma'),
+    (torch.float32, 'f', 'epn_inter_conv_f')])
+def test_composed_backward_counts_the_f_kernel(dtype, route, entry,
+                                               monkeypatch):
+    """An InterConvFn forward and backward at every composed-route layer of
+    the inv model (b = 1, 64 points) on the card branch: one W-off F a
+    layer, on the tensor-core kernel in bf16 ('f_mma') and on the template
+    in fp32 ('f'), beside one W-off dG and no fused dTable or dW; the
+    gradients in the table's and W's type."""
+    launched = _card_shapes(monkeypatch)
+    ic = tkern.inter_conv
+    meta = torch.device('meta')
+    layers = _composed_layers('inv_so3net_pn')
+    tkern.reset_counts()
+    for K, c, d, nn, na in layers:
+        table = torch.empty((1, 64, na, c), dtype=dtype, device=meta,
+                            requires_grad=True)
+        W = torch.empty((K, c, d), dtype=dtype, device=meta,
+                        requires_grad=True)
+        out = ic.InterConvFn.apply(
+            torch.empty((1, 64, nn, 3), device=meta),
+            torch.empty((1, 64, nn), dtype=torch.int32, device=meta), table,
+            torch.empty((na, K, 3), device=meta),
+            torch.empty((K,), device=meta), W, 0.1)
+        out.backward(torch.empty_like(out))
+        assert table.grad.dtype == W.grad.dtype == dtype
+        assert W.grad.shape == (K, c, d)
+    n = len(layers)
+    other = 'f' if route == 'f_mma' else 'f_mma'
+    assert (ic.routes[route], ic.routes[other]) == (n, 0)
+    assert ic.launches['inter_conv_f'] == ic.launches['inter_conv_dg'] == n
+    assert ic.launches['inter_conv_dtable'] == ic.launches['inter_conv_dw'] \
+        == 0
+    assert launched.count(entry) == n
+    tkern.reset_counts()
+
+
+def test_variant_builds_substitute_text_in_the_source():
+    """Each build of ``inter_conv_variants`` replaces text that
+    csrc/inter_conv.cu holds (on the card a missing text fails the whole
+    run)."""
+    from epn_pointcloud_tpu_torch import inter_conv_variants as icv
+    with open(icv.SOURCE_PATH) as f:
+        src = f.read()
+    subs = [sub for table in (icv.VARIANTS, icv.F_VARIANTS)
+            for sub in table.values() if sub is not None]
+    assert subs
+    for sub in subs:
+        for old, _ in ([sub] if isinstance(sub[0], str) else sub):
+            assert old in src, old
