@@ -10,8 +10,9 @@ epn_intra_conv, epn_intra_conv_prenorm_df, epn_inter_conv_bwd_table,
 epn_inter_conv_dg, epn_inter_conv_bwd_w and epn_intra_conv_bwd_w (bf16)
 are timed beside this tree's bf16 W-fused inter forward, W-off F, prenorm
 intra forward, B6 df, fused dTable, W-off dG, fused dW and B6 dW at every
-call of phases 4, 9 and 16, on the same inputs, in turns (parent, new,
-new, parent).
+call of phases 4, 9 and 16, and its epn_inter_conv_bwd_w (fp32) beside
+this tree's fp32 fused dW at every call of phases 6 and 12, on the same
+inputs, in turns (parent, new, new, parent).
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from csrc/ (one nvcc a source, in parallel,
@@ -19,7 +20,9 @@ Phases (any failure exits non-zero and prints no result line):
      SASS of the bf16 tensor-core kernels (the grouped conv forward and
      backward, the W-fused inter forward, the W-off F, the intra forward
      and B6 df, the inter backward scatter, the fused inter dW, the intra
-     dW; cuobjdump): none fails;
+     dW; cuobjdump): none fails; and in the SASS of the fp32 fused inter
+     dW's CUDA-core kernel (inter_dw_f32_kernel) FFMA and no HMMA or GMMA
+     (no TF32);
   2. at every flagship layer shape of cls_so3net_pn (b=32, 1024 points, 60
      anchors), compare each kernel with its plain PyTorch version on the
      card, on the inputs the model itself gives it (captured from a b=32
@@ -55,12 +58,18 @@ Phases (any failure exits non-zero and prints no result line):
      run the kernel of its dtype (the tensor-core kernels in bf16, the
      SGEMMs in fp32; so in phases 8, 11, 15, 19, there with every fused
      dTable, W-off dG, fused dW and W-off F too: the tensor-core scatter,
-     dW and F in bf16, the templates in fp32);
+     dW and F in bf16; in fp32 the fused dW's CUDA-core kernel
+     (inter_dw_f32_kernel, 'dw_f32') and the templates for the rest);
   6. capture each backward kernel call of one train-mode step of the seeded
      full-width model on a synthetic b=12 batch (inter dTable and dW at 6
      layers, intra df and dW at 7) and compare each with its plain version
      on the same inputs (normwise relative error <= 1e-5 for dTable and df,
-     <= 1e-4 for the dW reductions), timing both;
+     <= 1e-4 for the dW reductions), timing both; every inter dW on the
+     fp32 CUDA-core kernel ('dw_f32'), bitwise equal on a second call, its
+     error against a float64 dW (inter_conv_dw_plain in float64) at most
+     twice the template's (this tree's epn_inter_conv_bwd_w on the same
+     inputs), timed beside one torch.mm(F^T, dout) (and, --parent-csrc,
+     beside the earlier tree's fp32 template under one timer);
   7. one train step (b=12) on the kernel path and on the plain path
      (``kernels.plain()``: plain forward, torch autograd) from the same
      weights: loss to rtol 1e-5, per-leaf gradients by the rule of
@@ -122,8 +131,10 @@ Phases (any failure exits non-zero and prints no result line):
      batched torch.matmul of the anchor weights by the gathered table
      rows; fps and ball_query indices equal; normwise <= 1e-5 for the forward
      kernels, df, dTable and the W-off inter_conv_f / inter_conv_dg, <=
-     1e-4 for the dW reductions); then the composed backward route (its
-     four parts) timed beside the fused dTable + dW at B1L0, B2L0, B3L0;
+     1e-4 for the dW reductions; every fused dW on the fp32 CUDA-core
+     kernel, checked and timed as in phase 6); then the composed backward
+     route (its four parts) timed beside the fused dTable + dW at B1L0,
+     B2L0, B3L0;
  13. [inv-train] one inv triplet step on the kernel path and on the plain
      path from the same weights: loss to rtol 1e-5, a gradient for every
      parameter on both, the per-leaf rule (degenerate leaves from a float64
@@ -398,13 +409,18 @@ TC_KERNELS = ('grouped_conv_mma_kernel', 'grouped_bwd_mma_kernel',
               'inter_conv_mma_kernel', 'inter_f_mma_kernel',
               'intra_conv_mma_kernel', 'inter_bwd_mma_kernel',
               'inter_dw_mma_kernel', 'intra_dw_mma_kernel')
+# the fp32 kernels held to full fp32 products on the CUDA cores: the fused
+# inter dW
+FFMA_KERNELS = ('inter_dw_f32_kernel',)
 
 
 def tensor_core_sass(so):
     """Count the tensor-core instructions (HMMA, GMMA) in the SASS of each
-    instantiation of the bf16 tensor-core kernels in the built library
-    (cuobjdump -sass); written to chiprun_out/kernels_sass_mma.txt. Fails
-    if a kernel has no instantiation or an instantiation has none."""
+    instantiation of the bf16 tensor-core kernels and of the fp32 CUDA-core
+    kernels in the built library (cuobjdump -sass), and the latter's FFMA;
+    written to chiprun_out/kernels_sass_mma.txt. Fails if a kernel has no
+    instantiation, a bf16 one has no tensor-core instruction, or an fp32
+    one has one (no TF32) or no FFMA."""
     cuobjdump = shutil.which('cuobjdump') or os.path.join(
         os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump')
     sass = subprocess.run([cuobjdump, '-sass', so], capture_output=True,
@@ -413,13 +429,14 @@ def tensor_core_sass(so):
     for line in sass.splitlines():
         if 'Function :' in line:
             name = line.split('Function :', 1)[1].strip()
-            fn = name if any(k in name for k in TC_KERNELS) else None
+            fn = name if any(k in name for k in TC_KERNELS + FFMA_KERNELS) \
+                else None
             if fn:
-                counts[fn] = {'HMMA': 0, 'GMMA': 0}
+                counts[fn] = {'HMMA': 0, 'GMMA': 0, 'FFMA': 0}
         elif fn:
-            for op in ('HMMA', 'GMMA'):
+            for op in ('HMMA', 'GMMA', 'FFMA'):
                 counts[fn][op] += op in line
-    lines = [f'{c["HMMA"]} HMMA {c["GMMA"]} GMMA {fn}'
+    lines = [f'{c["HMMA"]} HMMA {c["GMMA"]} GMMA {c["FFMA"]} FFMA {fn}'
              for fn, c in sorted(counts.items())]
     with open(os.path.join(OUT_DIR, 'kernels_sass_mma.txt'), 'w') as f:
         f.write('\n'.join(lines) + '\n')
@@ -431,6 +448,14 @@ def tensor_core_sass(so):
     if not all(per.values()) or min(min(n) for n in per.values()) == 0:
         raise AssertionError(f'bf16 kernels without tensor-core '
                              f'instructions: {per}')
+    for k in FFMA_KERNELS:
+        cs = [c for fn, c in counts.items() if k in fn]
+        log(f'[build] SASS {k}: {len(cs)} instantiations, FFMA '
+            f'{" ".join(str(c["FFMA"]) for c in cs)}, HMMA + GMMA '
+            f'{sum(c["HMMA"] + c["GMMA"] for c in cs)}')
+        if not cs or any(c['HMMA'] or c['GMMA'] or not c['FFMA']
+                         for c in cs):
+            raise AssertionError(f'{k}: not FFMA alone: {cs}')
 
 
 def capture_calls(names, run):
@@ -689,7 +714,8 @@ def route_counts():
     tensor-core kernel, 'sgemm': the SGEMM): the W-fused inter forward's
     (with the backward scatter's, the fused dW's and the W-off F's:
     'dtable_mma' / 'dg_mma' / 'dw_mma' / 'f_mma', the bf16 tensor-core
-    kernels, or 'dtable' / 'dg' / 'dw' / 'f', the templates), and the intra
+    kernels, 'dw_f32', the fp32 dW's CUDA-core kernel, or 'dtable' / 'dg'
+    / 'dw' / 'f', the templates), and the intra
     forward's with B6 df's (with dW's: 'dw_mma', the bf16 tensor-core
     kernel, or 'dw', the SGEMM)."""
     from epn_pointcloud_tpu_torch.ops import kernels
@@ -701,9 +727,9 @@ def check_routes(tag, dtype, counts, routes):
     """Every W-fused inter forward, every fused dTable, W-off dG, fused dW
     and W-off F, and every intra forward, B6 df and intra dW, of an entry
     run went
-    through the kernel of its dtype: the tensor-core kernels in bf16, the
-    SGEMMs and the templates in fp32 (``routes``: ``route_counts()``, read
-    with ``counts``)."""
+    through the kernel of its dtype: the tensor-core kernels in bf16; in
+    fp32 the SGEMMs, the templates and the fused dW's CUDA-core kernel
+    ('dw_f32') (``routes``: ``route_counts()``, read with ``counts``)."""
     want = {}
     for conv, n in (('inter', counts['inter_conv']),
                     ('intra', counts['intra_conv']
@@ -721,6 +747,11 @@ def check_routes(tag, dtype, counts, routes):
              + counts['intra_conv_prenorm_dw'])):
         want[conv].update({f'{entry}_mma': n, entry: 0} if dtype == 'bf16'
                           else {f'{entry}_mma': 0, entry: n})
+    # the fused inter dW in fp32: its CUDA-core kernel, not the template
+    if dtype == 'bf16':
+        want['inter']['dw_f32'] = 0
+    else:
+        want['inter'].update(dw=0, dw_f32=counts['inter_conv_dw'])
     log(f'{tag} launches by kernel: {routes}')
     assert routes == want, (routes, want)
 
@@ -1229,6 +1260,9 @@ def _library_note(row):
         note += f' rel_vs_mma_plain={row["rel_vs_mma_plain"]:.3e} [<=1e-3]'
     if 'rel_vs_f_plain' in row:
         note += f' rel_vs_f_plain={row["rel_vs_f_plain"]:.3e} [<=1e-3]'
+    if 'f64_ratio' in row:
+        note += (f' rel_f64={row["rel_f64"]:.3e} template_rel_f64='
+                 f'{row["template_rel_f64"]:.3e} [ratio <= 2]')
     for key in ('route', 'composed_ms', 'parent_ms', 'same_timer_ms'):
         if key in row:
             v = row[key]
@@ -1242,16 +1276,18 @@ def _extras_ok(row):
     forward or B6 df (``intra_conv_extras``), backward scatter
     (``inter_bwd_extras``), inter dW (``inter_dw_extras``), intra dW
     (``intra_dw_extras``) and W-off F (``inter_f_extras``): the tensor-core
-    kernel ran, its output is bitwise equal on a second call (not the
-    scatter's: atomics), and within 1e-3 (normwise) of
+    kernel ran (the fp32 dW: its CUDA-core kernel, at most twice the
+    template's error against float64), its output is bitwise equal on a
+    second call (not the scatter's: atomics), and within 1e-3 (normwise) of
     ``inter_conv_mma_plain`` (inter forward) or ``inter_conv_f_plain``
     (W-off F). ``parent_equal`` (--parent-csrc) is printed, not gated: a
     later tree may sum in another order."""
     return (row.get('route', 'mma') in ('mma', 'dtable_mma', 'dg_mma',
-                                        'dw_mma', 'f_mma')
+                                        'dw_mma', 'dw_f32', 'f_mma')
             and row.get('bitwise_repeat', True)
             and row.get('rel_vs_mma_plain', 0.0) <= 1e-3
-            and row.get('rel_vs_f_plain', 0.0) <= 1e-3)
+            and row.get('rel_vs_f_plain', 0.0) <= 1e-3
+            and row.get('f64_ratio', 0.0) <= 2.0)
 
 
 # the earlier tree's kernels (--parent-csrc), timed beside this tree's:
@@ -1310,55 +1346,103 @@ def inter_f_extras(name, args, got):
 
 
 def inter_dw_extras(name, args, got):
-    """For a bf16 call of the fused inter dW: the kernel it ran (``route``,
-    from the wrapper's counts: 'dw_mma' for the tensor-core kernel) and
-    whether a second call gives the same bits (``bitwise_repeat``). With
-    --parent-csrc also the earlier tree's epn_inter_conv_bwd_w (bf16) on
-    the same inputs, timed with this tree's C entry in turns (parent, new,
-    new, parent; each with its own workspace, into one preallocated dW;
-    ``parent_ms``, ``same_timer_ms``). {} for any other call."""
+    """For a call of the fused inter dW: the kernel it ran (``route``, from
+    the wrapper's counts: 'dw_mma' for the bf16 tensor-core kernel,
+    'dw_f32' for the fp32 CUDA-core one) and whether a second call gives
+    the same bits (``bitwise_repeat``). In fp32 also its normwise error and
+    the template's (this tree's epn_inter_conv_bwd_w, the route before it,
+    on the same inputs) against ``inter_conv_dw_plain`` in float64
+    (``rel_f64``, ``template_rel_f64``) and their ratio (``f64_ratio``,
+    gated <= 2). With --parent-csrc also the earlier tree's
+    epn_inter_conv_bwd_w (in the call's dtype) on the same inputs, timed
+    with this tree's C entry in turns (parent, new, new, parent; each with
+    its own workspace, into one preallocated dW; ``parent_ms``,
+    ``same_timer_ms``). {} for any other call."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     from epn_pointcloud_tpu_torch.ops.kernels import build
-    if name != 'inter_conv_dw' or args[2].dtype != torch.bfloat16:
+    if name != 'inter_conv_dw':
         return {}
     ic = kernels.inter_conv
+    bf16 = args[2].dtype == torch.bfloat16
     before = dict(ic.routes)
     again = ic.inter_conv_dw(*args)
     torch.cuda.synchronize()
     rec = {'route': next(k for k in ic.routes if ic.routes[k] > before[k]),
            'bitwise_repeat': torch.equal(got, again)}
     del again
+    gx, idx, table, rk, k2, dout, sigma = args
+    b, p2, nn = idx.shape
+    q, na, c = table.shape[1:]
+    K, d = rk.shape[1], dout.shape[-1]
+    M = b * p2 * na
+    dW = torch.empty_like(got)
+    keep = []
+
+    def call(fn, route, tail):
+        splits = ic.dw_splits(M, c, d, route)
+        ws = torch.empty((splits, K, c, d), dtype=torch.float32,
+                         device=got.device)
+        keep.append(ws)
+        ptrs = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(),
+                rk.data_ptr(), k2.data_ptr(), dout.data_ptr(), ws.data_ptr(),
+                dW.data_ptr(), b, p2, nn, q, na, K, c, d, float(sigma),
+                splits) + tail
+
+        def run():
+            err = fn(*ptrs, build.stream(gx))
+            if err:
+                raise RuntimeError(f'{name}: CUDA error {err}')
+        return run
+    lib = build.library()
+    if not bf16:
+        want = ic.inter_conv_dw_plain(gx.double(), idx, table.double(),
+                                      rk.double(), k2.double(),
+                                      dout.double(), sigma)
+        call(lib.epn_inter_conv_bwd_w, 'dw', (0,))()
+        torch.cuda.synchronize()
+        rec['rel_f64'] = float((got.double() - want).norm() / want.norm())
+        rec['template_rel_f64'] = float((dW.double() - want).norm()
+                                        / want.norm())
+        rec['f64_ratio'] = rec['rel_f64'] / max(rec['template_rel_f64'],
+                                                1e-30)
+        del want
     if PARENT:
-        gx, idx, table, rk, k2, dout, sigma = args
-        b, p2, nn = idx.shape
-        q, na, c = table.shape[1:]
-        K, d = rk.shape[1], dout.shape[-1]
-        M = b * p2 * na
-        dW = torch.empty_like(got)
-        keep = []
-
-        def call(fn, mma, tail):
-            splits = ic.dw_splits(M, c, d, mma)
-            ws = torch.empty((splits, K, c, d), dtype=torch.float32,
-                             device=got.device)
-            keep.append(ws)
-            ptrs = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(),
-                    rk.data_ptr(), k2.data_ptr(), dout.data_ptr(),
-                    ws.data_ptr(), dW.data_ptr(), b, p2, nn, q, na, K, c, d,
-                    float(sigma), splits) + tail
-
-            def run():
-                err = fn(*ptrs, build.stream(gx))
-                if err:
-                    raise RuntimeError(f'{name}: CUDA error {err}')
-            return run
         rec['parent_ms'], rec['same_timer_ms'] = time_abba(
-            call(PARENT['dw'], False, (1,)),
-            call(build.library().epn_inter_conv_bwd_w_mma, True, ()))
-        del dW, keep
+            call(PARENT['dw'], 'dw', (int(bf16),)),
+            call(lib.epn_inter_conv_bwd_w_mma, 'dw_mma', ()) if bf16 else
+            call(lib.epn_inter_conv_bwd_w_f32, 'dw_f32',
+                 (ic.dw_f32_cols(d),)))
+    del dW, keep
     torch.cuda.empty_cache()
     return rec
+
+
+def check_fp32_dw_rows(tag, rows, n_expect):
+    """Every fp32 fused dW call of a step (``rows``: phase 6's or 12's) on
+    the CUDA-core kernel ('dw_f32'), bitwise equal on a second call, within
+    1e-4 of its plain version (``check_call``) and at most twice the
+    template's error against float64; the sums printed beside the
+    template's under one timer (--parent-csrc) and one torch.mm."""
+    routes = [r['route'] for r in rows]
+    ratios = [r['f64_ratio'] for r in rows]
+    agg = _aggregate(rows)
+
+    def col(key):
+        return ' '.join(f'{r[key]:.2e}' for r in rows)
+    log(f'{tag} fp32 fused dW: {len(rows)} calls, routes {routes}; '
+        f'rel_norm_err vs plain {col("rel_norm_err")} (<= 1e-4); vs '
+        f'float64 {col("rel_f64")}, the template {col("template_rel_f64")}'
+        f', ratio max {max(ratios):.3f} (<= 2); bitwise '
+        f'{all(r["bitwise_repeat"] for r in rows)}; kernel {agg["ms"]:.3f} '
+        f'ms, torch.mm(F^T, dout) {agg["library_ms"]:.3f}, bound '
+        f'{agg["bound_ms"]:.3f} (share {agg["bound_ms"] / agg["ms"]:.3f})'
+        + (f', one timer: parent template {agg["parent_ms"]:.3f} vs '
+           f'{agg["same_timer_ms"]:.3f}' if 'parent_ms' in agg else ''))
+    assert len(rows) == n_expect and set(routes) == {'dw_f32'}, routes
+    assert all(r['bitwise_repeat'] for r in rows)
+    assert max(r['rel_norm_err'] for r in rows) <= 1e-4
+    assert max(ratios) <= 2.0, ratios
 
 
 def intra_dw_extras(name, args, got):
@@ -1788,6 +1872,9 @@ def phase_backward_kernels(device, dtype='fp32'):
     if failures:
         raise AssertionError(f'{dtype} backward kernel comparisons failed: '
                              f'{failures}')
+    if dtype == 'fp32':
+        check_fp32_dw_rows(tag, results['inter_conv_dw'],
+                           per_step['inter_conv_dw'])
     return results
 
 
@@ -2228,6 +2315,8 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
         raise AssertionError(f'{dtype} inv kernel comparisons failed: '
                              f'{failures}')
     if fp32:
+        check_fp32_dw_rows(tag, results['inter_conv_dw'],
+                           per_step['inter_conv_dw'])
         results['intra_conv'] += results.pop('intra_conv_df')
     return results, routes
 
@@ -2784,6 +2873,17 @@ def main(argv=None):
         if (k.name in bf16_bwd or k.name in bf16_results) and \
                 k.name in results:
             rec['fp32'] = _aggregate(results[k.name])
+        if k.name == 'inter_conv_dw':
+            # the fp32 fused dW: its own CUDA-core kernel, in the cls step
+            # (b=12) and the inv step (b=16 a leg); launches from the fp32
+            # train entries, all on it (check_routes)
+            for key, rows, n in (('fp32', results[k.name], counts[k.name]),
+                                 ('inv', inv_results[k.name],
+                                  inv_counts[k.name])):
+                rec[key].update(
+                    kernel='inter_dw_f32_kernel', route='dw_f32',
+                    source=k.source, launches=n,
+                    share=rec[key]['bound_ms'] / rec[key]['ms'])
         if k.name == 'intra_conv':
             # df runs this kernel (b=12 train step); ms above: b=32 forward
             rec['df'] = _aggregate(results['intra_conv_df'])

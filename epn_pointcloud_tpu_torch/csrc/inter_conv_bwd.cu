@@ -52,7 +52,9 @@
 // the scatter's 2 * nn * K * C flops a row and the weights recomputed per
 // chunk (~9 * nn * K a row and chunk): near the card's balance point.
 //
-// dW (inter_dw_kernel): a block owns one chunk of 8 channels (192 (k, cc)
+// dW (inter_dw_kernel; fp32 shapes off the CUDA-core kernel's envelope
+// and bf16 shapes off the tensor-core one's): a block owns one chunk of 8
+// channels (192 (k, cc)
 // rows of dW), BN = 64 or 128 columns of d, and one range of rows. Per
 // 64-row sub-tile it rebuilds the F slab with the forward's builder
 // (inter_conv_common.cuh) and stages the dout slab, then accumulates
@@ -120,6 +122,28 @@
 // without the product's mma no time is saved (the fragment loads, the
 // barriers and one block an SM are the rest). Sharing the slab across the
 // column blocks of a thread-block cluster was slower at every layer.
+//
+// fp32 dW on the CUDA cores (inter_dw_f32_kernel; epn_inter_conv_bwd_w_f32):
+// the fused dW of every fused-route model layer in fp32 (60 anchors, 24
+// kernel points, C % 16 == 0, D % 64 == 0, nn <= 64), FFMA only (no TF32):
+// F summed in fp32 in the template's order (F bitwise the template's), dW
+// = F^T dout summed in fp32. A block owns 8 of the 24 kernel points, 16
+// channels and all of D up to 256 columns, so no layer builds F twice (the
+// template: 8 channels and at most 128 columns, F built twice at d = 256)
+// and each neighbor's anchor weight serves 16 channels (the template's 8);
+// the 3 kernel-point blocks of a row range gather the same table rows.
+// Per 32-row tile: the table rows were gathered by cp.async into shared
+// memory while the previous tile's product ran; each of 256 threads builds
+// one (row, kernel point) item of the F slab; the product runs 8 x (D / 16)
+// FFMA a thread from float4 loads of both operands; two barriers a tile.
+// Two blocks an SM at D <= 128, one at 256 (its 128 accumulators a
+// thread). Split partials summed in a fixed order (split_sum.cuh). Work a
+// call: the product's 2 * M * 24 * C * D operations and the F build's
+// 2 * M * nn * 24 * C, each once; the anchor weights once a 16-channel
+// block. What holds it (inter_bwd_variants.py on the H100, the cls b=12
+// step's six calls): the product alone runs at 63% of the fp32 rate (one
+// torch.mm of F^T dout at 77%), and the F build, its gathers and the
+// barriers, which no other block overlaps at D = 256, add half again.
 
 #include <cuda_runtime.h>
 
@@ -1191,6 +1215,314 @@ int launch(const void* gx, const void* idx, const void* table,
 
 }  // namespace dwmma
 
+// ------------------------------------------- fp32 dW on the CUDA cores
+
+namespace dwf32 {
+
+constexpr int kNA = 60;                // anchors: the rows of a point
+constexpr int kKP = 8;                 // kernel points a block
+constexpr int kGroups = NK / kKP;      // kernel-point groups of dW
+constexpr int kCC = 16;                // channels a block
+constexpr int kBM = 32;                // rows a tile
+constexpr int kThreads = 256;          // one (row, kernel point) F item each
+constexpr int kWarps = kThreads / 32;
+constexpr int kFK = kCC + 4;           // F slab stride of a kernel point
+constexpr int kFS = kKP * kFK;         // F slab row stride
+constexpr int kMaxNP = 2;              // points a tile's rows touch
+constexpr int kMaxNN = 64;
+static_assert(kBM * kKP == kThreads && (kBM - 1) / kNA + 2 == kMaxNP &&
+                  NK % kKP == 0 && kThreads == 16 * 16 &&
+                  kMaxNP * kMaxNN <= kThreads,
+              "block shape");
+
+// dynamic shared memory, in bytes from the base: the gathered table rows
+// [kBM][gs] fp32 (gs = nn * kCC + 4: a row's nn neighbors, kCC channels
+// each, padded so that the four rows a warp's F items read fall in four
+// different bank groups; offset 0), the F slab [kBM][kKP][kFK], the dout
+// tile [kBM][bn]; then two of each staging buffer, the current tile's and
+// the next one's: the tile's points' neighbor coordinates [nbr] float4
+// (x, y, z, |gx|^2) and indices [nbr] (nbr = kMaxNP * nn), the rows'
+// table offsets [kBM] and (point, anchor) [kBM]
+struct Smem {
+  int gs, nbr;
+  size_t f, d, gx, idx, rtb, ri, total;
+};
+
+__host__ __device__ inline Smem layout(int bn, int nn) {
+  Smem s;
+  s.gs = nn * kCC + 4;
+  s.nbr = kMaxNP * nn;
+  s.f = (size_t)kBM * s.gs * sizeof(float);
+  s.d = s.f + (size_t)kBM * kFS * sizeof(float);
+  s.gx = s.d + (size_t)kBM * bn * sizeof(float);
+  s.idx = s.gx + 2 * (size_t)s.nbr * sizeof(float4);
+  s.rtb = s.idx + 2 * (size_t)s.nbr * sizeof(int);
+  s.ri = s.rtb + 2 * (size_t)kBM * sizeof(long long);
+  s.total = s.ri + 2 * (size_t)kBM * sizeof(int2);
+  return s;
+}
+
+// The partial dW [NK, C, D] of split blockIdx.z (rows r_begin .. r_end)
+// for kernel points kg * kKP .. + kKP, channels c0 .. c0 + kCC and columns
+// n0 .. n0 + BN, a 32-row tile at a time: the tile's table rows were
+// gathered (cp.async) while the previous tile's product ran; its dout rows
+// go out by cp.async while each thread builds one (row, kernel point) item
+// of the F slab (the anchor weight of each neighbor once, then its kCC
+// channels, in fp32 as inter_dw_kernel<float> sums them: F bitwise the
+// template's); then the next tile's gathers go out and the product adds
+// slab^T dout over the tile's rows, 8 x (BN / 16) outputs a thread from
+// float4 loads of both operands. Two barriers a tile.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, BN > 128 ? 1 : 2)
+inter_dw_f32_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
+                    const float* __restrict__ table,
+                    const float* __restrict__ rk,
+                    const float* __restrict__ k2,
+                    const float* __restrict__ dout, float* __restrict__ part,
+                    int M, int p2, int nn, int q, int C, int D,
+                    int rows_per_split, float inv_sigma) {
+  constexpr int TN = BN / 16;  // d columns a thread: h * 64 + tx * 4 + j
+  constexpr int NH = TN / 4;
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  const Smem L = layout(BN, nn);
+  const int gs = L.gs, nbr = L.nbr;
+  float* s_G = reinterpret_cast<float*>(f32_smem);
+  float* s_F = reinterpret_cast<float*>(f32_smem + L.f);
+  float* s_D = reinterpret_cast<float*>(f32_smem + L.d);
+  float4* s_gx = reinterpret_cast<float4*>(f32_smem + L.gx);
+  int* s_idx = reinterpret_cast<int*>(f32_smem + L.idx);
+  long long* s_rtb = reinterpret_cast<long long*>(f32_smem + L.rtb);
+  int2* s_ri = reinterpret_cast<int2*>(f32_smem + L.ri);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kg = blockIdx.x % kGroups, n0 = blockIdx.x / kGroups * BN;
+  const int c0 = blockIdx.y * kCC, split = blockIdx.z;
+  const int r_begin = split * rows_per_split;
+  const int r_end = min(M, r_begin + rows_per_split);
+
+  // the neighbor of tile m0's points that this thread stages (at most one:
+  // nbr <= kThreads), from device memory into registers; a thread past the
+  // points holds the shadow index
+  auto stage_load = [&](int m0, float4& v, int& j) {
+    v = make_float4(0.f, 0.f, 0.f, 0.f);
+    j = q;
+    if (m0 >= r_end || tid >= nbr) return;
+    const int pt0 = m0 / kNA;
+    const int np = (min(m0 + kBM, r_end) - 1) / kNA - pt0 + 1;
+    const int p = tid / nn, n = tid - p * nn;
+    if (p < np) {
+      const size_t src = (size_t)(pt0 + p) * nn + n;
+      const float x = gx[3 * src], y = gx[3 * src + 1], z = gx[3 * src + 2];
+      v = make_float4(x, y, z, (x * x + y * y) + z * z);
+      j = idx[src];
+    }
+  };
+  // ... and into staging buffer s, with each row's table offset (channel
+  // c0) and local point (-1 past r_end) and anchor
+  auto stage_store = [&](int m0, int s, const float4& v, int j) {
+    if (m0 >= r_end) return;
+    if (tid < nbr) {
+      s_gx[s * nbr + tid] = v;
+      s_idx[s * nbr + tid] = j;
+    }
+    if (tid < kBM) {
+      const int pt0 = m0 / kNA;
+      const int gm = m0 + tid, pt = gm / kNA, a = gm - pt * kNA;
+      s_rtb[s * kBM + tid] = ((long long)(pt / p2) * q * kNA + a) * C + c0;
+      s_ri[s * kBM + tid] = make_int2(gm < r_end ? pt - pt0 : -1, a);
+    }
+  };
+  // tile m0's table rows (kCC channels of each neighbor of each row; zeros
+  // for the shadow index, nothing for a row past r_end) from staging
+  // buffer s into s_G: cp.async, a warp a row at a time, one commit group
+  auto gather = [&](int m0, int s) {
+    if (m0 < r_end) {
+      for (int r = warp; r < kBM; r += kWarps) {
+        const int lp = s_ri[s * kBM + r].x;
+        const int* ix = s_idx + s * nbr + max(lp, 0) * nn;
+        const float* tb = table + s_rtb[s * kBM + r];
+        float* dst = s_G + (size_t)r * gs;
+        for (int e = lane; lp >= 0 && e < nn * (kCC / 4); e += 32) {
+          const int n = e >> 2, c4 = (e & 3) * 4;
+          const int j = ix[n];
+          const bool ok = j < q;
+          tc::cp16(tc::smem_addr(dst + n * kCC + c4),
+                   ok ? tb + (size_t)j * kNA * C + c4 : table, ok);
+        }
+      }
+    }
+    tc::cp_commit();
+  };
+  // tile m0's dout rows (zeros past r_end) into s_D: one commit group
+  auto dout_tile = [&](int m0) {
+    for (int e = tid; e < kBM * BN / 4; e += kThreads) {
+      const int r = e / (BN / 4), c4 = e % (BN / 4) * 4;
+      const bool ok = m0 + r < r_end;
+      tc::cp16(tc::smem_addr(s_D + r * BN + c4),
+               ok ? dout + (size_t)(m0 + r) * D + n0 + c4 : dout, ok);
+    }
+    tc::cp_commit();
+  };
+  // the F slab's item (row tid / 8, kernel point kg * kKP + tid % 8) of
+  // the tile in staging buffer s: F[cc] = sum_n w_n G[n, cc], n in order;
+  // zeros for a row past r_end
+  auto build_f = [&](int s) {
+    const int r = tid >> 3, kq = tid & 7;
+    const int2 ri = s_ri[s * kBM + r];
+    float f[kCC];
+#pragma unroll
+    for (int cc = 0; cc < kCC; ++cc) f[cc] = 0.f;
+    if (ri.x >= 0) {
+      const int k = kg * kKP + kq;
+      const float* rp = rk + ((size_t)ri.y * NK + k) * 3;
+      const float4 rv = make_float4(__ldg(rp), __ldg(rp + 1), __ldg(rp + 2),
+                                    __ldg(k2 + k));
+      const float4* g4 = s_gx + s * nbr + ri.x * nn;
+      const float4* gr = reinterpret_cast<const float4*>(s_G + (size_t)r * gs);
+#pragma unroll 2
+      for (int n = 0; n < nn; ++n) {
+        const float w = anchor_weight(g4[n], rv, inv_sigma);
+#pragma unroll
+        for (int h = 0; h < kCC / 4; ++h) {
+          const float4 t = gr[n * (kCC / 4) + h];
+          f[4 * h] = fmaf(w, t.x, f[4 * h]);
+          f[4 * h + 1] = fmaf(w, t.y, f[4 * h + 1]);
+          f[4 * h + 2] = fmaf(w, t.z, f[4 * h + 2]);
+          f[4 * h + 3] = fmaf(w, t.w, f[4 * h + 3]);
+        }
+      }
+    }
+    float4* dst = reinterpret_cast<float4*>(s_F + r * kFS + kq * kFK);
+#pragma unroll
+    for (int h = 0; h < kCC / 4; ++h) {
+      dst[h] = make_float4(f[4 * h], f[4 * h + 1], f[4 * h + 2],
+                           f[4 * h + 3]);
+    }
+  };
+
+  // the product's operands: the thread's 8 slab columns (kernel point
+  // ty / 2, channels (ty & 1) * 8 .. + 8) and d columns
+  const int ty = tid >> 4, tx = tid & 15;
+  const float* fa = s_F + (ty >> 1) * kFK + (ty & 1) * 8;
+  const float* db = s_D + tx * 4;
+  float acc[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  // prologue: the first two tiles staged, the first one's gathers in flight
+  {
+    float4 v;
+    int j;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      stage_load(r_begin + s * kBM, v, j);
+      stage_store(r_begin + s * kBM, s, v, j);
+    }
+  }
+  __syncthreads();
+  gather(r_begin, 0);
+
+  for (int m0 = r_begin, s = 0; m0 < r_end; m0 += kBM, s ^= 1) {
+    tc::cp_wait<0>();
+    __syncthreads();  // the tile's gathered rows visible; the last product
+                      // done with the slab and the dout tile
+    dout_tile(m0);
+    build_f(s);
+    tc::cp_wait<0>();
+    __syncthreads();  // the slab whole, the dout tile visible, s_G free
+
+    gather(m0 + kBM, s ^ 1);
+    float4 v;
+    int j;
+    stage_load(m0 + 2 * kBM, v, j);
+
+#pragma unroll 4
+    for (int r = 0; r < kBM; ++r) {
+      const float4 a0 = *reinterpret_cast<const float4*>(fa + r * kFS);
+      const float4 a1 = *reinterpret_cast<const float4*>(fa + r * kFS + 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float b[TN];
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const float4 d4 =
+            *reinterpret_cast<const float4*>(db + r * BN + h * 64);
+        b[4 * h] = d4.x;
+        b[4 * h + 1] = d4.y;
+        b[4 * h + 2] = d4.z;
+        b[4 * h + 3] = d4.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jj = 0; jj < TN; ++jj)
+          acc[i][jj] = fmaf(a[i], b[jj], acc[i][jj]);
+    }
+
+    // the tile after next staged in this tile's buffer (its reads are done)
+    stage_store(m0 + 2 * kBM, s, v, j);
+  }
+  tc::cp_wait<0>();
+
+  // the split's partial: dW rows (k, c0 + (ty & 1) * 8 + i)
+  const int k = kg * kKP + (ty >> 1);
+  float* dst = part + (size_t)split * NK * C * D +
+               ((size_t)k * C + c0 + (ty & 1) * 8) * D + n0 + tx * 4;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      *reinterpret_cast<float4*>(dst + (size_t)i * D + h * 64) = make_float4(
+          acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+          acc[i][4 * h + 3]);
+    }
+}
+
+template <int BN>
+int launch_bn(const void* gx, const void* idx, const void* table,
+              const void* rk, const void* k2, const void* dout, void* ws,
+              void* dW, int M, int p2, int nn, int q, int C, int D,
+              float sigma, int splits, cudaStream_t stream) {
+  const Smem L = layout(BN, nn);
+  if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      inter_dw_f32_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (M + kBM - 1) / kBM;
+  const int rows_per_split = (tiles + splits - 1) / splits * kBM;
+  inter_dw_f32_kernel<BN><<<dim3(kGroups * (D / BN), C / kCC, splits),
+                            kThreads, L.total, stream>>>(
+      (const float*)gx, (const int*)idx, (const float*)table,
+      (const float*)rk, (const float*)k2, (const float*)dout, (float*)ws, M,
+      p2, nn, q, C, D, rows_per_split, 1.f / sigma);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_sum_splits((const float*)ws, (float*)dW, splits,
+                           (size_t)NK * C * D, stream);
+}
+
+int launch(const void* gx, const void* idx, const void* table,
+           const void* rk, const void* k2, const void* dout, void* ws,
+           void* dW, int M, int p2, int nn, int q, int C, int D, float sigma,
+           int splits, int BN, cudaStream_t stream) {
+  switch (BN) {
+    case 256:
+      return launch_bn<256>(gx, idx, table, rk, k2, dout, ws, dW, M, p2, nn,
+                            q, C, D, sigma, splits, stream);
+    case 128:
+      return launch_bn<128>(gx, idx, table, rk, k2, dout, ws, dW, M, p2, nn,
+                            q, C, D, sigma, splits, stream);
+    case 64:
+      return launch_bn<64>(gx, idx, table, rk, k2, dout, ws, dW, M, p2, nn,
+                           q, C, D, sigma, splits, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace dwf32
+
 }  // namespace
 
 // gx [b, p2, nn, 3], idx [b, p2, nn] int32 in [0, q] (q = shadow), rk
@@ -1323,4 +1655,24 @@ extern "C" int epn_inter_conv_bwd_w_mma(const void* gx, const void* idx,
   }
   return dwmma::launch(gx, idx, table, rk, k2, dout, ws, dW, b * p2 * na, p2,
                        nn, q, C, D, sigma, splits, (cudaStream_t)stream);
+}
+
+// fp32 on the CUDA cores (inter_dw_f32_kernel): the fused dW, with
+// epn_inter_conv_bwd_w's arguments (an fp32 table and dout; ws [splits, K,
+// C, D] fp32 scratch, dW [K, C, D] fp32 out) and bn, the d columns a block
+// (64, 128 or 256, a divisor of D: the caller picks it and sizes the splits
+// for its grid). na must be 60, K 24, C a multiple of 16, and 1 <= nn <= 64.
+extern "C" int epn_inter_conv_bwd_w_f32(const void* gx, const void* idx,
+                                        const void* table, const void* rk,
+                                        const void* k2, const void* dout,
+                                        void* ws, void* dW, int b, int p2,
+                                        int nn, int q, int na, int K, int C,
+                                        int D, float sigma, int splits,
+                                        int bn, void* stream) {
+  if (na != dwf32::kNA || K != NK || C % dwf32::kCC != 0 || bn < 1 ||
+      D % bn != 0 || nn < 1 || nn > dwf32::kMaxNN || splits < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return dwf32::launch(gx, idx, table, rk, k2, dout, ws, dW, b * p2 * na, p2,
+                       nn, q, C, D, sigma, splits, bn, (cudaStream_t)stream);
 }

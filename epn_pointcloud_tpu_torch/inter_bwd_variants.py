@@ -1,9 +1,10 @@
-"""Where the bf16 tensor-core inter backward kernels (csrc/inter_conv_bwd.cu:
-``inter_bwd_mma_kernel``, the fused dTable and the W-off dG;
-``inter_dw_mma_kernel``, the fused dW) spend their time, on the card: each
-kernel as built beside variants with one part changed or taken out, at
-the shapes of both models' layers, with the same timer
-(``chip_smoke.time_ms``).
+"""Where the inter backward kernels (csrc/inter_conv_bwd.cu: the bf16
+tensor-core ``inter_bwd_mma_kernel``, the fused dTable and the W-off dG,
+and ``inter_dw_mma_kernel``, the fused dW; the fp32 CUDA-core
+``inter_dw_f32_kernel`` and the template ``inter_dw_kernel``) spend their
+time, on the card: each kernel as built beside variants with one part
+changed or taken out, at the shapes of both models' layers, with the
+same timer (``chip_smoke.time_ms``).
 
   python -m epn_pointcloud_tpu_torch.inter_bwd_variants
 
@@ -41,8 +42,26 @@ in the dW kernel), whose output is wrong and only whose time counts:
 and beside them, from the built library, the template (``inter_dw_kernel``,
 ``epn_inter_conv_bwd_w``, the route before the tensor-core kernel) on the
 same inputs; the built kernel's and the template's normwise error against
-``inter_conv_dw_plain``. Operands are random
-(seeded), the neighborhoods a ball query over random points in the unit
+``inter_conv_dw_plain``. The fp32 dW: the template
+(``inter_dw_kernel<float>``, ``epn_inter_conv_bwd_w``) and the CUDA-core
+kernel (``inter_dw_f32_kernel``, ``epn_inter_conv_bwd_w_f32``) as built,
+each one's error against ``inter_conv_dw_plain``, and, whose output is
+wrong and only whose time counts,
+  tpl_no_gather  the template's table rows not loaded (read as zeros; the
+                 anchor weights and the F sums still run);
+  tpl_no_fbuild  the template's F slab not built (left as staged);
+  tpl_no_product the template's F^T dout product left out (its loads too);
+  f32_no_gather  the kernel's gathers not issued (the F build reads
+                 whatever the buffer holds);
+  f32_no_fbuild  the kernel's F slab not built;
+  f32_no_product the kernel's product left out (its loads too);
+  f32_product_only the kernel's product alone (no gathers, no F build,
+                 no dout loads: the loop on whatever shared memory holds);
+and beside them, exact, with its error, f32_bn128: the built kernel
+called with 128 d columns a block at d = 256 (two blocks an SM, F built
+twice) in place of 256; with each fp32 build's registers and spill bytes
+(ptxas).
+Operands are random (seeded), the neighborhoods a ball query over random points in the unit
 ball, at the shapes of cls_so3net_pn's step (b=12: the fused dTable at its
 6 inter layers) and inv_so3net_pn's (b=16 a leg: the fused dTable at B1L1,
 B2L1, B3L1, the W-off dG at B0L1, B1L0, B2L0, B3L0; the fused dW at the
@@ -56,6 +75,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
 import sys
 
 import numpy as np
@@ -66,6 +86,7 @@ from .inter_conv_variants import _operands
 from .ops.kernels import build, inter_conv
 
 OUT = os.path.join(build.BUILD_DIR, 'inter_bwd_variants')
+SOURCE_PATH = os.path.join(build.CSRC_DIR, 'inter_conv_bwd.cu')
 ROOT = os.path.dirname(build.BUILD_DIR)
 _RED = 'atomicAdd(reinterpret_cast<float4*>(dst), v);'
 _MMA = 'tc::mma(f[mi][ni], af[mi], bf[ni][0], bf[ni][1]);'
@@ -91,10 +112,33 @@ DW_VARIANTS = {
     'dw_no_gather': _DW_GATHER,
     'dw_no_fbuild': [_DW_CONTRACT, _DW_GATHER],
 }
+# the fp32 dW template's variants (inter_dw_kernel<float, BN>)
+DW_F32_VARIANTS = {
+    'tpl_no_gather': ('m0 + row, m_end, pt0, p2, nn, q, na, NK,',
+                      'm0 + row, m_end, pt0, p2, nn, 0, na, NK,'),
+    'tpl_no_fbuild': ('for (int e = tid; e < W_BM * (NK / KG);',
+                      'for (int e = tid; C < 0 && e < W_BM * (NK / KG);'),
+    'tpl_no_product': ('j < TN; ++j) acc[i][j] = fmaf(',
+                       'j < TN; ++j) if (C < 0) acc[i][j] = fmaf('),
+    # the fp32 kernel's (inter_dw_f32_kernel<BN>)
+    'f32_no_gather': ('lane; lp >= 0 && e < nn * (kCC / 4);',
+                      'lane; C < 0 && e < nn * (kCC / 4);'),
+    'f32_no_fbuild': ('    build_f(s);\n', '    if (C < 0) build_f(s);\n'),
+    'f32_no_product': ('acc[i][jj] = fmaf(a[i], b[jj], acc[i][jj]);',
+                       'if (C < 0) acc[i][jj] = fmaf(a[i], b[jj], '
+                       'acc[i][jj]);'),
+    'f32_product_only': [('lane; lp >= 0 && e < nn * (kCC / 4);',
+                          'lane; C < 0 && e < nn * (kCC / 4);'),
+                         ('    build_f(s);\n', '    if (C < 0) build_f(s);\n'),
+                         ('    dout_tile(m0);\n',
+                          '    if (C < 0) dout_tile(m0);\n')],
+}
 EXACT = ('built', 'scalar_red', 'warps_8', 'stages_4')
+EXACT_F32 = ('template', 'f32', 'f32_bn128')
 ENTRIES = {'dtable': 'epn_inter_conv_bwd_table_mma',
            'dg': 'epn_inter_conv_dg_mma', 'dw': 'epn_inter_conv_bwd_w_mma',
-           'dw_template': 'epn_inter_conv_bwd_w'}
+           'dw_template': 'epn_inter_conv_bwd_w',
+           'dw_f32': 'epn_inter_conv_bwd_w_f32'}
 # model -> (b, [(layer, entry, p1, p2, nn, c, d)])
 SHAPES = {
     'cls_so3net_pn b=12': (12, [
@@ -120,15 +164,16 @@ def main():
         raise SystemExit('inter_bwd_variants: needs a CUDA device')
     sys.path.insert(0, ROOT)
     from chip_smoke import time_ms
-    variants = {**VARIANTS, 'built': None, **DW_VARIANTS}
+    variants = {**VARIANTS, **DW_VARIANTS, **DW_F32_VARIANTS}
     procs = {n: build.compile_alone(build.CSRC_DIR, 'inter_conv_bwd.cu',
                                     os.path.join(OUT, n), sub)
              for n, sub in variants.items()}
-    fns = {}
+    fns, regs = {}, {}
     for n, (p, so) in procs.items():
         log = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f'nvcc failed on {n}:\n{log}')
+        regs[n] = ptxas_usage(log, 'inter_dw')
         lib = ctypes.CDLL(so)
         fns[n] = {}
         for key, entry in ENTRIES.items():
@@ -139,12 +184,46 @@ def main():
     dev = torch.device('cuda')
     card = torch.cuda.get_device_name(0)
     stream = torch.cuda.current_stream().cuda_stream
-    lines = (_scatter(fns, dev, card, stream, time_ms) +
-             _dw(fns, dev, card, stream, time_ms))
+    lines = _scatter(fns, dev, card, stream, time_ms)
+    lines += _dw(fns, dev, card, stream, time_ms)
+    for n in ('built',) + tuple(DW_F32_VARIANTS):
+        for fn_name, use in regs[n].items():
+            if 'kernelIf' not in fn_name and 'f32' not in fn_name:
+                continue                       # the fp32 instantiations
+            lines.append({'build': n, 'function': fn_name, **use})
+            print(json.dumps(lines[-1]), flush=True)
+    lines += _dw_f32(fns, dev, card, stream, time_ms)
     out_dir = os.path.join(ROOT, 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, 'inter_bwd_variants.json'), 'w') as f:
         json.dump(lines, f, indent=1)
+
+
+def ptxas_usage(log, key):
+    """{function: {'registers', 'spill_stores', 'spill_loads', 'smem'}} of
+    each kernel whose (mangled) name holds ``key``, from nvcc's -Xptxas -v
+    output."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1) if key in m.group(1) else None
+            if fn:
+                out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m:
+            out[fn]['spill_stores'] = int(m.group(1))
+            out[fn]['spill_loads'] = int(m.group(2))
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            out[fn]['registers'] = int(m.group(1))
+            m = re.search(r'(\d+) bytes smem', line)
+            out[fn]['static_smem'] = int(m.group(1)) if m else 0
+    return out
 
 
 def _scatter(fns, dev, card, stream, time_ms):
@@ -183,7 +262,7 @@ def _scatter(fns, dev, card, stream, time_ms):
                 return run
             rec = {}
             for n, fn in fns.items():
-                if n.startswith('dw_'):
+                if n not in VARIANTS:
                     continue
                 rec[n] = {'ms': time_ms(call(fn[entry]))}
                 if n in EXACT:
@@ -224,7 +303,8 @@ def _dw(fns, dev, card, stream, time_ms):
             dW = torch.empty(24, c, d, device=dev)
             bufs = {}
             for mma in (True, False):
-                splits = inter_conv.dw_splits(b * p2 * 60, c, d, mma)
+                splits = inter_conv.dw_splits(b * p2 * 60, c, d,
+                                              "dw_mma" if mma else "dw")
                 ws = torch.empty(splits, 24, c, d, device=dev)
                 bufs[mma] = (ws, (gx.data_ptr(), idx.data_ptr(),
                                   table.data_ptr(), rk.data_ptr(),
@@ -260,6 +340,71 @@ def _dw(fns, dev, card, stream, time_ms):
             torch.cuda.empty_cache()
         lines.append({'model': model, 'entry': 'dw', 'sum_over_layers': True,
                       'ms': total, 'card': card})
+        print(json.dumps(lines[-1]), flush=True)
+    return lines
+
+
+def _dw_f32(fns, dev, card, stream, time_ms):
+    """The fp32 dW at each fused-route layer: the template and the CUDA-core
+    kernel as built and their variants, each one's time, and the built
+    ones' normwise error against ``inter_conv_dw_plain``: JSON lines."""
+    lines = []
+    names = ['template', 'f32', 'f32_bn128'] + list(DW_F32_VARIANTS)
+    for model, (b, layers) in SHAPES.items():
+        total = dict.fromkeys(names, 0.0)
+        for tag, entry, p1, p2, nn, c, d in layers:
+            if entry != 'dtable':
+                continue
+            gx, idx, table, rk, k2, _ = _operands(dev, b, p1, p2, nn, c, d,
+                                                  seed=nn + c + d)
+            table = table.float()
+            rng = np.random.RandomState(p2 + c)
+            dout = torch.from_numpy(rng.randn(b, p2, 60, d).astype(
+                np.float32)).to(dev)
+            want = inter_conv.inter_conv_dw_plain(gx, idx, table, rk, k2,
+                                                  dout, 0.08)
+            dW = torch.empty(24, c, d, device=dev)
+            M = b * p2 * 60
+            bn = inter_conv.dw_f32_cols(d)
+            # f32_bn128: at most 128 columns a block
+            bns = {'f32': bn, 'f32_bn128': min(bn, 128)}
+            splits = {'template': inter_conv.dw_splits(M, c, d, 'dw'),
+                      **{n: inter_conv.dw_splits(M, c, d, 'dw_f32', v)
+                         for n, v in bns.items()}}
+            ws = torch.empty(max(splits.values()), 24, c, d, device=dev)
+
+            def call(n):
+                tpl = n == 'template' or n.startswith('tpl_')
+                fn = fns[n if n in DW_F32_VARIANTS else 'built'][
+                    'dw_template' if tpl else 'dw_f32']
+                key = 'template' if tpl else n if n in bns else 'f32'
+                tail = (0,) if tpl else (bns[key],)
+                args = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(),
+                        rk.data_ptr(), k2.data_ptr(), dout.data_ptr(),
+                        ws.data_ptr(), dW.data_ptr(), b, p2, nn, p1, 60, 24,
+                        c, d, 0.08, splits[key]) + tail
+
+                def run():
+                    err = fn(*args, stream)
+                    if err:
+                        raise RuntimeError(f'{n}: CUDA error {err}')
+                return run
+            rec = {}
+            for n in names:
+                rec[n] = {'ms': time_ms(call(n))}
+                if n in EXACT_F32:
+                    call(n)()
+                    torch.cuda.synchronize()
+                    rec[n]['rel'] = _rel(dW, want)
+                total[n] += rec[n]['ms']
+            lines.append({'model': model, 'layer': tag, 'entry': 'dw_f32',
+                          'dims': [b, p1, p2, nn, c, d], 'splits': splits,
+                          'bn': bns, 'variants': rec, 'card': card})
+            print(json.dumps(lines[-1]), flush=True)
+            del gx, idx, table, dout, want, dW, ws
+            torch.cuda.empty_cache()
+        lines.append({'model': model, 'entry': 'dw_f32',
+                      'sum_over_layers': True, 'ms': total, 'card': card})
         print(json.dumps(lines[-1]), flush=True)
     return lines
 

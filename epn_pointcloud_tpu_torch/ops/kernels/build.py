@@ -95,6 +95,10 @@ SIGNATURES = {
     # sigma, splits, stream (bf16 on tensor cores)
     'epn_inter_conv_bwd_w_mma': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _F, _I, _P],
+    # gx, idx, table, rk, k2, dout, ws, d_w, b, p2, nn, q, na, k, c, d,
+    # sigma, splits, bn, stream (fp32 on the CUDA cores)
+    'epn_inter_conv_bwd_w_f32': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # f, trace_idx, ss, dout, ws, d_w, b, p, na, k, c, d, ss_stride, splits,
     # bf16, stream
     'epn_intra_conv_bwd_w': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

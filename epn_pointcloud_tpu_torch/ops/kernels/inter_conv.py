@@ -49,7 +49,10 @@ bf16, the fold onto the table rows in fp32. The bf16 fused dW runs on
 tensor cores (``dw_mma_route``; other shapes on the template); both round
 the anchor weights and F to bf16 before the fp32 product, where the TPU
 kernels round them (``_bwd_gather_w_kernel:1133, 1140``), as the plain
-version does. The bf16 W-off F runs on tensor cores (``f_mma_route``;
+version does. The fp32 fused dW runs its own CUDA-core kernel
+(``dw_f32_route``; other fp32 shapes on the template), F built in fp32 and
+summed in the template's order, dW summed in fp32. The bf16 W-off F runs
+on tensor cores (``f_mma_route``;
 other shapes on the SGEMM template's W-off mode) at the same rounding
 points as its plain version: the anchor weights rounded to bf16, fp32
 sums, F rounded once.
@@ -84,12 +87,13 @@ launches = dict.fromkeys(ENTRIES, 0)
 # (``inter_bwd_mma_kernel``), or 'dtable' and 'dg', the template
 # (``inter_dtable_kernel``: fp32, and bf16 shapes off ``bwd_mma_route``);
 # the fused dW's 'dw_mma', the bf16 tensor-core kernel
-# (``inter_dw_mma_kernel``), or 'dw', the template (``inter_dw_kernel``:
-# fp32, and bf16 shapes off ``dw_mma_route``); the W-off F's 'f_mma', the
+# (``inter_dw_mma_kernel``), 'dw_f32', the fp32 CUDA-core kernel
+# (``inter_dw_f32_kernel``), or 'dw', the template (``inter_dw_kernel``:
+# shapes off both routes); the W-off F's 'f_mma', the
 # bf16 tensor-core kernel (``inter_f_mma_kernel``), or 'f', the SGEMM
 # template's W-off mode (fp32, and bf16 shapes off ``f_mma_route``)
 routes = dict.fromkeys(('mma', 'sgemm', 'dtable_mma', 'dtable', 'dg_mma',
-                        'dg', 'dw_mma', 'dw', 'f_mma', 'f'), 0)
+                        'dg', 'dw_mma', 'dw_f32', 'dw', 'f_mma', 'f'), 0)
 
 # anchors per step of the plain versions: bounds their [b, p, n, chunk, *]
 # intermediates (~1 GB at b=32 on the widest flagship layer)
@@ -110,6 +114,14 @@ BWD_MMA_NA, BWD_MMA_CC, BWD_MMA_MAX_NN, BWD_MMA_SD = 60, 16, 64, 32
 # the blocks its row splits aim for (one block an SM: about two waves)
 DW_MMA_NA, DW_MMA_CC, DW_MMA_BN, DW_MMA_MAX_NN = 60, 16, 64, 64
 DW_MMA_BLOCKS = 256
+# the fp32 CUDA-core dW's envelope (``dw_f32_route``): the anchors, a
+# block's channels and its kernel points (a multiple of the channels and
+# the kernel size), a multiple of d, neighbors up to; its row tile; and,
+# by the d columns a block, the blocks its row splits aim for: four waves
+# at the blocks an SM holds (one at 256 columns, two below)
+DW_F32_NA, DW_F32_CC, DW_F32_KP, DW_F32_D, DW_F32_MAX_NN = 60, 16, 8, 64, 64
+DW_F32_BM = 32
+DW_F32_BLOCKS = {64: 1056, 128: 1056, 256: 528}
 # the bf16 tensor-core W-off F's envelope (``f_mma_route``): the anchors, a
 # multiple of the channels (its chunk), neighbors up to
 F_MMA_NA, F_MMA_CC, F_MMA_MAX_NN = 60, 32, 64
@@ -345,6 +357,23 @@ def dw_mma_route(dtype, K: int, c: int, d: int, nn: int, na: int) -> bool:
             and 1 <= nn <= DW_MMA_MAX_NN)
 
 
+def dw_f32_route(dtype, K: int, c: int, d: int, nn: int, na: int) -> bool:
+    """Whether the fused dW runs the fp32 CUDA-core kernel
+    (``inter_dw_f32_kernel``): an fp32 table and K == 24, na == 60, c % 16
+    == 0, d % 64 == 0 and 1 <= nn <= 64 (every fused-route layer of both
+    models). bf16 and the other shapes the wrapper takes run the tensor-core
+    kernel (``dw_mma_route``) or the template (``inter_dw_kernel``)."""
+    return (dtype == torch.float32 and K == N_KERNEL and na == DW_F32_NA
+            and c % DW_F32_CC == 0 and d % DW_F32_D == 0
+            and 1 <= nn <= DW_F32_MAX_NN)
+
+
+def dw_f32_cols(d: int) -> int:
+    """d columns a block of the fp32 CUDA-core dW: all of d up to 256. The
+    wrapper passes it to the kernel, which launches that grid."""
+    return 256 if d % 256 == 0 else 128 if d % 128 == 0 else 64
+
+
 def f_mma_route(dtype, K: int, c: int, nn: int, na: int) -> bool:
     """Whether the W-off F runs the bf16 tensor-core kernel
     (``inter_f_mma_kernel``): a bf16 table and K == 24, na == 60, c % 32 ==
@@ -414,17 +443,24 @@ def inter_conv_dtable(gx: torch.Tensor, idx: torch.Tensor, q: int,
     return dT
 
 
-def dw_splits(M: int, c: int, d: int, mma: bool) -> int:
-    """Row ranges of a dW call over M rows (64-row tiles): the tensor-core
-    kernel's blocks own 16 channels and 64 columns and run one an SM, so
-    they aim for DW_MMA_BLOCKS; the template's own 8 channels and 64 or 128
-    columns, several an SM."""
-    row_tiles = -(-M // 64)
-    if mma:
-        return build.n_splits((d // DW_MMA_BN) * (c // DW_MMA_CC), row_tiles,
-                              DW_MMA_BLOCKS)
+def dw_splits(M: int, c: int, d: int, route: str, bn: int = 0) -> int:
+    """Row ranges of a dW call over M rows on ``route`` ('dw_mma',
+    'dw_f32' or 'dw'): the tensor-core kernel's blocks own 16 channels and
+    64 columns over 64-row tiles and run one an SM, so they aim for
+    DW_MMA_BLOCKS; the fp32 kernel's own 8 kernel points, 16 channels and
+    ``bn`` columns (default ``dw_f32_cols(d)``) over 32-row tiles
+    (DW_F32_BLOCKS); the template's own 8 channels and 64 or 128 columns
+    over 64-row tiles, several an SM."""
+    if route == 'dw_mma':
+        return build.n_splits((d // DW_MMA_BN) * (c // DW_MMA_CC),
+                              -(-M // 64), DW_MMA_BLOCKS)
+    if route == 'dw_f32':
+        bn = bn or dw_f32_cols(d)
+        return build.n_splits((N_KERNEL // DW_F32_KP) * (d // bn)
+                              * (c // DW_F32_CC), -(-M // DW_F32_BM),
+                              DW_F32_BLOCKS[bn])
     bn = 128 if d % 128 == 0 else 64
-    return build.n_splits((d // bn) * (c // 8), row_tiles)
+    return build.n_splits((d // bn) * (c // 8), -(-M // 64))
 
 
 def inter_conv_dw(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
@@ -432,7 +468,8 @@ def inter_conv_dw(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
                   sigma: float) -> torch.Tensor:
     """dW kernel wrapper -> fp32 dW: plain version on the CPU, CUDA kernel on
     the card: the tensor-core kernel where ``dw_mma_route`` holds (bf16),
-    else the template. Both sum per-row-range partials in a fixed order:
+    the fp32 CUDA-core kernel where ``dw_f32_route`` holds, else the
+    template. All sum per-row-range partials in a fixed order:
     deterministic."""
     if dout.device.type == 'cpu':
         return inter_conv_dw_plain(gx, idx, table, rk, k2, dout, sigma)
@@ -444,21 +481,22 @@ def inter_conv_dw(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
     if K != N_KERNEL or d % 64 != 0:
         raise ValueError(f'inter_conv_dw: kernel needs K == {N_KERNEL} and '
                          f'd % 64 == 0; got K={K} d={d}')
-    mma = dw_mma_route(table.dtype, K, c, d, nn, na)
-    splits = dw_splits(b * p2 * na, c, d, mma)
+    route = ('dw_mma' if dw_mma_route(table.dtype, K, c, d, nn, na) else
+             'dw_f32' if dw_f32_route(table.dtype, K, c, d, nn, na) else
+             'dw')
+    splits = dw_splits(b * p2 * na, c, d, route)
     dev = dout.device
     ws = torch.empty((splits, K, c, d), dtype=torch.float32, device=dev)
     dW = torch.empty((K, c, d), dtype=torch.float32, device=dev)
     ptrs = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(), rk.data_ptr(),
             k2.data_ptr(), dout.data_ptr(), ws.data_ptr(), dW.data_ptr(), b,
             p2, nn, q, na, K, c, d, float(sigma), splits)
+    entry, tail = {'dw_mma': ('epn_inter_conv_bwd_w_mma', ()),
+                   'dw_f32': ('epn_inter_conv_bwd_w_f32', (dw_f32_cols(d),)),
+                   'dw': ('epn_inter_conv_bwd_w', (bf16,))}[route]
     launches['inter_conv_dw'] += 1
-    if mma:
-        routes['dw_mma'] += 1
-        build.launch('epn_inter_conv_bwd_w_mma', *ptrs, build.stream(dout))
-    else:
-        routes['dw'] += 1
-        build.launch('epn_inter_conv_bwd_w', *ptrs, bf16, build.stream(dout))
+    routes[route] += 1
+    build.launch(entry, *ptrs, *tail, build.stream(dout))
     return dW
 
 

@@ -55,6 +55,7 @@ GROUPS = (('inter_f_mma_kernel', 'inter F (W-off) kernel'),
           ('inter_conv_kernel', 'inter conv kernel'),
           ('inter_dtable_kernel', 'inter dTable kernel'),
           ('inter_dw_mma_kernel', 'inter dW kernel'),
+          ('inter_dw_f32_kernel', 'inter dW kernel'),
           ('inter_dw_kernel', 'inter dW kernel'),
           (('intra_conv_mma_kernel', 'true>'), 'prenorm intra df kernel'),
           ('intra_conv_mma_kernel', 'intra conv kernel (and fp32 df)'),

@@ -11,8 +11,9 @@ and a bf16 train step's launches; the W-off inter conv (fp32 and bf16)
 with the composed route, and a bf16 inv train step's launches; the bf16
 inter backward scatter on tensor cores (the fused dTable and the W-off dG)
 at every model layer and at its edges, and the template off its envelope;
-the bf16 fused dW on tensor cores at model layers and at its edges, its
-determinism, and the template off its envelope; the bf16 intra dW on
+the bf16 fused dW on tensor cores and the fp32 one on the CUDA cores at
+model layers and at their edges, their determinism, and the template off
+their envelopes; the bf16 intra dW on
 tensor cores (B6 dW and the plain form's) at every model width, with a
 fold for the batch and one a cloud, at point counts that leave its last
 8-point group short, its determinism, and the SGEMM off its envelope;
@@ -819,13 +820,13 @@ def test_inter_bwd_off_envelope_takes_the_template(cuda, entry, dtype, c, d):
         (1e-5 if dtype == torch.float32 else 4e-3)
 
 
-def _dw_case(cuda, b, p1, stride, nn, c, d, dtype=BF16, seed=0):
+def _dw_case(cuda, b, p1, stride, nn, c, d, dtype=BF16, seed=0, shadow=0):
     """(routes taken, the kernel's dW, a second call's dW, the plain
     version's dW) of one inter_conv_dw call, a third of the neighbor slots
-    shadow."""
+    shadow (slots shadow, shadow + 3, ...)."""
     gx, idx, f, rk, k2, _, dout = _inter_operands(cuda, b, p1, stride, nn, c,
                                                   d, seed=seed)
-    idx[:, :, ::3] = p1
+    idx[:, :, shadow::3] = p1
     f, dout = f.to(dtype), dout.to(dtype)
     ic = tkern.inter_conv
     before = dict(ic.routes)
@@ -871,10 +872,41 @@ def test_inter_dw_mma_kernel_edges(cuda, b, p1, stride, nn, c, d):
     assert _rel(got, want) <= 1e-3 and torch.equal(got, again)
 
 
-@pytest.mark.parametrize('dtype,c,d', [(torch.float32, 64, 64),
+@pytest.mark.parametrize('b,p1,stride,nn,c,d', DW_MMA_LAYERS)
+def test_inter_dw_f32_kernel_matches_plain(cuda, b, p1, stride, nn, c, d):
+    """The fp32 CUDA-core dW at cls L1 and L5 and inv B2L1: taken by the
+    wrapper, within 1e-4 (normwise; sums over up to 122,880 rows in
+    another order) of the plain version, and bitwise equal on a second call
+    (fixed-order partial sums, no atomics)."""
+    route, got, again, want = _dw_case(cuda, b, p1, stride, nn, c, d,
+                                       dtype=torch.float32, seed=nn + c)
+    assert route == ['dw_f32']
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('b,p1,stride,nn,c,d,shadow', [
+    (1, 33, 1, 1, 16, 64, 1), (3, 45, 3, 40, 48, 192, 0),
+    (2, 64, 2, 64, 32, 128, 0), (2, 37, 1, 16, 16, 256, 2)])
+def test_inter_dw_f32_kernel_edges(cuda, b, p1, stride, nn, c, d, shadow):
+    """The fp32 dW's edges: rows not a whole number of 32-row tiles (33,
+    15 and 37 points), shadow neighbor slots (a third of them; none at nn
+    = 1), nn = 1, 40 and 64, 16, 32 and 48 channels, d = 192 (three 64-column
+    blocks) and 256 (one 256-column block): within 1e-4 of the plain
+    version, bitwise equal on a second call."""
+    route, got, again, want = _dw_case(cuda, b, p1, stride, nn, c, d,
+                                       dtype=torch.float32, seed=p1 + nn,
+                                       shadow=shadow)
+    assert route == ['dw_f32']
+    assert _rel(got, want) <= 1e-4 and torch.equal(got, again)
+
+
+@pytest.mark.parametrize('dtype,c,d', [(torch.float32, 40, 64),
                                        (BF16, 40, 64), (BF16, 64, 64)])
 def test_inter_dw_off_envelope_takes_the_template(cuda, dtype, c, d):
-    """fp32, bf16 channels that are not a multiple of 16, and bf16 at 12
+    """fp32 and bf16 channels that are not a multiple of 16, and bf16 at 12
     anchors (the tensor-core kernel takes 60) run the template
     (``inter_dw_kernel``): 1e-4 of the plain version in fp32; in bf16 1e-3,
     its F rounded at the plain version's rounding points."""

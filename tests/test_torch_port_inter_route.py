@@ -6,7 +6,9 @@ fp32 and the shapes off its envelope to the template; a bf16
 ``InterConvFn`` backward reaching the wrappers' card branch (tensors on the
 meta device, the launches recorded) counts the tensor-core dW at every
 fused-route layer and the tensor-core F at every composed-route layer.
-The text each ``inter_conv_variants`` build substitutes is in the source.
+The text each ``inter_conv_variants`` and ``inter_bwd_variants`` build
+substitutes is in the source. The fp32 fused dW goes to its CUDA-core
+kernel (``dw_f32_route``) at every fused-route layer.
 The kernels themselves are held against their plain versions on the card
 (tests/test_torch_port_gpu.py); the plain versions against the JAX package
 in tests/test_torch_port_bf16_train.py and tests/test_torch_port_inv_bf16.py.
@@ -158,32 +160,67 @@ def test_bf16_backward_counts_the_tensor_core_dw(name, monkeypatch):
     tkern.reset_counts()
 
 
-def test_fp32_backward_counts_the_template_dw(monkeypatch):
-    """The fp32 (parity) backward at cls L1 keeps the template: 'dw'."""
+@pytest.mark.parametrize('name,n_fused', [('cls_so3net_pn', 6),
+                                          ('inv_so3net_pn', 3)])
+def test_every_fused_dw_layer_takes_the_fp32_kernel(name, n_fused):
+    """cls L1-L6 and inv B1L1, B2L1, B3L1: the fp32 dW on the CUDA-core
+    kernel (``dw_f32_route``), bf16 on the tensor-core one."""
+    layers = _fused_layers(name)
+    assert len(layers) == n_fused
+    ic = tkern.inter_conv
+    for K, c, d, nn, na in layers:
+        assert ic.dw_f32_route(torch.float32, K, c, d, nn, na), (c, d, nn)
+        assert not ic.dw_f32_route(BF16, K, c, d, nn, na)
+
+
+@pytest.mark.parametrize('K,c,d,nn,na', [(24, 40, 64, 16, 60),
+                                         (24, 64, 96, 16, 60),
+                                         (24, 64, 64, 65, 60),
+                                         (24, 64, 64, 16, 12),
+                                         (18, 64, 64, 16, 60)])
+def test_dw_f32_shapes_off_the_envelope_take_the_template(K, c, d, nn, na):
+    """Channels not a multiple of 16, d not a multiple of 64, more than 64
+    neighbors, another group, another kernel size."""
+    assert not tkern.inter_conv.dw_f32_route(torch.float32, K, c, d, nn, na)
+
+
+@pytest.mark.parametrize('name', ['cls_so3net_pn', 'inv_so3net_pn'])
+def test_fp32_backward_counts_the_fp32_dw(name, monkeypatch):
+    """The fp32 (parity) InterConvFn forward and backward at every
+    fused-route layer of the model (b = 1, 64 points) on the card branch:
+    one 'dw_f32' and no 'dw' or 'dw_mma' a layer, launched through
+    epn_inter_conv_bwd_w_f32, and the dW gradient in fp32."""
     launched = _card_shapes(monkeypatch)
     ic = tkern.inter_conv
     meta = torch.device('meta')
-    K, c, d, nn, na = _fused_layers('cls_so3net_pn')[0]
+    layers = _fused_layers(name)
     tkern.reset_counts()
-    W = torch.empty((K, c, d), device=meta, requires_grad=True)
-    out = ic.InterConvFn.apply(
-        torch.empty((1, 64, nn, 3), device=meta),
-        torch.empty((1, 64, nn), dtype=torch.int32, device=meta),
-        torch.empty((1, 64, na, c), device=meta, requires_grad=True),
-        torch.empty((na, K, 3), device=meta), torch.empty((K,), device=meta),
-        W, 0.1)
-    out.backward(torch.empty_like(out))
-    assert (ic.routes['dw'], ic.routes['dw_mma']) == (1, 0)
-    assert launched.count('epn_inter_conv_bwd_w') == 1
+    for K, c, d, nn, na in layers:
+        W = torch.empty((K, c, d), device=meta, requires_grad=True)
+        out = ic.InterConvFn.apply(
+            torch.empty((1, 64, nn, 3), device=meta),
+            torch.empty((1, 64, nn), dtype=torch.int32, device=meta),
+            torch.empty((1, 64, na, c), device=meta, requires_grad=True),
+            torch.empty((na, K, 3), device=meta),
+            torch.empty((K,), device=meta), W, 0.1)
+        out.backward(torch.empty_like(out))
+        assert W.grad.dtype == torch.float32 and W.grad.shape == (K, c, d)
+    n = len(layers)
+    assert (ic.routes['dw_f32'], ic.routes['dw'], ic.routes['dw_mma']) == \
+        (n, 0, 0)
+    assert ic.launches['inter_conv_dw'] == n
+    assert launched.count('epn_inter_conv_bwd_w_f32') == n
+    assert 'epn_inter_conv_bwd_w' not in launched
     tkern.reset_counts()
 
 
 def test_reset_counts_clears_the_dw_routes():
     ic = tkern.inter_conv
     ic.routes['dw_mma'] += 3
+    ic.routes['dw_f32'] += 2
     ic.routes['dw'] += 1
     tkern.reset_counts()
-    assert ic.routes['dw_mma'] == ic.routes['dw'] == 0
+    assert ic.routes['dw_mma'] == ic.routes['dw_f32'] == ic.routes['dw'] == 0
 
 
 def _composed_layers(name):
@@ -261,6 +298,42 @@ def test_composed_backward_counts_the_f_kernel(dtype, route, entry,
     tkern.reset_counts()
 
 
+@pytest.mark.parametrize('dtype,c,d,route', [(BF16, 64, 256, 'dw_mma'),
+                                             (torch.float32, 64, 256,
+                                              'dw_f32'),
+                                             (torch.float32, 64, 128,
+                                              'dw_f32'),
+                                             (torch.float32, 40, 128, 'dw')])
+def test_dw_launch_matches_its_entry_signature(dtype, c, d, route,
+                                               monkeypatch):
+    """The dW wrapper's card branch gives its C entry as many arguments as
+    the entry's ctypes signature holds, and the fp32 kernel the d columns a
+    block (``dw_f32_cols``) that its splits were sized for."""
+    _card_shapes(monkeypatch)
+    ic = tkern.inter_conv
+    calls = []
+    monkeypatch.setattr(ic.build, 'launch',
+                        lambda name, *a: calls.append((name, a)))
+    meta = torch.device('meta')
+    b, p2, nn, q, na, K = 2, 64, 16, 128, 60, 24
+    tkern.reset_counts()
+    ic.inter_conv_dw(torch.empty((b, p2, nn, 3), device=meta),
+                     torch.empty((b, p2, nn), dtype=torch.int32, device=meta),
+                     torch.empty((b, q, na, c), dtype=dtype, device=meta),
+                     torch.empty((na, K, 3), device=meta),
+                     torch.empty((K,), device=meta),
+                     torch.empty((b, p2, na, d), dtype=dtype, device=meta),
+                     0.1)
+    (name, args), = calls
+    assert len(args) == len(ic.build.SIGNATURES[name])
+    assert ic.routes[route] == 1
+    if route == 'dw_f32':
+        splits, bn = args[-3], args[-2]
+        assert bn == ic.dw_f32_cols(d) == d
+        assert splits == ic.dw_splits(b * p2 * na, c, d, 'dw_f32', bn)
+    tkern.reset_counts()
+
+
 def test_variant_builds_substitute_text_in_the_source():
     """Each build of ``inter_conv_variants`` replaces text that
     csrc/inter_conv.cu holds (on the card a missing text fails the whole
@@ -274,3 +347,19 @@ def test_variant_builds_substitute_text_in_the_source():
     for sub in subs:
         for old, _ in ([sub] if isinstance(sub[0], str) else sub):
             assert old in src, old
+
+
+def test_bwd_variant_builds_substitute_text_in_the_source():
+    """Each build of ``inter_bwd_variants`` (the scatter's, the bf16 dW's,
+    the fp32 template's and the fp32 kernel's) replaces text that
+    csrc/inter_conv_bwd.cu holds exactly once."""
+    from epn_pointcloud_tpu_torch import inter_bwd_variants as ibv
+    with open(ibv.SOURCE_PATH) as f:
+        src = f.read()
+    subs = [sub for table in (ibv.VARIANTS, ibv.DW_VARIANTS,
+                              ibv.DW_F32_VARIANTS)
+            for sub in table.values() if sub is not None]
+    assert len(subs) >= 10
+    for sub in subs:
+        for old, _ in ([sub] if isinstance(sub[0], str) else sub):
+            assert src.count(old) == 1, old
