@@ -10,9 +10,10 @@ epn_intra_conv, epn_intra_conv_prenorm_df, epn_inter_conv_bwd_table,
 epn_inter_conv_dg, epn_inter_conv_bwd_w and epn_intra_conv_bwd_w (bf16)
 are timed beside this tree's bf16 W-fused inter forward, W-off F, prenorm
 intra forward, B6 df, fused dTable, W-off dG, fused dW and B6 dW at every
-call of phases 4, 9 and 16, and its epn_inter_conv_bwd_w (fp32) beside
-this tree's fp32 fused dW at every call of phases 6 and 12, on the same
-inputs, in turns (parent, new, new, parent).
+call of phases 4, 9 and 16, and its epn_inter_conv_bwd_w,
+epn_inter_conv_bwd_table and epn_inter_conv_dg (fp32) beside this tree's
+fp32 fused dW, fused dTable and W-off dG at every call of phases 6 and 12,
+on the same inputs, in turns (parent, new, new, parent).
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from csrc/ (one nvcc a source, in parallel,
@@ -20,9 +21,9 @@ Phases (any failure exits non-zero and prints no result line):
      SASS of the bf16 tensor-core kernels (the grouped conv forward and
      backward, the W-fused inter forward, the W-off F, the intra forward
      and B6 df, the inter backward scatter, the fused inter dW, the intra
-     dW; cuobjdump): none fails; and in the SASS of the fp32 fused inter
-     dW's CUDA-core kernel (inter_dw_f32_kernel) FFMA and no HMMA or GMMA
-     (no TF32);
+     dW; cuobjdump): none fails; and in the SASS of the fp32 CUDA-core
+     kernels of the fused inter dW (inter_dw_f32_kernel) and the backward
+     scatter (inter_bwd_f32_kernel) FFMA and no HMMA or GMMA (no TF32);
   2. at every flagship layer shape of cls_so3net_pn (b=32, 1024 points, 60
      anchors), compare each kernel with its plain PyTorch version on the
      card, on the inputs the model itself gives it (captured from a b=32
@@ -36,7 +37,8 @@ Phases (any failure exits non-zero and prints no result line):
      prenorm intra conv, moments, fused tail, grouped conv) against its
      plain version on the same inputs (normwise <= 4e-3 for bf16 outputs,
      <= 1e-5 for the moments' fp32 sums), timed, with torch.addmm beside
-     the grouped conv; every inter conv call on the tensor-core kernel,
+     the grouped conv and torch.var_mean beside the moments; every inter
+     conv call on the tensor-core kernel,
      bitwise equal on a second call, within 1e-3 of the plain version at
      its rounding points (inter_conv_mma_plain: the anchor weights and F
      rounded to bf16, as the TPU kernel rounds them), and timed beside the
@@ -58,8 +60,10 @@ Phases (any failure exits non-zero and prints no result line):
      run the kernel of its dtype (the tensor-core kernels in bf16, the
      SGEMMs in fp32; so in phases 8, 11, 15, 19, there with every fused
      dTable, W-off dG, fused dW and W-off F too: the tensor-core scatter,
-     dW and F in bf16; in fp32 the fused dW's CUDA-core kernel
-     (inter_dw_f32_kernel, 'dw_f32') and the templates for the rest);
+     dW and F in bf16; in fp32 the CUDA-core kernels of the fused dW
+     (inter_dw_f32_kernel, 'dw_f32') and of the fused dTable and W-off dG
+     (inter_bwd_f32_kernel, 'dtable_f32', 'dg_f32'), and the W-off F's
+     template);
   6. capture each backward kernel call of one train-mode step of the seeded
      full-width model on a synthetic b=12 batch (inter dTable and dW at 6
      layers, intra df and dW at 7) and compare each with its plain version
@@ -69,7 +73,10 @@ Phases (any failure exits non-zero and prints no result line):
      error against a float64 dW (inter_conv_dw_plain in float64) at most
      twice the template's (this tree's epn_inter_conv_bwd_w on the same
      inputs), timed beside one torch.mm(F^T, dout) (and, --parent-csrc,
-     beside the earlier tree's fp32 template under one timer);
+     beside the earlier tree's fp32 template under one timer); every
+     dTable on the fp32 CUDA-core scatter ('dtable_f32'), timed beside one
+     torch.mm(dout2, W2^T) and that torch.mm then the CUDA-core dG (and,
+     --parent-csrc, beside the earlier tree's fp32 template);
   7. one train step (b=12) on the kernel path and on the plain path
      (``kernels.plain()``: plain forward, torch autograd) from the same
      weights: loss to rtol 1e-5, per-leaf gradients by the rule of
@@ -102,8 +109,8 @@ Phases (any failure exits non-zero and prints no result line):
      torch.mm(F^T, dout); every B6 dW on its tensor-core kernel
      (intra_dw_mma_kernel), within 1e-3 of the plain version and bitwise
      equal on a second call, timed beside one torch.mm of the gathered z
-     by dout; the fp32 step's dTable and intra df (phase 6) beside one
-     torch.mm of their products (dout2 W2^T; the gathered dout by W^T);
+     by dout; the fp32 step's intra df (phase 6) beside one torch.mm of
+     its product (the gathered dout by W^T);
  10. [bf16-train] one bf16 train step (b=12) on the kernel path and on the
      plain path from the same weights: loss to rtol 1e-3, every parameter
      with a gradient on both paths, per-leaf gradient cosine >= 0.9 and its
@@ -131,8 +138,10 @@ Phases (any failure exits non-zero and prints no result line):
      batched torch.matmul of the anchor weights by the gathered table
      rows; fps and ball_query indices equal; normwise <= 1e-5 for the forward
      kernels, df, dTable and the W-off inter_conv_f / inter_conv_dg, <=
-     1e-4 for the dW reductions; every fused dW on the fp32 CUDA-core
-     kernel, checked and timed as in phase 6); then the composed backward
+     1e-4 for the dW reductions; every fused dW and dTable on its fp32
+     CUDA-core kernel, checked and timed as in phase 6, every W-off dG on
+     the CUDA-core scatter ('dg_f32', beside the earlier tree's template
+     with --parent-csrc)); then the composed backward
      route (its four parts) timed beside the fused dTable + dW at B1L0,
      B2L0, B3L0;
  13. [inv-train] one inv triplet step on the kernel path and on the plain
@@ -153,7 +162,8 @@ Phases (any failure exits non-zero and prints no result line):
      tensor-core kernel, bitwise, <= 1e-3 of inter_conv_mma_plain, beside
      its composition), the prenorm intra conv and B6 df as in phases 4 and
      9 (the bf16 inter_conv_f / inter_conv_dg, the
-     prenorm intra conv with a fold a patch and its backward, moments, the
+     prenorm intra conv with a fold a patch and its backward, moments
+     (beside torch.var_mean), the
      grouped conv and its backward, the fused inter backward, every
      dTable and dG on the tensor-core scatter and every dW on the
      tensor-core kernel as in phase 9, every B6 dW on its tensor-core
@@ -410,8 +420,8 @@ TC_KERNELS = ('grouped_conv_mma_kernel', 'grouped_bwd_mma_kernel',
               'intra_conv_mma_kernel', 'inter_bwd_mma_kernel',
               'inter_dw_mma_kernel', 'intra_dw_mma_kernel')
 # the fp32 kernels held to full fp32 products on the CUDA cores: the fused
-# inter dW
-FFMA_KERNELS = ('inter_dw_f32_kernel',)
+# inter dW, the inter backward scatter (the fused dTable and the W-off dG)
+FFMA_KERNELS = ('inter_dw_f32_kernel', 'inter_bwd_f32_kernel')
 
 
 def tensor_core_sass(so):
@@ -714,8 +724,8 @@ def route_counts():
     tensor-core kernel, 'sgemm': the SGEMM): the W-fused inter forward's
     (with the backward scatter's, the fused dW's and the W-off F's:
     'dtable_mma' / 'dg_mma' / 'dw_mma' / 'f_mma', the bf16 tensor-core
-    kernels, 'dw_f32', the fp32 dW's CUDA-core kernel, or 'dtable' / 'dg'
-    / 'dw' / 'f', the templates), and the intra
+    kernels, 'dtable_f32' / 'dg_f32' / 'dw_f32', the fp32 CUDA-core
+    kernels, or 'dtable' / 'dg' / 'dw' / 'f', the templates), and the intra
     forward's with B6 df's (with dW's: 'dw_mma', the bf16 tensor-core
     kernel, or 'dw', the SGEMM)."""
     from epn_pointcloud_tpu_torch.ops import kernels
@@ -728,8 +738,9 @@ def check_routes(tag, dtype, counts, routes):
     and W-off F, and every intra forward, B6 df and intra dW, of an entry
     run went
     through the kernel of its dtype: the tensor-core kernels in bf16; in
-    fp32 the SGEMMs, the templates and the fused dW's CUDA-core kernel
-    ('dw_f32') (``routes``: ``route_counts()``, read with ``counts``)."""
+    fp32 the SGEMMs, the W-off F's template and the CUDA-core kernels of the
+    fused dW ('dw_f32') and the backward scatter ('dtable_f32', 'dg_f32')
+    (``routes``: ``route_counts()``, read with ``counts``)."""
     want = {}
     for conv, n in (('inter', counts['inter_conv']),
                     ('intra', counts['intra_conv']
@@ -747,11 +758,12 @@ def check_routes(tag, dtype, counts, routes):
              + counts['intra_conv_prenorm_dw'])):
         want[conv].update({f'{entry}_mma': n, entry: 0} if dtype == 'bf16'
                           else {f'{entry}_mma': 0, entry: n})
-    # the fused inter dW in fp32: its CUDA-core kernel, not the template
-    if dtype == 'bf16':
-        want['inter']['dw_f32'] = 0
-    else:
-        want['inter'].update(dw=0, dw_f32=counts['inter_conv_dw'])
+    # the fused inter dW and the backward scatter in fp32: their CUDA-core
+    # kernels, not the templates
+    for entry in ('dtable', 'dg', 'dw'):
+        n = counts[f'inter_conv_{entry}']
+        want['inter'].update({f'{entry}_f32': 0} if dtype == 'bf16' else
+                             {entry: 0, f'{entry}_f32': n})
     log(f'{tag} launches by kernel: {routes}')
     assert routes == want, (routes, want)
 
@@ -900,16 +912,12 @@ def phase_bf16_kernels(model, device):
                'plain_ms': p_ms, 'ok': ok}
         row['bytes_ms'], row['ops_ms'] = bound_ms(name, args, got)
         row.update(grouped_library(name, args))
+        row.update(moments_library(name, args))
         row.update(inter_conv_extras(name, args, got))
         row.update(intra_conv_extras(name, args, got))
         ok = ok and _extras_ok(row)
         row['ok'] = ok
         lib = _library_note(row)
-        if name == 'moments':
-            # the same bytes read for the same per-lane statistics
-            row['library_ms'] = time_ms(
-                lambda: torch.var_mean(args[0], dim=1, correction=0))
-            lib = f' var_mean_ms={row["library_ms"]:.4f}'
         log(f'[bf16] {name} L{layer} ({row["shape"]}): max_abs_err='
             f'{max_err:.3e} rel_norm_err={rel:.3e} [rel_norm<={tol:.0e}] '
             f'kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}{lib} bound_ms='
@@ -1174,18 +1182,29 @@ def grouped_library(name, args):
                                   if a is not None)}
 
 
+def moments_library(name, args):
+    """The one-call yardstick of a moments call, timed on its input x [b,
+    rows, L]: torch.var_mean over the rows, the same bytes read for the
+    same per-lane statistics; {} for any other kernel."""
+    import torch
+    if name != 'moments':
+        return {}
+    return {'library_ms': time_ms(
+        lambda: torch.var_mean(args[0], dim=1, correction=0))}
+
+
 def mm_library(name, args):
-    """The one-call yardstick of a dW reduction, of the fp32 intra forward
-    and df, and of the fp32 dTable: one torch.mm of its operand formed
-    beforehand (untimed), on the call's inputs. The inter dW: F^T dout, F
+    """The one-call yardstick of a dW reduction and of the fp32 intra
+    forward and df: one torch.mm of its operand formed beforehand
+    (untimed), on the call's inputs. The inter dW: F^T dout, F
     [M, 24c] the neighbor contraction (``inter_conv_f_plain``); the intra
     dW (plain and prenorm): A^T dout, A [M, 12c] the input (prenorm: folded
     and activated) gathered through the adjacency; the fp32 intra forward:
     A W; the fp32 intra df: the dout gathered through the inverse
-    adjacency [M, 12d] by W^T [12d, c]; the fp32 dTable: the dF product it
-    fuses, dout2 W2^T (the bf16 dTable's is timed by ``inter_bwd_extras``).
-    A bf16 product asks for an fp32 output, as the kernels' dW is. The
-    W-off F: one batched torch.matmul over the (point, anchor) rows of the
+    adjacency [M, 12d] by W^T [12d, c] (the dTable's is timed by
+    ``inter_bwd_extras``). A bf16 product asks for an fp32 output, as the
+    kernels' dW is. The W-off F: one batched torch.matmul over the (point,
+    anchor) rows of the
     anchor weights [K, nn] (rounded to bf16 from a bf16 table, as the
     kernel rounds them) by the gathered table rows [nn, c], in the table's
     type, as the kernel stores F. {} for any other call."""
@@ -1193,11 +1212,7 @@ def mm_library(name, args):
     from epn_pointcloud_tpu_torch.ops import kernels
     if name == 'inter_conv_f':
         return _woff_f_library(*args)
-    if name == 'inter_conv_dtable' and args[6].dtype == torch.float32:
-        W = args[5]
-        K, c, d = W.shape
-        lhs, rhs = args[6].reshape(-1, d), W.reshape(K * c, d).t()
-    elif name == 'intra_conv_df':
+    if name == 'intra_conv_df':
         dout, _, inv, W = args
         K, c, d = W.shape
         lhs = dout[:, :, inv.long()].reshape(-1, K * d)
@@ -1273,17 +1288,19 @@ def _library_note(row):
 
 def _extras_ok(row):
     """The own gates of a bf16 inter forward (``inter_conv_extras``), intra
-    forward or B6 df (``intra_conv_extras``), backward scatter
-    (``inter_bwd_extras``), inter dW (``inter_dw_extras``), intra dW
+    forward or B6 df (``intra_conv_extras``), backward scatter in either
+    dtype (``inter_bwd_extras``), inter dW (``inter_dw_extras``), intra dW
     (``intra_dw_extras``) and W-off F (``inter_f_extras``): the tensor-core
-    kernel ran (the fp32 dW: its CUDA-core kernel, at most twice the
-    template's error against float64), its output is bitwise equal on a
+    kernel ran (the fp32 dW and scatter: their CUDA-core kernel; the dW at
+    most twice the template's error against float64), its output is
+    bitwise equal on a
     second call (not the scatter's: atomics), and within 1e-3 (normwise) of
     ``inter_conv_mma_plain`` (inter forward) or ``inter_conv_f_plain``
     (W-off F). ``parent_equal`` (--parent-csrc) is printed, not gated: a
     later tree may sum in another order."""
     return (row.get('route', 'mma') in ('mma', 'dtable_mma', 'dg_mma',
-                                        'dw_mma', 'dw_f32', 'f_mma')
+                                        'dtable_f32', 'dg_f32', 'dw_mma',
+                                        'dw_f32', 'f_mma')
             and row.get('bitwise_repeat', True)
             and row.get('rel_vs_mma_plain', 0.0) <= 1e-3
             and row.get('rel_vs_f_plain', 0.0) <= 1e-3
@@ -1500,21 +1517,21 @@ def intra_dw_extras(name, args, got):
 
 
 def inter_bwd_extras(name, args, got):
-    """For a bf16 call of the backward scatter (the fused dTable or the
-    W-off dG): the kernel it ran (``route``, from the wrapper's counts:
-    'dtable_mma' / 'dg_mma' for the tensor-core kernel). For the dTable
-    also its library yardstick, one ``torch.mm(dout2, W2^T)`` (the dF
-    product it fuses; ``library_ms``), and the composition it replaces,
-    that torch.mm then the tensor-core dG on its output (``composed_ms``).
-    With --parent-csrc also the earlier tree's C entry on the same inputs,
-    timed with this tree's in turns (parent, new, new, parent; both into
-    one preallocated dT; ``parent_ms``, ``same_timer_ms``). {} for any
-    other call."""
+    """For a call of the backward scatter (the fused dTable or the W-off
+    dG): the kernel it ran (``route``, from the wrapper's counts:
+    'dtable_mma' / 'dg_mma' for the bf16 tensor-core kernel, 'dtable_f32'
+    / 'dg_f32' for the fp32 CUDA-core one). For the dTable also its
+    library yardstick, one ``torch.mm(dout2, W2^T)`` (the dF product it
+    fuses; ``library_ms``), and the composition it replaces, that torch.mm
+    then the dG kernel of the call's dtype on its output (``composed_ms``).
+    With --parent-csrc also the earlier tree's C entry (in the call's
+    dtype) on the same inputs, timed with this tree's in turns (parent,
+    new, new, parent; both into one preallocated dT; ``parent_ms``,
+    ``same_timer_ms``). {} for any other call."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     from epn_pointcloud_tpu_torch.ops.kernels import build
-    if name not in ('inter_conv_dtable', 'inter_conv_dg') or \
-            args[5].dtype != torch.bfloat16:
+    if name not in ('inter_conv_dtable', 'inter_conv_dg'):
         return {}
     ic = kernels.inter_conv
     before = dict(ic.routes)
@@ -1525,9 +1542,12 @@ def inter_bwd_extras(name, args, got):
     b, p2, nn = idx.shape
     na, K = rk.shape[:2]
     c = got.shape[-1]
+    bf16 = args[5].dtype == torch.bfloat16
     head = (gx.data_ptr(), idx.data_ptr(), rk.data_ptr(), k2.data_ptr())
     dT = torch.zeros_like(got)
     lib = build.library()
+    kind = 'mma' if bf16 else 'f32'
+    tail = ()
     if name == 'inter_conv_dtable':
         W, dout = args[5], args[6]
         d = W.shape[2]
@@ -1537,17 +1557,21 @@ def inter_bwd_extras(name, args, got):
 
         def composed():
             dF = torch.mm(dout2, W2.t())
-            build.launch('epn_inter_conv_dg_mma', *head, dF.data_ptr(),
+            build.launch(f'epn_inter_conv_dg_{kind}', *head, dF.data_ptr(),
                          dT.data_ptr(), b, p2, nn, q, na, K, c,
                          float(args[7]), build.stream(dout))
         rec['composed_ms'] = time_ms(composed, reps=5, warmup=2)
         ptrs = head + (W.data_ptr(), dout.data_ptr(), dT.data_ptr(), b, p2,
                        nn, q, na, K, c, d, float(args[7]))
-        pair = ('dtable', 'epn_inter_conv_bwd_table_mma')
+        pair = ('dtable', f'epn_inter_conv_bwd_table_{kind}')
+        if not bf16:
+            ws = torch.empty(ic.bwd_f32_workspace(b, p2, K, c, d),
+                             dtype=torch.float32, device=got.device)
+            tail = (ws.data_ptr(),)
     else:
         ptrs = head + (args[5].data_ptr(), dT.data_ptr(), b, p2, nn, q, na,
                        K, c, float(args[6]))
-        pair = ('dg', 'epn_inter_conv_dg_mma')
+        pair = ('dg', f'epn_inter_conv_dg_{kind}')
     if PARENT:
         def call(fn, tail):
             def run():
@@ -1556,7 +1580,8 @@ def inter_bwd_extras(name, args, got):
                     raise RuntimeError(f'{name}: CUDA error {err}')
             return run
         rec['parent_ms'], rec['same_timer_ms'] = time_abba(
-            call(PARENT[pair[0]], (1,)), call(getattr(lib, pair[1]), ()))
+            call(PARENT[pair[0]], (int(bf16),)),
+            call(getattr(lib, pair[1]), tail))
     del dT
     torch.cuda.empty_cache()
     return rec
@@ -2280,6 +2305,7 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
             row['bytes_ms'], row['ops_ms'] = bound_ms(
                 wname, wargs, got[0] if len(got) == 1 else got)
             row.update(grouped_library(name, args))
+            row.update(moments_library(name, args))
             row.update(mm_library(name, args))
             row.update(inter_conv_extras(name, args, got[0]))
             row.update(intra_conv_extras(name, args, got))
@@ -2719,6 +2745,14 @@ def phase_inv_bf16_descriptor(device, root, reps=5):
             'plain_runs_ms': p_ts}
 
 
+# the fp32 CUDA-core kernels of the inter backward, by wrapper: the kernel
+# and its route (``inter_conv.routes``) in the kernels summary
+F32_KERNELS = {
+    'inter_conv_dw': {'kernel': 'inter_dw_f32_kernel', 'route': 'dw_f32'},
+    'inter_conv_dtable': {'kernel': 'inter_bwd_f32_kernel',
+                          'route': 'dtable_f32'},
+    'inter_conv_dg': {'kernel': 'inter_bwd_f32_kernel', 'route': 'dg_f32'}}
+
 # the earlier tree's sources built alone (--parent-csrc): source -> its C
 # entries, as PARENT's keys
 PARENT_SOURCES = {'inter_conv.cu': {'fn': 'epn_inter_conv_mma',
@@ -2754,7 +2788,8 @@ def main(argv=None):
     ap.add_argument('--parent-csrc', default=None,
                     help="an earlier tree's csrc/ directory: its bf16 "
                     'W-fused inter forward, W-off F, prenorm intra forward, '
-                    'B6 df, fused dTable, W-off dG, fused dW and B6 dW timed '
+                    'B6 df, fused dTable, W-off dG, fused dW and B6 dW, and '
+                    'its fp32 fused dTable, W-off dG and fused dW, timed '
                     "beside this tree's")
     args = ap.parse_args(argv)
     import torch
@@ -2873,17 +2908,19 @@ def main(argv=None):
         if (k.name in bf16_bwd or k.name in bf16_results) and \
                 k.name in results:
             rec['fp32'] = _aggregate(results[k.name])
-        if k.name == 'inter_conv_dw':
-            # the fp32 fused dW: its own CUDA-core kernel, in the cls step
-            # (b=12) and the inv step (b=16 a leg); launches from the fp32
-            # train entries, all on it (check_routes)
-            for key, rows, n in (('fp32', results[k.name], counts[k.name]),
-                                 ('inv', inv_results[k.name],
-                                  inv_counts[k.name])):
-                rec[key].update(
-                    kernel='inter_dw_f32_kernel', route='dw_f32',
-                    source=k.source, launches=n,
-                    share=rec[key]['bound_ms'] / rec[key]['ms'])
+        if k.name in F32_KERNELS and k.name != 'inter_conv_dg':
+            # the fp32 fused dW and dTable: their own CUDA-core kernel, in
+            # the cls step (b=12) and the inv step (b=16 a leg); launches
+            # from the fp32 train entries, all on it (check_routes)
+            for key, n in (('fp32', counts[k.name]),
+                           ('inv', inv_counts[k.name])):
+                rec[key].update(source=k.source, launches=n,
+                                share=rec[key]['bound_ms'] / rec[key]['ms'],
+                                **F32_KERNELS[k.name])
+        elif k.name in F32_KERNELS:
+            # the fp32 W-off dG (the record above: the inv step's)
+            rec['fp32_kernel'] = dict(F32_KERNELS[k.name],
+                                      share=rec['bound_ms'] / rec['ms'])
         if k.name == 'intra_conv':
             # df runs this kernel (b=12 train step); ms above: b=32 forward
             rec['df'] = _aggregate(results['intra_conv_df'])

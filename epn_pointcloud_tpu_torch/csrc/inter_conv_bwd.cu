@@ -144,6 +144,39 @@
 // step's six calls): the product alone runs at 63% of the fp32 rate (one
 // torch.mm of F^T dout at 77%), and the F build, its gathers and the
 // barriers, which no other block overlaps at D = 256, add half again.
+//
+// fp32 backward scatter on the CUDA cores (inter_bwd_f32_kernel;
+// epn_inter_conv_bwd_table_f32, epn_inter_conv_dg_f32): the fused dTable
+// and the W-off dG of every model layer in fp32 (60 anchors, 24 kernel
+// points, C % 16 == 0, nn <= 64; the fused entry D % 16 == 0), FFMA only
+// (no TF32), fp32 sums with no rounding points. A persistent block (one an
+// SM, 16 warps) walks tiles of one whole point (its 60 anchor rows, so the
+// neighbor list is shared) and 16 channels. The fused entry first writes
+// W^T and dout^T into its workspace in the order its slices are read (two
+// small launches), so that each 16-deep slice of either is contiguous;
+// then 12 warps form each tile's dF slab [60, 24 x 16] by a
+// register-blocked product, 8 x 8 outputs a thread from float4 loads of
+// both operands, the slices arriving through a 3-stage cp.async ring that
+// runs on from one tile to the next, while 4 warps scatter the last tile's
+// slab: named barriers hand the slab over, so the scatter of a tile runs
+// beside the next tile's product. Each dout row is loaded once a tile
+// (the template: once for 8 channels), W's slice once a tile, nothing
+// staged through registers. The W-off entry loads the slab from dF by
+// cp.async into one of two slabs, the next tile's while all 16 warps
+// scatter this one. The scatter gives each (anchor row, neighbor slot)
+// item to a thread: the slot's 24 anchor weights once for 16 channels
+// (the template: for 8), the 16 sums over k in registers (k in order),
+// and four float4 vector reductions into dT (the template: 8 scalar
+// atomics for 8 channels). Work a call: the product's 2 * M * 24 * C * D
+// operations, the scatter's 2 * M * nn * 24 * C, the weights ~5 * M * nn
+// * 24 * C / 16; M * nn * C / 4 vector reductions. What holds it back
+// (inter_bwd_variants.py on the H100, the cls b=12 step's six calls): the
+// product, 87% of the fused entry's time (without the scatter's writes),
+// at 53% of the fp32 rate (48% at d = 64, 54% at d = 256); the scatter
+// beside it adds 13% (after it, in a block of 12 warps, 21%); tiles of
+// two points (half of W's 29 GB of L2 reads a cls step) gained 2.5%, two
+// slots an item lost 3%. In the W-off dG the scatter is 81% of the time,
+// its reductions 7%.
 
 #include <cuda_runtime.h>
 
@@ -1523,6 +1556,345 @@ int launch(const void* gx, const void* idx, const void* table,
 
 }  // namespace dwf32
 
+// ---------------------- fp32 backward scatter on the CUDA cores
+
+namespace scf32 {
+
+using mma::red4;
+using mma::weight;
+
+constexpr int kNA = 60;                 // anchors: the rows of a point (a tile)
+constexpr int kCC = 16;                 // channels a tile
+constexpr int kCols = NK * kCC;         // slab columns (k, cc)
+constexpr int kFS = kCols + 4;          // slab row stride
+constexpr int kBM = 64;                 // the dF product's rows (kNA, padded)
+constexpr int kSD = 16;                 // d a slice of the product
+constexpr int kDepth = 3;               // slices in the ring
+constexpr int kStage = kSD * (kBM + kCols);  // floats a ring stage
+// the fused mode's warps: kPWarps form the dF product (a warp 64 rows x 32
+// columns, a thread 8 x 8 of them) while kSWarps scatter the last tile's
+constexpr int kPWarps = 12;
+constexpr int kSWarps = 4;
+constexpr int kPThreads = 32 * kPWarps;
+constexpr int kThreads = 32 * (kPWarps + kSWarps);
+constexpr int kMaxNN = 64;
+static_assert(kPWarps * 32 == kCols && kBM == 64 && kMaxNN <= kPThreads,
+              "block shape");
+
+// named barriers of the fused mode (0 is __syncthreads): the product
+// warps' slices, the slab empty (the scatter warps done with it), the slab
+// full (the product warps done writing it)
+constexpr int kBarSlice = 1, kBarEmpty = 2, kBarFull = 3;
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// dynamic shared memory, in floats from the base: the rotated kernel points
+// of every anchor [kNA * NK] float4 (2 R kappa / sigma, -|kappa|^2 /
+// sigma), the dF slab [kNA][kFS] (two in the W-off mode: the tile's and
+// the next one's), the fused mode's ring of dout^T and W^T slices
+// [kDepth][kStage] (dout^T [kSD][kBM], then W^T [kSD][kCols]), and two
+// neighbor buffers (the tile's and the next one's): coordinates [nn]
+// float4 (x, y, z, 1 - |gx|^2 / sigma) and indices [nn]
+struct Smem {
+  size_t slab, ring, gx, idx, total;
+};
+
+__host__ __device__ inline Smem layout(bool woff, int nn) {
+  Smem s;
+  s.slab = (size_t)kNA * NK * 4;
+  s.ring = s.slab + (size_t)(woff ? 2 : 1) * kNA * kFS;
+  s.gx = s.ring + (woff ? 0 : (size_t)kDepth * kStage);
+  s.idx = s.gx + 2 * (size_t)nn * 4;
+  s.total = (s.idx + 2 * (size_t)nn) * sizeof(float);
+  return s;
+}
+
+// the fused mode's operands in the layouts its slices are read in: W [K,
+// C, D] -> W^T [C / kCC][D][K][kCC] and dout [M, D] -> dout^T [M / kNA][D]
+// [kBM] (rows kNA .. kBM zero), so that a slice of each is contiguous. One
+// thread an element of W^T (read along d); 32 x 32 tiles of dout through
+// shared memory.
+__global__ void inter_bwd_wt_kernel(const float* __restrict__ W,
+                                    float* __restrict__ wt, int C, int D) {
+  const size_t n = (size_t)NK * C * D;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int d = (int)(e % D);
+    const size_t kc = e / D;
+    const int k = (int)(kc / C), c = (int)(kc % C);
+    wt[((((size_t)(c / kCC) * D + d) * NK + k) * kCC) + c % kCC] = W[e];
+  }
+}
+
+__global__ void inter_bwd_dt_kernel(const float* __restrict__ dout,
+                                    float* __restrict__ dt, int D) {
+  __shared__ float tile[32][33];
+  const int pt = blockIdx.x, d0 = blockIdx.y * 32, r0 = blockIdx.z * 32;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int r = r0 + i;
+    tile[i][threadIdx.x] =
+        (r < kNA && d0 + threadIdx.x < D)
+            ? dout[((size_t)pt * kNA + r) * D + d0 + threadIdx.x]
+            : 0.f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32 && d0 + i < D; i += 8) {
+    dt[((size_t)pt * D + d0 + i) * kBM + r0 + threadIdx.x] =
+        tile[threadIdx.x][i];
+  }
+}
+
+// A persistent block walks tiles blockIdx.x, + gridDim.x, ...; tile t owns
+// point t / (C / kCC) (its kNA rows, so that the neighbor list is shared)
+// and channels kCC * (t % (C / kCC)) .. + kCC. The fused entry (kWOff
+// false) splits its warps: kPWarps form each tile's dF slab [kNA][NK *
+// kCC] = dout [kNA, D] . W^T [D, (k, cc)] in fp32 FFMA, 8 x 8 outputs a
+// thread from float4 loads of both operands (dout^T and W^T slices, kSD
+// deep, through a kDepth ring of cp.async groups that runs on from one
+// tile to the next), and write it to the slab once the kSWarps scatter
+// warps are done with the last one; the scatter of a tile so runs beside
+// the next tile's product. The W-off entry loads the slab from dF [M, NK,
+// C] by cp.async into one of two slabs, the next tile's while every warp
+// scatters this one. The scatter: one (row, neighbor slot) item a thread:
+// the slot's 24 anchor weights (once for kCC channels), sum_k w dF for the
+// kCC channels in fp32 (k in order), then four vector reductions into dT
+// (64 contiguous bytes).
+template <bool kWOff>
+__global__ void __launch_bounds__(kThreads, 1)
+inter_bwd_f32_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
+                     const float* __restrict__ rk,
+                     const float* __restrict__ k2,
+                     const float* __restrict__ wt,
+                     const float* __restrict__ src, float* __restrict__ dT,
+                     int P, int p2, int nn, int q, int C, int D,
+                     float inv_sigma) {
+  extern __shared__ __align__(16) float scf_smem[];
+  const Smem L = layout(kWOff, nn);
+  float4* s_kr = reinterpret_cast<float4*>(scf_smem);
+  float* slabs = scf_smem + L.slab;
+  float* ring = scf_smem + L.ring;
+  float4* s_gx = reinterpret_cast<float4*>(scf_smem + L.gx);
+  int* s_idx = reinterpret_cast<int*>(scf_smem + L.idx);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_cb = C / kCC, tiles = P * n_cb;
+  const float s2 = 2.f * inv_sigma;
+
+  for (int e = tid; e < kNA * NK; e += kThreads) {
+    const float* rp = rk + 3 * e;
+    s_kr[e] = make_float4(s2 * rp[0], s2 * rp[1], s2 * rp[2],
+                          -k2[e % NK] * inv_sigma);
+  }
+  __syncthreads();
+
+  // point pt's neighbors into buffer u (thread tid < nn)
+  auto stage = [&](int pt, int u) {
+    if (tid < nn) {
+      const size_t s = (size_t)pt * nn + tid;
+      const float x = gx[3 * s], y = gx[3 * s + 1], z = gx[3 * s + 2];
+      s_gx[u * nn + tid] =
+          make_float4(x, y, z, 1.f - ((x * x + y * y) + z * z) * inv_sigma);
+      s_idx[u * nn + tid] = idx[s];
+    }
+  };
+
+  // the scatter of the slab fs (point pt, channels c0 .. c0 + kCC) with
+  // the neighbors of buffer u, items first, + stride, ...; a shadow slot
+  // adds nothing
+  auto scatter = [&](const float* fs, int pt, int c0, int u, int first,
+                     int stride) {
+    const float4* gq = s_gx + u * nn;
+    const int* iq = s_idx + u * nn;
+    float* base = dT + (size_t)(pt / p2) * q * kNA * C + c0;
+    for (int e = first; e < kNA * nn; e += stride) {
+      const int a = e / nn, n = e - a * nn;
+      const int j = iq[n];
+      if (j >= q) continue;
+      const float4 g = gq[n];
+      const float4* fr = reinterpret_cast<const float4*>(fs + a * kFS);
+      const float4* kp = s_kr + a * NK;
+      float4 v[kCC / 4];
+#pragma unroll
+      for (int h = 0; h < kCC / 4; ++h) v[h] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < NK; ++k) {
+        const float w = weight(g, kp[k]);
+#pragma unroll
+        for (int h = 0; h < kCC / 4; ++h) {
+          const float4 f = fr[k * (kCC / 4) + h];
+          v[h].x = fmaf(w, f.x, v[h].x);
+          v[h].y = fmaf(w, f.y, v[h].y);
+          v[h].z = fmaf(w, f.z, v[h].z);
+          v[h].w = fmaf(w, f.w, v[h].w);
+        }
+      }
+      float* dst = base + ((size_t)j * kNA + a) * C;
+#pragma unroll
+      for (int h = 0; h < kCC / 4; ++h) red4(dst + 4 * h, v[h]);
+    }
+  };
+
+  if constexpr (!kWOff) {
+    const int nsl = D / kSD;
+    if (warp < kPWarps) {
+      // slice g of the block's sequence (tile blockIdx.x + (g / nsl) *
+      // gridDim.x, d slice g % nsl) into ring stage g % kDepth: one commit
+      // group, empty past the last tile
+      auto load = [&](int g) {
+        const int t = blockIdx.x + (g / nsl) * gridDim.x;
+        if (t < tiles) {
+          const int pt = t / n_cb, cb = t - pt * n_cb;
+          const int d0 = (g % nsl) * kSD;
+          float* st = ring + (g % kDepth) * kStage;
+          const float* da = src + ((size_t)pt * D + d0) * kBM;
+          const float* wb = wt + ((size_t)cb * D + d0) * kCols;
+          for (int e = tid; e < kStage / 4; e += kPThreads) {
+            const float* from = e < kSD * kBM / 4 ? da + 4 * e
+                                                  : wb + 4 * e - kSD * kBM;
+            tc::cp16(tc::smem_addr(st + 4 * e), from, true);
+          }
+        }
+        tc::cp_commit();
+      };
+      int next = 0;
+#pragma unroll
+      for (int s = 0; s < kDepth - 1; ++s) load(next++);
+      // the thread's rows lr * 4 + 32 i + e, columns 32 warp + 4 lc + 16 j
+      // + e (i, j < 2, e < 4)
+      const int row0 = (lane >> 2) * 4, col0 = 32 * warp + 4 * (lane & 3);
+      for (int t = blockIdx.x, lt = 0; t < tiles; t += gridDim.x, ++lt) {
+        const int pt = t / n_cb;
+        stage(pt, lt & 1);
+        float acc[8][8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int n = 0; n < 8; ++n) acc[i][n] = 0.f;
+        for (int s = 0; s < nsl; ++s) {
+          const int g = lt * nsl + s;
+          tc::cp_wait<kDepth - 2>();
+          bar_sync(kBarSlice, kPThreads);  // slice g landed; stage (g - 1)
+                                           // % kDepth free
+          load(next++);
+          const float* sa = ring + (g % kDepth) * kStage + row0;
+          const float* sb = ring + (g % kDepth) * kStage + kSD * kBM + col0;
+#pragma unroll
+          for (int dd = 0; dd < kSD; ++dd) {
+            const float4 a0 = *reinterpret_cast<const float4*>(sa + dd * kBM);
+            const float4 a1 =
+                *reinterpret_cast<const float4*>(sa + dd * kBM + 32);
+            const float4 b0 =
+                *reinterpret_cast<const float4*>(sb + dd * kCols);
+            const float4 b1 =
+                *reinterpret_cast<const float4*>(sb + dd * kCols + 16);
+            const float a[8] = {a0.x, a0.y, a0.z, a0.w,
+                                a1.x, a1.y, a1.z, a1.w};
+            const float b[8] = {b0.x, b0.y, b0.z, b0.w,
+                                b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int n = 0; n < 8; ++n)
+                acc[i][n] = fmaf(a[i], b[n], acc[i][n]);
+          }
+        }
+        bar_sync(kBarEmpty, kThreads);  // the scatter warps done with the
+                                        // slab
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = row0 + (i & 3) + 32 * (i >> 2);
+          if (r < kNA) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              *reinterpret_cast<float4*>(slabs + r * kFS + col0 + 16 * j) =
+                  make_float4(acc[i][4 * j], acc[i][4 * j + 1],
+                              acc[i][4 * j + 2], acc[i][4 * j + 3]);
+            }
+          }
+        }
+        bar_arrive(kBarFull, kThreads);  // the slab and neighbors ready
+      }
+      tc::cp_wait<0>();
+    } else {
+      bar_arrive(kBarEmpty, kThreads);
+      for (int t = blockIdx.x, lt = 0; t < tiles; t += gridDim.x, ++lt) {
+        const int pt = t / n_cb;
+        bar_sync(kBarFull, kThreads);
+        scatter(slabs, pt, (t - pt * n_cb) * kCC, lt & 1, tid - kPThreads,
+                kThreads - kPThreads);
+        if (t + gridDim.x < tiles) bar_arrive(kBarEmpty, kThreads);
+      }
+    }
+  } else {
+    // tile lt's slab (buffer lt & 1) from dF: one commit group, empty past
+    // the last tile
+    auto load_slab = [&](int lt) {
+      const int t = blockIdx.x + lt * gridDim.x;
+      if (t < tiles) {
+        const int pt = t / n_cb, c0 = (t - pt * n_cb) * kCC;
+        float* fs = slabs + (lt & 1) * kNA * kFS;
+        const float* sp = src + (size_t)pt * kNA * NK * C + c0;
+        constexpr int kRow4 = NK * (kCC / 4);
+        for (int e = tid; e < kNA * kRow4; e += kThreads) {
+          const int r = e / kRow4, f = e - r * kRow4;
+          tc::cp16(tc::smem_addr(fs + r * kFS + 4 * f),
+                   sp + ((size_t)r * NK + (f >> 2)) * C + 4 * (f & 3), true);
+        }
+      }
+      tc::cp_commit();
+    };
+    load_slab(0);
+    for (int t = blockIdx.x, lt = 0; t < tiles; t += gridDim.x, ++lt) {
+      const int pt = t / n_cb, c0 = (t - pt * n_cb) * kCC, u = lt & 1;
+      __syncthreads();  // the last scatter done: its slab free
+      load_slab(lt + 1);
+      stage(pt, u);
+      tc::cp_wait<1>();
+      __syncthreads();  // this tile's slab and neighbors visible
+      scatter(slabs + u * kNA * kFS, pt, c0, u, tid, kThreads);
+    }
+    tc::cp_wait<0>();
+  }
+}
+
+template <bool kWOff>
+int launch(const void* gx, const void* idx, const void* rk, const void* k2,
+           const void* W, void* ws, const void* src, void* dT, int b, int p2,
+           int nn, int q, int C, int D, float sigma, cudaStream_t stream) {
+  const Smem L = layout(kWOff, nn);
+  if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kern = inter_bwd_f32_kernel<kWOff>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  const int P = b * p2;
+  const float* operand = (const float*)src;
+  if (!kWOff) {
+    float* wt = (float*)ws;
+    float* dt = wt + (size_t)NK * C * D;
+    inter_bwd_wt_kernel<<<256, 256, 0, stream>>>((const float*)W, wt, C, D);
+    inter_bwd_dt_kernel<<<dim3(P, (D + 31) / 32, kBM / 32), dim3(32, 8), 0,
+                          stream>>>((const float*)src, dt, D);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    operand = dt;
+  }
+  const int tiles = P * (C / kCC);
+  const int sms = tc::num_sms();
+  kern<<<tiles < sms ? tiles : sms, kThreads, L.total, stream>>>(
+      (const float*)gx, (const int*)idx, (const float*)rk, (const float*)k2,
+      (const float*)ws, operand, (float*)dT, P, p2, nn, q, C, D,
+      1.f / sigma);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace scf32
+
 }  // namespace
 
 // gx [b, p2, nn, 3], idx [b, p2, nn] int32 in [0, q] (q = shadow), rk
@@ -1675,4 +2047,40 @@ extern "C" int epn_inter_conv_bwd_w_f32(const void* gx, const void* idx,
   }
   return dwf32::launch(gx, idx, table, rk, k2, dout, ws, dW, b * p2 * na, p2,
                        nn, q, C, D, sigma, splits, bn, (cudaStream_t)stream);
+}
+
+// fp32 on the CUDA cores (inter_bwd_f32_kernel): the fused dTable, with
+// epn_inter_conv_bwd_table's arguments (fp32 W and dout) and ws, an fp32
+// workspace of K * C * D + b * p2 * D * 64 floats (W^T and dout^T in the
+// layouts the kernel reads, written here), and the W-off dG,
+// with epn_inter_conv_dg's (an fp32 dF). dT [b, q, na, C] fp32 must hold
+// zeros. na must be 60, K 24, C a multiple of 16, 1 <= nn <= 64, and D
+// (the fused entry) a multiple of 16.
+extern "C" int epn_inter_conv_bwd_table_f32(const void* gx, const void* idx,
+                                            const void* rk, const void* k2,
+                                            const void* W, const void* dout,
+                                            void* dT, int b, int p2, int nn,
+                                            int q, int na, int K, int C,
+                                            int D, float sigma, void* ws,
+                                            void* stream) {
+  if (na != scf32::kNA || K != NK || C % scf32::kCC != 0 ||
+      D % scf32::kSD != 0 || D < scf32::kSD || nn < 1 ||
+      nn > scf32::kMaxNN) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return scf32::launch<false>(gx, idx, rk, k2, W, ws, dout, dT, b, p2, nn, q,
+                              C, D, sigma, (cudaStream_t)stream);
+}
+
+extern "C" int epn_inter_conv_dg_f32(const void* gx, const void* idx,
+                                     const void* rk, const void* k2,
+                                     const void* dF, void* dT, int b, int p2,
+                                     int nn, int q, int na, int K, int C,
+                                     float sigma, void* stream) {
+  if (na != scf32::kNA || K != NK || C % scf32::kCC != 0 || nn < 1 ||
+      nn > scf32::kMaxNN) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return scf32::launch<true>(gx, idx, rk, k2, nullptr, nullptr, dF, dT, b, p2,
+                             nn, q, C, 0, sigma, (cudaStream_t)stream);
 }

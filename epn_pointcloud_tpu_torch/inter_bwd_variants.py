@@ -1,10 +1,11 @@
 """Where the inter backward kernels (csrc/inter_conv_bwd.cu: the bf16
 tensor-core ``inter_bwd_mma_kernel``, the fused dTable and the W-off dG,
 and ``inter_dw_mma_kernel``, the fused dW; the fp32 CUDA-core
-``inter_dw_f32_kernel`` and the template ``inter_dw_kernel``) spend their
-time, on the card: each kernel as built beside variants with one part
-changed or taken out, at the shapes of both models' layers, with the
-same timer (``chip_smoke.time_ms``).
+``inter_dw_f32_kernel`` and the template ``inter_dw_kernel``; the fp32
+CUDA-core scatter ``inter_bwd_f32_kernel`` and the template
+``inter_dtable_kernel``) spend their time, on the card: each kernel as
+built beside variants with one part changed or taken out, at the shapes
+of both models' layers, with the same timer (``chip_smoke.time_ms``).
 
   python -m epn_pointcloud_tpu_torch.inter_bwd_variants
 
@@ -60,7 +61,25 @@ wrong and only whose time counts,
 and beside them, exact, with its error, f32_bn128: the built kernel
 called with 128 d columns a block at d = 256 (two blocks an SM, F built
 twice) in place of 256; with each fp32 build's registers and spill bytes
-(ptxas).
+(ptxas). The fp32 backward scatter (the fused dTable and the W-off dG): the
+template (``inter_dtable_kernel<float, *>``, ``epn_inter_conv_bwd_table`` /
+``epn_inter_conv_dg`` with the dtype flag 0) and the CUDA-core kernel
+(``inter_bwd_f32_kernel``, ``epn_inter_conv_bwd_table_f32`` /
+``epn_inter_conv_dg_f32``) as built, each one's error against
+``inter_conv_dtable_plain`` / ``inter_conv_dg_plain``, and, whose output is
+wrong and only whose time counts,
+  tpl_no_product   the template's dF product left out (its loads too);
+  tpl_no_wstage    the template's W slices not staged (the product runs on
+                   whatever shared memory holds);
+  tpl_no_weights   the template's anchor weights not computed (a constant);
+  tpl_plain_stores plain stores in place of its atomics;
+  tpl_no_write     nothing written (the scatter's sums dropped);
+  sc32_no_product  the kernel's dF product left out (its loads too);
+  sc32_no_wload    the kernel's W^T slices not loaded;
+  sc32_no_weights  the kernel's anchor weights not computed (a constant);
+  sc32_plain_stores plain 16-byte stores in place of its vector reductions;
+  sc32_no_write    nothing written (the scatter's sums dropped);
+the product variants at the fused dTable's layers only.
 Operands are random (seeded), the neighborhoods a ball query over random points in the unit
 ball, at the shapes of cls_so3net_pn's step (b=12: the fused dTable at its
 6 inter layers) and inv_so3net_pn's (b=16 a leg: the fused dTable at B1L1,
@@ -133,12 +152,46 @@ DW_F32_VARIANTS = {
                          ('    dout_tile(m0);\n',
                           '    if (C < 0) dout_tile(m0);\n')],
 }
+# the fp32 scatter's: the template's (inter_dtable_kernel<float, *>) and
+# the CUDA-core kernel's (inter_bwd_f32_kernel)
+_SC32_RED = 'for (int h = 0; h < kCC / 4; ++h) red4(dst + 4 * h, v[h]);'
+SCATTER_F32_VARIANTS = {
+    'tpl_no_product': ('j < 6; ++j) acc[i][j] = fmaf(',
+                       'j < 6; ++j) if (C < 0) acc[i][j] = fmaf('),
+    'tpl_no_wstage': ('for (int e = tid; e < NCOL * T_BK / 4;',
+                      'for (int e = tid; C < 0 && e < NCOL * T_BK / 4;'),
+    'tpl_no_weights': ('const float w = anchor_weight(g, r, inv_sigma);',
+                       'const float w = 0.5f;'),
+    'tpl_plain_stores': ('atomicAdd(dst + cc, kWOff ?',
+                         'dst[cc] = (kWOff ?'),
+    'tpl_no_write': ('atomicAdd(dst + cc, kWOff ?',
+                     'if (C < 0) atomicAdd(dst + cc, kWOff ?'),
+    'sc32_no_product': ('acc[i][n] = fmaf(a[i], b[n], acc[i][n]);',
+                        'if (C < 0) acc[i][n] = fmaf(a[i], b[n], '
+                        'acc[i][n]);'),
+    'sc32_no_wload': ('for (int e = tid; e < kStage / 4; e += kPThreads) {',
+                      'for (int e = tid; e < (C < 0 ? kStage : kSD * kBM) '
+                      '/ 4; e += kPThreads) {'),
+    'sc32_no_weights': ('const float w = weight(g, kp[k]);',
+                        'const float w = 0.5f;'),
+    'sc32_plain_stores': (_SC32_RED, 'for (int h = 0; h < kCC / 4; ++h) '
+                          '*reinterpret_cast<float4*>(dst + 4 * h) = v[h];'),
+    'sc32_no_write': (_SC32_RED, 'if (C < 0) ' + _SC32_RED),
+}
+# the variants that change the fused entry's product (timed at the fused
+# dTable's layers only)
+FUSED_ONLY = ('tpl_no_product', 'tpl_no_wstage', 'sc32_no_product',
+              'sc32_no_wload')
 EXACT = ('built', 'scalar_red', 'warps_8', 'stages_4')
 EXACT_F32 = ('template', 'f32', 'f32_bn128')
 ENTRIES = {'dtable': 'epn_inter_conv_bwd_table_mma',
            'dg': 'epn_inter_conv_dg_mma', 'dw': 'epn_inter_conv_bwd_w_mma',
            'dw_template': 'epn_inter_conv_bwd_w',
-           'dw_f32': 'epn_inter_conv_bwd_w_f32'}
+           'dw_f32': 'epn_inter_conv_bwd_w_f32',
+           'dtable_tpl': 'epn_inter_conv_bwd_table',
+           'dg_tpl': 'epn_inter_conv_dg',
+           'dtable_f32': 'epn_inter_conv_bwd_table_f32',
+           'dg_f32': 'epn_inter_conv_dg_f32'}
 # model -> (b, [(layer, entry, p1, p2, nn, c, d)])
 SHAPES = {
     'cls_so3net_pn b=12': (12, [
@@ -164,7 +217,8 @@ def main():
         raise SystemExit('inter_bwd_variants: needs a CUDA device')
     sys.path.insert(0, ROOT)
     from chip_smoke import time_ms
-    variants = {**VARIANTS, **DW_VARIANTS, **DW_F32_VARIANTS}
+    variants = {**VARIANTS, **DW_VARIANTS, **DW_F32_VARIANTS,
+                **SCATTER_F32_VARIANTS}
     procs = {n: build.compile_alone(build.CSRC_DIR, 'inter_conv_bwd.cu',
                                     os.path.join(OUT, n), sub)
              for n, sub in variants.items()}
@@ -173,7 +227,7 @@ def main():
         log = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f'nvcc failed on {n}:\n{log}')
-        regs[n] = ptxas_usage(log, 'inter_dw')
+        regs[n] = ptxas_usage(log, 'inter_')
         lib = ctypes.CDLL(so)
         fns[n] = {}
         for key, entry in ENTRIES.items():
@@ -186,13 +240,16 @@ def main():
     stream = torch.cuda.current_stream().cuda_stream
     lines = _scatter(fns, dev, card, stream, time_ms)
     lines += _dw(fns, dev, card, stream, time_ms)
-    for n in ('built',) + tuple(DW_F32_VARIANTS):
+    for n in ('built',) + tuple(DW_F32_VARIANTS) + tuple(
+            SCATTER_F32_VARIANTS):
         for fn_name, use in regs[n].items():
+            # the fp32 instantiations of the templates and the fp32 kernels
             if 'kernelIf' not in fn_name and 'f32' not in fn_name:
-                continue                       # the fp32 instantiations
+                continue
             lines.append({'build': n, 'function': fn_name, **use})
             print(json.dumps(lines[-1]), flush=True)
     lines += _dw_f32(fns, dev, card, stream, time_ms)
+    lines += _scatter_f32(fns, dev, card, stream, time_ms)
     out_dir = os.path.join(ROOT, 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, 'inter_bwd_variants.json'), 'w') as f:
@@ -404,6 +461,77 @@ def _dw_f32(fns, dev, card, stream, time_ms):
             del gx, idx, table, dout, want, dW, ws
             torch.cuda.empty_cache()
         lines.append({'model': model, 'entry': 'dw_f32',
+                      'sum_over_layers': True, 'ms': total, 'card': card})
+        print(json.dumps(lines[-1]), flush=True)
+    return lines
+
+
+def _scatter_f32(fns, dev, card, stream, time_ms):
+    """The fp32 scatter (dTable, dG) at each layer: the template and the
+    CUDA-core kernel as built and their variants, each one's time, and the
+    built ones' normwise error against the plain version: JSON lines."""
+    lines = []
+    names = ['template', 'f32'] + list(SCATTER_F32_VARIANTS)
+    for model, (b, layers) in SHAPES.items():
+        total = {}
+        for tag, entry, p1, p2, nn, c, d in layers:
+            gx, idx, _, rk, k2, W = _operands(dev, b, p1, p2, nn, c, d,
+                                              seed=nn + c + d)
+            W = W.float()
+            rng = np.random.RandomState(p2 + c)
+            dT = torch.zeros(b, p1, 60, c, device=dev)
+            if entry == 'dtable':
+                src = torch.from_numpy(rng.randn(b, p2, 60, d).astype(
+                    np.float32)).to(dev)
+                args = (gx.data_ptr(), idx.data_ptr(), rk.data_ptr(),
+                        k2.data_ptr(), W.data_ptr(), src.data_ptr(),
+                        dT.data_ptr(), b, p2, nn, p1, 60, 24, c, d, 0.08)
+                want = inter_conv.inter_conv_dtable_plain(
+                    gx, idx, p1, rk, k2, W, src, 0.08)
+                ws = torch.empty(inter_conv.bwd_f32_workspace(
+                    b, p2, 24, c, d), device=dev)
+                tail = (ws.data_ptr(),)
+            else:
+                src = torch.from_numpy(rng.randn(b, p2, 60, 24, c).astype(
+                    np.float32)).to(dev)
+                args = (gx.data_ptr(), idx.data_ptr(), rk.data_ptr(),
+                        k2.data_ptr(), src.data_ptr(), dT.data_ptr(), b, p2,
+                        nn, p1, 60, 24, c, 0.08)
+                want = inter_conv.inter_conv_dg_plain(gx, idx, p1, rk, k2,
+                                                      src, 0.08)
+                tail = ()
+
+            def call(n):
+                tpl = n == 'template' or n.startswith('tpl_')
+                fn = fns['built' if n in ('template', 'f32') else n][
+                    f'{entry}_tpl' if tpl else f'{entry}_f32']
+                full = args + ((0,) if tpl else tail)
+
+                def run():
+                    err = fn(*full, stream)
+                    if err:
+                        raise RuntimeError(f'{n}: CUDA error {err}')
+                return run
+            rec = {}
+            for n in names:
+                if entry == 'dg' and n in FUSED_ONLY:
+                    continue
+                rec[n] = {'ms': time_ms(call(n))}
+                if n in ('template', 'f32'):
+                    dT.zero_()
+                    call(n)()
+                    torch.cuda.synchronize()
+                    rec[n]['rel'] = _rel(dT, want)
+                total[f'{entry} {n}'] = total.get(f'{entry} {n}', 0.0) + \
+                    rec[n]['ms']
+            lines.append({'model': model, 'layer': tag,
+                          'entry': f'{entry}_f32',
+                          'dims': [b, p1, p2, nn, c, d], 'variants': rec,
+                          'card': card})
+            print(json.dumps(lines[-1]), flush=True)
+            del gx, idx, W, src, dT, want
+            torch.cuda.empty_cache()
+        lines.append({'model': model, 'entry': 'scatter_f32',
                       'sum_over_layers': True, 'ms': total, 'card': card})
         print(json.dumps(lines[-1]), flush=True)
     return lines

@@ -87,6 +87,14 @@ SIGNATURES = {
     # (bf16 on tensor cores)
     'epn_inter_conv_dg_mma': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _F, _P],
+    # gx, idx, rk, k2, w, dout, d_table, b, p2, nn, q, na, k, c, d, sigma,
+    # w_t (workspace), stream (fp32 on the CUDA cores)
+    'epn_inter_conv_bwd_table_f32': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _I, _I, _I, _F, _P, _P],
+    # gx, idx, rk, k2, df, d_table, b, p2, nn, q, na, k, c, sigma, stream
+    # (fp32 on the CUDA cores)
+    'epn_inter_conv_dg_f32': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _F, _P],
     # gx, idx, table, rk, k2, dout, ws, d_w, b, p2, nn, q, na, k, c, d,
     # sigma, splits, bf16, stream
     'epn_inter_conv_bwd_w': [_P, _P, _P, _P, _P, _P, _P, _P,

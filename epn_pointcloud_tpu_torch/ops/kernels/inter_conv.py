@@ -45,7 +45,9 @@ onto the table rows, dW summed in fp32. The bf16 backward scatter (the
 fused dTable and the W-off dG) runs on tensor cores (``bwd_mma_route``;
 other shapes on the template) at the TPU kernels' rounding points, as its
 plain versions do: dF, the anchor weights and each slot's sum rounded to
-bf16, the fold onto the table rows in fp32. The bf16 fused dW runs on
+bf16, the fold onto the table rows in fp32. The fp32 backward scatter runs
+its own CUDA-core kernel (``bwd_f32_route``; other fp32 shapes on the
+template), fp32 sums with no rounding points. The bf16 fused dW runs on
 tensor cores (``dw_mma_route``; other shapes on the template); both round
 the anchor weights and F to bf16 before the fp32 product, where the TPU
 kernels round them (``_bwd_gather_w_kernel:1133, 1140``), as the plain
@@ -84,16 +86,18 @@ launches = dict.fromkeys(ENTRIES, 0)
 # (``inter_conv_mma_kernel``), or 'sgemm', the register-blocked SGEMM
 # template (fp32, and bf16 shapes off ``mma_route``); the backward
 # scatter's 'dtable_mma' and 'dg_mma', the bf16 tensor-core kernel
-# (``inter_bwd_mma_kernel``), or 'dtable' and 'dg', the template
-# (``inter_dtable_kernel``: fp32, and bf16 shapes off ``bwd_mma_route``);
+# (``inter_bwd_mma_kernel``), 'dtable_f32' and 'dg_f32', the fp32 CUDA-core
+# kernel (``inter_bwd_f32_kernel``), or 'dtable' and 'dg', the template
+# (``inter_dtable_kernel``: shapes off both routes);
 # the fused dW's 'dw_mma', the bf16 tensor-core kernel
 # (``inter_dw_mma_kernel``), 'dw_f32', the fp32 CUDA-core kernel
 # (``inter_dw_f32_kernel``), or 'dw', the template (``inter_dw_kernel``:
 # shapes off both routes); the W-off F's 'f_mma', the
 # bf16 tensor-core kernel (``inter_f_mma_kernel``), or 'f', the SGEMM
 # template's W-off mode (fp32, and bf16 shapes off ``f_mma_route``)
-routes = dict.fromkeys(('mma', 'sgemm', 'dtable_mma', 'dtable', 'dg_mma',
-                        'dg', 'dw_mma', 'dw_f32', 'dw', 'f_mma', 'f'), 0)
+routes = dict.fromkeys(('mma', 'sgemm', 'dtable_mma', 'dtable_f32', 'dtable',
+                        'dg_mma', 'dg_f32', 'dg', 'dw_mma', 'dw_f32', 'dw',
+                        'f_mma', 'f'), 0)
 
 # anchors per step of the plain versions: bounds their [b, p, n, chunk, *]
 # intermediates (~1 GB at b=32 on the widest flagship layer)
@@ -109,6 +113,12 @@ WOFF_MAX_C, WOFF_MAX_NN, WOFF_NA = 128, 64, 60
 # the bf16 tensor-core backward scatter's envelope (``bwd_mma_route``): the
 # anchors, a multiple of the channels, neighbors up to, a multiple of d
 BWD_MMA_NA, BWD_MMA_CC, BWD_MMA_MAX_NN, BWD_MMA_SD = 60, 16, 64, 32
+# the fp32 CUDA-core backward scatter's envelope (``bwd_f32_route``): the
+# anchors, a multiple of the channels, neighbors up to, a multiple of d
+BWD_F32_NA, BWD_F32_CC, BWD_F32_MAX_NN, BWD_F32_SD = 60, 16, 64, 16
+# its fused entry's tiles: the rows of its dF product (a point's anchors,
+# padded)
+BWD_F32_ROWS = 64
 # the bf16 tensor-core dW's envelope (``dw_mma_route``): the anchors, a
 # block's channels and columns (multiples of both), neighbors up to; and
 # the blocks its row splits aim for (one block an SM: about two waves)
@@ -340,10 +350,24 @@ def bwd_mma_route(dtype, K: int, c: int, nn: int, na: int,
     W-off dG, runs the bf16 tensor-core kernel (``inter_bwd_mma_kernel``):
     a bf16 dout or dF and K == 24, na == 60, c % 16 == 0, 1 <= nn <= 64 and
     d % 32 == 0 (every layer of both models). fp32 and the other shapes the
-    wrappers take run the template (``inter_dtable_kernel``)."""
+    wrappers take run the CUDA-core kernel (``bwd_f32_route``) or the
+    template (``inter_dtable_kernel``)."""
     return (dtype == torch.bfloat16 and K == N_KERNEL and na == BWD_MMA_NA
             and c % BWD_MMA_CC == 0 and 1 <= nn <= BWD_MMA_MAX_NN
             and (d is None or d % BWD_MMA_SD == 0))
+
+
+def bwd_f32_route(dtype, K: int, c: int, nn: int, na: int,
+                  d: int | None = None) -> bool:
+    """Whether the backward scatter, the fused dTable (``d`` given) or the
+    W-off dG, runs the fp32 CUDA-core kernel (``inter_bwd_f32_kernel``): an
+    fp32 dout or dF and K == 24, na == 60, c % 16 == 0, 1 <= nn <= 64 and
+    d % 16 == 0 (every layer of both models). bf16 and the other shapes the
+    wrappers take run the tensor-core kernel (``bwd_mma_route``) or the
+    template (``inter_dtable_kernel``)."""
+    return (dtype == torch.float32 and K == N_KERNEL and na == BWD_F32_NA
+            and c % BWD_F32_CC == 0 and 1 <= nn <= BWD_F32_MAX_NN
+            and (d is None or d % BWD_F32_SD == 0))
 
 
 def dw_mma_route(dtype, K: int, c: int, d: int, nn: int, na: int) -> bool:
@@ -384,6 +408,13 @@ def f_mma_route(dtype, K: int, c: int, nn: int, na: int) -> bool:
             and c % F_MMA_CC == 0 and 1 <= nn <= F_MMA_MAX_NN)
 
 
+def bwd_f32_workspace(b: int, p2: int, K: int, c: int, d: int) -> int:
+    """fp32 floats of the CUDA-core fused dTable's workspace: W^T [c / 16,
+    d, K, 16], then dout^T [b * p2, d, BWD_F32_ROWS] (a point's rows),
+    which the C entry writes before its kernel runs."""
+    return K * c * d + b * p2 * d * BWD_F32_ROWS
+
+
 def inter_conv(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
                rk: torch.Tensor, k2: torch.Tensor, W: torch.Tensor,
                sigma: float) -> torch.Tensor:
@@ -415,8 +446,10 @@ def inter_conv_dtable(gx: torch.Tensor, idx: torch.Tensor, q: int,
                       dout: torch.Tensor, sigma: float) -> torch.Tensor:
     """dTable kernel wrapper -> fp32 dT: plain version on the CPU, CUDA
     kernel on the card: the tensor-core kernel where ``bwd_mma_route`` holds
-    (bf16), else the template. Their atomics make dT's last-bit rounding
-    vary between runs."""
+    (bf16), the CUDA-core kernel where ``bwd_f32_route`` holds (fp32; its
+    operands transposed into a workspace, ``bwd_f32_workspace``), else the
+    template. Their atomics make dT's last-bit rounding vary between
+    runs."""
     if dout.device.type == 'cpu':
         return inter_conv_dtable_plain(gx, idx, q, rk, k2, W, dout, sigma)
     shape = (idx.shape[0], q, rk.shape[0], W.shape[1])
@@ -433,13 +466,16 @@ def inter_conv_dtable(gx: torch.Tensor, idx: torch.Tensor, q: int,
             K, c, d, float(sigma))
     launches['inter_conv_dtable'] += 1
     if bwd_mma_route(dout.dtype, K, c, nn, na, d):
-        routes['dtable_mma'] += 1
-        build.launch('epn_inter_conv_bwd_table_mma', *ptrs,
-                     build.stream(dout))
+        route, entry, tail = 'dtable_mma', 'epn_inter_conv_bwd_table_mma', ()
+    elif bwd_f32_route(dout.dtype, K, c, nn, na, d):
+        ws = torch.empty(bwd_f32_workspace(b, p2, K, c, d),
+                         dtype=torch.float32, device=dout.device)
+        route, entry, tail = ('dtable_f32', 'epn_inter_conv_bwd_table_f32',
+                              (ws.data_ptr(),))
     else:
-        routes['dtable'] += 1
-        build.launch('epn_inter_conv_bwd_table', *ptrs, bf16,
-                     build.stream(dout))
+        route, entry, tail = 'dtable', 'epn_inter_conv_bwd_table', (bf16,)
+    routes[route] += 1
+    build.launch(entry, *ptrs, *tail, build.stream(dout))
     return dT
 
 
@@ -562,8 +598,9 @@ def inter_conv_dg(gx: torch.Tensor, idx: torch.Tensor, q: int,
     """W-off backward wrapper -> fp32 dT [b, q, na, c] from dF
     [b, p2, na, K, c] (fp32 or bf16): plain version on the CPU, CUDA kernel
     on the card: the tensor-core kernel where ``bwd_mma_route`` holds
-    (bf16), else the template. Their atomics make dT's last-bit rounding
-    vary between runs."""
+    (bf16), the CUDA-core kernel where ``bwd_f32_route`` holds (fp32), else
+    the template. Their atomics make dT's last-bit rounding vary between
+    runs."""
     if dF.device.type == 'cpu':
         return inter_conv_dg_plain(gx, idx, q, rk, k2, dF, sigma)
     bf16 = build.dtype_flag(dF.dtype, 'inter_conv_dg')
@@ -576,11 +613,13 @@ def inter_conv_dg(gx: torch.Tensor, idx: torch.Tensor, q: int,
             float(sigma))
     launches['inter_conv_dg'] += 1
     if bwd_mma_route(dF.dtype, K, c, nn, na):
-        routes['dg_mma'] += 1
-        build.launch('epn_inter_conv_dg_mma', *ptrs, build.stream(dF))
+        route, entry, tail = 'dg_mma', 'epn_inter_conv_dg_mma', ()
+    elif bwd_f32_route(dF.dtype, K, c, nn, na):
+        route, entry, tail = 'dg_f32', 'epn_inter_conv_dg_f32', ()
     else:
-        routes['dg'] += 1
-        build.launch('epn_inter_conv_dg', *ptrs, bf16, build.stream(dF))
+        route, entry, tail = 'dg', 'epn_inter_conv_dg', (bf16,)
+    routes[route] += 1
+    build.launch(entry, *ptrs, *tail, build.stream(dF))
     return dT
 
 

@@ -45,12 +45,17 @@ from .train import make_optimizer
 # W-off modes are the inter kernels' instantiations with kWOff = true (and
 # the bf16 W-off F's own tensor-core kernel), B6 df the tensor-core intra
 # kernel's with DF = true (its last argument); the backward scatter's
-# template and tensor-core kernel share a group
+# template, tensor-core and CUDA-core kernels (with the latter's W and
+# dout transposes) share a group
 GROUPS = (('inter_f_mma_kernel', 'inter F (W-off) kernel'),
           (('inter_conv_kernel', 'true>'), 'inter F (W-off) kernel'),
           (('inter_dtable_kernel', 'true>'), 'inter dG (W-off) kernel'),
           (('inter_bwd_mma_kernel', 'true>'), 'inter dG (W-off) kernel'),
           ('inter_bwd_mma_kernel', 'inter dTable kernel'),
+          (('inter_bwd_f32_kernel', 'true>'), 'inter dG (W-off) kernel'),
+          ('inter_bwd_f32_kernel', 'inter dTable kernel'),
+          ('inter_bwd_wt_kernel', 'inter dTable kernel'),
+          ('inter_bwd_dt_kernel', 'inter dTable kernel'),
           ('inter_conv_mma_kernel', 'inter conv kernel (bf16, tensor cores)'),
           ('inter_conv_kernel', 'inter conv kernel'),
           ('inter_dtable_kernel', 'inter dTable kernel'),

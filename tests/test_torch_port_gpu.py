@@ -9,8 +9,9 @@ the grouped conv's dx / dW / dbias in one launch and apart, the bf16
 inter dTable / dW), their determinism
 and a bf16 train step's launches; the W-off inter conv (fp32 and bf16)
 with the composed route, and a bf16 inv train step's launches; the bf16
-inter backward scatter on tensor cores (the fused dTable and the W-off dG)
-at every model layer and at its edges, and the template off its envelope;
+inter backward scatter on tensor cores and the fp32 one on the CUDA cores
+(the fused dTable and the W-off dG) at every model layer and at their
+edges, and the template off their envelopes;
 the bf16 fused dW on tensor cores and the fp32 one on the CUDA cores at
 model layers and at their edges, their determinism, and the template off
 their envelopes; the bf16 intra dW on
@@ -735,21 +736,21 @@ SCATTER_LAYERS = [('dtable', 2, 512, 1, 16, 64, 64),
 
 
 def _scatter_case(cuda, entry, b, p1, stride, nn, c, d, shadow=False,
-                  seed=0):
+                  seed=0, dtype=BF16, first=0):
     """(route taken, the kernel's dT, a second call's dT, the plain
-    version's dT) of one bf16 backward scatter call; shadow: every third
-    neighbor slot holds the shadow index."""
+    version's dT) of one backward scatter call in ``dtype``; shadow: every
+    third neighbor slot (first, first + 3, ...) holds the shadow index."""
     gx, idx, _, rk, k2, W, dout = _inter_operands(cuda, b, p1, stride, nn, c,
                                                   d, seed=seed)
     if shadow:
-        idx[:, :, ::3] = p1
+        idx[:, :, first::3] = p1
     ic = tkern.inter_conv
-    W, dout = W.to(BF16), dout.to(BF16)
+    W, dout = W.to(dtype), dout.to(dtype)
     if entry == 'dtable':
         args = (gx, idx, p1, rk, k2, W, dout, 0.08)
     else:
         dF = _rand(np.random.RandomState(seed + 1),
-                   (b, idx.shape[1], 60, 24, c), cuda, BF16)
+                   (b, idx.shape[1], 60, 24, c), cuda, dtype)
         args = (gx, idx, p1, rk, k2, dF, 0.08)
     before = dict(ic.routes)
     got = getattr(ic, f'inter_conv_{entry}')(*args)
@@ -793,11 +794,47 @@ def test_inter_bwd_mma_kernel_edges(cuda, entry, b, p1, stride, nn, c, d):
     assert _rel(got, want) <= 1e-3 and _rel(again, want) <= 1e-3
 
 
+@pytest.mark.parametrize('entry,b,p1,stride,nn,c,d', SCATTER_LAYERS)
+def test_inter_bwd_f32_kernel_matches_plain(cuda, entry, b, p1, stride, nn,
+                                            c, d):
+    """The fp32 CUDA-core backward scatter at every model layer shape, both
+    entries, a third of the slots shadow: taken by the wrapper, its dT
+    within 1e-5 (normwise; its atomics add in an order that changes from
+    run to run, its sums over d and k run in another order than the plain
+    version's) of the plain version, on both calls."""
+    route, got, again, want = _scatter_case(cuda, entry, b, p1, stride, nn,
+                                            c, d, shadow=True, seed=nn + c,
+                                            dtype=torch.float32)
+    assert route == [f'{entry}_f32']
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 1e-5
+    assert _rel(again, want) <= 1e-5
+
+
+@pytest.mark.parametrize('entry,b,p1,stride,nn,c,d,first', [
+    ('dtable', 3, 40, 1, 1, 16, 32, 1), ('dtable', 1, 45, 3, 64, 48, 96, 0),
+    ('dtable', 1, 45, 1, 20, 48, 160, 2), ('dg', 3, 40, 1, 1, 16, 32, 1),
+    ('dg', 1, 45, 3, 64, 48, 32, 0), ('dg', 1, 45, 1, 40, 48, 32, 2)])
+def test_inter_bwd_f32_kernel_edges(cuda, entry, b, p1, stride, nn, c, d,
+                                    first):
+    """The fp32 scatter's edges: nn = 1 (no shadow slot) and 64, 20 and 40
+    slots, 16 and 48 channels, d = 32, 96 and 160 (2, 6 and 10 of the
+    fused entry's 16-deep slices), p2 < p1 (stride 3), 120 tiles (fewer than the card's
+    SMs: one a block) and 135 (a last round of 3 tiles), shadow slots:
+    within 1e-5 of the plain version on both calls."""
+    route, got, again, want = _scatter_case(cuda, entry, b, p1, stride, nn,
+                                            c, d, shadow=True, seed=p1 + nn,
+                                            dtype=torch.float32, first=first)
+    assert route == [f'{entry}_f32']
+    assert _rel(got, want) <= 1e-5 and _rel(again, want) <= 1e-5
+
+
 @pytest.mark.parametrize('entry,dtype,c,d', [
-    ('dtable', torch.float32, 64, 64), ('dtable', BF16, 40, 64),
-    ('dg', torch.float32, 32, 32), ('dg', BF16, 40, 32)])
+    ('dtable', torch.float32, 40, 64), ('dtable', BF16, 40, 64),
+    ('dg', torch.float32, 40, 32), ('dg', BF16, 40, 32)])
 def test_inter_bwd_off_envelope_takes_the_template(cuda, entry, dtype, c, d):
-    """fp32, and bf16 channels that are not a multiple of 16, run the
+    """Channels that are not a multiple of 16, in fp32 and bf16, run the
     template (``inter_dtable_kernel``) as before: 1e-5 of the plain version
     in fp32; in bf16 4e-3, the bound the bf16 forward's SGEMM keeps against
     a plain version with other rounding points (the template rounds each

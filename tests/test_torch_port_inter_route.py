@@ -8,7 +8,10 @@ meta device, the launches recorded) counts the tensor-core dW at every
 fused-route layer and the tensor-core F at every composed-route layer.
 The text each ``inter_conv_variants`` and ``inter_bwd_variants`` build
 substitutes is in the source. The fp32 fused dW goes to its CUDA-core
-kernel (``dw_f32_route``) at every fused-route layer.
+kernel (``dw_f32_route``) at every fused-route layer, and the fp32
+backward scatter (the fused dTable and the W-off dG) to its CUDA-core
+kernel (``bwd_f32_route``) at every layer of both models, each wrapper
+giving its C entry as many arguments as the entry's signature holds.
 The kernels themselves are held against their plain versions on the card
 (tests/test_torch_port_gpu.py); the plain versions against the JAX package
 in tests/test_torch_port_bf16_train.py and tests/test_torch_port_inv_bf16.py.
@@ -351,15 +354,133 @@ def test_variant_builds_substitute_text_in_the_source():
 
 def test_bwd_variant_builds_substitute_text_in_the_source():
     """Each build of ``inter_bwd_variants`` (the scatter's, the bf16 dW's,
-    the fp32 template's and the fp32 kernel's) replaces text that
-    csrc/inter_conv_bwd.cu holds exactly once."""
+    the fp32 dW template's and kernel's, the fp32 scatter template's and
+    kernel's) replaces text that csrc/inter_conv_bwd.cu holds exactly
+    once."""
     from epn_pointcloud_tpu_torch import inter_bwd_variants as ibv
     with open(ibv.SOURCE_PATH) as f:
         src = f.read()
     subs = [sub for table in (ibv.VARIANTS, ibv.DW_VARIANTS,
-                              ibv.DW_F32_VARIANTS)
+                              ibv.DW_F32_VARIANTS,
+                              ibv.SCATTER_F32_VARIANTS)
             for sub in table.values() if sub is not None]
-    assert len(subs) >= 10
+    assert len(subs) >= 20
     for sub in subs:
         for old, _ in ([sub] if isinstance(sub[0], str) else sub):
             assert src.count(old) == 1, old
+
+
+@pytest.mark.parametrize('name,n_dtable,n_dg', [('cls_so3net_pn', 6, 0),
+                                                ('inv_so3net_pn', 3, 4)])
+def test_every_model_scatter_layer_takes_the_fp32_kernel(name, n_dtable,
+                                                         n_dg):
+    """cls L1-L6 (the fused dTable) and inv B1L1, B2L1, B3L1 (the fused
+    dTable) and B0L1, B1L0, B2L0, B3L0 (the W-off dG): the fp32 scatter on
+    the CUDA-core kernel (``bwd_f32_route``), bf16 on the tensor-core one."""
+    layers = _scatter_layers(name)
+    entries = [e for e, *_ in layers]
+    assert (entries.count('dtable'), entries.count('dg')) == (n_dtable, n_dg)
+    ic = tkern.inter_conv
+    for entry, K, c, d, nn, na in layers:
+        dd = d if entry == 'dtable' else None
+        assert ic.bwd_f32_route(torch.float32, K, c, nn, na, dd), (entry, c,
+                                                                    d, nn)
+        assert not ic.bwd_f32_route(BF16, K, c, nn, na, dd)
+
+
+@pytest.mark.parametrize('K,c,nn,na,d', [(24, 40, 16, 60, 64),
+                                         (24, 40, 32, 60, None),
+                                         (24, 64, 65, 60, 64),
+                                         (24, 64, 16, 12, 64),
+                                         (18, 64, 16, 60, None),
+                                         (24, 64, 0, 60, None),
+                                         (24, 64, 16, 60, 40)])
+def test_scatter_f32_shapes_off_the_envelope_take_the_template(K, c, nn, na,
+                                                              d):
+    """Channels not a multiple of 16, more than 64 neighbors (or none),
+    another group, another kernel size, a fused d not a multiple of 16."""
+    assert not tkern.inter_conv.bwd_f32_route(torch.float32, K, c, nn, na, d)
+
+
+def test_reset_counts_clears_the_scatter_f32_routes():
+    ic = tkern.inter_conv
+    ic.routes['dtable_f32'] += 2
+    ic.routes['dg_f32'] += 1
+    tkern.reset_counts()
+    assert ic.routes['dtable_f32'] == ic.routes['dg_f32'] == 0
+
+
+@pytest.mark.parametrize('name', ['cls_so3net_pn', 'inv_so3net_pn'])
+def test_fp32_backward_counts_the_fp32_scatter(name, monkeypatch):
+    """The fp32 (parity) InterConvFn forward and backward at every layer
+    with a table gradient (b = 1, 64 points) on the card branch: one
+    'dtable_f32' (fused route) or 'dg_f32' (composed route) a layer and no
+    template or tensor-core scatter, launched through
+    epn_inter_conv_bwd_table_f32 / epn_inter_conv_dg_f32, and the table
+    gradient in fp32."""
+    launched = _card_shapes(monkeypatch)
+    ic = tkern.inter_conv
+    meta = torch.device('meta')
+    layers = _scatter_layers(name)
+    tkern.reset_counts()
+    for entry, K, c, d, nn, na in layers:
+        table = torch.empty((1, 64, na, c), device=meta, requires_grad=True)
+        out = ic.InterConvFn.apply(
+            torch.empty((1, 64, nn, 3), device=meta),
+            torch.empty((1, 64, nn), dtype=torch.int32, device=meta), table,
+            torch.empty((na, K, 3), device=meta),
+            torch.empty((K,), device=meta),
+            torch.empty((K, c, d), device=meta, requires_grad=True), 0.1)
+        out.backward(torch.empty_like(out))
+        assert table.grad.dtype == torch.float32
+        assert table.grad.shape == (1, 64, na, c)
+    n_dtable = sum(e == 'dtable' for e, *_ in layers)
+    n_dg = len(layers) - n_dtable
+    assert (ic.routes['dtable_f32'], ic.routes['dg_f32']) == (n_dtable, n_dg)
+    assert ic.routes['dtable'] == ic.routes['dg'] == 0
+    assert ic.routes['dtable_mma'] == ic.routes['dg_mma'] == 0
+    assert ic.launches['inter_conv_dtable'] == n_dtable
+    assert ic.launches['inter_conv_dg'] == n_dg
+    assert launched.count('epn_inter_conv_bwd_table_f32') == n_dtable
+    assert launched.count('epn_inter_conv_dg_f32') == n_dg
+    assert 'epn_inter_conv_bwd_table' not in launched
+    assert 'epn_inter_conv_dg' not in launched
+    tkern.reset_counts()
+
+
+@pytest.mark.parametrize('entry,dtype,c,route', [
+    ('dtable', torch.float32, 64, 'dtable_f32'),
+    ('dtable', torch.float32, 40, 'dtable'),
+    ('dtable', BF16, 64, 'dtable_mma'),
+    ('dg', torch.float32, 32, 'dg_f32'),
+    ('dg', torch.float32, 40, 'dg'),
+    ('dg', BF16, 32, 'dg_mma')])
+def test_scatter_launch_matches_its_entry_signature(entry, dtype, c, route,
+                                                    monkeypatch):
+    """The scatter wrappers' card branch gives each C entry as many
+    arguments as the entry's ctypes signature holds (the fp32 fused entry
+    a W^T workspace of W's size, last before the stream)."""
+    _card_shapes(monkeypatch)
+    ic = tkern.inter_conv
+    calls = []
+    monkeypatch.setattr(ic.build, 'launch',
+                        lambda name, *a: calls.append((name, a)))
+    meta = torch.device('meta')
+    b, p2, nn, q, na, K, d = 2, 64, 16, 128, 60, 24, 64
+    ops = (torch.empty((b, p2, nn, 3), device=meta),
+           torch.empty((b, p2, nn), dtype=torch.int32, device=meta), q,
+           torch.empty((na, K, 3), device=meta),
+           torch.empty((K,), device=meta))
+    tkern.reset_counts()
+    if entry == 'dtable':
+        ic.inter_conv_dtable(*ops, torch.empty((K, c, d), dtype=dtype,
+                                               device=meta),
+                             torch.empty((b, p2, na, d), dtype=dtype,
+                                         device=meta), 0.1)
+    else:
+        ic.inter_conv_dg(*ops, torch.empty((b, p2, na, K, c), dtype=dtype,
+                                           device=meta), 0.1)
+    (name, args), = calls
+    assert len(args) == len(ic.build.SIGNATURES[name])
+    assert ic.routes[route] == 1
+    tkern.reset_counts()
