@@ -11,9 +11,10 @@ epn_inter_conv_dg, epn_inter_conv_bwd_w and epn_intra_conv_bwd_w (bf16)
 are timed beside this tree's bf16 W-fused inter forward, W-off F, prenorm
 intra forward, B6 df, fused dTable, W-off dG, fused dW and B6 dW at every
 call of phases 4, 9 and 16, and its epn_inter_conv_bwd_w,
-epn_inter_conv_bwd_table and epn_inter_conv_dg (fp32) beside this tree's
-fp32 fused dW, fused dTable and W-off dG at every call of phases 6 and 12,
-on the same inputs, in turns (parent, new, new, parent).
+epn_inter_conv_bwd_table, epn_inter_conv_dg and epn_inter_conv_f (fp32)
+beside this tree's fp32 fused dW, fused dTable, W-off dG and W-off F at
+every call of phases 6 and 12, on the same inputs, in turns (parent, new,
+new, parent).
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from csrc/ (one nvcc a source, in parallel,
@@ -22,8 +23,9 @@ Phases (any failure exits non-zero and prints no result line):
      backward, the W-fused inter forward, the W-off F, the intra forward
      and B6 df, the inter backward scatter, the fused inter dW, the intra
      dW; cuobjdump): none fails; and in the SASS of the fp32 CUDA-core
-     kernels of the fused inter dW (inter_dw_f32_kernel) and the backward
-     scatter (inter_bwd_f32_kernel) FFMA and no HMMA or GMMA (no TF32);
+     kernels of the fused inter dW (inter_dw_f32_kernel), the backward
+     scatter (inter_bwd_f32_kernel) and the W-off F (inter_f_f32_kernel)
+     FFMA and no HMMA or GMMA (no TF32);
   2. at every flagship layer shape of cls_so3net_pn (b=32, 1024 points, 60
      anchors), compare each kernel with its plain PyTorch version on the
      card, on the inputs the model itself gives it (captured from a b=32
@@ -62,8 +64,8 @@ Phases (any failure exits non-zero and prints no result line):
      dTable, W-off dG, fused dW and W-off F too: the tensor-core scatter,
      dW and F in bf16; in fp32 the CUDA-core kernels of the fused dW
      (inter_dw_f32_kernel, 'dw_f32') and of the fused dTable and W-off dG
-     (inter_bwd_f32_kernel, 'dtable_f32', 'dg_f32'), and the W-off F's
-     template);
+     (inter_bwd_f32_kernel, 'dtable_f32', 'dg_f32') and of the W-off F
+     (inter_f_f32_kernel, 'f_f32'));
   6. capture each backward kernel call of one train-mode step of the seeded
      full-width model on a synthetic b=12 batch (inter dTable and dW at 6
      layers, intra df and dW at 7) and compare each with its plain version
@@ -141,15 +143,18 @@ Phases (any failure exits non-zero and prints no result line):
      1e-4 for the dW reductions; every fused dW and dTable on its fp32
      CUDA-core kernel, checked and timed as in phase 6, every W-off dG on
      the CUDA-core scatter ('dg_f32', beside the earlier tree's template
-     with --parent-csrc)); then the composed backward
-     route (its four parts) timed beside the fused dTable + dW at B1L0,
-     B2L0, B3L0;
+     with --parent-csrc); every W-off F on its CUDA-core kernel ('f_f32'),
+     bitwise equal to this tree's template on the same inputs and on a
+     second call, beside the earlier tree's template with --parent-csrc);
+     then the composed backward route (its four parts) timed beside the
+     fused dTable + dW at B1L0, B2L0, B3L0;
  13. [inv-train] one inv triplet step on the kernel path and on the plain
      path from the same weights: loss to rtol 1e-5, a gradient for every
      parameter on both, the per-leaf rule (degenerate leaves from a float64
-     step); on three batches, B0L1's inter W gradient on both paths
-     against a float64 step (printed); the whole step timed on both paths
-     in turns; 10 Adam steps lower the loss;
+     step), the kernel path's launches by kernel as in phase 15; on three
+     batches, B0L1's inter W gradient on both paths against a float64
+     step (printed); the whole step timed on both paths in turns; 10 Adam
+     steps lower the loss;
  14. [inv-descriptor] the eval-mode inv forward at b=48 on both paths:
      descriptors to rtol 1e-3, atol 2e-3, timed;
  15. [inv-train-entry] run_3dmatch --run-mode train -i 4 --save-freq 4 on
@@ -420,8 +425,10 @@ TC_KERNELS = ('grouped_conv_mma_kernel', 'grouped_bwd_mma_kernel',
               'intra_conv_mma_kernel', 'inter_bwd_mma_kernel',
               'inter_dw_mma_kernel', 'intra_dw_mma_kernel')
 # the fp32 kernels held to full fp32 products on the CUDA cores: the fused
-# inter dW, the inter backward scatter (the fused dTable and the W-off dG)
-FFMA_KERNELS = ('inter_dw_f32_kernel', 'inter_bwd_f32_kernel')
+# inter dW, the inter backward scatter (the fused dTable and the W-off dG),
+# the W-off F
+FFMA_KERNELS = ('inter_dw_f32_kernel', 'inter_bwd_f32_kernel',
+                'inter_f_f32_kernel')
 
 
 def tensor_core_sass(so):
@@ -738,9 +745,9 @@ def check_routes(tag, dtype, counts, routes):
     and W-off F, and every intra forward, B6 df and intra dW, of an entry
     run went
     through the kernel of its dtype: the tensor-core kernels in bf16; in
-    fp32 the SGEMMs, the W-off F's template and the CUDA-core kernels of the
-    fused dW ('dw_f32') and the backward scatter ('dtable_f32', 'dg_f32')
-    (``routes``: ``route_counts()``, read with ``counts``)."""
+    fp32 the SGEMMs and the CUDA-core kernels of the fused dW ('dw_f32'),
+    the backward scatter ('dtable_f32', 'dg_f32') and the W-off F
+    ('f_f32') (``routes``: ``route_counts()``, read with ``counts``)."""
     want = {}
     for conv, n in (('inter', counts['inter_conv']),
                     ('intra', counts['intra_conv']
@@ -758,9 +765,9 @@ def check_routes(tag, dtype, counts, routes):
              + counts['intra_conv_prenorm_dw'])):
         want[conv].update({f'{entry}_mma': n, entry: 0} if dtype == 'bf16'
                           else {f'{entry}_mma': 0, entry: n})
-    # the fused inter dW and the backward scatter in fp32: their CUDA-core
-    # kernels, not the templates
-    for entry in ('dtable', 'dg', 'dw'):
+    # the fused inter dW, the backward scatter and the W-off F in fp32:
+    # their CUDA-core kernels, not the templates
+    for entry in ('dtable', 'dg', 'dw', 'f'):
         n = counts[f'inter_conv_{entry}']
         want['inter'].update({f'{entry}_f32': 0} if dtype == 'bf16' else
                              {entry: 0, f'{entry}_f32': n})
@@ -1275,6 +1282,8 @@ def _library_note(row):
         note += f' rel_vs_mma_plain={row["rel_vs_mma_plain"]:.3e} [<=1e-3]'
     if 'rel_vs_f_plain' in row:
         note += f' rel_vs_f_plain={row["rel_vs_f_plain"]:.3e} [<=1e-3]'
+    if 'bitwise_vs_template' in row:
+        note += f' bitwise_vs_template={row["bitwise_vs_template"]}'
     if 'f64_ratio' in row:
         note += (f' rel_f64={row["rel_f64"]:.3e} template_rel_f64='
                  f'{row["template_rel_f64"]:.3e} [ratio <= 2]')
@@ -1291,17 +1300,18 @@ def _extras_ok(row):
     forward or B6 df (``intra_conv_extras``), backward scatter in either
     dtype (``inter_bwd_extras``), inter dW (``inter_dw_extras``), intra dW
     (``intra_dw_extras``) and W-off F (``inter_f_extras``): the tensor-core
-    kernel ran (the fp32 dW and scatter: their CUDA-core kernel; the dW at
-    most twice the template's error against float64), its output is
-    bitwise equal on a
+    kernel ran (the fp32 dW, scatter and W-off F: their CUDA-core kernel;
+    the dW at most twice the template's error against float64, the W-off F
+    bitwise the template's), its output is bitwise equal on a
     second call (not the scatter's: atomics), and within 1e-3 (normwise) of
     ``inter_conv_mma_plain`` (inter forward) or ``inter_conv_f_plain``
-    (W-off F). ``parent_equal`` (--parent-csrc) is printed, not gated: a
-    later tree may sum in another order."""
+    (bf16 W-off F). ``parent_equal`` (--parent-csrc) is printed, not gated:
+    a later tree may sum in another order."""
     return (row.get('route', 'mma') in ('mma', 'dtable_mma', 'dg_mma',
                                         'dtable_f32', 'dg_f32', 'dw_mma',
-                                        'dw_f32', 'f_mma')
+                                        'dw_f32', 'f_mma', 'f_f32')
             and row.get('bitwise_repeat', True)
+            and row.get('bitwise_vs_template', True)
             and row.get('rel_vs_mma_plain', 0.0) <= 1e-3
             and row.get('rel_vs_f_plain', 0.0) <= 1e-3
             and row.get('f64_ratio', 0.0) <= 2.0)
@@ -1316,48 +1326,58 @@ PARENT = {}
 
 
 def inter_f_extras(name, args, got):
-    """For a bf16 call of the W-off F: the kernel it ran (``route``, from
-    the wrapper's counts: 'f_mma' for the tensor-core kernel), whether a
-    second call gives the same bits (``bitwise_repeat``) and its normwise
-    error against ``inter_conv_f_plain`` (the plain version at the TPU
-    kernel's rounding points: ``rel_vs_f_plain``). With --parent-csrc also
-    the earlier tree's epn_inter_conv_f (bf16) on the same inputs, timed
+    """For a call of the W-off F: the kernel it ran (``route``, from the
+    wrapper's counts: 'f_mma' for the bf16 tensor-core kernel, 'f_f32' for
+    the fp32 CUDA-core one) and whether a second call gives the same bits
+    (``bitwise_repeat``); in bf16 its normwise error against
+    ``inter_conv_f_plain`` (the plain version at the TPU kernel's rounding
+    points: ``rel_vs_f_plain``), in fp32 whether it equals this tree's
+    template (epn_inter_conv_f with bf16 = 0) on the same inputs bit for
+    bit (``bitwise_vs_template``). With --parent-csrc also the earlier
+    tree's epn_inter_conv_f (in the call's dtype) on the same inputs, timed
     with this tree's C entry in turns (parent, new, new, parent; both into
-    one preallocated F; ``parent_ms``, ``same_timer_ms``). {} for any other
-    call."""
+    one preallocated F; ``parent_ms``, ``same_timer_ms``). {} for any
+    other call."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     from epn_pointcloud_tpu_torch.ops.kernels import build
-    if name != 'inter_conv_f' or args[2].dtype != torch.bfloat16:
+    if name != 'inter_conv_f':
         return {}
     ic = kernels.inter_conv
+    bf16 = args[2].dtype == torch.bfloat16
     before = dict(ic.routes)
     again = ic.inter_conv_f(*args)
     torch.cuda.synchronize()
     rec = {'route': next(k for k in ic.routes if ic.routes[k] > before[k]),
-           'bitwise_repeat': torch.equal(got, again),
-           'rel_vs_f_plain': rel_err(got, ic.inter_conv_f_plain(*args))}
+           'bitwise_repeat': torch.equal(got, again)}
     del again
-    if PARENT:
-        gx, idx, table, rk, k2, sigma = args
-        b, p2, nn = idx.shape
-        q, na, c = table.shape[1:]
-        K = rk.shape[1]
-        F = torch.empty_like(got)
-        ptrs = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(),
-                rk.data_ptr(), k2.data_ptr(), F.data_ptr(), b, p2, nn, q, na,
-                K, c, float(sigma))
+    gx, idx, table, rk, k2, sigma = args
+    b, p2, nn = idx.shape
+    q, na, c = table.shape[1:]
+    K = rk.shape[1]
+    F = torch.empty_like(got)
+    ptrs = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(), rk.data_ptr(),
+            k2.data_ptr(), F.data_ptr(), b, p2, nn, q, na, K, c, float(sigma))
 
-        def call(fn, tail):
-            def run():
-                err = fn(*ptrs, *tail, build.stream(gx))
-                if err:
-                    raise RuntimeError(f'{name}: CUDA error {err}')
-            return run
+    def call(fn, tail):
+        def run():
+            err = fn(*ptrs, *tail, build.stream(gx))
+            if err:
+                raise RuntimeError(f'{name}: CUDA error {err}')
+        return run
+    lib = build.library()
+    if bf16:
+        rec['rel_vs_f_plain'] = rel_err(got, ic.inter_conv_f_plain(*args))
+    else:
+        call(lib.epn_inter_conv_f, (0,))()
+        torch.cuda.synchronize()
+        rec['bitwise_vs_template'] = torch.equal(got, F)
+    if PARENT:
         rec['parent_ms'], rec['same_timer_ms'] = time_abba(
-            call(PARENT['f'], (1,)),
-            call(build.library().epn_inter_conv_f_mma, ()))
-        del F
+            call(PARENT['f'], (int(bf16),)),
+            call(lib.epn_inter_conv_f_mma if bf16 else
+                 lib.epn_inter_conv_f_f32, ()))
+    del F
     torch.cuda.empty_cache()
     return rec
 
@@ -2482,6 +2502,7 @@ def phase_inv_train(device, batches, reps=5):
     torch.cuda.synchronize()
     mem_k = torch.cuda.max_memory_allocated() / 2 ** 30
     counts_k = kernels.counts()
+    check_routes('[inv-train]', 'fp32', counts_k, route_counts())
     torch.cuda.reset_peak_memory_stats()
     with kernels.plain():
         loss_p = inv_loss(mp, legs)
@@ -2751,7 +2772,8 @@ F32_KERNELS = {
     'inter_conv_dw': {'kernel': 'inter_dw_f32_kernel', 'route': 'dw_f32'},
     'inter_conv_dtable': {'kernel': 'inter_bwd_f32_kernel',
                           'route': 'dtable_f32'},
-    'inter_conv_dg': {'kernel': 'inter_bwd_f32_kernel', 'route': 'dg_f32'}}
+    'inter_conv_dg': {'kernel': 'inter_bwd_f32_kernel', 'route': 'dg_f32'},
+    'inter_conv_f': {'kernel': 'inter_f_f32_kernel', 'route': 'f_f32'}}
 
 # the earlier tree's sources built alone (--parent-csrc): source -> its C
 # entries, as PARENT's keys
@@ -2908,7 +2930,7 @@ def main(argv=None):
         if (k.name in bf16_bwd or k.name in bf16_results) and \
                 k.name in results:
             rec['fp32'] = _aggregate(results[k.name])
-        if k.name in F32_KERNELS and k.name != 'inter_conv_dg':
+        if k.name in F32_KERNELS and k.name not in _NO_WOFF:
             # the fp32 fused dW and dTable: their own CUDA-core kernel, in
             # the cls step (b=12) and the inv step (b=16 a leg); launches
             # from the fp32 train entries, all on it (check_routes)
@@ -2918,7 +2940,7 @@ def main(argv=None):
                                 share=rec[key]['bound_ms'] / rec[key]['ms'],
                                 **F32_KERNELS[k.name])
         elif k.name in F32_KERNELS:
-            # the fp32 W-off dG (the record above: the inv step's)
+            # the fp32 W-off dG and F (the record above: the inv step's)
             rec['fp32_kernel'] = dict(F32_KERNELS[k.name],
                                       share=rec['bound_ms'] / rec['ms'])
         if k.name == 'intra_conv':

@@ -90,16 +90,47 @@
 // reaches it where _fgcw_bwd takes its composed backward (c <= 32 or
 // nn > 32), to recompute F for dW = F^T dout: the inv model's B0L1, B1L0,
 // B2L0 and B3L0, twice a triplet step.
-// What bounds it on the H100: storing F, K * C elements a row: 3.77 GB in
-// bf16 over the inv step (0.75 GB at B0L1, 0.38 GB at each other layer, a
-// leg of b = 16), 1.13 ms at 3.35 TB/s; beside that the gathers, nn table
-// rows of 64 bytes a row and 32-channel chunk (~1 GB a layer and leg),
-// which mostly hit in L2 (the table is ~31 MB a layer). The neighbor
-// contraction, 2 * nn * K * C operations a row, is ~1% of the bf16 peak's
-// time.
-// fp32 (and bf16 shapes off the tensor-core route) runs the SGEMM template
-// with the learned product cut out (template flag kWOff, epn_inter_conv_f):
-// each 8-channel chunk's fp32 slab is written from shared memory to F.
+// What bounds it on the H100, in bf16: storing F, K * C elements a row:
+// 3.77 GB over the inv step (0.75 GB at B0L1, 0.38 GB at each other layer,
+// a leg of b = 16), 1.13 ms at 3.35 TB/s; beside that the gathers, nn
+// table rows of 64 bytes a row and 32-channel chunk (~1 GB a layer and
+// leg), which mostly hit in L2 (the table is ~31 MB a layer). The
+// neighbor contraction, 2 * nn * K * C operations a row, is ~1% of the
+// bf16 peak's time. In fp32 (no TF32: the TPU kernel runs its fp32 dots at
+// full precision) both terms count: the contraction is ~24 GFLOP of FFMA
+// at every layer and leg, 3.28 ms over the step's 8 calls at 67 TFLOP/s,
+// and F is 7.5 GB, 2.25 ms at 3.35 TB/s; the gathers, nn * C * 4 bytes a
+// row (~2 GB a layer and leg), come from L2 (the table is 63 MB a layer
+// but ~4 MB a cloud, and the blocks in flight cover a few clouds).
+// fp32 shapes off the CUDA-core kernel's envelope (and bf16 shapes off
+// the tensor-core one's) run the SGEMM template with the learned product
+// cut out (template flag kWOff, epn_inter_conv_f): each 8-channel chunk's
+// fp32 slab is written from shared memory to F. What holds it back: each
+// (row, neighbor, kernel point) anchor weight is recomputed for every
+// 8-channel chunk (C / 8 times; ~6 instructions for 8 FMAs); one item
+// covers 6 of the 24 kernel points, so the four items of a row each load
+// the same neighbor rows, synchronously, with nothing in flight during
+// the FMAs; the 100 KB slab a block allows two blocks an SM, and each
+// chunk crosses two block barriers to write it out, 32 bytes of each
+// (row, k) run a pass.
+// fp32 (inter_f_f32_kernel, epn_inter_conv_f_f32; every composed layer of
+// the inv model: K = 24, na = 60, C % 16 == 0, nn <= 64) on the CUDA
+// cores, FFMA only, F summed as the template sums it (each element's sum
+// over n in order by fmaf, the weights by anchor_weight: F bitwise the
+// template's). A warp owns 4 rows at a time, a lane one row's 3 kernel
+// points (g, g + 8, g + 16) over a 32-channel chunk (16 where C % 32 !=
+// 0): 96 sums, so each shared-memory load of G feeds 12 FFMA and each
+// anchor weight 32 channels (C / 32 times a weight). The block owns all 24
+// kernel points of its rows, so each table row is gathered once a chunk,
+// by cp.async into a ring of three 8-neighbor stages a warp that runs two
+// stages ahead across chunks and row groups. A chunk's F goes out from
+// the registers through a 4 KB tile a warp (one kernel point of the
+// three at a time, a __syncwarp each way) as whole 128-byte runs, 8 lanes
+// a run, evict-first, so that F does not push the table out of L2. No
+// slab, no block barrier after the neighbors are staged: a warp's stores
+// overlap the other warps' gathers and FFMA. Three blocks of 4 warps an
+// SM (70 KB of shared memory and at most 168 registers each); no
+// atomics.
 // bf16 (inter_f_mma_kernel, epn_inter_conv_f_mma; every composed layer of
 // the inv model) runs phase 1 of the tensor-core forward as it is
 // (stage_block, gather_pair, contract_pair: the same gathers, products and
@@ -966,6 +997,258 @@ int launch_f(const void* gx, const void* idx, const void* table,
 
 }  // namespace mma
 
+// ------------------------------------------- fp32 W-off F on the CUDA cores
+
+namespace ff32 {
+
+using epn_inter::anchor_weight;
+
+constexpr int kNA = 60;            // anchors: the rows of a point
+constexpr int kK = 24;             // kernel points
+constexpr int kKT = 3;             // kernel points a lane
+constexpr int kCH = 32;            // channels a chunk (16 where C % 32 != 0)
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBM = 64;            // rows a block
+constexpr int kNS = 8;             // neighbors a ring stage
+constexpr int kStages = 3;         // ring stages a warp
+constexpr int kBlocks = 3;         // blocks an SM
+constexpr int kMaxNN = 64;
+constexpr int kMaxNP = (kBM - 1) / kNA + 2;  // points a block touches
+
+// A lane owns KT of a row's 24 kernel points over a chunk of CH channels:
+// LR lanes a row, R rows a warp item, P float4 a (row, neighbor); G items
+// a warp. TS: the float4 of a row in the warp's store tile (LR runs of P,
+// 4 of padding: the two rows a quarter-warp writes fall in different bank
+// groups).
+template <int KT, int CH>
+struct Shape {
+  static constexpr int LR = kK / KT, R = 32 / LR, P = CH / 4;
+  static constexpr int G = kBM / (kWarps * R);
+  static constexpr int TS = LR * P + 4;
+  static_assert(kK % KT == 0 && 32 % LR == 0 && G * kWarps * R == kBM &&
+                    32 % P == 0,
+                "shape");
+};
+
+// dynamic shared memory, in bytes from the base: the block's points'
+// neighbor coordinates [kMaxNP][nn] float4 (x, y, z, |gx|^2) and indices
+// [kMaxNP][nn], each row's table offset [kBM] and local point [kBM] (-1
+// past M), then each warp's ring of kStages stages [R][RS] (a stage's kNS
+// neighbors of CH channels a row; RS = kNS * CH + 4: the rows a warp reads
+// at once fall in different bank groups) and its store tile [R][TS]
+// float4
+template <int KT, int CH>
+struct Smem {
+  using S = Shape<KT, CH>;
+  static constexpr int RS = kNS * CH + 4;
+  static constexpr size_t idx = (size_t)kMaxNP * kMaxNN * sizeof(float4);
+  static constexpr size_t rtb = idx + (size_t)kMaxNP * kMaxNN * sizeof(int);
+  static constexpr size_t lp = rtb + (size_t)kBM * sizeof(long long);
+  static constexpr size_t ring = lp + (size_t)kBM * sizeof(int);
+  static constexpr size_t ring_warp = (size_t)kStages * S::R * RS;  // floats
+  static constexpr size_t tile = ring + kWarps * ring_warp * sizeof(float);
+  static constexpr size_t tile_warp = (size_t)S::R * S::TS;  // float4
+  static constexpr size_t total = tile + kWarps * tile_warp * sizeof(float4);
+  static_assert(ring % 16 == 0 && tile % 16 == 0 && RS % 4 == 0, "align");
+};
+
+// F [M, 24, C] (fp32) for rows m0 .. m0 + kBM. Warp w walks its items w,
+// w + kWarps, ... (R rows each), each in C / CH channel chunks, each chunk
+// in stages of kNS neighbors. Lane l owns row l / LR of the item and
+// kernel points g, g + LR, ... (g = l % LR) over the chunk's CH channels:
+// KT x CH fp32 sums. A stage's table rows come by cp.async into the
+// warp's ring, kStages - 1 stages ahead across chunks and items. Per
+// neighbor a lane computes its KT anchor weights (anchor_weight, as the
+// template: each weight once a chunk) and adds w * G over the chunk's
+// channels by fmaf, the neighbors in order (a loop not unrolled: more
+// registers for the sums), so F is bitwise the template's. After a
+// chunk's last stage the lanes write their runs into the warp's store
+// tile (one of their kernel points at a time) and read them back by runs
+// of F, stored whole (LR lanes a run of CH channels), evict-first. No
+// block barrier after the staging; no atomics.
+template <int KT, int CH>
+__global__ void __launch_bounds__(kThreads, kBlocks)
+inter_f_f32_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
+                   const float* __restrict__ table,
+                   const float* __restrict__ rk, const float* __restrict__ k2,
+                   float* __restrict__ F, int M, int p2, int nn, int q, int C,
+                   float inv_sigma) {
+  using S = Shape<KT, CH>;
+  using L = Smem<KT, CH>;
+  constexpr int LR = S::LR, R = S::R, P = S::P;
+  constexpr int NL = 32 / P;       // neighbors a gather pass
+  extern __shared__ __align__(16) unsigned char ff_smem[];
+  float4* s_gx = reinterpret_cast<float4*>(ff_smem);
+  int* s_idx = reinterpret_cast<int*>(ff_smem + L::idx);
+  long long* s_rtb = reinterpret_cast<long long*>(ff_smem + L::rtb);
+  int* s_lp = reinterpret_cast<int*>(ff_smem + L::lp);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* ring = reinterpret_cast<float*>(ff_smem + L::ring) +
+                warp * L::ring_warp;
+  float4* tile = reinterpret_cast<float4*>(ff_smem + L::tile) +
+                 warp * L::tile_warp;
+  const int m0 = blockIdx.x * kBM, pt0 = m0 / kNA;
+  const int np = (min(m0 + kBM, M) - 1) / kNA - pt0 + 1;
+  epn_inter::stage_neighbors(s_gx, s_idx, gx, idx, pt0, np, nn, tid,
+                             kThreads);
+  if (tid < kBM) {
+    const int gm = m0 + tid, pt = gm / kNA, a = gm - pt * kNA;
+    s_rtb[tid] = ((long long)(pt / p2) * q * kNA + a) * C;
+    s_lp[tid] = gm < M ? pt - pt0 : -1;
+  }
+  __syncthreads();
+
+  // the warp's items: w + kWarps * i whose first row is below M, C / CH
+  // chunks each, ns_all stages of kNS neighbors a chunk
+  int items = 0;
+  while (items < S::G && m0 + R * (warp + kWarps * items) < M) ++items;
+  const int ns_all = (nn + kNS - 1) / kNS, nch = C / CH;
+  const int steps = items * nch * ns_all;
+
+  // the next step to gather (gt; its item gi, chunk gc, stage gs) into
+  // ring stage gslot: lane (c4, nl) copies float4 c4 of neighbors nl,
+  // nl + NL, ... of each of the item's rows (zeros for the shadow index and
+  // past nn, nothing for a row past M); one commit group, empty past the
+  // last step
+  const int c4 = lane % P, nl = lane / P;
+  int gt = 0, gi = 0, gc = 0, gs = 0, gslot = 0;
+  auto gather_next = [&]() {
+    if (gt < steps) {
+      const int r0 = R * (warp + kWarps * gi), n0 = gs * kNS;
+      float* dst = ring + gslot * R * L::RS + 4 * c4;
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        const int lp = s_lp[r0 + u];
+        const float* tb = table + s_rtb[r0 + u] + gc * CH + 4 * c4;
+        const int* ix = s_idx + max(lp, 0) * nn + n0;
+#pragma unroll
+        for (int n = nl; n < kNS; n += NL) {
+          const int j = lp >= 0 && n0 + n < nn ? ix[n] : q;
+          const bool live = j < q;
+          tc::cp16(tc::smem_addr(dst + u * L::RS + n * CH),
+                   live ? tb + (size_t)j * kNA * C : table, live);
+        }
+      }
+      if (++gs == ns_all) {
+        gs = 0;
+        if (++gc == nch) {
+          gc = 0;
+          ++gi;
+        }
+      }
+    }
+    tc::cp_commit();
+    ++gt;
+    gslot = gslot + 1 == kStages ? 0 : gslot + 1;
+  };
+  for (int i = 0; i < kStages - 1; ++i) gather_next();
+
+  // the lane's row u of the item and kernel points g + LR j
+  const int u = lane / LR, g = lane % LR;
+  float acc[KT][CH];
+#pragma unroll
+  for (int j = 0; j < KT; ++j)
+#pragma unroll
+    for (int c = 0; c < CH; ++c) acc[j][c] = 0.f;
+  int slot = 0;
+  for (int it = 0; it < items; ++it) {
+    const int row = R * (warp + kWarps * it) + u;
+    const int a = (m0 + row) % kNA, lp = s_lp[row];
+    float4 r[KT];
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      const int k = g + LR * j;
+      const float* rp = rk + ((size_t)a * kK + k) * 3;
+      r[j] = make_float4(__ldg(rp), __ldg(rp + 1), __ldg(rp + 2),
+                         __ldg(k2 + k));
+    }
+    const float4* g4 = s_gx + max(lp, 0) * nn;
+    for (int ch = 0; ch < nch; ++ch) {
+      for (int s = 0; s < ns_all; ++s) {
+        gather_next();
+        tc::cp_wait<kStages - 1>();
+        __syncwarp();
+        const float* Gr = ring + slot * R * L::RS + u * L::RS;
+        const int n0 = s * kNS, ns = min(kNS, nn - n0);
+#pragma unroll 1
+        for (int n = 0; n < ns; ++n) {
+          const float4 gv = g4[n0 + n];
+          float w[KT];
+#pragma unroll
+          for (int j = 0; j < KT; ++j) {
+            w[j] = anchor_weight(gv, r[j], inv_sigma);
+          }
+#pragma unroll
+          for (int h = 0; h < P; ++h) {
+            const float4 tv =
+                *reinterpret_cast<const float4*>(Gr + n * CH + 4 * h);
+#pragma unroll
+            for (int j = 0; j < KT; ++j) {
+              acc[j][4 * h] = fmaf(w[j], tv.x, acc[j][4 * h]);
+              acc[j][4 * h + 1] = fmaf(w[j], tv.y, acc[j][4 * h + 1]);
+              acc[j][4 * h + 2] = fmaf(w[j], tv.z, acc[j][4 * h + 2]);
+              acc[j][4 * h + 3] = fmaf(w[j], tv.w, acc[j][4 * h + 3]);
+            }
+          }
+        }
+        __syncwarp();  // this ring stage is refilled by the next gather
+        slot = slot + 1 == kStages ? 0 : slot + 1;
+      }
+      // the chunk's F, one of the lane's kernel points at a time: each
+      // lane's run (kernel point g + LR j of row u) into the tile at
+      // [u][g][h ^ g % P], then read back by runs, float4 hh = e % P of
+      // run e / P (e = i * LR + g), and stored evict-first: LR lanes a
+      // whole run of CH channels
+      float* out = F + (size_t)(m0 + row) * kK * C + ch * CH;
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+#pragma unroll
+        for (int h = 0; h < P; ++h) {
+          tile[u * S::TS + g * P + (h ^ (g % P))] =
+              make_float4(acc[j][4 * h], acc[j][4 * h + 1],
+                          acc[j][4 * h + 2], acc[j][4 * h + 3]);
+          acc[j][4 * h] = acc[j][4 * h + 1] = 0.f;
+          acc[j][4 * h + 2] = acc[j][4 * h + 3] = 0.f;
+        }
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          const int e = i * LR + g, run = e / P, hh = e % P;
+          const float4 v = tile[u * S::TS + run * P + (hh ^ (run % P))];
+          if (lp >= 0) {
+            tc::st_stream16(out + (size_t)(run + LR * j) * C + 4 * hh,
+                            make_uint4(__float_as_uint(v.x),
+                                       __float_as_uint(v.y),
+                                       __float_as_uint(v.z),
+                                       __float_as_uint(v.w)));
+          }
+        }
+        __syncwarp();  // the tile is written again next
+      }
+    }
+  }
+  tc::cp_wait<0>();
+}
+
+template <int CH>
+int launch(const void* gx, const void* idx, const void* table,
+           const void* rk, const void* k2, void* F, int M, int p2, int nn,
+           int q, int C, float sigma, cudaStream_t stream) {
+  using L = Smem<kKT, CH>;
+  auto kern = inter_f_f32_kernel<kKT, CH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::total);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(M + kBM - 1) / kBM, kThreads, L::total, stream>>>(
+      (const float*)gx, (const int*)idx, (const float*)table,
+      (const float*)rk, (const float*)k2, (float*)F, M, p2, nn, q, C,
+      1.f / sigma);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ff32
+
 }  // namespace
 
 // gx [b, p2, nn, 3], idx [b, p2, nn] int32 in [0, q] (q = shadow, zero row),
@@ -1029,6 +1312,28 @@ extern "C" int epn_inter_conv_f_mma(const void* gx, const void* idx,
   }
   return mma::launch_f(gx, idx, table, rk, k2, F, b * p2 * na, p2, nn, q, na,
                        C, sigma, (cudaStream_t)stream);
+}
+
+// fp32 W-off F on the CUDA cores (inter_f_f32_kernel): gx, idx, table, rk,
+// k2 and F as epn_inter_conv_f with an fp32 table and F. K must be 24, na
+// 60, C a positive multiple of 16 and 1 <= nn <= 64.
+extern "C" int epn_inter_conv_f_f32(const void* gx, const void* idx,
+                                    const void* table, const void* rk,
+                                    const void* k2, void* F, int b, int p2,
+                                    int nn, int q, int na, int K, int C,
+                                    float sigma, void* stream) {
+  if (K != ff32::kK || na != ff32::kNA || C < 16 || C % 16 != 0 || nn < 1 ||
+      nn > ff32::kMaxNN) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int M = b * p2 * na;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (C % ff32::kCH == 0) {
+    return ff32::launch<ff32::kCH>(gx, idx, table, rk, k2, F, M, p2, nn, q, C,
+                                   sigma, s);
+  }
+  return ff32::launch<16>(gx, idx, table, rk, k2, F, M, p2, nn, q, C, sigma,
+                          s);
 }
 
 // bf16 on tensor cores (the production mode's W-fused forward): gx, idx,

@@ -1,8 +1,9 @@
 """Where the bf16 tensor-core inter forward (``inter_conv_mma_kernel`` in
-csrc/inter_conv.cu) and the bf16 tensor-core W-off F (``inter_f_mma_kernel``)
-spend their time, on the card: each kernel as built beside variants with
-one part taken out, at the shapes of the models' layers, with the same
-timer (``chip_smoke.time_ms``).
+csrc/inter_conv.cu), the bf16 tensor-core W-off F (``inter_f_mma_kernel``)
+and the fp32 CUDA-core W-off F (``inter_f_f32_kernel``) spend their time,
+on the card: each kernel as built beside variants with one part taken out,
+at the shapes of the models' layers, with the same timer
+(``chip_smoke.time_ms``).
 
   python -m epn_pointcloud_tpu_torch.inter_conv_variants
 
@@ -50,8 +51,31 @@ and, whose output is wrong and only whose time counts:
 For built, fresh_acc and ring_deep the normwise error against
 ``inter_conv_f_plain`` and the lean.
 
-One JSON line a shape, a sum over each model's layers, all of them in
-chiprun_out/inter_conv_variants.json. Needs a CUDA device and nvcc.
+The fp32 W-off F (``epn_inter_conv_f_f32``) at the same layers, beside the
+template's W-off mode in fp32 (``template``):
+  built          the source as it is (a lane 3 kernel points x 32
+                 channels, 8 lanes a row, three blocks an SM, the
+                 neighbor loop not unrolled);
+  kt6_ch16       a lane 6 kernel points x 16 channels (4 lanes a row);
+  unroll_2       the neighbor loop unrolled by 2;
+  blocks_2       registers asked for two blocks an SM (up to 255: over
+                 168 only two fit);
+and, whose output is wrong and only whose time counts:
+  no_stores      F is not stored (the store tile is still written and
+                 read);
+  no_gather      the table rows are not read (the ring stages are
+                 zero-filled);
+  no_weights     every anchor weight is one constant (no weights computed,
+                 no neighbor coordinates read).
+Each build, the template too, is timed in turn and then in the reverse
+order, and the two times averaged. For the builds whose output is right
+the normwise error against ``inter_conv_f_plain`` and whether F equals
+the template's bit for bit (``bitwise_vs_template``).
+
+For every build of each part, its kernel's registers and spills (nvcc's
+-Xptxas -v). One JSON line a shape, a sum over each model's layers, a line
+a build's registers, all of them in chiprun_out/inter_conv_variants.json.
+Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -101,6 +125,20 @@ F_VARIANTS = {
     'no_mma': (_F_MMA, 'if (inv_sigma < 0.f) ' + _F_MMA),
 }
 F_EXACT = ('built', 'fresh_acc', 'ring_deep')
+# the fp32 W-off F's builds, as VARIANTS
+F32_VARIANTS = {
+    'built': None,
+    'kt6_ch16': [('constexpr int kKT = 3;', 'constexpr int kKT = 6;'),
+                 ('constexpr int kCH = 32;', 'constexpr int kCH = 16;')],
+    'unroll_2': ('#pragma unroll 1\n        for (int n = 0; n < ns; ++n) {',
+                 '#pragma unroll 2\n        for (int n = 0; n < ns; ++n) {'),
+    'blocks_2': ('constexpr int kBlocks = 3;', 'constexpr int kBlocks = 2;'),
+    'no_stores': ('if (lp >= 0) {', 'if (M < 0) {'),
+    'no_gather': ('const bool live = j < q;', 'const bool live = false;'),
+    'no_weights': ('w[j] = anchor_weight(gv, r[j], inv_sigma);',
+                   'w[j] = inv_sigma;'),
+}
+F32_EXACT = ('built', 'kt6_ch16', 'unroll_2', 'blocks_2')
 SOURCE_PATH = os.path.join(build.CSRC_DIR, 'inter_conv.cu')
 # model -> (b, [(layer, p1, p2, nn, c, d)])
 SHAPES = {
@@ -119,9 +157,10 @@ F_SHAPES = (16, [('B0L1', 512, 512, 32, 32), ('B1L0', 512, 256, 64, 32),
                  ('B2L0', 256, 128, 64, 64), ('B3L0', 128, 64, 64, 128)])
 
 
-def _operands(dev, b, p1, p2, nn, c, d, seed):
-    """Seeded bf16 table and W, fp32 neighborhoods of p2 of p1 random points
-    in the unit ball (radius 0.4), the 60 rotated kernel points."""
+def _operands(dev, b, p1, p2, nn, c, d, seed, dtype=torch.bfloat16):
+    """Seeded table and W in ``dtype``, fp32 neighborhoods of p2 of p1
+    random points in the unit ball (radius 0.4), the 60 rotated kernel
+    points."""
     rng = np.random.RandomState(seed)
     v = rng.randn(b, p1, 3)
     v /= np.linalg.norm(v, axis=-1, keepdims=True)
@@ -134,28 +173,31 @@ def _operands(dev, b, p1, p2, nn, c, d, seed):
         0.28, 1)).to(dev)
     rk, k2 = so3conv.rotated_kernels(anchors, kern)
     table = torch.from_numpy(rng.randn(b, p1, 60, c).astype(np.float32)).to(
-        dev, torch.bfloat16)
+        dev, dtype)
     W = torch.from_numpy((0.05 * rng.randn(24, c, d)).astype(np.float32)).to(
-        dev, torch.bfloat16)
+        dev, dtype)
     return gx.contiguous(), idx, table, rk, k2, W
 
 
-def _build(variants, entry):
+def _build(variants, entry, kernel):
     """Each variant of csrc/inter_conv.cu built alone (all nvcc at once);
-    variant -> its C entry ``entry``."""
+    (variant -> its C entry ``entry``, variant -> the registers and spills
+    of each function whose name holds ``kernel``)."""
+    from .inter_bwd_variants import ptxas_usage  # it imports this module
     procs = {n: build.compile_alone(build.CSRC_DIR, 'inter_conv.cu',
                                     os.path.join(OUT, f'{entry}_{n}'), sub)
              for n, sub in variants.items()}
-    fns = {}
+    fns, regs = {}, {}
     for n, (p, so) in procs.items():
         log = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f'nvcc failed on {n}:\n{log}')
+        regs[n] = ptxas_usage(log, kernel)
         fn = getattr(ctypes.CDLL(so), entry)
         fn.argtypes = build.SIGNATURES[entry]
         fn.restype = ctypes.c_int
         fns[n] = fn
-    return fns
+    return fns, regs
 
 
 def _caller(fn, args, name):
@@ -240,17 +282,78 @@ def f_part(fns, dev, card, time_ms):
     return lines
 
 
+def f32_part(fns, dev, card, time_ms):
+    """The fp32 W-off F's builds and the template at the inv composed
+    layers."""
+    lib = build.library()
+    b, layers = F_SHAPES
+    model = f'inv_so3net_pn fp32 W-off F b={b}'
+    total = dict.fromkeys(['template', *F32_VARIANTS], 0.0)
+    lines = []
+    for tag, p1, p2, nn, c in layers:
+        gx, idx, table, rk, k2, _ = _operands(dev, b, p1, p2, nn, c, 32,
+                                              seed=nn + c,
+                                              dtype=torch.float32)
+        F = torch.empty(b, p2, 60, 24, c, device=dev)
+        args = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(),
+                rk.data_ptr(), k2.data_ptr(), F.data_ptr(), b, p2, nn, p1,
+                60, 24, c, 0.08)
+        template = _caller(lib.epn_inter_conv_f, args + (0,),
+                           'epn_inter_conv_f')
+        runs = {'template': template}
+        runs.update({n: _caller(fn, args, 'epn_inter_conv_f_f32')
+                     for n, fn in fns.items()})
+        # each build timed in turn, then again in the reverse order: a
+        # build's place in the order moved its time by ~10%
+        rec = dict.fromkeys(runs, 0.0)
+        for order in (list(runs), list(runs)[::-1]):
+            for n in order:
+                rec[n] += time_ms(runs[n]) / 2
+        for n, ms in rec.items():
+            total[n] += ms
+        template()
+        want = F.clone()
+        plain = inter_conv.inter_conv_f_plain(gx, idx, table, rk, k2, 0.08)
+        err = {}
+        for n in F32_EXACT:
+            _caller(fns[n], args, n)()
+            torch.cuda.synchronize()
+            err[n] = {'bitwise_vs_template': torch.equal(F, want),
+                      'rel': _rel(F, plain)}
+        del want, plain
+        lines.append({'model': model, 'layer': tag,
+                      'dims': [b, p1, p2, nn, c], 'ms': rec,
+                      'vs_f_plain': err, 'card': card})
+        print(json.dumps(lines[-1]), flush=True)
+        del gx, idx, table, F
+        torch.cuda.empty_cache()
+    lines.append({'model': model, 'sum_over_layers': True, 'ms': total,
+                  'card': card})
+    print(json.dumps(lines[-1]), flush=True)
+    return lines
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('inter_conv_variants: needs a CUDA device')
     sys.path.insert(0, ROOT)
     from chip_smoke import time_ms
-    fns = _build(VARIANTS, 'epn_inter_conv_mma')
-    f_fns = _build(F_VARIANTS, 'epn_inter_conv_f_mma')
     dev = torch.device('cuda')
     card = torch.cuda.get_device_name(0)
-    lines = (forward_part(fns, dev, card, time_ms)
-             + f_part(f_fns, dev, card, time_ms))
+    parts = ((VARIANTS, 'epn_inter_conv_mma', 'inter_conv_mma_kernel',
+              forward_part),
+             (F_VARIANTS, 'epn_inter_conv_f_mma', 'inter_f_mma_kernel',
+              f_part),
+             (F32_VARIANTS, 'epn_inter_conv_f_f32', 'inter_f_f32_kernel',
+              f32_part))
+    lines = []
+    for variants, entry, kernel, run in parts:
+        fns, regs = _build(variants, entry, kernel)
+        lines += run(fns, dev, card, time_ms)
+        for n, use in regs.items():
+            for fn_name, u in use.items():
+                lines.append({'build': n, 'function': fn_name, **u})
+                print(json.dumps(lines[-1]), flush=True)
     out_dir = os.path.join(ROOT, 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, 'inter_conv_variants.json'), 'w') as f:

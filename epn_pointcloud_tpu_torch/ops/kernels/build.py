@@ -54,6 +54,10 @@ SIGNATURES = {
     # on tensor cores)
     'epn_inter_conv_f_mma': [_P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # gx, idx, table, rk, k2, f, b, p2, nn, q, na, k, c, sigma, stream (fp32
+    # on the CUDA cores)
+    'epn_inter_conv_f_f32': [_P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # gx, idx, rk, k2, df, d_table, b, p2, nn, q, na, k, c, sigma, bf16,
     # stream
     'epn_inter_conv_dg': [_P, _P, _P, _P, _P, _P,

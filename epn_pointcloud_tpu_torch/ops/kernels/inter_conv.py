@@ -54,10 +54,11 @@ kernels round them (``_bwd_gather_w_kernel:1133, 1140``), as the plain
 version does. The fp32 fused dW runs its own CUDA-core kernel
 (``dw_f32_route``; other fp32 shapes on the template), F built in fp32 and
 summed in the template's order, dW summed in fp32. The bf16 W-off F runs
-on tensor cores (``f_mma_route``;
-other shapes on the SGEMM template's W-off mode) at the same rounding
-points as its plain version: the anchor weights rounded to bf16, fp32
-sums, F rounded once.
+on tensor cores (``f_mma_route``) at the same rounding points as its plain
+version: the anchor weights rounded to bf16, fp32 sums, F rounded once. The
+fp32 W-off F runs its own CUDA-core kernel (``f_f32_route``), F summed in
+the template's order (bitwise the template's). Other shapes run the SGEMM
+template's W-off mode.
 """
 
 from __future__ import annotations
@@ -93,11 +94,12 @@ launches = dict.fromkeys(ENTRIES, 0)
 # (``inter_dw_mma_kernel``), 'dw_f32', the fp32 CUDA-core kernel
 # (``inter_dw_f32_kernel``), or 'dw', the template (``inter_dw_kernel``:
 # shapes off both routes); the W-off F's 'f_mma', the
-# bf16 tensor-core kernel (``inter_f_mma_kernel``), or 'f', the SGEMM
-# template's W-off mode (fp32, and bf16 shapes off ``f_mma_route``)
+# bf16 tensor-core kernel (``inter_f_mma_kernel``), 'f_f32', the fp32
+# CUDA-core kernel (``inter_f_f32_kernel``), or 'f', the SGEMM template's
+# W-off mode (shapes off both routes)
 routes = dict.fromkeys(('mma', 'sgemm', 'dtable_mma', 'dtable_f32', 'dtable',
                         'dg_mma', 'dg_f32', 'dg', 'dw_mma', 'dw_f32', 'dw',
-                        'f_mma', 'f'), 0)
+                        'f_mma', 'f_f32', 'f'), 0)
 
 # anchors per step of the plain versions: bounds their [b, p, n, chunk, *]
 # intermediates (~1 GB at b=32 on the widest flagship layer)
@@ -135,6 +137,9 @@ DW_F32_BLOCKS = {64: 1056, 128: 1056, 256: 528}
 # the bf16 tensor-core W-off F's envelope (``f_mma_route``): the anchors, a
 # multiple of the channels (its chunk), neighbors up to
 F_MMA_NA, F_MMA_CC, F_MMA_MAX_NN = 60, 32, 64
+# the fp32 CUDA-core W-off F's envelope (``f_f32_route``): the anchors, a
+# multiple of the channels (its narrower chunk), neighbors up to
+F_F32_NA, F_F32_CC, F_F32_MAX_NN = 60, 16, 64
 
 
 def anchor_weights(gx: torch.Tensor, rk: torch.Tensor, k2: torch.Tensor,
@@ -402,10 +407,20 @@ def f_mma_route(dtype, K: int, c: int, nn: int, na: int) -> bool:
     """Whether the W-off F runs the bf16 tensor-core kernel
     (``inter_f_mma_kernel``): a bf16 table and K == 24, na == 60, c % 32 ==
     0 and 1 <= nn <= 64 (every composed-route layer of the inv model). fp32
-    and the other shapes the wrapper takes run the SGEMM template's W-off
-    mode."""
+    and the other shapes the wrapper takes run the CUDA-core kernel
+    (``f_f32_route``) or the SGEMM template's W-off mode."""
     return (dtype == torch.bfloat16 and K == N_KERNEL and na == F_MMA_NA
             and c % F_MMA_CC == 0 and 1 <= nn <= F_MMA_MAX_NN)
+
+
+def f_f32_route(dtype, K: int, c: int, nn: int, na: int) -> bool:
+    """Whether the W-off F runs the fp32 CUDA-core kernel
+    (``inter_f_f32_kernel``): an fp32 table and K == 24, na == 60, c % 16
+    == 0 and 1 <= nn <= 64 (every composed-route layer of the inv model).
+    bf16 and the other shapes the wrapper takes run the tensor-core kernel
+    (``f_mma_route``) or the SGEMM template's W-off mode."""
+    return (dtype == torch.float32 and K == N_KERNEL and na == F_F32_NA
+            and c % F_F32_CC == 0 and 1 <= nn <= F_F32_MAX_NN)
 
 
 def bwd_f32_workspace(b: int, p2: int, K: int, c: int, d: int) -> int:
@@ -571,8 +586,9 @@ def inter_conv_f(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
                  sigma: float) -> torch.Tensor:
     """W-off forward wrapper -> F [b, p2, na, K, c] in the table's type
     (fp32 or bf16): plain version on the CPU, CUDA kernel on the card: the
-    tensor-core kernel where ``f_mma_route`` holds (bf16), else the SGEMM
-    template's W-off mode. Both are deterministic (no atomics)."""
+    tensor-core kernel where ``f_mma_route`` holds (bf16), the CUDA-core
+    kernel where ``f_f32_route`` holds (fp32), else the SGEMM template's
+    W-off mode. All are deterministic (no atomics)."""
     if table.device.type == 'cpu':
         return inter_conv_f_plain(gx, idx, table, rk, k2, sigma)
     bf16 = build.dtype_flag(table.dtype, 'inter_conv_f')
@@ -584,11 +600,13 @@ def inter_conv_f(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
             float(sigma))
     launches['inter_conv_f'] += 1
     if f_mma_route(table.dtype, K, c, nn, na):
-        routes['f_mma'] += 1
-        build.launch('epn_inter_conv_f_mma', *ptrs, build.stream(table))
+        route, entry, tail = 'f_mma', 'epn_inter_conv_f_mma', ()
+    elif f_f32_route(table.dtype, K, c, nn, na):
+        route, entry, tail = 'f_f32', 'epn_inter_conv_f_f32', ()
     else:
-        routes['f'] += 1
-        build.launch('epn_inter_conv_f', *ptrs, bf16, build.stream(table))
+        route, entry, tail = 'f', 'epn_inter_conv_f', (bf16,)
+    routes[route] += 1
+    build.launch(entry, *ptrs, *tail, build.stream(table))
     return F
 
 

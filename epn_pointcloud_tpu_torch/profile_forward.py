@@ -43,11 +43,12 @@ from .train import make_optimizer
 
 # kernel-name substrings (all of them) -> group (first match wins); the
 # W-off modes are the inter kernels' instantiations with kWOff = true (and
-# the bf16 W-off F's own tensor-core kernel), B6 df the tensor-core intra
-# kernel's with DF = true (its last argument); the backward scatter's
-# template, tensor-core and CUDA-core kernels (with the latter's W and
-# dout transposes) share a group
+# the W-off F's own kernels, bf16 tensor-core and fp32 CUDA-core), B6 df
+# the tensor-core intra kernel's with DF = true (its last argument); the
+# backward scatter's template, tensor-core and CUDA-core kernels (with
+# the latter's W and dout transposes) share a group
 GROUPS = (('inter_f_mma_kernel', 'inter F (W-off) kernel'),
+          ('inter_f_f32_kernel', 'inter F (W-off) kernel'),
           (('inter_conv_kernel', 'true>'), 'inter F (W-off) kernel'),
           (('inter_dtable_kernel', 'true>'), 'inter dG (W-off) kernel'),
           (('inter_bwd_mma_kernel', 'true>'), 'inter dG (W-off) kernel'),

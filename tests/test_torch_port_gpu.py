@@ -18,8 +18,9 @@ their envelopes; the bf16 intra dW on
 tensor cores (B6 dW and the plain form's) at every model width, with a
 fold for the batch and one a cloud, at point counts that leave its last
 8-point group short, its determinism, and the SGEMM off its envelope;
-the bf16 W-off F on tensor cores at every composed-route layer and at
-its edges, its determinism, and the template off its envelope.
+the bf16 W-off F on tensor cores and the fp32 one on the CUDA cores at
+every composed-route layer and at their edges (the fp32 one bitwise the
+template's), their determinism, and the template off their envelopes.
 
 Run on a machine with the card:
   python -m pytest tests/test_torch_port_gpu.py -q -m gpu --noconftest
@@ -1152,10 +1153,26 @@ def test_woff_kernels_bf16_match_plain(cuda, b, p1, stride, nn, c, d):
 F_MMA_SHAPES = WOFF_SHAPES + [(16, 512, 1, 32, 32, 32)]
 
 
+def _template_f(gx, idx, f, rk, k2):
+    """The SGEMM template's fp32 W-off F (``epn_inter_conv_f`` with bf16 =
+    0) on the same inputs."""
+    b, p2, nn = idx.shape
+    q, na, c = f.shape[1:]
+    K = rk.shape[1]
+    F = torch.empty((b, p2, na, K, c), device=f.device)
+    build = tkern.inter_conv.build
+    build.launch('epn_inter_conv_f', gx.data_ptr(), idx.data_ptr(),
+                 f.data_ptr(), rk.data_ptr(), k2.data_ptr(), F.data_ptr(), b,
+                 p2, nn, q, na, K, c, 0.08, 0, build.stream(f))
+    torch.cuda.synchronize()
+    return F
+
+
 def _f_case(cuda, b, p1, stride, nn, c, dtype=BF16, shadow=False, seed=0):
     """(routes taken, the kernel's F, a second call's F, the plain version's
-    F) of one inter_conv_f call from a table in ``dtype``; shadow: every
-    third neighbor slot holds the shadow index."""
+    F, and from an fp32 table the template's F, else None) of one
+    inter_conv_f call from a table in ``dtype``; shadow: every third
+    neighbor slot holds the shadow index."""
     gx, idx, f, rk, k2, _, _ = _inter_operands(cuda, b, p1, stride, nn, c,
                                                32, seed=seed)
     if shadow:
@@ -1167,7 +1184,10 @@ def _f_case(cuda, b, p1, stride, nn, c, dtype=BF16, shadow=False, seed=0):
     again = ic.inter_conv_f(gx, idx, f, rk, k2, 0.08)
     torch.cuda.synchronize()
     route = [k for k in ic.routes if ic.routes[k] > before[k]]
-    return route, got, again, ic.inter_conv_f_plain(gx, idx, f, rk, k2, 0.08)
+    template = (_template_f(gx, idx, f, rk, k2) if dtype == torch.float32
+                else None)
+    return (route, got, again, ic.inter_conv_f_plain(gx, idx, f, rk, k2, 0.08),
+            template)
 
 
 @pytest.mark.parametrize('b,p1,stride,nn,c,d', F_MMA_SHAPES)
@@ -1177,8 +1197,8 @@ def test_inter_f_mma_kernel_matches_plain(cuda, b, p1, stride, nn, c, d):
     1e-3 (normwise) of the plain version at the same rounding points (the
     anchor weights in bf16, fp32 sums, F rounded once), and bitwise equal
     on a second call (no atomics)."""
-    route, got, again, want = _f_case(cuda, b, p1, stride, nn, c,
-                                      seed=nn + c)
+    route, got, again, want, _ = _f_case(cuda, b, p1, stride, nn, c,
+                                         seed=nn + c)
     assert route == ['f_mma']
     assert got.dtype == BF16 and got.shape == want.shape
     assert bool(torch.isfinite(got).all())
@@ -1194,20 +1214,55 @@ def test_inter_f_mma_kernel_edges(cuda, b, p1, stride, nn, c):
     whole k16 steps (20, 8, 40), rows that end inside a 64-row block (900,
     7200, 3960 rows), c = 96 (three 32-channel chunks a row) and 64: within
     1e-3 of the plain version, bitwise equal on a second call."""
-    route, got, again, want = _f_case(cuda, b, p1, stride, nn, c,
-                                      shadow=True, seed=p1 + nn)
+    route, got, again, want, _ = _f_case(cuda, b, p1, stride, nn, c,
+                                         shadow=True, seed=p1 + nn)
     assert route == ['f_mma']
     assert _rel(got.float(), want.float()) <= 1e-3
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize('dtype,c', [(torch.float32, 32), (BF16, 40),
+@pytest.mark.parametrize('b,p1,stride,nn,c,d', F_MMA_SHAPES)
+def test_inter_f_f32_kernel_matches_plain(cuda, b, p1, stride, nn, c, d):
+    """The CUDA-core fp32 W-off F at every composed-route layer of the inv
+    model (and B0L1 at b = 16): taken by the wrapper, its F bitwise equal
+    to the SGEMM template's on the same inputs (each element summed over
+    the neighbors in the template's order), within 1e-5 (normwise) of the
+    plain version, and bitwise equal on a second call (no atomics)."""
+    route, got, again, want, template = _f_case(
+        cuda, b, p1, stride, nn, c, dtype=torch.float32, seed=nn + c)
+    assert route == ['f_f32']
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, template)
+    assert _rel(got, want) <= 1e-5
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('b,p1,stride,nn,c', [
+    (1, 45, 3, 20, 32), (2, 64, 2, 64, 96), (3, 40, 1, 8, 48),
+    (2, 33, 1, 44, 48)])
+def test_inter_f_f32_kernel_edges(cuda, b, p1, stride, nn, c):
+    """The CUDA-core F's edges, a third of the slots shadow: a last stage
+    of fewer than 8 neighbors (20, 44), rows that end inside a 64-row block
+    (900, 7200, 3960 rows), c = 96 (three 32-channel chunks a row) and
+    c = 48 (three 16-channel chunks): bitwise the template's, within 1e-5
+    of the plain version, bitwise equal on a second call."""
+    route, got, again, want, template = _f_case(
+        cuda, b, p1, stride, nn, c, dtype=torch.float32, shadow=True,
+        seed=p1 + nn)
+    assert route == ['f_f32']
+    assert torch.equal(got, template)
+    assert _rel(got, want) <= 1e-5
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('dtype,c', [(torch.float32, 40), (BF16, 40),
                                      (BF16, 24)])
 def test_inter_f_off_envelope_takes_the_template(cuda, dtype, c):
-    """fp32, and bf16 channels that are not a multiple of 32, run the SGEMM
-    template's W-off mode as before ('f'): the forward's fp32 bound in
-    fp32, 8e-3 in bf16 (``test_woff_kernels_bf16_match_plain``'s)."""
-    route, got, _, want = _f_case(cuda, 2, 64, 1, 32, c, dtype=dtype)
+    """fp32 channels that are not a multiple of 16, and bf16 ones that are
+    not a multiple of 32, run the SGEMM template's W-off mode as before
+    ('f'): the forward's fp32 bound in fp32, 8e-3 in bf16
+    (``test_woff_kernels_bf16_match_plain``'s)."""
+    route, got, _, want, _ = _f_case(cuda, 2, 64, 1, 32, c, dtype=dtype)
     assert route == ['f']
     if dtype == torch.float32:
         _conv_close(got, want, 32)

@@ -10,8 +10,10 @@ The text each ``inter_conv_variants`` and ``inter_bwd_variants`` build
 substitutes is in the source. The fp32 fused dW goes to its CUDA-core
 kernel (``dw_f32_route``) at every fused-route layer, and the fp32
 backward scatter (the fused dTable and the W-off dG) to its CUDA-core
-kernel (``bwd_f32_route``) at every layer of both models, each wrapper
-giving its C entry as many arguments as the entry's signature holds.
+kernel (``bwd_f32_route``) at every layer of both models, and the fp32
+W-off F to its CUDA-core kernel (``f_f32_route``) at every composed-route
+layer, each wrapper giving its C entry as many arguments as the entry's
+signature holds.
 The kernels themselves are held against their plain versions on the card
 (tests/test_torch_port_gpu.py); the plain versions against the JAX package
 in tests/test_torch_port_bf16_train.py and tests/test_torch_port_inv_bf16.py.
@@ -255,24 +257,47 @@ def test_f_shapes_off_the_envelope_take_the_template(K, c, nn, na):
     assert not tkern.inter_conv.f_mma_route(BF16, K, c, nn, na)
 
 
+@pytest.mark.parametrize('name,n_composed', [('cls_so3net_pn', 0),
+                                             ('inv_so3net_pn', 4)])
+def test_every_composed_layer_takes_the_fp32_f(name, n_composed):
+    """inv B0L1, B1L0, B2L0 and B3L0: the fp32 W-off F on its CUDA-core
+    kernel, bf16 not."""
+    layers = _composed_layers(name)
+    assert len(layers) == n_composed
+    ic = tkern.inter_conv
+    for K, c, d, nn, na in layers:
+        assert ic.f_f32_route(torch.float32, K, c, nn, na), (c, nn)
+        assert not ic.f_f32_route(BF16, K, c, nn, na)
+
+
+@pytest.mark.parametrize('K,c,nn,na', [(24, 24, 32, 60), (24, 40, 64, 60),
+                                       (24, 32, 65, 60), (24, 32, 32, 12),
+                                       (18, 32, 32, 60), (24, 32, 0, 60)])
+def test_f_f32_shapes_off_the_envelope_take_the_template(K, c, nn, na):
+    """fp32 channels not a multiple of 16, more than 64 neighbors (or
+    none), another group, another kernel size."""
+    assert not tkern.inter_conv.f_f32_route(torch.float32, K, c, nn, na)
+
+
 def test_reset_counts_clears_the_f_routes():
     ic = tkern.inter_conv
     ic.routes['f_mma'] += 2
+    ic.routes['f_f32'] += 3
     ic.routes['f'] += 1
     tkern.reset_counts()
-    assert ic.routes['f_mma'] == ic.routes['f'] == 0
+    assert ic.routes['f_mma'] == ic.routes['f_f32'] == ic.routes['f'] == 0
 
 
 @pytest.mark.parametrize('dtype,route,entry', [
     (BF16, 'f_mma', 'epn_inter_conv_f_mma'),
-    (torch.float32, 'f', 'epn_inter_conv_f')])
+    (torch.float32, 'f_f32', 'epn_inter_conv_f_f32')])
 def test_composed_backward_counts_the_f_kernel(dtype, route, entry,
                                                monkeypatch):
     """An InterConvFn forward and backward at every composed-route layer of
     the inv model (b = 1, 64 points) on the card branch: one W-off F a
-    layer, on the tensor-core kernel in bf16 ('f_mma') and on the template
-    in fp32 ('f'), beside one W-off dG and no fused dTable or dW; the
-    gradients in the table's and W's type."""
+    layer, on the tensor-core kernel in bf16 ('f_mma') and on the CUDA-core
+    kernel in fp32 ('f_f32'), beside one W-off dG and no fused dTable or
+    dW; the gradients in the table's and W's type."""
     launched = _card_shapes(monkeypatch)
     ic = tkern.inter_conv
     meta = torch.device('meta')
@@ -292,8 +317,8 @@ def test_composed_backward_counts_the_f_kernel(dtype, route, entry,
         assert table.grad.dtype == W.grad.dtype == dtype
         assert W.grad.shape == (K, c, d)
     n = len(layers)
-    other = 'f' if route == 'f_mma' else 'f_mma'
-    assert (ic.routes[route], ic.routes[other]) == (n, 0)
+    assert {k: ic.routes[k] for k in ('f_mma', 'f_f32', 'f')} == {
+        k: n if k == route else 0 for k in ('f_mma', 'f_f32', 'f')}
     assert ic.launches['inter_conv_f'] == ic.launches['inter_conv_dg'] == n
     assert ic.launches['inter_conv_dtable'] == ic.launches['inter_conv_dw'] \
         == 0
@@ -337,14 +362,46 @@ def test_dw_launch_matches_its_entry_signature(dtype, c, d, route,
     tkern.reset_counts()
 
 
+@pytest.mark.parametrize('dtype,c,route', [(BF16, 32, 'f_mma'),
+                                           (torch.float32, 32, 'f_f32'),
+                                           (torch.float32, 48, 'f_f32'),
+                                           (torch.float32, 40, 'f')])
+def test_f_launch_matches_its_entry_signature(dtype, c, route, monkeypatch):
+    """The W-off F wrapper's card branch gives its C entry as many
+    arguments as the entry's ctypes signature holds, on each route."""
+    _card_shapes(monkeypatch)
+    ic = tkern.inter_conv
+    calls = []
+    monkeypatch.setattr(ic.build, 'launch',
+                        lambda name, *a: calls.append((name, a)))
+    meta = torch.device('meta')
+    b, p2, nn, q, na, K = 2, 64, 32, 128, 60, 24
+    tkern.reset_counts()
+    F = ic.inter_conv_f(torch.empty((b, p2, nn, 3), device=meta),
+                        torch.empty((b, p2, nn), dtype=torch.int32,
+                                    device=meta),
+                        torch.empty((b, q, na, c), dtype=dtype, device=meta),
+                        torch.empty((na, K, 3), device=meta),
+                        torch.empty((K,), device=meta), 0.1)
+    (name, args), = calls
+    assert len(args) == len(ic.build.SIGNATURES[name])
+    assert ic.routes[route] == 1
+    assert F.shape == (b, p2, na, K, c) and F.dtype == dtype
+    tkern.reset_counts()
+
+
 def test_variant_builds_substitute_text_in_the_source():
     """Each build of ``inter_conv_variants`` replaces text that
     csrc/inter_conv.cu holds (on the card a missing text fails the whole
-    run)."""
+    run); the fp32 W-off F's builds text that it holds exactly once."""
     from epn_pointcloud_tpu_torch import inter_conv_variants as icv
     with open(icv.SOURCE_PATH) as f:
         src = f.read()
-    subs = [sub for table in (icv.VARIANTS, icv.F_VARIANTS)
+    for sub in icv.F32_VARIANTS.values():
+        for old, _ in ([] if sub is None else
+                       [sub] if isinstance(sub[0], str) else sub):
+            assert src.count(old) == 1, old
+    subs = [sub for table in (icv.VARIANTS, icv.F_VARIANTS, icv.F32_VARIANTS)
             for sub in table.values() if sub is not None]
     assert subs
     for sub in subs:
