@@ -11,10 +11,10 @@ epn_inter_conv_dg, epn_inter_conv_bwd_w and epn_intra_conv_bwd_w (bf16)
 are timed beside this tree's bf16 W-fused inter forward, W-off F, prenorm
 intra forward, B6 df, fused dTable, W-off dG, fused dW and B6 dW at every
 call of phases 4, 9 and 16, and its epn_inter_conv_bwd_w,
-epn_inter_conv_bwd_table, epn_inter_conv_dg and epn_inter_conv_f (fp32)
-beside this tree's fp32 fused dW, fused dTable, W-off dG and W-off F at
-every call of phases 6 and 12, on the same inputs, in turns (parent, new,
-new, parent).
+epn_inter_conv_bwd_table, epn_inter_conv_dg, epn_inter_conv_f and
+epn_intra_conv_bwd_w (fp32) beside this tree's fp32 fused dW, fused
+dTable, W-off dG, W-off F and intra dW at every call of phases 6 and 12,
+on the same inputs, in turns (parent, new, new, parent).
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from csrc/ (one nvcc a source, in parallel,
@@ -24,8 +24,9 @@ Phases (any failure exits non-zero and prints no result line):
      and B6 df, the inter backward scatter, the fused inter dW, the intra
      dW; cuobjdump): none fails; and in the SASS of the fp32 CUDA-core
      kernels of the fused inter dW (inter_dw_f32_kernel), the backward
-     scatter (inter_bwd_f32_kernel) and the W-off F (inter_f_f32_kernel)
-     FFMA and no HMMA or GMMA (no TF32);
+     scatter (inter_bwd_f32_kernel), the W-off F (inter_f_f32_kernel) and
+     the intra dW (intra_dw_f32_kernel) FFMA and no HMMA or GMMA (no
+     TF32);
   2. at every flagship layer shape of cls_so3net_pn (b=32, 1024 points, 60
      anchors), compare each kernel with its plain PyTorch version on the
      card, on the inputs the model itself gives it (captured from a b=32
@@ -64,8 +65,9 @@ Phases (any failure exits non-zero and prints no result line):
      dTable, W-off dG, fused dW and W-off F too: the tensor-core scatter,
      dW and F in bf16; in fp32 the CUDA-core kernels of the fused dW
      (inter_dw_f32_kernel, 'dw_f32') and of the fused dTable and W-off dG
-     (inter_bwd_f32_kernel, 'dtable_f32', 'dg_f32') and of the W-off F
-     (inter_f_f32_kernel, 'f_f32'));
+     (inter_bwd_f32_kernel, 'dtable_f32', 'dg_f32'), of the W-off F
+     (inter_f_f32_kernel, 'f_f32') and of the intra dW
+     (intra_dw_f32_kernel, 'dw_f32'; the SGEMM's 'dw' nowhere));
   6. capture each backward kernel call of one train-mode step of the seeded
      full-width model on a synthetic b=12 batch (inter dTable and dW at 6
      layers, intra df and dW at 7) and compare each with its plain version
@@ -78,7 +80,12 @@ Phases (any failure exits non-zero and prints no result line):
      beside the earlier tree's fp32 template under one timer); every
      dTable on the fp32 CUDA-core scatter ('dtable_f32'), timed beside one
      torch.mm(dout2, W2^T) and that torch.mm then the CUDA-core dG (and,
-     --parent-csrc, beside the earlier tree's fp32 template);
+     --parent-csrc, beside the earlier tree's fp32 template); every intra
+     dW on its fp32 CUDA-core kernel ('dw_f32'), bitwise equal on a
+     second call, its error against a float64 dW at most 1.5 times the
+     SGEMM's (this tree's epn_intra_conv_bwd_w on the same inputs), timed
+     beside one torch.mm of the gathered f by dout (and, --parent-csrc,
+     beside the earlier tree's fp32 SGEMM under one timer);
   7. one train step (b=12) on the kernel path and on the plain path
      (``kernels.plain()``: plain forward, torch autograd) from the same
      weights: loss to rtol 1e-5, per-leaf gradients by the rule of
@@ -140,8 +147,9 @@ Phases (any failure exits non-zero and prints no result line):
      batched torch.matmul of the anchor weights by the gathered table
      rows; fps and ball_query indices equal; normwise <= 1e-5 for the forward
      kernels, df, dTable and the W-off inter_conv_f / inter_conv_dg, <=
-     1e-4 for the dW reductions; every fused dW and dTable on its fp32
-     CUDA-core kernel, checked and timed as in phase 6, every W-off dG on
+     1e-4 for the dW reductions; every fused dW, dTable and intra dW on
+     its fp32 CUDA-core kernel, checked and timed as in phase 6, every
+     W-off dG on
      the CUDA-core scatter ('dg_f32', beside the earlier tree's template
      with --parent-csrc); every W-off F on its CUDA-core kernel ('f_f32'),
      bitwise equal to this tree's template on the same inputs and on a
@@ -426,9 +434,9 @@ TC_KERNELS = ('grouped_conv_mma_kernel', 'grouped_bwd_mma_kernel',
               'inter_dw_mma_kernel', 'intra_dw_mma_kernel')
 # the fp32 kernels held to full fp32 products on the CUDA cores: the fused
 # inter dW, the inter backward scatter (the fused dTable and the W-off dG),
-# the W-off F
+# the W-off F, the intra dW
 FFMA_KERNELS = ('inter_dw_f32_kernel', 'inter_bwd_f32_kernel',
-                'inter_f_f32_kernel')
+                'inter_f_f32_kernel', 'intra_dw_f32_kernel')
 
 
 def tensor_core_sass(so):
@@ -734,7 +742,7 @@ def route_counts():
     kernels, 'dtable_f32' / 'dg_f32' / 'dw_f32', the fp32 CUDA-core
     kernels, or 'dtable' / 'dg' / 'dw' / 'f', the templates), and the intra
     forward's with B6 df's (with dW's: 'dw_mma', the bf16 tensor-core
-    kernel, or 'dw', the SGEMM)."""
+    kernel, 'dw_f32', the fp32 CUDA-core kernel, or 'dw', the SGEMM)."""
     from epn_pointcloud_tpu_torch.ops import kernels
     return {'inter': dict(kernels.inter_conv.routes),
             'intra': dict(kernels.intra_conv.routes)}
@@ -747,7 +755,8 @@ def check_routes(tag, dtype, counts, routes):
     through the kernel of its dtype: the tensor-core kernels in bf16; in
     fp32 the SGEMMs and the CUDA-core kernels of the fused dW ('dw_f32'),
     the backward scatter ('dtable_f32', 'dg_f32') and the W-off F
-    ('f_f32') (``routes``: ``route_counts()``, read with ``counts``)."""
+    ('f_f32'), and of the intra dW ('dw_f32'; the SGEMM 'dw' nowhere)
+    (``routes``: ``route_counts()``, read with ``counts``)."""
     want = {}
     for conv, n in (('inter', counts['inter_conv']),
                     ('intra', counts['intra_conv']
@@ -771,6 +780,11 @@ def check_routes(tag, dtype, counts, routes):
         n = counts[f'inter_conv_{entry}']
         want['inter'].update({f'{entry}_f32': 0} if dtype == 'bf16' else
                              {entry: 0, f'{entry}_f32': n})
+    # the intra dW in fp32: its CUDA-core kernel (the plain form; the
+    # prenorm form's SGEMM on no fp32 model path)
+    n = counts['intra_conv_dw'] + counts['intra_conv_prenorm_dw']
+    want['intra'].update({'dw_f32': 0} if dtype == 'bf16' else
+                         {'dw': 0, 'dw_f32': n})
     log(f'{tag} launches by kernel: {routes}')
     assert routes == want, (routes, want)
 
@@ -1286,7 +1300,8 @@ def _library_note(row):
         note += f' bitwise_vs_template={row["bitwise_vs_template"]}'
     if 'f64_ratio' in row:
         note += (f' rel_f64={row["rel_f64"]:.3e} template_rel_f64='
-                 f'{row["template_rel_f64"]:.3e} [ratio <= 2]')
+                 f'{row["template_rel_f64"]:.3e} [ratio <= '
+                 f'{row.get("f64_limit", 2.0)}]')
     for key in ('route', 'composed_ms', 'parent_ms', 'same_timer_ms'):
         if key in row:
             v = row[key]
@@ -1301,8 +1316,9 @@ def _extras_ok(row):
     dtype (``inter_bwd_extras``), inter dW (``inter_dw_extras``), intra dW
     (``intra_dw_extras``) and W-off F (``inter_f_extras``): the tensor-core
     kernel ran (the fp32 dW, scatter and W-off F: their CUDA-core kernel;
-    the dW at most twice the template's error against float64, the W-off F
-    bitwise the template's), its output is bitwise equal on a
+    the inter dW at most twice the template's error against float64, the
+    intra dW 1.5 times the SGEMM's (``f64_limit``), the W-off F bitwise
+    the template's), its output is bitwise equal on a
     second call (not the scatter's: atomics), and within 1e-3 (normwise) of
     ``inter_conv_mma_plain`` (inter forward) or ``inter_conv_f_plain``
     (bf16 W-off F). ``parent_equal`` (--parent-csrc) is printed, not gated:
@@ -1314,7 +1330,7 @@ def _extras_ok(row):
             and row.get('bitwise_vs_template', True)
             and row.get('rel_vs_mma_plain', 0.0) <= 1e-3
             and row.get('rel_vs_f_plain', 0.0) <= 1e-3
-            and row.get('f64_ratio', 0.0) <= 2.0)
+            and row.get('f64_ratio', 0.0) <= row.get('f64_limit', 2.0))
 
 
 # the earlier tree's kernels (--parent-csrc), timed beside this tree's:
@@ -1455,83 +1471,104 @@ def inter_dw_extras(name, args, got):
     return rec
 
 
-def check_fp32_dw_rows(tag, rows, n_expect):
-    """Every fp32 fused dW call of a step (``rows``: phase 6's or 12's) on
-    the CUDA-core kernel ('dw_f32'), bitwise equal on a second call, within
-    1e-4 of its plain version (``check_call``) and at most twice the
-    template's error against float64; the sums printed beside the
-    template's under one timer (--parent-csrc) and one torch.mm."""
+def check_fp32_dw_rows(tag, rows, n_expect, what='fused dW',
+                       mm='torch.mm(F^T, dout)', limit=2.0):
+    """Every fp32 dW call of a step (``rows``: phase 6's or 12's; the fused
+    inter dW, or ``what`` = 'intra dW') on its CUDA-core kernel
+    ('dw_f32'), bitwise equal on a second call, within 1e-4 of its plain
+    version (``check_call``) and at most ``limit`` times the error of the
+    template (the SGEMM) against float64; the sums printed beside the
+    template's under one timer (--parent-csrc) and one torch.mm (``mm``)."""
     routes = [r['route'] for r in rows]
     ratios = [r['f64_ratio'] for r in rows]
     agg = _aggregate(rows)
 
     def col(key):
         return ' '.join(f'{r[key]:.2e}' for r in rows)
-    log(f'{tag} fp32 fused dW: {len(rows)} calls, routes {routes}; '
+    log(f'{tag} fp32 {what}: {len(rows)} calls, routes {routes}; '
         f'rel_norm_err vs plain {col("rel_norm_err")} (<= 1e-4); vs '
         f'float64 {col("rel_f64")}, the template {col("template_rel_f64")}'
-        f', ratio max {max(ratios):.3f} (<= 2); bitwise '
+        f', ratio max {max(ratios):.3f} (<= {limit}); bitwise '
         f'{all(r["bitwise_repeat"] for r in rows)}; kernel {agg["ms"]:.3f} '
-        f'ms, torch.mm(F^T, dout) {agg["library_ms"]:.3f}, bound '
+        f'ms, {mm} {agg["library_ms"]:.3f}, bound '
         f'{agg["bound_ms"]:.3f} (share {agg["bound_ms"] / agg["ms"]:.3f})'
         + (f', one timer: parent template {agg["parent_ms"]:.3f} vs '
            f'{agg["same_timer_ms"]:.3f}' if 'parent_ms' in agg else ''))
     assert len(rows) == n_expect and set(routes) == {'dw_f32'}, routes
     assert all(r['bitwise_repeat'] for r in rows)
     assert max(r['rel_norm_err'] for r in rows) <= 1e-4
-    assert max(ratios) <= 2.0, ratios
+    assert max(ratios) <= limit, ratios
 
 
 def intra_dw_extras(name, args, got):
-    """For a bf16 call of the intra dW (B6 dW, or the plain form's): the
-    kernel it ran (``route``, from the wrapper's counts: 'dw_mma' for the
-    tensor-core kernel) and whether a second call gives the same bits
-    (``bitwise_repeat``). With --parent-csrc also the earlier tree's
-    epn_intra_conv_bwd_w (bf16) on the same inputs, timed with this tree's
-    C entry in turns (parent, new, new, parent; each with its own
-    workspace and splits, into one preallocated dW; ``parent_ms``,
-    ``same_timer_ms``). {} for any other call."""
+    """For a call of the intra dW (B6 dW, or the plain form's): the kernel
+    it ran (``route``, from the wrapper's counts: 'dw_mma' for the bf16
+    tensor-core kernel, 'dw_f32' for the fp32 CUDA-core one) and whether a
+    second call gives the same bits (``bitwise_repeat``). In fp32 also its
+    normwise error and the SGEMM's (this tree's epn_intra_conv_bwd_w, the
+    route before it, on the same inputs) against ``intra_conv_dw_plain``
+    in float64 (``rel_f64``, ``template_rel_f64``) and their ratio
+    (``f64_ratio``, gated <= ``f64_limit`` = 1.5). With --parent-csrc also
+    the earlier tree's epn_intra_conv_bwd_w (in the call's dtype) on the
+    same inputs, timed with this tree's C entry in turns (parent, new, new,
+    parent; each with its own workspace and splits, into one preallocated
+    dW; ``parent_ms``, ``same_timer_ms``). {} for any other call."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     from epn_pointcloud_tpu_torch.ops.kernels import build
-    if name not in ('intra_conv_dw', 'intra_conv_prenorm_dw') or \
-            args[0].dtype != torch.bfloat16:
+    if name not in ('intra_conv_dw', 'intra_conv_prenorm_dw'):
         return {}
     ik = kernels.intra_conv
+    bf16 = args[0].dtype == torch.bfloat16
     before = dict(ik.routes)
     again = getattr(ik, name)(*args)
     torch.cuda.synchronize()
     rec = {'route': next(k for k in ik.routes if ik.routes[k] > before[k]),
            'bitwise_repeat': torch.equal(got, again)}
     del again
-    if PARENT:
-        f, ti, dout = args[0], args[-2], args[-1]
-        ss = args[1] if name == 'intra_conv_prenorm_dw' else None
-        b, p, na, c = f.shape
-        K, d = ti.shape[1], dout.shape[-1]
-        dW = torch.empty_like(got)
-        keep = []
+    f, ti, dout = args[0], args[-2], args[-1]
+    ss = args[1] if name == 'intra_conv_prenorm_dw' else None
+    b, p, na, c = f.shape
+    K, d = ti.shape[1], dout.shape[-1]
+    dW = torch.empty_like(got)
+    keep = []
 
-        def call(fn, mma, tail):
-            splits, rows = ik.dw_splits(b * p, na, K, c, d, mma)
-            ws = torch.empty((splits, K, c, d), dtype=torch.float32,
-                             device=got.device)
-            keep.append(ws)
-            ptrs = (f.data_ptr(), ti.data_ptr(),
-                    0 if ss is None else ss.data_ptr(), dout.data_ptr(),
-                    ws.data_ptr(), dW.data_ptr(), b, p, na, K, c, d,
-                    2 * na * c if ss is not None and ss.shape[0] > 1 else 0,
-                    splits) + ((rows,) if mma else tail)
+    def call(fn, route):
+        splits, rows = (ik.dw_f32_splits(b * p, na, c, d) if route == 'dw_f32'
+                        else ik.dw_splits(b * p, na, K, c, d,
+                                          route == 'dw_mma'))
+        ws = torch.empty((splits, K, c, d), dtype=torch.float32,
+                         device=got.device)
+        keep.append(ws)
+        ptrs = (f.data_ptr(), ti.data_ptr(),
+                0 if ss is None else ss.data_ptr(), dout.data_ptr(),
+                ws.data_ptr(), dW.data_ptr(), b, p, na, K, c, d,
+                2 * na * c if ss is not None and ss.shape[0] > 1 else 0,
+                splits) + ((int(bf16),) if route == 'dw' else (rows,))
 
-            def run():
-                err = fn(*ptrs, build.stream(f))
-                if err:
-                    raise RuntimeError(f'{name}: CUDA error {err}')
-            return run
+        def run():
+            err = fn(*ptrs, build.stream(f))
+            if err:
+                raise RuntimeError(f'{name}: CUDA error {err}')
+        return run
+    lib = build.library()
+    if rec['route'] == 'dw_f32':
+        want = ik.intra_conv_dw_plain(f.double(), ti, dout.double())
+        call(lib.epn_intra_conv_bwd_w, 'dw')()
+        torch.cuda.synchronize()
+        rec['rel_f64'] = float((got.double() - want).norm() / want.norm())
+        rec['template_rel_f64'] = float((dW.double() - want).norm()
+                                        / want.norm())
+        rec['f64_ratio'] = rec['rel_f64'] / max(rec['template_rel_f64'],
+                                                1e-30)
+        rec['f64_limit'] = 1.5
+        del want
+    if PARENT and rec['route'] in ('dw_mma', 'dw_f32'):
         rec['parent_ms'], rec['same_timer_ms'] = time_abba(
-            call(PARENT['intra_dw'], False, (1,)),
-            call(build.library().epn_intra_conv_bwd_w_mma, True, ()))
-        del dW, keep
+            call(PARENT['intra_dw'], 'dw'),
+            call(getattr(lib, 'epn_intra_conv_bwd_w_mma' if bf16 else
+                         'epn_intra_conv_bwd_w_f32'), rec['route']))
+    del dW, keep
     torch.cuda.empty_cache()
     return rec
 
@@ -1920,6 +1957,9 @@ def phase_backward_kernels(device, dtype='fp32'):
     if dtype == 'fp32':
         check_fp32_dw_rows(tag, results['inter_conv_dw'],
                            per_step['inter_conv_dw'])
+        check_fp32_dw_rows(tag, results['intra_conv_dw'],
+                           per_step['intra_conv_dw'], 'intra dW',
+                           'torch.mm(A^T, dout)', 1.5)
     return results
 
 
@@ -2363,6 +2403,9 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
     if fp32:
         check_fp32_dw_rows(tag, results['inter_conv_dw'],
                            per_step['inter_conv_dw'])
+        check_fp32_dw_rows(tag, results['intra_conv_dw'],
+                           per_step['intra_conv_dw'], 'intra dW',
+                           'torch.mm(A^T, dout)', 1.5)
         results['intra_conv'] += results.pop('intra_conv_df')
     return results, routes
 
@@ -2766,10 +2809,12 @@ def phase_inv_bf16_descriptor(device, root, reps=5):
             'plain_runs_ms': p_ts}
 
 
-# the fp32 CUDA-core kernels of the inter backward, by wrapper: the kernel
-# and its route (``inter_conv.routes``) in the kernels summary
+# the fp32 CUDA-core kernels of the inter and intra backward, by wrapper:
+# the kernel and its route (``inter_conv.routes``, ``intra_conv.routes``) in
+# the kernels summary
 F32_KERNELS = {
     'inter_conv_dw': {'kernel': 'inter_dw_f32_kernel', 'route': 'dw_f32'},
+    'intra_conv_dw': {'kernel': 'intra_dw_f32_kernel', 'route': 'dw_f32'},
     'inter_conv_dtable': {'kernel': 'inter_bwd_f32_kernel',
                           'route': 'dtable_f32'},
     'inter_conv_dg': {'kernel': 'inter_bwd_f32_kernel', 'route': 'dg_f32'},
@@ -2811,8 +2856,8 @@ def main(argv=None):
                     help="an earlier tree's csrc/ directory: its bf16 "
                     'W-fused inter forward, W-off F, prenorm intra forward, '
                     'B6 df, fused dTable, W-off dG, fused dW and B6 dW, and '
-                    'its fp32 fused dTable, W-off dG and fused dW, timed '
-                    "beside this tree's")
+                    'its fp32 fused dTable, W-off dG, fused dW, W-off F and '
+                    "intra dW, timed beside this tree's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2927,8 +2972,8 @@ def main(argv=None):
                         'fp32 train step b=12')
         if k.name not in _NO_WOFF and inv_results.get(k.name):
             rec['inv'] = _aggregate(inv_results[k.name])
-        if (k.name in bf16_bwd or k.name in bf16_results) and \
-                k.name in results:
+        if (k.name in bf16_bwd or k.name in bf16_results
+                or k.name in F32_KERNELS) and k.name in results:
             rec['fp32'] = _aggregate(results[k.name])
         if k.name in F32_KERNELS and k.name not in _NO_WOFF:
             # the fp32 fused dW and dTable: their own CUDA-core kernel, in

@@ -84,9 +84,42 @@
 // from device memory, each dout element C / 32 times; the blocks that
 // share rows are neighbors in the grid (columns fastest), so the re-reads
 // meet L2. The splits aim at two waves of one block an SM (DW_MMA_BLOCKS
-// in ops/kernels/intra_conv.py), never a third wave's few blocks. fp32
-// (the parity mode) and the other bf16 shapes run
-// intra_dw_kernel, the register-blocked SGEMM on the CUDA cores: a block
+// in ops/kernels/intra_conv.py), never a third wave's few blocks.
+// fp32, the plain form (the parity mode: every model layer, 60 anchors, 12
+// kernel points, C and D multiples of 32), runs on the CUDA cores in a
+// kernel of its own (intra_dw_f32_kernel; epn_intra_conv_bwd_w_f32), FFMA
+// only: no TF32, as the TPU kernel's fp32 dW dot runs at HIGHEST precision.
+// It replaces the dW half of _bwd_pallas -> _bwd_kernel. Its bound is the
+// fp32 FMA rate: 580 GFLOP over the cls b=12 step's 7 calls (8.65 ms at 67
+// TFLOP/s) and 435 GFLOP over the inv step's 16 (6.49 ms); reading f and
+// dout once costs 10-20x less. What held the SGEMM below (46% of that bound
+// on the cls step) back: nothing was in flight while it computed (each
+// 16-row slice crossed a barrier, staged by synchronous 16-byte loads,
+// crossed another, then ran 1,024 FFMA a thread: L2 latency was hidden only
+// by the other blocks on the SM); each f element was gathered from L2 12 x
+// (D / BN) times (a block owns 128 (k, c) rows of dW, so each kernel point
+// fetched it again) and dout re-read 12C / 128 times; and the narrow layers
+// got tiny blocks (64 threads at C = D = 32). The design does this about
+// them: a block owns 32 channels of all 12 kernel points and 32 columns of
+// D (4 warps, three kernel points each) and walks its split's points one at
+// a time; each point's f rows [60, 32] and dout rows [60, 32] stage once,
+// by cp.async, into a three-stage ring (the next two points in flight
+// behind this one's FFMA, one barrier a point). For kernel point k,
+// reduction row (p, a) reads slab row trace[a, k]: the gather is the
+// shared-load address (the adjacency staged once as each warp's slab
+// offsets), so each f element leaves L2 D / 32 times and each dout element
+// C / 32 times. A thread owns 3 kernel points x 4 channels x 8 columns (96
+// fp32 sums, each adding its rows in order): per row one 16-byte load of
+// offsets, three of f (a whole 128-byte slab row across each
+// quarter-warp's 8 lanes, so no bank conflicts; the other quarters
+// broadcast) and two of dout, for 96 FFMA; the row loop unrolled by 12
+// keeps more rows' loads in flight beside the FFMA (by 2, 4 or 6 slower;
+// intra_conv_variants.py). Three blocks an SM (12 warps at <= 168
+// registers). Splits of whole points fill one or two waves of 396
+// blocks (DW_F32_WAVE in ops/kernels/intra_conv.py): the 32-wide inv
+// layers, a single (c, d) tile, split 391 ways, the 256-wide cls layers 12.
+// The fp32 prenorm form and the other bf16 shapes run intra_dw_kernel, the
+// register-blocked SGEMM on the CUDA cores: a block
 // owns a 128 x BN tile of dW and one range of rows; it walks its rows 16 at
 // a time, staging the gathered A^T slice (the adjacency gather, and the
 // fold, done in the 16-byte staging loads, as in the forward) and the dout
@@ -1278,6 +1311,158 @@ int launch_bn(const void* f, const int* trace, const float* ss,
 
 }  // namespace dwmma
 
+// ------------------------------------------- fp32 dW on the CUDA cores
+
+namespace dwf32 {
+
+using mma::kK;
+using mma::kNA;
+constexpr int kCB = 32;                // channels a block (all 12 kernel points)
+constexpr int kBN = 32;                // columns of D a block
+constexpr int kKT = 3;                 // kernel points a warp (and a thread)
+constexpr int kWarps = kK / kKT;       // 4
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBlocksPerSM = 3;        // 12 warps an SM at <= 168 registers
+constexpr int kStages = 3;             // points in the cp.async ring
+constexpr int kStage = kNA * (kCB + kBN);  // floats a stage: f rows, dout rows
+// shared memory: the adjacency as slab offsets [kNA][kWarps] int4, then the
+// ring of kStages stages, each a point's f rows [kNA][kCB] and its dout
+// rows [kNA][kBN]
+constexpr size_t kOffBytes = (size_t)kNA * kWarps * sizeof(int4);
+constexpr size_t kSmem = kOffBytes + (size_t)kStages * kStage * sizeof(float);
+static_assert(kK % kKT == 0 && kKT <= 4 && kCB == 32 && kBN == 32,
+              "thread layout");
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// The partial dW [kK, C, D] of split blockIdx.z (points pt_begin .. pt_end)
+// for channels c0 .. c0 + kCB of all 12 kernel points and columns n0 .. n0
+// + kBN, a point at a time through a ring of kStages stages: each point's
+// f rows and dout rows go out by cp.async kStages - 1 points ahead, one
+// barrier a point. Warp w owns kernel points 3w .. 3w + 2; lane cq + 8 co
+// owns channels c0 + 4 cq .. + 4 and columns n0 + 8 co .. + 8: 96 fp32 sums
+// (3 x 4 x 8), each adding its rows in order by fmaf. For reduction row
+// (p, a) and kernel point k the f row is slab row trace[a, k] of the point
+// (the gather is the shared-load address: s_off holds each anchor's three
+// slab offsets of the warp's kernel points); a row costs one 16-byte load
+// of offsets, three of f (each a whole 128-byte slab row across a
+// quarter-warp's 8 lanes, broadcast to the other quarters), two of dout,
+// and 96 FFMA.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+intra_dw_f32_kernel(const float* __restrict__ f, const int* __restrict__ trace,
+                    const float* __restrict__ dout, float* __restrict__ part,
+                    int n_pts, int C, int D, int pts_per_split) {
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  int4* s_off = reinterpret_cast<int4*>(f32_smem);
+  float* ring = reinterpret_cast<float*>(f32_smem + kOffBytes);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the thread's kernel points kKT kg .. + kKT, channels c0 + 4 cq .. + 4
+  // and columns n0 + 8 co .. + 8
+  const int kg = warp, cq = lane & 7, co = lane >> 3;
+  const int n0 = blockIdx.x * kBN, c0 = blockIdx.y * kCB, split = blockIdx.z;
+  const int pt_begin = split * pts_per_split;
+  const int n = max(0, min(n_pts, pt_begin + pts_per_split) - pt_begin);
+
+  for (int i = tid; i < kNA * kWarps; i += kThreads) {
+    const int a = i / kWarps, g = i - a * kWarps;
+    const int* t = trace + a * kK + g * kKT;
+    int o[4] = {0, 0, 0, 0};
+    for (int j = 0; j < kKT; ++j) o[j] = t[j] * kCB;
+    s_off[i] = make_int4(o[0], o[1], o[2], o[3]);
+  }
+
+  // point g of the split into its stage, one commit group (empty past n)
+  auto load = [&](int g) {
+    if (g < n) {
+      const size_t row0 = (size_t)(pt_begin + g) * kNA;
+      float* st = ring + (g % kStages) * kStage;
+      for (int e = tid; e < kNA * kCB / 4; e += kThreads) {
+        const int r = e / (kCB / 4), c4 = e % (kCB / 4) * 4;
+        tc::cp16(tc::smem_addr(st + r * kCB + c4),
+                 f + (row0 + r) * C + c0 + c4, true);
+      }
+      for (int e = tid; e < kNA * kBN / 4; e += kThreads) {
+        const int r = e / (kBN / 4), c4 = e % (kBN / 4) * 4;
+        tc::cp16(tc::smem_addr(st + kNA * kCB + r * kBN + c4),
+                 dout + (row0 + r) * D + n0 + c4, true);
+      }
+    }
+    tc::cp_commit();
+  };
+
+  float acc[kKT][4][8];
+#pragma unroll
+  for (int j = 0; j < kKT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[j][i][q] = 0.f;
+
+#pragma unroll
+  for (int g = 0; g < kStages - 1; ++g) load(g);
+#pragma unroll 1
+  for (int g = 0; g < n; ++g) {
+    tc::cp_wait<kStages - 2>();
+    __syncthreads();  // point g visible; every warp done with point g - 1
+    load(g + kStages - 1);
+    const float* fs = ring + (g % kStages) * kStage + 4 * cq;
+    const float* ds = ring + (g % kStages) * kStage + kNA * kCB + 8 * co;
+#pragma unroll 12
+    for (int a = 0; a < kNA; ++a) {
+      const int4 o = s_off[a * kWarps + kg];
+      const int oo[4] = {o.x, o.y, o.z, o.w};
+      float4 x[kKT];
+#pragma unroll
+      for (int j = 0; j < kKT; ++j) x[j] = lds4(fs + oo[j]);
+      const float4 d0 = lds4(ds + a * kBN), d1 = lds4(ds + a * kBN + 4);
+      const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+      for (int j = 0; j < kKT; ++j) {
+        const float xv[4] = {x[j].x, x[j].y, x[j].z, x[j].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            acc[j][i][q] = fmaf(xv[i], dv[q], acc[j][i][q]);
+      }
+    }
+  }
+  tc::cp_wait<0>();
+
+  // the split's partial: dW rows (kKT kg + j, c0 + 4 cq + i)
+  float* dst = part + (size_t)split * kK * C * D + n0 + 8 * co;
+#pragma unroll
+  for (int j = 0; j < kKT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* rowp =
+          dst + ((size_t)(kg * kKT + j) * C + c0 + 4 * cq + i) * D;
+      *reinterpret_cast<float4*>(rowp) = make_float4(
+          acc[j][i][0], acc[j][i][1], acc[j][i][2], acc[j][i][3]);
+      *reinterpret_cast<float4*>(rowp + 4) = make_float4(
+          acc[j][i][4], acc[j][i][5], acc[j][i][6], acc[j][i][7]);
+    }
+}
+
+int launch(const float* f, const int* trace, const float* dout, float* ws,
+           float* dW, int n_pts, int C, int D, int splits, int pts_per_split,
+           cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      intra_dw_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
+  if (err != cudaSuccess) return (int)err;
+  intra_dw_f32_kernel<<<dim3(D / kBN, C / kCB, splits), kThreads, kSmem,
+                        stream>>>(f, trace, dout, ws, n_pts, C, D,
+                                  pts_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_sum_splits(ws, dW, splits, (size_t)kK * C * D, stream);
+}
+
+}  // namespace dwf32
+
 }  // namespace
 
 // f [b, P, na, C], trace_idx [na, K] int32 (device), W [K, C, D],
@@ -1356,6 +1541,30 @@ extern "C" int epn_intra_conv_bwd_w_mma(const void* f, const void* trace_idx,
   }
   return dwmma::launch_bn<false>(f, tp, nullptr, dout, (float*)ws, (float*)dW,
                                  b * P, P, C, D, 0, splits, pps, s);
+}
+
+// dW on the CUDA cores (intra_dw_f32_kernel), the plain form: the
+// arguments of epn_intra_conv_bwd_w_mma with f and dout fp32 and ss null
+// (ss_stride unused); rows a split, rows_per_split, whole points (a
+// multiple of na), with splits * rows_per_split >= b * P * na. na must be
+// 60, K 12, C and D multiples of 32.
+extern "C" int epn_intra_conv_bwd_w_f32(const void* f, const void* trace_idx,
+                                        const void* ss, const void* dout,
+                                        void* ws, void* dW, int b, int P,
+                                        int na, int K, int C, int D,
+                                        int ss_stride, int splits,
+                                        int rows_per_split, void* stream) {
+  (void)ss_stride;
+  const long long rows = (long long)b * P * na;
+  if (ss != nullptr || na != mma::kNA || K != mma::kK ||
+      C % dwf32::kCB != 0 || D % dwf32::kBN != 0 || splits < 1 ||
+      rows_per_split <= 0 || rows_per_split % na != 0 ||
+      (long long)splits * rows_per_split < rows) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return dwf32::launch((const float*)f, (const int*)trace_idx,
+                       (const float*)dout, (float*)ws, (float*)dW, b * P, C,
+                       D, splits, rows_per_split / na, (cudaStream_t)stream);
 }
 
 // B6 df, dscale, dshift. dout [b, P, na, C], inv_idx [na, K] int32, Wt [K,

@@ -40,9 +40,42 @@ and beside them, from the built library, B6 dW without its fold
 (``dw_no_fold``: the plain form, the same kernel with no fold pass; right
 for the plain form) and the SGEMM (``intra_dw_kernel``, bf16, the route
 before the tensor-core kernel), and the built kernel's and the SGEMM's
-normwise error against ``intra_conv_prenorm_dw_plain``. One JSON line a
-shape, a sum over each model's layers, all of them in
-chiprun_out/intra_conv_variants.json. Needs a CUDA device and nvcc.
+normwise error against ``intra_conv_prenorm_dw_plain``.
+
+The fp32 dW of the plain form on the CUDA cores (``intra_dw_f32_kernel``,
+epn_intra_conv_bwd_w_f32) at the same layers and batches, beside the
+SGEMM (``intra_dw_kernel`` in fp32, ``sgemm``, from the built library):
+  f32_built      the source as it is (a three-stage ring);
+  f32_ring_1     each point's loads waited for before its product, so no
+                 load is in flight behind the FFMA (what a one-stage ring
+                 does);
+  f32_kq_lanes   the lanes of a quarter-warp share a kernel-point triple
+                 and the warps own column octets (the source: the warps
+                 own the triples, the quarter-warps the column octets), so
+                 every dout load is warp-uniform and each f load reads
+                 four different slab rows;
+  f32_packed_offsets
+                 each anchor's three slab rows of the warp's kernel points
+                 packed into one word (a 4-byte offsets load a row, and a
+                 mask and a multiply a kernel point);
+  f32_kt2        two kernel points a thread (2 x 4 x 8 = 64 sums; 6 warps a
+                 block, 18 warps an SM at <= 112 registers);
+  f32_unroll_u   the row loop unrolled by u = 2, 4, 6, 10 or 20 (the
+                 source: by 12);
+and, whose output is wrong and only whose time counts:
+  f32_no_ffma    the product cut to 3 FFMA and 16 FADD a row that read
+                 every loaded value (the staging, the offset loads and
+                 the shared loads still run);
+  f32_no_gather  the f rows read without the adjacency (slab row = the
+                 reduction row).
+Each build, the SGEMM too, is timed in turn and then in the reverse order,
+and the two times averaged; for the SGEMM and the builds whose output is
+right the normwise error against ``intra_conv_dw_plain``; for each build its
+kernel's registers and spills (nvcc's -Xptxas -v).
+
+One JSON line a shape, a sum over each model's layers, a line a build's
+registers, all of them in chiprun_out/intra_conv_variants.json. Needs a
+CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -82,6 +115,37 @@ DW_VARIANTS = {
                      'zs + tc::swz(p60[ks] + anc[ks], col,'),
     'dw_no_mma': (_DW_MMA, 'if (C < 0) ' + _DW_MMA),
 }
+_FFMA = 'acc[j][i][q] = fmaf(xv[i], dv[q], acc[j][i][q]);'
+_RING = 'load(g + kStages - 1);'
+F32_VARIANTS = {
+    'f32_built': None,
+    'f32_ring_1': (_RING, _RING + ' tc::cp_wait<0>(); __syncthreads();'),
+    'f32_no_ffma': (_FFMA, 'if (i == 0 && q == 0) acc[j][0][0] = fmaf((xv[0]'
+                    ' + xv[1]) + (xv[2] + xv[3]), ((dv[0] + dv[1]) + (dv[2] '
+                    '+ dv[3])) + ((dv[4] + dv[5]) + (dv[6] + dv[7])), '
+                    'acc[j][0][0]);'),
+    'f32_no_gather': ('o[j] = t[j] * kCB;', 'o[j] = a * kCB;'),
+    'f32_kq_lanes': ('const int kg = warp, cq = lane & 7, co = lane >> 3;',
+                     'const int kg = lane >> 3, cq = lane & 7, co = warp;'),
+    'f32_packed_offsets': [
+        ('s_off[i] = make_int4(o[0], o[1], o[2], o[3]);',
+         'reinterpret_cast<int*>(s_off)[i] = o[0] / kCB | o[1] / kCB << 8 | '
+         'o[2] / kCB << 16 | o[3] / kCB << 24;'),
+        ('const int4 o = s_off[a * kWarps + kg];\n      const int oo[4] = '
+         '{o.x, o.y, o.z, o.w};',
+         'const int o = reinterpret_cast<const int*>(s_off)[a * kWarps + kg];'
+         ' const int oo[4] = {(o & 255) * kCB, (o >> 8 & 255) * kCB, (o >> 16'
+         ' & 255) * kCB, (o >> 24 & 255) * kCB};')],
+    'f32_kt2': ('constexpr int kKT = 3;', 'constexpr int kKT = 2;'),
+}
+# the row loop unrolled by 2, 4, 6, 10 or 20 (the source: by 12)
+_UNROLL = '#pragma unroll 12\n    for (int a = 0;'
+F32_VARIANTS.update({f'f32_unroll_{u}': (_UNROLL,
+                                          _UNROLL.replace('12', str(u)))
+                     for u in (2, 4, 6, 10, 20)})
+F32_EXACT = ('sgemm', 'f32_built', 'f32_ring_1', 'f32_kq_lanes',
+             'f32_packed_offsets', 'f32_kt2', 'f32_unroll_2', 'f32_unroll_4',
+             'f32_unroll_6', 'f32_unroll_10', 'f32_unroll_20')
 EXACT = ('built', 'group_1', 'group_4', 'in_place')
 # model -> (forward batch, df batch, fold a cloud, [(layer, p, c)])
 SHAPES = {
@@ -107,7 +171,8 @@ def _rel(got, want):
 
 
 ENTRIES = ('epn_intra_conv_mma', 'epn_intra_conv_prenorm_df_mma',
-           'epn_intra_conv_bwd_w_mma', 'epn_intra_conv_bwd_w')
+           'epn_intra_conv_bwd_w_mma', 'epn_intra_conv_bwd_w',
+           'epn_intra_conv_bwd_w_f32')
 
 
 def main():
@@ -115,15 +180,18 @@ def main():
         raise SystemExit('intra_conv_variants: needs a CUDA device')
     sys.path.insert(0, ROOT)
     from chip_smoke import time_ms
-    variants = {**VARIANTS, **DW_VARIANTS}
+    from .inter_bwd_variants import ptxas_usage
+    variants = {**VARIANTS, **DW_VARIANTS, **F32_VARIANTS}
     procs = {n: build.compile_alone(build.CSRC_DIR, 'intra_conv.cu',
                                     os.path.join(OUT, n), sub)
              for n, sub in variants.items()}
-    fns = {}
+    fns, regs = {}, {}
     for n, (p, so) in procs.items():
         log = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f'nvcc failed on {n}:\n{log}')
+        if n in F32_VARIANTS:
+            regs[n] = ptxas_usage(log, 'intra_dw_f32_kernel')
         lib = ctypes.CDLL(so)
         fns[n] = {}
         for entry in ENTRIES:
@@ -137,7 +205,12 @@ def main():
     ti = torch.from_numpy(icosahedron.get_intra_idx()).to(dev)
     lines = (_fwd({n: fn for n, fn in fns.items() if n in VARIANTS}, dev,
                   card, stream, ti, time_ms)
-             + _dw(fns, dev, card, stream, ti, time_ms))
+             + _dw(fns, dev, card, stream, ti, time_ms)
+             + _dw_f32(fns, dev, card, stream, ti, time_ms))
+    for n, use in regs.items():
+        for fn_name, u in use.items():
+            lines.append({'build': n, 'function': fn_name, **u})
+            print(json.dumps(lines[-1]), flush=True)
     out_dir = os.path.join(ROOT, 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, 'intra_conv_variants.json'), 'w') as f:
@@ -275,6 +348,68 @@ def _dw(fns, dev, card, stream, ti, time_ms):
             torch.cuda.empty_cache()
         lines.append({'model': model, 'entry': 'dw', 'sum_over_layers': True,
                       'ms': total, 'card': card})
+        print(json.dumps(lines[-1]), flush=True)
+    return lines
+
+
+
+def _dw_f32(fns, dev, card, stream, ti, time_ms):
+    """The fp32 CUDA-core dW's builds and the SGEMM at each layer (the
+    step's batch), each timed in both orders: JSON lines."""
+    lines = []
+    names = ['sgemm'] + list(F32_VARIANTS)
+    for model, (_, b, _, layers) in SHAPES.items():
+        total = dict.fromkeys(names, 0.0)
+        for tag, p, c in layers:
+            rng = np.random.RandomState(p + c + 2)
+            f = torch.from_numpy(rng.randn(b, p, 60, c).astype(
+                np.float32)).to(dev)
+            dout = torch.from_numpy(rng.randn(b, p, 60, c).astype(
+                np.float32)).to(dev)
+            want = intra_conv.intra_conv_dw_plain(f, ti, dout)
+            dW = torch.empty(12, c, c, device=dev)
+            bufs = {}
+            for f32 in (True, False):
+                splits, rows = (intra_conv.dw_f32_splits(b * p, 60, c, c)
+                                if f32 else intra_conv.dw_splits(
+                                    b * p, 60, 12, c, c, False))
+                ws = torch.empty(splits, 12, c, c, device=dev)
+                bufs[f32] = (ws, (f.data_ptr(), ti.data_ptr(), 0,
+                                  dout.data_ptr(), ws.data_ptr(),
+                                  dW.data_ptr(), b, p, 60, 12, c, c, 0,
+                                  splits) + ((rows,) if f32 else (0,)))
+
+            def call(n):
+                fn = (fns['built']['epn_intra_conv_bwd_w'] if n == 'sgemm'
+                      else fns[n]['epn_intra_conv_bwd_w_f32'])
+                args = bufs[n != 'sgemm'][1]
+
+                def run():
+                    err = fn(*args, stream)
+                    if err:
+                        raise RuntimeError(f'{n}: CUDA error {err}')
+                return run
+            # each build timed in turn, then again in the reverse order: a
+            # build's place in the order moved its time by ~10%
+            rec = {n: {'ms': 0.0} for n in names}
+            for order in (names, names[::-1]):
+                for n in order:
+                    rec[n]['ms'] += time_ms(call(n)) / 2
+            for n in F32_EXACT:
+                call(n)()
+                torch.cuda.synchronize()
+                rec[n]['rel'] = _rel(dW, want)
+            for n in names:
+                total[n] += rec[n]['ms']
+            lines.append({'model': model, 'entry': 'dw_f32', 'layer': tag,
+                          'p': p, 'c': c, 'batch': b,
+                          'splits': bufs[True][1][-2], 'variants': rec,
+                          'card': card})
+            print(json.dumps(lines[-1]), flush=True)
+            del f, dout, want, dW, bufs
+            torch.cuda.empty_cache()
+        lines.append({'model': model, 'entry': 'dw_f32',
+                      'sum_over_layers': True, 'ms': total, 'card': card})
         print(json.dumps(lines[-1]), flush=True)
     return lines
 

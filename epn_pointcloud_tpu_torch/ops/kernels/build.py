@@ -119,6 +119,10 @@ SIGNATURES = {
     # rows_per_split, stream (bf16 on tensor cores)
     'epn_intra_conv_bwd_w_mma': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _P],
+    # f, trace_idx, ss (null), dout, ws, d_w, b, p, na, k, c, d, ss_stride,
+    # splits, rows_per_split, stream (fp32 on the CUDA cores)
+    'epn_intra_conv_bwd_w_f32': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _P],
     # dout, inv_idx, w_t, x, ss, df, ws, d_scale, d_shift, b, p, na, k, c, d,
     # ss_batch, bf16, stream
     'epn_intra_conv_prenorm_df': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

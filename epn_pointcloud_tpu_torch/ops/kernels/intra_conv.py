@@ -39,8 +39,11 @@ models) at the rounding points of the SGEMM and the plain versions: z
 rounded to bf16 after the fold and the activation, fp32 sums, the output
 rounded once (df: dz never rounded, df rounded once). So does the bf16 dW,
 plain and prenorm (``intra_dw_mma_kernel``, picked by ``dw_mma_route``): z
-rounded to bf16, fp32 sums, dW fp32. fp32 and the other bf16 shapes run
-the register-blocked SGEMM (``intra_dw_kernel`` for dW).
+rounded to bf16, fp32 sums, dW fp32. The fp32 dW of the plain form runs
+on the CUDA cores in a kernel of its own (``intra_dw_f32_kernel``, picked
+by ``dw_f32_route``: every model layer), FFMA only, fp32 sums. The other
+shapes, and the fp32 prenorm dW, run the register-blocked SGEMM
+(``intra_dw_kernel`` for dW).
 """
 
 from __future__ import annotations
@@ -73,9 +76,10 @@ launches = dict.fromkeys(ENTRIES, 0)
 # the df of intra_conv_prenorm_df) by kernel: 'mma', the bf16 tensor-core
 # kernel (``intra_conv_mma_kernel``), or 'sgemm', the register-blocked SGEMM;
 # of dW (intra_conv_dw, intra_conv_prenorm_dw): 'dw_mma', the bf16
-# tensor-core kernel (``intra_dw_mma_kernel``), or 'dw', the SGEMM
+# tensor-core kernel (``intra_dw_mma_kernel``), 'dw_f32', the fp32
+# CUDA-core kernel (``intra_dw_f32_kernel``), or 'dw', the SGEMM
 # (``intra_dw_kernel``)
-routes = dict.fromkeys(('mma', 'sgemm', 'dw_mma', 'dw'), 0)
+routes = dict.fromkeys(('mma', 'sgemm', 'dw_mma', 'dw_f32', 'dw'), 0)
 # the tensor-core kernels' shapes (``mma_route``, ``dw_mma_route``): the
 # icosahedral group's anchors and kernel points, and the widths of the
 # models' intra layers
@@ -84,6 +88,11 @@ MMA_NA, MMA_K, MMA_WIDTHS = 60, 12, (32, 64, 128, 256)
 # channels and 64 columns (32 where d % 64 != 0); its row splits fill at
 # most DW_MMA_BLOCKS blocks (one an SM: two waves of the 132 SMs)
 DW_MMA_NP, DW_MMA_CB, DW_MMA_BLOCKS = 8, 32, 264
+# the fp32 CUDA-core dW's blocks: DW_F32_CB channels of all 12 kernel
+# points by DW_F32_BN columns, whole points a split, three blocks an SM:
+# DW_F32_WAVE blocks fill the 132 SMs once; its splits fill one or two
+# such waves
+DW_F32_CB, DW_F32_BN, DW_F32_WAVE = 32, 32, 396
 
 
 def mma_route(dtype, na: int, K: int, c: int, d: int) -> bool:
@@ -100,6 +109,34 @@ def dw_mma_route(dtype, na: int, K: int, c: int, d: int) -> bool:
     60, K == 12 and c == d in MMA_WIDTHS (every intra layer of both models).
     fp32 and the other shapes run the SGEMM (``intra_dw_kernel``)."""
     return mma_route(dtype, na, K, c, d)
+
+
+def dw_f32_route(dtype, na: int, K: int, c: int, d: int,
+                 prenorm: bool = False) -> bool:
+    """Whether a dW runs the fp32 CUDA-core kernel
+    (``intra_dw_f32_kernel``): fp32 operands, the plain form (no prenorm
+    fold), na == 60, K == 12, c % 32 == 0 and d % 32 == 0 (every intra
+    layer of both models in fp32). The prenorm form and the other shapes
+    run the SGEMM (``intra_dw_kernel``)."""
+    return (dtype == torch.float32 and not prenorm and na == MMA_NA
+            and K == MMA_K and c % DW_F32_CB == 0 and d % DW_F32_BN == 0)
+
+
+def dw_f32_splits(n_points: int, na: int, c: int, d: int) -> tuple[int, int]:
+    """(splits, rows a split) of an fp32 CUDA-core dW call over n_points
+    = b * p points of na rows: whole points a split (every split holds at
+    least one), blocks of DW_F32_CB channels by DW_F32_BN columns, in one
+    or two waves of DW_F32_WAVE blocks, whichever leaves the fewer points
+    a wave's blocks (two on a tie: shorter sums, and a wave's few idle
+    slots either way)."""
+    tiles = (c // DW_F32_CB) * (d // DW_F32_BN)
+    best = None
+    for waves in (1, 2):
+        per = -(-n_points // max(1, waves * DW_F32_WAVE // tiles))
+        if best is None or waves * per <= best[0] * best[1]:
+            best = (waves, per)
+    per = best[1]
+    return -(-n_points // per), per * na
 
 
 def dw_splits(n_points: int, na: int, K: int, c: int, d: int,
@@ -289,8 +326,9 @@ def intra_conv_df(dout: torch.Tensor, trace_idx: torch.Tensor,
 
 def _launch_dw(kernel, f, trace_idx, dout, ss):
     """Checks and launches the dW kernel (ss None: no prenorm): the
-    tensor-core kernel where ``dw_mma_route`` holds, else the SGEMM; both
-    sum per-row-range partials in a fixed order: deterministic."""
+    tensor-core kernel where ``dw_mma_route`` holds, the fp32 CUDA-core
+    kernel where ``dw_f32_route`` does, else the SGEMM; each sums
+    per-row-range partials in a fixed order: deterministic."""
     dev = f.device
     b, p, na, c = f.shape
     K, d = trace_idx.shape[1], dout.shape[-1]
@@ -302,7 +340,9 @@ def _launch_dw(kernel, f, trace_idx, dout, ss):
     _check_operands(kernel, dev, want)
     _check_shape(kernel, b, p, na, K, c, d)
     mma = dw_mma_route(f.dtype, na, K, c, d)
-    splits, rows = dw_splits(b * p, na, K, c, d, mma)
+    f32 = dw_f32_route(f.dtype, na, K, c, d, ss is not None)
+    splits, rows = (dw_f32_splits(b * p, na, c, d) if f32 else
+                    dw_splits(b * p, na, K, c, d, mma))
     ws = torch.empty((splits, K, c, d), dtype=torch.float32, device=dev)
     dW = torch.empty((K, c, d), dtype=torch.float32, device=dev)
     ptrs = (f.data_ptr(), trace_idx.data_ptr(),
@@ -310,9 +350,10 @@ def _launch_dw(kernel, f, trace_idx, dout, ss):
             ws.data_ptr(), dW.data_ptr(), b, p, na, K, c, d,
             2 * na * c if sb > 1 else 0, splits)
     launches[kernel] += 1
-    if mma:
-        routes['dw_mma'] += 1
-        build.launch('epn_intra_conv_bwd_w_mma', *ptrs, rows,
+    if mma or f32:
+        routes['dw_mma' if mma else 'dw_f32'] += 1
+        build.launch('epn_intra_conv_bwd_w_mma' if mma else
+                     'epn_intra_conv_bwd_w_f32', *ptrs, rows,
                      build.stream(f))
     else:
         routes['dw'] += 1
@@ -323,7 +364,8 @@ def _launch_dw(kernel, f, trace_idx, dout, ss):
 def intra_conv_dw(f: torch.Tensor, trace_idx: torch.Tensor,
                   dout: torch.Tensor) -> torch.Tensor:
     """dW kernel wrapper: plain version on the CPU, CUDA kernel on the
-    card."""
+    card (the tensor-core kernel where ``dw_mma_route`` holds, the fp32
+    CUDA-core kernel where ``dw_f32_route`` does, else the SGEMM)."""
     if f.device.type == 'cpu':
         return intra_conv_dw_plain(f, trace_idx, dout)
     return _launch_dw('intra_conv_dw', f, trace_idx, dout, None)

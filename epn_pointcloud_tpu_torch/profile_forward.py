@@ -68,6 +68,7 @@ GROUPS = (('inter_f_mma_kernel', 'inter F (W-off) kernel'),
           ('intra_conv_kernel', 'intra conv kernel (and fp32 df)'),
           ('intra_df_prenorm_kernel', 'prenorm intra df kernel'),
           ('intra_dw_mma_kernel', 'intra dW kernel'),
+          ('intra_dw_f32_kernel', 'intra dW kernel'),
           ('intra_dw_kernel', 'intra dW kernel'),
           ('grouped_conv_mma_kernel', 'grouped conv kernel (tail, plain)'),
           ('grouped_bwd_mma_kernel', 'grouped conv backward kernel (dx, dW, '

@@ -18,6 +18,8 @@ their envelopes; the bf16 intra dW on
 tensor cores (B6 dW and the plain form's) at every model width, with a
 fold for the batch and one a cloud, at point counts that leave its last
 8-point group short, its determinism, and the SGEMM off its envelope;
+the fp32 intra dW on the CUDA cores at every model layer shape and at its
+edges, its determinism and its float64 error against the SGEMM's;
 the bf16 W-off F on tensor cores and the fp32 one on the CUDA cores at
 every composed-route layer and at their edges (the fp32 one bitwise the
 template's), their determinism, and the template off their envelopes.
@@ -648,17 +650,85 @@ def test_intra_dw_mma_kernel_edges(cuda, b, p, c, sb):
         assert _rel(got, want) <= 1e-3 and torch.equal(got, again)
 
 
-@pytest.mark.parametrize('dtype,c,d', [(torch.float32, 64, 64),
+@pytest.mark.parametrize('dtype,c,d', [(torch.float32, 36, 64),
                                        (BF16, 64, 96), (BF16, 96, 96)])
 def test_intra_dw_off_envelope_takes_the_sgemm(cuda, dtype, c, d):
-    """fp32 (the parity mode), bf16 c != d and a bf16 width no model layer
-    has run the SGEMM (``intra_dw_kernel``): 1e-4 of the plain version in
-    fp32, 1e-3 in bf16."""
+    """fp32 channels off the CUDA-core dW's 32 grid (and the fp32 prenorm
+    form), bf16 c != d and a bf16 width no model layer has run the SGEMM
+    (``intra_dw_kernel``): 1e-4 of the plain version in fp32, 1e-3 in
+    bf16."""
     routes, forms = _intra_dw_case(cuda, 2, 9, c, d, 2, seed=c + d,
                                    dtype=dtype)
     assert routes == {'dw': 4}
     for got, _, want in forms:
         assert _rel(got, want) <= (1e-4 if dtype == torch.float32 else 1e-3)
+
+
+def _intra_dw_f32_case(cuda, b, p, c, d, seed):
+    """(routes taken, the kernel's dW, a second call's, the plain
+    version's, the kernel's and the SGEMM's normwise errors against the
+    plain version in float64) of the fp32 plain-form intra dW; the SGEMM
+    (this tree's epn_intra_conv_bwd_w, fp32) on the same inputs."""
+    f, _, ti, _, _, dout = _prenorm_operands(cuda, torch.float32, b, p, c, d,
+                                             1, seed=seed)
+    ik = tkern.intra_conv
+    before = dict(ik.routes)
+    got, again = ik.intra_conv_dw(f, ti, dout), ik.intra_conv_dw(f, ti, dout)
+    torch.cuda.synchronize()
+    routes = {k: ik.routes[k] - before[k] for k in ik.routes
+              if ik.routes[k] > before[k]}
+    splits, _ = ik.dw_splits(b * p, 60, 12, c, d, False)
+    ws = torch.empty((splits, 12, c, d), device=cuda)
+    sgemm = torch.empty_like(got)
+    err = ik.build.library().epn_intra_conv_bwd_w(
+        f.data_ptr(), ti.data_ptr(), 0, dout.data_ptr(), ws.data_ptr(),
+        sgemm.data_ptr(), b, p, 60, 12, c, d, 0, splits, 0,
+        ik.build.stream(f))
+    assert err == 0
+    want = ik.intra_conv_dw_plain(f.double(), ti, dout.double())
+    torch.cuda.synchronize()
+    f64 = (_rel(got.double(), want), _rel(sgemm.double(), want))
+    return routes, got, again, want.float(), f64
+
+
+@pytest.mark.parametrize('b,p,c', [
+    (12, 512, 64), (12, 256, 128), (12, 128, 256), (12, 64, 256),
+    (16, 512, 32), (16, 256, 64), (16, 128, 128), (16, 64, 128)])
+def test_intra_dw_f32_kernel_matches_plain(cuda, b, p, c):
+    """The fp32 CUDA-core dW (``intra_dw_f32_kernel``) at every intra layer
+    shape of both models at their train batches (cls b=12, inv b=16 a leg):
+    taken by the wrapper, finite, within 1e-5 (normwise; fp32 sums over up
+    to 368,640 rows in another order: 1.5e-6..2.9e-6 measured on the
+    card, where the SGEMM is held to 1e-4) of the plain version, bitwise
+    equal on a second call (fixed-order partial sums, no atomics), and its
+    error against the float64 plain version at most 1.5x the SGEMM's on
+    the same inputs."""
+    routes, got, again, want, (rel, sgemm_rel) = _intra_dw_f32_case(
+        cuda, b, p, c, c, seed=p + c)
+    assert routes == {'dw_f32': 2}
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 1e-5
+    assert torch.equal(got, again)
+    assert rel <= 1.5 * sgemm_rel, (rel, sgemm_rel)
+
+
+@pytest.mark.parametrize('b,p,c,d', [
+    (12, 509, 64, 64),    # 6108 points: the last split short
+    (1, 3, 64, 64),       # three points: three one-point splits
+    (2, 7, 64, 128),      # c != d
+    (3, 11, 128, 64),     # c != d, the other way
+    (2, 5, 32, 96)])      # three 32-column blocks
+def test_intra_dw_f32_kernel_edges(cuda, b, p, c, d):
+    """The fp32 CUDA-core dW where the last split holds fewer points, at a
+    handful of points, and at c != d: within 1e-5 of the plain version,
+    bitwise equal on a second call, within 1.5x the SGEMM's float64
+    error."""
+    routes, got, again, want, (rel, sgemm_rel) = _intra_dw_f32_case(
+        cuda, b, p, c, d, seed=b + p)
+    assert routes == {'dw_f32': 2}
+    assert _rel(got, want) <= 1e-5 and torch.equal(got, again)
+    assert rel <= 1.5 * sgemm_rel, (rel, sgemm_rel)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, BF16])

@@ -6,7 +6,10 @@ follows the tensor-core kernel's blocks; the bf16 dW (plain and prenorm)
 goes to its tensor-core kernel (``dw_mma_route``) at every model layer,
 its row splits are whole point groups, and a bf16 backward reaching the
 wrappers' card branch (tensors on the meta device, the launches recorded)
-counts it. The kernels themselves are held against their plain versions
+counts it; the fp32 dW of the plain form goes to its CUDA-core kernel
+(``dw_f32_route``) at every model layer, its splits are whole points
+filling one or two waves, and its launch carries its C entry's arguments.
+The kernels themselves are held against their plain versions
 on the card (tests/test_torch_port_gpu.py); the plain versions against
 the JAX package in tests/test_torch_port_bf16*.py.
 """
@@ -180,14 +183,19 @@ def test_bf16_backward_counts_the_tensor_core_dw(name, monkeypatch):
 
 @pytest.mark.parametrize('prenorm', [True, False])
 def test_fp32_backward_counts_the_sgemm_dw(prenorm, monkeypatch):
-    """The fp32 (parity) backward at cls L0 keeps the SGEMM: 'dw'."""
+    """The fp32 (parity) backward at cls L0: the prenorm form keeps the
+    SGEMM ('dw', epn_intra_conv_bwd_w); the plain form's dW runs its
+    CUDA-core kernel ('dw_f32', epn_intra_conv_bwd_w_f32)."""
     launched = _card_branch(monkeypatch)
     ik = tkern.intra_conv
     tkern.reset_counts()
     _meta_backward(*_intra_layers('cls_so3net_pn')[0], torch.float32,
                    prenorm)
-    assert (ik.routes['dw'], ik.routes['dw_mma']) == (1, 0)
-    assert launched.count('epn_intra_conv_bwd_w') == 1
+    want = (1, 0) if prenorm else (0, 1)
+    assert (ik.routes['dw'], ik.routes['dw_f32']) == want
+    assert ik.routes['dw_mma'] == 0
+    assert launched.count('epn_intra_conv_bwd_w') == want[0]
+    assert launched.count('epn_intra_conv_bwd_w_f32') == want[1]
     assert 'epn_intra_conv_bwd_w_mma' not in launched
     tkern.reset_counts()
 
@@ -195,6 +203,88 @@ def test_fp32_backward_counts_the_sgemm_dw(prenorm, monkeypatch):
 def test_reset_counts_clears_the_dw_routes():
     ik = tkern.intra_conv
     ik.routes['dw_mma'] += 3
+    ik.routes['dw_f32'] += 2
     ik.routes['dw'] += 1
     tkern.reset_counts()
-    assert ik.routes['dw_mma'] == ik.routes['dw'] == 0
+    assert ik.routes['dw_mma'] == ik.routes['dw_f32'] == ik.routes['dw'] == 0
+
+
+@pytest.mark.parametrize('name', ['cls_so3net_pn', 'inv_so3net_pn'])
+def test_every_model_intra_layer_takes_the_fp32_dw(name):
+    """Every intra layer of both full-width models runs its fp32 dW on the
+    CUDA-core kernel in the plain form; not in bf16 (the tensor-core dW)
+    and not in the prenorm form (the SGEMM)."""
+    ik = tkern.intra_conv
+    for na, K, c, d in _intra_layers(name):
+        assert ik.dw_f32_route(torch.float32, na, K, c, d), (na, K, c, d)
+        assert not ik.dw_f32_route(BF16, na, K, c, d)
+        assert not ik.dw_f32_route(torch.float32, na, K, c, d, prenorm=True)
+
+
+@pytest.mark.parametrize('na,K,c,d,holds', [
+    (60, 12, 36, 64, False), (60, 12, 64, 80, False), (12, 12, 64, 64, False),
+    (60, 6, 64, 64, False), (60, 12, 64, 128, True), (60, 12, 64, 96, True),
+    (60, 12, 512, 512, True)])
+def test_dw_f32_route_envelope(na, K, c, d, holds):
+    """The fp32 CUDA-core dW's envelope: na 60, K 12, c and d multiples of
+    32 (c != d and widths no model layer has included); channels or columns
+    off the 32 grid, another group or kernel size take the SGEMM."""
+    assert tkern.intra_conv.dw_f32_route(torch.float32, na, K, c, d) == holds
+
+
+@pytest.mark.parametrize('n_points,c', DW_SPLIT_CASES)
+def test_dw_f32_splits_cut_whole_points(n_points, c):
+    """The fp32 CUDA-core dW's splits: whole points (a multiple of 60 rows),
+    every split holding at least one point, the splits covering every
+    row, at most two waves of DW_F32_WAVE blocks (one a split, if a tile
+    alone fills them), and at every model layer (768 points or more) the
+    blocks fill their waves to at least 95%."""
+    ik = tkern.intra_conv
+    na, rows = 60, n_points * 60
+    splits, per = ik.dw_f32_splits(n_points, na, c, c)
+    assert per % na == 0 and per > 0
+    assert (splits - 1) * per < rows <= splits * per
+    tiles = (c // ik.DW_F32_CB) * (c // ik.DW_F32_BN)
+    blocks = splits * tiles
+    assert splits == 1 or blocks <= 2 * ik.DW_F32_WAVE
+    waves = -(-blocks // ik.DW_F32_WAVE)
+    if n_points >= 768:
+        assert blocks >= 0.95 * waves * ik.DW_F32_WAVE, (splits, blocks)
+
+
+@pytest.mark.parametrize('dtype,c,d,prenorm,route', [
+    (torch.float32, 64, 64, False, 'dw_f32'),
+    (torch.float32, 64, 128, False, 'dw_f32'),
+    (torch.float32, 32, 32, False, 'dw_f32'),
+    (torch.float32, 64, 64, True, 'dw'), (torch.float32, 36, 64, False, 'dw'),
+    (BF16, 64, 64, False, 'dw_mma')])
+def test_dw_launch_matches_its_entry_signature(dtype, c, d, prenorm, route,
+                                               monkeypatch):
+    """The intra dW wrapper's card branch gives its C entry as many
+    arguments as the entry's ctypes signature holds, on each route, and
+    the fp32 CUDA-core kernel the splits and rows ``dw_f32_splits`` gives
+    (no fold: a null ss)."""
+    ik = tkern.intra_conv
+    monkeypatch.setattr(ik, '_check_operands', lambda *a: None)
+    monkeypatch.setattr(ik.build, 'stream', lambda t: 0)
+    calls = []
+    monkeypatch.setattr(ik.build, 'launch',
+                        lambda name, *a: calls.append((name, a)))
+    meta = torch.device('meta')
+    b, p, na, K = 2, 16, 60, 12
+    f = torch.empty((b, p, na, c), dtype=dtype, device=meta)
+    ti = torch.empty((na, K), dtype=torch.int32, device=meta)
+    dout = torch.empty((b, p, na, d), dtype=dtype, device=meta)
+    tkern.reset_counts()
+    if prenorm:
+        ik.intra_conv_prenorm_dw(f, torch.empty((1, 2, na * c), device=meta),
+                                 ti, dout)
+    else:
+        ik.intra_conv_dw(f, ti, dout)
+    (name, args), = calls
+    assert len(args) == len(ik.build.SIGNATURES[name])
+    assert ik.routes[route] == 1 and sum(ik.routes.values()) == 1
+    if route == 'dw_f32':
+        assert name == 'epn_intra_conv_bwd_w_f32' and args[2] == 0
+        assert (args[-3], args[-2]) == ik.dw_f32_splits(b * p, na, c, d)
+    tkern.reset_counts()
