@@ -14,7 +14,9 @@ call of phases 4, 9 and 16, and its epn_inter_conv_bwd_w,
 epn_inter_conv_bwd_table, epn_inter_conv_dg, epn_inter_conv_f and
 epn_intra_conv_bwd_w (fp32) beside this tree's fp32 fused dW, fused
 dTable, W-off dG, W-off F and intra dW at every call of phases 6 and 12,
-on the same inputs, in turns (parent, new, new, parent).
+on the same inputs, in turns (parent, new, new, parent), and its
+epn_intra_conv (fp32) beside this tree's fp32 intra forward and df at every
+call of phases 2, 6 and 12.
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from csrc/ (one nvcc a source, in parallel,
@@ -24,14 +26,19 @@ Phases (any failure exits non-zero and prints no result line):
      and B6 df, the inter backward scatter, the fused inter dW, the intra
      dW; cuobjdump): none fails; and in the SASS of the fp32 CUDA-core
      kernels of the fused inter dW (inter_dw_f32_kernel), the backward
-     scatter (inter_bwd_f32_kernel), the W-off F (inter_f_f32_kernel) and
-     the intra dW (intra_dw_f32_kernel) FFMA and no HMMA or GMMA (no
-     TF32);
+     scatter (inter_bwd_f32_kernel), the W-off F (inter_f_f32_kernel),
+     the intra dW (intra_dw_f32_kernel) and the intra forward and df
+     (intra_fwd_f32_kernel) FFMA and no HMMA or GMMA (no TF32);
   2. at every flagship layer shape of cls_so3net_pn (b=32, 1024 points, 60
      anchors), compare each kernel with its plain PyTorch version on the
      card, on the inputs the model itself gives it (captured from a b=32
      forward of a seeded full-width model on a synthetic cloud batch), and
-     time both (median of CUDA-event timings after warmup);
+     time both (median of CUDA-event timings after warmup); every intra
+     forward on its fp32 CUDA-core kernel ('fwd_f32'), bitwise equal on a
+     second call, its error against a float64 forward at most 1.5 times
+     the SGEMM's (this tree's epn_intra_conv on the same inputs), timed
+     beside one torch.mm of the gathered f by W (and, --parent-csrc,
+     beside the earlier tree's fp32 SGEMM under one timer);
   3. run the full forward at b=8 on the kernel path and on the plain path;
      the logits must agree to rtol=1e-3, atol=2e-3; then time the whole
      b=32 forward on both paths, in turns;
@@ -60,8 +67,10 @@ Phases (any failure exits non-zero and prints no result line):
      it, in fp32 and then with --compute-dtype bf16; the logits must be
      finite, every kernel's launch count must rise by its expected count
      per batch, and every inter forward, intra forward and B6 df must have
-     run the kernel of its dtype (the tensor-core kernels in bf16, the
-     SGEMMs in fp32; so in phases 8, 11, 15, 19, there with every fused
+     run the kernel of its dtype (the tensor-core kernels in bf16, in fp32
+     the CUDA-core intra forward, 'fwd_f32', and the SGEMM inter forward,
+     the intra SGEMM's 'sgemm' nowhere; so in phases 8, 11, 15, 19, there
+     with every fused
      dTable, W-off dG, fused dW and W-off F too: the tensor-core scatter,
      dW and F in bf16; in fp32 the CUDA-core kernels of the fused dW
      (inter_dw_f32_kernel, 'dw_f32') and of the fused dTable and W-off dG
@@ -85,7 +94,10 @@ Phases (any failure exits non-zero and prints no result line):
      second call, its error against a float64 dW at most 1.5 times the
      SGEMM's (this tree's epn_intra_conv_bwd_w on the same inputs), timed
      beside one torch.mm of the gathered f by dout (and, --parent-csrc,
-     beside the earlier tree's fp32 SGEMM under one timer);
+     beside the earlier tree's fp32 SGEMM under one timer); every intra
+     df on the fp32 CUDA-core forward kernel ('fwd_f32'), checked and
+     timed as the forward in phase 2 (its yardstick: one torch.mm of the
+     dout gathered through the inverse adjacency by W^T);
   7. one train step (b=12) on the kernel path and on the plain path
      (``kernels.plain()``: plain forward, torch autograd) from the same
      weights: loss to rtol 1e-5, per-leaf gradients by the rule of
@@ -147,8 +159,9 @@ Phases (any failure exits non-zero and prints no result line):
      batched torch.matmul of the anchor weights by the gathered table
      rows; fps and ball_query indices equal; normwise <= 1e-5 for the forward
      kernels, df, dTable and the W-off inter_conv_f / inter_conv_dg, <=
-     1e-4 for the dW reductions; every fused dW, dTable and intra dW on
-     its fp32 CUDA-core kernel, checked and timed as in phase 6, every
+     1e-4 for the dW reductions; every fused dW, dTable, intra forward,
+     intra df and intra dW on its fp32 CUDA-core kernel, checked and timed
+     as in phases 2 and 6, every
      W-off dG on
      the CUDA-core scatter ('dg_f32', beside the earlier tree's template
      with --parent-csrc); every W-off F on its CUDA-core kernel ('f_f32'),
@@ -434,9 +447,10 @@ TC_KERNELS = ('grouped_conv_mma_kernel', 'grouped_bwd_mma_kernel',
               'inter_dw_mma_kernel', 'intra_dw_mma_kernel')
 # the fp32 kernels held to full fp32 products on the CUDA cores: the fused
 # inter dW, the inter backward scatter (the fused dTable and the W-off dG),
-# the W-off F, the intra dW
+# the W-off F, the intra dW, the intra forward (and df)
 FFMA_KERNELS = ('inter_dw_f32_kernel', 'inter_bwd_f32_kernel',
-                'inter_f_f32_kernel', 'intra_dw_f32_kernel')
+                'inter_f_f32_kernel', 'intra_dw_f32_kernel',
+                'intra_fwd_f32_kernel')
 
 
 def tensor_core_sass(so):
@@ -666,15 +680,17 @@ def phase_kernels(model, device):
                        reps=5 if name == 'fps' else 10)
         b_ms, o_ms = bound_ms(name, args, got)
         desc = _shape_desc(name, args)
+        row = {'layer': layer, 'shape': desc, 'max_abs_err': max_err,
+               'rel_norm_err': rel, 'ms': k_ms, 'plain_ms': p_ms,
+               'bytes_ms': b_ms, 'ops_ms': o_ms,
+               **mm_library(name, args), **intra_conv_extras(name, args, got)}
+        ok = ok and _extras_ok(row)
+        row['ok'] = ok
         log(f'[compare] {name} L{layer} ({desc}): max_abs_err={max_err:.3e} '
             f'rel_norm_err={rel:.3e} [{tol}] kernel_ms={k_ms:.4f} '
-            f'plain_ms={p_ms:.4f} bound_ms={max(b_ms, o_ms):.4f} '
-            f'{"OK" if ok else "FAIL"}')
-        results[name].append({'layer': layer, 'shape': desc,
-                              'max_abs_err': max_err, 'rel_norm_err': rel,
-                              'ms': k_ms, 'plain_ms': p_ms, 'bytes_ms': b_ms,
-                              'ops_ms': o_ms, 'ok': ok,
-                              **mm_library(name, args)})
+            f'plain_ms={p_ms:.4f}{_library_note(row)} bound_ms='
+            f'{max(b_ms, o_ms):.4f} {"OK" if ok else "FAIL"}')
+        results[name].append(row)
         if not ok:
             failures.append(f'{name} L{layer}')
         del got, want
@@ -686,6 +702,8 @@ def phase_kernels(model, device):
                             f'forward, expected {n}')
     if failures:
         raise AssertionError(f'kernel comparisons failed: {failures}')
+    check_fp32_rows('[compare]', results['intra_conv'], expect['intra_conv'],
+                    'intra forward', 'torch.mm(A, W)', 1.5, 'fwd_f32', 1e-5)
     return results
 
 
@@ -753,10 +771,11 @@ def check_routes(tag, dtype, counts, routes):
     and W-off F, and every intra forward, B6 df and intra dW, of an entry
     run went
     through the kernel of its dtype: the tensor-core kernels in bf16; in
-    fp32 the SGEMMs and the CUDA-core kernels of the fused dW ('dw_f32'),
-    the backward scatter ('dtable_f32', 'dg_f32') and the W-off F
-    ('f_f32'), and of the intra dW ('dw_f32'; the SGEMM 'dw' nowhere)
-    (``routes``: ``route_counts()``, read with ``counts``)."""
+    fp32 the inter SGEMM and the CUDA-core kernels of the fused dW
+    ('dw_f32'), the backward scatter ('dtable_f32', 'dg_f32') and the
+    W-off F ('f_f32'), of the intra forward and df ('fwd_f32'; the SGEMM
+    'sgemm' nowhere) and of the intra dW ('dw_f32'; the SGEMM 'dw'
+    nowhere) (``routes``: ``route_counts()``, read with ``counts``)."""
     want = {}
     for conv, n in (('inter', counts['inter_conv']),
                     ('intra', counts['intra_conv']
@@ -765,6 +784,10 @@ def check_routes(tag, dtype, counts, routes):
         assert n > 0, (conv, counts)
         want[conv] = ({'mma': n, 'sgemm': 0} if dtype == 'bf16' else
                       {'mma': 0, 'sgemm': n})
+    # the intra forward and df in fp32: the CUDA-core kernel (the plain
+    # form; the prenorm form's SGEMM on no fp32 model path)
+    want['intra'].update({'fwd_f32': 0} if dtype == 'bf16' else
+                         {'sgemm': 0, 'fwd_f32': want['intra']['sgemm']})
     for conv, entry, n in (
             ('inter', 'dtable', counts['inter_conv_dtable']),
             ('inter', 'dg', counts['inter_conv_dg']),
@@ -1315,17 +1338,19 @@ def _extras_ok(row):
     forward or B6 df (``intra_conv_extras``), backward scatter in either
     dtype (``inter_bwd_extras``), inter dW (``inter_dw_extras``), intra dW
     (``intra_dw_extras``) and W-off F (``inter_f_extras``): the tensor-core
-    kernel ran (the fp32 dW, scatter and W-off F: their CUDA-core kernel;
-    the inter dW at most twice the template's error against float64, the
-    intra dW 1.5 times the SGEMM's (``f64_limit``), the W-off F bitwise
-    the template's), its output is bitwise equal on a
+    kernel ran (the fp32 dW, scatter, W-off F and intra forward and df:
+    their CUDA-core kernel; the inter dW at most twice the template's error
+    against float64, the intra dW, forward and df 1.5 times the SGEMM's
+    (``f64_limit``), the W-off F bitwise the template's), its output is
+    bitwise equal on a
     second call (not the scatter's: atomics), and within 1e-3 (normwise) of
     ``inter_conv_mma_plain`` (inter forward) or ``inter_conv_f_plain``
     (bf16 W-off F). ``parent_equal`` (--parent-csrc) is printed, not gated:
     a later tree may sum in another order."""
     return (row.get('route', 'mma') in ('mma', 'dtable_mma', 'dg_mma',
                                         'dtable_f32', 'dg_f32', 'dw_mma',
-                                        'dw_f32', 'f_mma', 'f_f32')
+                                        'dw_f32', 'f_mma', 'f_f32',
+                                        'fwd_f32')
             and row.get('bitwise_repeat', True)
             and row.get('bitwise_vs_template', True)
             and row.get('rel_vs_mma_plain', 0.0) <= 1e-3
@@ -1471,14 +1496,16 @@ def inter_dw_extras(name, args, got):
     return rec
 
 
-def check_fp32_dw_rows(tag, rows, n_expect, what='fused dW',
-                       mm='torch.mm(F^T, dout)', limit=2.0):
-    """Every fp32 dW call of a step (``rows``: phase 6's or 12's; the fused
-    inter dW, or ``what`` = 'intra dW') on its CUDA-core kernel
-    ('dw_f32'), bitwise equal on a second call, within 1e-4 of its plain
-    version (``check_call``) and at most ``limit`` times the error of the
-    template (the SGEMM) against float64; the sums printed beside the
-    template's under one timer (--parent-csrc) and one torch.mm (``mm``)."""
+def check_fp32_rows(tag, rows, n_expect, what='fused dW',
+                    mm='torch.mm(F^T, dout)', limit=2.0, route='dw_f32',
+                    tol=1e-4):
+    """Every fp32 call of a CUDA-core kernel in a phase (``rows``: phase
+    2's, 6's or 12's; the fused inter dW, or ``what`` = 'intra dW', 'intra
+    forward', 'intra df') on its kernel (``route``), bitwise equal on a
+    second call, within ``tol`` of its plain version and at most ``limit``
+    times the error of the template (the SGEMM) against float64; the sums
+    printed beside the template's under one timer (--parent-csrc) and one
+    torch.mm (``mm``)."""
     routes = [r['route'] for r in rows]
     ratios = [r['f64_ratio'] for r in rows]
     agg = _aggregate(rows)
@@ -1486,7 +1513,7 @@ def check_fp32_dw_rows(tag, rows, n_expect, what='fused dW',
     def col(key):
         return ' '.join(f'{r[key]:.2e}' for r in rows)
     log(f'{tag} fp32 {what}: {len(rows)} calls, routes {routes}; '
-        f'rel_norm_err vs plain {col("rel_norm_err")} (<= 1e-4); vs '
+        f'rel_norm_err vs plain {col("rel_norm_err")} (<= {tol:.0e}); vs '
         f'float64 {col("rel_f64")}, the template {col("template_rel_f64")}'
         f', ratio max {max(ratios):.3f} (<= {limit}); bitwise '
         f'{all(r["bitwise_repeat"] for r in rows)}; kernel {agg["ms"]:.3f} '
@@ -1494,9 +1521,9 @@ def check_fp32_dw_rows(tag, rows, n_expect, what='fused dW',
         f'{agg["bound_ms"]:.3f} (share {agg["bound_ms"] / agg["ms"]:.3f})'
         + (f', one timer: parent template {agg["parent_ms"]:.3f} vs '
            f'{agg["same_timer_ms"]:.3f}' if 'parent_ms' in agg else ''))
-    assert len(rows) == n_expect and set(routes) == {'dw_f32'}, routes
+    assert len(rows) == n_expect and set(routes) == {route}, routes
     assert all(r['bitwise_repeat'] for r in rows)
-    assert max(r['rel_norm_err'] for r in rows) <= 1e-4
+    assert max(r['rel_norm_err'] for r in rows) <= tol
     assert max(ratios) <= limit, ratios
 
 
@@ -1733,6 +1760,60 @@ def _intra_composition(name, args):
     return gather(), W2, lambda: torch.mm(gather(), W2)
 
 
+def _intra_fwd_operands(name, args):
+    """(g, adjacency, W [K, c, d]) of an fp32 intra forward or df call as
+    the forward kernel takes them: (f, trace_idx, W), or for the df (dout,
+    inv_idx, W^T)."""
+    if name == 'intra_conv':
+        return args
+    dout, _, inv, W = args
+    return dout, inv, W.transpose(1, 2).contiguous()
+
+
+def intra_f32_extras(name, args, got):
+    """For an fp32 call of the intra forward or df: the kernel it ran
+    (``route``: 'fwd_f32', the CUDA-core kernel), whether a second call
+    gives the same bits (``bitwise_repeat``), its normwise error and the
+    SGEMM's (this tree's epn_intra_conv, bf16 = 0, the route before it, on
+    the same inputs) against the plain version in float64 (``rel_f64``,
+    ``template_rel_f64``) and their ratio (``f64_ratio``, gated <=
+    ``f64_limit`` = 1.5). With --parent-csrc also the earlier tree's
+    epn_intra_conv (fp32) timed with this tree's epn_intra_conv_f32 in
+    turns (``_intra_parent_pair``; ``parent_ms``, ``same_timer_ms``)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    from epn_pointcloud_tpu_torch.ops.kernels import build
+    ik = kernels.intra_conv
+    before = dict(ik.routes)
+    again = getattr(ik, name)(*args)
+    torch.cuda.synchronize()
+    rec = {'route': next(k for k in ik.routes if ik.routes[k] > before[k]),
+           'bitwise_repeat': torch.equal(got, again)}
+    del again
+    g, ti, W = _intra_fwd_operands(name, args)
+    b, p, na, c = g.shape
+    K, d = W.shape[0], W.shape[2]
+    out = torch.empty_like(got)
+    err = build.library().epn_intra_conv(
+        g.data_ptr(), ti.data_ptr(), W.data_ptr(), 0, out.data_ptr(), b, p,
+        na, K, c, d, 0, 0, build.stream(g))
+    if err:
+        raise RuntimeError(f'{name}: epn_intra_conv: CUDA error {err}')
+    want = ik.intra_conv_plain(g.double(), ti, W.double())
+    torch.cuda.synchronize()
+    rec['rel_f64'] = float((got.double() - want).norm() / want.norm())
+    rec['template_rel_f64'] = float((out.double() - want).norm()
+                                    / want.norm())
+    rec['f64_ratio'] = rec['rel_f64'] / max(rec['template_rel_f64'], 1e-30)
+    rec['f64_limit'] = 1.5
+    del want, out, W
+    if PARENT:
+        rec['parent_ms'], rec['same_timer_ms'] = time_abba(
+            *_intra_parent_pair(name, args))
+    torch.cuda.empty_cache()
+    return rec
+
+
 def intra_conv_extras(name, args, got):
     """For a bf16 call of the prenorm intra forward or of B6 df: the kernel
     it ran (``route``, from the wrapper's counts), whether a second call
@@ -1743,12 +1824,17 @@ def intra_conv_extras(name, args, got):
     (``composed_ms``; df's epilogue not included in either). With
     --parent-csrc also the earlier tree's kernel on the same inputs, its C
     entry timed with this tree's in turns (parent, new, new, parent;
-    ``parent_ms``, ``same_timer_ms``). {} for any other call."""
+    ``parent_ms``, ``same_timer_ms``). For an fp32 call of the intra
+    forward or df, ``intra_f32_extras`` (its yardstick, one torch.mm, from
+    ``mm_library``). {} for any other call."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
+    got = got if isinstance(got, tuple) else (got,)
+    if name in ('intra_conv', 'intra_conv_df') and \
+            got[0].dtype == torch.float32:
+        return intra_f32_extras(name, args, got[0])
     if name not in ('intra_conv_prenorm', 'intra_conv_prenorm_df'):
         return {}
-    got = got if isinstance(got, tuple) else (got,)
     if got[0].dtype != torch.bfloat16:
         return {}
     ik = kernels.intra_conv
@@ -1779,7 +1865,18 @@ def _intra_parent_pair(name, args):
     from epn_pointcloud_tpu_torch.ops import kernels
     from epn_pointcloud_tpu_torch.ops.kernels import build
     ik = kernels.intra_conv
-    if name == 'intra_conv_prenorm':
+    if name in ('intra_conv', 'intra_conv_df'):
+        # fp32: the forward, or the df as the forward on (dout, inv_idx,
+        # W^T): the earlier tree's SGEMM (bf16 = 0) and this tree's kernel
+        g, ti, W = _intra_fwd_operands(name, args)
+        b, p, na, c = g.shape
+        K, d = W.shape[0], W.shape[2]
+        out = torch.empty((b, p, na, d), dtype=g.dtype, device=g.device)
+        head = (g.data_ptr(), ti.data_ptr(), W.data_ptr(), 0, out.data_ptr(),
+                b, p, na, K, c, d, 0)
+        entries = (('intra_fwd', head + (0,)), ('epn_intra_conv_f32', head))
+        keep = (W, out)
+    elif name == 'intra_conv_prenorm':
         f, ss, ti, W = args
         b, p, na, c = f.shape
         K, d = W.shape[0], W.shape[2]
@@ -1955,11 +2052,14 @@ def phase_backward_kernels(device, dtype='fp32'):
         raise AssertionError(f'{dtype} backward kernel comparisons failed: '
                              f'{failures}')
     if dtype == 'fp32':
-        check_fp32_dw_rows(tag, results['inter_conv_dw'],
-                           per_step['inter_conv_dw'])
-        check_fp32_dw_rows(tag, results['intra_conv_dw'],
-                           per_step['intra_conv_dw'], 'intra dW',
-                           'torch.mm(A^T, dout)', 1.5)
+        check_fp32_rows(tag, results['inter_conv_dw'],
+                        per_step['inter_conv_dw'])
+        check_fp32_rows(tag, results['intra_conv_dw'],
+                        per_step['intra_conv_dw'], 'intra dW',
+                        'torch.mm(A^T, dout)', 1.5)
+        check_fp32_rows(tag, results['intra_conv_df'], expect['intra_conv_df'],
+                        'intra df', 'torch.mm(A_inv, W^T)', 1.5, 'fwd_f32',
+                        1e-5)
     return results
 
 
@@ -2401,11 +2501,17 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
         raise AssertionError(f'{dtype} inv kernel comparisons failed: '
                              f'{failures}')
     if fp32:
-        check_fp32_dw_rows(tag, results['inter_conv_dw'],
-                           per_step['inter_conv_dw'])
-        check_fp32_dw_rows(tag, results['intra_conv_dw'],
-                           per_step['intra_conv_dw'], 'intra dW',
-                           'torch.mm(A^T, dout)', 1.5)
+        check_fp32_rows(tag, results['inter_conv_dw'],
+                        per_step['inter_conv_dw'])
+        check_fp32_rows(tag, results['intra_conv_dw'],
+                        per_step['intra_conv_dw'], 'intra dW',
+                        'torch.mm(A^T, dout)', 1.5)
+        for name, what, mm in (('intra_conv', 'intra forward',
+                                'torch.mm(A, W)'),
+                               ('intra_conv_df', 'intra df',
+                                'torch.mm(A_inv, W^T)')):
+            check_fp32_rows(tag, results[name], expect[name], what, mm, 1.5,
+                            'fwd_f32', 1e-5)
         results['intra_conv'] += results.pop('intra_conv_df')
     return results, routes
 
@@ -2809,10 +2915,11 @@ def phase_inv_bf16_descriptor(device, root, reps=5):
             'plain_runs_ms': p_ts}
 
 
-# the fp32 CUDA-core kernels of the inter and intra backward, by wrapper:
-# the kernel and its route (``inter_conv.routes``, ``intra_conv.routes``) in
-# the kernels summary
+# the fp32 CUDA-core kernels of the inter backward and the intra forward,
+# df and dW, by wrapper: the kernel and its route (``inter_conv.routes``,
+# ``intra_conv.routes``) in the kernels summary
 F32_KERNELS = {
+    'intra_conv': {'kernel': 'intra_fwd_f32_kernel', 'route': 'fwd_f32'},
     'inter_conv_dw': {'kernel': 'inter_dw_f32_kernel', 'route': 'dw_f32'},
     'intra_conv_dw': {'kernel': 'intra_dw_f32_kernel', 'route': 'dw_f32'},
     'inter_conv_dtable': {'kernel': 'inter_bwd_f32_kernel',
@@ -2856,8 +2963,8 @@ def main(argv=None):
                     help="an earlier tree's csrc/ directory: its bf16 "
                     'W-fused inter forward, W-off F, prenorm intra forward, '
                     'B6 df, fused dTable, W-off dG, fused dW and B6 dW, and '
-                    'its fp32 fused dTable, W-off dG, fused dW, W-off F and '
-                    "intra dW, timed beside this tree's")
+                    'its fp32 fused dTable, W-off dG, fused dW, W-off F, '
+                    "intra forward, df and dW, timed beside this tree's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2976,9 +3083,11 @@ def main(argv=None):
                 or k.name in F32_KERNELS) and k.name in results:
             rec['fp32'] = _aggregate(results[k.name])
         if k.name in F32_KERNELS and k.name not in _NO_WOFF:
-            # the fp32 fused dW and dTable: their own CUDA-core kernel, in
-            # the cls step (b=12) and the inv step (b=16 a leg); launches
-            # from the fp32 train entries, all on it (check_routes)
+            # the fp32 fused dW and dTable, the intra forward and dW: their
+            # own CUDA-core kernel, in the cls step (b=12; the intra
+            # forward: the b=32 forward) and the inv step (b=16 a leg);
+            # launches from the fp32 train entries, all on it
+            # (check_routes)
             for key, n in (('fp32', counts[k.name]),
                            ('inv', inv_counts[k.name])):
                 rec[key].update(source=k.source, launches=n,

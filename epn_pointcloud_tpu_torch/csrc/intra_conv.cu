@@ -11,12 +11,14 @@
 // What bounds it on the H100: arithmetic. Seen as one GEMM it is
 // [b*p*60 x 12C] x [12C x D] with a gathered left operand: 2 * 60 * 12 * C * D
 // FLOPs per point against 60 * C * 4 bytes of input, i.e. ~1.5 TFLOP per b=32
-// flagship forward (all seven layers). The SGEMM below (fp32, and bf16 off
-// the models' shapes) runs on the CUDA cores (no TF32, no wgmma), so the
-// fp32 FMA rate bounds it, and the design keeps the shared-memory traffic
-// per FMA low enough not to bound it first. The bf16 forward, B6 df and dW
-// of every model layer run on tensor cores (intra_conv_mma_kernel and
-// intra_dw_mma_kernel, at the end of this file), bound by the bf16 rate.
+// flagship forward (all seven layers). The SGEMM below (the fp32 prenorm
+// form, and fp32 and bf16 off the models' shapes) runs on the CUDA cores
+// (no TF32, no wgmma), so the fp32 FMA rate bounds it, and the design keeps
+// the shared-memory traffic per FMA low enough not to bound it first. The
+// fp32 plain form of every model layer runs intra_fwd_f32_kernel (below),
+// also on the CUDA cores. The bf16 forward, B6 df and dW of every model
+// layer run on tensor cores (intra_conv_mma_kernel and intra_dw_mma_kernel,
+// at the end of this file), bound by the bf16 rate.
 //
 // Design of the SGEMM: a classic register-blocked SGEMM whose A rows are
 // the flattened (point, anchor) pairs. A block computes a 128-row x
@@ -30,6 +32,40 @@
 // land in the other of two shared-memory buffers (one barrier a slice).
 // Per step of the reduction a thread reads 2 + 2 float4 for 64 FMAs.
 // trace_idx is staged in shared memory once a block.
+//
+// fp32, the plain form (the parity mode: every model layer, 60 anchors, 12
+// kernel points, C and D multiples of 32; the df too), runs on the CUDA
+// cores in a kernel of its own (intra_fwd_f32_kernel; epn_intra_conv_f32),
+// FFMA only: no TF32, as the TPU kernel's fp32 dot runs at HIGHEST
+// precision. Its bound is the fp32 FMA rate: 1.54 TFLOP over the cls b=32
+// forward's 7 calls (23.08 ms at 67 TFLOP/s), 0.58 over the cls b=12 step's
+// 7 df calls (8.65 ms); reading f and W once costs 20-40x less. What held
+// the SGEMM above (52% of that bound) back, taken by parts on the card
+// (intra_conv_variants.py): without its FFMA it still takes 60% of its
+// time, and that is neither its gather (the rows read in order: 2.5%
+// faster) nor a wait on its global loads (waiting for each slice was 3.7%
+// faster): it is its shared-memory loop, 4 16-byte loads a thread per 64
+// FFMA, behind stores that transpose the slice with 4-way bank conflicts,
+// in 128-row tiles that straddle points (so no point's rows are staged
+// once), with 64-thread blocks at D = 32. The design: a block owns NP whole
+// points (NP x 60 rows) by BN = 64 columns (NP = 4; at D % 64 != 0, 8
+// points by 32 columns) and walks the reduction in chunks of 8 channels
+// through a two-stage cp.async ring (the next chunk in flight behind this
+// one's FFMA, one barrier a chunk); a chunk stages its points' f rows
+// [NP, 60, 8] once and W's rows [12, 8, BN]. For kernel point k, output
+// row (p, a) reads slab row trace[a, k]: the gather is the shared-load
+// address (the adjacency staged once as slab offsets), so each f element
+// leaves L2 D / BN times. The reduction runs chunk, kernel point, channel:
+// a thread's offsets for k are read once and held over the chunk's
+// channels. What bounds the product is the shared bytes loaded into
+// registers per FFMA, which only the thread's tile sets: a thread owns 15
+// anchors x 8 columns (120 fp32 sums; per 4 channels fifteen 16-byte loads
+// of f, the 8 lanes of an anchor group reading one address, and eight of
+// W, contiguous across the lanes: 0.77 bytes a FFMA, against 0.9 for 10 x
+// 8 and 1.0 for the SGEMM's 8 x 8). 128 threads a block, two blocks an SM
+// (8 warps at <= 255 registers, no spills): 10 x 8 sums in 192 threads
+// (12 warps at 168) was 8% slower, 12 x 8 at 168 registers spilled and
+// lost 27%, three blocks an SM at 96 registers lost 5x.
 //
 // Element type and prenorm: f, W and out are fp32 (parity mode) or bf16
 // (production mode); products and sums are fp32, and out is rounded once on
@@ -1463,6 +1499,221 @@ int launch(const float* f, const int* trace, const float* dout, float* ws,
 
 }  // namespace dwf32
 
+// -------------------------------------- fp32 forward on the CUDA cores
+
+namespace fwdf32 {
+
+using mma::kK;
+using mma::kNA;
+constexpr int kAT = 15;                  // anchors a thread
+constexpr int kGroups = kNA / kAT;       // anchor groups a point
+constexpr int kATP = (kAT + 3) / 4 * 4;  // a group's offsets, padded to int4s
+constexpr int kCC = 8;                   // channels a stage
+constexpr int kCS = 4;                   // channels a step of the product
+constexpr int kStages = 2;               // channel chunks in the cp.async ring
+constexpr int kTile = 256;               // points a block x columns a block
+constexpr int kThreads = kGroups * kTile / 8;  // 8 columns a thread
+constexpr int kBlocksPerSM = 2;
+// C and D must be multiples of kMult (FWD_F32_MULT in ops/kernels/
+// intra_conv.py): whole chunks of kCC channels, whole 32-column tiles
+constexpr int kMult = 32;
+// shared memory: the adjacency as slab offsets (trace[a, k] * kCC) by kernel
+// point, anchor group and the group's anchors [kK][kGroups][kATP], then the
+// ring of kStages stages, each a chunk of kCC channels: the block's f rows
+// [NP][kNA][kCC] and W's rows [kK][kCC][BN]
+constexpr size_t kOffBytes = (size_t)kK * kGroups * kATP * sizeof(int);
+static_assert(kNA % kAT == 0 && kCC % 4 == 0 && kCC % kCS == 0 &&
+                  kMult % kCC == 0 &&
+                  (kCS == 1 || kCS == 2 || kCS == 4),
+              "thread layout");
+
+// n consecutive floats of shared memory into registers (n = 1, 2, 4: one
+// load of 4, 8 or 16 bytes)
+template <int N>
+__device__ __forceinline__ void lds(float (&x)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+template <int BN>
+struct Cfg {
+  static constexpr int NP = kTile / BN;          // points a block: 4 or 8
+  static constexpr int LG = BN / 8;              // lanes an anchor group
+  static constexpr int kF = NP * kNA * kCC;      // floats of f a stage
+  static constexpr int kStage = kF + kK * kCC * BN;
+  static constexpr size_t kSmem =
+      kOffBytes + (size_t)kStages * kStage * sizeof(float);
+  static_assert(kThreads == NP * kGroups * LG, "thread layout");
+};
+
+// the columns a block owns: 64, or 32 where D % 64 != 0
+inline int pick_bn(int D) { return D % 64 == 0 ? 64 : 32; }
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// out[p, a, n0 + n] = sum_k sum_c f[p, trace[a, k], c] W[k, c, n0 + n] for
+// the block's NP whole points (pt0 on; np of them live) and BN columns,
+// kCC channels at a time through a ring of kStages stages: each chunk's f
+// rows of the block's points and W rows [kK, kCC, BN] go out by cp.async
+// kStages - 1 chunks ahead, one barrier a chunk. Thread (point pl, anchor
+// group grp, lane co of the group) owns anchors kAT grp .. + kAT of point pl
+// and columns n0 + 4 co .. + 4 and n0 + BN / 2 + 4 co .. + 4: kAT x 8 fp32
+// sums, each adding its 12C terms in one order (chunk, kernel point,
+// channel) by fmaf. For kernel point k, output row (pl, a) reads slab row
+// trace[a, k] of point pl: the gather is the shared-load address, with the
+// group's kAT offsets for k read once and held over the chunk's channels.
+// A group's lanes read the same f address (a broadcast) and contiguous W.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+intra_fwd_f32_kernel(const float* __restrict__ f,
+                     const int* __restrict__ trace,
+                     const float* __restrict__ W, float* __restrict__ out,
+                     int n_pts, int C, int D) {
+  using G = Cfg<BN>;
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  int* s_off = reinterpret_cast<int*>(fwd_smem);
+  float* ring = reinterpret_cast<float*>(fwd_smem + kOffBytes);
+  const int tid = threadIdx.x;
+  const int co = tid % G::LG, q = tid / G::LG;
+  const int pl = q / kGroups, grp = q - pl * kGroups;
+  const int n_cb = D / BN;
+  const int n0 = (blockIdx.x % n_cb) * BN;
+  const int pt0 = blockIdx.x / n_cb * G::NP;
+  const int live = min(G::NP, n_pts - pt0) * kNA;  // the block's live rows
+  const int chunks = C / kCC;
+
+  for (int i = tid; i < kK * kGroups * kATP; i += kThreads) {
+    const int k = i / (kGroups * kATP), r = i - k * (kGroups * kATP);
+    const int g = r / kATP, t = r - g * kATP;
+    s_off[i] = t < kAT ? trace[(g * kAT + t) * kK + k] * kCC : 0;
+  }
+
+  // chunk ch of the reduction into its stage, one commit group (empty past
+  // the last chunk); rows past the live points stage as zeros
+  auto load = [&](int ch) {
+    if (ch < chunks) {
+      float* st = ring + (ch % kStages) * G::kStage;
+      const int c0 = ch * kCC;
+      for (int e = tid; e < G::NP * kNA * (kCC / 4); e += kThreads) {
+        const int r = e / (kCC / 4), c4 = (e - r * (kCC / 4)) * 4;
+        const bool ok = r < live;
+        tc::cp16(tc::smem_addr(st + r * kCC + c4),
+                 ok ? f + ((size_t)pt0 * kNA + r) * C + c0 + c4 : f, ok);
+      }
+      float* ws = st + G::kF;
+      for (int e = tid; e < kK * kCC * (BN / 4); e += kThreads) {
+        const int r = e / (BN / 4), c4 = (e - r * (BN / 4)) * 4;
+        const int k = r / kCC, i = r - k * kCC;
+        tc::cp16(tc::smem_addr(ws + r * BN + c4),
+                 W + ((size_t)k * C + c0 + i) * D + n0 + c4, true);
+      }
+    }
+    tc::cp_commit();
+  };
+
+  float acc[kAT][8];
+#pragma unroll
+  for (int t = 0; t < kAT; ++t)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[t][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) load(s);
+  const int* so = s_off + grp * kATP;
+#pragma unroll 1
+  for (int ch = 0; ch < chunks; ++ch) {
+    tc::cp_wait<kStages - 2>();
+    __syncthreads();  // chunk ch visible; every warp done with chunk ch - 1
+    load(ch + kStages - 1);
+    const float* fs = ring + (ch % kStages) * G::kStage + pl * kNA * kCC;
+    const float* ws = ring + (ch % kStages) * G::kStage + G::kF + 4 * co;
+#pragma unroll 2
+    for (int k = 0; k < kK; ++k) {
+      int o[kATP];
+#pragma unroll
+      for (int t4 = 0; t4 < kATP / 4; ++t4) {
+        const int4 v =
+            *reinterpret_cast<const int4*>(so + k * kGroups * kATP + 4 * t4);
+        o[4 * t4] = v.x;
+        o[4 * t4 + 1] = v.y;
+        o[4 * t4 + 2] = v.z;
+        o[4 * t4 + 3] = v.w;
+      }
+#pragma unroll
+      for (int cs = 0; cs < kCC; cs += kCS) {
+        // W rows (k, cs + i) at the thread's 8 columns
+        float w[kCS][8];
+#pragma unroll
+        for (int i = 0; i < kCS; ++i) {
+          const float* wr = ws + (k * kCC + cs + i) * BN;
+          const float4 lo = lds4(wr), hi = lds4(wr + BN / 2);
+          w[i][0] = lo.x;
+          w[i][1] = lo.y;
+          w[i][2] = lo.z;
+          w[i][3] = lo.w;
+          w[i][4] = hi.x;
+          w[i][5] = hi.y;
+          w[i][6] = hi.z;
+          w[i][7] = hi.w;
+        }
+#pragma unroll
+        for (int t = 0; t < kAT; ++t) {
+          float xv[kCS];
+          lds<kCS>(xv, fs + o[t] + cs);
+#pragma unroll
+          for (int i = 0; i < kCS; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              acc[t][j] = fmaf(xv[i], w[i][j], acc[t][j]);
+        }
+      }
+    }
+  }
+  tc::cp_wait<0>();
+
+  if (pl * kNA < live) {
+    float* op = out + ((size_t)(pt0 + pl) * kNA + grp * kAT) * D + n0 + 4 * co;
+#pragma unroll
+    for (int t = 0; t < kAT; ++t) {
+      *reinterpret_cast<float4*>(op + (size_t)t * D) =
+          make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
+      *reinterpret_cast<float4*>(op + (size_t)t * D + BN / 2) =
+          make_float4(acc[t][4], acc[t][5], acc[t][6], acc[t][7]);
+    }
+  }
+}
+
+template <int BN>
+int launch(const float* f, const int* trace, const float* W, float* out,
+           int n_pts, int C, int D, cudaStream_t stream) {
+  using G = Cfg<BN>;
+  auto kern = intra_fwd_f32_kernel<BN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks =
+      (long long)(n_pts + G::NP - 1) / G::NP * (D / BN);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, kThreads, G::kSmem, stream>>>(f, trace, W, out,
+                                                         n_pts, C, D);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fwdf32
+
 }  // namespace
 
 // f [b, P, na, C], trace_idx [na, K] int32 (device), W [K, C, D],
@@ -1565,6 +1816,32 @@ extern "C" int epn_intra_conv_bwd_w_f32(const void* f, const void* trace_idx,
   return dwf32::launch((const float*)f, (const int*)trace_idx,
                        (const float*)dout, (float*)ws, (float*)dW, b * P, C,
                        D, splits, rows_per_split / na, (cudaStream_t)stream);
+}
+
+// The forward on the CUDA cores (intra_fwd_f32_kernel), the plain form:
+// the arguments of epn_intra_conv_mma with f, W and out fp32 and ss null
+// (ss_stride unused). The df runs it on (dout, inv_idx, W^T [K, D, C]).
+// na must be 60, K 12, C and D multiples of 32.
+extern "C" int epn_intra_conv_f32(const void* f, const void* trace_idx,
+                                  const void* W, const void* ss, void* out,
+                                  int b, int P, int na, int K, int C, int D,
+                                  int ss_stride, void* stream) {
+  (void)ss_stride;
+  if (ss != nullptr || na != mma::kNA || K != mma::kK ||
+      C % fwdf32::kMult != 0 || D % fwdf32::kMult != 0 || b < 0 || P < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_pts = b * P;
+  if (n_pts == 0) return 0;
+  const float* fp = (const float*)f;
+  const int* tp = (const int*)trace_idx;
+  const float* wp = (const float*)W;
+  float* op = (float*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (fwdf32::pick_bn(D) == 64) {
+    return fwdf32::launch<64>(fp, tp, wp, op, n_pts, C, D, s);
+  }
+  return fwdf32::launch<32>(fp, tp, wp, op, n_pts, C, D, s);
 }
 
 // B6 df, dscale, dshift. dout [b, P, na, C], inv_idx [na, K] int32, Wt [K,

@@ -73,6 +73,47 @@ and the two times averaged; for the SGEMM and the builds whose output is
 right the normwise error against ``intra_conv_dw_plain``; for each build its
 kernel's registers and spills (nvcc's -Xptxas -v).
 
+The fp32 forward of the plain form on the CUDA cores
+(``intra_fwd_f32_kernel``, epn_intra_conv_f32; the df is the same kernel on
+the inverse adjacency and W^T) beside the SGEMM (``intra_conv_kernel`` in
+fp32, epn_intra_conv, ``fwd_sgemm``, from the built library), at the cls
+layers at b=32 (the serving forward) and b=12 (the train step's forward,
+and its df on the inverse adjacency) and the inv layers at b=16 (a leg's
+forward). The SGEMM by parts:
+  fwd_sgemm_no_ffma   its product cut to 15 FADD a reduction step that read
+                      every loaded value (the gathered loads, the stores,
+                      the barriers still run); wrong;
+  fwd_sgemm_no_gather the A rows read without the adjacency (a row reads
+                      its own anchor's f row for every kernel point); wrong;
+  fwd_sgemm_wait      the next slice's loads stored to shared memory, and a
+                      barrier passed, before the slice's FFMA (no load in
+                      flight behind the product);
+the CUDA-core kernel's builds:
+  fwdf_built          the source as it is (15 anchors x 8 columns a thread,
+                      128 threads, a two-stage ring, the product stepping 4
+                      channels, the kernel-point loop unrolled by 2);
+  fwdf_no_ffma        its product cut to 92 FADD a 4-channel step (against
+                      480 FFMA) that read every loaded value; wrong;
+  fwdf_no_gather      the f rows read without the adjacency (slab row = the
+                      output row); wrong;
+  fwdf_wait           each chunk's loads waited for before its product
+                      (what a one-stage ring does);
+  fwdf_ring_3         a three-stage ring (two chunks in flight);
+  fwdf_cs2, fwdf_cs1  the product stepping 2 or 1 channels: W held for 2
+                      or 1 channels, f read by 8- or 4-byte loads; the same
+                      sums in the same order;
+  fwdf_at10, fwdf_at12, fwdf_at20_cs1
+                      10 anchors a thread (192 threads), 12 (160), or 20
+                      (96 threads, stepping 1 channel);
+  fwdf_unroll_u       the kernel-point loop unrolled by u = 1, 3 or 4.
+Each build, the SGEMM too, is timed in turn and then in the reverse order,
+and the two times averaged; for the builds whose output is right the
+normwise error against ``intra_conv_plain`` on the call's adjacency, and
+for the SGEMM and the built kernel against it in float64; for each build
+its kernels' registers and spills.
+
+  python -m epn_pointcloud_tpu_torch.intra_conv_variants
+
 One JSON line a shape, a sum over each model's layers, a line a build's
 registers, all of them in chiprun_out/intra_conv_variants.json. Needs a
 CUDA device and nvcc.
@@ -147,6 +188,62 @@ F32_EXACT = ('sgemm', 'f32_built', 'f32_ring_1', 'f32_kq_lanes',
              'f32_packed_offsets', 'f32_kt2', 'f32_unroll_2', 'f32_unroll_4',
              'f32_unroll_6', 'f32_unroll_10', 'f32_unroll_20')
 EXACT = ('built', 'group_1', 'group_4', 'in_place')
+# the SGEMM's FMA line; intra_dw_kernel holds it too, so fwd_sgemm_no_ffma
+# cuts that kernel's product as well (only its forward is timed)
+_SGEMM_FMA = ('for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], '
+              'acc[i][j]);')
+_SGEMM_LOAD = ('      load_slice<E, PRE, BN>(W, s_trace, a_pt, a_ss, '
+               'a_anchor, (s + 1) * BK,\n'
+               '                             tid, K, C, D, n0, L, ra, rb);\n')
+_SGEMM_STORE = ('    if (s + 1 < n_slices) store_slice<BN>(As[buf ^ 1], '
+                'Bs[buf ^ 1], tid, ra, rb);\n')
+_FWDF_FMA = 'acc[t][j] = fmaf(xv[i], w[i][j], acc[t][j]);'
+_FWDF_UNROLL = '#pragma unroll 2\n    for (int k = 0;'
+_FWDF_CS = 'constexpr int kCS = 4;'
+_FWDF_RING = 'constexpr int kStages = 2;               // channel'
+_FWDF_AT = 'constexpr int kAT = 15;'
+# the fp32 forward's builds: the SGEMM by parts, then the CUDA-core kernel's
+FWD_F32_VARIANTS = {
+    'fwd_sgemm_no_ffma': (_SGEMM_FMA, 'for (int j = 0; j < TN; ++j) { if '
+                          '(i == 0) acc[0][j] += b[j]; if (j == 0) acc[i][0] '
+                          '+= a[i]; }'),
+    'fwd_sgemm_no_gather': ('const int lane = s_trace[a_anchor[i] * K + k] '
+                            '* C + c;', 'const int lane = a_anchor[i] * C + '
+                            'c;'),
+    'fwd_sgemm_wait': [(_SGEMM_LOAD, _SGEMM_LOAD + '      store_slice<BN>(As['
+                        'buf ^ 1], Bs[buf ^ 1], tid, ra, rb);\n      '
+                        '__syncthreads();\n'), (_SGEMM_STORE, '')],
+    'fwdf_built': None,
+    'fwdf_no_ffma': (_FWDF_FMA, '{ if (t == 0) acc[i][j] += w[i][j]; if (j '
+                     '== 0) acc[t][i] += xv[i]; }'),
+    'fwdf_no_gather': ('s_off[i] = t < kAT ? trace[(g * kAT + t) * kK + k] * '
+                       'kCC : 0;', 's_off[i] = t < kAT ? (g * kAT + t) * kCC '
+                       ': 0;'),
+    'fwdf_wait': ('    load(ch + kStages - 1);\n', '    load(ch + kStages - '
+                  '1);\n    tc::cp_wait<0>();\n    __syncthreads();\n'),
+    'fwdf_ring_3': (_FWDF_RING, _FWDF_RING.replace('2', '3')),
+    'fwdf_cs2': (_FWDF_CS, _FWDF_CS.replace('4', '2')),
+    'fwdf_cs1': (_FWDF_CS, _FWDF_CS.replace('4', '1')),
+}
+# anchors a thread: 10 (v1's layout: 192 threads), 12 (160) or 20 (96,
+# stepping 1 channel); the source: 15 (128 threads)
+FWD_F32_VARIANTS.update({f'fwdf_at{a}': (_FWDF_AT, _FWDF_AT.replace(
+    '15', str(a))) for a in (10, 12)})
+FWD_F32_VARIANTS['fwdf_at20_cs1'] = [(_FWDF_AT, _FWDF_AT.replace('15', '20')),
+                                     (_FWDF_CS, _FWDF_CS.replace('4', '1'))]
+FWD_F32_VARIANTS.update({
+    f'fwdf_unroll_{u}': (_FWDF_UNROLL, _FWDF_UNROLL.replace('2', str(u)))
+    for u in (1, 3, 4)})
+# the builds whose forward is right (the SGEMM from the built library)
+FWD_F32_EXACT = ('fwd_sgemm', 'fwd_sgemm_wait', 'fwdf_built', 'fwdf_wait',
+                 'fwdf_ring_3', 'fwdf_cs2', 'fwdf_cs1', 'fwdf_at10',
+                 'fwdf_at12', 'fwdf_at20_cs1', 'fwdf_unroll_1',
+                 'fwdf_unroll_3', 'fwdf_unroll_4')
+# model -> [(call, batch, adjacency)]: the fp32 forward's timed calls
+FWD_F32_CALLS = {'cls_so3net_pn': [('forward', 32, 'trace'),
+                                   ('forward', 12, 'trace'),
+                                   ('df', 12, 'inv')],
+                 'inv_so3net_pn': [('forward', 16, 'trace')]}
 # model -> (forward batch, df batch, fold a cloud, [(layer, p, c)])
 SHAPES = {
     'cls_so3net_pn': (32, 12, False, [
@@ -172,7 +269,7 @@ def _rel(got, want):
 
 ENTRIES = ('epn_intra_conv_mma', 'epn_intra_conv_prenorm_df_mma',
            'epn_intra_conv_bwd_w_mma', 'epn_intra_conv_bwd_w',
-           'epn_intra_conv_bwd_w_f32')
+           'epn_intra_conv_bwd_w_f32', 'epn_intra_conv', 'epn_intra_conv_f32')
 
 
 def main():
@@ -181,17 +278,22 @@ def main():
     sys.path.insert(0, ROOT)
     from chip_smoke import time_ms
     from .inter_bwd_variants import ptxas_usage
-    variants = {**VARIANTS, **DW_VARIANTS, **F32_VARIANTS}
+    variants = {**VARIANTS, **DW_VARIANTS, **F32_VARIANTS, **FWD_F32_VARIANTS}
     procs = {n: build.compile_alone(build.CSRC_DIR, 'intra_conv.cu',
                                     os.path.join(OUT, n), sub)
              for n, sub in variants.items()}
-    fns, regs = {}, {}
+    fns, regs, failed = {}, {}, {}
     for n, (p, so) in procs.items():
         log = p.communicate()[0]
         if p.returncode != 0:
-            raise RuntimeError(f'nvcc failed on {n}:\n{log}')
+            failed[n] = log
+            continue
         if n in F32_VARIANTS:
             regs[n] = ptxas_usage(log, 'intra_dw_f32_kernel')
+        if n in FWD_F32_VARIANTS or n == 'built':
+            regs[n] = {**regs.get(n, {}),
+                       **ptxas_usage(log, 'intra_fwd_f32_kernel'),
+                       **ptxas_usage(log, 'intra_conv_kernel')}
         lib = ctypes.CDLL(so)
         fns[n] = {}
         for entry in ENTRIES:
@@ -199,6 +301,9 @@ def main():
             fn.argtypes = build.SIGNATURES[entry]
             fn.restype = ctypes.c_int
             fns[n][entry] = fn
+    if failed:
+        raise RuntimeError('nvcc failed on ' + ''.join(
+            f'{n}:\n{log}\n' for n, log in failed.items()))
     dev = torch.device('cuda')
     card = torch.cuda.get_device_name(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -206,7 +311,8 @@ def main():
     lines = (_fwd({n: fn for n, fn in fns.items() if n in VARIANTS}, dev,
                   card, stream, ti, time_ms)
              + _dw(fns, dev, card, stream, ti, time_ms)
-             + _dw_f32(fns, dev, card, stream, ti, time_ms))
+             + _dw_f32(fns, dev, card, stream, ti, time_ms)
+             + _fwd_f32(fns, dev, card, stream, time_ms))
     for n, use in regs.items():
         for fn_name, u in use.items():
             lines.append({'build': n, 'function': fn_name, **u})
@@ -411,6 +517,71 @@ def _dw_f32(fns, dev, card, stream, ti, time_ms):
         lines.append({'model': model, 'entry': 'dw_f32',
                       'sum_over_layers': True, 'ms': total, 'card': card})
         print(json.dumps(lines[-1]), flush=True)
+    return lines
+
+
+def _fwd_f32(fns, dev, card, stream, time_ms):
+    """The fp32 forward's builds and the SGEMM at each layer and call (the
+    cls forward at b=32 and b=12, its df at b=12, the inv forward at b=16),
+    each timed in both orders: JSON lines."""
+    lines = []
+    names = ['fwd_sgemm'] + list(FWD_F32_VARIANTS)
+    adj = {'trace': torch.from_numpy(icosahedron.get_intra_idx()).to(dev),
+           'inv': torch.from_numpy(icosahedron.get_intra_inv_idx()).to(dev)}
+    for model, calls in FWD_F32_CALLS.items():
+        for call_name, b, which in calls:
+            total = dict.fromkeys(names, 0.0)
+            for tag, p, c in SHAPES[model][3]:
+                rng = np.random.RandomState(p + c + b)
+                f = torch.from_numpy(rng.randn(b, p, 60, c).astype(
+                    np.float32)).to(dev)
+                W = torch.from_numpy((0.05 * rng.randn(12, c, c)).astype(
+                    np.float32)).to(dev)
+                ti = adj[which]
+                want64 = intra_conv.intra_conv_plain(f.double(), ti,
+                                                     W.double())
+                want = want64.float()
+                out = torch.empty_like(f)
+                args = (f.data_ptr(), ti.data_ptr(), W.data_ptr(), 0,
+                        out.data_ptr(), b, p, 60, 12, c, c, 0)
+
+                def call(n):
+                    fn = (fns['built']['epn_intra_conv'] if n == 'fwd_sgemm'
+                          else fns[n]['epn_intra_conv'] if
+                          n.startswith('fwd_sgemm') else
+                          fns[n]['epn_intra_conv_f32'])
+                    tail = (0,) if n.startswith('fwd_sgemm') else ()
+
+                    def run():
+                        err = fn(*args, *tail, stream)
+                        if err:
+                            raise RuntimeError(f'{n}: CUDA error {err}')
+                    return run
+                rec = {n: {'ms': 0.0} for n in names}
+                for order in (names, names[::-1]):
+                    for n in order:
+                        rec[n]['ms'] += time_ms(call(n)) / 2
+                for n in FWD_F32_EXACT:
+                    call(n)()
+                    torch.cuda.synchronize()
+                    rec[n]['rel'] = _rel(out, want)
+                    if n in ('fwd_sgemm', 'fwdf_built'):
+                        rec[n]['rel_f64'] = float(
+                            (out.double() - want64).norm() / want64.norm())
+                for n in names:
+                    total[n] += rec[n]['ms']
+                lines.append({'model': model, 'entry': 'fwd_f32',
+                              'call': call_name, 'layer': tag, 'p': p,
+                              'c': c, 'batch': b, 'variants': rec,
+                              'card': card})
+                print(json.dumps(lines[-1]), flush=True)
+                del f, W, want, want64, out
+                torch.cuda.empty_cache()
+            lines.append({'model': model, 'entry': 'fwd_f32',
+                          'call': call_name, 'batch': b,
+                          'sum_over_layers': True, 'ms': total,
+                          'card': card})
+            print(json.dumps(lines[-1]), flush=True)
     return lines
 
 

@@ -69,6 +69,10 @@ SIGNATURES = {
     # on tensor cores)
     'epn_intra_conv_mma': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P],
+    # f, trace_idx, w, ss (null), out, b, p, na, k, c, d, ss_stride, stream
+    # (fp32 on the CUDA cores)
+    'epn_intra_conv_f32': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
     # gx, rk, k2, out, b, p2, nn, na, k, sigma, bf16, stream
     'epn_ones_conv': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # x, sum, sumsq, b, rows, lanes, bf16, stream

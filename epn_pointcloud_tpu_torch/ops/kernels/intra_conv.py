@@ -41,9 +41,11 @@ rounded once (df: dz never rounded, df rounded once). So does the bf16 dW,
 plain and prenorm (``intra_dw_mma_kernel``, picked by ``dw_mma_route``): z
 rounded to bf16, fp32 sums, dW fp32. The fp32 dW of the plain form runs
 on the CUDA cores in a kernel of its own (``intra_dw_f32_kernel``, picked
-by ``dw_f32_route``: every model layer), FFMA only, fp32 sums. The other
-shapes, and the fp32 prenorm dW, run the register-blocked SGEMM
-(``intra_dw_kernel`` for dW).
+by ``dw_f32_route``: every model layer), FFMA only, fp32 sums; so does the
+fp32 forward of the plain form and its df (``intra_fwd_f32_kernel``, picked
+by ``fwd_f32_route``: every model layer). The other shapes, and the fp32
+prenorm forms, run the register-blocked SGEMM (``intra_conv_kernel``;
+``intra_dw_kernel`` for dW).
 """
 
 from __future__ import annotations
@@ -74,12 +76,14 @@ _DF_BLOCK_ROWS = 128
 launches = dict.fromkeys(ENTRIES, 0)
 # the launches of the forward product (intra_conv, intra_conv_prenorm, and
 # the df of intra_conv_prenorm_df) by kernel: 'mma', the bf16 tensor-core
-# kernel (``intra_conv_mma_kernel``), or 'sgemm', the register-blocked SGEMM;
+# kernel (``intra_conv_mma_kernel``), 'fwd_f32', the fp32 CUDA-core kernel
+# (``intra_fwd_f32_kernel``), or 'sgemm', the register-blocked SGEMM;
 # of dW (intra_conv_dw, intra_conv_prenorm_dw): 'dw_mma', the bf16
 # tensor-core kernel (``intra_dw_mma_kernel``), 'dw_f32', the fp32
 # CUDA-core kernel (``intra_dw_f32_kernel``), or 'dw', the SGEMM
 # (``intra_dw_kernel``)
-routes = dict.fromkeys(('mma', 'sgemm', 'dw_mma', 'dw_f32', 'dw'), 0)
+routes = dict.fromkeys(('mma', 'fwd_f32', 'sgemm', 'dw_mma', 'dw_f32', 'dw'),
+                       0)
 # the tensor-core kernels' shapes (``mma_route``, ``dw_mma_route``): the
 # icosahedral group's anchors and kernel points, and the widths of the
 # models' intra layers
@@ -93,12 +97,16 @@ DW_MMA_NP, DW_MMA_CB, DW_MMA_BLOCKS = 8, 32, 264
 # DW_F32_WAVE blocks fill the 132 SMs once; its splits fill one or two
 # such waves
 DW_F32_CB, DW_F32_BN, DW_F32_WAVE = 32, 32, 396
+# the fp32 CUDA-core forward's envelope: c and d multiples of FWD_F32_MULT
+# (whole 8-channel chunks, whole 32-column tiles; kMult in the source)
+FWD_F32_MULT = 32
 
 
 def mma_route(dtype, na: int, K: int, c: int, d: int) -> bool:
     """Whether a forward or B6 df runs the bf16 tensor-core kernel: bf16
     operands, na == 60, K == 12 and c == d in MMA_WIDTHS (every intra layer
-    of both models). fp32 and the other shapes run the SGEMM."""
+    of both models). fp32 runs the CUDA-core kernel where ``fwd_f32_route``
+    holds; the other shapes run the SGEMM."""
     return (dtype == torch.bfloat16 and na == MMA_NA and K == MMA_K
             and c == d and c in MMA_WIDTHS)
 
@@ -120,6 +128,19 @@ def dw_f32_route(dtype, na: int, K: int, c: int, d: int,
     run the SGEMM (``intra_dw_kernel``)."""
     return (dtype == torch.float32 and not prenorm and na == MMA_NA
             and K == MMA_K and c % DW_F32_CB == 0 and d % DW_F32_BN == 0)
+
+
+def fwd_f32_route(dtype, na: int, K: int, c: int, d: int,
+                  prenorm: bool = False) -> bool:
+    """Whether a forward (or the plain form's df, the forward on the inverse
+    adjacency) runs the fp32 CUDA-core kernel (``intra_fwd_f32_kernel``):
+    fp32 operands, the plain form (no prenorm fold), na == 60, K == 12, c
+    and d multiples of FWD_F32_MULT (every intra layer of both models in
+    fp32). The prenorm form and the other shapes run the SGEMM
+    (``intra_conv_kernel``)."""
+    return (dtype == torch.float32 and not prenorm and na == MMA_NA
+            and K == MMA_K and c % FWD_F32_MULT == 0
+            and d % FWD_F32_MULT == 0)
 
 
 def dw_f32_splits(n_points: int, na: int, c: int, d: int) -> tuple[int, int]:
@@ -286,9 +307,11 @@ def _launch_fwd(kernel, f, trace_idx, W, ss):
             0 if ss is None else ss.data_ptr(), out.data_ptr(), b, p, na, K,
             c, d, 2 * na * c if sb > 1 else 0)
     launches[kernel] += 1
-    if mma_route(f.dtype, na, K, c, d):
-        routes['mma'] += 1
-        build.launch('epn_intra_conv_mma', *ptrs, build.stream(f))
+    mma = mma_route(f.dtype, na, K, c, d)
+    if mma or fwd_f32_route(f.dtype, na, K, c, d, ss is not None):
+        routes['mma' if mma else 'fwd_f32'] += 1
+        build.launch('epn_intra_conv_mma' if mma else 'epn_intra_conv_f32',
+                     *ptrs, build.stream(f))
     else:
         routes['sgemm'] += 1
         build.launch('epn_intra_conv', *ptrs, bf16, build.stream(f))
@@ -298,7 +321,8 @@ def _launch_fwd(kernel, f, trace_idx, W, ss):
 def intra_conv(f: torch.Tensor, trace_idx: torch.Tensor,
                W: torch.Tensor) -> torch.Tensor:
     """Forward kernel wrapper: plain version on the CPU, CUDA kernel on the
-    card."""
+    card (the tensor-core kernel where ``mma_route`` holds, the fp32
+    CUDA-core kernel where ``fwd_f32_route`` does, else the SGEMM)."""
     if f.device.type == 'cpu':
         return intra_conv_plain(f, trace_idx, W)
     return _launch_fwd('intra_conv', f, trace_idx, W, None)
@@ -318,7 +342,7 @@ def intra_conv_prenorm(f: torch.Tensor, ss: torch.Tensor,
 def intra_conv_df(dout: torch.Tensor, trace_idx: torch.Tensor,
                   inv_idx: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """df wrapper: the plain scatter on the CPU; on the card the forward
-    kernel on (dout, inv_idx, W transposed to [K, d, c])."""
+    kernel on (dout, inv_idx, W transposed to [K, d, c]), on its route."""
     if dout.device.type == 'cpu':
         return intra_conv_df_plain(dout, trace_idx, W)
     return intra_conv(dout, inv_idx, W.transpose(1, 2).contiguous())

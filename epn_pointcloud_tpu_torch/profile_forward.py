@@ -66,6 +66,7 @@ GROUPS = (('inter_f_mma_kernel', 'inter F (W-off) kernel'),
           (('intra_conv_mma_kernel', 'true>'), 'prenorm intra df kernel'),
           ('intra_conv_mma_kernel', 'intra conv kernel (and fp32 df)'),
           ('intra_conv_kernel', 'intra conv kernel (and fp32 df)'),
+          ('intra_fwd_f32_kernel', 'intra conv kernel (and fp32 df)'),
           ('intra_df_prenorm_kernel', 'prenorm intra df kernel'),
           ('intra_dw_mma_kernel', 'intra dW kernel'),
           ('intra_dw_f32_kernel', 'intra dW kernel'),

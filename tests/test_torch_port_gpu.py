@@ -20,6 +20,9 @@ fold for the batch and one a cloud, at point counts that leave its last
 8-point group short, its determinism, and the SGEMM off its envelope;
 the fp32 intra dW on the CUDA cores at every model layer shape and at its
 edges, its determinism and its float64 error against the SGEMM's;
+the fp32 intra forward and df on the CUDA cores at every model layer shape
+and at their edges, the same checks, the SGEMM off their envelope, and the
+kernel's SASS (FFMA, no tensor-core instruction);
 the bf16 W-off F on tensor cores and the fp32 one on the CUDA cores at
 every composed-route layer and at their edges (the fp32 one bitwise the
 template's), their determinism, and the template off their envelopes.
@@ -729,6 +732,126 @@ def test_intra_dw_f32_kernel_edges(cuda, b, p, c, d):
     assert routes == {'dw_f32': 2}
     assert _rel(got, want) <= 1e-5 and torch.equal(got, again)
     assert rel <= 1.5 * sgemm_rel, (rel, sgemm_rel)
+
+
+def _intra_fwd_f32_case(cuda, b, p, c, d, seed):
+    """(routes taken, then for the forward and the df: the kernel's output,
+    a second call's, the plain version in float64, the kernel's and the
+    SGEMM's normwise errors against it) of the fp32 plain-form intra
+    forward and df, called twice each; the SGEMM (this tree's
+    epn_intra_conv, fp32) on the same operands (the df's: dout, the
+    inverse adjacency and W^T)."""
+    f, _, ti, inv, W, dout = _prenorm_operands(cuda, torch.float32, b, p, c,
+                                               d, 1, seed=seed)
+    ik = tkern.intra_conv
+    before = dict(ik.routes)
+    runs = [(ik.intra_conv(f, ti, W), ik.intra_conv_df(dout, ti, inv, W))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    routes = {k: ik.routes[k] - before[k] for k in ik.routes
+              if ik.routes[k] > before[k]}
+    wants = (ik.intra_conv_plain(f.double(), ti, W.double()),
+             ik.intra_conv_df_plain(dout.double(), ti, W.double()))
+    operands = ((f, ti, W), (dout, inv, W.transpose(1, 2).contiguous()))
+    cases = []
+    for (g, idx, Wk), got, again, want in zip(operands, runs[0], runs[1],
+                                              wants):
+        sgemm = torch.empty_like(got)
+        err = ik.build.library().epn_intra_conv(
+            g.data_ptr(), idx.data_ptr(), Wk.data_ptr(), 0, sgemm.data_ptr(),
+            b, p, 60, 12, Wk.shape[1], Wk.shape[2], 0, 0, ik.build.stream(g))
+        assert err == 0
+        torch.cuda.synchronize()
+        cases.append((got, again, want, _rel(got.double(), want),
+                      _rel(sgemm.double(), want)))
+    return routes, cases
+
+
+@pytest.mark.parametrize('b,p,c', [
+    (12, 512, 64), (12, 256, 128), (12, 128, 256), (12, 64, 256),
+    (16, 512, 32), (16, 256, 64), (16, 128, 128), (16, 64, 128)])
+def test_intra_fwd_f32_kernel_matches_plain(cuda, b, p, c):
+    """The fp32 CUDA-core forward (``intra_fwd_f32_kernel``) and the df
+    that runs it at every intra layer shape of both models at their train
+    batches (cls b=12, inv b=16 a leg): taken by the wrapper, finite,
+    within 1e-5 (normwise) of the plain version, bitwise equal on a second
+    call (each output sums its 12C terms in one order), and its error
+    against the float64 plain version at most 1.5x the SGEMM's on the same
+    inputs."""
+    routes, cases = _intra_fwd_f32_case(cuda, b, p, c, c, seed=p + c)
+    assert routes == {'fwd_f32': 4}
+    for got, again, want, rel, sgemm_rel in cases:
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert bool(torch.isfinite(got).all())
+        assert _rel(got, want.float()) <= 1e-5
+        assert torch.equal(got, again)
+        assert rel <= 1.5 * sgemm_rel, (rel, sgemm_rel)
+
+
+@pytest.mark.parametrize('b,p,c,d', [
+    (1, 7, 64, 64),       # 7 points, 4 a block: the last block 3 points
+    (3, 13, 32, 32),      # 39 points, 8 a block at 32 columns
+    (1, 1, 256, 256),     # one point
+    (2, 7, 64, 128),      # c != d
+    (3, 11, 128, 64),     # c != d, the other way
+    (2, 5, 32, 96)])      # three 32-column blocks (the df: 96 channels)
+def test_intra_fwd_f32_kernel_edges(cuda, b, p, c, d):
+    """The fp32 CUDA-core forward and df where the points leave the last
+    block short, at one point, at c != d and at 32-column blocks: within
+    1e-5 of the plain version, bitwise equal on a second call, within 1.5x
+    the SGEMM's float64 error."""
+    routes, cases = _intra_fwd_f32_case(cuda, b, p, c, d, seed=b + p + c)
+    assert routes == {'fwd_f32': 4}
+    for got, again, want, rel, sgemm_rel in cases:
+        assert _rel(got, want.float()) <= 1e-5 and torch.equal(got, again)
+        assert rel <= 1.5 * sgemm_rel, (rel, sgemm_rel)
+
+
+def test_intra_fwd_off_envelope_takes_the_sgemm(cuda):
+    """An fp32 forward with channels off the 32 grid and the fp32 prenorm
+    form run the SGEMM (``intra_conv_kernel``): within 1e-5 of their plain
+    versions."""
+    f, ss, ti, _, W, _ = _prenorm_operands(cuda, torch.float32, 2, 9, 64, 64,
+                                           2, seed=3)
+    f36 = f[..., :36].contiguous()
+    W36 = W[:, :36].contiguous()
+    ik = tkern.intra_conv
+    before = dict(ik.routes)
+    got = (ik.intra_conv(f36, ti, W36), ik.intra_conv_prenorm(f, ss, ti, W))
+    torch.cuda.synchronize()
+    assert {k: ik.routes[k] - before[k] for k in ik.routes
+            if ik.routes[k] > before[k]} == {'sgemm': 2}
+    assert _rel(got[0], ik.intra_conv_plain(f36, ti, W36)) <= 1e-5
+    assert _rel(got[1], ik.intra_conv_prenorm_plain(f, ss, ti, W)) <= 1e-5
+
+
+def test_intra_fwd_f32_kernel_sass_is_ffma_only(cuda):
+    """The built library's SASS of every instantiation of the fp32
+    CUDA-core forward holds FFMA and no tensor-core instruction (HMMA,
+    GMMA): full fp32 products, no TF32 (cuobjdump)."""
+    import os
+    import shutil
+    import subprocess
+    build = tkern.intra_conv.build
+    build.library()
+    cuobjdump = shutil.which('cuobjdump') or os.path.join(
+        os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump')
+    sass = subprocess.run([cuobjdump, '-sass', build.lib_path],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            name = line.split('Function :', 1)[1].strip()
+            fn = name if 'intra_fwd_f32_kernel' in name else None
+            if fn:
+                counts[fn] = dict.fromkeys(('FFMA', 'HMMA', 'GMMA'), 0)
+        elif fn:
+            for op in counts[fn]:
+                counts[fn][op] += op in line
+    assert len(counts) == 2, counts          # BN = 64 and 32
+    for c in counts.values():
+        assert c['FFMA'] > 0 and c['HMMA'] == c['GMMA'] == 0, counts
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, BF16])

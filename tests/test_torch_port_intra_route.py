@@ -8,7 +8,9 @@ its row splits are whole point groups, and a bf16 backward reaching the
 wrappers' card branch (tensors on the meta device, the launches recorded)
 counts it; the fp32 dW of the plain form goes to its CUDA-core kernel
 (``dw_f32_route``) at every model layer, its splits are whole points
-filling one or two waves, and its launch carries its C entry's arguments.
+filling one or two waves, and its launch carries its C entry's arguments;
+so do the fp32 forward and df (``fwd_f32_route``). The builds of
+``intra_conv_variants`` replace text that the source holds.
 The kernels themselves are held against their plain versions
 on the card (tests/test_torch_port_gpu.py); the plain versions against
 the JAX package in tests/test_torch_port_bf16*.py.
@@ -288,3 +290,107 @@ def test_dw_launch_matches_its_entry_signature(dtype, c, d, prenorm, route,
         assert name == 'epn_intra_conv_bwd_w_f32' and args[2] == 0
         assert (args[-3], args[-2]) == ik.dw_f32_splits(b * p, na, c, d)
     tkern.reset_counts()
+
+
+@pytest.mark.parametrize('name', ['cls_so3net_pn', 'inv_so3net_pn'])
+def test_every_model_intra_layer_takes_the_fp32_forward(name, monkeypatch):
+    """Every intra layer of both full-width models runs its fp32 forward
+    and its df (the forward on the inverse adjacency, c and d swapped) on
+    the CUDA-core kernel in the plain form; an fp32 backward on the card
+    branch (meta tensors) at every layer counts two 'fwd_f32' launches and
+    no 'sgemm', through epn_intra_conv_f32."""
+    ik = tkern.intra_conv
+    layers = _intra_layers(name)
+    for na, K, c, d in layers:
+        assert ik.fwd_f32_route(torch.float32, na, K, c, d), (na, K, c, d)
+        assert ik.fwd_f32_route(torch.float32, na, K, d, c), (na, K, d, c)
+    launched = _card_branch(monkeypatch)
+    tkern.reset_counts()
+    for layer in layers:
+        _meta_backward(*layer, torch.float32, False)
+    n = len(layers)
+    assert (ik.routes['fwd_f32'], ik.routes['sgemm'], ik.routes['mma']) == \
+        (2 * n, 0, 0)
+    assert launched.count('epn_intra_conv_f32') == 2 * n
+    assert 'epn_intra_conv' not in launched
+    tkern.reset_counts()
+
+
+@pytest.mark.parametrize('dtype,na,K,c,d,prenorm,holds', [
+    (torch.float32, 60, 12, 64, 64, False, True),
+    (torch.float32, 60, 12, 64, 96, False, True),     # c != d
+    (torch.float32, 60, 12, 512, 512, False, True),   # no model width
+    (torch.float32, 60, 12, 64, 64, True, False),     # the prenorm form
+    (BF16, 60, 12, 64, 64, False, False),             # bf16: mma_route
+    (torch.float32, 12, 12, 64, 64, False, False),    # another group
+    (torch.float32, 60, 6, 64, 64, False, False),     # another kernel size
+    (torch.float32, 60, 12, 36, 64, False, False),    # c off the 32 grid
+    (torch.float32, 60, 12, 64, 80, False, False)])   # d off the 32 grid
+def test_fwd_f32_route_envelope(dtype, na, K, c, d, prenorm, holds):
+    """The fp32 CUDA-core forward's envelope: fp32, the plain form, na 60,
+    K 12, c and d multiples of 32; the prenorm form and the shapes off it
+    take the SGEMM, bf16 the tensor-core kernel or the SGEMM."""
+    assert tkern.intra_conv.fwd_f32_route(dtype, na, K, c, d,
+                                          prenorm) == holds
+
+
+@pytest.mark.parametrize('dtype,c,d,prenorm,route', [
+    (torch.float32, 64, 64, False, 'fwd_f32'),
+    (torch.float32, 32, 96, False, 'fwd_f32'),
+    (torch.float32, 64, 64, True, 'sgemm'),
+    (torch.float32, 36, 64, False, 'sgemm'),
+    (BF16, 64, 64, False, 'mma')])
+def test_fwd_launch_matches_its_entry_signature(dtype, c, d, prenorm, route,
+                                                monkeypatch):
+    """The intra forward wrapper's card branch gives its C entry as many
+    arguments as the entry's ctypes signature holds, on each route; the
+    fp32 CUDA-core kernel gets no fold (a null ss) and the shapes."""
+    ik = tkern.intra_conv
+    monkeypatch.setattr(ik, '_check_operands', lambda *a: None)
+    monkeypatch.setattr(ik.build, 'stream', lambda t: 0)
+    calls = []
+    monkeypatch.setattr(ik.build, 'launch',
+                        lambda name, *a: calls.append((name, a)))
+    meta = torch.device('meta')
+    b, p, na, K = 2, 16, 60, 12
+    f = torch.empty((b, p, na, c), dtype=dtype, device=meta)
+    ti = torch.empty((na, K), dtype=torch.int32, device=meta)
+    W = torch.empty((K, c, d), dtype=dtype, device=meta)
+    tkern.reset_counts()
+    if prenorm:
+        ik.intra_conv_prenorm(f, torch.empty((1, 2, na * c), device=meta), ti,
+                              W)
+    else:
+        ik.intra_conv(f, ti, W)
+    (name, args), = calls
+    assert len(args) == len(ik.build.SIGNATURES[name])
+    assert ik.routes[route] == 1 and sum(ik.routes.values()) == 1
+    if route == 'fwd_f32':
+        assert name == 'epn_intra_conv_f32' and args[3] == 0
+        assert args[5:11] == (b, p, na, K, c, d)
+    tkern.reset_counts()
+
+
+def test_reset_counts_clears_the_fwd_f32_route():
+    ik = tkern.intra_conv
+    ik.routes['fwd_f32'] += 4
+    tkern.reset_counts()
+    assert ik.routes['fwd_f32'] == 0
+
+
+@pytest.mark.parametrize('table', ['VARIANTS', 'DW_VARIANTS', 'F32_VARIANTS',
+                                   'FWD_F32_VARIANTS'])
+def test_variant_builds_substitute_text_in_the_source(table):
+    """Each build of ``intra_conv_variants`` replaces text that
+    csrc/intra_conv.cu holds exactly once (on the card a missing text fails
+    the whole run), but the SGEMM's FMA line, which intra_dw_kernel holds
+    too: twice."""
+    import os
+    from epn_pointcloud_tpu_torch import intra_conv_variants as icv
+    with open(os.path.join(icv.build.CSRC_DIR, 'intra_conv.cu')) as f:
+        src = f.read()
+    subs = [sub for sub in getattr(icv, table).values() if sub is not None]
+    assert subs
+    for sub in subs:
+        for old, _ in ([sub] if isinstance(sub[0], str) else sub):
+            assert src.count(old) == (2 if old == icv._SGEMM_FMA else 1), old
