@@ -4,8 +4,11 @@
 
 --parent-csrc: DIR is the csrc/ directory of an earlier tree (for example
 from ``git archive <commit> epn_pointcloud_tpu_torch/csrc | tar -x -C D``);
-its inter_conv.cu, inter_conv_bwd.cu and intra_conv.cu are each built alone
-beside the kernels, and its epn_inter_conv_mma, epn_inter_conv_f,
+its fps.cu, ball_query.cu, inter_conv.cu, inter_conv_bwd.cu and
+intra_conv.cu are each built alone beside the kernels; its epn_fps and
+epn_ball_query are timed by the device timer beside this tree's fps and
+ball query (and held to the same indices, printed as ``parent_equal``) at
+every call of phases 2, 12 and 16, and its epn_inter_conv_mma, epn_inter_conv_f,
 epn_intra_conv, epn_intra_conv_prenorm_df, epn_inter_conv_bwd_table,
 epn_inter_conv_dg, epn_inter_conv_bwd_w and epn_intra_conv_bwd_w (bf16)
 are timed beside this tree's bf16 W-fused inter forward, W-off F, prenorm
@@ -214,6 +217,17 @@ Phases (any failure exits non-zero and prints no result line):
      --compute-dtype bf16 -i 4 --save-freq 4, launch counts, params.json,
      the checkpoint reloaded through -r --compute-dtype bf16.
 
+The short kernels (fps, ball_query, the ones conv, moments) are timed
+twice in phases 2, 4, 12 and 16: ``kernel_ms`` by CUDA events around up to
+20 back-to-back wrapper calls (``time_ms``, which for a call of a few
+microseconds times the wrapper's host work), and ``device_ms`` by CUDA
+events around the replay of those calls captured into a CUDA graph
+(``device_ms``; moments' torch.var_mean as ``library_ms_device``); a call
+that cannot be captured fails its phase. Every fps call must run the
+register kernel ('reg' in the wrapper's ``fps.routes``) and every ball
+query the warp kernel ('warp' in ``ball_query.routes``), in the compared
+calls and in the entry runs' launches by kernel.
+
 Prints one line per comparison, a JSON line with per-kernel results (each
 with its bound: the larger of its bytes over 3.35 TB/s and its operations
 over the peak for their type, 67 TFLOP/s fp32 or 989 TFLOP/s bf16, from the
@@ -396,11 +410,41 @@ def time_ms(fn, reps=10, warmup=3):
     return statistics.median(run(inner) for _ in range(reps))
 
 
-def time_abba(a, b):
-    """(a ms, b ms) by ``time_ms``, timed a, b, b, a and averaged a pair:
+def time_abba(a, b, timer=time_ms):
+    """(a ms, b ms) by ``timer``, timed a, b, b, a and averaged a pair:
     two versions of a kernel compared in one run."""
-    a0, b0, b1, a1 = time_ms(a), time_ms(b), time_ms(b), time_ms(a)
+    a0, b0, b1, a1 = timer(a), timer(b), timer(b), timer(a)
     return (a0 + a1) / 2, (b0 + b1) / 2
+
+
+def device_ms(fn, calls=20, reps=10):
+    """Median device ms of one call of ``fn``, for calls too short for
+    ``time_ms`` (whose events wrap the wrapper's host work too): ``calls``
+    back-to-back calls captured once into a CUDA graph, its replays timed
+    with CUDA events, the median of ``reps`` replays over ``calls``. The
+    wrappers launch on the current stream, so the capture takes them; a
+    call that cannot be captured raises (no fallback to the host timer)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / calls)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
 
 
 def synthetic_batch(b, n, seed):
@@ -623,8 +667,10 @@ def _aggregate(rows):
            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
            'library_ms': None if None in lib else sum(lib),
            'calls': len(rows)}
-    # the bf16 inter forward's yardsticks (inter_conv_extras)
-    for key in ('composed_ms', 'parent_ms', 'same_timer_ms'):
+    # the bf16 inter forward's yardsticks (inter_conv_extras), the device
+    # timer's (device_extras)
+    for key in ('composed_ms', 'parent_ms', 'same_timer_ms', 'device_ms',
+                'library_ms_device'):
         vals = [r.get(key) for r in rows]
         if None not in vals:
             agg[key] = sum(vals)
@@ -683,7 +729,8 @@ def phase_kernels(model, device):
         row = {'layer': layer, 'shape': desc, 'max_abs_err': max_err,
                'rel_norm_err': rel, 'ms': k_ms, 'plain_ms': p_ms,
                'bytes_ms': b_ms, 'ops_ms': o_ms,
-               **mm_library(name, args), **intra_conv_extras(name, args, got)}
+               **mm_library(name, args), **intra_conv_extras(name, args, got),
+               **sampling_extras(name, args, got), **device_extras(name, args)}
         ok = ok and _extras_ok(row)
         row['ok'] = ok
         log(f'[compare] {name} L{layer} ({desc}): max_abs_err={max_err:.3e} '
@@ -760,9 +807,13 @@ def route_counts():
     kernels, 'dtable_f32' / 'dg_f32' / 'dw_f32', the fp32 CUDA-core
     kernels, or 'dtable' / 'dg' / 'dw' / 'f', the templates), and the intra
     forward's with B6 df's (with dW's: 'dw_mma', the bf16 tensor-core
-    kernel, 'dw_f32', the fp32 CUDA-core kernel, or 'dw', the SGEMM)."""
+    kernel, 'dw_f32', the fp32 CUDA-core kernel, or 'dw', the SGEMM); and
+    fps's ('reg': the cloud in registers, 'smem': in shared memory) and
+    ball_query's ('warp': lanes a query, 'thread': a thread a query)."""
     from epn_pointcloud_tpu_torch.ops import kernels
-    return {'inter': dict(kernels.inter_conv.routes),
+    return {'fps': dict(kernels.fps.routes),
+            'ball_query': dict(kernels.ball_query.routes),
+            'inter': dict(kernels.inter_conv.routes),
             'intra': dict(kernels.intra_conv.routes)}
 
 
@@ -775,8 +826,11 @@ def check_routes(tag, dtype, counts, routes):
     ('dw_f32'), the backward scatter ('dtable_f32', 'dg_f32') and the
     W-off F ('f_f32'), of the intra forward and df ('fwd_f32'; the SGEMM
     'sgemm' nowhere) and of the intra dW ('dw_f32'; the SGEMM 'dw'
-    nowhere) (``routes``: ``route_counts()``, read with ``counts``)."""
-    want = {}
+    nowhere), and every fps on its register kernel ('reg') and ball query
+    on its warp kernel ('warp') (``routes``: ``route_counts()``, read with
+    ``counts``)."""
+    want = {'fps': {'reg': counts['fps'], 'smem': 0},
+            'ball_query': {'warp': counts['ball_query'], 'thread': 0}}
     for conv, n in (('inter', counts['inter_conv']),
                     ('intra', counts['intra_conv']
                      + counts['intra_conv_prenorm']
@@ -957,6 +1011,7 @@ def phase_bf16_kernels(model, device):
         row['bytes_ms'], row['ops_ms'] = bound_ms(name, args, got)
         row.update(grouped_library(name, args))
         row.update(moments_library(name, args))
+        row.update(device_extras(name, args))
         row.update(inter_conv_extras(name, args, got))
         row.update(intra_conv_extras(name, args, got))
         ok = ok and _extras_ok(row)
@@ -1237,6 +1292,81 @@ def moments_library(name, args):
         lambda: torch.var_mean(args[0], dim=1, correction=0))}
 
 
+# the kernels also timed by ``device_ms`` (``device_extras``): calls that
+# take well under 50 us on the card, where ``time_ms`` times the wrapper's
+# host work
+DEVICE_TIMED = ('fps', 'ball_query', 'ones_conv', 'moments')
+
+
+def device_extras(name, args):
+    """For a call of fps, ball_query, the ones conv or moments: the
+    wrapper's time by ``device_ms`` (``device_ms``) and, for moments, its
+    yardstick torch.var_mean's (``library_ms_device``). {} for any other
+    call."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    if name not in DEVICE_TIMED:
+        return {}
+    fn = getattr({k.name: k for k in kernels.KERNELS}[name].module, name)
+    rec = {'device_ms': device_ms(lambda: fn(*args))}
+    if name == 'moments':
+        rec['library_ms_device'] = device_ms(
+            lambda: torch.var_mean(args[0], dim=1, correction=0))
+    return rec
+
+
+def sampling_extras(name, args, got):
+    """For a call of fps or ball_query: the kernel it ran (``route``, from
+    the wrapper's counts: fps 'reg' or 'smem', ball_query 'warp' or
+    'thread') and whether a second call gives the same indices
+    (``bitwise_repeat``). With --parent-csrc also the earlier tree's C
+    entry (epn_fps, epn_ball_query) on the same inputs, timed by
+    ``device_ms`` with this tree's in turns (parent, new, new, parent;
+    ``parent_ms``, ``same_timer_ms``), and whether the two give the same
+    indices (``parent_equal``). {} for any other call."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    from epn_pointcloud_tpu_torch.ops.kernels import build
+    if name not in ('fps', 'ball_query'):
+        return {}
+    mod = getattr(kernels, name)
+    before = dict(mod.routes)
+    again = getattr(mod, name)(*args)
+    torch.cuda.synchronize()
+    route = next(k for k in mod.routes if mod.routes[k] > before[k])
+    rec = {'route': route, 'bitwise_repeat': torch.equal(got, again)}
+    if not PARENT:
+        return rec
+    if name == 'fps':
+        x, n_sample, eps = args
+        ins = (x.data_ptr(),)
+        tail = (x.shape[0], x.shape[1], n_sample, float(eps))
+        entry = {'reg': 'epn_fps_reg', 'smem': 'epn_fps'}[route]
+    else:
+        x, support, radius, n_sample = args
+        ins = (x.data_ptr(), support.data_ptr())
+        tail = (x.shape[0], x.shape[1], support.shape[1], n_sample,
+                mod._r2_f32(radius))
+        entry = {'warp': 'epn_ball_query_warp',
+                 'thread': 'epn_ball_query'}[route]
+    outs = (torch.empty_like(got), torch.empty_like(got))
+
+    def call(fn, out):
+        ptrs = ins + (out.data_ptr(),) + tail
+
+        def run():
+            err = fn(*ptrs, build.stream(x))
+            if err:
+                raise RuntimeError(f'{name}: CUDA error {err}')
+        return run
+    rec['parent_ms'], rec['same_timer_ms'] = time_abba(
+        call(PARENT[name], outs[0]),
+        call(getattr(build.library(), entry), outs[1]), device_ms)
+    torch.cuda.synchronize()
+    rec['parent_equal'] = torch.equal(outs[0], outs[1])
+    return rec
+
+
 def mm_library(name, args):
     """The one-call yardstick of a dW reduction and of the fp32 intra
     forward and df: one torch.mm of its operand formed beforehand
@@ -1311,6 +1441,9 @@ def _library_note(row):
     note = ''
     if 'library_ms' in row:
         note += f' library_ms={row["library_ms"]:.4f}'
+    for key in ('device_ms', 'library_ms_device'):
+        if key in row:
+            note += f' {key}={row[key]:.4f}'
     if 'bitwise_repeat' in row:
         note += f' bitwise_repeat={row["bitwise_repeat"]}'
     if 'parent_equal' in row:
@@ -1350,7 +1483,7 @@ def _extras_ok(row):
     return (row.get('route', 'mma') in ('mma', 'dtable_mma', 'dg_mma',
                                         'dtable_f32', 'dg_f32', 'dw_mma',
                                         'dw_f32', 'f_mma', 'f_f32',
-                                        'fwd_f32')
+                                        'fwd_f32', 'reg', 'warp')
             and row.get('bitwise_repeat', True)
             and row.get('bitwise_vs_template', True)
             and row.get('rel_vs_mma_plain', 0.0) <= 1e-3
@@ -1362,7 +1495,8 @@ def _extras_ok(row):
 # 'fn' its epn_inter_conv_mma, 'f' its epn_inter_conv_f, 'intra_fwd' its
 # epn_intra_conv, 'intra_df' its epn_intra_conv_prenorm_df, 'dtable' its
 # epn_inter_conv_bwd_table, 'dg' its epn_inter_conv_dg, 'dw' its
-# epn_inter_conv_bwd_w, 'intra_dw' its epn_intra_conv_bwd_w
+# epn_inter_conv_bwd_w, 'intra_dw' its epn_intra_conv_bwd_w, 'fps' its
+# epn_fps, 'ball_query' its epn_ball_query
 PARENT = {}
 
 
@@ -2466,6 +2600,8 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
                 wname, wargs, got[0] if len(got) == 1 else got)
             row.update(grouped_library(name, args))
             row.update(moments_library(name, args))
+            row.update(device_extras(name, args))
+            row.update(sampling_extras(name, args, got[0]))
             row.update(mm_library(name, args))
             row.update(inter_conv_extras(name, args, got[0]))
             row.update(intra_conv_extras(name, args, got))
@@ -2929,7 +3065,9 @@ F32_KERNELS = {
 
 # the earlier tree's sources built alone (--parent-csrc): source -> its C
 # entries, as PARENT's keys
-PARENT_SOURCES = {'inter_conv.cu': {'fn': 'epn_inter_conv_mma',
+PARENT_SOURCES = {'fps.cu': {'fps': 'epn_fps'},
+                  'ball_query.cu': {'ball_query': 'epn_ball_query'},
+                  'inter_conv.cu': {'fn': 'epn_inter_conv_mma',
                                     'f': 'epn_inter_conv_f'},
                   'inter_conv_bwd.cu': {'dtable': 'epn_inter_conv_bwd_table',
                                         'dg': 'epn_inter_conv_dg',

@@ -56,7 +56,8 @@ def plain_forced() -> bool:
 def reset_counts() -> None:
     for k in KERNELS:
         k.module.launches[k.name] = 0
-    for routes in (inter_conv.routes, intra_conv.routes):
+    for routes in (fps.routes, ball_query.routes, inter_conv.routes,
+                   intra_conv.routes):
         routes.update(dict.fromkeys(routes, 0))
 
 

@@ -20,6 +20,19 @@ SOURCE = 'epn_pointcloud_tpu_torch/csrc/ball_query.cu'
 ENTRIES = {'ball_query': ('ball_query_plain', SOURCE,
                           'epn_pointcloud_tpu/ops/pallas/ball_query.py:57')}
 launches = dict.fromkeys(ENTRIES, 0)
+# launches by kernel: 'warp' the lanes-a-query kernel
+# (ball_query_warp_kernel), 'thread' the thread-a-query one
+# (ball_query_kernel)
+routes = dict.fromkeys(('warp', 'thread'), 0)
+# the warp kernel keeps each query's row of hits in shared memory
+# (kWarpMaxSample in csrc/ball_query.cu)
+WARP_MAX_SAMPLE = 256
+
+
+def route(n_sample: int) -> str:
+    """The kernel of a query with n_sample slots: 'warp' (n_sample <=
+    WARP_MAX_SAMPLE: the models' 16, 32 and 64) or 'thread'."""
+    return 'warp' if n_sample <= WARP_MAX_SAMPLE else 'thread'
 
 
 def _r2_f32(radius: float) -> float:
@@ -72,8 +85,11 @@ def ball_query(query: torch.Tensor, support: torch.Tensor, radius: float,
     if n_sample < 1:
         raise ValueError(f'ball_query: n_sample={n_sample}')
     out = torch.empty((b, m, n_sample), dtype=torch.int32, device=query.device)
+    kernel = route(n_sample)
     launches['ball_query'] += 1
-    build.launch('epn_ball_query', query.data_ptr(), support.data_ptr(),
+    routes[kernel] += 1
+    build.launch('epn_ball_query_warp' if kernel == 'warp' else
+                 'epn_ball_query', query.data_ptr(), support.data_ptr(),
                  out.data_ptr(), b, m, n, n_sample, _r2_f32(radius),
                  build.stream(query))
     return out

@@ -17,6 +17,20 @@ SOURCE = 'epn_pointcloud_tpu_torch/csrc/fps.cu'
 ENTRIES = {'fps': ('fps_plain', SOURCE,
                    'epn_pointcloud_tpu/ops/pallas/fps.py:63')}
 launches = dict.fromkeys(ENTRIES, 0)
+# launches by kernel: 'reg' the register kernel (fps_reg_kernel), 'smem'
+# the shared-memory one (fps_kernel)
+routes = dict.fromkeys(('reg', 'smem'), 0)
+# the register kernel holds up to 16 points a thread in a block of 512
+# (kRegThreads * kRegMaxPoints in csrc/fps.cu)
+REG_MAX_N = 8192
+MAX_N = 12288
+
+
+def route(n: int) -> str:
+    """The kernel that samples a cloud of n points: 'reg' (the cloud in
+    registers, n <= REG_MAX_N: the models' 1024) or 'smem' (the cloud in
+    shared memory, up to MAX_N)."""
+    return 'reg' if n <= REG_MAX_N else 'smem'
 
 
 def _sq3(x, y, z):
@@ -59,10 +73,13 @@ def fps(xyz: torch.Tensor, n_sample: int,
     if not xyz.is_contiguous():
         raise ValueError('fps: xyz must be contiguous')
     b, n, _ = xyz.shape
-    if not 0 < n_sample <= n or n > 12288:
+    if not 0 < n_sample <= n or n > MAX_N:
         raise ValueError(f'fps: n_sample={n_sample}, n={n} unsupported')
     out = torch.empty((b, n_sample), dtype=torch.int32, device=xyz.device)
+    kernel = route(n)
     launches['fps'] += 1
-    build.launch('epn_fps', xyz.data_ptr(), out.data_ptr(), b, n, n_sample,
+    routes[kernel] += 1
+    build.launch('epn_fps_reg' if kernel == 'reg' else 'epn_fps',
+                 xyz.data_ptr(), out.data_ptr(), b, n, n_sample,
                  float(shadow_eps), build.stream(xyz))
     return out

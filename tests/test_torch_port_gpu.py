@@ -69,10 +69,50 @@ def _conv_close(got, want, depth):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize('b,n,m', [(4, 1024, 512), (3, 300, 77)])
+@pytest.mark.parametrize('b,n,m', [(4, 1024, 512), (3, 300, 77),
+                                   # the models' calls: cls b=32 and b=12,
+                                   # inv b=16 and b=48, 1024 -> 512
+                                   (32, 1024, 512), (12, 1024, 512),
+                                   (16, 1024, 512), (48, 1024, 512),
+                                   # the last points a thread part full,
+                                   # one point past 1024; every point
+                                   # picked; the largest register cloud
+                                   (2, 1000, 250), (1, 1025, 300),
+                                   (2, 300, 300),
+                                   (2, tkern.fps.REG_MAX_N, 64),
+                                   # the shared-memory kernel
+                                   (2, tkern.fps.REG_MAX_N + 1, 64),
+                                   (1, 12288, 40)])
 def test_fps_kernel_equals_plain(cuda, b, n, m):
     x = torch.from_numpy(_ball_points(np.random.RandomState(n), b, n)).to(cuda)
     x[:, 3] = 0.0
+    tkern.reset_counts()
+    got = tkern.fps.fps(x, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tkern.fps.fps_plain(x, m))
+    want = 'reg' if n <= tkern.fps.REG_MAX_N else 'smem'
+    assert tkern.fps.routes == {'reg': 0, 'smem': 0, want: 1}
+
+
+def _fps_cloud(kind, rng, b, n):
+    """[b, n, 3] clouds that the sampling kernels find hard: 'dup' every
+    point four times (ties at every pick), 'shadow' every point
+    shadow-guarded (the picks are all 0), 'mixed' a half of each."""
+    x = _ball_points(rng, b, n)
+    if kind == 'dup':
+        x = np.repeat(x[:, :n // 4], 4, axis=1)
+    elif kind == 'shadow':
+        x *= 0.01
+    else:
+        x[:, 1::2] *= 0.01
+    return x
+
+
+@pytest.mark.parametrize('kind', ['dup', 'shadow', 'mixed'])
+@pytest.mark.parametrize('n,m', [(1024, 512), (96, 96), (9000, 100)])
+def test_fps_kernel_on_hard_clouds(cuda, kind, n, m):
+    x = torch.from_numpy(_fps_cloud(kind, np.random.RandomState(3), 3,
+                                    n)).to(cuda)
     got = tkern.fps.fps(x, m)
     torch.cuda.synchronize()
     assert torch.equal(got, tkern.fps.fps_plain(x, m))
@@ -87,6 +127,109 @@ def test_ball_query_kernel_equals_plain(cuda, m, n, ns, r):
     got = tkern.ball_query.ball_query(q, s, r, ns)
     torch.cuda.synchronize()
     assert torch.equal(got, tkern.ball_query.ball_query_plain(q, s, r, ns))
+
+
+# the models' ball queries (m, n, n_sample, radius): cls_so3net_pn's 7
+# layers (unit clouds), inv_so3net_pn's 8 (patches of radius 0.4)
+CLS_BALL_QUERIES = ((512, 1024, 32, 0.2), (512, 512, 16, 0.2828),
+                    (256, 512, 32, 0.4), (256, 256, 16, 0.4),
+                    (128, 256, 32, 0.5657), (128, 128, 16, 0.5657),
+                    (64, 128, 32, 0.8))
+INV_BALL_QUERIES = ((512, 1024, 64, 0.08), (512, 512, 32, 0.1131),
+                    (256, 512, 64, 0.16), (256, 256, 32, 0.16),
+                    (128, 256, 64, 0.2263), (128, 128, 32, 0.2263),
+                    (64, 128, 64, 0.32), (64, 64, 32, 0.32))
+
+
+@pytest.mark.parametrize('model,b', [('cls', 32), ('cls', 12), ('inv', 16),
+                                     ('inv', 48)])
+def test_ball_query_kernel_at_model_shapes(cuda, model, b):
+    rng = np.random.RandomState(b)
+    scale = 1.0 if model == 'cls' else 0.4
+    shapes = CLS_BALL_QUERIES if model == 'cls' else INV_BALL_QUERIES
+    tkern.reset_counts()
+    for m, n, ns, r in shapes:
+        s = torch.from_numpy(scale * _ball_points(rng, b, n)).to(cuda)
+        q = s[:, :m].contiguous()
+        got = tkern.ball_query.ball_query(q, s, r, ns)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tkern.ball_query.ball_query_plain(q, s, r,
+                                                                  ns))
+    assert tkern.ball_query.routes == {'warp': len(shapes), 'thread': 0}
+
+
+def _last_point_hits(ns, n=70, m=6):
+    """Queries whose ns-th hit is the support's last point: the support
+    sits on a line, the query at its far end sees the last ns points."""
+    s = np.zeros((2, n, 3), np.float32)
+    s[:, :, 0] = np.arange(n, dtype=np.float32) / n
+    q = np.zeros((2, m, 3), np.float32)
+    q[:, :, 0] = 1.0 + np.arange(m, dtype=np.float32) / (8 * n)
+    return q, s, (ns + 0.5) / n
+
+
+@pytest.mark.parametrize('m,n,ns,r', [
+    (48, 256, 64, 0.5),     # 64 slots: hits and fill past 32
+    (40, 256, 64, 0.3),     # 64 slots, most rows filled periodically
+    (24, 20, 16, 0.8),      # n < 32
+    (24, 33, 32, 0.9),      # n = 33
+    (20, 33, 48, 1.5),      # n_sample > n, every point a hit
+    (37, 1500, 64, 0.3),    # two staged tiles, m off a block's queries
+    (9, 300, 256, 0.9),     # the warp kernel's largest n_sample
+    (9, 300, 257, 0.9),     # the thread kernel
+])
+def test_ball_query_kernel_edges(cuda, m, n, ns, r):
+    rng = np.random.RandomState(n + ns)
+    q = torch.from_numpy(_ball_points(rng, 3, m)).to(cuda)
+    s = torch.from_numpy(_ball_points(rng, 3, n)).to(cuda)
+    tkern.reset_counts()
+    got = tkern.ball_query.ball_query(q, s, r, ns)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tkern.ball_query.ball_query_plain(q, s, r, ns))
+    want = 'warp' if ns <= tkern.ball_query.WARP_MAX_SAMPLE else 'thread'
+    assert tkern.ball_query.routes == {'warp': 0, 'thread': 0, want: 1}
+
+
+@pytest.mark.parametrize('ns', [1, 16, 33, 64])
+def test_ball_query_kernel_with_a_hit_at_the_last_point(cuda, ns):
+    q, s, r = (torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray)
+               else a for a in _last_point_hits(ns))
+    got = tkern.ball_query.ball_query(q, s, r, ns)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tkern.ball_query.ball_query_plain(q, s, r, ns))
+    assert bool((got == s.shape[1] - 1).any())
+
+
+@pytest.mark.parametrize('kernel', ['fps', 'ball_query'])
+@pytest.mark.parametrize('route', [0, 1])
+def test_sampling_kernels_repeat_and_capture(cuda, kernel, route):
+    """A second call gives the same bits, and the wrapper's calls captured
+    into a CUDA graph replay to the same indices (the device timer of
+    chip_smoke.py times them so), on either route of the kernel (0: the
+    models' 'reg' / 'warp', 1: 'smem' / 'thread')."""
+    n = (1024, 9000)[route]
+    rng = np.random.RandomState(n)
+    x = torch.from_numpy(_ball_points(rng, 4, n)).to(cuda)
+    if kernel == 'fps':
+        def call():
+            return tkern.fps.fps(x, 300)
+    else:
+        q = x[:, :256].contiguous()
+
+        def call():
+            return tkern.ball_query.ball_query(q, x, 0.2, (64, 300)[route])
+    first = call()
+    again = call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [call() for _ in range(3)]
+    for o in outs:
+        o.fill_(-1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
 
 
 @pytest.mark.parametrize('p1,stride,nn,c,d', [(128, 2, 32, 64, 128),

@@ -50,7 +50,14 @@ def test_kernel_points_match_jax(kernel_size):
     np.testing.assert_allclose(t, j, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize('b,n,m', [(3, 256, 128), (2, 100, 37)])
+@pytest.mark.parametrize('b,n,m', [(3, 256, 128), (2, 100, 37),
+                                   # clouds that leave the register
+                                   # kernel's last points a thread part
+                                   # full, and one point past 1024
+                                   (2, 300, 150), (2, 1000, 250),
+                                   (1, 1025, 300),
+                                   # every point picked
+                                   (2, 64, 64)])
 def test_fps_plain_equals_jax(b, n, m):
     rng = np.random.RandomState(n)
     x = _ball_points(rng, b, n)
@@ -68,6 +75,11 @@ def test_fps_plain_equals_jax(b, n, m):
     (32, 64, 32, 0.15),    # sparse: short neighborhoods, periodic fill
     (16, 12, 32, 0.6),     # n_sample > n (k_eff pad)
     (16, 64, 8, 0.02),     # mostly empty neighborhoods (all-zero rows)
+    (48, 256, 64, 0.5),    # 64 slots: hits and fill past one warp's 32
+    (40, 256, 64, 0.3),    # 64 slots, most rows filled periodically
+    (24, 20, 16, 0.8),     # n < 32: one partial scan step
+    (24, 33, 32, 0.9),     # n = 33: one point past a whole scan step
+    (20, 33, 48, 1.5),     # n_sample > n, every point a hit
 ])
 def test_ball_query_plain_equals_jax(m, n, ns, radius):
     rng = np.random.RandomState(m + n)
@@ -79,6 +91,52 @@ def test_ball_query_plain_equals_jax(m, n, ns, radius):
                                       torch.from_numpy(s), radius, ns)
     assert got.dtype == torch.int32 and got.shape == (2, m, ns)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _fps_cloud(kind, rng):
+    """[2, 96, 3] clouds that the sampling kernels find hard: 'dup' every
+    point four times (ties at every pick), 'shadow' every point
+    shadow-guarded (the picks are all 0), 'mixed' a half of each."""
+    x = _ball_points(rng, 2, 96)
+    if kind == 'dup':
+        x = np.repeat(x[:, :24], 4, axis=1)
+    elif kind == 'shadow':
+        x *= 0.01
+    else:
+        x[:, 1::2] *= 0.01
+    return x
+
+
+@pytest.mark.parametrize('kind', ['dup', 'shadow', 'mixed'])
+@pytest.mark.parametrize('m', [40, 96])
+def test_fps_plain_equals_jax_on_hard_clouds(kind, m):
+    x = _fps_cloud(kind, np.random.RandomState(3))
+    want = np.asarray(jsamp.furthest_point_sampling(jnp.asarray(x), m))
+    got = tkern.fps.fps(torch.from_numpy(x), m)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if kind == 'shadow':
+        assert not want.any()
+
+
+def _last_point_hits(ns, n=70, m=6):
+    """Queries whose ns-th hit is the support's last point: the support
+    sits on a line, the query at its far end sees the last ns points."""
+    s = np.zeros((1, n, 3), np.float32)
+    s[0, :, 0] = np.arange(n, dtype=np.float32) / n
+    q = np.zeros((1, m, 3), np.float32)
+    q[0, :, 0] = 1.0 + np.arange(m, dtype=np.float32) / (8 * n)
+    return q, s, (ns + 0.5) / n
+
+
+@pytest.mark.parametrize('ns', [1, 16, 33, 64])
+def test_ball_query_plain_equals_jax_with_a_hit_at_the_last_point(ns):
+    q, s, radius = _last_point_hits(ns)
+    want = np.asarray(jsamp.ball_query(jnp.asarray(q), jnp.asarray(s),
+                                       radius, ns))
+    got = tkern.ball_query.ball_query(torch.from_numpy(q),
+                                      torch.from_numpy(s), radius, ns)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == s.shape[1] - 1).any()
 
 
 @pytest.mark.parametrize('stride,lazy', [(2, False), (1, True), (2, True)])
