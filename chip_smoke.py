@@ -19,7 +19,11 @@ epn_intra_conv_bwd_w (fp32) beside this tree's fp32 fused dW, fused
 dTable, W-off dG, W-off F and intra dW at every call of phases 6 and 12,
 on the same inputs, in turns (parent, new, new, parent), and its
 epn_intra_conv (fp32) beside this tree's fp32 intra forward and df at every
-call of phases 2, 6 and 12.
+call of phases 2, 6 and 12, and its epn_inter_conv (fp32, the SGEMM
+template) beside this tree's fp32 W-fused inter forward at every call of
+phases 2, 6 and 12; its epn_inter_conv (fp32), epn_inter_conv_bwd_w_f32 and
+epn_inter_conv_f_f32 are also timed beside this tree's same kernels, whose
+F build now runs the shared add_neighbor step, and held to the same bits.
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from csrc/ (one nvcc a source, in parallel,
@@ -28,7 +32,8 @@ Phases (any failure exits non-zero and prints no result line):
      backward, the W-fused inter forward, the W-off F, the intra forward
      and B6 df, the inter backward scatter, the fused inter dW, the intra
      dW; cuobjdump): none fails; and in the SASS of the fp32 CUDA-core
-     kernels of the fused inter dW (inter_dw_f32_kernel), the backward
+     kernels of the W-fused inter forward (inter_fwd_f32_kernel), the
+     fused inter dW (inter_dw_f32_kernel), the backward
      scatter (inter_bwd_f32_kernel), the W-off F (inter_f_f32_kernel),
      the intra dW (intra_dw_f32_kernel) and the intra forward and df
      (intra_fwd_f32_kernel) FFMA and no HMMA or GMMA (no TF32);
@@ -41,7 +46,13 @@ Phases (any failure exits non-zero and prints no result line):
      second call, its error against a float64 forward at most 1.5 times
      the SGEMM's (this tree's epn_intra_conv on the same inputs), timed
      beside one torch.mm of the gathered f by W (and, --parent-csrc,
-     beside the earlier tree's fp32 SGEMM under one timer);
+     beside the earlier tree's fp32 SGEMM under one timer); every inter
+     forward on its fp32 CUDA-core kernel ('fwd_f32'), bitwise equal on a
+     second call, its error against a float64 forward at most 1.5 times
+     the template's (this tree's epn_inter_conv, bf16 = 0), timed beside
+     its composition (the W-off F kernel, then one torch.mm(F, W); no one
+     PyTorch call computes it) with the device memory each needs (and,
+     --parent-csrc, beside the earlier tree's template under one timer);
   3. run the full forward at b=8 on the kernel path and on the plain path;
      the logits must agree to rtol=1e-3, atol=2e-3; then time the whole
      b=32 forward on both paths, in turns;
@@ -71,8 +82,9 @@ Phases (any failure exits non-zero and prints no result line):
      finite, every kernel's launch count must rise by its expected count
      per batch, and every inter forward, intra forward and B6 df must have
      run the kernel of its dtype (the tensor-core kernels in bf16, in fp32
-     the CUDA-core intra forward, 'fwd_f32', and the SGEMM inter forward,
-     the intra SGEMM's 'sgemm' nowhere; so in phases 8, 11, 15, 19, there
+     the CUDA-core inter and intra forwards, 'fwd_f32', the inter
+     template's and the intra SGEMM's 'sgemm' nowhere; so in phases 8, 11,
+     15, 19, there
      with every fused
      dTable, W-off dG, fused dW and W-off F too: the tensor-core scatter,
      dW and F in bf16; in fp32 the CUDA-core kernels of the fused dW
@@ -82,7 +94,9 @@ Phases (any failure exits non-zero and prints no result line):
      (intra_dw_f32_kernel, 'dw_f32'; the SGEMM's 'dw' nowhere));
   6. capture each backward kernel call of one train-mode step of the seeded
      full-width model on a synthetic b=12 batch (inter dTable and dW at 6
-     layers, intra df and dW at 7) and compare each with its plain version
+     layers, intra df and dW at 7), and the step's 6 W-fused inter
+     forwards (checked and timed as in phase 2), and compare each with its
+     plain version
      on the same inputs (normwise relative error <= 1e-5 for dTable and df,
      <= 1e-4 for the dW reductions), timing both; every inter dW on the
      fp32 CUDA-core kernel ('dw_f32'), bitwise equal on a second call, its
@@ -170,6 +184,8 @@ Phases (any failure exits non-zero and prints no result line):
      with --parent-csrc); every W-off F on its CUDA-core kernel ('f_f32'),
      bitwise equal to this tree's template on the same inputs and on a
      second call, beside the earlier tree's template with --parent-csrc);
+     every inter forward on its CUDA-core kernel, checked and timed as in
+     phase 2;
      then the composed backward route (its four parts) timed beside the
      fused dTable + dW at B1L0, B2L0, B3L0;
  13. [inv-train] one inv triplet step on the kernel path and on the plain
@@ -180,7 +196,10 @@ Phases (any failure exits non-zero and prints no result line):
      step (printed); the whole step timed on both paths in turns; 10 Adam
      steps lower the loss;
  14. [inv-descriptor] the eval-mode inv forward at b=48 on both paths:
-     descriptors to rtol 1e-3, atol 2e-3, timed;
+     descriptors to rtol 1e-3, atol 2e-3, timed; every inter forward of the
+     kernel path on its CUDA-core kernel, within 1e-5 of its plain version,
+     bitwise equal on a second call, at most 1.5 times the template's
+     float64 error;
  15. [inv-train-entry] run_3dmatch --run-mode train -i 4 --save-freq 4 on
      the synthetic tree, each kernel's launch count risen by its per-step
      count, params.json written, then the checkpoint reloaded through -r;
@@ -489,12 +508,13 @@ TC_KERNELS = ('grouped_conv_mma_kernel', 'grouped_bwd_mma_kernel',
               'inter_conv_mma_kernel', 'inter_f_mma_kernel',
               'intra_conv_mma_kernel', 'inter_bwd_mma_kernel',
               'inter_dw_mma_kernel', 'intra_dw_mma_kernel')
-# the fp32 kernels held to full fp32 products on the CUDA cores: the fused
-# inter dW, the inter backward scatter (the fused dTable and the W-off dG),
-# the W-off F, the intra dW, the intra forward (and df)
-FFMA_KERNELS = ('inter_dw_f32_kernel', 'inter_bwd_f32_kernel',
-                'inter_f_f32_kernel', 'intra_dw_f32_kernel',
-                'intra_fwd_f32_kernel')
+# the fp32 kernels held to full fp32 products on the CUDA cores: the
+# W-fused inter forward, the fused inter dW, the inter backward scatter
+# (the fused dTable and the W-off dG), the W-off F, the intra dW, the intra
+# forward (and df)
+FFMA_KERNELS = ('inter_fwd_f32_kernel', 'inter_dw_f32_kernel',
+                'inter_bwd_f32_kernel', 'inter_f_f32_kernel',
+                'intra_dw_f32_kernel', 'intra_fwd_f32_kernel')
 
 
 def tensor_core_sass(so):
@@ -667,13 +687,17 @@ def _aggregate(rows):
            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
            'library_ms': None if None in lib else sum(lib),
            'calls': len(rows)}
-    # the bf16 inter forward's yardsticks (inter_conv_extras), the device
-    # timer's (device_extras)
+    # the inter forward's yardsticks (inter_conv_extras), the device
+    # timer's (device_extras), the earlier tree's kernels (--parent-csrc)
     for key in ('composed_ms', 'parent_ms', 'same_timer_ms', 'device_ms',
-                'library_ms_device'):
+                'library_ms_device', 'refactor_parent_ms', 'refactor_ms'):
         vals = [r.get(key) for r in rows]
         if None not in vals:
             agg[key] = sum(vals)
+    for key in ('composed_peak_gib', 'kernel_peak_gib'):
+        vals = [r.get(key) for r in rows]
+        if None not in vals:
+            agg[key] = max(vals)
     return agg
 
 
@@ -730,6 +754,7 @@ def phase_kernels(model, device):
                'rel_norm_err': rel, 'ms': k_ms, 'plain_ms': p_ms,
                'bytes_ms': b_ms, 'ops_ms': o_ms,
                **mm_library(name, args), **intra_conv_extras(name, args, got),
+               **inter_conv_extras(name, args, got),
                **sampling_extras(name, args, got), **device_extras(name, args)}
         ok = ok and _extras_ok(row)
         row['ok'] = ok
@@ -751,6 +776,9 @@ def phase_kernels(model, device):
         raise AssertionError(f'kernel comparisons failed: {failures}')
     check_fp32_rows('[compare]', results['intra_conv'], expect['intra_conv'],
                     'intra forward', 'torch.mm(A, W)', 1.5, 'fwd_f32', 1e-5)
+    check_fp32_rows('[compare]', results['inter_conv'], expect['inter_conv'],
+                    'inter forward', INTER_YARD, 1.5, 'fwd_f32', 1e-5,
+                    'composed_ms')
     return results
 
 
@@ -801,7 +829,8 @@ def phase_forward_time(model, device, reps=5, dtype='fp32'):
 
 def route_counts():
     """The inter and intra wrappers' launches by kernel ('mma': the bf16
-    tensor-core kernel, 'sgemm': the SGEMM): the W-fused inter forward's
+    tensor-core kernel, 'fwd_f32': the fp32 CUDA-core kernel, 'sgemm': the
+    SGEMM): the W-fused inter forward's
     (with the backward scatter's, the fused dW's and the W-off F's:
     'dtable_mma' / 'dg_mma' / 'dw_mma' / 'f_mma', the bf16 tensor-core
     kernels, 'dtable_f32' / 'dg_f32' / 'dw_f32', the fp32 CUDA-core
@@ -822,11 +851,12 @@ def check_routes(tag, dtype, counts, routes):
     and W-off F, and every intra forward, B6 df and intra dW, of an entry
     run went
     through the kernel of its dtype: the tensor-core kernels in bf16; in
-    fp32 the inter SGEMM and the CUDA-core kernels of the fused dW
-    ('dw_f32'), the backward scatter ('dtable_f32', 'dg_f32') and the
-    W-off F ('f_f32'), of the intra forward and df ('fwd_f32'; the SGEMM
-    'sgemm' nowhere) and of the intra dW ('dw_f32'; the SGEMM 'dw'
-    nowhere), and every fps on its register kernel ('reg') and ball query
+    fp32 the CUDA-core kernels of the inter forward ('fwd_f32'; the SGEMM
+    template 'sgemm' nowhere), the fused dW ('dw_f32'), the backward
+    scatter ('dtable_f32', 'dg_f32') and the W-off F ('f_f32'), of the
+    intra forward and df ('fwd_f32'; the SGEMM 'sgemm' nowhere) and of the
+    intra dW ('dw_f32'; the SGEMM 'dw' nowhere), and every fps on its
+    register kernel ('reg') and ball query
     on its warp kernel ('warp') (``routes``: ``route_counts()``, read with
     ``counts``)."""
     want = {'fps': {'reg': counts['fps'], 'smem': 0},
@@ -838,10 +868,12 @@ def check_routes(tag, dtype, counts, routes):
         assert n > 0, (conv, counts)
         want[conv] = ({'mma': n, 'sgemm': 0} if dtype == 'bf16' else
                       {'mma': 0, 'sgemm': n})
-    # the intra forward and df in fp32: the CUDA-core kernel (the plain
-    # form; the prenorm form's SGEMM on no fp32 model path)
-    want['intra'].update({'fwd_f32': 0} if dtype == 'bf16' else
-                         {'sgemm': 0, 'fwd_f32': want['intra']['sgemm']})
+    # the inter forward and the intra forward and df in fp32: their
+    # CUDA-core kernels (the inter template and the intra prenorm form's
+    # SGEMM on no fp32 model path)
+    for conv in ('inter', 'intra'):
+        want[conv].update({'fwd_f32': 0} if dtype == 'bf16' else
+                          {'sgemm': 0, 'fwd_f32': want[conv]['sgemm']})
     for conv, entry, n in (
             ('inter', 'dtable', counts['inter_conv_dtable']),
             ('inter', 'dg', counts['inter_conv_dg']),
@@ -1458,6 +1490,13 @@ def _library_note(row):
         note += (f' rel_f64={row["rel_f64"]:.3e} template_rel_f64='
                  f'{row["template_rel_f64"]:.3e} [ratio <= '
                  f'{row.get("f64_limit", 2.0)}]')
+    if 'refactor_ms' in row:
+        note += (f' refactor_parent_ms={row["refactor_parent_ms"]:.4f} '
+                 f'refactor_ms={row["refactor_ms"]:.4f} refactor_equal='
+                 f'{row["refactor_equal"]}')
+    for key in ('composed_peak_gib', 'kernel_peak_gib'):
+        if key in row:
+            note += f' {key}={row[key]:.3f}'
     for key in ('route', 'composed_ms', 'parent_ms', 'same_timer_ms'):
         if key in row:
             v = row[key]
@@ -1467,19 +1506,22 @@ def _library_note(row):
 
 
 def _extras_ok(row):
-    """The own gates of a bf16 inter forward (``inter_conv_extras``), intra
+    """The own gates of an inter forward (``inter_conv_extras``), intra
     forward or B6 df (``intra_conv_extras``), backward scatter in either
     dtype (``inter_bwd_extras``), inter dW (``inter_dw_extras``), intra dW
     (``intra_dw_extras``) and W-off F (``inter_f_extras``): the tensor-core
-    kernel ran (the fp32 dW, scatter, W-off F and intra forward and df:
-    their CUDA-core kernel; the inter dW at most twice the template's error
-    against float64, the intra dW, forward and df 1.5 times the SGEMM's
-    (``f64_limit``), the W-off F bitwise the template's), its output is
-    bitwise equal on a
-    second call (not the scatter's: atomics), and within 1e-3 (normwise) of
-    ``inter_conv_mma_plain`` (inter forward) or ``inter_conv_f_plain``
-    (bf16 W-off F). ``parent_equal`` (--parent-csrc) is printed, not gated:
-    a later tree may sum in another order."""
+    kernel ran (the fp32 inter forward, dW, scatter, W-off F and intra
+    forward and df: their CUDA-core kernel; the inter dW at most twice the
+    template's error against float64, the inter forward, intra dW, forward
+    and df 1.5 times the template's or SGEMM's (``f64_limit``), the W-off F
+    bitwise the template's), its output is bitwise equal on a second call
+    (not the scatter's: atomics), within 1e-3 (normwise) of
+    ``inter_conv_mma_plain`` (bf16 inter forward) or ``inter_conv_f_plain``
+    (bf16 W-off F), and (--parent-csrc) the kernels whose F build now runs
+    the shared add_neighbor step (the fp32 template forward, dW and W-off
+    F) bitwise equal to the earlier tree's (``refactor_equal``).
+    ``parent_equal`` is printed, not gated: a later tree may sum in another
+    order."""
     return (row.get('route', 'mma') in ('mma', 'dtable_mma', 'dg_mma',
                                         'dtable_f32', 'dg_f32', 'dw_mma',
                                         'dw_f32', 'f_mma', 'f_f32',
@@ -1488,11 +1530,14 @@ def _extras_ok(row):
             and row.get('bitwise_vs_template', True)
             and row.get('rel_vs_mma_plain', 0.0) <= 1e-3
             and row.get('rel_vs_f_plain', 0.0) <= 1e-3
-            and row.get('f64_ratio', 0.0) <= row.get('f64_limit', 2.0))
+            and row.get('f64_ratio', 0.0) <= row.get('f64_limit', 2.0)
+            and row.get('refactor_equal', True))
 
 
 # the earlier tree's kernels (--parent-csrc), timed beside this tree's:
-# 'fn' its epn_inter_conv_mma, 'f' its epn_inter_conv_f, 'intra_fwd' its
+# 'fn' its epn_inter_conv_mma, 'f' its epn_inter_conv_f, 'fwd' its
+# epn_inter_conv (the SGEMM template), 'f_f32' its epn_inter_conv_f_f32,
+# 'dw_f32' its epn_inter_conv_bwd_w_f32, 'intra_fwd' its
 # epn_intra_conv, 'intra_df' its epn_intra_conv_prenorm_df, 'dtable' its
 # epn_inter_conv_bwd_table, 'dg' its epn_inter_conv_dg, 'dw' its
 # epn_inter_conv_bwd_w, 'intra_dw' its epn_intra_conv_bwd_w, 'fps' its
@@ -1511,8 +1556,9 @@ def inter_f_extras(name, args, got):
     bit (``bitwise_vs_template``). With --parent-csrc also the earlier
     tree's epn_inter_conv_f (in the call's dtype) on the same inputs, timed
     with this tree's C entry in turns (parent, new, new, parent; both into
-    one preallocated F; ``parent_ms``, ``same_timer_ms``). {} for any
-    other call."""
+    one preallocated F; ``parent_ms``, ``same_timer_ms``), and in fp32 the
+    earlier tree's epn_inter_conv_f_f32 with this tree's
+    (``_same_kernel``). {} for any other call."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     from epn_pointcloud_tpu_torch.ops.kernels import build
@@ -1552,6 +1598,9 @@ def inter_f_extras(name, args, got):
             call(PARENT['f'], (int(bf16),)),
             call(lib.epn_inter_conv_f_mma if bf16 else
                  lib.epn_inter_conv_f_f32, ()))
+    if PARENT and not bf16:
+        rec.update(_same_kernel(call(PARENT['f_f32'], ()),
+                                call(lib.epn_inter_conv_f_f32, ()), F))
     del F
     torch.cuda.empty_cache()
     return rec
@@ -1569,7 +1618,9 @@ def inter_dw_extras(name, args, got):
     epn_inter_conv_bwd_w (in the call's dtype) on the same inputs, timed
     with this tree's C entry in turns (parent, new, new, parent; each with
     its own workspace, into one preallocated dW; ``parent_ms``,
-    ``same_timer_ms``). {} for any other call."""
+    ``same_timer_ms``), and in fp32 the earlier tree's
+    epn_inter_conv_bwd_w_f32 with this tree's (``_same_kernel``). {} for
+    any other call."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     from epn_pointcloud_tpu_torch.ops.kernels import build
@@ -1625,6 +1676,11 @@ def inter_dw_extras(name, args, got):
             call(lib.epn_inter_conv_bwd_w_mma, 'dw_mma', ()) if bf16 else
             call(lib.epn_inter_conv_bwd_w_f32, 'dw_f32',
                  (ic.dw_f32_cols(d),)))
+    if PARENT and not bf16:
+        tail = (ic.dw_f32_cols(d),)
+        rec.update(_same_kernel(call(PARENT['dw_f32'], 'dw_f32', tail),
+                                call(lib.epn_inter_conv_bwd_w_f32, 'dw_f32',
+                                     tail), dW))
     del dW, keep
     torch.cuda.empty_cache()
     return rec
@@ -1632,14 +1688,17 @@ def inter_dw_extras(name, args, got):
 
 def check_fp32_rows(tag, rows, n_expect, what='fused dW',
                     mm='torch.mm(F^T, dout)', limit=2.0, route='dw_f32',
-                    tol=1e-4):
+                    tol=1e-4, yard='library_ms'):
     """Every fp32 call of a CUDA-core kernel in a phase (``rows``: phase
     2's, 6's or 12's; the fused inter dW, or ``what`` = 'intra dW', 'intra
-    forward', 'intra df') on its kernel (``route``), bitwise equal on a
-    second call, within ``tol`` of its plain version and at most ``limit``
-    times the error of the template (the SGEMM) against float64; the sums
-    printed beside the template's under one timer (--parent-csrc) and one
-    torch.mm (``mm``)."""
+    forward', 'intra df', 'inter forward') on its kernel (``route``),
+    bitwise equal on a second call, within ``tol`` of its plain version and
+    at most ``limit`` times the error of the template (the SGEMM) against
+    float64; the sums printed beside the template's under one timer
+    (--parent-csrc), the yardstick ``mm`` (the rows' ``yard``: one torch.mm,
+    or the inter forward's composition) and, where the template's F build
+    now runs the shared step, the earlier source's same kernel under one
+    timer."""
     routes = [r['route'] for r in rows]
     ratios = [r['f64_ratio'] for r in rows]
     agg = _aggregate(rows)
@@ -1651,10 +1710,15 @@ def check_fp32_rows(tag, rows, n_expect, what='fused dW',
         f'float64 {col("rel_f64")}, the template {col("template_rel_f64")}'
         f', ratio max {max(ratios):.3f} (<= {limit}); bitwise '
         f'{all(r["bitwise_repeat"] for r in rows)}; kernel {agg["ms"]:.3f} '
-        f'ms, {mm} {agg["library_ms"]:.3f}, bound '
+        f'ms, {mm} {agg[yard]:.3f}, bound '
         f'{agg["bound_ms"]:.3f} (share {agg["bound_ms"] / agg["ms"]:.3f})'
         + (f', one timer: parent template {agg["parent_ms"]:.3f} vs '
-           f'{agg["same_timer_ms"]:.3f}' if 'parent_ms' in agg else ''))
+           f'{agg["same_timer_ms"]:.3f}' if 'parent_ms' in agg else '')
+        + (f'; the same kernel, earlier source vs this one: '
+           f'{agg["refactor_parent_ms"]:.3f} vs {agg["refactor_ms"]:.3f} '
+           f'({agg["refactor_ms"] / agg["refactor_parent_ms"] - 1:+.2%}), '
+           f'bitwise {all(r["refactor_equal"] for r in rows)}'
+           if 'refactor_ms' in agg else ''))
     assert len(rows) == n_expect and set(routes) == {route}, routes
     assert all(r['bitwise_repeat'] for r in rows)
     assert max(r['rel_norm_err'] for r in rows) <= tol
@@ -1805,8 +1869,142 @@ def inter_bwd_extras(name, args, got):
     return rec
 
 
+def inter_fwd_f32_gate(args, got):
+    """For an fp32 call of the W-fused inter forward: the kernel it ran
+    (``route``: 'fwd_f32', the CUDA-core kernel), whether a second call
+    gives the same bits (``bitwise_repeat``), its normwise error and the
+    template's (this tree's epn_inter_conv, bf16 = 0, the route before it,
+    on the same inputs) against ``inter_conv_plain`` in float64
+    (``rel_f64``, ``template_rel_f64``) and their ratio (``f64_ratio``,
+    gated <= ``f64_limit`` = 1.5)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    from epn_pointcloud_tpu_torch.ops.kernels import build
+    ic = kernels.inter_conv
+    before = dict(ic.routes)
+    again = ic.inter_conv(*args)
+    torch.cuda.synchronize()
+    rec = {'route': next(k for k in ic.routes if ic.routes[k] > before[k]),
+           'bitwise_repeat': torch.equal(got, again)}
+    del again
+    gx, idx, table, rk, k2, W, sigma = args
+    b, p2, nn = idx.shape
+    q, na, c = table.shape[1:]
+    K, _, d = W.shape
+    tmpl = torch.empty_like(got)
+    err = build.library().epn_inter_conv(
+        gx.data_ptr(), idx.data_ptr(), table.data_ptr(), rk.data_ptr(),
+        k2.data_ptr(), W.data_ptr(), tmpl.data_ptr(), b, p2, nn, q, na, K, c,
+        d, float(sigma), 0, build.stream(gx))
+    if err:
+        raise RuntimeError(f'epn_inter_conv: CUDA error {err}')
+    want = ic.inter_conv_plain(gx.double(), idx, table.double(), rk.double(),
+                               k2.double(), W.double(), sigma)
+    torch.cuda.synchronize()
+    rec['rel_f64'] = float((got.double() - want).norm() / want.norm())
+    rec['template_rel_f64'] = float((tmpl.double() - want).norm()
+                                    / want.norm())
+    rec['f64_ratio'] = rec['rel_f64'] / max(rec['template_rel_f64'], 1e-30)
+    rec['f64_limit'] = 1.5
+    del want, tmpl
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _extra_gib(fn):
+    """GiB of device memory ``fn()`` allocates beyond what is allocated
+    before it (its peak; what it returns is freed after)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / 2 ** 30
+
+
+def _same_kernel(old, new, out):
+    """(--parent-csrc) One kernel built from the earlier source (``old``,
+    before its F build ran the shared add_neighbor step) and from this one
+    (``new``), both writing ``out``: timed in turns (``refactor_parent_ms``,
+    ``refactor_ms``) and compared bit for bit (``refactor_equal``)."""
+    import torch
+    rec = dict(zip(('refactor_parent_ms', 'refactor_ms'),
+                   time_abba(old, new)))
+    old()
+    torch.cuda.synchronize()
+    want = out.clone()
+    new()
+    torch.cuda.synchronize()
+    rec['refactor_equal'] = torch.equal(out, want)
+    return rec
+
+
+def inter_fwd_f32_times(args, got):
+    """The fp32 W-fused inter forward beside its yardstick and, with
+    --parent-csrc, the earlier tree's kernels, on the call's inputs: the
+    composition (F [M, 24c] by the W-off F kernel, epn_inter_conv_f_f32,
+    then one torch.mm(F, W) in fp32; ``composed_ms``; no one PyTorch call
+    computes the function) and the device memory beyond the inputs that
+    one composed call and one kernel call need (``composed_peak_gib``,
+    ``kernel_peak_gib``); the earlier tree's template (epn_inter_conv,
+    bf16 = 0) timed with this tree's epn_inter_conv_fwd_f32 in turns
+    (parent, new, new, parent; ``parent_ms``, ``same_timer_ms``) and with
+    this tree's template (``_same_kernel``)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    from epn_pointcloud_tpu_torch.ops.kernels import build
+    ic = kernels.inter_conv
+    gx, idx, table, rk, k2, W, sigma = args
+    b, p2, nn = idx.shape
+    q, na, c = table.shape[1:]
+    K, _, d = W.shape
+    lib = build.library()
+    head = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(), rk.data_ptr(),
+            k2.data_ptr())
+    dims = (b, p2, nn, q, na, K, c)
+    W2 = W.reshape(K * c, d)
+
+    def composed(F):
+        err = lib.epn_inter_conv_f_f32(*head, F.data_ptr(), *dims,
+                                       float(sigma), build.stream(gx))
+        if err:
+            raise RuntimeError(f'epn_inter_conv_f_f32: CUDA error {err}')
+        return torch.mm(F, W2)
+
+    def composed_fresh():
+        return composed(torch.empty(b * p2 * na, K * c, device=gx.device))
+    rec = {'composed_peak_gib': _extra_gib(composed_fresh),
+           'kernel_peak_gib': _extra_gib(lambda: ic.inter_conv(*args))}
+    F = torch.empty(b * p2 * na, K * c, device=gx.device)
+    rec['composed_ms'] = time_ms(lambda: composed(F), reps=5, warmup=2)
+    del F
+    torch.cuda.empty_cache()
+    if PARENT:
+        out = torch.empty_like(got)
+
+        def call(fn, tail):
+            def run():
+                err = fn(*head, W.data_ptr(), out.data_ptr(), *dims, d,
+                         float(sigma), *tail, build.stream(gx))
+                if err:
+                    raise RuntimeError(f'inter forward: CUDA error {err}')
+            return run
+        parent = call(PARENT['fwd'], (0,))
+        rec['parent_ms'], rec['same_timer_ms'] = time_abba(
+            parent, call(lib.epn_inter_conv_fwd_f32, ()))
+        rec.update(_same_kernel(parent, call(lib.epn_inter_conv, (0,)), out))
+        del out
+        torch.cuda.empty_cache()
+    return rec
+
+
 def inter_conv_extras(name, args, got):
-    """For a bf16 call of the W-fused inter forward: the kernel it ran
+    """For an fp32 call of the W-fused inter forward, its gate
+    (``inter_fwd_f32_gate``) and times (``inter_fwd_f32_times``).
+    For a bf16 call of the W-fused inter forward: the kernel it ran
     (``route``, from the wrapper's counts: 'mma' for the tensor-core
     kernel), whether a second call gives the same bits, its normwise error
     against ``inter_conv_mma_plain`` (the plain version at the kernel's
@@ -1821,8 +2019,11 @@ def inter_conv_extras(name, args, got):
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     from epn_pointcloud_tpu_torch.ops.kernels import build
-    if name != 'inter_conv' or args[2].dtype != torch.bfloat16:
+    if name != 'inter_conv':
         return {}
+    if args[2].dtype == torch.float32:
+        return {**inter_fwd_f32_gate(args, got),
+                **inter_fwd_f32_times(args, got)}
     ic = kernels.inter_conv
     before = dict(ic.routes)
     again = ic.inter_conv(*args)
@@ -2110,9 +2311,13 @@ def check_call(kern_fn, plain_fn, args, pargs, tol):
     return got, row
 
 
-# the backward kernel calls of a train step, by compute dtype
-BWD = {'fp32': ('inter_conv_dtable', 'inter_conv_dw', 'intra_conv_df',
-                'intra_conv_dw'),
+# the yardstick of the fp32 W-fused inter forward (no one PyTorch call
+# computes it): its composition, timed by inter_fwd_f32_times
+INTER_YARD = 'F (epn_inter_conv_f_f32) + torch.mm(F, W)'
+# the backward kernel calls of a train step, by compute dtype (in fp32 with
+# the step's W-fused inter forwards)
+BWD = {'fp32': ('inter_conv', 'inter_conv_dtable', 'inter_conv_dw',
+                'intra_conv_df', 'intra_conv_dw'),
        'bf16': ('inter_conv_dtable', 'inter_conv_dw', 'intra_conv_prenorm_df',
                 'intra_conv_prenorm_dw', 'grouped_conv_bwd')}
 
@@ -2120,7 +2325,10 @@ BWD = {'fp32': ('inter_conv_dtable', 'inter_conv_dw', 'intra_conv_df',
 def _bwd_layer(name, n_calls, seen):
     """The model layer of a backward call (the backward runs from the last
     layer down): inter layers 6..1, intra layers 6..0, and the grouped conv
-    at the head first, then the skips of layers 6..1."""
+    at the head first, then the skips of layers 6..1; the step's inter
+    forwards run first, layers 1..6."""
+    if name == 'inter_conv':
+        return f'L{seen + 1}'
     if name.startswith('inter'):
         return f'L{n_calls - seen}'
     if name.startswith('intra'):
@@ -2161,6 +2369,7 @@ def phase_backward_kernels(device, dtype='fp32'):
         row.update(grouped_library(name, args))
         row.update(mm_library(name, args))
         row.update(intra_conv_extras(name, args, got))
+        row.update(inter_conv_extras(name, args, got[0]))
         row.update(inter_bwd_extras(name, args, got[0]))
         row.update(inter_dw_extras(name, args, got[0]))
         row.update(intra_dw_extras(name, args, got[0]))
@@ -2194,6 +2403,11 @@ def phase_backward_kernels(device, dtype='fp32'):
         check_fp32_rows(tag, results['intra_conv_df'], expect['intra_conv_df'],
                         'intra df', 'torch.mm(A_inv, W^T)', 1.5, 'fwd_f32',
                         1e-5)
+        check_fp32_rows(tag, results['inter_conv'], expect['inter_conv'],
+                        'inter forward', INTER_YARD, 1.5, 'fwd_f32', 1e-5,
+                        'composed_ms')
+        # the step's forwards, apart from phase 2's b=32 forward calls
+        results['inter_conv_train'] = results.pop('inter_conv')
     return results
 
 
@@ -2648,6 +2862,9 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
                                 'torch.mm(A_inv, W^T)')):
             check_fp32_rows(tag, results[name], expect[name], what, mm, 1.5,
                             'fwd_f32', 1e-5)
+        check_fp32_rows(tag, results['inter_conv'], expect['inter_conv'],
+                        'inter forward', INTER_YARD, 1.5, 'fwd_f32', 1e-5,
+                        'composed_ms')
         results['intra_conv'] += results.pop('intra_conv_df')
     return results, routes
 
@@ -2857,15 +3074,51 @@ def phase_inv_train(device, batches, reps=5):
             'b0l1_gap': gap}
 
 
+def check_inv_desc_inter(model, x):
+    """Every W-fused inter forward of the b=48 descriptor forward (7) on
+    its fp32 CUDA-core kernel, within 1e-5 (normwise) of inter_conv_plain,
+    bitwise equal on a second call and at most 1.5 times the template's
+    float64 error (``inter_fwd_f32_gate``)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    ic = kernels.inter_conv
+    rows = []
+    with torch.no_grad():
+        calls = capture_calls(('inter_conv',), lambda: model(x))
+        for _, args in calls:
+            got = ic.inter_conv(*args)
+            rows.append({'rel_norm_err': rel_err(got, ic.inter_conv_plain(
+                *args)), **inter_fwd_f32_gate(args, got)})
+            del got
+    del calls
+    torch.cuda.empty_cache()
+
+    def col(key):
+        return ' '.join(f'{r[key]:.2e}' for r in rows)
+    ratios = [r['f64_ratio'] for r in rows]
+    log(f'[inv-descriptor] fp32 inter forward: {len(rows)} calls, routes '
+        f'{[r["route"] for r in rows]}; rel_norm_err vs plain '
+        f'{col("rel_norm_err")} (<= 1e-5); vs float64 {col("rel_f64")}, the '
+        f'template {col("template_rel_f64")}, ratio max {max(ratios):.3f} '
+        f'(<= 1.5); bitwise {all(r["bitwise_repeat"] for r in rows)}')
+    assert len(rows) == 7 and {r['route'] for r in rows} == {'fwd_f32'}
+    assert all(r['bitwise_repeat'] for r in rows)
+    assert max(r['rel_norm_err'] for r in rows) <= 1e-5
+    assert max(ratios) <= 1.5, ratios
+    return rows
+
+
 def phase_inv_descriptor(device, root, reps=5):
     """[inv-descriptor] The eval-mode inv forward at b=48 patches on the
     kernel and the plain path: descriptors to rtol 1e-3, atol 2e-3; both
-    timed in turns (median of 5)."""
+    timed in turns (median of 5); every fp32 inter forward of the kernel
+    path checked by ``check_inv_desc_inter``."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     src, tgt = inv_legs(root, device, items=(0, 1))
     x = torch.cat([src, tgt])[:INV_DESC_BATCH].contiguous()
     model = inv_model(device).eval()
+    inter_rows = check_inv_desc_inter(model, x)
 
     def plain_fwd():
         with kernels.plain():
@@ -2890,7 +3143,8 @@ def phase_inv_descriptor(device, root, reps=5):
     del model
     torch.cuda.empty_cache()
     return {'max_abs_err': err, 'kernel_ms': k_ms, 'plain_ms': p_ms,
-            'kernel_runs_ms': k_ts, 'plain_runs_ms': p_ts}
+            'kernel_runs_ms': k_ts, 'plain_runs_ms': p_ts,
+            'inter_forward': inter_rows}
 
 
 def phase_inv_train_entry(root, dtype='fp32'):
@@ -3051,10 +3305,11 @@ def phase_inv_bf16_descriptor(device, root, reps=5):
             'plain_runs_ms': p_ts}
 
 
-# the fp32 CUDA-core kernels of the inter backward and the intra forward,
-# df and dW, by wrapper: the kernel and its route (``inter_conv.routes``,
+# the fp32 CUDA-core kernels of the inter forward and backward and the
+# intra forward, df and dW, by wrapper: the kernel and its route (``inter_conv.routes``,
 # ``intra_conv.routes``) in the kernels summary
 F32_KERNELS = {
+    'inter_conv': {'kernel': 'inter_fwd_f32_kernel', 'route': 'fwd_f32'},
     'intra_conv': {'kernel': 'intra_fwd_f32_kernel', 'route': 'fwd_f32'},
     'inter_conv_dw': {'kernel': 'inter_dw_f32_kernel', 'route': 'dw_f32'},
     'intra_conv_dw': {'kernel': 'intra_dw_f32_kernel', 'route': 'dw_f32'},
@@ -3068,10 +3323,13 @@ F32_KERNELS = {
 PARENT_SOURCES = {'fps.cu': {'fps': 'epn_fps'},
                   'ball_query.cu': {'ball_query': 'epn_ball_query'},
                   'inter_conv.cu': {'fn': 'epn_inter_conv_mma',
-                                    'f': 'epn_inter_conv_f'},
+                                    'f': 'epn_inter_conv_f',
+                                    'fwd': 'epn_inter_conv',
+                                    'f_f32': 'epn_inter_conv_f_f32'},
                   'inter_conv_bwd.cu': {'dtable': 'epn_inter_conv_bwd_table',
                                         'dg': 'epn_inter_conv_dg',
-                                        'dw': 'epn_inter_conv_bwd_w'},
+                                        'dw': 'epn_inter_conv_bwd_w',
+                                        'dw_f32': 'epn_inter_conv_bwd_w_f32'},
                   'intra_conv.cu': {'intra_fwd': 'epn_intra_conv',
                                     'intra_df': 'epn_intra_conv_prenorm_df',
                                     'intra_dw': 'epn_intra_conv_bwd_w'}}
@@ -3101,8 +3359,9 @@ def main(argv=None):
                     help="an earlier tree's csrc/ directory: its bf16 "
                     'W-fused inter forward, W-off F, prenorm intra forward, '
                     'B6 df, fused dTable, W-off dG, fused dW and B6 dW, and '
-                    'its fp32 fused dTable, W-off dG, fused dW, W-off F, '
-                    "intra forward, df and dW, timed beside this tree's")
+                    'its fp32 W-fused inter forward, fused dTable, W-off dG, '
+                    "fused dW, W-off F, intra forward, df and dW, timed "
+                    "beside this tree's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3235,6 +3494,9 @@ def main(argv=None):
             # the fp32 W-off dG and F (the record above: the inv step's)
             rec['fp32_kernel'] = dict(F32_KERNELS[k.name],
                                       share=rec['bound_ms'] / rec['ms'])
+        if k.name == 'inter_conv':
+            # the fp32 b=12 train step's forwards (phase 6)
+            rec['fp32_train'] = _aggregate(results['inter_conv_train'])
         if k.name == 'intra_conv':
             # df runs this kernel (b=12 train step); ms above: b=32 forward
             rec['df'] = _aggregate(results['intra_conv_df'])

@@ -29,7 +29,8 @@
 // ~12% of that; the W slices it streams from L2 and the fragment traffic
 // in shared memory hold it back, not the products.
 //
-// Design of the SGEMM template: a register-blocked SGEMM whose rows are the
+// Design of the SGEMM template (fp32 and bf16 shapes off the CUDA-core and
+// tensor-core kernels' envelopes): a register-blocked SGEMM whose rows are the
 // flattened (point, anchor) pairs. A block owns a BM x BN output tile
 // (128 x 32/64/128, or 64 x 256 when D allows) with 8 x 8 outputs a
 // thread, and walks the channels
@@ -44,6 +45,37 @@
 // flight while the current ones are used).
 // Per step of the reduction a thread reads 2 + 2 float4 from shared memory
 // for 64 FMAs. The [b, p, a, k, c] tensor never exists in device memory.
+//
+// fp32 on the CUDA cores (inter_fwd_f32_kernel, epn_inter_conv_fwd_f32;
+// every layer of both models: K = 24, na = 60, C % 16 == 0, D % 32 == 0,
+// nn <= 64), FFMA only (no TF32: the TPU kernel runs its fp32 dots at full
+// precision). Bound: the W product, 2 * M * 24 * C * D operations (2.32
+// TFLOP a b=32 cls forward), beside the F build's 2 * M * nn * 24 * C
+// (0.29 TFLOP), at 67 TFLOP/s. What held the template back, and what this
+// kernel does about it: (1) each anchor weight recomputed for every
+// 8-channel chunk -> at 256 columns (two thirds of the cls forward's
+// work) F is built 16 channels a chunk (a weight once a 16-channel
+// chunk); narrower layers keep 8, so that two or three blocks an SM fit
+// beside the slab; (2) the four items of a row loading the same neighbor
+// rows synchronously -> a lane builds one row's 3 kernel points over the
+// chunk (add_neighbor, as the W-off F kernel), so each table row is
+// gathered once a chunk, by cp.async into a ring a warp that runs ahead
+// (the next chunk's first stages go out during the last W slice); (3) W
+// staged through registers -> W slices of 16 rows by cp.async into a ring
+// of three that runs ahead across chunks; (4) F built once for each 128
+// columns and several barriers an 8-channel chunk -> a block owns 64 rows
+// and all of D up to 256 columns, one barrier a W slice and one a chunk;
+// (5) the product: 8 x 8 sums a thread at D = 256 (8 x 4 at 128 and 64,
+// 4 x 4 at 32), the slab stored k-major so that a thread's rows of one
+// (k, c) are one or two float4 loads, a quarter-warp's one address, and
+// the next row's fragments loaded while this one's FFMA run. What holds
+// it back (inter_conv_variants.py on the H100): the product's shared-
+// memory loads, a byte a FFMA at 8 x 8 against the card's 128 bytes and
+// 128 FFMA a cycle an SM: the product alone runs at ~60% of the rate
+// (16 x 8 sums a thread, 0.75 bytes a FFMA, gained nothing once the slab
+// went k-major); the F build adds 10-40% (more at small D). F is summed
+// as the template sums it (bitwise); the product in the order (chunk,
+// kernel point, channel) by fmaf; no atomics.
 //
 // Element type: the table, W and out are fp32 (parity mode) or bf16 (the
 // production mode of the _call_gather_w forms in bf16); gx, rk and k2 stay
@@ -1001,7 +1033,7 @@ int launch_f(const void* gx, const void* idx, const void* table,
 
 namespace ff32 {
 
-using epn_inter::anchor_weight;
+using epn_inter::add_neighbor;
 
 constexpr int kNA = 60;            // anchors: the rows of a point
 constexpr int kK = 24;             // kernel points
@@ -1173,24 +1205,9 @@ inter_f_f32_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
         const int n0 = s * kNS, ns = min(kNS, nn - n0);
 #pragma unroll 1
         for (int n = 0; n < ns; ++n) {
-          const float4 gv = g4[n0 + n];
-          float w[KT];
-#pragma unroll
-          for (int j = 0; j < KT; ++j) {
-            w[j] = anchor_weight(gv, r[j], inv_sigma);
-          }
-#pragma unroll
-          for (int h = 0; h < P; ++h) {
-            const float4 tv =
-                *reinterpret_cast<const float4*>(Gr + n * CH + 4 * h);
-#pragma unroll
-            for (int j = 0; j < KT; ++j) {
-              acc[j][4 * h] = fmaf(w[j], tv.x, acc[j][4 * h]);
-              acc[j][4 * h + 1] = fmaf(w[j], tv.y, acc[j][4 * h + 1]);
-              acc[j][4 * h + 2] = fmaf(w[j], tv.z, acc[j][4 * h + 2]);
-              acc[j][4 * h + 3] = fmaf(w[j], tv.w, acc[j][4 * h + 3]);
-            }
-          }
+          add_neighbor(acc, g4[n0 + n], r, inv_sigma, [&](int h) {
+            return *reinterpret_cast<const float4*>(Gr + n * CH + 4 * h);
+          });
         }
         __syncwarp();  // this ring stage is refilled by the next gather
         slot = slot + 1 == kStages ? 0 : slot + 1;
@@ -1248,6 +1265,345 @@ int launch(const void* gx, const void* idx, const void* table,
 }
 
 }  // namespace ff32
+
+// ----------------------------- fp32 W-fused forward on the CUDA cores
+
+namespace fwf32 {
+
+using epn_inter::add_neighbor;
+
+constexpr int kNA = 60;             // anchors: the rows of a point
+constexpr int kK = 24;              // kernel points
+constexpr int kBM = 64;             // rows a block
+constexpr int kKT = kK / 8;         // kernel points a build lane
+constexpr int kLR = kK / kKT;       // build lanes a row
+constexpr int kR = 32 / kLR;        // rows a build item
+constexpr int kNS = 8;              // neighbors a gather stage
+constexpr int kSK = 16;             // W rows a slice
+constexpr int kWStages = 3;         // W ring slices
+constexpr int kPF = 1;              // product fragments loaded ahead
+constexpr int kMaxNN = 64;
+constexpr int kMaxNP = (kBM - 1) / kNA + 2;  // points a block touches
+constexpr int kSR = kBM;            // F slab stride: a (k, c) row's kBM rows
+
+// The slab column of block row `row` in the rows of kernel point k: the
+// row's float4 group XOR k % 8, so that the eight kernel points a build
+// warp stores at once fall in different banks (a group stays whole; no
+// padding, so that three blocks an SM fit at 64 columns)
+__device__ __forceinline__ int slab_col(int row, int k) {
+  return row ^ (4 * (k & 7));
+}
+using mma::kSmemPerSM;
+static_assert(kK % kKT == 0 && 32 % kLR == 0, "build lanes");
+
+// The block shape by the columns a block owns (BN = D up to 256): its
+// threads NT, the channels a chunk CH (the F slab is [24 CH][kBM]) and its
+// warps' gather ring stages GS. At 256 columns one block an SM of 8 x 8
+// sums a thread, F built 16 channels a chunk; below, 8 channels a chunk,
+// so that two or three blocks an SM fit and overlap one another's F build
+// and barriers (inter_conv_variants.py times each choice)
+template <int BN>
+struct Shape {
+  static constexpr int NT = BN == 256 || BN == 128 ? 256 : 128;
+  static constexpr int CH = BN == 256 ? 16 : 8, GS = BN == 256 ? 3 : 2;
+};
+
+// A block owns kBM rows and BN columns, NT threads, CH channels a chunk.
+// The F build: warp w builds rows w RW .. + RW, kItems items of kR rows; a
+// gather stage is kNS neighbors of an item's rows, kP float4 a (row,
+// neighbor). The product: thread (ty, tx) owns rows ty TM .. + TM and
+// columns q * BN / NQ + 4 tx .. + 4 (q < NQ): TM x TN sums; a warp's lanes
+// are 4 ty by 8 tx (a quarter-warp's A loads one address, its B loads 128
+// contiguous bytes).
+// A W slice is kSK rows of W: KPS kernel points' CH channels; SPC slices a
+// chunk.
+template <int BN>
+struct Cfg {
+  static constexpr int NT = Shape<BN>::NT, CH = Shape<BN>::CH;
+  static constexpr int kStages = Shape<BN>::GS;  // gather ring stages
+  static constexpr int kWarps = NT / 32, RW = kBM / kWarps, kItems = RW / kR;
+  static constexpr int kP = CH / 4, RS = kNS * CH + 4;
+  static constexpr int kOut = kBM * BN / NT;  // sums a thread
+  static constexpr int TN = kOut >= 64 ? 8 : 4, NQ = TN / 4, TM = kOut / TN;
+  static constexpr int TX = BN / TN, TY = NT / TX, WX = TX / 8;
+  static constexpr int KPS = kSK / CH, SPC = kK / KPS;
+  // dynamic shared memory, in bytes from the base: the F slab [24 CH][kSR]
+  // (k-major: a row a (k, c), c fastest, holding the block's kBM rows at
+  // slab_col); the W ring [kWStages][kSK][BN]; each warp's gather ring
+  // [kStages][kR][RS]; the block's points' neighbor coordinates
+  // [kMaxNP][nn] float4 (x, y, z, |gx|^2) and indices; each row's table
+  // offset and local point (-1 past M)
+  static constexpr size_t wring = (size_t)kK * CH * kSR * sizeof(float);
+  static constexpr size_t gring = wring + (size_t)kWStages * kSK * BN * 4;
+  static constexpr size_t gring_warp = (size_t)kStages * kR * RS;  // float
+  static constexpr size_t gx = gring + kWarps * gring_warp * sizeof(float);
+  static constexpr size_t idx = gx + (size_t)kMaxNP * kMaxNN * sizeof(float4);
+  static constexpr size_t rtb = idx + (size_t)kMaxNP * kMaxNN * sizeof(int);
+  static constexpr size_t lp = rtb + (size_t)kBM * sizeof(long long);
+  static constexpr size_t total = lp + (size_t)kBM * sizeof(int);
+  // blocks an SM the shared memory holds (each keeps 1 KB for the system)
+  static constexpr int kBlocks = (int)(kSmemPerSM / (total + 1024));
+  static_assert(RW % kR == 0 && TX * TY == NT && TM * TY == kBM &&
+                    TX % 8 == 0 && TY % 4 == 0 && CH % 4 == 0 && TM % 4 == 0 &&
+                    kSK % CH == 0 && kK % KPS == 0 && kBlocks >= 1 &&
+                    total <= kMaxSmem,
+                "block shape");
+};
+
+// four consecutive floats of shared memory into x[0 .. 4] (one 16-byte load)
+__device__ __forceinline__ void lds4(float* x, const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+
+// out [M, D] (fp32) for rows m0 .. m0 + kBM and columns n0 .. n0 + BN. Per
+// chunk of CH channels, phase 1 builds the F slab: warp w builds its rows
+// w RW .. + RW as items of kR rows, lane (u, g) row u of the item and
+// kernel points g, g + 8, g + 16 over the chunk's channels (3 CH sums,
+// each anchor weight once a chunk), by add_neighbor over the neighbors in
+// order (F bitwise the template's); each stage of kNS neighbors' table
+// rows comes by cp.async into the warp's gather ring, kStages - 1 stages
+// ahead (the next chunk's first stages go out during the last W slice),
+// so each table row is gathered once a chunk. Phase 2 multiplies the slab
+// by the chunk's 24 CH W rows, a slice of kSK rows at a time through a
+// cp.async ring that runs ahead across chunks: TM x TN sums a thread, the
+// fragments of (k, c) row kc (the thread's TM slab rows, its TN W
+// columns: float4 loads) loaded while row kc - 1's FFMA run; the sums stay
+// in registers over all chunks. One barrier a W slice and one a chunk;
+// below 256 columns two or three blocks an SM, so that one block's F build
+// and barriers overlap another's product; no atomics.
+template <int BN>
+__global__ void __launch_bounds__(Cfg<BN>::NT, Cfg<BN>::kBlocks)
+inter_fwd_f32_kernel(const float* __restrict__ gx,
+                     const int* __restrict__ idx,
+                     const float* __restrict__ table,
+                     const float* __restrict__ rk,
+                     const float* __restrict__ k2,
+                     const float* __restrict__ W, float* __restrict__ out,
+                     int M, int p2, int nn, int q, int C, int D,
+                     float inv_sigma) {
+  using G = Cfg<BN>;
+  constexpr int CH = G::CH, RS = G::RS, kP = G::kP;
+  constexpr int kStages = G::kStages;
+  extern __shared__ __align__(16) unsigned char fw_smem[];
+  float* slab = reinterpret_cast<float*>(fw_smem);
+  float* wring = reinterpret_cast<float*>(fw_smem + G::wring);
+  float4* s_gx = reinterpret_cast<float4*>(fw_smem + G::gx);
+  int* s_idx = reinterpret_cast<int*>(fw_smem + G::idx);
+  long long* s_rtb = reinterpret_cast<long long*>(fw_smem + G::rtb);
+  int* s_lp = reinterpret_cast<int*>(fw_smem + G::lp);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* gring = reinterpret_cast<float*>(fw_smem + G::gring) +
+                 warp * G::gring_warp;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
+  const int pt0 = m0 / kNA;
+  const int np = (min(m0 + kBM, M) - 1) / kNA - pt0 + 1;
+  const int nch = C / CH, w_steps = nch * G::SPC;
+
+  // W slice st (chunk st / SPC, kernel points KPS (st % SPC) ..) into ring
+  // stage st % kWStages: slice row r is W row (k0 + r / CH) * C + c0 +
+  // r % CH; one commit group, empty past the last slice
+  auto load_w = [&](int st) {
+    if (st < w_steps) {
+      const int c0 = st / G::SPC * CH, k0 = st % G::SPC * G::KPS;
+      float* dst = wring + (st % kWStages) * kSK * BN;
+#pragma unroll
+      for (int e = tid; e < kSK * BN / 4; e += G::NT) {
+        const int r = e / (BN / 4), c4 = e % (BN / 4) * 4;
+        tc::cp16(tc::smem_addr(dst + r * BN + c4),
+                 W + ((size_t)(k0 + r / CH) * C + c0 + r % CH) * D + n0 + c4,
+                 true);
+      }
+    }
+    tc::cp_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kWStages - 1; ++s) load_w(s);
+
+  epn_inter::stage_neighbors(s_gx, s_idx, gx, idx, pt0, np, nn, tid, G::NT);
+  if (tid < kBM) {
+    const int gm = m0 + tid, pt = gm / kNA, a = gm - pt * kNA;
+    s_rtb[tid] = ((long long)(pt / p2) * q * kNA + a) * C;
+    s_lp[tid] = gm < M ? pt - pt0 : -1;
+  }
+  __syncthreads();
+
+  // the warp's items (rows RW warp + kR i ..) whose first row is below M;
+  // a chunk's gather steps: its items' stages of kNS neighbors
+  int items = 0;
+  while (items < G::kItems && m0 + G::RW * warp + kR * items < M) ++items;
+  const int ns_all = (nn + kNS - 1) / kNS, spc = items * ns_all;
+
+  // gather step t (chunk t / spc, item, stage) into ring slot t %
+  // kStages: the stage's float4 (u, n, c4) of the item's rows, lane by
+  // lane (zeros for the shadow index, past nn and past M); no commit
+  auto gather = [&](int t) {
+    const int ch = t / spc, rest = t - ch * spc;
+    const int it = rest / ns_all, nb = (rest - it * ns_all) * kNS;
+    const int r0 = G::RW * warp + kR * it;
+    float* dst = gring + (t % kStages) * kR * RS;
+#pragma unroll
+    for (int e = lane; e < kR * kNS * kP; e += 32) {
+      const int u = e / (kNS * kP), n = e / kP % kNS, c4 = e % kP;
+      const int lp = s_lp[r0 + u];
+      const int j = lp >= 0 && nb + n < nn ? s_idx[lp * nn + nb + n] : q;
+      const bool ok = j < q;
+      tc::cp16(tc::smem_addr(dst + u * RS + n * CH + 4 * c4),
+               ok ? table + s_rtb[r0 + u] + ch * CH + 4 * c4 +
+                        (size_t)j * kNA * C
+                  : table,
+               ok);
+    }
+  };
+  // the first kStages - 1 steps of chunk ch, kStages - 1 commit groups
+  auto prefetch = [&](int ch) {
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (ch < nch && s < spc) gather(ch * spc + s);
+      tc::cp_commit();
+    }
+  };
+  prefetch(0);
+
+  const int u = lane / kLR, g = lane % kLR;
+  const int tx = warp % G::WX * 8 + lane % 8;
+  const int ty = warp / G::WX * 4 + lane / 8;
+  float acc[G::TM][G::TN];
+#pragma unroll
+  for (int i = 0; i < G::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < G::TN; ++j) acc[i][j] = 0.f;
+
+  for (int ch = 0, st = 0; ch < nch; ++ch) {
+    // phase 1: the chunk's F slab, item by item
+#pragma unroll 1
+    for (int it = 0, t = ch * spc; it < G::kItems; ++it) {
+      const int row = G::RW * warp + kR * it + u;
+      float f[kKT][CH];
+#pragma unroll
+      for (int j = 0; j < kKT; ++j)
+#pragma unroll
+        for (int c = 0; c < CH; ++c) f[j][c] = 0.f;
+      if (it < items) {
+        const int a = (m0 + row) % kNA;
+        float4 r[kKT];
+#pragma unroll
+        for (int j = 0; j < kKT; ++j) {
+          const int k = g + kLR * j;
+          const float* rp = rk + ((size_t)a * kK + k) * 3;
+          r[j] = make_float4(__ldg(rp), __ldg(rp + 1), __ldg(rp + 2),
+                             __ldg(k2 + k));
+        }
+        const float4* g4 = s_gx + max(s_lp[row], 0) * nn;
+        for (int s = 0; s < ns_all; ++s, ++t) {
+          if (t + kStages - 1 < (ch + 1) * spc) gather(t + kStages - 1);
+          tc::cp_commit();
+          tc::cp_wait<kStages - 1>();
+          __syncwarp();
+          const float* Gr = gring + (t % kStages) * kR * RS + u * RS;
+          const int nb = s * kNS, ns = min(kNS, nn - nb);
+#pragma unroll 1
+          for (int n = 0; n < ns; ++n) {
+            add_neighbor(f, g4[nb + n], r, inv_sigma, [&](int h) {
+              return *reinterpret_cast<const float4*>(Gr + n * CH + 4 * h);
+            });
+          }
+          __syncwarp();  // this ring slot is refilled by a later gather
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kKT; ++j) {
+        const int k = g + kLR * j;
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          slab[(k * CH + c) * kSR + slab_col(row, k)] = f[j][c];
+        }
+      }
+    }
+
+    // phase 2: out += slab . W[the chunk's rows], a slice at a time
+#pragma unroll 1
+    for (int sl = 0; sl < G::SPC; ++sl, ++st) {
+      tc::cp_wait<kWStages - 2>();
+      __syncthreads();  // slice st and the slab visible; slice st - 1 done
+      load_w(st + kWStages - 1);
+      if (sl == G::SPC - 1) prefetch(ch + 1);
+      const float* ws = wring + (st % kWStages) * kSK * BN + 4 * tx;
+      const float* fa = slab + (size_t)sl * kSK * kSR;
+      // the fragments of slab row kc (the thread's TM rows) and W row kc
+      // (its TN columns), kPF rows ahead of their FFMA
+      float a[kPF + 1][G::TM], b[kPF + 1][G::TN];
+      auto frag = [&](int buf, int kc) {
+        const int k = sl * G::KPS + kc / CH;
+#pragma unroll
+        for (int i = 0; i < G::TM; i += 4) {
+          lds4(a[buf] + i, fa + kc * kSR + slab_col(ty * G::TM + i, k));
+        }
+#pragma unroll
+        for (int qq = 0; qq < G::NQ; ++qq) {
+          lds4(b[buf] + 4 * qq, ws + kc * BN + qq * (BN / G::NQ));
+        }
+      };
+#pragma unroll
+      for (int kc = 0; kc < kPF; ++kc) frag(kc, kc);
+#pragma unroll
+      for (int kc = 0; kc < kSK; ++kc) {
+        if (kc + kPF < kSK) frag((kc + kPF) % (kPF + 1), kc + kPF);
+        const int f = kc % (kPF + 1);
+#pragma unroll
+        for (int i = 0; i < G::TM; ++i)
+#pragma unroll
+          for (int j = 0; j < G::TN; ++j) {
+            acc[i][j] = fmaf(a[f][i], b[f][j], acc[i][j]);
+          }
+      }
+    }
+    __syncthreads();  // every warp done with the slab before it is rebuilt
+  }
+  tc::cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < G::TM; ++i) {
+    const int gm = m0 + ty * G::TM + i;
+    if (gm < M) {
+      float* op = out + (size_t)gm * D + n0 + 4 * tx;
+#pragma unroll
+      for (int qq = 0; qq < G::NQ; ++qq) {
+        *reinterpret_cast<float4*>(op + qq * (BN / G::NQ)) =
+            make_float4(acc[i][4 * qq], acc[i][4 * qq + 1],
+                        acc[i][4 * qq + 2], acc[i][4 * qq + 3]);
+      }
+    }
+  }
+}
+
+template <int BN>
+int launch(const void* gx, const void* idx, const void* table,
+           const void* rk, const void* k2, const void* W, void* out, int M,
+           int p2, int nn, int q, int C, int D, float sigma,
+           cudaStream_t stream) {
+  using G = Cfg<BN>;
+  auto kern = inter_fwd_f32_kernel<BN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::total);
+  if (err == cudaSuccess) {
+    // the shared memory of G::kBlocks blocks an SM, the rest L1
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3((M + kBM - 1) / kBM, D / BN), G::NT, G::total, stream>>>(
+      (const float*)gx, (const int*)idx, (const float*)table,
+      (const float*)rk, (const float*)k2, (const float*)W, (float*)out, M,
+      p2, nn, q, C, D, 1.f / sigma);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fwf32
 
 }  // namespace
 
@@ -1354,6 +1710,34 @@ extern "C" int epn_inter_conv_mma(const void* gx, const void* idx,
     return mma::launch_any<decltype(bn)::value>(gx, idx, table, rk, k2, W,
                                                 out, M, p2, nn, q, na, C, D,
                                                 sigma, s);
+  };
+  if (D % 256 == 0) return go(std::integral_constant<int, 256>());
+  if (D % 128 == 0) return go(std::integral_constant<int, 128>());
+  if (D % 64 == 0) return go(std::integral_constant<int, 64>());
+  return go(std::integral_constant<int, 32>());
+}
+
+// fp32 W-fused forward on the CUDA cores (inter_fwd_f32_kernel): gx, idx,
+// table, rk, k2, W and out as epn_inter_conv with an fp32 table, W and
+// out. K must be 24, na 60, C a positive multiple of 16, D of 32 and
+// 1 <= nn <= 64.
+extern "C" int epn_inter_conv_fwd_f32(const void* gx, const void* idx,
+                                      const void* table, const void* rk,
+                                      const void* k2, const void* W,
+                                      void* out, int b, int p2, int nn, int q,
+                                      int na, int K, int C, int D, float sigma,
+                                      void* stream) {
+  if (K != fwf32::kK || na != fwf32::kNA || C < 16 || C % 16 != 0 ||
+      D < 32 || D % 32 != 0 || nn < 1 ||
+      nn > fwf32::kMaxNN || b < 0 || p2 < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int M = b * p2 * na;
+  if (M == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  auto go = [&](auto bn) {
+    return fwf32::launch<decltype(bn)::value>(gx, idx, table, rk, k2, W, out,
+                                              M, p2, nn, q, C, D, sigma, s);
   };
   if (D % 256 == 0) return go(std::integral_constant<int, 256>());
   if (D % 128 == 0) return go(std::integral_constant<int, 128>());

@@ -188,6 +188,7 @@
 
 namespace {
 
+using epn_inter::add_neighbor;
 using epn_inter::anchor_weight;
 using epn_inter::build_f_item;
 using epn_inter::CC;
@@ -1401,34 +1402,27 @@ inter_dw_f32_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
   auto build_f = [&](int s) {
     const int r = tid >> 3, kq = tid & 7;
     const int2 ri = s_ri[s * kBM + r];
-    float f[kCC];
+    float f[1][kCC];
 #pragma unroll
-    for (int cc = 0; cc < kCC; ++cc) f[cc] = 0.f;
+    for (int cc = 0; cc < kCC; ++cc) f[0][cc] = 0.f;
     if (ri.x >= 0) {
       const int k = kg * kKP + kq;
       const float* rp = rk + ((size_t)ri.y * NK + k) * 3;
-      const float4 rv = make_float4(__ldg(rp), __ldg(rp + 1), __ldg(rp + 2),
-                                    __ldg(k2 + k));
+      const float4 rv[1] = {make_float4(__ldg(rp), __ldg(rp + 1),
+                                        __ldg(rp + 2), __ldg(k2 + k))};
       const float4* g4 = s_gx + s * nbr + ri.x * nn;
       const float4* gr = reinterpret_cast<const float4*>(s_G + (size_t)r * gs);
 #pragma unroll 2
       for (int n = 0; n < nn; ++n) {
-        const float w = anchor_weight(g4[n], rv, inv_sigma);
-#pragma unroll
-        for (int h = 0; h < kCC / 4; ++h) {
-          const float4 t = gr[n * (kCC / 4) + h];
-          f[4 * h] = fmaf(w, t.x, f[4 * h]);
-          f[4 * h + 1] = fmaf(w, t.y, f[4 * h + 1]);
-          f[4 * h + 2] = fmaf(w, t.z, f[4 * h + 2]);
-          f[4 * h + 3] = fmaf(w, t.w, f[4 * h + 3]);
-        }
+        add_neighbor(f, g4[n], rv, inv_sigma,
+                     [&](int h) { return gr[n * (kCC / 4) + h]; });
       }
     }
     float4* dst = reinterpret_cast<float4*>(s_F + r * kFS + kq * kFK);
 #pragma unroll
     for (int h = 0; h < kCC / 4; ++h) {
-      dst[h] = make_float4(f[4 * h], f[4 * h + 1], f[4 * h + 2],
-                           f[4 * h + 3]);
+      dst[h] = make_float4(f[0][4 * h], f[0][4 * h + 1], f[0][4 * h + 2],
+                           f[0][4 * h + 3]);
     }
   };
 

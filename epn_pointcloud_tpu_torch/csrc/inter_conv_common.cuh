@@ -1,6 +1,8 @@
 // Pieces shared by the inter conv forward (inter_conv.cu) and its backward
-// (inter_conv_bwd.cu): the anchor weight and the builder of one item of the
-// F slab,
+// (inter_conv_bwd.cu): the anchor weight, the F build's step for one
+// neighbor (add_neighbor: every fp32 F build runs it, so each F element is
+// summed in one order, bitwise the same in every kernel) and the function
+// that builds one item of the SGEMM template's F slab,
 //
 //   F[row, k, cc] = sum_n w[pt, n, a, k] * T[b, idx[pt, n], a, c0 + cc]
 //   w = relu(1 - ((|gx|^2 + |kappa_k|^2) - 2 gx . R_a kappa_k) / sigma)
@@ -29,6 +31,38 @@ __device__ __forceinline__ float anchor_weight(const float4& g, const float4& r,
   const float cross = (g.x * r.x + g.y * r.y) + g.z * r.z;
   const float d2 = (g.w + r.w) - 2.f * cross;
   return fmaxf(1.f - d2 * inv_sigma, 0.f);
+}
+
+// One neighbor's step of the F build: acc[j][c] += w_j * t[c] for the KT
+// kernel points r[j] (x, y, z, |kappa|^2 of R_a kappa_k) and the N channel
+// values t of the neighbor's table row, load4(h) giving t[4h .. 4h + 4];
+// w_j = anchor_weight(g, r[j]) (rounded to T with kRound), each sum by
+// fmaf. Called for the neighbors in order, it sums each F element as every
+// F build of this repository does.
+template <int KT, int N, bool kRound = false, typename T = float,
+          typename Load4>
+__device__ __forceinline__ void add_neighbor(float (&acc)[KT][N],
+                                             const float4& g,
+                                             const float4 (&r)[KT],
+                                             float inv_sigma, Load4 load4) {
+  static_assert(N % 4 == 0, "channels in float4s");
+  float w[KT];
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    w[j] = anchor_weight(g, r[j], inv_sigma);
+    if (kRound) w[j] = epn::round_to<T>(w[j]);
+  }
+#pragma unroll
+  for (int h = 0; h < N / 4; ++h) {
+    const float4 t = load4(h);
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      acc[j][4 * h] = fmaf(w[j], t.x, acc[j][4 * h]);
+      acc[j][4 * h + 1] = fmaf(w[j], t.y, acc[j][4 * h + 1]);
+      acc[j][4 * h + 2] = fmaf(w[j], t.z, acc[j][4 * h + 2]);
+      acc[j][4 * h + 3] = fmaf(w[j], t.w, acc[j][4 * h + 3]);
+    }
+  }
 }
 
 // Writes F[row, kg * KG + kq, cc] (kq < KG, cc < CC) to fr[kq * CC + cc];
@@ -63,14 +97,9 @@ __device__ __forceinline__ void build_f_item(
       const int j = ix[n];
       float t[CC] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (j < q) epn::load8(tb + (size_t)j * na * C, t);
-      const float4 g = g4[n];
-#pragma unroll
-      for (int kq = 0; kq < KG; ++kq) {
-        float w = anchor_weight(g, r[kq], inv_sigma);
-        if (kRound) w = epn::round_to<T>(w);
-#pragma unroll
-        for (int cc = 0; cc < CC; ++cc) f[kq][cc] = fmaf(w, t[cc], f[kq][cc]);
-      }
+      add_neighbor<KG, CC, kRound, T>(f, g4[n], r, inv_sigma, [&](int h) {
+        return make_float4(t[4 * h], t[4 * h + 1], t[4 * h + 2], t[4 * h + 3]);
+      });
     }
   }
 #pragma unroll

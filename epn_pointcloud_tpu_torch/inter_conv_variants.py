@@ -1,11 +1,12 @@
 """Where the bf16 tensor-core inter forward (``inter_conv_mma_kernel`` in
-csrc/inter_conv.cu), the bf16 tensor-core W-off F (``inter_f_mma_kernel``)
-and the fp32 CUDA-core W-off F (``inter_f_f32_kernel``) spend their time,
-on the card: each kernel as built beside variants with one part taken out,
+csrc/inter_conv.cu), the bf16 tensor-core W-off F (``inter_f_mma_kernel``),
+the fp32 CUDA-core W-off F (``inter_f_f32_kernel``) and the fp32 CUDA-core
+W-fused forward (``inter_fwd_f32_kernel``) spend their time, on the card:
+each kernel as built beside variants with one part changed or taken out,
 at the shapes of the models' layers, with the same timer
 (``chip_smoke.time_ms``).
 
-  python -m epn_pointcloud_tpu_torch.inter_conv_variants
+  python -m epn_pointcloud_tpu_torch.inter_conv_variants [--part NAME]
 
 It imports ``chip_smoke`` from the repository root. Each variant is
 csrc/inter_conv.cu compiled alone (nvcc, sm_90a) under
@@ -72,10 +73,39 @@ order, and the two times averaged. For the builds whose output is right
 the normwise error against ``inter_conv_f_plain`` and whether F equals
 the template's bit for bit (``bitwise_vs_template``).
 
+The fp32 W-fused forward (``epn_inter_conv_fwd_f32``) at the models'
+layers, beside the SGEMM template in fp32 (``template``):
+  built          the source as it is: at 256 columns 256 threads of 8 x 8
+                 sums, F built 16 channels a chunk, one block an SM; at 128
+                 256 threads of 8 x 4, at 64 and 32 128 threads (8 x 4,
+                 4 x 4), 8 channels a chunk, two or three blocks an SM;
+                 the slab k-major, the next row's fragments loaded while
+                 this one's FFMA run;
+  d256_ch8       at 256 columns 128 threads of 16 x 8 sums (0.75 shared
+                 bytes a FFMA, 255 registers), 8 channels a chunk, two
+                 blocks an SM;
+  d256_ch8_nt256 at 256 columns 8 channels a chunk and a W ring of two
+                 slices (every width), two blocks an SM (128 registers);
+  d128_nt128     at 128 columns 128 threads of 8 x 8 sums;
+  d64_nt256      at 64 and 32 columns 256 threads (4 x 4, 2 x 4);
+  pf2            the product's fragments loaded two rows ahead;
+  w_stages_2     a W ring of two slices, not three;
+  unroll_2       the F build's neighbor loop unrolled by 2;
+and, whose output is wrong and only whose time counts:
+  no_build       no F is built (the slab holds zeros; the gathers that
+                 run ahead still go out);
+  no_product     the W product issues no FFMA (its loads and barriers
+                 still run).
+Each build timed in both orders as above; for the builds whose output is
+right, whether it equals the built kernel's bit for bit (a build with
+another chunk width sums the W product in another order) and its normwise
+error against ``inter_conv_plain``.
+
 For every build of each part, its kernel's registers and spills (nvcc's
 -Xptxas -v). One JSON line a shape, a sum over each model's layers, a line
-a build's registers, all of them in chiprun_out/inter_conv_variants.json.
-Needs a CUDA device and nvcc.
+a build's registers, all of them in chiprun_out/inter_conv_variants.json
+(``--part NAME``: that part alone, into
+chiprun_out/inter_conv_variants_NAME.json). Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -126,6 +156,24 @@ F_VARIANTS = {
 }
 F_EXACT = ('built', 'fresh_acc', 'ring_deep')
 # the fp32 W-off F's builds, as VARIANTS
+_NO_WEIGHTS_STEP = """template <int KT, int N, typename Load4>
+__device__ __forceinline__ void add_neighbor(float (&acc)[KT][N],
+                                             const float4&,
+                                             const float4 (&)[KT],
+                                             float inv_sigma, Load4 load4) {
+#pragma unroll
+  for (int h = 0; h < N / 4; ++h) {
+    const float4 t = load4(h);
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      acc[j][4 * h] = fmaf(inv_sigma, t.x, acc[j][4 * h]);
+      acc[j][4 * h + 1] = fmaf(inv_sigma, t.y, acc[j][4 * h + 1]);
+      acc[j][4 * h + 2] = fmaf(inv_sigma, t.z, acc[j][4 * h + 2]);
+      acc[j][4 * h + 3] = fmaf(inv_sigma, t.w, acc[j][4 * h + 3]);
+    }
+  }
+}
+"""
 F32_VARIANTS = {
     'built': None,
     'kt6_ch16': [('constexpr int kKT = 3;', 'constexpr int kKT = 6;'),
@@ -135,10 +183,38 @@ F32_VARIANTS = {
     'blocks_2': ('constexpr int kBlocks = 3;', 'constexpr int kBlocks = 2;'),
     'no_stores': ('if (lp >= 0) {', 'if (M < 0) {'),
     'no_gather': ('const bool live = j < q;', 'const bool live = false;'),
-    'no_weights': ('w[j] = anchor_weight(gv, r[j], inv_sigma);',
-                   'w[j] = inv_sigma;'),
+    # the step of inter_conv_common.cuh's add_neighbor, its weight a
+    # constant, declared in the kernel's namespace in its place
+    'no_weights': ('namespace ff32 {\n\nusing epn_inter::add_neighbor;\n',
+                   'namespace ff32 {\n\n' + _NO_WEIGHTS_STEP),
 }
 F32_EXACT = ('built', 'kt6_ch16', 'unroll_2', 'blocks_2')
+# the fp32 W-fused forward's builds, as VARIANTS: the block shape's two
+# lines (threads; channels a chunk and gather stages) by the columns BN
+_FWD_NT = '  static constexpr int NT = BN == 256 || BN == 128 ? 256 : 128;'
+_FWD_CH = ('  static constexpr int CH = BN == 256 ? 16 : 8, '
+           'GS = BN == 256 ? 3 : 2;')
+_FWD_FMA = 'acc[i][j] = fmaf(a[f][i], b[f][j], acc[i][j]);'
+FWD_F32_VARIANTS = {
+    'built': None,
+    'd256_ch8': [(_FWD_NT, _FWD_NT.replace('BN == 256 || ', '')),
+                 (_FWD_CH, '  static constexpr int CH = 8, GS = 2;')],
+    'd256_ch8_nt256': [(_FWD_CH, '  static constexpr int CH = 8, GS = 2;'),
+                       ('constexpr int kWStages = 3;         // W ring slices',
+                        'constexpr int kWStages = 2;         // W ring slices')],
+    'd128_nt128': (_FWD_NT, _FWD_NT.replace(' || BN == 128', '')),
+    'd64_nt256': (_FWD_NT, _FWD_NT.replace('BN == 256 || BN == 128',
+                                           'BN >= 64')),
+    'pf2': ('constexpr int kPF = 1;', 'constexpr int kPF = 2;'),
+    'w_stages_2': ('constexpr int kWStages = 3;         // W ring slices',
+                   'constexpr int kWStages = 2;         // W ring slices'),
+    'unroll_2': ('#pragma unroll 1\n          for (int n = 0; n < ns; ++n) {',
+                 '#pragma unroll 2\n          for (int n = 0; n < ns; ++n) {'),
+    'no_build': ('      if (it < items) {', '      if (C < 0) {'),
+    'no_product': (_FWD_FMA, 'if (C < 0) ' + _FWD_FMA),
+}
+FWD_F32_EXACT = ('built', 'd256_ch8', 'd256_ch8_nt256', 'd128_nt128',
+                 'd64_nt256', 'pf2', 'w_stages_2', 'unroll_2')
 SOURCE_PATH = os.path.join(build.CSRC_DIR, 'inter_conv.cu')
 # model -> (b, [(layer, p1, p2, nn, c, d)])
 SHAPES = {
@@ -333,21 +409,80 @@ def f32_part(fns, dev, card, time_ms):
     return lines
 
 
-def main():
+def fwd_f32_part(fns, dev, card, time_ms):
+    """The fp32 W-fused forward's builds and the template at the models'
+    layers."""
+    lib = build.library()
+    lines = []
+    for model, (b, layers) in SHAPES.items():
+        model = f'{model} fp32'
+        total = dict.fromkeys(['template', *FWD_F32_VARIANTS], 0.0)
+        for tag, p1, p2, nn, c, d in layers:
+            gx, idx, table, rk, k2, W = _operands(dev, b, p1, p2, nn, c, d,
+                                                  seed=nn + c,
+                                                  dtype=torch.float32)
+            out = torch.empty(b, p2, 60, d, device=dev)
+            args = (gx.data_ptr(), idx.data_ptr(), table.data_ptr(),
+                    rk.data_ptr(), k2.data_ptr(), W.data_ptr(),
+                    out.data_ptr(), b, p2, nn, p1, 60, 24, c, d, 0.08)
+            runs = {'template': _caller(lib.epn_inter_conv, args + (0,),
+                                        'epn_inter_conv')}
+            runs.update({n: _caller(fn, args, 'epn_inter_conv_fwd_f32')
+                         for n, fn in fns.items()})
+            rec = dict.fromkeys(runs, 0.0)
+            for order in (list(runs), list(runs)[::-1]):
+                for n in order:
+                    rec[n] += time_ms(runs[n]) / 2
+            for n, ms in rec.items():
+                total[n] += ms
+            plain = inter_conv.inter_conv_plain(gx, idx, table, rk, k2, W,
+                                                0.08)
+            err, want = {}, None
+            for n in FWD_F32_EXACT:
+                runs[n]()
+                torch.cuda.synchronize()
+                want = out.clone() if want is None else want
+                err[n] = {'bitwise_vs_built': torch.equal(out, want),
+                          'rel': _rel(out, plain)}
+            del want, plain
+            lines.append({'model': model, 'layer': tag,
+                          'dims': [b, p1, p2, nn, c, d], 'ms': rec,
+                          'vs_plain': err, 'card': card})
+            print(json.dumps(lines[-1]), flush=True)
+            del gx, idx, table, W, out
+            torch.cuda.empty_cache()
+        lines.append({'model': model, 'sum_over_layers': True, 'ms': total,
+                      'card': card})
+        print(json.dumps(lines[-1]), flush=True)
+    return lines
+
+
+# part -> (builds, C entry, kernel, the part's timing function)
+PARTS = {'mma': (VARIANTS, 'epn_inter_conv_mma', 'inter_conv_mma_kernel',
+                 forward_part),
+         'f_mma': (F_VARIANTS, 'epn_inter_conv_f_mma', 'inter_f_mma_kernel',
+                   f_part),
+         'f_f32': (F32_VARIANTS, 'epn_inter_conv_f_f32', 'inter_f_f32_kernel',
+                   f32_part),
+         'fwd_f32': (FWD_F32_VARIANTS, 'epn_inter_conv_fwd_f32',
+                     'inter_fwd_f32_kernel', fwd_f32_part)}
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--part', choices=sorted(PARTS), default=None,
+                    help='run this part alone (default: every part)')
+    part = ap.parse_args(argv).part
     if not torch.cuda.is_available():
         raise SystemExit('inter_conv_variants: needs a CUDA device')
     sys.path.insert(0, ROOT)
     from chip_smoke import time_ms
     dev = torch.device('cuda')
     card = torch.cuda.get_device_name(0)
-    parts = ((VARIANTS, 'epn_inter_conv_mma', 'inter_conv_mma_kernel',
-              forward_part),
-             (F_VARIANTS, 'epn_inter_conv_f_mma', 'inter_f_mma_kernel',
-              f_part),
-             (F32_VARIANTS, 'epn_inter_conv_f_f32', 'inter_f_f32_kernel',
-              f32_part))
     lines = []
-    for variants, entry, kernel, run in parts:
+    for variants, entry, kernel, run in ([PARTS[part]] if part else
+                                         PARTS.values()):
         fns, regs = _build(variants, entry, kernel)
         lines += run(fns, dev, card, time_ms)
         for n, use in regs.items():
@@ -356,7 +491,8 @@ def main():
                 print(json.dumps(lines[-1]), flush=True)
     out_dir = os.path.join(ROOT, 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, 'inter_conv_variants.json'), 'w') as f:
+    name = f'inter_conv_variants_{part}' if part else 'inter_conv_variants'
+    with open(os.path.join(out_dir, f'{name}.json'), 'w') as f:
         json.dump(lines, f, indent=1)
 
 

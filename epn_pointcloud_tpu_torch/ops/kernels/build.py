@@ -51,6 +51,9 @@ SIGNATURES = {
     # stream (bf16 on tensor cores)
     'epn_inter_conv_mma': [_P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # the same (fp32 on the CUDA cores)
+    'epn_inter_conv_fwd_f32': [_P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # gx, idx, table, rk, k2, f, b, p2, nn, q, na, k, c, sigma, bf16, stream
     'epn_inter_conv_f': [_P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],

@@ -38,6 +38,9 @@ both round the anchor weights and F to bf16 before the product each feeds,
 where the TPU kernel rounds them (``_fwd_gather_w_kernel:974, 980``; their
 reference ``inter_conv_mma_plain``); the plain version keeps both in fp32,
 which puts ~3e-3 (normwise) between the kernels and the plain version. The
+fp32 forward runs its own CUDA-core kernel (``fwd_f32_route``; other fp32
+shapes on the template), F summed in the template's order (bitwise the
+template's F), the W product summed in fp32. The
 W-off kernels keep the composed route's bf16 rounding points
 (``_fgcw_bwd:1685-1703``): the anchor weights, F and dF in the table's
 type, each neighbor slot's sum_k w dF rounded to bf16 before the fp32 fold
@@ -84,8 +87,9 @@ ENTRIES = {
 }
 launches = dict.fromkeys(ENTRIES, 0)
 # launches by kernel: the forward's 'mma', the bf16 tensor-core kernel
-# (``inter_conv_mma_kernel``), or 'sgemm', the register-blocked SGEMM
-# template (fp32, and bf16 shapes off ``mma_route``); the backward
+# (``inter_conv_mma_kernel``), 'fwd_f32', the fp32 CUDA-core kernel
+# (``inter_fwd_f32_kernel``), or 'sgemm', the register-blocked SGEMM
+# template (shapes off both routes); the backward
 # scatter's 'dtable_mma' and 'dg_mma', the bf16 tensor-core kernel
 # (``inter_bwd_mma_kernel``), 'dtable_f32' and 'dg_f32', the fp32 CUDA-core
 # kernel (``inter_bwd_f32_kernel``), or 'dtable' and 'dg', the template
@@ -97,9 +101,9 @@ launches = dict.fromkeys(ENTRIES, 0)
 # bf16 tensor-core kernel (``inter_f_mma_kernel``), 'f_f32', the fp32
 # CUDA-core kernel (``inter_f_f32_kernel``), or 'f', the SGEMM template's
 # W-off mode (shapes off both routes)
-routes = dict.fromkeys(('mma', 'sgemm', 'dtable_mma', 'dtable_f32', 'dtable',
-                        'dg_mma', 'dg_f32', 'dg', 'dw_mma', 'dw_f32', 'dw',
-                        'f_mma', 'f_f32', 'f'), 0)
+routes = dict.fromkeys(('mma', 'fwd_f32', 'sgemm', 'dtable_mma', 'dtable_f32',
+                        'dtable', 'dg_mma', 'dg_f32', 'dg', 'dw_mma', 'dw_f32',
+                        'dw', 'f_mma', 'f_f32', 'f'), 0)
 
 # anchors per step of the plain versions: bounds their [b, p, n, chunk, *]
 # intermediates (~1 GB at b=32 on the widest flagship layer)
@@ -109,6 +113,9 @@ N_KERNEL = 24
 # the bf16 tensor-core forward's envelope (``mma_route``): neighbors up to,
 # and the fewest anchors (a block's 64 rows touch 64 / na + 2 points)
 MMA_MAX_NN, MMA_MIN_NA = 64, 4
+# the fp32 CUDA-core forward's envelope (``fwd_f32_route``): the anchors, a
+# multiple of the channels (its chunk), of d, neighbors up to
+FWD_F32_NA, FWD_F32_CC, FWD_F32_SD, FWD_F32_MAX_NN = 60, 16, 32, 64
 # the W-off kernels' envelope (the inv model's composed layers): channels
 # and neighbors up to, and the anchors of the icosahedral group
 WOFF_MAX_C, WOFF_MAX_NN, WOFF_NA = 128, 64, 60
@@ -342,11 +349,22 @@ def _check(kernel, gx, idx, table_shape, rk, k2, W_shape, dout=None,
 def mma_route(dtype, K: int, c: int, d: int, nn: int, na: int) -> bool:
     """Whether the forward runs the bf16 tensor-core kernel: a bf16 table
     and K == 24, c % 32 == 0, d % 32 == 0, nn <= MMA_MAX_NN and na >=
-    MMA_MIN_NA (every layer of both models). The other shapes the wrapper
-    takes (c % 8 == 0, K % 6 == 0, d % 32 == 0), and fp32, run the SGEMM
-    template."""
+    MMA_MIN_NA (every layer of both models). fp32 and the other shapes the
+    wrapper takes (c % 8 == 0, K % 6 == 0, d % 32 == 0) run the CUDA-core
+    kernel (``fwd_f32_route``) or the SGEMM template."""
     return (dtype == torch.bfloat16 and K == N_KERNEL and c % 32 == 0
             and d % 32 == 0 and nn <= MMA_MAX_NN and na >= MMA_MIN_NA)
+
+
+def fwd_f32_route(dtype, K: int, c: int, d: int, nn: int, na: int) -> bool:
+    """Whether the forward runs the fp32 CUDA-core kernel
+    (``inter_fwd_f32_kernel``): an fp32 table and K == 24, na == 60, c % 16
+    == 0, d % 32 == 0 and 1 <= nn <= 64 (every layer of both models). bf16
+    and the other shapes the wrapper takes run the tensor-core kernel
+    (``mma_route``) or the SGEMM template."""
+    return (dtype == torch.float32 and K == N_KERNEL and na == FWD_F32_NA
+            and c % FWD_F32_CC == 0 and d % FWD_F32_SD == 0
+            and 1 <= nn <= FWD_F32_MAX_NN)
 
 
 def bwd_mma_route(dtype, K: int, c: int, nn: int, na: int,
@@ -434,8 +452,9 @@ def inter_conv(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
                rk: torch.Tensor, k2: torch.Tensor, W: torch.Tensor,
                sigma: float) -> torch.Tensor:
     """Forward kernel wrapper: plain version on the CPU, CUDA kernel on the
-    card: the tensor-core kernel where ``mma_route`` holds (bf16), else the
-    SGEMM template. Both are deterministic (no atomics)."""
+    card: the tensor-core kernel where ``mma_route`` holds (bf16), the
+    CUDA-core kernel where ``fwd_f32_route`` holds (fp32), else the SGEMM
+    template. All are deterministic (no atomics)."""
     if table.device.type == 'cpu':
         return inter_conv_plain(gx, idx, table, rk, k2, W, sigma)
     bf16 = build.dtype_flag(table.dtype, 'inter_conv')
@@ -448,11 +467,13 @@ def inter_conv(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
             c, d, float(sigma))
     launches['inter_conv'] += 1
     if mma_route(table.dtype, K, c, d, nn, na):
-        routes['mma'] += 1
-        build.launch('epn_inter_conv_mma', *ptrs, build.stream(table))
+        route, entry, tail = 'mma', 'epn_inter_conv_mma', ()
+    elif fwd_f32_route(table.dtype, K, c, d, nn, na):
+        route, entry, tail = 'fwd_f32', 'epn_inter_conv_fwd_f32', ()
     else:
-        routes['sgemm'] += 1
-        build.launch('epn_inter_conv', *ptrs, bf16, build.stream(table))
+        route, entry, tail = 'sgemm', 'epn_inter_conv', (bf16,)
+    routes[route] += 1
+    build.launch(entry, *ptrs, *tail, build.stream(table))
     return out
 
 

@@ -59,6 +59,7 @@ GROUPS = (('inter_f_mma_kernel', 'inter F (W-off) kernel'),
           ('inter_bwd_dt_kernel', 'inter dTable kernel'),
           ('inter_conv_mma_kernel', 'inter conv kernel (bf16, tensor cores)'),
           ('inter_conv_kernel', 'inter conv kernel'),
+          ('inter_fwd_f32_kernel', 'inter conv kernel'),
           ('inter_dtable_kernel', 'inter dTable kernel'),
           ('inter_dw_mma_kernel', 'inter dW kernel'),
           ('inter_dw_f32_kernel', 'inter dW kernel'),

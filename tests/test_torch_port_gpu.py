@@ -25,7 +25,11 @@ and at their edges, the same checks, the SGEMM off their envelope, and the
 kernel's SASS (FFMA, no tensor-core instruction);
 the bf16 W-off F on tensor cores and the fp32 one on the CUDA cores at
 every composed-route layer and at their edges (the fp32 one bitwise the
-template's), their determinism, and the template off their envelopes.
+template's), their determinism, and the template off their envelopes;
+the fp32 W-fused inter forward on the CUDA cores at every inter layer of
+both models and at its edges, its determinism and its float64 error
+against the template's, the template off its envelope, and the kernel's
+SASS (FFMA, no tensor-core instruction).
 
 Run on a machine with the card:
   python -m pytest tests/test_torch_port_gpu.py -q -m gpu --noconftest
@@ -238,6 +242,9 @@ def test_sampling_kernels_repeat_and_capture(cuda, kernel, route):
                                               (64, 1, 48, 16, 64),
                                               (40, 2, 8, 32, 96)])
 def test_inter_conv_kernel_matches_plain(cuda, p1, stride, nn, c, d):
+    """fp32 forward calls: on the CUDA-core kernel ('fwd_f32') where c % 16
+    == 0, else (c = 24) on the SGEMM template ('sgemm'); within 1e-5 of the
+    plain version either way."""
     rng = np.random.RandomState(c)
     x = torch.from_numpy(_ball_points(rng, 2, p1)).to(cuda)
     f = torch.from_numpy(rng.randn(2, p1, 60, c).astype(np.float32)).to(cuda)
@@ -248,9 +255,14 @@ def test_inter_conv_kernel_matches_plain(cuda, p1, stride, nn, c, d):
     gx, idx, _, _ = tso3.sampling.inter_grouping_ball(x, stride, 0.4, nn)
     rk, k2 = tso3.rotated_kernels(anchors, kern)
     args = (gx.contiguous(), idx, f, rk, k2, W, 0.08)
-    got = tkern.inter_conv.inter_conv(*args)
+    ic = tkern.inter_conv
+    before = dict(ic.routes)
+    got = ic.inter_conv(*args)
     torch.cuda.synchronize()
-    _conv_close(got, tkern.inter_conv.inter_conv_plain(*args), 24 * c)
+    assert {k: ic.routes[k] - before[k] for k in ic.routes
+            if ic.routes[k] > before[k]} == {
+                'sgemm' if c % 16 else 'fwd_f32': 1}
+    _conv_close(got, ic.inter_conv_plain(*args), 24 * c)
 
 
 def test_inter_conv_kernel_reads_shadow_index_as_zero(cuda):
@@ -1694,3 +1706,131 @@ def test_bf16_inv_train_step_launches_the_kernels(cuda):
                    and bool(torch.isfinite(p.grad).all())
                    for p in m.parameters())
     assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+
+
+def _inter_fwd_f32_case(cuda, b, p1, stride, nn, c, d, seed, shadow=False):
+    """(routes taken, the fp32 W-fused forward's output, a second call's,
+    the plain version in float64, the kernel's and the SGEMM template's
+    normwise errors against it) on seeded operands: p1 / stride
+    neighborhoods of nn points in a ball of p1 points (shadow: every third
+    slot the shadow index), the template this tree's epn_inter_conv (bf16 =
+    0) on the same inputs."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(_ball_points(rng, b, p1)).to(cuda)
+    f = torch.from_numpy(rng.randn(b, p1, 60, c).astype(np.float32)).to(cuda)
+    kern = torch.from_numpy(tkp.get_spherical_kernel_points(0.28, 1)).to(cuda)
+    anchors = torch.from_numpy(tico.get_anchors(60)).to(cuda)
+    W = torch.from_numpy(
+        (0.05 * rng.randn(24, c, d)).astype(np.float32)).to(cuda)
+    gx, idx, _, _ = tso3.sampling.inter_grouping_ball(x, stride, 0.4, nn)
+    if shadow:
+        idx = idx.clone()
+        idx[:, :, ::3] = p1
+    rk, k2 = tso3.rotated_kernels(anchors, kern)
+    args = (gx.contiguous(), idx, f, rk, k2, W, 0.08)
+    ic = tkern.inter_conv
+    before = dict(ic.routes)
+    got, again = ic.inter_conv(*args), ic.inter_conv(*args)
+    torch.cuda.synchronize()
+    routes = {k: ic.routes[k] - before[k] for k in ic.routes
+              if ic.routes[k] > before[k]}
+    tmpl = torch.empty_like(got)
+    p2 = idx.shape[1]
+    err = ic.build.library().epn_inter_conv(
+        *(t.data_ptr() for t in args[:6]), tmpl.data_ptr(), b, p2, nn, p1,
+        60, 24, c, d, 0.08, 0, ic.build.stream(f))
+    assert err == 0
+    want = ic.inter_conv_plain(gx.double(), idx, f.double(), rk.double(),
+                               k2.double(), W.double(), 0.08)
+    torch.cuda.synchronize()
+    return (routes, got, again, want, _rel(got.double(), want),
+            _rel(tmpl.double(), want))
+
+
+# (p1, stride, nn, c, d) of every inter layer of both models: cls L1-L6,
+# inv B0L1-B3L1 (one cloud's points; the models' batches only repeat them)
+MODEL_INTER_LAYERS = [
+    (512, 1, 16, 64, 64), (512, 2, 32, 64, 128), (256, 1, 16, 128, 128),
+    (256, 2, 32, 128, 256), (128, 1, 16, 256, 256), (128, 2, 32, 256, 256),
+    (512, 1, 32, 32, 32), (512, 2, 64, 32, 64), (256, 1, 32, 64, 64),
+    (256, 2, 64, 64, 128), (128, 1, 32, 128, 128), (128, 2, 64, 128, 128),
+    (64, 1, 32, 128, 128)]
+
+
+@pytest.mark.parametrize('p1,stride,nn,c,d', MODEL_INTER_LAYERS)
+def test_inter_fwd_f32_kernel_matches_plain(cuda, p1, stride, nn, c, d):
+    """The fp32 CUDA-core W-fused forward (``inter_fwd_f32_kernel``) at
+    every inter layer of both models (b = 2): taken by the wrapper, finite,
+    within 1e-5 (normwise) of the plain version, bitwise equal on a second
+    call (each output sums its 24C terms in one order), and its error
+    against the float64 plain version at most 1.5x the template's on the
+    same inputs."""
+    routes, got, again, want, rel, tmpl_rel = _inter_fwd_f32_case(
+        cuda, 2, p1, stride, nn, c, d, seed=p1 + nn + c + d)
+    assert routes == {'fwd_f32': 2}
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    _conv_close(got, want.float(), 24 * c)
+    assert torch.equal(got, again)
+    assert rel <= 1.5 * tmpl_rel, (rel, tmpl_rel)
+
+
+@pytest.mark.parametrize('b,p1,stride,nn,c,d,shadow', [
+    (1, 2, 2, 16, 64, 256, False),   # one point: 60 rows, the block short
+    (3, 7, 1, 1, 32, 64, False),     # one neighbor
+    (2, 70, 1, 64, 16, 128, True),   # 64 neighbors, one 16-channel chunk
+    (2, 40, 1, 13, 48, 32, False),   # nn not a multiple of 8, 32 columns
+    (2, 40, 2, 16, 32, 96, True),    # three 32-column blocks
+    (1, 30, 1, 16, 16, 512, False),  # two 256-column blocks
+    (2, 50, 1, 16, 256, 256, True)])  # shadow slots at 256 channels
+def test_inter_fwd_f32_kernel_edges(cuda, b, p1, stride, nn, c, d, shadow):
+    """The fp32 CUDA-core forward where the rows leave the last block
+    short, at one and 64 neighbors, at nn off the gather stage, at one
+    channel chunk, at several column blocks and with shadow slots: within
+    1e-5 of the plain version, bitwise equal on a second call, within 1.5x
+    the template's float64 error."""
+    routes, got, again, want, rel, tmpl_rel = _inter_fwd_f32_case(
+        cuda, b, p1, stride, nn, c, d, seed=b + p1 + nn + c, shadow=shadow)
+    assert routes == {'fwd_f32': 2}
+    assert _rel(got, want.float()) <= 1e-5 and torch.equal(got, again)
+    assert rel <= 1.5 * tmpl_rel, (rel, tmpl_rel)
+
+
+@pytest.mark.parametrize('c,d,nn', [(40, 64, 16),   # c % 16 != 0
+                                    (32, 64, 80)])  # nn > 64
+def test_inter_fwd_off_envelope_takes_the_template(cuda, c, d, nn):
+    """fp32 forwards off the CUDA-core kernel's envelope run the SGEMM
+    template ('sgemm'), within 1e-5 of the plain version."""
+    routes, got, _, want, _, _ = _inter_fwd_f32_case(cuda, 2, 100, 1, nn, c,
+                                                     d, seed=c + d + nn)
+    assert routes == {'sgemm': 2}
+    assert _rel(got, want.float()) <= 1e-5
+
+
+def test_inter_fwd_f32_kernel_sass_is_ffma_only(cuda):
+    """The built library's SASS of every instantiation of the fp32
+    CUDA-core W-fused forward holds FFMA and no tensor-core instruction
+    (HMMA, GMMA): full fp32 products, no TF32 (cuobjdump)."""
+    import os
+    import shutil
+    import subprocess
+    build = tkern.inter_conv.build
+    build.library()
+    cuobjdump = shutil.which('cuobjdump') or os.path.join(
+        os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump')
+    sass = subprocess.run([cuobjdump, '-sass', build.lib_path],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            name = line.split('Function :', 1)[1].strip()
+            fn = name if 'inter_fwd_f32_kernel' in name else None
+            if fn:
+                counts[fn] = dict.fromkeys(('FFMA', 'HMMA', 'GMMA'), 0)
+        elif fn:
+            for op in counts[fn]:
+                counts[fn][op] += op in line
+    assert len(counts) == 4, counts          # BN = 256, 128, 64 and 32
+    for c in counts.values():
+        assert c['FFMA'] > 0 and c['HMMA'] == c['GMMA'] == 0, counts

@@ -12,8 +12,9 @@ kernel (``dw_f32_route``) at every fused-route layer, and the fp32
 backward scatter (the fused dTable and the W-off dG) to its CUDA-core
 kernel (``bwd_f32_route``) at every layer of both models, and the fp32
 W-off F to its CUDA-core kernel (``f_f32_route``) at every composed-route
-layer, each wrapper giving its C entry as many arguments as the entry's
-signature holds.
+layer, and the fp32 W-fused forward to its CUDA-core kernel
+(``fwd_f32_route``) at every layer of both models, each wrapper giving its
+C entry as many arguments as the entry's signature holds.
 The kernels themselves are held against their plain versions on the card
 (tests/test_torch_port_gpu.py); the plain versions against the JAX package
 in tests/test_torch_port_bf16_train.py and tests/test_torch_port_inv_bf16.py.
@@ -393,15 +394,17 @@ def test_f_launch_matches_its_entry_signature(dtype, c, route, monkeypatch):
 def test_variant_builds_substitute_text_in_the_source():
     """Each build of ``inter_conv_variants`` replaces text that
     csrc/inter_conv.cu holds (on the card a missing text fails the whole
-    run); the fp32 W-off F's builds text that it holds exactly once."""
+    run); the fp32 W-off F's and the fp32 W-fused forward's builds text
+    that it holds exactly once."""
     from epn_pointcloud_tpu_torch import inter_conv_variants as icv
     with open(icv.SOURCE_PATH) as f:
         src = f.read()
-    for sub in icv.F32_VARIANTS.values():
+    for sub in (*icv.F32_VARIANTS.values(), *icv.FWD_F32_VARIANTS.values()):
         for old, _ in ([] if sub is None else
                        [sub] if isinstance(sub[0], str) else sub):
             assert src.count(old) == 1, old
-    subs = [sub for table in (icv.VARIANTS, icv.F_VARIANTS, icv.F32_VARIANTS)
+    subs = [sub for table in (icv.VARIANTS, icv.F_VARIANTS, icv.F32_VARIANTS,
+                              icv.FWD_F32_VARIANTS)
             for sub in table.values() if sub is not None]
     assert subs
     for sub in subs:
@@ -540,4 +543,113 @@ def test_scatter_launch_matches_its_entry_signature(entry, dtype, c, route,
     (name, args), = calls
     assert len(args) == len(ic.build.SIGNATURES[name])
     assert ic.routes[route] == 1
+    tkern.reset_counts()
+
+
+def _forward_layers(name):
+    """(K, c, d, nn, na) of every W-fused inter forward of the full-width
+    model with a feature table (layer 0's ones input runs the ones conv)."""
+    return [(K, c, d, nn, na) for _, K, c, d, nn, na in _scatter_layers(name)]
+
+
+@pytest.mark.parametrize('name,n_layers', [('cls_so3net_pn', 6),
+                                           ('inv_so3net_pn', 7)])
+def test_every_forward_layer_takes_the_fp32_kernel(name, n_layers):
+    """cls L1-L6 (c 64-256, d 64-256, nn 16 / 32) and inv B0L1-B3L1 (c
+    32-128, d 32-128, nn 32 / 64, B0L1's c = d = 32): the fp32 forward on
+    its CUDA-core kernel (``fwd_f32_route``), never the tensor-core one;
+    bf16 on the tensor-core kernel, never the fp32 one."""
+    layers = _forward_layers(name)
+    assert len(layers) == n_layers
+    ic = tkern.inter_conv
+    for K, c, d, nn, na in layers:
+        assert ic.fwd_f32_route(torch.float32, K, c, d, nn, na), (c, d, nn)
+        assert not ic.mma_route(torch.float32, K, c, d, nn, na)
+        assert not ic.fwd_f32_route(BF16, K, c, d, nn, na)
+        assert ic.mma_route(BF16, K, c, d, nn, na)
+
+
+@pytest.mark.parametrize('K,c,d,nn,na', [(24, 40, 64, 16, 60),
+                                         (24, 24, 32, 16, 60),
+                                         (24, 64, 48, 16, 60),
+                                         (24, 64, 64, 16, 12),
+                                         (24, 64, 64, 65, 60),
+                                         (24, 64, 64, 0, 60),
+                                         (18, 64, 64, 16, 60)])
+def test_fwd_f32_shapes_off_the_envelope_take_the_template(K, c, d, nn, na):
+    """Channels not a multiple of 16, d not a multiple of 32, another group,
+    more than 64 neighbors (or none), another kernel size."""
+    assert not tkern.inter_conv.fwd_f32_route(torch.float32, K, c, d, nn, na)
+
+
+def test_reset_counts_clears_the_forward_routes():
+    ic = tkern.inter_conv
+    ic.routes['fwd_f32'] += 2
+    ic.routes['sgemm'] += 1
+    ic.routes['mma'] += 3
+    tkern.reset_counts()
+    assert ic.routes['fwd_f32'] == ic.routes['sgemm'] == ic.routes['mma'] == 0
+
+
+@pytest.mark.parametrize('name', ['cls_so3net_pn', 'inv_so3net_pn'])
+@pytest.mark.parametrize('dtype,route,entry', [
+    (torch.float32, 'fwd_f32', 'epn_inter_conv_fwd_f32'),
+    (BF16, 'mma', 'epn_inter_conv_mma')])
+def test_forward_counts_the_kernel_of_its_dtype(name, dtype, route, entry,
+                                                monkeypatch):
+    """An InterConvFn forward at every layer of the model (b = 1, 64
+    points) on the card branch: one launch a layer on the CUDA-core kernel
+    in fp32 ('fwd_f32') and the tensor-core kernel in bf16 ('mma'), none on
+    the SGEMM template ('sgemm'), through the route's C entry; the output
+    in the table's type."""
+    launched = _card_shapes(monkeypatch)
+    ic = tkern.inter_conv
+    meta = torch.device('meta')
+    layers = _forward_layers(name)
+    tkern.reset_counts()
+    for K, c, d, nn, na in layers:
+        out = ic.InterConvFn.apply(
+            torch.empty((1, 64, nn, 3), device=meta),
+            torch.empty((1, 64, nn), dtype=torch.int32, device=meta),
+            torch.empty((1, 64, na, c), dtype=dtype, device=meta),
+            torch.empty((na, K, 3), device=meta),
+            torch.empty((K,), device=meta),
+            torch.empty((K, c, d), dtype=dtype, device=meta), 0.1)
+        assert out.dtype == dtype and out.shape == (1, 64, na, d)
+    n = len(layers)
+    assert {k: ic.routes[k] for k in ('mma', 'fwd_f32', 'sgemm')} == {
+        k: n if k == route else 0 for k in ('mma', 'fwd_f32', 'sgemm')}
+    assert ic.launches['inter_conv'] == n
+    assert launched == [entry] * n
+    tkern.reset_counts()
+
+
+@pytest.mark.parametrize('dtype,c,d,route', [
+    (torch.float32, 64, 256, 'fwd_f32'),
+    (torch.float32, 32, 96, 'fwd_f32'),
+    (torch.float32, 40, 64, 'sgemm'),
+    (BF16, 64, 64, 'mma')])
+def test_forward_launch_matches_its_entry_signature(dtype, c, d, route,
+                                                    monkeypatch):
+    """The forward wrapper's card branch gives its C entry as many
+    arguments as the entry's ctypes signature holds, on each route."""
+    _card_shapes(monkeypatch)
+    ic = tkern.inter_conv
+    calls = []
+    monkeypatch.setattr(ic.build, 'launch',
+                        lambda name, *a: calls.append((name, a)))
+    meta = torch.device('meta')
+    b, p2, nn, q, na, K = 2, 64, 16, 128, 60, 24
+    tkern.reset_counts()
+    out = ic.inter_conv(torch.empty((b, p2, nn, 3), device=meta),
+                        torch.empty((b, p2, nn), dtype=torch.int32,
+                                    device=meta),
+                        torch.empty((b, q, na, c), dtype=dtype, device=meta),
+                        torch.empty((na, K, 3), device=meta),
+                        torch.empty((K,), device=meta),
+                        torch.empty((K, c, d), dtype=dtype, device=meta), 0.1)
+    (name, args), = calls
+    assert len(args) == len(ic.build.SIGNATURES[name])
+    assert ic.routes[route] == 1
+    assert out.shape == (b, p2, na, d) and out.dtype == dtype
     tkern.reset_counts()
