@@ -23,7 +23,10 @@ call of phases 2, 6 and 12, and its epn_inter_conv (fp32, the SGEMM
 template) beside this tree's fp32 W-fused inter forward at every call of
 phases 2, 6 and 12; its epn_inter_conv (fp32), epn_inter_conv_bwd_w_f32 and
 epn_inter_conv_f_f32 are also timed beside this tree's same kernels, whose
-F build now runs the shared add_neighbor step, and held to the same bits.
+F build now runs the shared add_neighbor step, and held to the same bits;
+its epn_ones_conv is timed by the device timer beside this tree's ones
+conv at every call of phases 2, 4, 6, 9, 12, 14, 16 and 18, in turns (its
+bits printed as ``parent_equal``, not gated).
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the CUDA kernels from csrc/ (one nvcc a source, in parallel,
@@ -35,8 +38,9 @@ Phases (any failure exits non-zero and prints no result line):
      kernels of the W-fused inter forward (inter_fwd_f32_kernel), the
      fused inter dW (inter_dw_f32_kernel), the backward
      scatter (inter_bwd_f32_kernel), the W-off F (inter_f_f32_kernel),
-     the intra dW (intra_dw_f32_kernel) and the intra forward and df
-     (intra_fwd_f32_kernel) FFMA and no HMMA or GMMA (no TF32);
+     the intra dW (intra_dw_f32_kernel), the intra forward and df
+     (intra_fwd_f32_kernel) and the ones conv (ones_conv_kernel) FFMA and
+     no HMMA or GMMA (no TF32);
   2. at every flagship layer shape of cls_so3net_pn (b=32, 1024 points, 60
      anchors), compare each kernel with its plain PyTorch version on the
      card, on the inputs the model itself gives it (captured from a b=32
@@ -236,6 +240,13 @@ Phases (any failure exits non-zero and prints no result line):
      --compute-dtype bf16 -i 4 --save-freq 4, launch counts, params.json,
      the checkpoint reloaded through -r --compute-dtype bf16.
 
+Every ones conv call (block 0 layer 0: phases 2 and 4 at b=32, the b=12
+steps of phases 6 and 9, the inv steps of phases 12 and 16 and the b=48
+descriptors of phases 14 and 18) is held to ones_conv_plain on its inputs
+(fp32 normwise <= 1e-5, bf16 <= 4e-3), bitwise equal on a second call,
+and in fp32 its error against a float64 evaluation at most 1.5 times the
+plain fp32 version's (``rel_f64``, ``plain_rel_f64``, ``f64_ratio``).
+
 The short kernels (fps, ball_query, the ones conv, moments) are timed
 twice in phases 2, 4, 12 and 16: ``kernel_ms`` by CUDA events around up to
 20 back-to-back wrapper calls (``time_ms``, which for a call of a few
@@ -305,9 +316,12 @@ def work(name, args, out):
         q, sup = args[0], args[1]
         f32 = 9 * q.shape[0] * q.shape[1] * sup.shape[1]
     elif name == 'ones_conv':
+        # a weight (c - h) + gx . a by three fused multiply-adds (6), its
+        # relu (1) and its sum (1); the expansion written out, (|gx|^2 +
+        # |kappa|^2) - 2 gx . R_a kappa_k then 1 - d2 / sigma, is 10
         b, p2, nn, _ = args[0].shape
         na, K = args[1].shape[:2]
-        f32 = 10 * b * p2 * nn * na * K     # a weight and its sum
+        f32 = 8 * b * p2 * nn * na * K
     elif name in ('inter_conv_f', 'inter_conv_dg'):
         # F without W: the anchor weights and the neighbor contraction (dG:
         # its transpose, folded onto the table rows), the contraction on
@@ -511,10 +525,11 @@ TC_KERNELS = ('grouped_conv_mma_kernel', 'grouped_bwd_mma_kernel',
 # the fp32 kernels held to full fp32 products on the CUDA cores: the
 # W-fused inter forward, the fused inter dW, the inter backward scatter
 # (the fused dTable and the W-off dG), the W-off F, the intra dW, the intra
-# forward (and df)
+# forward (and df), the ones conv (both output types)
 FFMA_KERNELS = ('inter_fwd_f32_kernel', 'inter_dw_f32_kernel',
                 'inter_bwd_f32_kernel', 'inter_f_f32_kernel',
-                'intra_dw_f32_kernel', 'intra_fwd_f32_kernel')
+                'intra_dw_f32_kernel', 'intra_fwd_f32_kernel',
+                'ones_conv_kernel')
 
 
 def tensor_core_sass(so):
@@ -755,7 +770,8 @@ def phase_kernels(model, device):
                'bytes_ms': b_ms, 'ops_ms': o_ms,
                **mm_library(name, args), **intra_conv_extras(name, args, got),
                **inter_conv_extras(name, args, got),
-               **sampling_extras(name, args, got), **device_extras(name, args)}
+               **sampling_extras(name, args, got), **device_extras(name, args),
+               **ones_conv_extras(name, args, got)}
         ok = ok and _extras_ok(row)
         row['ok'] = ok
         log(f'[compare] {name} L{layer} ({desc}): max_abs_err={max_err:.3e} '
@@ -1044,6 +1060,7 @@ def phase_bf16_kernels(model, device):
         row.update(grouped_library(name, args))
         row.update(moments_library(name, args))
         row.update(device_extras(name, args))
+        row.update(ones_conv_extras(name, args, got))
         row.update(inter_conv_extras(name, args, got))
         row.update(intra_conv_extras(name, args, got))
         ok = ok and _extras_ok(row)
@@ -1399,6 +1416,97 @@ def sampling_extras(name, args, got):
     return rec
 
 
+def ones_conv_extras(name, args, got):
+    """For a call of the ones conv: whether a second call gives the same
+    bits (``bitwise_repeat``); in fp32 its normwise error and the plain fp32
+    version's against the plain version in float64 (``rel_f64``,
+    ``plain_rel_f64``) and their ratio (``f64_ratio``, gated <=
+    ``f64_limit`` = 1.5). With --parent-csrc also the earlier tree's
+    epn_ones_conv on the same inputs, timed by ``device_ms`` with this
+    tree's in turns (parent, new, new, parent; ``parent_ms``,
+    ``same_timer_ms``), and whether the two give the same bits
+    (``parent_equal``: printed, not gated; the kernel's folded weight
+    rounds otherwise). {} for any other call."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    from epn_pointcloud_tpu_torch.ops.kernels import build
+    if name != 'ones_conv':
+        return {}
+    oc = kernels.ones_conv
+    gx, rk, k2, sigma, dtype = args
+    again = oc.ones_conv(*args)
+    torch.cuda.synchronize()
+    rec = {'bitwise_repeat': torch.equal(got, again)}
+    del again
+    if dtype == torch.float32:
+        want = oc.ones_conv_plain(gx.double(), rk.double(), k2.double(),
+                                  sigma, torch.float64)
+        plain = oc.ones_conv_plain(*args)
+        rec['rel_f64'] = float((got.double() - want).norm() / want.norm())
+        rec['plain_rel_f64'] = float((plain.double() - want).norm()
+                                     / want.norm())
+        rec['f64_ratio'] = rec['rel_f64'] / max(rec['plain_rel_f64'], 1e-30)
+        rec['f64_limit'] = 1.5
+        del want, plain
+    if PARENT:
+        b, p2, nn, _ = gx.shape
+        na, K = rk.shape[:2]
+        outs = (torch.empty_like(got), torch.empty_like(got))
+
+        def call(fn, out):
+            ptrs = (gx.data_ptr(), rk.data_ptr(), k2.data_ptr(),
+                    out.data_ptr(), b, p2, nn, na, K, float(sigma),
+                    int(dtype == torch.bfloat16))
+
+            def run():
+                # the stream at the call: device_ms captures on its own
+                err = fn(*ptrs, build.stream(gx))
+                if err:
+                    raise RuntimeError(f'ones_conv: CUDA error {err}')
+            return run
+        rec['parent_ms'], rec['same_timer_ms'] = time_abba(
+            call(PARENT['ones_conv'], outs[0]),
+            call(build.library().epn_ones_conv, outs[1]), device_ms)
+        torch.cuda.synchronize()
+        rec['parent_equal'] = torch.equal(outs[0], outs[1])
+        del outs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_ones_calls(tag, calls, dtype):
+    """Every ones conv call of ``calls`` (captured (name, args) of a step or
+    forward in ``dtype``) against ``ones_conv_plain`` on its inputs (fp32
+    normwise <= 1e-5, bf16 <= 4e-3), finite, with ``ones_conv_extras``'
+    gates, and timed by ``device_ms``: its rows."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    oc = kernels.ones_conv
+    rows = []
+    with torch.no_grad():
+        for name, args in calls:
+            got, want = oc.ones_conv(*args), oc.ones_conv_plain(*args)
+            torch.cuda.synchronize()
+            tol = 1e-5 if dtype == 'fp32' else 4e-3
+            row = {'shape': _shape_desc(name, args),
+                   'rel_norm_err': rel_err(got, want),
+                   'max_abs_err': float((got.float() - want.float()).abs()
+                                        .max()),
+                   'device_ms': device_ms(lambda: oc.ones_conv(*args)),
+                   **ones_conv_extras(name, args, got)}
+            row['ok'] = (row['rel_norm_err'] <= tol and _extras_ok(row)
+                         and bool(torch.isfinite(got).all()))
+            log(f'{tag} ones_conv L0 ({row["shape"]}): max_abs_err='
+                f'{row["max_abs_err"]:.3e} rel_norm_err='
+                f'{row["rel_norm_err"]:.3e} [rel_norm<={tol:.0e}]'
+                f'{_library_note(row)} {"OK" if row["ok"] else "FAIL"}')
+            rows.append(row)
+            del got, want
+    torch.cuda.empty_cache()
+    assert rows and all(r['ok'] for r in rows), rows
+    return rows
+
+
 def mm_library(name, args):
     """The one-call yardstick of a dW reduction and of the fp32 intra
     forward and df: one torch.mm of its operand formed beforehand
@@ -1487,8 +1595,11 @@ def _library_note(row):
     if 'bitwise_vs_template' in row:
         note += f' bitwise_vs_template={row["bitwise_vs_template"]}'
     if 'f64_ratio' in row:
-        note += (f' rel_f64={row["rel_f64"]:.3e} template_rel_f64='
-                 f'{row["template_rel_f64"]:.3e} [ratio <= '
+        # the error it is held to: the template's (the SGEMM's), or the
+        # plain version's in fp32
+        ref = 'plain' if 'plain_rel_f64' in row else 'template'
+        note += (f' rel_f64={row["rel_f64"]:.3e} {ref}_rel_f64='
+                 f'{row[ref + "_rel_f64"]:.3e} [ratio <= '
                  f'{row.get("f64_limit", 2.0)}]')
     if 'refactor_ms' in row:
         note += (f' refactor_parent_ms={row["refactor_parent_ms"]:.4f} '
@@ -2348,10 +2459,13 @@ def phase_backward_kernels(device, dtype='fp32'):
     model = models.build_model_from(full_opt(), seed=SEED).to(device).train()
     batch = train_batch(device, SEED + (3 if dtype == 'fp32' else 5))
     with compute_dtype(dtype):
-        calls = capture_calls(names,
+        calls = capture_calls(names + ('ones_conv',),
                               lambda: step_loss(model, batch).backward())
     del model
     tag = '[backward]' if dtype == 'fp32' else '[bf16-backward]'
+    # the step's ones conv (its forward's block 0 layer 0), held apart
+    ones = [c for c in calls if c[0] == 'ones_conv']
+    calls = [c for c in calls if c[0] != 'ones_conv']
     n_calls = {n: sum(1 for c in calls if c[0] == n) for n in names}
     seen = dict.fromkeys(names, 0)
     results = {n: [] for n in names}
@@ -2386,7 +2500,10 @@ def phase_backward_kernels(device, dtype='fp32'):
             failures.append(f'{name} {layer}')
         del got
     torch.set_grad_enabled(True)
+    results['ones_conv_train'] = check_ones_calls(tag, ones, dtype)
     per_step = TRAIN_PER_STEP if dtype == 'fp32' else BF16_TRAIN_PER_STEP
+    if len(ones) != per_step['ones_conv']:
+        failures.append(f'{dtype} step ones conv calls {len(ones)}')
     # the fp32 intra df runs the forward intra kernel: 7 of its 14 launches
     expect = {n: 7 if n == 'intra_conv_df' else per_step[n] for n in names}
     if n_calls != expect:
@@ -2816,6 +2933,7 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
             row.update(moments_library(name, args))
             row.update(device_extras(name, args))
             row.update(sampling_extras(name, args, got[0]))
+            row.update(ones_conv_extras(name, args, got[0]))
             row.update(mm_library(name, args))
             row.update(inter_conv_extras(name, args, got[0]))
             row.update(intra_conv_extras(name, args, got))
@@ -3119,6 +3237,10 @@ def phase_inv_descriptor(device, root, reps=5):
     x = torch.cat([src, tgt])[:INV_DESC_BATCH].contiguous()
     model = inv_model(device).eval()
     inter_rows = check_inv_desc_inter(model, x)
+    with torch.no_grad():
+        ones = capture_calls(('ones_conv',), lambda: model(x))
+    ones_rows = check_ones_calls('[inv-descriptor]', ones, 'fp32')
+    del ones
 
     def plain_fwd():
         with kernels.plain():
@@ -3144,7 +3266,7 @@ def phase_inv_descriptor(device, root, reps=5):
     torch.cuda.empty_cache()
     return {'max_abs_err': err, 'kernel_ms': k_ms, 'plain_ms': p_ms,
             'kernel_runs_ms': k_ts, 'plain_runs_ms': p_ts,
-            'inter_forward': inter_rows}
+            'inter_forward': inter_rows, 'ones_conv': ones_rows}
 
 
 def phase_inv_train_entry(root, dtype='fp32'):
@@ -3277,6 +3399,9 @@ def phase_inv_bf16_descriptor(device, root, reps=5):
         with kernels.plain():
             return model(x)[0]
     with torch.no_grad(), compute_dtype('bf16'):
+        ones = capture_calls(('ones_conv',), lambda: model(x))
+        ones_rows = check_ones_calls('[inv-bf16-descriptor]', ones, 'bf16')
+        del ones
         yk, yp = model(x)[0], plain_fwd()
         yq = model(x * (1 + 1e-6))[0]
         torch.cuda.synchronize()
@@ -3302,7 +3427,7 @@ def phase_inv_bf16_descriptor(device, root, reps=5):
     torch.cuda.empty_cache()
     return {'min_cos': cos, 'noise_min_cos': floor, 'gate': gate,
             'kernel_ms': k_ms, 'plain_ms': p_ms, 'kernel_runs_ms': k_ts,
-            'plain_runs_ms': p_ts}
+            'plain_runs_ms': p_ts, 'ones_conv': ones_rows}
 
 
 # the fp32 CUDA-core kernels of the inter forward and backward and the
@@ -3322,6 +3447,7 @@ F32_KERNELS = {
 # entries, as PARENT's keys
 PARENT_SOURCES = {'fps.cu': {'fps': 'epn_fps'},
                   'ball_query.cu': {'ball_query': 'epn_ball_query'},
+                  'ones_conv.cu': {'ones_conv': 'epn_ones_conv'},
                   'inter_conv.cu': {'fn': 'epn_inter_conv_mma',
                                     'f': 'epn_inter_conv_f',
                                     'fwd': 'epn_inter_conv',
@@ -3360,8 +3486,8 @@ def main(argv=None):
                     'W-fused inter forward, W-off F, prenorm intra forward, '
                     'B6 df, fused dTable, W-off dG, fused dW and B6 dW, and '
                     'its fp32 W-fused inter forward, fused dTable, W-off dG, '
-                    "fused dW, W-off F, intra forward, df and dW, timed "
-                    "beside this tree's")
+                    "fused dW, W-off F, intra forward, df and dW, its fps, "
+                    "ball query and ones conv, timed beside this tree's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():

@@ -11,6 +11,11 @@ neighbor contraction is the anchor-weight sum). Coordinates and sums are
 fp32; F is written in the compute dtype. F depends on the coordinates only,
 so no gradient flows through it (the TPU kernel's VJP is zero): the learned
 [K, d] product that follows runs under autograd outside.
+
+The kernel (``ones_conv_kernel`` in csrc/ones_conv.cu) folds each weight
+to (1 - |kappa_k|^2 / sigma - |gx|^2 / sigma) + gx . (2 R_a kappa_k / sigma)
+clamped to [0, 1], so its F rounds otherwise than the plain version's
+expansion; both are fp32 sums in neighbor order.
 """
 
 from __future__ import annotations
@@ -27,6 +32,10 @@ ENTRIES = {
                   'epn_pointcloud_tpu/ops/pallas/ones_conv.py:247'),
 }
 launches = dict.fromkeys(ENTRIES, 0)
+# the kernel stages at least one point's neighbors (16 bytes each) in 227 KB
+# of shared memory, and a block's threads are a multiple of K, at most 512
+MAX_NN = 227 * 1024 // 16
+MAX_K = 512
 
 
 def ones_conv_plain(gx: torch.Tensor, rk: torch.Tensor, k2: torch.Tensor,
@@ -55,11 +64,11 @@ def ones_conv(gx: torch.Tensor, rk: torch.Tensor, k2: torch.Tensor,
         'gx': (gx, torch.float32, (b, p2, nn, 3)),
         'rk': (rk, torch.float32, (na, K, 3)),
         'k2': (k2, torch.float32, (K,))})
-    # the kernel stages 8 points' neighbors (16 bytes each) in shared memory
-    if nn < 1 or nn * 8 * 16 > 227 * 1024 or b * p2 * na * K >= 2 ** 31:
-        raise ValueError(f'ones_conv: kernel needs 1 <= nn <= 1816 and '
-                         f'b*p2*na*K < 2^31; got b={b} p2={p2} nn={nn} '
-                         f'na={na} K={K}')
+    if not (1 <= nn <= MAX_NN and 1 <= K <= MAX_K and na >= 1
+            and b * p2 * na * K < 2 ** 31):
+        raise ValueError(f'ones_conv: kernel needs 1 <= nn <= {MAX_NN}, '
+                         f'1 <= K <= {MAX_K} and b*p2*na*K < 2^31; got b={b} '
+                         f'p2={p2} nn={nn} na={na} K={K}')
     bf16 = build.dtype_flag(dtype, 'ones_conv')
     out = torch.empty((b, p2, na, K), dtype=dtype, device=dev)
     launches['ones_conv'] += 1

@@ -2,7 +2,7 @@
 (marked ``gpu``; each test skips where there is no CUDA device): the forward
 kernels, the backward kernels (inter dTable / dW, intra df / dW) at a small
 and a flagship shape, the autograd Functions' launches, and the production
-mode's kernels in bf16 (ones conv, moments, grouped conv and its fused tail,
+mode's kernels in bf16 (moments, grouped conv and its fused tail,
 the prenorm intra conv, the bf16 inter conv) with their shape refusals, and
 the production-mode backward kernels (the prenorm intra df / dss / dW,
 the grouped conv's dx / dW / dbias in one launch and apart, the bf16
@@ -29,7 +29,12 @@ template's), their determinism, and the template off their envelopes;
 the fp32 W-fused inter forward on the CUDA cores at every inter layer of
 both models and at its edges, its determinism and its float64 error
 against the template's, the template off its envelope, and the kernel's
-SASS (FFMA, no tensor-core instruction).
+SASS (FFMA, no tensor-core instruction);
+the ones conv in fp32 and bf16 at both models' layer-0 shapes and at its
+edges (one neighbor, neighbor counts off the unroll and past 1816, point
+and lane counts that leave a block or a pass part full, shadow neighbors
+whose weights are exactly 0), its determinism, its float64 error against
+the plain version's, and its refusals.
 
 Run on a machine with the card:
   python -m pytest tests/test_torch_port_gpu.py -q -m gpu --noconftest
@@ -419,22 +424,94 @@ def _rand(rng, shape, device, dtype=torch.float32, scale=1.0):
         np.float32)).to(device=device, dtype=dtype)
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, BF16])
-def test_ones_conv_kernel_matches_plain(cuda, dtype):
-    """The anchor-weight sum: fp32 F to a normwise 1e-5, bf16 F to 4e-3."""
+# (b, p2, nn, na, K): random neighbors in a ball of radius 0.3, sigma 0.02
+ONES_EDGES = {
+    'nn1': (2, 40, 1, 60, 24),
+    'nn_odd': (2, 40, 37, 60, 24),      # nn not a multiple of the unroll
+    'pts_odd': (1, 37, 32, 60, 24),     # b * p2 not a multiple of a group
+    'nn_wide': (1, 5, 2000, 60, 24),    # past the earlier kernel's 1816
+    'lanes_odd': (2, 16, 9, 7, 5),      # L = 35: the last pass part full
+    'one_anchor': (2, 16, 8, 1, 24),    # L = K: four idle passes a thread
+    'lanes_many': (1, 6, 8, 60, 48),    # L = 2880 > 5 * 512: two lane groups
+}
+
+
+def _ones_model_operands(cuda, model, b):
+    """Layer 0 of a model (cls_so3net_pn: radius 0.2, sigma 0.02, nn 32;
+    inv_so3net_pn: 0.08, 0.0032, 64; stride 2 from 1024 points): gx, rk,
+    k2 and sigma from a ball query over random points in the unit ball
+    (inv: a ball of radius 0.4)."""
+    radius, sigma, nn, scale = {'cls': (0.2, 0.02, 32, 1.0),
+                                'inv': (0.08, 0.0032, 64, 0.4)}[model]
     rng = np.random.RandomState(1)
-    x = torch.from_numpy(_ball_points(rng, 2, 256)).to(cuda)
-    kern = torch.from_numpy(tkp.get_spherical_kernel_points(0.28, 1)).to(cuda)
+    x = torch.from_numpy(scale * _ball_points(rng, b, 1024)).to(cuda)
+    kern = torch.from_numpy(tkp.get_spherical_kernel_points(
+        tkp.KERNEL_CONDENSE_RATIO * radius, 1)).to(cuda)
     rk, k2 = tso3.rotated_kernels(torch.from_numpy(tico.get_anchors(60))
                                   .to(cuda), kern)
-    gx, _, _, _ = tso3.sampling.inter_grouping_ball(x, 2, 0.4, 32)
-    gx = gx.contiguous()
-    got = tkern.ones_conv.ones_conv(gx, rk, k2, 0.08, dtype)
+    gx, _, _, _ = tso3.sampling.inter_grouping_ball(x, 2, radius, nn)
+    return gx.contiguous(), rk, k2, sigma
+
+
+@pytest.mark.parametrize('case', ['cls', 'inv', *ONES_EDGES])
+@pytest.mark.parametrize('dtype', [torch.float32, BF16])
+def test_ones_conv_kernel_matches_plain(cuda, dtype, case):
+    """The anchor-weight sum: fp32 F to a normwise 1e-5, bf16 F to 4e-3, at
+    the models' layer-0 shapes (fp32: its float64 error at most 1.5x the
+    plain fp32 version's) and at the kernel's edges; bitwise equal on a
+    second call. Every point also has shadow neighbors far outside the
+    ball (100 away), whose weights are exactly 0, and one point has no
+    other: its F is exactly 0."""
+    if case in ('cls', 'inv'):
+        gx, rk, k2, sigma = _ones_model_operands(cuda, case, 2)
+    else:
+        b, p2, nn, na, K = ONES_EDGES[case]
+        rng = np.random.RandomState(nn + na * K)
+        gx = torch.from_numpy(0.3 * _ball_points(rng, b, p2 * nn)).reshape(
+            b, p2, nn, 3).to(cuda)
+        kern = _rand(rng, (K, 3), cuda, scale=0.1)
+        anchors = torch.from_numpy(tico.get_anchors(60)[:na]).to(cuda)
+        rk, k2 = tso3.rotated_kernels(anchors, kern)
+        sigma = 0.02
+    b, p2, nn, _ = gx.shape
+    na, K = rk.shape[:2]
+    gx = gx.clone()
+    gx[:, :, nn // 2:] = torch.where(gx[:, :, nn // 2:, :1] >= 0, 100.0,
+                                     gx[:, :, nn // 2:])
+    gx[0, 0] = 100.0
+    got = tkern.ones_conv.ones_conv(gx, rk, k2, sigma, dtype)
+    again = tkern.ones_conv.ones_conv(gx, rk, k2, sigma, dtype)
     torch.cuda.synchronize()
-    want = tkern.ones_conv.ones_conv_plain(gx, rk, k2, 0.08, dtype)
-    assert got.dtype == dtype and got.shape == (2, 128, 60, 24)
+    want = tkern.ones_conv.ones_conv_plain(gx, rk, k2, sigma, dtype)
+    assert got.dtype == dtype and got.shape == (b, p2, na, K)
+    assert torch.equal(got, again)
+    assert torch.count_nonzero(got[0, 0]) == 0
     assert _rel(got.float(), want.float()) <= (1e-5 if dtype ==
                                                torch.float32 else 4e-3)
+    if case in ('cls', 'inv') and dtype == torch.float32:
+        w64 = tkern.ones_conv.ones_conv_plain(gx.double(), rk.double(),
+                                              k2.double(), sigma,
+                                              torch.float64)
+        assert _rel(got.double(), w64) <= 1.5 * _rel(want.double(), w64)
+
+
+def test_ones_conv_refuses_what_the_kernel_does_not_take(cuda):
+    """nn past one point's neighbors in shared memory, K past a block."""
+    rk, k2 = torch.zeros(2, 4, 3, device=cuda), torch.zeros(4, device=cuda)
+    too_wide = tkern.ones_conv.MAX_NN + 1
+    with pytest.raises(ValueError):
+        tkern.ones_conv.ones_conv(torch.zeros(1, 1, too_wide, 3,
+                                              device=cuda), rk, k2, 0.1)
+    K = tkern.ones_conv.MAX_K + 1
+    with pytest.raises(ValueError):
+        tkern.ones_conv.ones_conv(torch.zeros(1, 1, 4, 3, device=cuda),
+                                  torch.zeros(1, K, 3, device=cuda),
+                                  torch.zeros(K, device=cuda), 0.1)
+    full = tkern.ones_conv.ones_conv(
+        torch.zeros(1, 1, tkern.ones_conv.MAX_NN, 3, device=cuda), rk, k2,
+        0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(full, torch.full_like(full, tkern.ones_conv.MAX_NN))
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, BF16])

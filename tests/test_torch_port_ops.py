@@ -182,3 +182,83 @@ def test_plain_switch_routes_to_plain_versions():
                               'intra_conv_prenorm_dw': 0,
                               'moments': 0, 'grouped_conv': 0,
                               'grouped_conv_tail': 0, 'grouped_conv_bwd': 0}
+
+
+def _fma32(a, b, c):
+    """a * b + c in float32 rounded once (the product of two float32 values
+    is exact in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _ones_conv_folded(gx, rk, k2, sigma):
+    """The ones conv kernel's arithmetic (csrc/ones_conv.cu) in torch
+    float32: a = R_a kappa_k * (2 / sigma) and c = 1 - |kappa_k|^2 / sigma a
+    lane, h = |gx|^2 / sigma a neighbor, the weight (c - h) + gx . a by
+    three fused multiply-adds, the last clamped to [0, 1], summed over the
+    neighbors in order."""
+    inv = 1.0 / torch.tensor(sigma, dtype=torch.float32)
+    a = rk * (2.0 * inv)
+    c = _fma32(-k2, inv, torch.ones(()))
+    x, y, z = gx.unbind(-1)
+    h = _fma32(z, z, _fma32(y, y, x * x)) * inv
+    b, p2, nn, _ = gx.shape
+    acc = torch.zeros(b, p2, *rk.shape[:2])
+    for n in range(nn):
+        at = [v[:, :, n, None, None] for v in (x, y, z)]
+        s = _fma32(at[0], a[..., 0], c - h[:, :, n, None, None])
+        s = _fma32(at[1], a[..., 1], s)
+        acc = acc + _fma32(at[2], a[..., 2], s).clamp(0.0, 1.0)
+    return acc
+
+
+@pytest.mark.parametrize('model', ['cls_so3net_pn', 'inv_so3net_pn'])
+def test_ones_conv_folded_weight_matches_plain(model):
+    """The kernel's folded weight on the model's layer-0 geometry (radius,
+    sigma and neighbors from its block parameters, 60 anchors, 24 kernel
+    points, stride 2 from 1024 points; inv: patches of radius 0.4): within
+    a normwise 1e-5 of ones_conv_plain, and its error against a float64
+    evaluation at most 1.5x the plain version's."""
+    from epn_pointcloud_tpu_torch import models, run_3dmatch
+    from epn_pointcloud_tpu_torch.app import config
+    from epn_pointcloud_tpu_torch.ops import so3conv as tso3
+    opt = config.parse_args(['experiment', '-d', 'unused'])
+    if model == 'inv_so3net_pn':
+        opt = run_3dmatch.config_opt_3dmatch(opt)
+    opt.model.model, opt.model.flag = model, 'attention'
+    layer0 = models.build_model_from(opt, seed=None).params['backbone'][0][0]
+    radius, sigma = layer0['args']['radius'], layer0['args']['sigma']
+    scale = 1.0 if model == 'cls_so3net_pn' else opt.model.search_radius
+    x = torch.from_numpy(scale * _ball_points(np.random.RandomState(11), 1,
+                                              1024))
+    kern = torch.from_numpy(tkp.get_spherical_kernel_points(
+        tkp.KERNEL_CONDENSE_RATIO * radius, 1))
+    rk, k2 = tso3.rotated_kernels(torch.from_numpy(tico.get_anchors(60)),
+                                  kern)
+    gx = tsamp.inter_grouping_ball(x, 2, radius,
+                                   layer0['args']['n_neighbor'])[0]
+    gx = gx.contiguous()
+    got = _ones_conv_folded(gx, rk, k2, sigma)
+    want = tkern.ones_conv.ones_conv_plain(gx, rk, k2, sigma)
+    w64 = tkern.ones_conv.ones_conv_plain(gx.double(), rk.double(),
+                                          k2.double(), sigma, torch.float64)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+    assert got.shape == (1, 512, 60, 24)
+    assert rel(got, want) <= 1e-5
+    assert rel(got, w64) <= 1.5 * rel(want, w64)
+
+
+def test_ones_conv_variant_builds_substitute_text_in_the_source():
+    """Each build of ``ones_conv_variants`` replaces text that
+    csrc/ones_conv.cu holds exactly once (on the card a missing text fails
+    the whole run)."""
+    import os
+    from epn_pointcloud_tpu_torch import ones_conv_variants as ocv
+    with open(os.path.join(ocv.build.CSRC_DIR, 'ones_conv.cu')) as f:
+        src = f.read()
+    subs = [sub for sub in ocv.VARIANTS.values() if sub is not None]
+    assert subs
+    for sub in subs:
+        for old, _ in ocv._pairs(sub):
+            assert src.count(old) == 1, old
