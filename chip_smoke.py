@@ -239,6 +239,37 @@ Phases (any failure exits non-zero and prints no result line):
  19. [inv-bf16-train-entry] the main path: run_3dmatch --run-mode train
      --compute-dtype bf16 -i 4 --save-freq 4, launch counts, params.json,
      the checkpoint reloaded through -r --compute-dtype bf16.
+ 20. [reg-kernels] the rotation model reg_so3net at full width (fp32,
+     b=8 alignment pairs from the port's alignment loader on synthetic
+     asymmetric airplanes: one forward of 16 clouds): each kernel call of
+     one train step against its plain version, timed, with phase 12's
+     checks; its launches by kernel printed, every one on its CUDA-core
+     kernel;
+ 21. [reg-forward] the eval pair forward at b=8 on the kernel and the
+     plain path: confidence and y to rtol 1e-3, atol 2e-3, timed (median
+     of 5) as pairs a second;
+ 22. [reg-train] one reg step on both paths: loss to rtol 1e-5, every
+     parameter with a gradient, the per-leaf rule (degenerate leaves from a
+     float64 step, two pairs at a time), timed; 10 Adam steps lower the
+     loss;
+ 23. [reg-bf16] the bf16 forward (per-pair cosine of confidence and y >=
+     0.999, or the noise floor less 0.01) and step (the rule of
+     [inv-bf16-train]) of the reg model, with peak memory, timed;
+ 24. [reg-entry] run_modelnet_rotation --run-mode train -i 4 --save-freq
+     4 in fp32 and in bf16 (a main path of this slice), launch counts by
+     kernel, params.json; then --run-mode eval -r: the same weights, its
+     launches, a finite median angular error (working directory under
+     build/);
+ 25. [3dmatch-eval-entry] run_3dmatch --run-mode eval -r on phase 15's
+     checkpoint (fp32) and phase 19's (--compute-dtype bf16) over a
+     synthetic scene of 3 fragments of 384 keypoints, 192 patches a
+     forward (the JAX package's eval chunk): features, recall.txt and
+     recall.csv written, launch counts; every kernel call of one chunk of
+     192 against its plain version, the chunk's descriptors kernel vs
+     plain path (fp32 rtol 1e-3, atol 2e-3; bf16 per-patch cosine >=
+     0.999); the host seconds beside the forward's and the device's.
+
+Every phase prints its wall time (``[phase] phase wall S s``).
 
 Every ones conv call (block 0 layer 0: phases 2 and 4 at b=32, the b=12
 steps of phases 6 and 9, the inv steps of phases 12 and 16 and the b=48
@@ -292,6 +323,19 @@ PEAK_FP32, PEAK_BF16, HBM_BYTES_S = 67e12, 989e12, 3.35e12
 
 def log(msg):
     print(msg, flush=True)
+
+
+# each phase's wall seconds, by its tag
+PHASE_WALL = {}
+
+
+def timed(tag, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its wall time logged and kept in PHASE_WALL."""
+    t0 = time.time()
+    out = fn(*args, **kwargs)
+    PHASE_WALL[tag] = time.time() - t0
+    log(f'{tag} phase wall {PHASE_WALL[tag]:.1f} s')
+    return out
 
 
 def _nbytes(ts):
@@ -2394,16 +2438,12 @@ def train_tol(name, dtype):
     return lambda out: 8e-3 if out.dtype == torch.bfloat16 else 1e-3
 
 
-def check_call(kern_fn, plain_fn, args, pargs, tol):
-    """A kernel call against its plain version on the same inputs, each
-    output against its counterpart (``tol(output)``: the bound on its
-    normwise relative error, or None for equality), then both timed
-    (median of 5 after 2 warm calls): (the kernel's outputs, a row)."""
+def compare_outputs(got, want, tol):
+    """(per-output errors, all within bounds) of a kernel call's outputs
+    against its plain version's: ``tol(output)`` is the bound on the
+    normwise relative error, or None for equality (the index difference
+    is the error)."""
     import torch
-    got, want = kern_fn(*args), plain_fn(*pargs)
-    torch.cuda.synchronize()
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
     rels, ok = [], True
     for g, w in zip(got, want):
         t = tol(g)
@@ -2414,6 +2454,20 @@ def check_call(kern_fn, plain_fn, args, pargs, tol):
             rels.append(rel_err(g, w))
             ok = ok and g.dtype == w.dtype and g.shape == w.shape and \
                 rels[-1] <= t and bool(torch.isfinite(g).all())
+    return rels, ok
+
+
+def check_call(kern_fn, plain_fn, args, pargs, tol):
+    """A kernel call against its plain version on the same inputs, each
+    output against its counterpart (``tol(output)``: the bound on its
+    normwise relative error, or None for equality), then both timed
+    (median of 5 after 2 warm calls): (the kernel's outputs, a row)."""
+    import torch
+    got, want = kern_fn(*args), plain_fn(*pargs)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    rels, ok = compare_outputs(got, want, tol)
     row = {'max_abs_err': max(float((g.float() - w.float()).abs().max())
                               for g, w in zip(got, want)),
            'rel_norm_err': max(rels), 'rels': rels, 'ok': ok,
@@ -2866,53 +2920,43 @@ def inv_loss(model, legs):
     return losses.triplet_batch_loss(ys, yt, 'soft', 1.0)[0]
 
 
-def _inv_layer(name, i):
-    """'<layer>#<leg>' of the i-th call of ``name`` in one step (the two
-    legs' forwards in turn, then the backward, which runs from the last
-    layer down, a leg at a time)."""
+def _step_layer(name, i, layers=INV_LAYERS, composed=INV_COMPOSED,
+                fused=INV_FUSED, moments=INV_MOMENTS):
+    """'<layer>#<forward>' of the i-th call of ``name`` in one step of a
+    model with ``layers`` (the inv model's by default; its backward
+    composed at ``composed``, fused at ``fused``): the forwards (the inv
+    step's two legs) in turn, then the backward, which runs from the last
+    layer down, a forward at a time."""
     per_leg = {'fps': ('B0L0',), 'ones_conv': ('B0L0',),
-               'ball_query': INV_LAYERS, 'intra_conv': INV_LAYERS,
-               'intra_conv_prenorm': INV_LAYERS, 'moments': INV_MOMENTS,
-               'inter_conv': INV_LAYERS[1:], 'grouped_conv': INV_LAYERS[1:],
-               'intra_conv_df': INV_LAYERS[::-1],
-               'intra_conv_dw': INV_LAYERS[::-1],
-               'intra_conv_prenorm_df': INV_LAYERS[::-1],
-               'intra_conv_prenorm_dw': INV_LAYERS[::-1],
-               'grouped_conv_bwd': INV_LAYERS[:0:-1],
-               'inter_conv_f': INV_COMPOSED[::-1],
-               'inter_conv_dg': INV_COMPOSED[::-1],
-               'dw_product': INV_COMPOSED[::-1],
-               'inter_conv_dtable': INV_FUSED[::-1],
-               'inter_conv_dw': INV_FUSED[::-1]}[name]
+               'ball_query': layers, 'intra_conv': layers,
+               'intra_conv_prenorm': layers, 'moments': moments,
+               'inter_conv': layers[1:], 'grouped_conv': layers[1:],
+               'intra_conv_df': layers[::-1],
+               'intra_conv_dw': layers[::-1],
+               'intra_conv_prenorm_df': layers[::-1],
+               'intra_conv_prenorm_dw': layers[::-1],
+               'grouped_conv_bwd': layers[:0:-1],
+               'inter_conv_f': composed[::-1],
+               'inter_conv_dg': composed[::-1],
+               'dw_product': composed[::-1],
+               'inter_conv_dtable': fused[::-1],
+               'inter_conv_dw': fused[::-1]}[name]
     return f'{per_leg[i % len(per_leg)]}#{i // len(per_leg)}'
 
 
-def phase_inv_kernels(device, legs, dtype='fp32'):
-    """[inv-kernels], [inv-bf16-kernels] Each kernel call of one inv triplet
-    step (b=16 a leg) in ``dtype`` against its plain version on the same
-    inputs, timed, by ``train_tol``: fps and ball_query indices equal; fp32
-    normwise <= 1e-5 (the forward kernels, intra df, dTable, F and dT by
-    atomics), <= 1e-4 for the dW reductions; bf16 <= 8e-3 for bf16 outputs,
-    <= 1e-3 for fp32 ones. fp32: then, at B1L0, B2L0 and B3L0, the composed
-    backward route (dF product, inter_conv_dg, inter_conv_f, dW product)
-    timed beside the fused dTable + dW on the same operands (printed, not
-    gated). bf16: the composed route's dW product against its float64
-    product at each composed layer (``inv_dw_product_row``)."""
+def check_step_calls(tag, calls, names, dtype, layer_of=_step_layer):
+    """Each captured kernel call of a train step (``calls``) against its
+    plain version on the same inputs, timed, by ``train_tol``, with the
+    extras of its kernel (phase 12's checks); the composed route's bf16 dW
+    product against float64 (``inv_dw_product_row``). Returns (rows by
+    name, the calls that failed, the calls by name)."""
     import torch
-    fp32 = dtype == 'fp32'
-    names = INV_NAMES if fp32 else INV_BF16_NAMES + ('dw_product',)
-    tag = '[inv-kernels]' if fp32 else '[inv-bf16-kernels]'
-    model = inv_model(device).train()
-    with compute_dtype(dtype):
-        calls = capture_calls(names, lambda: inv_loss(model, legs).backward())
-    del model
     n_calls = {n: sum(1 for c in calls if c[0] == n) for n in names}
     seen = dict.fromkeys(names, 0)
     results = {n: [] for n in names}
     failures = []
-    torch.set_grad_enabled(False)
     for name, args in calls:
-        layer = _inv_layer(name, seen[name])
+        layer = layer_of(name, seen[name])
         seen[name] += 1
         if name == 'dw_product':
             row = inv_dw_product_row(layer, *args)
@@ -2954,6 +2998,48 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
         results[name].append(row)
         if not row['ok']:
             failures.append(f'{name} {layer}')
+    return results, failures, n_calls
+
+
+def check_fp32_step_rows(tag, results, expect, per_step):
+    """phase 12's checks of the fp32 CUDA-core kernels over one step's
+    rows (``check_fp32_rows``); the intra df's rows then join the intra
+    forward's."""
+    check_fp32_rows(tag, results['inter_conv_dw'], per_step['inter_conv_dw'])
+    check_fp32_rows(tag, results['intra_conv_dw'], per_step['intra_conv_dw'],
+                    'intra dW', 'torch.mm(A^T, dout)', 1.5)
+    for name, what, mm in (('intra_conv', 'intra forward', 'torch.mm(A, W)'),
+                           ('intra_conv_df', 'intra df',
+                            'torch.mm(A_inv, W^T)')):
+        check_fp32_rows(tag, results[name], expect[name], what, mm, 1.5,
+                        'fwd_f32', 1e-5)
+    check_fp32_rows(tag, results['inter_conv'], expect['inter_conv'],
+                    'inter forward', INTER_YARD, 1.5, 'fwd_f32', 1e-5,
+                    'composed_ms')
+    results['intra_conv'] += results.pop('intra_conv_df')
+
+
+def phase_inv_kernels(device, legs, dtype='fp32'):
+    """[inv-kernels], [inv-bf16-kernels] Each kernel call of one inv triplet
+    step (b=16 a leg) in ``dtype`` against its plain version on the same
+    inputs, timed, by ``train_tol``: fps and ball_query indices equal; fp32
+    normwise <= 1e-5 (the forward kernels, intra df, dTable, F and dT by
+    atomics), <= 1e-4 for the dW reductions; bf16 <= 8e-3 for bf16 outputs,
+    <= 1e-3 for fp32 ones. fp32: then, at B1L0, B2L0 and B3L0, the composed
+    backward route (dF product, inter_conv_dg, inter_conv_f, dW product)
+    timed beside the fused dTable + dW on the same operands (printed, not
+    gated). bf16: the composed route's dW product against its float64
+    product at each composed layer (``inv_dw_product_row``)."""
+    import torch
+    fp32 = dtype == 'fp32'
+    names = INV_NAMES if fp32 else INV_BF16_NAMES + ('dw_product',)
+    tag = '[inv-kernels]' if fp32 else '[inv-bf16-kernels]'
+    model = inv_model(device).train()
+    with compute_dtype(dtype):
+        calls = capture_calls(names, lambda: inv_loss(model, legs).backward())
+    del model
+    torch.set_grad_enabled(False)
+    results, failures, n_calls = check_step_calls(tag, calls, names, dtype)
     routes = inv_route_times(calls, device) if fp32 else None
     torch.set_grad_enabled(True)
     per_step = INV_PER_STEP if fp32 else INV_BF16_PER_STEP
@@ -2969,21 +3055,7 @@ def phase_inv_kernels(device, legs, dtype='fp32'):
         raise AssertionError(f'{dtype} inv kernel comparisons failed: '
                              f'{failures}')
     if fp32:
-        check_fp32_rows(tag, results['inter_conv_dw'],
-                        per_step['inter_conv_dw'])
-        check_fp32_rows(tag, results['intra_conv_dw'],
-                        per_step['intra_conv_dw'], 'intra dW',
-                        'torch.mm(A^T, dout)', 1.5)
-        for name, what, mm in (('intra_conv', 'intra forward',
-                                'torch.mm(A, W)'),
-                               ('intra_conv_df', 'intra df',
-                                'torch.mm(A_inv, W^T)')):
-            check_fp32_rows(tag, results[name], expect[name], what, mm, 1.5,
-                            'fwd_f32', 1e-5)
-        check_fp32_rows(tag, results['inter_conv'], expect['inter_conv'],
-                        'inter forward', INTER_YARD, 1.5, 'fwd_f32', 1e-5,
-                        'composed_ms')
-        results['intra_conv'] += results.pop('intra_conv_df')
+        check_fp32_step_rows(tag, results, expect, per_step)
     return results, routes
 
 
@@ -3275,7 +3347,8 @@ def phase_inv_train_entry(root, dtype='fp32'):
     --compute-dtype ``dtype`` -i 4 --save-freq 4 on the synthetic tree;
     finite logged losses, each kernel's launch count risen by its per-step
     count, params.json written; the checkpoint reloaded through -r in the
-    same dtype, every tensor equal."""
+    same dtype, every tensor equal. Returns (launches, wall, the
+    checkpoint)."""
     import torch
     from epn_pointcloud_tpu_torch import run_3dmatch
     from epn_pointcloud_tpu_torch.ops import kernels, so3conv
@@ -3324,7 +3397,7 @@ def phase_inv_train_entry(root, dtype='fp32'):
     log(f'{tag} params.json written; checkpoint {os.path.basename(ckpt)} '
         f'reloaded through -r --compute-dtype {dtype}: all '
         f'{len(trainer.model.state_dict())} tensors equal')
-    return counts, wall
+    return counts, wall, ckpt
 
 
 def inv_dw_product_row(layer, F2, dout2):
@@ -3430,6 +3503,620 @@ def phase_inv_bf16_descriptor(device, root, reps=5):
             'plain_runs_ms': p_ts, 'ones_conv': ones_rows}
 
 
+# --------------------------------------- reg_so3net (ModelNet rotation)
+
+REG_DIR = os.path.join(ROOT, 'build', 'chip_smoke_reg')
+REG_BATCH = 8           # alignment pairs a step: the rotation entry's b
+REG_LAYERS = ('B0L0', 'B0L1', 'B1L0', 'B1L1', 'B2L0', 'B2L1', 'B3L0')
+# the inter layers with a feature table whose backward composes (c <= 32
+# or nn > 32: 32->32 nn 32, 32->64, 64->128 and 128->256 at nn 64) and
+# those that keep the fused dTable / dW (64->64, 128->128 at nn 32)
+REG_COMPOSED = ('B0L1', 'B1L0', 'B2L0', 'B3L0')
+REG_FUSED = ('B1L1', 'B2L1')
+# kernel launches of one eval forward of the pair model (2 * b clouds in
+# one batch): fps, 7 ball queries, the ones conv at B0L0, the W-fused inter
+# conv at the other 6 layers, the intra conv at all 7
+REG_EVAL = {**_NO_BF16, **_NO_WOFF, 'fps': 1, 'ball_query': 7,
+            'ones_conv': 1, 'inter_conv': 6, 'inter_conv_dtable': 0,
+            'inter_conv_dw': 0, 'intra_conv': 7, 'intra_conv_dw': 0}
+# one fp32 step: the forward's, then the backward: intra df (the forward
+# kernel) and dW at 7, the fused dTable / dW at the 2 fused layers,
+# inter_conv_f and inter_conv_dg at the 4 composed ones
+REG_PER_STEP = {**REG_EVAL, 'intra_conv': 14, 'intra_conv_dw': 7,
+                'inter_conv_dtable': 2, 'inter_conv_dw': 2,
+                'inter_conv_f': 4, 'inter_conv_dg': 4}
+# bf16: the prenorm intra conv at all 7 layers (the inter InstanceNorm
+# deferred into it), moments for the inter and intra InstanceNorm at 7 and
+# the packed skip's at 6 (B0L0's rank-1 skip runs unpacked), the grouped
+# conv at those 6 skips; in the step their backward too
+REG_BF16_EVAL = {**REG_EVAL, 'intra_conv': 0, 'intra_conv_prenorm': 7,
+                 'moments': 20, 'grouped_conv': 6}
+REG_BF16_PER_STEP = {**REG_PER_STEP, 'intra_conv': 0, 'intra_conv_dw': 0,
+                     'intra_conv_prenorm': 7, 'intra_conv_prenorm_df': 7,
+                     'intra_conv_prenorm_dw': 7, 'moments': 20,
+                     'grouped_conv': 6, 'grouped_conv_bwd': 6}
+
+
+def _reg_layer(name, i):
+    return _step_layer(name, i, REG_LAYERS, REG_COMPOSED, REG_FUSED, ())
+
+
+def reg_tree():
+    """A synthetic ModelNet tree of asymmetric airplanes (the alignment
+    loader's category): 16 train and 8 testR clouds of 2048 points."""
+    from epn_pointcloud_tpu_torch.data import synthetic
+    root = os.path.join(REG_DIR, 'modelnet')
+    if not os.path.isdir(root):
+        synthetic.make_modelnet_tree(root, n_cats=1, n_train=2 * REG_BATCH,
+                                     n_test=REG_BATCH, n_points=2048, seed=0,
+                                     splits=('train', 'testR'),
+                                     airplane_asym=True)
+    return root
+
+
+def reg_opt(root, mode='train'):
+    """The rotation entry point's model options (reg_so3net, quat)."""
+    from epn_pointcloud_tpu_torch.app import config
+    opt = config.parse_args(['experiment', '-d', root, '--run-mode', mode])
+    opt.model.model, opt.model.flag = 'reg_so3net', 'rotation'
+    return opt
+
+
+def reg_batch(root, device, mode='train'):
+    """(pairs [8, 2, 1024, 3], R_label [8, 60], T [8, 3, 3], R [8, 60, 3,
+    3]) on the card: the port's alignment loader's first 8 items."""
+    import numpy as np
+    import torch
+    from epn_pointcloud_tpu_torch.data import modelnet40
+    loader = modelnet40.Dataloader_ModelNet40Alignment(reg_opt(root, mode),
+                                                       mode)
+    data = [loader[i] for i in range(REG_BATCH)]
+    return tuple(torch.from_numpy(np.stack([d[k] for d in data])).to(device)
+                 for k in ('pc', 'R_label', 'T', 'R'))
+
+
+def reg_model(device):
+    from epn_pointcloud_tpu_torch import models
+    return models.build_model_from(reg_opt('unused'), seed=SEED).to(device)
+
+
+def reg_loss(model, batch):
+    """The rotation step's loss: the pair forward, then the multi-task
+    detection loss (anchor-pair cross entropy + 10 x the L2 of the
+    regressed rotations) in the alignment setting."""
+    import torch
+    from epn_pointcloud_tpu_torch import losses
+    from epn_pointcloud_tpu_torch.ops import icosahedron
+    pc, rlabel, T, R = batch
+    wts, y = model(pc)
+    anchors = torch.from_numpy(icosahedron.get_anchors(60)).to(pc)
+    return losses.multi_task_detection_loss(anchors, wts, rlabel, y, R, T,
+                                            nr=4)[0]
+
+
+def reg_f64_max(model, batch, chunk=2):
+    """Per-leaf max |gradient| of the step on a float64 copy of ``model``
+    on the plain path, ``chunk`` pairs at a time (the loss is the mean of
+    the pairs' losses, so the chunks' gradients, each scaled by its share,
+    add up to the batch's)."""
+    import copy
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    m64 = copy.deepcopy(model).double()
+    m64.zero_grad(set_to_none=True)
+    nb = batch[0].shape[0]
+    with kernels.plain():
+        for i in range(0, nb, chunk):
+            pc, rlabel, T, R = (t[i:i + chunk] for t in batch)
+            sub = (pc.double(), rlabel, T.double(), R.double())
+            (reg_loss(m64, sub) * (pc.shape[0] / nb)).backward()
+    out = {n: float(p.grad.abs().max()) if p.grad is not None else 0.0
+           for n, p in m64.named_parameters()}
+    del m64
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_reg_kernels(device, batch):
+    """[reg-kernels] Each kernel call of one fp32 reg step (b=8 pairs: one
+    forward of 16 clouds and its backward) against its plain version on
+    the same inputs, timed, with phase 12's checks (``check_step_calls``,
+    ``check_fp32_step_rows``); the step's launches by kernel printed, every
+    one on its CUDA-core kernel (``check_routes``)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    tag = '[reg-kernels]'
+    model = reg_model(device).train()
+    kernels.reset_counts()
+    calls = capture_calls(INV_NAMES, lambda: reg_loss(model, batch).backward())
+    counts, routes = kernels.counts(), route_counts()
+    del model
+    check_routes(tag, 'fp32', counts, routes)
+    assert counts == REG_PER_STEP, (counts, REG_PER_STEP)
+    torch.set_grad_enabled(False)
+    try:
+        results, failures, n_calls = check_step_calls(tag, calls, INV_NAMES,
+                                                      'fp32', _reg_layer)
+    finally:
+        torch.set_grad_enabled(True)
+    del calls
+    expect = {n: REG_PER_STEP.get(n, 0) for n in INV_NAMES}
+    expect['intra_conv'] = expect['intra_conv_df'] = 7
+    if n_calls != expect:
+        failures.append(f'reg step calls {n_calls}, expected {expect}')
+    if failures:
+        raise AssertionError(f'reg kernel comparisons failed: {failures}')
+    check_fp32_step_rows(tag, results, expect, REG_PER_STEP)
+    torch.cuda.empty_cache()
+    return results, routes
+
+
+def phase_reg_forward(device, batch, reps=5):
+    """[reg-forward] The eval-mode pair forward at b=8 pairs on the kernel
+    and the plain path: confidence [8, 60, 60] and y [8, 60, 60, 4] to rtol
+    1e-3, atol 2e-3, its launches (REG_EVAL) on their CUDA-core kernels;
+    both timed in turns (median of 5)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    pc = batch[0]
+    model = reg_model(device).eval()
+
+    def plain_fwd():
+        with kernels.plain():
+            return model(pc)
+    with torch.no_grad():
+        kernels.reset_counts()
+        ck, yk = model(pc)
+        torch.cuda.synchronize()
+        counts, routes = kernels.counts(), route_counts()
+        cp, yp = plain_fwd()
+        torch.cuda.synchronize()
+        assert kernels.counts() == counts, 'the plain path launched a kernel'
+        k_ts, p_ts = [], []
+        for _ in range(reps):
+            k_ts.append(time_ms(lambda: model(pc), reps=1, warmup=0))
+            p_ts.append(time_ms(plain_fwd, reps=1, warmup=0))
+    check_routes('[reg-forward]', 'fp32', counts, routes)
+    assert counts == REG_EVAL, (counts, REG_EVAL)
+    k_ms, p_ms = statistics.median(k_ts), statistics.median(p_ts)
+    errs = (float((ck - cp).abs().max()), float((yk - yp).abs().max()))
+    log(f'[reg-forward] b={REG_BATCH} pairs eval confidence '
+        f'{tuple(ck.shape)} y {tuple(yk.shape)}: kernel vs plain path '
+        f'max_abs_err {errs[0]:.3e} / {errs[1]:.3e} (rtol 1e-3, atol 2e-3); '
+        f'forward kernel path {k_ms:.2f} ms '
+        f'({1e3 * REG_BATCH / k_ms:.1f} pairs/s), plain path {p_ms:.2f} ms '
+        f'({1e3 * REG_BATCH / p_ms:.1f} pairs/s); median of {reps} turns')
+    assert ck.shape == (REG_BATCH, 60, 60) and yk.shape == (REG_BATCH, 60,
+                                                             60, 4)
+    assert torch.isfinite(ck).all() and torch.isfinite(yk).all()
+    torch.testing.assert_close(ck, cp, rtol=1e-3, atol=2e-3)
+    torch.testing.assert_close(yk, yp, rtol=1e-3, atol=2e-3)
+    del model
+    torch.cuda.empty_cache()
+    return {'max_abs_err': max(errs), 'kernel_ms': k_ms, 'plain_ms': p_ms,
+            'pairs_per_s': 1e3 * REG_BATCH / k_ms, 'kernel_runs_ms': k_ts,
+            'plain_runs_ms': p_ts}
+
+
+def phase_reg_train(device, batch, reps=5):
+    """[reg-train] One fp32 reg step (b=8 pairs) on the kernel path and on
+    the plain path from the same weights: loss to rtol 1e-5, a gradient for
+    every parameter on both, per-leaf agreement by the rule of
+    tests/test_reference_train_parity.py (degenerate leaves from a float64
+    step), the launches REG_PER_STEP on their CUDA-core kernels; the whole
+    step timed on both paths in turns (median of 5); 10 Adam steps on one
+    batch lower the loss."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    tag = '[reg-train]'
+    mk, mp = (reg_model(device).train() for _ in range(2))
+    f64 = reg_f64_max(mp, batch)
+    kernels.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    loss_k = reg_loss(mk, batch)
+    loss_k.backward()
+    torch.cuda.synchronize()
+    mem_k = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts_k = kernels.counts()
+    check_routes(tag, 'fp32', counts_k, route_counts())
+    torch.cuda.reset_peak_memory_stats()
+    with kernels.plain():
+        loss_p = reg_loss(mp, batch)
+        loss_p.backward()
+    torch.cuda.synchronize()
+    mem_p = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert kernels.counts() == counts_k, 'the plain path launched a kernel'
+    assert counts_k == REG_PER_STEP, (counts_k, REG_PER_STEP)
+    lk, lp = loss_k.item(), loss_p.item()
+    log(f'{tag} b={REG_BATCH} pairs, loss kernel path {lk:.7f}, plain path '
+        f'{lp:.7f} (rtol 1e-5); peak device memory kernel path {mem_k:.2f} '
+        f'GiB, plain path {mem_p:.2f} GiB')
+    assert math.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp), (lk, lp)
+    no_grad = [n for m in (mk, mp) for n, p in m.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    assert not no_grad, f'parameters without a finite gradient: {no_grad}'
+    bad, degen, worst = [], [], (0.0, '')
+    pk = dict(mk.named_parameters())
+    for name, p in mp.named_parameters():
+        ok, msg = _grads_close(name, pk[name].grad, p.grad, f64[name])
+        if not ok:
+            bad.append(msg)
+        elif 'degenerate' in msg:
+            degen.append(msg)
+        if f64[name] > 1e-5:
+            worst = max(worst, (rel_err(pk[name].grad, p.grad), name))
+    log(f'{tag} gradients: {len(pk)} leaves, every one on both paths, worst '
+        f'relative L2 {worst[0]:.3e} at {worst[1]}; {len(degen)} degenerate '
+        f'leaves (fp64 gradient <= 1e-5 or both <= 1e-3): '
+        f'{"; ".join(degen)}')
+    assert not bad, bad
+    opt_k, k_ms, p_ms, k_ts, p_ts = time_steps(
+        mk, mp, batch, 'fp32', reps, loss=reg_loss, tag=tag,
+        n_clouds=2 * REG_BATCH)
+    log(f'{tag} whole step: {1e3 * REG_BATCH / k_ms:.1f} pairs/s on the '
+        f'kernel path, {1e3 * REG_BATCH / p_ms:.1f} on the plain path')
+    del mp
+    torch.cuda.empty_cache()
+    trace = []
+    for i in range(11):
+        loss = reg_loss(mk, batch)
+        trace.append(loss.item())
+        if i < 10:
+            opt_k.zero_grad(set_to_none=True)
+            loss.backward()
+            opt_k.step()
+    log(f'{tag} 10 Adam steps on one batch, kernel path: loss '
+        f'{trace[0]:.4f} -> {trace[-1]:.4f}')
+    assert all(map(math.isfinite, trace)) and trace[-1] < trace[0], trace
+    del mk
+    torch.cuda.empty_cache()
+    return {'loss_kernel': lk, 'loss_plain': lp, 'kernel_ms': k_ms,
+            'plain_ms': p_ms, 'kernel_runs_ms': k_ts, 'plain_runs_ms': p_ts,
+            'worst_grad_rel_l2': worst[0], 'adam_trace': trace,
+            'peak_gib_kernel': mem_k, 'peak_gib_plain': mem_p}
+
+
+def phase_reg_bf16(device, batch, reps=5):
+    """[reg-bf16] The bf16 production mode of the reg model at b=8 pairs.
+    The eval pair forward by the rule of [inv-bf16-descriptor]: per-pair
+    cosine of confidence and of y, kernel vs plain path, >= 0.999 (or the
+    kernel path's noise floor on the clouds x (1 + 1e-6) less 0.01, when
+    that lies lower), its launches REG_BF16_EVAL, both timed with peak
+    memory; the step by the rule of [inv-bf16-train] (``bf16_step_check``:
+    the launches REG_BF16_PER_STEP, loss to rtol 1e-3, every parameter
+    with a gradient, the per-leaf cosine and noise-floor rule, every B6 dW
+    call within 1e-3 of its plain version on the tensor-core dW), peak
+    memory, timed on both paths in turns (median of 5)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    tag = '[reg-bf16]'
+    pc = batch[0]
+    model = reg_model(device).eval()
+
+    def plain_fwd():
+        with kernels.plain():
+            return model(pc)
+    with torch.no_grad(), compute_dtype('bf16'):
+        kernels.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        ck, yk = model(pc)
+        torch.cuda.synchronize()
+        mem_k = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts, routes = kernels.counts(), route_counts()
+        torch.cuda.reset_peak_memory_stats()
+        cp, yp = plain_fwd()
+        torch.cuda.synchronize()
+        mem_p = torch.cuda.max_memory_allocated() / 2 ** 30
+        cq, yq = model(pc * (1 + 1e-6))
+        k_ts, p_ts = [], []
+        for _ in range(reps):
+            k_ts.append(time_ms(lambda: model(pc), reps=1, warmup=0))
+            p_ts.append(time_ms(plain_fwd, reps=1, warmup=0))
+    check_routes(tag, 'bf16', counts, routes)
+    assert counts == REG_BF16_EVAL, (counts, REG_BF16_EVAL)
+    k_ms, p_ms = statistics.median(k_ts), statistics.median(p_ts)
+    def pair_cos(a, b):
+        return float(_cosine(a.flatten(1), b.flatten(1)).min())
+    cos = min(pair_cos(ck, cp), pair_cos(yk, yp))
+    floor = min(pair_cos(ck, cq), pair_cos(yk, yq))
+    gate, which = (0.999, '0.999') if floor >= 0.999 else \
+        (floor - 0.01, f'the noise floor {floor:.6f} - 0.01')
+    log(f'{tag} b={REG_BATCH} pairs bf16 eval forward: confidence '
+        f'{ck.dtype}, y {yk.dtype}; kernel vs plain path min per-pair cosine '
+        f'{cos:.6f} (gate {which}); kernel path vs itself on the clouds x '
+        f'(1 + 1e-6) min {floor:.6f}; forward kernel path {k_ms:.2f} ms '
+        f'({1e3 * REG_BATCH / k_ms:.1f} pairs/s), plain path {p_ms:.2f} ms; '
+        f'median of {reps} turns; peak device memory kernel path '
+        f'{mem_k:.2f} GiB, plain path {mem_p:.2f} GiB')
+    assert ck.dtype == yk.dtype == torch.float32
+    assert torch.isfinite(ck).all() and torch.isfinite(yk).all()
+    assert cos >= gate, (cos, gate)
+    del model
+    torch.cuda.empty_cache()
+    models_ = tuple(reg_model(device).train()
+                    for _ in range(3 + len(NOISE_SCALES)))
+    mk, mp = models_[:2]
+    out = bf16_step_check(
+        f'{tag} b={REG_BATCH} pairs,', models_, reg_loss, batch,
+        [(pc * sc,) + batch[1:] for sc in NOISE_SCALES], REG_BF16_PER_STEP,
+        reg_f64_max(mp, batch), 'clouds')
+    del models_
+    torch.cuda.empty_cache()
+    _, sk_ms, sp_ms, sk_ts, sp_ts = time_steps(
+        mk, mp, batch, 'bf16', reps, loss=reg_loss, tag=tag,
+        n_clouds=2 * REG_BATCH)
+    log(f'{tag} whole bf16 step: {1e3 * REG_BATCH / sk_ms:.1f} pairs/s on '
+        f'the kernel path, {1e3 * REG_BATCH / sp_ms:.1f} on the plain path')
+    del mk, mp
+    torch.cuda.empty_cache()
+    out.update(forward_min_cos=cos, forward_noise_min_cos=floor,
+               forward_gate=gate, forward_kernel_ms=k_ms,
+               forward_plain_ms=p_ms, forward_kernel_runs_ms=k_ts,
+               forward_plain_runs_ms=p_ts, forward_peak_gib_kernel=mem_k,
+               forward_peak_gib_plain=mem_p, kernel_ms=sk_ms, plain_ms=sp_ms,
+               kernel_runs_ms=sk_ts, plain_runs_ms=sp_ts)
+    return out
+
+
+class working_dir:
+    """The process's working directory inside the block (made if needed):
+    the entry points write data/ and trained_models/ under it."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __enter__(self):
+        self.old = os.getcwd()
+        os.makedirs(self.path, exist_ok=True)
+        os.chdir(self.path)
+
+    def __exit__(self, *exc):
+        os.chdir(self.old)
+
+
+def phase_reg_entry(dtype='fp32'):
+    """[reg-entry] A main path: run_modelnet_rotation --run-mode train
+    --compute-dtype ``dtype`` -i 4 --save-freq 4 on the synthetic airplanes
+    (b=8 pairs, the eval of testR at step 4), its launches by kernel
+    (4 x the step's plus the eval's, every one on the kernel of its dtype),
+    finite Loss, Reg_Loss, Mean_Err and R_Acc, params.json; then the
+    checkpoint through --run-mode eval -r in the same dtype: the same
+    weights, its launches, and a finite median angular error over the
+    per-pair errors it writes under data/alignment_errors/ of its working
+    directory (under build/)."""
+    import numpy as np
+    import torch
+    from epn_pointcloud_tpu_torch import run_modelnet_rotation as rot
+    from epn_pointcloud_tpu_torch.ops import kernels, so3conv
+    tag = f'[reg-entry] {dtype}'
+    per_step, per_eval = ((REG_PER_STEP, REG_EVAL) if dtype == 'fp32' else
+                          (REG_BF16_PER_STEP, REG_BF16_EVAL))
+    steps = 4
+    common = ['experiment', '-d', reg_tree(), '--compute-dtype', dtype,
+              '--model-dir', os.path.join(REG_DIR, 'runs')]
+    cwd = os.path.join(REG_DIR, f'cwd_{dtype}')
+    shutil.rmtree(cwd, ignore_errors=True)
+    try:
+        with working_dir(cwd):
+            kernels.reset_counts()
+            t0 = time.time()
+            trainer = rot.main(common + ['-i', str(steps), '--save-freq',
+                                         str(steps), '-lf', '1'])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts, routes = kernels.counts(), route_counts()
+            trainer.logger.close()
+            ckpt = trainer.last_ckpt
+            kernels.reset_counts()
+            t0 = time.time()
+            other = rot.main(common + ['--run-mode', 'eval', '-r', ckpt])
+            torch.cuda.synchronize()
+            eval_wall = time.time() - t0
+            eval_counts, eval_routes = kernels.counts(), route_counts()
+            other.logger.close()
+            errors = np.loadtxt(os.path.join(
+                'data', 'alignment_errors',
+                f'{other.exp_name}_error.txt')).reshape(-1)
+    finally:
+        so3conv.set_compute_dtype('fp32')
+    stats = dict(trainer.summary.running_stats)
+    n_eval = len(trainer.dataset_test)
+    median = float(np.median(errors) * 180 / np.pi)
+    log(f'{tag} run_modelnet_rotation train --compute-dtype {dtype}: '
+        f'{steps} steps of b={trainer.opt.batch_size} pairs, the eval of '
+        f'{n_eval} batch(es) at step {steps}; running stats {stats}; wall '
+        f'{wall:.2f} s (data and setup included); kernel launches {counts}, '
+        f'a step { {n: k for n, k in per_step.items() if k} }')
+    check_routes(tag, dtype, counts, routes)
+    assert trainer.opt.batch_size == REG_BATCH and n_eval >= 1
+    assert all(math.isfinite(stats[k]) for k in ('Loss', 'Reg_Loss',
+                                                 'Mean_Err', 'R_Acc'))
+    assert math.isfinite(float(trainer.last_loss))
+    assert all(p.dtype == torch.float32 and p.grad is not None
+               for p in trainer.model.parameters())
+    expect = {n: steps * k + n_eval * per_eval[n]
+              for n, k in per_step.items()}
+    assert counts == expect, (counts, expect)
+    with open(os.path.join(trainer.root_dir, 'params.json')) as f:
+        assert json.load(f) == trainer.model.params
+    for (k, a), (_, b) in zip(trainer.model.state_dict().items(),
+                              other.model.state_dict().items()):
+        assert torch.equal(a, b), k
+    n_other = len(other.dataset_test)
+    log(f'{tag} checkpoint {os.path.basename(ckpt)} through --run-mode eval '
+        f'--compute-dtype {dtype} -r: {errors.shape[0]} pairs, median '
+        f'angular error {median:.3f} degrees; wall {eval_wall:.2f} s; kernel '
+        f'launches {eval_counts}')
+    check_routes(tag, dtype, eval_counts, eval_routes)
+    assert eval_counts == {n: n_other * k for n, k in per_eval.items()}
+    assert errors.shape == (n_other * REG_BATCH,) and math.isfinite(median)
+    return {'train_launches': counts, 'eval_launches': eval_counts,
+            'train_wall_s': wall, 'eval_wall_s': eval_wall,
+            'median_deg': median, 'running_stats': stats}
+
+
+# ------------------------------------- 3DMatch descriptor evaluation
+
+EVAL_DIR = os.path.join(ROOT, 'build', 'chip_smoke_3dmatch_eval')
+EVAL_SCENE = 'synth-scene'
+EVAL_KPTS = 384          # keypoints a fragment: two chunks of 192
+EVAL_CHUNK = 192         # the eval chunk: batch_size 8 x npt 24
+# kernel launches of one inv descriptor forward (8 layers): fps, 8 ball
+# queries, the ones conv, the W-fused inter conv at 7 layers, the intra conv
+# at 8; bf16: the prenorm intra conv at 8, moments at 8 + 8 + 7, the
+# grouped conv at the 7 packed skips
+INV_EVAL = {**_NO_BF16, **_NO_WOFF, 'fps': 1, 'ball_query': 8,
+            'ones_conv': 1, 'inter_conv': 7, 'inter_conv_dtable': 0,
+            'inter_conv_dw': 0, 'intra_conv': 8, 'intra_conv_dw': 0}
+INV_BF16_EVAL = {**INV_EVAL, 'intra_conv': 0, 'intra_conv_prenorm': 8,
+                 'moments': 23, 'grouped_conv': 7}
+EVAL_NAMES = ('fps', 'ball_query', 'ones_conv', 'inter_conv', 'intra_conv',
+              'intra_conv_prenorm', 'moments', 'grouped_conv')
+
+
+def eval_tree():
+    """The dense synthetic 3DMatch room of inv_tree with 384 keypoints a
+    fragment (3 fragments, gt.log of the 2 consecutive pairs)."""
+    from epn_pointcloud_tpu_torch.data import synthetic
+    root = os.path.join(EVAL_DIR, 'data')
+    if not os.path.isdir(root):
+        synthetic.make_3dmatch_tree(root, scene=EVAL_SCENE, n_frags=3,
+                                    n_points=32000, n_kpts=EVAL_KPTS,
+                                    seed=11, extent=(2.0, 2.0, 1.6),
+                                    kpt_margin=0.45)
+    return root
+
+
+def check_chunk_calls(tag, model, x, dtype):
+    """Every kernel call of one descriptor forward of the chunk x [192,
+    1024, 3] against its plain version on the same inputs (no timing):
+    fps and ball_query indices equal, the others normwise within 1e-5
+    (fp32) or 8e-3 / 1e-3 (bf16 / fp32 outputs in bf16 mode); the card
+    check of every kernel at the eval chunk's batch."""
+    import torch
+    with torch.no_grad(), compute_dtype(dtype):
+        calls = capture_calls(EVAL_NAMES, lambda: model(x))
+        worst, bad = {}, []
+        for name, args in calls:
+            kern_fn, plain_fn, pargs = _kernel_pair(name, args)
+            got, want = kern_fn(*args), plain_fn(*pargs)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            rels, ok = compare_outputs(got, want, train_tol(name, dtype))
+            worst[name] = max(worst.get(name, 0.0), *rels)
+            if not ok:
+                bad.append(f'{name} {tuple(args[0].shape)}: {rels}')
+            del got, want
+    n = {k: sum(1 for c in calls if c[0] == k) for k in worst}
+    del calls
+    torch.cuda.empty_cache()
+    log(f'{tag} every kernel call of one b={x.shape[0]} {dtype} chunk '
+        f'against its plain version: calls {n}, worst error (index '
+        f'difference, else normwise) {worst}')
+    assert not bad, bad
+    return {'calls': n, 'worst': worst}
+
+
+def phase_3dmatch_eval_entry(ckpt, dtype='fp32'):
+    """[3dmatch-eval-entry] A main path: run_3dmatch --run-mode eval -r
+    CKPT --compute-dtype ``dtype`` on a synthetic scene of 3 fragments of
+    384 keypoints (two chunks of 192 patches each), working directory
+    under build/: the features of each fragment [384, 64] finite,
+    recall.txt and recall.csv written, the launches 6 x one descriptor
+    forward's on the kernels of the dtype; every kernel call of one chunk
+    held to its plain version (``check_chunk_calls``), and the chunk's
+    descriptors on the kernel path against the plain path (fp32 rtol 1e-3,
+    atol 2e-3; bf16 per-patch cosine >= 0.999); the host seconds (patch
+    search and loading, matching) beside the forward's and the device's."""
+    import numpy as np
+    import torch
+    from epn_pointcloud_tpu_torch import run_3dmatch
+    from epn_pointcloud_tpu_torch.ops import kernels, so3conv
+    tag = f'[3dmatch-eval-entry] {dtype}'
+    root = eval_tree()
+    exp = f'inv_{dtype}'
+    cwd = os.path.join(EVAL_DIR, f'cwd_{dtype}')
+    shutil.rmtree(cwd, ignore_errors=True)
+    # -r <dir>/<dir>/<experiment>/...: the entry's experiment id
+    rel = os.path.join('trained_models', 'models', exp, 'ckpt',
+                       os.path.basename(ckpt))
+    os.makedirs(os.path.dirname(os.path.join(cwd, rel)))
+    shutil.copy(ckpt, os.path.join(cwd, rel))
+    per_chunk = INV_EVAL if dtype == 'fp32' else INV_BF16_EVAL
+    try:
+        with working_dir(cwd):
+            kernels.reset_counts()
+            t0 = time.time()
+            trainer = run_3dmatch.main(
+                ['experiment', '-d', root, '--run-mode', 'eval', '-r', rel,
+                 '--compute-dtype', dtype, '--model-dir', 'runs'],
+                scenes=[EVAL_SCENE])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts, routes = kernels.counts(), route_counts()
+            trainer.logger.close()
+            feat_dir = os.path.join('data', 'evaluate', '3DMatch', exp,
+                                    EVAL_SCENE, '32_dim')
+            feats = [np.load(os.path.join(feat_dir, f'feature{i}.npy'))
+                     for i in range(3)]
+            recall_txt = os.path.exists(os.path.join(feat_dir, 'recall.txt'))
+            with open(os.path.join('trained_models', 'evaluate', '3DMatch',
+                                   exp, 'recall.csv')) as f:
+                recall_csv = f.read()
+        s = dict(trainer.eval_seconds)
+        n_chunks = 3 * -(-EVAL_KPTS // EVAL_CHUNK)
+        log(f'{tag} run_3dmatch eval -r {rel} --compute-dtype {dtype}: '
+            f'chunk {trainer.opt.batch_size} x {trainer.opt.npt} patches, '
+            f'{s["patches"]} patches in {n_chunks} forwards; features '
+            f'{[f.shape for f in feats]}; recall.csv {recall_csv!r}; wall '
+            f'{wall:.2f} s (setup included): host patch search and loading '
+            f'{s["load_s"]:.3f} s, forward {s["forward_s"]:.3f} s '
+            f'({s["patches"] / s["forward_s"]:.1f} patches/s; device '
+            f'{s["device_s"]:.3f} s by CUDA events), host matching '
+            f'{s["match_s"]:.3f} s; kernel launches {counts}')
+        check_routes(tag, dtype, counts, routes)
+        assert trainer.opt.batch_size * trainer.opt.npt == EVAL_CHUNK
+        assert s['patches'] == 3 * EVAL_KPTS
+        assert counts == {n: n_chunks * k for n, k in per_chunk.items()}, \
+            (counts, per_chunk)
+        assert all(f.shape == (EVAL_KPTS, 64) and np.isfinite(f).all()
+                   for f in feats)
+        assert recall_txt and recall_csv.startswith('Scene,tau_0.05') and \
+            EVAL_SCENE in recall_csv
+        cache = os.path.join(root, EVAL_SCENE, 'grouped_data_r0.40',
+                             'grouped_cloud_bin_0.npz')
+        x = torch.from_numpy(np.load(cache)['arr_0'][:EVAL_CHUNK]).to(
+            trainer.device)
+        model = trainer.model.eval()
+        chunk = check_chunk_calls(tag, model, x, dtype)
+
+        def plain_fwd():
+            with kernels.plain():
+                return model(x)[0]
+        with torch.no_grad(), compute_dtype(dtype):
+            yk, yp = model(x)[0], plain_fwd()
+        saved = float((yk.cpu() - torch.from_numpy(
+            feats[0][:EVAL_CHUNK])).abs().max())
+        assert saved <= 1e-5, saved
+        if dtype == 'fp32':
+            err = float((yk - yp).abs().max())
+            torch.testing.assert_close(yk, yp, rtol=1e-3, atol=2e-3)
+            note = f'max_abs_err {err:.3e} (rtol 1e-3, atol 2e-3)'
+        else:
+            err = float(_cosine(yk, yp).min())
+            assert err >= 0.999, err
+            note = f'min per-patch cosine {err:.6f} (>= 0.999)'
+        log(f'{tag} chunk of {EVAL_CHUNK} patches, kernel vs plain path '
+            f'descriptors: {note}; the kernel path against the saved '
+            f'features: max_abs_err {saved:.3e} (<= 1e-5)')
+        del model, trainer, x, yk, yp
+    finally:
+        so3conv.set_compute_dtype('fp32')
+    torch.cuda.empty_cache()
+    return {'launches': counts, 'wall_s': wall, 'seconds': s,
+            'chunk_err': err, 'chunk_calls': chunk, 'recall_csv': recall_csv}
+
+
 # the fp32 CUDA-core kernels of the inter forward and backward and the
 # intra forward, df and dW, by wrapper: the kernel and its route (``inter_conv.routes``,
 # ``intra_conv.routes``) in the kernels summary
@@ -3514,52 +4201,78 @@ def main(argv=None):
                 os.path.abspath(args.parent_csrc), src,
                 os.path.join(f'{WORK_DIR}_parent_{src[:-3]}', 'csrc'))
                 for src in PARENT_SOURCES]
-        phase_build()
+        timed('[build]', phase_build)
         if args.parent_csrc:
             for parent in parents:
                 load_parent(*parent)
         model = models.build_model_from(full_opt(), seed=SEED).to(device).eval()
-        results = phase_kernels(model, device)
-        model_err = phase_model(model, device)
-        forward = phase_forward_time(model, device)
+        results = timed('[compare]', phase_kernels, model, device)
+        model_err = timed('[model]', phase_model, model, device)
+        forward = timed('[forward]', phase_forward_time, model, device)
         torch.cuda.empty_cache()
-        bf16_results = phase_bf16_kernels(model, device)
+        bf16_results = timed('[bf16]', phase_bf16_kernels, model, device)
         torch.cuda.empty_cache()
-        bf16_model = phase_bf16_model(model, device)
-        bf16_forward = phase_forward_time(model, device, dtype='bf16')
+        bf16_model = timed('[bf16-model]', phase_bf16_model, model, device)
+        bf16_forward = timed('[bf16-forward]', phase_forward_time, model,
+                             device, dtype='bf16')
         del model
         torch.cuda.empty_cache()
-        eval_counts, n_batches = phase_eval()
-        bf16_counts, bf16_batches = phase_eval('bf16')
-        results.update(phase_backward_kernels(device))
+        eval_counts, n_batches = timed('[eval]', phase_eval)
+        bf16_counts, bf16_batches = timed('[bf16-eval]', phase_eval, 'bf16')
+        results.update(timed('[backward]', phase_backward_kernels, device))
         torch.cuda.empty_cache()
-        train_step = phase_train_step(device)
+        train_step = timed('[train]', phase_train_step, device)
         torch.cuda.empty_cache()
-        counts, train_wall = phase_train_entry()
+        counts, train_wall = timed('[train-entry]', phase_train_entry)
         torch.cuda.empty_cache()
-        bf16_bwd = phase_backward_kernels(device, 'bf16')
+        bf16_bwd = timed('[bf16-backward]', phase_backward_kernels, device,
+                         'bf16')
         torch.cuda.empty_cache()
-        bf16_train = phase_bf16_train_step(device)
-        bf16_train_counts, bf16_train_wall = phase_train_entry('bf16')
+        bf16_train = timed('[bf16-train]', phase_bf16_train_step, device)
+        bf16_train_counts, bf16_train_wall = timed(
+            '[bf16-train-entry]', phase_train_entry, 'bf16')
         torch.cuda.empty_cache()
         inv_root = inv_tree()
         batches = inv_batches(inv_root, device, 3)
         legs = batches[0]
-        inv_results, inv_routes = phase_inv_kernels(device, legs)
+        inv_results, inv_routes = timed('[inv-kernels]', phase_inv_kernels,
+                                        device, legs)
         torch.cuda.empty_cache()
-        inv_train = phase_inv_train(device, batches)
+        inv_train = timed('[inv-train]', phase_inv_train, device, batches)
         del batches
-        inv_desc = phase_inv_descriptor(device, inv_root)
-        inv_counts, inv_wall = phase_inv_train_entry(inv_root)
+        inv_desc = timed('[inv-descriptor]', phase_inv_descriptor, device,
+                         inv_root)
+        inv_counts, inv_wall, inv_ckpt = timed(
+            '[inv-train-entry]', phase_inv_train_entry, inv_root)
         torch.cuda.empty_cache()
-        inv_bf16_results, _ = phase_inv_kernels(device, legs, 'bf16')
+        inv_bf16_results, _ = timed('[inv-bf16-kernels]', phase_inv_kernels,
+                                    device, legs, 'bf16')
         torch.cuda.empty_cache()
-        inv_bf16_train = phase_inv_bf16_train(device, legs)
+        inv_bf16_train = timed('[inv-bf16-train]', phase_inv_bf16_train,
+                               device, legs)
         del legs
-        inv_bf16_desc = phase_inv_bf16_descriptor(device, inv_root)
-        inv_bf16_counts, inv_bf16_wall = phase_inv_train_entry(inv_root,
-                                                               'bf16')
+        inv_bf16_desc = timed('[inv-bf16-descriptor]',
+                              phase_inv_bf16_descriptor, device, inv_root)
+        inv_bf16_counts, inv_bf16_wall, inv_bf16_ckpt = timed(
+            '[inv-bf16-train-entry]', phase_inv_train_entry, inv_root,
+            'bf16')
+        torch.cuda.empty_cache()
+        reg_b = reg_batch(reg_tree(), device)
+        reg_results, reg_routes = timed('[reg-kernels]', phase_reg_kernels,
+                                        device, reg_b)
+        reg_fwd = timed('[reg-forward]', phase_reg_forward, device, reg_b)
+        reg_train = timed('[reg-train]', phase_reg_train, device, reg_b)
+        reg_bf16 = timed('[reg-bf16]', phase_reg_bf16, device, reg_b)
+        del reg_b
+        reg_entry = timed('[reg-entry]', phase_reg_entry)
+        reg_bf16_entry = timed('[reg-entry] bf16', phase_reg_entry, 'bf16')
+        shutil.rmtree(REG_DIR, ignore_errors=True)
+        eval3d = timed('[3dmatch-eval-entry]', phase_3dmatch_eval_entry,
+                       inv_ckpt)
+        eval3d_bf16 = timed('[3dmatch-eval-entry] bf16',
+                            phase_3dmatch_eval_entry, inv_bf16_ckpt, 'bf16')
         shutil.rmtree(INV_DIR, ignore_errors=True)
+        shutil.rmtree(EVAL_DIR, ignore_errors=True)
     except Exception:
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -3582,9 +4295,11 @@ def main(argv=None):
         rows = (inv_results[k.name] if k.name in _NO_WOFF else
                 bf16_bwd.get(k.name) or bf16_results.get(k.name)
                 or results[k.name])
+        reg_bf16_launches = reg_bf16_entry['train_launches'][k.name]
         rec = {'name': k.name, 'route': 'cuda', 'source': k.source,
                'replaces': k.replaces,
-               'launches': (inv_bf16_counts[k.name] or inv_counts[k.name]
+               'launches': (reg_bf16_launches or inv_bf16_counts[k.name]
+                            or inv_counts[k.name]
                             or bf16_train_counts[k.name]
                             or bf16_counts[k.name] or counts[k.name])}
         rec.update(_aggregate(rows))
@@ -3628,6 +4343,16 @@ def main(argv=None):
             rec['df'] = _aggregate(results['intra_conv_df'])
             rec['max_abs_err'] = max(rec['max_abs_err'],
                                      rec['df']['max_abs_err'])
+        if reg_results.get(k.name):
+            # the fp32 reg step's calls (b=8 pairs, 16 clouds)
+            rec['reg'] = _aggregate(reg_results[k.name])
+        rec.update({
+            'reg_bf16_train_entry_launches': reg_bf16_launches,
+            'reg_train_entry_launches': reg_entry['train_launches'][k.name],
+            'reg_bf16_eval_launches': reg_bf16_entry['eval_launches'][k.name],
+            'reg_eval_launches': reg_entry['eval_launches'][k.name],
+            '3dmatch_bf16_eval_launches': eval3d_bf16['launches'][k.name],
+            '3dmatch_eval_launches': eval3d['launches'][k.name]})
         rec.update({'inv_bf16_train_entry_launches': inv_bf16_counts[k.name],
                     'inv_train_entry_launches': inv_counts[k.name],
                     'bf16_train_entry_launches': bf16_train_counts[k.name],
@@ -3662,6 +4387,12 @@ def main(argv=None):
                    'inv_bf16_descriptor_b48': inv_bf16_desc,
                    'inv_bf16_train_launches': inv_bf16_counts,
                    'inv_bf16_train_entry_wall_s': inv_bf16_wall,
+                   'reg_per_layer': reg_results, 'reg_routes': reg_routes,
+                   'reg_forward_b8': reg_fwd, 'reg_train_step_b8': reg_train,
+                   'reg_bf16_b8': reg_bf16, 'reg_entry': reg_entry,
+                   'reg_bf16_entry': reg_bf16_entry,
+                   '3dmatch_eval': eval3d, '3dmatch_bf16_eval': eval3d_bf16,
+                   'phase_wall_s': PHASE_WALL,
                    'kernels': summary, 'seconds': time.time() - t_start},
                   f, indent=1)
     log(f'[done] {time.time() - t_start:.1f} s')

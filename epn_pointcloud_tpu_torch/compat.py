@@ -1,7 +1,7 @@
 """Weights from the JAX package's variable tree into the port's state_dict.
 
 ``from_jax_variables`` inverts the layout mappings of
-``epn_pointcloud_tpu/compat.py`` for the cls and the inv model:
+``epn_pointcloud_tpu/compat.py`` for the cls, the inv and the reg model:
 
   * SO(3) conv ``W``  flax [k, c, d]     -> [d, c*k] (c-major, k-minor)
   * Dense1x1 kernel   flax [c, d]        -> Conv2d [d, c, 1, 1], Conv1d
@@ -11,8 +11,8 @@
 
 The input is ``{'params': ..., 'batch_stats': ...}`` as nested dicts of
 numpy arrays (e.g. the JAX model's variables after ``np.asarray``); the inv
-model, whose norms are InstanceNorms, has no BatchNorm and may have no
-``batch_stats``.
+and the reg model, whose norms are InstanceNorms, have no BatchNorm and may
+have no ``batch_stats``.
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ def separable_block_state(p, s, base: str = '') -> 'OrderedDict[str, torch.Tenso
 
 
 def from_jax_variables(variables: Dict[str, Any]) -> 'OrderedDict[str, torch.Tensor]':
-    """JAX cls_so3net_pn or inv_so3net_pn variables -> the port's
+    """JAX cls_so3net_pn, inv_so3net_pn or reg_so3net variables -> the port's
     state_dict. Parameters are fp32 in both packages, so the same state_dict
     serves both compute dtypes."""
     params, stats = variables['params'], variables.get('batch_stats', {})
@@ -100,6 +100,16 @@ def from_jax_variables(variables: Dict[str, Any]) -> 'OrderedDict[str, torch.Ten
         _dense(sd, 'outblock.attention_layer.2', hp['Dense1x1_1'])
         _dense(sd, 'outblock.pointnet.embed',
                hp['PointnetSO3Conv_0']['Dense1x1_0'])
+        return sd
+    if 'RelSO3OutBlockR_0' in params:
+        hp = params['RelSO3OutBlockR_0']
+        _dense(sd, 'outblock.pointnet.embed',
+               hp['PointnetSO3Conv_0']['Dense1x1_0'])
+        n_mlp = len(_numbered(hp, 'Dense1x1_')) - 2
+        for t in range(n_mlp):
+            _dense(sd, f'outblock.linear.{t}', hp[f'Dense1x1_{t}'])
+        _dense(sd, 'outblock.attention_layer', hp[f'Dense1x1_{n_mlp}'])
+        _dense(sd, 'outblock.regressor_layer', hp[f'Dense1x1_{n_mlp + 1}'])
         return sd
     hp, hs = params['ClsOutBlockPointnet_0'], stats['ClsOutBlockPointnet_0']
     norms = _numbered(hp, 'BatchNorm_')

@@ -36,10 +36,18 @@
 // x 24 kernel points, T = 288 (9 warps) covers the 1440 lanes with no idle
 // pass. That is 4.4 instructions a weight, 0.099 ms at the card's issue
 // rate (132 SMs x 128 lanes x 1.98 GHz) for the 755M weights above.
+//
+// Each lane sums its neighbors in kParts interleaved partial sums (the
+// staged neighbors padded to a multiple of kParts with points whose weight
+// is 0): on the reg_so3net layer 0 (clustered airplane clouds, 64
+// neighbors) one chain of 64 adds put F's float64 error at 1.85-1.96x the
+// plain version's; the rounding of the weight itself is within 0.85x of
+// it.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cfloat>
 
 #include "elem.cuh"
 
@@ -47,6 +55,7 @@ namespace {
 
 constexpr int kLanes = 5;          // output lanes a thread
 constexpr int kPoints = 4;         // points a block (staged together)
+constexpr int kParts = 4;          // partial sums a lane (neighbors mod 4)
 constexpr int kMaxThreads = 512;   // threads a block: K * (T / K)
 constexpr size_t kSmemMax = 227 * 1024;
 
@@ -65,14 +74,22 @@ ones_conv_kernel(const float* __restrict__ gx, const float* __restrict__ rk,
                  const float* __restrict__ k2, void* __restrict__ out,
                  int n_pts, int nn, int L, int K, int pts, float inv_sigma,
                  int bf16) {
-  extern __shared__ float4 s_g[];  // [pts][nn] (x, y, z, |gx|^2 / sigma)
+  // [pts][nnp] (x, y, z, |gx|^2 / sigma), each point's neighbors padded to
+  // nnp (a multiple of kParts) with (0, 0, 0, FLT_MAX), whose weight is 0
+  extern __shared__ float4 s_g[];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int pt0 = blockIdx.x * pts;
   const int np = min(pts, n_pts - pt0);
-  for (int e = tid; e < np * nn; e += nt) {
-    const size_t src = (size_t)pt0 * nn + e;
-    const float x = gx[3 * src], y = gx[3 * src + 1], z = gx[3 * src + 2];
-    s_g[e] = make_float4(x, y, z, fmaf(z, z, fmaf(y, y, x * x)) * inv_sigma);
+  const int nnp = (nn + kParts - 1) / kParts * kParts;
+  for (int e = tid; e < np * nnp; e += nt) {
+    const int i = e / nnp, r = e - i * nnp;
+    float4 v = make_float4(0.f, 0.f, 0.f, FLT_MAX);
+    if (r < nn) {
+      const size_t src = (size_t)(pt0 + i) * nn + r;
+      const float x = gx[3 * src], y = gx[3 * src + 1], z = gx[3 * src + 2];
+      v = make_float4(x, y, z, fmaf(z, z, fmaf(y, y, x * x)) * inv_sigma);
+    }
+    s_g[e] = v;
   }
   __syncthreads();
   const float two_inv = 2.f * inv_sigma;
@@ -88,18 +105,33 @@ ones_conv_kernel(const float* __restrict__ gx, const float* __restrict__ rk,
       az[j] = live ? rk[3 * l + 2] * two_inv : 0.f;
     }
     for (int i = 0; i < np; ++i) {
-      const float4* g = s_g + i * nn;
+      const float4* g = s_g + i * nnp;
+      // kParts partial sums a lane, of the neighbors n = q (mod kParts),
+      // then added in order of q: the sum's rounding error grows with the
+      // adds in one chain
+      float part[kParts][kLanes];
+#pragma unroll
+      for (int q = 0; q < kParts; ++q)
+#pragma unroll
+        for (int j = 0; j < kLanes; ++j) part[q][j] = 0.f;
+#pragma unroll 2
+      for (int n = 0; n < nnp; n += kParts) {
+#pragma unroll
+        for (int q = 0; q < kParts; ++q) {
+          const float4 v = g[n + q];
+          const float t = c - v.w;
+#pragma unroll
+          for (int j = 0; j < kLanes; ++j) {
+            part[q][j] += fma_sat(v.z, az[j], fmaf(v.y, ay[j], fmaf(v.x, ax[j], t)));
+          }
+        }
+      }
       float acc[kLanes];
 #pragma unroll
-      for (int j = 0; j < kLanes; ++j) acc[j] = 0.f;
-#pragma unroll 8
-      for (int n = 0; n < nn; ++n) {
-        const float4 v = g[n];
-        const float t = c - v.w;
+      for (int j = 0; j < kLanes; ++j) {
+        acc[j] = part[0][j];
 #pragma unroll
-        for (int j = 0; j < kLanes; ++j) {
-          acc[j] += fma_sat(v.z, az[j], fmaf(v.y, ay[j], fmaf(v.x, ax[j], t)));
-        }
+        for (int q = 1; q < kParts; ++q) acc[j] += part[q][j];
       }
       const size_t o = (size_t)(pt0 + i) * L + l0 + tid;
 #pragma unroll
@@ -120,11 +152,13 @@ ones_conv_kernel(const float* __restrict__ gx, const float* __restrict__ rk,
 
 // gx [b, p2, nn, 3] fp32 neighbor coordinates relative to their centers,
 // rk [na, K, 3], k2 [K], out [b, p2, na, K] (fp32, or bf16 when bf16 != 0);
-// 1 <= nn <= 14528 (one point's neighbors in shared memory), 1 <= K <= 512.
+// 1 <= nn <= 14528 (one point's neighbors, padded to a multiple of kParts,
+// in shared memory), 1 <= K <= 512.
 extern "C" int epn_ones_conv(const void* gx, const void* rk, const void* k2,
                              void* out, int b, int p2, int nn, int na, int K,
                              float sigma, int bf16, void* stream) {
-  if (nn < 1 || (size_t)nn * sizeof(float4) > kSmemMax || K < 1 ||
+  const int nnp = (nn + kParts - 1) / kParts * kParts;
+  if (nn < 1 || (size_t)nnp * sizeof(float4) > kSmemMax || K < 1 ||
       K > kMaxThreads || na < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -134,8 +168,8 @@ extern "C" int epn_ones_conv(const void* gx, const void* rk, const void* k2,
   const int per = (L + kLanes - 1) / kLanes;
   const int threads = K * std::min((per + K - 1) / K, kMaxThreads / K);
   const int pts = (int)std::min<size_t>(
-      kPoints, kSmemMax / ((size_t)nn * sizeof(float4)));
-  const size_t smem = (size_t)pts * nn * sizeof(float4);
+      kPoints, kSmemMax / ((size_t)nnp * sizeof(float4)));
+  const size_t smem = (size_t)pts * nnp * sizeof(float4);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         ones_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,6 +1,7 @@
-"""ModelNet40 loader (counterpart of ``epn_pointcloud_tpu/data/modelnet40.py``
-``Dataloader_ModelNet40`` and its ``DataLoader`` in a single process: the
-train split and the evaluation splits).
+"""ModelNet40 loaders (counterpart of ``epn_pointcloud_tpu/data/modelnet40.py``
+``Dataloader_ModelNet40``, ``Dataloader_ModelNet40Alignment`` and their
+``DataLoader`` in a single process: the train split and the evaluation
+splits).
 
 On-disk contract: <root>/<category>/<split>/*.mat with keys 'pc' [n, 3],
 'label', 'name' (and optionally a stored 'R'). Batches are numpy dicts.
@@ -15,7 +16,7 @@ import numpy as np
 import scipy.io as sio
 
 from ..ops import icosahedron
-from ..ops.rotation import rotation_distance_np
+from ..ops.rotation import label_relative_rotation_np, rotation_distance_np
 from . import pc as pctk
 
 
@@ -105,3 +106,36 @@ class Dataloader_ModelNet40:
                 'fn': str(data['name'][0]),
                 'R': np.asarray(R, dtype=np.float32),
                 'R_label': np.int64(R_label)}
+
+
+class Dataloader_ModelNet40Alignment:
+    """Rotation-alignment pairs of the airplane category: each cloud
+    resampled to ``input_num`` points and normalized is the target; the
+    source is it under a random rotation T. Items: 'pc' [2, n, 3] (source,
+    target), T, and per source anchor the target anchor 'R_label' [na] and
+    the residual rotation 'R' [na, 3, 3]."""
+
+    def __init__(self, opt, mode=None):
+        self.opt = opt
+        self.mode = opt.mode if mode is None else mode
+        self.anchors = icosahedron.get_anchors(opt.model.kanchor)
+        self.rng = np.random.RandomState(_mode_seed(opt.seed, self.mode))
+        pattern = os.path.join(opt.dataset_path, 'airplane', self.mode,
+                               '*.mat')
+        self.all_data = sorted(glob.glob(pattern))
+
+    def __len__(self):
+        return len(self.all_data)
+
+    def __getitem__(self, index):
+        data = sio.loadmat(self.all_data[index])
+        _, pc = pctk.uniform_resample_np(data['pc'], self.opt.model.input_num,
+                                         rng=self.rng)
+        pc = pctk.normalize_np(pc.T).T
+        pc_src, T = pctk.rotate_point_cloud(pc, None, rng=self.rng)
+        R, R_label = label_relative_rotation_np(self.anchors, T)
+        return {'pc': np.stack([pc_src, pc]).astype(np.float32),
+                'fn': str(data['name'][0]),
+                'T': T.astype(np.float32),
+                'R': R.astype(np.float32),
+                'R_label': R_label.astype(np.int64)}

@@ -1,6 +1,7 @@
 """Synthetic data (copy of the ModelNet and 3DMatch parts of
 ``epn_pointcloud_tpu/data/synthetic.py``): a ModelNet40-like .mat tree,
-<root>/<cat>/<split>/*.mat with 'pc', 'label', 'name', and a 3DMatch-like
+<root>/<cat>/<split>/*.mat with 'pc', 'label', 'name' (its airplanes
+asymmetric for the alignment loader, on request), and a 3DMatch-like
 fragment tree; each writes the same files as the JAX package's generator
 for the same arguments.
 """
@@ -55,12 +56,32 @@ def make_shape(rng: np.random.RandomState, n_points: int,
     return pc.astype(np.float32)
 
 
+def make_asym_shape(rng: np.random.RandomState, n_points: int) -> np.ndarray:
+    """A shape with no rotational self-symmetry: three unequal,
+    non-collinear clusters and an off-axis bar, so the relative rotation of
+    an alignment pair is well posed."""
+    centers = np.array([[0.0, 0.0, 0.0], [1.5, 0.0, 0.0], [0.0, 1.0, 0.3]])
+    scales = np.array([0.15, 0.3, 0.08])
+    n_bar = n_points // 4
+    n_cl = n_points - n_bar
+    which = rng.randint(0, 3, n_cl)
+    pc_cl = centers[which] + scales[which, None] * rng.randn(n_cl, 3)
+    t = rng.rand(n_bar)
+    bar = (np.array([0.2, -0.8, 0.9])[None] * t[:, None]
+           + np.array([0.5, 0.2, -0.4])[None]
+           + 0.03 * rng.randn(n_bar, 3))
+    pc = np.concatenate([pc_cl, bar], 0)
+    return pc.astype(np.float32)
+
+
 def make_modelnet_tree(root: str, n_cats: int = 4, n_train: int = 8,
                        n_test: int = 4, n_points: int = 2048,
-                       seed: int = 0, splits=('train', 'test', 'testR')):
+                       seed: int = 0, splits=('train', 'test', 'testR'),
+                       airplane_asym: bool = False):
     """Create a synthetic ModelNet-like .mat tree (same files, for the same
     arguments, as the JAX package's generator with its default shapes).
-    Category 0 is named 'airplane'."""
+    Category 0 is named 'airplane'; with ``airplane_asym`` its clouds are
+    ``make_asym_shape``'s, for the alignment loader."""
     rng = np.random.RandomState(seed)
     names = ['airplane'] + [f'cat{i:02d}' for i in range(1, n_cats)]
     for ci, cat in enumerate(names):
@@ -69,7 +90,9 @@ def make_modelnet_tree(root: str, n_cats: int = 4, n_train: int = 8,
             d = os.path.join(root, cat, split)
             os.makedirs(d, exist_ok=True)
             for i in range(n):
-                pc = make_shape(rng, n_points, ci)
+                pc = (make_asym_shape(rng, n_points)
+                      if ci == 0 and airplane_asym
+                      else make_shape(rng, n_points, ci))
                 data = {'pc': pc, 'label': np.array([[ci]]),
                         'name': f'{cat}_{split}_{i:04d}'}
                 sio.savemat(os.path.join(d, f'{cat}_{i:04d}.mat'), data)

@@ -17,6 +17,16 @@ an L2 normalization. In bf16 it keeps the JAX package's types: the
 attention's 1x1 convs, its softmax and the weighted sum in bf16 (fp32
 accumulation in the convs), then the PointNet, whose concat with the fp32
 coordinates promotes to fp32, and the normalization in fp32.
+
+Rotation regression heads: ``RelSO3OutBlockR`` (``heads.py:265-307``), the
+rotation-alignment pair head (a shared PointnetSO3Conv over each cloud, the
+60 x 60 anchor pairs' concatenated features through 1x1 convs + ReLU, the
+pair attention and the regressed rotations), and ``SO3OutBlockR``
+(``heads.py:244-262``), its single-cloud form. Their products are plain
+matmuls outside any TPU kernel in the JAX package. In bf16 the pair head is
+fp32 after its PointNet (whose concat with the fp32 coordinates promotes
+the bf16 features), as in the JAX package; ``SO3OutBlockR``'s 1x1 convs
+run in the features' type.
 """
 
 from __future__ import annotations
@@ -87,3 +97,67 @@ class InvOutBlockMVD(nn.Module):
         x_out = x_out.reshape(x_out.shape[0], -1)
         return (x_out / x_out.norm(dim=1, keepdim=True).clamp(min=1e-12),
                 attn)
+
+
+class SO3OutBlockR(nn.Module):
+    """Single-cloud rotation regression: feats [b, p, a, c] -> (confidence
+    [b, a] (softmax over the anchors), y [b, a, nr]): 1x1 convs + ReLU, the
+    mean over the points, an attention and a regressor 1x1 conv."""
+
+    def __init__(self, params: Dict[str, Any]):
+        super().__init__()
+        self.temperature = params['temperature']
+        nr = 4 if params.get('representation', 'quat') == 'quat' else 6
+        c_in = params['dim_in']
+        self.linear = nn.ModuleList()
+        for c in params['mlp']:
+            self.linear.append(Dense1x1(c_in, c))
+            c_in = c
+        self.attention_layer = Dense1x1(c_in, 1)
+        self.regressor_layer = Dense1x1(c_in, nr)
+
+    def forward(self, feats: torch.Tensor):
+        x = feats
+        for lin in self.linear:
+            x = torch.relu(lin(x))
+        x = x.mean(dim=1)                                       # [b, a, c]
+        att = self.attention_layer(x).squeeze(-1)
+        return (torch.softmax(att * self.temperature, dim=1),
+                self.regressor_layer(x))
+
+
+class RelSO3OutBlockR(nn.Module):
+    """Relative rotation of a pair: (f1, f2 [b, p, a, c], x1, x2 [b, p, 3])
+    -> (confidence [b, na_tgt, na_src] (softmax over na_tgt), y [b, na_tgt,
+    na_src, nr]). One PointnetSO3Conv + ReLU serves both clouds; pair (i, j)
+    is the concatenation of the source's anchor j and the target's anchor
+    i."""
+
+    def __init__(self, params: Dict[str, Any]):
+        super().__init__()
+        c_in, na = params['dim_in'], params['kanchor']
+        rp = params['representation']
+        if rp not in ('quat', 'ortho6d'):
+            raise KeyError(f'Unrecognized representation of rotation: {rp}')
+        nr = 4 if rp == 'quat' else 6
+        self.temperature = params['temperature']
+        self.pointnet = PointnetSO3Conv(c_in, c_in, na)
+        c_in *= 2
+        self.linear = nn.ModuleList()
+        for c in params['mlp']:
+            self.linear.append(Dense1x1(c_in, c))
+            c_in = c
+        self.attention_layer = Dense1x1(c_in, 1)
+        self.regressor_layer = Dense1x1(c_in, nr)
+
+    def forward(self, f1, f2, x1, x2):
+        f1 = torch.relu(self.pointnet(SphericalPointCloud(x1, f1, None)))
+        f2 = torch.relu(self.pointnet(SphericalPointCloud(x2, f2, None)))
+        nb, na, c = f1.shape
+        x_out = torch.cat([f1[:, None].expand(nb, na, na, c),
+                           f2[:, :, None].expand(nb, na, na, c)], dim=-1)
+        for lin in self.linear:
+            x_out = torch.relu(lin(x_out))
+        att = self.attention_layer(x_out).squeeze(-1)           # [b, na, na]
+        return (torch.softmax(att * self.temperature, dim=1),
+                self.regressor_layer(x_out))

@@ -11,13 +11,15 @@ csrc/ones_conv.cu compiled alone (nvcc, sm_90a) under
 build/ones_conv_variants/ with the text substitutions below (which fail
 loudly when the source no longer holds the text):
   built          the source as it is (5 lanes a thread, 288 threads at 60 x
-                 24 lanes, 4 points a block, the neighbor loop unrolled by
-                 8);
+                 24 lanes, 4 points a block, 4 partial sums a lane, the
+                 neighbor loop over 4 at a time unrolled by 2);
+  parts_1        one partial sum a lane (the neighbors in one chain, as
+                 built before the partial sums);
   lanes_3, lanes_15
                  3 or 15 lanes a thread (480 or 96 threads);
   pts_1, pts_2, pts_8
                  1, 2 or 8 points a block;
-  unroll_4       the neighbor loop unrolled by 4;
+  unroll_1       the neighbor loop not unrolled (4 neighbors a pass);
   relu_max       the relu as fmaxf after an unclamped FFMA (one more
                  instruction a weight);
 and, whose output is wrong and only whose time counts:
@@ -30,10 +32,11 @@ normwise error against ``ones_conv_plain`` (``rel``), and in fp32 its
 float64 error over the plain fp32 version's (``f64_ratio``) and whether it
 equals the built kernel bit for bit (``equal_built``).
 
-Inputs: the ones conv calls of a cls_so3net_pn forward at b=32 (serving) and
+Inputs: the ones conv calls of a cls_so3net_pn forward at b=32 (serving),
 of an inv_so3net_pn forward at b=16 (a triplet step's leg) and b=48
-(serving) on synthetic clouds and patches; seeded weights, captured on the
-plain path; each in fp32 and in bf16. Output: JSON lines, with each build's
+(serving) and of a reg_so3net forward at b=8 pairs (16 clouds) on
+synthetic clouds, patches and alignment pairs; seeded weights, captured on
+the plain path; each in fp32 and in bf16. Output: JSON lines, with each build's
 registers and spills (nvcc's -Xptxas -v), all of them in
 chiprun_out/ones_conv_variants.json.
 """
@@ -59,8 +62,9 @@ ROOT = os.path.dirname(build.BUILD_DIR)
 
 _LANES = 'constexpr int kLanes = 5;'
 _POINTS = 'constexpr int kPoints = 4;'
-_UNROLL = '#pragma unroll 8\n      for (int n = 0; n < nn; ++n) {'
-_WEIGHT = 'acc[j] += fma_sat(v.z, az[j], fmaf(v.y, ay[j], fmaf(v.x, ax[j], t)));'
+_UNROLL = '#pragma unroll 2\n      for (int n = 0; n < nnp; n += kParts) {'
+_WEIGHT = ('part[q][j] += fma_sat(v.z, az[j], fmaf(v.y, ay[j], '
+           'fmaf(v.x, ax[j], t)));')
 VARIANTS = {
     'built': None,
     'lanes_3': _set(_LANES, 3),
@@ -68,9 +72,10 @@ VARIANTS = {
     'pts_1': _set(_POINTS, 1),
     'pts_2': _set(_POINTS, 2),
     'pts_8': _set(_POINTS, 8),
-    'unroll_4': (_UNROLL, _UNROLL.replace('unroll 8', 'unroll 4')),
-    'relu_max': (_WEIGHT, 'acc[j] += fmaxf(fmaf(v.z, az[j], fmaf(v.y, ay[j], '
-                 'fmaf(v.x, ax[j], t))), 0.f);'),
+    'unroll_1': (_UNROLL, _UNROLL.replace('unroll 2', 'unroll 1')),
+    'relu_max': (_WEIGHT, 'part[q][j] += fmaxf(fmaf(v.z, az[j], fmaf(v.y, '
+                 'ay[j], fmaf(v.x, ax[j], t))), 0.f);'),
+    'parts_1': _set('constexpr int kParts = 4;', 1),
     # a store that never runs but keeps the sums live (they are >= 0)
     'no_stores': ('if (l0 + tid + j * nt < L) {', 'if (acc[j] < 0.f) {'),
 }
@@ -95,6 +100,10 @@ def model_calls(device):
     for b in (cs.INV_BATCH, cs.INV_DESC_BATCH):
         x = torch.cat([src, tgt])[:b].contiguous()
         out[('inv', b)] = _capture(cs, lambda: inv(x))
+    del inv
+    reg = cs.reg_model(device).eval()
+    pc = cs.reg_batch(cs.reg_tree(), device)[0]
+    out[('reg', 2 * cs.REG_BATCH)] = _capture(cs, lambda: reg(pc))
     return out
 
 

@@ -97,6 +97,11 @@ DW_MMA_NP, DW_MMA_CB, DW_MMA_BLOCKS = 8, 32, 264
 # DW_F32_WAVE blocks fill the 132 SMs once; its splits fill one or two
 # such waves
 DW_F32_CB, DW_F32_BN, DW_F32_WAVE = 32, 32, 396
+# a split's sums add its rows in one chain of fmaf: past DW_F32_MAX_PTS
+# points a split (the longest chain of the cls and inv layers) two waves
+# are taken, for chains half as long (reg_so3net's 256-wide layer at 64
+# points: 171 points a split put its float64 error at 1.59x the SGEMM's)
+DW_F32_MAX_PTS = 128
 # the fp32 CUDA-core forward's envelope: c and d multiples of FWD_F32_MULT
 # (whole 8-channel chunks, whole 32-column tiles; kMult in the source)
 FWD_F32_MULT = 32
@@ -149,12 +154,14 @@ def dw_f32_splits(n_points: int, na: int, c: int, d: int) -> tuple[int, int]:
     least one), blocks of DW_F32_CB channels by DW_F32_BN columns, in one
     or two waves of DW_F32_WAVE blocks, whichever leaves the fewer points
     a wave's blocks (two on a tie: shorter sums, and a wave's few idle
-    slots either way)."""
+    slots either way), and two where one wave's splits would hold more
+    than DW_F32_MAX_PTS points."""
     tiles = (c // DW_F32_CB) * (d // DW_F32_BN)
     best = None
     for waves in (1, 2):
         per = -(-n_points // max(1, waves * DW_F32_WAVE // tiles))
-        if best is None or waves * per <= best[0] * best[1]:
+        if (best is None or waves * per <= best[0] * best[1]
+                or best[1] > DW_F32_MAX_PTS):
             best = (waves, per)
     per = best[1]
     return -(-n_points // per), per * na

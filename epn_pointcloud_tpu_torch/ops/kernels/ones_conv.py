@@ -14,8 +14,9 @@ so no gradient flows through it (the TPU kernel's VJP is zero): the learned
 
 The kernel (``ones_conv_kernel`` in csrc/ones_conv.cu) folds each weight
 to (1 - |kappa_k|^2 / sigma - |gx|^2 / sigma) + gx . (2 R_a kappa_k / sigma)
-clamped to [0, 1], so its F rounds otherwise than the plain version's
-expansion; both are fp32 sums in neighbor order.
+clamped to [0, 1], and sums each lane's neighbors in four interleaved
+partial sums, so its F rounds otherwise than the plain version's: both
+are fp32.
 """
 
 from __future__ import annotations

@@ -1,11 +1,14 @@
 """Device-time profile of the eval forward, or of one train step, on the
-card: cls_so3net_pn (ModelNet40) or inv_so3net_pn (3DMatch descriptors).
+card: cls_so3net_pn (ModelNet40), inv_so3net_pn (3DMatch descriptors) or
+reg_so3net (the rotation-alignment pair model).
 
   python -m epn_pointcloud_tpu_torch.profile_forward [--dtype fp32 bf16] [-b 32]
   python -m epn_pointcloud_tpu_torch.profile_forward --train [--dtype bf16] \
       [-b 12]
   python -m epn_pointcloud_tpu_torch.profile_forward --model inv_so3net_pn \
       --train [--compute-dtype bf16] [-b 16]
+  python -m epn_pointcloud_tpu_torch.profile_forward --model reg_so3net \
+      [--train] [-b 8]
 
 Builds the seeded full-width model (1024 points, 60 anchors, random weights)
 on a synthetic cloud batch, runs two warm forwards (or train steps) in each
@@ -14,13 +17,16 @@ default), then profiles one with ``torch.profiler`` (CPU and CUDA
 activities). A cls train step is a forward, the attention CE loss, the
 backward and Adam; an inv train step is the 3DMatch triplet step: two
 legs of b patches (normalized synthetic shapes scaled to the 0.4 search
-radius), the soft triplet loss, the backward and Adam. Prints, per
+radius), the soft triplet loss, the backward and Adam; a reg forward or
+step takes b alignment pairs (a normalized asymmetric airplane and its
+copy under a seeded random rotation: 2b clouds in one batch), the step the
+multi-task detection loss in the alignment setting. Prints, per
 dtype, the device time by kernel group, the kernel launches, the host wall
 of the profiled run (ending in a synchronize) and the device's idle share
 (1 - device busy / wall; one stream, so busy is the sum of kernel times),
 plus the ten longest kernels. Writes the tables to
-``chiprun_out/profile_<forward|train>[_inv].json`` in the checkout. Needs a
-CUDA device.
+``chiprun_out/profile_<forward|train>[_inv|_reg].json`` in the checkout.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ from .app import config, trainer
 from .data import pc as pctk
 from .data import synthetic
 from .models import build_model_from
-from .ops import so3conv
+from .ops import icosahedron, so3conv
+from .ops.rotation import label_relative_rotation_np, rand_rotation_matrix
 from .train import make_optimizer
 
 # kernel-name substrings (all of them) -> group (first match wins); the
@@ -134,6 +141,39 @@ def inv_train_step(model, x, opt):
     return step
 
 
+def reg_pairs(rng, b: int):
+    """b alignment pairs [b, 2, 1024, 3] (the source first) and their
+    targets (labels [b, 60], T [b, 3, 3], R [b, 60, 3, 3])."""
+    anchors = icosahedron.get_anchors(60)
+    pcs, labels, Ts, Rs = [], [], [], []
+    for _ in range(b):
+        pc = pctk.normalize_np(synthetic.make_asym_shape(rng, 1024).T).T
+        T = rand_rotation_matrix(rng)
+        R, label = label_relative_rotation_np(anchors, T)
+        pcs.append(np.stack([pc @ T.T, pc]))
+        labels.append(label)
+        Ts.append(T)
+        Rs.append(R)
+    return (np.asarray(pcs, np.float32), np.stack(labels),
+            np.asarray(Ts, np.float32), np.asarray(Rs, np.float32))
+
+
+def reg_train_step(model, x, opt, targets):
+    """One rotation step: the pair forward, the multi-task detection loss
+    (alignment setting, quat), backward, Adam."""
+    dev = x.device
+    label, T, R = (torch.from_numpy(t).to(dev) for t in targets)
+    anchors = torch.from_numpy(icosahedron.get_anchors(60)).to(dev)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        wts, y = model(x)
+        losses.multi_task_detection_loss(anchors, wts, label, y, R, T,
+                                         nr=4)[0].backward()
+        opt.step()
+    return step
+
+
 def profile(model, x, dtype: str, step=None) -> dict:
     """step: the train step to profile (None: the no-grad eval forward)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -175,32 +215,37 @@ def main(argv=None):
     ap.add_argument('--dtype', '--compute-dtype', dest='dtype', nargs='+',
                     default=['fp32', 'bf16'], choices=['fp32', 'bf16'])
     ap.add_argument('--model', default='cls_so3net_pn',
-                    choices=['cls_so3net_pn', 'inv_so3net_pn'])
+                    choices=['cls_so3net_pn', 'inv_so3net_pn', 'reg_so3net'])
     ap.add_argument('-b', '--batch', type=int, default=None,
                     help='clouds a batch (default 32; 12 with --train, the '
                          'entry point\'s training batch; inv: patches a '
-                         'leg, default 16)')
+                         'leg, default 16; reg: pairs, default 8)')
     ap.add_argument('--train', action='store_true',
                     help='profile one train step instead of a forward')
     ap.add_argument('--seed', type=int, default=2913)
     args = ap.parse_args(argv)
-    inv = args.model == 'inv_so3net_pn'
+    inv, reg = args.model == 'inv_so3net_pn', args.model == 'reg_so3net'
     if args.batch is None:
-        args.batch = 16 if inv else 12 if args.train else 32
+        args.batch = 16 if inv else 8 if reg else 12 if args.train else 32
     if not torch.cuda.is_available():
         raise SystemExit('profile_forward: needs a CUDA device')
     trainer.set_fp32_parity()
     dev = torch.device('cuda')
     opt = config.parse_args(['experiment', '-d', 'unused'])
-    opt.model.model, opt.model.flag = args.model, 'attention'
+    opt.model.model = args.model
+    opt.model.flag = 'rotation' if reg else 'attention'
     model = build_model_from(opt, seed=args.seed).to(dev)
     model.train(args.train)
     rng = np.random.RandomState(args.seed)
-    n_clouds = 2 * args.batch if inv and args.train else args.batch
-    x = np.stack([pctk.normalize_np(synthetic.make_shape(rng, 1024, i % 8).T).T
-                  for i in range(n_clouds)]).astype(np.float32)
-    if inv:
-        x *= opt.model.search_radius
+    if reg:
+        x, *targets = reg_pairs(rng, args.batch)
+    else:
+        n_clouds = 2 * args.batch if inv and args.train else args.batch
+        x = np.stack([pctk.normalize_np(synthetic.make_shape(
+            rng, 1024, i % 8).T).T for i in range(n_clouds)]).astype(
+                np.float32)
+        if inv:
+            x *= opt.model.search_radius
     x = torch.from_numpy(x).to(dev)
     card = torch.cuda.get_device_name(0)
     what = 'train step' if args.train else 'forward'
@@ -211,6 +256,7 @@ def main(argv=None):
         if args.train:
             adam = make_optimizer(model.parameters(), 1e-3)
             step = (inv_train_step(model, x, adam) if inv else
+                    reg_train_step(model, x, adam, targets) if reg else
                     train_step(model, x, adam, args.seed))
         r = profile(model, x, dtype, step)
         out['profiles'].append(r)
@@ -228,7 +274,7 @@ def main(argv=None):
         os.path.abspath(__file__))), 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
     name = (f'profile_{"train" if args.train else "forward"}'
-            f'{"_inv" if inv else ""}.json')
+            f'{"_inv" if inv else "_reg" if reg else ""}.json')
     with open(os.path.join(out_dir, name), 'w') as f:
         json.dump(out, f, indent=1)
     return out

@@ -438,13 +438,22 @@ ONES_EDGES = {
 
 def _ones_model_operands(cuda, model, b):
     """Layer 0 of a model (cls_so3net_pn: radius 0.2, sigma 0.02, nn 32;
-    inv_so3net_pn: 0.08, 0.0032, 64; stride 2 from 1024 points): gx, rk,
-    k2 and sigma from a ball query over random points in the unit ball
-    (inv: a ball of radius 0.4)."""
+    inv_so3net_pn: 0.08, 0.0032, 64; reg_so3net: 0.2, 0.02, 64; stride 2
+    from 1024 points): gx, rk, k2 and sigma from a ball query over random
+    points in the unit ball (inv: a ball of radius 0.4; reg: normalized
+    asymmetric airplanes, clustered)."""
     radius, sigma, nn, scale = {'cls': (0.2, 0.02, 32, 1.0),
-                                'inv': (0.08, 0.0032, 64, 0.4)}[model]
+                                'inv': (0.08, 0.0032, 64, 0.4),
+                                'reg': (0.2, 0.02, 64, 1.0)}[model]
     rng = np.random.RandomState(1)
-    x = torch.from_numpy(scale * _ball_points(rng, b, 1024)).to(cuda)
+    if model == 'reg':
+        from epn_pointcloud_tpu_torch.data import pc as tpc
+        from epn_pointcloud_tpu_torch.data import synthetic
+        x = np.stack([tpc.normalize_np(synthetic.make_asym_shape(
+            rng, 1024).T).T for _ in range(b)]).astype(np.float32)
+        x = torch.from_numpy(x).to(cuda)
+    else:
+        x = torch.from_numpy(scale * _ball_points(rng, b, 1024)).to(cuda)
     kern = torch.from_numpy(tkp.get_spherical_kernel_points(
         tkp.KERNEL_CONDENSE_RATIO * radius, 1)).to(cuda)
     rk, k2 = tso3.rotated_kernels(torch.from_numpy(tico.get_anchors(60))
@@ -453,7 +462,7 @@ def _ones_model_operands(cuda, model, b):
     return gx.contiguous(), rk, k2, sigma
 
 
-@pytest.mark.parametrize('case', ['cls', 'inv', *ONES_EDGES])
+@pytest.mark.parametrize('case', ['cls', 'inv', 'reg', *ONES_EDGES])
 @pytest.mark.parametrize('dtype', [torch.float32, BF16])
 def test_ones_conv_kernel_matches_plain(cuda, dtype, case):
     """The anchor-weight sum: fp32 F to a normwise 1e-5, bf16 F to 4e-3, at
@@ -462,7 +471,7 @@ def test_ones_conv_kernel_matches_plain(cuda, dtype, case):
     second call. Every point also has shadow neighbors far outside the
     ball (100 away), whose weights are exactly 0, and one point has no
     other: its F is exactly 0."""
-    if case in ('cls', 'inv'):
+    if case in ('cls', 'inv', 'reg'):
         gx, rk, k2, sigma = _ones_model_operands(cuda, case, 2)
     else:
         b, p2, nn, na, K = ONES_EDGES[case]
@@ -488,7 +497,7 @@ def test_ones_conv_kernel_matches_plain(cuda, dtype, case):
     assert torch.count_nonzero(got[0, 0]) == 0
     assert _rel(got.float(), want.float()) <= (1e-5 if dtype ==
                                                torch.float32 else 4e-3)
-    if case in ('cls', 'inv') and dtype == torch.float32:
+    if case in ('cls', 'inv', 'reg') and dtype == torch.float32:
         w64 = tkern.ones_conv.ones_conv_plain(gx.double(), rk.double(),
                                               k2.double(), sigma,
                                               torch.float64)
@@ -928,10 +937,12 @@ def _intra_dw_f32_case(cuda, b, p, c, d, seed):
 
 @pytest.mark.parametrize('b,p,c', [
     (12, 512, 64), (12, 256, 128), (12, 128, 256), (12, 64, 256),
-    (16, 512, 32), (16, 256, 64), (16, 128, 128), (16, 64, 128)])
+    (16, 512, 32), (16, 256, 64), (16, 128, 128), (16, 64, 128),
+    (16, 64, 256)])
 def test_intra_dw_f32_kernel_matches_plain(cuda, b, p, c):
     """The fp32 CUDA-core dW (``intra_dw_f32_kernel``) at every intra layer
-    shape of both models at their train batches (cls b=12, inv b=16 a leg):
+    shape of the three models at their train batches (cls b=12, inv b=16 a
+    leg, reg b=8 pairs: its last layer, 256 channels at 64 points, is new):
     taken by the wrapper, finite, within 1e-5 (normwise; fp32 sums over up
     to 368,640 rows in another order: 1.5e-6..2.9e-6 measured on the
     card, where the SGEMM is held to 1e-4) of the plain version, bitwise

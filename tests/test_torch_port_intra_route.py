@@ -103,7 +103,7 @@ def test_dw_shapes_off_the_envelope_take_the_sgemm(na, K, c, d):
 # the blocks would take
 DW_SPLIT_CASES = [(6144, 64), (3072, 128), (1536, 256), (768, 256),
                   (8192, 32), (4096, 64), (2048, 128), (1024, 128),
-                  (14, 64), (39, 128), (1, 256), (42, 32)]
+                  (1024, 256), (14, 64), (39, 128), (1, 256), (42, 32)]
 
 
 @pytest.mark.parametrize('n_points,c', DW_SPLIT_CASES)
@@ -252,6 +252,19 @@ def test_dw_f32_splits_cut_whole_points(n_points, c):
     waves = -(-blocks // ik.DW_F32_WAVE)
     if n_points >= 768:
         assert blocks >= 0.95 * waves * ik.DW_F32_WAVE, (splits, blocks)
+
+
+def test_dw_f32_splits_bound_the_chain():
+    """No split of the fp32 CUDA-core dW adds more than DW_F32_MAX_PTS
+    points in one chain at any model layer (cls b=12, inv b=16 a leg, reg
+    b=8 pairs); reg's 256-wide layer at 64 points takes two waves (one would
+    give 171 points a split), the cls and inv layers keep their splits."""
+    ik = tkern.intra_conv
+    for n_points, c in DW_SPLIT_CASES[:9]:
+        splits, rows = ik.dw_f32_splits(n_points, 60, c, c)
+        assert rows <= ik.DW_F32_MAX_PTS * 60, (n_points, c, rows)
+    assert ik.dw_f32_splits(1024, 60, 256, 256) == (12, 86 * 60)
+    assert ik.dw_f32_splits(1536, 60, 256, 256) == (12, 128 * 60)
 
 
 @pytest.mark.parametrize('dtype,c,d,prenorm,route', [

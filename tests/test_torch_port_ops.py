@@ -195,7 +195,8 @@ def _ones_conv_folded(gx, rk, k2, sigma):
     float32: a = R_a kappa_k * (2 / sigma) and c = 1 - |kappa_k|^2 / sigma a
     lane, h = |gx|^2 / sigma a neighbor, the weight (c - h) + gx . a by
     three fused multiply-adds, the last clamped to [0, 1], summed over the
-    neighbors in order."""
+    neighbors n = q (mod 4) in order for each q, the four partial sums
+    added in order of q."""
     inv = 1.0 / torch.tensor(sigma, dtype=torch.float32)
     a = rk * (2.0 * inv)
     c = _fma32(-k2, inv, torch.ones(()))
@@ -203,23 +204,31 @@ def _ones_conv_folded(gx, rk, k2, sigma):
     h = _fma32(z, z, _fma32(y, y, x * x)) * inv
     b, p2, nn, _ = gx.shape
     acc = torch.zeros(b, p2, *rk.shape[:2])
-    for n in range(nn):
-        at = [v[:, :, n, None, None] for v in (x, y, z)]
-        s = _fma32(at[0], a[..., 0], c - h[:, :, n, None, None])
-        s = _fma32(at[1], a[..., 1], s)
-        acc = acc + _fma32(at[2], a[..., 2], s).clamp(0.0, 1.0)
+    for q in range(4):
+        part = torch.zeros_like(acc)
+        for n in range(q, nn, 4):
+            at = [v[:, :, n, None, None] for v in (x, y, z)]
+            s = _fma32(at[0], a[..., 0], c - h[:, :, n, None, None])
+            s = _fma32(at[1], a[..., 1], s)
+            part = part + _fma32(at[2], a[..., 2], s).clamp(0.0, 1.0)
+        acc = acc + part
     return acc
 
 
-@pytest.mark.parametrize('model', ['cls_so3net_pn', 'inv_so3net_pn'])
+@pytest.mark.parametrize('model', ['cls_so3net_pn', 'inv_so3net_pn',
+                                   'reg_so3net'])
 def test_ones_conv_folded_weight_matches_plain(model):
     """The kernel's folded weight on the model's layer-0 geometry (radius,
     sigma and neighbors from its block parameters, 60 anchors, 24 kernel
-    points, stride 2 from 1024 points; inv: patches of radius 0.4): within
+    points, stride 2 from 1024 points; inv: patches of radius 0.4; reg: a
+    normalized asymmetric airplane, whose clusters give 64 near neighbors,
+    where one chain of 64 adds was 1.6x the plain version's error): within
     a normwise 1e-5 of ones_conv_plain, and its error against a float64
     evaluation at most 1.5x the plain version's."""
     from epn_pointcloud_tpu_torch import models, run_3dmatch
     from epn_pointcloud_tpu_torch.app import config
+    from epn_pointcloud_tpu_torch.data import pc as tpc
+    from epn_pointcloud_tpu_torch.data import synthetic
     from epn_pointcloud_tpu_torch.ops import so3conv as tso3
     opt = config.parse_args(['experiment', '-d', 'unused'])
     if model == 'inv_so3net_pn':
@@ -227,9 +236,14 @@ def test_ones_conv_folded_weight_matches_plain(model):
     opt.model.model, opt.model.flag = model, 'attention'
     layer0 = models.build_model_from(opt, seed=None).params['backbone'][0][0]
     radius, sigma = layer0['args']['radius'], layer0['args']['sigma']
-    scale = 1.0 if model == 'cls_so3net_pn' else opt.model.search_radius
-    x = torch.from_numpy(scale * _ball_points(np.random.RandomState(11), 1,
-                                              1024))
+    rng = np.random.RandomState(11)
+    if model == 'reg_so3net':
+        x = tpc.normalize_np(synthetic.make_asym_shape(rng, 1024).T).T
+        x = torch.from_numpy(np.ascontiguousarray(x[None], np.float32))
+    else:
+        scale = 1.0 if model == 'cls_so3net_pn' else \
+            opt.model.search_radius
+        x = torch.from_numpy(scale * _ball_points(rng, 1, 1024))
     kern = torch.from_numpy(tkp.get_spherical_kernel_points(
         tkp.KERNEL_CONDENSE_RATIO * radius, 1))
     rk, k2 = tso3.rotated_kernels(torch.from_numpy(tico.get_anchors(60)),
