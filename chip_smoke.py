@@ -268,8 +268,41 @@ Phases (any failure exits non-zero and prints no result line):
      192 against its plain version, the chunk's descriptors kernel vs
      plain path (fp32 rtol 1e-3, atol 2e-3; bf16 per-patch cosine >=
      0.999); the host seconds beside the forward's and the device's.
+ 26. [ref-convention] cls_so3net_pn (60 anchors, 1024 points) under the
+     reference anchor convention (``set_convention('reference')``: the
+     original EPN's anchors, kernel points, adjacency and ball-query
+     fill), its weights an original-EPN-layout state_dict made from a
+     seed and loaded by ``compat.load_reference_state_dict``: each kernel
+     call of a b=32 forward in fp32 and in bf16 against its plain version
+     (``check_calls``: the bounds of phases 2 and 7 and every kernel's
+     extras and route gates; every ball query with the reference fill,
+     and the count of its queries with exactly n_sample - 1 hits
+     printed), the b=8 and b=32 logits kernel vs plain path (b=32 bf16:
+     the plain path at the kernel's rounding points), the b=32 forwards
+     timed; then the ball
+     query's reference fill index-equal to plain on both kernels ('warp'
+     at 16 slots, 'thread' at 300) on clouds with planted queries of
+     exactly n_sample - 1 hits (their count printed);
+ 27-29. [ka20], [ka40], [kpconv] cls_so3net_pn at kanchor 20, 40 and one
+     anchor (``-k``), 1024 points, full width, seeded: each kernel call of
+     a b=32 forward in fp32 and in bf16 and of a b=12 fp32 train step
+     against its plain version (``check_calls``, as phase 26, the
+     templates' routes let through), the inter routes (the templates in
+     fp32 and at one anchor, the tensor-core forward in bf16 at 20 and 40)
+     printed and held; the b=8 logits kernel vs plain path, the b=32 bf16
+     kernel path vs the plain path at its rounding points (cosine >= 0.999
+     or that reference's own to fp32), the b=32 bf16 vs fp32 kernel paths
+     (cosine >= 0.99; the plain paths' and the noise floor printed beside
+     it), the b=32 forwards timed; the train step kernel vs plain path
+     (loss to rtol 1e-5 with the rotation CE relabelled into the subset;
+     the per-leaf rule of phase 7), timed;
+ 30. [ka20-entry] this slice's main path: run_modelnet --kanchor 20
+     --run-mode train -i 2, then --run-mode eval -r -b 32 on its
+     checkpoint; each kernel's launches counted from 0 before each run and
+     held to the per-step and per-batch counts, the inter routes held.
 
-Every phase prints its wall time (``[phase] phase wall S s``).
+Every phase prints its wall time (``[phase] phase wall S s``), and the
+script's total its last ``[done]`` line.
 
 Every ones conv call (block 0 layer 0: phases 2 and 4 at b=32, the b=12
 steps of phases 6 and 9, the inv steps of phases 12 and 16 and the b=48
@@ -714,6 +747,13 @@ def _shape_desc(name, args):
         return (f'b={tab.shape[0]} p1={tab.shape[1]} p2={idx.shape[1]} '
                 f'nn={idx.shape[2]} c={tab.shape[3]} d={W.shape[2]} '
                 f'sigma={args[6]:.4f}')
+    if name in ('inter_conv_dtable', 'inter_conv_dw'):
+        idx, rk = args[1], args[3]
+        c, d = ((args[5].shape[1], args[5].shape[2])
+                if name == 'inter_conv_dtable' else
+                (args[2].shape[3], args[5].shape[-1]))
+        return (f'b={idx.shape[0]} p2={idx.shape[1]} nn={idx.shape[2]} '
+                f'na={rk.shape[0]} c={c} d={d} sigma={args[-1]:.4f}')
     if name in ('inter_conv_f', 'inter_conv_dg'):
         idx = args[1]
         c = args[2 if name == 'inter_conv_f' else 5].shape[-1]
@@ -1428,7 +1468,9 @@ def sampling_extras(name, args, got):
     torch.cuda.synchronize()
     route = next(k for k in mod.routes if mod.routes[k] > before[k])
     rec = {'route': route, 'bitwise_repeat': torch.equal(got, again)}
-    if not PARENT:
+    if not PARENT or (name == 'ball_query' and args[4] and not getattr(
+            PARENT[name], 'has_ref_fill', True)):
+        # an earlier tree's ball query may predate the reference fill
         return rec
     if name == 'fps':
         x, n_sample, eps = args
@@ -1436,10 +1478,10 @@ def sampling_extras(name, args, got):
         tail = (x.shape[0], x.shape[1], n_sample, float(eps))
         entry = {'reg': 'epn_fps_reg', 'smem': 'epn_fps'}[route]
     else:
-        x, support, radius, n_sample = args
+        x, support, radius, n_sample, ref_fill = args
         ins = (x.data_ptr(), support.data_ptr())
         tail = (x.shape[0], x.shape[1], support.shape[1], n_sample,
-                mod._r2_f32(radius))
+                mod._r2_f32(radius), int(ref_fill))
         entry = {'warp': 'epn_ball_query_warp',
                  'thread': 'epn_ball_query'}[route]
     outs = (torch.empty_like(got), torch.empty_like(got))
@@ -1660,7 +1702,15 @@ def _library_note(row):
     return note
 
 
-def _extras_ok(row):
+# the kernels a row's ``route`` may name (``_extras_ok``): the redesigned
+# ones, which every model layer at 60 anchors runs; below 60 anchors the
+# fp32 inter forward, dTable and dW also run the templates (TEMPLATES)
+REDESIGNED = ('mma', 'dtable_mma', 'dg_mma', 'dtable_f32', 'dg_f32', 'dw_mma',
+              'dw_f32', 'f_mma', 'f_f32', 'fwd_f32', 'reg', 'warp')
+TEMPLATES = ('sgemm', 'dtable', 'dw')
+
+
+def _extras_ok(row, routes=REDESIGNED):
     """The own gates of an inter forward (``inter_conv_extras``), intra
     forward or B6 df (``intra_conv_extras``), backward scatter in either
     dtype (``inter_bwd_extras``), inter dW (``inter_dw_extras``), intra dW
@@ -1676,11 +1726,8 @@ def _extras_ok(row):
     the shared add_neighbor step (the fp32 template forward, dW and W-off
     F) bitwise equal to the earlier tree's (``refactor_equal``).
     ``parent_equal`` is printed, not gated: a later tree may sum in another
-    order."""
-    return (row.get('route', 'mma') in ('mma', 'dtable_mma', 'dg_mma',
-                                        'dtable_f32', 'dg_f32', 'dw_mma',
-                                        'dw_f32', 'f_mma', 'f_f32',
-                                        'fwd_f32', 'reg', 'warp')
+    order. ``routes``: the kernels a row may have run (REDESIGNED)."""
+    return (row.get('route', 'mma') in routes
             and row.get('bitwise_repeat', True)
             and row.get('bitwise_vs_template', True)
             and row.get('rel_vs_mma_plain', 0.0) <= 1e-3
@@ -1774,8 +1821,9 @@ def inter_dw_extras(name, args, got):
     with this tree's C entry in turns (parent, new, new, parent; each with
     its own workspace, into one preallocated dW; ``parent_ms``,
     ``same_timer_ms``), and in fp32 the earlier tree's
-    epn_inter_conv_bwd_w_f32 with this tree's (``_same_kernel``). {} for
-    any other call."""
+    epn_inter_conv_bwd_w_f32 with this tree's (``_same_kernel``); off the
+    redesigned kernels' 60 anchors, this tree's template (the route the
+    call ran). {} for any other call."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     from epn_pointcloud_tpu_torch.ops.kernels import build
@@ -1826,12 +1874,14 @@ def inter_dw_extras(name, args, got):
                                                 1e-30)
         del want
     if PARENT:
+        new = {'dw_mma': (lib.epn_inter_conv_bwd_w_mma, ()),
+               'dw_f32': (lib.epn_inter_conv_bwd_w_f32,
+                          (ic.dw_f32_cols(d),)),
+               'dw': (lib.epn_inter_conv_bwd_w, (int(bf16),))}[rec['route']]
         rec['parent_ms'], rec['same_timer_ms'] = time_abba(
             call(PARENT['dw'], 'dw', (int(bf16),)),
-            call(lib.epn_inter_conv_bwd_w_mma, 'dw_mma', ()) if bf16 else
-            call(lib.epn_inter_conv_bwd_w_f32, 'dw_f32',
-                 (ic.dw_f32_cols(d),)))
-    if PARENT and not bf16:
+            call(new[0], rec['route'], new[1]))
+    if PARENT and rec['route'] == 'dw_f32':
         tail = (ic.dw_f32_cols(d),)
         rec.update(_same_kernel(call(PARENT['dw_f32'], 'dw_f32', tail),
                                 call(lib.epn_inter_conv_bwd_w_f32, 'dw_f32',
@@ -1964,7 +2014,9 @@ def inter_bwd_extras(name, args, got):
     With --parent-csrc also the earlier tree's C entry (in the call's
     dtype) on the same inputs, timed with this tree's in turns (parent,
     new, new, parent; both into one preallocated dT; ``parent_ms``,
-    ``same_timer_ms``). {} for any other call."""
+    ``same_timer_ms``). Off the redesigned kernels' 60 anchors the
+    composition's dG and this tree's entry are the template's (the route
+    the call ran). {} for any other call."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     from epn_pointcloud_tpu_torch.ops.kernels import build
@@ -1983,8 +2035,11 @@ def inter_bwd_extras(name, args, got):
     head = (gx.data_ptr(), idx.data_ptr(), rk.data_ptr(), k2.data_ptr())
     dT = torch.zeros_like(got)
     lib = build.library()
+    template = rec['route'] in ('dtable', 'dg')
     kind = 'mma' if bf16 else 'f32'
-    tail = ()
+    dg_entry, dg_tail = (('epn_inter_conv_dg', (int(bf16),)) if template else
+                         (f'epn_inter_conv_dg_{kind}', ()))
+    tail = (int(bf16),) if template else ()
     if name == 'inter_conv_dtable':
         W, dout = args[5], args[6]
         d = W.shape[2]
@@ -1994,21 +2049,22 @@ def inter_bwd_extras(name, args, got):
 
         def composed():
             dF = torch.mm(dout2, W2.t())
-            build.launch(f'epn_inter_conv_dg_{kind}', *head, dF.data_ptr(),
-                         dT.data_ptr(), b, p2, nn, q, na, K, c,
-                         float(args[7]), build.stream(dout))
+            build.launch(dg_entry, *head, dF.data_ptr(), dT.data_ptr(), b,
+                         p2, nn, q, na, K, c, float(args[7]), *dg_tail,
+                         build.stream(dout))
         rec['composed_ms'] = time_ms(composed, reps=5, warmup=2)
         ptrs = head + (W.data_ptr(), dout.data_ptr(), dT.data_ptr(), b, p2,
                        nn, q, na, K, c, d, float(args[7]))
-        pair = ('dtable', f'epn_inter_conv_bwd_table_{kind}')
-        if not bf16:
+        pair = ('dtable', 'epn_inter_conv_bwd_table' if template else
+                f'epn_inter_conv_bwd_table_{kind}')
+        if not bf16 and not template:
             ws = torch.empty(ic.bwd_f32_workspace(b, p2, K, c, d),
                              dtype=torch.float32, device=got.device)
             tail = (ws.data_ptr(),)
     else:
         ptrs = head + (args[5].data_ptr(), dT.data_ptr(), b, p2, nn, q, na,
                        K, c, float(args[6]))
-        pair = ('dg', f'epn_inter_conv_dg_{kind}')
+        pair = ('dg', dg_entry)
     if PARENT:
         def call(fn, tail):
             def run():
@@ -2107,7 +2163,10 @@ def inter_fwd_f32_times(args, got):
     ``kernel_peak_gib``); the earlier tree's template (epn_inter_conv,
     bf16 = 0) timed with this tree's epn_inter_conv_fwd_f32 in turns
     (parent, new, new, parent; ``parent_ms``, ``same_timer_ms``) and with
-    this tree's template (``_same_kernel``)."""
+    this tree's template (``_same_kernel``). Off the 60 anchors of the
+    CUDA-core kernels, the composition's F is the template's W-off mode
+    (epn_inter_conv_f, bf16 = 0), and the earlier template is timed against
+    this tree's, the route the call ran."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     from epn_pointcloud_tpu_torch.ops.kernels import build
@@ -2121,12 +2180,15 @@ def inter_fwd_f32_times(args, got):
             k2.data_ptr())
     dims = (b, p2, nn, q, na, K, c)
     W2 = W.reshape(K * c, d)
+    f_f32 = ic.f_f32_route(table.dtype, K, c, nn, na)
+    f_entry, f_tail = ((lib.epn_inter_conv_f_f32, ()) if f_f32 else
+                       (lib.epn_inter_conv_f, (0,)))
 
     def composed(F):
-        err = lib.epn_inter_conv_f_f32(*head, F.data_ptr(), *dims,
-                                       float(sigma), build.stream(gx))
+        err = f_entry(*head, F.data_ptr(), *dims, float(sigma), *f_tail,
+                      build.stream(gx))
         if err:
-            raise RuntimeError(f'epn_inter_conv_f_f32: CUDA error {err}')
+            raise RuntimeError(f'inter W-off F: CUDA error {err}')
         return torch.mm(F, W2)
 
     def composed_fresh():
@@ -2148,8 +2210,10 @@ def inter_fwd_f32_times(args, got):
                     raise RuntimeError(f'inter forward: CUDA error {err}')
             return run
         parent = call(PARENT['fwd'], (0,))
+        fwd_f32 = ic.fwd_f32_route(table.dtype, K, c, d, nn, na)
         rec['parent_ms'], rec['same_timer_ms'] = time_abba(
-            parent, call(lib.epn_inter_conv_fwd_f32, ()))
+            parent, call(lib.epn_inter_conv_fwd_f32, ()) if fwd_f32 else
+            call(lib.epn_inter_conv, (0,)))
         rec.update(_same_kernel(parent, call(lib.epn_inter_conv, (0,)), out))
         del out
         torch.cuda.empty_cache()
@@ -2170,7 +2234,8 @@ def inter_conv_extras(name, args, got):
     --parent-csrc also the earlier tree's kernel on the same inputs, timed
     with this one in turns (parent, new, new, parent; ``parent_ms``,
     ``same_timer_ms``), and whether its output has the same bits as this
-    one's (``parent_equal``). {} for any other call."""
+    one's (``parent_equal``), where the call ran the tensor-core kernel.
+    {} for any other call."""
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
     from epn_pointcloud_tpu_torch.ops.kernels import build
@@ -2206,7 +2271,7 @@ def inter_conv_extras(name, args, got):
         torch.mm(F, W2)
     rec['composed_ms'] = time_ms(composed, reps=5, warmup=2)
     del F
-    if PARENT:
+    if PARENT and rec['route'] == 'mma':
         out = torch.empty_like(got)
 
         def parent():
@@ -2436,6 +2501,17 @@ def train_tol(name, dtype):
         tol = 1e-4 if name.endswith('_dw') else 1e-5
         return lambda out: tol
     return lambda out: 8e-3 if out.dtype == torch.bfloat16 else 1e-3
+
+
+def fwd_tol(name, dtype):
+    """The bound on the normwise relative error of each output of a
+    forward's kernel call against its plain version (phases 2 and 7): None
+    (equal) for the index kernels; 1e-5 for fp32 outputs, 4e-3 for bf16
+    ones."""
+    import torch
+    if name in ('fps', 'ball_query'):
+        return lambda out: None
+    return lambda out: 4e-3 if out.dtype == torch.bfloat16 else 1e-5
 
 
 def compare_outputs(got, want, tol):
@@ -2944,12 +3020,15 @@ def _step_layer(name, i, layers=INV_LAYERS, composed=INV_COMPOSED,
     return f'{per_leg[i % len(per_leg)]}#{i // len(per_leg)}'
 
 
-def check_step_calls(tag, calls, names, dtype, layer_of=_step_layer):
+def check_step_calls(tag, calls, names, dtype, layer_of=_step_layer,
+                     tol=train_tol, routes=REDESIGNED):
     """Each captured kernel call of a train step (``calls``) against its
-    plain version on the same inputs, timed, by ``train_tol``, with the
-    extras of its kernel (phase 12's checks); the composed route's bf16 dW
-    product against float64 (``inv_dw_product_row``). Returns (rows by
-    name, the calls that failed, the calls by name)."""
+    plain version on the same inputs, timed, by ``tol`` (``train_tol``; a
+    forward's calls: ``fwd_tol``), with the extras of its kernel (phase
+    12's checks; ``routes``: the kernels ``_extras_ok`` lets a row have
+    run); the composed route's bf16 dW product against float64
+    (``inv_dw_product_row``). Returns (rows by name, the calls that failed,
+    the calls by name)."""
     import torch
     n_calls = {n: sum(1 for c in calls if c[0] == n) for n in names}
     seen = dict.fromkeys(names, 0)
@@ -2963,7 +3042,7 @@ def check_step_calls(tag, calls, names, dtype, layer_of=_step_layer):
         else:
             kern_fn, plain_fn, pargs = _kernel_pair(name, args)
             got, row = check_call(kern_fn, plain_fn, args, pargs,
-                                  train_tol(name, dtype))
+                                  tol(name, dtype))
             row.update(layer=layer, dtype=str(got[0].dtype),
                        shape=' '.join(str(tuple(a.shape)) for a in args[:3]
                                       if torch.is_tensor(a)))
@@ -2985,7 +3064,7 @@ def check_step_calls(tag, calls, names, dtype, layer_of=_step_layer):
             row.update(inter_dw_extras(name, args, got[0]))
             row.update(intra_dw_extras(name, args, got[0]))
             row.update(inter_f_extras(name, args, got[0]))
-            row['ok'] = row['ok'] and _extras_ok(row)
+            row['ok'] = row['ok'] and _extras_ok(row, routes)
             log(f'{tag} {name} {layer} ({row["shape"]}, {row["dtype"]}): '
                 f'max_abs_err={row["max_abs_err"]:.3e} rel_norm_err='
                 f'{" ".join(f"{r:.3e}" for r in row["rels"])} kernel_ms='
@@ -4132,6 +4211,490 @@ F32_KERNELS = {
 
 # the earlier tree's sources built alone (--parent-csrc): source -> its C
 # entries, as PARENT's keys
+# ------------------------- the reference convention and reduced anchors
+
+# the reduced-anchor cls models: (kanchor, kpconv); kpconv runs one anchor
+ANCHOR_MODELS = {'[ka20]': (20, False), '[ka40]': (40, False),
+                 '[kpconv]': (60, True)}
+# the kernels a cls forward or step may call (an inter block model calls no
+# intra conv and no fused tail: it has no skip branch)
+ALL_FWD = ('fps', 'ball_query', 'ones_conv', 'inter_conv', 'intra_conv',
+           'intra_conv_prenorm', 'moments', 'grouped_conv_tail',
+           'grouped_conv')
+ALL_STEP = ALL_FWD + ('inter_conv_dtable', 'inter_conv_dw', 'intra_conv_dw',
+                      'intra_conv_prenorm_df', 'intra_conv_prenorm_dw',
+                      'grouped_conv_bwd', 'inter_conv_f', 'inter_conv_dg')
+# launches of an inter block cls model (7 inter layers, the first on the
+# ones input): an fp32 eval forward, and an fp32 train step (dTable and dW
+# at the 6 layers with a feature table); bf16 adds the head's grouped mlp
+# conv where the JAX package packs (kanchor > 1)
+ANCHOR_EVAL = {**_NO_BF16, **_NO_WOFF, 'fps': 1, 'ball_query': 7,
+               'ones_conv': 1, 'inter_conv': 6, 'inter_conv_dtable': 0,
+               'inter_conv_dw': 0, 'intra_conv': 0, 'intra_conv_dw': 0}
+ANCHOR_STEP = {**ANCHOR_EVAL, 'inter_conv_dtable': 6, 'inter_conv_dw': 6}
+# the routes of an inter block model's inter calls: the fp32 forward,
+# dTable and dW off their redesigned kernels' 60 anchors (the templates);
+# the bf16 forward on the tensor-core kernel from MMA_MIN_NA anchors
+ANCHOR_ROUTE = {'fp32': 'sgemm', 'bf16': 'mma', 'bf16_na1': 'sgemm',
+                'inter_conv_dtable': 'dtable', 'inter_conv_dw': 'dw'}
+
+
+def anchor_opt(kanchor, kpconv, dataset_path='unused'):
+    opt = full_opt(dataset_path)
+    opt.model.kanchor, opt.model.kpconv = kanchor, kpconv
+    return opt
+
+
+def check_calls(tag, calls, names, dtype, step=False, routes=REDESIGNED):
+    """``check_step_calls`` over the captured calls of one cls forward (the
+    bounds of ``fwd_tol``) or train step (``step``: ``train_tol``) in
+    ``dtype``, a call's layer its count ('#i'), ``routes`` the kernels a
+    row may have run; in bf16 without fps and the ball query, which take
+    the fp32 forward's coordinates (``BF16_COMPARED``). Raises if a call
+    fails; returns {kernel: rows}."""
+    if dtype == 'bf16':
+        calls = [c for c in calls if c[0] not in ('fps', 'ball_query')]
+    results, failures, _ = check_step_calls(
+        tag, calls, names, dtype, layer_of=lambda name, i: f'#{i}',
+        tol=train_tol if step else fwd_tol, routes=routes)
+    assert not failures, f'{tag} kernel comparisons failed: {failures}'
+    return {n: rows for n, rows in results.items() if rows}
+
+
+def _call_counts(calls):
+    out = {}
+    for name, _ in calls:
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def forward_calls(model, x, dtype):
+    """The kernel calls of one eval forward of ``model`` on ``x`` in
+    ``dtype`` (captured as they run), and the logits."""
+    import torch
+    out = []
+
+    def run():
+        with torch.no_grad():
+            out.append(model(x)[0])
+    with compute_dtype(dtype):
+        calls = capture_calls(ALL_FWD, run)
+    return calls, out[0]
+
+
+def _route_table(calls_routes):
+    """{kernel: {route: calls}} of compared rows."""
+    table = {}
+    for name, rows in calls_routes.items():
+        for r in rows:
+            if r.get('route') is not None:
+                t = table.setdefault(name, {})
+                t[r['route']] = t.get(r['route'], 0) + 1
+    return table
+
+
+def forward_wall(model, x, dtype, reps=3):
+    """Whole-forward ms (median of ``reps``, CUDA events) of the kernel and
+    the plain path in turns."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+
+    def plain_fwd():
+        with kernels.plain():
+            model(x)
+    k_ts, p_ts = [], []
+    with torch.no_grad(), compute_dtype(dtype):
+        model(x)
+        plain_fwd()
+        for _ in range(reps):
+            k_ts.append(time_ms(lambda: model(x), reps=1, warmup=0))
+            p_ts.append(time_ms(plain_fwd, reps=1, warmup=0))
+    return statistics.median(k_ts), statistics.median(p_ts)
+
+
+class plain_at_rounding_points:
+    """The plain path (``kernels.plain()``) with the inter forward at the
+    TPU kernel's bf16 rounding points (``inter_conv_mma_plain``, which each
+    bf16 inter call is held to within 1e-3) in place of
+    ``inter_conv_plain`` (fp32 inside): the whole-model reference of the
+    bf16 kernel path."""
+
+    def __enter__(self):
+        from epn_pointcloud_tpu_torch.ops import kernels
+        self.ic = kernels.inter_conv
+        self.saved = self.ic.inter_conv_plain
+        self.ic.inter_conv_plain = self.ic.inter_conv_mma_plain
+        self.plain = kernels.plain()
+        self.plain.__enter__()
+
+    def __exit__(self, *exc):
+        self.plain.__exit__(*exc)
+        self.ic.inter_conv_plain = self.saved
+
+
+def model_forward_checks(tag, model, device, b32, bf16_vs_fp32=0.999):
+    """b=8 logits kernel vs plain path (fp32 to rtol 1e-3, atol 2e-3; bf16
+    per-sample cosine >= 0.999); at b=32 the bf16 kernel path against the
+    plain path at the kernel's rounding points (``plain_at_rounding_points``:
+    per-sample cosine >= 0.999, or >= that reference's own cosine to the
+    fp32 plain path where it is lower), the bf16 vs fp32 kernel paths (>=
+    ``bf16_vs_fp32``); printed beside them the bf16 kernel path against the
+    plain path (fp32 inside its inter forward), both plain paths against
+    fp32, and the noise floor (the kernel path on the clouds scaled by
+    NOISE_SCALES against on the clouds); the b=32 forward timed in both
+    dtypes."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    x8 = torch.from_numpy(synthetic_batch(8, N_POINTS, SEED + 1)).to(device)
+    out = {}
+    with torch.no_grad():
+        k8 = model(x8)[0]
+        with kernels.plain():
+            p8 = model(x8)[0]
+        torch.testing.assert_close(k8, p8, rtol=1e-3, atol=2e-3)
+        with compute_dtype('bf16'):
+            k16 = model(x8)[0]
+            with kernels.plain():
+                p16 = model(x8)[0]
+                p16_32 = model(b32)[0]
+            with plain_at_rounding_points():
+                r16_32 = model(b32)[0]
+            b16 = model(b32)[0]
+            # the noise floor: the kernel path on the clouds scaled by
+            # 1 +- 1e-6 (bf16 roundings that flip)
+            noise = min(float(_cosine(model(b32 * sc)[0], b16).min())
+                        for sc in NOISE_SCALES)
+        f32 = model(b32)[0]
+        with kernels.plain():
+            pf32 = model(b32)[0]
+    cos8, cos32 = _cosine(k16, p16), _cosine(b16, f32)
+    out.update(fp32_b8_max_abs_err=float((k8 - p8).abs().max()),
+               bf16_b8_min_cos=float(cos8.min()),
+               bf16_b32_vs_rounding_min_cos=float(
+                   _cosine(b16, r16_32).min()),
+               bf16_b32_vs_plain_min_cos=float(_cosine(b16, p16_32).min()),
+               bf16_b32_noise_min_cos=noise,
+               bf16_vs_fp32_b32_min_cos=float(cos32.min()),
+               rounding_bf16_vs_fp32_b32_min_cos=float(
+                   _cosine(r16_32, pf32).min()),
+               plain_bf16_vs_fp32_b32_min_cos=float(
+                   _cosine(p16_32, pf32).min()))
+    del p16_32, r16_32, pf32
+    assert torch.isfinite(k8).all() and torch.isfinite(b16).all()
+    assert out['bf16_b8_min_cos'] >= 0.999, out
+    # the kernel path no further from its reference than that reference is
+    # from fp32 (the rounding points' own error), or 0.999
+    assert out['bf16_b32_vs_rounding_min_cos'] >= min(
+        0.999, out['rounding_bf16_vs_fp32_b32_min_cos']), out
+    assert out['bf16_vs_fp32_b32_min_cos'] >= bf16_vs_fp32, out
+    for dtype in ('fp32', 'bf16'):
+        k_ms, p_ms = forward_wall(model, b32, dtype)
+        out[f'{dtype}_forward_b32_ms'] = k_ms
+        out[f'{dtype}_plain_forward_b32_ms'] = p_ms
+    log(f'{tag} b=8 fp32 logits kernel vs plain path max_abs_err '
+        f'{out["fp32_b8_max_abs_err"]:.3e} (rtol 1e-3, atol 2e-3); bf16 '
+        f'kernel vs plain min cosine b=8 {out["bf16_b8_min_cos"]:.7f} (>= '
+        f'0.999); b=32 bf16 kernel path vs the plain path at its rounding '
+        f'points {out["bf16_b32_vs_rounding_min_cos"]:.7f} (>= the lower of '
+        f'0.999 and the next reading), vs the plain path '
+        f'{out["bf16_b32_vs_plain_min_cos"]:.7f}, the kernel path on the '
+        f'clouds x {NOISE_SCALES} vs on the clouds (the noise floor) '
+        f'{noise:.7f}; b=32 bf16 '
+        f'vs fp32: kernel path {out["bf16_vs_fp32_b32_min_cos"]:.7f} (>= '
+        f'{bf16_vs_fp32}), plain path at the rounding points '
+        f'{out["rounding_bf16_vs_fp32_b32_min_cos"]:.7f}, plain path '
+        f'{out["plain_bf16_vs_fp32_b32_min_cos"]:.7f}; whole '
+        f'b={BATCH} forward fp32 {out["fp32_forward_b32_ms"]:.2f} ms '
+        f'({1e3 * BATCH / out["fp32_forward_b32_ms"]:.1f} clouds/s; plain '
+        f'{out["fp32_plain_forward_b32_ms"]:.2f}), bf16 '
+        f'{out["bf16_forward_b32_ms"]:.2f} ms '
+        f'({1e3 * BATCH / out["bf16_forward_b32_ms"]:.1f} clouds/s; plain '
+        f'{out["bf16_plain_forward_b32_ms"]:.2f})')
+    return out
+
+
+def phase_anchor_model(tag, device):
+    """cls_so3net_pn at a reduced anchor count (``ANCHOR_MODELS[tag]``),
+    1024 points, full width, seeded: each kernel call of a b=32 forward in
+    fp32 and in bf16 and of a b=12 fp32 train step against its plain
+    version (``check_calls``), the inter calls' routes (which took the
+    template) printed and held to ``ANCHOR_ROUTE``, the model's checks
+    (``model_forward_checks``), and the train step kernel vs plain path
+    from the same weights (loss to rtol 1e-5, the rotation CE relabelled
+    into the subset; per-leaf gradients by ``_grads_close``), timed."""
+    import torch
+    from epn_pointcloud_tpu_torch import models
+    from epn_pointcloud_tpu_torch.ops import kernels
+    kanchor, kpconv = ANCHOR_MODELS[tag]
+    na = 1 if kpconv else kanchor
+    opt = anchor_opt(kanchor, kpconv)
+    model = models.build_model_from(opt, seed=SEED).to(device).eval()
+    assert model.params['na'] == na
+    x = torch.from_numpy(synthetic_batch(BATCH, N_POINTS, SEED)).to(device)
+    out = {'na': na, 'results': {}}
+    for dtype in ('fp32', 'bf16'):
+        calls, logits = forward_calls(model, x, dtype)
+        assert torch.isfinite(logits).all() and logits.shape == (BATCH, 40)
+        expect = {n: k for n, k in ANCHOR_EVAL.items() if k}
+        if dtype == 'bf16' and na > 1:
+            expect['grouped_conv'] = 1
+        assert _call_counts(calls) == expect, (_call_counts(calls), expect)
+        with compute_dtype(dtype), torch.no_grad():
+            rows = check_calls(f'{tag} {dtype}', calls, ALL_FWD, dtype,
+                               routes=REDESIGNED + TEMPLATES)
+        routes = _route_table(rows)
+        want = ANCHOR_ROUTE['bf16_na1' if dtype == 'bf16' and na == 1
+                            else dtype]
+        log(f'{tag} {dtype} b={BATCH} forward: launches by kernel {routes} '
+            f'(the inter forward on {want!r} at all {expect["inter_conv"]} '
+            f'layers)')
+        assert routes['inter_conv'] == {want: expect['inter_conv']}, routes
+        out['results'][dtype] = rows
+        out[f'{dtype}_routes'] = routes
+        del calls
+        torch.cuda.empty_cache()
+    # below 60 anchors the bf16 logits sit further from fp32: at kanchor 20
+    # the kernel path reads 0.995, the plain path at its rounding points
+    # 0.9965, and a 1e-6 scaling of the clouds moves the kernel path's
+    # logits to 0.994 (the noise floor; PERF.md section 6)
+    out.update(model_forward_checks(tag, model, device, x,
+                                    bf16_vs_fp32=0.99))
+    del model, x
+    torch.cuda.empty_cache()
+
+    mk, mp = (perturb_norm_biases(models.build_model_from(
+        opt, seed=SEED)).to(device).train() for _ in range(2))
+    batch = train_batch(device, SEED + 4)
+    f64 = f64_grad_max(mp, batch)
+    kernels.reset_counts()
+    losses_k = []
+
+    def step():
+        loss = step_loss(mk, batch)
+        loss.backward()
+        losses_k.append(loss.item())
+    calls = capture_calls(ALL_STEP, step)
+    counts_k = kernels.counts()
+    with kernels.plain():
+        loss_p = step_loss(mp, batch)
+        loss_p.backward()
+    torch.cuda.synchronize()
+    assert kernels.counts() == counts_k, 'the plain path launched a kernel'
+    assert counts_k == ANCHOR_STEP, (counts_k, ANCHOR_STEP)
+    lk, lp = losses_k[0], loss_p.item()
+    assert abs(lk - lp) <= 1e-5 * abs(lp), (lk, lp)
+    bad, worst = [], (0.0, '')
+    pk = dict(mk.named_parameters())
+    for name, p in mp.named_parameters():
+        zero = torch.zeros_like(p)
+        g = pk[name].grad
+        ok, msg = _grads_close(name, zero if g is None else g,
+                               zero if p.grad is None else p.grad, f64[name])
+        if not ok:
+            bad.append(msg)
+        if f64[name] > 1e-5 and g is not None:
+            worst = max(worst, (float((g - p.grad).norm()
+                                      / p.grad.norm().clamp(min=1e-30)),
+                                name))
+    assert not bad, bad
+    log(f'{tag} b={TRAIN_BATCH} fp32 train step: loss kernel path {lk:.7f}, '
+        f'plain path {lp:.7f} (rtol 1e-5); {len(pk)} leaves, worst relative '
+        f'L2 {worst[0]:.3e} at {worst[1]}')
+    with torch.no_grad():
+        rows = check_calls(f'{tag} step', calls, ALL_STEP, 'fp32', step=True,
+                           routes=REDESIGNED + TEMPLATES)
+    routes = _route_table(rows)
+    log(f'{tag} fp32 train step: launches by kernel {routes}')
+    for name in ('inter_conv_dtable', 'inter_conv_dw'):
+        assert routes[name] == {ANCHOR_ROUTE[name]: ANCHOR_STEP[name]}, routes
+    assert routes['inter_conv'] == {'sgemm': ANCHOR_STEP['inter_conv']}
+    out['results']['step'] = rows
+    out['step_routes'] = routes
+    del calls
+    _, k_ms, p_ms, _, _ = time_steps(mk, mp, batch, 'fp32', 3, tag=tag)
+    out.update(loss_kernel=lk, loss_plain=lp, worst_grad_rel_l2=worst[0],
+               step_ms=k_ms, plain_step_ms=p_ms)
+    del mk, mp
+    torch.cuda.empty_cache()
+    return out
+
+
+def short_queries(query, support, radius, n_sample):
+    """Queries with exactly n_sample - 1 hits (d^2 < r^2 as the ball query
+    computes it): the ones the reference fill leaves a 0 in."""
+    from epn_pointcloud_tpu_torch.ops.kernels import ball_query as bq
+    diff = query[:, :, None, :] - support[:, None, :, :]
+    dx, dy, dz = diff.unbind(-1)
+    hits = (((dx * dx + dy * dy) + dz * dz) < bq._r2_f32(radius)).sum(-1)
+    return int((hits == n_sample - 1).sum())
+
+
+def ref_fill_cloud(device, n_sample, b=4, m=64, seed=5, radius=0.2):
+    """Queries far apart, each with a planted number of support points
+    inside ``radius`` (0, 1, n_sample - 1, n_sample, n_sample + 3 in turn),
+    the rest of the support far away, in a shuffled index order."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    plan = [0, 1, n_sample - 1, n_sample, n_sample + 3]
+    hits = [plan[j % len(plan)] for j in range(m)]
+    n = sum(hits) + 64
+    q = np.zeros((b, m, 3), np.float32)
+    q[:, :, 0] = 10.0 * np.arange(m)
+    s = 1000.0 + rng.rand(b, n, 3).astype(np.float32)
+    for bi in range(b):
+        slots, used = rng.permutation(n), 0
+        for j, h in enumerate(hits):
+            off = rng.randn(h, 3)
+            off *= 0.5 * radius * rng.rand(h, 1) / np.linalg.norm(
+                off, axis=1, keepdims=True)
+            s[bi, slots[used:used + h]] = q[bi, j] + off
+            used += h
+    return (torch.from_numpy(q).to(device), torch.from_numpy(s).to(device),
+            radius)
+
+
+def phase_ref_convention(device):
+    """cls_so3net_pn at 60 anchors, 1024 points, under the reference anchor
+    convention, on an original-EPN-layout state_dict made from a seed and
+    loaded by ``load_reference_state_dict``: each kernel call of a b=32
+    forward in fp32 and in bf16 against its plain version
+    (``check_calls``; every ball query with the reference fill), the
+    model's checks (``model_forward_checks``); then the ball query with the
+    reference fill index-equal to plain on both kernels ('warp' and
+    'thread') on clouds with planted queries of exactly n_sample - 1 hits
+    (their count printed, and the model's own)."""
+    import torch
+    from epn_pointcloud_tpu_torch import compat, models
+    from epn_pointcloud_tpu_torch.ops import icosahedron, kernels
+    icosahedron.set_convention('reference')
+    try:
+        src = models.build_model_from(full_opt(), seed=SEED + 7)
+        sd = perturb_norm_biases(src).state_dict()
+        gen = torch.Generator().manual_seed(SEED + 8)
+        for k, v in sd.items():
+            if k.endswith('running_mean'):
+                v.copy_(0.1 * torch.randn(v.shape, generator=gen))
+            elif k.endswith('running_var'):
+                v.copy_(0.5 + torch.rand(v.shape, generator=gen))
+        model = models.build_model_from(full_opt(), seed=None)
+        compat.load_reference_state_dict(model, sd)
+        model = model.to(device).eval()
+        x = torch.from_numpy(synthetic_batch(BATCH, N_POINTS, SEED)).to(
+            device)
+        out = {'results': {}}
+        for dtype in ('fp32', 'bf16'):
+            calls, logits = forward_calls(model, x, dtype)
+            assert torch.isfinite(logits).all()
+            bq = [a for n, a in calls if n == 'ball_query']
+            assert bq and all(a[4] is True for a in bq), 'no reference fill'
+            short = sum(short_queries(*a[:4]) for a in bq)
+            with compute_dtype(dtype), torch.no_grad():
+                rows = check_calls(f'[ref-convention] {dtype}', calls,
+                                   ALL_FWD, dtype)
+            out['results'][dtype] = rows
+            out[f'{dtype}_routes'] = _route_table(rows)
+            out['model_short_queries'] = short
+            log(f'[ref-convention] {dtype} b={BATCH} forward: launches by '
+                f'kernel {out[f"{dtype}_routes"]}; {short} of its ball '
+                f'queries have exactly n_sample - 1 hits')
+            del calls
+        out.update(model_forward_checks('[ref-convention]', model, device,
+                                        x))
+        del model, x
+        torch.cuda.empty_cache()
+        fills = []
+        for ns in (16, 300):
+            q, s, r = ref_fill_cloud(device, ns)
+            short = short_queries(q, s, r, ns)
+            before = dict(kernels.ball_query.routes)
+            got = kernels.ball_query.ball_query(q, s, r, ns, True)
+            torch.cuda.synchronize()
+            route = next(k for k, n in kernels.ball_query.routes.items()
+                         if n > before[k])
+            want = kernels.ball_query.ball_query_plain(q, s, r, ns, True)
+            native = kernels.ball_query.ball_query(q, s, r, ns, False)
+            equal = torch.equal(got, want)
+            moved = int((got != native).any(-1).sum())
+            log(f'[ref-convention] ball_query ref fill ns={ns} route={route}: '
+                f'{short} queries with exactly ns - 1 hits, index-equal to '
+                f'plain {equal}; {moved} queries differ from the native fill '
+                f'(those whose first hit is not point 0)')
+            assert equal and 0 < moved <= short, (equal, short, moved)
+            assert route == ('warp' if ns <= 256 else 'thread'), route
+            fills.append({'n_sample': ns, 'route': route,
+                          'short_queries': short, 'equal': equal})
+        out['ref_fill'] = fills
+        return out
+    finally:
+        icosahedron.set_convention('native')
+
+
+def phase_anchor_entry():
+    """This slice's main path: run_modelnet --kanchor 20 train -i 2 (b=12
+    forced), then its checkpoint through --run-mode eval -r -b 32, each
+    kernel's launches counted from 0 before each run and held to the
+    per-step / per-batch counts, every inter forward, dTable and dW on the
+    route ``ANCHOR_ROUTE`` names."""
+    import torch
+    from epn_pointcloud_tpu_torch import run_modelnet
+    from epn_pointcloud_tpu_torch.data import synthetic
+    from epn_pointcloud_tpu_torch.ops import kernels
+    tag = '[ka20-entry]'
+    tree = os.path.join(WORK_DIR, 'modelnet')
+    runs = os.path.join(WORK_DIR, 'runs')
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    synthetic.make_modelnet_tree(tree, n_cats=4, n_train=6, n_test=16,
+                                 n_points=N_POINTS, seed=0,
+                                 splits=('train', 'testR'))
+    common = ['--kanchor', '20', '--model-dir', runs]
+    steps = 2
+    kernels.reset_counts()
+    trainer = run_modelnet.main(['experiment', '-d', tree, '--run-mode',
+                                 'train', '-i', str(steps), '--save-freq',
+                                 str(steps), '-lf', '1'] + common)
+    torch.cuda.synchronize()
+    train_counts, train_routes = kernels.counts(), route_counts()
+    trainer.logger.close()
+    n_eval = len(trainer.eval_logits)
+    stats = dict(trainer.summary.running_stats)
+    assert trainer.model.params['na'] == 20
+    assert all(math.isfinite(stats[k]) for k in ('Loss', 'R_Loss'))
+    expect = {n: steps * ANCHOR_STEP[n] + n_eval * ANCHOR_EVAL[n]
+              for n in ANCHOR_STEP}
+    assert n_eval >= 1 and train_counts == expect, (train_counts, expect)
+    log(f'{tag} run_modelnet --kanchor 20 train -i {steps}: running stats '
+        f'{stats}; kernel launches {train_counts}; by kernel {train_routes}')
+    kernels.reset_counts()
+    other = run_modelnet.main(['experiment', '-d', tree, '--run-mode', 'eval',
+                               '-b', str(BATCH), '-r', trainer.last_ckpt]
+                              + common)
+    torch.cuda.synchronize()
+    eval_counts, eval_routes = kernels.counts(), route_counts()
+    other.logger.close()
+    n_batches = len(other.eval_logits)
+    logits = torch.cat(other.eval_logits)
+    assert torch.isfinite(logits).all() and n_batches >= 2
+    expect = {n: n_batches * k for n, k in ANCHOR_EVAL.items()}
+    assert eval_counts == expect, (eval_counts, expect)
+    for routes, n_fwd, n_bwd in ((train_routes, train_counts['inter_conv'],
+                                  train_counts['inter_conv_dw']),
+                                 (eval_routes, eval_counts['inter_conv'], 0)):
+        inter = {k: v for k, v in routes['inter'].items() if v}
+        want = {'sgemm': n_fwd}
+        if n_bwd:
+            want.update(dtable=n_bwd, dw=n_bwd)
+        assert inter == want, (inter, want)
+        assert routes['ball_query'] == {'warp': routes['ball_query']['warp'],
+                                        'thread': 0}
+    log(f'{tag} run_modelnet --kanchor 20 --run-mode eval -r -b {BATCH}: '
+        f'{n_batches} batches, logits {tuple(logits.shape)}, accuracy '
+        f'{other.test_accs[-1]:.2f}%; kernel launches {eval_counts}; by '
+        f'kernel {eval_routes}')
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    return {'train_launches': train_counts, 'eval_launches': eval_counts}
+
+
 PARENT_SOURCES = {'fps.cu': {'fps': 'epn_fps'},
                   'ball_query.cu': {'ball_query': 'epn_ball_query'},
                   'ones_conv.cu': {'ones_conv': 'epn_ones_conv'},
@@ -4152,16 +4715,13 @@ def load_parent(source, proc, so):
     """The earlier tree's C entries of ``source`` from its library, once
     nvcc is done (--parent-csrc)."""
     import ctypes
-    from epn_pointcloud_tpu_torch.ops.kernels import build
+    from epn_pointcloud_tpu_torch.sampling_variants import parent_entry
     out = proc.communicate()[0]
     if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed on the parent {source}:\n{out}')
     lib = ctypes.CDLL(so)
     for key, entry in PARENT_SOURCES[source].items():
-        fn = getattr(lib, entry)
-        fn.argtypes = build.SIGNATURES[entry]
-        fn.restype = ctypes.c_int
-        PARENT[key] = fn
+        PARENT[key] = parent_entry(lib, entry, os.path.dirname(so))
     log(f'[build] parent {source} built and loaded')
 
 
@@ -4273,6 +4833,12 @@ def main(argv=None):
                             phase_3dmatch_eval_entry, inv_bf16_ckpt, 'bf16')
         shutil.rmtree(INV_DIR, ignore_errors=True)
         shutil.rmtree(EVAL_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+        ref_conv = timed('[ref-convention]', phase_ref_convention, device)
+        anchor = {}
+        for tag in ANCHOR_MODELS:
+            anchor[tag] = timed(tag, phase_anchor_model, tag, device)
+        anchor_entry = timed('[ka20-entry]', phase_anchor_entry)
     except Exception:
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -4289,8 +4855,9 @@ def main(argv=None):
         # triplet step (b=16 a leg) for the W-off kernels, else the bf16
         # train step's backward (b=12), the bf16 forward (b=32), the fp32
         # forward (b=32) or the fp32 train step's backward (b=12);
-        # `launches` from the main path (the bf16 inv train entry run),
-        # else from the fp32 inv train entry, the bf16 train entry,
+        # `launches` from the main path (the --kanchor 20 train entry run),
+        # else from the bf16 reg entry, the bf16 inv train entry run,
+        # the fp32 inv train entry, the bf16 train entry,
         # the bf16 eval entry, the fp32 train entry
         rows = (inv_results[k.name] if k.name in _NO_WOFF else
                 bf16_bwd.get(k.name) or bf16_results.get(k.name)
@@ -4298,7 +4865,8 @@ def main(argv=None):
         reg_bf16_launches = reg_bf16_entry['train_launches'][k.name]
         rec = {'name': k.name, 'route': 'cuda', 'source': k.source,
                'replaces': k.replaces,
-               'launches': (reg_bf16_launches or inv_bf16_counts[k.name]
+               'launches': (anchor_entry['train_launches'][k.name]
+                            or reg_bf16_launches or inv_bf16_counts[k.name]
                             or inv_counts[k.name]
                             or bf16_train_counts[k.name]
                             or bf16_counts[k.name] or counts[k.name])}
@@ -4353,6 +4921,22 @@ def main(argv=None):
             'reg_eval_launches': reg_entry['eval_launches'][k.name],
             '3dmatch_bf16_eval_launches': eval3d_bf16['launches'][k.name],
             '3dmatch_eval_launches': eval3d['launches'][k.name]})
+        # this slice's paths: the reference convention (cls, 60 anchors)
+        # and the reduced-anchor cls models, b=32 forwards (fp32, bf16) and
+        # the b=12 fp32 step; launches of the --kanchor 20 entry runs
+        for key, res in (('ref_convention', ref_conv['results']),
+                         *((tag.strip('[]'), anchor[tag]['results'])
+                           for tag in ANCHOR_MODELS)):
+            for part, rows in res.items():
+                if rows.get(k.name):
+                    agg = _aggregate(rows[k.name])
+                    agg['routes'] = _route_table(
+                        {k.name: rows[k.name]}).get(k.name)
+                    rec.setdefault(key, {})[part] = agg
+        rec.update({
+            'ka20_train_entry_launches':
+                anchor_entry['train_launches'][k.name],
+            'ka20_eval_launches': anchor_entry['eval_launches'][k.name]})
         rec.update({'inv_bf16_train_entry_launches': inv_bf16_counts[k.name],
                     'inv_train_entry_launches': inv_counts[k.name],
                     'bf16_train_entry_launches': bf16_train_counts[k.name],
@@ -4392,6 +4976,8 @@ def main(argv=None):
                    'reg_bf16_b8': reg_bf16, 'reg_entry': reg_entry,
                    'reg_bf16_entry': reg_bf16_entry,
                    '3dmatch_eval': eval3d, '3dmatch_bf16_eval': eval3d_bf16,
+                   'ref_convention': ref_conv, 'reduced_anchors': anchor,
+                   'ka20_entry': anchor_entry,
                    'phase_wall_s': PHASE_WALL,
                    'kernels': summary, 'seconds': time.time() - t_start},
                   f, indent=1)

@@ -1,10 +1,12 @@
 """ModelNet40 classification: the train and eval lifecycle (counterpart of
 ``epn_pointcloud_tpu/app/trainer_modelnet.py`` ``TrainerModelNet``).
 
-A train step is a train-mode forward, the attention cross entropy, a
+A train step is a train-mode forward, the loss (the attention cross
+entropy with an 'attention*' pooling flag, else the cross entropy alone), a
 backward through the conv kernels' autograd Functions, and an Adam step at
 the scheduled learning rate. Its log scalars stay on the device until the
-Summary reads them at log time.
+Summary reads them at log time. The model is the one ``opt.model`` names:
+kanchor 60, 40 or 20, or one anchor with ``kpconv``.
 """
 
 from __future__ import annotations
@@ -32,11 +34,13 @@ class TrainerModelNet(Trainer):
             raise NotImplementedError('--steps-per-dispatch > 1 is TPU '
                                       'dispatch machinery; the port takes one '
                                       'step a call')
+        self.attention_model = opt.model.flag.startswith('attention')
         self.test_accs = []
         self.eval_logits = []
         self.epoch_counter = 0
         super().__init__(opt, device)
-        self.summary.register(['Loss', 'Acc', 'R_Loss', 'R_Acc'])
+        self.summary.register(['Loss', 'Acc', 'R_Loss', 'R_Acc']
+                              if self.attention_model else ['Loss', 'Acc'])
 
     # ------------------------------------------------------------- lifecycle
 
@@ -70,6 +74,9 @@ class TrainerModelNet(Trainer):
                 torch.from_numpy(data['R_label'].reshape(-1)).to(dev))
 
     def _loss(self, pred, feat, label, rlabel, iter_counter=0):
+        if not self.attention_model:
+            loss, acc = losses.cross_entropy(pred, label)
+            return loss, {'cls_loss': loss, 'acc': acc}
         return losses.attention_cross_entropy(
             pred, label, feat, rlabel,
             self.opt.train_loss.attention_loss_type,
@@ -98,9 +105,11 @@ class TrainerModelNet(Trainer):
         loss.backward()
         train_lib.set_lr(self.optimizer, self.lr_schedule(self.iter_counter))
         self.optimizer.step()
-        self.summary.update_async({
-            'Loss': aux['cls_loss'].detach(), 'Acc': 100.0 * aux['acc'],
-            'R_Loss': aux['r_loss'].detach(), 'R_Acc': 100.0 * aux['racc']})
+        log = {'Loss': aux['cls_loss'].detach(), 'Acc': 100.0 * aux['acc']}
+        if self.attention_model:
+            log.update(R_Loss=aux['r_loss'].detach(),
+                       R_Acc=100.0 * aux['racc'])
+        self.summary.update_async(log)
         self.last_loss = loss.detach()
 
     def test(self):

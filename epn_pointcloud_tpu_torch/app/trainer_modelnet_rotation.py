@@ -23,7 +23,7 @@ import torch
 
 from .. import losses, models
 from .. import train as train_lib
-from ..ops import icosahedron
+from ..nn.layers import convention_constant
 from .trainer import Trainer
 
 
@@ -41,8 +41,13 @@ class TrainerModelNetRotation(Trainer):
         self.test_accs = []
         super().__init__(opt, device)
         self.summary.register(['Loss', 'Reg_Loss', 'Mean_Err', 'R_Acc'])
-        self.anchors = torch.from_numpy(
-            icosahedron.get_anchors(opt.model.kanchor)).to(self.device)
+
+    @property
+    def anchors(self) -> torch.Tensor:
+        """The anchors of the anchor convention in force, on the device
+        (copied there once a convention)."""
+        return convention_constant('anchors', self.opt.model.kanchor,
+                                   self.device)
 
     def _setup_datasets(self):
         from ..data.modelnet40 import DataLoader, Dataloader_ModelNet40Alignment

@@ -1,7 +1,17 @@
-"""Weights from the JAX package's variable tree into the port's state_dict.
+"""Weights into the port: from the JAX package's variable tree, and from an
+original-EPN checkpoint.
+
+``load_reference_state_dict`` loads a state_dict of the original EPN into
+a port model: the port's module tree already has the original names and
+layouts, so it is a strict key and shape check (the original's constant
+buffers, ``anchors``, ``kernels``, ``intra_idx`` and
+``num_batches_tracked``, are skipped as ``epn_pointcloud_tpu/compat.py``
+skips them). Such weights compute the function they were trained for only
+under ``icosahedron.set_convention('reference')``.
 
 ``from_jax_variables`` inverts the layout mappings of
-``epn_pointcloud_tpu/compat.py`` for the cls, the inv and the reg model:
+``epn_pointcloud_tpu/compat.py`` for the cls, the inv and the reg model
+(separable blocks, and the inter blocks of kanchor < 60):
 
   * SO(3) conv ``W``  flax [k, c, d]     -> [d, c*k] (c-major, k-minor)
   * Dense1x1 kernel   flax [c, d]        -> Conv2d [d, c, 1, 1], Conv1d
@@ -17,6 +27,7 @@ have no ``batch_stats``.
 
 from __future__ import annotations
 
+import re
 from collections import OrderedDict
 from typing import Any, Dict
 
@@ -76,6 +87,23 @@ def separable_block_state(p, s, base: str = '') -> 'OrderedDict[str, torch.Tenso
     return sd
 
 
+def inter_block_state(p, s, base: str = '') -> 'OrderedDict[str, torch.Tensor]':
+    """One JAX ``InterSO3ConvBlock`` (an ``inter_block`` layer, kanchor <
+    60)'s params ``p`` and batch_stats ``s`` -> the port's
+    ``InterSO3ConvBlock`` state_dict entries, under the key prefix
+    ``base``."""
+    pre = f'{base}.' if base else ''
+    sd = OrderedDict()
+    sd[f'{pre}conv.basic_conv.W'] = _so3_w(p['InterSO3Conv_0']['W'])
+    if 'BatchNorm_0' in p:
+        _bn(sd, f'{pre}norm', p['BatchNorm_0'], s['BatchNorm_0'])
+    return sd
+
+
+BLOCKS = {'SeparableSO3ConvBlock_': separable_block_state,
+          'InterSO3ConvBlock_': inter_block_state}
+
+
 def from_jax_variables(variables: Dict[str, Any]) -> 'OrderedDict[str, torch.Tensor]':
     """JAX cls_so3net_pn, inv_so3net_pn or reg_so3net variables -> the port's
     state_dict. Parameters are fp32 in both packages, so the same state_dict
@@ -84,13 +112,15 @@ def from_jax_variables(variables: Dict[str, Any]) -> 'OrderedDict[str, torch.Ten
     sd = OrderedDict()
     for top in _numbered(params, 'BasicSO3ConvBlock_'):
         i = int(top.rsplit('_', 1)[1])
-        for blk in _numbered(params[top], 'SeparableSO3ConvBlock_'):
-            j = int(blk.rsplit('_', 1)[1])
-            sd.update(separable_block_state(params[top][blk],
-                                            stats.get(top, {}).get(blk, {}),
-                                            f'backbone.{i}.blocks.{j}'))
-        extra = set(params[top]) - set(_numbered(params[top],
-                                                 'SeparableSO3ConvBlock_'))
+        seen = set()
+        for prefix, state in BLOCKS.items():
+            for blk in _numbered(params[top], prefix):
+                j = int(blk.rsplit('_', 1)[1])
+                sd.update(state(params[top][blk],
+                                stats.get(top, {}).get(blk, {}),
+                                f'backbone.{i}.blocks.{j}'))
+                seen.add(blk)
+        extra = set(params[top]) - seen
         if extra:
             raise ValueError(f'{top}: blocks not ported: {sorted(extra)}')
 
@@ -128,3 +158,30 @@ def from_jax_variables(variables: Dict[str, Any]) -> 'OrderedDict[str, torch.Ten
         t += 1
     _dense(sd, 'outblock.fc2', hp[f'Dense1x1_{t}'], 'linear')
     return sd
+
+
+# the original EPN's constant buffers: not weights (JAX compat._Importer)
+_REFERENCE_CONSTANTS = re.compile(
+    r'\.(anchors|kernels|intra_idx|num_batches_tracked)$')
+
+
+def load_reference_state_dict(model: torch.nn.Module, state_dict) -> None:
+    """Load an original-EPN state_dict (torch tensors or numpy arrays) into
+    ``model`` strictly: every key of the model's state_dict present with
+    its shape, and no other key but the original's constant buffers.
+    Raises ValueError naming the missing, unexpected and mis-shaped keys.
+    Values are cast to the model's types."""
+    own = model.state_dict()
+    sd = {k: v for k, v in state_dict.items()
+          if not _REFERENCE_CONSTANTS.search(k)}
+    missing = sorted(set(own) - set(sd))
+    unexpected = sorted(set(sd) - set(own))
+    shapes = sorted(f'{k}: {tuple(sd[k].shape)} for {tuple(own[k].shape)}'
+                    for k in set(own) & set(sd)
+                    if tuple(sd[k].shape) != tuple(own[k].shape))
+    if missing or unexpected or shapes:
+        raise ValueError(f'reference state_dict does not fit the model: '
+                         f'missing {missing}, unexpected {unexpected}, '
+                         f'shapes {shapes}')
+    model.load_state_dict(OrderedDict(
+        (k, torch.as_tensor(v).to(own[k].dtype)) for k, v in sd.items()))

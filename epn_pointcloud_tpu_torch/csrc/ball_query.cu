@@ -34,6 +34,11 @@
 // (that expansion flips borderline hits), with __fmul_rn/__fadd_rn in the
 // plain version's order (dx*dx + dy*dy) + dz*dz, and the test is strict
 // (<). Slot s >= cnt takes slot s % cnt; a query with no hit gets zeros.
+// With ref_fill (the launch argument the wrapper sets under the reference
+// anchor convention) the fill is the original EPN kernel's
+// (grouping_cuda_kernel.cu:99-104, which fills only while cnt <
+// n_sample - 1): a query with exactly n_sample - 1 hits keeps 0 in its last
+// slot, as epn_pointcloud_tpu/ops/sampling.py:256-261 writes it.
 
 #include <cuda_runtime.h>
 
@@ -66,7 +71,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 ball_query_warp_kernel(const float* __restrict__ query,
                        const float* __restrict__ support,
                        int* __restrict__ out, int m, int n, int n_sample,
-                       float r2) {
+                       float r2, int ref_fill) {
   constexpr int G = 32 / L;  // queries a warp
   extern __shared__ float smem[];
   float* ss = smem;
@@ -121,16 +126,18 @@ ball_query_warp_kernel(const float* __restrict__ query,
   __syncwarp();
   if (!active) return;
   cnt = min(cnt, n_sample);
+  // the reference fill leaves the last slot 0 at exactly n_sample - 1 hits
+  const int last = ref_fill && cnt == n_sample - 1 ? cnt : n_sample;
   int* o = out + ((size_t)b * m + q) * n_sample;
   for (int s = gl; s < n_sample; s += L) {
-    o[s] = cnt == 0 ? 0 : row[s < cnt ? s : s % cnt];
+    o[s] = cnt == 0 || s >= last ? 0 : row[s < cnt ? s : s % cnt];
   }
 }
 
 __global__ void ball_query_kernel(const float* __restrict__ query,
                                   const float* __restrict__ support,
                                   int* __restrict__ out, int m, int n,
-                                  int n_sample, float r2) {
+                                  int n_sample, float r2, int ref_fill) {
   __shared__ float ss[kTile * 3];
   const int b = blockIdx.y;
   const int q = blockIdx.x * kQueries + threadIdx.x;
@@ -162,9 +169,10 @@ __global__ void ball_query_kernel(const float* __restrict__ query,
     }
   }
   if (!active) return;
-  // periodic repeat fill: slot s >= cnt takes slot s % cnt (cnt == 0 -> 0)
-  if (cnt == 0) {
-    for (int s = 0; s < n_sample; ++s) o[s] = 0;
+  // periodic repeat fill: slot s >= cnt takes slot s % cnt (cnt == 0 -> 0);
+  // the reference fill leaves the last slot 0 at exactly n_sample - 1 hits
+  if (cnt == 0 || (ref_fill && cnt == n_sample - 1)) {
+    for (int s = cnt; s < n_sample; ++s) o[s] = 0;
   } else {
     for (int s = cnt; s < n_sample; ++s) o[s] = o[s % cnt];
   }
@@ -174,10 +182,11 @@ __global__ void ball_query_kernel(const float* __restrict__ query,
 
 extern "C" int epn_ball_query(const void* query, const void* support, void* out,
                               int b, int m, int n, int n_sample, float r2,
-                              void* stream) {
+                              int ref_fill, void* stream) {
   dim3 grid((m + kQueries - 1) / kQueries, b);
   ball_query_kernel<<<grid, kQueries, 0, (cudaStream_t)stream>>>(
-      (const float*)query, (const float*)support, (int*)out, m, n, n_sample, r2);
+      (const float*)query, (const float*)support, (int*)out, m, n, n_sample, r2,
+      ref_fill);
   return (int)cudaGetLastError();
 }
 
@@ -185,7 +194,8 @@ extern "C" int epn_ball_query(const void* query, const void* support, void* out,
 // WARP_MAX_SAMPLE), which keeps its shared memory under 48 KB.
 extern "C" int epn_ball_query_warp(const void* query, const void* support,
                                    void* out, int b, int m, int n,
-                                   int n_sample, float r2, void* stream) {
+                                   int n_sample, float r2, int ref_fill,
+                                   void* stream) {
   if (n_sample > kWarpMaxSample) return (int)cudaErrorInvalidValue;
   constexpr int per_block = kWarps * 32 / kLanes;
   const size_t smem = (kStage ? kTile * 3 * sizeof(float) : 0) +
@@ -194,6 +204,6 @@ extern "C" int epn_ball_query_warp(const void* query, const void* support,
   ball_query_warp_kernel<kLanes, kUnroll, kStage>
       <<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
           (const float*)query, (const float*)support, (int*)out, m, n,
-          n_sample, r2);
+          n_sample, r2, ref_fill);
   return (int)cudaGetLastError();
 }

@@ -74,7 +74,6 @@ class Dataloader_ModelNet40:
     def __init__(self, opt, mode):
         self.opt = opt
         self.mode = mode
-        self.anchors = icosahedron.get_anchors()
         self.rng = np.random.RandomState(_mode_seed(opt.seed, self.mode))
         cats = sorted(os.listdir(opt.dataset_path))
         self.all_data = []
@@ -99,7 +98,8 @@ class Dataloader_ModelNet40:
         if not self.opt.no_augmentation:
             stored = None if train else data.get('R')
             pc, R = pctk.rotate_point_cloud(pc, stored, rng=self.rng)
-            _, R_label, _ = rotation_distance_np(R, self.anchors)
+            _, R_label, _ = rotation_distance_np(R,
+                                                 icosahedron.get_anchors())
 
         return {'pc': pc.astype(np.float32),
                 'label': np.int64(np.asarray(data['label']).flatten()[0]),
@@ -118,7 +118,6 @@ class Dataloader_ModelNet40Alignment:
     def __init__(self, opt, mode=None):
         self.opt = opt
         self.mode = opt.mode if mode is None else mode
-        self.anchors = icosahedron.get_anchors(opt.model.kanchor)
         self.rng = np.random.RandomState(_mode_seed(opt.seed, self.mode))
         pattern = os.path.join(opt.dataset_path, 'airplane', self.mode,
                                '*.mat')
@@ -133,7 +132,8 @@ class Dataloader_ModelNet40Alignment:
                                          rng=self.rng)
         pc = pctk.normalize_np(pc.T).T
         pc_src, T = pctk.rotate_point_cloud(pc, None, rng=self.rng)
-        R, R_label = label_relative_rotation_np(self.anchors, T)
+        R, R_label = label_relative_rotation_np(
+            icosahedron.get_anchors(self.opt.model.kanchor), T)
         return {'pc': np.stack([pc_src, pc]).astype(np.float32),
                 'fn': str(data['name'][0]),
                 'T': T.astype(np.float32),

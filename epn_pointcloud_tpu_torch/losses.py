@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .nn.layers import convention_constant
 from .ops.rotation import (angle_from_R, mean_angular_error,
                            rotation_from_ortho6d, rotation_from_quaternion,
                            so3_mean)
@@ -29,11 +30,18 @@ def attention_cross_entropy(pred, label, wts, rlabel,
                             pretrain_step: int = 2000):
     """Classification CE + margin-weighted anchor-attention CE.
 
-    wts [b, 60] anchor logits; rlabel [b] anchor labels. Returns
-    (loss, dict(cls_loss, r_loss, acc, racc)).
+    wts [b, a] anchor logits; rlabel [b] anchor labels over the full
+    60-element group, relabelled at a < 60 to the nearest anchor of the
+    subset (``icosahedron.anchor_subset_relabel_map``, JAX
+    ``losses.py:55-61``). Returns (loss, dict(cls_loss, r_loss, acc,
+    racc)).
     """
     cls_loss, acc = cross_entropy(pred, label.reshape(-1))
-    r_loss, racc = cross_entropy(wts, rlabel.reshape(-1))
+    rl = rlabel.reshape(-1)
+    a = wts.shape[1]
+    if a < 60:
+        rl = convention_constant('relabel', a, rl.device)[rl.long()]
+    r_loss, racc = cross_entropy(wts, rl)
     m = loss_margin
     if loss_type == 'schedule':
         w = min(iter_counter / pretrain_step, 1.0)

@@ -14,8 +14,15 @@ the skip conv's batch statistics), InstanceNorm blocks (the JAX package
 fuses the tail for BatchNorm only) and block 0 layer 0 (the occupancy-ones
 input, rank-1 skip) keep the unfused tail.
 
+Below 60 anchors (kanchor 40, 20, or 1 for the KPConv baseline) the
+builders sequence ``inter_block`` layers: an inter conv, its norm over the
+kanchor anchors and the activation. In the production mode its norm takes
+the packed statistics (the moments kernel) where the JAX package packs,
+kanchor > 1; kanchor 1 stays unpacked (plain-torch statistics).
+
 Module names follow the original EPN tree
-(``backbone.{i}.blocks.{j}.{inter_conv,intra_conv,skip_conv,norm}``).
+(``backbone.{i}.blocks.{j}.{inter_conv,intra_conv,skip_conv,norm}``, and
+``backbone.{i}.blocks.{j}.{conv,norm}`` for an inter block).
 """
 
 from __future__ import annotations
@@ -57,10 +64,13 @@ class InterSO3ConvBlock(nn.Module):
 
     def __init__(self, dim_in, dim_out, kernel_size, stride, radius, sigma,
                  n_neighbor, kanchor=60, lazy_sample=None, norm=None,
-                 activation='leaky_relu', pooling=None, **_unused):
+                 activation='leaky_relu', pooling=None, dropout_rate=0.0,
+                 **_unused):
         super().__init__()
         if pooling not in (None, 'none'):
             raise NotImplementedError(f'xyz pooling {pooling!r} is not ported')
+        if dropout_rate > 0:
+            raise NotImplementedError('dropout is not ported')
         lazy = True if lazy_sample is None else lazy_sample
         self.conv = InterSO3Conv(dim_in, dim_out, kernel_size, stride, radius,
                                  sigma, n_neighbor, lazy_sample=lazy,
@@ -78,8 +88,11 @@ class InterSO3ConvBlock(nn.Module):
         if defer_norm_act:
             return sample_idx, x, self.norm.scale_shift(x.feats.shape[2],
                                                         x.feats)
-        return sample_idx, SphericalPointCloud(
-            x.xyz, self.act(self.norm(x.feats)), x.anchors)
+        # one anchor is the JAX package's unpacked layout: its statistics
+        # come from plain torch sums, not the moments kernel
+        feats = self.norm(x.feats, kernel_stats=x.feats.shape[2] > 1)
+        return sample_idx, SphericalPointCloud(x.xyz, self.act(feats),
+                                               x.anchors)
 
 
 class SeparableSO3ConvBlock(nn.Module):
@@ -91,8 +104,6 @@ class SeparableSO3ConvBlock(nn.Module):
         p = args
         if p['kanchor'] != 60:
             raise NotImplementedError('separable blocks need kanchor 60')
-        if p.get('dropout_rate', 0) > 0:
-            raise NotImplementedError('dropout is not ported')
         self.stride = p['stride']
         self.inter_conv = InterSO3ConvBlock(**p)
         self.intra_conv = IntraSO3ConvBlock(p['dim_out'], p['dim_out'],
@@ -151,23 +162,30 @@ class SeparableSO3ConvBlock(nn.Module):
 
 
 class BasicSO3ConvBlock(nn.Module):
-    """Sequencer over the separable layers of one backbone block.
+    """Sequencer over the layers of one backbone block: separable blocks
+    (kanchor 60) or inter blocks (``inter_block``, kanchor < 60).
 
     The fused inter conv recomputes its grouping in every layer (as the JAX
-    package's fused path does), so no neighbor cache is carried between
-    layers."""
+    package's fused path does: it returns no ``inter_w``), so no neighbor
+    cache is carried between layers."""
 
     def __init__(self, params: Sequence[Dict[str, Any]]):
         super().__init__()
+        blocks = []
         for prm in params:
-            if prm['type'] != 'separable_block':
+            if prm['type'] == 'separable_block':
+                blocks.append(SeparableSO3ConvBlock(prm['args']))
+            elif prm['type'] in ('inter', 'inter_block'):
+                blocks.append(InterSO3ConvBlock(**prm['args']))
+            else:
                 raise NotImplementedError(f'block type {prm["type"]!r} is not '
-                                          f'ported (kanchor 60 only)')
-        self.blocks = nn.ModuleList(SeparableSO3ConvBlock(prm['args'])
-                                    for prm in params)
+                                          f'ported')
+        self.blocks = nn.ModuleList(blocks)
 
     def forward(self, x: SphericalPointCloud,
                 ones_input: bool = False) -> SphericalPointCloud:
         for i, blk in enumerate(self.blocks):
             x = blk(x, ones_input=ones_input and i == 0)
+            if isinstance(blk, InterSO3ConvBlock):
+                x = x[1]
         return x

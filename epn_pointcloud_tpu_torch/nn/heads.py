@@ -2,14 +2,16 @@
 
 Classification head ``ClsOutBlockPointnet`` (``heads.py:81-142``): 1x1
 convs + BatchNorm + ReLU ->
-PointnetSO3Conv -> BatchNorm + ReLU -> attention pooling over anchors ->
-linear. Only the 'attention' pooling the ModelNet entry point uses is
-ported. In the bf16 production mode the mlp convs run the anchor-grouped
-1x1 conv kernel (``GroupedConvFn``, with its backward) and their BatchNorm
-+ ReLU round to bf16, the BatchNorm in train mode on one-pass statistics
-from the moments kernel (``heads.py:101-110``); the pointnet,
-attention and logits are fp32 in both modes (``heads.py:101-142`` of the
-JAX package).
+PointnetSO3Conv -> BatchNorm + ReLU -> pooling over the anchors ('max',
+'mean', 'debug': anchor 0, or 'attention*': a softmax of attention logits)
+-> linear. In the bf16 production mode at more than one anchor (the JAX
+package's packed layout) the mlp convs run the anchor-grouped 1x1 conv
+kernel (``GroupedConvFn``, with its backward) and their BatchNorm + ReLU
+round to bf16, the BatchNorm in train mode on one-pass statistics from the
+moments kernel (``heads.py:101-110``); at one anchor (kpconv) they are the
+unpacked 1x1 convs and plain-torch statistics (``heads.py:111-115``). The
+pointnet, attention and logits are fp32 in both modes (``heads.py:101-142``
+of the JAX package).
 
 3DMatch descriptor head ``InvOutBlockMVD`` (``heads.py:214-241``): anchor
 attention, the attention-weighted anchor sum, a single-anchor PointNet and
@@ -41,15 +43,21 @@ from ..ops.so3conv import SphericalPointCloud
 from .layers import BatchNorm, Dense1x1, PointnetSO3Conv
 
 
+POOLINGS = ('max', 'mean', 'debug')
+
+
 class ClsOutBlockPointnet(nn.Module):
-    """SphericalPointCloud -> (logits [b, k], attention logits [b, a])."""
+    """SphericalPointCloud -> (logits [b, k], attention logits [b, a]);
+    without attention pooling the second output is the mlp's field [b, p,
+    a, c] squeezed, as the JAX head returns it."""
 
     def __init__(self, params: Dict[str, Any]):
         super().__init__()
         p = params
-        if p.get('pooling') != 'attention':
-            raise NotImplementedError(f'pooling {p.get("pooling")!r} is not '
-                                      f'ported (attention only)')
+        self.pooling = p.get('pooling', 'max')
+        self.attention = self.pooling.startswith('attention')
+        if not self.attention and self.pooling not in POOLINGS:
+            raise NotImplementedError(f'Pooling mode {self.pooling}')
         self.temperature = p['temperature']
         c_in = p['dim_in']
         self.linear = nn.ModuleList()
@@ -60,17 +68,24 @@ class ClsOutBlockPointnet(nn.Module):
             c_in = c
         self.pointnet = PointnetSO3Conv(c_in, c_in, p['kanchor'])
         self.norm.append(BatchNorm(c_in))
-        self.attention_layer = Dense1x1(c_in, 1, kind='conv1d')
+        if self.attention:
+            self.attention_layer = Dense1x1(c_in, 1, kind='conv1d')
         self.fc2 = Dense1x1(c_in, p['k'], kind='linear')
 
     def forward(self, x: SphericalPointCloud):
         x_out = x.feats
-        grouped = so3conv.packed_enabled()
+        grouped = so3conv.packed_enabled() and x_out.shape[2] > 1
         for lin, bn in zip(self.linear, self.norm):
             x_out = torch.relu(bn(lin.grouped(x_out) if grouped
-                                  else lin(x_out)))
+                                  else lin(x_out), kernel_stats=grouped))
+        field = x_out
         x_out = self.pointnet(SphericalPointCloud(x.xyz, x_out, x.anchors))
         x_out = torch.relu(self.norm[-1](x_out))               # [b, a, c]
+        if not self.attention:
+            pooled = (x_out.mean(dim=1) if self.pooling == 'mean' else
+                      x_out[:, 0] if self.pooling == 'debug' else
+                      x_out.max(dim=1).values)
+            return self.fc2(pooled), field.squeeze()
         att = self.attention_layer(x_out)                      # [b, a, 1]
         conf = torch.softmax(att * self.temperature, dim=1)
         logits = self.fc2((x_out * conf).sum(dim=1))

@@ -20,6 +20,7 @@ bf16 between layers, and norms compute in fp32 and round once.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -250,13 +251,56 @@ class BasicSO3Conv(nn.Module):
             .permute(2, 1, 0).contiguous()
 
 
-def _const(x) -> torch.Tensor:
-    return torch.as_tensor(x).clone()
+@functools.lru_cache(maxsize=None)
+def _constant(kind: str, arg, convention: str, device: torch.device,
+              dtype: torch.dtype) -> torch.Tensor:
+    """One anchor-convention constant on ``device``: the anchors of
+    kanchor ``arg`` (float ``dtype``), the kernel points of (radius,
+    kernel_size) ``arg`` (float ``dtype``), the intra adjacency
+    ``trace_idx`` / its inverse ``inv_idx`` (int32), or the relabel of the
+    full group's anchors into kanchor ``arg``'s subset (``relabel``,
+    int64). Built outside inference mode whatever the caller's, so that a
+    constant first read by an eval under ``torch.inference_mode()`` can
+    still be saved for a later train step's backward."""
+    assert convention == icosahedron.get_convention()
+    with torch.inference_mode(False):
+        if kind == 'anchors':
+            host = icosahedron.get_anchors(arg)
+        elif kind == 'kernels':
+            radius, kernel_size = arg
+            host = kernel_points.get_spherical_kernel_points(
+                KERNEL_CONDENSE_RATIO * radius, kernel_size)
+        elif kind == 'relabel':
+            return torch.from_numpy(
+                icosahedron.anchor_subset_relabel_map(arg)).to(device)
+        else:
+            adj = (icosahedron.get_intra_idx() if kind == 'trace_idx' else
+                   icosahedron.get_intra_inv_idx())
+            return torch.from_numpy(adj.astype('int32')).to(device)
+        return torch.from_numpy(host).to(device, dtype)
+
+
+def convention_constant(kind: str, arg, device: torch.device,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The constant ``kind`` (``_constant``) of the anchor convention in
+    force when it is read, on ``device`` in ``dtype``. The modules
+    look their anchors, kernel points and adjacency up at each use, so a
+    model built under one convention runs with the constants of the one in
+    force (the JAX package flushes its caches on a switch to the same
+    end)."""
+    return _constant(kind, arg, icosahedron.get_convention(), device, dtype)
+
+
+def _like(kind: str, arg, param: torch.Tensor) -> torch.Tensor:
+    """``convention_constant`` on a module parameter's device, in its
+    type (a float64 model's anchors are float64)."""
+    return convention_constant(kind, arg, param.device, param.dtype)
 
 
 class InterSO3Conv(nn.Module):
     """Spatial SO(3)-anchor conv: ball grouping + anchor-rotated kernel
-    weights + learned conv product (fused path of the JAX package)."""
+    weights + learned conv product (fused path of the JAX package), at
+    kanchor 60, 40, 20 or 1 (the anchor subsets of ``select_anchors``)."""
 
     def __init__(self, dim_in: int, dim_out: int, kernel_size: int,
                  stride: int, radius: float, sigma: float, n_neighbor: int,
@@ -264,12 +308,19 @@ class InterSO3Conv(nn.Module):
         super().__init__()
         self.stride, self.radius, self.sigma = stride, radius, sigma
         self.n_neighbor, self.lazy_sample = n_neighbor, lazy_sample
-        kernels_ = kernel_points.get_spherical_kernel_points(
-            KERNEL_CONDENSE_RATIO * radius, kernel_size)
-        self.register_buffer('anchors', _const(icosahedron.get_anchors(kanchor)),
-                             persistent=False)
-        self.register_buffer('kernels', _const(kernels_), persistent=False)
-        self.basic_conv = BasicSO3Conv(dim_in, dim_out, kernels_.shape[0])
+        self.kernel_size, self.kanchor = kernel_size, kanchor
+        self.basic_conv = BasicSO3Conv(
+            dim_in, dim_out,
+            kernel_points.KERNEL_SIZE_TO_NPOINTS[kernel_size])
+
+    @property
+    def anchors(self) -> torch.Tensor:
+        return _like('anchors', self.kanchor, self.basic_conv.W)
+
+    @property
+    def kernels(self) -> torch.Tensor:
+        return _like('kernels', (self.radius, self.kernel_size),
+                     self.basic_conv.W)
 
     def forward(self, x: SphericalPointCloud, ones_input: bool = False):
         _, xyz, feats, sample_idx = so3conv.inter_so3conv_fused(
@@ -285,15 +336,20 @@ class IntraSO3Conv(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        ti = icosahedron.get_intra_idx()
-        self.register_buffer('trace_idx', _const(ti.astype('int32')),
-                             persistent=False)
-        self.register_buffer('inv_idx',
-                             _const(icosahedron.get_intra_inv_idx()),
-                             persistent=False)
-        self.register_buffer('anchors', _const(icosahedron.get_anchors(60)),
-                             persistent=False)
-        self.basic_conv = BasicSO3Conv(dim_in, dim_out, ti.shape[1])
+        self.basic_conv = BasicSO3Conv(dim_in, dim_out,
+                                       icosahedron.get_intra_idx().shape[1])
+
+    @property
+    def trace_idx(self) -> torch.Tensor:
+        return _like('trace_idx', None, self.basic_conv.W)
+
+    @property
+    def inv_idx(self) -> torch.Tensor:
+        return _like('inv_idx', None, self.basic_conv.W)
+
+    @property
+    def anchors(self) -> torch.Tensor:
+        return _like('anchors', 60, self.basic_conv.W)
 
     def forward(self, x: SphericalPointCloud,
                 prenorm=None) -> SphericalPointCloud:
@@ -313,9 +369,12 @@ class PointnetSO3Conv(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int, kanchor: int = 60):
         super().__init__()
-        self.register_buffer('anchors', _const(icosahedron.get_anchors(kanchor)),
-                             persistent=False)
+        self.kanchor = kanchor
         self.embed = Dense1x1(dim_in + 3, dim_out)
+
+    @property
+    def anchors(self) -> torch.Tensor:
+        return _like('anchors', self.kanchor, self.embed.weight)
 
     def forward(self, x: SphericalPointCloud) -> torch.Tensor:
         if x.feats.shape[2] == 1:

@@ -1,9 +1,12 @@
 """Icosahedral SO(3) discretization: the 60-element chiral icosahedral group.
 
-Counterpart of ``epn_pointcloud_tpu/ops/icosahedron.py`` (native anchor
-convention only). The group is built by generator closure, ordered into
-(face, gamma) fibers with the identity at index 0, and the 60x12
-intra-convolution adjacency is
+Counterpart of ``epn_pointcloud_tpu/ops/icosahedron.py``, with its two
+anchor conventions (``set_convention``): 'native', below, and 'reference',
+the original EPN's ordering and orientation (identity at 29, from the
+vendored ply geometry; ``ops/ref_convention.py``), which a checkpoint
+trained by the original EPN needs. Native: the group is built by generator
+closure, ordered into (face, gamma) fibers with the identity at index 0,
+and the 60x12 intra-convolution adjacency is
 
   trace_idx[a, k] = index of anchor  R_a @ Q_k
 
@@ -21,13 +24,36 @@ import numpy as np
 GAMMA_SIZE = 3  # in-plane rotations per face
 
 
+# the anchor convention in force, process-wide: 'native' | 'reference'
+_CONVENTION = 'native'
+_CONVENTION_LISTENERS: list = []
+
+
+def register_convention_listener(fn) -> None:
+    """Register a zero-argument callback that ``set_convention`` calls on a
+    switch (a caller's cache of convention-dependent values flushes
+    itself), as in the JAX package. The port's own modules register none:
+    they look their constants up per convention at each use
+    (``nn.layers.convention_constant``), which replaces the JAX package's
+    flushing listeners."""
+    _CONVENTION_LISTENERS.append(fn)
+
+
 def set_convention(name: str) -> None:
-    """Only the native convention is ported; the reference-exact ordering
-    (identity at 29, vendored ply geometry) is not."""
-    if name != 'native':
-        raise NotImplementedError(
-            f'anchor convention {name!r} is not available in the torch port '
-            f'(native only)')
+    """Switch the global anchor convention ('native' | 'reference')."""
+    global _CONVENTION
+    if name not in ('native', 'reference'):
+        raise ValueError(
+            f"convention must be 'native' or 'reference', got {name}")
+    if name == _CONVENTION:
+        return
+    _CONVENTION = name
+    for fn in _CONVENTION_LISTENERS:
+        fn()
+
+
+def get_convention() -> str:
+    return _CONVENTION
 
 
 def icosahedron_mesh():
@@ -178,27 +204,46 @@ def _build_group():
     }
 
 
+def _group(convention: str):
+    if convention == 'reference':
+        from . import ref_convention
+        return ref_convention.build()
+    return _build_group()
+
+
+def _active():
+    return _group(_CONVENTION)
+
+
 def get_anchors_full() -> np.ndarray:
-    """All 60 anchor rotation matrices, float32 [60, 3, 3]."""
-    return _build_group()['anchors']
+    """All 60 anchor rotation matrices of the convention in force, float32
+    [60, 3, 3]."""
+    return _active()['anchors']
 
 
 def get_identity_index() -> int:
-    """Index of the identity anchor (0 under the native convention)."""
-    return _build_group()['identity_idx']
+    """Index of the identity anchor (0 under 'native', 29 under
+    'reference'); an exact identity either way."""
+    return _active()['identity_idx']
 
 
 def get_intra_idx() -> np.ndarray:
-    """[60, 12] int32 intra-conv anchor adjacency."""
-    return _build_group()['trace_idx']
+    """[60, 12] int32 intra-conv anchor adjacency of the convention in
+    force."""
+    return _active()['trace_idx']
 
 
-@functools.lru_cache(maxsize=1)
 def get_intra_inv_idx() -> np.ndarray:
-    """[60, 12] int32 inverse adjacency: inv[x, k] is the one anchor a with
-    trace_idx[a, k] == x (each column of trace_idx is a permutation), so the
-    intra conv's input gradient is the intra conv over inv."""
-    ti = get_intra_idx()
+    """[60, 12] int32 inverse adjacency of the convention in force: inv[x,
+    k] is the one anchor a with trace_idx[a, k] == x (each column of
+    trace_idx is a permutation), so the intra conv's input gradient is the
+    intra conv over inv."""
+    return _inverse_adjacency(_CONVENTION)
+
+
+@functools.lru_cache(maxsize=None)
+def _inverse_adjacency(convention: str) -> np.ndarray:
+    ti = _group(convention)['trace_idx']
     na, nk = ti.shape
     inv = np.full((na, nk), -1, np.int32)
     for k in range(nk):
@@ -209,7 +254,8 @@ def get_intra_inv_idx() -> np.ndarray:
 
 
 def select_anchors(anchors: np.ndarray, k: int) -> np.ndarray:
-    """Anchor subsets for kanchor in {1, 20, 40, 60}."""
+    """Anchor subsets for kanchor in {1, 20, 40, 60}; k = 1 takes the
+    identity anchor of the convention in force."""
     if k == 1:
         return anchors[get_identity_index()][None]
     if k == 20:
@@ -223,3 +269,15 @@ def select_anchors(anchors: np.ndarray, k: int) -> np.ndarray:
 
 def get_anchors(k: int = 60) -> np.ndarray:
     return select_anchors(get_anchors_full(), k)
+
+
+def anchor_subset_relabel_map(k: int) -> np.ndarray:
+    """[60] int32: for each full-group anchor label, the nearest anchor of
+    the k-subset (argmax of tr(R_full R_sub^T), the least rotation
+    distance). The datasets label rotations over all 60 anchors; at
+    kanchor < 60 the attention logits span only the subset, so the loss
+    relabels into it (JAX ``ops/icosahedron.py:anchor_subset_relabel_map``)."""
+    full = get_anchors_full().astype(np.float64)
+    sub = select_anchors(full, k)
+    tr = np.einsum('aij,bij->ab', full, sub)
+    return np.argmax(tr, axis=1).astype(np.int32)

@@ -1,9 +1,12 @@
 """Spherical kernel-point sets for the SO(3) inter convolution.
 
-Counterpart of ``epn_pointcloud_tpu/ops/kernel_points.py`` (native
-convention): deterministic programmatic sets of 24 / 30 / 66 points for
-``kernel_size`` 1 / 2 / 3, scaled so the largest point norm equals the
-requested radius. The conv layers pass ``KERNEL_CONDENSE_RATIO * radius``.
+Counterpart of ``epn_pointcloud_tpu/ops/kernel_points.py``: under the
+native anchor convention, deterministic programmatic sets of 24 / 30 / 66
+points for ``kernel_size`` 1 / 2 / 3; under the reference convention the
+original EPN's kpsphere{24,30,66}.ply coordinates (vendored,
+``ops/ref_convention.py``). Either is scaled so the largest point norm
+equals the requested radius. The conv layers pass
+``KERNEL_CONDENSE_RATIO * radius``.
 """
 
 from __future__ import annotations
@@ -53,8 +56,14 @@ def _repulsion_shell(n: int, seed: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _unit_kernel_family(n_points: int) -> np.ndarray:
-    """Kernel points at unit outer radius, [n_points, 3] float32."""
+def _unit_kernel_family(n_points: int,
+                        convention: str = 'native') -> np.ndarray:
+    """Kernel points at unit outer radius, [n_points, 3] float32; under
+    'reference' the exact ply coordinates, so weights trained by the
+    original EPN see the kernel layout they were trained with."""
+    if convention == 'reference':
+        from . import ref_convention
+        return ref_convention.ref_kernel_points(n_points)
     if n_points == 66:
         return spherical_kernel_points_grid(1.0, 3, 3).astype(np.float32)
     if n_points == 24:
@@ -69,8 +78,14 @@ def _unit_kernel_family(n_points: int) -> np.ndarray:
 
 
 def get_spherical_kernel_points(radius: float, kernel_size: int) -> np.ndarray:
-    """Kernel points scaled so the max norm equals ``radius``."""
+    """Kernel points of the anchor convention in force, scaled so the max
+    norm equals ``radius``: under 'reference' in the original EPN's
+    operation order (pts * radius / r), for bit parity."""
     assert 0 < kernel_size <= 3
-    pts = _unit_kernel_family(KERNEL_SIZE_TO_NPOINTS[kernel_size])
+    from . import icosahedron
+    conv = icosahedron.get_convention()
+    pts = _unit_kernel_family(KERNEL_SIZE_TO_NPOINTS[kernel_size], conv)
     r = np.sqrt((pts ** 2).sum(1).max())
+    if conv == 'reference':
+        return (pts * radius / r).astype(np.float32)
     return (pts * (radius / r)).astype(np.float32)

@@ -2,11 +2,15 @@
 
 Replaces ``epn_pointcloud_tpu/ops/pallas/ball_query.py:ball_query_pallas``
 together with the repeat fill of ``epn_pointcloud_tpu/ops/sampling.py``
-(``ball_query``, native convention). For each query, the first ``n_sample``
-support indices in index order with direct-difference d^2 < r^2 (strict);
-slot s >= cnt takes slot s % cnt, and a query with no hit gets all zeros.
-Both versions compute d^2 as ``(dx*dx + dy*dy) + dz*dz`` in float32 and
-compare against r^2 rounded to float32, so the indices agree exactly.
+(``ball_query``). For each query, the first ``n_sample`` support indices
+in index order with direct-difference d^2 < r^2 (strict); slot s >= cnt
+takes slot s % cnt, and a query with no hit gets all zeros. With
+``ref_fill`` (the reference anchor convention, JAX ``ops/sampling.py:
+256-261``) the fill follows the original EPN's CUDA kernel
+(``grouping_cuda_kernel.cu:99-104``), which fills only when cnt <
+n_sample - 1: a query with exactly n_sample - 1 hits keeps 0 in its last
+slot. Both versions compute d^2 as ``(dx*dx + dy*dy) + dz*dz`` in float32
+and compare against r^2 rounded to float32, so the indices agree exactly.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ def _r2_f32(radius: float) -> float:
 
 
 def ball_query_plain(query: torch.Tensor, support: torch.Tensor,
-                     radius: float, n_sample: int) -> torch.Tensor:
+                     radius: float, n_sample: int,
+                     ref_fill: bool = False) -> torch.Tensor:
     """query [b, m, 3], support [b, n, 3] -> int32 idx [b, m, n_sample]."""
     b, m, _ = query.shape
     n = support.shape[1]
@@ -61,14 +66,19 @@ def ball_query_plain(query: torch.Tensor, support: torch.Tensor,
     s = torch.arange(n_sample, device=query.device)[None, None, :]
     src = torch.where(s < cnt[..., None], s,
                       s % cnt.clamp(min=1)[..., None])
-    return torch.gather(out, 2, src).to(torch.int32)
+    out = torch.gather(out, 2, src)
+    if ref_fill:
+        keep0 = (cnt[..., None] == n_sample - 1) & (s == n_sample - 1)
+        out = torch.where(keep0, torch.zeros_like(out), out)
+    return out.to(torch.int32)
 
 
 def ball_query(query: torch.Tensor, support: torch.Tensor, radius: float,
-               n_sample: int) -> torch.Tensor:
-    """Kernel wrapper: plain version on the CPU, CUDA kernel on the card."""
+               n_sample: int, ref_fill: bool = False) -> torch.Tensor:
+    """Kernel wrapper: plain version on the CPU, CUDA kernel on the card;
+    ``ref_fill`` is a launch argument of both kernels."""
     if query.device.type == 'cpu':
-        return ball_query_plain(query, support, radius, n_sample)
+        return ball_query_plain(query, support, radius, n_sample, ref_fill)
     if query.device.type != 'cuda' or support.device != query.device:
         raise ValueError(f'ball_query: unsupported devices {query.device}, '
                          f'{support.device}')
@@ -91,5 +101,5 @@ def ball_query(query: torch.Tensor, support: torch.Tensor, radius: float,
     build.launch('epn_ball_query_warp' if kernel == 'warp' else
                  'epn_ball_query', query.data_ptr(), support.data_ptr(),
                  out.data_ptr(), b, m, n, n_sample, _r2_f32(radius),
-                 build.stream(query))
+                 int(ref_fill), build.stream(query))
     return out

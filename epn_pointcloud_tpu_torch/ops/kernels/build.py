@@ -40,9 +40,9 @@ SIGNATURES = {
     # the same (the cloud in registers)
     'epn_fps_reg': [_P, _P, _I, _I, _I, _F, _P],
     # query, support, out_idx, b, m, n, n_sample, r2, stream
-    'epn_ball_query': [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    'epn_ball_query': [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # the same (lanes a query)
-    'epn_ball_query_warp': [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    'epn_ball_query_warp': [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # gx, idx, table, rk, k2, w, out, b, p2, nn, q, na, k, c, d, sigma,
     # bf16, stream
     'epn_inter_conv': [_P, _P, _P, _P, _P, _P, _P,

@@ -1,5 +1,5 @@
 """Point sampling and neighborhoods (counterpart of
-``epn_pointcloud_tpu/ops/sampling.py``, native convention).
+``epn_pointcloud_tpu/ops/sampling.py``).
 
 Layout: xyz [b, p, 3]; feats [b, p, a, c]. Furthest point sampling and the
 ball query go through their kernel wrappers (``ops/kernels``): the CUDA
@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from . import kernels
+from . import icosahedron, kernels
 from .kernels import ball_query as _bq
 from .kernels import fps as _fps
 
@@ -55,11 +55,13 @@ def ball_query(query: torch.Tensor, support: torch.Tensor, radius: float,
                n_sample: int) -> torch.Tensor:
     """First ``n_sample`` support indices (index order) with d^2 < r^2,
     periodically repeat-filled. query [b, m, 3], support [b, n, 3] ->
-    int32 [b, m, n_sample]."""
+    int32 [b, m, n_sample]. Under the reference anchor convention (read at
+    each call) the fill is the original EPN kernel's: exactly n_sample - 1
+    hits leave the last slot 0."""
     query, support = query.contiguous(), support.contiguous()
-    if kernels.plain_forced():
-        return _bq.ball_query_plain(query, support, radius, n_sample)
-    return _bq.ball_query(query, support, radius, n_sample)
+    ref_fill = icosahedron.get_convention() == 'reference'
+    fn = _bq.ball_query_plain if kernels.plain_forced() else _bq.ball_query
+    return fn(query, support, radius, n_sample, ref_fill)
 
 
 def add_shadow_point(xyz: torch.Tensor) -> torch.Tensor:

@@ -145,6 +145,30 @@ def _entry(lib, name):
     return fn
 
 
+def parent_entry(lib, name, source_dir):
+    """The C entry ``name`` of an earlier tree's library, built from the
+    sources in ``source_dir`` (``build.compile_alone``), with this tree's
+    signature; an earlier ball query entry, which predates its ``ref_fill``
+    argument, takes this tree's arguments and drops it (and refuses a call
+    that sets it; its ``has_ref_fill`` is False)."""
+    if name in ('epn_ball_query', 'epn_ball_query_warp'):
+        with open(os.path.join(source_dir, 'ball_query.cu')) as f:
+            has_ref_fill = 'ref_fill' in f.read()
+        if not has_ref_fill:
+            fn = getattr(lib, name)
+            sig = build.SIGNATURES[name]
+            fn.argtypes, fn.restype = sig[:-2] + sig[-1:], ctypes.c_int
+
+            def call(*args):
+                if args[-2]:
+                    raise ValueError(f'{name} of {source_dir} has no '
+                                     f'ref_fill')
+                return fn(*args[:-2], args[-1])
+            call.has_ref_fill = False
+            return call
+    return _entry(lib, name)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--parent-csrc', default=None,
@@ -175,8 +199,9 @@ def main(argv=None):
                                             'epn_ball_query')
     if args.parent_csrc:
         fns['fps']['fps_parent'] = _entry(libs['fps_parent'], 'epn_fps')
-        fns['ball_query']['bq_parent'] = _entry(libs['bq_parent'],
-                                                'epn_ball_query')
+        fns['ball_query']['bq_parent'] = parent_entry(
+            libs['bq_parent'], 'epn_ball_query',
+            os.path.dirname(procs['bq_parent'][1]))
     dev = torch.device('cuda')
     card = torch.cuda.get_device_name(0)
     lines = []
@@ -216,12 +241,12 @@ def _time_call(name, args, fns, device_ms):
                                       float(eps))
         want = kernels.fps.fps_plain(x, n_sample, eps)
     else:
-        x, support, radius, n_sample = args
+        x, support, radius, n_sample, ref_fill = args
         ins = (x.data_ptr(), support.data_ptr())
         tail = (x.shape[0], x.shape[1], support.shape[1], n_sample,
-                kernels.ball_query._r2_f32(radius))
+                kernels.ball_query._r2_f32(radius), int(ref_fill))
         want = kernels.ball_query.ball_query_plain(x, support, radius,
-                                                   n_sample)
+                                                   n_sample, ref_fill)
     out = torch.empty_like(want)
     ptrs = ins + (out.data_ptr(),) + tail
 

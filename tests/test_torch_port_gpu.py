@@ -30,6 +30,8 @@ the fp32 W-fused inter forward on the CUDA cores at every inter layer of
 both models and at its edges, its determinism and its float64 error
 against the template's, the template off its envelope, and the kernel's
 SASS (FFMA, no tensor-core instruction);
+the ball query's reference fill on both of its kernels; the inter forward,
+dTable and dW at the reduced-anchor models' anchor counts (1, 20, 40);
 the ones conv in fp32 and bf16 at both models' layer-0 shapes and at its
 edges (one neighbor, neighbor counts off the unroll and past 1816, point
 and lane counts that leave a block or a pass part full, shadow neighbors
@@ -207,6 +209,97 @@ def test_ball_query_kernel_with_a_hit_at_the_last_point(cuda, ns):
     torch.cuda.synchronize()
     assert torch.equal(got, tkern.ball_query.ball_query_plain(q, s, r, ns))
     assert bool((got == s.shape[1] - 1).any())
+
+
+def _ref_fill_cloud(ns, b=2, m=10, radius=0.2, seed=4):
+    """Queries far apart with 0, 1, ns - 1, ns and ns + 3 support points
+    inside radius in turn (shuffled through the support's index order); the
+    rest of the support far away."""
+    rng = np.random.RandomState(seed)
+    plan = [0, 1, ns - 1, ns, ns + 3]
+    hits = [plan[j % len(plan)] for j in range(m)]
+    n = sum(hits) + 16
+    q = np.zeros((b, m, 3), np.float32)
+    q[:, :, 0] = 10.0 * np.arange(m)
+    s = 1000.0 + rng.rand(b, n, 3).astype(np.float32)
+    for bi in range(b):
+        slots, used = rng.permutation(n), 0
+        for j, h in enumerate(hits):
+            off = rng.randn(h, 3)
+            off *= 0.5 * radius * rng.rand(h, 1) / np.linalg.norm(
+                off, axis=1, keepdims=True)
+            s[bi, slots[used:used + h]] = q[bi, j] + off
+            used += h
+    return q, s, radius, np.asarray(hits) == ns - 1
+
+
+@pytest.mark.parametrize('ns', [2, 16, 64, 256, 257, 300])
+def test_ball_query_kernel_reference_fill(cuda, ns):
+    """The reference fill (the original EPN kernel's: exactly ns - 1 hits
+    leave the last slot 0) on both kernels ('warp' up to 256 slots,
+    'thread' beyond), index-equal to the plain version; the native fill
+    of the same call differs at those queries only."""
+    q, s, r, short = _ref_fill_cloud(ns)
+    q, s = torch.from_numpy(q).to(cuda), torch.from_numpy(s).to(cuda)
+    tkern.reset_counts()
+    got = tkern.ball_query.ball_query(q, s, r, ns, True)
+    native = tkern.ball_query.ball_query(q, s, r, ns, False)
+    torch.cuda.synchronize()
+    want = 'warp' if ns <= tkern.ball_query.WARP_MAX_SAMPLE else 'thread'
+    assert tkern.ball_query.routes == {'warp': 0, 'thread': 0, want: 2}
+    assert torch.equal(got, tkern.ball_query.ball_query_plain(q, s, r, ns,
+                                                              True))
+    assert bool((got[:, short, -1] == 0).all())
+    differ = (got != native).any(-1).cpu().numpy()
+    assert not differ[:, ~short].any() and differ[:, short].any()
+
+
+@pytest.mark.parametrize('na', [1, 20, 40])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_inter_conv_at_reduced_anchors(cuda, na, dtype):
+    """The W-fused inter forward and (fp32) its dTable and dW at the
+    reduced-anchor cls models' anchor counts, at the shape of their second
+    layer (c = d = 64, nn = 16): the template in fp32 and at one anchor,
+    the tensor-core kernel in bf16 from MMA_MIN_NA anchors; each within its
+    plain version's bound (the bf16 forward within 1e-3 of
+    inter_conv_mma_plain)."""
+    ic = tkern.inter_conv
+    rng = np.random.RandomState(na)
+    b, p1, p2, nn, c, d = 4, 512, 512, 16, 64, 64
+    xyz = _ball_points(rng, b, p1)
+    kern = torch.from_numpy(tkp.get_spherical_kernel_points(0.2, 1))
+    anchors = torch.from_numpy(tico.get_anchors(na))
+    rk, k2 = tso3.rotated_kernels(anchors, kern)
+    idx = rng.randint(0, p1 + 1, (b, p2, nn)).astype(np.int32)
+    gx = (xyz[np.arange(b)[:, None, None], np.minimum(idx, p1 - 1)]
+          - xyz[:, :p2, None]).astype(np.float32)
+    table = (0.5 * rng.randn(b, p1, na, c)).astype(np.float32)
+    W = (0.1 * rng.randn(24, c, d)).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda) for a in (gx, idx)]
+    args += [torch.from_numpy(table).to(cuda, dtype), rk.to(cuda),
+             k2.to(cuda), torch.from_numpy(W).to(cuda, dtype), 0.05]
+    tkern.reset_counts()
+    got = ic.inter_conv(*args)
+    torch.cuda.synchronize()
+    route = 'mma' if dtype == torch.bfloat16 and na >= ic.MMA_MIN_NA else \
+        'sgemm'
+    assert ic.routes[route] == 1, ic.routes
+    rel = lambda g, w: float((g.float() - w.float()).norm() / w.float().norm())
+    if dtype == torch.bfloat16:
+        assert rel(got, ic.inter_conv_plain(*args)) <= 4e-3
+        assert rel(got, ic.inter_conv_mma_plain(*args)) <= 1e-3
+        return
+    assert rel(got, ic.inter_conv_plain(*args)) <= 1e-5
+    gx_, idx_, tab, rk_, k2_, W_, sigma = args
+    dout = torch.randn(got.shape, device=cuda)
+    dT = ic.inter_conv_dtable(gx_, idx_, p1, rk_, k2_, W_, dout, sigma)
+    dW = ic.inter_conv_dw(gx_, idx_, tab, rk_, k2_, dout, sigma)
+    torch.cuda.synchronize()
+    assert ic.routes['dtable'] == 1 and ic.routes['dw'] == 1, ic.routes
+    assert rel(dT, ic.inter_conv_dtable_plain(gx_, idx_, p1, rk_, k2_, W_,
+                                              dout, sigma)) <= 1e-5
+    assert rel(dW, ic.inter_conv_dw_plain(gx_, idx_, tab, rk_, k2_, dout,
+                                          sigma)) <= 1e-4
 
 
 @pytest.mark.parametrize('kernel', ['fps', 'ball_query'])

@@ -37,11 +37,6 @@ def test_intra_idx_and_identity_match_jax():
     assert tico.get_identity_index() == jico.get_identity_index() == 0
 
 
-def test_reference_convention_is_refused():
-    with pytest.raises(NotImplementedError):
-        tico.set_convention('reference')
-
-
 @pytest.mark.parametrize('kernel_size', [1, 2, 3])
 def test_kernel_points_match_jax(kernel_size):
     t = tkp.get_spherical_kernel_points(0.7 * 0.4, kernel_size)
