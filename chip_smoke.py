@@ -300,6 +300,26 @@ Phases (any failure exits non-zero and prints no result line):
      --run-mode train -i 2, then --run-mode eval -r -b 32 on its
      checkpoint; each kernel's launches counted from 0 before each run and
      held to the per-step and per-batch counts, the inter routes held.
+ 31-36. [inv-ka20], [inv-ka40], [inv-kpconv], [reg-ka20], [reg-ka40],
+     [reg-kpconv] inv_so3net_pn (b=48 descriptors, the triplet step of two
+     legs of 16 patches) and reg_so3net (b=8 pairs: the pair forward and
+     its step) at kanchor 20, 40 and one anchor, full width, seeded, in
+     fp32 and bf16: each kernel call against its plain version
+     (``check_calls``), the inter routes held to the templates (the W-off
+     F and dG to 'f' / 'dg'); the forward kernel vs plain path (bf16: the
+     plain path at the kernel's rounding points), the step's loss (fp32
+     with the per-leaf rule), both timed;
+ 37. [ka20-bf16-train] the cls b=12 bf16 step at kanchor 20: each call
+     against its plain version, the step by the noise-floor rule;
+ 38. [dropout] cls at 60 anchors with --dropout-rate 0.5: a b=12 bf16 step
+     on the plain intra route (no prenorm launch; its dW on the tensor-core
+     intra dW) against the plain path on the same masks, and a b=32 bf16
+     eval with no fused tail against the dropout-free model's logits;
+ 39. [option-entries] this slice's main paths: run_3dmatch --kanchor 20
+     train -i 2 then --run-mode eval -r, run_modelnet_rotation --kanchor
+     20 train -i 2 then eval -r, run_modelnet --dropout-rate 0.5
+     --debug-mode knownatt -u attention --compute-dtype bf16 -i 2; each
+     run's launches counted from 0 and held.
 
 Every phase prints its wall time (``[phase] phase wall S s``), and the
 script's total its last ``[done]`` line.
@@ -732,7 +752,7 @@ def check_dw_calls(tag, calls, routes, n_expect):
         f'{" ".join(f"{r:.2e}" for r in rels)} (<= 1e-3)')
     assert len(calls) == n_expect and intra['dw_mma'] == n_expect and \
         intra['dw'] == 0, (len(calls), intra, n_expect)
-    assert max(rels) <= 1e-3, rels
+    assert max(rels, default=0.0) <= 1e-3, rels
     return rels
 
 
@@ -2475,13 +2495,16 @@ def _intra_parent_pair(name, args):
 
 def _kernel_pair(name, args):
     """(kernel wrapper, plain version, the plain's arguments) of a captured
-    call of kernel ``name``. The fp32 intra df runs the forward kernel on
-    the inverse adjacency; its plain version is the scatter."""
+    call of kernel ``name``. The intra df runs the forward kernel on the
+    inverse adjacency; its plain version is the scatter, rounded once to
+    dout's type as the kernel stores df."""
     from epn_pointcloud_tpu_torch.ops import kernels
     if name == 'intra_conv_df':
         ik = kernels.intra_conv
-        return ik.intra_conv_df, ik.intra_conv_df_plain, (args[0], args[1],
-                                                          args[3])
+
+        def plain(dout, ti, W):
+            return ik.intra_conv_df_plain(dout, ti, W).to(dout.dtype)
+        return ik.intra_conv_df, plain, (args[0], args[1], args[3])
     entry = {k.name: k for k in kernels.KERNELS}[name]
     pick = {'intra_conv_prenorm_df': (0, 1, 2, 3, 5)}.get(name)
     return (getattr(entry.module, name), getattr(entry.module, entry.plain),
@@ -3641,14 +3664,15 @@ def reg_opt(root, mode='train'):
     return opt
 
 
-def reg_batch(root, device, mode='train'):
-    """(pairs [8, 2, 1024, 3], R_label [8, 60], T [8, 3, 3], R [8, 60, 3,
-    3]) on the card: the port's alignment loader's first 8 items."""
+def reg_batch(root, device, mode='train', opt=None):
+    """(pairs [8, 2, 1024, 3], R_label [8, na], T [8, 3, 3], R [8, na, 3,
+    3]) on the card: the port's alignment loader's first 8 items (na: the
+    options' kanchor, 60 unless ``opt`` names another)."""
     import numpy as np
     import torch
     from epn_pointcloud_tpu_torch.data import modelnet40
-    loader = modelnet40.Dataloader_ModelNet40Alignment(reg_opt(root, mode),
-                                                       mode)
+    loader = modelnet40.Dataloader_ModelNet40Alignment(
+        opt or reg_opt(root, mode), mode)
     data = [loader[i] for i in range(REG_BATCH)]
     return tuple(torch.from_numpy(np.stack([d[k] for d in data])).to(device)
                  for k in ('pc', 'R_label', 'T', 'R'))
@@ -3673,11 +3697,11 @@ def reg_loss(model, batch):
                                             nr=4)[0]
 
 
-def reg_f64_max(model, batch, chunk=2):
-    """Per-leaf max |gradient| of the step on a float64 copy of ``model``
-    on the plain path, ``chunk`` pairs at a time (the loss is the mean of
-    the pairs' losses, so the chunks' gradients, each scaled by its share,
-    add up to the batch's)."""
+def reg_f64_max(model, batch, chunk=2, loss=None):
+    """Per-leaf max |gradient| of the step (``loss``, reg_loss by default)
+    on a float64 copy of ``model`` on the plain path, ``chunk`` pairs at a
+    time (the loss is the mean of the pairs' losses, so the chunks'
+    gradients, each scaled by its share, add up to the batch's)."""
     import copy
     import torch
     from epn_pointcloud_tpu_torch.ops import kernels
@@ -3688,7 +3712,7 @@ def reg_f64_max(model, batch, chunk=2):
         for i in range(0, nb, chunk):
             pc, rlabel, T, R = (t[i:i + chunk] for t in batch)
             sub = (pc.double(), rlabel, T.double(), R.double())
-            (reg_loss(m64, sub) * (pc.shape[0] / nb)).backward()
+            ((loss or reg_loss)(m64, sub) * (pc.shape[0] / nb)).backward()
     out = {n: float(p.grad.abs().max()) if p.grad is not None else 0.0
            for n, p in m64.named_parameters()}
     del m64
@@ -4695,6 +4719,556 @@ def phase_anchor_entry():
     return {'train_launches': train_counts, 'eval_launches': eval_counts}
 
 
+# ------------- inv and reg below 60 anchors, the bf16 step below 60 anchors,
+# ------------- dropout, and the entry points' last options
+
+# the reduced-anchor inv and reg models: (model, kanchor, kpconv)
+ANCHOR_INV_REG = {'[inv-ka20]': ('inv', 20, False),
+                  '[inv-ka40]': ('inv', 40, False),
+                  '[inv-kpconv]': ('inv', 60, True),
+                  '[reg-ka20]': ('reg', 20, False),
+                  '[reg-ka40]': ('reg', 40, False),
+                  '[reg-kpconv]': ('reg', 60, True)}
+# below 60 anchors every kernel of the inter conv runs its template: the
+# fp32 (and one-anchor bf16) forward 'sgemm', the dTable 'dtable', the dW
+# 'dw', the W-off F 'f' and dG 'dg'; the bf16 forward the tensor-core
+# kernel ('mma') from MMA_MIN_NA anchors
+BELOW_60_ROUTES = REDESIGNED + TEMPLATES + ('f', 'dg')
+# launches of one inter block inv forward (8 layers: the ones conv at B0L0,
+# the W-fused inter conv at the 7 others) and reg forward (7 layers; both
+# clouds of each pair in one batch); in bf16 at more than one anchor each
+# layer's InstanceNorm takes its statistics from the moments kernel (one
+# anchor: plain torch sums, the JAX package's unpacked layout)
+INV_A_EVAL = {**_NO_BF16, **_NO_WOFF, 'fps': 1, 'ball_query': 8,
+              'ones_conv': 1, 'inter_conv': 7, 'inter_conv_dtable': 0,
+              'inter_conv_dw': 0, 'intra_conv': 0, 'intra_conv_dw': 0}
+REG_A_EVAL = {**INV_A_EVAL, 'ball_query': 7, 'inter_conv': 6}
+# one step: the inv triplet step's two legs, reg's one pair forward; the
+# backward composes at the same layers as at 60 anchors (c <= 32 or nn >
+# 32: INV_COMPOSED, REG_COMPOSED), the others keep the fused dTable / dW
+INV_A_STEP = {**INV_A_EVAL, 'fps': 2, 'ball_query': 16, 'ones_conv': 2,
+              'inter_conv': 14, 'inter_conv_dtable': 6, 'inter_conv_dw': 6,
+              'inter_conv_f': 8, 'inter_conv_dg': 8}
+REG_A_STEP = {**REG_A_EVAL, 'inter_conv_dtable': 2, 'inter_conv_dw': 2,
+              'inter_conv_f': 4, 'inter_conv_dg': 4}
+A_EVAL = {'inv': INV_A_EVAL, 'reg': REG_A_EVAL}
+A_STEP = {'inv': INV_A_STEP, 'reg': REG_A_STEP}
+# a bf16 cls step at kanchor 20 (7 inter block layers, the head's packed
+# mlp): the moments of the 7 inter BatchNorms and the head's, the head's
+# grouped conv forward and backward
+ANCHOR_BF16_STEP = {**ANCHOR_STEP, 'moments': 8, 'grouped_conv': 1,
+                    'grouped_conv_bwd': 1}
+# cls at 60 anchors with dropout > 0 in bf16: nothing deferred (the JAX
+# package's ``fuse`` gate), so the plain intra conv (its forward and df on
+# intra_conv_mma_kernel, its dW on intra_dw_mma_kernel) where the prenorm
+# form ran, and in eval the unfused tail (the grouped conv at the 6 packed
+# skips and the head, separate norms) where the fused one ran
+DROPOUT = 0.5
+DROPOUT_STEP = {**BF16_TRAIN_PER_STEP, 'intra_conv': 14, 'intra_conv_dw': 7,
+                'intra_conv_prenorm': 0, 'intra_conv_prenorm_df': 0,
+                'intra_conv_prenorm_dw': 0}
+DROPOUT_EVAL = {**BF16_EVAL_PER_BATCH, 'intra_conv': 7,
+                'intra_conv_prenorm': 0, 'grouped_conv': 7,
+                'grouped_conv_tail': 0}
+
+
+def anchor_inv_reg_opt(kind, kanchor, kpconv, root='unused'):
+    opt = inv_opt(root) if kind == 'inv' else reg_opt(root)
+    opt.model.kanchor, opt.model.kpconv = kanchor, kpconv
+    return opt
+
+
+def reg_anchor_loss(kanchor):
+    """The rotation step's loss over the anchors of ``kanchor`` (the
+    trainer's: the full group's with kpconv, whose one-anchor model
+    regresses directly)."""
+    def loss(model, batch):
+        import torch
+        from epn_pointcloud_tpu_torch import losses
+        from epn_pointcloud_tpu_torch.ops import icosahedron
+        pc, rlabel, T, R = batch
+        wts, y = model(pc)
+        anchors = torch.from_numpy(icosahedron.get_anchors(kanchor)).to(pc)
+        return losses.multi_task_detection_loss(anchors, wts, rlabel, y, R,
+                                                T, nr=4)[0]
+    return loss
+
+
+def _routes_below_60(tag, rows, dtype, na):
+    """The compared rows' launches by kernel, printed; every inter call on
+    its template (the bf16 forward on the tensor-core kernel from
+    MMA_MIN_NA anchors): 'sgemm' / 'mma', 'dtable', 'dw', 'f', 'dg'."""
+    routes = _route_table(rows)
+    log(f'{tag} {dtype} launches by kernel {routes}')
+    want = {'inter_conv': 'mma' if dtype == 'bf16' and na > 1 else 'sgemm',
+            'inter_conv_dtable': 'dtable', 'inter_conv_dw': 'dw',
+            'inter_conv_f': 'f', 'inter_conv_dg': 'dg'}
+    for name, route in want.items():
+        if rows.get(name):
+            assert routes[name] == {route: len(rows[name])}, (name, routes)
+    return routes
+
+
+def phase_anchor_inv_reg(tag, device, inv_root, reg_root):
+    """inv_so3net_pn (b=48 descriptor forward, the triplet step of two legs
+    of 16 patches) or reg_so3net (b=8 pairs: the pair forward and its step)
+    at kanchor 20 or one anchor, full width, seeded, in fp32 and bf16: each
+    kernel call against its plain version through the shared checker
+    (``check_calls``: every kernel's extras), the inter calls' routes
+    printed and held to their templates (the W-off F and dG to 'f' / 'dg',
+    whose envelope now takes any anchor count); the forward kernel vs plain
+    path (fp32 rtol 1e-3, atol 2e-3; bf16 per-sample cosine to the plain
+    path at the kernel's rounding points >= 0.999, or that reference's own
+    cosine to fp32 where lower); the step's loss kernel vs plain path (fp32
+    rtol 1e-5 with per-leaf gradients by ``_grads_close``, bf16 rtol 1e-3);
+    the whole forward and step timed."""
+    import torch
+    from epn_pointcloud_tpu_torch import models
+    from epn_pointcloud_tpu_torch.ops import kernels
+    kind, kanchor, kpconv = ANCHOR_INV_REG[tag]
+    na = 1 if kpconv else kanchor
+    opt = anchor_inv_reg_opt(kind, kanchor, kpconv)
+    if kind == 'inv':
+        src, tgt = inv_legs(inv_root, device, items=(0, 1))
+        x = torch.cat([src, tgt])[:INV_DESC_BATCH].contiguous()
+        batch = (src[:INV_BATCH].contiguous(), tgt[:INV_BATCH].contiguous())
+        loss, n_fwd, n_step = inv_loss, INV_DESC_BATCH, 2 * INV_BATCH
+    else:
+        ropt = reg_opt(reg_root)
+        ropt.model.kanchor = kanchor
+        batch = reg_batch(reg_root, device, opt=ropt)
+        x, loss = batch[0], reg_anchor_loss(kanchor)
+        n_fwd = n_step = 2 * REG_BATCH
+    model = models.build_model_from(opt, seed=SEED).to(device).eval()
+    assert model.params['na'] == na
+    out = {'na': na, 'results': {}}
+    for dtype in ('fp32', 'bf16'):
+        calls, y = forward_calls(model, x, dtype)
+        assert torch.isfinite(y).all()
+        expect = {n: k for n, k in A_EVAL[kind].items() if k}
+        if dtype == 'bf16' and na > 1:
+            expect['moments'] = expect['ball_query']
+        assert _call_counts(calls) == expect, (_call_counts(calls), expect)
+        with compute_dtype(dtype), torch.no_grad():
+            rows = check_calls(f'{tag} {dtype}', calls, ALL_FWD, dtype,
+                               routes=BELOW_60_ROUTES)
+        out[f'{dtype}_routes'] = _routes_below_60(tag, rows, dtype, na)
+        out['results'][dtype] = rows
+        del calls
+    with torch.no_grad():
+        yk = model(x)[0]
+        with kernels.plain():
+            yp = model(x)[0]
+        torch.testing.assert_close(yk, yp, rtol=1e-3, atol=2e-3)
+        with compute_dtype('bf16'):
+            b16 = model(x)[0]
+            with plain_at_rounding_points():
+                r16 = model(x)[0]
+        flat = lambda t: t.reshape(t.shape[0], -1).float()
+        cos_r = float(_cosine(flat(b16), flat(r16)).min())
+        ref32 = float(_cosine(flat(r16), flat(yp)).min())
+        cos32 = float(_cosine(flat(b16), flat(yk)).min())
+    assert torch.isfinite(b16).all()
+    assert cos_r >= min(0.999, ref32), (cos_r, ref32)
+    out.update(fp32_max_abs_err=float((yk - yp).abs().max()),
+               bf16_vs_rounding_min_cos=cos_r,
+               rounding_vs_fp32_min_cos=ref32, bf16_vs_fp32_min_cos=cos32)
+    del yk, yp, b16, r16
+    for dtype in ('fp32', 'bf16'):
+        k_ms, p_ms = forward_wall(model, x, dtype)
+        out[f'{dtype}_forward_ms'], out[f'{dtype}_plain_forward_ms'] = \
+            k_ms, p_ms
+    log(f'{tag} {n_fwd}-cloud forward (na={na}): fp32 kernel vs plain path '
+        f'max_abs_err {out["fp32_max_abs_err"]:.3e} (rtol 1e-3, atol '
+        f'2e-3); bf16 kernel path vs the plain path at its rounding points '
+        f'min per-sample cosine {cos_r:.7f} (>= the lower of 0.999 and '
+        f'{ref32:.7f}, that reference vs fp32); bf16 vs fp32 kernel path '
+        f'{cos32:.7f} (printed); whole forward fp32 '
+        f'{out["fp32_forward_ms"]:.2f} ms (plain '
+        f'{out["fp32_plain_forward_ms"]:.2f}), bf16 '
+        f'{out["bf16_forward_ms"]:.2f} ms (plain '
+        f'{out["bf16_plain_forward_ms"]:.2f})')
+    del model
+    torch.cuda.empty_cache()
+
+    for dtype in ('fp32', 'bf16'):
+        mk, mp = (models.build_model_from(opt, seed=SEED).to(device).train()
+                  for _ in range(2))
+        kernels.reset_counts()
+        losses_k = []
+
+        def step():
+            lk = loss(mk, batch)
+            lk.backward()
+            losses_k.append(lk.item())
+        with compute_dtype(dtype):
+            calls = capture_calls(ALL_STEP, step)
+            counts_k = kernels.counts()
+            with kernels.plain():
+                loss_p = loss(mp, batch)
+                loss_p.backward()
+        torch.cuda.synchronize()
+        assert kernels.counts() == counts_k, 'the plain path launched a kernel'
+        expect = dict(A_STEP[kind])
+        if dtype == 'bf16' and na > 1:
+            expect['moments'] = expect['ball_query']
+        assert counts_k == expect, (counts_k, expect)
+        lk, lp = losses_k[0], loss_p.item()
+        rtol = 1e-5 if dtype == 'fp32' else 1e-3
+        assert abs(lk - lp) <= rtol * abs(lp), (lk, lp)
+        bad, worst = [], (0.0, '')
+        if dtype == 'fp32':
+            if kind == 'inv':
+                f64 = _max_abs(inv_f64_grads(mp, batch))
+            else:
+                f64 = reg_f64_max(mp, batch, loss=loss)
+            pk = dict(mk.named_parameters())
+            for name, p in mp.named_parameters():
+                zero = torch.zeros_like(p)
+                g = pk[name].grad
+                ok, msg = _grads_close(
+                    name, zero if g is None else g,
+                    zero if p.grad is None else p.grad, f64[name])
+                if not ok:
+                    bad.append(msg)
+                if f64[name] > 1e-5 and g is not None:
+                    worst = max(worst, (rel_err(g, p.grad), name))
+            assert not bad, bad
+        log(f'{tag} {dtype} step ({n_step} clouds): loss kernel path '
+            f'{lk:.7f}, plain path {lp:.7f} (rtol {rtol})'
+            + (f'; worst real leaf relative L2 {worst[0]:.3e} {worst[1]}'
+               if dtype == 'fp32' else '')
+            + f'; launches {counts_k}')
+        with compute_dtype(dtype), torch.no_grad():
+            rows = check_calls(f'{tag} {dtype} step', calls, ALL_STEP, dtype,
+                               step=True, routes=BELOW_60_ROUTES)
+        out[f'{dtype}_step_routes'] = _routes_below_60(f'{tag} step', rows,
+                                                       dtype, na)
+        out['results'][f'{dtype}_step'] = rows
+        del calls
+        mk.zero_grad(set_to_none=True)
+        mp.zero_grad(set_to_none=True)
+        _, k_ms, p_ms, _, _ = time_steps(mk, mp, batch, dtype, 3, loss=loss,
+                                         tag=tag, n_clouds=n_step)
+        out.update({f'{dtype}_loss_kernel': lk, f'{dtype}_loss_plain': lp,
+                    f'{dtype}_step_ms': k_ms,
+                    f'{dtype}_plain_step_ms': p_ms})
+        if dtype == 'fp32':
+            out['worst_grad_rel_l2'] = worst[0]
+        del mk, mp
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_ka20_bf16_train(device):
+    """[ka20-bf16-train] The cls b=12 bf16 train step at kanchor 20 (seeded,
+    norm biases perturbed): each kernel call against its plain version
+    (``check_calls``, the templates' dTable and dW), and the step on the
+    kernel path against the plain path from the same weights by the
+    noise-floor rule (``bf16_step_check``); the step timed."""
+    import torch
+    from epn_pointcloud_tpu_torch import models
+    opt = anchor_opt(20, False)
+    batch = train_batch(device, SEED + 7)
+    mk = perturb_norm_biases(models.build_model_from(opt, seed=SEED)).to(
+        device).train()
+    with compute_dtype('bf16'):
+        calls = capture_calls(ALL_STEP,
+                              lambda: step_loss(mk, batch).backward())
+        with torch.no_grad():
+            rows = check_calls('[ka20-bf16-train] calls', calls, ALL_STEP,
+                               'bf16', step=True, routes=BELOW_60_ROUTES)
+    del calls, mk
+    routes = _routes_below_60('[ka20-bf16-train]', rows, 'bf16', 20)
+    models_ = tuple(perturb_norm_biases(models.build_model_from(
+        opt, seed=SEED)).to(device).train()
+        for _ in range(3 + len(NOISE_SCALES)))
+    mk, mp = models_[:2]
+    out = bf16_step_check(
+        f'[ka20-bf16-train] b={TRAIN_BATCH}', models_, step_loss, batch,
+        [(batch[0] * sc,) + batch[1:] for sc in NOISE_SCALES],
+        ANCHOR_BF16_STEP, f64_grad_max(mp, batch), 'clouds')
+    del models_
+    _, k_ms, p_ms, _, _ = time_steps(mk, mp, batch, 'bf16', 3,
+                                     tag='[ka20-bf16-train]')
+    del mk, mp
+    torch.cuda.empty_cache()
+    out.update(results={'step': rows}, routes=routes, step_ms=k_ms,
+               plain_step_ms=p_ms)
+    out.pop('leaves')
+    return out
+
+
+def _seed_dropout(model, seed):
+    """The model's dropout masks from a generator on its device seeded
+    with ``seed`` (two models seeded alike draw the same masks)."""
+    import torch
+    from epn_pointcloud_tpu_torch.nn.layers import set_dropout_generator
+    dev = next(model.parameters()).device
+    set_dropout_generator(model, torch.Generator(dev).manual_seed(seed))
+
+
+def phase_dropout(device):
+    """[dropout] cls_so3net_pn at 60 anchors with --dropout-rate 0.5, full
+    width, seeded: a b=12 bf16 train step whose launches show the JAX
+    package's gates (the plain intra conv and its tensor-core dW, no
+    prenorm kernel) and whose every kernel call is held to its plain
+    version, the step kernel vs plain path on the same masks (loss to rtol
+    1e-3, every real leaf at a cosine >= BF16_LEAF_COS); a b=32 bf16 eval
+    with no fused tail (B3) launched, every call held to its plain version,
+    its logits against the dropout-free model's on the same weights (which
+    runs the fused tail): per-sample cosine >= 0.999; both timed."""
+    import copy
+    import torch
+    from epn_pointcloud_tpu_torch import models
+    from epn_pointcloud_tpu_torch.ops import kernels
+    opt = full_opt()
+    opt.model.dropout_rate = DROPOUT
+    names = ALL_STEP + ('intra_conv_df',)
+    mk, mp = (perturb_norm_biases(models.build_model_from(
+        opt, seed=SEED)).to(device).train() for _ in range(2))
+    batch = train_batch(device, SEED + 8)
+    out = {'results': {}}
+    with compute_dtype('bf16'):
+        kernels.reset_counts()
+        _seed_dropout(mk, 5)
+        losses_k = []
+
+        def step():
+            lk = step_loss(mk, batch)
+            lk.backward()
+            losses_k.append(lk.item())
+        calls = capture_calls(names, step)
+        counts, routes = kernels.counts(), route_counts()
+        _seed_dropout(mp, 5)
+        with kernels.plain():
+            loss_p = step_loss(mp, batch)
+            loss_p.backward()
+        torch.cuda.synchronize()
+        check_routes('[dropout] step', 'bf16', counts, routes)
+        assert counts == DROPOUT_STEP, (counts, DROPOUT_STEP)
+        assert routes['intra']['dw_mma'] == DROPOUT_STEP['intra_conv_dw']
+        lk, lp = losses_k[0], loss_p.item()
+        assert abs(lk - lp) <= 1e-3 * abs(lp), (lk, lp)
+    # the float64 step on the same masks marks the degenerate leaves (the
+    # BatchNorm over block 0's constant field)
+    m64 = copy.deepcopy(mp).double()
+    m64.zero_grad(set_to_none=True)
+    _seed_dropout(m64, 5)
+    with kernels.plain():
+        step_loss(m64, (batch[0].double(),) + batch[1:]).backward()
+    f64 = {n: float(p.grad.abs().max()) for n, p in m64.named_parameters()}
+    del m64
+    with compute_dtype('bf16'):
+        pk = dict(mk.named_parameters())
+        cos = {n: _leaf_cos(pk[n].grad, p.grad)
+               for n, p in mp.named_parameters() if f64[n] > 1e-5}
+        worst = min(cos, key=cos.get)
+        assert cos[worst] >= BF16_LEAF_COS, (worst, cos[worst])
+        log(f'[dropout] b={TRAIN_BATCH} bf16 step, rate {DROPOUT}: loss '
+            f'kernel path {lk:.7f}, plain path {lp:.7f} (rtol 1e-3); '
+            f'per-leaf gradient cosine over {len(cos)} real leaves (float64 '
+            f'> 1e-5) min {cos[worst]:.5f} at {worst}, median '
+            f'{statistics.median(cos.values()):.5f}; launches {counts}; by '
+            f'kernel {routes}')
+        with torch.no_grad():
+            rows = check_calls('[dropout] step', calls, names, 'bf16',
+                               step=True)
+        del calls
+        out['results']['step'] = rows
+        out.update(step_launches=counts, step_routes=routes, loss_kernel=lk,
+                   loss_plain=lp, min_grad_cos=cos[worst],
+                   median_grad_cos=statistics.median(cos.values()))
+        mk.zero_grad(set_to_none=True)
+        mp.zero_grad(set_to_none=True)
+    _, k_ms, p_ms, _, _ = time_steps(mk, mp, batch, 'bf16', 3,
+                                     tag='[dropout]')
+    out.update(step_ms=k_ms, plain_step_ms=p_ms)
+    del mk, mp
+    torch.cuda.empty_cache()
+
+    model = models.build_model_from(opt, seed=SEED).to(device).eval()
+    plain_opt = full_opt()
+    ref = models.build_model_from(plain_opt, seed=SEED).to(device).eval()
+    x = torch.from_numpy(synthetic_batch(BATCH, N_POINTS, SEED)).to(device)
+    kernels.reset_counts()
+    calls, logits = forward_calls(model, x, 'bf16')
+    counts = kernels.counts()
+    assert counts == DROPOUT_EVAL, (counts, DROPOUT_EVAL)
+    with compute_dtype('bf16'), torch.no_grad():
+        rows = check_calls('[dropout] eval', calls, ALL_FWD, 'bf16')
+        tail = ref(x)[0]
+    del calls
+    cos = float(_cosine(logits, tail).min())
+    assert torch.isfinite(logits).all() and cos >= 0.999, cos
+    k_ms, p_ms = forward_wall(model, x, 'bf16')
+    r_ms, _ = forward_wall(ref, x, 'bf16')
+    log(f'[dropout] b={BATCH} bf16 eval, rate {DROPOUT}: launches {counts} '
+        f'(no fused tail); logits against the dropout-free model (fused '
+        f'tail) min per-sample cosine {cos:.7f} (>= 0.999); whole forward '
+        f'{k_ms:.2f} ms (plain path {p_ms:.2f}; the fused-tail model '
+        f'{r_ms:.2f})')
+    out['results']['eval'] = rows
+    out.update(eval_launches=counts, eval_vs_fused_min_cos=cos,
+               forward_ms=k_ms, plain_forward_ms=p_ms, fused_forward_ms=r_ms)
+    del model, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_option_entries(inv_root, reg_root):
+    """This slice's main paths, each kernel's launches counted from 0
+    before each run and held to the per-step and per-batch counts:
+    run_3dmatch --kanchor 20 train -i 2, then its checkpoint through
+    --run-mode eval -r on the synthetic scene (features, recall.csv);
+    run_modelnet_rotation --kanchor 20 train -i 2 (with its testR eval),
+    then --run-mode eval -r; run_modelnet --dropout-rate 0.5 --debug-mode
+    knownatt -u attention --compute-dtype bf16 train -i 2 (the attention
+    model trained as a classifier: Summary Loss and Acc, no prenorm or
+    fused-tail launch). Every W-off call on its template ('f', 'dg')."""
+    import numpy as np
+    import torch
+    from epn_pointcloud_tpu_torch import run_3dmatch, run_modelnet
+    from epn_pointcloud_tpu_torch import run_modelnet_rotation as rot
+    from epn_pointcloud_tpu_torch.data import synthetic
+    from epn_pointcloud_tpu_torch.ops import kernels, so3conv
+    out = {}
+    steps = 2
+    work = os.path.join(ROOT, 'build', 'chip_smoke_options')
+    shutil.rmtree(work, ignore_errors=True)
+
+    def run(tag, main, argv, **kw):
+        kernels.reset_counts()
+        t0 = time.time()
+        try:
+            trainer = main(argv, **kw)
+            torch.cuda.synchronize()
+        finally:
+            so3conv.set_compute_dtype('fp32')
+        wall = time.time() - t0
+        counts, routes = kernels.counts(), route_counts()
+        trainer.logger.close()
+        log(f'{tag} wall {wall:.2f} s; launches {counts}; inter by kernel '
+            f'{ {k: v for k, v in routes["inter"].items() if v} }')
+        return trainer, counts, routes, wall
+
+    def held(counts, routes, want_counts):
+        assert counts == want_counts, (counts, want_counts)
+        inter = {k: v for k, v in routes['inter'].items() if v}
+        want = {'sgemm': counts['inter_conv'],
+                'dtable': counts['inter_conv_dtable'],
+                'dw': counts['inter_conv_dw'], 'f': counts['inter_conv_f'],
+                'dg': counts['inter_conv_dg']}
+        assert inter == {k: v for k, v in want.items() if v}, (inter, want)
+
+    # run_3dmatch --kanchor 20: train, then the descriptor eval
+    common = ['experiment', '-d', inv_root, '--kanchor', '20',
+              '--model-dir', os.path.join(work, 'runs')]
+    tag = '[inv-ka20-entry]'
+    trainer, counts, routes, wall = run(
+        tag, run_3dmatch.main, common + ['--run-mode', 'train', '-i',
+                                         str(steps), '--save-freq',
+                                         str(steps), '-lf', '1'])
+    assert trainer.model.params['na'] == 20
+    stats = dict(trainer.summary.running_stats)
+    assert all(math.isfinite(stats[k]) for k in ('Loss', 'Pos', 'Neg',
+                                                 'Acc'))
+    held(counts, routes, {n: steps * k for n, k in INV_A_STEP.items()})
+    out['inv_train'] = {'launches': counts, 'wall_s': wall,
+                        'running_stats': stats}
+    root = eval_tree()
+    cwd = os.path.join(work, 'cwd_eval')
+    rel = os.path.join('trained_models', 'models', 'inv_ka20', 'ckpt',
+                       os.path.basename(trainer.last_ckpt))
+    os.makedirs(os.path.dirname(os.path.join(cwd, rel)))
+    shutil.copy(trainer.last_ckpt, os.path.join(cwd, rel))
+    with working_dir(cwd):
+        other, counts, routes, wall = run(
+            f'{tag} eval', run_3dmatch.main,
+            ['experiment', '-d', root, '--run-mode', 'eval', '-r', rel,
+             '--kanchor', '20', '--model-dir', 'runs'], scenes=[EVAL_SCENE])
+        feat_dir = os.path.join('data', 'evaluate', '3DMatch', 'inv_ka20',
+                                EVAL_SCENE, '32_dim')
+        feats = [np.load(os.path.join(feat_dir, f'feature{i}.npy'))
+                 for i in range(3)]
+        with open(os.path.join('trained_models', 'evaluate', '3DMatch',
+                               'inv_ka20', 'recall.csv')) as f:
+            recall = f.read()
+    n_chunks = 3 * -(-EVAL_KPTS // EVAL_CHUNK)
+    held(counts, routes, {n: n_chunks * k for n, k in INV_A_EVAL.items()})
+    assert all(f.shape == (EVAL_KPTS, 64) and np.isfinite(f).all()
+               for f in feats) and EVAL_SCENE in recall
+    for (k, a), (_, b) in zip(trainer.model.state_dict().items(),
+                              other.model.state_dict().items()):
+        assert torch.equal(a, b), k
+    log(f'{tag} eval -r: features {[f.shape for f in feats]}, recall.csv '
+        f'{recall!r}, host seconds {dict(other.eval_seconds)}')
+    out['inv_eval'] = {'launches': counts, 'wall_s': wall,
+                       'seconds': dict(other.eval_seconds)}
+    del trainer, other
+
+    # run_modelnet_rotation --kanchor 20: train (and its eval), then eval
+    tag = '[reg-ka20-entry]'
+    common = ['experiment', '-d', reg_root, '--kanchor', '20',
+              '--model-dir', os.path.join(work, 'runs')]
+    with working_dir(os.path.join(work, 'cwd_rot')):
+        trainer, counts, routes, wall = run(
+            tag, rot.main, common + ['-i', str(steps), '--save-freq',
+                                     str(steps), '-lf', '1'])
+        n_eval = len(trainer.dataset_test)
+        held(counts, routes, {n: steps * k + n_eval * REG_A_EVAL[n]
+                              for n, k in REG_A_STEP.items()})
+        stats = dict(trainer.summary.running_stats)
+        assert all(math.isfinite(stats[k]) for k in ('Loss', 'Reg_Loss',
+                                                     'Mean_Err', 'R_Acc'))
+        out['reg_train'] = {'launches': counts, 'wall_s': wall,
+                            'running_stats': stats}
+        other, counts, routes, wall = run(
+            f'{tag} eval', rot.main, common + ['--run-mode', 'eval', '-r',
+                                               trainer.last_ckpt])
+        errors = np.loadtxt(os.path.join(
+            'data', 'alignment_errors', f'{other.exp_name}_error.txt'))
+    n_other = len(other.dataset_test)
+    held(counts, routes, {n: n_other * k for n, k in REG_A_EVAL.items()})
+    median = float(np.median(errors) * 180 / np.pi)
+    assert errors.size == n_other * REG_BATCH and math.isfinite(median)
+    log(f'{tag} eval -r: {errors.size} pairs, median angular error '
+        f'{median:.3f} degrees')
+    out['reg_eval'] = {'launches': counts, 'wall_s': wall,
+                       'median_deg': median}
+    del trainer, other
+
+    # run_modelnet --dropout-rate 0.5 --debug-mode knownatt -u attention
+    tag = '[dropout-entry]'
+    tree = os.path.join(work, 'modelnet')
+    synthetic.make_modelnet_tree(tree, n_cats=4, n_train=6, n_test=6,
+                                 n_points=N_POINTS, seed=0,
+                                 splits=('train', 'testR'))
+    trainer, counts, routes, wall = run(
+        tag, run_modelnet.main,
+        ['experiment', '-d', tree, '--run-mode', 'train', '-i', str(steps),
+         '--save-freq', str(steps), '-lf', '1', '--dropout-rate',
+         str(DROPOUT), '--debug-mode', 'knownatt', '-u', 'attention',
+         '--compute-dtype', 'bf16', '--model-dir',
+         os.path.join(work, 'runs')])
+    n_eval = len(trainer.eval_logits)
+    check_routes(tag, 'bf16', counts, routes)
+    expect = {n: steps * k + n_eval * DROPOUT_EVAL[n]
+              for n, k in DROPOUT_STEP.items()}
+    assert counts == expect, (counts, expect)
+    assert trainer.knownatt and not trainer.attention_model
+    assert set(trainer.summary.items) == {'Time', 'Loss', 'Acc'}
+    stats = dict(trainer.summary.running_stats)
+    assert all(math.isfinite(stats[k]) for k in ('Loss', 'Acc'))
+    log(f'{tag} running stats {stats}; test accuracy '
+        f'{trainer.test_accs[-1]:.2f}% over {n_eval} batches')
+    out['dropout_train'] = {'launches': counts, 'wall_s': wall,
+                            'running_stats': stats}
+    del trainer
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 PARENT_SOURCES = {'fps.cu': {'fps': 'epn_fps'},
                   'ball_query.cu': {'ball_query': 'epn_ball_query'},
                   'ones_conv.cu': {'ones_conv': 'epn_ones_conv'},
@@ -4826,19 +5400,29 @@ def main(argv=None):
         del reg_b
         reg_entry = timed('[reg-entry]', phase_reg_entry)
         reg_bf16_entry = timed('[reg-entry] bf16', phase_reg_entry, 'bf16')
-        shutil.rmtree(REG_DIR, ignore_errors=True)
         eval3d = timed('[3dmatch-eval-entry]', phase_3dmatch_eval_entry,
                        inv_ckpt)
         eval3d_bf16 = timed('[3dmatch-eval-entry] bf16',
                             phase_3dmatch_eval_entry, inv_bf16_ckpt, 'bf16')
-        shutil.rmtree(INV_DIR, ignore_errors=True)
-        shutil.rmtree(EVAL_DIR, ignore_errors=True)
         torch.cuda.empty_cache()
         ref_conv = timed('[ref-convention]', phase_ref_convention, device)
         anchor = {}
         for tag in ANCHOR_MODELS:
             anchor[tag] = timed(tag, phase_anchor_model, tag, device)
         anchor_entry = timed('[ka20-entry]', phase_anchor_entry)
+        # inv and reg below 60 anchors, the bf16 step below 60, dropout and
+        # the entry points' last options
+        inv_reg = {}
+        for tag in ANCHOR_INV_REG:
+            inv_reg[tag] = timed(tag, phase_anchor_inv_reg, tag, device,
+                                 inv_root, reg_tree())
+            torch.cuda.empty_cache()
+        ka20_bf16 = timed('[ka20-bf16-train]', phase_ka20_bf16_train, device)
+        dropout = timed('[dropout]', phase_dropout, device)
+        options = timed('[option-entries]', phase_option_entries, inv_root,
+                        reg_tree())
+        for d in (REG_DIR, INV_DIR, EVAL_DIR):
+            shutil.rmtree(d, ignore_errors=True)
     except Exception:
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -4865,7 +5449,10 @@ def main(argv=None):
         reg_bf16_launches = reg_bf16_entry['train_launches'][k.name]
         rec = {'name': k.name, 'route': 'cuda', 'source': k.source,
                'replaces': k.replaces,
-               'launches': (anchor_entry['train_launches'][k.name]
+               'launches': (options['inv_train']['launches'][k.name]
+                            or options['reg_train']['launches'][k.name]
+                            or options['dropout_train']['launches'][k.name]
+                            or anchor_entry['train_launches'][k.name]
                             or reg_bf16_launches or inv_bf16_counts[k.name]
                             or inv_counts[k.name]
                             or bf16_train_counts[k.name]
@@ -4937,6 +5524,22 @@ def main(argv=None):
             'ka20_train_entry_launches':
                 anchor_entry['train_launches'][k.name],
             'ka20_eval_launches': anchor_entry['eval_launches'][k.name]})
+        # inv and reg below 60 anchors (b=48 descriptors / b=8 pairs, and
+        # their steps, fp32 and bf16), the ka20 cls bf16 step, the dropout
+        # model's bf16 step and eval; launches of this slice's entry runs
+        for key, res in ((*((tag.strip('[]'), inv_reg[tag]['results'])
+                            for tag in ANCHOR_INV_REG),
+                          ('ka20_bf16_train', ka20_bf16['results']),
+                          ('dropout', dropout['results']))):
+            for part, rows in res.items():
+                if rows.get(k.name):
+                    agg = _aggregate(rows[k.name])
+                    agg['routes'] = _route_table(
+                        {k.name: rows[k.name]}).get(k.name)
+                    rec.setdefault(key, {})[part] = agg
+        rec.update({f'{run}_entry_launches': options[run]['launches'][k.name]
+                    for run in ('inv_train', 'inv_eval', 'reg_train',
+                                'reg_eval', 'dropout_train')})
         rec.update({'inv_bf16_train_entry_launches': inv_bf16_counts[k.name],
                     'inv_train_entry_launches': inv_counts[k.name],
                     'bf16_train_entry_launches': bf16_train_counts[k.name],
@@ -4978,6 +5581,8 @@ def main(argv=None):
                    '3dmatch_eval': eval3d, '3dmatch_bf16_eval': eval3d_bf16,
                    'ref_convention': ref_conv, 'reduced_anchors': anchor,
                    'ka20_entry': anchor_entry,
+                   'inv_reg_below_60': inv_reg, 'ka20_bf16_train': ka20_bf16,
+                   'dropout': dropout, 'option_entries': options,
                    'phase_wall_s': PHASE_WALL,
                    'kernels': summary, 'seconds': time.time() - t_start},
                   f, indent=1)

@@ -11,7 +11,10 @@ resume. The run goes on the CUDA device unless the caller names another
 named it refuses to start. ``--compute-dtype`` sets the conv path's
 precision policy (``ops.so3conv.set_compute_dtype``) for the process, in
 every mode: a bf16-served model is trained in bf16 (parameters and Adam
-stay fp32; weights are cast to bf16 at use).
+stay fp32; weights are cast to bf16 at use). Dropout (``--dropout-rate``)
+draws its masks from a ``torch.Generator`` on the run's device, seeded from
+``--seed``; as the JAX trainer's rng, it is not saved with a checkpoint or
+by ``save_full_state``, so a resumed run draws from the seed again.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import train as train_lib
+from ..nn.layers import set_dropout_generator
 from ..ops import so3conv
 from . import config as config_lib
 from .logger import Logger, Summary, Timer
@@ -82,6 +86,9 @@ class Trainer:
 
         self._setup_datasets()
         self._setup_model()
+        self.dropout_generator = torch.Generator(self.device).manual_seed(
+            opt.seed)
+        set_dropout_generator(self.model, self.dropout_generator)
         self._setup_optim()
         self.iter_counter = 0
         self._resume_from_ckpt(getattr(opt, 'resume_path', None))
@@ -127,6 +134,8 @@ class Trainer:
                 self.test()
 
     def train_epoch(self):
+        # as the JAX trainer: its train_epoch calls epoch_step, which no
+        # trainer defines (epn_pointcloud_tpu/app/trainer.py:127-147)
         raise NotImplementedError('epoch-based training (-e) has no epoch '
                                   'step in this trainer; use -i')
 

@@ -6,7 +6,11 @@ entropy with an 'attention*' pooling flag, else the cross entropy alone), a
 backward through the conv kernels' autograd Functions, and an Adam step at
 the scheduled learning rate. Its log scalars stay on the device until the
 Summary reads them at log time. The model is the one ``opt.model`` names:
-kanchor 60, 40 or 20, or one anchor with ``kpconv``.
+kanchor 60, 40 or 20, or one anchor with ``kpconv``. ``--debug-mode
+knownatt`` trains an attention model as a plain classifier (the cross
+entropy alone, Summary 'Loss' and 'Acc') and hands the model the rotation
+label, which its head ignores, as the JAX trainer does; the JAX trainer
+reads no other debug mode, and neither does this one.
 """
 
 from __future__ import annotations
@@ -27,14 +31,13 @@ PRETRAIN_STEP = 2000
 
 class TrainerModelNet(Trainer):
     def __init__(self, opt, device=None):
-        if opt.debug_mode is not None:
-            raise NotImplementedError(f'debug mode {opt.debug_mode!r} is not '
-                                      f'ported')
         if getattr(opt, 'steps_per_dispatch', 1) > 1:
             raise NotImplementedError('--steps-per-dispatch > 1 is TPU '
                                       'dispatch machinery; the port takes one '
                                       'step a call')
-        self.attention_model = opt.model.flag.startswith('attention')
+        self.knownatt = opt.debug_mode == 'knownatt'
+        self.attention_model = (opt.model.flag.startswith('attention')
+                                and not self.knownatt)
         self.test_accs = []
         self.eval_logits = []
         self.epoch_counter = 0
@@ -99,7 +102,7 @@ class TrainerModelNet(Trainer):
     def _optimize(self, data):
         pc, label, rlabel = self._batch(data)
         self.model.train()
-        pred, feat = self.model(pc)
+        pred, feat = self.model(pc, rlabel if self.knownatt else None)
         loss, aux = self._loss(pred, feat, label, rlabel, self.iter_counter)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -124,7 +127,7 @@ class TrainerModelNet(Trainer):
         self.eval_logits = []
         for data in self.dataset_test:
             pc, label, rlabel = self._batch(data)
-            pred, feat = self.model(pc)
+            pred, feat = self.model(pc, rlabel if self.knownatt else None)
             _, aux = self._loss(pred, feat, label, rlabel)
             # device scalars; one transfer after the loop
             accs.append(aux['acc'])

@@ -32,7 +32,8 @@
 // Design of the SGEMM template (fp32 and bf16 shapes off the CUDA-core and
 // tensor-core kernels' envelopes): a register-blocked SGEMM whose rows are the
 // flattened (point, anchor) pairs. A block owns a BM x BN output tile
-// (128 x 32/64/128, or 64 x 256 when D allows) with 8 x 8 outputs a
+// (128 x 32/64/128, or 64 x 256 when D allows; 64 rows where the
+// neighbors of 128 do not fit, at few anchors) with 8 x 8 outputs a
 // thread, and walks the channels
 // in chunks of CC = 8. For each chunk it first builds its A slab F[row, k, cc]
 // (BM x 24 x 8) in shared memory: each item (row, group of 6 kernel points)
@@ -381,6 +382,23 @@ int launch(const float* gx, const int* idx, const T* table,
   return (int)cudaGetLastError();
 }
 
+// 128 rows a block where their neighbors fit in shared memory, else 64: a
+// block's rows touch BM / na + 2 points, so at few anchors the staged
+// neighbors outgrow it (one anchor, nn = 64: 130 points, 166 KB beside the
+// 100 KB F slab)
+template <int BN, typename T, bool kWOff = false>
+int launch_rows(const float* gx, const int* idx, const T* table,
+                const float* rk, const float* k2, const T* W, T* out, int M,
+                int p2, int nn, int q, int na, int K, int C, int D,
+                float sigma, cudaStream_t stream) {
+  if (layout(128, kWOff ? 0 : BN, K, na, nn).total <= kMaxSmem) {
+    return launch<128, BN, T, kWOff>(gx, idx, table, rk, k2, W, out, M, p2,
+                                     nn, q, na, K, C, D, sigma, stream);
+  }
+  return launch<64, BN, T, kWOff>(gx, idx, table, rk, k2, W, out, M, p2, nn,
+                                  q, na, K, C, D, sigma, stream);
+}
+
 template <typename T>
 int dispatch(const void* gx, const void* idx, const void* table,
              const void* rk, const void* k2, const void* W, void* out,
@@ -398,12 +416,12 @@ int dispatch(const void* gx, const void* idx, const void* table,
     return launch<64, 256>(g, ix, t, r, kk, w, o, M, p2, nn, q, na, K, C, D, sigma, s);
   }
   if (D % 128 == 0) {
-    return launch<128, 128>(g, ix, t, r, kk, w, o, M, p2, nn, q, na, K, C, D, sigma, s);
+    return launch_rows<128>(g, ix, t, r, kk, w, o, M, p2, nn, q, na, K, C, D, sigma, s);
   }
   if (D % 64 == 0) {
-    return launch<128, 64>(g, ix, t, r, kk, w, o, M, p2, nn, q, na, K, C, D, sigma, s);
+    return launch_rows<64>(g, ix, t, r, kk, w, o, M, p2, nn, q, na, K, C, D, sigma, s);
   }
-  return launch<128, 32>(g, ix, t, r, kk, w, o, M, p2, nn, q, na, K, C, D, sigma, s);
+  return launch_rows<32>(g, ix, t, r, kk, w, o, M, p2, nn, q, na, K, C, D, sigma, s);
 }
 
 // ------------------------------------------------- bf16 on tensor cores
@@ -1643,13 +1661,14 @@ extern "C" int epn_inter_conv_f(const void* gx, const void* idx,
   const float* r = (const float*)rk;
   const float* kk = (const float*)k2;
   cudaStream_t s = (cudaStream_t)stream;
-  // 256 threads a block, 128 rows; no W slabs in shared memory
+  // 256 threads a block, 128 rows (64 rows, 128 threads, where their
+  // neighbors do not fit); no W slabs in shared memory
   if (bf16) {
-    return launch<128, 128, epn::bf16, true>(
+    return launch_rows<128, epn::bf16, true>(
         g, ix, (const epn::bf16*)table, r, kk, nullptr, (epn::bf16*)F,
         b * p2 * na, p2, nn, q, na, K, C, 0, sigma, s);
   }
-  return launch<128, 128, float, true>(g, ix, (const float*)table, r, kk,
+  return launch_rows<128, float, true>(g, ix, (const float*)table, r, kk,
                                        nullptr, (float*)F, b * p2 * na, p2,
                                        nn, q, na, K, C, 0, sigma, s);
 }

@@ -41,9 +41,11 @@
 // W-off mode of dTable (template flag kWOff, epn_inter_conv_dg): dF
 // [b, p2, na, K, C] (fp32, or bf16 widened on load) comes from device
 // memory (the caller formed it as dout W^T) and each chunk's slab is loaded
-// instead of formed; the scatter is the same, except that in bf16 each
-// slot's fp32 sum is rounded to bf16 before its atomics, where the TPU's
-// dG is stored in bf16. It replaces _call -> _bwd_kernel (the VJP of
+// instead of formed; the scatter is the same. In bf16 both modes round at
+// the TPU kernels' points, as the plain versions do: dF (fused mode), the
+// anchor weights and each slot's sum (the TPU's dG is stored in bf16)
+// rounded to bf16 before the fp32 atomics. It replaces _call ->
+// _bwd_kernel (the VJP of
 // fused_gather_neighbor_conv / fused_neighbor_conv, and the composed
 // backward of _fgcw_bwd:1685-1703) together with the one-hot fold of dG
 // onto the table rows that follows it there (_fgcw_bwd:1692-1696,
@@ -227,7 +229,8 @@ __host__ __device__ inline TSmem t_layout(int na, int nn) {
 
 // The dF slab [T_BM][FS] of channel chunk c0, formed by the GEMM of the
 // block's dout rows against W (both staged T_BK d at a time): rows ty * 8 + i,
-// columns tx + 32 * j.
+// columns tx + 32 * j; summed in fp32 and rounded to E (bf16 where the TPU
+// kernel rounds dF, _bwd_gather_w_kernel:1120).
 template <typename E>
 __device__ __forceinline__ void df_slab_gemm(
     float* __restrict__ s_A, float* __restrict__ s_B, float* __restrict__ s_F,
@@ -284,7 +287,9 @@ __device__ __forceinline__ void df_slab_gemm(
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int j = 0; j < 6; ++j) s_F[(ty * 8 + i) * FS + tx + 32 * j] = acc[i][j];
+    for (int j = 0; j < 6; ++j) {
+      s_F[(ty * 8 + i) * FS + tx + 32 * j] = epn::round_to<E>(acc[i][j]);
+    }
   }
 }
 
@@ -308,6 +313,10 @@ __device__ __forceinline__ void df_slab_load(float* __restrict__ s_F,
   }
 }
 
+// In bf16 (E) the anchor weights and each slot's sum sum_k w dF are rounded
+// to E (the TPU kernels' rounding points: _bwd_gather_w_kernel:1133, 1158;
+// _bwd_kernel:573, 580-581), as the tensor-core scatter and the plain
+// versions round them; the fold onto the table rows stays fp32.
 // kWOff: dout is dF [M, NK, C]; W and D are unused, and each slot's sum
 // sum_k w dF is rounded to E before it is added (the TPU kernel writes dG in
 // dF's dtype before its fp32 fold onto the table rows)
@@ -360,7 +369,7 @@ inter_dtable_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
       for (int k = 0; k < NK; ++k) {
         const float4 r = make_float4(__ldg(rp + 3 * k), __ldg(rp + 3 * k + 1),
                                      __ldg(rp + 3 * k + 2), __ldg(k2 + k));
-        const float w = anchor_weight(g, r, inv_sigma);
+        const float w = epn::round_to<E>(anchor_weight(g, r, inv_sigma));
         const float4 f0 = reinterpret_cast<const float4*>(fr + k * CC)[0];
         const float4 f1 = reinterpret_cast<const float4*>(fr + k * CC)[1];
         v[0] = fmaf(w, f0.x, v[0]);
@@ -375,7 +384,7 @@ inter_dtable_kernel(const float* __restrict__ gx, const int* __restrict__ idx,
       float* dst = dT + (((size_t)(pt / p2) * q + j) * na + a) * C + c0;
 #pragma unroll
       for (int cc = 0; cc < CC; ++cc) {
-        atomicAdd(dst + cc, kWOff ? epn::round_to<E>(v[cc]) : v[cc]);
+        atomicAdd(dst + cc, epn::round_to<E>(v[cc]));
       }
     }
   }

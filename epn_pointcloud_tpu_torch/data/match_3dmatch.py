@@ -113,12 +113,13 @@ class FragmentLoader:
     """Keypoint pairs of fused fragments: each item is npt patch pairs
     ('src', 'tgt' [npt, input_num, 3]) around keypoints drawn from one pair
     file, the fragments, the relative rotation T and an id. Without
-    augmentation only (the 3DMatch entry point forces it)."""
+    augmentation only (the 3DMatch entry point forces it). ``use_normals``
+    is stored and read nowhere, as the JAX loader stores it: the patches
+    stay 3-channel."""
 
     def __init__(self, opt, search_radius, npt=24, kptname='kpts',
                  use_normals=False):
-        if use_normals:
-            raise NotImplementedError('normals input is not ported')
+        self.use_normals = use_normals
         if not opt.no_augmentation:
             raise NotImplementedError('3DMatch training augmentation is not '
                                       'ported (the entry point forces '
@@ -196,12 +197,12 @@ class FragmentTestLoader:
     cloud_bin_A-cloud_bin_B.keypts.npy: a pair file of more than 2 * npt
     keypoint pairs is split in two, every tenth split is kept, and an item
     is the patches of its first npt pairs ('src', 'tgt' [npt, input_num,
-    3]), the fragments and an id."""
+    3]), the fragments and an id. ``use_normals`` is stored and read
+    nowhere, as in the JAX loader."""
 
     def __init__(self, opt, test_path, search_radius, use_normals=False,
                  npt=24):
-        if use_normals:
-            raise NotImplementedError('normals input is not ported')
+        self.use_normals = use_normals
         self.opt = opt
         self.data_path = test_path
         self.search_radius = search_radius
@@ -262,11 +263,12 @@ class SceneEvalLoader:
     evaluation: item N is fragment N's patches ('clouds' [n_kpts,
     input_num, 3]), the fragment and its id. The patches are read from the
     scene's npz cache when it holds them (resampled if they have another
-    size), else searched, resampled from a RandomState(seed) and cached."""
+    size), else searched, resampled from a RandomState(seed) and cached.
+    ``--normals`` is stored (``use_normals``) and read nowhere, as in the
+    JAX loader."""
 
     def __init__(self, opt, scene):
-        if opt.model.normals:
-            raise NotImplementedError('normals input is not ported')
+        self.use_normals = opt.model.normals
         self.opt = opt
         self.data_path = os.path.join(opt.dataset_path, scene)
         self.search_radius = opt.model.search_radius

@@ -160,12 +160,12 @@ SCATTER_F32_VARIANTS = {
                        'j < 6; ++j) if (C < 0) acc[i][j] = fmaf('),
     'tpl_no_wstage': ('for (int e = tid; e < NCOL * T_BK / 4;',
                       'for (int e = tid; C < 0 && e < NCOL * T_BK / 4;'),
-    'tpl_no_weights': ('const float w = anchor_weight(g, r, inv_sigma);',
-                       'const float w = 0.5f;'),
-    'tpl_plain_stores': ('atomicAdd(dst + cc, kWOff ?',
-                         'dst[cc] = (kWOff ?'),
-    'tpl_no_write': ('atomicAdd(dst + cc, kWOff ?',
-                     'if (C < 0) atomicAdd(dst + cc, kWOff ?'),
+    'tpl_no_weights': ('const float w = epn::round_to<E>(anchor_weight(g, '
+                       'r, inv_sigma));', 'const float w = 0.5f;'),
+    'tpl_plain_stores': ('atomicAdd(dst + cc, epn::round_to<E>(v[cc]));',
+                         'dst[cc] = epn::round_to<E>(v[cc]);'),
+    'tpl_no_write': ('atomicAdd(dst + cc, epn::round_to<E>',
+                     'if (C < 0) atomicAdd(dst + cc, epn::round_to<E>'),
     'sc32_no_product': ('acc[i][n] = fmaf(a[i], b[n], acc[i][n]);',
                         'if (C < 0) acc[i][n] = fmaf(a[i], b[n], '
                         'acc[i][n]);'),

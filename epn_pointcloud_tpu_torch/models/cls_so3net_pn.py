@@ -35,7 +35,9 @@ class ClsSO3ConvModel(nn.Module):
         if seed is not None:
             init_parameters(self, torch.Generator().manual_seed(seed))
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, rlabel=None):
+        """rlabel: the rotation label of ``--debug-mode knownatt``, which
+        the head ignores (as the JAX model's does)."""
         x = so3conv.preprocess_input(x, self.params['na'])
         for bi, block in enumerate(self.backbone):
             # occupancy-ones input: block 0's first layer skips the gather

@@ -14,6 +14,12 @@ the skip conv's batch statistics), InstanceNorm blocks (the JAX package
 fuses the tail for BatchNorm only) and block 0 layer 0 (the occupancy-ones
 input, rank-1 skip) keep the unfused tail.
 
+With a dropout rate > 0 the inter and the intra block drop after their
+activation in train mode (``layers.Dropout``), and, as in the JAX package,
+nothing is deferred: the inter norm runs on its own before the plain intra
+conv (not the PRENORM kernel), the intra norm on its own, and eval runs
+the unfused tail (no fused tail kernel).
+
 Below 60 anchors (kanchor 40, 20, or 1 for the KPConv baseline) the
 builders sequence ``inter_block`` layers: an inter conv, its norm over the
 kanchor anchors and the activation. In the production mode its norm takes
@@ -33,18 +39,20 @@ from torch import nn
 
 from ..ops import sampling, so3conv
 from ..ops.so3conv import SphericalPointCloud
-from .layers import (BatchNorm, Dense1x1, InstanceNorm, InterSO3Conv,
-                     IntraSO3Conv, get_activation, make_norm)
+from .layers import (BatchNorm, Dense1x1, Dropout, InstanceNorm,
+                     InterSO3Conv, IntraSO3Conv, get_activation, make_norm)
 
 
 class IntraSO3ConvBlock(nn.Module):
-    """intra conv + InstanceNorm + activation."""
+    """intra conv + InstanceNorm + activation + dropout."""
 
-    def __init__(self, dim_in: int, dim_out: int, activation='leaky_relu'):
+    def __init__(self, dim_in: int, dim_out: int, activation='leaky_relu',
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.conv = IntraSO3Conv(dim_in, dim_out)
         self.norm = InstanceNorm()
         self.act = get_activation(activation)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: SphericalPointCloud, prenorm=None,
                 defer_norm_act: bool = False):
@@ -54,13 +62,13 @@ class IntraSO3ConvBlock(nn.Module):
         x = self.conv(x, prenorm=prenorm)
         if defer_norm_act:
             return x, self.norm.scale_shift(x.feats.shape[2], x.feats)
-        return SphericalPointCloud(x.xyz, self.act(self.norm(x.feats)),
-                                   x.anchors)
+        return SphericalPointCloud(
+            x.xyz, self.dropout(self.act(self.norm(x.feats))), x.anchors)
 
 
 class InterSO3ConvBlock(nn.Module):
     """inter conv + norm (BatchNorm, or InstanceNorm when none is named) +
-    activation."""
+    activation + dropout."""
 
     def __init__(self, dim_in, dim_out, kernel_size, stride, radius, sigma,
                  n_neighbor, kanchor=60, lazy_sample=None, norm=None,
@@ -69,14 +77,13 @@ class InterSO3ConvBlock(nn.Module):
         super().__init__()
         if pooling not in (None, 'none'):
             raise NotImplementedError(f'xyz pooling {pooling!r} is not ported')
-        if dropout_rate > 0:
-            raise NotImplementedError('dropout is not ported')
         lazy = True if lazy_sample is None else lazy_sample
         self.conv = InterSO3Conv(dim_in, dim_out, kernel_size, stride, radius,
                                  sigma, n_neighbor, lazy_sample=lazy,
                                  kanchor=kanchor)
         self.norm = make_norm(norm, dim_out)
         self.act = get_activation(activation)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: SphericalPointCloud, ones_input: bool = False,
                 defer_norm_act: bool = False):
@@ -91,8 +98,8 @@ class InterSO3ConvBlock(nn.Module):
         # one anchor is the JAX package's unpacked layout: its statistics
         # come from plain torch sums, not the moments kernel
         feats = self.norm(x.feats, kernel_stats=x.feats.shape[2] > 1)
-        return sample_idx, SphericalPointCloud(x.xyz, self.act(feats),
-                                               x.anchors)
+        return sample_idx, SphericalPointCloud(
+            x.xyz, self.dropout(self.act(feats)), x.anchors)
 
 
 class SeparableSO3ConvBlock(nn.Module):
@@ -105,9 +112,12 @@ class SeparableSO3ConvBlock(nn.Module):
         if p['kanchor'] != 60:
             raise NotImplementedError('separable blocks need kanchor 60')
         self.stride = p['stride']
+        rate = p.get('dropout_rate', 0.0)
+        # the JAX package's gates: with dropout nothing is deferred
+        self.defer = rate == 0
         self.inter_conv = InterSO3ConvBlock(**p)
         self.intra_conv = IntraSO3ConvBlock(p['dim_out'], p['dim_out'],
-                                            p['activation'])
+                                            p['activation'], rate)
         self.skip_conv = Dense1x1(p['dim_in'], p['dim_out'])
         self.norm = make_norm(p.get('norm'), p['dim_out'])
         self.act = get_activation(p['activation'])
@@ -135,13 +145,19 @@ class SeparableSO3ConvBlock(nn.Module):
     def _forward_packed(self, x: SphericalPointCloud, ones_input: bool):
         """The bf16 production-mode forward (``blocks.py:126-246`` of the
         JAX package on packed activations). Its fused tail needs an eval
-        BatchNorm skip (``blocks.py:182-186``)."""
+        BatchNorm skip (``blocks.py:182-186``); with dropout neither the
+        inter norm nor the tail is deferred (``fuse``, ``blocks.py:141-142``).
+        """
         skip = so3conv.at_use(x.feats)
-        sample_idx, x, inter_ss = self.inter_conv(
-            x, ones_input=ones_input, defer_norm_act=True)
+        if self.defer:
+            sample_idx, x, inter_ss = self.inter_conv(
+                x, ones_input=ones_input, defer_norm_act=True)
+        else:
+            (sample_idx, x), inter_ss = self.inter_conv(
+                x, ones_input=ones_input), None
         skip = self._strided_skip(skip, x, sample_idx, ones_input)
-        if ones_input or self.training or not isinstance(self.norm,
-                                                          BatchNorm):
+        if (not self.defer or ones_input or self.training
+                or not isinstance(self.norm, BatchNorm)):
             # the unfused tail, rounded after the skip conv, after each norm
             # and after the residual. The rank-1 skip over the constant field
             # is the JAX package's unpacked one: a broadcast product and

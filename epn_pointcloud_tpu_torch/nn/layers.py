@@ -48,6 +48,39 @@ def get_activation(name: str):
     return leaky_relu
 
 
+class Dropout(nn.Module):
+    """Dropout as the JAX package's blocks apply it (``flax.linen.Dropout``):
+    in train mode each element is kept with probability 1 - rate and scaled
+    by 1 / (1 - rate), in x's type; the identity in eval. The keep mask is
+    drawn from ``generator`` (a ``torch.Generator`` on x's device, which the
+    trainer owns and seeds from ``--seed``: ``set_dropout_generator``), else
+    from torch's default generator of that device."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator = None
+
+    def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < 1.0 - self.rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0:
+            return x
+        if self.rate >= 1:
+            return torch.zeros_like(x)
+        return torch.where(self.keep_mask(x), x / (1.0 - self.rate),
+                           x.new_zeros(()))
+
+
+def set_dropout_generator(module: nn.Module, gen: torch.Generator) -> None:
+    """Every Dropout of ``module`` draws its masks from ``gen``."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = gen
+
+
 class Dense1x1(nn.Module):
     """Channel-wise dense layer == Conv2d/Conv1d with a 1-wide kernel, or
     Linear, over the last axis."""
@@ -323,6 +356,20 @@ class InterSO3Conv(nn.Module):
                      self.basic_conv.W)
 
     def forward(self, x: SphericalPointCloud, ones_input: bool = False):
+        if x.feats.shape[-1] != self.basic_conv.dim_in:
+            # a 6-channel cloud's 4 occupancy channels (ones and the rotated
+            # normals) against the builder's dim_in = 1: the JAX package's
+            # einsum broadcasts its [24, 1, d] W over them
+            # (epn_pointcloud_tpu/ops/so3conv.py:626), i.e. convolves their
+            # sum, and the original EPN's matmul refuses the shape
+            raise NotImplementedError(
+                f'inter conv of dim_in {self.basic_conv.dim_in} on '
+                f'{x.feats.shape[-1]}-channel features: the normals input '
+                f'of a 6-channel cloud reaches a model built for 1 channel, '
+                f'where the JAX package convolves the sum of the occupancy '
+                f'and rotated normal channels with one weight (a broadcast '
+                f'at its ops/so3conv.py:626), a function the original EPN '
+                f'does not define (ROADMAP section C)')
         _, xyz, feats, sample_idx = so3conv.inter_so3conv_fused(
             x.xyz, x.feats, self.stride, self.n_neighbor, self.anchors,
             self.kernels, self.radius, self.sigma,

@@ -116,9 +116,9 @@ MMA_MAX_NN, MMA_MIN_NA = 64, 4
 # the fp32 CUDA-core forward's envelope (``fwd_f32_route``): the anchors, a
 # multiple of the channels (its chunk), of d, neighbors up to
 FWD_F32_NA, FWD_F32_CC, FWD_F32_SD, FWD_F32_MAX_NN = 60, 16, 32, 64
-# the W-off kernels' envelope (the inv model's composed layers): channels
-# and neighbors up to, and the anchors of the icosahedral group
-WOFF_MAX_C, WOFF_MAX_NN, WOFF_NA = 128, 64, 60
+# the W-off kernels' envelope (the composed layers of the inv and reg
+# models, at any anchor count): channels and neighbors up to
+WOFF_MAX_C, WOFF_MAX_NN = 128, 64
 # the bf16 tensor-core backward scatter's envelope (``bwd_mma_route``): the
 # anchors, a multiple of the channels, neighbors up to, a multiple of d
 BWD_MMA_NA, BWD_MMA_CC, BWD_MMA_MAX_NN, BWD_MMA_SD = 60, 16, 64, 32
@@ -576,7 +576,8 @@ def _check_woff(kernel, gx, idx, table_shape, rk, k2, dtype, F=None,
                 table=None):
     """Checks of the W-off kernels (the table or dF in ``dtype``, fp32 or
     bf16; K == 24, c % 8 == 0 up to WOFF_MAX_C, 1 <= nn <= WOFF_MAX_NN,
-    na == WOFF_NA); returns (b, p2, nn, q, na, K, c)."""
+    na >= 1: the redesigned kernels take 60 anchors, the template any);
+    returns (b, p2, nn, q, na, K, c)."""
     dev = gx.device
     if dev.type != 'cuda':
         raise ValueError(f'{kernel}: unsupported device {dev}')
@@ -593,11 +594,11 @@ def _check_woff(kernel, gx, idx, table_shape, rk, k2, dtype, F=None,
         want['dF'] = (F, dtype, (b, p2, na, K, c))
     build.check_operands(kernel, dev, want)
     if (K != N_KERNEL or c % 8 != 0 or not 8 <= c <= WOFF_MAX_C
-            or not 1 <= nn <= WOFF_MAX_NN or na != WOFF_NA
+            or not 1 <= nn <= WOFF_MAX_NN or na < 1
             or b * p2 * na >= 2 ** 31):
         raise ValueError(f'{kernel}: kernel needs K == {N_KERNEL}, c % 8 == 0 '
                          f'and c <= {WOFF_MAX_C}, 1 <= nn <= {WOFF_MAX_NN}, '
-                         f'na == {WOFF_NA} and b*p2*na < 2^31; got b={b} '
+                         f'na >= 1 and b*p2*na < 2^31; got b={b} '
                          f'p2={p2} na={na} nn={nn} K={K} c={c}')
     return b, p2, nn, q, na, K, c
 
@@ -608,8 +609,9 @@ def inter_conv_f(gx: torch.Tensor, idx: torch.Tensor, table: torch.Tensor,
     """W-off forward wrapper -> F [b, p2, na, K, c] in the table's type
     (fp32 or bf16): plain version on the CPU, CUDA kernel on the card: the
     tensor-core kernel where ``f_mma_route`` holds (bf16), the CUDA-core
-    kernel where ``f_f32_route`` holds (fp32), else the SGEMM template's
-    W-off mode. All are deterministic (no atomics)."""
+    kernel where ``f_f32_route`` holds (fp32), else (below 60 anchors, or
+    other shapes) the SGEMM template's W-off mode. All are deterministic
+    (no atomics)."""
     if table.device.type == 'cpu':
         return inter_conv_f_plain(gx, idx, table, rk, k2, sigma)
     bf16 = build.dtype_flag(table.dtype, 'inter_conv_f')
@@ -638,8 +640,8 @@ def inter_conv_dg(gx: torch.Tensor, idx: torch.Tensor, q: int,
     [b, p2, na, K, c] (fp32 or bf16): plain version on the CPU, CUDA kernel
     on the card: the tensor-core kernel where ``bwd_mma_route`` holds
     (bf16), the CUDA-core kernel where ``bwd_f32_route`` holds (fp32), else
-    the template. Their atomics make dT's last-bit rounding vary between
-    runs."""
+    (below 60 anchors, or other shapes) the template. Their atomics make
+    dT's last-bit rounding vary between runs."""
     if dF.device.type == 'cpu':
         return inter_conv_dg_plain(gx, idx, q, rk, k2, dF, sigma)
     bf16 = build.dtype_flag(dF.dtype, 'inter_conv_dg')

@@ -348,10 +348,12 @@ def intra_conv_prenorm(f: torch.Tensor, ss: torch.Tensor,
 
 def intra_conv_df(dout: torch.Tensor, trace_idx: torch.Tensor,
                   inv_idx: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """df wrapper: the plain scatter on the CPU; on the card the forward
-    kernel on (dout, inv_idx, W transposed to [K, d, c]), on its route."""
+    """df wrapper -> df in dout's type (bf16 rounded once from its fp32
+    sums, as the TPU kernel stores df in f's type): the plain scatter on the
+    CPU; on the card the forward kernel on (dout, inv_idx, W transposed to
+    [K, d, c]), on its route."""
     if dout.device.type == 'cpu':
-        return intra_conv_df_plain(dout, trace_idx, W)
+        return intra_conv_df_plain(dout, trace_idx, W).to(dout.dtype)
     return intra_conv(dout, inv_idx, W.transpose(1, 2).contiguous())
 
 

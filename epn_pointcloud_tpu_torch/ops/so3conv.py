@@ -12,7 +12,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import kernels, sampling
+from . import icosahedron, kernels, sampling
 from .kernels import grouped_conv as _gc
 from .kernels import inter_conv as _ic
 from .kernels import intra_conv as _intra
@@ -61,14 +61,32 @@ class SphericalPointCloud(NamedTuple):
     anchors: Optional[torch.Tensor]
 
 
+def get_occupancy_features(pc: torch.Tensor, n_anchor: int) -> torch.Tensor:
+    """[b, p, 3 or 6] -> occupancy-ones features [b, p, na, 1], with the
+    normals of a 6-channel cloud (its last three) appended per anchor,
+    rotated by each anchor of the convention in force ([b, p, na, 4]; one
+    anchor: the normals as they are), as the JAX ``get_occupancy_features``
+    (use_center=False) computes them."""
+    b, p, nd = pc.shape
+    feats = pc.new_ones(b, p, n_anchor, 1)
+    if nd == 6:
+        ns = pc[:, :, 3:]
+        if n_anchor > 1:
+            anchors = torch.from_numpy(icosahedron.get_anchors(n_anchor)).to(
+                pc)
+            fn = torch.einsum('bpi,aij->bpaj', ns, anchors)
+        else:
+            fn = ns[:, :, None, :]
+        feats = torch.cat([feats, fn], dim=-1)
+    return feats
+
+
 def preprocess_input(x: torch.Tensor, na: int) -> SphericalPointCloud:
-    """[b, p, 3] -> SphericalPointCloud with occupancy-ones features
-    [b, p, na, 1] (the model's call, add_center=False, of the JAX
-    ``preprocess_input``)."""
-    if x.shape[-1] != 3:
-        raise NotImplementedError('normals input (6 channels) is not ported')
-    b, p, _ = x.shape
-    return SphericalPointCloud(x, x.new_ones(b, p, na, 1), None)
+    """[b, p, 3 or 6] -> SphericalPointCloud of the coordinates and their
+    occupancy features (``get_occupancy_features``; the model's call,
+    add_center=False, of the JAX ``preprocess_input``)."""
+    return SphericalPointCloud(x[:, :, :3].contiguous(),
+                               get_occupancy_features(x, na), None)
 
 
 def rotated_kernels(anchors: torch.Tensor, kernels_: torch.Tensor):

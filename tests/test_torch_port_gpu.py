@@ -32,6 +32,8 @@ against the template's, the template off its envelope, and the kernel's
 SASS (FFMA, no tensor-core instruction);
 the ball query's reference fill on both of its kernels; the inter forward,
 dTable and dW at the reduced-anchor models' anchor counts (1, 20, 40);
+the W-off F and dG below 60 anchors (1, 20, 40) on the template; the
+plain intra route of a bf16 step and eval with dropout;
 the ones conv in fp32 and bf16 at both models' layer-0 shapes and at its
 edges (one neighbor, neighbor counts off the unroll and past 1816, point
 and lane counts that leave a block or a pass part full, shadow neighbors
@@ -1367,9 +1369,9 @@ def test_inter_bwd_off_envelope_takes_the_template(cuda, entry, dtype, c, d):
     """Channels that are not a multiple of 16, in fp32 and bf16, run the
     template (``inter_dtable_kernel``) as before: 1e-5 of the plain version
     in fp32; in bf16 4e-3, the bound the bf16 forward's SGEMM keeps against
-    a plain version with other rounding points (the template rounds each
-    slot's sum of the W-off dG only, the plain version dF, the anchor
-    weights and every slot's sum too)."""
+    a plain version (the template rounds dF, the anchor weights and every
+    slot's sum where the plain version does, as the W-off dG below 60
+    anchors is held to 1e-3 in ``test_woff_kernels_at_reduced_anchors``)."""
     gx, idx, _, rk, k2, W, dout = _inter_operands(cuda, 2, 64, 1, 16, c, d)
     ic = tkern.inter_conv
     W, dout = W.to(dtype), dout.to(dtype)
@@ -1562,6 +1564,61 @@ def test_bf16_train_step_launches_the_kernels(cuda):
     assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
 
 
+def test_bf16_dropout_step_and_eval_take_the_plain_intra_route(cuda):
+    """With --dropout-rate 0.5 a bf16 train step defers nothing, as the JAX
+    package's gates have it: the plain intra conv (its forward and df on
+    the tensor-core intra_conv_mma_kernel, its dW on intra_dw_mma_kernel)
+    where the prenorm form ran, no prenorm launch; the plain path on the
+    same masks gives the same loss. Eval launches no fused tail."""
+    from epn_pointcloud_tpu_torch import losses
+    from epn_pointcloud_tpu_torch.app import config
+    from epn_pointcloud_tpu_torch.models import cls_so3net_pn as tcls
+    from epn_pointcloud_tpu_torch.nn.layers import set_dropout_generator
+    opt = config.parse_args(['experiment', '-d', 'unused', '--input-num',
+                             '256', '--dropout-rate', '0.5'])
+    opt.model.flag = 'attention'
+    models = [tcls.build_model(opt, mlps=((64, 64), (64,)), out_mlps=(64,),
+                               seed=3).to(cuda).train() for _ in range(2)]
+    x = torch.from_numpy(_ball_points(np.random.RandomState(3), 2, 256)).to(
+        cuda)
+    label = torch.tensor([3, 17], device=cuda)
+    rlabel = torch.tensor([5, 41], device=cuda)
+
+    def step(model):
+        set_dropout_generator(model, torch.Generator(cuda).manual_seed(9))
+        pred, feat = model(x)
+        loss = losses.attention_cross_entropy(pred, label, feat, rlabel,
+                                              'default', 1.0)[0]
+        loss.backward()
+        return loss.item()
+    tso3.set_compute_dtype('bf16')
+    try:
+        tkern.reset_counts()
+        loss_k = step(models[0])
+        counts = {k: v for k, v in tkern.counts().items() if v}
+        intra = dict(tkern.intra_conv.routes)
+        with tkern.plain():
+            loss_p = step(models[1])
+        tkern.reset_counts()
+        with torch.no_grad():
+            logits = models[0].eval()(x)[0]
+        eval_counts = {k: v for k, v in tkern.counts().items() if v}
+        torch.cuda.synchronize()
+    finally:
+        tso3.set_compute_dtype('fp32')
+    assert counts == {
+        'fps': 1, 'ball_query': 3, 'ones_conv': 1, 'inter_conv': 2,
+        'inter_conv_dtable': 2, 'inter_conv_dw': 2, 'intra_conv': 6,
+        'intra_conv_dw': 3, 'moments': 9, 'grouped_conv': 3,
+        'grouped_conv_bwd': 3}
+    assert {k: v for k, v in intra.items() if v} == {'mma': 6, 'dw_mma': 3}
+    assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+    assert eval_counts == {'fps': 1, 'ball_query': 3, 'ones_conv': 1,
+                           'inter_conv': 2, 'intra_conv': 3, 'moments': 3,
+                           'grouped_conv': 3}
+    assert bool(torch.isfinite(logits).all())
+
+
 # ------------------------------------------------------- W-off inter conv
 
 # (b, p1, stride, nn, c, d): the inv model's composed-route layers B0L1,
@@ -1633,9 +1690,9 @@ def test_composed_route_matches_plain_autograd(cuda):
 
 
 def test_woff_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    """c above 128 or not a multiple of 8, nn above 64, K other than 24, na
-    other than 60, an fp16 operand: a ValueError, never a quiet plain
-    version."""
+    """c above 128 or not a multiple of 8, nn above 64, K other than 24, an
+    fp16 operand: a ValueError, never a quiet plain version (any anchor
+    count is taken: ``test_woff_kernels_at_reduced_anchors``)."""
     ic = tkern.inter_conv
     kern = torch.from_numpy(tkp.get_spherical_kernel_points(0.28, 1)).to(cuda)
     rk, k2 = tso3.rotated_kernels(torch.from_numpy(tico.get_anchors(60))
@@ -1648,13 +1705,56 @@ def test_woff_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         dF = torch.zeros(1, 4, na, K, c, device=cuda, dtype=dtype)
         return (gx, idx, f, rk[:na, :K].contiguous(), k2[:K].contiguous(),
                 dF)
-    for kw in ({'c': 136}, {'c': 36}, {'nn': 65}, {'K': 18}, {'na': 12},
+    for kw in ({'c': 136}, {'c': 36}, {'nn': 65}, {'K': 18},
                {'dtype': torch.float16}):
         gx, idx, f, r, kk, dF = ops(**kw)
         with pytest.raises(ValueError):
             ic.inter_conv_f(gx, idx, f, r, kk, 0.08)
         with pytest.raises(ValueError):
             ic.inter_conv_dg(gx, idx, 8, r, kk, dF, 0.08)
+
+
+@pytest.mark.parametrize('na', [1, 20, 40])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('nn,c', [(64, 32), (32, 32), (64, 128)])
+def test_woff_kernels_at_reduced_anchors(cuda, na, dtype, nn, c):
+    """inter_conv_f and inter_conv_dg below 60 anchors, at the composed
+    layers of the inv and reg models (c = 32 with nn = 64 and 32, c = 128
+    with nn = 64), every fifth neighbor slot the shadow index: the SGEMM
+    template's W-off mode (routes 'f' / 'dg'; at one anchor and nn = 64 on
+    64-row blocks, whose neighbors fit shared memory), F within 1e-5 (fp32)
+    or 1e-3 (bf16) of its plain version, bitwise on a second call, and dT
+    within 1e-5 / 1e-3."""
+    ic = tkern.inter_conv
+    rng = np.random.RandomState(na + nn + c)
+    b, p1, p2 = 2, 256, 128
+    xyz = _ball_points(rng, b, p1)
+    kern = torch.from_numpy(tkp.get_spherical_kernel_points(0.2, 1))
+    rk, k2 = tso3.rotated_kernels(torch.from_numpy(tico.get_anchors(na)),
+                                  kern)
+    idx = rng.randint(0, p1, (b, p2, nn)).astype(np.int32)
+    idx[:, :, ::5] = p1
+    gx = (xyz[np.arange(b)[:, None, None], np.minimum(idx, p1 - 1)]
+          - xyz[:, :p2, None]).astype(np.float32)
+    gx, idx = (torch.from_numpy(a).to(cuda) for a in (gx, idx))
+    rk, k2 = rk.to(cuda), k2.to(cuda)
+    table = torch.from_numpy((0.5 * rng.randn(b, p1, na, c)).astype(
+        np.float32)).to(cuda, dtype)
+    dF = torch.from_numpy((0.5 * rng.randn(b, p2, na, 24, c)).astype(
+        np.float32)).to(cuda, dtype)
+    tkern.reset_counts()
+    F = ic.inter_conv_f(gx, idx, table, rk, k2, 0.05)
+    again = ic.inter_conv_f(gx, idx, table, rk, k2, 0.05)
+    dT = ic.inter_conv_dg(gx, idx, p1, rk, k2, dF, 0.05)
+    torch.cuda.synchronize()
+    assert ic.routes['f'] == 2 and ic.routes['dg'] == 1, ic.routes
+    assert F.dtype == dtype and F.shape == (b, p2, na, 24, c)
+    assert torch.equal(F, again)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    assert _rel(F.float(), ic.inter_conv_f_plain(gx, idx, table, rk, k2,
+                                                 0.05).float()) <= tol
+    assert _rel(dT, ic.inter_conv_dg_plain(gx, idx, p1, rk, k2, dF,
+                                           0.05)) <= tol
 
 
 @pytest.mark.parametrize('b,p1,stride,nn,c,d', WOFF_SHAPES)
