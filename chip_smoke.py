@@ -320,6 +320,26 @@ Phases (any failure exits non-zero and prints no result line):
      20 train -i 2 then eval -r, run_modelnet --dropout-rate 0.5
      --debug-mode knownatt -u attention --compute-dtype bf16 -i 2; each
      run's launches counted from 0 and held.
+ 40. [pooling] cls with xyz_pooling 'stride' and 'no-stride' (every inter
+     conv on the unfused path: the blur, the grouping, the W-off F on its
+     CUDA-core / tensor-core kernel, the product by torch.mm): b=32
+     forwards in both dtypes, their launches counted from 0 and held,
+     their calls against their plain versions (both dtypes of 'stride',
+     fp32 of 'no-stride'), the logits against the plain path; a b=12 fp32
+     step of the 'stride' model, kernel vs plain path by the per-leaf rule,
+     its calls held; all timed;
+ 41. [relu] cls with every activation 'relu': a b=32 bf16 eval (the
+     prenorm intra conv and the fused tail called with the slope 0, each
+     call held to its plain version at that slope), a b=12 fp32 step by
+     the per-leaf rule, a b=12 bf16 step (B5, B6 df and dW at slope 0,
+     each call held; the step by the noise-floor rule), timed; then the
+     leaky model's logits against the plain path;
+ 42. [heads-propagation] ClsOutBlockR (its intra conv on the one-point
+     field held to its plain version), InvOutBlockR and
+     InvOutBlockPointnet on the cls backbone's b=32 field, a
+     PropagationBlock over a 16384-point fragment (the fps kernel's
+     centers) and the separable block at one anchor, each kernel vs plain
+     path, launches counted, timed.
 
 Every phase prints its wall time (``[phase] phase wall S s``), and the
 script's total its last ``[done]`` line.
@@ -1644,15 +1664,17 @@ def mm_library(name, args):
             gx, idx, table, rk, k2, sigma).reshape(-1, K * c).t()
         rhs = dout.reshape(-1, dout.shape[-1])
     elif name in ('intra_conv_dw', 'intra_conv_prenorm_dw', 'intra_conv'):
-        f, ti = args[0], args[-2]
         if name == 'intra_conv_prenorm_dw':
-            f = kernels.intra_conv.prenorm_plain(f, args[1])
+            f, ss, ti, last, slope = args
+            f = kernels.intra_conv.prenorm_plain(f, ss, slope)
+        else:
+            f, ti, last = args
         K, c = ti.shape[1], f.shape[3]
         lhs = f[:, :, ti.long()].reshape(-1, K * c)
         if name == 'intra_conv':
-            rhs = args[2].reshape(K * c, -1)
+            rhs = last.reshape(K * c, -1)
         else:
-            lhs, rhs = lhs.t(), args[-1].reshape(-1, args[-1].shape[-1])
+            lhs, rhs = lhs.t(), last.reshape(-1, last.shape[-1])
     else:
         return {}
     kw = {'out_dtype': torch.float32} if lhs.dtype == torch.bfloat16 else {}
@@ -1976,8 +1998,10 @@ def intra_dw_extras(name, args, got):
     rec = {'route': next(k for k in ik.routes if ik.routes[k] > before[k]),
            'bitwise_repeat': torch.equal(got, again)}
     del again
-    f, ti, dout = args[0], args[-2], args[-1]
-    ss = args[1] if name == 'intra_conv_prenorm_dw' else None
+    if name == 'intra_conv_prenorm_dw':
+        f, ss, ti, dout, slope = args
+    else:
+        (f, ti, dout), ss, slope = args, None, build.LEAKY_SLOPE
     b, p, na, c = f.shape
     K, d = ti.shape[1], dout.shape[-1]
     dW = torch.empty_like(got)
@@ -1993,8 +2017,10 @@ def intra_dw_extras(name, args, got):
         ptrs = (f.data_ptr(), ti.data_ptr(),
                 0 if ss is None else ss.data_ptr(), dout.data_ptr(),
                 ws.data_ptr(), dW.data_ptr(), b, p, na, K, c, d,
-                2 * na * c if ss is not None and ss.shape[0] > 1 else 0,
-                splits) + ((int(bf16),) if route == 'dw' else (rows,))
+                2 * na * c if ss is not None and ss.shape[0] > 1 else 0) + (
+                    (slope, splits, int(bf16)) if route == 'dw'
+                    else (slope, splits, rows) if route == 'dw_mma'
+                    else (splits, rows))
 
         def run():
             err = fn(*ptrs, build.stream(f))
@@ -2319,14 +2345,15 @@ def _intra_composition(name, args):
     from epn_pointcloud_tpu_torch.ops import kernels
     ik = kernels.intra_conv
     if name == 'intra_conv_prenorm':
-        f, ss, ti, W = args
+        f, ss, ti, W, slope = args
         K, c, d = W.shape
         W2 = W.reshape(K * c, d)
 
         def gather():
-            return ik.prenorm_plain(f, ss)[:, :, ti.long()].reshape(-1, K * c)
+            return ik.prenorm_plain(f, ss, slope)[:, :, ti.long()].reshape(
+                -1, K * c)
     else:
-        dout, _, _, _, inv, W = args
+        dout, _, _, _, inv, W, _ = args
         K, c, d = W.shape
         W2 = W.transpose(1, 2).reshape(K * d, c)
 
@@ -2371,7 +2398,7 @@ def intra_f32_extras(name, args, got):
     out = torch.empty_like(got)
     err = build.library().epn_intra_conv(
         g.data_ptr(), ti.data_ptr(), W.data_ptr(), 0, out.data_ptr(), b, p,
-        na, K, c, d, 0, 0, build.stream(g))
+        na, K, c, d, 0, build.LEAKY_SLOPE, 0, build.stream(g))
     if err:
         raise RuntimeError(f'{name}: epn_intra_conv: CUDA error {err}')
     want = ik.intra_conv_plain(g.double(), ti, W.double())
@@ -2449,21 +2476,22 @@ def _intra_parent_pair(name, args):
         out = torch.empty((b, p, na, d), dtype=g.dtype, device=g.device)
         head = (g.data_ptr(), ti.data_ptr(), W.data_ptr(), 0, out.data_ptr(),
                 b, p, na, K, c, d, 0)
-        entries = (('intra_fwd', head + (0,)), ('epn_intra_conv_f32', head))
+        entries = (('intra_fwd', head + (build.LEAKY_SLOPE, 0)),
+                   ('epn_intra_conv_f32', head))
         keep = (W, out)
     elif name == 'intra_conv_prenorm':
-        f, ss, ti, W = args
+        f, ss, ti, W, slope = args
         b, p, na, c = f.shape
         K, d = W.shape[0], W.shape[2]
         out = torch.empty((b, p, na, d), dtype=f.dtype, device=f.device)
         head = (f.data_ptr(), ti.data_ptr(), W.data_ptr(), ss.data_ptr(),
                 out.data_ptr(), b, p, na, K, c, d,
                 2 * na * c if ss.shape[0] > 1 else 0)
-        entries = (('intra_fwd', head + (1,)),
-                   ('epn_intra_conv_mma', head))
+        entries = (('intra_fwd', head + (slope, 1)),
+                   ('epn_intra_conv_mma', head + (slope,)))
         keep = (out,)
     else:
-        dout, f, ss, ti, inv, W = args
+        dout, f, ss, ti, inv, W, slope = args
         b, p, na, c = f.shape
         K, d = W.shape[0], W.shape[2]
         Wt = W.transpose(1, 2).contiguous()
@@ -2478,7 +2506,7 @@ def _intra_parent_pair(name, args):
         heads = [(dout.data_ptr(), inv.data_ptr(), Wt.data_ptr(),
                   f.data_ptr(), ss.data_ptr(), df.data_ptr(), ws.data_ptr(),
                   dss[0].data_ptr(), dss[1].data_ptr(), b, p, na, K, d, c,
-                  ss.shape[0]) for ws in keep[3:]]
+                  ss.shape[0], slope) for ws in keep[3:]]
         entries = (('intra_df', heads[0] + (1,)),
                    ('epn_intra_conv_prenorm_df_mma', heads[1]))
 
@@ -2506,7 +2534,8 @@ def _kernel_pair(name, args):
             return ik.intra_conv_df_plain(dout, ti, W).to(dout.dtype)
         return ik.intra_conv_df, plain, (args[0], args[1], args[3])
     entry = {k.name: k for k in kernels.KERNELS}[name]
-    pick = {'intra_conv_prenorm_df': (0, 1, 2, 3, 5)}.get(name)
+    # the df's plain version takes no inverse adjacency
+    pick = {'intra_conv_prenorm_df': (0, 1, 2, 3, 5, 6)}.get(name)
     return (getattr(entry.module, name), getattr(entry.module, entry.plain),
             args if pick is None else tuple(args[i] for i in pick))
 
@@ -2812,7 +2841,7 @@ def bf16_step_check(tag, models, loss, batch, scaled, per_step, f64, what):
             'noise_median_grad_cos': med_q, 'noise_median_draws': med_qs,
             'min_grad_cos_vs_fp32': c32[0], 'peak_gib_kernel': mem_k,
             'peak_gib_plain': mem_p, 'dw_rel_norm_errs': dw_rels,
-            'leaves': leaves}
+            'launches': counts_k, 'leaves': leaves}
 
 
 def phase_bf16_train_step(device, reps=5):
@@ -3043,6 +3072,23 @@ def _step_layer(name, i, layers=INV_LAYERS, composed=INV_COMPOSED,
     return f'{per_leg[i % len(per_leg)]}#{i // len(per_leg)}'
 
 
+# the kernels that take the activation's slope, their last argument
+SLOPED = ('intra_conv_prenorm', 'intra_conv_prenorm_df',
+          'intra_conv_prenorm_dw', 'grouped_conv_tail')
+
+
+def _log_row(tag, name, layer, row):
+    slope = f' slope={row["slope"]}' if 'slope' in row else ''
+    log(f'{tag} {name} {layer} ({row["shape"]}, {row["dtype"]}{slope}): '
+        f'max_abs_err={row["max_abs_err"]:.3e} rel_norm_err='
+        f'{" ".join(f"{r:.3e}" for r in row["rels"])} kernel_ms='
+        f'{row["ms"]:.4f} plain_ms={row["plain_ms"]:.4f}'
+        f'{_library_note(row)} bound_ms='
+        f'{max(row["bytes_ms"], row["ops_ms"]):.4f} '
+        f'({"bytes" if row["bytes_ms"] >= row["ops_ms"] else "ops"}) '
+        f'{"OK" if row["ok"] else "FAIL"}')
+
+
 def check_step_calls(tag, calls, names, dtype, layer_of=_step_layer,
                      tol=train_tol, routes=REDESIGNED):
     """Each captured kernel call of a train step (``calls``) against its
@@ -3075,6 +3121,8 @@ def check_step_calls(tag, calls, names, dtype, layer_of=_step_layer,
                             if name == 'intra_conv_df' else (name, args))
             row['bytes_ms'], row['ops_ms'] = bound_ms(
                 wname, wargs, got[0] if len(got) == 1 else got)
+            if name in SLOPED:
+                row['slope'] = args[-1]
             row.update(grouped_library(name, args))
             row.update(moments_library(name, args))
             row.update(device_extras(name, args))
@@ -3088,14 +3136,7 @@ def check_step_calls(tag, calls, names, dtype, layer_of=_step_layer,
             row.update(intra_dw_extras(name, args, got[0]))
             row.update(inter_f_extras(name, args, got[0]))
             row['ok'] = row['ok'] and _extras_ok(row, routes)
-            log(f'{tag} {name} {layer} ({row["shape"]}, {row["dtype"]}): '
-                f'max_abs_err={row["max_abs_err"]:.3e} rel_norm_err='
-                f'{" ".join(f"{r:.3e}" for r in row["rels"])} kernel_ms='
-                f'{row["ms"]:.4f} plain_ms={row["plain_ms"]:.4f}'
-                f'{_library_note(row)} bound_ms='
-                f'{max(row["bytes_ms"], row["ops_ms"]):.4f} '
-                f'({"bytes" if row["bytes_ms"] >= row["ops_ms"] else "ops"}) '
-                f'{"OK" if row["ok"] else "FAIL"}')
+            _log_row(tag, name, layer, row)
             del got
         results[name].append(row)
         if not row['ok']:
@@ -4292,9 +4333,9 @@ def _call_counts(calls):
     return out
 
 
-def forward_calls(model, x, dtype):
-    """The kernel calls of one eval forward of ``model`` on ``x`` in
-    ``dtype`` (captured as they run), and the logits."""
+def forward_calls(model, x, dtype, names=ALL_FWD):
+    """The calls of the kernels ``names`` in one eval forward of ``model``
+    on ``x`` in ``dtype`` (captured as they run), and the logits."""
     import torch
     out = []
 
@@ -4302,7 +4343,7 @@ def forward_calls(model, x, dtype):
         with torch.no_grad():
             out.append(model(x)[0])
     with compute_dtype(dtype):
-        calls = capture_calls(ALL_FWD, run)
+        calls = capture_calls(names, run)
     return calls, out[0]
 
 
@@ -5269,6 +5310,432 @@ def phase_option_entries(inv_root, reg_root):
     return out
 
 
+# -------------------- xyz pooling, the ReLU, the remaining heads and modules
+
+POOLINGS = ('stride', 'no-stride')
+POOL_FWD = ALL_FWD + ('inter_conv_f',)
+POOL_STEP = ALL_STEP + ('intra_conv_df',)
+# launches of a pooled cls forward (7 layers, the first on the ones input,
+# which is never pooled): every layer on the unfused path, the W-off F at
+# the 6 with a feature table, one ball query a layer and one more for the
+# blur of each strided layer with channels (blocks 1-3)
+POOL_EVAL = {**_NO_BF16, **_NO_WOFF, 'fps': 1, 'ball_query': 10,
+             'ones_conv': 1, 'inter_conv': 0, 'inter_conv_dtable': 0,
+             'inter_conv_dw': 0, 'intra_conv': 7, 'intra_conv_dw': 0,
+             'inter_conv_f': 6}
+POOL_BF16_EVAL = {**POOL_EVAL, 'intra_conv': 0, 'intra_conv_prenorm': 7,
+                  'moments': 7, 'grouped_conv': 1, 'grouped_conv_tail': 6}
+# the fp32 b=12 step: the W-off F's backward is the W-off dG (6 layers)
+POOL_STEP_COUNTS = {**POOL_EVAL, 'intra_conv': 14, 'intra_conv_dw': 7,
+                    'inter_conv_dg': 6}
+
+
+def pooled_model(mode, device, train=False):
+    import torch  # noqa: F401
+    from epn_pointcloud_tpu_torch.models import cls_so3net_pn
+    model = cls_so3net_pn.build_model(full_opt(), xyz_pooling=mode,
+                                      seed=SEED).to(device)
+    return model.train() if train else model.eval()
+
+
+def _logits_vs_plain(tag, model, x, dtype):
+    """The b=32 logits of the kernel path against the plain path's: fp32 to
+    rtol 1e-3, atol 2e-3 (``model_forward_checks``'s b=8 bound); bf16
+    against the plain path at the kernels' rounding points
+    (``plain_at_rounding_points``) by the per-sample cosine, >= 0.999 or
+    that reference's own cosine to the fp32 plain path where it is lower
+    (``model_forward_checks``'s b=32 rule); (max abs error or min
+    cosine)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    with torch.no_grad(), compute_dtype(dtype):
+        k = model(x)[0]
+        if dtype == 'fp32':
+            with kernels.plain():
+                p = model(x)[0]
+        else:
+            with plain_at_rounding_points():
+                p = model(x)[0]
+    assert torch.isfinite(k).all(), tag
+    if dtype == 'fp32':
+        torch.testing.assert_close(k, p, rtol=1e-3, atol=2e-3)
+        return float((k - p).abs().max())
+    with torch.no_grad(), kernels.plain():
+        ref = float(_cosine(p, model(x)[0]).min())
+    cos = float(_cosine(k, p).min())
+    assert cos >= min(0.999, ref), (tag, cos, ref)
+    return cos
+
+
+def _fp32_step_vs_plain(tag, mk, mp, batch, expect, names, calls=True):
+    """One fp32 step on the kernel path (``mk``) and the plain path (``mp``)
+    from the same weights: the launches ``expect`` (none on the plain
+    path), the loss to rtol 1e-5 and every leaf by ``_grads_close``; with
+    ``calls`` each kernel call held to its plain version (``check_calls``);
+    timed. A dict of the numbers and the rows ({} without ``calls``)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    f64 = f64_grad_max(mp, batch)
+    kernels.reset_counts()
+    losses_k = []
+
+    def step():
+        loss = step_loss(mk, batch)
+        loss.backward()
+        losses_k.append(loss.item())
+    check, calls = calls, capture_calls(names, step)
+    counts_k, routes = kernels.counts(), route_counts()
+    with kernels.plain():
+        loss_p = step_loss(mp, batch)
+        loss_p.backward()
+    torch.cuda.synchronize()
+    assert kernels.counts() == counts_k, 'the plain path launched a kernel'
+    assert counts_k == expect, (counts_k, expect)
+    lk, lp = losses_k[0], loss_p.item()
+    assert abs(lk - lp) <= 1e-5 * abs(lp), (lk, lp)
+    bad, worst = [], (0.0, '')
+    pk = dict(mk.named_parameters())
+    for name, p in mp.named_parameters():
+        zero = torch.zeros_like(p)
+        g = pk[name].grad
+        ok, msg = _grads_close(name, zero if g is None else g,
+                               zero if p.grad is None else p.grad, f64[name])
+        if not ok:
+            bad.append(msg)
+        if f64[name] > 1e-5 and g is not None:
+            worst = max(worst, (float((g - p.grad).norm()
+                                      / p.grad.norm().clamp(min=1e-30)),
+                                name))
+    assert not bad, bad
+    log(f'{tag} b={TRAIN_BATCH} fp32 train step: loss kernel path {lk:.7f}, '
+        f'plain path {lp:.7f} (rtol 1e-5); {len(pk)} leaves, worst relative '
+        f'L2 {worst[0]:.3e} at {worst[1]}; launches {counts_k}; by kernel '
+        f'{routes}')
+    rows = {}
+    if check:
+        with torch.no_grad():
+            rows = check_calls(f'{tag} step', calls, names, 'fp32',
+                               step=True)
+    del calls
+    mk.zero_grad(set_to_none=True)
+    mp.zero_grad(set_to_none=True)
+    _, k_ms, p_ms, _, _ = time_steps(mk, mp, batch, 'fp32', 3, tag=tag)
+    return {'rows': rows, 'launches': counts_k, 'routes': routes,
+            'loss_kernel': lk, 'loss_plain': lp, 'worst_grad_rel_l2': worst[0],
+            'step_ms': k_ms, 'plain_step_ms': p_ms}
+
+
+def phase_pooling(device):
+    """[pooling] cls_so3net_pn at 60 anchors, 1024 points, full width,
+    built with xyz_pooling 'stride' and with 'no-stride' (every inter conv
+    on the unfused path: the blur, the grouping, the W-off F, the learned
+    product by torch.mm): each kernel call of a b=32 forward against its
+    plain version (``check_calls``; both modes in both dtypes), the W-off F
+    on its CUDA-core ('f_f32') and tensor-core ('f_mma') kernels at every
+    layer, the launches of each forward, the
+    logits against the plain path, all four forwards timed; then a b=12
+    fp32 step of the 'stride' model, kernel vs plain path by the per-leaf
+    rule (``_grads_close``), its calls held to their plain versions,
+    timed."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    x = torch.from_numpy(synthetic_batch(BATCH, N_POINTS, SEED)).to(device)
+    out = {'results': {}}
+    for mode in POOLINGS:
+        model = pooled_model(mode, device)
+        assert all(layer['args']['pooling'] == mode
+                   for block in model.params['backbone'] for layer in block)
+        for dtype, expect, route in (('fp32', POOL_EVAL, 'f_f32'),
+                                     ('bf16', POOL_BF16_EVAL, 'f_mma')):
+            kernels.reset_counts()
+            calls, logits = forward_calls(model, x, dtype, POOL_FWD)
+            counts, rt = kernels.counts(), route_counts()
+            assert counts == expect, (mode, dtype, counts, expect)
+            assert rt['inter'][route] == 6, rt
+            assert logits.shape == (BATCH, 40)
+            with compute_dtype(dtype), torch.no_grad():
+                rows = check_calls(f'[pooling] {mode} {dtype}', calls,
+                                   POOL_FWD, dtype)
+            assert _route_table(rows)['inter_conv_f'] == {route: 6}
+            routes = {'inter': {k: v for k, v in rt['inter'].items() if v},
+                      'intra': {k: v for k, v in rt['intra'].items() if v}}
+            del calls
+            agree = _logits_vs_plain(f'[pooling] {mode}', model, x, dtype)
+            k_ms, p_ms = forward_wall(model, x, dtype)
+            log(f'[pooling] {mode} b={BATCH} {dtype} forward: launches '
+                f'{counts}; by kernel {routes}; logits vs the plain path '
+                f'{"max_abs_err" if dtype == "fp32" else "min cosine"} '
+                f'{agree:.3e}; whole forward {k_ms:.2f} ms '
+                f'({1e3 * BATCH / k_ms:.1f} clouds/s; plain path '
+                f'{p_ms:.2f})')
+            key = f'{mode}_{dtype}'
+            out['results'][key] = rows
+            out[key] = {'launches': counts, 'routes': routes,
+                        'logits_vs_plain': agree, 'forward_ms': k_ms,
+                        'plain_forward_ms': p_ms}
+            torch.cuda.empty_cache()
+        del model
+    mk, mp = (perturb_norm_biases(pooled_model('stride', device, True))
+              for _ in range(2))
+    step = _fp32_step_vs_plain('[pooling] stride', mk, mp,
+                               train_batch(device, SEED + 9),
+                               POOL_STEP_COUNTS, POOL_STEP)
+    out['results']['step'] = step.pop('rows')
+    out['step'] = step
+    del mk, mp
+    torch.cuda.empty_cache()
+    return out
+
+
+def relu_model(device, train=False):
+    """cls_so3net_pn at full width with every block's activation 'relu'
+    (the tree of ``build_model``, the activation set in each layer)."""
+    import json as _json
+    from epn_pointcloud_tpu_torch.models import cls_so3net_pn
+    params = _json.loads(_json.dumps(
+        cls_so3net_pn.build_model(full_opt(), seed=None).params))
+    for block in params['backbone']:
+        for layer in block:
+            layer['args']['activation'] = 'relu'
+    model = cls_so3net_pn.ClsSO3ConvModel(params, seed=SEED).to(device)
+    return model.train() if train else model.eval()
+
+
+def _slopes(rows):
+    """{kernel: sorted slopes of its calls} of compared rows."""
+    return {n: sorted({r['slope'] for r in rs})
+            for n, rs in rows.items() if n in SLOPED}
+
+
+def phase_relu(device):
+    """[relu] The cls model with every activation 'relu': a b=32 bf16 eval
+    (the prenorm intra conv and the fused tail at slope 0, every call held
+    to its plain version at that slope), a b=12 fp32 step by the per-leaf
+    rule (its kernels the leaky model's) and a b=12 bf16 step (B5, B6 df
+    and dW at slope 0, each call held
+    to its plain version; the step by the noise-floor rule,
+    ``bf16_step_check``), all timed; then the leaky model's b=32 logits in
+    both dtypes against the plain path (the kernels' leaky calls as
+    before)."""
+    import torch
+    from epn_pointcloud_tpu_torch import models
+    from epn_pointcloud_tpu_torch.ops import kernels
+    x = torch.from_numpy(synthetic_batch(BATCH, N_POINTS, SEED)).to(device)
+    out = {'results': {}}
+    model = relu_model(device)
+    kernels.reset_counts()
+    calls, logits = forward_calls(model, x, 'bf16')
+    counts = kernels.counts()
+    assert counts == BF16_EVAL_PER_BATCH, (counts, BF16_EVAL_PER_BATCH)
+    with compute_dtype('bf16'), torch.no_grad():
+        rows = check_calls('[relu] bf16 eval', calls, ALL_FWD, 'bf16')
+    del calls
+    slopes = _slopes(rows)
+    assert slopes == {'intra_conv_prenorm': [0.0],
+                      'grouped_conv_tail': [0.0]}, slopes
+    agree = {d: _logits_vs_plain('[relu]', model, x, d)
+             for d in ('fp32', 'bf16')}
+    times = {d: forward_wall(model, x, d) for d in ('fp32', 'bf16')}
+    log(f'[relu] b={BATCH} bf16 eval: launches {counts}; the ReLU calls\' '
+        f'slopes {slopes}; logits vs the plain path fp32 max_abs_err '
+        f'{agree["fp32"]:.3e}, bf16 min cosine {agree["bf16"]:.7f}; whole '
+        f'forward fp32 {times["fp32"][0]:.2f} ms (plain {times["fp32"][1]:.2f}'
+        f'), bf16 {times["bf16"][0]:.2f} ms (plain {times["bf16"][1]:.2f})')
+    out['results']['bf16_eval'] = rows
+    out.update(eval_launches=counts, logits_vs_plain=agree,
+               forward_ms={d: t[0] for d, t in times.items()},
+               plain_forward_ms={d: t[1] for d, t in times.items()})
+    del model
+    torch.cuda.empty_cache()
+
+    mk, mp = (perturb_norm_biases(relu_model(device, True)) for _ in range(2))
+    # in fp32 nothing is deferred: the step runs the leaky model's kernels
+    # (their calls held in [backward]), the ReLU in torch after them
+    step = _fp32_step_vs_plain('[relu] fp32', mk, mp,
+                               train_batch(device, SEED + 10),
+                               TRAIN_PER_STEP, ALL_STEP + ('intra_conv_df',),
+                               calls=False)
+    step.pop('rows')
+    out['fp32_step'] = step
+    del mk, mp
+
+    batch = train_batch(device, SEED + 11)
+    mk = perturb_norm_biases(relu_model(device, True))
+    with compute_dtype('bf16'):
+        calls = capture_calls(ALL_STEP,
+                              lambda: step_loss(mk, batch).backward())
+        with torch.no_grad():
+            rows = check_calls('[relu] bf16 step', calls, ALL_STEP, 'bf16',
+                               step=True)
+    del calls, mk
+    slopes = _slopes(rows)
+    assert slopes == {'intra_conv_prenorm': [0.0],
+                      'intra_conv_prenorm_df': [0.0],
+                      'intra_conv_prenorm_dw': [0.0]}, slopes
+    models_ = tuple(perturb_norm_biases(relu_model(device, True))
+                    for _ in range(3 + len(NOISE_SCALES)))
+    mk, mp = models_[:2]
+    bf16_step = bf16_step_check(
+        f'[relu] b={TRAIN_BATCH}', models_, step_loss, batch,
+        [(batch[0] * sc,) + batch[1:] for sc in NOISE_SCALES],
+        BF16_TRAIN_PER_STEP, f64_grad_max(mp, batch), 'clouds')
+    bf16_step.pop('leaves')
+    del models_
+    _, k_ms, p_ms, _, _ = time_steps(mk, mp, batch, 'bf16', 3, tag='[relu]')
+    bf16_step.update(step_ms=k_ms, plain_step_ms=p_ms, slopes=slopes)
+    out['results']['bf16_step'] = rows
+    out['bf16_step'] = bf16_step
+    del mk, mp
+    torch.cuda.empty_cache()
+
+    leaky = models.build_model_from(full_opt(), seed=SEED).to(device).eval()
+    kernels.reset_counts()
+    out['leaky_logits_vs_plain'] = {
+        d: _logits_vs_plain('[relu] leaky', leaky, x, d)
+        for d in ('fp32', 'bf16')}
+    log(f'[relu] the leaky model after: b={BATCH} logits vs the plain path '
+        f'fp32 max_abs_err {out["leaky_logits_vs_plain"]["fp32"]:.3e}, bf16 '
+        f'min cosine {out["leaky_logits_vs_plain"]["bf16"]:.7f}')
+    del leaky
+    torch.cuda.empty_cache()
+    return out
+
+
+# the heads no builder uses, on the cls backbone's last field (256 channels
+# at 60 anchors): ClsOutBlockR with an intra conv block on its one-point
+# field, InvOutBlockR, InvOutBlockPointnet
+HEADS = {
+    'ClsOutBlockR': {'dim_in': 256, 'mlp': [256], 'fc': [64], 'k': 40,
+                     'pooling': 'attention', 'temperature': 3,
+                     'kanchor': 60,
+                     'intra': [{'args': {'dim_in': 256, 'dim_out': 256}}]},
+    'InvOutBlockR': {'dim_in': 256, 'mlp': [128, 64], 'pooling': 'attention',
+                     'temperature': 3, 'kanchor': 60},
+    'InvOutBlockPointnet': {'dim_in': 256, 'mlp': [128, 64],
+                            'pooling': 'max', 'kanchor': 60}}
+PROP_FRAG = 16384         # points of the PropagationBlock's fragment
+PROP_PARAMS = {'dim_in': 1, 'dim_out': 64, 'n_center': 256,
+               'kernel_size': 1, 'radius': 0.4, 'sigma': 0.08,
+               'kanchor': 60}
+
+
+def _vs_plain(tag, fn, rtol=1e-4, atol=1e-4):
+    """``fn()`` on the kernel path and inside ``kernels.plain()``: each
+    output held to rtol / atol, its launches; (outputs, launches, kernel
+    ms, plain ms)."""
+    import torch
+    from epn_pointcloud_tpu_torch.ops import kernels
+    kernels.reset_counts()
+    with torch.no_grad():
+        got = fn()
+        counts = {k: v for k, v in kernels.counts().items() if v}
+        with kernels.plain():
+            want = fn()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all(), tag
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+    with torch.no_grad():
+        k_ms = time_ms(fn, reps=3, warmup=1)
+
+        def plain():
+            with kernels.plain():
+                fn()
+        p_ms = time_ms(plain, reps=3, warmup=1)
+    return got, counts, k_ms, p_ms
+
+
+def phase_heads_propagation(device):
+    """[heads-propagation] Each head no builder uses (``HEADS``) on the
+    full-width cls backbone's output (b=32, fp32), kernel vs plain path
+    (ClsOutBlockR's intra conv on the one-point field: its calls held to
+    their plain version); a PropagationBlock over a 16384-point fragment
+    (the centers by the fps kernel, 256 of 1024 points a cloud, b=4), and a
+    separable block at one anchor (stride 2, b=32 clouds of 1024 points,
+    64 channels), each kernel vs plain path; all timed."""
+    import numpy as np
+    import torch
+    from epn_pointcloud_tpu_torch import models
+    from epn_pointcloud_tpu_torch.nn import blocks, heads
+    from epn_pointcloud_tpu_torch.nn.layers import init_parameters
+    from epn_pointcloud_tpu_torch.ops import so3conv
+    from epn_pointcloud_tpu_torch.ops.so3conv import SphericalPointCloud
+    out = {'results': {}}
+    model = models.build_model_from(full_opt(), seed=SEED).to(device).eval()
+    x = torch.from_numpy(synthetic_batch(BATCH, N_POINTS, SEED)).to(device)
+    with torch.no_grad():
+        field = so3conv.preprocess_input(x, 60)
+        for bi, block in enumerate(model.backbone):
+            field = block(field, ones_input=bi == 0)
+    del model
+    for i, (name, params) in enumerate(HEADS.items()):
+        head = getattr(heads, name)(params)
+        init_parameters(head, torch.Generator().manual_seed(SEED + i))
+        head = head.to(device).eval()
+        arg = field if name == 'InvOutBlockPointnet' else field.feats
+        got, counts, k_ms, p_ms = _vs_plain(f'[heads] {name}',
+                                            lambda: head(arg))
+        want_counts = {'intra_conv': 1} if name == 'ClsOutBlockR' else {}
+        assert counts == want_counts, (name, counts)
+        rec = {'shapes': [tuple(g.shape) for g in got], 'launches': counts,
+               'ms': k_ms, 'plain_ms': p_ms}
+        if name == 'ClsOutBlockR':
+            calls = capture_calls(('intra_conv',), lambda: head(arg))
+            with torch.no_grad():
+                rows = check_calls('[heads] ClsOutBlockR', calls,
+                                   ('intra_conv',), 'fp32')
+            out['results']['cls_out_block_r'] = rows
+            rec['routes'] = _route_table(rows)
+        log(f'[heads] {name} on the b={BATCH} backbone field '
+            f'{tuple(field.feats.shape)}: outputs {rec["shapes"]} within '
+            f'rtol 1e-4 of the plain path; launches {counts}; {k_ms:.3f} ms '
+            f'(plain path {p_ms:.3f})')
+        out[name] = rec
+        del head
+    del field, x
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(SEED)
+    frag = torch.from_numpy(rng.uniform(-1, 1, (PROP_FRAG, 3)).astype(
+        np.float32)).to(device)
+    clouds = torch.from_numpy(synthetic_batch(4, N_POINTS, SEED + 2)).to(
+        device)
+    prop = blocks.PropagationBlock(PROP_PARAMS)
+    init_parameters(prop, torch.Generator().manual_seed(SEED))
+    prop = prop.to(device).eval()
+    got, counts, k_ms, p_ms = _vs_plain(
+        '[propagation]', lambda: prop(frag, clouds).feats)
+    assert counts == {'fps': 1}, counts
+    log(f'[propagation] PropagationBlock over a {PROP_FRAG}-point fragment, '
+        f'{PROP_PARAMS["n_center"]} centers of 4 clouds: feats '
+        f'{tuple(got[0].shape)} within rtol 1e-4 of the plain path; launches '
+        f'{counts}; {k_ms:.3f} ms (plain path {p_ms:.3f})')
+    out['propagation'] = {'launches': counts, 'ms': k_ms, 'plain_ms': p_ms}
+    del prop, frag, clouds
+
+    args = dict(dim_in=64, dim_out=64, kernel_size=1, stride=2, radius=0.4,
+                sigma=0.08, n_neighbor=32, kanchor=1, norm='BatchNorm2d',
+                activation='leaky_relu', dropout_rate=0.0, lazy_sample=True)
+    blk = blocks.SeparableSO3ConvBlock(args)
+    init_parameters(blk, torch.Generator().manual_seed(SEED))
+    blk = blk.to(device).eval()
+    xyz = torch.from_numpy(synthetic_batch(BATCH, N_POINTS, SEED + 3)).to(
+        device)
+    feats = torch.from_numpy(np.random.RandomState(SEED).randn(
+        BATCH, N_POINTS, 1, 64).astype(np.float32)).to(device)
+    spc = SphericalPointCloud(xyz, feats, None)
+    got, counts, k_ms, p_ms = _vs_plain('[kanchor1]', lambda: blk(spc).feats)
+    assert counts == {'ball_query': 1, 'inter_conv': 1}, counts
+    log(f'[kanchor1] separable block at one anchor (no intra conv): feats '
+        f'{tuple(got[0].shape)} within rtol 1e-4 of the plain path; '
+        f'launches {counts}; {k_ms:.3f} ms (plain path {p_ms:.3f})')
+    out['kanchor1'] = {'launches': counts, 'ms': k_ms, 'plain_ms': p_ms}
+    del blk, spc
+    torch.cuda.empty_cache()
+    return out
+
+
 PARENT_SOURCES = {'fps.cu': {'fps': 'epn_fps'},
                   'ball_query.cu': {'ball_query': 'epn_ball_query'},
                   'ones_conv.cu': {'ones_conv': 'epn_ones_conv'},
@@ -5421,6 +5888,15 @@ def main(argv=None):
         dropout = timed('[dropout]', phase_dropout, device)
         options = timed('[option-entries]', phase_option_entries, inv_root,
                         reg_tree())
+        torch.cuda.empty_cache()
+        # xyz pooling, the ReLU in the kernels, the remaining heads and
+        # modules
+        pooling = timed('[pooling]', phase_pooling, device)
+        torch.cuda.empty_cache()
+        relu = timed('[relu]', phase_relu, device)
+        torch.cuda.empty_cache()
+        heads_prop = timed('[heads-propagation]', phase_heads_propagation,
+                           device)
         for d in (REG_DIR, INV_DIR, EVAL_DIR):
             shutil.rmtree(d, ignore_errors=True)
     except Exception:
@@ -5449,7 +5925,9 @@ def main(argv=None):
         reg_bf16_launches = reg_bf16_entry['train_launches'][k.name]
         rec = {'name': k.name, 'route': 'cuda', 'source': k.source,
                'replaces': k.replaces,
-               'launches': (options['inv_train']['launches'][k.name]
+               'launches': (pooling['step']['launches'][k.name]
+                            or relu['bf16_step']['launches'][k.name]
+                            or options['inv_train']['launches'][k.name]
                             or options['reg_train']['launches'][k.name]
                             or options['dropout_train']['launches'][k.name]
                             or anchor_entry['train_launches'][k.name]
@@ -5540,6 +6018,28 @@ def main(argv=None):
         rec.update({f'{run}_entry_launches': options[run]['launches'][k.name]
                     for run in ('inv_train', 'inv_eval', 'reg_train',
                                 'reg_eval', 'dropout_train')})
+        # xyz pooling (b=32 forwards of both modes in both dtypes, the b=12
+        # fp32 step), the ReLU model (b=32 bf16 eval, b=12 steps) and the
+        # ClsOutBlockR head's intra conv; launches of each path's run
+        for key, res in (('pooling', pooling['results']),
+                         ('relu', relu['results']),
+                         ('heads', heads_prop['results'])):
+            for part, rows in res.items():
+                if rows.get(k.name):
+                    agg = _aggregate(rows[k.name])
+                    agg['routes'] = _route_table(
+                        {k.name: rows[k.name]}).get(k.name)
+                    rec.setdefault(key, {})[part] = agg
+        rec.update({
+            'pooling_step_launches': pooling['step']['launches'][k.name],
+            **{f'pooling_{m}_{d}_launches':
+               pooling[f'{m}_{d}']['launches'][k.name]
+               for m in POOLINGS for d in ('fp32', 'bf16')},
+            'relu_bf16_eval_launches': relu['eval_launches'][k.name],
+            'relu_fp32_step_launches': relu['fp32_step']['launches'][k.name],
+            'relu_bf16_step_launches': relu['bf16_step']['launches'][k.name],
+            'heads_launches': heads_prop['ClsOutBlockR']['launches'].get(
+                k.name, 0)})
         rec.update({'inv_bf16_train_entry_launches': inv_bf16_counts[k.name],
                     'inv_train_entry_launches': inv_counts[k.name],
                     'bf16_train_entry_launches': bf16_train_counts[k.name],
@@ -5583,6 +6083,8 @@ def main(argv=None):
                    'ka20_entry': anchor_entry,
                    'inv_reg_below_60': inv_reg, 'ka20_bf16_train': ka20_bf16,
                    'dropout': dropout, 'option_entries': options,
+                   'pooling': pooling, 'relu': relu,
+                   'heads_propagation': heads_prop,
                    'phase_wall_s': PHASE_WALL,
                    'kernels': summary, 'seconds': time.time() - t_start},
                   f, indent=1)

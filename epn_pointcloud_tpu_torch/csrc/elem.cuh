@@ -94,12 +94,12 @@ __device__ __forceinline__ float round_to<bf16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// The model's one activation: leaky ReLU, slope 0.01 (LEAKY_SLOPE in
-// ops/kernels/build.py), with the mask u > 0 (torch's subgradient convention)
-constexpr float kLeakySlope = 0.01f;
-
-__device__ __forceinline__ float leaky(float u) {
-  return u > 0.f ? u : kLeakySlope * u;
+// The activations the kernels apply, as the slope of a leaky ReLU with the
+// mask u > 0 (torch's subgradient convention): 0.01 for the leaky ReLU
+// (LEAKY_SLOPE in ops/kernels/build.py), 0 for the ReLU (ACT_SLOPES there).
+// The slope is a launch argument of each kernel that applies it.
+__device__ __forceinline__ float leaky(float u, float slope) {
+  return u > 0.f ? u : slope * u;
 }
 
 }  // namespace epn

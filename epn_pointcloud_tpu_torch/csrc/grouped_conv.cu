@@ -44,7 +44,7 @@
 //   block (K > 2432, no model layer), W streams by K slice with x through
 //   the same ring instead, from L2. The ragged C tail and the ragged rows are zero-filled in
 //   shared memory; C % 8 != 0 takes 8-byte copies. The epilogue (bias; for
-//   the tail the folds, y, both leaky ReLUs and the residual) runs on the
+//   the tail the folds, y, both activations and the residual) runs on the
 //   accumulator fragments and rounds once into a bf16 tile in shared
 //   memory, which the block stores by whole rows in 16-byte vectors: stored
 //   straight from the fragments (16 rows an instruction) the epilogue took
@@ -88,6 +88,7 @@ struct Tail {
   const float* ssk;    // skip fold [., 2, L] at batch stride ssk_stride
   const float* ssm;    // main fold [., 2, L] at batch stride ssm_stride
   int ssk_stride, ssm_stride, P, na;
+  float slope;         // the activation's slope (epn::leaky)
 };
 
 // four outputs of row gm at columns n .. n + 3 from the accumulators v;
@@ -112,14 +113,15 @@ __device__ __forceinline__ void epilogue(T* __restrict__ out,
     const float4 y = epn::load4((const T*)tl.y + (size_t)gm * D + n);
     const float4 k0 = epn::load4(sk), k1 = epn::load4(sk + L);
     const float4 m0 = epn::load4(sm), m1 = epn::load4(sm + L);
-    v.x = epn::leaky(fmaf(y.x, m0.x, m1.x)) +
-          epn::leaky(fmaf(v.x, k0.x, k1.x));
-    v.y = epn::leaky(fmaf(y.y, m0.y, m1.y)) +
-          epn::leaky(fmaf(v.y, k0.y, k1.y));
-    v.z = epn::leaky(fmaf(y.z, m0.z, m1.z)) +
-          epn::leaky(fmaf(v.z, k0.z, k1.z));
-    v.w = epn::leaky(fmaf(y.w, m0.w, m1.w)) +
-          epn::leaky(fmaf(v.w, k0.w, k1.w));
+    const float sl = tl.slope;
+    v.x = epn::leaky(fmaf(y.x, m0.x, m1.x), sl) +
+          epn::leaky(fmaf(v.x, k0.x, k1.x), sl);
+    v.y = epn::leaky(fmaf(y.y, m0.y, m1.y), sl) +
+          epn::leaky(fmaf(v.y, k0.y, k1.y), sl);
+    v.z = epn::leaky(fmaf(y.z, m0.z, m1.z), sl) +
+          epn::leaky(fmaf(v.z, k0.z, k1.z), sl);
+    v.w = epn::leaky(fmaf(y.w, m0.w, m1.w), sl) +
+          epn::leaky(fmaf(v.w, k0.w, k1.w), sl);
   }
   epn::store4(out + (size_t)gm * D + n, v);
 }
@@ -692,11 +694,14 @@ grouped_conv_mma_kernel(const bf16* __restrict__ x,
                   rm1 = *reinterpret_cast<const float2*>(sm + L);
                 }
                 const uint32_t y = *o;
-                v0 = epn::leaky(fmaf(__uint_as_float(y << 16), rm0.x, rm1.x)) +
-                     epn::leaky(fmaf(v0, rk0.x, rk1.x));
+                const float sl = tl.slope;
+                v0 = epn::leaky(fmaf(__uint_as_float(y << 16), rm0.x, rm1.x),
+                                sl) +
+                     epn::leaky(fmaf(v0, rk0.x, rk1.x), sl);
                 v1 = epn::leaky(fmaf(__uint_as_float(y & 0xffff0000u), rm0.y,
-                                     rm1.y)) +
-                     epn::leaky(fmaf(v1, rk0.y, rk1.y));
+                                     rm1.y),
+                                sl) +
+                     epn::leaky(fmaf(v1, rk0.y, rk1.y), sl);
               }
             }
             *o = epn::pack2(v0, v1);
@@ -1095,22 +1100,23 @@ int dispatch(const void* x, const void* W, const void* bias, void* out,
 extern "C" int epn_grouped_conv(const void* x, const void* W,
                                 const void* bias, void* out, int rows, int C,
                                 int D, int bf16, void* stream) {
-  const Tail tl = {nullptr, nullptr, nullptr, 0, 0, 1, 1};
+  const Tail tl = {nullptr, nullptr, nullptr, 0, 0, 1, 1, 0.f};
   return dispatch<false>(x, W, bias, out, tl, rows, C, D, bf16, stream);
 }
 
 // The fused separable-block tail. x [b, P, na, C], W [C, D], y and out
 // [b, P, na, D] (fp32, or bf16 when bf16 != 0), bias [D], ssk and ssm
 // fp32 [., 2, na * D] at batch strides ssk_stride / ssm_stride (elements;
-// 0 broadcasts one row pair over the batch).
+// 0 broadcasts one row pair over the batch); slope the activation's (0.01
+// the leaky ReLU, 0 the ReLU).
 extern "C" int epn_grouped_conv_tail(const void* x, const void* W,
                                      const void* bias, const void* ssk,
                                      const void* y, const void* ssm,
                                      void* out, int b, int P, int na, int C,
                                      int D, int ssk_stride, int ssm_stride,
-                                     int bf16, void* stream) {
+                                     float slope, int bf16, void* stream) {
   const Tail tl = {y, (const float*)ssk, (const float*)ssm, ssk_stride,
-                   ssm_stride, P, na};
+                   ssm_stride, P, na, slope};
   return dispatch<true>(x, W, bias, out, tl, b * P * na, C, D, bf16, stream);
 }
 

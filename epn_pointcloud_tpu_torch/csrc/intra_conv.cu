@@ -76,8 +76,8 @@
 // rounded to the element type (where _apply_prenorm rounds), then runs the
 // same product on z. scale and shift are fp32 lanes [b or 1, 2, na*C] (row
 // 0 scale, row 1 shift; batch stride 0 broadcasts one fold); act is the
-// leaky ReLU with mask u > 0. The TPU's [b, 8, L] sublane padding does not
-// come over. A prenorm load costs two more 16-byte reads of the (cached)
+// leaky ReLU of the launch's slope (0.01; 0 is the ReLU) with mask u > 0.
+// The TPU's [b, 8, L] sublane padding does not come over. A prenorm load costs two more 16-byte reads of the (cached)
 // fold and four FMAs per four elements.
 //
 // Backward. df needs no kernel of its own: every column k of trace_idx is a
@@ -238,13 +238,15 @@ struct Tile {
 
 // z = act(v * scale + shift) per lane, rounded to the element type E
 template <typename E>
-__device__ __forceinline__ float4 prenorm4(float4 v, const float* ss, int L) {
+__device__ __forceinline__ float4 prenorm4(float4 v, const float* ss, int L,
+                                           float slope) {
   const float4 sc = *reinterpret_cast<const float4*>(ss);
   const float4 sh = *reinterpret_cast<const float4*>(ss + L);
-  return make_float4(epn::round_to<E>(epn::leaky(fmaf(v.x, sc.x, sh.x))),
-                     epn::round_to<E>(epn::leaky(fmaf(v.y, sc.y, sh.y))),
-                     epn::round_to<E>(epn::leaky(fmaf(v.z, sc.z, sh.z))),
-                     epn::round_to<E>(epn::leaky(fmaf(v.w, sc.w, sh.w))));
+  return make_float4(
+      epn::round_to<E>(epn::leaky(fmaf(v.x, sc.x, sh.x), slope)),
+      epn::round_to<E>(epn::leaky(fmaf(v.y, sc.y, sh.y), slope)),
+      epn::round_to<E>(epn::leaky(fmaf(v.z, sc.z, sh.z), slope)),
+      epn::round_to<E>(epn::leaky(fmaf(v.w, sc.w, sh.w), slope)));
 }
 
 // The global loads of reduction slice kk0 into registers: ra for the
@@ -255,7 +257,7 @@ __device__ __forceinline__ void load_slice(
     const E* (&a_pt)[Tile<BN>::kALoads],
     const float* (&a_ss)[Tile<BN>::kALoads],
     const int (&a_anchor)[Tile<BN>::kALoads], int kk0, int tid, int K, int C,
-    int D, int n0, int L, float4 (&ra)[Tile<BN>::kALoads],
+    int D, int n0, int L, float slope, float4 (&ra)[Tile<BN>::kALoads],
     float4 (&rb)[Tile<BN>::kBLoads]) {
   using T = Tile<BN>;
   const int KC = K * C;
@@ -267,7 +269,7 @@ __device__ __forceinline__ void load_slice(
       const int k = kk / C, c = kk - k * C;
       const int lane = s_trace[a_anchor[i] * K + k] * C + c;
       ra[i] = epn::load4(a_pt[i] + lane);
-      if (PRE) ra[i] = prenorm4<E>(ra[i], a_ss[i] + lane, L);
+      if (PRE) ra[i] = prenorm4<E>(ra[i], a_ss[i] + lane, L, slope);
     }
   }
 #pragma unroll
@@ -312,7 +314,7 @@ __device__ __forceinline__ void product_tile(
     const float* (&a_ss)[Tile<BN>::kALoads],
     const int (&a_anchor)[Tile<BN>::kALoads], float (&As)[2][BK][BM],
     float (&Bs)[2][BK][BN], int tid, int K, int C, int D, int n0, int L,
-    float (&acc)[TM][TN]) {
+    float slope, float (&acc)[TM][TN]) {
   using T = Tile<BN>;
   const int tx = tid % (BN / TN), ty = tid / (BN / TN);
 #pragma unroll
@@ -323,7 +325,7 @@ __device__ __forceinline__ void product_tile(
 
   float4 ra[T::kALoads], rb[T::kBLoads];
   load_slice<E, PRE, BN>(W, s_trace, a_pt, a_ss, a_anchor, 0, tid, K, C, D, n0,
-                         L, ra, rb);
+                         L, slope, ra, rb);
   store_slice<BN>(As[0], Bs[0], tid, ra, rb);
   __syncthreads();
   const int n_slices = (K * C + BK - 1) / BK;
@@ -331,7 +333,7 @@ __device__ __forceinline__ void product_tile(
     const int buf = s & 1;
     if (s + 1 < n_slices) {
       load_slice<E, PRE, BN>(W, s_trace, a_pt, a_ss, a_anchor, (s + 1) * BK,
-                             tid, K, C, D, n0, L, ra, rb);
+                             tid, K, C, D, n0, L, slope, ra, rb);
     }
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
@@ -359,14 +361,15 @@ __device__ __forceinline__ int tile_row(int ty, int i) {
   return i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + i - 4;
 }
 
-// PRE: ss is the prenorm fold [., 2, na * C] at batch stride ss_stride
-// (a template flag, so the plain form carries no prenorm registers)
+// PRE: ss is the prenorm fold [., 2, na * C] at batch stride ss_stride,
+// applied with the activation of slope `slope` (a template flag, so the
+// plain form carries no prenorm registers)
 template <typename E, bool PRE, int BN>
 __global__ void __launch_bounds__(Tile<BN>::kThreads)
 intra_conv_kernel(const E* __restrict__ f, const int* __restrict__ trace_idx,
                   const E* __restrict__ W, const float* __restrict__ ss,
                   E* __restrict__ out, int M, int P, int na, int K, int C,
-                  int D, int ss_stride) {
+                  int D, int ss_stride, float slope) {
   using T = Tile<BN>;
   __shared__ __align__(16) float As[2][BK][BM];
   __shared__ __align__(16) float Bs[2][BK][BN];
@@ -395,7 +398,7 @@ intra_conv_kernel(const E* __restrict__ f, const int* __restrict__ trace_idx,
 
   float acc[TM][TN];
   product_tile<E, PRE, BN>(W, s_trace, a_pt, a_ss, a_anchor, As, Bs, tid, K,
-                           C, D, n0, na * C, acc);
+                           C, D, n0, na * C, slope, acc);
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -411,13 +414,13 @@ intra_conv_kernel(const E* __restrict__ f, const int* __restrict__ trace_idx,
 }
 
 // du = dz * act'(u) for four lanes, u = x * scale + shift (mask u > 0, as
-// the forward's prenorm4), with the scale of the lanes in *sc
+// the forward's prenorm4; s the activation's slope), with the scale of the
+// lanes in *sc
 __device__ __forceinline__ float4 act_grad4(const float4& dz, const float4& x,
-                                            const float* ss, int L,
+                                            const float* ss, int L, float s,
                                             float4* sc) {
   *sc = *reinterpret_cast<const float4*>(ss);
   const float4 sh = *reinterpret_cast<const float4*>(ss + L);
-  const float s = epn::kLeakySlope;
   return make_float4(fmaf(x.x, sc->x, sh.x) > 0.f ? dz.x : s * dz.x,
                      fmaf(x.y, sc->y, sh.y) > 0.f ? dz.y : s * dz.y,
                      fmaf(x.z, sc->z, sh.z) > 0.f ? dz.z : s * dz.z,
@@ -438,7 +441,7 @@ intra_df_prenorm_kernel(const E* __restrict__ g,
                         const E* __restrict__ Wt, const E* __restrict__ x,
                         const float* __restrict__ ss, E* __restrict__ df,
                         float* __restrict__ ws, int b, int P, int na, int K,
-                        int C, int D, int ss_stride, int nJ) {
+                        int C, int D, int ss_stride, int nJ, float slope) {
   using T = Tile<BN>;
   __shared__ __align__(16) float As[2][BK][BM];
   __shared__ __align__(16) float Bs[2][BK][BN];
@@ -469,7 +472,7 @@ intra_df_prenorm_kernel(const E* __restrict__ g,
 
   float acc[TM][TN];
   product_tile<E, false, BN>(Wt, s_trace, a_pt, a_ss, a_anchor, As, Bs, tid,
-                             K, C, D, n0, na * C, acc);
+                             K, C, D, n0, na * C, 0.f, acc);
 
   const int L = na * D;                    // lanes of x, ss and df
   const float* ssb = ss + (size_t)bi * ss_stride;
@@ -486,7 +489,8 @@ intra_df_prenorm_kernel(const E* __restrict__ g,
                                     acc[i][4 * h + 2], acc[i][4 * h + 3]);
       float4 sc;
       const float4 du =
-          act_grad4(dz, epn::load4(x + gm * D + n), ssb + a * D + n, L, &sc);
+          act_grad4(dz, epn::load4(x + gm * D + n), ssb + a * D + n, L,
+                    slope, &sc);
       epn::store4(df + gm * D + n, make_float4(du.x * sc.x, du.y * sc.y,
                                                du.z * sc.z, du.w * sc.w));
     }
@@ -513,7 +517,8 @@ intra_df_prenorm_kernel(const E* __restrict__ g,
                                         acc[i][4 * h + 2], acc[i][4 * h + 3]);
           const float4 xv = epn::load4(x + gm * D + n);
           float4 sc;
-          const float4 du = act_grad4(dz, xv, ssb + a * D + n, L, &sc);
+          const float4 du =
+              act_grad4(dz, xv, ssb + a * D + n, L, slope, &sc);
           float* sp = s_red + a * BN + cl;
           if (q == 0) {
             sp[0] += du.x * xv.x;
@@ -542,7 +547,7 @@ intra_df_prenorm_kernel(const E* __restrict__ g,
 template <typename E, bool PRE>
 int launch_fwd(const void* f, const int* trace_idx, const void* W,
                const float* ss, void* out, int M, int P, int na, int K, int C,
-               int D, int ss_stride, cudaStream_t s) {
+               int D, int ss_stride, float slope, cudaStream_t s) {
   const E* fp = (const E*)f;
   const E* wp = (const E*)W;
   E* op = (E*)out;
@@ -550,15 +555,15 @@ int launch_fwd(const void* f, const int* trace_idx, const void* W,
   if (D % 128 == 0) {
     intra_conv_kernel<E, PRE, 128><<<dim3(gx, D / 128), Tile<128>::kThreads, 0,
                                      s>>>(fp, trace_idx, wp, ss, op, M, P, na,
-                                          K, C, D, ss_stride);
+                                          K, C, D, ss_stride, slope);
   } else if (D % 64 == 0) {
     intra_conv_kernel<E, PRE, 64><<<dim3(gx, D / 64), Tile<64>::kThreads, 0,
                                     s>>>(fp, trace_idx, wp, ss, op, M, P, na,
-                                         K, C, D, ss_stride);
+                                         K, C, D, ss_stride, slope);
   } else {
     intra_conv_kernel<E, PRE, 32><<<dim3(gx, D / 32), Tile<32>::kThreads, 0,
                                     s>>>(fp, trace_idx, wp, ss, op, M, P, na,
-                                         K, C, D, ss_stride);
+                                         K, C, D, ss_stride, slope);
   }
   return (int)cudaGetLastError();
 }
@@ -566,13 +571,13 @@ int launch_fwd(const void* f, const int* trace_idx, const void* W,
 template <typename E>
 int launch(const void* f, const int* trace_idx, const void* W,
            const float* ss, void* out, int M, int P, int na, int K, int C,
-           int D, int ss_stride, cudaStream_t s) {
+           int D, int ss_stride, float slope, cudaStream_t s) {
   if (ss != nullptr) {
     return launch_fwd<E, true>(f, trace_idx, W, ss, out, M, P, na, K, C,
-                               D, ss_stride, s);
+                               D, ss_stride, slope, s);
   }
   return launch_fwd<E, false>(f, trace_idx, W, ss, out, M, P, na, K, C, D,
-                              ss_stride, s);
+                              ss_stride, slope, s);
 }
 
 constexpr int WBK = 16;  // rows a reduction slice of dW
@@ -585,7 +590,7 @@ __global__ void __launch_bounds__(Tile<BN>::kThreads)
 intra_dw_kernel(const E* __restrict__ f, const int* __restrict__ trace_idx,
                 const float* __restrict__ ss, const E* __restrict__ dout,
                 float* __restrict__ part, int M, int P, int na, int K, int C,
-                int D, int ss_stride, int rows_per_split) {
+                int D, int ss_stride, float slope, int rows_per_split) {
   using T = Tile<BN>;
   __shared__ __align__(16) float As[WBK][BM];
   __shared__ __align__(16) float Bs[WBK][BN];
@@ -618,7 +623,8 @@ intra_dw_kernel(const E* __restrict__ f, const int* __restrict__ trace_idx,
         const int lane = s_trace[a * K + k] * C + c;
         v = epn::load4(f + (size_t)pt * na * C + lane);
         if (PRE) {
-          v = prenorm4<E>(v, ss + (size_t)(pt / P) * ss_stride + lane, na * C);
+          v = prenorm4<E>(v, ss + (size_t)(pt / P) * ss_stride + lane, na * C,
+                          slope);
         }
       }
       reinterpret_cast<float4*>(&As[rr][0])[j4] = v;
@@ -666,14 +672,14 @@ intra_dw_kernel(const E* __restrict__ f, const int* __restrict__ trace_idx,
 template <typename E, bool PRE, int BN>
 int launch_dw(const void* f, const int* trace_idx, const float* ss,
               const void* dout, float* ws, float* dW, int M, int P, int na,
-              int K, int C, int D, int ss_stride, int splits,
+              int K, int C, int D, int ss_stride, float slope, int splits,
               cudaStream_t stream) {
   const int slices = (M + WBK - 1) / WBK;
   const int rows_per_split = (slices + splits - 1) / splits * WBK;
   dim3 grid((K * C + BM - 1) / BM, D / BN, splits);
   intra_dw_kernel<E, PRE, BN><<<grid, Tile<BN>::kThreads, 0, stream>>>(
       (const E*)f, trace_idx, ss, (const E*)dout, ws, M, P, na, K, C, D,
-      ss_stride, rows_per_split);
+      ss_stride, slope, rows_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_sum_splits(ws, dW, splits, (size_t)K * C * D, stream);
@@ -682,44 +688,45 @@ int launch_dw(const void* f, const int* trace_idx, const float* ss,
 template <typename E, bool PRE>
 int launch_dw_cols(const void* f, const int* trace_idx, const float* ss,
                    const void* dout, float* ws, float* dW, int M, int P,
-                   int na, int K, int C, int D, int ss_stride, int splits,
-                   cudaStream_t s) {
+                   int na, int K, int C, int D, int ss_stride, float slope,
+                   int splits, cudaStream_t s) {
   if (D % 128 == 0) {
     return launch_dw<E, PRE, 128>(f, trace_idx, ss, dout, ws, dW, M, P, na, K,
-                                  C, D, ss_stride, splits, s);
+                                  C, D, ss_stride, slope, splits, s);
   }
   if (D % 64 == 0) {
     return launch_dw<E, PRE, 64>(f, trace_idx, ss, dout, ws, dW, M, P, na, K,
-                                 C, D, ss_stride, splits, s);
+                                 C, D, ss_stride, slope, splits, s);
   }
   return launch_dw<E, PRE, 32>(f, trace_idx, ss, dout, ws, dW, M, P, na, K, C,
-                               D, ss_stride, splits, s);
+                               D, ss_stride, slope, splits, s);
 }
 
 template <typename E>
 int launch_dw_any(const void* f, const int* trace_idx, const float* ss,
                   const void* dout, float* ws, float* dW, int M, int P, int na,
-                  int K, int C, int D, int ss_stride, int splits,
+                  int K, int C, int D, int ss_stride, float slope, int splits,
                   cudaStream_t s) {
   if (ss != nullptr) {
     return launch_dw_cols<E, true>(f, trace_idx, ss, dout, ws, dW, M, P, na,
-                                   K, C, D, ss_stride, splits, s);
+                                   K, C, D, ss_stride, slope, splits, s);
   }
   return launch_dw_cols<E, false>(f, trace_idx, ss, dout, ws, dW, M, P, na, K,
-                                  C, D, ss_stride, splits, s);
+                                  C, D, ss_stride, slope, splits, s);
 }
 
 template <typename E, int BN>
 int launch_df_prenorm(const void* g, const int* inv_idx, const void* Wt,
                       const void* x, const float* ss, void* df, float* ws,
                       float* dscale, float* dshift, int b, int P, int na,
-                      int K, int C, int D, int ss_batch, cudaStream_t s) {
+                      int K, int C, int D, int ss_batch, float slope,
+                      cudaStream_t s) {
   const int nJ = (P + BM / na - 1) / (BM / na);
   const size_t L = (size_t)na * D;
   intra_df_prenorm_kernel<E, BN><<<dim3(b * nJ, D / BN), Tile<BN>::kThreads,
                                    0, s>>>(
       (const E*)g, inv_idx, (const E*)Wt, (const E*)x, ss, (E*)df, ws, b, P,
-      na, K, C, D, ss_batch > 1 ? (int)(2 * L) : 0, nJ);
+      na, K, C, D, ss_batch > 1 ? (int)(2 * L) : 0, nJ, slope);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // the partials [nJ][b][L] in order: over each cloud's blocks (a fold per
@@ -735,13 +742,16 @@ template <typename E>
 int launch_df_prenorm_cols(const void* g, const int* inv_idx, const void* Wt,
                            const void* x, const float* ss, void* df, float* ws,
                            float* dscale, float* dshift, int b, int P, int na,
-                           int K, int C, int D, int ss_batch, cudaStream_t s) {
+                           int K, int C, int D, int ss_batch, float slope,
+                           cudaStream_t s) {
   if (D % 64 == 0 && na * 64 <= 2 * BK * BM) {
     return launch_df_prenorm<E, 64>(g, inv_idx, Wt, x, ss, df, ws, dscale,
-                                    dshift, b, P, na, K, C, D, ss_batch, s);
+                                    dshift, b, P, na, K, C, D, ss_batch, slope,
+                                    s);
   }
   return launch_df_prenorm<E, 32>(g, inv_idx, Wt, x, ss, df, ws, dscale,
-                                  dshift, b, P, na, K, C, D, ss_batch, s);
+                                  dshift, b, P, na, K, C, D, ss_batch, slope,
+                                  s);
 }
 
 
@@ -827,7 +837,7 @@ intra_conv_mma_kernel(const bf16* __restrict__ g,
                       const float* __restrict__ ss,
                       const bf16* __restrict__ x, bf16* __restrict__ out,
                       float* __restrict__ ws, int b, int P, int C, int D,
-                      int ss_stride, int nJ) {
+                      int ss_stride, int nJ, float slope) {
   using G = Cfg<BN>;
   extern __shared__ __align__(128) unsigned char mma_smem[];
   int* s_trace = reinterpret_cast<int*>(mma_smem);
@@ -872,9 +882,10 @@ intra_conv_mma_kernel(const bf16* __restrict__ g,
       uint32_t o[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        o[q] = epn::pack2(epn::leaky(fold(v[2 * q], sc[2 * q], sh[2 * q])),
-                          epn::leaky(fold(v[2 * q + 1], sc[2 * q + 1],
-                                          sh[2 * q + 1])));
+        o[q] = epn::pack2(
+            epn::leaky(fold(v[2 * q], sc[2 * q], sh[2 * q]), slope),
+            epn::leaky(fold(v[2 * q + 1], sc[2 * q + 1], sh[2 * q + 1]),
+                       slope));
       }
       *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
     } else {
@@ -1001,7 +1012,6 @@ intra_conv_mma_kernel(const bf16* __restrict__ g,
     float* red = reinterpret_cast<float*>(ot + G::ROWS * G::OS);
     const int L = kNA * D;                  // lanes of x, ss and df
     const float* ssd = ss + (size_t)bi * ss_stride;
-    const float slope = epn::kLeakySlope;
     auto reduce = [&](int q) {
       __syncthreads();
       float* dst = ws + ((size_t)q * nJ * b + (size_t)j * b + bi) * L + n0;
@@ -1064,7 +1074,7 @@ intra_conv_mma_kernel(const bf16* __restrict__ g,
 template <int BN, bool PRE, bool DF>
 int launch(const void* g, const int* trace, const void* W, const float* ss,
            const void* x, void* out, float* ws, int b, int P, int C, int D,
-           int ss_stride, cudaStream_t stream) {
+           int ss_stride, float slope, cudaStream_t stream) {
   using G = Cfg<BN>;
   const size_t smem = smem_bytes<BN>(C, DF);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -1075,24 +1085,25 @@ int launch(const void* g, const int* trace, const void* W, const float* ss,
   const int nJ = (P + G::NP - 1) / G::NP;
   kern<<<dim3(b * nJ, D / BN), kThreads, smem, stream>>>(
       (const bf16*)g, trace, (const bf16*)W, ss, (const bf16*)x, (bf16*)out,
-      ws, b, P, C, D, ss_stride, nJ);
+      ws, b, P, C, D, ss_stride, nJ, slope);
   return (int)cudaGetLastError();
 }
 
 template <bool PRE, bool DF>
 int launch_bn(const void* g, const int* trace, const void* W,
               const float* ss, const void* x, void* out, float* ws, int b,
-              int P, int C, int D, int ss_stride, cudaStream_t s) {
+              int P, int C, int D, int ss_stride, float slope,
+              cudaStream_t s) {
   switch (pick_bn(D)) {
     case 128:
       return launch<128, PRE, DF>(g, trace, W, ss, x, out, ws, b, P, C, D,
-                                  ss_stride, s);
+                                  ss_stride, slope, s);
     case 64:
       return launch<64, PRE, DF>(g, trace, W, ss, x, out, ws, b, P, C, D,
-                                 ss_stride, s);
+                                 ss_stride, slope, s);
     default:
       return launch<32, PRE, DF>(g, trace, W, ss, x, out, ws, b, P, C, D,
-                                 ss_stride, s);
+                                 ss_stride, slope, s);
   }
 }
 
@@ -1151,7 +1162,7 @@ intra_dw_mma_kernel(const bf16* __restrict__ f, const int* __restrict__ trace,
                     const float* __restrict__ ss,
                     const bf16* __restrict__ dout, float* __restrict__ part,
                     int n_pts, int P, int C, int D, int ss_stride,
-                    int pts_per_split) {
+                    float slope, int pts_per_split) {
   using G = Cfg<BN>;
   extern __shared__ __align__(128) unsigned char dw_smem[];
   int* s_trace = reinterpret_cast<int*>(dw_smem);
@@ -1234,8 +1245,9 @@ intra_dw_mma_kernel(const bf16* __restrict__ f, const int* __restrict__ trace,
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           o[q] = epn::pack2(
-              epn::leaky(mma::fold(v[2 * q], a[2 * q], h[2 * q])),
-              epn::leaky(mma::fold(v[2 * q + 1], a[2 * q + 1], h[2 * q + 1])));
+              epn::leaky(mma::fold(v[2 * q], a[2 * q], h[2 * q]), slope),
+              epn::leaky(mma::fold(v[2 * q + 1], a[2 * q + 1], h[2 * q + 1]),
+                         slope));
         }
         *zp = make_uint4(o[0], o[1], o[2], o[3]);
       }
@@ -1316,7 +1328,7 @@ intra_dw_mma_kernel(const bf16* __restrict__ f, const int* __restrict__ trace,
 template <int BN, bool PRE>
 int launch(const void* f, const int* trace, const float* ss, const void* dout,
            float* ws, float* dW, int n_pts, int P, int C, int D,
-           int ss_stride, int splits, int pts_per_split,
+           int ss_stride, float slope, int splits, int pts_per_split,
            cudaStream_t stream) {
   using G = Cfg<BN>;
   if (G::kSmem > mma::kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -1326,7 +1338,7 @@ int launch(const void* f, const int* trace, const float* ss, const void* dout,
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(D / BN, C / kCB, splits), kThreads, G::kSmem, stream>>>(
       (const bf16*)f, trace, ss, (const bf16*)dout, ws, n_pts, P, C, D,
-      ss_stride, pts_per_split);
+      ss_stride, slope, pts_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_sum_splits(ws, dW, splits, (size_t)kK * C * D, stream);
@@ -1335,14 +1347,14 @@ int launch(const void* f, const int* trace, const float* ss, const void* dout,
 template <bool PRE>
 int launch_bn(const void* f, const int* trace, const float* ss,
               const void* dout, float* ws, float* dW, int n_pts, int P, int C,
-              int D, int ss_stride, int splits, int pts_per_split,
-              cudaStream_t s) {
+              int D, int ss_stride, float slope, int splits,
+              int pts_per_split, cudaStream_t s) {
   if (pick_bn(D) == 64) {
     return launch<64, PRE>(f, trace, ss, dout, ws, dW, n_pts, P, C, D,
-                           ss_stride, splits, pts_per_split, s);
+                           ss_stride, slope, splits, pts_per_split, s);
   }
   return launch<32, PRE>(f, trace, ss, dout, ws, dW, n_pts, P, C, D,
-                         ss_stride, splits, pts_per_split, s);
+                         ss_stride, slope, splits, pts_per_split, s);
 }
 
 }  // namespace dwmma
@@ -1719,12 +1731,13 @@ int launch(const float* f, const int* trace, const float* W, float* out,
 // f [b, P, na, C], trace_idx [na, K] int32 (device), W [K, C, D],
 // out [b, P, na, D]: fp32, or bf16 when bf16 != 0. ss: null, or the
 // prenorm fold fp32 [., 2, na * C] at batch stride ss_stride (elements; 0
-// broadcasts one fold), applied with the leaky ReLU. C must be a
+// broadcasts one fold), applied with the activation of slope `slope` (the
+// leaky ReLU's 0.01, or 0: the ReLU; unused without ss). C must be a
 // multiple of 4 and D of 32.
 extern "C" int epn_intra_conv(const void* f, const void* trace_idx,
                               const void* W, const void* ss, void* out, int b,
                               int P, int na, int K, int C, int D,
-                              int ss_stride, int bf16,
+                              int ss_stride, float slope, int bf16,
                               void* stream) {
   if (na * K > kMaxTrace || C % 4 != 0 || D % 32 != 0) {
     return (int)cudaErrorInvalidValue;
@@ -1735,20 +1748,22 @@ extern "C" int epn_intra_conv(const void* f, const void* trace_idx,
   const int M = b * P * na;
   if (bf16) {
     return launch<epn::bf16>(f, tp, W, sp, out, M, P, na, K, C, D, ss_stride,
-                             s);
+                             slope, s);
   }
-  return launch<float>(f, tp, W, sp, out, M, P, na, K, C, D, ss_stride, s);
+  return launch<float>(f, tp, W, sp, out, M, P, na, K, C, D, ss_stride, slope,
+                       s);
 }
 
 // f [b, P, na, C], trace_idx [na, K] int32, dout [b, P, na, D] (fp32, or
 // bf16 when bf16 != 0); ss: null, or the prenorm fold fp32 [., 2, na * C]
-// at batch stride ss_stride, applied to f on load; ws [splits, K, C, D]
-// fp32 scratch, dW [K, C, D] fp32 out. C must be a multiple of 4, D of 32.
+// at batch stride ss_stride, applied to f on load with the activation of
+// slope `slope`; ws [splits, K, C, D] fp32 scratch, dW [K, C, D] fp32 out.
+// C must be a multiple of 4, D of 32.
 extern "C" int epn_intra_conv_bwd_w(const void* f, const void* trace_idx,
                                     const void* ss, const void* dout, void* ws,
                                     void* dW, int b, int P, int na, int K,
-                                    int C, int D, int ss_stride, int splits,
-                                    int bf16, void* stream) {
+                                    int C, int D, int ss_stride, float slope,
+                                    int splits, int bf16, void* stream) {
   if (na * K > kMaxTrace || C % 4 != 0 || D % 32 != 0 || splits < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1758,14 +1773,15 @@ extern "C" int epn_intra_conv_bwd_w(const void* f, const void* trace_idx,
   const int M = b * P * na;
   if (bf16) {
     return launch_dw_any<epn::bf16>(f, tp, sp, dout, (float*)ws, (float*)dW, M,
-                                    P, na, K, C, D, ss_stride, splits, s);
+                                    P, na, K, C, D, ss_stride, slope, splits,
+                                    s);
   }
   return launch_dw_any<float>(f, tp, sp, dout, (float*)ws, (float*)dW, M, P,
-                              na, K, C, D, ss_stride, splits, s);
+                              na, K, C, D, ss_stride, slope, splits, s);
 }
 
-// dW on tensor cores (intra_dw_mma_kernel): f, trace_idx, ss, dout, ws, dW
-// and ss_stride as epn_intra_conv_bwd_w, with f and dout bf16; rows a
+// dW on tensor cores (intra_dw_mma_kernel): f, trace_idx, ss, dout, ws, dW,
+// ss_stride and slope as epn_intra_conv_bwd_w, with f and dout bf16; rows a
 // split, rows_per_split, a whole number of 8-point groups (480 rows), with
 // splits * rows_per_split >= b * P * na. na must be 60, K 12, C a multiple
 // of 32 and D of 32.
@@ -1773,7 +1789,7 @@ extern "C" int epn_intra_conv_bwd_w_mma(const void* f, const void* trace_idx,
                                         const void* ss, const void* dout,
                                         void* ws, void* dW, int b, int P,
                                         int na, int K, int C, int D,
-                                        int ss_stride, int splits,
+                                        int ss_stride, float slope, int splits,
                                         int rows_per_split, void* stream) {
   const long long rows = (long long)b * P * na;
   if (na != mma::kNA || K != mma::kK || C % dwmma::kCB != 0 || D % 32 != 0 ||
@@ -1788,10 +1804,11 @@ extern "C" int epn_intra_conv_bwd_w_mma(const void* f, const void* trace_idx,
   const int pps = rows_per_split / na;
   if (sp != nullptr) {
     return dwmma::launch_bn<true>(f, tp, sp, dout, (float*)ws, (float*)dW,
-                                  b * P, P, C, D, ss_stride, splits, pps, s);
+                                  b * P, P, C, D, ss_stride, slope, splits,
+                                  pps, s);
   }
   return dwmma::launch_bn<false>(f, tp, nullptr, dout, (float*)ws, (float*)dW,
-                                 b * P, P, C, D, 0, splits, pps, s);
+                                 b * P, P, C, D, 0, slope, splits, pps, s);
 }
 
 // dW on the CUDA cores (intra_dw_f32_kernel), the plain form: the
@@ -1848,14 +1865,15 @@ extern "C" int epn_intra_conv_f32(const void* f, const void* trace_idx,
 // C, D] (W transposed), x [b, P, na, D] the saved pre-norm input, df [b, P,
 // na, D] out (fp32, or bf16 when bf16 != 0); ss fp32 [ss_batch, 2, na * D]
 // (ss_batch 1 or b); ws fp32 scratch [2, nJ, b, na * D] with nJ =
-// ceil(P / (128 / na)); dscale, dshift fp32 [ss_batch, na * D] out. C must
-// be a multiple of 4, D of 32, na at most 64.
+// ceil(P / (128 / na)); dscale, dshift fp32 [ss_batch, na * D] out; slope
+// the forward activation's (its mask u > 0). C must be a multiple of 4, D
+// of 32, na at most 64.
 extern "C" int epn_intra_conv_prenorm_df(const void* dout, const void* inv_idx,
                                          const void* Wt, const void* x,
                                          const void* ss, void* df, void* ws,
                                          void* dscale, void* dshift, int b,
                                          int P, int na, int K, int C, int D,
-                                         int ss_batch, int bf16,
+                                         int ss_batch, float slope, int bf16,
                                          void* stream) {
   if (na * K > kMaxTrace || na > 64 || C % 4 != 0 || D % 32 != 0 ||
       (ss_batch != 1 && ss_batch != b)) {
@@ -1870,20 +1888,20 @@ extern "C" int epn_intra_conv_prenorm_df(const void* dout, const void* inv_idx,
   if (bf16) {
     return launch_df_prenorm_cols<epn::bf16>(dout, ip, Wt, x, sp, df, w, dsc,
                                              dsh, b, P, na, K, C, D, ss_batch,
-                                             s);
+                                             slope, s);
   }
   return launch_df_prenorm_cols<float>(dout, ip, Wt, x, sp, df, w, dsc, dsh, b,
-                                       P, na, K, C, D, ss_batch, s);
+                                       P, na, K, C, D, ss_batch, slope, s);
 }
 
-// bf16 on tensor cores (intra_conv_mma_kernel): f, trace_idx, W, ss, out
-// and ss_stride as epn_intra_conv, with f, W and out bf16. na must be 60,
+// bf16 on tensor cores (intra_conv_mma_kernel): f, trace_idx, W, ss, out,
+// ss_stride and slope as epn_intra_conv, with f, W and out bf16. na must be 60,
 // K 12, C a multiple of 32 and D of 32 (and the slab and ring within the
 // shared memory a block may use: C up to 256 at D % 128 == 0).
 extern "C" int epn_intra_conv_mma(const void* f, const void* trace_idx,
                                   const void* W, const void* ss, void* out,
                                   int b, int P, int na, int K, int C, int D,
-                                  int ss_stride, void* stream) {
+                                  int ss_stride, float slope, void* stream) {
   if (na != mma::kNA || K != mma::kK || C % 32 != 0 || D % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1892,21 +1910,23 @@ extern "C" int epn_intra_conv_mma(const void* f, const void* trace_idx,
   const float* sp = (const float*)ss;
   if (sp != nullptr) {
     return mma::launch_bn<true, false>(f, tp, W, sp, nullptr, out, nullptr,
-                                       b, P, C, D, ss_stride, s);
+                                       b, P, C, D, ss_stride, slope, s);
   }
   return mma::launch_bn<false, false>(f, tp, W, nullptr, nullptr, out,
-                                      nullptr, b, P, C, D, 0, s);
+                                      nullptr, b, P, C, D, 0, slope, s);
 }
 
 // B6 df, dscale, dshift on tensor cores: the arguments of
-// epn_intra_conv_prenorm_df with bf16 dout, Wt, x and df, and ws fp32
+// epn_intra_conv_prenorm_df (slope among them) with bf16 dout, Wt, x and df,
+// and ws fp32
 // [2, nJ, b, na * D] with nJ = ceil(P / (512 / BN)), BN = 128 where D % 128
 // == 0, else 64 where D % 64 == 0, else 32. na must be 60, K 12, C and D
 // multiples of 32.
 extern "C" int epn_intra_conv_prenorm_df_mma(
     const void* dout, const void* inv_idx, const void* Wt, const void* x,
     const void* ss, void* df, void* ws, void* dscale, void* dshift, int b,
-    int P, int na, int K, int C, int D, int ss_batch, void* stream) {
+    int P, int na, int K, int C, int D, int ss_batch, float slope,
+    void* stream) {
   if (na != mma::kNA || K != mma::kK || C % 32 != 0 || D % 32 != 0 ||
       (ss_batch != 1 && ss_batch != b)) {
     return (int)cudaErrorInvalidValue;
@@ -1916,7 +1936,7 @@ extern "C" int epn_intra_conv_prenorm_df_mma(
   float* w = (float*)ws;
   const int e = mma::launch_bn<false, true>(
       dout, (const int*)inv_idx, Wt, (const float*)ss, x, df, w, b, P, C, D,
-      ss_batch > 1 ? (int)(2 * L) : 0, s);
+      ss_batch > 1 ? (int)(2 * L) : 0, slope, s);
   if (e != 0) return e;
   // the partials [nJ][b][L] in order: over each cloud's blocks (a fold per
   // cloud) or over every block (one fold for the batch)

@@ -112,18 +112,18 @@ class PointCloudPairSampler:
 class FragmentLoader:
     """Keypoint pairs of fused fragments: each item is npt patch pairs
     ('src', 'tgt' [npt, input_num, 3]) around keypoints drawn from one pair
-    file, the fragments, the relative rotation T and an id. Without
-    augmentation only (the 3DMatch entry point forces it). ``use_normals``
-    is stored and read nowhere, as the JAX loader stores it: the patches
-    stay 3-channel."""
+    file, the fragments, the relative rotation T and an id. With
+    augmentation (``opt.no_augmentation`` off; the 3DMatch entry points
+    force it on, as the JAX package's do) each item draws two rotations of
+    up to 30 degrees a Euler angle from the loader's rng, after its ball
+    searches, and turns each leg's patches by its own after their resample
+    (JAX ``data/match_3dmatch.py:187-208``); T stays the poses' relative
+    rotation. ``use_normals`` is stored and read nowhere, as the JAX loader
+    stores it: the patches stay 3-channel."""
 
     def __init__(self, opt, search_radius, npt=24, kptname='kpts',
                  use_normals=False):
         self.use_normals = use_normals
-        if not opt.no_augmentation:
-            raise NotImplementedError('3DMatch training augmentation is not '
-                                      'ported (the entry point forces '
-                                      '--no-augmentation)')
         self.opt = opt
         self.data_path = os.path.join(opt.dataset_path, 'fused_fragments')
         self.keypoint_path = os.path.join(opt.dataset_path, kptname)
@@ -180,15 +180,23 @@ class FragmentLoader:
                                      self.voxel_size, rng=self.rng)
         # T = R_poseA^T R_poseB (the poses are row-major rigid matrices)
         T = np.asarray(meta.poseA)[:3, :3].T @ np.asarray(meta.poseB)[:3, :3]
-        inputA = np.array([self._preprocess(p) for p in rawA])
-        inputB = np.array([self._preprocess(p) for p in rawB])
+        R_aug_src = R_aug_tgt = None
+        if not self.opt.no_augmentation:
+            _, R_aug_src = pctk.rotate_point_cloud(None, max_degree=30,
+                                                   rng=self.rng)
+            _, R_aug_tgt = pctk.rotate_point_cloud(None, max_degree=30,
+                                                   rng=self.rng)
+        inputA = np.array([self._preprocess(p, R_aug_src) for p in rawA])
+        inputB = np.array([self._preprocess(p, R_aug_tgt) for p in rawB])
         return {'src': inputA.astype(np.float32),
                 'tgt': inputB.astype(np.float32),
                 'frag_src': pcdA, 'frag_tgt': pcdB,
                 'T': T.astype(np.float32), 'fn': meta.id}
 
-    def _preprocess(self, pc):
+    def _preprocess(self, pc, R_aug=None):
         _, pc = pctk.uniform_resample_np(pc, self.input_num, rng=self.rng)
+        if R_aug is not None:
+            pc, _ = pctk.rotate_point_cloud(pc, R_aug)
         return pc
 
 

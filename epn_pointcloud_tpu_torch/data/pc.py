@@ -34,18 +34,28 @@ def normalize_np(pc):
     return pc / var.max(axis=1, keepdims=True)
 
 
-def rotate_point_cloud(data, R, rng: np.random.RandomState):
-    """Rotate data [n, 3] by R (a matrix or Euler angles), or by a random
-    SO(3) rotation drawn from ``rng`` when R is None; returns
-    (rotated [n, 3], R [3, 3])."""
+def rotate_point_cloud(data, R=None, max_degree=None, rng=None):
+    """Rotate data [n, 3] (or None: the rotation alone) by R (a matrix or
+    Euler angles); without R by Euler angles of whole degrees below
+    ``max_degree`` (one draw of three from ``rng``), or else by a random
+    SO(3) rotation (drawn from ``rng`` where it is a RandomState); returns
+    (rotated [n, 3] or None, R [3, 3]). ``rng`` defaults to numpy's global
+    state (JAX ``data/pc.py:53-76``)."""
+    rng = rng or np.random
     if R is None:
-        R = sciR.random(random_state=rng).as_matrix()
+        if max_degree is not None:
+            R = rng.randint(0, max_degree, 3) * np.pi / 180.0
+        else:
+            R = sciR.random(random_state=rng if isinstance(
+                rng, np.random.RandomState) else None).as_matrix()
     if isinstance(R, list) or np.asarray(R).ndim == 1:
         rotation_matrix = R_from_euler_np(np.asarray(R))
     else:
         R = np.asarray(R)
         assert R.shape[0] >= 3 and R.shape[1] >= 3
         rotation_matrix = R[:3, :3]
+    if data is None:
+        return None, rotation_matrix
     rotated = (rotation_matrix @ data.reshape(-1, 3).T).T
     return rotated, rotation_matrix
 

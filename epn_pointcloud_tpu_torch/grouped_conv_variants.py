@@ -172,7 +172,8 @@ def main(argv=None):
             return lambda: _launch(
                 lib, 'epn_grouped_conv_tail', x.data_ptr(), W.data_ptr(),
                 bias.data_ptr(), ssk.data_ptr(), y.data_ptr(), ssm.data_ptr(),
-                out.data_ptr(), b, p, na, c, d, 0, 2 * L, 1, stream())
+                out.data_ptr(), b, p, na, c, d, 0, 2 * L, build.LEAKY_SLOPE,
+                1, stream())
         rec = {'no_stores_ms': time_ms(tail(libs['no_stores']))}
         return rec, {n: tail(libs[n]) for n in ('built', 'parent')
                      if n in libs}

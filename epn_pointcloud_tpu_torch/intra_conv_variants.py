@@ -194,7 +194,8 @@ _SGEMM_FMA = ('for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], '
               'acc[i][j]);')
 _SGEMM_LOAD = ('      load_slice<E, PRE, BN>(W, s_trace, a_pt, a_ss, '
                'a_anchor, (s + 1) * BK,\n'
-               '                             tid, K, C, D, n0, L, ra, rb);\n')
+               '                             tid, K, C, D, n0, L, slope, '
+               'ra, rb);\n')
 _SGEMM_STORE = ('    if (s + 1 < n_slices) store_slice<BN>(As[buf ^ 1], '
                 'Bs[buf ^ 1], tid, ra, rb);\n')
 _FWDF_FMA = 'acc[t][j] = fmaf(xv[i], w[i][j], acc[t][j]);'
@@ -353,8 +354,8 @@ def _fwd(fns, dev, card, stream, ti, time_ms):
                     head = (f.data_ptr(), ti.data_ptr(), W.data_ptr())
                     tail = (out.data_ptr(), b, p, 60, 12, c, c)
                     args = head + (ss.data_ptr(),) + tail + (
-                        2 * 60 * c if sb > 1 else 0,)
-                    plain_args = head + (0,) + tail + (0,)
+                        2 * 60 * c if sb > 1 else 0, build.LEAKY_SLOPE)
+                    plain_args = head + (0,) + tail + (0, build.LEAKY_SLOPE)
                     entry = 'epn_intra_conv_mma'
                     want = intra_conv.intra_conv_prenorm_plain(f, ss, ti, W)
                 else:
@@ -366,7 +367,8 @@ def _fwd(fns, dev, card, stream, ti, time_ms):
                     args = (dout.data_ptr(), inv.data_ptr(), Wt.data_ptr(),
                             f.data_ptr(), ss.data_ptr(), out.data_ptr(),
                             ws.data_ptr(), dss[0].data_ptr(),
-                            dss[1].data_ptr(), b, p, 60, 12, c, c, sb)
+                            dss[1].data_ptr(), b, p, 60, 12, c, c, sb,
+                            build.LEAKY_SLOPE)
                     entry = 'epn_intra_conv_prenorm_df_mma'
                     want = intra_conv.intra_conv_prenorm_df_plain(
                         dout, f, ss, ti, W)[0]
@@ -422,7 +424,8 @@ def _dw(fns, dev, card, stream, ti, time_ms):
                 bufs[mma] = (ws, (f.data_ptr(), ti.data_ptr(), ss.data_ptr(),
                                   dout.data_ptr(), ws.data_ptr(),
                                   dW.data_ptr(), b, p, 60, 12, c, c,
-                                  2 * 60 * c if sb > 1 else 0, splits)
+                                  2 * 60 * c if sb > 1 else 0,
+                                  build.LEAKY_SLOPE, splits)
                              + ((rows,) if mma else (1,)))
 
             def call(n):
@@ -482,8 +485,9 @@ def _dw_f32(fns, dev, card, stream, ti, time_ms):
                 ws = torch.empty(splits, 12, c, c, device=dev)
                 bufs[f32] = (ws, (f.data_ptr(), ti.data_ptr(), 0,
                                   dout.data_ptr(), ws.data_ptr(),
-                                  dW.data_ptr(), b, p, 60, 12, c, c, 0,
-                                  splits) + ((rows,) if f32 else (0,)))
+                                  dW.data_ptr(), b, p, 60, 12, c, c, 0)
+                             + ((splits, rows) if f32 else
+                                (build.LEAKY_SLOPE, splits, 0)))
 
             def call(n):
                 fn = (fns['built']['epn_intra_conv_bwd_w'] if n == 'sgemm'
@@ -550,7 +554,8 @@ def _fwd_f32(fns, dev, card, stream, time_ms):
                           else fns[n]['epn_intra_conv'] if
                           n.startswith('fwd_sgemm') else
                           fns[n]['epn_intra_conv_f32'])
-                    tail = (0,) if n.startswith('fwd_sgemm') else ()
+                    tail = ((build.LEAKY_SLOPE, 0) if n.startswith('fwd_sgemm')
+                            else ())
 
                     def run():
                         err = fn(*args, *tail, stream)

@@ -29,6 +29,17 @@ matmuls outside any TPU kernel in the JAX package. In bf16 the pair head is
 fp32 after its PointNet (whose concat with the fp32 coordinates promotes
 the bf16 features), as in the JAX package; ``SO3OutBlockR``'s 1x1 convs
 run in the features' type.
+
+The heads no builder uses: ``ClsOutBlockR`` (``heads.py:25-78``: 1x1
+convs + BatchNorm + ReLU, the mean over the points, intra conv blocks at
+60 anchors with 1x1-conv skips on that one-point field, the anchor pooling
+-- mean, debug, max, the ground-truth label's one-hot, or attention* --
+and fc layers), ``InvOutBlockR`` (``heads.py:145-180``: 1x1 convs with
+InstanceNorm + ReLU between them, the anchor pooling, L2 normalization)
+and ``InvOutBlockPointnet`` (``heads.py:183-211``: PointnetSO3Conv, the
+anchor pooling, L2 normalization of the descriptor and of the per-anchor
+field). Each raises for a pooling mode the JAX head does not take, at its
+call as there.
 """
 
 from __future__ import annotations
@@ -40,7 +51,8 @@ from torch import nn
 
 from ..ops import so3conv
 from ..ops.so3conv import SphericalPointCloud
-from .layers import BatchNorm, Dense1x1, PointnetSO3Conv
+from .blocks import IntraSO3ConvBlock
+from .layers import BatchNorm, Dense1x1, InstanceNorm, PointnetSO3Conv
 
 
 POOLINGS = ('max', 'mean', 'debug')
@@ -176,3 +188,167 @@ class RelSO3OutBlockR(nn.Module):
         att = self.attention_layer(x_out).squeeze(-1)           # [b, na, na]
         return (torch.softmax(att * self.temperature, dim=1),
                 self.regressor_layer(x_out))
+
+
+def _l2n(v: torch.Tensor, dim: int) -> torch.Tensor:
+    return v / v.norm(dim=dim, keepdim=True).clamp(min=1e-12)
+
+
+class ClsOutBlockR(nn.Module):
+    """Legacy classification head: feats [b, p, a, c] (, label [b] the
+    rotation label of the ground-truth attention branch) -> (logits [b, k],
+    the mlp's field squeezed, or the attention logits).
+
+    Modules: ``linear.{t}`` / ``norm.{t}`` (the mlp's 1x1 convs and
+    BatchNorms), ``intra.{j}`` (IntraSO3ConvBlock, ReLU by default),
+    ``skipconnection.{j}`` / ``skip_norm.{j}`` (each intra's 1x1-conv skip
+    and its BatchNorm), ``attention_layer`` (attention pooling: 1 logit an
+    anchor for 'attention', one a channel for the other attention modes),
+    ``fc1.{t}`` and ``fc2``."""
+
+    def __init__(self, params: Dict[str, Any]):
+        super().__init__()
+        p = params
+        self.pooling = p.get('pooling', 'max')
+        self.temperature = p.get('temperature')
+        self.kanchor = p.get('kanchor', 1)
+        c_in = p['dim_in']
+        self.linear, self.norm = nn.ModuleList(), nn.ModuleList()
+        for c in p['mlp']:
+            self.linear.append(Dense1x1(c_in, c))
+            self.norm.append(BatchNorm(c))
+            c_in = c
+        self.intra = nn.ModuleList()
+        self.skipconnection = nn.ModuleList()
+        self.skip_norm = nn.ModuleList()
+        for ip in p.get('intra', []):
+            args = ip['args']
+            self.intra.append(IntraSO3ConvBlock(**args))
+            self.skipconnection.append(Dense1x1(c_in, args['dim_out']))
+            self.skip_norm.append(BatchNorm(args['dim_out']))
+            c_in = args['dim_out']
+        if self.pooling.startswith('attention'):
+            self.attention_layer = Dense1x1(
+                c_in, 1 if self.pooling == 'attention' else c_in, 'conv1d')
+        self.fc1 = nn.ModuleList()
+        for c in p['fc']:
+            self.fc1.append(Dense1x1(c_in, c, 'linear'))
+            c_in = c
+        self.fc2 = Dense1x1(c_in, p['k'], 'linear')
+
+    def forward(self, feats: torch.Tensor, label=None):
+        x = so3conv.unpack_feats(feats, self.kanchor)
+        for lin, bn in zip(self.linear, self.norm):
+            x = torch.relu(bn(lin(x), kernel_stats=False))
+        out_feat = x
+        x = x.mean(dim=1, keepdim=True)              # [b, 1, a, c]
+        for intra, skip_lin, skip_bn in zip(self.intra, self.skipconnection,
+                                            self.skip_norm):
+            x_sp = intra(SphericalPointCloud(None, x, None))
+            skip = torch.relu(skip_bn(skip_lin(x), kernel_stats=False))
+            x = x_sp.feats + skip
+        if self.pooling == 'mean':
+            x = x.mean(dim=2).mean(dim=1)
+        elif self.pooling == 'debug':
+            x = x[:, :, 0].mean(dim=1)
+        elif self.pooling == 'max':
+            x = x.mean(dim=1).max(dim=1).values
+        elif label is not None:
+            # the ground-truth attention branch: the label's anchor
+            x = x.mean(dim=1)                        # [b, a, c]
+            label = label.reshape(label.shape[0], -1).squeeze()
+            conf = torch.nn.functional.one_hot(
+                label.long(), x.shape[1]).to(torch.float32)
+            x = (x * conf[..., None]).sum(dim=1)
+        elif self.pooling.startswith('attention'):
+            x = x.mean(dim=1)                        # [b, a, c]
+            att = self.attention_layer(x)            # [b, a, 1 or c]
+            out_feat = att
+            conf = torch.softmax(att * self.temperature, dim=1)
+            x = (x * conf).sum(dim=1)
+        else:
+            raise NotImplementedError(f'Pooling mode {self.pooling}')
+        for fc in self.fc1:
+            x = torch.relu(fc(x))
+        return self.fc2(x), out_feat.squeeze()
+
+
+class InvOutBlockR(nn.Module):
+    """Invariant descriptor head, conv form: feats [b, p, a, c] ->
+    (descriptor [b, c_out] of unit length, the per-anchor field [b, a, c],
+    or the attention's softmax [b, a]). Modules ``linear.{t}`` (1x1 convs;
+    InstanceNorm + ReLU between them) and ``attention_layer``."""
+
+    def __init__(self, params: Dict[str, Any]):
+        super().__init__()
+        p = params
+        self.pooling = p.get('pooling', 'max')
+        self.temperature = p.get('temperature')
+        self.kanchor = p.get('kanchor', 1)
+        c_in = p['dim_in']
+        self.linear = nn.ModuleList()
+        for c in p['mlp']:
+            self.linear.append(Dense1x1(c_in, c))
+            c_in = c
+        self.norm = InstanceNorm()
+        if self.pooling == 'attention':
+            self.attention_layer = Dense1x1(c_in, 1, 'conv1d')
+
+    def forward(self, feats: torch.Tensor):
+        x = so3conv.unpack_feats(feats, self.kanchor)
+        for i, lin in enumerate(self.linear):
+            x = lin(x)
+            if i != len(self.linear) - 1:
+                x = torch.relu(self.norm(x))
+        out_feat = x.mean(dim=1)                     # [b, a, c]
+        if self.pooling == 'mean':
+            x = x.mean(dim=2).mean(dim=1)
+        elif self.pooling == 'debug':
+            x = x[:, :, 0].mean(dim=1)
+        elif self.pooling == 'max':
+            x = x.mean(dim=1).max(dim=1).values
+        elif self.pooling == 'attention':
+            x = x.mean(dim=1)
+            att = self.attention_layer(x)            # [b, a, 1]
+            conf = torch.softmax(att * self.temperature, dim=1)
+            x = (x * conf).sum(dim=1)
+            out_feat = conf.squeeze(-1)
+        else:
+            raise NotImplementedError(f'Pooling mode {self.pooling}')
+        return _l2n(x, 1), out_feat
+
+
+class InvOutBlockPointnet(nn.Module):
+    """Invariant descriptor head, PointNet form: SphericalPointCloud ->
+    (descriptor [b, c_out] of unit length, the per-anchor field [b, a,
+    c_out] L2-normalized over its channels). Modules ``pointnet`` and
+    ``attention_layer``."""
+
+    def __init__(self, params: Dict[str, Any]):
+        super().__init__()
+        p = params
+        self.pooling = p.get('pooling', 'max')
+        self.temperature = p.get('temperature')
+        self.kanchor = p['kanchor']
+        c_out = p['mlp'][-1]
+        self.pointnet = PointnetSO3Conv(p['dim_in'], c_out, self.kanchor)
+        if self.pooling == 'attention':
+            self.attention_layer = Dense1x1(c_out, 1, 'conv1d')
+
+    def forward(self, x: SphericalPointCloud):
+        x = SphericalPointCloud(x.xyz, so3conv.unpack_feats(x.feats,
+                                                            self.kanchor),
+                                x.anchors)
+        x_out = self.pointnet(x)                     # [b, a, c]
+        out_feat = x_out
+        if self.pooling == 'mean':
+            x_out = x_out.mean(dim=1)
+        elif self.pooling == 'max':
+            x_out = x_out.max(dim=1).values
+        elif self.pooling == 'attention':
+            att = self.attention_layer(x_out)
+            conf = torch.softmax(att * self.temperature, dim=1)
+            x_out = (x_out * conf).sum(dim=1)
+        else:
+            raise NotImplementedError(f'Pooling mode {self.pooling}')
+        return _l2n(x_out, 1), _l2n(out_feat, -1)

@@ -22,12 +22,13 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import icosahedron, kernel_points, so3conv
+from ..ops import icosahedron, kernel_points, sampling, so3conv
 from ..ops.kernels.build import LEAKY_SLOPE, widen
 from ..ops.kernels.moments import moments_plain
 from ..ops.so3conv import SphericalPointCloud
@@ -41,11 +42,85 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, LEAKY_SLOPE)
 
 
-def get_activation(name: str):
-    if name != 'leaky_relu':
-        raise NotImplementedError(f'activation {name!r} is not ported '
-                                  f'(the builder uses leaky_relu)')
-    return leaky_relu
+# jax.nn's elementwise activations written as JAX writes them where torch's
+# own function takes another subgradient at a kink (hard_tanh: 1 at +-1,
+# torch's 0; hard_silu: x * hard_sigmoid(x), 0 at -3 and 1 at 3, torch's
+# hardswish -0.5 and 1.5) or where torch has none; torch.maximum and
+# torch.minimum split a tie's gradient in halves, as jnp's do
+def _hard_tanh(x):
+    return torch.where(x > 1, x.new_ones(()), torch.where(
+        x < -1, -x.new_ones(()), x))
+
+
+def _hard_silu(x):
+    return x * F.hardsigmoid(x)
+
+
+def _sparse_plus(x):
+    return torch.where(x <= -1.0, x.new_zeros(()),
+                       torch.where(x >= 1.0, x, (x + 1.0) ** 2 / 4))
+
+
+def _sparse_sigmoid(x):
+    return 0.5 * torch.minimum(torch.maximum(x + 1.0, x.new_zeros(())),
+                               x.new_full((), 2.0))
+
+
+def _squareplus(x):
+    return (x + torch.sqrt(x * x + 4)) / 2
+
+
+def _log1mexp(x):
+    return torch.where(x < math.log(2.0), torch.log(-torch.expm1(-x)),
+                       torch.log1p(-torch.exp(-x)))
+
+
+def _identity(x):
+    return x
+
+
+# every elementwise activation of jax.nn (0.9.0) by its name there, the
+# torch function of the same formula (jax.nn.gelu's default is its tanh
+# approximation)
+ACTIVATIONS = {
+    'relu': torch.relu, 'relu6': F.relu6, 'elu': F.elu, 'selu': F.selu,
+    'celu': F.celu, 'gelu': functools.partial(F.gelu, approximate='tanh'),
+    'silu': F.silu, 'swish': F.silu, 'sigmoid': torch.sigmoid,
+    'tanh': torch.tanh, 'softplus': F.softplus, 'soft_sign': F.softsign,
+    'log_sigmoid': F.logsigmoid, 'hard_sigmoid': F.hardsigmoid,
+    'hard_silu': _hard_silu, 'hard_swish': _hard_silu,
+    'hard_tanh': _hard_tanh, 'mish': F.mish, 'identity': _identity,
+    'sparse_plus': _sparse_plus, 'sparse_sigmoid': _sparse_sigmoid,
+    'squareplus': _squareplus, 'log1mexp': _log1mexp,
+}
+# the other names of jax.nn, which are no elementwise activation: each
+# normalizes or reduces over an axis, reshapes it, or takes other operands
+REFUSED_ACTIVATIONS = ('softmax', 'log_softmax', 'glu', 'standardize',
+                       'one_hot', 'logsumexp', 'logmeanexp',
+                       'dot_product_attention', 'scaled_dot_general',
+                       'scaled_matmul', 'get_scaled_dot_general_config',
+                       'initializers')
+
+
+def get_activation(name: Optional[str]):
+    """The activation a block names (JAX ``nn/layers.py:get_activation``):
+    None for None or 'none', torch's leaky ReLU for 'leaky_relu', else the
+    elementwise jax.nn function of that name (``ACTIVATIONS``). The names
+    of jax.nn that are no elementwise activation raise NotImplementedError;
+    any other name raises AttributeError, as ``getattr(jax.nn, name)``
+    does."""
+    if name is None or name == 'none':
+        return None
+    if name == 'leaky_relu':
+        return leaky_relu
+    if name in ACTIVATIONS:
+        return ACTIVATIONS[name]
+    if name in REFUSED_ACTIVATIONS:
+        raise NotImplementedError(
+            f'activation {name!r}: not an elementwise function of a feature '
+            f'(it normalizes or reduces over an axis, reshapes it, or takes '
+            f'other operands), so no block applies it; refused on purpose')
+    raise AttributeError(f'jax.nn has no activation {name!r}')
 
 
 class Dropout(nn.Module):
@@ -332,16 +407,22 @@ def _like(kind: str, arg, param: torch.Tensor) -> torch.Tensor:
 
 class InterSO3Conv(nn.Module):
     """Spatial SO(3)-anchor conv: ball grouping + anchor-rotated kernel
-    weights + learned conv product (fused path of the JAX package), at
-    kanchor 60, 40, 20 or 1 (the anchor subsets of ``select_anchors``)."""
+    weights + learned conv product, at kanchor 60, 40, 20 or 1 (the anchor
+    subsets of ``select_anchors``). As in the JAX package
+    (``nn/layers.py:578-607``) it runs the fused path unless ``pooling`` is
+    set ('stride' or 'no-stride') or a cached grouping is handed in: then
+    the unfused path (``so3conv.inter_so3conv_grouping``: the blur, the
+    grouping, the W-off F) and the learned product as a torch matmul."""
 
     def __init__(self, dim_in: int, dim_out: int, kernel_size: int,
                  stride: int, radius: float, sigma: float, n_neighbor: int,
-                 lazy_sample: bool = True, kanchor: int = 60):
+                 lazy_sample: bool = True, kanchor: int = 60,
+                 pooling: Optional[str] = None):
         super().__init__()
         self.stride, self.radius, self.sigma = stride, radius, sigma
         self.n_neighbor, self.lazy_sample = n_neighbor, lazy_sample
         self.kernel_size, self.kanchor = kernel_size, kanchor
+        self.pooling = None if pooling in (None, 'none') else pooling
         self.basic_conv = BasicSO3Conv(
             dim_in, dim_out,
             kernel_points.KERNEL_SIZE_TO_NPOINTS[kernel_size])
@@ -355,7 +436,11 @@ class InterSO3Conv(nn.Module):
         return _like('kernels', (self.radius, self.kernel_size),
                      self.basic_conv.W)
 
-    def forward(self, x: SphericalPointCloud, ones_input: bool = False):
+    def forward(self, x: SphericalPointCloud, ones_input: bool = False,
+                cache: Optional[so3conv.GroupingCache] = None):
+        """cache: the block's shared grouping (``so3conv.GroupingCache``):
+        an unfused conv reuses the one it holds and leaves its own there, a
+        fused one leaves None."""
         if x.feats.shape[-1] != self.basic_conv.dim_in:
             # a 6-channel cloud's 4 occupancy channels (ones and the rotated
             # normals) against the builder's dim_in = 1: the JAX package's
@@ -370,11 +455,21 @@ class InterSO3Conv(nn.Module):
                 f'and rotated normal channels with one weight (a broadcast '
                 f'at its ops/so3conv.py:626), a function the original EPN '
                 f'does not define (ROADMAP section C)')
-        _, xyz, feats, sample_idx = so3conv.inter_so3conv_fused(
-            x.xyz, x.feats, self.stride, self.n_neighbor, self.anchors,
-            self.kernels, self.radius, self.sigma,
-            self.basic_conv.weight_kcd(), lazy_sample=self.lazy_sample,
-            ones_input=ones_input)
+        grouping = None if cache is None else cache.grouping
+        if self.pooling is None and grouping is None:
+            _, xyz, feats, sample_idx = so3conv.inter_so3conv_fused(
+                x.xyz, x.feats, self.stride, self.n_neighbor, self.anchors,
+                self.kernels, self.radius, self.sigma,
+                self.basic_conv.weight_kcd(), lazy_sample=self.lazy_sample,
+                ones_input=ones_input)
+        else:
+            grouping, xyz, F, sample_idx = so3conv.inter_so3conv_grouping(
+                x.xyz, x.feats, self.stride, self.n_neighbor, self.anchors,
+                self.kernels, self.radius, self.sigma, grouping,
+                self.lazy_sample, self.pooling, ones_input)
+            feats = so3conv.conv_product(F, self.basic_conv.weight_kcd())
+        if cache is not None:
+            cache.grouping = grouping
         return sample_idx, SphericalPointCloud(xyz, feats, self.anchors)
 
 
@@ -398,13 +493,14 @@ class IntraSO3Conv(nn.Module):
     def anchors(self) -> torch.Tensor:
         return _like('anchors', 60, self.basic_conv.W)
 
-    def forward(self, x: SphericalPointCloud,
-                prenorm=None) -> SphericalPointCloud:
+    def forward(self, x: SphericalPointCloud, prenorm=None,
+                slope: float = LEAKY_SLOPE) -> SphericalPointCloud:
         """prenorm: the preceding norm folded to fp32 lanes [1 or b, 2,
-        60*c], applied with the leaky ReLU on load (production mode)."""
+        60*c], applied on load with the preceding activation, the leaky
+        ReLU of ``slope`` (production mode)."""
         out = so3conv.intra_so3conv(x.feats, self.trace_idx, self.inv_idx,
                                     self.basic_conv.weight_kcd(),
-                                    prenorm=prenorm)
+                                    prenorm=prenorm, slope=slope)
         return SphericalPointCloud(x.xyz, out, self.anchors)
 
 
@@ -431,6 +527,49 @@ class PointnetSO3Conv(nn.Module):
         # fp32 from here on in both modes (the JAX concat promotes bf16)
         feats = self.embed(torch.cat([widen(x.feats), xyzr], dim=-1))
         return feats.max(dim=1).values
+
+
+class KernelPropagation(nn.Module):
+    """Fragment -> anchor features (JAX ``nn/layers.py:637-668``): the
+    density-weighted anchor occupancy of a raw fragment around each center
+    (``so3conv.initial_anchor_query``), divided by the in-radius count + 1,
+    through a BasicSO3Conv of the (anchor, kernel point) weights. The
+    centers are the clouds themselves when they hold ``n_center`` points,
+    else their furthest-point samples (the fps kernel, not lazy)."""
+
+    def __init__(self, dim_in: int, dim_out: int, n_center: int,
+                 kernel_size: int, radius: float, sigma: float,
+                 kanchor: int = 60):
+        super().__init__()
+        self.n_center, self.kernel_size = n_center, kernel_size
+        self.radius, self.sigma, self.kanchor = radius, sigma, kanchor
+        self.basic_conv = BasicSO3Conv(
+            dim_in, dim_out,
+            kernel_points.KERNEL_SIZE_TO_NPOINTS[kernel_size])
+
+    @property
+    def anchors(self) -> torch.Tensor:
+        return _like('anchors', self.kanchor, self.basic_conv.W)
+
+    def forward(self, frag: torch.Tensor,
+                clouds: torch.Tensor) -> SphericalPointCloud:
+        """frag [m, 3], clouds [b, p, 3] -> the field [b, n_center, na,
+        dim_out] over the centers."""
+        anchors = self.anchors
+        kernels_ = _like('kernels', (self.radius, self.kernel_size),
+                         self.basic_conv.W)
+        rk = torch.einsum('aij,kj->kai', anchors, kernels_)  # [ks, na, 3]
+        if clouds.shape[1] == self.n_center:
+            centers = clouds
+        else:
+            _, centers = sampling.furthest_sample(clouds, self.n_center,
+                                                  False)
+        wts, cnt = so3conv.initial_anchor_query(frag, centers, rk,
+                                                self.radius, self.sigma)
+        wts = wts / (cnt + 1.0)                           # [b, nc, na, ks]
+        feats = torch.einsum('bpakc,kcd->bpad', wts[..., None],
+                             self.basic_conv.weight_kcd())
+        return SphericalPointCloud(centers, feats, anchors)
 
 
 def init_parameters(module: nn.Module, gen: torch.Generator) -> None:

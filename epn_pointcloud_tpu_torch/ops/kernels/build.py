@@ -69,13 +69,14 @@ SIGNATURES = {
     # stream
     'epn_inter_conv_dg': [_P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    # f, trace_idx, w, ss, out, b, p, na, k, c, d, ss_stride, bf16, stream
-    'epn_intra_conv': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _P],
-    # f, trace_idx, w, ss, out, b, p, na, k, c, d, ss_stride, stream (bf16
-    # on tensor cores)
+    # f, trace_idx, w, ss, out, b, p, na, k, c, d, ss_stride, slope, bf16,
+    # stream
+    'epn_intra_conv': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                       _I, _P],
+    # f, trace_idx, w, ss, out, b, p, na, k, c, d, ss_stride, slope, stream
+    # (bf16 on tensor cores)
     'epn_intra_conv_mma': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _P],
+                           _F, _P],
     # f, trace_idx, w, ss (null), out, b, p, na, k, c, d, ss_stride, stream
     # (fp32 on the CUDA cores)
     'epn_intra_conv_f32': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -87,9 +88,9 @@ SIGNATURES = {
     # x, w, bias, out, rows, c, d, bf16, stream
     'epn_grouped_conv': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w, bias, ssk, y, ssm, out, b, p, na, c, d, ssk_stride, ssm_stride,
-    # bf16, stream
+    # slope, bf16, stream
     'epn_grouped_conv_tail': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _P],
+                              _I, _I, _F, _I, _P],
     # gx, idx, rk, k2, w, dout, d_table, b, p2, nn, q, na, k, c, d, sigma,
     # bf16, stream
     'epn_inter_conv_bwd_table': [_P, _P, _P, _P, _P, _P, _P,
@@ -122,26 +123,26 @@ SIGNATURES = {
     # sigma, splits, bn, stream (fp32 on the CUDA cores)
     'epn_inter_conv_bwd_w_f32': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    # f, trace_idx, ss, dout, ws, d_w, b, p, na, k, c, d, ss_stride, splits,
-    # bf16, stream
+    # f, trace_idx, ss, dout, ws, d_w, b, p, na, k, c, d, ss_stride, slope,
+    # splits, bf16, stream
     'epn_intra_conv_bwd_w': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _P],
-    # f, trace_idx, ss, dout, ws, d_w, b, p, na, k, c, d, ss_stride, splits,
-    # rows_per_split, stream (bf16 on tensor cores)
+                             _I, _F, _I, _I, _P],
+    # f, trace_idx, ss, dout, ws, d_w, b, p, na, k, c, d, ss_stride, slope,
+    # splits, rows_per_split, stream (bf16 on tensor cores)
     'epn_intra_conv_bwd_w_mma': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _I, _I, _P],
+                                 _I, _I, _F, _I, _I, _P],
     # f, trace_idx, ss (null), dout, ws, d_w, b, p, na, k, c, d, ss_stride,
     # splits, rows_per_split, stream (fp32 on the CUDA cores)
     'epn_intra_conv_bwd_w_f32': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _P],
     # dout, inv_idx, w_t, x, ss, df, ws, d_scale, d_shift, b, p, na, k, c, d,
-    # ss_batch, bf16, stream
+    # ss_batch, slope, bf16, stream
     'epn_intra_conv_prenorm_df': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _P],
+                                  _I, _I, _I, _I, _I, _F, _I, _P],
     # dout, inv_idx, w_t, x, ss, df, ws, d_scale, d_shift, b, p, na, k, c, d,
-    # ss_batch, stream (bf16 on tensor cores)
+    # ss_batch, slope, stream (bf16 on tensor cores)
     'epn_intra_conv_prenorm_df_mma': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                      _I, _I, _I, _I, _I, _I, _P],
+                                      _I, _I, _I, _I, _I, _I, _F, _P],
     # x, w, dout, dx, ws, dwb, rows, c, d, splits, parts, bf16, stream
     'epn_grouped_conv_bwd': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _P],
@@ -299,15 +300,19 @@ def dtype_flag(dtype, kernel: str) -> int:
     return int(dtype == torch.bfloat16)
 
 
-# The slope of the model's one activation, the leaky ReLU; the kernels hold
-# the same value as ``kLeakySlope`` (csrc/elem.cuh).
+# The activations the kernels apply (the prenorm intra conv, its backward
+# and the fused tail), each the leaky ReLU of a slope with the mask u > 0
+# (``epn::leaky``, csrc/elem.cuh), which the kernels take as a launch
+# argument: the leaky ReLU's 0.01 and the ReLU's 0 (whose gradient at 0 is
+# 0, as jax.nn.relu's).
 LEAKY_SLOPE = 0.01
+ACT_SLOPES = {'leaky_relu': LEAKY_SLOPE, 'relu': 0.0}
 
 
-def leaky(u):
-    """The leaky ReLU with the kernels' mask ``u > 0``."""
+def leaky(u, slope: float = LEAKY_SLOPE):
+    """The leaky ReLU of ``slope`` with the kernels' mask ``u > 0``."""
     import torch
-    return torch.where(u > 0, u, LEAKY_SLOPE * u)
+    return torch.where(u > 0, u, slope * u)
 
 
 def widen(t):

@@ -13,7 +13,8 @@ with one [c, d] weight for every anchor. In the tail, ``y`` is the raw
 intra conv output and ``ssm`` its InstanceNorm folded to per-lane
 scale/shift (rows 0 and 1 of [b, 2, na*d]), ``ssk`` the eval BatchNorm of
 the skip branch folded the same way ([1, 2, na*d], broadcast over the
-batch), act the leaky ReLU with mask ``u > 0``. Both compute in fp32 from
+batch), act the leaky ReLU of a slope with mask ``u > 0`` (0.01; 0 for the
+ReLU: ``build.ACT_SLOPES``, a launch argument of the kernel). Both compute in fp32 from
 fp32 or bf16 operands and round once to the operand type; bias and the
 folds are fp32. The plain conv has a backward, replacing ``_gc_bwd`` ->
 ``_bwd_kernel`` (``GroupedConvFn``), one kernel as the TPU body is:
@@ -61,13 +62,16 @@ def grouped_conv_plain(x: torch.Tensor, W: torch.Tensor,
 
 def grouped_conv_tail_plain(x: torch.Tensor, W: torch.Tensor,
                             bias: torch.Tensor, ssk: torch.Tensor,
-                            y: torch.Tensor, ssm: torch.Tensor) -> torch.Tensor:
+                            y: torch.Tensor, ssm: torch.Tensor,
+                            slope: float = build.LEAKY_SLOPE) -> torch.Tensor:
     """x [b, p, na, c], W [c, d], bias [d], ssk [1 or b, 2, na*d], y
-    [b, p, na, d], ssm [1 or b, 2, na*d] -> [b, p, na, d] (x's type)."""
+    [b, p, na, d], ssm [1 or b, 2, na*d] -> [b, p, na, d] (x's type); act
+    the leaky ReLU of ``slope``."""
     b, p, na, d = y.shape
-    sk = build.leaky(_conv_f32(x, W, bias) * ssk[:, 0:1] + ssk[:, 1:2])
+    sk = build.leaky(_conv_f32(x, W, bias) * ssk[:, 0:1] + ssk[:, 1:2],
+                     slope)
     ym = build.leaky(build.widen(y).reshape(b, p, na * d) * ssm[:, 0:1]
-                     + ssm[:, 1:2])
+                     + ssm[:, 1:2], slope)
     return (ym + sk).to(x.dtype).reshape(b, p, na, d)
 
 
@@ -124,11 +128,12 @@ def grouped_conv(x: torch.Tensor, W: torch.Tensor,
 
 
 def grouped_conv_tail(x: torch.Tensor, W: torch.Tensor, bias: torch.Tensor,
-                      ssk: torch.Tensor, y: torch.Tensor,
-                      ssm: torch.Tensor) -> torch.Tensor:
-    """Kernel wrapper: plain version on the CPU, CUDA kernel on the card."""
+                      ssk: torch.Tensor, y: torch.Tensor, ssm: torch.Tensor,
+                      slope: float = build.LEAKY_SLOPE) -> torch.Tensor:
+    """Kernel wrapper (act the leaky ReLU of ``slope``): plain version on
+    the CPU, CUDA kernel on the card."""
     if x.device.type == 'cpu':
-        return grouped_conv_tail_plain(x, W, bias, ssk, y, ssm)
+        return grouped_conv_tail_plain(x, W, bias, ssk, y, ssm, slope)
     dev, b, p, na, c, d, bf16 = _check('grouped_conv_tail', x, W, bias)
     L = na * d
     sb, mb = ssk.shape[0], ssm.shape[0]
@@ -144,7 +149,7 @@ def grouped_conv_tail(x: torch.Tensor, W: torch.Tensor, bias: torch.Tensor,
     build.launch('epn_grouped_conv_tail', x.data_ptr(), W.data_ptr(),
                  bias.data_ptr(), ssk.data_ptr(), y.data_ptr(), ssm.data_ptr(),
                  out.data_ptr(), b, p, na, c, d, 0 if sb == 1 else 2 * L,
-                 0 if mb == 1 else 2 * L, bf16,
+                 0 if mb == 1 else 2 * L, slope, bf16,
                  build.stream(x))
     return out
 

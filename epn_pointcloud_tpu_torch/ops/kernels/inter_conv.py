@@ -117,8 +117,9 @@ MMA_MAX_NN, MMA_MIN_NA = 64, 4
 # multiple of the channels (its chunk), of d, neighbors up to
 FWD_F32_NA, FWD_F32_CC, FWD_F32_SD, FWD_F32_MAX_NN = 60, 16, 32, 64
 # the W-off kernels' envelope (the composed layers of the inv and reg
-# models, at any anchor count): channels and neighbors up to
-WOFF_MAX_C, WOFF_MAX_NN = 128, 64
+# models, at any anchor count, and every layer of the unfused grouping
+# path, ``InterFFn``: the cls widths): channels and neighbors up to
+WOFF_MAX_C, WOFF_MAX_NN = 256, 64
 # the bf16 tensor-core backward scatter's envelope (``bwd_mma_route``): the
 # anchors, a multiple of the channels, neighbors up to, a multiple of d
 BWD_MMA_NA, BWD_MMA_CC, BWD_MMA_MAX_NN, BWD_MMA_SD = 60, 16, 64, 32
@@ -729,3 +730,29 @@ class InterConvFn(torch.autograd.Function):
             else:
                 dW = inter_conv_dw(gx, idx, table, rk, k2, dout, sigma)
         return None, None, dT, None, None, dW, None
+
+
+class InterFFn(torch.autograd.Function):
+    """The W-off inter conv F with its hand-written backward: the neighbor
+    contraction of the unfused grouping path (JAX ``inter_so3conv_grouping``
+    -> ``inter_feat_grouping``), whose learned product follows as a torch
+    matmul. The gradient flows to the table only, by the W-off dG (the
+    table's type, from its fp32 sums); gx, idx, rk, k2 and sigma get none,
+    as the grouping's coordinates get none in the JAX package (the
+    contraction's only operand with a gradient there is the gathered
+    table)."""
+
+    @staticmethod
+    def forward(ctx, gx, idx, table, rk, k2, sigma):
+        ctx.save_for_backward(gx, idx, rk, k2)
+        ctx.sigma, ctx.q, ctx.dtype = sigma, table.shape[1], table.dtype
+        return inter_conv_f(gx, idx, table, rk, k2, sigma)
+
+    @staticmethod
+    def backward(ctx, dF):
+        gx, idx, rk, k2 = ctx.saved_tensors
+        dT = None
+        if ctx.needs_input_grad[2]:
+            dT = inter_conv_dg(gx, idx, ctx.q, rk, k2, dF.contiguous(),
+                               ctx.sigma).to(ctx.dtype)
+        return None, None, dT, None, None, None

@@ -23,7 +23,8 @@ preceding inter conv's deferred norm and activation applied on load,
   out = intra_conv(z, W),  z = act(f * scale + shift) rounded to f's type,
 
 with ss = [scale; shift] fp32 lanes [1 or b, 2, na*c] and act the leaky ReLU
-with mask ``u > 0``. Its backward replaces ``_prenorm_bwd`` -> ``_bwd_pallas``
+of a slope with mask ``u > 0`` (``build.leaky``): 0.01 for the leaky ReLU, 0
+for the ReLU (``build.ACT_SLOPES``), a launch argument of the kernels. Its backward replaces ``_prenorm_bwd`` -> ``_bwd_pallas``
 -> ``_bwd_kernel_prenorm`` (``IntraConvPrenormFn``): with u = f * scale +
 shift and dz the df above, never rounded,
 
@@ -207,19 +208,21 @@ def intra_conv_plain(f: torch.Tensor, trace_idx: torch.Tensor,
     return out.reshape(b, p, na, d).to(f.dtype)
 
 
-def prenorm_plain(f: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
+def prenorm_plain(f: torch.Tensor, ss: torch.Tensor,
+                  slope: float = build.LEAKY_SLOPE) -> torch.Tensor:
     """z = act(f * ss[:, 0] + ss[:, 1]) per lane in fp32, rounded to f's
-    type (f [b, p, na, c], ss [1 or b, 2, na*c])."""
+    type (f [b, p, na, c], ss [1 or b, 2, na*c]; act the leaky ReLU of
+    ``slope``)."""
     b, p, na, c = f.shape
     u = build.widen(f).reshape(b, p, na * c) * ss[:, 0:1] + ss[:, 1:2]
-    return build.leaky(u).to(f.dtype).reshape(f.shape)
+    return build.leaky(u, slope).to(f.dtype).reshape(f.shape)
 
 
 def intra_conv_prenorm_plain(f: torch.Tensor, ss: torch.Tensor,
-                             trace_idx: torch.Tensor,
-                             W: torch.Tensor) -> torch.Tensor:
+                             trace_idx: torch.Tensor, W: torch.Tensor,
+                             slope: float = build.LEAKY_SLOPE) -> torch.Tensor:
     """The intra conv of the deferred-norm activation prenorm(f, ss)."""
-    return intra_conv_plain(prenorm_plain(f, ss), trace_idx, W)
+    return intra_conv_plain(prenorm_plain(f, ss, slope), trace_idx, W)
 
 
 def intra_conv_df_plain(dout: torch.Tensor, trace_idx: torch.Tensor,
@@ -245,17 +248,19 @@ def intra_conv_dw_plain(f: torch.Tensor, trace_idx: torch.Tensor,
 
 def intra_conv_prenorm_df_plain(dout: torch.Tensor, f: torch.Tensor,
                                 ss: torch.Tensor, trace_idx: torch.Tensor,
-                                W: torch.Tensor):
+                                W: torch.Tensor,
+                                slope: float = build.LEAKY_SLOPE):
     """(df [b, p, na, c] in f's type, dss fp32 like ss) of the prenorm conv,
     from the formula: dz the scatter df in fp32, never rounded; du = dz *
-    act'(u) with u = f * scale + shift and the mask u > 0; df = du * scale;
+    act'(u) with u = f * scale + shift and the mask u > 0 (slope ``slope``
+    below it); df = du * scale;
     dscale = sum_p du * f and dshift = sum_p du per lane, over the clouds
     too when ss has batch 1."""
     b, p, na, c = f.shape
     dz = intra_conv_df_plain(dout, trace_idx, W).reshape(b, p, na * c)
     fw = build.widen(f).reshape(b, p, na * c)
     u = fw * ss[:, 0:1] + ss[:, 1:2]
-    du = torch.where(u > 0, dz, build.LEAKY_SLOPE * dz)
+    du = torch.where(u > 0, dz, slope * dz)
     df = (du * ss[:, 0:1]).to(f.dtype).reshape(f.shape)
     dss = torch.stack([(du * fw).sum(1), du.sum(1)], dim=1)   # [b, 2, L]
     if ss.shape[0] == 1:
@@ -264,10 +269,11 @@ def intra_conv_prenorm_df_plain(dout: torch.Tensor, f: torch.Tensor,
 
 
 def intra_conv_prenorm_dw_plain(f: torch.Tensor, ss: torch.Tensor,
-                                trace_idx: torch.Tensor,
-                                dout: torch.Tensor) -> torch.Tensor:
+                                trace_idx: torch.Tensor, dout: torch.Tensor,
+                                slope: float = build.LEAKY_SLOPE
+                                ) -> torch.Tensor:
     """dW [K, c, d] of the prenorm conv: the dW of z = prenorm(f, ss)."""
-    return intra_conv_dw_plain(prenorm_plain(f, ss), trace_idx, dout)
+    return intra_conv_dw_plain(prenorm_plain(f, ss, slope), trace_idx, dout)
 
 
 def _want_ss(kernel, want, ss, b, L):
@@ -297,8 +303,9 @@ def _check_shape(kernel, b, p, na, K, c, d):
                          f'na={na} K={K} c={c} d={d}')
 
 
-def _launch_fwd(kernel, f, trace_idx, W, ss):
-    """Checks and launches the forward kernel (ss None: no prenorm)."""
+def _launch_fwd(kernel, f, trace_idx, W, ss, slope=build.LEAKY_SLOPE):
+    """Checks and launches the forward kernel (ss None: no prenorm; slope
+    the prenorm activation's)."""
     dev = f.device
     b, p, na, c = f.shape
     K, d = W.shape[0], W.shape[2]
@@ -317,11 +324,11 @@ def _launch_fwd(kernel, f, trace_idx, W, ss):
     mma = mma_route(f.dtype, na, K, c, d)
     if mma or fwd_f32_route(f.dtype, na, K, c, d, ss is not None):
         routes['mma' if mma else 'fwd_f32'] += 1
-        build.launch('epn_intra_conv_mma' if mma else 'epn_intra_conv_f32',
-                     *ptrs, build.stream(f))
+        build.launch(*(('epn_intra_conv_mma', *ptrs, slope) if mma else
+                       ('epn_intra_conv_f32', *ptrs)), build.stream(f))
     else:
         routes['sgemm'] += 1
-        build.launch('epn_intra_conv', *ptrs, bf16, build.stream(f))
+        build.launch('epn_intra_conv', *ptrs, slope, bf16, build.stream(f))
     return out
 
 
@@ -336,14 +343,15 @@ def intra_conv(f: torch.Tensor, trace_idx: torch.Tensor,
 
 
 def intra_conv_prenorm(f: torch.Tensor, ss: torch.Tensor,
-                       trace_idx: torch.Tensor,
-                       W: torch.Tensor) -> torch.Tensor:
-    """PRENORM forward kernel wrapper: plain version on the CPU, CUDA
-    kernel on the card (the tensor-core kernel where ``mma_route`` holds,
-    else the SGEMM). Both are deterministic (no atomics)."""
+                       trace_idx: torch.Tensor, W: torch.Tensor,
+                       slope: float = build.LEAKY_SLOPE) -> torch.Tensor:
+    """PRENORM forward kernel wrapper (act the leaky ReLU of ``slope``):
+    plain version on the CPU, CUDA kernel on the card (the tensor-core
+    kernel where ``mma_route`` holds, else the SGEMM). Both are
+    deterministic (no atomics)."""
     if f.device.type == 'cpu':
-        return intra_conv_prenorm_plain(f, ss, trace_idx, W)
-    return _launch_fwd('intra_conv_prenorm', f, trace_idx, W, ss)
+        return intra_conv_prenorm_plain(f, ss, trace_idx, W, slope)
+    return _launch_fwd('intra_conv_prenorm', f, trace_idx, W, ss, slope)
 
 
 def intra_conv_df(dout: torch.Tensor, trace_idx: torch.Tensor,
@@ -357,8 +365,9 @@ def intra_conv_df(dout: torch.Tensor, trace_idx: torch.Tensor,
     return intra_conv(dout, inv_idx, W.transpose(1, 2).contiguous())
 
 
-def _launch_dw(kernel, f, trace_idx, dout, ss):
-    """Checks and launches the dW kernel (ss None: no prenorm): the
+def _launch_dw(kernel, f, trace_idx, dout, ss, slope=build.LEAKY_SLOPE):
+    """Checks and launches the dW kernel (ss None: no prenorm; slope the
+    prenorm activation's): the
     tensor-core kernel where ``dw_mma_route`` holds, the fp32 CUDA-core
     kernel where ``dw_f32_route`` does, else the SGEMM; each sums
     per-row-range partials in a fixed order: deterministic."""
@@ -381,16 +390,17 @@ def _launch_dw(kernel, f, trace_idx, dout, ss):
     ptrs = (f.data_ptr(), trace_idx.data_ptr(),
             0 if ss is None else ss.data_ptr(), dout.data_ptr(),
             ws.data_ptr(), dW.data_ptr(), b, p, na, K, c, d,
-            2 * na * c if sb > 1 else 0, splits)
+            2 * na * c if sb > 1 else 0)
     launches[kernel] += 1
     if mma or f32:
         routes['dw_mma' if mma else 'dw_f32'] += 1
-        build.launch('epn_intra_conv_bwd_w_mma' if mma else
-                     'epn_intra_conv_bwd_w_f32', *ptrs, rows,
+        build.launch(*(('epn_intra_conv_bwd_w_mma', *ptrs, slope) if mma else
+                       ('epn_intra_conv_bwd_w_f32', *ptrs)), splits, rows,
                      build.stream(f))
     else:
         routes['dw'] += 1
-        build.launch('epn_intra_conv_bwd_w', *ptrs, bf16, build.stream(f))
+        build.launch('epn_intra_conv_bwd_w', *ptrs, slope, splits, bf16,
+                     build.stream(f))
     return dW
 
 
@@ -405,25 +415,28 @@ def intra_conv_dw(f: torch.Tensor, trace_idx: torch.Tensor,
 
 
 def intra_conv_prenorm_dw(f: torch.Tensor, ss: torch.Tensor,
-                          trace_idx: torch.Tensor,
-                          dout: torch.Tensor) -> torch.Tensor:
-    """B6 dW wrapper (z = prenorm(f, ss) formed from f on the card): plain
-    version on the CPU, CUDA kernel on the card (the tensor-core kernel
-    where ``dw_mma_route`` holds, else the SGEMM)."""
+                          trace_idx: torch.Tensor, dout: torch.Tensor,
+                          slope: float = build.LEAKY_SLOPE) -> torch.Tensor:
+    """B6 dW wrapper (z = prenorm(f, ss) formed from f on the card, act the
+    leaky ReLU of ``slope``): plain version on the CPU, CUDA kernel on the
+    card (the tensor-core kernel where ``dw_mma_route`` holds, else the
+    SGEMM)."""
     if f.device.type == 'cpu':
-        return intra_conv_prenorm_dw_plain(f, ss, trace_idx, dout)
-    return _launch_dw('intra_conv_prenorm_dw', f, trace_idx, dout, ss)
+        return intra_conv_prenorm_dw_plain(f, ss, trace_idx, dout, slope)
+    return _launch_dw('intra_conv_prenorm_dw', f, trace_idx, dout, ss, slope)
 
 
 def intra_conv_prenorm_df(dout: torch.Tensor, f: torch.Tensor,
                           ss: torch.Tensor, trace_idx: torch.Tensor,
-                          inv_idx: torch.Tensor, W: torch.Tensor):
-    """B6 df wrapper -> (df, dss): the plain version on the CPU; on the card
-    the forward's product on (dout, inv_idx, W transposed to [K, d, c]) with
-    the prenorm epilogue (on tensor cores where ``mma_route`` holds), dss
-    from per-block partials summed in a fixed order (deterministic)."""
+                          inv_idx: torch.Tensor, W: torch.Tensor,
+                          slope: float = build.LEAKY_SLOPE):
+    """B6 df wrapper -> (df, dss) (the forward's act the leaky ReLU of
+    ``slope``): the plain version on the CPU; on the card the forward's
+    product on (dout, inv_idx, W transposed to [K, d, c]) with the prenorm
+    epilogue (on tensor cores where ``mma_route`` holds), dss from
+    per-block partials summed in a fixed order (deterministic)."""
     if f.device.type == 'cpu':
-        return intra_conv_prenorm_df_plain(dout, f, ss, trace_idx, W)
+        return intra_conv_prenorm_df_plain(dout, f, ss, trace_idx, W, slope)
     kernel = 'intra_conv_prenorm_df'
     dev = f.device
     b, p, na, c = f.shape
@@ -449,7 +462,7 @@ def intra_conv_prenorm_df(dout: torch.Tensor, f: torch.Tensor,
     dshift = torch.empty((sb, na * c), dtype=torch.float32, device=dev)
     ptrs = (dout.data_ptr(), inv_idx.data_ptr(), Wt.data_ptr(), f.data_ptr(),
             ss.data_ptr(), df.data_ptr(), ws.data_ptr(), dscale.data_ptr(),
-            dshift.data_ptr(), b, p, na, K, d, c, sb)
+            dshift.data_ptr(), b, p, na, K, d, c, sb, slope)
     launches[kernel] += 1
     if mma:
         routes['mma'] += 1
@@ -485,12 +498,14 @@ class IntraConvFn(torch.autograd.Function):
 class IntraConvPrenormFn(torch.autograd.Function):
     """The prenorm intra conv with its hand-written backward (the
     ``intra_conv_prenorm`` custom VJP, ``_bwd_kernel_prenorm``): gradients to
-    f, the fold ss and W."""
+    f, the fold ss and W; ``slope`` the activation's (``build.ACT_SLOPES``),
+    no gradient, handed to each wrapper as its last argument."""
 
     @staticmethod
-    def forward(ctx, f, ss, trace_idx, inv_idx, W):
+    def forward(ctx, f, ss, trace_idx, inv_idx, W, slope=build.LEAKY_SLOPE):
         ctx.save_for_backward(f, ss, trace_idx, inv_idx, W)
-        return intra_conv_prenorm(f, ss, trace_idx, W)
+        ctx.slope = slope
+        return intra_conv_prenorm(f, ss, trace_idx, W, slope)
 
     @staticmethod
     def backward(ctx, dout):
@@ -499,7 +514,7 @@ class IntraConvPrenormFn(torch.autograd.Function):
         df = dss = dW = None
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
             df, dss = intra_conv_prenorm_df(dout, f, ss, trace_idx, inv_idx,
-                                            W)
+                                            W, ctx.slope)
         if ctx.needs_input_grad[4]:
-            dW = intra_conv_prenorm_dw(f, ss, trace_idx, dout)
-        return df, dss, None, None, dW
+            dW = intra_conv_prenorm_dw(f, ss, trace_idx, dout, ctx.slope)
+        return df, dss, None, None, dW, None

@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import icosahedron, kernels, sampling
+from .kernels import build as _build
 from .kernels import grouped_conv as _gc
 from .kernels import inter_conv as _ic
 from .kernels import intra_conv as _intra
@@ -136,9 +137,176 @@ def inter_so3conv_fused(xyz: torch.Tensor, feats: torch.Tensor, stride: int,
     return inter_idx, new_xyz, out, sample_idx
 
 
+class InterGrouping(NamedTuple):
+    """One inter conv's grouping, the port's form of the JAX package's
+    (inter_idx, inter_w) pair: the ball indices [b, p2, nn] int32 and the
+    localized neighbor coordinates gx [b, p2, nn, 3], with the rotated
+    kernel points rk [na, K, 3], k2 [K] and sigma of the layer that made
+    it, which together fix its anchor weights inter_w [b, p2, nn, na, K]:
+    the W-off kernels compute them from these, so a layer that reuses the
+    grouping runs with the weights it was made with."""
+    idx: torch.Tensor
+    gx: torch.Tensor
+    rk: torch.Tensor
+    k2: torch.Tensor
+    sigma: float
+
+
+class GroupingCache:
+    """The grouping that a block's consecutive stride-1 layers share on the
+    unfused path (JAX ``nn/blocks.py:249-279``): each unfused inter conv
+    reads ``grouping`` (None: make its own) and leaves its own there; a
+    fused one leaves None (it makes no inter_w), and the sequencer resets it
+    after any strided layer."""
+
+    def __init__(self):
+        self.grouping: Optional[InterGrouping] = None
+
+
+def unpack_feats(feats: Optional[torch.Tensor],
+                 na: int) -> Optional[torch.Tensor]:
+    """Packed [b, p, na*c] -> [b, p, na, c]; identity on 4D or None (the
+    port's activations are 4D in both dtypes)."""
+    if feats is not None and feats.dim() == 3 and na > 1:
+        b, p, L = feats.shape
+        return feats.reshape(b, p, na, L // na)
+    return feats
+
+
+def inter_conv_anchor_weights(grouped_xyz: torch.Tensor, anchors: torch.Tensor,
+                              kernels_: torch.Tensor,
+                              sigma: float) -> torch.Tensor:
+    """Kernel-point influence weights under each anchor rotation: gx
+    [b, p, n, 3], anchors [a, 3, 3], kernels [k, 3] -> w [b, p, n, a, k] =
+    relu(1 - ||gx - R_a kappa_k||^2 / sigma), by the expansion
+    |gx|^2 + |kappa|^2 - 2 gx . R_a kappa."""
+    rk, k2 = rotated_kernels(anchors, kernels_)
+    return _ic.anchor_weights(grouped_xyz, rk, k2, sigma)
+
+
+def inter_feat_grouping(grouped_feats: torch.Tensor,
+                        inter_w: torch.Tensor) -> torch.Tensor:
+    """Neighbor contraction: grouped_feats [b, p, n, a, c], inter_w
+    [b, p, n, a, k] -> [b, p, a, k, c]."""
+    return torch.einsum('bpnak,bpnac->bpakc', inter_w, grouped_feats)
+
+
+def inter_blurring(inter_idx: torch.Tensor, feats: torch.Tensor,
+                   alpha: float = 0.5) -> torch.Tensor:
+    """alpha * f + (1 - alpha) * the neighborhood mean (the shadow index
+    reads a zero row), in fp32, rounded to feats' type."""
+    f = _build.widen(feats)
+    grouped = sampling.gather_points(sampling.add_shadow_feature(f),
+                                     inter_idx)
+    return (alpha * f + (1 - alpha) * grouped.mean(dim=2)).to(feats.dtype)
+
+
+def inter_pooling(inter_idx: torch.Tensor, sample_idx: torch.Tensor,
+                  feats: torch.Tensor, alpha: float = 0.5) -> torch.Tensor:
+    """The strided blur: alpha * f at the samples + (1 - alpha) * their
+    neighborhood mean, in fp32, rounded to feats' type."""
+    f = _build.widen(feats)
+    grouped = sampling.gather_points(sampling.add_shadow_feature(f),
+                                     inter_idx)
+    return (alpha * sampling.gather_points(f, sample_idx)
+            + (1 - alpha) * grouped.mean(dim=2)).to(feats.dtype)
+
+
+def inter_so3conv_blurring(xyz: torch.Tensor, feats: torch.Tensor,
+                           n_neighbor: int, radius: float, stride: int,
+                           inter_idx: Optional[torch.Tensor] = None,
+                           lazy_sample: bool = True):
+    """The mean-neighborhood low-pass before a conv -> (feats, xyz): at
+    stride 1 the blur in place, else the strided blur onto the samples.
+    A given ``inter_idx`` (a cached grouping's) serves as the neighborhoods;
+    with it and stride > 1 there are no samples to pool onto, and the call
+    raises as the JAX function does."""
+    if inter_idx is None:
+        _, inter_idx, sample_idx, sample_xyz = sampling.inter_grouping_ball(
+            xyz, stride, radius, n_neighbor, lazy_sample)
+    elif stride != 1:
+        raise UnboundLocalError(
+            "cannot access local variable 'sample_idx': a strided blur "
+            "over a cached grouping has no samples (as in the JAX "
+            "package's inter_so3conv_blurring)")
+    if stride == 1:
+        return inter_blurring(inter_idx, feats), xyz
+    return inter_pooling(inter_idx, sample_idx, feats), sample_xyz
+
+
+def inter_conv_f(grouping: InterGrouping, feats: torch.Tensor,
+                 ones_input: bool = False) -> torch.Tensor:
+    """F [b, p2, na, K, c] of ``grouping`` over feats [b, q, na, c] in the
+    compute dtype: the W-off inter conv through ``InterFFn`` (its backward
+    the W-off dG), or its plain version under autograd inside
+    ``kernels.plain()``. The occupancy-ones input (c == 1) is the ones
+    kernel's anchor-weight sum, which needs no gather (no gradient: it
+    depends on the coordinates only)."""
+    g = grouping
+    if ones_input and feats.shape[-1] == 1:
+        ones = _ones.ones_conv_plain if kernels.plain_forced() else \
+            _ones.ones_conv
+        return ones(g.gx, g.rk, g.k2, g.sigma,
+                    at_use(feats).dtype)[..., None]
+    args = (g.gx, g.idx, at_use(feats).contiguous(), g.rk, g.k2, g.sigma)
+    if kernels.plain_forced():
+        return _ic.inter_conv_f_plain(*args)
+    return _ic.InterFFn.apply(*args)
+
+
+def inter_so3conv_grouping(xyz: torch.Tensor, feats: torch.Tensor,
+                           stride: int, n_neighbor: int,
+                           anchors: torch.Tensor, kernels_: torch.Tensor,
+                           radius: float, sigma: float,
+                           grouping: Optional[InterGrouping] = None,
+                           lazy_sample: bool = True,
+                           pooling: Optional[str] = None,
+                           ones_input: bool = False):
+    """The unfused inter conv up to its learned product (JAX
+    ``inter_so3conv_grouping``): the blur where ``pooling`` asks for one
+    (stride > 1 and c > 1; 'stride': onto the samples with int(n_neighbor
+    * stride ** 0.5) neighbors, the conv then at stride 1; 'no-stride': in
+    place with n_neighbor, the conv at its stride; any other mode raises),
+    the grouping (``grouping``, a cached one, unless a blur ran), and F.
+
+    Returns (grouping, new_xyz, F [b, p2, na, K, c], sample_idx); with a
+    cached grouping new_xyz is xyz and sample_idx None."""
+    if pooling is not None and stride > 1 and feats.shape[-1] > 1:
+        if pooling == 'stride':
+            pool_stride, stride_nn, stride = \
+                stride, int(n_neighbor * stride ** 0.5), 1
+        elif pooling == 'no-stride':
+            pool_stride, stride_nn = 1, n_neighbor
+        else:
+            raise NotImplementedError(f'pooling mode {pooling}')
+        feats, xyz = inter_so3conv_blurring(
+            xyz, feats, stride_nn, radius, pool_stride,
+            None if grouping is None else grouping.idx, lazy_sample)
+        grouping = None
+    if grouping is None:
+        gx, idx, sample_idx, new_xyz = sampling.inter_grouping_ball(
+            xyz, stride, radius, n_neighbor, lazy_sample)
+        rk, k2 = rotated_kernels(anchors, kernels_)
+        grouping = InterGrouping(idx, gx.contiguous(), rk, k2, float(sigma))
+    else:
+        sample_idx, new_xyz = None, xyz
+    return (grouping, new_xyz, inter_conv_f(grouping, feats, ones_input),
+            sample_idx)
+
+
+def conv_product(F: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """The learned BasicSO3Conv product of the unfused path: F
+    [b, p, na, K, c] x W [K, c, d] (fp32, cast at use) -> [b, p, na, d] in
+    F's type, one torch matmul summed in fp32."""
+    b, p, na, K, c = F.shape
+    W2 = W.to(F.dtype).reshape(K * c, -1)
+    return (F.reshape(-1, K * c) @ W2).reshape(b, p, na, -1)
+
+
 def intra_so3conv(feats: torch.Tensor, trace_idx: torch.Tensor,
                   inv_idx: torch.Tensor, W: torch.Tensor,
-                  prenorm: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  prenorm: Optional[torch.Tensor] = None,
+                  slope: float = _build.LEAKY_SLOPE) -> torch.Tensor:
     """Rotation-group conv over the 60x12 adjacency: feats [b, p, 60, c],
     trace_idx and its inverse inv_idx [60, 12] int32, W [12, c, d] fp32
     (cast at use) -> [b, p, 60, d] in the compute dtype. Through
@@ -146,16 +314,17 @@ def intra_so3conv(feats: torch.Tensor, trace_idx: torch.Tensor,
     ``kernels.plain()``.
 
     prenorm: the preceding inter conv's deferred norm, fp32 lanes
-    [1 or b, 2, 60*c] (scale, shift), applied with the leaky ReLU on load
-    (the PRENORM kernel, through ``IntraConvPrenormFn``; production
-    mode)."""
+    [1 or b, 2, 60*c] (scale, shift), applied on load with its activation,
+    the leaky ReLU of ``slope`` (the PRENORM kernel, through
+    ``IntraConvPrenormFn``; production mode)."""
     feats, W = at_use(feats).contiguous(), at_use(W).contiguous()
     if prenorm is not None:
         ss = prenorm.contiguous()
         if kernels.plain_forced():
-            return _intra.intra_conv_prenorm_plain(feats, ss, trace_idx, W)
+            return _intra.intra_conv_prenorm_plain(feats, ss, trace_idx, W,
+                                                   slope)
         return _intra.IntraConvPrenormFn.apply(feats, ss, trace_idx, inv_idx,
-                                               W)
+                                               W, slope)
     if kernels.plain_forced():
         return _intra.intra_conv_plain(feats, trace_idx, W)
     return _intra.IntraConvFn.apply(feats, trace_idx, inv_idx, W)
@@ -184,15 +353,50 @@ def grouped_conv1x1(x: torch.Tensor, W: torch.Tensor,
 
 
 def separable_tail(x: torch.Tensor, W: torch.Tensor, bias: torch.Tensor,
-                   ssk: torch.Tensor, y: torch.Tensor,
-                   ssm: torch.Tensor) -> torch.Tensor:
+                   ssk: torch.Tensor, y: torch.Tensor, ssm: torch.Tensor,
+                   slope: float = _build.LEAKY_SLOPE) -> torch.Tensor:
     """The fused eval tail of a separable block,
     act(y * ssm0 + ssm1) + act((x @ W + bias) * ssk0 + ssk1), rounded once
-    (the grouped-conv kernel's tail epilogue)."""
+    (the grouped-conv kernel's tail epilogue), act the leaky ReLU of
+    ``slope``."""
     fn = _gc.grouped_conv_tail_plain if kernels.plain_forced() else \
         _gc.grouped_conv_tail
     return fn(x.contiguous(), W.to(x.dtype).contiguous(), bias.float(),
-              ssk.contiguous(), y.contiguous(), ssm.contiguous())
+              ssk.contiguous(), y.contiguous(), ssm.contiguous(), slope)
+
+
+# elements of a chunk's [pairs, ks * a] weights in initial_anchor_query
+_QUERY_CHUNK = 2 ** 24
+
+
+def initial_anchor_query(frag: torch.Tensor, centers: torch.Tensor,
+                         kernels_: torch.Tensor, radius: float, sigma: float):
+    """Density-weighted anchor occupancy of a raw fragment against each
+    center's rotated kernel points (JAX ``ops/so3conv.py:780-803``, plain
+    torch as the JAX package computes it in XLA): frag [m, 3], centers
+    [b, nc, 3], kernels [ks, a, 3] -> (weights [b, nc, a, ks], counts
+    [b, nc, a, ks]). A weight sums relu(1 - |point - center - kappa|^2 /
+    sigma) over the fragment's points within ``radius`` of the center
+    (distance <= radius), a count is their number. Only the (center, point)
+    pairs within the radius are formed, in chunks of pairs, where the JAX
+    function forms all [b, nc, m, ks, a]; the weights are summed over a
+    center's points in another order."""
+    b, nc, _ = centers.shape
+    ks, na, _ = kernels_.shape
+    flat = centers.reshape(-1, 3)
+    in_ball = torch.linalg.norm(flat[:, None, :] - frag[None], dim=-1) \
+        <= radius                                           # [b * nc, m]
+    counts = in_ball.sum(dim=1).to(frag.dtype)
+    ci, mi = in_ball.nonzero(as_tuple=True)
+    kflat = kernels_.reshape(-1, 3)                         # [ks * na, 3]
+    weights = centers.new_zeros(b * nc, ks * na)
+    step = max(1, _QUERY_CHUNK // (ks * na))
+    for s in range(0, ci.shape[0], step):
+        rel = frag[mi[s:s + step]] - flat[ci[s:s + step]]    # [pairs, 3]
+        d2 = ((rel[:, None, :] - kflat) ** 2).sum(-1)
+        weights.index_add_(0, ci[s:s + step], torch.relu(1.0 - d2 / sigma))
+    weights = weights.reshape(b, nc, ks, na).transpose(2, 3)
+    return weights, counts.reshape(b, nc, 1, 1).expand(weights.shape)
 
 
 def pointnet_so3_coords(xyz: torch.Tensor, anchors: torch.Tensor):

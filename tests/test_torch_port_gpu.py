@@ -879,6 +879,41 @@ def test_intra_conv_prenorm_bwd_kernels_match_plain(cuda, dtype, b, p, c, d,
     assert _rel(dW, wdW) <= (1e-4 if fp32 else 1e-3)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, BF16])
+@pytest.mark.parametrize('b,p,c,d,sb', [(2, 16, 64, 64, 2),
+                                        (12, 128, 256, 256, 1)])
+def test_relu_slope_kernels_match_plain(cuda, dtype, b, p, c, d, sb):
+    """The ReLU (slope 0, a launch argument): the prenorm forward, B6 df,
+    dss and dW, and the fused tail against their plain versions at slope 0
+    (the bounds of the leaky tests above), with inputs that put exact
+    zeros of u on the mask; each differs from its leaky call."""
+    f, ss, ti, inv, W, dout = _prenorm_operands(cuda, dtype, b, p, c, d, sb)
+    f[:, 0] = 0
+    ss[:, 1, :c] = 0                               # u == 0 exactly
+    ik, gc = tkern.intra_conv, tkern.grouped_conv
+    fp32 = dtype == torch.float32
+    z = ik.intra_conv_prenorm(f, ss, ti, W, 0.0)
+    df, dss = ik.intra_conv_prenorm_df(dout, f, ss, ti, inv, W, 0.0)
+    dW = ik.intra_conv_prenorm_dw(f, ss, ti, dout, 0.0)
+    torch.cuda.synchronize()
+    assert _rel(z.float(), ik.intra_conv_prenorm_plain(
+        f, ss, ti, W, 0.0).float()) <= (1e-5 if fp32 else 4e-3)
+    wdf, wdss = ik.intra_conv_prenorm_df_plain(dout, f, ss, ti, W, 0.0)
+    assert _rel(df.float(), wdf.float()) <= (1e-5 if fp32 else 8e-3)
+    assert _rel(dss, wdss) <= (1e-4 if fp32 else 1e-3)
+    assert _rel(dW, ik.intra_conv_prenorm_dw_plain(f, ss, ti, dout, 0.0)) \
+        <= (1e-4 if fp32 else 1e-3)
+    assert _rel(z.float(), ik.intra_conv_prenorm(f, ss, ti, W).float()) > 1e-3
+    rng = np.random.RandomState(c)
+    x = _rand(rng, (b, p, 60, c), cuda, dtype)
+    Wg = _rand(rng, (c, d), cuda, dtype, 0.1)
+    bias = _rand(rng, (d,), cuda)
+    tail = gc.grouped_conv_tail(x, Wg, bias, ss, dout, ss, 0.0)
+    torch.cuda.synchronize()
+    assert _rel(tail.float(), gc.grouped_conv_tail_plain(
+        x, Wg, bias, ss, dout, ss, 0.0).float()) <= (1e-5 if fp32 else 4e-3)
+
+
 # (p, c = d) of the intra layers of both models: cls_so3net_pn's (blocks of
 # 64, 128, 256 and 256 channels at 512, 256, 128 and 64 points), then
 # inv_so3net_pn's (32, 64, 128, 128)
@@ -1021,8 +1056,8 @@ def _intra_dw_f32_case(cuda, b, p, c, d, seed):
     sgemm = torch.empty_like(got)
     err = ik.build.library().epn_intra_conv_bwd_w(
         f.data_ptr(), ti.data_ptr(), 0, dout.data_ptr(), ws.data_ptr(),
-        sgemm.data_ptr(), b, p, 60, 12, c, d, 0, splits, 0,
-        ik.build.stream(f))
+        sgemm.data_ptr(), b, p, 60, 12, c, d, 0, ik.build.LEAKY_SLOPE, splits,
+        0, ik.build.stream(f))
     assert err == 0
     want = ik.intra_conv_dw_plain(f.double(), ti, dout.double())
     torch.cuda.synchronize()
@@ -1097,7 +1132,8 @@ def _intra_fwd_f32_case(cuda, b, p, c, d, seed):
         sgemm = torch.empty_like(got)
         err = ik.build.library().epn_intra_conv(
             g.data_ptr(), idx.data_ptr(), Wk.data_ptr(), 0, sgemm.data_ptr(),
-            b, p, 60, 12, Wk.shape[1], Wk.shape[2], 0, 0, ik.build.stream(g))
+            b, p, 60, 12, Wk.shape[1], Wk.shape[2], 0, ik.build.LEAKY_SLOPE,
+            0, ik.build.stream(g))
         assert err == 0
         torch.cuda.synchronize()
         cases.append((got, again, want, _rel(got.double(), want),
@@ -1622,9 +1658,11 @@ def test_bf16_dropout_step_and_eval_take_the_plain_intra_route(cuda):
 # ------------------------------------------------------- W-off inter conv
 
 # (b, p1, stride, nn, c, d): the inv model's composed-route layers B0L1,
-# B1L0, B2L0 and B3L0 at b=4 (the port's own layout F [b, p2, na, K, c])
+# B1L0, B2L0 and B3L0 at b=4 (the port's own layout F [b, p2, na, K, c]),
+# and the pooled cls model's 256-channel layers (the unfused grouping path)
 WOFF_SHAPES = [(4, 512, 1, 32, 32, 32), (4, 512, 2, 64, 32, 64),
-               (4, 256, 2, 64, 64, 128), (4, 128, 2, 64, 128, 128)]
+               (4, 256, 2, 64, 64, 128), (4, 128, 2, 64, 128, 128),
+               (4, 128, 1, 16, 256, 256), (4, 128, 2, 32, 256, 256)]
 
 
 @pytest.mark.parametrize('b,p1,stride,nn,c,d', WOFF_SHAPES)
@@ -1690,7 +1728,7 @@ def test_composed_route_matches_plain_autograd(cuda):
 
 
 def test_woff_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    """c above 128 or not a multiple of 8, nn above 64, K other than 24, an
+    """c above 256 or not a multiple of 8, nn above 64, K other than 24, an
     fp16 operand: a ValueError, never a quiet plain version (any anchor
     count is taken: ``test_woff_kernels_at_reduced_anchors``)."""
     ic = tkern.inter_conv
@@ -1705,7 +1743,7 @@ def test_woff_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         dF = torch.zeros(1, 4, na, K, c, device=cuda, dtype=dtype)
         return (gx, idx, f, rk[:na, :K].contiguous(), k2[:K].contiguous(),
                 dF)
-    for kw in ({'c': 136}, {'c': 36}, {'nn': 65}, {'K': 18},
+    for kw in ({'c': 264}, {'c': 36}, {'nn': 65}, {'K': 18},
                {'dtype': torch.float16}):
         gx, idx, f, r, kk, dF = ops(**kw)
         with pytest.raises(ValueError):

@@ -452,9 +452,17 @@ def test_reg_train_step_matches_jax():
 
 # --------------------------------------------------------------- host data
 
-def test_make_modelnet_tree_writes_the_jax_asym_files(tmp_path):
+# the header time scipy's MatFile5Writer writes into every .mat file
+# ('Created on: ' + time.asctime()), pinned so the two trees compare whole
+# whichever seconds they are written in
+MAT_TIME = 'Thu Jan  1 00:00:00 1970'
+
+
+def test_make_modelnet_tree_writes_the_jax_asym_files(tmp_path, monkeypatch):
     """airplane_asym=True: the same files as the JAX generator, byte for
-    byte."""
+    byte (the .mat headers' creation time pinned: ``MAT_TIME``)."""
+    import time
+    monkeypatch.setattr(time, 'asctime', lambda *a: MAT_TIME)
     a, b = str(tmp_path / 't'), str(tmp_path / 'j')
     kw = dict(n_cats=2, n_train=2, n_test=1, n_points=64, seed=4,
               airplane_asym=True)
