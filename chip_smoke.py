@@ -340,6 +340,34 @@ Phases (any failure exits non-zero and prints no result line):
      PropagationBlock over a 16384-point fragment (the fps kernel's
      centers) and the separable block at one anchor, each kernel vs plain
      path, launches counted, timed.
+ 43. [dp-nccl-1] data parallelism in a NCCL world of one rank in this
+     process: the cls b=12 step in fp32 and bf16 and the inv step (b=16 a
+     leg, fp32) through the trainers' distributed path
+     (``parallel.dryrun``: the weights broadcast, the gradients all-reduced
+     in one flattened call) against the same step of a trainer with no
+     group (``dryrun.check_group_of_one``): bitwise the weights, loss,
+     running statistics, all-reduced gradients and parameters after Adam;
+     the gradients as close to the step alone's as a repeat of it
+     (``dryrun.REPEAT_ERR``: the fused dTable's atomics change their last
+     bits from run to run); each step's median time with
+     and without the group (CUDA events, in turns); the group destroyed;
+ 44. [dp-gloo-2] two ranks on this card over gloo (two processes started
+     by ``parallel.dryrun.launch``, both on cuda:0; NCCL refuses two ranks
+     on one card), full width: cls b=12 (6 a rank) in fp32 and bf16, inv
+     b=16 a leg (8 a rank) and reg b=8 pairs (4 a rank) in fp32, each
+     against this process's step on the whole global batch
+     (``dryrun.compare``: fp32 loss to rtol 1e-5 and every leaf at the
+     fixed cosine and max-error gates of its kind, ``dryrun.FP32_GATES``,
+     set between the card's readings of the reduction
+     order alone and of statistics taken over a rank's half
+     (``epn_pointcloud_tpu_torch.dp_variants``); the cls and inv steps on
+     each half taken apart must fail them; bf16 by the [bf16-train] rule;
+     BatchNorm running statistics), both ranks' results bitwise equal,
+     every kernel route of one process launched on each rank; a rank that
+     fails or outlives 300 s fails the phase.
+     Correctness only: two processes on one card say nothing of speed;
+ 45. [dp-nccl-2] phase 44 under NCCL, one card a rank, where the machine
+     has two cards; with one it prints that it did not run and why.
 
 Every phase prints its wall time (``[phase] phase wall S s``), and the
 script's total its last ``[done]`` line.
@@ -5736,6 +5764,216 @@ def phase_heads_propagation(device):
     return out
 
 
+# ------------------------------------------------------ data parallelism
+
+DP_DIR = os.path.join(ROOT, 'build', 'chip_smoke_dp')
+# the [dp-nccl-1] steps (bitwise against no group) and the [dp-gloo-2] /
+# [dp-nccl-2] steps (two ranks against one process), full width
+DP1_TAGS = ('cls_fp32', 'cls_bf16', 'inv_fp32')
+DP2_TAGS = ('cls_fp32', 'cls_bf16', 'inv_fp32', 'reg_fp32')
+# the fp32 steps whose halves taken apart the gates must fail (reg's
+# samples share no statistics: InstanceNorm)
+DP2_CONTROL_TAGS = ('cls_fp32', 'inv_fp32')
+DP2_TIMEOUT = 300        # seconds for the two ranks, start to exit
+DP_SIZE = 'full'         # parallel.dryrun's size ('small' rehearses on a CPU)
+
+
+_DP_F64 = {}
+
+
+def _dp_f64(kind, device):
+    """Each leaf's max |gradient| in one process's float64 step of ``kind``
+    on the plain path (``dryrun.f64_grads``: it marks the leaves whose
+    gradient is ~0), once a run."""
+    from epn_pointcloud_tpu_torch.parallel import dryrun
+    if kind not in _DP_F64:
+        _DP_F64[kind] = dryrun.f64_grads(kind, DP_SIZE, device,
+                                         os.path.join(DP_DIR, 'f64'))
+    return _DP_F64[kind]
+
+
+def _dp_launches(results):
+    """Each kernel's launches in each step ({kernel: {tag: n}}; the counts
+    set to 0 before each step)."""
+    by_kernel = {}
+    for tag, res in results.items():
+        for k, n in json.loads(str(res['launches']))['counts'].items():
+            by_kernel.setdefault(k, {})[tag] = n
+    return by_kernel
+
+
+def phase_dp_nccl_1(device, reps=5, backend='nccl'):
+    """[dp-nccl-1] A NCCL world of one rank in this process
+    (``init_method`` tcp://127.0.0.1), each step of DP1_TAGS through the
+    trainer's distributed path (the weights broadcast, the gradients
+    all-reduced; one rank keeps the local norms) against the same step of
+    a trainer with no group (``dryrun.check_group_of_one``): bitwise the
+    weights, loss, running statistics, the all-reduce's gradients and the
+    parameters after Adam; the gradients to the step alone's as close as
+    a repeat of it (``dryrun.REPEAT_ERR`` of each real leaf's max by
+    dtype, the degenerate leaves within ``DEGENERATE_ERR`` of the largest:
+    the fused dTable's atomics change their last bits from run to run).
+    Each step's median time (CUDA events, the two
+    trainers in turns) with and without the group; the group destroyed at
+    the end."""
+    import torch
+    from epn_pointcloud_tpu_torch.parallel import distributed, dryrun
+    out = os.path.join(DP_DIR, 'nccl1')
+    # one host: NCCL's bootstrap on the loopback (the machine may have no
+    # other interface)
+    os.environ.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    alone = {}
+    for tag in DP1_TAGS:
+        _dp_f64(dryrun.STEPS[tag][0], device)
+        tr = dryrun.build_trainer(tag, DP_SIZE, device, out)
+        init = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+        alone[tag] = (tr, init, dryrun.one_step(tr, tag, DP_SIZE))
+    distributed.init_distributed(
+        backend=backend, world_size=1, rank=0,
+        init_method=f'tcp://127.0.0.1:{dryrun.free_port()}')
+    rows, launched = {}, {}
+    try:
+        for tag in DP1_TAGS:
+            kind, dtype, _ = dryrun.STEPS[tag]
+            tr0, init, want = alone.pop(tag)
+            tr1 = dryrun.build_trainer(tag, DP_SIZE, device, out)
+            assert tr1.group is not None and tr0.group is None
+            got, gaps = dryrun.check_group_of_one(tr1, tag, DP_SIZE, init,
+                                                  want, _dp_f64(kind, device))
+            launched[tag] = got
+            coll = json.loads(str(got['launches']))['collectives']
+            assert coll.get('grads') == 1, coll
+            data = dryrun.local_data(kind, dryrun.global_batch(kind,
+                                                               DP_SIZE))
+            with compute_dtype(dtype):
+                ms0, ms1 = time_abba(
+                    lambda: tr0._optimize(data), lambda: tr1._optimize(data),
+                    timer=lambda fn: time_ms(fn, reps=reps, warmup=1))
+            grads = dryrun.leaves(want, ('grad/',))
+            rows[tag] = {'ms_no_group': ms0, 'ms_nccl_group': ms1,
+                         'overhead_ms': ms1 - ms0, 'leaves': len(grads),
+                         'grad_bytes': int(sum(v.size * 4
+                                               for v in grads.values())),
+                         'grads_from_step_alone': gaps, 'collectives': coll}
+            log(f'[dp-nccl-1] {tag}: weights, loss, running statistics, '
+                f'the all-reduced gradients and the parameters after Adam '
+                f'bitwise as with no group; the gradients from the step '
+                f'alone as a repeat of it ({gaps["max_err"]:.2e} of a real '
+                f'leaf max, {gaps["degenerate_leaves"]} degenerate within '
+                f'{gaps["degenerate_err"]:.2e} of the largest); step '
+                f'{ms0:.2f} ms alone, {ms1:.2f} ms with the NCCL group of '
+                f'one ({ms1 - ms0:+.2f} ms; median of {reps} a turn, two '
+                f'turns each); collectives {coll}')
+            del tr0, tr1
+            torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
+    return {'steps': rows, 'launches': _dp_launches(launched)}
+
+
+def phase_dp_two(device, backend):
+    """[dp-gloo-2] / [dp-nccl-2] Two ranks (``parallel.dryrun.launch``:
+    two processes with the rendezvous environment; gloo: both on cuda:0,
+    NCCL: one card a rank), each step of DP2_TAGS at full width on a rank's
+    half of the global batch, against this process's step on the whole
+    batch (``dryrun.compare``: the fp32 gates fixed from the card's
+    readings, ``dp_variants``); the cls and inv fp32 steps on each half
+    taken apart (statistics and negatives over a rank's half) must fail
+    those gates; both ranks' gradients, parameters and statistics bitwise
+    equal; every kernel and route of the one-process step launched on each
+    rank. Correctness only: two ranks sharing one card say nothing of
+    speed."""
+    import threading
+    import numpy as np
+    import torch
+    from epn_pointcloud_tpu_torch.parallel import dryrun
+    tag0 = f'[dp-{backend}-2]'
+    out = os.path.join(DP_DIR, backend)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+    argv = ['--out', out, '--size', DP_SIZE, '--backend', backend,
+            '--steps', ','.join(DP2_TAGS)] + (
+        ['--device', 'cpu' if device.type == 'cpu' else 'cuda:0']
+        if backend == 'gloo' else [])
+    failed = []
+
+    def ranks():
+        try:
+            dryrun.launch(2, argv, DP2_TIMEOUT, os.path.join(out, 'logs'))
+        except Exception as e:     # re-raised below, after the join
+            failed.append(e)
+    t0 = time.time()
+    th = threading.Thread(target=ranks)
+    th.start()
+    local = os.path.join(out, 'one')
+    want = {tag: dryrun.run_step(tag, DP_SIZE, device, local)
+            for tag in DP2_TAGS}
+    noise = dryrun.run_step(
+        'cls_bf16', DP_SIZE, device, local,
+        batch=dryrun.scale_clouds(dryrun.global_batch('cls', DP_SIZE)))
+    # the fault the fp32 gates must catch: each half's statistics and
+    # negatives taken apart (one process on each half, the means)
+    control = {}
+    for tag in DP2_CONTROL_TAGS:
+        kind = dryrun.STEPS[tag][0]
+        control[tag] = dryrun.leaf_gaps(dryrun.mean_of([
+            dryrun.run_step(tag, DP_SIZE, device, local, batch=h)
+            for h in dryrun.halves(kind, dryrun.global_batch(kind, DP_SIZE))
+        ]), want[tag], _dp_f64(kind, device))
+        del control[tag]['cos'], control[tag]['err']
+        assert not dryrun.fp32_gates_hold(kind, control[tag]), \
+            f'{tag0} {tag}: the gates pass each half taken apart {control[tag]}'
+    th.join()
+    if failed:
+        raise failed[0]
+    ranks_wall = time.time() - t0
+    rows, launched, bad = {}, {}, []
+    for tag in DP2_TAGS:
+        got = [dict(np.load(os.path.join(out, f'{tag}_rank{r}.npz')))
+               for r in (0, 1)]
+        for k in dryrun.leaves(got[0], ('grad/', 'param/', 'buffer/')):
+            assert np.array_equal(got[0][k], got[1][k]), \
+                f'{tag0} {tag}: the ranks differ at {k}'
+        dryrun.check_routes(tag, got, want[tag])
+        launched[tag] = got[0]
+        f64 = _dp_f64(dryrun.STEPS[tag][0], device)
+        try:
+            rows[tag] = dryrun.compare(tag, got[0], want[tag], f64,
+                                       noise if tag == 'cls_bf16' else None)
+        except AssertionError as e:    # every step's verdict, then raise
+            bad.append(str(e))
+            log(f'{tag0} {tag}: FAILED {e}')
+            continue
+        rows[tag]['collectives'] = json.loads(str(got[0]['launches']))[
+            'collectives']
+        if tag in control:
+            rows[tag]['halves_apart'] = control[tag]
+        log(f'{tag0} {tag}: {rows[tag]}')
+    assert not bad, bad
+    log(f'{tag0} two ranks on {backend}: every step within its gates, both '
+        f'ranks equal, every kernel route of one process launched on each; '
+        f'the ranks ran {ranks_wall:.1f} s, this process\'s references '
+        f'beside them')
+    shutil.rmtree(out, ignore_errors=True)
+    return {'steps': rows, 'launches': _dp_launches(launched),
+            'ranks_wall_s': ranks_wall}
+
+
+def phase_dp_nccl_2(device):
+    """[dp-nccl-2] [dp-gloo-2] under NCCL, one card a rank, where the
+    machine has two cards; else it says why it did not run."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f'[dp-nccl-2] not run: {n} CUDA device on this machine (NCCL '
+            f'refuses two ranks on one card; [dp-gloo-2] ran them there)')
+        return {'run': False, 'device_count': n}
+    out = phase_dp_two(device, 'nccl')
+    out['run'] = True
+    return out
+
+
 PARENT_SOURCES = {'fps.cu': {'fps': 'epn_fps'},
                   'ball_query.cu': {'ball_query': 'epn_ball_query'},
                   'ones_conv.cu': {'ones_conv': 'epn_ones_conv'},
@@ -5897,7 +6135,14 @@ def main(argv=None):
         torch.cuda.empty_cache()
         heads_prop = timed('[heads-propagation]', phase_heads_propagation,
                            device)
-        for d in (REG_DIR, INV_DIR, EVAL_DIR):
+        torch.cuda.empty_cache()
+        # data parallelism: a NCCL group of one in this process, then two
+        # ranks on this card over gloo (and over NCCL on two cards)
+        dp1 = timed('[dp-nccl-1]', phase_dp_nccl_1, device)
+        torch.cuda.empty_cache()
+        dp2 = timed('[dp-gloo-2]', phase_dp_two, device, 'gloo')
+        dp2_nccl = timed('[dp-nccl-2]', phase_dp_nccl_2, device)
+        for d in (REG_DIR, INV_DIR, EVAL_DIR, DP_DIR):
             shutil.rmtree(d, ignore_errors=True)
     except Exception:
         traceback.print_exc()
@@ -6040,6 +6285,11 @@ def main(argv=None):
             'relu_bf16_step_launches': relu['bf16_step']['launches'][k.name],
             'heads_launches': heads_prop['ClsOutBlockR']['launches'].get(
                 k.name, 0)})
+        # data parallelism, by step: the NCCL group of one (cls fp32 and
+        # bf16, inv fp32) and rank 0 of the two gloo ranks (cls fp32 and
+        # bf16, inv and reg fp32, each on half its global batch)
+        rec.update({'dp_nccl1_launches': dp1['launches'].get(k.name, {}),
+                    'dp_gloo2_launches': dp2['launches'].get(k.name, {})})
         rec.update({'inv_bf16_train_entry_launches': inv_bf16_counts[k.name],
                     'inv_train_entry_launches': inv_counts[k.name],
                     'bf16_train_entry_launches': bf16_train_counts[k.name],
@@ -6085,6 +6335,7 @@ def main(argv=None):
                    'dropout': dropout, 'option_entries': options,
                    'pooling': pooling, 'relu': relu,
                    'heads_propagation': heads_prop,
+                   'dp_nccl1': dp1, 'dp_gloo2': dp2, 'dp_nccl2': dp2_nccl,
                    'phase_wall_s': PHASE_WALL,
                    'kernels': summary, 'seconds': time.time() - t_start},
                   f, indent=1)

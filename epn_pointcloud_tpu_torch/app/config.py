@@ -1,8 +1,10 @@
 """Hierarchical config surface (copy of ``epn_pointcloud_tpu/app/config.py``:
-the reference's groups, flags and defaults). The TPU-only --mesh-anchor
-is left out; --steps-per-dispatch is parsed so that a value above 1 is
-refused rather than ignored; --compute-dtype (fp32 or bf16) sets the
-precision of training and serving alike."""
+the reference's groups, flags and defaults). --steps-per-dispatch is
+parsed so that a value above 1 is refused rather than ignored, and so is
+--mesh-anchor (anchor-axis tensor parallelism, not ported yet; data
+parallelism needs no flag: torchrun's process count is the data axis);
+--compute-dtype (fp32 or bf16) sets the precision of training and serving
+alike."""
 
 from __future__ import annotations
 
@@ -60,6 +62,10 @@ def build_parser() -> HierarchyArgumentParser:
     exp.add_argument('--model-dir', type=str, default='trained_models/models')
     exp.add_argument('-s', '--seed', type=int, default=2913)
     exp.add_argument('--run-mode', type=str, default='train')
+    # the run's device (not in the reference options surface): this rank's
+    # CUDA device unless named ('cpu' runs the kernels' plain versions; under
+    # torchrun the ranks then meet over gloo)
+    exp.add_argument('--device', type=str, default=None)
 
     net = parser.add_parser('model')
     net.add_argument('-m', '--model', type=str, default='inv_so3net_pn')
@@ -88,6 +94,9 @@ def build_parser() -> HierarchyArgumentParser:
     train.add_argument('--eval-freq', type=int, default=5000)
     train.add_argument('--debug-mode', type=str, default=None)
     train.add_argument('--steps-per-dispatch', type=int, default=1)
+    # ranks along the anchor axis (anchor-axis tensor parallelism; refused
+    # above 1 by parallel.make_mesh until it is ported)
+    train.add_argument('--mesh-anchor', type=int, default=1)
     # compute precision of the conv path (not in the reference options
     # surface): fp32 is the parity mode, bf16 the production mode
     train.add_argument('--compute-dtype', type=str, default='fp32',

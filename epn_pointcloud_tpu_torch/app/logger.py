@@ -1,7 +1,8 @@
 """Logger, Summary and Timer (counterpart of
 ``epn_pointcloud_tpu/app/logger.py``): python logging to stdout and an
 optional file in the '#ts# [Scope] msg' format, EMA scalar channels, and
-named wall-clock checkpoints."""
+named wall-clock checkpoints. A quiet Logger (the ranks other than 0 of a
+data-parallel run) writes nothing."""
 
 from __future__ import annotations
 
@@ -15,11 +16,16 @@ import torch
 class Logger:
     _counter = 0
 
-    def __init__(self, log_file=None, log_level=logging.DEBUG):
+    def __init__(self, log_file=None, log_level=logging.DEBUG,
+                 quiet: bool = False):
         Logger._counter += 1
         self.logger = logging.getLogger(f'epn_torch_{Logger._counter}')
         self.logger.setLevel(log_level)
         self.logger.handlers.clear()
+        self.logger.propagate = False
+        if quiet:
+            self.logger.addHandler(logging.NullHandler())
+            return
         fmt = logging.Formatter('#%(asctime)s# %(message)s',
                                 '%y-%m-%d %H:%M:%S')
         console = logging.StreamHandler(sys.stdout)
@@ -29,7 +35,6 @@ class Logger:
             fh = logging.FileHandler(log_file)
             fh.setFormatter(fmt)
             self.logger.addHandler(fh)
-        self.logger.propagate = False
 
     def log(self, scope, msg):
         self.logger.info(f'[{scope}] {msg}')

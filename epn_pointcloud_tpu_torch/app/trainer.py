@@ -7,14 +7,26 @@ files (``torch.save``, ``<ckpt>/<experiment>_net_<step>.pth``); ``-r PATH``
 loads one, and without it the weights come from a seeded init.
 ``save_full_state`` adds the optimizer state and the iteration for an exact
 resume. The run goes on the CUDA device unless the caller names another
-(``device='cpu'``, as the CPU tests do); without a CUDA device and with none
-named it refuses to start. ``--compute-dtype`` sets the conv path's
-precision policy (``ops.so3conv.set_compute_dtype``) for the process, in
-every mode: a bf16-served model is trained in bf16 (parameters and Adam
-stay fp32; weights are cast to bf16 at use). Dropout (``--dropout-rate``)
-draws its masks from a ``torch.Generator`` on the run's device, seeded from
-``--seed``; as the JAX trainer's rng, it is not saved with a checkpoint or
-by ``save_full_state``, so a resumed run draws from the seed again.
+(``device='cpu'``, as the CPU tests do, or ``--device cpu``); without a
+CUDA device and with none named it refuses to start. ``--compute-dtype``
+sets the conv path's precision policy (``ops.so3conv.set_compute_dtype``)
+for the process, in every mode: a bf16-served model is trained in bf16
+(parameters and Adam stay fp32; weights are cast to bf16 at use). Dropout
+(``--dropout-rate``) draws its masks from a ``torch.Generator`` on the
+run's device, seeded from ``--seed``; as the JAX trainer's rng, it is not
+saved with a checkpoint or by ``save_full_state``, so a resumed run draws
+from the seed again.
+
+Data parallelism (``parallel``): under torchrun's environment
+``init_distributed`` joins the process group first (NCCL on CUDA devices,
+gloo on the CPU), each rank runs on ``cuda:LOCAL_RANK`` (or the device
+named), every rank seeds alike and the weights are broadcast from rank 0
+after the model is built. Each rank trains on its slice of the global
+batch; the gradients are all-reduced before the Adam step, and the norms,
+dropout and triplet loss read the installed data group. Rank 0 alone
+writes the run directory (opt.txt, log.txt, params.json, checkpoints);
+the others log nothing. ``-r`` loads on every rank. The logged step
+scalars are averaged over the ranks (the global batch's).
 """
 
 from __future__ import annotations
@@ -27,22 +39,27 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import train as train_lib
 from ..nn.layers import set_dropout_generator
+from ..parallel import collectives, distributed, mesh
 from ..ops import so3conv
 from . import config as config_lib
 from .logger import Logger, Summary, Timer
 
 
 def pick_device(device=None) -> torch.device:
-    """The device a run uses: the one named, else CUDA, which must exist."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError('no CUDA device: the port runs on the card; pass '
-                           "device='cpu' to run on the CPU on purpose")
-    return torch.device('cuda')
+    """The device a run uses: the one named, else this rank's CUDA device
+    (``cuda:LOCAL_RANK``; a bare 'cuda' too), which must exist."""
+    dev = distributed.device_for(device)
+    if dev.type == 'cuda':
+        if not torch.cuda.is_available():
+            raise RuntimeError('no CUDA device: the port runs on the card; '
+                               "pass device='cpu' to run on the CPU on "
+                               'purpose')
+        torch.cuda.set_device(dev)
+    return dev
 
 
 def set_fp32_parity() -> None:
@@ -52,12 +69,33 @@ def set_fp32_parity() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def global_batch_means(accs, means, n, group):
+    """Each batch's accuracy and mean over the data group's global batch,
+    from every rank's [batches] accuracies and means on its n samples a
+    batch: the correct counts (exact in fp32), the sums and the totals
+    all-reduced in one call, then divided, as one process divides."""
+    v = torch.stack([torch.round(accs.float() * n), means.float() * n,
+                     torch.full_like(means, n, dtype=torch.float32)])
+    collectives.all_reduce_(v, group, 'eval')
+    return v[0] / v[2], v[1] / v[2]
+
+
 class Trainer:
     def __init__(self, opt, device: Optional[torch.device] = None):
         opt_dict = config_lib.dump_args(opt)
         self.opt = opt
         dtype = getattr(opt, 'compute_dtype', 'fp32')
+        if device is None:
+            device = getattr(opt, 'device', None)
+        # the process group first, as the JAX trainer's init_distributed
+        distributed.init_distributed(
+            backend=distributed.backend_for(
+                'cuda' if device is None else device))
         self.device = pick_device(device)
+        self.group = mesh.make_mesh(
+            n_anchor=getattr(opt, 'mesh_anchor', 1))
+        mesh.set_data_group(self.group)
+        self.main = distributed.is_main()
         set_fp32_parity()
         so3conv.set_compute_dtype(dtype)
 
@@ -69,23 +107,31 @@ class Trainer:
                          else f'{opt.experiment_id}_{opt.mode}')
         model_id = f'model_{time.strftime("%Y%m%d_%H%M%S")}'
         self.root_dir = os.path.join(opt.model_dir, experiment_id, model_id)
-        os.makedirs(self.root_dir, exist_ok=True)
-        with open(os.path.join(self.root_dir, 'opt.txt'), 'w') as fout:
-            json.dump(opt_dict, fout, indent=2, default=str)
-
-        self.logger = Logger(log_file=os.path.join(self.root_dir, 'log.txt'))
+        self.ckpt_dir = os.path.join(self.root_dir, 'ckpt')
+        if self.main:
+            os.makedirs(self.root_dir, exist_ok=True)
+            with open(os.path.join(self.root_dir, 'opt.txt'), 'w') as fout:
+                json.dump(opt_dict, fout, indent=2, default=str)
+            self.logger = Logger(
+                log_file=os.path.join(self.root_dir, 'log.txt'))
+        else:
+            self.logger = Logger(quiet=True)
         self.logger.log('Setup', 'Logger created! Hello World!')
         self.logger.log('Setup', f'Random seed has been set to {opt.seed}')
         self.logger.log('Setup', f'Experiment id: {experiment_id}')
         self.logger.log('Setup', f'Model id: {model_id}')
         self.logger.log('Setup', f'Device: {self._device_name()}')
-
-        self.ckpt_dir = os.path.join(self.root_dir, 'ckpt')
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        if self.group is not None:
+            self.logger.log('Setup', f'Data parallel over '
+                            f'{mesh.data_world()} ranks '
+                            f'({dist.get_backend()})')
+        if self.main:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
         self.logger.log('Setup', 'Checkpoint dir created!')
 
         self._setup_datasets()
         self._setup_model()
+        mesh.replicate(self.model, self.group)
         self.dropout_generator = torch.Generator(self.device).manual_seed(
             opt.seed)
         set_dropout_generator(self.model, self.dropout_generator)
@@ -97,6 +143,22 @@ class Trainer:
         self.timer = Timer()
         self.summary.register(['Time'])
         self.logger.log('Setup', 'Setup finished!')
+
+    def _log_step(self, loss: torch.Tensor, log: dict) -> None:
+        """The step's scalars to the Summary (unread, on the device) and
+        ``last_loss``: under data parallelism averaged over the ranks in
+        one all-reduce, the global batch's."""
+        world = mesh.data_world()
+        if world > 1:
+            keys = list(log)
+            v = torch.stack([loss.detach().reshape(()).double()] + [
+                torch.as_tensor(log[k], device=self.device).detach()
+                .reshape(()).double() for k in keys])
+            collectives.all_reduce_(v, self.group, 'log')
+            v /= world
+            loss, log = v[0], {k: v[i + 1] for i, k in enumerate(keys)}
+        self.summary.update_async(log)
+        self.last_loss = loss.detach()
 
     def _device_name(self) -> str:
         if self.device.type == 'cuda':
@@ -167,12 +229,16 @@ class Trainer:
         label = self.opt.experiment_id if label is None else label
         save_path = (os.path.join(self.ckpt_dir, f'{label}_net_{step}.pth')
                      if path is None else f'{path}.pth')
-        torch.save(self.model.state_dict(), save_path)
+        if self.main:
+            torch.save(self.model.state_dict(), save_path)
         self.logger.log('Training', f'Checkpoint saved to: {save_path}!')
         self.last_ckpt = save_path
 
     def save_full_state(self, path: str):
-        """Model, optimizer state and iteration, for an exact resume."""
+        """Model, optimizer state and iteration, for an exact resume (rank
+        0 writes it)."""
+        if not self.main:
+            return
         torch.save({'model': self.model.state_dict(),
                     'optimizer': self.optimizer.state_dict(),
                     'iter': self.iter_counter}, path)

@@ -21,6 +21,16 @@ writes recall.txt beside them), and the recall at each tau to
 relative to the working directory, as in the JAX package. The eval mode
 builds no training loader.
 
+Under data parallelism (``app.trainer``) every rank loads the same
+fragment pair (one a step, so the loader does not shard it) and keeps its
+``process_slice`` of the b * npt patches of each leg; the descriptors of
+both legs go through a differentiable all-gather, so the triplet loss
+mines its negatives over the global batch and every rank computes the same
+loss; the gather's backward sums the descriptor gradients over the ranks
+and ``all_reduce_grads`` divides their sum by the world size: the
+single-process gradient. The evaluation stays single-process and refuses
+a data group of more than one rank.
+
 Refused: the equivariance loss (``--equi-alpha > 0``): the JAX package's
 own path raises on its live model (``losses.triplet_equivariance_loss``
 hands the [b, p, a, c] InvOutBlockMVD attention to ``so3_interpolate``,
@@ -38,6 +48,8 @@ import torch
 
 from .. import losses, models
 from .. import train as train_lib
+from ..parallel import (collectives, is_main, mesh, process_slice,
+                        shard_batch)
 from .trainer import Trainer
 
 
@@ -69,7 +81,7 @@ class Trainer3DMatch(Trainer):
                                  kptname=opt.dataset,
                                  use_normals=opt.model.normals, npt=opt.npt)
         self.dataset = DataLoader(dataset, opt.batch_size, shuffle=True,
-                                  seed=opt.seed)
+                                  seed=opt.seed, process_shard=False)
         self.dataset_iter = iter(self.dataset)
 
     def _setup_eval_datasets(self, scene):
@@ -79,15 +91,18 @@ class Trainer3DMatch(Trainer):
     def _setup_model(self):
         self.model = models.build_model_from(
             self.opt, seed=self.opt.seed,
-            outfile_path=os.path.join(self.root_dir, 'params.json'))
+            outfile_path=(os.path.join(self.root_dir, 'params.json')
+                          if is_main() else None))
         self.model.to(self.device)
 
     def _prepare_input(self, data):
-        """[b, npt, n, c] legs -> [b * npt, n, c] tensors on the device."""
-        n = self.opt.model.input_num
-        return tuple(torch.from_numpy(
-            data[k].reshape(-1, n, data[k].shape[-1])).to(self.device)
-            for k in ('src', 'tgt'))
+        """[b, npt, n, c] legs -> [b * npt, n, c] tensors on the device:
+        this rank's ``process_slice`` of the patches."""
+        legs = [data[k].reshape((-1,) + data[k].shape[-2:])
+                for k in ('src', 'tgt')]
+        if mesh.data_world() > 1:
+            legs = [x[process_slice(x.shape[0])] for x in legs]
+        return shard_batch(tuple(legs), self.device)
 
     def step(self):
         try:
@@ -105,18 +120,21 @@ class Trainer3DMatch(Trainer):
         self.model.train()
         y_src, _ = self.model(src)
         y_tgt, _ = self.model(tgt)
+        if mesh.data_world() > 1:
+            # the global batch's descriptors: negatives mined over it all
+            y_src, y_tgt = (collectives.all_gather_batch(y, self.group)
+                            for y in (y_src, y_tgt))
         loss, aux = losses.triplet_batch_loss(
             y_src, y_tgt, self.opt.train_loss.loss_type,
             self.opt.train_loss.margin)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        mesh.all_reduce_grads(self.model, self.group)
         train_lib.set_lr(self.optimizer, self.lr_schedule(self.iter_counter))
         self.optimizer.step()
         fpos, cneg = aux['fpos'].detach(), aux['cneg'].detach()
-        self.summary.update_async({'Loss': fpos - cneg, 'Pos': fpos,
-                                   'Neg': cneg,
-                                   'Acc': 100.0 * aux['accuracy']})
-        self.last_loss = loss.detach()
+        self._log_step(loss, {'Loss': fpos - cneg, 'Pos': fpos, 'Neg': cneg,
+                              'Acc': 100.0 * aux['accuracy']})
 
     def test(self):
         pass
@@ -130,6 +148,10 @@ class Trainer3DMatch(Trainer):
         with its transfers, on the card also its device time by CUDA
         events, the matching), are logged and kept in ``eval_seconds``."""
         from ..eval import evaluation_3dmatch as eval3dmatch
+        if mesh.data_world() > 1:
+            raise RuntimeError(
+                'the 3DMatch evaluation runs in one process: start '
+                'run_3dmatch --run-mode eval without torchrun')
         self.eval_seconds = {'load_s': 0.0, 'forward_s': 0.0,
                              'device_s': 0.0, 'match_s': 0.0, 'patches': 0}
         all_results = {}

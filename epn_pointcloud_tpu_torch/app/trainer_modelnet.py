@@ -11,6 +11,12 @@ knownatt`` trains an attention model as a plain classifier (the cross
 entropy alone, Summary 'Loss' and 'Acc') and hands the model the rotation
 label, which its head ignores, as the JAX trainer does; the JAX trainer
 reads no other debug mode, and neither does this one.
+
+Under data parallelism (``app.trainer``) a step runs on the rank's slice
+of the global batch and all-reduces the gradients before Adam; ``eval``
+runs each rank's slice of every test batch and all-reduces each batch's
+correct and total counts and loss sums, so rank 0 logs the accuracy over
+every batch the ranks saw (a short final batch is dropped there).
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ import torch
 
 from .. import losses, models
 from .. import train as train_lib
-from .trainer import Trainer
+from ..parallel import is_main, mesh, shard_batch
+from .trainer import Trainer, global_batch_means
 
 # iterations of the 'schedule' attention loss's classification ramp (the
 # JAX trainer's compute_loss)
@@ -65,16 +72,15 @@ class TrainerModelNet(Trainer):
         self.model = models.build_model_from(
             self.opt, seed=self.opt.seed,
             outfile_path=(os.path.join(self.root_dir, 'params.json')
-                          if self.opt.mode == 'train' else None))
+                          if self.opt.mode == 'train' and is_main()
+                          else None))
         self.model.to(self.device)
 
     # ----------------------------------------------------------------- steps
 
     def _batch(self, data):
-        dev = self.device
-        return (torch.from_numpy(data['pc']).to(dev),
-                torch.from_numpy(data['label'].reshape(-1)).to(dev),
-                torch.from_numpy(data['R_label'].reshape(-1)).to(dev))
+        return shard_batch((data['pc'], data['label'].reshape(-1),
+                            data['R_label'].reshape(-1)), self.device)
 
     def _loss(self, pred, feat, label, rlabel, iter_counter=0):
         if not self.attention_model:
@@ -106,14 +112,14 @@ class TrainerModelNet(Trainer):
         loss, aux = self._loss(pred, feat, label, rlabel, self.iter_counter)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        mesh.all_reduce_grads(self.model, self.group)
         train_lib.set_lr(self.optimizer, self.lr_schedule(self.iter_counter))
         self.optimizer.step()
         log = {'Loss': aux['cls_loss'].detach(), 'Acc': 100.0 * aux['acc']}
         if self.attention_model:
             log.update(R_Loss=aux['r_loss'].detach(),
                        R_Acc=100.0 * aux['racc'])
-        self.summary.update_async(log)
-        self.last_loss = loss.detach()
+        self._log_step(loss, log)
 
     def test(self):
         self.eval()
@@ -136,8 +142,12 @@ class TrainerModelNet(Trainer):
         if not accs:
             self.logger.log('Testing', 'Test set is empty!')
             return float('nan')
-        accs = torch.stack(accs).float().cpu().numpy()
-        losses_np = torch.stack(cls_losses).float().cpu().numpy()
+        accs, cls_losses = torch.stack(accs), torch.stack(cls_losses)
+        if mesh.data_world() > 1:
+            accs, cls_losses = global_batch_means(
+                accs, cls_losses, pc.shape[0], self.group)
+        accs = accs.float().cpu().numpy()
+        losses_np = cls_losses.float().cpu().numpy()
         for acc, lv in zip(accs, losses_np):
             self.logger.log('Testing', 'Accuracy: %.1f, Loss: %.2f!' % (
                 100 * acc, lv))
@@ -147,3 +157,4 @@ class TrainerModelNet(Trainer):
         self.logger.log('Testing', 'Best accuracy so far is %.2f!!!!' % (
             np.max(self.test_accs)))
         return float(accs.mean())
+

@@ -12,6 +12,13 @@ returns the median angular error in degrees over the rotated test split
 (testR); resumed from a checkpoint, it writes the per-pair errors to
 ``data/alignment_errors/<experiment><step>_error.txt`` under the working
 directory. The rotation is regressed as a quaternion or an ortho6d.
+
+Under data parallelism (``app.trainer``) a step runs on the rank's slice
+of the global batch and all-reduces the gradients before Adam; ``eval``
+runs each rank's slice of every test batch, all-reduces each batch's
+anchor-classifier correct and total counts and gathers the angular errors,
+so rank 0 logs the accuracy and the median over every pair the ranks saw
+(and writes the error file).
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ import torch
 from .. import losses, models
 from .. import train as train_lib
 from ..nn.layers import convention_constant
-from .trainer import Trainer
+from ..parallel import collectives, is_main, mesh, shard_batch
+from .trainer import Trainer, global_batch_means
 
 
 class TrainerModelNetRotation(Trainer):
@@ -44,10 +52,11 @@ class TrainerModelNetRotation(Trainer):
 
     @property
     def anchors(self) -> torch.Tensor:
-        """The anchors of the anchor convention in force, on the device
-        (copied there once a convention)."""
+        """The anchors of the anchor convention in force, on the device in
+        the parameters' type (copied there once a convention)."""
         return convention_constant('anchors', self.opt.model.kanchor,
-                                   self.device)
+                                   self.device,
+                                   next(self.model.parameters()).dtype)
 
     def _setup_datasets(self):
         from ..data.modelnet40 import DataLoader, Dataloader_ModelNet40Alignment
@@ -72,16 +81,14 @@ class TrainerModelNetRotation(Trainer):
         self.model = models.build_model_from(
             self.opt, seed=self.opt.seed,
             outfile_path=(os.path.join(self.root_dir, 'params.json')
-                          if self.opt.mode == 'train' else None))
+                          if self.opt.mode == 'train' and is_main()
+                          else None))
         self.model.to(self.device)
 
     def _batch(self, data):
         nb = data['pc'].shape[0]
-        dev = self.device
-        return (torch.from_numpy(data['pc']).to(dev),
-                torch.from_numpy(data['R_label'].reshape(nb, -1)).to(dev),
-                torch.from_numpy(data['T']).to(dev),
-                torch.from_numpy(data['R']).to(dev))
+        return shard_batch((data['pc'], data['R_label'].reshape(nb, -1),
+                            data['T'], data['R']), self.device)
 
     def _loss(self, pc, rlabel, T, R):
         wts, y = self.model(pc)
@@ -106,14 +113,14 @@ class TrainerModelNetRotation(Trainer):
         loss, aux = self._loss(*self._batch(data))
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        mesh.all_reduce_grads(self.model, self.group)
         train_lib.set_lr(self.optimizer, self.lr_schedule(self.iter_counter))
         self.optimizer.step()
         l2 = aux['l2_loss'].detach()
-        self.summary.update_async({
+        self._log_step(loss, {
             'Loss': aux['cls_loss'].detach() + l2, 'Reg_Loss': l2,
             'Mean_Err': aux['angular_error'].mean(),
             'R_Acc': 100.0 * aux['r_acc']})
-        self.last_loss = loss.detach()
 
     def test(self):
         self.eval()
@@ -126,14 +133,22 @@ class TrainerModelNetRotation(Trainer):
         self.model.eval()
         dev_acc, all_error = [], []
         for data in self.dataset_test:
-            _, aux = self._loss(*self._batch(data))
+            batch = self._batch(data)
+            _, aux = self._loss(*batch)
             # device values; one transfer after the loop
             dev_acc.append(aux['r_acc'])
             all_error.append(aux['angular_error'].reshape(-1))
         if not dev_acc:
             self.logger.log('Testing', 'Test set is empty!')
             return float('nan')
-        all_acc = torch.stack(dev_acc).float().cpu().numpy()
+        dev_acc = torch.stack(dev_acc)
+        if mesh.data_world() > 1:
+            # r_acc is a mean over the [b, na] anchor labels
+            dev_acc, _ = global_batch_means(dev_acc, dev_acc,
+                                            batch[1].numel(), self.group)
+            all_error = [collectives.gather_batch(e, self.group)
+                         for e in all_error]
+        all_acc = dev_acc.float().cpu().numpy()
         all_error = [e.float().cpu().numpy() for e in all_error]
         for acc, err in zip(all_acc, all_error):
             self.logger.log('Testing', 'Accuracy: %.1f, error: %.2f!' % (
@@ -145,7 +160,7 @@ class TrainerModelNetRotation(Trainer):
         self.logger.log('Testing', 'Median angular error is %.2f degree!!!!'
                         % median_deg)
         self.test_accs.append(100 * all_acc.mean())
-        if self.exp_name is not None:
+        if self.exp_name is not None and self.main:
             save_dir = os.path.join('data', 'alignment_errors')
             os.makedirs(save_dir, exist_ok=True)
             np.savetxt(os.path.join(save_dir, f'{self.exp_name}_error.txt'),

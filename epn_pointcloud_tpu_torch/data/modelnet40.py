@@ -1,7 +1,7 @@
 """ModelNet40 loaders (counterpart of ``epn_pointcloud_tpu/data/modelnet40.py``
 ``Dataloader_ModelNet40``, ``Dataloader_ModelNet40Alignment`` and their
-``DataLoader`` in a single process: the train split and the evaluation
-splits).
+``DataLoader``, which shards each global batch over the processes of a
+data-parallel run: the train split and the evaluation splits).
 
 On-disk contract: <root>/<category>/<split>/*.mat with keys 'pc' [n, 3],
 'label', 'name' (and optionally a stored 'R'). Batches are numpy dicts.
@@ -17,6 +17,7 @@ import scipy.io as sio
 
 from ..ops import icosahedron
 from ..ops.rotation import label_relative_rotation_np, rotation_distance_np
+from ..parallel import distributed
 from . import pc as pctk
 
 
@@ -28,30 +29,45 @@ def _mode_seed(seed: int, mode: str) -> int:
 class DataLoader:
     """Synchronous batcher. With ``shuffle`` the order is drawn anew each
     epoch from a ``RandomState(seed)``; ``drop_last`` (default: shuffle)
-    drops a short final batch, as the reference's train step does."""
+    drops a short final batch, as the reference's train step does.
+
+    Under data parallelism (``process_shard`` and a process group of more
+    than one rank) every process draws the same seeded global order and
+    loads only its ``parallel.process_slice`` of each global batch; short
+    final batches are then dropped whatever ``drop_last`` says, since a
+    global batch must split evenly over the ranks (JAX
+    ``data/modelnet40.py:40-95``)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 seed: int = 2913, drop_last=None):
+                 seed: int = 2913, drop_last=None,
+                 process_shard: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = shuffle if drop_last is None else drop_last
+        self.process_shard = process_shard
         self.rng = np.random.RandomState(seed)
 
     def __len__(self):
         n = len(self.dataset)
-        if self.drop_last:
+        if self.drop_last or self._process_count() > 1:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
+
+    def _process_count(self) -> int:
+        return distributed.process_env()[0] if self.process_shard else 1
 
     def __iter__(self):
         order = np.arange(len(self.dataset))
         if self.shuffle:
             self.rng.shuffle(order)
+        pc = self._process_count()
         for s in range(0, len(order), self.batch_size):
             idx = order[s:s + self.batch_size]
-            if len(idx) < self.batch_size and self.drop_last:
+            if len(idx) < self.batch_size and (self.drop_last or pc > 1):
                 return
+            if pc > 1:
+                idx = idx[distributed.process_slice(len(idx))]
             items = [self.dataset[i] for i in idx]
             yield {k: _stack([it[k] for it in items]) for k in items[0]}
 

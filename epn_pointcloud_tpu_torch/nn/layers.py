@@ -32,6 +32,7 @@ from ..ops import icosahedron, kernel_points, sampling, so3conv
 from ..ops.kernels.build import LEAKY_SLOPE, widen
 from ..ops.kernels.moments import moments_plain
 from ..ops.so3conv import SphericalPointCloud
+from ..parallel import collectives, mesh
 
 KERNEL_CONDENSE_RATIO = kernel_points.KERNEL_CONDENSE_RATIO
 
@@ -129,7 +130,11 @@ class Dropout(nn.Module):
     by 1 / (1 - rate), in x's type; the identity in eval. The keep mask is
     drawn from ``generator`` (a ``torch.Generator`` on x's device, which the
     trainer owns and seeds from ``--seed``: ``set_dropout_generator``), else
-    from torch's default generator of that device."""
+    from torch's default generator of that device. Under data parallelism
+    (``parallel.mesh.data_world() > 1``) each rank draws the mask of the
+    global batch (every rank's generator is seeded alike) and keeps its
+    own rows of dim 0, so a run equals the single-process run on the
+    global batch."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -137,8 +142,14 @@ class Dropout(nn.Module):
         self.generator = None
 
     def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < 1.0 - self.rate
+        world = mesh.data_world()
+        if world == 1:
+            return torch.rand(x.shape, generator=self.generator,
+                              device=x.device) < 1.0 - self.rate
+        b, r = x.shape[0], mesh.data_rank()
+        u = torch.rand((world * b,) + tuple(x.shape[1:]),
+                       generator=self.generator, device=x.device)
+        return u[r * b:(r + 1) * b] < 1.0 - self.rate
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0:
@@ -257,7 +268,19 @@ class BatchNorm(nn.Module):
     statistics: one-pass fp32 E[x^2] - E[x]^2 (clamped at 0) from per-lane
     sums (the moments kernel; plain torch sums for the unpacked layer-0
     skip, ``kernel_stats=False``), differentiable, with the output computed
-    in fp32 and rounded once. fp32 keeps ``F.batch_norm``."""
+    in fp32 and rounded once. fp32 keeps ``F.batch_norm``.
+
+    Under data parallelism (a data group of more than one rank installed,
+    ``parallel.mesh.set_data_group``) train mode takes the global batch's
+    statistics, as the JAX package's BatchNorm reduces over the global
+    array: the packed per-lane sums, reduced over the local batch, go
+    through one differentiable all-reduce before the one-pass mean and
+    variance are formed; fp32 gathers each rank's mean and sum of squared
+    deviations (``torch.var_mean``, a Welford reduction, as
+    ``F.batch_norm``'s) through one differentiable all-gather and merges
+    them in rank order (``_merge_moments``). The running variance's
+    unbiased factor counts the global batch, so every rank's running
+    statistics stay equal."""
 
     def __init__(self, c: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -284,14 +307,40 @@ class BatchNorm(nn.Module):
         b, p, na, c = x.shape
         n = b * p * na
         s, sq = _lane_sums(x, kernel_stats)
+        world = mesh.data_world()
+        if world > 1:
+            s, sq = collectives.all_reduce_sum(
+                torch.stack([s.sum(0), sq.sum(0)]), mesh.data_group())
+            n *= world
         mean = s.reshape(-1, c).sum(0) / n
         var = torch.clamp(sq.reshape(-1, c).sum(0) / n - mean * mean,
                           min=0.0)
+        self._move_running(mean, var, n)
+        return mean, var
+
+    def _move_running(self, mean, var, n: int) -> None:
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1 - m).add_(m * mean)
             self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
-        return mean, var
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the data group's global batch in fp32: each
+        rank's Welford mean and sum of squared deviations, all-gathered
+        and merged (``_merge_moments``) into the global mean and biased
+        variance."""
+        c = x.shape[-1]
+        xf = widen(x).reshape(-1, c)
+        m = xf.shape[0]
+        var, mean = torch.var_mean(xf, dim=0, correction=0)
+        parts = collectives.all_gather_batch(
+            torch.stack([mean, var * m])[None], mesh.data_group())
+        mean, var = _merge_moments(parts, m)
+        n = m * mesh.data_world()
+        self._move_running(mean, var, n)
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight \
+            + self.bias
+        return y.reshape(x.shape).to(x.dtype)
 
     def forward(self, x: torch.Tensor,
                 kernel_stats: bool = True) -> torch.Tensor:
@@ -299,6 +348,8 @@ class BatchNorm(nn.Module):
             mean, var = self._batch_stats(x, kernel_stats)
             scale = torch.rsqrt(var + self.eps) * self.weight
             return ((x.float() - mean) * scale + self.bias).to(x.dtype)
+        if self.training and mesh.data_world() > 1:
+            return self._global_forward(x)
         if self.training:
             c = x.shape[-1]
             y = F.batch_norm(x.reshape(-1, c), self.running_mean,
@@ -326,6 +377,25 @@ class BatchNorm(nn.Module):
         scale = torch.rsqrt(var + self.eps) * self.weight
         shift = self.bias - mean * scale
         return torch.stack([scale, shift]).repeat(1, groups)[None]
+
+
+def _merge_moments(parts: torch.Tensor, m: int):
+    """The (mean, biased variance) [c] of the union of the ranks' equal
+    shares of m rows, from their [ranks, 2, c] (mean, sum of squared
+    deviations), merged in rank order by Chan's pairwise update: the mean
+    moves by the other share's difference from it, so a channel constant
+    over the global batch keeps its value exactly and a variance of 0, as
+    ``F.batch_norm``'s Welford reduction does in one process (a sum over
+    n rounds such a mean, and normalizing by sqrt(eps) amplifies the
+    rounding: block 0's skip BatchNorm sees the constant occupancy
+    field)."""
+    mean, m2, n = parts[0, 0], parts[0, 1], m
+    for r in range(1, parts.shape[0]):
+        delta = parts[r, 0] - mean
+        mean = mean + delta * (m / (n + m))
+        m2 = m2 + parts[r, 1] + delta * delta * (n * m / (n + m))
+        n += m
+    return mean, m2 / n
 
 
 def make_norm(norm, c: int) -> nn.Module:

@@ -28,8 +28,19 @@ mode (a bf16 checkpoint reloads through ``-r`` in the same mode);
 ``main(argv, device='cpu')`` runs it on the CPU through their plain
 versions. ``--equi-alpha > 0`` raises ``NotImplementedError``: the JAX
 package's equivariance loss fails on its own model.
+
+Training runs data-parallel under torchrun, one process a GPU (each rank
+on its slice of every leg's patches; the triplet loss on the global
+batch):
+
+  python -m torch.distributed.run --nproc-per-node N \
+      -m epn_pointcloud_tpu_torch.run_3dmatch experiment -d DATASET \
+      --run-mode train ...
+
+The evaluation runs in one process and refuses a WORLD_SIZE above 1.
 """
 
+import os
 import sys
 
 from epn_pointcloud_tpu_torch.app import config as config_lib
@@ -81,6 +92,10 @@ def main(argv=None, scenes=None, device=None):
         setattr(opt, k, v)
     scenes = scenes if scenes is not None else SCENE_TO_TEST
     if opt.mode == 'eval':
+        if int(os.environ.get('WORLD_SIZE', 1)) > 1:
+            raise SystemExit('run_3dmatch --run-mode eval runs in one '
+                             'process; start it without torchrun (WORLD_SIZE '
+                             f'is {os.environ["WORLD_SIZE"]})')
         assert opt.resume_path is not None, \
             'the evaluation needs a checkpoint (-r)'
         opt.experiment_id = opt.resume_path.split('/')[2]

@@ -16,6 +16,14 @@ CPU through the kernels' plain versions. ``--compute-dtype bf16`` trains and
 serves in the production precision (bf16 activations and weights at use,
 fp32 parameters, Adam, accumulation, statistics, attention and logits); a
 model served in bf16 is trained in bf16.
+
+Data-parallel training and evaluation run under torchrun, one process a
+GPU (NCCL; on the CPU, ``--device cpu`` or ``main(argv, device='cpu')``,
+gloo); each rank loads its slice of every global batch, and rank 0 writes
+the run directory:
+
+  python -m torch.distributed.run --nproc-per-node N \\
+      -m epn_pointcloud_tpu_torch.run_modelnet experiment -d DATASET ...
 """
 
 from epn_pointcloud_tpu_torch.app import config as config_lib

@@ -21,6 +21,15 @@ anchors) runs on the CUDA device, through the CUDA kernels, forward and
 backward, in fp32 or, with ``--compute-dtype bf16``, in the bf16
 production mode; ``main(argv, device='cpu')`` runs it on the CPU through
 their plain versions.
+
+Data-parallel training and evaluation run under torchrun, one process a
+GPU (NCCL; on the CPU, ``--device cpu`` or ``main(argv, device='cpu')``,
+gloo); each rank loads its slice of every global batch, and rank 0 writes
+the run directory:
+
+  python -m torch.distributed.run --nproc-per-node N \\
+      -m epn_pointcloud_tpu_torch.run_modelnet_rotation experiment \\
+      -d DATASET ...
 """
 
 from epn_pointcloud_tpu_torch.app import config as config_lib

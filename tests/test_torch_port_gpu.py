@@ -45,6 +45,8 @@ Run on a machine with the card:
 (tests/conftest.py imports jax, which that machine does not need to have).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -2153,3 +2155,52 @@ def test_inter_fwd_f32_kernel_sass_is_ffma_only(cuda):
     assert len(counts) == 4, counts          # BN = 256, 128, 64 and 32
     for c in counts.values():
         assert c['FFMA'] > 0 and c['HMMA'] == c['GMMA'] == 0, counts
+
+
+# ---------------------------------------------------- data parallelism
+
+def test_nccl_group_of_one_matches_the_step_alone(cuda, tmp_path):
+    """The full-width cls fp32 step (b=12) through the trainer's
+    distributed path in a NCCL world of one rank against the step of a
+    trainer with no group (``dryrun.check_group_of_one``): bitwise the
+    broadcast weights, the loss, the running statistics, the all-reduced
+    gradients and the parameters after Adam; the gradients as close to the
+    step alone's as a repeat of it (the fused dTable's atomics)."""
+    from epn_pointcloud_tpu_torch.parallel import distributed, dryrun
+    alone = dryrun.build_trainer('cls_fp32', 'full', cuda, str(tmp_path))
+    init = {n: p.detach().clone() for n, p in alone.model.named_parameters()}
+    want = dryrun.one_step(alone, 'cls_fp32', 'full')
+    distributed.init_distributed(
+        backend='nccl', world_size=1, rank=0,
+        init_method=f'tcp://127.0.0.1:{dryrun.free_port()}')
+    try:
+        trainer = dryrun.build_trainer('cls_fp32', 'full', cuda,
+                                       str(tmp_path))
+        got, _ = dryrun.check_group_of_one(
+            trainer, 'cls_fp32', 'full', init, want,
+            dryrun.f64_grads('cls', 'full', cuda, str(tmp_path)))
+    finally:
+        distributed.shutdown()
+    assert json.loads(str(got['launches']))['collectives']['grads'] == 1
+
+
+def test_two_gloo_ranks_on_one_card_match_one_process(cuda, tmp_path):
+    """Two gloo ranks on this card, each on 6 of the full-width cls fp32
+    step's 12 clouds (global BatchNorm statistics, the gradients
+    all-reduced), against one process's step on all 12: the gates of
+    chip_smoke's [dp-gloo-2] (``dryrun.compare``'s fixed fp32 gates); both
+    ranks equal; every kernel route of one process launched on each
+    rank."""
+    from epn_pointcloud_tpu_torch.parallel import dryrun
+    out = str(tmp_path)
+    dryrun.launch(2, ['--out', out, '--size', 'full', '--backend', 'gloo',
+                      '--device', 'cuda:0', '--steps', 'cls_fp32'],
+                  timeout=300, log_dir=str(tmp_path / 'logs'))
+    want = dryrun.run_step('cls_fp32', 'full', cuda, str(tmp_path / 'one'))
+    got = [dict(np.load(str(tmp_path / f'cls_fp32_rank{r}.npz')))
+           for r in (0, 1)]
+    for k in dryrun.leaves(got[0], ('grad/', 'param/', 'buffer/')):
+        np.testing.assert_array_equal(got[0][k], got[1][k], err_msg=k)
+    dryrun.check_routes('cls_fp32', got, want)
+    dryrun.compare('cls_fp32', got[0], want,
+                   dryrun.f64_grads('cls', 'full', cuda, str(tmp_path)))
